@@ -1,0 +1,266 @@
+"""Carry the JAX package's IS-Fusion variables into the port's state_dict.
+
+``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
+...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
+returns a ``state_dict`` in the reference mmdet3d layout, which the port's
+modules use. It inverts the JAX package's converter
+(``isfusion_tpu/runner/full_ckpt_convert.py:convert_isfusion_torch_to_flax``)
+layout by layout: Linear/Conv1d kernels transposed back, HWIO -> OIHW,
+spconv (kz, ky, kx, in, out) -> (out, kz, ky, kx, in), per-head q/k/v/out
+kernels -> ``in_proj_weight`` / ``out_proj``, BN scale/bias/mean/var ->
+weight/bias/running_mean/running_var.
+
+Two tensors are carried by what the JAX forward computes rather than by
+that converter's arithmetic, because the two differ there:
+
+- SECONDFPN deconvs: flax ``ConvTranspose`` applies its kernel spatially
+  flipped relative to torch's ``conv_transpose2d``, so the kernel is
+  flipped back;
+- ``fusion_encoder.conv_fusion``: the LiDAR block of its input channels is
+  reordered from the JAX BEV's z*C + c to the reference's c*D + z with the
+  true image width and depth D (the JAX converter assumes 256 image
+  channels and D = 2).
+
+The port keeps its own copy of this mapping (it imports nothing of the
+JAX package).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+# (module path regex over the JAX tree, reference key template, kind)
+_ATTN = "mha"
+_RULES = [
+    # ------------------------------------------------------ image branch
+    (r"img_backbone_m/patch_embed", "img_backbone.patch_embed.projection",
+     "conv2d"),
+    (r"img_backbone_m/patch_norm", "img_backbone.patch_embed.norm", "norm"),
+    (r"img_backbone_m/out_norm(\d+)", r"img_backbone.norm\1", "norm"),
+    (r"img_backbone_m/downsample(\d+)/norm",
+     r"img_backbone.stages.\1.downsample.norm", "norm"),
+    (r"img_backbone_m/downsample(\d+)/reduction",
+     r"img_backbone.stages.\1.downsample.reduction", "dense"),
+    (r"img_backbone_m/stage(\d+)_block(\d+)/(norm[12])",
+     r"img_backbone.stages.\1.blocks.\2.\3", "norm"),
+    (r"img_backbone_m/stage(\d+)_block(\d+)/ffn_fc1",
+     r"img_backbone.stages.\1.blocks.\2.ffn.layers.0.0", "dense"),
+    (r"img_backbone_m/stage(\d+)_block(\d+)/ffn_fc2",
+     r"img_backbone.stages.\1.blocks.\2.ffn.layers.1", "dense"),
+    (r"img_backbone_m/stage(\d+)_block(\d+)/attn/w_msa/(qkv|proj)",
+     r"img_backbone.stages.\1.blocks.\2.attn.w_msa.\3", "dense"),
+    (r"img_backbone_m/stage(\d+)_block(\d+)/attn/w_msa",
+     r"img_backbone.stages.\1.blocks.\2.attn.w_msa", "same"),
+    (r"img_neck_m/lateral_(\d+)/Conv_0", r"img_neck.lateral_convs.\1.conv",
+     "conv2d"),
+    (r"img_neck_m/lateral_(\d+)/bn", r"img_neck.lateral_convs.\1.bn", "norm"),
+    (r"img_neck_m/fpn_(\d+)/Conv_0", r"img_neck.fpn_convs.\1.conv", "conv2d"),
+    (r"img_neck_m/fpn_(\d+)/bn", r"img_neck.fpn_convs.\1.bn", "norm"),
+    # ------------------------------------------------------------- LiDAR
+    (r"pts_voxel_encoder_m/LinearNormAct_(\d+)/Dense_0",
+     r"pts_voxel_encoder.vfe_layers.\1.linear", "dense"),
+    (r"pts_voxel_encoder_m/LinearNormAct_(\d+)/bn",
+     r"pts_voxel_encoder.vfe_layers.\1.norm", "norm"),
+    (r"pts_middle_encoder_m/(conv_input|conv_out)",
+     r"pts_middle_encoder.\1.0", "sparse"),
+    (r"pts_middle_encoder_m/(conv_input|conv_out)/bn",
+     r"pts_middle_encoder.\1.1", "norm"),
+    (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)(?:_proj)?",
+     r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.0", "sparse"),
+    (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)(?:_proj)?/bn",
+     r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.1", "norm"),
+    (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)/_SparseConvModule_0",
+     r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.conv1", "sparse"),
+    (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)/_SparseConvModule_0/bn",
+     r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.bn1", "norm"),
+    (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)/_SparseConvModule_1",
+     r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.conv2", "sparse"),
+    (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)/_SparseConvModule_1/bn",
+     r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.bn2", "norm"),
+    # ------------------------------------------------------------ fusion
+    (r"fusion_encoder_m/(conv_fusion|conv_ins|conv_scene|conv_heatmap|"
+     r"heatmap_head_[12])/Conv_0", r"fusion_encoder.\1.conv", "conv2d"),
+    (r"fusion_encoder_m/(conv_fusion|conv_ins|conv_scene|conv_heatmap|"
+     r"heatmap_head_[12])/bn", r"fusion_encoder.\1.bn", "norm"),
+    (r"fusion_encoder_m/heatmap_head_3", "fusion_encoder.heatmap_head_3",
+     "conv2d"),
+    (r"fusion_encoder_m/grid2region_(\d+)/linear0",
+     r"fusion_encoder.grid2region_att.\1.linear0", "dense"),
+    (r"fusion_encoder_m/grid2region_(\d+)/block(\d+)_layer(\d+)/win_attn",
+     r"fusion_encoder.grid2region_att.\1.block_list.\2.encoder_list.\3"
+     r".win_attn.self_attn", _ATTN),
+    (r"fusion_encoder_m/grid2region_(\d+)/block(\d+)_layer(\d+)/"
+     r"(linear[12])",
+     r"fusion_encoder.grid2region_att.\1.block_list.\2.encoder_list.\3.\4",
+     "dense"),
+    (r"fusion_encoder_m/grid2region_(\d+)/block(\d+)_layer(\d+)/(norm[12])",
+     r"fusion_encoder.grid2region_att.\1.block_list.\2.encoder_list.\3.\4",
+     "norm"),
+    (r"fusion_encoder_m/instance_att/(key_pos_embed|query_pos_embed)/fc1",
+     r"fusion_encoder.instance_att.\1.position_embedding_head.0", "conv1d"),
+    (r"fusion_encoder_m/instance_att/(key_pos_embed|query_pos_embed)/bn",
+     r"fusion_encoder.instance_att.\1.position_embedding_head.1", "norm"),
+    (r"fusion_encoder_m/instance_att/(key_pos_embed|query_pos_embed)/fc2",
+     r"fusion_encoder.instance_att.\1.position_embedding_head.3", "conv1d"),
+    (r"fusion_encoder_m/instance_att/layer_(\d+)/cross_attn/(\w+)",
+     r"fusion_encoder.instance_att.layers.\1.cross_attn.\2", "dense"),
+    (r"fusion_encoder_m/instance_att/layer_(\d+)/self_attn",
+     r"fusion_encoder.instance_att.layers.\1.self_attn", _ATTN),
+    (r"fusion_encoder_m/instance_att/layer_(\d+)/(linear[12])",
+     r"fusion_encoder.instance_att.layers.\1.\2", "dense"),
+    (r"fusion_encoder_m/instance_att/layer_(\d+)/(norm[123])",
+     r"fusion_encoder.instance_att.layers.\1.\2", "norm"),
+    (r"fusion_encoder_m/instance_to_scene_att/multihead_attn",
+     "fusion_encoder.instance_to_scene_att.multihead_attn", _ATTN),
+    (r"fusion_encoder_m/instance_to_scene_att/norm",
+     "fusion_encoder.instance_to_scene_att.norm", "norm"),
+    # ---------------------------------------------------------- 2D BEV
+    (r"pts_backbone_m/ds_layer/Conv_0", "pts_backbone.ds_layer.0", "conv2d"),
+    (r"pts_backbone_m/ds_layer/bn", "pts_backbone.ds_layer.1", "norm"),
+    (r"pts_backbone_m/block(\d+)/ConvModule_(\d+)/Conv_0",
+     lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2])}", "conv2d"),
+    (r"pts_backbone_m/block(\d+)/ConvModule_(\d+)/bn",
+     lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2]) + 1}", "norm"),
+    (r"pts_neck_m/ConvModule_(\d+)/Conv_0", r"pts_neck.deblocks.\1.0",
+     "conv2d"),
+    (r"pts_neck_m/ConvModule_(\d+)/bn", r"pts_neck.deblocks.\1.1", "norm"),
+    (r"pts_neck_m/ConvTransposeModule_(\d+)/ConvTranspose_0",
+     lambda m: f"pts_neck.deblocks.{int(m[1]) + 1}.0", "deconv"),
+    (r"pts_neck_m/ConvTransposeModule_(\d+)/bn",
+     lambda m: f"pts_neck.deblocks.{int(m[1]) + 1}.1", "norm"),
+    # -------------------------------------------------------------- head
+    (r"pts_bbox_head_m/shared_conv", "pts_bbox_head.shared_conv", "conv2d"),
+    (r"pts_bbox_head_m/heatmap_conv/Conv_0",
+     "pts_bbox_head.heatmap_head.0.conv", "conv2d"),
+    (r"pts_bbox_head_m/heatmap_conv/bn", "pts_bbox_head.heatmap_head.0.bn",
+     "norm"),
+    (r"pts_bbox_head_m/heatmap_out", "pts_bbox_head.heatmap_head.1",
+     "conv2d"),
+    (r"pts_bbox_head_m/class_encoding", "pts_bbox_head.class_encoding",
+     "conv1d"),
+    (r"pts_bbox_head_m/decoder_(\d+)/self_attn",
+     r"pts_bbox_head.decoder.\1.self_attn", _ATTN),
+    (r"pts_bbox_head_m/decoder_(\d+)/cross_attn",
+     r"pts_bbox_head.decoder.\1.multihead_attn", _ATTN),
+    (r"pts_bbox_head_m/decoder_(\d+)/(self_posembed|cross_posembed)/fc1",
+     r"pts_bbox_head.decoder.\1.\2.position_embedding_head.0", "conv1d"),
+    (r"pts_bbox_head_m/decoder_(\d+)/(self_posembed|cross_posembed)/bn",
+     r"pts_bbox_head.decoder.\1.\2.position_embedding_head.1", "norm"),
+    (r"pts_bbox_head_m/decoder_(\d+)/(self_posembed|cross_posembed)/fc2",
+     r"pts_bbox_head.decoder.\1.\2.position_embedding_head.3", "conv1d"),
+    (r"pts_bbox_head_m/decoder_(\d+)/(linear[12])",
+     r"pts_bbox_head.decoder.\1.\2", "dense"),
+    (r"pts_bbox_head_m/decoder_(\d+)/(norm[123])",
+     r"pts_bbox_head.decoder.\1.\2", "norm"),
+    (r"pts_bbox_head_m/pred_(\d+)/([a-z]+)_0",
+     r"pts_bbox_head.prediction_heads.\1.\2.0.conv", "conv1d"),
+    (r"pts_bbox_head_m/pred_(\d+)/([a-z]+)_0_bn",
+     r"pts_bbox_head.prediction_heads.\1.\2.0.bn", "norm"),
+    (r"pts_bbox_head_m/pred_(\d+)/([a-z]+)_final",
+     r"pts_bbox_head.prediction_heads.\1.\2.1", "conv1d"),
+]
+_RULES = [(re.compile(p), t, k) for p, t, k in _RULES]
+
+_NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def _module_path(path: Tuple[str, ...]) -> str:
+    """JAX module path with flax's norm wrappers folded to ``bn``."""
+    s = "/".join(path)
+    s = re.sub(r"/Norm_0/BatchNorm_0$", "/bn", s)
+    return re.sub(r"/MaskedBatchNorm_0$", "/bn", s)
+
+
+def _resolve(mod: str):
+    for pat, tmpl, kind in _RULES:
+        m = pat.fullmatch(mod)
+        if m:
+            key = tmpl(m) if callable(tmpl) else m.expand(tmpl)
+            return key, kind
+    raise KeyError(f"no reference key for JAX module {mod!r}")
+
+
+def _rel_pos_index(ws: int) -> np.ndarray:
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws),
+                                  indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0) + (ws - 1)
+    return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
+
+
+def fusion_lidar_perm(n_img: int, c_lidar: int, depth: int) -> np.ndarray:
+    """Index map over conv_fusion's input channels: reference-layout input
+    channel ``perm[i]`` feeds the port's (z*C + c ordered) channel i."""
+    cc = c_lidar // depth
+    lid = np.arange(c_lidar).reshape(cc, depth).T.reshape(-1)
+    return np.concatenate([np.arange(n_img), n_img + lid])
+
+
+def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``{'params', 'batch_stats'}`` -> the port's state_dict
+    (reference layout), buffers included."""
+    sd: Dict[str, np.ndarray] = {}
+    attn: Dict[str, Dict[str, np.ndarray]] = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _flatten(variables.get(coll, {})):
+            leaf = path[-1]
+            if path[-2] in ("query", "key", "value", "out"):
+                key, kind = _resolve(_module_path(path[:-2]))
+                if kind == _ATTN:
+                    attn.setdefault(key, {})[f"{path[-2]}/{leaf}"] = v
+                    continue
+            key, kind = _resolve(_module_path(path[:-1]))
+            if kind == "norm":
+                sd[f"{key}.{_NORM_LEAF[leaf]}"] = v
+                if leaf == "mean":
+                    sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+                continue
+            if kind == "same":
+                sd[f"{key}.{leaf}"] = v
+                ws = (int(round(np.sqrt(v.shape[0]))) + 1) // 2
+                sd[f"{key}.relative_position_index"] = _rel_pos_index(ws)
+                continue
+            if leaf == "bias":
+                sd[f"{key}.bias"] = v
+                continue
+            w = {"dense": lambda a: a.T,
+                 "conv1d": lambda a: a.T[:, :, None],
+                 "conv2d": lambda a: a.transpose(3, 2, 0, 1),
+                 "deconv": lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1],
+                 "sparse": lambda a: a.transpose(4, 0, 1, 2, 3)}[kind](v)
+            sd[f"{key}.weight"] = w
+    for key, parts in attn.items():
+        e = parts["query/kernel"].shape[0]
+        sd[f"{key}.in_proj_weight"] = np.concatenate(
+            [parts[f"{n}/kernel"].reshape(e, e).T
+             for n in ("query", "key", "value")])
+        sd[f"{key}.in_proj_bias"] = np.concatenate(
+            [parts[f"{n}/bias"].reshape(e) for n in ("query", "key", "value")])
+        sd[f"{key}.out_proj.weight"] = parts["out/kernel"].reshape(e, e).T
+        sd[f"{key}.out_proj.bias"] = parts["out/bias"]
+
+    # conv_fusion's LiDAR block: JAX z*C + c -> reference c*D + z (whole
+    # detector trees; a tree of single modules has no conv_fusion)
+    key = "fusion_encoder.conv_fusion.conv.weight"
+    if key in sd:
+        p = variables["params"]
+        n_img = p["img_neck_m"]["fpn_0"]["Conv_0"]["kernel"].shape[-1]
+        c_out = p["pts_middle_encoder_m"]["conv_out"]["kernel"].shape[-1]
+        w = sd[key]
+        c_lidar = w.shape[1] - n_img
+        ref = np.empty_like(w)
+        ref[:, fusion_lidar_perm(n_img, c_lidar, c_lidar // c_out)] = w
+        sd[key] = ref
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
