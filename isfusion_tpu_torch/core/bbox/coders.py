@@ -1,6 +1,6 @@
 """TransFusion box coder (counterpart of ``isfusion_tpu/core/bbox/coders.py:
-TransFusionBBoxCoder``), decode only: the predict path needs no targets.
-Geometry stays float32."""
+TransFusionBBoxCoder``): ``encode`` for the training targets, ``decode``
+and ``valid_mask`` for the predictions. Geometry stays float32."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -20,6 +20,22 @@ class TransFusionBBoxCoder:
             [float(v) for v in post_center_range]
         self.score_threshold = float(score_threshold)
         self.code_size = code_size
+
+    def encode(self, dst_boxes: torch.Tensor) -> torch.Tensor:
+        """(..., 9) LiDAR boxes -> (..., code_size) targets: xy in BEV
+        feature cells, gravity-centre z, log dims, sin/cos yaw, velocity."""
+        b = dst_boxes.float()
+        step_x = self.out_size_factor * self.voxel_size[0]
+        step_y = self.out_size_factor * self.voxel_size[1]
+        out = [((b[..., 0] - self.pc_range[0]) / step_x)[..., None],
+               ((b[..., 1] - self.pc_range[1]) / step_y)[..., None],
+               (b[..., 2] + b[..., 5] * 0.5)[..., None],
+               torch.log(b[..., 3:6]),
+               torch.sin(b[..., 6])[..., None],
+               torch.cos(b[..., 6])[..., None]]
+        if self.code_size == 10:
+            out.append(b[..., 7:9])
+        return torch.cat(out, -1)
 
     def decode(self, heatmap: torch.Tensor, rot: torch.Tensor,
                dim: torch.Tensor, center: torch.Tensor, height: torch.Tensor,

@@ -5,7 +5,17 @@ The input generators are copies of the JAX package's and return numpy
 arrays, so one batch can be handed to both packages bit for bit.
 ``build_isfusion_flagship`` builds the detector from
 ``configs/isfusion/isfusion_0075voxel.py`` with seeded random weights on
-the CUDA card (``device="cpu"`` to run on the CPU).
+the CUDA card (``device="cpu"`` to run on the CPU), in eval mode;
+``flagship_optim_cfg`` gives the config's training recipe. A train step::
+
+    model, batch_fn = build_isfusion_flagship(seed=0)
+    model.train()
+    cfg = flagship_optim_cfg()
+    opt = build_optimizer(model, cfg["optimizer"])    # runner/optim.py
+    sched = build_schedule(opt, cfg["lr_config"], cfg["momentum_config"])
+    step = make_train_step(model, opt, sched,         # parallel/train_step.py
+                           grad_clip_norm(cfg["optimizer_config"]))
+    metrics = step(batch_fn(4), torch.Generator("cuda").manual_seed(0))
 """
 from __future__ import annotations
 
@@ -132,10 +142,13 @@ def synthetic_points_batch(batch_size: int, num_points: int = 120000,
 
 
 def flagship_model_cfg(tiny: bool = False,
-                       compute_dtype: Optional[str] = None) -> dict:
+                       compute_dtype: Optional[str] = None,
+                       dropout: bool = True) -> dict:
     """The flagship's model config dict. ``tiny`` shrinks geometry and
     widths as the JAX package's tiny variant does (and runs float32);
-    ``compute_dtype`` overrides every module's compute dtype."""
+    ``compute_dtype`` overrides every module's compute dtype;
+    ``dropout=False`` sets every dropout and drop-path rate to 0 and turns
+    the P2G pixel jitter off (a train step that draws nothing)."""
     from .config import Config
 
     model_cfg = copy.deepcopy(dict(Config.fromfile(ISFUSION_CFG).model))
@@ -186,19 +199,45 @@ def flagship_model_cfg(tiny: bool = False,
             head["bbox_coder"], pc_range=pcr[:2], voxel_size=vs[:2],
             post_center_range=[-32.0, -32.0, -10.0, 32.0, 32.0, 10.0])
         model_cfg["pts_bbox_head"] = head
-        sub = dict(dict(model_cfg["test_cfg"])["pts"])
-        sub.update(grid_size=[vshape, vshape, nzc], voxel_size=vs[:2],
-                   out_size_factor=8, pc_range=pcr[:2])
-        model_cfg["test_cfg"] = dict(model_cfg["test_cfg"], pts=sub)
+        for key in ("train_cfg", "test_cfg"):
+            sub = dict(dict(model_cfg[key])["pts"])
+            sub.update(grid_size=[vshape, vshape, nzc], out_size_factor=8,
+                       voxel_size=vs[:2] if key == "test_cfg" else vs)
+            if "point_cloud_range" in sub:
+                sub["point_cloud_range"] = pcr
+            if "pc_range" in sub:
+                sub["pc_range"] = pcr[:2]
+            model_cfg[key] = dict(model_cfg[key], pts=sub)
+    if not dropout:
+        model_cfg["img_backbone"] = dict(model_cfg["img_backbone"],
+                                         drop_rate=0.0, attn_drop_rate=0.0,
+                                         drop_path_rate=0.0)
+        model_cfg["fusion_encoder"] = dict(model_cfg["fusion_encoder"],
+                                           dropout=0.0, random_noise=None)
+        model_cfg["pts_bbox_head"] = dict(model_cfg["pts_bbox_head"],
+                                          dropout=0.0)
     if compute_dtype is not None:
         for key in _DTYPE_MODULES:
             model_cfg[key] = dict(model_cfg[key], compute_dtype=compute_dtype)
     return model_cfg
 
 
+def flagship_optim_cfg() -> dict:
+    """The flagship config's training recipe: ``optimizer``,
+    ``optimizer_config`` (grad clip), ``lr_config``, ``momentum_config``
+    and ``samples_per_gpu``."""
+    from .config import Config
+
+    cfg = Config.fromfile(ISFUSION_CFG)
+    out = {k: copy.deepcopy(dict(cfg[k])) for k in (
+        "optimizer", "optimizer_config", "lr_config", "momentum_config")}
+    out["samples_per_gpu"] = int(cfg.data["samples_per_gpu"])
+    return out
+
+
 def build_isfusion_flagship(tiny: bool = False,
                             compute_dtype: Optional[str] = None,
-                            device=None, seed: int = 0
+                            device=None, seed: int = 0, dropout: bool = True
                             ) -> Tuple[nn.Module, Callable[..., dict]]:
     """(model, batch_fn): the flagship IS-Fusion detector with weights
     drawn from ``seed``, in eval mode on ``device`` (default: the CUDA
@@ -209,7 +248,7 @@ def build_isfusion_flagship(tiny: bool = False,
     from .models.layers import init_weights
 
     dev = resolve_device(device)
-    model_cfg = flagship_model_cfg(tiny, compute_dtype)
+    model_cfg = flagship_model_cfg(tiny, compute_dtype, dropout)
     model = init_weights(build_detector(model_cfg), seed).to(dev).eval()
     if tiny:
         pcr = tuple(model_cfg["pc_range"])

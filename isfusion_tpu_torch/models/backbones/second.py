@@ -10,12 +10,12 @@ from __future__ import annotations
 
 from torch import nn
 
-from ..layers import BatchNorm, Conv2d, norm_eps, resolve_dtype
+from ..layers import BatchNorm, Conv2d, norm_eps, norm_momentum, resolve_dtype
 
 
-def _conv_bn_relu(cin, cout, stride, eps, dt):
+def _conv_bn_relu(cin, cout, stride, bn, dt):
     return [Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False,
-                   dtype=dt), BatchNorm(cout, eps=eps, dtype=dt), nn.ReLU()]
+                   dtype=dt), BatchNorm(cout, dtype=dt, **bn), nn.ReLU()]
 
 
 class SECONDV2(nn.Module):
@@ -25,16 +25,18 @@ class SECONDV2(nn.Module):
         super().__init__()
         dt = resolve_dtype(compute_dtype)
         self.cdtype = dt
-        eps = norm_eps(norm_cfg or dict(type="BN", eps=1e-3), 1e-3)
+        norm_cfg = norm_cfg or dict(type="BN", eps=1e-3, momentum=0.01)
+        bn = dict(eps=norm_eps(norm_cfg, 1e-3),
+                  momentum=norm_momentum(norm_cfg, 0.01))
         c0, c1 = out_channels
-        b0 = _conv_bn_relu(in_channels, c0, layer_strides[0], eps, dt)
+        b0 = _conv_bn_relu(in_channels, c0, layer_strides[0], bn, dt)
         for _ in range(layer_nums[0]):
-            b0 += _conv_bn_relu(c0, c0, 1, eps, dt)
+            b0 += _conv_bn_relu(c0, c0, 1, bn, dt)
         b1 = []
         for _ in range(layer_nums[1]):
-            b1 += _conv_bn_relu(c1, c1, 1, eps, dt)
+            b1 += _conv_bn_relu(c1, c1, 1, bn, dt)
         self.blocks = nn.ModuleList([nn.Sequential(*b0), nn.Sequential(*b1)])
-        self.ds_layer = nn.Sequential(*_conv_bn_relu(c0, c1, 2, eps, dt))
+        self.ds_layer = nn.Sequential(*_conv_bn_relu(c0, c1, 2, bn, dt))
 
     def forward(self, x, stage: str = "stage1"):
         if self.cdtype is not None:

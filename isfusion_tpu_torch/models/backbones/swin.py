@@ -5,7 +5,12 @@ Reference mmdet Swin naming: ``patch_embed.{projection,norm}``,
 ``stages.{i}.blocks.{d}.{norm1, attn.w_msa.{qkv, proj,
 relative_position_bias_table, relative_position_index}, norm2,
 ffn.layers.{0.0, 1}}``, ``stages.{i}.downsample.{norm, reduction}``,
-``norm{i}``. Inference only (no drop path, no dropout).
+``norm{i}``. Train mode adds the JAX package's stochastic depth (drop
+path rates rising linearly from 0 to ``drop_path_rate`` over the blocks)
+and dropouts (``drop_rate`` after the patch embedding, the projection and
+the MLP layers; ``attn_drop_rate`` on the attention weights), all drawn
+from the forward's generator. ``with_cp`` is read and ignored: the
+flagship runs the backbone detached (no activations kept).
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import Conv2d, LayerNorm, Linear, resolve_dtype
+from ..layers import (Conv2d, DropPath, LayerNorm, Linear, dropout,
+                      resolve_dtype)
 
 
 def _rel_pos_index(ws: int) -> np.ndarray:
@@ -42,9 +48,10 @@ def _shift_attn_mask(hp: int, wp: int, ws: int, shift: int) -> np.ndarray:
 
 class WindowMSA(nn.Module):
     def __init__(self, dim, num_heads, window_size, qkv_bias=True,
-                 qk_scale=None, dtype=None):
+                 qk_scale=None, attn_drop=0.0, proj_drop=0.0, dtype=None):
         super().__init__()
         self.dim, self.num_heads, self.ws = dim, num_heads, window_size
+        self.attn_drop, self.proj_drop = float(attn_drop), float(proj_drop)
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
@@ -68,17 +75,20 @@ class WindowMSA(nn.Module):
             attn = (attn.reshape(b // nw, nw, nh, n, n) +
                     mask[None, :, None]).reshape(b, nh, n, n)
         attn = torch.softmax(attn, -1).to(v.dtype)
+        attn = dropout(attn, self.attn_drop, self.training)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
-        return self.proj(out.to(x.dtype))
+        return dropout(self.proj(out.to(x.dtype)), self.proj_drop,
+                       self.training)
 
 
 class ShiftWindowMSA(nn.Module):
     def __init__(self, dim, num_heads, window_size, shift_size=0,
-                 qkv_bias=True, qk_scale=None, dtype=None):
+                 qkv_bias=True, qk_scale=None, attn_drop=0.0, proj_drop=0.0,
+                 dtype=None):
         super().__init__()
         self.ws, self.shift_size = window_size, shift_size
         self.w_msa = WindowMSA(dim, num_heads, window_size, qkv_bias,
-                               qk_scale, dtype=dtype)
+                               qk_scale, attn_drop, proj_drop, dtype=dtype)
 
     def forward(self, x, hw):
         h, w = hw
@@ -107,30 +117,35 @@ class ShiftWindowMSA(nn.Module):
 class FFN(nn.Module):
     """mmcv FFN naming: ``layers.0.0`` (fc1 + GELU), ``layers.1`` (fc2)."""
 
-    def __init__(self, dim, hidden, dtype=None):
+    def __init__(self, dim, hidden, drop=0.0, dtype=None):
         super().__init__()
+        self.drop = float(drop)
         self.layers = nn.ModuleList([
             nn.Sequential(Linear(dim, hidden, dtype=dtype), nn.GELU()),
             Linear(hidden, dim, dtype=dtype)])
 
     def forward(self, x):
-        return self.layers[1](self.layers[0](x))
+        y = dropout(self.layers[0](x), self.drop, self.training)
+        return dropout(self.layers[1](y), self.drop, self.training)
 
 
 class SwinBlock(nn.Module):
     def __init__(self, dim, num_heads, window_size=7, shift=False,
-                 mlp_ratio=4.0, qkv_bias=True, qk_scale=None, dtype=None):
+                 mlp_ratio=4.0, qkv_bias=True, qk_scale=None, drop_rate=0.0,
+                 attn_drop_rate=0.0, drop_path_rate=0.0, dtype=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = ShiftWindowMSA(dim, num_heads, window_size,
                                    window_size // 2 if shift else 0,
-                                   qkv_bias, qk_scale, dtype=dtype)
+                                   qkv_bias, qk_scale, attn_drop_rate,
+                                   drop_rate, dtype=dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
-        self.ffn = FFN(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.ffn = FFN(dim, int(dim * mlp_ratio), drop_rate, dtype=dtype)
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x, hw):
-        x = x + self.attn(self.norm1(x), hw)
-        return x + self.ffn(self.norm2(x))
+        x = x + self.drop_path(self.attn(self.norm1(x), hw))
+        return x + self.drop_path(self.ffn(self.norm2(x)))
 
 
 class PatchMerging(nn.Module):
@@ -177,20 +192,27 @@ class SwinTransformer(nn.Module):
                  window_size=7, mlp_ratio=4.0, depths=(2, 2, 6, 2),
                  num_heads=(3, 6, 12, 24), out_indices=(0, 1, 2, 3),
                  qkv_bias=True, qk_scale=None, patch_norm=True,
+                 drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.1,
                  compute_dtype=None, **unused):
         super().__init__()
         dt = resolve_dtype(compute_dtype)
         self.cdtype, self.patch_size = dt, patch_size
+        self.drop_rate = float(drop_rate)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.out_indices = tuple(out_indices)
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size,
                                       patch_norm, dtype=dt)
         stages = []
         dim = embed_dims
         for i, depth in enumerate(depths):
+            first = sum(depths[:i])
             blocks = [SwinBlock(dim, num_heads[i], window_size,
                                 shift=(d % 2 == 1), mlp_ratio=mlp_ratio,
                                 qkv_bias=qkv_bias, qk_scale=qk_scale,
-                                dtype=dt) for d in range(depth)]
+                                drop_rate=drop_rate,
+                                attn_drop_rate=attn_drop_rate,
+                                drop_path_rate=dpr[first + d], dtype=dt)
+                      for d in range(depth)]
             ds = PatchMerging(dim, 2 * dim, dtype=dt) \
                 if i < len(depths) - 1 else None
             stages.append(_Stage(blocks, ds))
@@ -212,6 +234,7 @@ class SwinTransformer(nn.Module):
         x = x.reshape(b, hw[0] * hw[1], -1)
         if self.patch_embed.norm is not None:
             x = self.patch_embed.norm(x)
+        x = dropout(x, self.drop_rate, self.training)
         outs = []
         for i, stage in enumerate(self.stages):
             for blk in stage.blocks:

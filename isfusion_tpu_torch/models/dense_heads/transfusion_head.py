@@ -1,8 +1,16 @@
-"""TransFusionHeadV2, predict path (counterpart of
+"""TransFusionHeadV2 (counterpart of
 ``isfusion_tpu/models/dense_heads/transfusion_head.py``): shared conv ->
 dense class heatmap -> 3x3 max-pool NMS -> top-``num_proposals`` queries
 with a class embedding -> transformer decoder layer(s) -> FFN branches ->
-NMS-free, score-fused decode.
+NMS-free, score-fused decode (``get_bboxes``), or Hungarian targets and
+the focal / L1 / gaussian-focal losses (``loss``).
+
+The JAX head's stop-gradients sit at the same places: the proposal top-k
+reads a detached heatmap, each decoder layer's query positions are the
+detached centres of the layer before, the targets are computed on
+detached predictions, and ``matched_ious`` carries no gradient. Matching
+costs are formed on the device (IoU3DCost through the K10 kernel) and
+solved on the host in one batch per step (``ops/hungarian.py``).
 
 NHWC BEV input. Heatmap logits, their top-k and the final FFN layers run
 in float32; the rest in the config's ``compute_dtype``. Reference names:
@@ -11,14 +19,18 @@ in float32; the rest in the config's ``compute_dtype``. Reference names:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ...core.bbox.assigners import HungarianAssigner3D
 from ...core.bbox.coders import TransFusionBBoxCoder
+from ...ops.gaussian import draw_heatmap_gaussian_batch, gaussian_radius
+from ...ops.hungarian import assign_batch
 from ..layers import BatchNorm, Conv1x1, Conv2d, ConvModule, resolve_dtype
+from ..losses import build_loss
 from ..middle_encoders.isfusion_encoder import maxpool_nms, topk_stable
 from ..transformer import TransformerDecoderLayer
 
@@ -64,20 +76,34 @@ class FFN(nn.Module):
         return out
 
 
+def clip_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    return torch.sigmoid(x).clamp(eps, 1 - eps)
+
+
 class TransFusionHeadV2(nn.Module):
-    def __init__(self, num_proposals=128, in_channels=384,
+    def __init__(self, num_proposals=128, auxiliary=True, in_channels=384,
                  hidden_channel=128, num_classes=4, num_decoder_layers=3,
                  num_heads=8, nms_kernel_size=1, ffn_channel=256,
-                 activation="relu", common_heads=None, num_heatmap_convs=2,
-                 test_cfg=None, bbox_coder=None, compute_dtype=None,
-                 **unused):
+                 dropout=0.1, activation="relu", common_heads=None,
+                 num_heatmap_convs=2, loss_cls=None, loss_bbox=None,
+                 loss_heatmap=None, train_cfg=None, test_cfg=None,
+                 bbox_coder=None, compute_dtype=None, **unused):
         super().__init__()
         dt = resolve_dtype(compute_dtype)
         self.cdtype = dt
         self.num_proposals, self.num_classes = num_proposals, num_classes
+        self.auxiliary = bool(auxiliary)
         self.nms_kernel_size = nms_kernel_size
         self.hidden_channel = hidden_channel
+        self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
+        self.loss_cls = build_loss(loss_cls or dict(
+            type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
+            reduction="mean", loss_weight=1.0))
+        self.loss_bbox = build_loss(loss_bbox or dict(
+            type="L1Loss", reduction="mean", loss_weight=0.25))
+        self.loss_heatmap = build_loss(loss_heatmap or dict(
+            type="GaussianFocalLoss", reduction="mean", loss_weight=1.0))
         coder = dict(bbox_coder)
         coder.pop("type", None)
         self.bbox_coder = TransFusionBBoxCoder(**coder)
@@ -92,7 +118,7 @@ class TransFusionHeadV2(nn.Module):
         self.class_encoding = Conv1x1(num_classes, hidden_channel, dtype=dt)
         self.decoder = nn.ModuleList(
             TransformerDecoderLayer(hidden_channel, num_heads, ffn_channel,
-                                    activation, dtype=dt)
+                                    activation, dropout, dtype=dt)
             for _ in range(num_decoder_layers))
         heads = {**dict(common_heads or {}),
                  "heatmap": (num_classes, num_heatmap_convs)}
@@ -122,8 +148,8 @@ class TransFusionHeadV2(nn.Module):
         lidar_feat = self.shared_conv(x)
         hm = self.heatmap_head[0](lidar_feat)
         dense_heatmap = self.heatmap_head[1](hm.float())
-        heat = maxpool_nms(torch.sigmoid(dense_heatmap), self.nms_kernel_size,
-                           self._flat_nms_classes())
+        heat = maxpool_nms(torch.sigmoid(dense_heatmap.detach()),
+                           self.nms_kernel_size, self._flat_nms_classes())
         heat_flat = heat.reshape(b, h * w, nc)
         # joint top-k over classes * positions, class-major
         top = topk_stable(heat_flat.transpose(1, 2).reshape(b, nc * h * w), p)
@@ -150,7 +176,7 @@ class TransFusionHeadV2(nn.Module):
             query_feat = dec(query_feat, lidar_flat, qpos, bev_pos)
             res = ffn(query_feat)
             res["center"] = res["center"] + qpos
-            qpos = res["center"]
+            qpos = res["center"].detach()
             layer_preds.append(res)
         preds = {k: torch.cat([lp[k] for lp in layer_preds], 1)
                  for k in layer_preds[0]}
@@ -181,3 +207,118 @@ class TransFusionHeadV2(nn.Module):
         return dict(bboxes=d["bboxes"],
                     scores=torch.where(mask, d["scores"], 0.0),
                     labels=d["labels"], mask=mask)
+
+    # ------------------------------------------------------------ targets
+    def get_targets(self, preds: dict, gt_bboxes: torch.Tensor,
+                    gt_labels: torch.Tensor, gt_mask: torch.Tensor,
+                    feat_hw: Tuple[int, int]):
+        """Per-layer Hungarian targets on the detached, decoded predictions
+        and the dense gaussian heatmap target. ``gt_*``: (B, G, 9), (B, G),
+        (B, G) padded GTs. Returns (labels, label_weights, bbox_targets,
+        bbox_weights, num_pos, matched_ious, heatmap (B, H, W, nc))."""
+        tc = self.train_cfg
+        assigner = HungarianAssigner3D(**{
+            k: v for k, v in dict(tc.get("assigner", {})).items()
+            if k != "type"})
+        nl = len(self.decoder) if self.auxiliary else 1
+        p, nc = self.num_proposals, self.num_classes
+        det = {k: preds[k][:, :nl * p].detach()
+               for k in ("heatmap", "center", "height", "dim", "rot", "vel")
+               if k in preds}
+        boxes = self.bbox_coder.decode(det["heatmap"], det["rot"], det["dim"],
+                                       det["center"], det["height"],
+                                       det.get("vel"))["bboxes"]
+        b, g = gt_labels.shape
+        costs, ious = [], []
+        for i in range(b):
+            for l in range(nl):
+                sl = slice(l * p, (l + 1) * p)
+                c, iou = assigner.cost(boxes[i, sl], gt_bboxes[i],
+                                       gt_labels[i], gt_mask[i],
+                                       det["heatmap"][i, sl], tc)
+                costs.append(c)
+                ious.append(iou)
+        cols = assign_batch(torch.stack(costs).view(b, nl, p, g))
+        res = assigner.result(
+            cols, torch.stack(ious).view(b, nl, p, g),
+            gt_labels[:, None].expand(b, nl, g),
+            gt_mask[:, None].expand(b, nl, g))
+        gt_inds = res.gt_inds.reshape(b, nl * p)
+        matched = gt_inds >= 0
+        gather = torch.gather(gt_bboxes.float(), 1, gt_inds.clamp_min(0)[
+            ..., None].expand(-1, -1, gt_bboxes.shape[-1]))
+        bbox_targets = self.bbox_coder.encode(gather)
+        bbox_weights = matched[..., None].float()
+        labels = torch.where(matched, res.labels.reshape(b, nl * p),
+                             torch.full_like(gt_inds, nc))
+        label_weights = torch.ones(labels.shape, device=labels.device)
+        num_pos = matched.float().sum()
+        matched_ious = res.max_overlaps.sum() / num_pos.clamp_min(1.0)
+
+        # dense heatmap target over all classes (`get_targets_single:
+        # 1080-1127`); grid steps in float32 like the JAX package
+        pcr = [float(v) for v in tc["point_cloud_range"]]
+        osf = np.float32(tc["out_size_factor"])
+        sx = float(np.float32(tc["voxel_size"][0]) * osf)
+        sy = float(np.float32(tc["voxel_size"][1]) * osf)
+        h, w = feat_hw
+        gtb = gt_bboxes.float()
+        cx = (gtb[..., 0] - pcr[0]) / sx
+        cy = (gtb[..., 1] - pcr[1]) / sy
+        dxw, dyl = gtb[..., 3] / sx, gtb[..., 4] / sy
+        radius = gaussian_radius((dyl, dxw), float(tc.get("gaussian_overlap",
+                                                          0.1)))
+        radius = torch.floor(radius).clamp_min(float(tc.get("min_radius", 2)))
+        ok = gt_mask.bool() & (dxw > 0) & (dyl > 0) & (cx >= 0) & (cx < w) & \
+            (cy >= 0) & (cy < h)
+        heatmap = torch.stack([draw_heatmap_gaussian_batch(
+            (h, w), torch.stack([cx[i], cy[i]], -1), radius[i], ok[i],
+            gt_labels[i], nc) for i in range(b)])
+        return (labels, label_weights, bbox_targets, bbox_weights, num_pos,
+                matched_ious, heatmap)
+
+    # -------------------------------------------------------------- loss
+    def loss(self, preds: dict, gt_bboxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_mask: torch.Tensor,
+             ins_heatmap: Optional[torch.Tensor] = None) -> dict:
+        """The loss dict of ``isfusion_tpu`` (``loss_heatmap``,
+        ``loss_heatmap_ins``, ``layer_*_loss_cls``, ``layer_*_loss_bbox``,
+        ``matched_ious``)."""
+        h, w = preds["dense_heatmap"].shape[1:3]
+        (labels, label_weights, bbox_targets, bbox_weights, num_pos,
+         matched_ious, heatmap) = self.get_targets(preds, gt_bboxes,
+                                                   gt_labels, gt_mask, (h, w))
+        losses = {}
+        hm_pos = (heatmap == 1.0).float().sum().clamp_min(1.0)
+        losses["loss_heatmap"] = self.loss_heatmap(
+            clip_sigmoid(preds["dense_heatmap"]), heatmap, avg_factor=hm_pos)
+        if ins_heatmap is not None:
+            losses["loss_heatmap_ins"] = self.loss_heatmap(
+                clip_sigmoid(ins_heatmap.float()), heatmap,
+                avg_factor=hm_pos)
+        p, nc = self.num_proposals, self.num_classes
+        nl = len(self.decoder) if self.auxiliary else 1
+        code = bbox_targets.shape[-1]
+        code_weights = torch.tensor(
+            [float(v) for v in self.train_cfg.get("code_weights",
+                                                  [1.0] * 10)][:code],
+            device=bbox_targets.device)
+        pred_boxes = torch.cat(
+            [preds["center"], preds["height"], preds["dim"], preds["rot"]]
+            + ([preds["vel"]] if "vel" in preds else []), -1)
+        one_hot = torch.nn.functional.one_hot(labels, nc + 1).float()[
+            ..., :nc]
+        avg = num_pos.clamp_min(1.0)
+        for l in range(nl):
+            prefix = "layer_-1" if l == nl - 1 else f"layer_{l}"
+            sl = slice(l * p, (l + 1) * p)
+            losses[f"{prefix}_loss_cls"] = self.loss_cls(
+                preds["heatmap"][:, sl].reshape(-1, nc),
+                one_hot[:, sl].reshape(-1, nc),
+                weight=label_weights[:, sl].reshape(-1)[:, None],
+                avg_factor=avg)
+            losses[f"{prefix}_loss_bbox"] = self.loss_bbox(
+                pred_boxes[:, sl], bbox_targets[:, sl],
+                weight=bbox_weights[:, sl] * code_weights, avg_factor=avg)
+        losses["matched_ious"] = matched_ious.detach()
+        return losses

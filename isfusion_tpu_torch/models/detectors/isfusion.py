@@ -1,6 +1,7 @@
-"""ISFusionDetector, predict path (counterpart of
+"""ISFusionDetector (counterpart of
 ``isfusion_tpu/models/detectors/isfusion.py``, with the parts of
-``mvx_two_stage.py`` it needs written inline).
+``mvx_two_stage.py`` it needs written inline): ``forward(batch,
+mode='predict' | 'feats' | 'loss')``.
 
 Camera branch (Swin + GeneralizedLSSFPN; dropped views zeroed) and LiDAR
 branch (dynamic voxelization -> DynamicVFE -> SparseEncoder dense BEV) ->
@@ -11,7 +12,18 @@ TransFusionHeadV2.
 Batch contract (numpy arrays or tensors): points (B, P, C), points_mask
 (B, P), img (B, Nv, H, W, 3) NHWC, lidar2img (B, Nv, 4, 4), optional
 img_aug_matrix (B, Nv, 4, 4), lidar_aug_matrix (B, 4, 4), img_view_mask
-(B, Nv). There are no capacity caps: every in-range point is voxelized.
+(B, Nv); for ``mode='loss'`` also gt_bboxes_3d (B, G, 9), gt_labels_3d
+(B, G), gt_mask (B, G). There are no capacity caps: every in-range point
+is voxelized.
+
+``model.train()`` / ``model.eval()`` select BatchNorm's and dropout's
+behaviour; the predict and feats modes run under ``torch.no_grad()``.
+Every random draw of a forward comes from its ``generator``. With
+``detach=True`` (the flagship) the image backbone runs under
+``torch.no_grad()``; dropped views (``img_view_mask``) are zeroed before
+the backbone, their backbone features are severed from the backward (the
+JAX package records a 1e27 blow-up through zero-variance LayerNorms
+without it), and their FPN features are zeroed.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ from torch import nn
 
 from ... import resolve_device
 from ...ops.voxel import voxelize_dynamic, voxelize_hard
+from ..layers import random_source
 from ...registry import DETECTORS
 from ..builder import (build_backbone, build_fusion_layer, build_head,
                        build_middle_encoder, build_neck, build_voxel_encoder)
@@ -33,8 +46,10 @@ class ISFusionDetector(nn.Module):
     def __init__(self, img_backbone, img_neck, pts_voxel_layer,
                  pts_voxel_encoder, pts_middle_encoder, fusion_encoder,
                  pts_backbone, pts_neck, pts_bbox_head, pc_range, voxel_size,
-                 out_size_factor=8, test_cfg=None, **unused):
+                 out_size_factor=8, detach=False, train_cfg=None,
+                 test_cfg=None, **unused):
         super().__init__()
+        self.detach = bool(detach)
         self.pts_voxel_layer = dict(pts_voxel_layer)
         self.pc_range = [float(v) for v in pc_range]
         self.voxel_size = [float(v) for v in voxel_size]
@@ -52,8 +67,9 @@ class ISFusionDetector(nn.Module):
             "num_points_in_pillar", 12))
         self.pts_backbone = build_backbone(pts_backbone)
         self.pts_neck = build_neck(pts_neck)
-        sc = dict(test_cfg or {})
+        tc, sc = dict(train_cfg or {}), dict(test_cfg or {})
         self.pts_bbox_head = build_head(pts_bbox_head,
+                                        train_cfg=tc.get("pts", tc) or None,
                                         test_cfg=sc.get("pts", sc) or None)
 
     def _pillar_size(self):
@@ -67,22 +83,42 @@ class ISFusionDetector(nn.Module):
         if view_mask is not None:
             img = torch.where(view_mask[:, :, None, None, None], img, 0.0)
         b, n = img.shape[:2]
-        feats = self.img_neck(self.img_backbone(img.reshape(
-            (b * n,) + tuple(img.shape[2:]))))
+        flat = img.reshape((b * n,) + tuple(img.shape[2:]))
+        if self.detach:
+            with torch.no_grad():
+                feats = self.img_backbone(flat)
+        else:
+            feats = self.img_backbone(flat)
+            if view_mask is not None:
+                vm = view_mask.reshape(-1)[:, None, None, None]
+                feats = [torch.where(vm, f, f.detach()) for f in feats]
+        feats = self.img_neck(feats)
         feats = [f.reshape((b, n) + tuple(f.shape[1:])) for f in feats]
         if view_mask is not None:
             feats = [torch.where(view_mask[:, :, None, None, None], f, 0.0)
                      for f in feats]
         return feats
 
-    @torch.no_grad()
     def forward(self, batch: dict, mode: str = "predict", device=None,
-                stats: Optional[dict] = None):
-        """``mode``: 'predict' (boxes) or 'feats' ((head preds, instance
-        heatmap)). Runs on ``device`` (default: the CUDA card; raises if it
-        is missing), where the model's parameters must already be.
-        ``stats`` (a dict, optional) receives the voxel, pillar and
-        active-site counts of the run."""
+                stats: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None):
+        """``mode``: 'predict' (boxes), 'feats' ((head preds, instance
+        heatmap)) or 'loss' (the head's loss dict). Runs on ``device``
+        (default: the CUDA card; raises if it is missing), where the
+        model's parameters must already be. ``stats`` (a dict, optional)
+        receives the voxel, pillar and active-site counts of the run;
+        ``generator`` (on that device) feeds dropout, drop path and the
+        pixel jitter of a train-mode forward."""
+        if mode not in ("predict", "feats", "loss"):
+            raise ValueError(f"unknown mode {mode!r} (predict, feats or "
+                             "loss)")
+        with random_source(generator):
+            if mode == "loss":
+                return self._forward(batch, mode, device, stats)
+            with torch.no_grad():
+                return self._forward(batch, mode, device, stats)
+
+    def _forward(self, batch, mode, device, stats):
         dev = resolve_device(device)
         pdev = next(self.parameters()).device
         if pdev != dev and not (pdev.type == dev.type == "cuda"
@@ -122,6 +158,8 @@ class ISFusionDetector(nn.Module):
                          pillars=int(pil.coors.shape[0]), **enc_stats)
         if mode == "feats":
             return preds, ins_heatmap
-        if mode != "predict":
-            raise ValueError(f"unknown mode {mode!r} (predict or feats)")
+        if mode == "loss":
+            return self.pts_bbox_head.loss(
+                preds, t["gt_bboxes_3d"], t["gt_labels_3d"].long(),
+                t["gt_mask"].bool(), ins_heatmap=ins_heatmap)
         return self.pts_bbox_head.get_bboxes(preds)

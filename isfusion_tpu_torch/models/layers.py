@@ -11,11 +11,16 @@ JAX package's layout, while keeping torch's parameter shapes (Linear
 (out, in), Conv2d OIHW, Conv1d (out, in, 1)) so that ``state_dict`` keys
 and shapes are those of the reference mmdet3d checkpoints.
 
-BatchNorm runs in inference mode only (running statistics): the port
-covers the predict forward.
+``model.train()`` / ``model.eval()`` select the behaviour of BatchNorm
+(batch statistics and a running update, or the running statistics) and of
+dropout and drop path. Every random draw of a train-mode forward comes
+from the ``torch.Generator`` installed by ``random_source`` (the detector's
+``forward(..., generator=)`` installs it), never from the global one.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -102,10 +107,14 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """Inference BatchNorm over the last axis, statistics in float32.
+    """BatchNorm over the last axis, statistics in float32.
 
-    Keeps BatchNorm1d/2d's parameter and buffer names (weight, bias,
-    running_mean, running_var, num_batches_tracked)."""
+    Train mode normalises with the batch statistics of every row (all
+    leading axes) and updates the running ones with torch's momentum
+    convention; the running variance takes the unbiased batch variance, as
+    torch and the reference do (flax takes the biased one). Eval mode uses
+    the running statistics. Keeps BatchNorm1d/2d's parameter and buffer
+    names (weight, bias, running_mean, running_var, num_batches_tracked)."""
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, dtype=None):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -113,10 +122,73 @@ class BatchNorm(nn.BatchNorm1d):
 
     def forward(self, x):
         out_dt = compute_dtype(x, self.cdtype)
+        if self.training:
+            self.num_batches_tracked.add_(1)
+            y = F.batch_norm(x.float().reshape(-1, x.shape[-1]),
+                             self.running_mean, self.running_var,
+                             self.weight.float(), self.bias.float(), True,
+                             self.momentum, self.eps)
+            return y.reshape(x.shape).to(out_dt)
         inv = torch.rsqrt(self.running_var.float() + self.eps) * \
             self.weight.float()
         y = (x.float() - self.running_mean.float()) * inv + self.bias.float()
         return y.to(out_dt)
+
+
+_GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
+    "isfusion_tpu_torch_generator", default=None)
+
+
+@contextlib.contextmanager
+def random_source(generator: Optional[torch.Generator]):
+    """Make ``generator`` the source of every random draw (dropout, drop
+    path, pixel jitter) inside the block (per thread and task)."""
+    token = _GENERATOR.set(generator)
+    try:
+        yield
+    finally:
+        _GENERATOR.reset(token)
+
+
+def rand(shape, device) -> torch.Tensor:
+    """U[0, 1) float32 draws from the installed generator; raises if none
+    is installed, so a train-mode forward never falls back to global
+    randomness."""
+    gen = _GENERATOR.get()
+    if gen is None:
+        raise RuntimeError("a train-mode forward draws its random numbers "
+                           "from an explicit torch.Generator: pass "
+                           "generator= to the detector's forward")
+    return torch.rand(tuple(shape), generator=gen, device=device)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            broadcast_leading: int = 0) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with 1 - p, scale kept values by 1/(1-p).
+    The mask is shared over the first ``broadcast_leading`` axes (flax's
+    attention-weight dropout shares it over batch and heads)."""
+    if not training or p == 0.0:
+        return x
+    shape = (1,) * broadcast_leading + tuple(x.shape[broadcast_leading:])
+    keep = rand(shape, x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: drop a whole sample's residual branch with
+    probability ``p``, scale kept ones by 1/(1-p)."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = rand((x.shape[0],) + (1,) * (x.dim() - 1), x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -153,6 +225,11 @@ def norm_eps(norm_cfg: Optional[dict], default: float = 1e-5) -> float:
     return float((norm_cfg or {}).get("eps", default))
 
 
+def norm_momentum(norm_cfg: Optional[dict], default: float = 0.1) -> float:
+    """torch momentum of a norm config (flax's is 1 - this)."""
+    return float((norm_cfg or {}).get("momentum", default))
+
+
 class ConvModule(nn.Module):
     """conv(+bn)(+act) over NHWC maps — mmcv ConvModule naming (``conv``,
     ``bn``). The conv has a bias iff there is no norm (bias='auto')."""
@@ -166,6 +243,7 @@ class ConvModule(nn.Module):
                            stride=stride, padding=padding, bias=use_bias,
                            dtype=dtype)
         self.bn = BatchNorm(out_channels, eps=norm_eps(norm_cfg),
+                            momentum=norm_momentum(norm_cfg),
                             dtype=dtype) if norm_cfg is not None else None
         self.act = build_activation(act_cfg)
 
@@ -185,7 +263,8 @@ class LinearNormAct(nn.Module):
     def __init__(self, in_channels, out_channels, norm_cfg=None):
         super().__init__()
         self.linear = Linear(in_channels, out_channels, bias=False)
-        self.norm = BatchNorm(out_channels, eps=norm_eps(norm_cfg, 1e-3))
+        self.norm = BatchNorm(out_channels, eps=norm_eps(norm_cfg, 1e-3),
+                              momentum=norm_momentum(norm_cfg, 0.01))
 
     def forward(self, x):
         return torch.relu(self.norm(self.linear(x)))

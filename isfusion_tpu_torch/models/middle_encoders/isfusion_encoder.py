@@ -19,6 +19,13 @@
 The IGF query positions keep the reference's (row, col) order, so its
 deformable sampler reads the MIRRORED location (square BEV) — the
 convention converted weights were trained under.
+
+Train mode, as the JAX module: P2G pixel jitter (``random_noise``: with
+probability 0.5 per sample, one U(-r, r) offset added to every projected
+pixel), ``dropout`` in the deformable decoder layers and in
+Instane2SceneAtt (the JAX module fixes it at 0.1; the port's config may
+set it), and the JAX stop-gradients: the instance heatmap branch reads a
+detached BEV, and the top-k reads a detached heatmap.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ from torch import nn
 from ...ops.deform_attn import ms_deform_attn_sample
 from ...ops.interpolate import grid_sample
 from ...ops.projection import project_points_to_cameras
-from ..layers import Conv2d, ConvModule, LayerNorm, Linear, resolve_dtype
+from ..layers import (Conv2d, ConvModule, LayerNorm, Linear, dropout, rand,
+                      resolve_dtype)
 from ..sst.sst import SSTv2
 from ..transformer import MultiheadAttention, PositionEmbeddingLearned
 
@@ -123,9 +131,11 @@ class DeformableDecoderLayer(nn.Module):
     (``DeformableTransformerDecoderLayer:602``)."""
 
     def __init__(self, d_model, d_ffn, n_heads=8, n_points=4, n_levels=1,
-                 dtype=None):
+                 dropout=0.1, dtype=None):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads, dtype=dtype)
+        self.p = float(dropout)
+        self.self_attn = MultiheadAttention(d_model, n_heads, dropout,
+                                            dtype=dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                        dtype=dtype)
@@ -136,12 +146,14 @@ class DeformableDecoderLayer(nn.Module):
 
     def forward(self, tgt, query_pos_embed, reference_points, src,
                 spatial_shapes):
+        p, train = self.p, self.training
         q = tgt + query_pos_embed
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
-        tgt = self.norm1(tgt + self.cross_attn(
-            tgt + query_pos_embed, reference_points, src, spatial_shapes))
-        ff = self.linear2(torch.relu(self.linear1(tgt)))
-        return self.norm3(tgt + ff)
+        tgt = self.norm2(tgt + dropout(self.self_attn(q, q, tgt), p, train))
+        tgt = self.norm1(tgt + dropout(self.cross_attn(
+            tgt + query_pos_embed, reference_points, src, spatial_shapes),
+            p, train))
+        ff = self.linear2(dropout(torch.relu(self.linear1(tgt)), p, train))
+        return self.norm3(tgt + dropout(ff, p, train))
 
 
 class InsContextAtt(nn.Module):
@@ -149,7 +161,7 @@ class InsContextAtt(nn.Module):
     (``InsContextAtt:768``)."""
 
     def __init__(self, num_layers=2, embed_dims=128, bev_size=180,
-                 n_points=16, dtype=None):
+                 n_points=16, dropout=0.1, dtype=None):
         super().__init__()
         self.bev_size = bev_size
         self.key_pos_embed = PositionEmbeddingLearned(2, embed_dims,
@@ -158,7 +170,8 @@ class InsContextAtt(nn.Module):
                                                         dtype=dtype)
         self.layers = nn.ModuleList(
             DeformableDecoderLayer(embed_dims, embed_dims, n_points=n_points,
-                                   dtype=dtype) for _ in range(num_layers))
+                                   dropout=dropout, dtype=dtype)
+            for _ in range(num_layers))
 
     def forward(self, x_ins, query_pos, scene):
         """x_ins (B, N, C); query_pos (B, N, 2) (row, col) grid coords;
@@ -183,9 +196,11 @@ class Instane2SceneAtt(nn.Module):
     mixes the instance-aware map back (``Instane2SceneAtt:472``; name as
     the reference spells it)."""
 
-    def __init__(self, d_model, nhead=8, dtype=None):
+    def __init__(self, d_model, nhead=8, dropout=0.1, dtype=None):
         super().__init__()
-        self.multihead_attn = MultiheadAttention(d_model, nhead, dtype=dtype)
+        self.p = float(dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout,
+                                                 dtype=dtype)
         self.norm = LayerNorm(d_model, dtype=dtype)
 
     def forward(self, scene_tokens, x_ins, query_scene):
@@ -194,7 +209,8 @@ class Instane2SceneAtt(nn.Module):
         b, hw, c = scene_tokens.shape
         h, w = query_scene.shape[1:3]
         attn = self.multihead_attn(scene_tokens, x_ins, x_ins)
-        q_ins = self.norm(scene_tokens + attn).reshape(b, h, w, c)
+        q_ins = self.norm(scene_tokens + dropout(
+            attn, self.p, self.training)).reshape(b, h, w, c)
         aw = torch.einsum("biwc,bjwc->bcij", query_scene.float(),
                           q_ins.float())
         aw = torch.softmax(aw, -1)
@@ -208,8 +224,9 @@ class ISFusionEncoder(nn.Module):
                  region_shape=((6, 6, 1), (6, 6, 1)),
                  grid_size=((180, 180, 1), (90, 90, 1)),
                  region_drop_info=None, instance_num=200, nms_kernel_size=3,
-                 img_level=1, compute_dtype=None, img_channels=None,
-                 lidar_channels=None, lidar_depth=2, **unused):
+                 img_level=1, random_noise=1.0, dropout=0.1,
+                 compute_dtype=None, img_channels=None, lidar_channels=None,
+                 lidar_depth=2, **unused):
         super().__init__()
         emb, half = embed_dims, embed_dims // 2
         dt = resolve_dtype(compute_dtype)
@@ -219,6 +236,7 @@ class ISFusionEncoder(nn.Module):
         self.instance_num, self.nms_kernel_size = instance_num, \
             nms_kernel_size
         self.img_level = img_level
+        self.random_noise = random_noise
         self.lidar_depth = int(lidar_depth)
         self.region_shape = [tuple(r) for r in region_shape]
         if region_drop_info is not None:
@@ -251,10 +269,12 @@ class ISFusionEncoder(nn.Module):
         self.heatmap_head_3 = Conv2d(emb // 4, num_classes, 3, padding=1)
         self.conv_scene = ConvModule(half, half, 3, padding=1, norm_cfg=bn,
                                      dtype=dt)
-        self.instance_att = InsContextAtt(2, half, bev_size, 16, dtype=dt)
+        self.instance_att = InsContextAtt(2, half, bev_size, 16, dropout,
+                                          dtype=dt)
         self.conv_ins = ConvModule(half, half, 3, padding=1, norm_cfg=bn,
                                    dtype=dt)
-        self.instance_to_scene_att = Instane2SceneAtt(half, dtype=dt)
+        self.instance_to_scene_att = Instane2SceneAtt(half, dropout=dropout,
+                                                      dtype=dt)
 
     def reset_special_parameters(self):
         nn.init.constant_(self.heatmap_head_3.bias, -2.19)
@@ -272,6 +292,12 @@ class ISFusionEncoder(nn.Module):
         img_h, img_w = calib["img_input_shape"]
         canvas = torch.zeros((b, bevsz * bevsz, c), dtype=img_feat.dtype,
                              device=img_feat.device)
+        noise = torch.zeros(b, device=img_feat.device)
+        if self.random_noise and self.training:
+            r = rand((2, b), img_feat.device)
+            noise = torch.where(r[0] < 0.5,
+                                (2 * r[1] - 1) * float(self.random_noise),
+                                noise)
         for i in range(b):
             sel = pillar_coors[:, 0] == i
             pts, coors, npts = pillars[sel], pillar_coors[sel], \
@@ -283,6 +309,7 @@ class ISFusionEncoder(nn.Module):
                 xyz, calib["lidar2img"][i],
                 None if lidar_aug is None else lidar_aug[i],
                 None if img_aug is None else img_aug[i])
+            uv = uv + noise[i]
             gx = uv[..., 0] / img_w * 2 - 1
             gy = uv[..., 1] / img_h * 2 - 1
             valid = front & (gx > -1) & (gx < 1) & (gy > -1) & (gy < 1)
@@ -325,11 +352,11 @@ class ISFusionEncoder(nn.Module):
             x = self.grid2region_att[lvl](x)
             if lvl == 0:
                 hm = self.heatmap_head_2(self.heatmap_head_1(
-                    self.conv_heatmap(bev)))
+                    self.conv_heatmap(bev.detach())))
                 # heatmap logits and top-k in float32 (score ordering)
                 ins_heatmap = self.heatmap_head_3(hm.float())
                 heat = maxpool_nms(
-                    torch.sigmoid(ins_heatmap), self.nms_kernel_size,
+                    torch.sigmoid(ins_heatmap.detach()), self.nms_kernel_size,
                     (8, 9) if self.num_views == 6 and
                     self.num_classes >= 10 else ())
                 flat = heat.reshape(b, h * w, -1).transpose(1, 2).reshape(

@@ -7,10 +7,12 @@ SparseConv3d) -> conv_out (kernel (3,1,1), stride (2,1,1)) -> dense BEV
 (B, ny, nx, Z*C) with channel order z*C + c.
 
 Runs on the rulebook engine of ``ops/sparse_conv.py`` (spconv
-semantics, no capacity caps). The JAX config's capacity keys
-(``stage_cap_ratios``, ``dilation_ratio(s)``, ``subm_dilation_ratios``,
-``dense_from_stage``, ``engine``, ``z_pad_to``) size TPU tables and are
-read and ignored. ``z_windows`` is semantics: its first entry (z_lo,
+semantics, no capacity caps); its backward is built from the K12 gather.
+Train-mode BatchNorm takes its statistics over the active sites only —
+the rows of the site table — as the JAX package's ``zmask`` does. The
+JAX config's capacity keys (``stage_cap_ratios``, ``dilation_ratio(s)``,
+``subm_dilation_ratios``, ``dense_from_stage``, ``engine``,
+``z_pad_to``) size TPU tables and are read and ignored. ``z_windows`` is semantics: its first entry (z_lo,
 width) keeps voxels with z in [z_lo, z_lo + width) and drops the rest. The
 later windows are exact strided images of the first (the JAX package
 checks it at trace time, ``check_window_coverage``), so they drop nothing
@@ -30,7 +32,7 @@ from torch import nn
 
 from ...ops.sparse_conv import (SparseTensor, build_sparse, sparse_conv,
                                 strided_rulebook, subm_rulebook)
-from ..layers import BatchNorm, norm_eps, resolve_dtype
+from ..layers import BatchNorm, norm_eps, norm_momentum, resolve_dtype
 
 
 def _pad3(p) -> Tuple[int, int, int]:
@@ -51,9 +53,10 @@ class SparseConvModule(nn.Sequential):
     the sites, a strided one makes new ones."""
 
     def __init__(self, cin, cout, kernel_size=(3, 3, 3), stride=1,
-                 padding=1, subm=True, eps=1e-3, with_act=True):
+                 padding=1, subm=True, eps=1e-3, momentum=0.01,
+                 with_act=True):
         super().__init__(SparseConv3dWeight(cin, cout, kernel_size),
-                         BatchNorm(cout, eps=eps))
+                         BatchNorm(cout, eps=eps, momentum=momentum))
         self.ks, self.stride, self.padding = tuple(kernel_size), stride, \
             padding
         self.subm, self.with_act = subm, with_act
@@ -77,15 +80,15 @@ class SparseBasicBlock(nn.Module):
     extension the reference layout cannot express, keyed ``{j}.0``/``{j}.1``
     as the JAX converter maps it."""
 
-    def __init__(self, cin, ch, eps=1e-3):
+    def __init__(self, cin, ch, eps=1e-3, momentum=0.01):
         super().__init__()
         if cin != ch:
             self.add_module("0", SparseConv3dWeight(cin, ch))
-            self.add_module("1", BatchNorm(ch, eps=eps))
+            self.add_module("1", BatchNorm(ch, eps=eps, momentum=momentum))
         self.conv1 = SparseConv3dWeight(ch, ch)
-        self.bn1 = BatchNorm(ch, eps=eps)
+        self.bn1 = BatchNorm(ch, eps=eps, momentum=momentum)
         self.conv2 = SparseConv3dWeight(ch, ch)
-        self.bn2 = BatchNorm(ch, eps=eps)
+        self.bn2 = BatchNorm(ch, eps=eps, momentum=momentum)
 
     def forward(self, sp: SparseTensor, rulebook) -> SparseTensor:
         x = sp.feats
@@ -128,13 +131,14 @@ class SparseEncoder(nn.Module):
             raise NotImplementedError(
                 "the port's SparseEncoder implements block_type="
                 "'basicblock' (the IS-Fusion layout)")
-        eps = norm_eps(norm_cfg or dict(type="BN1d", eps=1e-3), 1e-3)
+        norm_cfg = norm_cfg or dict(type="BN1d", eps=1e-3, momentum=0.01)
+        eps = norm_eps(norm_cfg, 1e-3)
+        bn = dict(eps=eps, momentum=norm_momentum(norm_cfg, 0.01))
         self.sparse_shape = tuple(int(s) for s in sparse_shape)
         self.z_window = tuple(int(v) for v in z_windows[0]) \
             if z_windows and z_windows[0] is not None else None
         self.cdtype = resolve_dtype(compute_dtype) or torch.float32
-        self.conv_input = SparseConvModule(in_channels, base_channels,
-                                           eps=eps)
+        self.conv_input = SparseConvModule(in_channels, base_channels, **bn)
         self.encoder_layers = _EncoderLayers()
         in_ch = base_channels
         n_stages = len(encoder_channels)
@@ -146,10 +150,10 @@ class SparseEncoder(nn.Module):
                 if j == len(blocks) - 1 and i != n_stages - 1:
                     stage.append(SparseConvModule(in_ch, out_ch, stride=2,
                                                   padding=pad, subm=False,
-                                                  eps=eps))
+                                                  **bn))
                     nz = (nz + 2 * pad[0] - 3) // 2 + 1
                 else:
-                    stage.append(SparseBasicBlock(in_ch, out_ch, eps=eps))
+                    stage.append(SparseBasicBlock(in_ch, out_ch, **bn))
                 in_ch = out_ch
             self.encoder_layers.add_module(f"encoder_layer{i + 1}", stage)
         self.n_stages = n_stages
@@ -159,7 +163,7 @@ class SparseEncoder(nn.Module):
         self.conv_out = SparseConvModule(in_ch, output_channels,
                                          kernel_size=(3, 1, 1),
                                          stride=(2, 1, 1), padding=0,
-                                         subm=False, eps=eps)
+                                         subm=False, **bn)
 
     def forward(self, voxel_features: torch.Tensor, coors: torch.Tensor,
                 batch_size: int, return_stats: Optional[dict] = None

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..layers import (BatchNorm, Conv2d, ConvTranspose2d, norm_eps,
-                      resolve_dtype)
+                      norm_momentum, resolve_dtype)
 
 
 class SECONDFPN(nn.Module):
@@ -25,7 +25,9 @@ class SECONDFPN(nn.Module):
         super().__init__()
         dt = resolve_dtype(compute_dtype)
         self.cdtype = dt
-        eps = norm_eps(norm_cfg or dict(type="BN", eps=1e-3), 1e-3)
+        norm_cfg = norm_cfg or dict(type="BN", eps=1e-3, momentum=0.01)
+        bn = dict(eps=norm_eps(norm_cfg, 1e-3),
+                  momentum=norm_momentum(norm_cfg, 0.01))
         blocks = []
         for cin, cout, s in zip(in_channels, out_channels, upsample_strides):
             if s == 1 and use_conv_for_no_stride:
@@ -33,8 +35,8 @@ class SECONDFPN(nn.Module):
             else:
                 up = ConvTranspose2d(cin, cout, s, stride=s, bias=False,
                                      dtype=dt)
-            blocks.append(nn.Sequential(up, BatchNorm(cout, eps=eps,
-                                                      dtype=dt), nn.ReLU()))
+            blocks.append(nn.Sequential(up, BatchNorm(cout, dtype=dt, **bn),
+                                        nn.ReLU()))
         self.deblocks = nn.ModuleList(blocks)
 
     def forward(self, feats):

@@ -3,7 +3,9 @@
 
 Every BEV cell is a token; windows of ws x ws tokens (6 x 6 for the
 flagship) attend within themselves, then a shifted pass offsets the grid
-by ws // 2 and masks the zero-padded border. Reference parameter names:
+by ws // 2 and masks the zero-padded border. ``dropout`` (0 in the
+flagship, whose ISFusionEncoder leaves SSTv2's default) drops attention
+weights and residual branches in train mode. Reference parameter names:
 ``linear0``, ``block_list.{b}.encoder_list.{l}.{win_attn.self_attn,
 norm1, norm2, linear1, linear2}``.
 """
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import LayerNorm, Linear, resolve_dtype
+from ..layers import LayerNorm, Linear, dropout, resolve_dtype
 from ..transformer import MultiheadAttention
 
 
@@ -68,18 +70,20 @@ def window_reverse(tokens, shape_bhwc, ws, shift, padded_hw):
 class _WinAttn(nn.Module):
     """Holder giving the reference key ``win_attn.self_attn``."""
 
-    def __init__(self, d_model, nhead, dtype=None):
+    def __init__(self, d_model, nhead, dropout=0.0, dtype=None):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead, dtype=dtype)
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout,
+                                            dtype=dtype)
 
 
 class SSTEncoderLayer(nn.Module):
     """Window MHA (q = k = feat + pos, v = feat) + FFN, post-norm."""
 
     def __init__(self, d_model, nhead, dim_feedforward, window_size, shift,
-                 pos_temperature=1000.0, dtype=None):
+                 pos_temperature=1000.0, dropout=0.0, dtype=None):
         super().__init__()
-        self.win_attn = _WinAttn(d_model, nhead, dtype=dtype)
+        self.p = float(dropout)
+        self.win_attn = _WinAttn(d_model, nhead, dropout, dtype=dtype)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
@@ -98,9 +102,10 @@ class SSTEncoderLayer(nn.Module):
         mask = valid[:, None, None, :] & valid[:, None, :, None]
         attn = self.win_attn.self_attn(q, q, tokens, mask=mask)
         attn = attn * valid[..., None]
-        tokens = self.norm1(tokens + attn)
-        tokens = self.norm2(tokens + self.linear2(torch.relu(
-            self.linear1(tokens))))
+        p, train = self.p, self.training
+        tokens = self.norm1(tokens + dropout(attn, p, train))
+        tokens = self.norm2(tokens + dropout(self.linear2(torch.relu(
+            self.linear1(tokens))), p, train))
         tokens = tokens * valid[..., None]
         return window_reverse(tokens, shape, self.ws, self.shift, padded)
 
@@ -118,7 +123,8 @@ class SSTv2(nn.Module):
     def __init__(self, d_model=(128,), nhead=(8,), num_blocks=1,
                  dim_feedforward=(128,), window_shape=(6, 6, 1),
                  in_channel: Optional[int] = None,
-                 pos_temperature: float = 1000.0, compute_dtype=None):
+                 pos_temperature: float = 1000.0, dropout: float = 0.0,
+                 compute_dtype=None):
         super().__init__()
 
         def first(v):
@@ -130,7 +136,7 @@ class SSTv2(nn.Module):
             if in_channel is not None else None
         self.block_list = nn.ModuleList(_Block(
             [SSTEncoderLayer(d, nh, ff, int(window_shape[0]), shift,
-                             pos_temperature, dtype=dt)
+                             pos_temperature, dropout, dtype=dt)
              for shift in (False, True)]) for _ in range(num_blocks))
 
     def forward(self, x):

@@ -4,7 +4,9 @@
 (``in_proj_weight``, ``in_proj_bias``, ``out_proj``) so reference
 checkpoints load, and computes flax ``MultiHeadDotProductAttention``'s
 function: separate q/k/v inputs, query scaled by 1/sqrt(head_dim), masked
-logits set to the dtype's lowest value, softmax in float32.
+logits set to the dtype's lowest value, softmax in float32. In train mode
+its ``dropout`` drops attention weights with one mask shared over batch
+and heads (flax's ``broadcast_dropout``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv1x1, LayerNorm, Linear, compute_dtype
+from .layers import (BatchNorm, Conv1x1, LayerNorm, Linear, compute_dtype,
+                     dropout)
 
 
 class PositionEmbeddingLearned(nn.Module):
@@ -35,9 +38,11 @@ class PositionEmbeddingLearned(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, dtype=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype=None):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = float(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
                                                        embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
@@ -62,6 +67,8 @@ class MultiheadAttention(nn.Module):
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(dt).min)
         attn = torch.softmax(logits, -1).to(dt)
+        attn = dropout(attn, self.dropout, self.training,
+                       broadcast_leading=attn.dim() - 2)
         out = torch.matmul(attn, v).transpose(-3, -2)
         return self.out_proj(out.reshape(*out.shape[:-2], e))
 
@@ -69,13 +76,17 @@ class MultiheadAttention(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     """Post-norm decoder layer (``transfusion_head_v2.py:42``): self-attn
     with q = k = v = query + pos, cross-attn with k = v = key + key pos,
-    FFN."""
+    FFN. Train mode drops (``dropout``) the attention weights and each
+    residual branch and the FFN's hidden activations, as the JAX layer."""
 
     def __init__(self, d_model, nhead, dim_feedforward=256, activation="relu",
-                 dtype=None):
+                 dropout=0.0, dtype=None):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead, dtype=dtype)
-        self.multihead_attn = MultiheadAttention(d_model, nhead, dtype=dtype)
+        self.p = float(dropout)
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout,
+                                            dtype=dtype)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout,
+                                                 dtype=dtype)
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
         self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
@@ -92,9 +103,11 @@ class TransformerDecoderLayer(nn.Module):
         kp = self.cross_posembed(key_pos)
         if self.cdtype is not None:
             query, key = query.to(self.cdtype), key.to(self.cdtype)
+        p, train = self.p, self.training
         q = query + qp
-        query = self.norm1(query + self.self_attn(q, q, q))
+        query = self.norm1(query + dropout(self.self_attn(q, q, q), p, train))
         kk = key + kp
-        query = self.norm2(query + self.multihead_attn(query + qp, kk, kk))
-        ff = self.linear2(self.act(self.linear1(query)))
-        return self.norm3(query + ff)
+        query = self.norm2(query + dropout(
+            self.multihead_attn(query + qp, kk, kk), p, train))
+        ff = self.linear2(dropout(self.act(self.linear1(query)), p, train))
+        return self.norm3(query + dropout(ff, p, train))

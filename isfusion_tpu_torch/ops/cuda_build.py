@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 SIGNATURES = {
     "masked_gather": ([_P, _P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
+    "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _P], ctypes.c_int),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

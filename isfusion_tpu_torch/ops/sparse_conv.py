@@ -15,6 +15,14 @@ host plans, capacity caps).
   im2col is formed by the masked-gather kernel (``ops/gather.py``, K12)
   with ``fmask`` = neighbour found, then one matmul with the
   (K * Cin, Cout) weight. No atomics: deterministic.
+- Its backward is built from K12 too (``SparseConvFunction``). For a
+  fixed tap k the map o -> rows[o, k] is injective over found pairs (subm:
+  i = o + k - k//2; strided: i = o * s - p + k), so the transposed
+  rulebook ``rows_T[rows[o, k], k] = o`` is written by one collision-free
+  ``index_put_``. dX is the gather-GEMM of dY over it with the per-tap
+  transposed weights; dW is im2col^T @ dY with the im2col regathered chunk
+  by chunk (only inputs and rulebooks are saved), summed in float32 and
+  cast to the weight's dtype once. No atomics anywhere.
 
 The rulebook construction is plain PyTorch for now (ROADMAP queue K3: implicit
 GEMM over the rulebook as one hand-written kernel).
@@ -26,7 +34,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from .gather import masked_gather
+from .gather import masked_gather, masked_gather_ref
 
 # im2col elements per chunk: bounds the transient (rows, K * Cin) buffer
 IM2COL_CHUNK = 1 << 27
@@ -134,23 +142,112 @@ def flat_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         dtype)
 
 
-def sparse_conv(feats: torch.Tensor, rows: torch.Tensor, found: torch.Tensor,
-                weight: torch.Tensor) -> torch.Tensor:
-    """Gather-GEMM: (N_in, Cin) feats, (N_out, K) rulebook -> (N_out, Cout)
-    in the feats' dtype. The im2col goes through the masked-gather kernel in
-    row chunks of at most ``IM2COL_CHUNK`` elements."""
+def transpose_rulebook(rows: torch.Tensor, found: torch.Tensor, n_in: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N_out, K) rulebook -> (N_in, K) ``rows_T`` (int32) + ``found_T``
+    with ``rows_T[rows[o, k], k] = o`` for every found pair. Pairs that are
+    not found are written to one trash slot past the end, which is then
+    cut off, so the kept entries see exactly one write each."""
     n_out, k = rows.shape
-    cin = feats.shape[1]
-    w = flat_weight(weight, feats.dtype)
-    out = torch.empty((n_out, w.shape[1]), dtype=feats.dtype,
-                      device=feats.device)
-    if n_out == 0 or feats.shape[0] == 0:
+    dev = rows.device
+    taps = torch.arange(k, device=dev)
+    dest = torch.where(found, rows.long() * k + taps,
+                       torch.full((), n_in * k, dtype=torch.long, device=dev))
+    src_rows = torch.arange(n_out, dtype=torch.int32, device=dev)[:, None]
+    rows_t = torch.zeros(n_in * k + 1, dtype=torch.int32, device=dev)
+    rows_t.index_put_((dest.reshape(-1),),
+                      src_rows.expand(n_out, k).reshape(-1))
+    found_t = torch.zeros(n_in * k + 1, dtype=torch.bool, device=dev)
+    found_t.index_put_((dest.reshape(-1),), found.reshape(-1))
+    return rows_t[:-1].view(n_in, k), found_t[:-1].view(n_in, k)
+
+
+def _gather_gemm(src: torch.Tensor, rows: torch.Tensor, found: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """sum_k found[o, k] * src[rows[o, k]] @ w_k, im2col by K12 in row
+    chunks of at most ``IM2COL_CHUNK`` elements; ``w`` (K * C, Cout)."""
+    n_out, k = rows.shape
+    c = src.shape[1]
+    out = torch.empty((n_out, w.shape[1]), dtype=src.dtype, device=src.device)
+    if n_out == 0 or src.shape[0] == 0:
         return out.zero_()
-    src = feats.contiguous()
-    step = max(1, IM2COL_CHUNK // (k * cin))
+    step = max(1, IM2COL_CHUNK // (k * c))
     for a in range(0, n_out, step):
         r = rows[a:a + step].reshape(-1).contiguous()
         f = found[a:a + step].reshape(-1).contiguous()
-        cols = masked_gather(src, r, f).view(-1, k * cin)
+        cols = masked_gather(src, r, f).view(-1, k * c)
         torch.matmul(cols, w, out=out[a:a + step])
     return out
+
+
+class SparseConvFunction(torch.autograd.Function):
+    """Gather-GEMM sparse conv whose forward and backward are built from
+    the K12 masked gather (see the module docstring). Saves only the
+    input features, the weight and the rulebook."""
+
+    @staticmethod
+    def forward(ctx, feats, rows, found, weight):
+        src = feats.contiguous()
+        ctx.save_for_backward(src, rows, found, weight)
+        return _gather_gemm(src, rows, found, flat_weight(weight,
+                                                          feats.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        src, rows, found, weight = ctx.saved_tensors
+        n_in, cin = src.shape
+        n_out, k = rows.shape
+        cout = weight.shape[0]
+        dy = dy.contiguous().to(src.dtype)
+        w = flat_weight(weight, src.dtype)                 # (K * Cin, Cout)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            rows_t, found_t = transpose_rulebook(rows, found, n_in)
+            w_t = w.view(k, cin, cout).transpose(1, 2).reshape(k * cout, cin)
+            dx = _gather_gemm(dy, rows_t, found_t, w_t)
+        if ctx.needs_input_grad[3]:
+            acc = torch.zeros((k * cin, cout), dtype=torch.float32,
+                              device=src.device)
+            if n_out and n_in:
+                step = max(1, IM2COL_CHUNK // (k * cin))
+                for a in range(0, n_out, step):
+                    r = rows[a:a + step].reshape(-1).contiguous()
+                    f = found[a:a + step].reshape(-1).contiguous()
+                    cols = masked_gather(src, r, f).view(-1, k * cin)
+                    acc += torch.matmul(cols.t(), dy[a:a + step]).float()
+            # (K * Cin, Cout) -> spconv2 (Cout, kz, ky, kx, Cin)
+            dw = acc.view(*weight.shape[1:4], cin, cout).permute(
+                4, 0, 1, 2, 3).to(weight.dtype)
+        return dx, None, None, dw
+
+
+def sparse_conv_plain(feats: torch.Tensor, rows: torch.Tensor,
+                      found: torch.Tensor, weight: torch.Tensor
+                      ) -> torch.Tensor:
+    """The plain version: autograd through the gather's plain version and
+    ``torch.matmul`` (the CPU route and the Function's yardstick)."""
+    n_out, k = rows.shape
+    w = flat_weight(weight, feats.dtype)
+    if n_out == 0 or feats.shape[0] == 0:
+        return torch.zeros((n_out, w.shape[1]), dtype=feats.dtype,
+                           device=feats.device)
+    cols = masked_gather_ref(feats, rows.reshape(-1), found.reshape(-1))
+    return torch.matmul(cols.view(n_out, -1), w)
+
+
+def sparse_conv(feats: torch.Tensor, rows: torch.Tensor, found: torch.Tensor,
+                weight: torch.Tensor) -> torch.Tensor:
+    """Gather-GEMM: (N_in, Cin) feats, (N_out, K) rulebook, spconv2 weight
+    (Cout, kz, ky, kx, Cin) -> (N_out, Cout) in the feats' dtype. On a CUDA
+    tensor it runs ``SparseConvFunction`` (K12 forward and backward); on a
+    CPU tensor the plain version."""
+    if feats.device.type == "cpu":
+        return sparse_conv_plain(feats, rows, found, weight)
+    # K12 moves 16-byte row vectors: the forward gathers Cin-wide rows, the
+    # backward Cout-wide ones
+    align = 16 // feats.element_size()
+    if feats.shape[1] % align or weight.shape[0] % align:
+        raise ValueError(
+            f"sparse_conv: Cin {feats.shape[1]} and Cout {weight.shape[0]} "
+            f"must be multiples of {align} {feats.dtype} values (16 bytes)")
+    return SparseConvFunction.apply(feats, rows, found, weight)

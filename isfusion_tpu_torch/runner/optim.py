@@ -1,0 +1,142 @@
+"""Optimizer and schedules from mmcv-style configs (counterpart of
+``isfusion_tpu/runner/optim.py``; flagship config
+``configs/isfusion/isfusion_0075voxel.py:395-402``).
+
+- ``build_optimizer``: ``torch.optim.AdamW`` with one param group per
+  ``paramwise_cfg.custom_keys`` match (the flagship's ``img_backbone`` at
+  ``lr_mult`` 0.1) and one for the rest. The JAX package multiplies the
+  whole AdamW update (weight decay included) by the group's multiplier,
+  which is AdamW at ``lr * lr_mult``.
+- ``build_schedule``: sets every group's ``lr`` and ``betas[0]`` before
+  each step from a copy of the JAX cyclic policy (mmcv CyclicLrUpdater /
+  CyclicMomentumUpdater: cosine from the base value to ``base *
+  target_ratio[0]`` over ``step_ratio_up`` of the steps, then cosine down
+  to ``base * target_ratio[1]``).
+- ``grad_clip_norm``: the global-norm clip of ``optimizer_config``.
+
+Where the two packages differ: optax's ``adamw`` still decays a parameter
+whose gradient is zero (the ``img_backbone`` under ``detach=True``);
+torch's AdamW skips a parameter whose ``grad`` is None, as the reference
+does. The port follows the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Optional
+
+import torch
+
+
+def cyclic_schedule(base: float, target_ratio, cyclic_times: int,
+                    step_ratio_up: float, total_steps: int
+                    ) -> Callable[[int], float]:
+    """mmcv cyclic policy as the JAX package computes it (float32 count
+    arithmetic aside): value at step ``count`` (0-based)."""
+    r_up, r_down = float(target_ratio[0]), float(target_ratio[1])
+    period = max(total_steps // max(cyclic_times, 1), 1)
+    up = max(int(period * step_ratio_up), 1)
+
+    def cos_anneal(start, end, frac):
+        return end + (start - end) * 0.5 * (math.cos(math.pi * frac) + 1)
+
+    def sched(count: int) -> float:
+        t = count % period
+        if t < up:
+            return cos_anneal(base, base * r_up, min(max(t / up, 0.0), 1.0))
+        frac = min(max((t - up) / max(period - up, 1), 0.0), 1.0)
+        return cos_anneal(base * r_up, base * r_down, frac)
+
+    return sched
+
+
+def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict
+                    ) -> torch.optim.AdamW:
+    """AdamW with a param group per ``paramwise_cfg.custom_keys`` prefix
+    (a parameter belongs to the last key its name contains, as the JAX
+    package's ``_lr_mult_mask``); each group records its ``lr_mult``."""
+    cfg = dict(optimizer_cfg)
+    kind = cfg.pop("type", "AdamW")
+    if kind.lower() != "adamw":
+        raise NotImplementedError(f"the port's optimizer is AdamW, not "
+                                  f"{kind}")
+    lr = float(cfg.pop("lr", 1e-3))
+    betas = tuple(float(b) for b in cfg.pop("betas", (0.9, 0.999)))
+    wd = float(cfg.pop("weight_decay", 0.01))
+    keys = dict(dict(cfg.pop("paramwise_cfg", None) or {}).get(
+        "custom_keys", {}))
+    groups = {}
+    for name, p in model.named_parameters():
+        mult = 1.0
+        for key, kcfg in keys.items():
+            if key in name:
+                mult = float(dict(kcfg).get("lr_mult", 1.0))
+        groups.setdefault(mult, []).append(p)
+    param_groups = [dict(params=ps, lr=lr * m, lr_mult=m, base_lr=lr)
+                    for m, ps in groups.items()]
+    return torch.optim.AdamW(param_groups, lr=lr, betas=betas,
+                             weight_decay=wd)
+
+
+class Schedule:
+    """Sets each group's ``lr`` (= lr(count) * lr_mult) and ``betas[0]``
+    (= beta1(count)) before step ``count``."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 lr: Callable[[int], float],
+                 beta1: Optional[Callable[[int], float]]):
+        self.optimizer, self.lr, self.beta1 = optimizer, lr, beta1
+
+    def apply(self, count: int) -> None:
+        lr = self.lr(count)
+        b1 = None if self.beta1 is None else self.beta1(count)
+        for g in self.optimizer.param_groups:
+            g["lr"] = lr * g.get("lr_mult", 1.0)
+            if b1 is not None:
+                g["betas"] = (b1, g["betas"][1])
+
+
+def build_schedule(optimizer: torch.optim.Optimizer,
+                   lr_config: Optional[dict] = None,
+                   momentum_config: Optional[dict] = None,
+                   total_steps: int = 10000) -> Schedule:
+    """Cyclic (or constant) lr and beta1 schedules of the flagship
+    config."""
+    base_lr = float(optimizer.param_groups[0].get(
+        "base_lr", optimizer.param_groups[0]["lr"]))
+    base_b1 = float(optimizer.param_groups[0]["betas"][0])
+
+    def build(cfg, base, default_ratio):
+        if not cfg:
+            return None
+        cfg = dict(cfg)
+        if cfg.get("policy") != "cyclic":
+            raise NotImplementedError(
+                f"the port's schedules are cyclic, not {cfg.get('policy')}")
+        return cyclic_schedule(base, cfg.get("target_ratio", default_ratio),
+                               int(cfg.get("cyclic_times", 1)),
+                               float(cfg.get("step_ratio_up", 0.4)),
+                               total_steps)
+
+    lr = build(lr_config, base_lr, (10, 1e-4)) or (lambda count: base_lr)
+    return Schedule(optimizer, lr, build(momentum_config, base_b1,
+                                         (0.85, 1)))
+
+
+def grad_clip_norm(optimizer_config: Optional[dict]) -> Optional[float]:
+    clip = dict(optimizer_config or {}).get("grad_clip")
+    return float(clip["max_norm"]) if clip else None
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: Optional[float]
+                        ) -> torch.Tensor:
+    """optax ``clip_by_global_norm``: scale every gradient by max_norm /
+    norm when the global norm exceeds max_norm (in place). Returns the
+    pre-clip global norm."""
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads])) if grads \
+        else torch.zeros(())
+    if max_norm is not None and grads:
+        scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                            max_norm / norm)
+        torch._foreach_mul_(grads, scale.to(grads[0].dtype))
+    return norm

@@ -6,14 +6,18 @@ dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: exact for the gather (a copy); 1e-3 of the max for the tiny
-flagship on the card against the CPU (float32, TF32 off: sums run in
-another order).
+Tolerance: exact for the gather (a copy); 1e-5 for the rotated IoU
+kernel against its plain version; 1e-5 of the max for the sparse conv's
+K12 backward against plain autograd on the CPU, 1e-3 of the max for the
+tiny flagship on the card against the CPU, and 1e-4 relative for the
+tiny train step's losses (float32, TF32 off: sums run in another order).
 """
 import pytest
 import torch
 
-from isfusion_tpu_torch.ops import cuda_build
+import numpy as np
+
+from isfusion_tpu_torch.ops import box_ops, cuda_build, sparse_conv
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +80,98 @@ def test_tiny_flagship_on_card_matches_cpu(card):
     want = pc["dense_heatmap"]
     err = (pg["dense_heatmap"].cpu() - want).abs().max() / want.abs().max()
     assert err <= 1e-3
+
+
+def _boxes(gen, n, r=50.0):
+    b = torch.empty((n, 7))
+    b[:, :2] = (torch.rand((n, 2), generator=gen) * 2 - 1) * r
+    b[:, 2] = -torch.rand(n, generator=gen) * 2
+    b[:, 3:6] = 0.5 + torch.rand((n, 3), generator=gen) * 4
+    b[:, 6] = (torch.rand(n, generator=gen) * 2 - 1) * np.pi
+    return b
+
+
+def test_boxes_iou_3d_kernel_matches_plain_version(card):
+    gen = torch.Generator().manual_seed(0)
+    a = _boxes(gen, 200)
+    b = a[torch.randperm(200, generator=gen)[:64]] + \
+        torch.randn((64, 7), generator=gen) * 0.3
+    b[:, 3:6] = b[:, 3:6].abs() + 0.1
+    b[:4] = a[:4]                                  # identical pairs
+    a, b = a.to(card), b.to(card)
+    before = cuda_build.LAUNCHES["boxes_iou_3d"]
+    got = box_ops.boxes_iou_3d(a, b)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["boxes_iou_3d"] == before + 1
+    want = box_ops.boxes_iou_3d_ref(a, b)
+    assert (want > 0.1).sum() >= 64
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((got[range(4), range(4)] - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_sparse_conv_backward_on_card_matches_cpu(card, kind):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    grid = (21, 64, 64)
+    cells = torch.randperm(int(np.prod(grid)), generator=gen)[:3000]
+    coords = torch.stack([torch.zeros_like(cells), cells // (64 * 64),
+                          (cells // 64) % 64, cells % 64], -1)
+    feats = torch.randn((3000, 16), generator=gen)
+    sp = sparse_conv.build_sparse(feats, coords, grid, 1)
+    if kind == "subm":
+        rows, found = sparse_conv.subm_rulebook(sp)
+    else:
+        _, rows, found = sparse_conv.strided_rulebook(sp, 3, 2, 1)
+    w0 = torch.randn((32, 3, 3, 3, 16), generator=gen)
+    dy = torch.randn((rows.shape[0], 32), generator=gen)
+    res = []
+    for dev in ("cpu", card):
+        x = sp.feats.to(dev).detach().requires_grad_(True)
+        w = w0.to(dev).detach().requires_grad_(True)
+        before = cuda_build.LAUNCHES["masked_gather"]
+        out = sparse_conv.sparse_conv(x, rows.to(dev), found.to(dev), w)
+        (out * dy.to(dev)).sum().backward()
+        launched = cuda_build.LAUNCHES["masked_gather"] - before
+        res.append((out.detach().cpu(), x.grad.cpu(), w.grad.cpu(),
+                    launched))
+    assert res[0][3] == 0 and res[1][3] == 3   # forward, dX, dW
+    for got, want in zip(res[1][:3], res[0][:3]):
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) <= 1e-5
+
+
+def test_tiny_train_step_on_card_matches_cpu(card):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # deterministic kernels: the tiny model's top-k turns the rounding of
+    # atomics into discrete choices
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        metrics = _tiny_train_step_metrics()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k, want in metrics[0].items():
+        assert abs(metrics[1][k] - want) <= 1e-4 * max(abs(want), 1e-6), k
+
+
+def _tiny_train_step_metrics():
+    from isfusion_tpu_torch.flagship import build_isfusion_flagship
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+
+    metrics = []
+    for dev in ("cpu", "cuda"):
+        # no dropout: the two devices draw different numbers
+        model, batch_fn = build_isfusion_flagship(tiny=True, device=dev,
+                                                  seed=3, dropout=False)
+        model.train()
+        opt = build_optimizer(model, dict(type="AdamW", lr=1e-4))
+        step = make_train_step(model, opt)
+        before = dict(cuda_build.LAUNCHES)
+        m = step(batch_fn(2, seed=4), torch.Generator(dev).manual_seed(0))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if dev == "cuda":
+            assert all(cuda_build.LAUNCHES[k] > before[k]
+                       for k in ("masked_gather", "boxes_iou_3d"))
+    return metrics

@@ -68,7 +68,8 @@ def test_p2g_img_to_bev_matches():
          for k, v in calib.items()}, False,
         method=jenc.ISFusionEncoder._img_to_bev))
     port = tenc.ISFusionEncoder(bev_size=bev, num_views=nv, embed_dims=16,
-                                img_channels=c, lidar_channels=8)
+                                img_channels=c, lidar_channels=8,
+                                random_noise=None)
     got = port.img_to_bev(
         _t(img_feat), _t(pillars[0]),
         _t(np.concatenate([np.zeros((vp, 1), np.int32), coors[0]], 1)),
