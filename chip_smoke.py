@@ -23,7 +23,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
    at the stage-0 shapes, bit for bit, and one conv's dX and dW against
    plain autograd; K10 (rotated 3D IoU) on 4 x 200 x 64 box pairs with
    identical, disjoint, rotated and nested boxes against its plain
-   version;
+   version (all four samples in one launch, as a train step calls it);
 5. breakdown: one request with CUDA events around each top-level module,
    one under torch.profiler (device busy share, top kernels);
 6. precision gap: the same request with every compute dtype float32 (TF32
@@ -44,7 +44,28 @@ Phases, each printing one line (every failure raises, exit code != 0):
    within 1e-4 relative, each top-level module's gradient within 1e-3 of
    its max (the K12 route against plain autograd on the card is
    reported beside it); then 30 steps on that batch on the card (lr
-   1e-3, no clip) must lower the loss.
+   1e-3, no clip) must lower the loss;
+10. PointPillars main path: the full-width PointPillars of
+    ``configs/pointpillars/hv_pointpillars_secfpn_sbn-all_4x8_2x_nus-3d.py``
+    (seeded random weights, bf16 convs, float32 decode and NMS) serves one
+    warm-up and five batch-1 requests of 120,000 points; launch counts are
+    zeroed just before the five and read after each: the phase fails
+    unless K10-NMS (``nms_bev``) launched in every request. Prints the
+    median and max ms, peak memory, pillars against the cap and the kept
+    boxes;
+11. PointPillars kernel check: K10-NMS against its plain version on the
+    request's own top-1,000 boxes and 10 classes and on adversarial sets
+    (identical, nested, 45-degree, chained, all-invalid, single box):
+    suppression bits equal wherever the plain IoU is more than 1e-5 from
+    the threshold, keep masks equal whenever no pair is that close;
+12. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
+    lr with linear warmup, clip 35), 1 warm-up and 5 timed steps; fails on
+    a non-finite or zero grad norm or an unchanged weight of the VFE, the
+    backbone or the head;
+13. PointPillars reference: the tiny PointPillars in float32 on the card
+    against the CPU, predict (same kept entries and labels, boxes within
+    1e-4 of their max) and one train step (losses 1e-4 relative,
+    gradients per top-level module 1e-3 of their max).
 
 The card's ``nvidia-smi`` line, then the kernels' JSON record, then
 ``{"ok": true, "device": {...}}`` end the output.
@@ -52,6 +73,7 @@ The card's ``nvidia-smi`` line, then the kernels' JSON record, then
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -351,29 +373,33 @@ def iou_test_boxes(gen, n: int = 200, m: int = 64):
 
 def phase_iou_check(dev: str = "cuda") -> dict:
     """K10 against its plain version on 4 x 200 x 64 pairs (the
-    assigner's per-sample shape at batch 4), within 1e-5; one launch
-    timed beside its operation bound."""
+    assigner's shape at batch 4, all samples in one launch, as a train
+    step calls it), within 1e-5; the batched launch timed beside its
+    operation bound and beside one launch per sample (the earlier
+    design)."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
 
     gen = torch.Generator().manual_seed(2)
-    pairs = [tuple(t.to(dev) for t in iou_test_boxes(gen)) for _ in range(4)]
-    err, ops = 0.0, 0
-    for a, b, same in pairs:
-        got = box_ops.boxes_iou_3d(a, b)
-        ref = box_ops.boxes_iou_3d_ref(a, b)
-        sync(dev)
-        err = max(err, float((got - ref).abs().max()),
-                  float((got[same, range(8)] - 1).abs().max()))
-        ops += box_ops.iou3d_ops(a, b)
-    a, b, _ = pairs[0]
-    nbytes = (a.numel() + b.numel() + a.shape[0] * b.shape[0]) * 4
-    ops_per_launch = ops / len(pairs)
-    rec = dict(N=a.shape[0], M=b.shape[0], launches_checked=len(pairs),
-               max_abs_err=err, ops_per_launch=ops_per_launch,
+    sets = [iou_test_boxes(gen) for _ in range(4)]
+    a = torch.stack([s[0] for s in sets]).to(dev)
+    b = torch.stack([s[1] for s in sets]).to(dev)
+    got = box_ops.boxes_iou_3d(a, b)
+    ref = box_ops.boxes_iou_3d_ref(a, b)
+    sync(dev)
+    err = float((got - ref).abs().max())
+    for i, (_, _, same) in enumerate(sets):
+        err = max(err, float((got[i, same, range(8)] - 1).abs().max()))
+    ops = box_ops.iou3d_ops(a, b)
+    nbytes = (a.numel() + b.numel() + got.numel()) * 4
+    rec = dict(B=a.shape[0], N=a.shape[1], M=b.shape[1], max_abs_err=err,
+               ops=ops,
                ms=cuda_ms(lambda: box_ops.boxes_iou_3d(a, b), dev, iters=50),
+               per_sample_launches_ms=cuda_ms(
+                   lambda: [box_ops.boxes_iou_3d(a[i], b[i])
+                            for i in range(a.shape[0])], dev, iters=50),
                plain_ms=cuda_ms(lambda: box_ops.boxes_iou_3d_ref(a, b), dev),
-               bound_ms=max(ops_per_launch / F32_OPS_PER_S,
+               bound_ms=max(ops / F32_OPS_PER_S,
                             nbytes / HBM_BYTES_PER_S) * 1e3,
                library_ms=None)
     log("iou_check", **rec)
@@ -388,18 +414,20 @@ BREAKDOWN_MODULES = ("img_backbone", "img_neck", "pts_voxel_encoder",
                      "pts_neck", "pts_bbox_head")
 
 
-def phase_breakdown(model, batch: dict):
+def phase_breakdown(model, batch: dict, modules=BREAKDOWN_MODULES,
+                    nested=("pts_backbone",), prefix: str = ""):
     """Where one request's time goes: CUDA events around each top-level
-    module (forward hooks; stream time, so launch gaps count), then one
-    request under torch.profiler for the device's busy share and the top
-    device operations (kernels and copies). ``fusion_encoder`` includes the ``pts_backbone`` stages it
-    calls; the rest of the request is upload, voxelization,
-    pillarization, decode and host gaps."""
+    module of ``modules`` (forward hooks; stream time, so launch gaps
+    count), then one request under torch.profiler for the device's busy
+    share and the top device operations (kernels and copies). The
+    ``nested`` modules run inside another one (the flagship's
+    ``fusion_encoder`` calls the ``pts_backbone`` stages) and are left
+    out of the sum; the rest of the request is upload, voxelization,
+    pillarization, decode, NMS and host gaps. Logs ``{prefix}breakdown``
+    and ``{prefix}profile``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    spans = {n: [] for n in BREAKDOWN_MODULES}
+    spans = {n: [] for n in modules}
 
     def stamp(name, start):
         def hook(*_):
@@ -412,7 +440,7 @@ def phase_breakdown(model, batch: dict):
         return hook
 
     handles = []
-    for n in BREAKDOWN_MODULES:
+    for n in modules:
         mod = getattr(model, n)
         handles += [mod.register_forward_pre_hook(stamp(n, True)),
                     mod.register_forward_hook(stamp(n, False))]
@@ -426,26 +454,12 @@ def phase_breakdown(model, batch: dict):
             h.remove()
     module_ms = {n: sum(a.elapsed_time(b) for a, b in s)
                  for n, s in spans.items()}
-    top = sum(v for k, v in module_ms.items() if k != "pts_backbone")
-    log("breakdown", request_ms=wall, module_ms=module_ms,
+    top = sum(v for k, v in module_ms.items() if k not in nested)
+    log(f"{prefix}breakdown", request_ms=wall, module_ms=module_ms,
         rest_ms=wall - top)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model(jittered(batch, 0), device="cuda")
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log("profile", request_ms=wall, device_busy_ms=busy,
-        device_idle_share=1 - busy / wall if busy > 0 else "not measured",
-        device_ops=sum(e.count for e in kernels),
-        top_device_ops=[dict(name=e.key[:70], count=e.count,
-                          ms=e.self_device_time_total / 1e3)
-                     for e in kernels[:10]])
+    device_profile(f"{prefix}profile",
+                   lambda: model(jittered(batch, 0), device="cuda"))
 
 
 def phase_precision_gap(model_bf16, batch: dict):
@@ -522,9 +536,10 @@ def train_batch(batch_fn, size: int) -> dict:
     return batch
 
 
-def train_profile(step, batch: dict, gen):
-    """One train step under torch.profiler: the device's busy and idle
-    share and the top device operations."""
+def device_profile(phase: str, fn, top: int = 10) -> None:
+    """``fn()`` once under torch.profiler: its host-clock ms (ending in a
+    synchronize), the device's busy ms and idle share, and the top device
+    operations (kernels and copies)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -532,19 +547,29 @@ def train_profile(step, batch: dict, gen):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, gen)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     ops = sorted((e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ops) / 1e3
-    log("train_profile", step_ms=wall, device_busy_ms=busy,
+    log(phase, wall_ms=wall, device_busy_ms=busy,
         device_idle_share=1 - busy / wall if busy > 0 else "not measured",
         device_ops=sum(e.count for e in ops),
         top_device_ops=[dict(name=e.key[:70], count=e.count,
                              ms=e.self_device_time_total / 1e3)
-                        for e in ops[:12]])
+                        for e in ops[:top]])
+
+
+def _unchanged(model, watch: dict) -> list:
+    """Names of the watched modules' parameters still bit-equal to their
+    copies in ``watch``."""
+    import torch
+    return [f"{n}[{j}]" for n, ps in watch.items()
+            for j, (p, q) in enumerate(zip(getattr(model, n).parameters(),
+                                           ps))
+            if torch.equal(p.detach(), q)]
 
 
 def phase_train(model, batch: dict, dev: str = "cuda",
@@ -636,14 +661,12 @@ def phase_train(model, batch: dict, dev: str = "cuda",
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
             if dev == "cuda" else None
         if dev == "cuda":
-            train_profile(step, jittered(batch, 0), gen)
+            device_profile("train_profile",
+                           lambda: step(jittered(batch, 0), gen), top=12)
     finally:
         transfusion_head.assign_batch = real_assign
         hook.remove()
-    unchanged = [f"{n}[{j}]" for n, ps in watch.items()
-                 for j, (p, q) in enumerate(zip(getattr(model,
-                                                        n).parameters(), ps))
-                 if torch.equal(p.detach(), q)]
+    unchanged = _unchanged(model, watch)
     rec = dict(batch=batch["points"].shape[0], median_ms=statistics.median(
         times), max_ms=max(times), all_ms=times,
         hungarian_ms_median=statistics.median(hungarian_ms),
@@ -762,6 +785,331 @@ def _train_reference(dev: str):
     if not curve[-1] < curve[0]:
         raise RuntimeError(f"30 steps did not lower the loss: {curve}")
 
+# ------------------------------------------------------------ PointPillars
+PP_PREDICT_KERNELS = ("nms_bev",)
+PP_MODULES = ("pts_voxel_encoder", "pts_backbone", "pts_neck",
+              "pts_bbox_head")
+PP_TRAIN_WATCH = ("pts_voxel_encoder", "pts_backbone", "pts_bbox_head")
+NMS_NEAR = 1e-5         # a pair this close to the threshold may round apart
+
+
+def phase_pp_main_path(model, batch: dict, dev: str = "cuda"):
+    """PointPillars serving: 1 warm-up + N_REQUESTS batch-1 requests
+    (bf16 convs, float32 decode and NMS). Records the warm-up's NMS inputs
+    (its top-``nms_pre`` boxes and every class's scores). Launch counts are
+    zeroed just before the timed requests and read after each; fails
+    unless ``nms_bev`` launched in every request. Returns (launch counts,
+    NMS inputs, record)."""
+    import torch
+    from isfusion_tpu_torch.models.dense_heads import anchor3d_head
+    from isfusion_tpu_torch.ops import cuda_build
+
+    real, seen = anchor3d_head.nms_bev_mask, []
+
+    def recording(boxes, scores, thresh, valid):
+        seen.append((boxes.clone(), scores.clone(), valid.clone()))
+        return real(boxes, scores, thresh, valid)
+
+    anchor3d_head.nms_bev_mask = recording
+    try:
+        stats = {}
+        model(jittered(batch, 0), device=dev, stats=stats)
+        sync(dev)
+    finally:
+        anchor3d_head.nms_bev_mask = real
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_request = [], []
+    for i in range(N_REQUESTS):
+        before = cuda_build.LAUNCHES["nms_bev"]
+        t0 = time.perf_counter()
+        out = model(jittered(batch, i + 1), device=dev)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_request.append(cuda_build.LAUNCHES["nms_bev"] - before)
+    launches = dict(cuda_build.LAUNCHES)
+    if dev == "cuda":
+        phase_breakdown(model, batch, PP_MODULES, (), "pp_")
+    n = int(model.pts_bbox_head.test_cfg.get("max_num", 500))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != dict(bboxes=(1, n, 9), scores=(1, n), labels=(1, n),
+                      mask=(1, n)):
+        raise RuntimeError(f"unexpected PointPillars output shapes {shapes}")
+    m = out["mask"]
+    if not (torch.isfinite(out["bboxes"][m]).all()
+            and torch.isfinite(out["scores"][m]).all()):
+        raise RuntimeError("non-finite PointPillars boxes")
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, pillars=stats["voxels"], cap=stats["cap"],
+               kept_boxes=int(m.sum()), nms_launches=per_request,
+               launches=launches)
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("pp_main_path", **rec)
+    if dev == "cuda" and min(per_request) == 0:
+        raise RuntimeError(f"nms_bev did not launch in every request: "
+                           f"{per_request}")
+    return launches, seen[0], rec
+
+
+def nms_test_sets(gen):
+    """Adversarial (name, boxes (1, K, 5), scores (1, C, K), valid) sets:
+    identical boxes, nested boxes, 45-degree rotations, suppression
+    chains (A suppresses B, B would suppress C, A misses C), all-invalid
+    and a single box."""
+    import torch
+
+    def scored(name, boxes, valid=None, scores=None):
+        if scores is None:
+            scores = torch.rand((1, 3, boxes.shape[0]), generator=gen)
+        v = torch.ones_like(scores, dtype=torch.bool) if valid is None \
+            else valid
+        return name, boxes[None], scores, v
+
+    k = torch.arange(64, dtype=torch.float32)
+    base = torch.tensor([3.0, -2.0, 4.0, 2.0, 0.3])
+    nested = base.repeat(64, 1)
+    nested[:, 2:4] *= (0.97 ** k)[:, None]
+    rot = base.repeat(64, 1)
+    rot[:, 4] += k * math.pi / 4
+    chain = torch.tensor([[0.0, 0, 4, 2, 0], [1.2, 0, 4, 2, 0],
+                          [3.4, 0, 4, 2, 0]])
+    chains = torch.cat([chain + torch.tensor([12.0 * i, 0, 0, 0, 0])
+                        for i in range(20)])
+    chain_scores = torch.tensor([0.9, 0.8, 0.7]).repeat(20).expand(1, 3, 60)
+    return [scored("identical", base.repeat(64, 1)),
+            scored("nested", nested), scored("rotated_45", rot),
+            scored("chains", chains, scores=chain_scores.clone()),
+            scored("all_invalid", nested, valid=torch.zeros(
+                (1, 3, 64), dtype=torch.bool)),
+            scored("single_box", base[None])]
+
+
+def _nms_compare(boxes, scores, valid, thr, dev):
+    """(keep masks equal, suppression-bit mismatches away from the
+    threshold, pairs within NMS_NEAR of it, keep flags that differ)."""
+    import torch
+    from isfusion_tpu_torch.ops import box_ops
+
+    got = box_ops.nms_bev_mask(boxes, scores, thr, valid)
+    ref = box_ops.nms_bev_mask_ref(boxes, scores, thr, valid)
+    iou = box_ops.boxes_iou_bev_ref(boxes, boxes)
+    near = (iou - thr).abs() < NMS_NEAR
+    if dev == "cuda":
+        bits = box_ops.nms_bev_suppression_bits(boxes, thr)
+        bad_bits = int(((bits != (iou > thr)) & ~near).sum())
+    else:
+        bad_bits = 0
+    sync(dev)
+    return (torch.equal(got, ref), bad_bits, int(near.sum()),
+            int((got != ref).sum()))
+
+
+def phase_pp_kernel_check(nms_in, dev: str = "cuda") -> dict:
+    """K10-NMS against its plain version on the request's own top boxes
+    and classes and on the adversarial sets: suppression bits equal away
+    from the threshold, keep masks equal whenever no pair lies within
+    NMS_NEAR of it; the request's NMS timed beside its operation bound.
+    Returns the record for the JSON line."""
+    import torch
+    from isfusion_tpu_torch.ops import box_ops
+
+    thr = 0.2
+    boxes, scores, valid = nms_in
+    gen = torch.Generator().manual_seed(11)
+    cases = [("request", boxes, scores, valid)] + [
+        (n, b.to(dev), s.to(dev), v.to(dev))
+        for n, b, s, v in nms_test_sets(gen)]
+    worst = 0
+    for name, b, s, v in cases:
+        equal, bad_bits, near, differ = _nms_compare(b, s, v, thr, dev)
+        worst = max(worst, differ)
+        log("pp_nms_case", case=name, K=b.shape[1], C=s.shape[1],
+            kept=int(box_ops.nms_bev_mask_ref(b, s, thr, v).sum()),
+            keep_equal=equal, bad_bits=bad_bits, pairs_near_threshold=near,
+            keep_flags_differ=differ)
+        if bad_bits or (near == 0 and not equal):
+            raise RuntimeError(f"nms_bev differs from its plain version on "
+                               f"{name}: {bad_bits} bits, {differ} flags")
+    ops = box_ops.nms_bev_ops(boxes)
+    nbytes = boxes.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
+    rec = dict(B=boxes.shape[0], K=boxes.shape[1], C=scores.shape[1],
+               max_abs_err=float(worst), ops=ops,
+               ms=cuda_ms(lambda: box_ops.nms_bev_mask(boxes, scores, thr,
+                                                       valid), dev, iters=50),
+               plain_ms=cuda_ms(lambda: box_ops.nms_bev_mask_ref(
+                   boxes, scores, thr, valid), dev, iters=2),
+               sort_ms=cuda_ms(lambda: torch.sort(
+                   scores, dim=-1, descending=True, stable=True), dev,
+                   iters=50),
+               bound_ms=max(ops / F32_OPS_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+               library_ms=None)
+    if dev == "cuda":
+        # the pairwise pass alone (the greedy pass is the rest)
+        rec["pairwise_ms"] = cuda_ms(lambda: box_ops._launch_nms(
+            boxes, None, None, None, 1, thr, False), dev, iters=50)
+    log("pp_kernel_check", **rec)
+    return rec
+
+
+def phase_pp_train(model, batch: dict, dev: str = "cuda",
+                   steps: int = N_TRAIN_STEPS) -> dict:
+    """1 warm-up + ``steps`` PointPillars train steps with the config's
+    ``schedule_2x`` recipe (AdamW, step lr with linear warmup, clip 35);
+    fails on a non-finite or zero grad norm or an unchanged weight of the
+    VFE, the backbone or the head."""
+    import torch
+    from isfusion_tpu_torch.flagship import pointpillars_optim_cfg
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    cfg = pointpillars_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(
+        model, opt, build_schedule(opt, cfg["lr_config"],
+                                   cfg["momentum_config"]),
+        grad_clip_norm(cfg["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    step(jittered(batch, 0), gen)
+    sync(dev)
+    watch = {n: [p.detach().clone() for p in getattr(model, n).parameters()]
+             for n in PP_TRAIN_WATCH}
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times, marks = [], []
+
+    def event():
+        if dev != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    hook = model.register_forward_hook(lambda *_: marks.append(event()))
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            ev0 = event()
+            m = step(jittered(batch, i + 1), gen)
+            ev1 = event()
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            split = {} if ev0 is None else dict(
+                forward_stream_ms=ev0.elapsed_time(marks[-1]),
+                backward_update_stream_ms=marks[-1].elapsed_time(ev1))
+            vals = {k: float(v) for k, v in m.items()}
+            log("pp_train_step", step=i, ms=times[-1], **split, **vals)
+            if any(not math.isfinite(v) for v in vals.values()) or \
+                    vals["grad_norm"] == 0:
+                raise RuntimeError(f"PointPillars train step {i}: {vals}")
+    finally:
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+    if dev == "cuda":
+        device_profile("pp_train_profile",
+                       lambda: step(jittered(batch, 0), gen), top=12)
+    unchanged = _unchanged(model, watch)
+    rec = dict(batch=batch["points"].shape[0],
+               median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, unchanged_weights=unchanged)
+    if peak is not None:
+        rec["peak_mem_gib"] = peak
+    log("pp_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"weights unchanged by {steps} PointPillars "
+                           f"train steps: {unchanged[:10]}")
+    return rec
+
+
+def tame_box_deltas(model, scale: float = 0.01):
+    """Scale the Anchor3DHead's box-regression weights by ``scale``.
+    Seeded random weights regress size residuals of tens, whose exp()
+    decodes to boxes 1e4-1e10 m wide; the NMS over such boxes rests on
+    float32 rounding, which the card and the CPU do differently. Scaled,
+    the boxes stay near their anchors."""
+    import torch
+    with torch.no_grad():
+        model.pts_bbox_head.conv_reg.weight.mul_(scale)
+    return model
+
+
+def pp_kept_boxes(model, batch: dict, dev: str):
+    """Every box the model keeps after NMS (``max_num`` lifted so that no
+    near-tie decides which ones make the cut), in a canonical order:
+    (boxes, scores, sample * C + label) sorted by that key, then by x."""
+    import torch
+    head = model.pts_bbox_head
+    cfg = dict(head.test_cfg)
+    head.test_cfg["max_num"] = int(cfg.get("nms_pre", 1000)) * \
+        head.num_classes
+    try:
+        out = {k: v.cpu() for k, v in model(batch, device=dev).items()}
+    finally:
+        head.test_cfg = cfg
+    m = out["mask"]
+    key = (torch.arange(m.shape[0])[:, None] * head.num_classes +
+           out["labels"])[m]
+    boxes, scores = out["bboxes"][m], out["scores"][m]
+    o = torch.argsort(boxes[:, 0], stable=True)
+    o = o[torch.argsort(key[o], stable=True)]
+    return boxes[o], scores[o], key[o]
+
+
+def phase_pp_reference(dev: str = "cuda"):
+    """Tiny PointPillars, float32 (TF32 off), box deltas tamed
+    (``tame_box_deltas``): predict and one train step on the card against
+    the CPU from the same weights and batch. The same
+    boxes kept with the same labels, boxes and scores within 1e-4 of their
+    max;
+    losses within 1e-4 relative, each top-level module's gradient within
+    1e-3 of its max."""
+    import torch
+    from isfusion_tpu_torch.flagship import build_pointpillars_flagship
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def run(d):
+        model, batch_fn = build_pointpillars_flagship(tiny=True, device=d,
+                                                      seed=1)
+        batch = batch_fn(2, seed=3)
+        out = pp_kept_boxes(tame_box_deltas(model), batch, d)
+        model.train()
+        opt = build_optimizer(model, dict(type="AdamW", lr=1e-4))
+        m = make_train_step(model, opt)(batch,
+                                        torch.Generator(d).manual_seed(0))
+        grads = {top: [p.grad.detach().cpu().flatten()
+                       for p in getattr(model, top).parameters()]
+                 for top in PP_MODULES}
+        return out, {k: float(v) for k, v in m.items()}, grads
+
+    (og, mg, gg), (oc, mc, gc) = run(dev), run("cpu")
+    if not torch.equal(og[2], oc[2]):
+        raise RuntimeError("tiny PointPillars on the card kept other boxes "
+                           "than on the CPU")
+
+    def rel_to_max(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    box_err = max(rel_to_max(og[i], oc[i]) for i in (0, 1))
+    loss_err = max(abs(mg[k] - v) / max(abs(v), 1e-12) for k, v in mc.items())
+    grad_err = {top: rel_to_max(torch.cat(gg[top]), torch.cat(gc[top]))
+                for top in PP_MODULES}
+    log("pp_reference", kept=len(oc[2]), box_rel_err=box_err,
+        loss_rel_err=loss_err, grad_rel_err=grad_err, losses=mc)
+    if box_err > 1e-4 or loss_err > 1e-4 or max(grad_err.values()) > 1e-3:
+        raise RuntimeError(f"tiny PointPillars on the card differs from the "
+                           f"CPU: boxes {box_err:.3g}, losses "
+                           f"{loss_err:.3g}, grads {grad_err}")
+
 
 def main() -> int:
     import torch
@@ -794,6 +1142,24 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_train_reference()
+    torch.cuda.empty_cache()
+
+    from isfusion_tpu_torch.flagship import (build_pointpillars_flagship,
+                                             pointpillars_optim_cfg)
+    pp, pp_batch_fn = build_pointpillars_flagship(device="cuda", seed=0)
+    pp_launches, nms_in, _ = phase_pp_main_path(pp, pp_batch_fn(1))
+    missing = [k for k in PP_PREDICT_KERNELS if pp_launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on the PointPillars "
+                           f"path: {missing}")
+    nms = phase_pp_kernel_check(nms_in)
+    del nms_in
+    phase_pp_train(pp, pp_batch_fn(pointpillars_optim_cfg()[
+        "samples_per_gpu"]))
+    del pp
+    torch.cuda.empty_cache()
+    phase_pp_reference()
+
     per_step = train["launches_per_step"]
     kernels = [dict(
         name="masked_gather", route="cuda",
@@ -817,7 +1183,16 @@ def main() -> int:
              max_abs_err=iou["max_abs_err"], ms=iou["ms"],
              plain_ms=iou["plain_ms"], bound_ms=iou["bound_ms"],
              bound_by="operations", library_ms=None,
-             train_launches_per_step=per_step["boxes_iou_3d"])]
+             train_launches_per_step=per_step["boxes_iou_3d"],
+             per_sample_launches_ms=iou["per_sample_launches_ms"]),
+        dict(name="nms_bev", route="cuda",
+             source="isfusion_tpu_torch/csrc/nms_bev.cu",
+             replaces="isfusion_tpu/ops/box_ops.py:216",
+             launches=pp_launches["nms_bev"],
+             max_abs_err=nms["max_abs_err"], ms=nms["ms"],
+             plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"],
+             bound_by="operations", library_ms=None,
+             launches_per_request=pp_launches["nms_bev"] // N_REQUESTS)]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

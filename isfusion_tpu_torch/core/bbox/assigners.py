@@ -4,8 +4,9 @@
 HungarianAssigner3D with mmdet's FocalLossCost, BBoxBEVL1Cost and
 IoU3DCost).
 
-The costs are formed on the device (IoU3DCost through the K10 kernel,
-``ops/box_ops.py``); the matching runs on the host (``ops/hungarian.py``).
+The costs are formed on the device for every sample and decoder layer at
+once (IoU3DCost through one launch of the K10 kernel, ``ops/box_ops.py``);
+the matching runs on the host (``ops/hungarian.py``).
 Padded GT columns carry cost 1e8, and matches to them are reported as
 background, as in the JAX package.
 """
@@ -24,12 +25,13 @@ _BIG = 1e8
 def focal_loss_cost(cls_pred: torch.Tensor, gt_labels: torch.Tensor,
                     weight: float, alpha: float = 0.25, gamma: float = 2.0,
                     eps: float = 1e-12) -> torch.Tensor:
-    """(Q, num_classes) logits x (G,) labels -> (Q, G)."""
+    """(..., Q, num_classes) logits x (..., G) labels -> (..., Q, G)."""
     p = torch.sigmoid(cls_pred.float())
     neg = -torch.log(1 - p + eps) * (1 - alpha) * p ** gamma
     pos = -torch.log(p + eps) * alpha * (1 - p) ** gamma
-    lab = gt_labels.long()
-    return (pos[:, lab] - neg[:, lab]) * weight
+    lab = gt_labels.long()[..., None, :].expand(
+        cls_pred.shape[:-1] + gt_labels.shape[-1:])
+    return (torch.gather(pos, -1, lab) - torch.gather(neg, -1, lab)) * weight
 
 
 def bbox_bev_l1_cost(bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
@@ -39,9 +41,9 @@ def bbox_bev_l1_cost(bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
                          device=bboxes.device)
     extent = torch.tensor([float(v) for v in pc_range[3:5]],
                           device=bboxes.device) - start
-    a = (bboxes[:, :2].float() - start) / extent
-    b = (gt_bboxes[:, :2].float() - start) / extent
-    return weight * (a[:, None] - b[None]).abs().sum(-1)
+    a = (bboxes[..., :2].float() - start) / extent
+    b = (gt_bboxes[..., :2].float() - start) / extent
+    return weight * (a[..., :, None, :] - b[..., None, :, :]).abs().sum(-1)
 
 
 class AssignResult(NamedTuple):
@@ -59,9 +61,10 @@ class HungarianAssigner3D:
     def cost(self, bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
              gt_labels: torch.Tensor, gt_mask: torch.Tensor,
              cls_pred: torch.Tensor, train_cfg: dict):
-        """(cost (Q, G), iou (Q, G)) of one sample and decoder layer:
-        decoded predictions (Q, >=7), padded GTs (G, >=7), labels and
-        validity (G,), class logits (Q, num_classes)."""
+        """(cost (..., Q, G), iou (..., Q, G)): decoded predictions (...,
+        Q, >=7), padded GTs (..., G, >=7), labels and validity (..., G),
+        class logits (..., Q, num_classes), with the same leading (batch)
+        dims; one K10 launch for all of them."""
         cc, rc = self.cls_cost, self.reg_cost
         cost = focal_loss_cost(cls_pred, gt_labels,
                                float(cc.get("weight", 1.0)),
@@ -70,9 +73,9 @@ class HungarianAssigner3D:
         cost = cost + bbox_bev_l1_cost(bboxes, gt_bboxes,
                                        train_cfg["point_cloud_range"],
                                        float(rc.get("weight", 1.0)))
-        iou = boxes_iou_3d(bboxes[:, :7], gt_bboxes[:, :7])
+        iou = boxes_iou_3d(bboxes[..., :7], gt_bboxes[..., :7])
         cost = cost - iou * float(self.iou_cost.get("weight", 1.0))
-        cost = torch.where(gt_mask[None, :].bool(), cost,
+        cost = torch.where(gt_mask[..., None, :].bool(), cost,
                            torch.full_like(cost, _BIG))
         return cost, iou
 

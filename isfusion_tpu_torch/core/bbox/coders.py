@@ -1,11 +1,49 @@
-"""TransFusion box coder (counterpart of ``isfusion_tpu/core/bbox/coders.py:
-TransFusionBBoxCoder``): ``encode`` for the training targets, ``decode``
-and ``valid_mask`` for the predictions. Geometry stays float32."""
+"""Box coders (counterpart of ``isfusion_tpu/core/bbox/coders.py``):
+``DeltaXYZWLHRBBoxCoder`` (anchor residuals of PointPillars) and
+``TransFusionBBoxCoder`` (``encode`` for the training targets, ``decode``
+and ``valid_mask`` for the predictions). Geometry stays float32: the
+``exp`` of the size residuals overflows bf16."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+
+
+class DeltaXYZWLHRBBoxCoder:
+    """Residuals against anchors: xy over the anchor's BEV diagonal, z
+    (gravity centre) over its height, log sizes, additive yaw, raw
+    differences of the custom values (velocity)."""
+
+    def __init__(self, code_size: int = 7, **unused):
+        self.code_size = code_size
+
+    @staticmethod
+    def encode(anchors: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        anchors, gt = anchors.float(), gt.float()
+        xa, ya, za, wa, la, ha, ra = anchors[..., :7].unbind(-1)
+        xg, yg, zg, wg, lg, hg, rg = gt[..., :7].unbind(-1)
+        za = za + ha / 2
+        zg = zg + hg / 2
+        diag = torch.sqrt(la ** 2 + wa ** 2)
+        out = torch.stack([(xg - xa) / diag, (yg - ya) / diag,
+                           (zg - za) / ha, torch.log(wg / wa),
+                           torch.log(lg / la), torch.log(hg / ha), rg - ra],
+                          -1)
+        return torch.cat([out, gt[..., 7:] - anchors[..., 7:]], -1)
+
+    @staticmethod
+    def decode(anchors: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+        anchors, deltas = anchors.float(), deltas.float()
+        xa, ya, za, wa, la, ha, ra = anchors[..., :7].unbind(-1)
+        xt, yt, zt, wt, lt, ht, rt = deltas[..., :7].unbind(-1)
+        za = za + ha / 2
+        diag = torch.sqrt(la ** 2 + wa ** 2)
+        hg = torch.exp(ht) * ha
+        out = torch.stack([xt * diag + xa, yt * diag + ya,
+                           zt * ha + za - hg / 2, torch.exp(wt) * wa,
+                           torch.exp(lt) * la, hg, rt + ra], -1)
+        return torch.cat([out, deltas[..., 7:] + anchors[..., 7:]], -1)
 
 
 class TransFusionBBoxCoder:

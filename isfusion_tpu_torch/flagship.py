@@ -1,5 +1,5 @@
-"""The IS-Fusion flagship and its synthetic inputs (counterpart of
-``isfusion_tpu/flagship.py``).
+"""The IS-Fusion flagship, the PointPillars baseline and their synthetic
+inputs (counterpart of ``isfusion_tpu/flagship.py``).
 
 The input generators are copies of the JAX package's and return numpy
 arrays, so one batch can be handed to both packages bit for bit.
@@ -16,6 +16,11 @@ the CUDA card (``device="cpu"`` to run on the CPU), in eval mode;
     step = make_train_step(model, opt, sched,         # parallel/train_step.py
                            grad_clip_norm(cfg["optimizer_config"]))
     metrics = step(batch_fn(4), torch.Generator("cuda").manual_seed(0))
+
+``build_pointpillars_flagship`` builds the LiDAR-only PointPillars
+detector of ``configs/pointpillars/hv_pointpillars_secfpn_sbn-all_4x8_2x_
+nus-3d.py`` the same way, and ``pointpillars_optim_cfg`` gives its
+``schedule_2x`` recipe (step lr with warmup, clip 35).
 """
 from __future__ import annotations
 
@@ -31,6 +36,9 @@ from . import resolve_device
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ISFUSION_CFG = os.path.join(
     REPO_ROOT, "configs", "isfusion", "isfusion_0075voxel.py")
+POINTPILLARS_CFG = os.path.join(
+    REPO_ROOT, "configs", "pointpillars",
+    "hv_pointpillars_secfpn_sbn-all_4x8_2x_nus-3d.py")
 
 # config keys of the modules that carry a compute_dtype
 _DTYPE_MODULES = ("img_backbone", "img_neck", "pts_middle_encoder",
@@ -260,4 +268,87 @@ def build_isfusion_flagship(tiny: bool = False,
     else:
         def batch_fn(b, seed=0):
             return synthetic_multimodal_batch(b, seed=seed)
+    return model, batch_fn
+
+
+def pointpillars_model_cfg(tiny: bool = False) -> dict:
+    """The PointPillars model config dict. ``tiny`` shrinks geometry and
+    widths as the JAX package's tiny variant does (16 m x 16 m at 0.5 m,
+    <= 8 points in <= 256 pillars, SECOND 16/32/64) and runs float32;
+    at full width the SECOND backbone, the neck and the head compute in
+    bf16 (the port's serving and training precision; the voxel encoder
+    stays float32, as in the JAX package)."""
+    compute_dtype = "bfloat16"
+    from .config import Config
+
+    model_cfg = copy.deepcopy(dict(Config.fromfile(POINTPILLARS_CFG).model))
+    if tiny:
+        pcr = [-8, -8, -5, 8, 8, 3]
+        vs = [0.5, 0.5, 8]
+        model_cfg["pts_voxel_layer"] = dict(
+            max_num_points=8, point_cloud_range=pcr, voxel_size=vs,
+            max_voxels=(256, 256))
+        model_cfg["pts_voxel_encoder"] = dict(
+            model_cfg["pts_voxel_encoder"], feat_channels=[16, 16],
+            voxel_size=vs, point_cloud_range=pcr)
+        model_cfg["pts_middle_encoder"] = dict(
+            model_cfg["pts_middle_encoder"], in_channels=16,
+            output_shape=[32, 32])
+        model_cfg["pts_backbone"] = dict(
+            model_cfg["pts_backbone"], in_channels=16,
+            out_channels=[16, 32, 64], layer_nums=[1, 1, 1])
+        model_cfg["pts_neck"] = dict(
+            model_cfg["pts_neck"], in_channels=[16, 32, 64],
+            out_channels=[16, 16, 16])
+        head = dict(model_cfg["pts_bbox_head"], in_channels=48,
+                    feat_channels=48)
+        head["anchor_generator"] = dict(
+            head["anchor_generator"],
+            ranges=[[-8, -8, r[2], 8, 8, r[5]]
+                    for r in head["anchor_generator"]["ranges"]])
+        model_cfg["pts_bbox_head"] = head
+        compute_dtype = None
+    for key in ("pts_backbone", "pts_neck", "pts_bbox_head"):
+        model_cfg[key] = dict(model_cfg[key], compute_dtype=compute_dtype)
+    return model_cfg
+
+
+def pointpillars_optim_cfg() -> dict:
+    """The PointPillars config's training recipe (``schedule_2x``):
+    ``optimizer``, ``optimizer_config`` (grad clip), ``lr_config``,
+    ``momentum_config`` (None) and ``samples_per_gpu``."""
+    from .config import Config
+
+    cfg = Config.fromfile(POINTPILLARS_CFG)
+    out = {k: copy.deepcopy(dict(cfg[k])) if cfg[k] is not None else None
+           for k in ("optimizer", "optimizer_config", "lr_config",
+                     "momentum_config")}
+    out["samples_per_gpu"] = int(cfg.data["samples_per_gpu"])
+    return out
+
+
+def build_pointpillars_flagship(tiny: bool = False, device=None,
+                                seed: int = 0
+                                ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): the PointPillars nuScenes detector
+    (``MVXFasterRCNN``) with weights drawn from ``seed``, in eval mode on
+    ``device`` (default: the CUDA card; raises if it is missing), and
+    ``batch_fn(batch_size, seed=0)`` giving a numpy batch (bench shape:
+    120,000 points, 64 padded GT boxes; tiny: 2,048 points, 8 boxes, as the
+    JAX package's tiny variant)."""
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model_cfg = pointpillars_model_cfg(tiny)
+    model = init_weights(build_detector(model_cfg), seed).to(dev).eval()
+    if tiny:
+        pcr = tuple(model_cfg["pts_voxel_layer"]["point_cloud_range"])
+
+        def batch_fn(b, seed=0):
+            return synthetic_points_batch(b, num_points=2048, num_gt=8,
+                                          seed=seed, pcr=pcr)
+    else:
+        def batch_fn(b, seed=0):
+            return synthetic_points_batch(b, seed=seed)
     return model, batch_fn

@@ -1,25 +1,30 @@
-"""Builders for the model types of the IS-Fusion predict path (counterpart
-of ``isfusion_tpu/models/builder.py``): config dicts with a ``type`` key
-become modules through the port's registries."""
+"""Builders for the model types of the IS-Fusion and PointPillars paths
+(counterpart of ``isfusion_tpu/models/builder.py``): config dicts with a
+``type`` key become modules through the port's registries."""
 from __future__ import annotations
 
 from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
                         MIDDLE_ENCODERS, NECKS, VOXEL_ENCODERS, build_from_cfg)
-from .backbones.second import SECONDV2
+from .backbones.second import SECOND, SECONDV2
 from .backbones.swin import SwinTransformer
+from .dense_heads.anchor3d_head import Anchor3DHead
 from .dense_heads.transfusion_head import TransFusionHeadV2
 from .middle_encoders.isfusion_encoder import ISFusionEncoder
+from .middle_encoders.pillar_scatter import PointPillarsScatter
 from .middle_encoders.sparse_encoder import SparseEncoder
 from .necks.generalized_lss import GeneralizedLSSFPN
 from .necks.second_fpn import SECONDFPN
-from .voxel_encoders import DynamicVFE
+from .voxel_encoders import DynamicVFE, HardVFE, PillarFeatureNet
 
 for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
+                   (BACKBONES, SECOND),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
-                   (VOXEL_ENCODERS, DynamicVFE),
+                   (VOXEL_ENCODERS, DynamicVFE), (VOXEL_ENCODERS, HardVFE),
+                   (VOXEL_ENCODERS, PillarFeatureNet),
                    (MIDDLE_ENCODERS, SparseEncoder),
+                   (MIDDLE_ENCODERS, PointPillarsScatter),
                    (FUSION_LAYERS, ISFusionEncoder),
-                   (HEADS, TransFusionHeadV2)):
+                   (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead)):
     _reg.register_module(module=_cls)
 
 
@@ -49,6 +54,6 @@ def build_fusion_layer(cfg, **kwargs):
 
 def build_detector(cfg):
     """Build a detector from its config dict (on the CPU, uninitialised:
-    ``flagship.build_isfusion_flagship`` initialises and places it)."""
-    from .detectors import isfusion  # noqa: F401  (registers the detector)
+    the factories of ``flagship.py`` initialise and place it)."""
+    from .detectors import isfusion, mvx_two_stage  # noqa: F401  (register)
     return build_from_cfg(dict(cfg), DETECTORS)

@@ -9,8 +9,9 @@ The JAX head's stop-gradients sit at the same places: the proposal top-k
 reads a detached heatmap, each decoder layer's query positions are the
 detached centres of the layer before, the targets are computed on
 detached predictions, and ``matched_ious`` carries no gradient. Matching
-costs are formed on the device (IoU3DCost through the K10 kernel) and
-solved on the host in one batch per step (``ops/hungarian.py``).
+costs are formed on the device (IoU3DCost through one K10 launch for the
+whole step) and solved on the host in one batch per step
+(``ops/hungarian.py``).
 
 NHWC BEV input. Heatmap logits, their top-k and the final FFN layers run
 in float32; the rest in the config's ``compute_dtype``. Reference names:
@@ -229,18 +230,12 @@ class TransFusionHeadV2(nn.Module):
                                        det["center"], det["height"],
                                        det.get("vel"))["bboxes"]
         b, g = gt_labels.shape
-        costs, ious = [], []
-        for i in range(b):
-            for l in range(nl):
-                sl = slice(l * p, (l + 1) * p)
-                c, iou = assigner.cost(boxes[i, sl], gt_bboxes[i],
-                                       gt_labels[i], gt_mask[i],
-                                       det["heatmap"][i, sl], tc)
-                costs.append(c)
-                ious.append(iou)
-        cols = assign_batch(torch.stack(costs).view(b, nl, p, g))
+        # every sample and decoder layer in one cost (one K10 launch)
+        cost, iou = assigner.cost(boxes, gt_bboxes, gt_labels, gt_mask,
+                                  det["heatmap"], tc)
+        cols = assign_batch(cost.view(b, nl, p, g))
         res = assigner.result(
-            cols, torch.stack(ious).view(b, nl, p, g),
+            cols, iou.view(b, nl, p, g),
             gt_labels[:, None].expand(b, nl, g),
             gt_mask[:, None].expand(b, nl, g))
         gt_inds = res.gt_inds.reshape(b, nl * p)

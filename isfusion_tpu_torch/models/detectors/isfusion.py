@@ -29,16 +29,15 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
-from ... import resolve_device
 from ...ops.voxel import voxelize_dynamic, voxelize_hard
 from ..layers import random_source
 from ...registry import DETECTORS
 from ..builder import (build_backbone, build_fusion_layer, build_head,
                        build_middle_encoder, build_neck, build_voxel_encoder)
+from .mvx_two_stage import upload
 
 
 @DETECTORS.register_module()
@@ -119,16 +118,7 @@ class ISFusionDetector(nn.Module):
                 return self._forward(batch, mode, device, stats)
 
     def _forward(self, batch, mode, device, stats):
-        dev = resolve_device(device)
-        pdev = next(self.parameters()).device
-        if pdev != dev and not (pdev.type == dev.type == "cuda"
-                                and dev.index is None):
-            raise RuntimeError(f"model parameters are on {pdev}, the "
-                               f"forward was asked to run on {dev}")
-        dev = pdev
-        t = {k: v.to(dev) if torch.is_tensor(v)
-             else torch.from_numpy(np.array(v)).to(dev)
-             for k, v in batch.items()}
+        t = upload(self, batch, device)
         img = t["img"].float()
         img_feats = self.extract_img_feat(img, t.get("img_view_mask"))
         calib = dict(lidar2img=t["lidar2img"].float(),

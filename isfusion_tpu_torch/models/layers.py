@@ -256,18 +256,54 @@ class ConvModule(nn.Module):
         return x
 
 
+class MaskedBatchNorm(BatchNorm):
+    """BatchNorm over padded (..., N, C) buffers with a (..., N) validity
+    mask — the JAX package's ``MaskedBatchNorm``. Train mode takes the
+    statistics of the valid rows only, as that package computes them
+    (mean and mean square in float32, variance ``meansqr - mean**2``
+    floored at 0), normalises every row with them, and feeds the same
+    biased variance into ``running_var``."""
+
+    def forward(self, x, mask):
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        m = mask.float()[..., None]
+        x32 = x.float()
+        dims = tuple(range(x.dim() - 1))
+        cnt = m.sum().clamp_min(1.0)
+        mean = (x32 * m).sum(dims) / cnt
+        var = (((x32 * m) ** 2).sum(dims) / cnt - mean ** 2).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x32 - mean) * inv + self.bias.float()
+        return y.to(compute_dtype(x, self.cdtype))
+
+
 class LinearNormAct(nn.Module):
     """Linear (no bias) + BN1d + ReLU over point rows — the reference's
-    VFE layer (``linear``, ``norm``). Computes in float32."""
+    VFE layer (``linear``, ``norm``). Computes in float32. With
+    ``masked=True`` it works on padded (..., N, C) buffers: the norm is a
+    ``MaskedBatchNorm`` and ``forward(x, mask)`` zeroes the padded rows
+    after the ReLU (the JAX package's ``LinearNormAct``)."""
 
-    def __init__(self, in_channels, out_channels, norm_cfg=None):
+    def __init__(self, in_channels, out_channels, norm_cfg=None,
+                 masked: bool = False):
         super().__init__()
         self.linear = Linear(in_channels, out_channels, bias=False)
-        self.norm = BatchNorm(out_channels, eps=norm_eps(norm_cfg, 1e-3),
-                              momentum=norm_momentum(norm_cfg, 0.01))
+        bn = MaskedBatchNorm if masked else BatchNorm
+        self.norm = bn(out_channels, eps=norm_eps(norm_cfg, 1e-3),
+                       momentum=norm_momentum(norm_cfg, 0.01))
 
-    def forward(self, x):
-        return torch.relu(self.norm(self.linear(x)))
+    def forward(self, x, mask=None):
+        if mask is None:
+            return torch.relu(self.norm(self.linear(x)))
+        y = torch.relu(self.norm(self.linear(x), mask))
+        return torch.where(mask[..., None], y, torch.zeros((), dtype=y.dtype,
+                                                           device=y.device))
 
 
 def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:

@@ -1,7 +1,8 @@
-"""The losses of the TransFusion head (counterpart of
+"""The losses of the TransFusion and Anchor3D heads (counterpart of
 ``isfusion_tpu/models/losses.py``): mmdet's FocalLoss (sigmoid),
-GaussianFocalLoss and L1Loss with their ``weight`` and ``avg_factor``
-reduction, built from config dicts by ``build_loss``."""
+GaussianFocalLoss, L1Loss, SmoothL1Loss and CrossEntropyLoss with their
+``weight`` and ``avg_factor`` reduction, built from config dicts by
+``build_loss``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -69,6 +70,33 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor,
     return _reduce((pred - target).abs(), weight, reduction, avg_factor)
 
 
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   weight: Optional[torch.Tensor] = None, beta: float = 1.0,
+                   reduction: str = "mean", avg_factor=None) -> torch.Tensor:
+    diff = (pred - target).abs()
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+    return _reduce(loss, weight, reduction, avg_factor)
+
+
+def cross_entropy_loss(pred: torch.Tensor, label: torch.Tensor,
+                       weight: Optional[torch.Tensor] = None,
+                       reduction: str = "mean", avg_factor=None,
+                       use_sigmoid: bool = False) -> torch.Tensor:
+    """CE over logits: softmax over the last axis against int class
+    indices, or (``use_sigmoid``) binary CE against a target of pred's
+    shape, or of pred's shape without its class axis (mean over
+    classes)."""
+    if use_sigmoid:
+        loss = _bce_with_logits(pred, label.to(pred.dtype))
+        if loss.dim() == label.dim() + 1:
+            loss = loss.mean(-1)
+    else:
+        logp = torch.log_softmax(pred, -1)
+        loss = -torch.gather(logp, -1, label.long()[..., None])[..., 0]
+    return _reduce(loss, weight, reduction, avg_factor)
+
+
 class _LossWrapper:
     """A config-built loss: ``loss_weight * fn(pred, target, weight,
     avg_factor, **defaults)``."""
@@ -103,4 +131,12 @@ def build_loss(cfg: dict) -> _LossWrapper:
                             reduction=reduction)
     if kind == "L1Loss":
         return _LossWrapper(l1_loss, weight, reduction=reduction)
+    if kind == "SmoothL1Loss":
+        return _LossWrapper(smooth_l1_loss, weight,
+                            beta=float(cfg.pop("beta", 1.0)),
+                            reduction=reduction)
+    if kind == "CrossEntropyLoss":
+        return _LossWrapper(cross_entropy_loss, weight,
+                            use_sigmoid=bool(cfg.pop("use_sigmoid", False)),
+                            reduction=reduction)
     raise ValueError(f"unknown loss type {kind!r}")

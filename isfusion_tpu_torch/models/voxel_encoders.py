@@ -1,11 +1,15 @@
-"""DynamicVFE (counterpart of ``isfusion_tpu/models/voxel_encoders.py:DynamicVFE``).
+"""Voxel feature encoders (counterpart of
+``isfusion_tpu/models/voxel_encoders.py``): DynamicVFE, and HardVFE /
+PillarFeatureNet over hard-voxelized (V, T, C) buffers.
 
 Per-point features [point, xyz - voxel mean, xyz - voxel centre] go
 through Linear+BN+ReLU layers; after each layer the per-voxel max is
-taken, and concatenated back onto the points for the next layer. Works on
-the valid points only (dynamic shapes). Float32 throughout: the JAX
-package runs its VFE without a compute dtype. Reference names:
-``vfe_layers.{i}.{linear,norm}``.
+taken, and concatenated back onto the points for the next layer.
+DynamicVFE works on the valid points only (dynamic shapes); the hard
+encoders keep the JAX package's padded buffers, masked BatchNorm
+(statistics of the valid point slots) and zeroed padded slots. Float32
+throughout: the JAX package runs its VFE without a compute dtype.
+Reference names: ``vfe_layers.{i}.{linear,norm}``.
 """
 from __future__ import annotations
 
@@ -79,3 +83,78 @@ class DynamicVFE(nn.Module):
             if i < len(self.vfe_layers) - 1:
                 x = torch.cat([x, voxel_feats[vid]], -1)
         return voxel_feats
+
+
+class HardVFE(nn.Module):
+    """VFE over (V, T, C) voxel buffers with per-layer max-pool and concat
+    (the JAX package's ``_PooledVFE``: HardVFE, and PillarFeatureNet with
+    ``center_xy_only``)."""
+
+    center_xy_only = False
+
+    def __init__(self, in_channels: int = 4,
+                 feat_channels: Sequence[int] = (64, 64),
+                 with_distance: bool = False,
+                 with_cluster_center: bool = True,
+                 with_voxel_center: bool = True,
+                 voxel_size=(0.2, 0.2, 4), point_cloud_range=(0, -40, -3,
+                                                              70.4, 40, 1),
+                 norm_cfg=None, **unused):
+        super().__init__()
+        self.with_distance = with_distance
+        self.with_cluster_center = with_cluster_center
+        self.with_voxel_center = with_voxel_center
+        self.voxel_size = list(voxel_size)
+        self.point_cloud_range = list(point_cloud_range)
+        norm_cfg = dict(norm_cfg or dict(type="BN1d", eps=1e-3,
+                                         momentum=0.01))
+        cin = in_channels + 3 * with_cluster_center + int(with_distance) + \
+            (2 if self.center_xy_only else 3) * with_voxel_center
+        layers = []
+        for c in feat_channels:
+            layers.append(LinearNormAct(cin, c, norm_cfg, masked=True))
+            cin = 2 * c
+        self.vfe_layers = nn.ModuleList(layers)
+
+    def forward(self, features: torch.Tensor, num_points: torch.Tensor,
+                coors: torch.Tensor) -> torch.Tensor:
+        """features (V, T, C) zero-padded points; num_points (V,); coors
+        (V, 3 or 4) ending in (z, y, x) -> (V, feat_channels[-1])."""
+        features = features.float()
+        t = features.shape[-2]
+        mask = torch.arange(t, device=features.device) < num_points[:, None]
+        xyz = features[..., :3]
+        feats = [features]
+        if self.with_cluster_center:
+            mean = xyz.sum(-2, keepdim=True) / \
+                num_points.clamp_min(1)[:, None, None].float()
+            feats.append(xyz - mean)
+        if self.with_voxel_center:
+            nd = 2 if self.center_xy_only else 3
+            center = voxel_center_xyz(coors[:, -3:], self.voxel_size,
+                                      self.point_cloud_range)
+            feats.append(features[..., :nd] - center[:, None, :nd])
+        if self.with_distance:
+            feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
+        zero = torch.zeros((), device=features.device)
+        x = torch.where(mask[..., None], torch.cat(feats, -1), zero)
+        pooled = None
+        for i, layer in enumerate(self.vfe_layers):
+            x = layer(x, mask)
+            pooled = torch.where(mask[..., None], x,
+                                 torch.full((), float("-inf"),
+                                            device=x.device)).amax(-2)
+            pooled = torch.where(torch.isfinite(pooled), pooled, zero)
+            if i < len(self.vfe_layers) - 1:
+                x = torch.cat([x, pooled[:, None].expand_as(x)], -1)
+        return pooled
+
+
+class PillarFeatureNet(HardVFE):
+    """PointPillars pillar encoder: pillar x/y centre offsets (2 channels)
+    + cluster offsets (3)."""
+
+    center_xy_only = True
+
+    def __init__(self, in_channels: int = 4, feat_channels=(64,), **kw):
+        super().__init__(in_channels, feat_channels, **kw)

@@ -1,33 +1,55 @@
-"""Rotated-box geometry — K10, pairwise 3D IoU of LiDAR boxes (counterpart
-of ``isfusion_tpu/ops/box_ops.py:boxes_iou_3d``).
+"""Rotated-box geometry (counterpart of ``isfusion_tpu/ops/box_ops.py``):
+K10, pairwise 3D IoU of LiDAR boxes, and K10-NMS, greedy rotated-BEV NMS.
 
-``boxes_iou_3d(a (N, 7+), b (M, 7+)) -> (N, M)`` float32, boxes (x, y,
-z_bottom, dx, dy, dz, yaw[, ...]): BEV intersection by the candidate-point
-method (vertices inside the other box + the 16 edge intersections, sorted
-by angle around their centroid, shoelace) x vertical overlap, over the
-union clamped at 1e-8. Both boxes of a pair are moved into a frame centred
-on the first one before the corners are formed, and the shoelace runs on
-centroid-relative vertices: the same function as the JAX composition, with
-box-sized instead of scene-sized float32 coordinates.
+``boxes_iou_3d(a (..., N, 7+), b (..., M, 7+)) -> (..., N, M)`` float32,
+boxes (x, y, z_bottom, dx, dy, dz, yaw[, ...]) with equal leading (batch)
+dims: BEV intersection by the candidate-point method (vertices inside the
+other box + the 16 edge intersections, sorted by angle around their
+centroid, shoelace) x vertical overlap, over the union clamped at 1e-8.
+Both boxes of a pair are moved into a frame centred on the first one
+before the corners are formed, and the shoelace runs on centroid-relative
+vertices: the same function as the JAX composition, with box-sized instead
+of scene-sized float32 coordinates.
 
-On a CPU tensor ``boxes_iou_3d`` takes the plain PyTorch version
-(``boxes_iou_3d_ref``, the tests' and the kernel's yardstick); on a CUDA
-tensor it launches ``csrc/boxes_iou_3d.cu`` (one thread per pair) or
-raises. The assigner's IoU3DCost calls it once per sample and decoder
-layer, on 200 x G pairs.
+``nms_bev_mask(boxes (B, K, 5), scores (B, C, K), thresh, valid (B, C,
+K)) -> keep (B, C, K)``: for each sample and class, the JAX package's
+``nms_bev_mask`` (``_greedy_suppress`` over ``boxes_iou_bev > thresh``):
+walk the boxes by descending score (ties: lower index first); a valid box
+that no kept box suppresses is kept. BEV boxes are (x, y, dx, dy, yaw).
+
+On a CPU tensor each function takes its plain PyTorch version
+(``boxes_iou_3d_ref``, ``nms_bev_mask_ref``: the tests' and the kernels'
+yardsticks); on a CUDA tensor it launches its kernel
+(``csrc/boxes_iou_3d.cu``, ``csrc/nms_bev.cu``, sharing the geometry of
+``csrc/rotated_box.cuh``) or raises. The assigner's IoU3DCost calls K10
+once per train step, on all samples and decoder layers; Anchor3DHead's
+``get_bboxes`` calls K10-NMS once per request.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
 from . import cuda_build
 
-# float32 operations per pair of the kernel's straight-line part: corners
+# float32 operations per pair of the kernels' straight-line part: corners
 # of the moved box (2 sin/cos + 20), 8 point-in-box tests (8 x 4 x 6), 16
-# segment intersections (16 x 22), centroid (2 x 24 + 2); the angle sort
-# and the shoelace depend on the valid candidates and are counted per pair
-# by ``iou3d_ops``
+# segment intersections (16 x 22), centroid (2 x 24 + 2), union and ratio;
+# the angle sort and the shoelace depend on the valid candidates and are
+# counted per pair by ``rotated_iou_ops``
 IOU3D_OPS_PER_PAIR = 22 + 8 * 4 * 6 + 16 * 22 + 50 + 16
+
+# the greedy pass keeps its per-class removed-mask in shared memory: at
+# most 32 classes (one warp each) and 4096 boxes (64 words) per sample
+NMS_MAX_CLASSES = 32
+NMS_MAX_BOXES = 4096
+
+
+def limit_period(val: torch.Tensor, offset: float = 0.5,
+                 period: float = math.pi) -> torch.Tensor:
+    return val - torch.floor(val / period + offset) * period
 
 
 def rotated_corners_2d(boxes_bev: torch.Tensor) -> torch.Tensor:
@@ -71,13 +93,17 @@ def _segment_intersections(c1: torch.Tensor, c2: torch.Tensor):
 
 
 def _candidates(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor):
-    """(N, M, 24, 2) candidate points of each pair in a frame centred on
-    the first box, and their validity (N, M, 24)."""
-    n, m = boxes1_bev.shape[0], boxes2_bev.shape[0]
-    b1 = torch.cat([torch.zeros_like(boxes1_bev[:, :2]), boxes1_bev[:, 2:]],
-                   -1)[:, None].expand(n, m, 5)
-    b2 = torch.cat([boxes2_bev[None, :, :2] - boxes1_bev[:, None, :2],
-                    boxes2_bev[None, :, 2:].expand(n, m, 3)], -1)
+    """(..., N, M, 24, 2) candidate points of each pair of (..., N, 5) x
+    (..., M, 5) boxes in a frame centred on the first box, and their
+    validity (..., N, M, 24)."""
+    n, m = boxes1_bev.shape[-2], boxes2_bev.shape[-2]
+    shape = boxes1_bev.shape[:-2] + (n, m)
+    b1 = torch.cat([torch.zeros_like(boxes1_bev[..., :2]),
+                    boxes1_bev[..., 2:]], -1)[..., :, None, :].expand(
+                        shape + (5,))
+    b2 = torch.cat([boxes2_bev[..., None, :, :2] -
+                    boxes1_bev[..., :, None, :2],
+                    boxes2_bev[..., None, :, 2:].expand(shape + (3,))], -1)
     c1, c2 = rotated_corners_2d(b1), rotated_corners_2d(b2)
     ipts, ivalid = _segment_intersections(c1, c2)
     cand = torch.cat([c1, c2, ipts], -2)
@@ -88,7 +114,8 @@ def _candidates(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor):
 
 def rotated_rect_intersection_area(boxes1_bev: torch.Tensor,
                                    boxes2_bev: torch.Tensor) -> torch.Tensor:
-    """(N, M) intersection areas of rotated BEV rects (x, y, dx, dy, yaw)."""
+    """(..., N, M) intersection areas of rotated BEV rects (x, y, dx, dy,
+    yaw)."""
     cand, valid = _candidates(boxes1_bev, boxes2_bev)
     cnt = valid.sum(-1, keepdim=True).clamp_min(1)
     centroid = torch.where(valid[..., None], cand, 0.0).sum(-2,
@@ -98,7 +125,7 @@ def rotated_rect_intersection_area(boxes1_bev: torch.Tensor,
     ang = torch.where(valid, torch.atan2(rel[..., 1], rel[..., 0]),
                       torch.full_like(rel[..., 0], 1e4))
     order = torch.argsort(ang, dim=-1, stable=True)
-    v = torch.gather(rel, -2, order[..., None].expand(-1, -1, -1, 2))
+    v = torch.gather(rel, -2, order[..., None].expand(order.shape + (2,)))
     ok = torch.gather(valid, -1, order)
     v = torch.where(ok[..., None], v, v[..., :1, :])
     nxt = torch.roll(v, -1, dims=-2)
@@ -107,59 +134,192 @@ def rotated_rect_intersection_area(boxes1_bev: torch.Tensor,
     return torch.where(valid.any(-1), area, torch.zeros_like(area))
 
 
+def boxes_iou_bev_ref(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
+                      ) -> torch.Tensor:
+    """(..., N, M) IoU of rotated BEV boxes (x, y, dx, dy, yaw) (the JAX
+    package's ``boxes_iou_bev``), plain PyTorch."""
+    a, b = boxes1_bev.float(), boxes2_bev.float()
+    inter = rotated_rect_intersection_area(a, b)
+    a1, a2 = a[..., 2] * a[..., 3], b[..., 2] * b[..., 3]
+    return inter / (a1[..., :, None] + a2[..., None, :] -
+                    inter).clamp_min(1e-8)
+
+
 def boxes_iou_3d_ref(boxes1: torch.Tensor, boxes2: torch.Tensor
                      ) -> torch.Tensor:
     """Plain PyTorch version of ``boxes_iou_3d``."""
-    a, b = boxes1[:, :7].float(), boxes2[:, :7].float()
+    a, b = boxes1[..., :7].float(), boxes2[..., :7].float()
     cols = [0, 1, 3, 4, 6]
-    inter = rotated_rect_intersection_area(a[:, cols], b[:, cols])
-    hi = torch.minimum((a[:, 2] + a[:, 5])[:, None], (b[:, 2] + b[:, 5])[None])
-    lo = torch.maximum(a[:, 2][:, None], b[:, 2][None])
+    inter = rotated_rect_intersection_area(a[..., cols], b[..., cols])
+    hi = torch.minimum((a[..., 2] + a[..., 5])[..., :, None],
+                       (b[..., 2] + b[..., 5])[..., None, :])
+    lo = torch.maximum(a[..., 2][..., :, None], b[..., 2][..., None, :])
     inter = inter * (hi - lo).clamp_min(0.0)
-    vol1 = a[:, 3] * a[:, 4] * a[:, 5]
-    vol2 = b[:, 3] * b[:, 4] * b[:, 5]
-    return inter / (vol1[:, None] + vol2[None] - inter).clamp_min(1e-8)
+    vol1 = a[..., 3] * a[..., 4] * a[..., 5]
+    vol2 = b[..., 3] * b[..., 4] * b[..., 5]
+    return inter / (vol1[..., :, None] + vol2[..., None, :] -
+                    inter).clamp_min(1e-8)
+
+
+def rotated_iou_ops(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
+                    ) -> torch.Tensor:
+    """(..., N, M) float32 operations the kernels need per pair of these
+    BEV boxes: the fixed part plus, for k valid candidates, an angle per
+    candidate (~20), k * ceil(log2 k) sort comparisons and 4 k shoelace
+    operations."""
+    _, valid = _candidates(boxes1_bev.float(), boxes2_bev.float())
+    k = valid.sum(-1).double()
+    log_k = torch.ceil(torch.log2(k.clamp_min(1)))
+    return IOU3D_OPS_PER_PAIR + 20 * k + k * log_k + 4 * k
 
 
 def iou3d_ops(boxes1: torch.Tensor, boxes2: torch.Tensor) -> int:
-    """float32 operations the kernel needs on these boxes: the fixed part
-    per pair plus, per pair with k valid candidates, an angle per candidate
-    (~20), k * ceil(log2 k) sort comparisons and 4 k shoelace operations."""
+    """float32 operations K10 needs on these boxes (all pairs)."""
     cols = [0, 1, 3, 4, 6]
-    _, valid = _candidates(boxes1[:, cols].float(), boxes2[:, cols].float())
-    k = valid.sum(-1).double()
-    log_k = torch.ceil(torch.log2(k.clamp_min(1)))
-    per_pair = IOU3D_OPS_PER_PAIR + 20 * k + k * log_k + 4 * k
-    return int(per_pair.sum())
+    return int(rotated_iou_ops(boxes1[..., cols], boxes2[..., cols]).sum())
 
 
-def _check(boxes1: torch.Tensor, boxes2: torch.Tensor):
-    if boxes1.dim() != 2 or boxes2.dim() != 2 or boxes1.shape[1] < 7 \
-            or boxes2.shape[1] < 7:
-        raise ValueError("boxes_iou_3d: boxes (N, >=7) and (M, >=7)")
+def nms_bev_ops(boxes_bev: torch.Tensor) -> int:
+    """float32 operations K10-NMS needs at least on (B, K, 5) boxes: one
+    IoU per unordered pair of each sample's boxes (the greedy pass is
+    bit operations)."""
+    per_pair = rotated_iou_ops(boxes_bev, boxes_bev)
+    return int(torch.triu(per_pair, diagonal=1).sum())
+
+
+def _lead_check(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor):
+    if boxes1.dim() < 2 or boxes1.dim() != boxes2.dim() or \
+            boxes1.shape[:-2] != boxes2.shape[:-2] or \
+            boxes1.shape[-1] < 7 or boxes2.shape[-1] < 7:
+        raise ValueError(f"{name}: boxes (..., N, >=7) and (..., M, >=7) "
+                         f"with equal leading dims, got {tuple(boxes1.shape)}"
+                         f" and {tuple(boxes2.shape)}")
     if boxes1.device != boxes2.device:
-        raise ValueError("boxes_iou_3d: boxes on different devices")
+        raise ValueError(f"{name}: boxes on different devices")
 
 
 def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """(N, M) float32 3D IoU of LiDAR boxes (``BboxOverlaps3D``)."""
-    _check(boxes1, boxes2)
+    """(..., N, M) float32 3D IoU of LiDAR boxes (``BboxOverlaps3D``),
+    one kernel launch for all leading (batch) dims."""
+    _lead_check("boxes_iou_3d", boxes1, boxes2)
     if boxes1.device.type == "cpu":
         return boxes_iou_3d_ref(boxes1, boxes2)
     if boxes1.device.type != "cuda":
         raise RuntimeError(f"boxes_iou_3d: no kernel for {boxes1.device}")
-    a = boxes1[:, :7].float().contiguous()
-    b = boxes2[:, :7].float().contiguous()
-    n, m = a.shape[0], b.shape[0]
-    out = torch.empty((n, m), dtype=torch.float32, device=a.device)
-    if n == 0 or m == 0:
-        return out
+    lead = boxes1.shape[:-2]
+    n, m = boxes1.shape[-2], boxes2.shape[-2]
+    a = boxes1[..., :7].float().reshape(-1, n, 7).contiguous()
+    b = boxes2[..., :7].float().reshape(-1, m, 7).contiguous()
+    out = torch.empty((a.shape[0], n, m), dtype=torch.float32,
+                      device=a.device)
+    if out.numel() == 0:
+        return out.view(lead + (n, m))
     lib = cuda_build.load("boxes_iou_3d")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.boxes_iou_3d(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m,
-                           stream)
+    err = lib.boxes_iou_3d(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                           a.shape[0], n, m, stream)
     if err != 0:
         raise RuntimeError(f"boxes_iou_3d: kernel launch failed with CUDA "
                            f"error {err}")
     cuda_build.LAUNCHES["boxes_iou_3d"] += 1
-    return out
+    return out.view(lead + (n, m))
+
+
+def _nms_args(boxes_bev: torch.Tensor, scores: torch.Tensor,
+              valid: Optional[torch.Tensor]):
+    if boxes_bev.dim() != 3 or boxes_bev.shape[-1] != 5 or \
+            scores.dim() != 3 or scores.shape[0] != boxes_bev.shape[0] or \
+            scores.shape[2] != boxes_bev.shape[1]:
+        raise ValueError(f"nms_bev_mask: boxes (B, K, 5) and scores (B, C, "
+                         f"K), got {tuple(boxes_bev.shape)} and "
+                         f"{tuple(scores.shape)}")
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    if valid.shape != scores.shape:
+        raise ValueError("nms_bev_mask: valid must have the scores' shape")
+    if len({boxes_bev.device, scores.device, valid.device}) != 1:
+        raise ValueError("nms_bev_mask: inputs on different devices")
+    # descending scores, ties keep the lower index first (jnp.argsort of
+    # the negated scores, as the JAX package orders them)
+    order = torch.sort(scores.float(), dim=-1, descending=True,
+                       stable=True).indices
+    return valid.bool(), order
+
+
+def nms_bev_mask_ref(boxes_bev: torch.Tensor, scores: torch.Tensor,
+                     thresh: float, valid: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Plain PyTorch version of ``nms_bev_mask``: the plain BEV IoU and a
+    sequential greedy walk per sample and class."""
+    valid, order = _nms_args(boxes_bev, scores, valid)
+    suppress = boxes_iou_bev_ref(boxes_bev, boxes_bev) > thresh
+    keep = torch.zeros_like(valid)
+    for b in range(scores.shape[0]):
+        for c in range(scores.shape[1]):
+            removed = torch.zeros_like(valid[b, c])
+            ok = valid[b, c].tolist()
+            for i in order[b, c].tolist():
+                if ok[i] and not bool(removed[i]):
+                    keep[b, c, i] = True
+                    removed |= suppress[b, i]
+    return keep
+
+
+def nms_bev_mask(boxes_bev: torch.Tensor, scores: torch.Tensor,
+                 thresh: float, valid: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """(B, C, K) bool keep masks of greedy rotated-BEV NMS over (B, K, 5)
+    boxes shared by C score rows per sample (``nms_gpu`` semantics:
+    ``iou > thresh`` suppresses); one kernel launch for the batch."""
+    valid, order = _nms_args(boxes_bev, scores, valid)
+    if boxes_bev.device.type == "cpu":
+        return nms_bev_mask_ref(boxes_bev, scores, thresh, valid)
+    if boxes_bev.device.type != "cuda":
+        raise RuntimeError(f"nms_bev_mask: no kernel for {boxes_bev.device}")
+    b, c, k = scores.shape
+    if c > NMS_MAX_CLASSES or k > NMS_MAX_BOXES:
+        raise ValueError(f"nms_bev_mask: at most {NMS_MAX_CLASSES} classes "
+                         f"and {NMS_MAX_BOXES} boxes per sample, got {c} "
+                         f"and {k}")
+    keep = torch.empty((b, c, k), dtype=torch.uint8, device=scores.device)
+    if keep.numel() == 0:
+        return keep.bool()
+    _launch_nms(boxes_bev, order.to(torch.int32).contiguous(),
+                valid.to(torch.uint8).contiguous(), keep, c, thresh, True)
+    return keep.bool()
+
+
+def _launch_nms(boxes_bev, order, valid8, keep, c, thresh, greedy):
+    b, k = boxes_bev.shape[:2]
+    boxes = boxes_bev.float().contiguous()
+    mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64,
+                       device=boxes.device)
+    lib = cuda_build.load("nms_bev")
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    err = lib.nms_bev(boxes.data_ptr(), ptr(order), ptr(valid8),
+                      mask.data_ptr(), ptr(keep), b, c, k, float(thresh),
+                      int(greedy), stream)
+    if err != 0:
+        raise RuntimeError(f"nms_bev: kernel launch failed with CUDA error "
+                           f"{err}")
+    cuda_build.LAUNCHES["nms_bev"] += 1
+    return mask
+
+
+def nms_bev_suppression_bits(boxes_bev: torch.Tensor, thresh: float
+                             ) -> torch.Tensor:
+    """(B, K, K) bool: the K10-NMS kernel's pairwise pass alone, bit
+    (i, j) = BEV IoU(i, j) > thresh, unpacked from its (B, K, ceil(K /
+    64)) words (CUDA tensors only; the check of the kernel's geometry
+    against ``boxes_iou_bev_ref``)."""
+    if boxes_bev.device.type != "cuda" or boxes_bev.dim() != 3 or \
+            boxes_bev.shape[-1] != 5 or boxes_bev.shape[1] > NMS_MAX_BOXES:
+        raise ValueError("nms_bev_suppression_bits: (B, K <= 4096, 5) "
+                         "boxes on the card")
+    k = boxes_bev.shape[1]
+    words = _launch_nms(boxes_bev, None, None, None, 1, thresh, False)
+    shift = torch.arange(64, device=words.device)
+    bits = (words[..., None] >> shift) & 1
+    return bits.reshape(words.shape[0], k, -1)[..., :k].bool()

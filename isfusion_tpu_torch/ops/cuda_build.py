@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).
 Libraries go to ``build/isfusion_tpu_torch_kernels/`` at the repository
-root (listed in ``.gitignore``), named by a hash of the source and flags,
+root (listed in ``.gitignore``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags,
 and are built at first use — so a fresh checkout builds them from its own
 sources. Nothing here runs at import time: the CPU tests import every
 module on a machine with no ``nvcc``.
@@ -32,10 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # C signature of each kernel's entry point: (argtypes, restype)
-_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+_P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "masked_gather": ([_P, _P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
-    "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _P], ctypes.c_int),
+    "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
+    "nms_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, ctypes.c_int, _P],
+                ctypes.c_int),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -62,6 +65,8 @@ def find_nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        src += hdr.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{h[:12]}.so"
 

@@ -1,14 +1,15 @@
 """Voxelization (counterpart of ``isfusion_tpu/ops/voxel.py``).
 
-Dynamic shapes, no capacity caps (the reference's ``max_voxels=-1``
-semantics): every in-range valid point lands in a voxel. Voxel tables are
+Dynamic shapes. Without a ``max_voxels`` cap (the reference's
+``max_voxels=-1`` semantics) every in-range valid point lands in a voxel;
+``voxelize_hard`` takes the JAX package's per-sample cap. Voxel tables are
 ordered by batch, then by the z-major linear id — the order of the JAX
 voxelizers' dense relabelling — and carry (b, z, y, x) int32 coordinates.
 Plain PyTorch for now (ROADMAP queue K1/K5 for hand-written kernels).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,10 +89,16 @@ class HardVoxels(NamedTuple):
 
 
 def voxelize_hard(points: torch.Tensor, points_mask: torch.Tensor,
-                  point_cloud_range, voxel_size,
-                  max_points: int) -> HardVoxels:
+                  point_cloud_range, voxel_size, max_points: int,
+                  max_voxels: Optional[int] = None) -> HardVoxels:
     """Hard voxelization: the first ``max_points`` points of each voxel in
-    point order (deterministic), voxels sorted by (batch, linear id)."""
+    point order (deterministic), voxels sorted by (batch, linear id).
+
+    ``max_voxels`` caps the voxels of each sample as the JAX package does
+    (``unique_with_ranks``): the ``max_voxels`` voxels with the lowest
+    linear ids are kept and the points of the others dropped (the
+    reference keeps the first voxels in point order instead).
+    ``num_points`` is min(points in the voxel, ``max_points``)."""
     b, p, c = points.shape
     coors, in_range, grid = compute_voxel_coords(points, point_cloud_range,
                                                  voxel_size)
@@ -104,6 +111,17 @@ def voxelize_hard(points: torch.Tensor, points_mask: torch.Tensor,
     start = torch.ones(n, dtype=torch.bool, device=points.device)
     if n > 1:
         start[1:] = skeys[1:] != skeys[:-1]
+    if max_voxels is not None:
+        # rank of each voxel within its sample; drop the points of the
+        # voxels past the cap and relabel what is left
+        vox_b = skeys // (grid[0] * grid[1] * grid[2])
+        first = torch.zeros(b, dtype=torch.long, device=points.device)
+        first[1:] = torch.cumsum(torch.bincount(vox_b[start], minlength=b),
+                                 0)[:-1]
+        rank_in_b = torch.cumsum(start.long(), 0) - 1 - first[vox_b]
+        ok = rank_in_b < int(max_voxels)
+        skeys, pidx, start = skeys[ok], pidx[ok], start[ok]
+        n = skeys.shape[0]
     gid = torch.cumsum(start.long(), 0) - 1
     pos = torch.arange(n, device=points.device)
     start_pos = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),

@@ -1,4 +1,5 @@
-"""Carry the JAX package's IS-Fusion variables into the port's state_dict.
+"""Carry the JAX package's IS-Fusion and PointPillars variables into the
+port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -124,14 +125,21 @@ _RULES = [
      lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2])}", "conv2d"),
     (r"pts_backbone_m/block(\d+)/ConvModule_(\d+)/bn",
      lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2]) + 1}", "norm"),
+    (r"pts_backbone_m/_SECONDBlock_(\d+)/ConvModule_(\d+)/Conv_0",
+     lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2])}", "conv2d"),
+    (r"pts_backbone_m/_SECONDBlock_(\d+)/ConvModule_(\d+)/bn",
+     lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2]) + 1}", "norm"),
     (r"pts_neck_m/ConvModule_(\d+)/Conv_0", r"pts_neck.deblocks.\1.0",
      "conv2d"),
     (r"pts_neck_m/ConvModule_(\d+)/bn", r"pts_neck.deblocks.\1.1", "norm"),
+    # deconv blocks follow the stride-1 conv blocks (numbered after them)
     (r"pts_neck_m/ConvTransposeModule_(\d+)/ConvTranspose_0",
-     lambda m: f"pts_neck.deblocks.{int(m[1]) + 1}.0", "deconv"),
-    (r"pts_neck_m/ConvTransposeModule_(\d+)/bn",
-     lambda m: f"pts_neck.deblocks.{int(m[1]) + 1}.1", "norm"),
+     r"pts_neck.deconv.\1.0", "deconv"),
+    (r"pts_neck_m/ConvTransposeModule_(\d+)/bn", r"pts_neck.deconv.\1.1",
+     "norm"),
     # -------------------------------------------------------------- head
+    (r"pts_bbox_head_m/(conv_cls|conv_reg|conv_dir_cls)",
+     r"pts_bbox_head.\1", "conv2d"),
     (r"pts_bbox_head_m/shared_conv", "pts_bbox_head.shared_conv", "conv2d"),
     (r"pts_bbox_head_m/heatmap_conv/Conv_0",
      "pts_bbox_head.heatmap_head.0.conv", "conv2d"),
@@ -250,6 +258,12 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
             [parts[f"{n}/bias"].reshape(e) for n in ("query", "key", "value")])
         sd[f"{key}.out_proj.weight"] = parts["out/kernel"].reshape(e, e).T
         sd[f"{key}.out_proj.bias"] = parts["out/bias"]
+
+    n_conv = len({k.split(".")[2] for k in sd
+                  if k.startswith("pts_neck.deblocks.")})
+    for k in [k for k in sd if k.startswith("pts_neck.deconv.")]:
+        _, _, i, rest = k.split(".", 3)
+        sd[f"pts_neck.deblocks.{int(i) + n_conv}.{rest}"] = sd.pop(k)
 
     # conv_fusion's LiDAR block: JAX z*C + c -> reference c*D + z (whole
     # detector trees; a tree of single modules has no conv_fusion)

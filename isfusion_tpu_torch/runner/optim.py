@@ -1,6 +1,7 @@
 """Optimizer and schedules from mmcv-style configs (counterpart of
 ``isfusion_tpu/runner/optim.py``; flagship config
-``configs/isfusion/isfusion_0075voxel.py:395-402``).
+``configs/isfusion/isfusion_0075voxel.py:395-402``, PointPillars
+``configs/_base_/schedules/schedule_2x.py``).
 
 - ``build_optimizer``: ``torch.optim.AdamW`` with one param group per
   ``paramwise_cfg.custom_keys`` match (the flagship's ``img_backbone`` at
@@ -45,6 +46,33 @@ def cyclic_schedule(base: float, target_ratio, cyclic_times: int,
             return cos_anneal(base, base * r_up, min(max(t / up, 0.0), 1.0))
         frac = min(max((t - up) / max(period - up, 1), 0.0), 1.0)
         return cos_anneal(base * r_up, base * r_down, frac)
+
+    return sched
+
+
+def step_schedule(base: float, steps, gamma: float = 0.1,
+                  warmup: Optional[str] = None, warmup_iters: int = 0,
+                  warmup_ratio: float = 1e-3, steps_per_epoch: int = 1
+                  ) -> Callable[[int], float]:
+    """mmcv step policy as the JAX package composes it with optax: the lr
+    is multiplied by ``gamma`` at each of ``steps`` (epochs, times
+    ``steps_per_epoch``), counted after a linear warmup from ``base *
+    warmup_ratio`` to ``base`` over ``warmup_iters`` steps."""
+    milestones = [int(e) * int(steps_per_epoch) for e in steps]
+    warm = warmup == "linear" and warmup_iters > 0
+    init = base * float(warmup_ratio)
+
+    def sched(count: int) -> float:
+        if warm:
+            if count < warmup_iters:
+                frac = 1 - min(max(count, 0), warmup_iters) / warmup_iters
+                return (init - base) * frac + base
+            count -= warmup_iters
+        value = base
+        for m in milestones:
+            if count >= m:
+                value *= gamma
+        return value
 
     return sched
 
@@ -98,28 +126,36 @@ class Schedule:
 def build_schedule(optimizer: torch.optim.Optimizer,
                    lr_config: Optional[dict] = None,
                    momentum_config: Optional[dict] = None,
-                   total_steps: int = 10000) -> Schedule:
-    """Cyclic (or constant) lr and beta1 schedules of the flagship
-    config."""
+                   total_steps: int = 10000,
+                   steps_per_epoch: int = 1) -> Schedule:
+    """lr and beta1 schedules of a config: cyclic (IS-Fusion) or step
+    with linear warmup (PointPillars' lr), else constant."""
     base_lr = float(optimizer.param_groups[0].get(
         "base_lr", optimizer.param_groups[0]["lr"]))
     base_b1 = float(optimizer.param_groups[0]["betas"][0])
 
-    def build(cfg, base, default_ratio):
+    def build(cfg, base, default_ratio, is_lr):
         if not cfg:
             return None
         cfg = dict(cfg)
+        if cfg.get("policy") == "step" and is_lr:
+            return step_schedule(
+                base, cfg.get("step", []), float(cfg.get("gamma", 0.1)),
+                cfg.get("warmup"), int(cfg.get("warmup_iters", 0)),
+                float(cfg.get("warmup_ratio", 1e-3)), steps_per_epoch)
         if cfg.get("policy") != "cyclic":
             raise NotImplementedError(
-                f"the port's schedules are cyclic, not {cfg.get('policy')}")
+                f"the port's schedules are cyclic or step (lr), not "
+                f"{cfg.get('policy')}")
         return cyclic_schedule(base, cfg.get("target_ratio", default_ratio),
                                int(cfg.get("cyclic_times", 1)),
                                float(cfg.get("step_ratio_up", 0.4)),
                                total_steps)
 
-    lr = build(lr_config, base_lr, (10, 1e-4)) or (lambda count: base_lr)
+    lr = build(lr_config, base_lr, (10, 1e-4), True) or \
+        (lambda count: base_lr)
     return Schedule(optimizer, lr, build(momentum_config, base_b1,
-                                         (0.85, 1)))
+                                         (0.85, 1), False))
 
 
 def grad_clip_norm(optimizer_config: Optional[dict]) -> Optional[float]:

@@ -7,10 +7,14 @@ dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: exact for the gather (a copy); 1e-5 for the rotated IoU
-kernel against its plain version; 1e-5 of the max for the sparse conv's
+kernel against its plain version, batched or not; equal NMS keep masks
+unless a pair's IoU lies within 1e-5 of the threshold (then at most 1%
+of the flags differ); 1e-5 of the max for the sparse conv's
 K12 backward against plain autograd on the CPU, 1e-3 of the max for the
-tiny flagship on the card against the CPU, and 1e-4 relative for the
-tiny train step's losses (float32, TF32 off: sums run in another order).
+tiny flagship on the card against the CPU, 1e-4 of the max for the tiny
+PointPillars' kept boxes (the same entries and labels), and 1e-4 relative
+for the tiny train step's losses (float32, TF32 off: sums run in another
+order).
 """
 import pytest
 import torch
@@ -175,3 +179,77 @@ def _tiny_train_step_metrics():
             assert all(cuda_build.LAUNCHES[k] > before[k]
                        for k in ("masked_gather", "boxes_iou_3d"))
     return metrics
+
+
+def test_boxes_iou_3d_batched_kernel_matches_plain_version(card):
+    """K10 over a step's samples in one launch: (4, 200, 7) x (4, 64, 7)."""
+    gen = torch.Generator().manual_seed(5)
+    a = torch.stack([_boxes(gen, 200) for _ in range(4)])
+    b = a[:, torch.randperm(200, generator=gen)[:64]] + \
+        torch.randn((4, 64, 7), generator=gen) * 0.3
+    b[..., 3:6] = b[..., 3:6].abs() + 0.1
+    a, b = a.to(card), b.to(card)
+    before = cuda_build.LAUNCHES["boxes_iou_3d"]
+    got = box_ops.boxes_iou_3d(a, b)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["boxes_iou_3d"] == before + 1
+    want = box_ops.boxes_iou_3d_ref(a, b)
+    assert got.shape == (4, 200, 64) and (want > 0.1).sum() >= 4 * 32
+    assert float((got - want).abs().max()) <= 1e-5
+    for s in range(4):
+        assert float((box_ops.boxes_iou_3d(a[s], b[s]) - got[s]).abs()
+                     .max()) == 0.0
+
+
+def _nms_inputs(gen, b, c, k):
+    boxes = torch.empty((b, k, 5))
+    boxes[..., :2] = (torch.rand((b, k, 2), generator=gen) * 2 - 1) * 30
+    boxes[..., 2:4] = 0.5 + torch.rand((b, k, 2), generator=gen) * 4
+    boxes[..., 4] = (torch.rand((b, k), generator=gen) * 2 - 1) * np.pi
+    boxes[:, k // 2:k // 2 + 20] = boxes[:, :20]          # identical boxes
+    boxes[:, k // 2 + 20:k // 2 + 40, 4] += np.pi / 4     # 45 degrees
+    scores = torch.rand((b, c, k), generator=gen)
+    scores[:, :, :10] = 0.5                               # ties
+    return boxes, scores, scores > 0.2
+
+
+@pytest.mark.parametrize("b,c,k", [(2, 10, 1000), (1, 3, 77), (3, 1, 1),
+                                   (1, 32, 300)])
+def test_nms_bev_kernel_matches_plain_version(card, b, c, k):
+    gen = torch.Generator().manual_seed(k)
+    boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, b, c, k))
+    before = cuda_build.LAUNCHES["nms_bev"]
+    got = box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["nms_bev"] == before + 1
+    want = box_ops.nms_bev_mask_ref(boxes, scores, 0.2, valid)
+    iou = box_ops.boxes_iou_bev_ref(boxes, boxes)
+    near = int(((iou - 0.2).abs() < 1e-5).sum())
+    if near == 0:
+        assert torch.equal(got, want)
+    else:   # a pair on the threshold may round either way
+        assert float((got != want).float().mean()) <= 0.01
+    assert not (got & ~valid).any()
+    invalid = box_ops.nms_bev_mask(boxes, scores, 0.2,
+                                   torch.zeros_like(valid))
+    assert not invalid.any()
+
+
+def test_pointpillars_tiny_on_card_matches_cpu(card):
+    import chip_smoke
+    from isfusion_tpu_torch.flagship import build_pointpillars_flagship
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs = []
+    for dev in ("cpu", "cuda"):
+        model, batch_fn = build_pointpillars_flagship(tiny=True, device=dev,
+                                                      seed=2)
+        before = cuda_build.LAUNCHES["nms_bev"]
+        outs.append(chip_smoke.pp_kept_boxes(
+            chip_smoke.tame_box_deltas(model), batch_fn(2, seed=5), dev))
+        assert cuda_build.LAUNCHES["nms_bev"] - before == int(dev == "cuda")
+    (cb, cs, ck), (gb, gs, gk) = outs
+    assert torch.equal(ck, gk) and len(ck) > 10
+    for got, want in ((gb, cb), (gs, cs)):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

@@ -142,14 +142,20 @@ EDGE_BOXES = np.array([
 
 
 def test_boxes_iou_3d_plain_matches_jax():
+    # batched: (2, N, 7) x (2, M, 7), each sample against the JAX function
     rng = np.random.default_rng(0)
-    a = np.concatenate([_boxes(rng, 60), EDGE_BOXES])
-    b = np.concatenate([_boxes(rng, 45), EDGE_BOXES])
-    want = np.asarray(jbox.boxes_iou_3d(jnp.asarray(a), jnp.asarray(b)))
+    a = np.stack([np.concatenate([_boxes(rng, 60), EDGE_BOXES])
+                  for _ in range(2)])
+    b = np.stack([np.concatenate([_boxes(rng, 45), EDGE_BOXES])
+                  for _ in range(2)])
+    want = np.stack([np.asarray(jbox.boxes_iou_3d(jnp.asarray(x),
+                                                  jnp.asarray(y)))
+                     for x, y in zip(a, b)])
     got = box_ops.boxes_iou_3d(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == (2, 67, 52)
     assert (want > 0).mean() > 0.05
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
-    e = got.numpy()[-7:, -7:]
+    e = got.numpy()[0, -7:, -7:]
     assert abs(e[0, 1] - 1) < 1e-6 and e[2, 3] == 0 and e[6, 0] == 0
     assert abs(e[3, 0] - (1 * 0.5 * 1) / (2 * 1 * 1.5)) < 1e-6
 
@@ -219,6 +225,15 @@ def test_hungarian_assigner_matches_jax():
     assert (np.asarray(want.max_overlaps) > 0).sum() >= 3
     np.testing.assert_allclose(got.max_overlaps.numpy(),
                                np.asarray(want.max_overlaps), atol=1e-5)
+    # the head's batched cost (all samples in one K10 call) == per sample
+    args = [torch.from_numpy(x) for x in (boxes, gts, labels, mask, logits)]
+    one = HungarianAssigner3D(**kw).cost(*args, tc)
+    two = HungarianAssigner3D(**kw).cost(*[torch.stack([x, x.flip(0)])
+                                           for x in args], tc)
+    flip = HungarianAssigner3D(**kw).cost(*[x.flip(0) for x in args], tc)
+    for got, w0, w1 in zip(two, one, flip):
+        torch.testing.assert_close(got, torch.stack([w0, w1]), rtol=0,
+                                   atol=1e-6)
 
 
 # ------------------------------------------ sparse conv backward (K12)
