@@ -9,7 +9,8 @@ Phases, each printing one line (every failure raises, exit code != 0):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles every hand-written kernel from ``isfusion_tpu_torch/
-   csrc`` (one ``nvcc`` per source, all started together);
+   csrc`` (one ``nvcc`` per source, all started together) and prints each
+   kernel's registers, stack and spills (``ptxas -v``);
 3. main path: the full-width IS-Fusion flagship (seeded random weights,
    ``configs/isfusion/isfusion_0075voxel.py``) serves one warm-up and five
    timed batch-1 requests at bench shape (200,000 points, 6 x 384 x 1056
@@ -47,17 +48,22 @@ Phases, each printing one line (every failure raises, exit code != 0):
    1e-3, no clip) must lower the loss;
 10. PointPillars main path: the full-width PointPillars of
     ``configs/pointpillars/hv_pointpillars_secfpn_sbn-all_4x8_2x_nus-3d.py``
-    (seeded random weights, bf16 convs, float32 decode and NMS) serves one
-    warm-up and five batch-1 requests of 120,000 points; launch counts are
+    (seeded random weights, the box-regression weights scaled by 0.01 so
+    that boxes are scene-sized, bf16 convs, float32 decode and NMS) serves
+    one warm-up and five batch-1 requests of 120,000 points; launch counts are
     zeroed just before the five and read after each: the phase fails
     unless K10-NMS (``nms_bev``) launched in every request. Prints the
     median and max ms, peak memory, pillars against the cap and the kept
     boxes;
 11. PointPillars kernel check: K10-NMS against its plain version on the
-    request's own top-1,000 boxes and 10 classes and on adversarial sets
-    (identical, nested, 45-degree, chained, all-invalid, single box):
-    suppression bits equal wherever the plain IoU is more than 1e-5 from
-    the threshold, keep masks equal whenever no pair is that close;
+    request's own top-1,000 boxes and 10 classes, on the same request
+    before the scaling, on a scene-like set of 1,000 boxes and 10 classes
+    with no pair near the threshold and on adversarial sets (identical,
+    nested, 45-degree, chained, all-invalid, single box): keep masks equal
+    to the plain greedy walk over the kernel's own suppression bits,
+    those bits equal wherever the plain IoU is more than 1e-5 from the
+    threshold, keep masks equal to the plain version's whenever no pair
+    is that close; prints each set's box sizes;
 12. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
     lr with linear warmup, clip 35), 1 warm-up and 5 timed steps; fails on
     a non-finite or zero grad norm or an unchanged weight of the VFE, the
@@ -119,6 +125,30 @@ def cuda_ms(fn, dev: str = "cuda", iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, kernel: str, iters: int = 50):
+    """Mean device ms per launch of the kernels whose name holds
+    ``kernel``, over ``iters`` calls of ``fn()`` under torch.profiler
+    after a warm-up: the card's own clock, without the host's launch
+    overhead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in evs)
+    if n == 0:
+        return "not measured"
+    return sum(e.self_device_time_total for e in evs) / 1e3 / n
+
+
 def gather_bytes(src, idx, fmask) -> int:
     """Least bytes a masked gather must move: each distinct kept source
     row read once, every output row written once, idx and fmask read."""
@@ -143,9 +173,16 @@ def phase_device() -> str:
 
 
 def phase_build():
+    """Build every kernel, then report each source's registers, stack and
+    spills (``ptxas -v``, all sources at once)."""
+    from concurrent.futures import ThreadPoolExecutor
     from isfusion_tpu_torch.ops import cuda_build
     secs = cuda_build.build_all()
-    log("build", kernels=sorted(cuda_build.SIGNATURES), seconds=secs)
+    names = sorted(cuda_build.SIGNATURES)
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        usage = list(ex.map(lambda n: cuda_build.ptxas_usage(
+            cuda_build.CSRC_DIR / f"{n}.cu"), names))
+    log("build", kernels=names, seconds=secs, ptxas=dict(zip(names, usage)))
 
 
 def jittered(batch: dict, i: int) -> dict:
@@ -376,7 +413,9 @@ def phase_iou_check(dev: str = "cuda") -> dict:
     assigner's shape at batch 4, all samples in one launch, as a train
     step calls it), within 1e-5; the batched launch timed beside its
     operation bound and beside one launch per sample (the earlier
-    design)."""
+    design), by CUDA events around the wrapper (``ms``, ``one_sample_ms``,
+    ``per_sample_launches_ms`` for all four) and by the profiler's device
+    time of the kernel alone (``device_ms``, ``one_sample_device_ms``)."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
 
@@ -395,6 +434,8 @@ def phase_iou_check(dev: str = "cuda") -> dict:
     rec = dict(B=a.shape[0], N=a.shape[1], M=b.shape[1], max_abs_err=err,
                ops=ops,
                ms=cuda_ms(lambda: box_ops.boxes_iou_3d(a, b), dev, iters=50),
+               one_sample_ms=cuda_ms(lambda: box_ops.boxes_iou_3d(a[0], b[0]),
+                                     dev, iters=50),
                per_sample_launches_ms=cuda_ms(
                    lambda: [box_ops.boxes_iou_3d(a[i], b[i])
                             for i in range(a.shape[0])], dev, iters=50),
@@ -402,6 +443,11 @@ def phase_iou_check(dev: str = "cuda") -> dict:
                bound_ms=max(ops / F32_OPS_PER_S,
                             nbytes / HBM_BYTES_PER_S) * 1e3,
                library_ms=None)
+    if dev == "cuda":
+        rec["device_ms"] = kernel_device_ms(
+            lambda: box_ops.boxes_iou_3d(a, b), "boxes_iou_3d_kernel")
+        rec["one_sample_device_ms"] = kernel_device_ms(
+            lambda: box_ops.boxes_iou_3d(a[0], b[0]), "boxes_iou_3d_kernel")
     log("iou_check", **rec)
     if err > 1e-5:
         raise RuntimeError(f"boxes_iou_3d differs from its plain version by "
@@ -793,16 +839,10 @@ PP_TRAIN_WATCH = ("pts_voxel_encoder", "pts_backbone", "pts_bbox_head")
 NMS_NEAR = 1e-5         # a pair this close to the threshold may round apart
 
 
-def phase_pp_main_path(model, batch: dict, dev: str = "cuda"):
-    """PointPillars serving: 1 warm-up + N_REQUESTS batch-1 requests
-    (bf16 convs, float32 decode and NMS). Records the warm-up's NMS inputs
-    (its top-``nms_pre`` boxes and every class's scores). Launch counts are
-    zeroed just before the timed requests and read after each; fails
-    unless ``nms_bev`` launched in every request. Returns (launch counts,
-    NMS inputs, record)."""
-    import torch
+def record_nms_inputs(model, batch: dict, dev: str, stats=None):
+    """One PointPillars request; returns the NMS inputs it made (its
+    top-``nms_pre`` BEV boxes, every class's scores, their validity)."""
     from isfusion_tpu_torch.models.dense_heads import anchor3d_head
-    from isfusion_tpu_torch.ops import cuda_build
 
     real, seen = anchor3d_head.nms_bev_mask, []
 
@@ -812,11 +852,25 @@ def phase_pp_main_path(model, batch: dict, dev: str = "cuda"):
 
     anchor3d_head.nms_bev_mask = recording
     try:
-        stats = {}
-        model(jittered(batch, 0), device=dev, stats=stats)
+        model(batch, device=dev, stats=stats)
         sync(dev)
     finally:
         anchor3d_head.nms_bev_mask = real
+    return seen[0]
+
+
+def phase_pp_main_path(model, batch: dict, dev: str = "cuda"):
+    """PointPillars serving: 1 warm-up + N_REQUESTS batch-1 requests
+    (bf16 convs, float32 decode and NMS). Records the warm-up's NMS inputs
+    (its top-``nms_pre`` boxes and every class's scores). Launch counts are
+    zeroed just before the timed requests and read after each; fails
+    unless ``nms_bev`` launched in every request. Returns (launch counts,
+    NMS inputs, record)."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+
+    stats = {}
+    nms_in = record_nms_inputs(model, jittered(batch, 0), dev, stats)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launches()
@@ -850,7 +904,39 @@ def phase_pp_main_path(model, batch: dict, dev: str = "cuda"):
     if dev == "cuda" and min(per_request) == 0:
         raise RuntimeError(f"nms_bev did not launch in every request: "
                            f"{per_request}")
-    return launches, seen[0], rec
+    return launches, nms_in, rec
+
+
+# (dx, dy) of the config's anchors (AlignedAnchor3DRangeGenerator sizes)
+NUS_SIZES = ((1.95, 4.60), (2.45, 6.73), (2.90, 12.01), (2.94, 11.20),
+             (2.73, 6.38), (0.60, 1.68), (0.77, 2.10), (0.67, 0.73),
+             (0.41, 0.41), (2.49, 0.48))
+
+
+def nms_scene_set(gen, k: int = 1000, c: int = 10):
+    """(boxes (1, K, 5), scores (1, C, K), valid) like a detector's NMS
+    input at the request's size: K / 10 objects of the ten nuScenes
+    classes' sizes over +-50 m, ten jittered proposals each (centre, size
+    and yaw noise), the object's class scored highest, the first ten
+    scores tied. Seed 3 at (1000, 10) leaves no pair within NMS_NEAR of
+    the 0.2 threshold, so the keep masks must equal the plain version's."""
+    import torch
+    n = k // 10
+    cls = torch.randint(0, 10, (n,), generator=gen)
+    obj = torch.empty((n, 5))
+    obj[:, :2] = (torch.rand((n, 2), generator=gen) * 2 - 1) * 50
+    obj[:, 2:4] = torch.tensor(NUS_SIZES)[cls]
+    obj[:, 4] = (torch.rand(n, generator=gen) * 2 - 1) * math.pi
+    boxes = obj.repeat_interleave(10, 0)
+    boxes[:, :2] += torch.randn((k, 2), generator=gen) * 0.15 * \
+        boxes[:, 2:4].max(-1, keepdim=True).values
+    boxes[:, 2:4] *= 1 + 0.1 * torch.randn((k, 2), generator=gen)
+    boxes[:, 4] += 0.15 * torch.randn(k, generator=gen)
+    scores = torch.rand((1, c, k), generator=gen) * 0.3
+    own = cls.repeat_interleave(10) % c
+    scores[0, own, torch.arange(k)] += 0.6 * torch.rand(k, generator=gen)
+    scores[..., :10] = 0.5
+    return boxes[None], scores, scores > 0.05
 
 
 def nms_test_sets(gen):
@@ -886,9 +972,24 @@ def nms_test_sets(gen):
             scored("single_box", base[None])]
 
 
-def _nms_compare(boxes, scores, valid, thr, dev):
-    """(keep masks equal, suppression-bit mismatches away from the
-    threshold, pairs within NMS_NEAR of it, keep flags that differ)."""
+def box_sizes(boxes) -> dict:
+    """Quantiles (0, 0.5, 0.9, 1) of (B, K, 5) BEV boxes' dx and dy and
+    their largest |x|, |y|, in metres."""
+    import torch
+    b = boxes.reshape(-1, 5).float().cpu()
+    q = torch.tensor([0.0, 0.5, 0.9, 1.0])
+    return dict(dx_q=torch.quantile(b[:, 2], q).tolist(),
+                dy_q=torch.quantile(b[:, 3], q).tolist(),
+                max_abs_xy=float(b[:, :2].abs().max()))
+
+
+def _nms_compare(boxes, scores, valid, thr, dev) -> dict:
+    """K10-NMS on one set against two yardsticks: its keep masks must
+    equal the plain greedy walk over the kernel's own suppression bits
+    (which holds the greedy pass exactly, rounding aside), and its bits
+    must equal the plain IoU's wherever that lies more than NMS_NEAR from
+    the threshold; the plain version's keep masks (``keep_equal``) must
+    be equal whenever no pair is that close."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
 
@@ -896,42 +997,50 @@ def _nms_compare(boxes, scores, valid, thr, dev):
     ref = box_ops.nms_bev_mask_ref(boxes, scores, thr, valid)
     iou = box_ops.boxes_iou_bev_ref(boxes, boxes)
     near = (iou - thr).abs() < NMS_NEAR
-    if dev == "cuda":
-        bits = box_ops.nms_bev_suppression_bits(boxes, thr)
-        bad_bits = int(((bits != (iou > thr)) & ~near).sum())
-    else:
-        bad_bits = 0
+    # on the CPU (rehearsal) the plain bits stand in for the kernel's
+    bits = box_ops.nms_bev_suppression_bits(boxes, thr) if dev == "cuda" \
+        else iou > thr
+    on_bits = box_ops.greedy_suppress_ref(bits.cpu(), scores.cpu(),
+                                          valid.cpu())
     sync(dev)
-    return (torch.equal(got, ref), bad_bits, int(near.sum()),
-            int((got != ref).sum()))
+    return dict(K=boxes.shape[1], C=scores.shape[1], kept=int(ref.sum()),
+                greedy_equal=torch.equal(got.cpu(), on_bits),
+                keep_equal=torch.equal(got, ref),
+                bad_bits=int(((bits != (iou > thr)) & ~near).sum()),
+                pairs_near_threshold=int(near.sum()),
+                keep_flags_differ=int((got != ref).sum()))
 
 
-def phase_pp_kernel_check(nms_in, dev: str = "cuda") -> dict:
-    """K10-NMS against its plain version on the request's own top boxes
-    and classes and on the adversarial sets: suppression bits equal away
-    from the threshold, keep masks equal whenever no pair lies within
-    NMS_NEAR of it; the request's NMS timed beside its operation bound.
-    Returns the record for the JSON line."""
+def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
+    """K10-NMS against its plain version (``_nms_compare``) on the
+    request's own top boxes and classes, on the same request before the
+    box deltas were tamed (``untamed``, boxes far wider than the scene),
+    on a scene-like set of 1,000 boxes and 10 classes with no pair near
+    the threshold, and on the adversarial sets; the request's NMS timed beside
+    its operation bound. Returns the record for the JSON line."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
 
     thr = 0.2
     boxes, scores, valid = nms_in
     gen = torch.Generator().manual_seed(11)
-    cases = [("request", boxes, scores, valid)] + [
-        (n, b.to(dev), s.to(dev), v.to(dev))
-        for n, b, s, v in nms_test_sets(gen)]
+    cases = [("request", boxes, scores, valid)]
+    if untamed is not None:
+        cases.append(("request_untamed",) + tuple(untamed))
+    cases += [(n, b.to(dev), s.to(dev), v.to(dev)) for n, b, s, v in
+              [("scene",) + nms_scene_set(torch.Generator().manual_seed(3))]
+              + nms_test_sets(gen)]
     worst = 0
     for name, b, s, v in cases:
-        equal, bad_bits, near, differ = _nms_compare(b, s, v, thr, dev)
-        worst = max(worst, differ)
-        log("pp_nms_case", case=name, K=b.shape[1], C=s.shape[1],
-            kept=int(box_ops.nms_bev_mask_ref(b, s, thr, v).sum()),
-            keep_equal=equal, bad_bits=bad_bits, pairs_near_threshold=near,
-            keep_flags_differ=differ)
-        if bad_bits or (near == 0 and not equal):
+        r = _nms_compare(b, s, v, thr, dev)
+        worst = max(worst, r["keep_flags_differ"])
+        log("pp_nms_case", case=name, box_m=box_sizes(b), **r)
+        if name == "scene" and r["pairs_near_threshold"]:
+            raise RuntimeError("the scene set has pairs near the threshold")
+        if r["bad_bits"] or not r["greedy_equal"] or \
+                (r["pairs_near_threshold"] == 0 and not r["keep_equal"]):
             raise RuntimeError(f"nms_bev differs from its plain version on "
-                               f"{name}: {bad_bits} bits, {differ} flags")
+                               f"{name}: {r}")
     ops = box_ops.nms_bev_ops(boxes)
     nbytes = boxes.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
     rec = dict(B=boxes.shape[0], K=boxes.shape[1], C=scores.shape[1],
@@ -950,6 +1059,10 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda") -> dict:
         # the pairwise pass alone (the greedy pass is the rest)
         rec["pairwise_ms"] = cuda_ms(lambda: box_ops._launch_nms(
             boxes, None, None, None, 1, thr, False), dev, iters=50)
+        for kern in ("nms_mask_kernel", "nms_greedy_kernel"):
+            rec[f"{kern}_device_ms"] = kernel_device_ms(
+                lambda: box_ops.nms_bev_mask(boxes, scores, thr, valid),
+                kern)
     log("pp_kernel_check", **rec)
     return rec
 
@@ -1027,40 +1140,6 @@ def phase_pp_train(model, batch: dict, dev: str = "cuda",
     return rec
 
 
-def tame_box_deltas(model, scale: float = 0.01):
-    """Scale the Anchor3DHead's box-regression weights by ``scale``.
-    Seeded random weights regress size residuals of tens, whose exp()
-    decodes to boxes 1e4-1e10 m wide; the NMS over such boxes rests on
-    float32 rounding, which the card and the CPU do differently. Scaled,
-    the boxes stay near their anchors."""
-    import torch
-    with torch.no_grad():
-        model.pts_bbox_head.conv_reg.weight.mul_(scale)
-    return model
-
-
-def pp_kept_boxes(model, batch: dict, dev: str):
-    """Every box the model keeps after NMS (``max_num`` lifted so that no
-    near-tie decides which ones make the cut), in a canonical order:
-    (boxes, scores, sample * C + label) sorted by that key, then by x."""
-    import torch
-    head = model.pts_bbox_head
-    cfg = dict(head.test_cfg)
-    head.test_cfg["max_num"] = int(cfg.get("nms_pre", 1000)) * \
-        head.num_classes
-    try:
-        out = {k: v.cpu() for k, v in model(batch, device=dev).items()}
-    finally:
-        head.test_cfg = cfg
-    m = out["mask"]
-    key = (torch.arange(m.shape[0])[:, None] * head.num_classes +
-           out["labels"])[m]
-    boxes, scores = out["bboxes"][m], out["scores"][m]
-    o = torch.argsort(boxes[:, 0], stable=True)
-    o = o[torch.argsort(key[o], stable=True)]
-    return boxes[o], scores[o], key[o]
-
-
 def phase_pp_reference(dev: str = "cuda"):
     """Tiny PointPillars, float32 (TF32 off), box deltas tamed
     (``tame_box_deltas``): predict and one train step on the card against
@@ -1073,6 +1152,7 @@ def phase_pp_reference(dev: str = "cuda"):
     from isfusion_tpu_torch.flagship import build_pointpillars_flagship
     from isfusion_tpu_torch.parallel.train_step import make_train_step
     from isfusion_tpu_torch.runner.optim import build_optimizer
+    from isfusion_tpu_torch.testing import pp_kept_boxes, tame_box_deltas
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1146,14 +1226,21 @@ def main() -> int:
 
     from isfusion_tpu_torch.flagship import (build_pointpillars_flagship,
                                              pointpillars_optim_cfg)
+    from isfusion_tpu_torch.testing import tame_box_deltas
     pp, pp_batch_fn = build_pointpillars_flagship(device="cuda", seed=0)
-    pp_launches, nms_in, _ = phase_pp_main_path(pp, pp_batch_fn(1))
+    pp_batch = pp_batch_fn(1)
+    # random weights decode boxes far wider than the scene: the request's
+    # NMS inputs as they are go to the kernel check, and the model serves
+    # (and trains) with scene-sized boxes
+    untamed = record_nms_inputs(pp, jittered(pp_batch, 0), "cuda")
+    tame_box_deltas(pp)
+    pp_launches, nms_in, _ = phase_pp_main_path(pp, pp_batch)
     missing = [k for k in PP_PREDICT_KERNELS if pp_launches[k] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the PointPillars "
                            f"path: {missing}")
-    nms = phase_pp_kernel_check(nms_in)
-    del nms_in
+    nms = phase_pp_kernel_check(nms_in, untamed=untamed)
+    del nms_in, untamed
     phase_pp_train(pp, pp_batch_fn(pointpillars_optim_cfg()[
         "samples_per_gpu"]))
     del pp
@@ -1184,6 +1271,8 @@ def main() -> int:
              plain_ms=iou["plain_ms"], bound_ms=iou["bound_ms"],
              bound_by="operations", library_ms=None,
              train_launches_per_step=per_step["boxes_iou_3d"],
+             device_ms=iou["device_ms"],
+             one_sample_device_ms=iou["one_sample_device_ms"],
              per_sample_launches_ms=iou["per_sample_launches_ms"]),
         dict(name="nms_bev", route="cuda",
              source="isfusion_tpu_torch/csrc/nms_bev.cu",

@@ -5,6 +5,7 @@ Module paths mirror that package; parameter names follow the reference
 mmdet3d ``state_dict`` keys. Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.
 """
+import numpy as np
 import torch
 
 
@@ -17,3 +18,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def upload(model: torch.nn.Module, batch: dict, device) -> dict:
+    """The batch as tensors on the model's device; raises if ``device``
+    (default: the CUDA card) is not where the parameters are."""
+    dev = resolve_device(device)
+    pdev = next(model.parameters()).device
+    if pdev != dev and not (pdev.type == dev.type == "cuda"
+                            and dev.index is None):
+        raise RuntimeError(f"model parameters are on {pdev}, the forward "
+                           f"was asked to run on {dev}")
+    return {k: v.to(pdev) if torch.is_tensor(v)
+            else torch.from_numpy(np.array(v)).to(pdev)
+            for k, v in batch.items()}

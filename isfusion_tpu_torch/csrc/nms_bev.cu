@@ -24,13 +24,16 @@
 //    thread computes one pair and a warp ballot packs 32 of them into half
 //    a word.
 // 2. Greedy pass. One block per sample, one warp per class. The sample's
-//    mask (128 KB at K = 1,000) is copied into shared memory when it fits;
-//    each warp keeps its removed-bitmask (ceil(K / 64) words) there too,
+//    mask (128 KB at K = 1,000) is copied into shared memory; each warp
+//    keeps its removed-bitmask (ceil(K / 64) words) there too,
 //    reads its class's order 32 entries at a time (one coalesced load,
 //    then warp shuffles) and, for each kept box, ORs the box's mask row
 //    into the removed-bitmask, one word per lane.
-// Allocates nothing (the wrapper passes the mask scratch) and does not
-// synchronise.
+// The launch is refused (cudaErrorInvalidValue) when the mask and the
+// removed-bitmasks, (K + C) * ceil(K / 64) words, exceed SMEM_MAX: with 32
+// classes up to K = 1,344, against an nms_pre of at most 1,000 in the
+// repo's configs. Allocates nothing (the wrapper passes the mask scratch)
+// and does not synchronise.
 #include <stdint.h>
 
 #include "rotated_box.cuh"
@@ -41,6 +44,7 @@ constexpr int ROWS = 4;       // row boxes per block of the pairwise pass
 constexpr int COLS = 64;      // column boxes per block: one mask word
 constexpr int THREADS = 256;  // 8 warps: (row, half word) each
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMEM_MAX = 227 * 1024;  // Hopper's opt-in shared memory/block
 
 __global__ void nms_mask_kernel(const float* __restrict__ boxes,
                                 uint32_t* __restrict__ mask32, int64_t k,
@@ -80,17 +84,14 @@ __global__ void nms_greedy_kernel(const uint64_t* __restrict__ mask,
                                   const int* __restrict__ order,
                                   const uint8_t* __restrict__ valid,
                                   uint8_t* __restrict__ keep, int64_t nc,
-                                  int64_t k, int w, int mask_in_smem) {
+                                  int64_t k, int w) {
   extern __shared__ uint64_t smem[];
   const int64_t s = blockIdx.x;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   uint64_t* removed_all = smem;            // nc * w words
-  const uint64_t* rows = mask + s * k * w;
-  if (mask_in_smem) {
-    uint64_t* smask = smem + nc * w;
-    for (int64_t e = tid; e < k * w; e += nthreads) smask[e] = rows[e];
-    rows = smask;
-  }
+  uint64_t* rows = smem + nc * w;          // the sample's k * w mask words
+  const uint64_t* src = mask + s * k * w;
+  for (int64_t e = tid; e < k * w; e += nthreads) rows[e] = src[e];
   for (int64_t e = tid; e < nc * w; e += nthreads) removed_all[e] = 0ull;
   uint8_t* keep_s = keep + s * nc * k;
   for (int64_t e = tid; e < nc * k; e += nthreads) keep_s[e] = 0;
@@ -133,8 +134,10 @@ extern "C" int nms_bev(const void* boxes, const void* order,
                        long long batch, long long nc, long long k, float thr,
                        int greedy, void* stream) {
   if (batch <= 0 || nc <= 0 || k <= 0) return 0;
-  if (nc > 32 || k > 4096 || batch > 65535) return (int)cudaErrorInvalidValue;
   const int w = (int)((k + 63) / 64);
+  const size_t bytes = (size_t)(nc + k) * w * sizeof(uint64_t);
+  if (nc > 32 || bytes > (size_t)SMEM_MAX || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   nms_mask_kernel<<<dim3((unsigned)w, (unsigned)((k + ROWS - 1) / ROWS),
                          (unsigned)batch),
@@ -143,22 +146,13 @@ extern "C" int nms_bev(const void* boxes, const void* order,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !greedy) return (int)err;
 
-  int dev = 0, optin = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t base = (size_t)nc * w * sizeof(uint64_t);
-  const size_t full = base + (size_t)k * w * sizeof(uint64_t);
-  const int in_smem = full <= (size_t)optin;
-  const size_t bytes = in_smem ? full : base;
+  // set on every call: the attribute belongs to the current device
   err = cudaFuncSetAttribute(nms_greedy_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+                             SMEM_MAX);
   if (err != cudaSuccess) return (int)err;
   nms_greedy_kernel<<<(unsigned)batch, (unsigned)(32 * nc), bytes, st>>>(
       (const uint64_t*)mask, (const int*)order, (const uint8_t*)valid,
-      (uint8_t*)keep, (int64_t)nc, (int64_t)k, w, in_smem);
+      (uint8_t*)keep, (int64_t)nc, (int64_t)k, w);
   return (int)cudaGetLastError();
 }

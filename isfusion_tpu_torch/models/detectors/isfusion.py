@@ -32,12 +32,12 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ... import upload
 from ...ops.voxel import voxelize_dynamic, voxelize_hard
 from ..layers import random_source
 from ...registry import DETECTORS
 from ..builder import (build_backbone, build_fusion_layer, build_head,
                        build_middle_encoder, build_neck, build_voxel_encoder)
-from .mvx_two_stage import upload
 
 
 @DETECTORS.register_module()

@@ -16,11 +16,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
-from ... import resolve_device
+from ... import upload
 from ...ops.voxel import voxelize_hard
 from ...registry import DETECTORS
 from ..builder import (build_backbone, build_head, build_middle_encoder,
@@ -33,20 +32,6 @@ def capacity(max_voxels, train: bool) -> int:
     if isinstance(max_voxels, (tuple, list)):
         return int(max_voxels[0] if train else max_voxels[1])
     return int(max_voxels)
-
-
-def upload(model: nn.Module, batch: dict, device) -> dict:
-    """The batch as tensors on the model's device; raises if ``device``
-    (default: the CUDA card) is not where the parameters are."""
-    dev = resolve_device(device)
-    pdev = next(model.parameters()).device
-    if pdev != dev and not (pdev.type == dev.type == "cuda"
-                            and dev.index is None):
-        raise RuntimeError(f"model parameters are on {pdev}, the forward "
-                           f"was asked to run on {dev}")
-    return {k: v.to(pdev) if torch.is_tensor(v)
-            else torch.from_numpy(np.array(v)).to(pdev)
-            for k, v in batch.items()}
 
 
 @DETECTORS.register_module()

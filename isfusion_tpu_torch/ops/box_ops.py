@@ -41,10 +41,17 @@ from . import cuda_build
 # counted per pair by ``rotated_iou_ops``
 IOU3D_OPS_PER_PAIR = 22 + 8 * 4 * 6 + 16 * 22 + 50 + 16
 
-# the greedy pass keeps its per-class removed-mask in shared memory: at
-# most 32 classes (one warp each) and 4096 boxes (64 words) per sample
+# the greedy pass holds a sample's (K, ceil(K / 64)) suppression words and
+# one removed-mask of ceil(K / 64) words per class (one warp each) in
+# shared memory: at most 32 classes and Hopper's 227 KB a block (K <=
+# 1,344 at 32 classes, 1,000 at the configs' largest nms_pre)
 NMS_MAX_CLASSES = 32
-NMS_MAX_BOXES = 4096
+NMS_SMEM_BYTES = 227 * 1024
+
+
+def nms_smem_bytes(classes: int, boxes: int) -> int:
+    """Shared memory of K10-NMS's greedy pass for one sample."""
+    return (classes + boxes) * ((boxes + 63) // 64) * 8
 
 
 def limit_period(val: torch.Tensor, offset: float = 0.5,
@@ -227,18 +234,27 @@ def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
 
 def _nms_args(boxes_bev: torch.Tensor, scores: torch.Tensor,
               valid: Optional[torch.Tensor]):
-    if boxes_bev.dim() != 3 or boxes_bev.shape[-1] != 5 or \
-            scores.dim() != 3 or scores.shape[0] != boxes_bev.shape[0] or \
-            scores.shape[2] != boxes_bev.shape[1]:
-        raise ValueError(f"nms_bev_mask: boxes (B, K, 5) and scores (B, C, "
-                         f"K), got {tuple(boxes_bev.shape)} and "
-                         f"{tuple(scores.shape)}")
+    if boxes_bev.dim() != 3 or boxes_bev.shape[-1] != 5:
+        raise ValueError(f"nms_bev_mask: boxes (B, K, 5), got "
+                         f"{tuple(boxes_bev.shape)}")
+    return _nms_order(boxes_bev, scores, valid)
+
+
+def _nms_order(lead: torch.Tensor, scores: torch.Tensor,
+               valid: Optional[torch.Tensor]):
+    """(valid, order) for scores (B, C, K) over the (B, K, ...) ``lead``
+    tensor (boxes or a suppression matrix)."""
+    if scores.dim() != 3 or scores.shape[0] != lead.shape[0] or \
+            scores.shape[2] != lead.shape[1]:
+        raise ValueError(f"nms_bev_mask: scores (B, C, K) for (B, K, ...) "
+                         f"boxes, got {tuple(scores.shape)} and "
+                         f"{tuple(lead.shape)}")
     if valid is None:
         valid = torch.ones(scores.shape, dtype=torch.bool,
                            device=scores.device)
     if valid.shape != scores.shape:
         raise ValueError("nms_bev_mask: valid must have the scores' shape")
-    if len({boxes_bev.device, scores.device, valid.device}) != 1:
+    if len({lead.device, scores.device, valid.device}) != 1:
         raise ValueError("nms_bev_mask: inputs on different devices")
     # descending scores, ties keep the lower index first (jnp.argsort of
     # the negated scores, as the JAX package orders them)
@@ -252,8 +268,22 @@ def nms_bev_mask_ref(boxes_bev: torch.Tensor, scores: torch.Tensor,
                      ) -> torch.Tensor:
     """Plain PyTorch version of ``nms_bev_mask``: the plain BEV IoU and a
     sequential greedy walk per sample and class."""
-    valid, order = _nms_args(boxes_bev, scores, valid)
-    suppress = boxes_iou_bev_ref(boxes_bev, boxes_bev) > thresh
+    _nms_args(boxes_bev, scores, valid)
+    return greedy_suppress_ref(
+        boxes_iou_bev_ref(boxes_bev, boxes_bev) > thresh, scores, valid)
+
+
+def greedy_suppress_ref(suppress: torch.Tensor, scores: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """(B, C, K) keep masks of the greedy walk (``_greedy_suppress``)
+    over a given (B, K, K) bool suppression matrix, bit (i, j) = box i
+    suppresses box j: by descending score (ties: lower index first), a
+    valid box that no kept box suppresses is kept."""
+    if suppress.dim() != 3 or suppress.shape[1] != suppress.shape[2]:
+        raise ValueError(f"greedy_suppress_ref: suppression (B, K, K), got "
+                         f"{tuple(suppress.shape)}")
+    valid, order = _nms_order(suppress, scores, valid)
     keep = torch.zeros_like(valid)
     for b in range(scores.shape[0]):
         for c in range(scores.shape[1]):
@@ -278,10 +308,6 @@ def nms_bev_mask(boxes_bev: torch.Tensor, scores: torch.Tensor,
     if boxes_bev.device.type != "cuda":
         raise RuntimeError(f"nms_bev_mask: no kernel for {boxes_bev.device}")
     b, c, k = scores.shape
-    if c > NMS_MAX_CLASSES or k > NMS_MAX_BOXES:
-        raise ValueError(f"nms_bev_mask: at most {NMS_MAX_CLASSES} classes "
-                         f"and {NMS_MAX_BOXES} boxes per sample, got {c} "
-                         f"and {k}")
     keep = torch.empty((b, c, k), dtype=torch.uint8, device=scores.device)
     if keep.numel() == 0:
         return keep.bool()
@@ -292,6 +318,11 @@ def nms_bev_mask(boxes_bev: torch.Tensor, scores: torch.Tensor,
 
 def _launch_nms(boxes_bev, order, valid8, keep, c, thresh, greedy):
     b, k = boxes_bev.shape[:2]
+    if c > NMS_MAX_CLASSES or nms_smem_bytes(c, k) > NMS_SMEM_BYTES:
+        raise ValueError(f"nms_bev_mask: at most {NMS_MAX_CLASSES} classes "
+                         f"and {NMS_SMEM_BYTES} bytes of shared memory "
+                         f"((C + K) * ceil(K / 64) * 8), got C = {c}, K = "
+                         f"{k}")
     boxes = boxes_bev.float().contiguous()
     mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64,
                        device=boxes.device)
@@ -315,9 +346,9 @@ def nms_bev_suppression_bits(boxes_bev: torch.Tensor, thresh: float
     64)) words (CUDA tensors only; the check of the kernel's geometry
     against ``boxes_iou_bev_ref``)."""
     if boxes_bev.device.type != "cuda" or boxes_bev.dim() != 3 or \
-            boxes_bev.shape[-1] != 5 or boxes_bev.shape[1] > NMS_MAX_BOXES:
-        raise ValueError("nms_bev_suppression_bits: (B, K <= 4096, 5) "
-                         "boxes on the card")
+            boxes_bev.shape[-1] != 5:
+        raise ValueError("nms_bev_suppression_bits: (B, K, 5) boxes on the "
+                         "card")
     k = boxes_bev.shape[1]
     words = _launch_nms(boxes_bev, None, None, None, 1, thresh, False)
     shift = torch.arange(64, device=words.device)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -94,6 +95,60 @@ def build_all() -> float:
     with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as ex:
         list(ex.map(build, SIGNATURES))
     return time.perf_counter() - t0
+
+
+def ptxas_usage(source) -> Dict[str, dict]:
+    """Registers, stack frame and spill bytes of each kernel of the CUDA
+    source ``source`` (a path), as ``ptxas -v`` reports them for sm_90a
+    with the build's flags; compiles a cubin beside the libraries and
+    removes it. Keys are the kernels' names (and those of device
+    functions that were not inlined)."""
+    source = Path(source)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{source.stem}.{os.getpid()}.cubin"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                "-fPIC")]
+    try:
+        res = subprocess.run([find_nvcc(), *flags, "-cubin", "-Xptxas",
+                              "-v", "-o", str(tmp), str(source)],
+                             capture_output=True, text=True)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{res.stderr}")
+    def short(mangled):
+        # the last name of an Itanium-mangled (nested) name
+        i = 2 + (mangled[2:3] == "N") if mangled.startswith("_Z") else 0
+        name = mangled
+        while i < len(mangled) and mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        return name
+
+    # "Function properties for F" (an entry or a called device function)
+    # precedes F's stack and spill line; "Used N registers" follows its
+    # entry's "Compiling entry function" line
+    usage, entry, target = {}, None, None
+    for line in res.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = usage.setdefault(short(m.group(1)), {})
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            target = usage.setdefault(short(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and target is not None:
+            target.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                          spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,9 +7,11 @@ dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: exact for the gather (a copy); 1e-5 for the rotated IoU
-kernel against its plain version, batched or not; equal NMS keep masks
-unless a pair's IoU lies within 1e-5 of the threshold (then at most 1%
-of the flags differ); 1e-5 of the max for the sparse conv's
+kernel against its plain version, batched or not; NMS keep masks equal
+to the plain greedy walk over the kernel's own suppression bits, those
+bits equal to the plain IoU's more than 1e-5 from the threshold, and keep
+masks equal to the plain version's when no pair is that close; 1e-5 of
+the max for the sparse conv's
 K12 backward against plain autograd on the CPU, 1e-3 of the max for the
 tiny flagship on the card against the CPU, 1e-4 of the max for the tiny
 PointPillars' kept boxes (the same entries and labels), and 1e-4 relative
@@ -224,20 +226,41 @@ def test_nms_bev_kernel_matches_plain_version(card, b, c, k):
     assert cuda_build.LAUNCHES["nms_bev"] == before + 1
     want = box_ops.nms_bev_mask_ref(boxes, scores, 0.2, valid)
     iou = box_ops.boxes_iou_bev_ref(boxes, boxes)
-    near = int(((iou - 0.2).abs() < 1e-5).sum())
-    if near == 0:
+    near = (iou - 0.2).abs() < 1e-5
+    bits = box_ops.nms_bev_suppression_bits(boxes, 0.2)
+    assert not ((bits != (iou > 0.2)) & ~near).any()
+    # the greedy pass, exactly, on the bits the kernel computed
+    assert torch.equal(got, box_ops.greedy_suppress_ref(bits, scores, valid))
+    if not near.any():   # a pair on the threshold may round either way
         assert torch.equal(got, want)
-    else:   # a pair on the threshold may round either way
-        assert float((got != want).float().mean()) <= 0.01
     assert not (got & ~valid).any()
     invalid = box_ops.nms_bev_mask(boxes, scores, 0.2,
                                    torch.zeros_like(valid))
     assert not invalid.any()
 
 
+def test_nms_bev_shared_memory_limit(card):
+    """K = 1,344 at 32 classes fills the greedy pass's shared memory
+    ((32 + 1344) * 21 words); K = 1,345 is refused at any class count."""
+    assert box_ops.nms_smem_bytes(32, 1344) <= box_ops.NMS_SMEM_BYTES
+    assert box_ops.nms_smem_bytes(1, 1345) > box_ops.NMS_SMEM_BYTES
+    gen = torch.Generator().manual_seed(0)
+    boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, 32,
+                                                            1344))
+    before = cuda_build.LAUNCHES["nms_bev"]
+    got = box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
+    assert cuda_build.LAUNCHES["nms_bev"] == before + 1
+    bits = box_ops.nms_bev_suppression_bits(boxes, 0.2)
+    assert torch.equal(got, box_ops.greedy_suppress_ref(bits, scores, valid))
+    boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, 1, 1345))
+    with pytest.raises(ValueError):
+        box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
+    assert cuda_build.LAUNCHES["nms_bev"] == before + 2
+
+
 def test_pointpillars_tiny_on_card_matches_cpu(card):
-    import chip_smoke
     from isfusion_tpu_torch.flagship import build_pointpillars_flagship
+    from isfusion_tpu_torch.testing import pp_kept_boxes, tame_box_deltas
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -246,8 +269,8 @@ def test_pointpillars_tiny_on_card_matches_cpu(card):
         model, batch_fn = build_pointpillars_flagship(tiny=True, device=dev,
                                                       seed=2)
         before = cuda_build.LAUNCHES["nms_bev"]
-        outs.append(chip_smoke.pp_kept_boxes(
-            chip_smoke.tame_box_deltas(model), batch_fn(2, seed=5), dev))
+        outs.append(pp_kept_boxes(tame_box_deltas(model), batch_fn(2, seed=5),
+                                  dev))
         assert cuda_build.LAUNCHES["nms_bev"] - before == int(dev == "cuda")
     (cb, cs, ck), (gb, gs, gk) = outs
     assert torch.equal(ck, gk) and len(ck) > 10

@@ -372,6 +372,33 @@ def test_nms_bev_ref_matches_jax(kind):
         assert (keep == [1, 0, 1, 1, 0, 0]).all()
 
 
+@pytest.mark.parametrize("density", [0.02, 0.3])
+def test_greedy_suppress_ref_matches_jax(density):
+    """The greedy walk alone, over a given (asymmetric) suppression
+    matrix with tied scores and invalid boxes."""
+    rng = np.random.default_rng(8)
+    n = 120
+    suppress = rng.uniform(size=(n, n)) < density
+    scores = np.round(rng.uniform(size=n), 1).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.2
+    want = np.asarray(jbox._greedy_suppress(
+        jnp.asarray(scores), jnp.asarray(suppress), jnp.asarray(valid)))
+    got = box_ops.greedy_suppress_ref(torch.from_numpy(suppress)[None],
+                                      torch.from_numpy(scores)[None, None],
+                                      torch.from_numpy(valid)[None, None])
+    assert 0 < want.sum() < valid.sum()
+    np.testing.assert_array_equal(got[0, 0].numpy(), want)
+
+
+def test_nms_shared_memory_limit():
+    """The greedy pass's shared memory: K = 1,344 fits at 32 classes,
+    K = 1,345 at none (the card test launches both)."""
+    assert box_ops.nms_smem_bytes(32, 1344) == (32 + 1344) * 21 * 8
+    assert box_ops.nms_smem_bytes(32, 1344) <= box_ops.NMS_SMEM_BYTES
+    assert box_ops.nms_smem_bytes(1, 1345) > box_ops.NMS_SMEM_BYTES
+    assert box_ops.nms_smem_bytes(10, 1000) <= box_ops.NMS_SMEM_BYTES
+
+
 def test_nms_bev_mask_batches_and_checks():
     rng = np.random.default_rng(7)
     boxes = torch.from_numpy(np.stack([_bev_boxes(rng, 80) for _ in (0, 1)]))
