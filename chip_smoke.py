@@ -58,12 +58,16 @@ Phases, each printing one line (every failure raises, exit code != 0):
 11. PointPillars kernel check: K10-NMS against its plain version on the
     request's own top-1,000 boxes and 10 classes, on the same request
     before the scaling, on a scene-like set of 1,000 boxes and 10 classes
-    with no pair near the threshold and on adversarial sets (identical,
-    nested, 45-degree, chained, all-invalid, single box): keep masks equal
-    to the plain greedy walk over the kernel's own suppression bits,
-    those bits equal wherever the plain IoU is more than 1e-5 from the
-    threshold, keep masks equal to the plain version's whenever no pair
-    is that close; prints each set's box sizes;
+    with no pair near the threshold, on 1,000 boxes within 3 m (every
+    bounding circle meets) and 1,000 on a 10 m grid (none meets), and on
+    adversarial sets (identical, nested, 45-degree, chained, all-invalid,
+    single box): keep masks equal to the plain greedy walk over the
+    kernel's own suppression bits, those bits symmetric and equal
+    wherever the plain IoU is more than 1e-5 from the threshold, keep
+    masks equal to the plain version's whenever no pair is that close;
+    prints each set's box sizes, the share of pairs whose circles meet,
+    both operation bounds (those pairs, every pair) and each pass's
+    device time;
 12. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
     lr with linear warmup, clip 35), 1 warm-up and 5 timed steps; fails on
     a non-finite or zero grad norm or an unchanged weight of the VFE, the
@@ -125,11 +129,10 @@ def cuda_ms(fn, dev: str = "cuda", iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 50):
-    """Mean device ms per launch of the kernels whose name holds
-    ``kernel``, over ``iters`` calls of ``fn()`` under torch.profiler
-    after a warm-up: the card's own clock, without the host's launch
-    overhead."""
+def device_kernels(fn, iters: int = 50) -> dict:
+    """{device operation: (launches per call, mean device ms per launch)}
+    over ``iters`` calls of ``fn()`` under torch.profiler after a
+    warm-up: the card's own clock, without the host's launch overhead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -141,12 +144,24 @@ def kernel_device_ms(fn, kernel: str, iters: int = 50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in evs)
-    if n == 0:
+    return {e.key: (e.count / iters, e.self_device_time_total / 1e3 / e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+def kernel_ms(ops: dict, kernel: str):
+    """Mean device ms per launch of the operations of ``device_kernels``
+    whose name holds ``kernel``."""
+    hits = [v for name, v in ops.items() if kernel in name]
+    if not hits:
         return "not measured"
-    return sum(e.self_device_time_total for e in evs) / 1e3 / n
+    return sum(n * ms for n, ms in hits) / sum(n for n, _ in hits)
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 50):
+    """Mean device ms per launch of the kernels whose name holds
+    ``kernel``, over ``iters`` calls of ``fn()`` (``device_kernels``)."""
+    return kernel_ms(device_kernels(fn, iters), kernel)
 
 
 def gather_bytes(src, idx, fmask) -> int:
@@ -907,38 +922,6 @@ def phase_pp_main_path(model, batch: dict, dev: str = "cuda"):
     return launches, nms_in, rec
 
 
-# (dx, dy) of the config's anchors (AlignedAnchor3DRangeGenerator sizes)
-NUS_SIZES = ((1.95, 4.60), (2.45, 6.73), (2.90, 12.01), (2.94, 11.20),
-             (2.73, 6.38), (0.60, 1.68), (0.77, 2.10), (0.67, 0.73),
-             (0.41, 0.41), (2.49, 0.48))
-
-
-def nms_scene_set(gen, k: int = 1000, c: int = 10):
-    """(boxes (1, K, 5), scores (1, C, K), valid) like a detector's NMS
-    input at the request's size: K / 10 objects of the ten nuScenes
-    classes' sizes over +-50 m, ten jittered proposals each (centre, size
-    and yaw noise), the object's class scored highest, the first ten
-    scores tied. Seed 3 at (1000, 10) leaves no pair within NMS_NEAR of
-    the 0.2 threshold, so the keep masks must equal the plain version's."""
-    import torch
-    n = k // 10
-    cls = torch.randint(0, 10, (n,), generator=gen)
-    obj = torch.empty((n, 5))
-    obj[:, :2] = (torch.rand((n, 2), generator=gen) * 2 - 1) * 50
-    obj[:, 2:4] = torch.tensor(NUS_SIZES)[cls]
-    obj[:, 4] = (torch.rand(n, generator=gen) * 2 - 1) * math.pi
-    boxes = obj.repeat_interleave(10, 0)
-    boxes[:, :2] += torch.randn((k, 2), generator=gen) * 0.15 * \
-        boxes[:, 2:4].max(-1, keepdim=True).values
-    boxes[:, 2:4] *= 1 + 0.1 * torch.randn((k, 2), generator=gen)
-    boxes[:, 4] += 0.15 * torch.randn(k, generator=gen)
-    scores = torch.rand((1, c, k), generator=gen) * 0.3
-    own = cls.repeat_interleave(10) % c
-    scores[0, own, torch.arange(k)] += 0.6 * torch.rand(k, generator=gen)
-    scores[..., :10] = 0.5
-    return boxes[None], scores, scores > 0.05
-
-
 def nms_test_sets(gen):
     """Adversarial (name, boxes (1, K, 5), scores (1, C, K), valid) sets:
     identical boxes, nested boxes, 45-degree rotations, suppression
@@ -987,9 +970,11 @@ def _nms_compare(boxes, scores, valid, thr, dev) -> dict:
     """K10-NMS on one set against two yardsticks: its keep masks must
     equal the plain greedy walk over the kernel's own suppression bits
     (which holds the greedy pass exactly, rounding aside), and its bits
-    must equal the plain IoU's wherever that lies more than NMS_NEAR from
-    the threshold; the plain version's keep masks (``keep_equal``) must
-    be equal whenever no pair is that close."""
+    must be symmetric and equal the plain IoU's wherever that lies more
+    than NMS_NEAR from the threshold; the plain version's keep masks
+    (``keep_equal``) must be equal whenever no pair is that close. Also
+    the share of unordered pairs whose bounding circles meet (the pairs
+    the pairwise pass computes) and both operation bounds."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
 
@@ -1002,13 +987,23 @@ def _nms_compare(boxes, scores, valid, thr, dev) -> dict:
         else iou > thr
     on_bits = box_ops.greedy_suppress_ref(bits.cpu(), scores.cpu(),
                                           valid.cpu())
+    k = boxes.shape[1]
+    meet = torch.triu(box_ops.bev_circles_meet(boxes), diagonal=1)
+    ops_all, ops = box_ops.nms_bev_ops(boxes), box_ops.nms_bev_needed_ops(
+        boxes)
     sync(dev)
-    return dict(K=boxes.shape[1], C=scores.shape[1], kept=int(ref.sum()),
+    return dict(K=k, C=scores.shape[1], kept=int(ref.sum()),
                 greedy_equal=torch.equal(got.cpu(), on_bits),
                 keep_equal=torch.equal(got, ref),
                 bad_bits=int(((bits != (iou > thr)) & ~near).sum()),
+                symmetric=torch.equal(bits, bits.transpose(1, 2)),
                 pairs_near_threshold=int(near.sum()),
-                keep_flags_differ=int((got != ref).sum()))
+                keep_flags_differ=int((got != ref).sum()),
+                circles_meet_share=int(meet.sum()) / max(
+                    boxes.shape[0] * k * (k - 1) // 2, 1),
+                ops=ops, ops_all_pairs=ops_all,
+                bound_ms=ops / F32_OPS_PER_S * 1e3,
+                all_pairs_bound_ms=ops_all / F32_OPS_PER_S * 1e3)
 
 
 def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
@@ -1016,10 +1011,16 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
     request's own top boxes and classes, on the same request before the
     box deltas were tamed (``untamed``, boxes far wider than the scene),
     on a scene-like set of 1,000 boxes and 10 classes with no pair near
-    the threshold, and on the adversarial sets; the request's NMS timed beside
-    its operation bound. Returns the record for the JSON line."""
+    the threshold, on 1,000 boxes within 3 m (every circle meets) and
+    1,000 on a 10 m grid (none meets), and on the adversarial sets; on the
+    card each set's pairwise and greedy passes' device times. The
+    request's NMS timed beside both operation bounds (this request's
+    pairs whose circles meet, and every pair), with the device operations
+    of one wrapper call. Returns the record for the JSON line."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
+    from isfusion_tpu_torch.testing import (nms_cluster_set, nms_scene_set,
+                                            nms_sparse_set)
 
     thr = 0.2
     boxes, scores, valid = nms_in
@@ -1028,23 +1029,36 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
     if untamed is not None:
         cases.append(("request_untamed",) + tuple(untamed))
     cases += [(n, b.to(dev), s.to(dev), v.to(dev)) for n, b, s, v in
-              [("scene",) + nms_scene_set(torch.Generator().manual_seed(3))]
+              [("scene",) + nms_scene_set(torch.Generator().manual_seed(3)),
+               ("cluster",) + nms_cluster_set(
+                   torch.Generator().manual_seed(4)),
+               ("sparse",) + nms_sparse_set(torch.Generator().manual_seed(5))]
               + nms_test_sets(gen)]
-    worst = 0
+    worst, request = 0, None
     for name, b, s, v in cases:
         r = _nms_compare(b, s, v, thr, dev)
+        if dev == "cuda":
+            ops = device_kernels(
+                lambda: box_ops.nms_bev_mask(b, s, thr, v), iters=20)
+            r.update(pairwise_device_ms=kernel_ms(ops, "nms_mask_kernel"),
+                     greedy_device_ms=kernel_ms(ops, "nms_greedy_kernel"),
+                     device_ops_per_call={k[:60]: n for k, (n, _) in
+                                          ops.items()})
         worst = max(worst, r["keep_flags_differ"])
         log("pp_nms_case", case=name, box_m=box_sizes(b), **r)
+        if name == "request":
+            request = r
         if name == "scene" and r["pairs_near_threshold"]:
             raise RuntimeError("the scene set has pairs near the threshold")
-        if r["bad_bits"] or not r["greedy_equal"] or \
+        if r["bad_bits"] or not r["greedy_equal"] or not r["symmetric"] or \
                 (r["pairs_near_threshold"] == 0 and not r["keep_equal"]):
             raise RuntimeError(f"nms_bev differs from its plain version on "
                                f"{name}: {r}")
-    ops = box_ops.nms_bev_ops(boxes)
     nbytes = boxes.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
     rec = dict(B=boxes.shape[0], K=boxes.shape[1], C=scores.shape[1],
-               max_abs_err=float(worst), ops=ops,
+               max_abs_err=float(worst), ops=request["ops"],
+               ops_all_pairs=request["ops_all_pairs"],
+               circles_meet_share=request["circles_meet_share"],
                ms=cuda_ms(lambda: box_ops.nms_bev_mask(boxes, scores, thr,
                                                        valid), dev, iters=50),
                plain_ms=cuda_ms(lambda: box_ops.nms_bev_mask_ref(
@@ -1052,17 +1066,19 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
                sort_ms=cuda_ms(lambda: torch.sort(
                    scores, dim=-1, descending=True, stable=True), dev,
                    iters=50),
-               bound_ms=max(ops / F32_OPS_PER_S,
-                            nbytes / HBM_BYTES_PER_S) * 1e3,
+               bound_ms=max(request["bound_ms"],
+                            nbytes / HBM_BYTES_PER_S * 1e3),
+               all_pairs_bound_ms=max(request["all_pairs_bound_ms"],
+                                      nbytes / HBM_BYTES_PER_S * 1e3),
+               greedy_chunks_per_class=-(-boxes.shape[1] // 64),
                library_ms=None)
     if dev == "cuda":
         # the pairwise pass alone (the greedy pass is the rest)
         rec["pairwise_ms"] = cuda_ms(lambda: box_ops._launch_nms(
             boxes, None, None, None, 1, thr, False), dev, iters=50)
-        for kern in ("nms_mask_kernel", "nms_greedy_kernel"):
-            rec[f"{kern}_device_ms"] = kernel_device_ms(
-                lambda: box_ops.nms_bev_mask(boxes, scores, thr, valid),
-                kern)
+        for key in ("pairwise_device_ms", "greedy_device_ms",
+                    "device_ops_per_call"):
+            rec[key] = request[key]
     log("pp_kernel_check", **rec)
     return rec
 
@@ -1281,7 +1297,10 @@ def main() -> int:
              max_abs_err=nms["max_abs_err"], ms=nms["ms"],
              plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"],
              bound_by="operations", library_ms=None,
-             launches_per_request=pp_launches["nms_bev"] // N_REQUESTS)]
+             launches_per_request=pp_launches["nms_bev"] // N_REQUESTS,
+             all_pairs_bound_ms=nms["all_pairs_bound_ms"],
+             pairwise_device_ms=nms["pairwise_device_ms"],
+             greedy_device_ms=nms["greedy_device_ms"])]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,141 +8,392 @@
 // BEV IoU with it (inter / max(union, 1e-8), rotated_box.cuh) exceeds
 // thr. Invalid boxes neither keep nor suppress.
 //
-// Bound: operations. One IoU per unordered pair of a sample's K boxes
-// (~630 float32 operations, IOU3D_OPS_PER_PAIR in ops/box_ops.py) over the
-// card's float32 rate: at K = 1,000 about 0.005 ms a sample. Bytes are
-// negligible (boxes, scores' order and validity in, keep flags out). The
-// greedy walk has an inherent serial length of K dependent steps per
-// class.
+// Bound: operations, and what these inputs need of them. Every unordered
+// pair of a sample's K boxes needs a bounding-circle test (~8 float32
+// operations); only the pairs whose circles meet need the IoU (~630,
+// IOU3D_OPS_PER_PAIR in ops/box_ops.py). In a scene most pairs are far
+// apart (2% of the pairs meet in a nuScenes-like set of 1,000 boxes), so
+// the count is box_ops.nms_bev_needed_ops, over the card's float32 rate.
+// Bytes are negligible. The greedy walk has an inherent serial length of
+// K dependent steps per class, taken here as K / 64 chunks, each resolved
+// on a register word.
 //
 // Design, two launches on the caller's stream:
-// 1. Pairwise pass. The boxes do not depend on the class, so the IoU
-//    matrix of a sample is computed once for all its classes, as a
-//    suppression bitmask in original index order: mask[s, i, w] bit b is
-//    iou(i, 64 w + b) > thr, (K, ceil(K / 64)) 64-bit words. A block
-//    covers 4 row boxes x 64 column boxes (staged in shared memory); each
-//    thread computes one pair and a warp ballot packs 32 of them into half
-//    a word.
+// 1. Pairwise pass. The boxes do not depend on the class, so a sample's
+//    IoU matrix is computed once for all its classes, as a symmetric
+//    suppression bitmask in original index order: mask[s, i, u] bit b is
+//    iou(i, 64 u + b) > thr, (K, ceil(K / 64)) 64-bit words. A block takes
+//    one 32 x 32 tile (ti, tj) with ti <= tj, so each unordered pair is
+//    computed once (528 blocks a sample at K = 1,000, four blocks of four
+//    warps an SM: the exact intersection is long serial code, and on a
+//    dense set, such as pp-serve's request where 73% of the pairs meet,
+//    16 warps an SM hide its latency where one 64 x 64 tile an SM did
+//    not). It stages its 32 + 32 boxes with cos, sin, area and reach
+//    (below) in shared memory, then
+//    A. tests the bounding circles of the tile's 1,024 pairs (8 a thread)
+//       and compacts the pairs that pass, i <= j, into a list in shared
+//       memory (warp ballot, popcount prefix, one shared atomic per warp);
+//    B. computes the exact intersection (rotated_box.cuh, in the frame of
+//       the lower-index box) for the listed pairs, 32 consecutive entries a
+//       warp, and sets bit (i, j) in a shared row word and bit (j, i) in a
+//       shared column word; then writes the tile's 32 row half-words and,
+//       off the diagonal, its 32 mirrored half-words.
+//    The diagonal bits stay iou(i, i) > thr. The JAX package computes both
+//    orders of a pair; they differ only by rounding, as close pairs near
+//    the threshold may.
 // 2. Greedy pass. One block per sample, one warp per class. The sample's
-//    mask (128 KB at K = 1,000) is copied into shared memory; each warp
-//    keeps its removed-bitmask (ceil(K / 64) words) there too,
-//    reads its class's order 32 entries at a time (one coalesced load,
-//    then warp shuffles) and, for each kept box, ORs the box's mask row
-//    into the removed-bitmask, one word per lane.
+//    mask (128 KB at K = 1,000) is copied into shared memory by all 1,024
+//    threads, with one removed-bitmask of ceil(K / 64) words per class,
+//    which starts as the class's invalid boxes (so validity is read once).
+//    The warp walks its class's sorted order 64 positions at a time:
+//    (a) the chunk's alive word: not removed (two ballots); the alive
+//        positions are compacted, lane j holding the j-th and (32 + j)-th;
+//    (b) their submatrix in sorted order: lane j forms the row of alive
+//        box j, bit i = mask bit (box i, box j), one mask row read by all
+//        lanes at a time, fixed trip counts (32 columns, 64 when more
+//        than 32 are alive), so the loads and shuffles pipeline;
+//    (c) the chunk resolved on one 64-bit register word: a box is kept
+//        iff no kept box before it suppresses it. The warp applies that
+//        rule to all boxes at once (one ballot a round) from "all kept"
+//        until the word stops changing: round t settles box t, and the
+//        greedy walk's result is the only word the rule leaves unchanged.
+//        Rounds: the longest chain of suppressions in the chunk, plus
+//        one (1-4 a chunk on testing.py's nms_scene_set, at most 65),
+//        each a few register operations;
+//    (d) the keep flags, and the kept boxes' mask rows ORed into the
+//        removed-bitmask, one word a lane.
+//    A box is suppressed only by a kept box earlier in the order: the
+//    same result as one step a box.
+//
+// Why the circle cut is exact. Take box B (sides dx, dy, circumradius r).
+// in_quad (rotated_box.cuh) accepts a point whose cross product with each
+// edge is >= -1e-5, i.e. a point within 1e-5 / dy of B's sides along x and
+// 1e-5 / dx along y: within reach = r + 1e-5 / |dx| + 1e-5 / |dy| of B's
+// centre. A's vertices and edges lie within A's circle. When the centres
+// are more than reach_a + reach_b apart, no vertex of either box passes
+// the other's test and no edge meets an edge, so no candidate is valid and
+// the area is exactly 0; IoU 0 is not > thr for thr >= 0. The pass cuts
+// only when d^2 > ((reach_a + reach_b) (1 + 1e-4) + 1e-3)^2: the relative
+// and absolute margins hold the float32 rounding of the corners and cross
+// products (~1e-6 of the pair's extent) on the safe side. A degenerate
+// side (0, inf, NaN) gives an infinite or NaN reach and the pair is
+// computed. Edges that are collinear up to rounding can give the full
+// computation at most two spurious candidates (one on each of A's two
+// parallel edges), whose area is again 0 up to rounding.
+//
 // The launch is refused (cudaErrorInvalidValue) when the mask and the
-// removed-bitmasks, (K + C) * ceil(K / 64) words, exceed SMEM_MAX: with 32
-// classes up to K = 1,344, against an nms_pre of at most 1,000 in the
-// repo's configs. Allocates nothing (the wrapper passes the mask scratch)
-// and does not synchronise.
+// removed-bitmasks, (K + C) * ceil(K / 64) words, exceed SMEM_MAX: K <=
+// 1,344 at any class count up to 32 (so ceil(K / 64) <= 21 < 32: one
+// removed word a lane), against an nms_pre of at most 1,000 in the repo's
+// configs.
+// Allocates nothing (the wrapper passes the mask scratch) and does not
+// synchronise.
 #include <stdint.h>
 
 #include "rotated_box.cuh"
 
 namespace {
 
-constexpr int ROWS = 4;       // row boxes per block of the pairwise pass
-constexpr int COLS = 64;      // column boxes per block: one mask word
-constexpr int THREADS = 256;  // 8 warps: (row, half word) each
+constexpr int TILE = 32;      // boxes a tile side: a half mask word
+constexpr int THREADS = 128;  // pairwise pass: 4 warps, 4 blocks an SM
+constexpr int PAIRS = TILE * TILE / THREADS;  // circle tests a thread
+constexpr int GREEDY_THREADS = 1024;  // greedy pass: all copy, C walk
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMEM_MAX = 227 * 1024;  // Hopper's opt-in shared memory/block
+constexpr float QUAD_TOL = 1e-5f;     // in_quad's tolerance
+constexpr float CUT_REL = 1.0f + 1e-4f, CUT_ABS = 1e-3f;
 
-__global__ void nms_mask_kernel(const float* __restrict__ boxes,
-                                uint32_t* __restrict__ mask32, int64_t k,
-                                int w, float thr) {
-  __shared__ float sc[COLS * 5];
-  __shared__ float sr[ROWS * 5];
-  const int64_t s = blockIdx.z;
-  const float* bx = boxes + s * k * 5;
-  const int64_t c0 = (int64_t)blockIdx.x * COLS;
-  const int64_t r0 = (int64_t)blockIdx.y * ROWS;
-  const int t = threadIdx.x;
-  for (int e = t; e < COLS * 5; e += THREADS)
-    sc[e] = c0 + e / 5 < k ? bx[c0 * 5 + e] : 0.f;
-  for (int e = t; e < ROWS * 5; e += THREADS)
-    sr[e] = r0 + e / 5 < k ? bx[r0 * 5 + e] : 0.f;
-  __syncthreads();
-  const int warp = t >> 5, lane = t & 31;
-  const int row = warp >> 1, half = warp & 1;
-  const int col = half * 32 + lane;
-  const int64_t i = r0 + row, j = c0 + col;
-  bool sup = false;
-  if (i < k && j < k) {
-    const float* A = sr + row * 5;
-    const float* B = sc + col * 5;
-    const float inter = rotated_box::intersection_area(
-        A[2], A[3], A[4], B[0] - A[0], B[1] - A[1], B[2], B[3], B[4]);
-    const float uni = A[2] * A[3] + B[2] * B[3] - inter;
-    const float iou = inter / fmaxf(uni, 1e-8f);
-    sup = iou > thr;
+// element strides of the (B, C, K) order (int64) and valid (bool) tensors
+struct Strides {
+  int64_t ob, oc, ok, vb, vc, vk;
+};
+
+struct TileBoxes {
+  float x[TILE], y[TILE], dx[TILE], dy[TILE], c[TILE], s[TILE], area[TILE],
+      reach[TILE];
+};
+
+__device__ void stage(TileBoxes& t, const float* bx, int64_t i, int64_t k,
+                      int e) {
+  float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  if (i < k) {
+#pragma unroll
+    for (int q = 0; q < 5; ++q) v[q] = bx[i * 5 + q];
   }
-  const unsigned bits = __ballot_sync(FULL, sup);
-  if (i < k && lane == 0)
-    mask32[((s * k + i) * w + blockIdx.x) * 2 + half] = bits;
+  t.x[e] = v[0];
+  t.y[e] = v[1];
+  t.dx[e] = v[2];
+  t.dy[e] = v[3];
+  t.c[e] = cosf(v[4]);
+  t.s[e] = sinf(v[4]);
+  t.area[e] = v[2] * v[3];
+  t.reach[e] = 0.5f * hypotf(v[2], v[3]) + QUAD_TOL / fabsf(v[2]) +
+               QUAD_TOL / fabsf(v[3]);
 }
 
-__global__ void nms_greedy_kernel(const uint64_t* __restrict__ mask,
-                                  const int* __restrict__ order,
-                                  const uint8_t* __restrict__ valid,
-                                  uint8_t* __restrict__ keep, int64_t nc,
-                                  int64_t k, int w) {
+// mask32 views the (K, w) 64-bit mask words of a sample as (K, 2 w)
+// 32-bit halves: half u holds columns 32 u .. 32 u + 31, one tile's width
+__global__ void __launch_bounds__(THREADS, 4)
+    nms_mask_kernel(const float* __restrict__ boxes,
+                    uint32_t* __restrict__ mask32, int64_t k, int tiles,
+                    float thr) {
+  __shared__ TileBoxes rows, cols;
+  __shared__ uint16_t list[TILE * TILE];
+  __shared__ unsigned row_bits[TILE], col_bits[TILE];
+  __shared__ int count;
+
+  // the tile (ti, tj), ti <= tj, of the upper-triangular index blockIdx.x
+  int ti = 0, rem = blockIdx.x;
+  while (rem >= tiles - ti) {
+    rem -= tiles - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const bool diag = ti == tj;
+  const int64_t s = blockIdx.y, halves = 2 * ((k + 63) / 64);
+  const float* bx = boxes + s * k * 5;
+  const int64_t i0 = (int64_t)ti * TILE, j0 = (int64_t)tj * TILE;
+  const int t = threadIdx.x, lane = t & 31;
+  if (t < TILE) {
+    stage(rows, bx, i0 + t, k, t);
+  } else if (t < 2 * TILE) {
+    stage(cols, bx, j0 + t - TILE, k, t - TILE);
+  } else if (t < 3 * TILE) {
+    row_bits[t - 2 * TILE] = 0u;
+    col_bits[t - 2 * TILE] = 0u;
+  }
+  if (t == 0) count = 0;
+  __syncthreads();
+
+  // A. the circle cut, compacted: a warp tests one row against the tile's
+  // 32 columns
+  for (int q = 0; q < PAIRS; ++q) {
+    const int p = q * THREADS + t;
+    const int a = p / TILE, b = p % TILE;
+    bool meet = false;
+    if (i0 + a < k && j0 + b < k && (!diag || a <= b)) {
+      const float ddx = cols.x[b] - rows.x[a], ddy = cols.y[b] - rows.y[a];
+      const float lim = (rows.reach[a] + cols.reach[b]) * CUT_REL + CUT_ABS;
+      meet = !(ddx * ddx + ddy * ddy > lim * lim);  // NaN: computed
+    }
+    const unsigned bal = __ballot_sync(FULL, meet);
+    int base = 0;
+    if (lane == 0 && bal) base = atomicAdd(&count, __popc(bal));
+    base = __shfl_sync(FULL, base, 0);
+    if (meet) list[base + __popc(bal & ((1u << lane) - 1u))] = (uint16_t)p;
+  }
+  __syncthreads();
+
+  // B. the exact intersection of the listed pairs
+  const int n = count;
+  for (int e = t; e < n; e += THREADS) {
+    const int p = list[e], a = p / TILE, b = p % TILE;
+    const float inter = rotated_box::intersection_area_cs(
+        rows.dx[a], rows.dy[a], rows.c[a], rows.s[a], cols.x[b] - rows.x[a],
+        cols.y[b] - rows.y[a], cols.dx[b], cols.dy[b], cols.c[b], cols.s[b]);
+    const float uni = rows.area[a] + cols.area[b] - inter;
+    if (inter / fmaxf(uni, 1e-8f) > thr) {
+      atomicOr(&row_bits[a], 1u << b);
+      atomicOr(&col_bits[b], 1u << a);
+    }
+  }
+  __syncthreads();
+
+  // the tile's row halves and, off the diagonal, its mirrored halves; the
+  // last column tile also clears the unused half of an odd tile count
+  if (t < TILE) {
+    const int64_t i = i0 + t;
+    if (i < k) {
+      mask32[(s * k + i) * halves + tj] =
+          row_bits[t] | (diag ? col_bits[t] : 0u);
+      if (tj + 1 == tiles && tiles < halves)
+        mask32[(s * k + i) * halves + tiles] = 0u;
+    }
+  } else if (t < 2 * TILE && !diag) {
+    const int64_t j = j0 + t - TILE;
+    if (j < k) mask32[(s * k + j) * halves + ti] = col_bits[t - TILE];
+  }
+}
+
+__device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
+  return (uint64_t)__ballot_sync(FULL, lo) |
+         ((uint64_t)__ballot_sync(FULL, hi) << 32);
+}
+
+__device__ __forceinline__ bool bit(const uint64_t* words, int i) {
+  return (words[i >> 6] >> (i & 63)) & 1ull;
+}
+
+// position (0..63) of the j-th set bit of m (j from 0, j < popc(m)), by
+// a branch-free binary search on popcounts
+__device__ __forceinline__ int nth_set(uint64_t m, int j) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 32; width > 0; width >>= 1) {
+    const int c = __popcll(m & ((1ull << width) - 1ull));
+    const bool up = j >= c;
+    j -= up ? c : 0;
+    pos += up ? width : 0;
+    m = up ? m >> width : m;
+  }
+  return pos;
+}
+
+// the box of chunk position a (per lane), held by lane a % 32 as o_lo
+// (a < 32) or o_hi
+__device__ __forceinline__ int box_at(int o_lo, int o_hi, int a) {
+  const int x = __shfl_sync(FULL, o_lo, a & 31);
+  const int y = __shfl_sync(FULL, o_hi, a & 31);
+  return a < 32 ? x : y;
+}
+
+// bits FROM..FROM + 31 of the compact row of box qj: bit FROM + i is mask
+// bit (q_i, qj) (q_i suppresses qj), q_i held by lane i as q; the lanes
+// read one mask row at a time, conflict-free
+template <int FROM>
+__device__ __forceinline__ uint64_t row_bits(const uint64_t* rows, int w,
+                                             int q, int qj) {
+  uint64_t r = 0ull;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int qi = __shfl_sync(FULL, q, i);
+    r |= (uint64_t)bit(rows + (int64_t)qi * w, qj) << (FROM + i);
+  }
+  return r;
+}
+
+// removed word `lane` |= the mask rows of the boxes of set bits
+// FROM..FROM + 31 of kept, q_i held by lane i as q
+template <int FROM>
+__device__ __forceinline__ uint64_t kept_rows(const uint64_t* rows, int w,
+                                              int q, uint64_t kept,
+                                              int lane) {
+  uint64_t acc = 0ull;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int qi = __shfl_sync(FULL, q, i);
+    if (((kept >> (FROM + i)) & 1ull) && lane < w)
+      acc |= rows[(int64_t)qi * w + lane];
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(GREEDY_THREADS)
+    nms_greedy_kernel(const uint64_t* __restrict__ mask,
+                      const int64_t* __restrict__ order,
+                      const uint8_t* __restrict__ valid,
+                      uint8_t* __restrict__ keep, int64_t nc, int64_t k,
+                      int w, Strides st) {
   extern __shared__ uint64_t smem[];
   const int64_t s = blockIdx.x;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int tid = threadIdx.x;
   uint64_t* removed_all = smem;            // nc * w words
   uint64_t* rows = smem + nc * w;          // the sample's k * w mask words
   const uint64_t* src = mask + s * k * w;
-  for (int64_t e = tid; e < k * w; e += nthreads) rows[e] = src[e];
-  for (int64_t e = tid; e < nc * w; e += nthreads) removed_all[e] = 0ull;
-  uint8_t* keep_s = keep + s * nc * k;
-  for (int64_t e = tid; e < nc * k; e += nthreads) keep_s[e] = 0;
-  __syncthreads();
+  // every warp copies; warps past the classes then leave
+#pragma unroll 4
+  for (int64_t e = tid; e < k * w; e += GREEDY_THREADS) rows[e] = src[e];
 
   const int c = tid >> 5, lane = tid & 31;
   uint64_t* removed = removed_all + c * w;
-  const int* ord = order + (s * nc + c) * k;
-  const uint8_t* val = valid + (s * nc + c) * k;
-  uint8_t* kp = keep_s + c * k;
-  for (int64_t base = 0; base < k; base += 32) {
-    int o = 0, v = 0;
-    if (base + lane < k) {
-      o = ord[base + lane];
-      v = val[o];
+  if (c < nc) {
+    // the class's invalid boxes start removed: they neither keep nor
+    // suppress
+    const uint8_t* val = valid + s * st.vb + c * st.vc;
+#pragma unroll 4
+    for (int u = 0; u < w; ++u) {
+      const int64_t i = (int64_t)u * 64 + lane;
+      const uint64_t ok = ballot64(i < k && val[i * st.vk],
+                                   i + 32 < k && val[(i + 32) * st.vk]);
+      if (lane == 0) removed[u] = ~ok;
     }
-    const int n = k - base < 32 ? (int)(k - base) : 32;
-    for (int q = 0; q < n; ++q) {
-      const int i = __shfl_sync(FULL, o, q);
-      const int vi = __shfl_sync(FULL, v, q);
-      const bool alive = vi && !((removed[i >> 6] >> (i & 63)) & 1ull);
-      __syncwarp();  // every lane has read the word before any lane ORs
-      if (alive) {
-        if (lane == 0) kp[i] = 1;
-        for (int u = lane; u < w; u += 32)
-          removed[u] |= rows[(int64_t)i * w + u];
+  }
+  __syncthreads();
+  if (c >= nc) return;
+
+  const int64_t* ord = order + s * st.ob + c * st.oc;
+  uint8_t* kp = keep + (s * nc + c) * k;
+  int o_lo = lane < k ? (int)ord[lane * st.ok] : 0;
+  int o_hi = lane + 32 < k ? (int)ord[(lane + 32) * st.ok] : 0;
+  for (int64_t base = 0; base < k; base += 64) {
+    const int n = k - base < 64 ? (int)(k - base) : 64;
+    const bool in_lo = lane < n, in_hi = lane + 32 < n;
+    // the next chunk's order, loaded while this one is resolved
+    const int64_t nb = base + 64;
+    const int p_lo = nb + lane < k ? (int)ord[(nb + lane) * st.ok] : 0;
+    const int p_hi = nb + lane + 32 < k ? (int)ord[(nb + lane + 32) * st.ok]
+                                        : 0;
+    // (a) alive: in the chunk and not removed (or invalid); the alive
+    // positions, in order, are compacted: lane j holds the boxes of the
+    // j-th and (32 + j)-th (q0, q1)
+    const uint64_t alive = ballot64(in_lo && !bit(removed, o_lo),
+                                    in_hi && !bit(removed, o_hi));
+    const int na = __popcll(alive);
+    uint64_t kept = 0ull;  // over the compacted positions
+    if (na) {
+      const int q0 = box_at(o_lo, o_hi, nth_set(alive, lane));
+      const int q1 = box_at(o_lo, o_hi, nth_set(alive, lane + 32));
+      // (b) the submatrix of the alive boxes: lane j forms rows j and
+      // 32 + j, bit i = "alive box i suppresses alive box j"
+      uint64_t r0 = row_bits<0>(rows, w, q0, q0), r1 = 0ull;
+      if (na > 32) {
+        r0 |= row_bits<32>(rows, w, q1, q0);
+        r1 = row_bits<0>(rows, w, q0, q1) | row_bits<32>(rows, w, q1, q1);
       }
-      __syncwarp();
+      // (c) the walk on a register word: a box is kept iff no kept box
+      // before it suppresses it. Start from all and apply that rule to
+      // every box at once until the word stops changing: round t fixes
+      // box t, and the greedy walk's result is the one word the rule
+      // leaves unchanged, so the loop ends on it after at most 65 rounds
+      kept = na == 64 ? ~0ull : (1ull << na) - 1ull;
+      const uint64_t before0 = (1ull << lane) - 1ull;
+      const uint64_t before1 = (1ull << (lane + 32)) - 1ull;
+      for (;;) {
+        const uint64_t next = ballot64(lane < na && !(r0 & kept & before0),
+                                       lane + 32 < na &&
+                                           !(r1 & kept & before1));
+        if (next == kept) break;
+        kept = next;
+      }
+      // (d) the kept boxes' mask rows into the removed-bitmask
+      uint64_t acc = kept_rows<0>(rows, w, q0, kept, lane);
+      if (kept >> 32) acc |= kept_rows<32>(rows, w, q1, kept, lane);
+      if (lane < w) removed[lane] |= acc;
     }
+    // keep flags: each position once over the walk, no zeroing
+    const int c_lo = __popcll(alive & ((1ull << lane) - 1ull));
+    const int c_hi = __popcll(alive & ((1ull << (lane + 32)) - 1ull));
+    if (in_lo) kp[o_lo] = ((alive >> lane) & 1ull) && ((kept >> c_lo) & 1ull);
+    if (in_hi)
+      kp[o_hi] = ((alive >> (lane + 32)) & 1ull) && ((kept >> c_hi) & 1ull);
+    __syncwarp();  // the next chunk's (a) reads other lanes' words
+    o_lo = p_lo;
+    o_hi = p_hi;
   }
 }
 
 }  // namespace
 
 // greedy = 0 runs the pairwise pass alone (the suppression bitmask is the
-// output; order, valid and keep are not read): the check of the bitmask
-// against the plain IoU
+// output; order, valid, keep and strides are not read): the check of the
+// bitmask against the plain IoU. strides: the six element strides of
+// order (B, C, K) int64 and valid (B, C, K) bool, in that order; keep is a
+// contiguous (B, C, K) byte tensor.
 extern "C" int nms_bev(const void* boxes, const void* order,
                        const void* valid, void* mask, void* keep,
                        long long batch, long long nc, long long k, float thr,
-                       int greedy, void* stream) {
+                       int greedy, const long long* strides, void* stream) {
   if (batch <= 0 || nc <= 0 || k <= 0) return 0;
   const int w = (int)((k + 63) / 64);
   const size_t bytes = (size_t)(nc + k) * w * sizeof(uint64_t);
   if (nc > 32 || bytes > (size_t)SMEM_MAX || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  nms_mask_kernel<<<dim3((unsigned)w, (unsigned)((k + ROWS - 1) / ROWS),
+  const int tiles = (int)((k + TILE - 1) / TILE);
+  nms_mask_kernel<<<dim3((unsigned)(tiles * (tiles + 1) / 2),
                          (unsigned)batch),
                     THREADS, 0, st>>>((const float*)boxes, (uint32_t*)mask,
-                                      (int64_t)k, w, thr);
+                                      (int64_t)k, tiles, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !greedy) return (int)err;
 
@@ -151,8 +402,10 @@ extern "C" int nms_bev(const void* boxes, const void* order,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_MAX);
   if (err != cudaSuccess) return (int)err;
-  nms_greedy_kernel<<<(unsigned)batch, (unsigned)(32 * nc), bytes, st>>>(
-      (const uint64_t*)mask, (const int*)order, (const uint8_t*)valid,
-      (uint8_t*)keep, (int64_t)nc, (int64_t)k, w);
+  const Strides sd{strides[0], strides[1], strides[2],
+                   strides[3], strides[4], strides[5]};
+  nms_greedy_kernel<<<(unsigned)batch, GREEDY_THREADS, bytes, st>>>(
+      (const uint64_t*)mask, (const int64_t*)order, (const uint8_t*)valid,
+      (uint8_t*)keep, (int64_t)nc, (int64_t)k, w, sd);
   return (int)cudaGetLastError();
 }

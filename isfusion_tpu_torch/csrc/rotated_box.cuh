@@ -13,7 +13,10 @@
 //
 // One thread computes one pair: the at most 24 candidates and their angles
 // live in per-thread arrays, and a stable insertion sort over the valid
-// ones orders them (invalid candidates never enter it).
+// ones orders them (invalid candidates never enter it). A caller that
+// meets a box in many pairs passes its cos / sin once computed
+// (intersection_area_cs); intersection_area takes the yaws and computes
+// them where the corners are formed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,11 +26,27 @@ namespace rotated_box {
 
 constexpr int NCAND = 24;
 
-// CCW corners of a BEV box (x, y, dx, dy, yaw), rotated as
+// a box's rotation, given by its yaw or by its cos and sin
+struct Yaw {
+  float yaw;
+  __device__ __forceinline__ float2 cos_sin() const {
+    return make_float2(cosf(yaw), sinf(yaw));
+  }
+};
+struct CosSin {
+  float c, s;
+  __device__ __forceinline__ float2 cos_sin() const {
+    return make_float2(c, s);
+  }
+};
+
+// CCW corners of a BEV box (x, y, dx, dy) rotated by rot, as
 // core.bbox.structures does (wx = lx cos + ly sin)
+template <class Rot>
 __device__ __forceinline__ void corners(float x, float y, float dx, float dy,
-                                        float yaw, float* cx, float* cy) {
-  const float c = cosf(yaw), s = sinf(yaw);
+                                        Rot rot, float* cx, float* cy) {
+  const float2 cs = rot.cos_sin();
+  const float c = cs.x, s = cs.y;
   const float ox[4] = {0.5f * dx, 0.5f * dx, -0.5f * dx, -0.5f * dx};
   const float oy[4] = {-0.5f * dy, 0.5f * dy, 0.5f * dy, -0.5f * dy};
 #pragma unroll
@@ -51,14 +70,15 @@ __device__ __forceinline__ bool in_quad(float px, float py, const float* qx,
   return inside;
 }
 
-// Intersection area of box a = (0, 0, adx, ady, ayaw) and box b, whose
-// centre (bx, by) is given relative to a's
-__device__ inline float intersection_area(float adx, float ady, float ayaw,
-                                          float bx, float by, float bdx,
-                                          float bdy, float byaw) {
+// Intersection area of box a = (0, 0, adx, ady) rotated by ar and box b,
+// whose centre (bx, by) is given relative to a's
+template <class Rot>
+__device__ inline float intersection(float adx, float ady, Rot ar, float bx,
+                                     float by, float bdx, float bdy,
+                                     Rot br) {
   float ax[4], ay[4], qx4[4], qy4[4];
-  corners(0.f, 0.f, adx, ady, ayaw, ax, ay);
-  corners(bx, by, bdx, bdy, byaw, qx4, qy4);
+  corners(0.f, 0.f, adx, ady, ar, ax, ay);
+  corners(bx, by, bdx, bdy, br, qx4, qy4);
 
   float px[NCAND], py[NCAND];
   bool ok[NCAND];
@@ -129,6 +149,21 @@ __device__ inline float intersection_area(float adx, float ady, float ayaw,
     sum += kx[c] * ky[d] - kx[d] * ky[c];
   }
   return 0.5f * fabsf(sum);
+}
+
+__device__ __forceinline__ float intersection_area(float adx, float ady,
+                                                   float ayaw, float bx,
+                                                   float by, float bdx,
+                                                   float bdy, float byaw) {
+  return intersection(adx, ady, Yaw{ayaw}, bx, by, bdx, bdy, Yaw{byaw});
+}
+
+// the same with each box's cos and sin (ac, as), (bc, bs)
+__device__ __forceinline__ float intersection_area_cs(
+    float adx, float ady, float ac, float as, float bx, float by, float bdx,
+    float bdy, float bc, float bs) {
+  return intersection(adx, ady, CosSin{ac, as}, bx, by, bdx, bdy,
+                      CosSin{bc, bs});
 }
 
 }  // namespace rotated_box

@@ -27,6 +27,7 @@ once per train step, on all samples and decoder layers; Anchor3DHead's
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -47,6 +48,14 @@ IOU3D_OPS_PER_PAIR = 22 + 8 * 4 * 6 + 16 * 22 + 50 + 16
 # 1,344 at 32 classes, 1,000 at the configs' largest nms_pre)
 NMS_MAX_CLASSES = 32
 NMS_SMEM_BYTES = 227 * 1024
+
+# K10-NMS's pairwise pass computes a pair only when its boxes' bounding
+# circles, widened by the point-in-box tolerance, meet
+# (``bev_circles_meet``; why that is exact: the note of csrc/nms_bev.cu);
+# the test costs ~8 float32 operations a pair
+NMS_QUAD_TOL = 1e-5
+NMS_CUT_REL, NMS_CUT_ABS = 1.0 + 1e-4, 1e-3
+NMS_CIRCLE_OPS = 8
 
 
 def nms_smem_bytes(classes: int, boxes: int) -> int:
@@ -187,11 +196,39 @@ def iou3d_ops(boxes1: torch.Tensor, boxes2: torch.Tensor) -> int:
 
 
 def nms_bev_ops(boxes_bev: torch.Tensor) -> int:
-    """float32 operations K10-NMS needs at least on (B, K, 5) boxes: one
-    IoU per unordered pair of each sample's boxes (the greedy pass is
-    bit operations)."""
+    """float32 operations of one IoU per unordered pair of each sample's
+    (B, K, 5) boxes: K10-NMS's bound if every pair were computed (the
+    greedy pass is bit operations)."""
     per_pair = rotated_iou_ops(boxes_bev, boxes_bev)
     return int(torch.triu(per_pair, diagonal=1).sum())
+
+
+def bev_circles_meet(boxes_bev: torch.Tensor) -> torch.Tensor:
+    """(..., K, K) bool: the circle test of K10-NMS's pairwise pass on
+    (..., K, 5) BEV boxes, in its float32 arithmetic. Each box reaches
+    0.5 hypot(dx, dy) + 1e-5 / |dx| + 1e-5 / |dy| from its centre; a pair
+    meets unless its centres are more than (reach_a + reach_b) (1 + 1e-4)
+    + 1e-3 apart (NaN meets). Where it is false the intersection area is
+    0."""
+    b = boxes_bev.float()
+    dx, dy = b[..., 2], b[..., 3]
+    reach = 0.5 * torch.hypot(dx, dy) + NMS_QUAD_TOL / dx.abs() + \
+        NMS_QUAD_TOL / dy.abs()
+    d = b[..., None, :, :2] - b[..., :, None, :2]
+    lim = (reach[..., :, None] + reach[..., None, :]) * NMS_CUT_REL + \
+        NMS_CUT_ABS
+    return ~(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] > lim * lim)
+
+
+def nms_bev_needed_ops(boxes_bev: torch.Tensor) -> int:
+    """float32 operations K10-NMS needs on these (B, K, 5) boxes: the
+    circle test for every unordered pair, the IoU (``rotated_iou_ops``)
+    for the unordered pairs whose circles meet."""
+    k = boxes_bev.shape[-2]
+    meet = torch.triu(bev_circles_meet(boxes_bev), diagonal=1)
+    per_pair = rotated_iou_ops(boxes_bev, boxes_bev)
+    pairs = boxes_bev[..., 0, 0].numel() * k * (k - 1) // 2
+    return NMS_CIRCLE_OPS * pairs + int(per_pair[meet].sum())
 
 
 def _lead_check(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor):
@@ -308,15 +345,16 @@ def nms_bev_mask(boxes_bev: torch.Tensor, scores: torch.Tensor,
     if boxes_bev.device.type != "cuda":
         raise RuntimeError(f"nms_bev_mask: no kernel for {boxes_bev.device}")
     b, c, k = scores.shape
-    keep = torch.empty((b, c, k), dtype=torch.uint8, device=scores.device)
+    keep = torch.empty((b, c, k), dtype=torch.bool, device=scores.device)
     if keep.numel() == 0:
-        return keep.bool()
-    _launch_nms(boxes_bev, order.to(torch.int32).contiguous(),
-                valid.to(torch.uint8).contiguous(), keep, c, thresh, True)
-    return keep.bool()
+        return keep
+    # the kernel reads the sort's int64 order and the bool (one byte) valid
+    # in their own strides: no conversion or copy is launched
+    _launch_nms(boxes_bev, order, valid, keep, c, thresh, True)
+    return keep
 
 
-def _launch_nms(boxes_bev, order, valid8, keep, c, thresh, greedy):
+def _launch_nms(boxes_bev, order, valid, keep, c, thresh, greedy):
     b, k = boxes_bev.shape[:2]
     if c > NMS_MAX_CLASSES or nms_smem_bytes(c, k) > NMS_SMEM_BYTES:
         raise ValueError(f"nms_bev_mask: at most {NMS_MAX_CLASSES} classes "
@@ -329,9 +367,11 @@ def _launch_nms(boxes_bev, order, valid8, keep, c, thresh, greedy):
     lib = cuda_build.load("nms_bev")
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     ptr = (lambda t: 0 if t is None else t.data_ptr())
-    err = lib.nms_bev(boxes.data_ptr(), ptr(order), ptr(valid8),
+    strides = (ctypes.c_longlong * 6)(
+        *(order.stride() + valid.stride() if greedy else (0,) * 6))
+    err = lib.nms_bev(boxes.data_ptr(), ptr(order), ptr(valid),
                       mask.data_ptr(), ptr(keep), b, c, k, float(thresh),
-                      int(greedy), stream)
+                      int(greedy), strides, stream)
     if err != 0:
         raise RuntimeError(f"nms_bev: kernel launch failed with CUDA error "
                            f"{err}")

@@ -38,8 +38,8 @@ _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "masked_gather": ([_P, _P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
     "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
-    "nms_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, ctypes.c_int, _P],
-                ctypes.c_int),
+    "nms_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, ctypes.c_int, _P,
+                 _P], ctypes.c_int),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

@@ -1,7 +1,10 @@
-"""Helpers shared by the port's checks on the card (``chip_smoke.py`` and
-``tests/test_torch_cuda.py``): what makes a PointPillars prediction on
-the card comparable with the same prediction on the CPU."""
+"""Helpers shared by the port's checks (``chip_smoke.py``,
+``tests/test_torch_cuda.py`` and the CPU tests): what makes a
+PointPillars prediction on the card comparable with the same prediction
+on the CPU, and the NMS input sets that K10-NMS is held on."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,3 +39,67 @@ def pp_kept_boxes(model, batch: dict, dev: str):
     o = torch.argsort(boxes[:, 0], stable=True)
     o = o[torch.argsort(key[o], stable=True)]
     return boxes[o], scores[o], key[o]
+
+
+# (dx, dy) of the nuScenes PointPillars config's anchors
+# (AlignedAnchor3DRangeGenerator sizes)
+NUS_SIZES = ((1.95, 4.60), (2.45, 6.73), (2.90, 12.01), (2.94, 11.20),
+             (2.73, 6.38), (0.60, 1.68), (0.77, 2.10), (0.67, 0.73),
+             (0.41, 0.41), (2.49, 0.48))
+
+
+def nms_scene_set(gen, k: int = 1000, c: int = 10):
+    """(boxes (1, K, 5), scores (1, C, K), valid) like a detector's NMS
+    input at the request's size: K / 10 objects of the ten nuScenes
+    classes' sizes over +-50 m, ten jittered proposals each (centre, size
+    and yaw noise), the object's class scored highest, the first ten
+    scores tied. Seed 3 at (1000, 10) leaves no pair within 1e-5 of the
+    0.2 threshold, so the keep masks must equal the plain version's."""
+    n = k // 10
+    cls = torch.randint(0, 10, (n,), generator=gen)
+    obj = torch.empty((n, 5))
+    obj[:, :2] = (torch.rand((n, 2), generator=gen) * 2 - 1) * 50
+    obj[:, 2:4] = torch.tensor(NUS_SIZES)[cls]
+    obj[:, 4] = (torch.rand(n, generator=gen) * 2 - 1) * math.pi
+    boxes = obj.repeat_interleave(10, 0)
+    boxes[:, :2] += torch.randn((k, 2), generator=gen) * 0.15 * \
+        boxes[:, 2:4].max(-1, keepdim=True).values
+    boxes[:, 2:4] *= 1 + 0.1 * torch.randn((k, 2), generator=gen)
+    boxes[:, 4] += 0.15 * torch.randn(k, generator=gen)
+    scores = torch.rand((1, c, k), generator=gen) * 0.3
+    own = cls.repeat_interleave(10) % c
+    scores[0, own, torch.arange(k)] += 0.6 * torch.rand(k, generator=gen)
+    scores[..., :10] = 0.5
+    return boxes[None], scores, scores > 0.05
+
+
+def _scored(gen, boxes, c):
+    scores = torch.rand((1, c, boxes.shape[0]), generator=gen)
+    return boxes[None], scores, scores > 0.05
+
+
+def nms_cluster_set(gen, k: int = 1000, c: int = 10):
+    """K boxes of sides 2.2-4.6 m with centres within a 3 m disc: every
+    pair's bounding circles meet (the circle cut cuts nothing)."""
+    boxes = torch.empty((k, 5))
+    r = 1.5 * torch.rand(k, generator=gen).sqrt()
+    t = torch.rand(k, generator=gen) * 2 * math.pi
+    boxes[:, 0], boxes[:, 1] = r * torch.cos(t), r * torch.sin(t)
+    boxes[:, 2:4] = 2.2 + 2.4 * torch.rand((k, 2), generator=gen)
+    boxes[:, 4] = (torch.rand(k, generator=gen) * 2 - 1) * math.pi
+    return _scored(gen, boxes, c)
+
+
+def nms_sparse_set(gen, k: int = 1000, c: int = 10):
+    """K boxes of sides 0.5-4.6 m on a 10 m grid, centres jittered by up
+    to 0.5 m: no two boxes' bounding circles meet (only the diagonal is
+    computed)."""
+    side = math.ceil(math.sqrt(k))
+    i = torch.arange(k)
+    boxes = torch.empty((k, 5))
+    boxes[:, 0] = (i % side).float() * 10 - 150
+    boxes[:, 1] = (i // side).float() * 10 - 150
+    boxes[:, :2] += (torch.rand((k, 2), generator=gen) - 0.5)
+    boxes[:, 2:4] = 0.5 + 4.1 * torch.rand((k, 2), generator=gen)
+    boxes[:, 4] = (torch.rand(k, generator=gen) * 2 - 1) * math.pi
+    return _scored(gen, boxes, c)

@@ -10,7 +10,8 @@ Tolerance: exact for the gather (a copy); 1e-5 for the rotated IoU
 kernel against its plain version, batched or not; NMS keep masks equal
 to the plain greedy walk over the kernel's own suppression bits, those
 bits equal to the plain IoU's more than 1e-5 from the threshold, and keep
-masks equal to the plain version's when no pair is that close; 1e-5 of
+masks equal to the plain version's when no pair is that close, the bits
+symmetric; 1e-5 of
 the max for the sparse conv's
 K12 backward against plain autograd on the CPU, 1e-3 of the max for the
 tiny flagship on the card against the CPU, 1e-4 of the max for the tiny
@@ -215,11 +216,34 @@ def _nms_inputs(gen, b, c, k):
     return boxes, scores, scores > 0.2
 
 
+# K at the pairwise pass's tile edges and the greedy pass's chunk edges
 @pytest.mark.parametrize("b,c,k", [(2, 10, 1000), (1, 3, 77), (3, 1, 1),
-                                   (1, 32, 300)])
+                                   (1, 32, 300), (1, 3, 63), (2, 2, 64),
+                                   (1, 4, 65), (1, 5, 129)])
 def test_nms_bev_kernel_matches_plain_version(card, b, c, k):
     gen = torch.Generator().manual_seed(k)
     boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, b, c, k))
+    _check_nms(boxes, scores, valid)
+
+
+@pytest.mark.parametrize("kind", ["cluster", "sparse"])
+def test_nms_bev_kernel_where_every_or_no_circle_meets(card, kind):
+    """1,000 boxes within 3 m (every pair computed) or on a 10 m grid (the
+    circle cut drops every pair but the diagonal)."""
+    from isfusion_tpu_torch.testing import nms_cluster_set, nms_sparse_set
+
+    make = nms_cluster_set if kind == "cluster" else nms_sparse_set
+    boxes, scores, valid = (t.to(card) for t in
+                            make(torch.Generator().manual_seed(4)))
+    meet = box_ops.bev_circles_meet(boxes)
+    assert bool(meet.all()) if kind == "cluster" else \
+        int(meet.sum()) == boxes.shape[1]
+    got = _check_nms(boxes, scores, valid)
+    if kind == "sparse":
+        assert torch.equal(got, valid)
+
+
+def _check_nms(boxes, scores, valid):
     before = cuda_build.LAUNCHES["nms_bev"]
     got = box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
     torch.cuda.synchronize()
@@ -229,6 +253,8 @@ def test_nms_bev_kernel_matches_plain_version(card, b, c, k):
     near = (iou - 0.2).abs() < 1e-5
     bits = box_ops.nms_bev_suppression_bits(boxes, 0.2)
     assert not ((bits != (iou > 0.2)) & ~near).any()
+    # each unordered pair is computed once and mirrored
+    assert torch.equal(bits, bits.transpose(1, 2))
     # the greedy pass, exactly, on the bits the kernel computed
     assert torch.equal(got, box_ops.greedy_suppress_ref(bits, scores, valid))
     if not near.any():   # a pair on the threshold may round either way
@@ -237,6 +263,12 @@ def test_nms_bev_kernel_matches_plain_version(card, b, c, k):
     invalid = box_ops.nms_bev_mask(boxes, scores, 0.2,
                                    torch.zeros_like(valid))
     assert not invalid.any()
+    # scores and valid in the head's (B, K, C)-major layout: the kernel
+    # reads the sort's order and valid in their own strides
+    strided = box_ops.nms_bev_mask(boxes, scores.mT.contiguous().mT, 0.2,
+                                   valid.mT.contiguous().mT)
+    assert torch.equal(strided, got)
+    return got
 
 
 def test_nms_bev_shared_memory_limit(card):
