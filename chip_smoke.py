@@ -65,9 +65,10 @@ Phases, each printing one line (every failure raises, exit code != 0):
     kernel's own suppression bits, those bits symmetric and equal
     wherever the plain IoU is more than 1e-5 from the threshold, keep
     masks equal to the plain version's whenever no pair is that close;
-    prints each set's box sizes, the share of pairs whose circles meet,
-    both operation bounds (those pairs, every pair) and each pass's
-    device time;
+    prints each set's box sizes, the shares of pairs whose circles meet
+    and whose boxes intersect, three operation bounds (the least that
+    settles every pair, the kernel's circle cut, every pair) and each
+    pass's device time;
 12. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
     lr with linear warmup, clip 35), 1 warm-up and 5 timed steps; fails on
     a non-finite or zero grad norm or an unchanged weight of the VFE, the
@@ -79,6 +80,11 @@ Phases, each printing one line (every failure raises, exit code != 0):
 
 The card's ``nvidia-smi`` line, then the kernels' JSON record, then
 ``{"ok": true, "device": {...}}`` end the output.
+
+``python3 chip_smoke.py --pp-serve [TREE]`` runs only pp-serve (more
+requests, then the K10-NMS wrapper's device and host time), with the port
+imported from the checkout TREE: two checkouts compared in one call
+(``pp_serve_timing``).
 """
 from __future__ import annotations
 
@@ -973,8 +979,11 @@ def _nms_compare(boxes, scores, valid, thr, dev) -> dict:
     must be symmetric and equal the plain IoU's wherever that lies more
     than NMS_NEAR from the threshold; the plain version's keep masks
     (``keep_equal``) must be equal whenever no pair is that close. Also
-    the share of unordered pairs whose bounding circles meet (the pairs
-    the pairwise pass computes) and both operation bounds."""
+    the shares of unordered pairs whose bounding circles meet (the pairs
+    the pairwise pass computes) and whose boxes intersect, and three
+    operation counts with their bounds: what settles every pair at least
+    (``nms_bev_needed_ops``, the bound), what the kernel's circle cut
+    computes, and one IoU for every pair."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
 
@@ -988,8 +997,10 @@ def _nms_compare(boxes, scores, valid, thr, dev) -> dict:
     on_bits = box_ops.greedy_suppress_ref(bits.cpu(), scores.cpu(),
                                           valid.cpu())
     k = boxes.shape[1]
+    pairs = max(boxes.shape[0] * k * (k - 1) // 2, 1)
     meet = torch.triu(box_ops.bev_circles_meet(boxes), diagonal=1)
-    ops_all, ops = box_ops.nms_bev_ops(boxes), box_ops.nms_bev_needed_ops(
+    ops = box_ops.nms_bev_needed_ops(boxes, thr)
+    ops_cut, ops_all = box_ops.nms_bev_cut_ops(boxes), box_ops.nms_bev_ops(
         boxes)
     sync(dev)
     return dict(K=k, C=scores.shape[1], kept=int(ref.sum()),
@@ -999,10 +1010,11 @@ def _nms_compare(boxes, scores, valid, thr, dev) -> dict:
                 symmetric=torch.equal(bits, bits.transpose(1, 2)),
                 pairs_near_threshold=int(near.sum()),
                 keep_flags_differ=int((got != ref).sum()),
-                circles_meet_share=int(meet.sum()) / max(
-                    boxes.shape[0] * k * (k - 1) // 2, 1),
-                ops=ops, ops_all_pairs=ops_all,
+                circles_meet_share=int(meet.sum()) / pairs,
+                intersect_share=int(torch.triu(iou > 0, 1).sum()) / pairs,
+                ops=ops, ops_circle_cut=ops_cut, ops_all_pairs=ops_all,
                 bound_ms=ops / F32_OPS_PER_S * 1e3,
+                circle_cut_bound_ms=ops_cut / F32_OPS_PER_S * 1e3,
                 all_pairs_bound_ms=ops_all / F32_OPS_PER_S * 1e3)
 
 
@@ -1014,9 +1026,10 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
     the threshold, on 1,000 boxes within 3 m (every circle meets) and
     1,000 on a 10 m grid (none meets), and on the adversarial sets; on the
     card each set's pairwise and greedy passes' device times. The
-    request's NMS timed beside both operation bounds (this request's
-    pairs whose circles meet, and every pair), with the device operations
-    of one wrapper call. Returns the record for the JSON line."""
+    request's NMS timed beside its three operation bounds (``bound_ms``,
+    the least that settles this request's pairs; the kernel's circle cut;
+    every pair), with the device operations of one wrapper call. Returns
+    the record for the JSON line."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
     from isfusion_tpu_torch.testing import (nms_cluster_set, nms_scene_set,
@@ -1057,8 +1070,10 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
     nbytes = boxes.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
     rec = dict(B=boxes.shape[0], K=boxes.shape[1], C=scores.shape[1],
                max_abs_err=float(worst), ops=request["ops"],
+               ops_circle_cut=request["ops_circle_cut"],
                ops_all_pairs=request["ops_all_pairs"],
                circles_meet_share=request["circles_meet_share"],
+               intersect_share=request["intersect_share"],
                ms=cuda_ms(lambda: box_ops.nms_bev_mask(boxes, scores, thr,
                                                        valid), dev, iters=50),
                plain_ms=cuda_ms(lambda: box_ops.nms_bev_mask_ref(
@@ -1068,6 +1083,8 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
                    iters=50),
                bound_ms=max(request["bound_ms"],
                             nbytes / HBM_BYTES_PER_S * 1e3),
+               circle_cut_bound_ms=max(request["circle_cut_bound_ms"],
+                                       nbytes / HBM_BYTES_PER_S * 1e3),
                all_pairs_bound_ms=max(request["all_pairs_bound_ms"],
                                       nbytes / HBM_BYTES_PER_S * 1e3),
                greedy_chunks_per_class=-(-boxes.shape[1] // 64),
@@ -1298,6 +1315,7 @@ def main() -> int:
              plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"],
              bound_by="operations", library_ms=None,
              launches_per_request=pp_launches["nms_bev"] // N_REQUESTS,
+             circle_cut_bound_ms=nms["circle_cut_bound_ms"],
              all_pairs_bound_ms=nms["all_pairs_bound_ms"],
              pairwise_device_ms=nms["pairwise_device_ms"],
              greedy_device_ms=nms["greedy_device_ms"])]
@@ -1309,5 +1327,56 @@ def main() -> int:
     return 0
 
 
+def pp_serve_timing(tree: str, requests: int = 50) -> int:
+    """``python3 chip_smoke.py --pp-serve [TREE]``: pp-serve alone, with
+    the port imported from the checkout TREE (default: this one), to
+    compare two checkouts on one card in one call (run them in the order
+    A, B, B, A). The main path's model, tamed, serves one warm-up and
+    ``requests`` timed batch-1 requests; then the warm-up's K10-NMS call
+    is timed alone: CUDA-event ms, and the host's ms to issue one call
+    (from an idle card, no sync inside). Prints one JSON record."""
+    import torch
+    smi = phase_device()
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import isfusion_tpu_torch
+    from isfusion_tpu_torch.flagship import build_pointpillars_flagship
+    from isfusion_tpu_torch.ops import box_ops, cuda_build
+    from isfusion_tpu_torch.testing import tame_box_deltas
+    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"isfusion_tpu_torch imported from "
+                           f"{isfusion_tpu_torch.__file__}, not {tree}")
+    pp, batch_fn = build_pointpillars_flagship(device="cuda", seed=0)
+    batch = batch_fn(1)
+    tame_box_deltas(pp)
+    boxes, scores, valid = record_nms_inputs(pp, jittered(batch, 0), "cuda")
+    times = []
+    for i in range(requests):
+        t0 = time.perf_counter()
+        pp(jittered(batch, i + 1), device="cuda")
+        sync("cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    def nms():
+        return box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
+
+    event_ms = cuda_ms(nms, iters=200)
+    host = []
+    for _ in range(100):
+        sync("cuda")
+        t0 = time.perf_counter()
+        nms()
+        host.append((time.perf_counter() - t0) * 1e3)
+    sync("cuda")
+    log("pp_serve", nvidia_smi=smi, tree=tree,
+        nms_library=cuda_build._lib_path("nms_bev").name, requests=requests,
+        median_ms=statistics.median(times), min_ms=min(times),
+        max_ms=max(times), all_ms=times, nms_event_ms=event_ms,
+        nms_host_ms=statistics.median(host), nms_host_max_ms=max(host))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pp-serve"]:
+        sys.exit(pp_serve_timing(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

@@ -8,15 +8,18 @@
 // BEV IoU with it (inter / max(union, 1e-8), rotated_box.cuh) exceeds
 // thr. Invalid boxes neither keep nor suppress.
 //
-// Bound: operations, and what these inputs need of them. Every unordered
-// pair of a sample's K boxes needs a bounding-circle test (~8 float32
-// operations); only the pairs whose circles meet need the IoU (~630,
-// IOU3D_OPS_PER_PAIR in ops/box_ops.py). In a scene most pairs are far
-// apart (2% of the pairs meet in a nuScenes-like set of 1,000 boxes), so
-// the count is box_ops.nms_bev_needed_ops, over the card's float32 rate.
-// Bytes are negligible. The greedy walk has an inherent serial length of
-// K dependent steps per class, taken here as K / 64 chunks, each resolved
-// on a register word.
+// Bound: operations, and what these inputs need of them. Each unordered
+// pair of a sample's K boxes needs only its cheapest certificate: an area
+// ratio (IoU <= min / max area, ~4 float32 operations), a bounding-circle
+// test (~8), a separating-axis test (~52), and the IoU (~630,
+// IOU3D_OPS_PER_PAIR in ops/box_ops.py) only where the boxes intersect.
+// In a scene most pairs are far apart (2% of the pairs' circles meet in a
+// nuScenes-like set of 1,000 boxes). The count is
+// box_ops.nms_bev_needed_ops, over the card's float32 rate; this kernel
+// computes more (box_ops.nms_bev_cut_ops: the IoU for every pair whose
+// circles meet). Bytes are negligible. The greedy walk has an inherent
+// serial length of K dependent steps per class, taken here as K / 64
+// chunks, each resolved on a register word.
 //
 // Design, two launches on the caller's stream:
 // 1. Pairwise pass. The boxes do not depend on the class, so a sample's

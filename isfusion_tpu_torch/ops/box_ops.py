@@ -52,10 +52,18 @@ NMS_SMEM_BYTES = 227 * 1024
 # K10-NMS's pairwise pass computes a pair only when its boxes' bounding
 # circles, widened by the point-in-box tolerance, meet
 # (``bev_circles_meet``; why that is exact: the note of csrc/nms_bev.cu);
-# the test costs ~8 float32 operations a pair
+# the test costs ~8 float32 operations a pair. Cheaper certificates that a
+# pair's bit is 0, counted by the data-dependent bound: the area ratio
+# (IoU <= min(area) / max(area); min, max, a product and a comparison),
+# and a separating-axis test of the two rectangles from staged cos / sin
+# (relative rotation 6, centre offset 2, and for each of the 4 axes the
+# offset's projection 4, the other box's half-extent 5, sum and
+# comparison 2)
 NMS_QUAD_TOL = 1e-5
 NMS_CUT_REL, NMS_CUT_ABS = 1.0 + 1e-4, 1e-3
 NMS_CIRCLE_OPS = 8
+NMS_RATIO_OPS = 4
+NMS_SAT_OPS = 6 + 2 + 4 * (4 + 5 + 2)
 
 
 def nms_smem_bytes(classes: int, boxes: int) -> int:
@@ -220,15 +228,41 @@ def bev_circles_meet(boxes_bev: torch.Tensor) -> torch.Tensor:
     return ~(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] > lim * lim)
 
 
-def nms_bev_needed_ops(boxes_bev: torch.Tensor) -> int:
-    """float32 operations K10-NMS needs on these (B, K, 5) boxes: the
-    circle test for every unordered pair, the IoU (``rotated_iou_ops``)
-    for the unordered pairs whose circles meet."""
-    k = boxes_bev.shape[-2]
-    meet = torch.triu(bev_circles_meet(boxes_bev), diagonal=1)
-    per_pair = rotated_iou_ops(boxes_bev, boxes_bev)
-    pairs = boxes_bev[..., 0, 0].numel() * k * (k - 1) // 2
-    return NMS_CIRCLE_OPS * pairs + int(per_pair[meet].sum())
+def nms_bev_cut_ops(boxes_bev: torch.Tensor) -> int:
+    """float32 operations of K10-NMS's pairwise pass as designed on these
+    (B, K, 5) boxes: the circle test for every unordered pair, the IoU
+    (``rotated_iou_ops``) for the pairs whose circles meet."""
+    b = boxes_bev.float()
+    k = b.shape[-2]
+    s, i, j = torch.nonzero(torch.triu(bev_circles_meet(b), diagonal=1),
+                            as_tuple=True)
+    return NMS_CIRCLE_OPS * (b.shape[0] * k * (k - 1) // 2) + int(
+        rotated_iou_ops(b[s, i][:, None], b[s, j][:, None]).sum())
+
+
+def nms_bev_needed_ops(boxes_bev: torch.Tensor, thresh: float) -> int:
+    """float32 operations that settle every bit (IoU > ``thresh``) of
+    these (B, K, 5) boxes' unordered pairs, each pair by its cheapest
+    certificate: the area ratio where min / max area <= thresh, else the
+    circle test where the circles are apart, else a separating-axis test
+    where the plain intersection area (in the lower-index box's frame, as
+    the kernel) is 0, else the IoU (``rotated_iou_ops``): K10-NMS's
+    data-dependent bound."""
+    b = boxes_bev.float()
+    area = b[..., 2] * b[..., 3]
+    lo_a, hi_a = area[..., :, None], area[..., None, :]
+    by_ratio = torch.triu(torch.minimum(lo_a, hi_a) <=
+                          thresh * torch.maximum(lo_a, hi_a), diagonal=1)
+    n_ratio = int(by_ratio.sum())
+    k = b.shape[-2]
+    s, i, j = torch.nonzero(torch.triu(bev_circles_meet(b), diagonal=1) &
+                            ~by_ratio, as_tuple=True)
+    lo, hi = b[s, i][:, None], b[s, j][:, None]
+    n_circle = b.shape[0] * k * (k - 1) // 2 - n_ratio - len(s)
+    touch = rotated_rect_intersection_area(lo, hi)[:, 0, 0] > 0
+    return (NMS_RATIO_OPS * n_ratio + NMS_CIRCLE_OPS * n_circle +
+            NMS_SAT_OPS * int((~touch).sum()) +
+            int(rotated_iou_ops(lo[touch], hi[touch]).sum()))
 
 
 def _lead_check(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor):

@@ -3,8 +3,13 @@ the CPU, where the kernel cannot run: its bounding-circle cut
 (``box_ops.bev_circles_meet``) never drops a pair whose intersection
 area is above 0, a numpy mirror of its chunked greedy walk (64 sorted
 boxes at a time, resolved on one 64-bit word) equals the plain greedy
-walk and the JAX package's ``_greedy_suppress``, and the operation count
-of its data-dependent bound.
+walk and the JAX package's ``_greedy_suppress``, and the operation counts
+of its data-dependent bound and of its circle cut.
+
+The mirror holds the algorithm (a chunk resolved as a fixed point), not
+the kernel: ``nms_greedy_kernel`` itself is held exactly against
+``greedy_suppress_ref`` only on the card, by ``tests/test_torch_cuda.py::
+test_nms_bev_kernel_matches_plain_version``.
 
 Tolerance: exact everywhere (boolean masks and integer counts). The area
 is the port's plain ``rotated_rect_intersection_area``, the kernel's
@@ -155,7 +160,8 @@ def test_circle_cut_keeps_degenerate_and_nan_boxes():
 
 # ----------------------------------------------- the chunked greedy walk
 def chunked_walk(suppress, scores, valid):
-    """keep (K,) of the greedy pass of csrc/nms_bev.cu, in numpy: the
+    """keep (K,) of the algorithm of the greedy pass of csrc/nms_bev.cu,
+    in numpy (a copy: the kernel is tested on the card only): the
     removed words start as the invalid boxes; per 64 sorted positions,
     the alive boxes in order, their submatrix rows (row j bit i: alive box
     i suppresses alive box j), the chunk resolved on one 64-bit integer
@@ -209,35 +215,74 @@ def test_chunked_walk_matches_greedy(k):
         assert 0 < got.sum() < valid.sum()
 
 
-# -------------------------------------------------------- the bound's count
-def test_needed_ops_counts_meeting_pairs():
-    boxes = torch.tensor([[[0.0, 0.0, 4.0, 2.0, 0.1],
+# ----------------------------------------------------- the bounds' counts
+# sample 0: boxes 0 and 1 overlap, 2 and 3 are 0.5 m apart (circles meet),
+# the rest far apart; sample 1: box 1 is a sixth of its neighbours' area,
+# boxes 3 and 4 overlap
+BOUND_SET = torch.tensor([[[0.0, 0.0, 4.0, 2.0, 0.1],
                            [1.0, 0.5, 4.0, 2.0, 0.6],
                            [30.0, 0.0, 2.0, 2.0, 0.0],
                            [32.5, 0.0, 2.0, 2.0, 0.0],
                            [-40.0, 9.0, 1.0, 3.0, 1.0]],
                           [[5.0, 5.0, 2.0, 2.0, 0.0],
-                           [5.0, 5.0, 1.0, 1.0, 0.3],
+                           [5.0, 5.0, 0.8, 0.8, 0.3],
                            [50.0, 5.0, 2.0, 2.0, 0.0],
                            [5.0, 90.0, 2.0, 2.0, 0.0],
                            [5.0, 93.0, 2.0, 5.0, 0.2]]])
+
+
+def _pair_facts(b, i, j):
+    """(circles meet, min / max area, plain intersection area, IoU ops)
+    of BOUND_SET's pair (i, j) of sample b, one pair at a time."""
+    (xi, yi, dxi, dyi, _), (xj, yj, dxj, dyj, _) = \
+        BOUND_SET[b, i].tolist(), BOUND_SET[b, j].tolist()
+    reach = (0.5 * math.hypot(dxi, dyi) + 1e-5 / dxi + 1e-5 / dyi
+             + 0.5 * math.hypot(dxj, dyj) + 1e-5 / dxj + 1e-5 / dyj)
+    meet = math.hypot(xj - xi, yj - yi) <= reach * (1 + 1e-4) + 1e-3
+    ratio = min(dxi * dyi, dxj * dyj) / max(dxi * dyi, dxj * dyj)
+    lo, hi = BOUND_SET[b, i:i + 1], BOUND_SET[b, j:j + 1]
+    area = float(box_ops.rotated_rect_intersection_area(lo, hi))
+    return meet, ratio, area, int(box_ops.rotated_iou_ops(lo, hi).sum())
+
+
+def test_needed_ops_counts_meeting_pairs():
+    """The circle cut's count: every pair's circle test, the IoU of the
+    pairs whose circles meet."""
     want = 0
     for b in range(2):
         for i in range(5):
             for j in range(i + 1, 5):
-                want += box_ops.NMS_CIRCLE_OPS
-                (xi, yi, dxi, dyi, _), (xj, yj, dxj, dyj, _) = \
-                    boxes[b, i].tolist(), boxes[b, j].tolist()
-                reach = (0.5 * math.hypot(dxi, dyi) + 1e-5 / dxi + 1e-5 / dyi
-                         + 0.5 * math.hypot(dxj, dyj) + 1e-5 / dxj +
-                         1e-5 / dyj)
-                if math.hypot(xj - xi, yj - yi) <= reach * (1 + 1e-4) + 1e-3:
-                    want += int(box_ops.rotated_iou_ops(
-                        boxes[b, i:i + 1], boxes[b, j:j + 1]).sum())
-    got = box_ops.nms_bev_needed_ops(boxes)
+                meet, _, _, iou_ops = _pair_facts(b, i, j)
+                want += box_ops.NMS_CIRCLE_OPS + (iou_ops if meet else 0)
+    got = box_ops.nms_bev_cut_ops(BOUND_SET)
     assert got == want
     # 4 of the 20 pairs meet
-    assert box_ops.nms_bev_ops(boxes) > got > 20 * box_ops.NMS_CIRCLE_OPS
+    assert box_ops.nms_bev_ops(BOUND_SET) > got > \
+        20 * box_ops.NMS_CIRCLE_OPS + 4 * box_ops.IOU3D_OPS_PER_PAIR
+
+
+def test_needed_ops_takes_each_pairs_cheapest_certificate():
+    """The bound's count: per pair the area ratio where it rules IoU >
+    0.2 out, else the circle test where the circles are apart, else the
+    separating-axis test where the boxes do not intersect, else the
+    IoU."""
+    want, kinds = 0, {"ratio": 0, "circle": 0, "sat": 0, "iou": 0}
+    for b in range(2):
+        for i in range(5):
+            for j in range(i + 1, 5):
+                meet, ratio, area, iou_ops = _pair_facts(b, i, j)
+                kind = ("ratio" if ratio <= 0.2 else "circle" if not meet
+                        else "sat" if area == 0 else "iou")
+                kinds[kind] += 1
+                want += dict(ratio=box_ops.NMS_RATIO_OPS,
+                             circle=box_ops.NMS_CIRCLE_OPS,
+                             sat=box_ops.NMS_SAT_OPS, iou=iou_ops)[kind]
+    assert kinds == {"ratio": 4, "circle": 13, "sat": 1, "iou": 2}
+    got = box_ops.nms_bev_needed_ops(BOUND_SET, 0.2)
+    assert got == want
+    assert got < box_ops.nms_bev_cut_ops(BOUND_SET)
+    # at threshold 0 the ratio rules nothing out
+    assert box_ops.nms_bev_needed_ops(BOUND_SET, 0.0) > got
 
 
 def test_chunked_walk_on_a_chain():
