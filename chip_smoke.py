@@ -1333,7 +1333,7 @@ def pp_serve_timing(tree: str, requests: int = 50) -> int:
     compare two checkouts on one card in one call (run them in the order
     A, B, B, A). The main path's model, tamed, serves one warm-up and
     ``requests`` timed batch-1 requests; then the warm-up's K10-NMS call
-    is timed alone: CUDA-event ms, and the host's ms to issue one call
+    is timed alone: CUDA-event ms, and the host's ms to make one call
     (from an idle card, no sync inside). Prints one JSON record."""
     import torch
     smi = phase_device()
