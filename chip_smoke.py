@@ -55,25 +55,38 @@ Phases, each printing one line (every failure raises, exit code != 0):
     unless K10-NMS (``nms_bev``) launched in every request. Prints the
     median and max ms, peak memory, pillars against the cap and the kept
     boxes;
-11. PointPillars kernel check: K10-NMS against its plain version on the
+11. learn: the train -> eval loop of ``isfusion_tpu_torch/apis`` on a
+    fixture of 8 train / 4 val samples (the port's generator, 120,000
+    points, car and pedestrian) under ``build/``: the first 2 of the 100
+    epochs of ``configs/pointpillars/hv_pointpillars_learnability_syn.py``
+    at batch 4 from seeded weights, box regression scaled by 0.01
+    (checkpoint every epoch, evaluation after epoch 2), launch counts
+    zeroed just before and read just after; a second model resumed from
+    the epoch-1 checkpoint must log the same losses and metrics; then
+    ``single_device_test`` + ``evaluate`` on the val split, ``nms_bev``
+    once per predict batch. Prints step ms, the data wait's share, the
+    first and last loss, the metrics, eval samples/s and peak memory;
+12. PointPillars kernel check: K10-NMS against its plain version on the
     request's own top-1,000 boxes and 10 classes, on the same request
     before the scaling, on a scene-like set of 1,000 boxes and 10 classes
     with no pair near the threshold, on 1,000 boxes within 3 m (every
     bounding circle meets) and 1,000 on a 10 m grid (none meets), and on
     adversarial sets (identical, nested, 45-degree, chained, all-invalid,
-    single box): keep masks equal to the plain greedy walk over the
-    kernel's own suppression bits, those bits symmetric and equal
-    wherever the plain IoU is more than 1e-5 from the threshold, keep
-    masks equal to the plain version's whenever no pair is that close;
+    single box) and on the learn phase's eval batch (B 4 x C 2 x K 256,
+    trained and random weights): keep masks equal to the plain greedy
+    walk over the kernel's own suppression bits, those bits symmetric
+    and equal wherever the plain IoU is more than 1e-5 from the
+    threshold, keep masks equal to the plain version's whenever no pair
+    is that close;
     prints each set's box sizes, the shares of pairs whose circles meet
     and whose boxes intersect, three operation bounds (the least that
     settles every pair, the kernel's circle cut, every pair) and each
     pass's device time;
-12. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
+13. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
     lr with linear warmup, clip 35), 1 warm-up and 5 timed steps; fails on
     a non-finite or zero grad norm or an unchanged weight of the VFE, the
     backbone or the head;
-13. PointPillars reference: the tiny PointPillars in float32 on the card
+14. PointPillars reference: the tiny PointPillars in float32 on the card
     against the CPU, predict (same kept entries and labels, boxes within
     1e-4 of their max) and one train step (losses 1e-4 relative,
     gradients per top-level module 1e-3 of their max).
@@ -85,9 +98,14 @@ The card's ``nvidia-smi`` line, then the kernels' JSON record, then
 requests, then the K10-NMS wrapper's device and host time), with the port
 imported from the checkout TREE: two checkouts compared in one call
 (``pp_serve_timing``).
+
+``python3 chip_smoke.py --learn WORK_DIR`` runs the learnability recipe in
+full (48 train / 16 val samples, 100 epochs, ``learn_run``) and leaves
+``WORK_DIR/train_log.jsonl``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -860,9 +878,11 @@ PP_TRAIN_WATCH = ("pts_voxel_encoder", "pts_backbone", "pts_bbox_head")
 NMS_NEAR = 1e-5         # a pair this close to the threshold may round apart
 
 
-def record_nms_inputs(model, batch: dict, dev: str, stats=None):
-    """One PointPillars request; returns the NMS inputs it made (its
-    top-``nms_pre`` BEV boxes, every class's scores, their validity)."""
+@contextlib.contextmanager
+def recording_nms():
+    """Inside the block, every K10-NMS call of the anchor head appends its
+    inputs (its top-``nms_pre`` BEV boxes, every class's scores, their
+    validity) to the yielded list; the kernel still runs."""
     from isfusion_tpu_torch.models.dense_heads import anchor3d_head
 
     real, seen = anchor3d_head.nms_bev_mask, []
@@ -873,10 +893,16 @@ def record_nms_inputs(model, batch: dict, dev: str, stats=None):
 
     anchor3d_head.nms_bev_mask = recording
     try:
-        model(batch, device=dev, stats=stats)
-        sync(dev)
+        yield seen
     finally:
         anchor3d_head.nms_bev_mask = real
+
+
+def record_nms_inputs(model, batch: dict, dev: str, stats=None):
+    """One PointPillars request; returns the NMS inputs it made."""
+    with recording_nms() as seen:
+        model(batch, device=dev, stats=stats)
+        sync(dev)
     return seen[0]
 
 
@@ -1018,18 +1044,22 @@ def _nms_compare(boxes, scores, valid, thr, dev) -> dict:
                 all_pairs_bound_ms=ops_all / F32_OPS_PER_S * 1e3)
 
 
-def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
+def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None,
+                          eval_sets=()) -> dict:
     """K10-NMS against its plain version (``_nms_compare``) on the
     request's own top boxes and classes, on the same request before the
     box deltas were tamed (``untamed``, boxes far wider than the scene),
     on a scene-like set of 1,000 boxes and 10 classes with no pair near
     the threshold, on 1,000 boxes within 3 m (every circle meets) and
-    1,000 on a 10 m grid (none meets), and on the adversarial sets; on the
+    1,000 on a 10 m grid (none meets), on the adversarial sets and on
+    ``eval_sets`` ((name, boxes, scores, valid): the learn phase's eval
+    batch, B 4 x C 2 x K 256, trained and with random weights); on the
     card each set's pairwise and greedy passes' device times. The
-    request's NMS timed beside its three operation bounds (``bound_ms``,
-    the least that settles this request's pairs; the kernel's circle cut;
-    every pair), with the device operations of one wrapper call. Returns
-    the record for the JSON line."""
+    request's NMS (and the set named "eval", as ``eval_shape``) timed
+    beside its three operation bounds (``bound_ms``, the least that
+    settles its pairs; the kernel's circle cut; every pair), with the
+    device operations of one wrapper call. Returns the record for the
+    JSON line."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
     from isfusion_tpu_torch.testing import (nms_cluster_set, nms_scene_set,
@@ -1047,7 +1077,8 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
                    torch.Generator().manual_seed(4)),
                ("sparse",) + nms_sparse_set(torch.Generator().manual_seed(5))]
               + nms_test_sets(gen)]
-    worst, request = 0, None
+    cases += list(eval_sets)
+    worst, kept = 0, {}
     for name, b, s, v in cases:
         r = _nms_compare(b, s, v, thr, dev)
         if dev == "cuda":
@@ -1059,21 +1090,43 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
                                           ops.items()})
         worst = max(worst, r["keep_flags_differ"])
         log("pp_nms_case", case=name, box_m=box_sizes(b), **r)
-        if name == "request":
-            request = r
+        if name in ("request", "eval"):
+            kept[name] = (b, s, v, r)
         if name == "scene" and r["pairs_near_threshold"]:
             raise RuntimeError("the scene set has pairs near the threshold")
         if r["bad_bits"] or not r["greedy_equal"] or not r["symmetric"] or \
                 (r["pairs_near_threshold"] == 0 and not r["keep_equal"]):
             raise RuntimeError(f"nms_bev differs from its plain version on "
                                f"{name}: {r}")
-    nbytes = boxes.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
+    rec = dict(_nms_timing(*kept["request"], thr, dev),
+               max_abs_err=float(worst),
+               greedy_chunks_per_class=-(-boxes.shape[1] // 64),
+               library_ms=None)
+    if "eval" in kept:
+        rec["eval_shape"] = _nms_timing(*kept["eval"], thr, dev)
+    if dev == "cuda":
+        # the pairwise pass alone (the greedy pass is the rest)
+        rec["pairwise_ms"] = cuda_ms(lambda: box_ops._launch_nms(
+            boxes, None, None, None, 1, thr, False), dev, iters=50)
+    log("pp_kernel_check", **rec)
+    return rec
+
+
+def _nms_timing(boxes, scores, valid, r: dict, thr: float, dev: str) -> dict:
+    """One set's shape, pair shares and operation counts (``r``, from
+    ``_nms_compare``), the wrapper's, the plain version's and the sort's
+    ms, and its three bounds: each the larger of the operations' time and
+    the inputs' bytes over the memory rate."""
+    import torch
+    from isfusion_tpu_torch.ops import box_ops
+
+    floor = (boxes.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()) \
+        / HBM_BYTES_PER_S * 1e3
     rec = dict(B=boxes.shape[0], K=boxes.shape[1], C=scores.shape[1],
-               max_abs_err=float(worst), ops=request["ops"],
-               ops_circle_cut=request["ops_circle_cut"],
-               ops_all_pairs=request["ops_all_pairs"],
-               circles_meet_share=request["circles_meet_share"],
-               intersect_share=request["intersect_share"],
+               ops=r["ops"], ops_circle_cut=r["ops_circle_cut"],
+               ops_all_pairs=r["ops_all_pairs"],
+               circles_meet_share=r["circles_meet_share"],
+               intersect_share=r["intersect_share"],
                ms=cuda_ms(lambda: box_ops.nms_bev_mask(boxes, scores, thr,
                                                        valid), dev, iters=50),
                plain_ms=cuda_ms(lambda: box_ops.nms_bev_mask_ref(
@@ -1081,22 +1134,13 @@ def phase_pp_kernel_check(nms_in, dev: str = "cuda", untamed=None) -> dict:
                sort_ms=cuda_ms(lambda: torch.sort(
                    scores, dim=-1, descending=True, stable=True), dev,
                    iters=50),
-               bound_ms=max(request["bound_ms"],
-                            nbytes / HBM_BYTES_PER_S * 1e3),
-               circle_cut_bound_ms=max(request["circle_cut_bound_ms"],
-                                       nbytes / HBM_BYTES_PER_S * 1e3),
-               all_pairs_bound_ms=max(request["all_pairs_bound_ms"],
-                                      nbytes / HBM_BYTES_PER_S * 1e3),
-               greedy_chunks_per_class=-(-boxes.shape[1] // 64),
-               library_ms=None)
-    if dev == "cuda":
-        # the pairwise pass alone (the greedy pass is the rest)
-        rec["pairwise_ms"] = cuda_ms(lambda: box_ops._launch_nms(
-            boxes, None, None, None, 1, thr, False), dev, iters=50)
-        for key in ("pairwise_device_ms", "greedy_device_ms",
-                    "device_ops_per_call"):
-            rec[key] = request[key]
-    log("pp_kernel_check", **rec)
+               bound_ms=max(r["bound_ms"], floor),
+               circle_cut_bound_ms=max(r["circle_cut_bound_ms"], floor),
+               all_pairs_bound_ms=max(r["all_pairs_bound_ms"], floor))
+    for key in ("pairwise_device_ms", "greedy_device_ms",
+                "device_ops_per_call"):
+        if key in r:
+            rec[key] = r[key]
     return rec
 
 
@@ -1224,6 +1268,224 @@ def phase_pp_reference(dev: str = "cuda"):
                            f"{loss_err:.3g}, grads {grad_err}")
 
 
+LEARN_CFG = os.path.join(REPO, "configs", "pointpillars",
+                         "hv_pointpillars_learnability_syn.py")
+LEARN_CLASSES = ["car", "pedestrian"]
+
+
+def learn_cfg(data_root: str, epochs: int, eval_interval: int,
+              ckpt_interval: int, log_interval: int):
+    """The learnability config on the fixture at ``data_root``, run for
+    ``epochs`` epochs with the given intervals, seed 0."""
+    from isfusion_tpu_torch.config import Config
+    cfg = Config.fromfile(LEARN_CFG)
+    for split in ("train", "val", "test"):
+        ann = "train" if split == "train" else "val"
+        cfg.data[split].update(data_root=data_root, ann_file=os.path.join(
+            data_root, f"nuscenes_infos_{ann}.pkl"))
+    cfg.total_epochs = epochs
+    cfg.runner.max_epochs = epochs
+    cfg.evaluation = dict(interval=eval_interval)
+    cfg.checkpoint_config = dict(interval=ckpt_interval)
+    cfg.log_config = dict(interval=log_interval)
+    cfg.seed = 0
+    return cfg
+
+
+def _steps_summary(records: list) -> dict:
+    """Step ms (each logged step's ``time`` less its ``data_time``: the
+    upload, step and sync), the data wait's share of the logged time, and
+    the first and last logged loss."""
+    steps = [r for r in records if "mode" not in r]
+    ms = [(r["time"] - r["data_time"]) * 1e3 for r in steps]
+    return dict(logged_steps=len(steps), step_ms_median=statistics.median(ms),
+                step_ms_max=max(ms),
+                data_time_share=sum(r["data_time"] for r in steps)
+                / sum(r["time"] for r in steps),
+                first_loss=steps[0]["loss"], last_loss=steps[-1]["loss"])
+
+
+def _timed_eval(model, cfg, dev: str):
+    """The val split through ``single_device_test`` (its NMS inputs
+    recorded, launch counts zeroed just before and read just after) and
+    ``evaluate``: (results, metrics, NMS inputs, record)."""
+    import numpy as np
+    from isfusion_tpu_torch.apis import single_device_test
+    from isfusion_tpu_torch.datasets import build_dataloader, build_dataset
+    from isfusion_tpu_torch.ops import cuda_build
+
+    data = dict(cfg.data)
+    dataset = build_dataset(data["val"])
+    loader = build_dataloader(
+        dataset, samples_per_gpu=int(data["samples_per_gpu"]),
+        workers_per_gpu=int(data["workers_per_gpu"]), shuffle=False)
+    cuda_build.reset_launches()
+    with recording_nms() as seen:
+        t0 = time.perf_counter()
+        results = single_device_test(model, loader, dev)
+        predict_s = time.perf_counter() - t0
+    launches = cuda_build.LAUNCHES["nms_bev"]
+    t0 = time.perf_counter()
+    metrics = dataset.evaluate(results)
+    n = int(model.pts_bbox_head.test_cfg.get("max_num", 500))
+    bad = [i for i, r in enumerate(results)
+           if r["bboxes"].shape != (n, 9) or
+           not np.isfinite(r["bboxes"][r["mask"]]).all()]
+    bad += [k for k, v in metrics.items()
+            if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise RuntimeError(f"learn eval: bad results or metrics {bad}")
+    rec = dict(samples=len(results), batches=len(loader),
+               eval_samples_per_s=len(results) / predict_s,
+               evaluate_s=time.perf_counter() - t0, nms_launches=launches,
+               kept_boxes=int(sum(r["mask"].sum() for r in results)))
+    if dev == "cuda" and launches != len(loader):
+        raise RuntimeError(f"nms_bev launched {launches} times in "
+                           f"{len(loader)} predict batches")
+    return results, metrics, seen[0], rec
+
+
+def phase_learn(dev: str = "cuda", train: int = 8, val: int = 4,
+                points: int = 120_000):
+    """The train -> eval loop of ``apis/``: a fixture of ``train`` /
+    ``val`` samples (the port's generator, no images) under ``build/``;
+    the first 2 of the learnability recipe's 100 epochs at batch 4 by
+    ``train_model`` (checkpoint every epoch, evaluation after epoch 2),
+    from seeded weights with the box regression scaled by 0.01
+    (``tame_box_deltas``: untrained weights decode boxes far wider than
+    the scene, and the eval's NMS should see scene-sized ones), launch
+    counts zeroed just before and read just after; a second model
+    resumed from the epoch-1 checkpoint trains epoch 2 again and must log
+    the same losses, grad norms and metrics; then ``single_device_test``
+    + ``evaluate`` on the val split (``nms_bev`` once per predict batch).
+    PyTorch's deterministic kernels throughout, so that the resumed run
+    can match bit for bit. Returns (the eval batch's NMS inputs, those of
+    the same batch with the random initial weights, record)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from isfusion_tpu_torch.apis import init_model, train_model
+    from isfusion_tpu_torch.datasets import build_dataset
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.testing import tame_box_deltas
+    from isfusion_tpu_torch.tools.make_synthetic_nuscenes import make_dataset
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="learn_", dir=os.path.join(REPO, "build"))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        make_dataset(data, train=train, val=val, points=points, seed=0,
+                     classes=LEARN_CLASSES)
+        fixture_s = time.perf_counter() - t0
+        cfg = learn_cfg(data, epochs=100, eval_interval=2, ckpt_interval=1,
+                        log_interval=1)
+        model = tame_box_deltas(init_model(cfg, device=dev))
+        *_, random_in, _ = _timed_eval(model, cfg, dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        records = train_model(model, build_dataset(cfg.data.train), cfg,
+                              os.path.join(root, "work"), device=dev,
+                              until_epoch=2)
+        train_s = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if dev == "cuda" else None
+        resumed = train_model(init_model(cfg, device=dev, seed=5),
+                              build_dataset(cfg.data.train), cfg,
+                              os.path.join(root, "resumed"), device=dev,
+                              resume_from=os.path.join(root, "work",
+                                                       "epoch_1.pth"),
+                              until_epoch=2)
+        _, metrics, eval_in, ev = _timed_eval(model, cfg, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root)
+
+    def untimed(recs):
+        return [{k: v for k, v in r.items() if k not in ("data_time", "time")}
+                for r in recs]
+
+    resume_equal = resumed[0].get("epoch") == 1 and \
+        untimed(resumed) == untimed(records[-len(resumed):])
+    val_rec = [r for r in records if "mode" in r]
+    rec = dict(fixture=dict(train=train, val=val, points=points,
+                            seconds=fixture_s),
+               train_s=train_s, **_steps_summary(records),
+               train_launches=launches, peak_mem_gib=peak,
+               resume_equal=resume_equal,
+               resumed_losses=[r["loss"] for r in resumed if "mode" not in r],
+               val_in_loop=val_rec[-1] if val_rec else None,
+               val={k: v for k, v in metrics.items()
+                    if k in ("mAP", "NDS", "car_AP", "pedestrian_AP")},
+               **ev)
+    log("learn", **rec)
+    steps = [r for r in records if "mode" not in r]
+    if any(not math.isfinite(r[k]) for r in steps for k in r
+           if k.startswith("loss") or k == "grad_norm"):
+        raise RuntimeError(f"non-finite loss in the learn phase: {steps}")
+    if not resume_equal:
+        raise RuntimeError(f"the resumed run logged other values: "
+                           f"{resumed} against {records}")
+    if dev == "cuda" and launches["nms_bev"] != ev["batches"]:
+        raise RuntimeError(f"nms_bev launched {launches['nms_bev']} times in "
+                           f"the loop's {ev['batches']} eval batches")
+    return eval_in, random_in, rec
+
+
+def learn_run(work_dir: str) -> int:
+    """``python3 chip_smoke.py --learn WORK_DIR``: the learnability recipe
+    in full on the card. A fixture of 48 train / 16 val samples (seed 0,
+    120,000 points, car and pedestrian) under WORK_DIR/data; the config's
+    100 epochs at batch 4 (evaluation and checkpoint every 20 epochs, a
+    record every 50 steps) by ``train_model`` into WORK_DIR
+    (``train_log.jsonl``); then the timed eval of the val split. Prints
+    one ``[learn_run]`` record and the ``nvidia-smi`` line; exits 1 unless
+    the last logged loss is <= 1.0 and the final mAP >= 0.50 and NDS >=
+    0.55."""
+    import torch
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    from isfusion_tpu_torch.apis import init_model, train_model
+    from isfusion_tpu_torch.datasets import build_dataset
+    from isfusion_tpu_torch.tools.make_synthetic_nuscenes import make_dataset
+
+    work_dir = os.path.abspath(work_dir)
+    data = os.path.join(work_dir, "data")
+    t0 = time.perf_counter()
+    make_dataset(data, train=48, val=16, points=120_000, seed=0,
+                 classes=LEARN_CLASSES)
+    fixture_s = time.perf_counter() - t0
+    cfg = learn_cfg(data, epochs=100, eval_interval=20, ckpt_interval=20,
+                    log_interval=50)
+    model = init_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = train_model(model, build_dataset(cfg.data.train), cfg,
+                          work_dir, device="cuda")
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, metrics, _, ev = _timed_eval(model, cfg, "cuda")
+    final = [r for r in records if "mode" in r][-1]
+    summary = _steps_summary(records)
+    ok = summary["last_loss"] <= 1.0 and final["mAP"] >= 0.50 and \
+        final["NDS"] >= 0.55
+    log("learn_run", nvidia_smi=smi, fixture_s=fixture_s, train_s=train_s,
+        steps=max(r["step"] for r in records if "step" in r),
+        peak_mem_gib=peak, **summary, **ev,
+        val=[{k: r[k] for k in ("epoch", "mAP", "NDS")}
+             for r in records if "mode" in r],
+        final_eval={k: metrics[k] for k in ("mAP", "NDS")},
+        meets_acceptance=ok)
+    print(smi)
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
     if not os.path.isdir(os.path.join(REPO, "isfusion_tpu_torch")):
@@ -1272,8 +1534,10 @@ def main() -> int:
     if missing:
         raise RuntimeError(f"kernels not launched on the PointPillars "
                            f"path: {missing}")
-    nms = phase_pp_kernel_check(nms_in, untamed=untamed)
-    del nms_in, untamed
+    eval_in, random_in, learn = phase_learn()
+    nms = phase_pp_kernel_check(nms_in, untamed=untamed, eval_sets=[
+        ("eval",) + tuple(eval_in), ("eval_random",) + tuple(random_in)])
+    del nms_in, untamed, eval_in, random_in
     phase_pp_train(pp, pp_batch_fn(pointpillars_optim_cfg()[
         "samples_per_gpu"]))
     del pp
@@ -1318,7 +1582,12 @@ def main() -> int:
              circle_cut_bound_ms=nms["circle_cut_bound_ms"],
              all_pairs_bound_ms=nms["all_pairs_bound_ms"],
              pairwise_device_ms=nms["pairwise_device_ms"],
-             greedy_device_ms=nms["greedy_device_ms"])]
+             greedy_device_ms=nms["greedy_device_ms"],
+             learn_train_launches=learn["train_launches"]["nms_bev"],
+             learn_eval_launches=learn["nms_launches"],
+             learn_eval_batches=learn["batches"],
+             eval_shape={k: v for k, v in nms["eval_shape"].items()
+                         if k != "device_ops_per_call"})]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1377,6 +1646,8 @@ def pp_serve_timing(tree: str, requests: int = 50) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--learn"] and len(sys.argv) == 3:
+        sys.exit(learn_run(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-serve"]:
         sys.exit(pp_serve_timing(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

@@ -1,0 +1,6 @@
+from .builder import build_dataloader, build_dataset, collate_batch
+from .custom_3d import Custom3DDataset
+from .nuscenes_dataset import NuScenesDataset
+
+__all__ = ["build_dataloader", "build_dataset", "collate_batch",
+           "Custom3DDataset", "NuScenesDataset"]

@@ -1,0 +1,106 @@
+"""Dataset and loader construction (counterpart of
+``isfusion_tpu/datasets/builder.py``).
+
+``build_dataloader`` loads through ``torch.utils.data.DataLoader`` with
+``workers_per_gpu`` worker processes. The batches follow the JAX
+package's order: per epoch ``np.random.default_rng(seed +
+epoch).permutation`` (or dataset order without shuffling), then
+``drop_last``. One card: the JAX loader's per-host shards wait for the
+data-parallel train step. ``collate_batch`` stacks each key
+into a CPU tensor (``img_metas`` stays a list). The JAX package's host
+plan (``plan_fn``) serves its column engine only and is not ported.
+"""
+from __future__ import annotations
+
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from ..registry import DATASETS, build_from_cfg
+
+
+def build_dataset(cfg):
+    return build_from_cfg(dict(cfg), DATASETS)
+
+
+def collate_batch(samples: list) -> dict:
+    """Stack per-sample dicts of numpy arrays into (B, ...) tensors;
+    'img_metas' is collected as a list."""
+    out = {}
+    for k in samples[0]:
+        if k == "img_metas":
+            out[k] = [s[k] for s in samples]
+        else:
+            out[k] = torch.from_numpy(np.stack([np.asarray(s[k])
+                                                for s in samples]))
+    return out
+
+
+class EpochBatchSampler(torch.utils.data.Sampler):
+    """Batches of dataset indices in the JAX loader's per-epoch order."""
+
+    def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int,
+                 drop_last: bool):
+        self.n, self.batch_size, self.shuffle = n, batch_size, shuffle
+        self.seed, self.drop_last = seed, drop_last
+        self.epoch = 0
+
+    def indices(self) -> np.ndarray:
+        idx = np.arange(self.n)
+        if self.shuffle:
+            idx = np.random.default_rng(self.seed + self.epoch).permutation(
+                self.n)
+        if self.drop_last:
+            idx = idx[:len(idx) // self.batch_size * self.batch_size]
+        return idx
+
+    def __iter__(self) -> Iterator[List[int]]:
+        idx = self.indices().tolist()
+        for i in range(0, len(idx), self.batch_size):
+            yield idx[i:i + self.batch_size]
+
+    def __len__(self) -> int:
+        if self.drop_last:
+            return self.n // self.batch_size
+        return -(-self.n // self.batch_size)
+
+
+class DataLoader:
+    """An epoch-aware loader: ``set_epoch(e)`` before iterating sets the
+    order and the samples' seeds of epoch ``e``."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 num_workers: int = 0, seed: int = 0, drop_last: bool = True,
+                 pin_memory: bool = False):
+        self.dataset = dataset
+        self.dataset.seed = int(seed)
+        self.batch_sampler = EpochBatchSampler(
+            len(dataset), batch_size, shuffle, int(seed), drop_last)
+        # workers start per epoch, so each one forks with the epoch set
+        self.loader = torch.utils.data.DataLoader(
+            dataset, batch_sampler=self.batch_sampler,
+            num_workers=int(num_workers), collate_fn=collate_batch,
+            pin_memory=pin_memory)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.batch_sampler.epoch = epoch
+        self.dataset.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[dict]:
+        return iter(self.loader)
+
+    def __len__(self) -> int:
+        return len(self.batch_sampler)
+
+
+def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 0,
+                     shuffle: bool = True, seed: Optional[int] = None,
+                     drop_last: Optional[bool] = None,
+                     pin_memory: bool = False) -> DataLoader:
+    if drop_last is None:
+        # evaluation sees every sample; training keeps full batches
+        drop_last = bool(shuffle)
+    return DataLoader(dataset, batch_size=samples_per_gpu, shuffle=shuffle,
+                      num_workers=workers_per_gpu, seed=seed or 0,
+                      drop_last=drop_last, pin_memory=pin_memory)

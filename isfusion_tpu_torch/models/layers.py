@@ -221,7 +221,17 @@ def build_activation(act_cfg: Optional[dict]):
     }[t]
 
 
+# norm types a config may name for the port's BatchNorm: the synchronised
+# kinds reduce to it on one card (NaiveSyncBN over a world of one)
+BN_TYPES = ("BN", "BN1d", "BN2d", "SyncBN", "naiveSyncBN1d", "naiveSyncBN2d")
+
+
 def norm_eps(norm_cfg: Optional[dict], default: float = 1e-5) -> float:
+    """eps of a batch-norm config; raises for another norm type."""
+    kind = (norm_cfg or {}).get("type", "BN")
+    if kind not in BN_TYPES:
+        raise NotImplementedError(f"norm type {kind!r}: the port builds "
+                                  f"{', '.join(BN_TYPES)}")
     return float((norm_cfg or {}).get("eps", default))
 
 

@@ -11,7 +11,8 @@ detached 0-d tensors: ``loss``, every loss term, ``matched_ious`` and
 ``grad_norm`` (the pre-clip global norm, as ``optax.global_norm``
 reports it). The step runs on the model's device and raises if the batch
 or the generator lies on another one; all its randomness comes from
-``generator``.
+``generator``. ``step.state['count']`` is the schedule's step count (a
+checkpoint saves it; a resumed run sets it).
 """
 from __future__ import annotations
 
@@ -59,4 +60,5 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         metrics.update(loss=loss.detach(), grad_norm=grad_norm.detach())
         return metrics
 
+    step.state = state
     return step

@@ -112,3 +112,6 @@ DETECTORS = Registry("detectors", parent=MODELS)
 VOXEL_ENCODERS = Registry("voxel_encoders", parent=MODELS)
 MIDDLE_ENCODERS = Registry("middle_encoders", parent=MODELS)
 FUSION_LAYERS = Registry("fusion_layers", parent=MODELS)
+# The data side: datasets and their pipeline transforms.
+DATASETS = Registry("datasets")
+PIPELINES = Registry("pipelines")

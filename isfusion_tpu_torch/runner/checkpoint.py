@@ -1,0 +1,70 @@
+"""Checkpoint save and restore with ``torch.save`` / ``torch.load``
+(counterpart of ``isfusion_tpu/runner/checkpoint.py``, which uses orbax).
+
+A checkpoint is ``work_dir/epoch_{N}.pth`` holding the model's
+``state_dict`` (BatchNorm running statistics included), the optimizer's
+state, the train generator's state and ``meta`` (``epoch``, ``step``: the
+schedule's step count). Restored, a run continues bit for bit: the data
+order and augmentation depend only on (seed, epoch, index).
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional, Tuple
+
+import torch
+
+_NAME = re.compile(r"^epoch_(\d+)\.pth$")
+
+
+def checkpoint_path(path: str) -> str:
+    """``path`` itself if it is a file, else the highest ``epoch_N.pth``
+    in the directory ``path``."""
+    if os.path.isfile(path):
+        return path
+    found = [(int(m.group(1)), f) for f in os.listdir(path)
+             if (m := _NAME.match(f))] if os.path.isdir(path) else []
+    if not found:
+        raise FileNotFoundError(f"no checkpoint in {path}")
+    return os.path.join(path, max(found)[1])
+
+
+def save_checkpoint(work_dir: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    generator: Optional[torch.Generator] = None,
+                    meta: Optional[dict] = None) -> str:
+    """Write ``work_dir/epoch_{meta['epoch']}.pth``; returns its path."""
+    meta = dict(meta or {})
+    os.makedirs(work_dir, exist_ok=True)
+    path = os.path.join(work_dir, f"epoch_{int(meta.get('epoch', 0))}.pth")
+    torch.save(dict(
+        state_dict=model.state_dict(),
+        optimizer=None if optimizer is None else optimizer.state_dict(),
+        generator=None if generator is None else generator.get_state(),
+        meta=meta), path)
+    return path
+
+
+def load_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    generator: Optional[torch.Generator] = None) -> dict:
+    """Restore the model (and the optimizer and generator, when given)
+    from ``path`` (a file, or a directory: its latest epoch); returns
+    ``meta``."""
+    ckpt = torch.load(checkpoint_path(path),
+                      map_location=next(model.parameters()).device,
+                      weights_only=True)
+    model.load_state_dict(ckpt["state_dict"])
+    if optimizer is not None:
+        optimizer.load_state_dict(ckpt["optimizer"])
+    if generator is not None:
+        generator.set_state(ckpt["generator"].cpu())
+    return ckpt["meta"]
+
+
+def load_params(path: str) -> Tuple[dict, dict]:
+    """(state_dict on the CPU, meta) for inference: no optimizer needed."""
+    ckpt = torch.load(checkpoint_path(path), map_location="cpu",
+                      weights_only=True)
+    return ckpt["state_dict"], ckpt["meta"]

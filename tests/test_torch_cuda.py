@@ -243,6 +243,17 @@ def test_nms_bev_kernel_where_every_or_no_circle_meets(card, kind):
         assert torch.equal(got, valid)
 
 
+def test_nms_bev_kernel_at_the_learn_eval_shape(card):
+    """The learnability config's evaluation batch: B 4 x C 2 x K 256
+    (``nms_pre``), boxes over +-51.2 m, valid above ``score_thr`` 0.05."""
+    gen = torch.Generator().manual_seed(256)
+    boxes, scores, _ = _nms_inputs(gen, 4, 2, 256)
+    boxes[..., :2] *= 51.2 / 30
+    boxes, scores = boxes.to(card), scores.to(card)
+    got = _check_nms(boxes, scores, scores > 0.05)
+    assert got.shape == (4, 2, 256) and 0 < int(got.sum()) < 4 * 2 * 256
+
+
 def _check_nms(boxes, scores, valid):
     before = cuda_build.LAUNCHES["nms_bev"]
     got = box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
