@@ -46,7 +46,24 @@ Phases, each printing one line (every failure raises, exit code != 0):
    its max (the K12 route against plain autograd on the card is
    reported beside it); then 30 steps on that batch on the card (lr
    1e-3, no clip) must lower the loss;
-10. PointPillars main path: the full-width PointPillars of
+10. isfusion_learn: the flagship's train -> eval loop
+    from ``configs/isfusion/isfusion_0075voxel.py`` as written (CBGS,
+    10-sweep LiDAR, six 900 x 1600 PNG views, GT-paste with image
+    patches, ModalMask3D, ImageAug3D, global rot / scale / flip; batch 4,
+    6 loader workers) on an 8 / 4-sample fixture with its GT database
+    under ``build/``: the first 2 of the 10 epochs at full width by
+    ``train_model``, a fresh model resumed from ``epoch_1.pth`` (step
+    count, weights, optimizer and generator state and the epoch's
+    batches equal; losses reported beside the first run's, and whether
+    one batch's forward repeats), then
+    ``single_device_test`` + ``evaluate`` of the val split through
+    ``MultiScaleFlipAug3D``. Launch counts zeroed just before the loop and
+    read after; K12 forward and backward and K10 must launch in every
+    loop step. Prints CBGS's length, steps per epoch, points per sample,
+    step ms inside an epoch and at its start, the data-time share, the
+    launches per step, peak memory, eval samples/s, the metrics and the
+    resume check;
+11. PointPillars main path: the full-width PointPillars of
     ``configs/pointpillars/hv_pointpillars_secfpn_sbn-all_4x8_2x_nus-3d.py``
     (seeded random weights, the box-regression weights scaled by 0.01 so
     that boxes are scene-sized, bf16 convs, float32 decode and NMS) serves
@@ -55,7 +72,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     unless K10-NMS (``nms_bev``) launched in every request. Prints the
     median and max ms, peak memory, pillars against the cap and the kept
     boxes;
-11. learn: the train -> eval loop of ``isfusion_tpu_torch/apis`` on a
+12. learn: the train -> eval loop of ``isfusion_tpu_torch/apis`` on a
     fixture of 8 train / 4 val samples (the port's generator, 120,000
     points, car and pedestrian) under ``build/``: the first 2 of the 100
     epochs of ``configs/pointpillars/hv_pointpillars_learnability_syn.py``
@@ -66,7 +83,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     ``single_device_test`` + ``evaluate`` on the val split, ``nms_bev``
     once per predict batch. Prints step ms, the data wait's share, the
     first and last loss, the metrics, eval samples/s and peak memory;
-12. PointPillars kernel check: K10-NMS against its plain version on the
+13. PointPillars kernel check: K10-NMS against its plain version on the
     request's own top-1,000 boxes and 10 classes, on the same request
     before the scaling, on a scene-like set of 1,000 boxes and 10 classes
     with no pair near the threshold, on 1,000 boxes within 3 m (every
@@ -82,11 +99,11 @@ Phases, each printing one line (every failure raises, exit code != 0):
     and whose boxes intersect, three operation bounds (the least that
     settles every pair, the kernel's circle cut, every pair) and each
     pass's device time;
-13. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
+14. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
     lr with linear warmup, clip 35), 1 warm-up and 5 timed steps; fails on
     a non-finite or zero grad norm or an unchanged weight of the VFE, the
     backbone or the head;
-14. PointPillars reference: the tiny PointPillars in float32 on the card
+15. PointPillars reference: the tiny PointPillars in float32 on the card
     against the CPU, predict (same kept entries and labels, boxes within
     1e-4 of their max) and one train step (losses 1e-4 relative,
     gradients per top-level module 1e-3 of their max).
@@ -102,6 +119,9 @@ imported from the checkout TREE: two checkouts compared in one call
 ``python3 chip_smoke.py --learn WORK_DIR`` runs the learnability recipe in
 full (48 train / 16 val samples, 100 epochs, ``learn_run``) and leaves
 ``WORK_DIR/train_log.jsonl``.
+
+``python3 chip_smoke.py --isfusion-learn`` runs phase 10 alone (after the
+device and build phases).
 """
 from __future__ import annotations
 
@@ -1437,6 +1457,304 @@ def phase_learn(dev: str = "cuda", train: int = 8, val: int = 4,
     return eval_in, random_in, rec
 
 
+ISFUSION_CFG = os.path.join(REPO, "configs", "isfusion",
+                            "isfusion_0075voxel.py")
+
+
+def isfusion_learn_cfg(data_root: str):
+    """The flagship config as written, its data paths (``data_root``,
+    every ``ann_file``, the GT sampler's ``data_root`` and ``info_path``)
+    at ``data_root``, a record every step, seed 0."""
+    from isfusion_tpu_torch.config import Config
+    cfg = Config.fromfile(ISFUSION_CFG)
+    for d, ann in ((cfg.data.train.dataset, "train"), (cfg.data.val, "val"),
+                   (cfg.data.test, "val")):
+        d.update(data_root=data_root, ann_file=os.path.join(
+            data_root, f"nuscenes_infos_{ann}.pkl"))
+        for t in d.pipeline:
+            if t["type"] == "ObjectSampleV2":
+                t["db_sampler"].update(
+                    data_root=data_root, info_path=os.path.join(
+                        data_root, "nuscenes_dbinfos_train.pkl"))
+    cfg.log_config = dict(interval=1)
+    cfg.seed = 0
+    return cfg
+
+
+class LoopProbe:
+    """Forward hooks on a detector in a train loop: at each forward's
+    start the launch counts and the batch's fingerprint (points and GT
+    rows per sample, the LiDAR augmentation's first entry), at its end
+    the launch counts again; ``steps()`` gives each step's K12 forward /
+    backward and K10 launches (a step's backward ends where the next
+    forward starts, the last one at ``close()``)."""
+
+    def __init__(self, model):
+        from isfusion_tpu_torch.ops import cuda_build
+        self.launches = cuda_build.LAUNCHES
+        self.marks, self.prints = [], []
+        self.hooks = [model.register_forward_pre_hook(self.start),
+                      model.register_forward_hook(self.end)]
+
+    def start(self, _, args):
+        batch = self.last = args[0]
+        self.marks.append(dict(self.launches))
+        self.prints.append(dict(
+            points=batch["points_mask"].sum(1).tolist(),
+            gt=batch["gt_mask"].sum(1).tolist(),
+            lidar_aug=batch["lidar_aug_matrix"][:, 0, 0].tolist()))
+
+    def end(self, *_):
+        self.marks.append(dict(self.launches))
+
+    def close(self) -> list:
+        for h in self.hooks:
+            h.remove()
+        marks = self.marks + [dict(self.launches)]
+        return [dict(masked_gather_forward=mid["masked_gather"] -
+                     pre["masked_gather"],
+                     masked_gather_backward=post["masked_gather"] -
+                     mid["masked_gather"],
+                     boxes_iou_3d=post["boxes_iou_3d"] - pre["boxes_iou_3d"])
+                for pre, mid, post in zip(marks[0::2], marks[1::2],
+                                          marks[2::2])]
+
+
+def phase_isfusion_learn(dev: str = "cuda", train: int = 8, val: int = 4,
+                         points: int = 128_000, img_hw=(900, 1600),
+                         nvidia_smi: str = None):
+    """The flagship's train -> eval loop from its own config's data: a
+    fixture of ``train`` / ``val`` samples under ``build/`` (the port's
+    generator, seed 0, all 10 classes, ``points`` key-frame points and
+    three sweeps of a quarter as many, six ``img_hw`` PNG views, the GT
+    database); the config as written (CBGS, multi-sweep LiDAR, GT-paste
+    with image patches, ModalMask3D, ImageAug3D, global rot / scale /
+    flip, batch 4, 6 loader workers) for the first 2 of its 10 epochs by
+    ``train_model`` at full width, checkpoint every epoch, launch counts
+    zeroed just before and read just after; a fresh model resumed from
+    ``epoch_1.pth`` trains epoch 2 again: its step count, the restored
+    weights, optimizer and generator state and the epoch's batches (each
+    step's fingerprint) must equal the first run's; its losses are
+    reported beside the first run's, and two forwards of one batch from
+    one generator state show whether the forward itself repeats, with
+    default and with deterministic kernels (on the card it repeats only
+    with the latter, and the losses drift apart); then the val split
+    through the test pipeline (``MultiScaleFlipAug3D``) by
+    ``single_device_test`` + ``evaluate``. Fails on a non-finite loss,
+    grad norm or box, or a kernel not launched in every loop step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from isfusion_tpu_torch.apis import init_model, single_device_test, \
+        train_model
+    from isfusion_tpu_torch.datasets import build_dataloader, build_dataset
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.runner.checkpoint import load_checkpoint
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+    from isfusion_tpu_torch.tools.make_synthetic_nuscenes import make_dataset
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="isfusion_learn_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        make_dataset(data, train=train, val=val, points=points,
+                     img_hw=img_hw, seed=0, images=True, gt_database=True)
+        fixture_s = time.perf_counter() - t0
+        cfg = isfusion_learn_cfg(data)
+        work = os.path.join(root, "work")
+        model = init_model(cfg, device=dev)
+        dataset = build_dataset(cfg.data.train)
+        host_ms = _pipeline_ms(dataset, samples=2)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        probe = LoopProbe(model)
+        t0 = time.perf_counter()
+        records = train_model(model, dataset, cfg, work, device=dev,
+                              until_epoch=2)
+        train_s = time.perf_counter() - t0
+        per_step = probe.close()
+        launches = dict(cuda_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if dev == "cuda" else None
+
+        # resume: what epoch_1.pth restores, then epoch 2 again
+        ckpt = torch.load(os.path.join(work, "epoch_1.pth"),
+                          map_location=dev, weights_only=True)
+        fresh = init_model(cfg, device=dev, seed=5).train()
+        opt = build_optimizer(fresh, dict(cfg.optimizer))
+        gen = torch.Generator(dev)
+        meta = load_checkpoint(os.path.join(work, "epoch_1.pth"), fresh,
+                               opt, gen)
+        restored = dict(
+            weights=all(torch.equal(v, ckpt["state_dict"][k])
+                        for k, v in fresh.state_dict().items()),
+            optimizer=_same_tree(opt.state_dict(), ckpt["optimizer"]),
+            generator=torch.equal(gen.get_state(),
+                                  ckpt["generator"].cpu()))
+        del fresh, opt, ckpt
+        model2 = init_model(cfg, device=dev, seed=5)
+        probe2 = LoopProbe(model2)
+        resumed = train_model(model2, build_dataset(cfg.data.train), cfg,
+                              os.path.join(root, "resumed"), device=dev,
+                              resume_from=os.path.join(work, "epoch_1.pth"),
+                              until_epoch=2)
+        probe2.close()
+        repeat = _forward_repeat(model2, probe2.last, dev)
+        del model2
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+        val_set = build_dataset(cfg.data.val)
+        loader = build_dataloader(
+            val_set, samples_per_gpu=int(cfg.data.samples_per_gpu),
+            workers_per_gpu=int(cfg.data.workers_per_gpu), shuffle=False)
+        t0 = time.perf_counter()
+        results = single_device_test(model, loader, dev)
+        eval_s = time.perf_counter() - t0
+        metrics = val_set.evaluate(results)
+    finally:
+        shutil.rmtree(root)
+
+    steps = [r for r in records if "mode" not in r]
+    again = [r for r in resumed if "mode" not in r]
+    n_epoch = len(steps) // 2
+    first = [s for s, r in zip(probe.prints, steps) if r["epoch"] == 1]
+    losses = [(a["loss"], b["loss"]) for a, b in zip(steps[n_epoch:], again)]
+    resume = dict(
+        meta=meta, step_count=[r["step"] for r in again] ==
+        [r["step"] for r in steps[n_epoch:]], **restored,
+        batches=probe2.prints == first,
+        losses=[[a, b] for a, b in losses],
+        max_loss_rel_diff=max(abs(a - b) / max(abs(a), 1e-12)
+                              for a, b in losses),
+        forward_repeat_losses=repeat)
+    step_ms = [(r["time"] - r["data_time"]) * 1e3 for r in steps]
+    inside = [m for m, r in zip(step_ms, steps) if r["iter"] > 0]
+    starts = [m for m, r in zip(step_ms, steps) if r["iter"] == 0]
+    pts = [p for s in probe.prints for p in s["points"]]
+    rec = dict(
+        nvidia_smi=nvidia_smi,
+        fixture=dict(train=train, val=val, key_points=points,
+                     img_hw=list(img_hw), seconds=fixture_s),
+        cbgs_len=len(dataset), steps_per_epoch=n_epoch,
+        points_per_sample=dict(min=min(pts), median=statistics.median(pts),
+                               max=max(pts)),
+        gt_per_sample_max=max(g for s in probe.prints for g in s["gt"]),
+        train_s=train_s, step_ms_inside_epoch=dict(
+            median=statistics.median(inside), max=max(inside)),
+        step_ms_epoch_start=starts,
+        data_time_share=sum(r["data_time"] for r in steps) /
+        sum(r["time"] for r in steps),
+        epoch_start_data_s=[r["data_time"] for r in steps
+                            if r["iter"] == 0],
+        host_ms_per_sample=host_ms,
+        launches_per_step=per_step[-1],
+        launches_per_step_range={k: [min(s[k] for s in per_step),
+                                     max(s[k] for s in per_step)]
+                                 for k in per_step[0]},
+        launches=launches,
+        peak_mem_gib=peak, first_loss=steps[0]["loss"],
+        last_loss=steps[-1]["loss"], resume=resume,
+        eval=dict(samples=len(results), seconds=eval_s,
+                  samples_per_s=len(results) / eval_s),
+        metrics={k: v for k, v in metrics.items()
+                 if k in ("mAP", "NDS", "car_AP", "pedestrian_AP")})
+    log("isfusion_learn", **rec)
+    bad = [(r["step"], k) for r in steps + again for k in r
+           if (k.startswith("loss") or k == "grad_norm") and
+           not math.isfinite(r[k])]
+    bad += [i for i, r in enumerate(results)
+            if not np.isfinite(r["bboxes"]).all()]
+    bad += [k for k, v in metrics.items()
+            if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise RuntimeError(f"isfusion_learn: non-finite values {bad}")
+    if not (resume["step_count"] and resume["weights"] and
+            resume["optimizer"] and resume["generator"] and
+            resume["batches"] and meta["epoch"] == 1):
+        raise RuntimeError(f"isfusion_learn: the resume check failed: "
+                           f"{resume}")
+    if dev == "cuda" and min(min(s.values()) for s in per_step) == 0:
+        raise RuntimeError(f"isfusion_learn: a kernel did not launch in "
+                           f"every loop step: {per_step}")
+    return rec
+
+
+def _pipeline_ms(dataset, samples: int) -> dict:
+    """Host ms of each train transform for the first ``samples`` samples
+    of a ``CBGSDataset``, in this process (one core), summed per
+    transform name, divided by ``samples``; 'total' is the whole
+    sample."""
+    inner = dataset.dataset
+    spent = {}
+
+    def timed(t):
+        def run(data):
+            t0 = time.perf_counter()
+            out = t(data)
+            name = type(t).__name__
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    real = inner.pipeline.transforms
+    inner.pipeline.transforms = [timed(t) for t in real]
+    try:
+        t0 = time.perf_counter()
+        for i in range(samples):
+            dataset[i]
+        total = time.perf_counter() - t0
+    finally:
+        inner.pipeline.transforms = real
+    out = {k: v * 1e3 / samples for k, v in spent.items()}
+    out["total"] = total * 1e3 / samples
+    return out
+
+
+def _forward_repeat(model, batch: dict, dev: str) -> dict:
+    """The total loss of two train-mode forwards of one batch from one
+    generator state, with PyTorch's default kernels and then with its
+    deterministic ones (warn-only): is the forward itself reproducible
+    on this device?"""
+    import torch
+    from isfusion_tpu_torch.parallel.train_step import total_loss
+    out = {}
+    try:
+        for mode in ("default", "deterministic"):
+            torch.use_deterministic_algorithms(mode == "deterministic",
+                                               warn_only=True)
+            out[mode] = []
+            for _ in range(2):
+                with torch.no_grad():
+                    losses = model(batch, mode="loss",
+                                   device=torch.device(dev),
+                                   generator=torch.Generator(
+                                       dev).manual_seed(0))
+                out[mode].append(float(total_loss(losses)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    """Nested dicts / lists of tensors and numbers, equal bit for bit."""
+    import torch
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _same_tree(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and torch.equal(a, b.to(a.device))
+    return a == b
+
+
 def learn_run(work_dir: str) -> int:
     """``python3 chip_smoke.py --learn WORK_DIR``: the learnability recipe
     in full on the card. A fixture of 48 train / 16 val samples (seed 0,
@@ -1518,6 +1836,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_reference()
     torch.cuda.empty_cache()
+    isfusion_learn = phase_isfusion_learn(nvidia_smi=smi)
+    torch.cuda.empty_cache()
 
     from isfusion_tpu_torch.flagship import (build_pointpillars_flagship,
                                              pointpillars_optim_cfg)
@@ -1557,6 +1877,11 @@ def main() -> int:
         train_launches_per_step=dict(
             forward=per_step["masked_gather_forward"],
             backward=per_step["masked_gather_backward"]),
+        isfusion_learn_launches_per_step=dict(
+            forward=isfusion_learn["launches_per_step"][
+                "masked_gather_forward"],
+            backward=isfusion_learn["launches_per_step"][
+                "masked_gather_backward"]),
         backward=dict(ms=bwd["ms"], plain_ms=bwd["plain_ms"],
                       bound_ms=bwd["bound_ms"],
                       library_ms=bwd["library_ms"])),
@@ -1568,6 +1893,8 @@ def main() -> int:
              plain_ms=iou["plain_ms"], bound_ms=iou["bound_ms"],
              bound_by="operations", library_ms=None,
              train_launches_per_step=per_step["boxes_iou_3d"],
+             isfusion_learn_launches_per_step=isfusion_learn[
+                 "launches_per_step"]["boxes_iou_3d"],
              device_ms=iou["device_ms"],
              one_sample_device_ms=iou["one_sample_device_ms"],
              per_sample_launches_ms=iou["per_sample_launches_ms"]),
@@ -1645,7 +1972,20 @@ def pp_serve_timing(tree: str, requests: int = 50) -> int:
     return 0
 
 
+def isfusion_learn_run() -> int:
+    """``python3 chip_smoke.py --isfusion-learn``: the device and build
+    phases, then ``phase_isfusion_learn`` alone."""
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    phase_isfusion_learn(nvidia_smi=smi)
+    print(smi)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--isfusion-learn"]:
+        sys.exit(isfusion_learn_run())
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) == 3:
         sys.exit(learn_run(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-serve"]:

@@ -61,10 +61,19 @@ def _exec_pyfile(path: str) -> Dict[str, Any]:
 
 
 def _merge_into(base: Dict[str, Any], new: Dict[str, Any]) -> Dict[str, Any]:
-    """Recursively merge ``new`` into ``base`` (new wins; _delete_ resets)."""
+    """Recursively merge ``new`` into ``base`` (new wins; _delete_ resets).
+    A dict of integer keys ('4') merges into the items of a list."""
     out = dict(base)
     for k, v in new.items():
-        if (isinstance(v, dict) and k in out and isinstance(out[k], dict)
+        if isinstance(v, dict) and isinstance(out.get(k), list) and v and \
+                all(str(i).isdigit() for i in v):
+            items = list(out[k])
+            for i, sub in v.items():
+                cur = items[int(i)]
+                items[int(i)] = _merge_into(cur, sub) if isinstance(
+                    sub, dict) and isinstance(cur, dict) else sub
+            out[k] = items
+        elif (isinstance(v, dict) and k in out and isinstance(out[k], dict)
                 and not v.pop(DELETE_KEY, False)):
             out[k] = _merge_into(out[k], v)
         else:
@@ -138,7 +147,9 @@ class Config:
 
     def merge_from_dict(self, options: Dict[str, Any]) -> None:
         """CLI override: ``{'model.head.num_classes': 3}`` style dotted keys
-        (the reference's ``--cfg-options`` DictAction, `tools/train.py:59-69`)."""
+        (the reference's ``--cfg-options`` DictAction, `tools/train.py:59-69`);
+        an integer part indexes a list
+        (``data.train.dataset.pipeline.4.db_sampler.info_path``)."""
         nested: Dict[str, Any] = {}
         for full_key, v in options.items():
             d = nested

@@ -112,6 +112,11 @@ class LiDARInstance3DBoxes:
     def __len__(self) -> int:
         return self.tensor.shape[0]
 
+    def new_box(self, data: ArrayLike) -> "LiDARInstance3DBoxes":
+        data = np.asarray(data, dtype=np.float32)
+        return type(self)(data, box_dim=data.shape[-1],
+                          with_yaw=self.with_yaw)
+
     def numpy(self) -> np.ndarray:
         return self.tensor
 

@@ -26,7 +26,15 @@ def build_dataset(cfg):
 
 def collate_batch(samples: list) -> dict:
     """Stack per-sample dicts of numpy arrays into (B, ...) tensors;
-    'img_metas' is collected as a list."""
+    'img_metas' is collected as a list. A sample given as a list of
+    test-time variants (``MultiScaleFlipAug3D``) is unwrapped when it
+    holds one; several raise (the merge of variants is not ported)."""
+    if samples and isinstance(samples[0], list):
+        if any(len(s) != 1 for s in samples):
+            raise NotImplementedError(
+                "multi-variant test-time augmentation: a sample's variants "
+                "cannot be stacked into one batch")
+        samples = [s[0] for s in samples]
     out = {}
     for k in samples[0]:
         if k == "img_metas":

@@ -1,6 +1,7 @@
 """Base 3D dataset (counterpart of ``isfusion_tpu/datasets/custom_3d.py``):
 info-pkl loading, the pipeline, the epoch forwarded to it, train and test
-preparation with a retry on an empty sample.
+preparation with a retry on an empty sample, the classes of a sample
+(``get_cat_ids``, for ``CBGSDataset``).
 
 Randomness: every sample's transforms draw from a
 ``numpy.random.RandomState`` seeded from (``seed``, epoch, index)
@@ -67,6 +68,11 @@ class Custom3DDataset:
     def get_ann_info(self, index: int) -> dict:
         raise NotImplementedError
 
+    def get_cat_ids(self, idx: int) -> List[int]:
+        """The class ids present in a sample."""
+        labels = np.asarray(self.get_ann_info(idx)["gt_labels_3d"])
+        return np.unique(labels[labels >= 0]).tolist()
+
     def pre_pipeline(self, results: dict) -> None:
         results["box_type_3d"] = self.box_type_3d
         results["box_mode_3d"] = self.box_mode_3d
@@ -86,21 +92,25 @@ class Custom3DDataset:
             return None
         return example
 
-    def prepare_test_data(self, index: int) -> dict:
+    def prepare_test_data(self, index: int, rng: np.random.RandomState):
         input_dict = self.get_data_info(index)
         self.pre_pipeline(input_dict)
-        input_dict["rng"] = self.sample_rng(index)
+        input_dict["rng"] = rng
         return self.pipeline(input_dict)
 
-    def __getitem__(self, idx: int):
+    def prepare(self, idx: int, rng: np.random.RandomState):
+        """Sample ``idx`` through the pipeline, drawing from ``rng``; in
+        train mode an empty sample is replaced by one drawn from ``rng``."""
         if self.test_mode:
-            return self.prepare_test_data(idx)
-        rng = self.sample_rng(idx)
+            return self.prepare_test_data(idx, rng)
         while True:
             data = self.prepare_train_data(idx, rng)
             if data is not None:
                 return data
             idx = int(rng.randint(len(self)))
+
+    def __getitem__(self, idx: int):
+        return self.prepare(idx, self.sample_rng(idx))
 
     def __len__(self) -> int:
         return len(self.data_infos)

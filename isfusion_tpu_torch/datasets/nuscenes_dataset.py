@@ -1,14 +1,15 @@
-"""nuScenes dataset, LiDAR path (counterpart of
+"""nuScenes dataset (counterpart of
 ``isfusion_tpu/datasets/nuscenes_dataset.py``): info-pkl loading sorted by
-timestamp, ``get_data_info`` / ``get_ann_info``, LiDAR boxes to the global
-frame (``_box_to_global``), the submission json (``_format_bbox``) and the
-devkit-exact detection metrics over the info-pkl ground truth
-(``_evaluate_internal``).
+timestamp, ``get_data_info`` (with ``modality['use_camera']`` the six
+cameras' files and their ``lidar2img``, ``camera_intrinsics`` and
+``camera2lidar`` matrices) / ``get_ann_info`` / ``get_cat_ids``, LiDAR
+boxes to the global frame (``_box_to_global``), the submission json
+(``_format_bbox``) and the devkit-exact detection metrics over the
+info-pkl ground truth (``_evaluate_internal``).
 
 The port has no devkit branch: ``evaluate`` always runs the internal
 evaluator (``core/evaluation/nuscenes_eval.py``), which implements the
-``detection_cvpr_2019`` protocol itself. Camera inputs are not ported yet
-(``modality['use_camera']`` raises).
+``detection_cvpr_2019`` protocol itself.
 """
 from __future__ import annotations
 
@@ -66,13 +67,11 @@ class NuScenesDataset(Custom3DDataset):
         self.load_interval = load_interval
         self.with_velocity = with_velocity
         self.use_valid_flag = use_valid_flag
-        modality = modality or dict(use_camera=False, use_lidar=True)
-        if modality.get("use_camera"):
-            raise NotImplementedError("the port's NuScenesDataset loads no "
-                                      "camera inputs yet")
         super().__init__(data_root=data_root, ann_file=ann_file,
                          pipeline=pipeline, classes=classes,
-                         modality=modality, box_type_3d=box_type_3d,
+                         modality=modality or dict(use_camera=False,
+                                                   use_lidar=True),
+                         box_type_3d=box_type_3d,
                          filter_empty_gt=filter_empty_gt,
                          test_mode=test_mode, **kwargs)
 
@@ -80,6 +79,16 @@ class NuScenesDataset(Custom3DDataset):
         infos = super().load_annotations(ann_file)
         infos = sorted(infos, key=lambda e: e.get("timestamp", 0))
         return infos[::self.load_interval]
+
+    def get_cat_ids(self, idx: int) -> List[int]:
+        """The class ids of a sample's GT names (valid ones with
+        ``use_valid_flag``), for ``CBGSDataset``."""
+        info = self.data_infos[idx]
+        names = np.asarray(info["gt_names"])
+        if self.use_valid_flag:
+            names = names[np.asarray(info["valid_flag"], bool)]
+        return sorted(self.cat2id[n] for n in set(names.tolist())
+                      if n in self.cat2id)
 
     def get_data_info(self, index: int) -> dict:
         info = self.data_infos[index]
@@ -91,9 +100,39 @@ class NuScenesDataset(Custom3DDataset):
             timestamp=info.get("timestamp", 0),
             num_views=len(info.get("cams", {})) or 6,
         )
+        if self.modality.get("use_camera") and "cams" in info:
+            input_dict.update(self._camera_inputs(info["cams"]))
         if not self.test_mode:
             input_dict["ann_info"] = self.get_ann_info(index)
         return input_dict
+
+    @staticmethod
+    def _camera_inputs(cams: dict) -> dict:
+        """Each camera's file and matrices, computed in float64 and kept
+        as float32: lidar2img = intrinsics @ lidar2cam (4 x 4),
+        camera2lidar from sensor2lidar."""
+        img_paths, lidar2img, intrinsics, cam2lidar = [], [], [], []
+        for cam_info in cams.values():
+            img_paths.append(cam_info["data_path"])
+            r = np.asarray(cam_info["sensor2lidar_rotation"], np.float64)
+            t = np.asarray(cam_info["sensor2lidar_translation"], np.float64)
+            lidar2cam_r = np.linalg.inv(r)
+            lidar2cam_t = t @ lidar2cam_r.T
+            lidar2cam = np.eye(4)
+            lidar2cam[:3, :3] = lidar2cam_r.T
+            lidar2cam[3, :3] = -lidar2cam_t
+            intr = np.asarray(cam_info["cam_intrinsic"], np.float64)
+            viewpad = np.eye(4)
+            viewpad[:intr.shape[0], :intr.shape[1]] = intr
+            lidar2img.append((viewpad @ lidar2cam.T).astype(np.float32))
+            intrinsics.append(intr.astype(np.float32))
+            c2l = np.eye(4)
+            c2l[:3, :3] = r
+            c2l[:3, 3] = t
+            cam2lidar.append(c2l.astype(np.float32))
+        return dict(img_filename=img_paths, lidar2img=np.stack(lidar2img),
+                    camera_intrinsics=np.stack(intrinsics),
+                    camera2lidar=np.stack(cam2lidar))
 
     def get_ann_info(self, index: int) -> dict:
         info = self.data_infos[index]

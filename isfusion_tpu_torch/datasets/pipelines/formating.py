@@ -1,7 +1,8 @@
 """Formatting (counterpart of ``isfusion_tpu/datasets/pipelines/
 formating.py``): every array is padded to a fixed capacity with a validity
-mask, the batch contract of the port's detectors; ``Collect3D`` keeps the
-device keys and puts host metadata under 'img_metas'."""
+mask, the batch contract of the port's detectors; ``Collect3DV2`` (alias
+``Collect3D``) keeps the device keys and the camera matrices and puts host
+metadata under 'img_metas'."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -33,8 +34,9 @@ def pad_to(arr: np.ndarray, n: int, fill=0.0):
 
 @PIPELINES.register_module()
 class DefaultFormatBundle3D:
-    """Points -> (max_points, C) + points_mask; GT boxes (padded to 9
-    columns) -> (max_gt, 9) + gt_mask, labels -> (max_gt,) int32."""
+    """Points -> (max_points, C) + points_mask; camera views -> (Nv, H, W,
+    3) float32; GT boxes (padded to 9 columns) -> (max_gt, 9) + gt_mask,
+    labels -> (max_gt,) int32."""
 
     def __init__(self, class_names=None, max_points: int = 250000,
                  max_gt: int = 128, with_label: bool = True):
@@ -49,7 +51,8 @@ class DefaultFormatBundle3D:
             results["points"], results["points_mask"] = pad_to(
                 pts, self.max_points)
         if "img" in results:
-            raise NotImplementedError("the port's pipeline has no images yet")
+            results["img"] = np.stack([np.asarray(i, np.float32)
+                                       for i in results["img"]])
         if self.with_label and "gt_bboxes_3d" in results:
             arr = results["gt_bboxes_3d"].numpy().astype(np.float32)
             if arr.shape[-1] < 9:
@@ -63,12 +66,15 @@ class DefaultFormatBundle3D:
         return results
 
 
-@PIPELINES.register_module(name=["Collect3D", "Collect3DV2"])
-class Collect3D:
-    """The ``keys`` (and their masks) as arrays, host metadata under
-    'img_metas'."""
+@PIPELINES.register_module()
+class Collect3DV2:
+    """The ``keys`` as arrays, with the masks and camera matrices the
+    detector reads whenever the pipeline made them (``points_mask``,
+    ``gt_mask``, ``img_aug_matrix``, ``lidar_aug_matrix``,
+    ``img_view_mask``, ``lidar2img``); host metadata under 'img_metas'."""
 
-    MASK_KEYS = ("points_mask", "gt_mask")
+    EXTRA_KEYS = ("points_mask", "gt_mask", "img_aug_matrix",
+                  "lidar_aug_matrix", "img_view_mask", "lidar2img")
 
     def __init__(self, keys: Sequence[str],
                  meta_keys: Optional[Sequence[str]] = None):
@@ -79,9 +85,14 @@ class Collect3D:
 
     def __call__(self, results: dict) -> dict:
         out = {k: np.asarray(results[k]) for k in self.keys if k in results}
-        for k in self.MASK_KEYS:
+        for k in self.EXTRA_KEYS:
             if k in results and k not in out:
                 out[k] = np.asarray(results[k])
         out["img_metas"] = {k: results[k] for k in self.meta_keys
                             if k in results}
         return out
+
+
+@PIPELINES.register_module()
+class Collect3D(Collect3DV2):
+    """Alias of Collect3DV2 for configs using the older name."""

@@ -1,22 +1,35 @@
-"""Augmentation and filtering transforms of the LiDAR nuScenes path
+"""Augmentation and filtering transforms of the nuScenes paths
 (counterpart of ``isfusion_tpu/datasets/pipelines/transforms_3d.py``):
-``GlobalRotScaleTrans``, ``RandomFlip3D``, ``PointsRangeFilter``,
-``ObjectRangeFilter``, ``ObjectNameFilter``, ``PointShuffle`` and
-``PointSample``.
+the LiDAR ones (``GlobalRotScaleTrans``, ``RandomFlip3D``,
+``PointsRangeFilter``, ``ObjectRangeFilter``, ``ObjectNameFilter``,
+``PointShuffle``, ``PointSample``) and the IS-Fusion flagship's
+(``ImageNormalize``, ``ImageAug3D``, ``GlobalRotScaleTransV2``,
+``RandomFlip3DV2``, ``ModalMask3D``, ``ObjectSampleV2``).
 
 Every random draw comes from ``results['rng']``, a
 ``numpy.random.RandomState`` that the dataset seeds from (seed, epoch,
 sample index); a transform that draws raises without it. The JAX package
 draws the same numbers from the global ``np.random`` stream (a
-RandomState too), in the same order: theta, scale, translation; then the
-horizontal flip, then the vertical. So one sample seeded alike on both
-sides gets bit-equal outputs.
+RandomState too), in the same order (for ``GlobalRotScaleTrans``: theta,
+scale, translation; then the horizontal flip, then the vertical). So one
+sample seeded alike on both sides gets bit-equal outputs. Two draws
+differ by design: ``ModalMask3D`` picks its dropped views with
+``rng.choice(n, k, replace=False)`` where the JAX package calls Python's
+``random.sample``, and the GT-paste sampler's picks come from the sample's
+rng (``dbsampler.py``).
+
+Camera views are (H, W, 3) uint8 arrays until ``ImageNormalize``; the
+image operations are PIL's, bit for bit (``image_io``).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-from ...registry import PIPELINES
+from ...core.bbox.box_np_ops import points_in_rbbox
+from ...registry import OBJECT_SAMPLERS, PIPELINES, build_from_cfg
+from . import image_io
 
 
 def sample_rng(results: dict) -> np.random.RandomState:
@@ -155,4 +168,242 @@ class PointSample:
         idx = sample_rng(data).choice(n, self.num_points,
                                       replace=n < self.num_points)
         data["points"] = pts[idx]
+        return data
+
+
+@PIPELINES.register_module()
+class ImageNormalize:
+    """uint8 views -> float32 ``(img / 255 - mean) / std`` per channel."""
+
+    def __init__(self, mean, std):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    def __call__(self, results: dict) -> dict:
+        results["img"] = [
+            (np.asarray(img, np.float32) / 255.0 - self.mean) / self.std
+            for img in results["img"]]
+        results["img_norm_cfg"] = dict(mean=self.mean, std=self.std)
+        return results
+
+
+@PIPELINES.register_module()
+class ImageAug3D:
+    """Per view: resize, crop to ``final_dim`` (H, W), left-right flip and
+    rotate (degrees), as PIL does them; ``img_aug_matrix`` (Nv, 4, 4) maps
+    original pixels to the augmented ones. Train: per view a resize, a
+    bottom share, a crop x and a rotation drawn uniformly and a flip
+    chosen, in that order; test: the ranges' means, centred crop."""
+
+    def __init__(self, final_dim, resize_lim, bot_pct_lim, rot_lim,
+                 rand_flip: bool, is_train: bool):
+        self.final_dim = final_dim
+        self.resize_lim = resize_lim
+        self.bot_pct_lim = bot_pct_lim
+        self.rot_lim = rot_lim
+        self.rand_flip = rand_flip
+        self.is_train = is_train
+
+    def sample_augmentation(self, results):
+        w, h = results["ori_shape"]
+        fh, fw = self.final_dim
+        if self.is_train:
+            rng = sample_rng(results)
+            resize = rng.uniform(*self.resize_lim)
+            new_w, new_h = int(w * resize), int(h * resize)
+            crop_h = int((1 - rng.uniform(*self.bot_pct_lim))
+                         * new_h) - fh
+            crop_w = int(rng.uniform(0, max(0, new_w - fw)))
+            crop = (crop_w, crop_h, crop_w + fw, crop_h + fh)
+            flip = bool(self.rand_flip and rng.choice([0, 1]))
+            rotate = rng.uniform(*self.rot_lim)
+        else:
+            resize = float(np.mean(self.resize_lim))
+            new_w, new_h = int(w * resize), int(h * resize)
+            crop_h = int((1 - np.mean(self.bot_pct_lim)) * new_h) - fh
+            crop_w = int(max(0, new_w - fw) / 2)
+            crop = (crop_w, crop_h, crop_w + fw, crop_h + fh)
+            flip, rotate = False, 0.0
+        return resize, (new_w, new_h), crop, flip, rotate
+
+    @staticmethod
+    def img_transform(img, resize, resize_dims, crop, flip, rotate):
+        """The augmented view and its 2 x 2 rotation and translation (the
+        JAX package's float32 operations, in its order)."""
+        rotation = np.eye(2, dtype=np.float32)
+        translation = np.zeros(2, np.float32)
+        img = image_io.resize(img, resize_dims)
+        img = image_io.crop(img, crop)
+        if flip:
+            img = image_io.flip_lr(img)
+        img = image_io.rotate(img, rotate)
+
+        rotation = rotation * resize
+        translation = translation - np.asarray(crop[:2], np.float32)
+        if flip:
+            a = np.array([[-1, 0], [0, 1]], np.float32)
+            b = np.array([crop[2] - crop[0], 0], np.float32)
+            rotation = a @ rotation
+            translation = a @ translation + b
+        theta = rotate / 180 * np.pi
+        a = np.array([[np.cos(theta), np.sin(theta)],
+                      [-np.sin(theta), np.cos(theta)]], np.float32)
+        b = np.array([crop[2] - crop[0], crop[3] - crop[1]],
+                     np.float32) / 2
+        b = a @ (-b) + b
+        rotation = a @ rotation
+        translation = a @ translation + b
+        return img, rotation, translation
+
+    def __call__(self, data: dict) -> dict:
+        if "img" not in data:
+            return data
+        new_imgs, transforms = [], []
+        for img in data["img"]:
+            resize, dims, crop, flip, rotate = self.sample_augmentation(data)
+            new_img, rotation, translation = self.img_transform(
+                img, resize, dims, crop, flip, rotate)
+            t = np.eye(4, dtype=np.float32)
+            t[:2, :2] = rotation
+            t[:2, 3] = translation
+            new_imgs.append(new_img)
+            transforms.append(t)
+        data["img"] = new_imgs
+        data["img_aug_matrix"] = np.stack(transforms)
+        return data
+
+
+@PIPELINES.register_module()
+class GlobalRotScaleTransV2:
+    """Global rotation, scaling and translation of points and GT boxes
+    (train: scale, theta, then three normal translations drawn), recorded
+    as the 4 x 4 ``lidar_aug_matrix`` (identity in test)."""
+
+    def __init__(self, resize_lim, rot_lim, trans_lim, is_train: bool):
+        self.resize_lim = resize_lim
+        self.rot_lim = rot_lim
+        self.trans_lim = trans_lim
+        self.is_train = is_train
+
+    def __call__(self, data: dict) -> dict:
+        transform = np.eye(4, dtype=np.float32)
+        if self.is_train:
+            rng = sample_rng(data)
+            scale = rng.uniform(*self.resize_lim)
+            theta = rng.uniform(*self.rot_lim)
+            translation = np.array(
+                [rng.normal(0, self.trans_lim) for _ in range(3)],
+                np.float32)
+            gt_boxes = data["gt_bboxes_3d"]
+            # the box class turns the points with its own sign
+            if "points" in data:
+                _, rotation = gt_boxes.rotate(theta, data["points"])
+                data["points"].translate(translation)
+                data["points"].scale(scale)
+            else:
+                rotation = gt_boxes.rotate(theta)
+            gt_boxes.translate(translation)
+            gt_boxes.scale(scale)
+            transform[:3, :3] = rotation.T * scale
+            transform[:3, 3] = translation * scale
+        data["lidar_aug_matrix"] = transform
+        return data
+
+
+@PIPELINES.register_module()
+class RandomFlip3DV2:
+    """BEV flips of points and boxes, each with probability 1/2 (two
+    choices drawn, also in test), composed into ``lidar_aug_matrix``."""
+
+    def __call__(self, data: dict) -> dict:
+        rng = sample_rng(data)
+        rotation = np.eye(3, dtype=np.float32)
+        for direction, mirror in (("horizontal", [1, -1, 1]),
+                                  ("vertical", [-1, 1, 1])):
+            if rng.choice([0, 1]):
+                rotation = np.diag(np.asarray(mirror, np.float32)) @ rotation
+                if "points" in data:
+                    data["points"].flip(direction)
+                if "gt_bboxes_3d" in data:
+                    data["gt_bboxes_3d"].flip(direction)
+        if "lidar_aug_matrix" not in data:
+            data["lidar_aug_matrix"] = np.eye(4, dtype=np.float32)
+        data["lidar_aug_matrix"][:3, :] = \
+            rotation @ data["lidar_aug_matrix"][:3, :]
+        return data
+
+
+@PIPELINES.register_module()
+class ModalMask3D:
+    """Camera-view dropping as a boolean ``img_view_mask`` (Nv,): in
+    train, before ``stop_epoch``, with probability 1/2 three views (two
+    outside nuScenes) drawn without replacement are dropped; in test view
+    0 is."""
+
+    def __init__(self, mode: str = "train",
+                 dataset_type: str = "NuScenesDataset", stop_epoch=None,
+                 **kwargs):
+        self.mode = mode
+        self.dataset_type = dataset_type
+        self.stop_epoch = stop_epoch
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __call__(self, data: dict) -> dict:
+        n = len(data["img"]) if isinstance(data.get("img"), (list, tuple)) \
+            else int(data.get("num_views", 6))
+        mask = np.ones((n,), bool)
+        if self.mode == "test":
+            mask[0] = False
+        elif self.stop_epoch is None or self.epoch < self.stop_epoch:
+            rng = sample_rng(data)
+            if rng.rand() > 0.5:
+                k = 3 if self.dataset_type == "NuScenesDataset" else 2
+                mask[rng.choice(n, k, replace=False)] = False
+        data["img_view_mask"] = mask
+        return data
+
+
+@PIPELINES.register_module()
+class ObjectSampleV2:
+    """GT-paste (``MMDataBaseSamplerV2``) until ``stop_epoch``: the
+    sampled boxes and labels are appended, the real points inside them
+    removed, their object points put first, and, with ``sample_2d``, the
+    views replaced by the pasted ones."""
+
+    def __init__(self, db_sampler: dict, sample_2d: bool = True,
+                 stop_epoch: Optional[int] = None):
+        cfg = dict(db_sampler)
+        cfg.setdefault("type", "MMDataBaseSamplerV2")
+        self.db_sampler = build_from_cfg(cfg, OBJECT_SAMPLERS)
+        self.sample_2d = sample_2d
+        self.stop_epoch = stop_epoch
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __call__(self, data: dict) -> dict:
+        if self.stop_epoch is not None and self.epoch >= self.stop_epoch:
+            return data
+        sampled = self.db_sampler.sample_all(
+            data["gt_bboxes_3d"].numpy(), data["gt_labels_3d"],
+            sample_rng(data), imgs=data.get("img"),
+            gt_bboxes_2d=data.get("gt_bboxes"))
+        if sampled is None:
+            return data
+        data["gt_bboxes_3d"] = data["gt_bboxes_3d"].new_box(
+            np.concatenate([data["gt_bboxes_3d"].numpy(),
+                            sampled["gt_bboxes_3d"]], 0))
+        data["gt_labels_3d"] = np.concatenate(
+            [data["gt_labels_3d"], sampled["gt_labels_3d"]], 0)
+        points = data["points"]
+        masks = points_in_rbbox(points.numpy(), sampled["gt_bboxes_3d"])
+        points = points[~masks.any(-1)]
+        data["points"] = points.new_point(
+            np.concatenate([sampled["points"], points.numpy()], 0))
+        if self.sample_2d and sampled.get("imgs") is not None:
+            data["img"] = sampled["imgs"]
         return data

@@ -112,6 +112,8 @@ DETECTORS = Registry("detectors", parent=MODELS)
 VOXEL_ENCODERS = Registry("voxel_encoders", parent=MODELS)
 MIDDLE_ENCODERS = Registry("middle_encoders", parent=MODELS)
 FUSION_LAYERS = Registry("fusion_layers", parent=MODELS)
-# The data side: datasets and their pipeline transforms.
+# The data side: datasets, their pipeline transforms and the GT-paste
+# samplers.
 DATASETS = Registry("datasets")
 PIPELINES = Registry("pipelines")
+OBJECT_SAMPLERS = Registry("object_samplers")

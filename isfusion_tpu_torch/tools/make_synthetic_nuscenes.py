@@ -7,26 +7,33 @@ infos:
 
   <out>/samples/LIDAR_TOP/*.bin        5-dim float32 ray-cast clouds
   <out>/sweeps/LIDAR_TOP/*.bin         preceding sweeps with ego motion
+  <out>/samples/CAM_*/*.png            6 camera views (with --images)
   <out>/nuscenes_infos_{train,val}.pkl info dicts (calib, sweeps, boxes)
+  <out>/gt_database/, <out>/nuscenes_dbinfos_train.pkl
+                                       GT database (with --gt-database)
 
-The camera image of each sample is drawn as there, but written (6 JPEG
-views under ``<out>/samples/CAM_*``, through PIL) only with ``--images``;
-the infos name those paths either way. The GT database of the copy-paste
-sampler is not written.
+The camera image of each sample is drawn as there, but written only with
+``--images``, as PNG through ``datasets/pipelines/image_io.py`` (the JAX
+tool writes JPEG through PIL; the infos name ``.png`` files either way).
+``--gt-database`` writes the copy-paste sampler's database of the train
+split (``tools/create_gt_database.py``; image patches need ``--images``).
 
 Usage: python -m isfusion_tpu_torch.tools.make_synthetic_nuscenes
            --out data/nuscenes_learn --train 48 --val 16
            --classes car pedestrian [--points 120000 --img-hw 900 1600]
+           [--images] [--gt-database]
 """
 from __future__ import annotations
 
 import argparse
 import os
 import pickle
+import shutil
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ..datasets.pipelines.image_io import write_png
 from ..flagship import _lidar_cloud
 
 CAM_NAMES = ["CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_BACK_RIGHT", "CAM_BACK",
@@ -75,8 +82,9 @@ def make_sample(rng: np.random.Generator, out: str, split_dir: str, idx: int,
                 num_points: int, img_hw, n_sweeps: int = 3,
                 classes: Optional[Sequence[str]] = None, gt_range=(8, 24),
                 images: bool = False) -> dict:
-    """Write one sample's clouds (and, with ``images``, its JPEGs); return
-    its info dict (gravity-centre boxes, origin (0.5, 0.5, 0.5))."""
+    """Write one sample's clouds (and, with ``images``, its six views, all
+    the same picture); return its info dict (gravity-centre boxes, origin
+    (0.5, 0.5, 0.5))."""
     h, w = img_hw
     pcr = (-54, -54, -5, 54, 54, 3)
     token = f"syn{split_dir}{idx:04d}"
@@ -106,15 +114,16 @@ def make_sample(rng: np.random.Generator, out: str, split_dir: str, idx: int,
     # later draw matches the JAX tool's
     img = (rng.uniform(0, 60, (h, w, 3)) +
            np.linspace(0, 195, h)[:, None, None]).astype(np.uint8)
-    if images:
-        from PIL import Image
     cams = {}
     for v, cam in enumerate(CAM_NAMES):
         r, t, intr = cam_calib(v, w, h)
-        path = os.path.join(out, f"samples/{cam}/{token}.jpg")
+        path = os.path.join(out, f"samples/{cam}/{token}.png")
         if images:
             os.makedirs(os.path.join(out, f"samples/{cam}"), exist_ok=True)
-            Image.fromarray(img).save(path, quality=70)
+            if v == 0:
+                write_png(path, img)
+            else:
+                shutil.copyfile(cams[CAM_NAMES[0]]["data_path"], path)
         cams[cam] = dict(data_path=path, type=cam, sensor2lidar_rotation=r,
                          sensor2lidar_translation=t, cam_intrinsic=intr,
                          timestamp=idx * 10 * 1e6)
@@ -166,9 +175,10 @@ def make_sample(rng: np.random.Generator, out: str, split_dir: str, idx: int,
 def make_dataset(out: str, train: int = 6, val: int = 2,
                  points: int = 120000, img_hw=(900, 1600), seed: int = 0,
                  classes: Optional[Sequence[str]] = None, gt_range=(8, 24),
-                 images: bool = False) -> None:
+                 images: bool = False, gt_database: bool = False) -> None:
     """Both splits into ``out`` (the JAX tool's draw order: train, then
-    val, from one ``default_rng(seed)``)."""
+    val, from one ``default_rng(seed)``), then, with ``gt_database``, the
+    train split's GT database."""
     os.makedirs(out, exist_ok=True)
     rng = np.random.default_rng(seed)
     for split, n in (("train", train), ("val", val)):
@@ -179,6 +189,13 @@ def make_dataset(out: str, train: int = 6, val: int = 2,
                   "wb") as f:
             pickle.dump(dict(infos=infos,
                              metadata=dict(version="v1.0-synthetic")), f)
+    if gt_database:
+        from ..datasets import NuScenesDataset
+        from .create_gt_database import create_groundtruth_database
+        create_groundtruth_database(NuScenesDataset(
+            ann_file=os.path.join(out, "nuscenes_infos_train.pkl"),
+            data_root=out, classes=CLASSES, test_mode=False,
+            modality=dict(use_camera=True, use_lidar=True)))
 
 
 def main(argv=None):
@@ -193,10 +210,13 @@ def main(argv=None):
                     help="restrict the GT classes")
     ap.add_argument("--gt-range", type=int, nargs=2, default=[8, 24])
     ap.add_argument("--images", action="store_true",
-                    help="write the 6 camera JPEGs of each sample (PIL)")
+                    help="write the 6 camera views of each sample (PNG)")
+    ap.add_argument("--gt-database", action="store_true",
+                    help="write the train split's GT database")
     args = ap.parse_args(argv)
     make_dataset(args.out, args.train, args.val, args.points, args.img_hw,
-                 args.seed, args.classes, args.gt_range, args.images)
+                 args.seed, args.classes, args.gt_range, args.images,
+                 args.gt_database)
     print(f"train: {args.train} samples, val: {args.val} samples")
 
 

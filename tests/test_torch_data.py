@@ -82,7 +82,15 @@ def _ann(out, split):
 
 
 def test_generator_matches_jax(fixture_dir):
+    """The same infos as the JAX tool's, but for the views' files: PNG
+    where the JAX tool writes JPEG."""
     out, want_infos, want_bins = fixture_dir
+    want_infos = copy.deepcopy(want_infos)
+    for infos in want_infos.values():
+        for info in infos:
+            for cam in info["cams"].values():
+                assert cam["data_path"].endswith(".jpg")
+                cam["data_path"] = cam["data_path"][:-4] + ".png"
     for split, want in want_infos.items():
         with open(_ann(out, split), "rb") as f:
             got = pickle.load(f)
@@ -91,21 +99,35 @@ def test_generator_matches_jax(fixture_dir):
     for path, data in want_bins.items():
         with open(path, "rb") as f:
             assert f.read() == data, path
-    # the JAX tool wrote JPEGs; the port wrote none, nor asked for PIL
-    assert want_infos["train"][0]["cams"]["CAM_FRONT"]["data_path"]
 
 
 def test_generator_cli_writes_images_only_when_asked(tmp_path):
+    """``--images`` writes each sample's six views as PNG: the picture
+    the JAX tool draws (and writes as JPEG), pixel for pixel."""
+    from PIL import Image
     tgen.main(["--out", str(tmp_path / "a"), "--train", "1", "--val", "0",
                "--points", "512", "--img-hw", "8", "16"])
     assert not os.path.isdir(tmp_path / "a" / "samples" / "CAM_FRONT")
     tgen.main(["--out", str(tmp_path / "b"), "--train", "1", "--val", "0",
                "--points", "512", "--img-hw", "8", "16", "--images"])
-    assert len(os.listdir(tmp_path / "b" / "samples" / "CAM_FRONT")) == 1
+    assert os.listdir(tmp_path / "b" / "samples" / "CAM_FRONT") == \
+        ["syntrain0000.png"]
     name = "samples/LIDAR_TOP/syntrain0000.bin"
     with open(tmp_path / "a" / name, "rb") as fa, \
             open(tmp_path / "b" / name, "rb") as fb:
         assert fa.read() == fb.read()
+    # the JAX tool's draws up to the picture, then the picture itself
+    rng = np.random.default_rng(0)
+    jgen._lidar_cloud(rng, 512, (-54, -54, -5, 54, 54, 3), sweeps=1)
+    rng.uniform(0, 255, (512, 1))
+    for _ in range(3):
+        jgen._lidar_cloud(rng, 128, (-54, -54, -5, 54, 54, 3), sweeps=1)
+        rng.uniform(0, 255, (128, 1))
+    want = (rng.uniform(0, 60, (8, 16, 3)) +
+            np.linspace(0, 195, 8)[:, None, None]).astype(np.uint8)
+    for cam in tgen.CAM_NAMES:
+        path = tmp_path / "b" / "samples" / cam / "syntrain0000.png"
+        np.testing.assert_array_equal(np.asarray(Image.open(path)), want)
 
 
 # ---------------------------------------------------------- transforms
