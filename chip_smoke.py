@@ -37,7 +37,8 @@ Phases, each printing one line (every failure raises, exit code != 0):
    dropped), bf16. Launch counts are zeroed before the timed steps and
    read after, split into each step's forward and backward. Prints each
    step's losses, grad norm and ms, peak memory, the host Hungarian's ms
-   and the launches per step; fails on a non-finite loss or grad norm, a
+   and the launches per step (K12 forward and backward, K10, K11 for the
+   dense heatmap target); fails on a non-finite loss or grad norm, a
    zero grad norm, a kernel not launched in every step, or an unchanged
    weight of the sparse encoder, the fusion encoder or the head;
 9. train reference: one float32 step of the tiny flagship (dropout off) on
@@ -104,6 +105,38 @@ Phases, each printing one line (every failure raises, exit code != 0):
     a non-finite or zero grad norm or an unchanged weight of the VFE, the
     backbone or the head;
 15. PointPillars reference: the tiny PointPillars in float32 on the card
+    against the CPU, predict (same kept entries and labels, boxes within
+    1e-4 of their max) and one train step (losses 1e-4 relative,
+    gradients per top-level module 1e-3 of their max);
+16. CenterPoint main path: the full-width CenterPoint of
+    ``configs/centerpoint/centerpoint_0075voxel_second_secfpn_circlenms_
+    4x8_cyclic_20e_nus.py`` (seeded random weights, hard 0.075 m voxels,
+    bf16 sparse encoder, SECOND, SECONDFPN and CenterHead convs; float32
+    decode and circle NMS) serves one warm-up and five batch-1 requests
+    of the flagship's 200,000-point cloud, the points jittered; launch
+    counts zeroed just before the five and read after each: the phase
+    fails unless K12 (``masked_gather``) and K10-circle (``nms_circle``)
+    launched in every request. Prints the median and max ms, peak
+    memory, voxels against the 120,000 test cap, active sites per sparse
+    stage and the boxes kept per task; then ``cp_breakdown`` /
+    ``cp_profile``;
+17. CenterPoint train: batch 4, 64 padded GT rows, the config's AdamW,
+    cyclic lr and momentum and clip 35, 1 warm-up and 5 timed steps;
+    fails on a non-finite loss or grad norm, a zero grad norm, an
+    unchanged weight of the SparseEncoder, SECOND or CenterHead, or a step
+    without K12 forward, K12 backward or K11 (``gaussian_heatmap``)
+    launches. Prints the median and max ms, peak memory and the launches
+    per step;
+18. CenterPoint kernel check: K10-circle against its plain version on
+    the request's own decoded sets (6 tasks x 500), an eval batch's (B 4
+    x 6 x 500) and adversarial sets (identical centres, all within the
+    radius, none within, pairs exactly on the threshold, equal scores,
+    all invalid, a single box): keep masks equal. K11 against its plain
+    version on the CenterPoint step's inputs (B 4 x G 64, 180 x 180, 10
+    classes) and the flagship step's: heatmaps equal, cells at 1.0 equal.
+    Each kernel's ms (CUDA events), device ms (profiler), plain ms and
+    bound;
+19. CenterPoint reference: the tiny CenterPoint in float32 on the card
     against the CPU, predict (same kept entries and labels, boxes within
     1e-4 of their max) and one train step (losses 1e-4 relative,
     gradients per top-level module 1e-3 of their max).
@@ -215,6 +248,16 @@ def gather_bytes(src, idx, fmask) -> int:
     row = src.shape[1] * src.element_size()
     distinct = int(torch.unique(idx[fmask]).numel())
     return distinct * row + idx.numel() * (row + 4 + 1)
+
+
+def recording_heatmap(real, seen: list):
+    """``real`` (a head's ``draw_heatmap_gaussian_batch``) that also
+    appends each call's inputs to ``seen``; the kernel still runs."""
+    def draw(shape_hw, centers, radii, valid, labels, num_classes):
+        seen.append((tuple(shape_hw), centers.clone(), radii.clone(),
+                     valid.clone(), labels.clone(), num_classes))
+        return real(shape_hw, centers, radii, valid, labels, num_classes)
+    return draw
 
 
 def phase_device() -> str:
@@ -699,7 +742,7 @@ def phase_train(model, batch: dict, dev: str = "cuda",
                                    cfg["momentum_config"]),
         grad_clip_norm(cfg["optimizer_config"]))
     gen = torch.Generator(dev).manual_seed(0)
-    hungarian_ms, fwd_marks = [], []
+    hungarian_ms, fwd_marks, heat_in = [], [], []
     real_assign = transfusion_head.assign_batch
 
     def timed_assign(costs):
@@ -720,6 +763,9 @@ def phase_train(model, batch: dict, dev: str = "cuda",
         fwd_marks.append((dict(cuda_build.LAUNCHES), event()))
 
     transfusion_head.assign_batch = timed_assign
+    real_heat = transfusion_head.draw_heatmap_gaussian_batch
+    transfusion_head.draw_heatmap_gaussian_batch = recording_heatmap(
+        real_heat, heat_in)
     hook = model.register_forward_hook(at_forward_end)
     try:
         step(jittered(batch, 0), gen)
@@ -749,7 +795,9 @@ def phase_train(model, batch: dict, dev: str = "cuda",
                 before["masked_gather"],
                 masked_gather_backward=after["masked_gather"] -
                 mid["masked_gather"],
-                boxes_iou_3d=after["boxes_iou_3d"] - before["boxes_iou_3d"])
+                boxes_iou_3d=after["boxes_iou_3d"] - before["boxes_iou_3d"],
+                gaussian_heatmap=after["gaussian_heatmap"] -
+                before["gaussian_heatmap"])
             vals = {k: float(v) for k, v in m.items()}
             log("train_step", step=i, ms=times[-1], **split,
                 launches=launches, hungarian_ms=hungarian_ms[-1], **vals)
@@ -770,6 +818,7 @@ def phase_train(model, batch: dict, dev: str = "cuda",
                            lambda: step(jittered(batch, 0), gen), top=12)
     finally:
         transfusion_head.assign_batch = real_assign
+        transfusion_head.draw_heatmap_gaussian_batch = real_heat
         hook.remove()
     unchanged = _unchanged(model, watch)
     rec = dict(batch=batch["points"].shape[0], median_ms=statistics.median(
@@ -780,6 +829,7 @@ def phase_train(model, batch: dict, dev: str = "cuda",
     if peak is not None:
         rec["peak_mem_gib"] = peak
     log("train", **rec)
+    rec["heatmap_inputs"] = heat_in[0]
     if unchanged:
         raise RuntimeError(f"weights unchanged by {steps} train steps: "
                            f"{unchanged[:10]}")
@@ -1755,6 +1805,378 @@ def _same_tree(a, b) -> bool:
     return a == b
 
 
+# ------------------------------------------------------------- CenterPoint
+CP_PREDICT_KERNELS = ("masked_gather", "nms_circle")
+CP_MODULES = ("pts_voxel_encoder", "pts_middle_encoder", "pts_backbone",
+              "pts_neck", "pts_bbox_head")
+CP_TRAIN_WATCH = ("pts_middle_encoder", "pts_backbone", "pts_bbox_head")
+# float32 operations per cell of a K11 window: 2 differences, 2 products,
+# a sum, a negation, a division, the exponential (~4) and the max
+GAUSSIAN_OPS_PER_CELL = 12
+
+
+@contextlib.contextmanager
+def recording_circle_nms():
+    """Inside the block, every K10-circle call of CenterHead appends its
+    inputs (centres (R, K, 2), scores, valid, thresholds (R,)) to the
+    yielded list; the kernel still runs."""
+    from isfusion_tpu_torch.models.dense_heads import centerpoint_head
+
+    real, seen = centerpoint_head.circle_nms_mask, []
+
+    def recording(centers, scores, thresh, valid):
+        seen.append((centers.clone(), scores.clone(), valid.clone(),
+                     thresh.clone()))
+        return real(centers, scores, thresh, valid)
+
+    centerpoint_head.circle_nms_mask = recording
+    try:
+        yield seen
+    finally:
+        centerpoint_head.circle_nms_mask = real
+
+
+def phase_cp_main_path(model, batch: dict, dev: str = "cuda"):
+    """CenterPoint serving: 1 warm-up + N_REQUESTS batch-1 requests (bf16
+    convs; voxelization, VFE, decode and NMS float32), the points jittered
+    per request. Launch counts are zeroed just before the timed requests
+    and read after each; fails unless K12 (``masked_gather``) and
+    K10-circle (``nms_circle``) launched in every request. Returns (launch
+    counts, the warm-up's circle-NMS inputs, record)."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+
+    stats = {}
+    with recording_circle_nms() as seen:
+        model(jittered(batch, 0), device=dev, stats=stats)
+        sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_request = [], []
+    for i in range(N_REQUESTS):
+        before = dict(cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = model(jittered(batch, i + 1), device=dev)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                            for k in CP_PREDICT_KERNELS})
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+    if dev == "cuda":
+        phase_breakdown(model, batch, CP_MODULES, (), "cp_")
+    head = model.pts_bbox_head
+    nt, post = len(head.task_heads), int(head.test_cfg["post_max_size"])
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != dict(bboxes=(1, nt * post, 9), scores=(1, nt * post),
+                      labels=(1, nt * post), mask=(1, nt * post)):
+        raise RuntimeError(f"unexpected CenterPoint output shapes {shapes}")
+    m = out["mask"]
+    if not (torch.isfinite(out["bboxes"][m]).all()
+            and torch.isfinite(out["scores"][m]).all()):
+        raise RuntimeError("non-finite CenterPoint boxes")
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, voxels=stats["voxels"], cap=stats["cap"],
+               active_sites=stats["active_sites"],
+               kept_per_task=m.reshape(nt, post).sum(-1).tolist(),
+               launches_per_request=per_request, launches=launches)
+    if peak is not None:
+        rec["peak_mem_gib"] = peak
+    log("cp_main_path", **rec)
+    if dev == "cuda" and any(min(r.values()) == 0 for r in per_request):
+        raise RuntimeError(f"a CenterPoint request launched no "
+                           f"{CP_PREDICT_KERNELS}: {per_request}")
+    return launches, seen[0], rec
+
+
+def record_cp_eval_sets(model, batch: dict, dev: str):
+    """The circle-NMS inputs of one eval batch (B 4 x 6 tasks x 500)."""
+    with recording_circle_nms() as seen:
+        model(batch, device=dev)
+        sync(dev)
+    return seen[0]
+
+
+def phase_cp_train(model, batch: dict, dev: str = "cuda",
+                   steps: int = N_TRAIN_STEPS) -> dict:
+    """1 warm-up + ``steps`` CenterPoint train steps at batch 4 with the
+    config's AdamW, cyclic lr and momentum and clip 35, launches per step
+    split at the end of each step's forward; fails on a non-finite or
+    zero grad norm or loss, an unchanged weight of the SparseEncoder,
+    SECOND or CenterHead, or a step that launched no K12 forward, K12
+    backward or K11. Returns the record (with the warm-up's K11 inputs)."""
+    import torch
+    from isfusion_tpu_torch.flagship import centerpoint_optim_cfg
+    from isfusion_tpu_torch.models.dense_heads import centerpoint_head
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    cfg = centerpoint_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(
+        model, opt, build_schedule(opt, cfg["lr_config"],
+                                   cfg["momentum_config"]),
+        grad_clip_norm(cfg["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    heat_in, marks = [], []
+    real_heat = centerpoint_head.draw_heatmap_gaussian_batch
+    centerpoint_head.draw_heatmap_gaussian_batch = recording_heatmap(
+        real_heat, heat_in)
+    try:
+        step(jittered(batch, 0), gen)
+        sync(dev)
+    finally:
+        centerpoint_head.draw_heatmap_gaussian_batch = real_heat
+    watch = {n: [p.detach().clone() for p in getattr(model, n).parameters()]
+             for n in CP_TRAIN_WATCH}
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+
+    def event():
+        if dev != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    hook = model.register_forward_hook(
+        lambda *_: marks.append((dict(cuda_build.LAUNCHES), event())))
+    times, per_step = [], []
+    try:
+        for i in range(steps):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            ev0 = event()
+            m = step(jittered(batch, i + 1), gen)
+            ev1 = event()
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            after, (mid, ev_fwd) = dict(cuda_build.LAUNCHES), marks[-1]
+            split = {} if ev0 is None else dict(
+                forward_stream_ms=ev0.elapsed_time(ev_fwd),
+                backward_update_stream_ms=ev_fwd.elapsed_time(ev1))
+            launches = dict(
+                masked_gather_forward=mid["masked_gather"] -
+                before["masked_gather"],
+                masked_gather_backward=after["masked_gather"] -
+                mid["masked_gather"],
+                gaussian_heatmap=after["gaussian_heatmap"] -
+                before["gaussian_heatmap"])
+            vals = {k: float(v) for k, v in m.items()}
+            log("cp_train_step", step=i, ms=times[-1], **split,
+                launches=launches, loss=vals["loss"],
+                grad_norm=vals["grad_norm"])
+            per_step.append(launches)
+            if any(not math.isfinite(v) for v in vals.values()) or \
+                    vals["grad_norm"] == 0:
+                raise RuntimeError(f"CenterPoint train step {i}: {vals}")
+            if dev == "cuda" and min(launches.values()) == 0:
+                raise RuntimeError(f"CenterPoint train step {i}: a kernel "
+                                   f"did not launch: {launches}")
+    finally:
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+    if dev == "cuda":
+        device_profile("cp_train_profile",
+                       lambda: step(jittered(batch, 0), gen), top=12)
+    unchanged = _unchanged(model, watch)
+    rec = dict(batch=batch["points"].shape[0],
+               median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, launches_per_step=per_step,
+               losses={k: float(v) for k, v in m.items()},
+               unchanged_weights=unchanged)
+    if peak is not None:
+        rec["peak_mem_gib"] = peak
+    log("cp_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"weights unchanged by {steps} CenterPoint train "
+                           f"steps: {unchanged[:10]}")
+    rec["heatmap_inputs"] = heat_in[0]
+    return rec
+
+
+def circle_bound_ms(centers) -> tuple:
+    """K10-circle's least time on these (R, K, 2) centres and what bounds
+    it: the larger of its operations (one squared distance a pair) over
+    the float32 rate and its bytes (centres, scores, valid, keep,
+    thresholds) over the memory rate."""
+    from isfusion_tpu_torch.ops import box_ops
+    r, k = centers.shape[:2]
+    t_ops = box_ops.circle_nms_ops(r, k) / F32_OPS_PER_S
+    t_bytes = (r * k * (8 + 4 + 1 + 1) + 4 * r) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def gaussian_bound_ms(shape_hw, radii, valid, num_classes: int) -> tuple:
+    """K11's least time on these inputs and what bounds it: the larger of
+    its bytes (the heatmap written once, the objects read once) over the
+    memory rate and its operations (each valid object's window cells
+    inside the grid, ``GAUSSIAN_OPS_PER_CELL`` each) over the float32
+    rate."""
+    from isfusion_tpu_torch.ops import gaussian
+    h, w = shape_hw
+    lead = tuple(radii.shape[:-1])
+    side = 2 * radii.floor() + 1
+    cells = int((side.clamp_max(w) * side.clamp_max(h))[valid].sum())
+    t_bytes = gaussian.gaussian_heatmap_bytes(lead + (h, w, num_classes),
+                                              radii.numel()) / HBM_BYTES_PER_S
+    t_ops = cells * GAUSSIAN_OPS_PER_CELL / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_cp_kernel_check(nms_in, eval_in, heat_sets, dev: str = "cuda",
+                          launches=None):
+    """K10-circle against its plain version on the request's own (6 x 500)
+    sets, an eval batch's (B 4 x 6 x 500) and the adversarial sets
+    (``testing.circle_nms_adversarial_sets``): keep masks equal. K11
+    against its plain version on ``heat_sets`` ((name, inputs): a
+    CenterPoint train step's, B 4 x G 64, 180 x 180, 10 classes, and the
+    flagship's): heatmaps equal, cells at 1.0 equal. For each kernel at
+    the main path's shape: ms (CUDA events), device ms (profiler), the
+    plain version's ms, the bound and what bounds it, beside ``launches``
+    (the main paths' counts). Returns the records for the JSON line."""
+    import torch
+    from isfusion_tpu_torch.ops import box_ops, gaussian
+    from isfusion_tpu_torch.testing import circle_nms_adversarial_sets
+
+    def circle(c, s, v, t):
+        return box_ops.circle_nms_mask(c, s, t, v)
+
+    def circle_ref(c, s, v, t):
+        return box_ops.circle_nms_mask_ref(c, s, t, v)
+
+    cases = [("request",) + tuple(nms_in), ("eval",) + tuple(eval_in)]
+    cases += [(n,) + tuple(a.to(dev) for a in args) for n, *args in
+              circle_nms_adversarial_sets(torch.Generator().manual_seed(12))]
+    recs = {}
+    for name, *args in cases:
+        got, ref = circle(*args), circle_ref(*args)
+        sync(dev)
+        r = dict(R=args[0].shape[0], K=args[0].shape[1],
+                 kept=int(ref.sum()), keep_equal=torch.equal(got, ref),
+                 keep_flags_differ=int((got != ref).sum()))
+        if name in ("request", "eval"):
+            bound, by = circle_bound_ms(args[0])
+            r.update(ms=cuda_ms(lambda: circle(*args), dev, iters=50),
+                     plain_ms=cuda_ms(lambda: circle_ref(*args), dev,
+                                      iters=2),
+                     bound_ms=bound, bound_by=by,
+                     thresholds=args[3].tolist()[:6])
+            if dev == "cuda":
+                ops = device_kernels(lambda: circle(*args), iters=20)
+                r.update(pairwise_device_ms=kernel_ms(ops,
+                                                      "circle_mask_kernel"),
+                         greedy_device_ms=kernel_ms(ops, "nms_greedy_kernel"),
+                         device_ops_per_call={k[:60]: n for k, (n, _) in
+                                              ops.items()})
+                r["device_ms"] = r["pairwise_device_ms"] + \
+                    r["greedy_device_ms"]
+            recs[name] = r
+        log("cp_nms_case", case=name, **r)
+        if not r["keep_equal"]:
+            raise RuntimeError(f"nms_circle differs from its plain version "
+                               f"on {name}: {r}")
+    for name, (hw, *args, nc) in heat_sets:
+        got = gaussian.draw_heatmap_gaussian_batch(hw, *args, nc)
+        ref = gaussian.draw_heatmap_gaussian_batch_ref(hw, *args, nc)
+        sync(dev)
+        bound, by = gaussian_bound_ms(hw, args[1], args[2], nc)
+        r = dict(shape=list(got.shape), objects=int(args[2].sum()),
+                 equal=torch.equal(got, ref),
+                 max_abs_err=float((got - ref).abs().max()),
+                 positives=int((got == 1.0).sum()),
+                 plain_positives=int((ref == 1.0).sum()),
+                 ms=cuda_ms(lambda: gaussian.draw_heatmap_gaussian_batch(
+                     hw, *args, nc), dev, iters=50),
+                 plain_ms=cuda_ms(
+                     lambda: gaussian.draw_heatmap_gaussian_batch_ref(
+                         hw, *args, nc), dev, iters=5),
+                 bound_ms=bound, bound_by=by)
+        if dev == "cuda":
+            r["device_ms"] = kernel_device_ms(
+                lambda: gaussian.draw_heatmap_gaussian_batch(hw, *args, nc),
+                "gaussian_heatmap_kernel", iters=20)
+        recs[name] = r
+        log("cp_heatmap_case", case=name, **r)
+        if not r["equal"] or r["positives"] != r["plain_positives"]:
+            raise RuntimeError(f"gaussian_heatmap differs from its plain "
+                               f"version on {name}: {r}")
+    log("cp_kernel_check", launches=launches, nms_circle=recs["request"],
+        nms_circle_eval=recs["eval"],
+        gaussian_heatmap={k: v for k, v in recs.items()
+                          if k not in ("request", "eval")})
+    return recs
+
+
+def phase_cp_reference(dev: str = "cuda"):
+    """Tiny CenterPoint, float32 (TF32 off): predict and one train step on
+    the card (its kernels) against the CPU (the plain versions) from the
+    same weights and batch. The same boxes kept with the same labels
+    (``testing.cp_kept_boxes``), boxes and scores within 1e-4 of their
+    max; losses within 1e-4 relative, each top-level module's gradient
+    within 1e-3 of its max."""
+    import torch
+    from isfusion_tpu_torch.flagship import build_centerpoint
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+    from isfusion_tpu_torch.testing import cp_kept_boxes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    modules = CP_MODULES[1:]          # HardSimpleVFE has no parameters
+
+    def run(d):
+        model, batch_fn = build_centerpoint(tiny=True, device=d, seed=1)
+        batch = batch_fn(2, seed=3)
+        before = dict(cuda_build.LAUNCHES)
+        out = cp_kept_boxes(model, batch, d)
+        model.train()
+        opt = build_optimizer(model, dict(type="AdamW", lr=1e-4))
+        m = make_train_step(model, opt)(batch,
+                                        torch.Generator(d).manual_seed(0))
+        grads = {top: [p.grad.detach().cpu().flatten()
+                       for p in getattr(model, top).parameters()]
+                 for top in modules}
+        launched = {k: cuda_build.LAUNCHES[k] - before[k]
+                    for k in ("masked_gather", "nms_circle",
+                              "gaussian_heatmap")}
+        return out, {k: float(v) for k, v in m.items()}, grads, launched
+
+    (og, mg, gg, lg), (oc, mc, gc, _) = run(dev), run("cpu")
+    if not torch.equal(og[2], oc[2]):
+        raise RuntimeError("tiny CenterPoint on the card kept other boxes "
+                           "than on the CPU")
+
+    def rel_to_max(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    box_err = max(rel_to_max(og[i], oc[i]) for i in (0, 1))
+    loss_err = max(abs(mg[k] - v) / max(abs(v), 1e-12) for k, v in mc.items())
+    grad_err = {top: rel_to_max(torch.cat(gg[top]), torch.cat(gc[top]))
+                for top in modules}
+    log("cp_reference", kept=len(oc[2]), box_rel_err=box_err,
+        loss_rel_err=loss_err, grad_rel_err=grad_err, card_launches=lg,
+        losses=mc)
+    if box_err > 1e-4 or loss_err > 1e-4 or max(grad_err.values()) > 1e-3:
+        raise RuntimeError(f"tiny CenterPoint on the card differs from the "
+                           f"CPU: boxes {box_err:.3g}, losses "
+                           f"{loss_err:.3g}, grads {grad_err}")
+    if dev == "cuda" and min(lg.values()) == 0:
+        raise RuntimeError(f"tiny CenterPoint on the card launched no "
+                           f"kernel of {lg}")
+
+
 def learn_run(work_dir: str) -> int:
     """``python3 chip_smoke.py --learn WORK_DIR``: the learnability recipe
     in full on the card. A fixture of 48 train / 16 val samples (seed 0,
@@ -1865,11 +2287,38 @@ def main() -> int:
     phase_pp_reference()
 
     per_step = train["launches_per_step"]
+    from isfusion_tpu_torch.flagship import (build_centerpoint,
+                                             centerpoint_optim_cfg)
+    cp, cp_batch_fn = build_centerpoint(device="cuda", seed=0)
+    cp_launches, circle_in, cp_req = phase_cp_main_path(cp, cp_batch_fn(1))
+    circle_eval_in = record_cp_eval_sets(cp, cp_batch_fn(4, seed=1), "cuda")
+    cp_train = phase_cp_train(cp, cp_batch_fn(centerpoint_optim_cfg()[
+        "samples_per_gpu"]))
+    del cp
+    torch.cuda.empty_cache()
+    cp_rec = phase_cp_kernel_check(circle_in, circle_eval_in, [
+        ("cp_train", cp_train["heatmap_inputs"]),
+        ("flagship_train", train["heatmap_inputs"])], launches=dict(
+            nms_circle_per_request=[r["nms_circle"] for r in cp_req[
+                "launches_per_request"]],
+            gaussian_heatmap_per_cp_step=[s["gaussian_heatmap"] for s in
+                                          cp_train["launches_per_step"]],
+            gaussian_heatmap_per_flagship_step=per_step[
+                "gaussian_heatmap"]))
+    del circle_in, circle_eval_in
+    phase_cp_reference()
+
     kernels = [dict(
         name="masked_gather", route="cuda",
         source="isfusion_tpu_torch/csrc/masked_gather.cu",
         replaces="tools/analysis_tools/micro_dma_gather.py:25",
         launches=launches["masked_gather"],
+        cp_launches_per_request=[r["masked_gather"] for r in cp_req[
+            "launches_per_request"]],
+        cp_train_launches_per_step=[dict(
+            forward=s["masked_gather_forward"],
+            backward=s["masked_gather_backward"])
+            for s in cp_train["launches_per_step"]],
         max_abs_err=max(rec["max_abs_err"], bwd["max_abs_err"]),
         ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
         bound_by="bytes", library_ms=rec["library_ms"],
@@ -1914,7 +2363,38 @@ def main() -> int:
              learn_eval_launches=learn["nms_launches"],
              learn_eval_batches=learn["batches"],
              eval_shape={k: v for k, v in nms["eval_shape"].items()
-                         if k != "device_ops_per_call"})]
+                         if k != "device_ops_per_call"}),
+        dict(name="nms_circle", route="cuda",
+             source="isfusion_tpu_torch/csrc/nms_circle.cu",
+             replaces="isfusion_tpu/ops/box_ops.py:243",
+             launches=cp_launches["nms_circle"],
+             max_abs_err=float(cp_rec["request"]["keep_flags_differ"]),
+             ms=cp_rec["request"]["ms"], plain_ms=cp_rec["request"][
+                 "plain_ms"], bound_ms=cp_rec["request"]["bound_ms"],
+             bound_by=cp_rec["request"]["bound_by"], library_ms=None,
+             launches_per_request=[r["nms_circle"] for r in cp_req[
+                 "launches_per_request"]],
+             device_ms=cp_rec["request"]["device_ms"],
+             pairwise_device_ms=cp_rec["request"]["pairwise_device_ms"],
+             greedy_device_ms=cp_rec["request"]["greedy_device_ms"],
+             eval_shape={k: v for k, v in cp_rec["eval"].items()
+                         if k != "device_ops_per_call"}),
+        dict(name="gaussian_heatmap", route="cuda",
+             source="isfusion_tpu_torch/csrc/gaussian_heatmap.cu",
+             replaces="isfusion_tpu/ops/gaussian.py:65",
+             launches=sum(s["gaussian_heatmap"] for s in cp_train[
+                 "launches_per_step"]),
+             max_abs_err=max(cp_rec[k]["max_abs_err"]
+                             for k in ("cp_train", "flagship_train")),
+             ms=cp_rec["cp_train"]["ms"],
+             plain_ms=cp_rec["cp_train"]["plain_ms"],
+             bound_ms=cp_rec["cp_train"]["bound_ms"],
+             bound_by=cp_rec["cp_train"]["bound_by"], library_ms=None,
+             device_ms=cp_rec["cp_train"]["device_ms"],
+             cp_train_launches_per_step=[s["gaussian_heatmap"] for s in
+                                         cp_train["launches_per_step"]],
+             train_launches_per_step=per_step["gaussian_heatmap"],
+             flagship_train_shape=cp_rec["flagship_train"])]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

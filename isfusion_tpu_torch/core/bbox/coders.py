@@ -1,13 +1,16 @@
 """Box coders (counterpart of ``isfusion_tpu/core/bbox/coders.py``):
-``DeltaXYZWLHRBBoxCoder`` (anchor residuals of PointPillars) and
+``DeltaXYZWLHRBBoxCoder`` (anchor residuals of PointPillars),
 ``TransFusionBBoxCoder`` (``encode`` for the training targets, ``decode``
-and ``valid_mask`` for the predictions). Geometry stays float32: the
-``exp`` of the size residuals overflows bf16."""
+and ``valid_mask`` for the predictions) and ``CenterPointBBoxCoder``
+(CenterHead's heatmap decode). Geometry stays float32: the ``exp`` of
+the size residuals overflows bf16."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+
+from ...models.middle_encoders.isfusion_encoder import topk_stable
 
 
 class DeltaXYZWLHRBBoxCoder:
@@ -111,3 +114,67 @@ class TransFusionBBoxCoder:
             center = bboxes[..., :3]
             mask &= (center >= pcr[:3]).all(-1) & (center <= pcr[3:]).all(-1)
         return mask
+
+
+class CenterPointBBoxCoder:
+    """CenterPoint's heatmap decode: the top ``max_num`` of a task's
+    class-major flattened heatmap (one joint top-k over its classes, ties
+    to the lower index, as ``jax.lax.top_k``), each decoded from its
+    cell: x = (col + reg_x) * out_size_factor * voxel_x + pc_x (y alike),
+    gravity-centre z, dims, yaw = atan2(sin, cos), velocity; masked by
+    the score threshold and the post-centre range."""
+
+    def __init__(self, pc_range: Sequence[float], out_size_factor: int,
+                 voxel_size: Sequence[float],
+                 post_center_range: Optional[Sequence[float]] = None,
+                 max_num: int = 100, score_threshold: Optional[float] = None,
+                 code_size: int = 9, **unused):
+        self.pc_range = [float(v) for v in pc_range]
+        self.out_size_factor = int(out_size_factor)
+        self.voxel_size = [float(v) for v in voxel_size]
+        self.post_center_range = None if post_center_range is None else \
+            [float(v) for v in post_center_range]
+        self.max_num = int(max_num)
+        self.score_threshold = None if score_threshold is None else \
+            float(score_threshold)
+        self.code_size = code_size
+
+    def decode(self, heat: torch.Tensor, rot_sine: torch.Tensor,
+               rot_cosine: torch.Tensor, hei: torch.Tensor, dim: torch.Tensor,
+               vel: Optional[torch.Tensor], reg: torch.Tensor) -> dict:
+        """Batched: heat (B, H, W, C) probabilities, rot_sine, rot_cosine,
+        hei (B, H, W, 1), dim (B, H, W, 3) (decoded sizes), vel (B, H, W,
+        2) or None, reg (B, H, W, 2) -> dict(bboxes (B, K, 7|9), scores
+        (B, K) (0 where masked), labels (B, K), mask (B, K))."""
+        b, h, w, nc = heat.shape
+        flat = heat.float().permute(0, 3, 1, 2).reshape(b, nc * h * w)
+        topi = topk_stable(flat, self.max_num)
+        topv = torch.gather(flat, 1, topi)
+        labels, pix = topi // (h * w), topi % (h * w)
+
+        def gather(m):
+            m = m.float().reshape(b, h * w, -1)
+            return torch.gather(m, 1, pix[..., None].expand(-1, -1,
+                                                            m.shape[-1]))
+
+        regs = gather(reg)
+        xs = (pix % w).float() + regs[..., 0]
+        ys = (pix // w).float() + regs[..., 1]
+        rot = torch.atan2(gather(rot_sine)[..., 0], gather(rot_cosine)[..., 0])
+        x = xs * self.out_size_factor * self.voxel_size[0] + self.pc_range[0]
+        y = ys * self.out_size_factor * self.voxel_size[1] + self.pc_range[1]
+        cols = [x[..., None], y[..., None], gather(hei)[..., :1], gather(dim),
+                rot[..., None]]
+        if vel is not None:
+            cols.append(gather(vel))
+        bboxes = torch.cat(cols, -1)
+        mask = torch.ones(topv.shape, dtype=torch.bool, device=topv.device)
+        if self.score_threshold is not None:
+            mask &= topv > self.score_threshold
+        if self.post_center_range is not None:
+            pcr = torch.tensor(self.post_center_range, dtype=torch.float32,
+                               device=bboxes.device)
+            mask &= (bboxes[..., :3] >= pcr[:3]).all(-1) & \
+                (bboxes[..., :3] <= pcr[3:]).all(-1)
+        return dict(bboxes=bboxes, scores=torch.where(mask, topv, 0.0),
+                    labels=labels, mask=mask)

@@ -44,29 +44,10 @@
 //    The diagonal bits stay iou(i, i) > thr. The JAX package computes both
 //    orders of a pair; they differ only by rounding, as close pairs near
 //    the threshold may.
-// 2. Greedy pass. One block per sample, one warp per class. The sample's
-//    mask (128 KB at K = 1,000) is copied into shared memory by all 1,024
-//    threads, with one removed-bitmask of ceil(K / 64) words per class,
-//    which starts as the class's invalid boxes (so validity is read once).
-//    The warp walks its class's sorted order 64 positions at a time:
-//    (a) the chunk's alive word: not removed (two ballots); the alive
-//        positions are compacted, lane j holding the j-th and (32 + j)-th;
-//    (b) their submatrix in sorted order: lane j forms the row of alive
-//        box j, bit i = mask bit (box i, box j), one mask row read by all
-//        lanes at a time, fixed trip counts (32 columns, 64 when more
-//        than 32 are alive), so the loads and shuffles pipeline;
-//    (c) the chunk resolved on one 64-bit register word: a box is kept
-//        iff no kept box before it suppresses it. The warp applies that
-//        rule to all boxes at once (one ballot a round) from "all kept"
-//        until the word stops changing: round t settles box t, and the
-//        greedy walk's result is the only word the rule leaves unchanged.
-//        Rounds: the longest chain of suppressions in the chunk, plus
-//        one (1-4 a chunk on testing.py's nms_scene_set, at most 65),
-//        each a few register operations;
-//    (d) the keep flags, and the kept boxes' mask rows ORed into the
-//        removed-bitmask, one word a lane.
-//    A box is suppressed only by a kept box earlier in the order: the
-//    same result as one step a box.
+// 2. Greedy pass (csrc/nms_greedy.cuh, shared with K10-circle): one block
+//    per sample, one warp per class, over the sample's mask in shared
+//    memory, 64 sorted positions at a time resolved on a register word
+//    (1-4 rounds a chunk on testing.py's nms_scene_set, at most 65).
 //
 // Why the circle cut is exact. Take box B (sides dx, dy, circumradius r).
 // in_quad (rotated_box.cuh) accepts a point whose cross product with each
@@ -93,6 +74,7 @@
 // synchronise.
 #include <stdint.h>
 
+#include "nms_greedy.cuh"
 #include "rotated_box.cuh"
 
 namespace {
@@ -100,16 +82,8 @@ namespace {
 constexpr int TILE = 32;      // boxes a tile side: a half mask word
 constexpr int THREADS = 128;  // pairwise pass: 4 warps, 4 blocks an SM
 constexpr int PAIRS = TILE * TILE / THREADS;  // circle tests a thread
-constexpr int GREEDY_THREADS = 1024;  // greedy pass: all copy, C walk
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_MAX = 227 * 1024;  // Hopper's opt-in shared memory/block
 constexpr float QUAD_TOL = 1e-5f;     // in_quad's tolerance
 constexpr float CUT_REL = 1.0f + 1e-4f, CUT_ABS = 1e-3f;
-
-// element strides of the (B, C, K) order (int64) and valid (bool) tensors
-struct Strides {
-  int64_t ob, oc, ok, vb, vc, vk;
-};
 
 struct TileBoxes {
   float x[TILE], y[TILE], dx[TILE], dy[TILE], c[TILE], s[TILE], area[TILE],
@@ -218,163 +192,6 @@ __global__ void __launch_bounds__(THREADS, 4)
   }
 }
 
-__device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
-  return (uint64_t)__ballot_sync(FULL, lo) |
-         ((uint64_t)__ballot_sync(FULL, hi) << 32);
-}
-
-__device__ __forceinline__ bool bit(const uint64_t* words, int i) {
-  return (words[i >> 6] >> (i & 63)) & 1ull;
-}
-
-// position (0..63) of the j-th set bit of m (j from 0, j < popc(m)), by
-// a branch-free binary search on popcounts
-__device__ __forceinline__ int nth_set(uint64_t m, int j) {
-  int pos = 0;
-#pragma unroll
-  for (int width = 32; width > 0; width >>= 1) {
-    const int c = __popcll(m & ((1ull << width) - 1ull));
-    const bool up = j >= c;
-    j -= up ? c : 0;
-    pos += up ? width : 0;
-    m = up ? m >> width : m;
-  }
-  return pos;
-}
-
-// the box of chunk position a (per lane), held by lane a % 32 as o_lo
-// (a < 32) or o_hi
-__device__ __forceinline__ int box_at(int o_lo, int o_hi, int a) {
-  const int x = __shfl_sync(FULL, o_lo, a & 31);
-  const int y = __shfl_sync(FULL, o_hi, a & 31);
-  return a < 32 ? x : y;
-}
-
-// bits FROM..FROM + 31 of the compact row of box qj: bit FROM + i is mask
-// bit (q_i, qj) (q_i suppresses qj), q_i held by lane i as q; the lanes
-// read one mask row at a time, conflict-free
-template <int FROM>
-__device__ __forceinline__ uint64_t row_bits(const uint64_t* rows, int w,
-                                             int q, int qj) {
-  uint64_t r = 0ull;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int qi = __shfl_sync(FULL, q, i);
-    r |= (uint64_t)bit(rows + (int64_t)qi * w, qj) << (FROM + i);
-  }
-  return r;
-}
-
-// removed word `lane` |= the mask rows of the boxes of set bits
-// FROM..FROM + 31 of kept, q_i held by lane i as q
-template <int FROM>
-__device__ __forceinline__ uint64_t kept_rows(const uint64_t* rows, int w,
-                                              int q, uint64_t kept,
-                                              int lane) {
-  uint64_t acc = 0ull;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int qi = __shfl_sync(FULL, q, i);
-    if (((kept >> (FROM + i)) & 1ull) && lane < w)
-      acc |= rows[(int64_t)qi * w + lane];
-  }
-  return acc;
-}
-
-__global__ void __launch_bounds__(GREEDY_THREADS)
-    nms_greedy_kernel(const uint64_t* __restrict__ mask,
-                      const int64_t* __restrict__ order,
-                      const uint8_t* __restrict__ valid,
-                      uint8_t* __restrict__ keep, int64_t nc, int64_t k,
-                      int w, Strides st) {
-  extern __shared__ uint64_t smem[];
-  const int64_t s = blockIdx.x;
-  const int tid = threadIdx.x;
-  uint64_t* removed_all = smem;            // nc * w words
-  uint64_t* rows = smem + nc * w;          // the sample's k * w mask words
-  const uint64_t* src = mask + s * k * w;
-  // every warp copies; warps past the classes then leave
-#pragma unroll 4
-  for (int64_t e = tid; e < k * w; e += GREEDY_THREADS) rows[e] = src[e];
-
-  const int c = tid >> 5, lane = tid & 31;
-  uint64_t* removed = removed_all + c * w;
-  if (c < nc) {
-    // the class's invalid boxes start removed: they neither keep nor
-    // suppress
-    const uint8_t* val = valid + s * st.vb + c * st.vc;
-#pragma unroll 4
-    for (int u = 0; u < w; ++u) {
-      const int64_t i = (int64_t)u * 64 + lane;
-      const uint64_t ok = ballot64(i < k && val[i * st.vk],
-                                   i + 32 < k && val[(i + 32) * st.vk]);
-      if (lane == 0) removed[u] = ~ok;
-    }
-  }
-  __syncthreads();
-  if (c >= nc) return;
-
-  const int64_t* ord = order + s * st.ob + c * st.oc;
-  uint8_t* kp = keep + (s * nc + c) * k;
-  int o_lo = lane < k ? (int)ord[lane * st.ok] : 0;
-  int o_hi = lane + 32 < k ? (int)ord[(lane + 32) * st.ok] : 0;
-  for (int64_t base = 0; base < k; base += 64) {
-    const int n = k - base < 64 ? (int)(k - base) : 64;
-    const bool in_lo = lane < n, in_hi = lane + 32 < n;
-    // the next chunk's order, loaded while this one is resolved
-    const int64_t nb = base + 64;
-    const int p_lo = nb + lane < k ? (int)ord[(nb + lane) * st.ok] : 0;
-    const int p_hi = nb + lane + 32 < k ? (int)ord[(nb + lane + 32) * st.ok]
-                                        : 0;
-    // (a) alive: in the chunk and not removed (or invalid); the alive
-    // positions, in order, are compacted: lane j holds the boxes of the
-    // j-th and (32 + j)-th (q0, q1)
-    const uint64_t alive = ballot64(in_lo && !bit(removed, o_lo),
-                                    in_hi && !bit(removed, o_hi));
-    const int na = __popcll(alive);
-    uint64_t kept = 0ull;  // over the compacted positions
-    if (na) {
-      const int q0 = box_at(o_lo, o_hi, nth_set(alive, lane));
-      const int q1 = box_at(o_lo, o_hi, nth_set(alive, lane + 32));
-      // (b) the submatrix of the alive boxes: lane j forms rows j and
-      // 32 + j, bit i = "alive box i suppresses alive box j"
-      uint64_t r0 = row_bits<0>(rows, w, q0, q0), r1 = 0ull;
-      if (na > 32) {
-        r0 |= row_bits<32>(rows, w, q1, q0);
-        r1 = row_bits<0>(rows, w, q0, q1) | row_bits<32>(rows, w, q1, q1);
-      }
-      // (c) the walk on a register word: a box is kept iff no kept box
-      // before it suppresses it. Start from all and apply that rule to
-      // every box at once until the word stops changing: round t fixes
-      // box t, and the greedy walk's result is the one word the rule
-      // leaves unchanged, so the loop ends on it after at most 65 rounds
-      kept = na == 64 ? ~0ull : (1ull << na) - 1ull;
-      const uint64_t before0 = (1ull << lane) - 1ull;
-      const uint64_t before1 = (1ull << (lane + 32)) - 1ull;
-      for (;;) {
-        const uint64_t next = ballot64(lane < na && !(r0 & kept & before0),
-                                       lane + 32 < na &&
-                                           !(r1 & kept & before1));
-        if (next == kept) break;
-        kept = next;
-      }
-      // (d) the kept boxes' mask rows into the removed-bitmask
-      uint64_t acc = kept_rows<0>(rows, w, q0, kept, lane);
-      if (kept >> 32) acc |= kept_rows<32>(rows, w, q1, kept, lane);
-      if (lane < w) removed[lane] |= acc;
-    }
-    // keep flags: each position once over the walk, no zeroing
-    const int c_lo = __popcll(alive & ((1ull << lane) - 1ull));
-    const int c_hi = __popcll(alive & ((1ull << (lane + 32)) - 1ull));
-    if (in_lo) kp[o_lo] = ((alive >> lane) & 1ull) && ((kept >> c_lo) & 1ull);
-    if (in_hi)
-      kp[o_hi] = ((alive >> (lane + 32)) & 1ull) && ((kept >> c_hi) & 1ull);
-    __syncwarp();  // the next chunk's (a) reads other lanes' words
-    o_lo = p_lo;
-    o_hi = p_hi;
-  }
-}
-
 }  // namespace
 
 // greedy = 0 runs the pairwise pass alone (the suppression bitmask is the
@@ -400,15 +217,9 @@ extern "C" int nms_bev(const void* boxes, const void* order,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !greedy) return (int)err;
 
-  // set on every call: the attribute belongs to the current device
-  err = cudaFuncSetAttribute(nms_greedy_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_MAX);
-  if (err != cudaSuccess) return (int)err;
   const Strides sd{strides[0], strides[1], strides[2],
                    strides[3], strides[4], strides[5]};
-  nms_greedy_kernel<<<(unsigned)batch, GREEDY_THREADS, bytes, st>>>(
-      (const uint64_t*)mask, (const int64_t*)order, (const uint8_t*)valid,
-      (uint8_t*)keep, (int64_t)nc, (int64_t)k, w, sd);
-  return (int)cudaGetLastError();
+  return (int)launch_greedy((const uint64_t*)mask, (const int64_t*)order,
+                            (const uint8_t*)valid, (uint8_t*)keep,
+                            (int64_t)batch, (int64_t)nc, (int64_t)k, sd, st);
 }

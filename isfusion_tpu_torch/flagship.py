@@ -21,6 +21,11 @@ the CUDA card (``device="cpu"`` to run on the CPU), in eval mode;
 detector of ``configs/pointpillars/hv_pointpillars_secfpn_sbn-all_4x8_2x_
 nus-3d.py`` the same way, and ``pointpillars_optim_cfg`` gives its
 ``schedule_2x`` recipe (step lr with warmup, clip 35).
+``build_centerpoint`` builds the CenterPoint detector of
+``configs/centerpoint/centerpoint_0075voxel_second_secfpn_circlenms_4x8_
+cyclic_20e_nus.py`` (hard 0.075 m voxels, circle NMS), and
+``centerpoint_optim_cfg`` gives its recipe (AdamW, cyclic lr and
+momentum, clip 35).
 """
 from __future__ import annotations
 
@@ -39,6 +44,9 @@ ISFUSION_CFG = os.path.join(
 POINTPILLARS_CFG = os.path.join(
     REPO_ROOT, "configs", "pointpillars",
     "hv_pointpillars_secfpn_sbn-all_4x8_2x_nus-3d.py")
+CENTERPOINT_CFG = os.path.join(
+    REPO_ROOT, "configs", "centerpoint",
+    "centerpoint_0075voxel_second_secfpn_circlenms_4x8_cyclic_20e_nus.py")
 
 # config keys of the modules that carry a compute_dtype
 _DTYPE_MODULES = ("img_backbone", "img_neck", "pts_middle_encoder",
@@ -352,3 +360,117 @@ def build_pointpillars_flagship(tiny: bool = False, device=None,
         def batch_fn(b, seed=0):
             return synthetic_points_batch(b, seed=seed)
     return model, batch_fn
+
+
+# the (x, y) range the CenterPoint serve cloud spans: the flagship's
+CENTERPOINT_CLOUD_RANGE = (-54, -54, -5, 54, 54, 3)
+
+
+def centerpoint_model_cfg(tiny: bool = False) -> dict:
+    """The CenterPoint model config dict as written; at full width the
+    SparseEncoder, SECOND, SECONDFPN and CenterHead convs compute in bf16
+    (hard voxelization, the VFE, targets, losses, decode and NMS stay
+    float32). ``tiny``: a 16 m scene at 0.125 x 0.125 x 0.2 m voxels (a
+    128 x 128 x 41 grid, a 16 x 16 BEV), narrow widths, float32, voxel
+    caps that hold every point and the JAX package's column caps lifted
+    to the whole grid (``stage_cap_ratios``, read by the JAX SparseEncoder
+    only); the coder's ``max_num`` 128 (a 16 x 16 map holds 256 cells a
+    class)."""
+    from .config import Config
+
+    model_cfg = copy.deepcopy(dict(Config.fromfile(CENTERPOINT_CFG).model))
+    compute_dtype = "bfloat16"
+    if tiny:
+        pcr = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+        vs = [0.125, 0.125, 0.2]
+        n, cap = 128, 2048
+        model_cfg["pts_voxel_layer"] = dict(
+            model_cfg["pts_voxel_layer"], point_cloud_range=pcr,
+            voxel_size=vs, max_voxels=(cap, cap))
+        model_cfg["pts_middle_encoder"] = dict(
+            model_cfg["pts_middle_encoder"], sparse_shape=[41, n, n],
+            base_channels=8, output_channels=16,
+            encoder_channels=((8, 8, 16), (16, 16, 16), (16, 16, 32),
+                              (32, 32)),
+            stage_cap_ratios=tuple((n >> i) ** 2 / cap for i in range(4)),
+            dilation_ratio=1.0)
+        model_cfg["pts_backbone"] = dict(
+            model_cfg["pts_backbone"], in_channels=32, out_channels=[16, 32],
+            layer_nums=[1, 1])
+        model_cfg["pts_neck"] = dict(
+            model_cfg["pts_neck"], in_channels=[16, 32],
+            out_channels=[16, 16])
+        head = dict(model_cfg["pts_bbox_head"], in_channels=32,
+                    share_conv_channel=16,
+                    separate_head=dict(model_cfg["pts_bbox_head"][
+                        "separate_head"], head_conv=16))
+        head["bbox_coder"] = dict(head["bbox_coder"], pc_range=pcr,
+                                  voxel_size=vs[:2], max_num=128,
+                                  post_center_range=[-10.0, -10.0, -10.0,
+                                                     10.0, 10.0, 10.0])
+        model_cfg["pts_bbox_head"] = head
+        model_cfg["train_cfg"] = dict(pts=dict(
+            model_cfg["train_cfg"]["pts"], point_cloud_range=pcr,
+            grid_size=[n, n, 40], voxel_size=vs))
+        model_cfg["test_cfg"] = dict(pts=dict(
+            model_cfg["test_cfg"]["pts"], voxel_size=vs[:2],
+            post_center_limit_range=[-10.0, -10.0, -10.0, 10.0, 10.0, 10.0],
+            max_per_img=128))
+        compute_dtype = None
+    model_cfg["pts_middle_encoder"] = dict(
+        model_cfg["pts_middle_encoder"],
+        compute_dtype=compute_dtype or "float32")
+    for key in ("pts_backbone", "pts_neck", "pts_bbox_head"):
+        model_cfg[key] = dict(model_cfg[key], compute_dtype=compute_dtype)
+    return model_cfg
+
+
+def centerpoint_optim_cfg() -> dict:
+    """The CenterPoint config's training recipe: ``optimizer`` (AdamW, lr
+    1e-4, weight decay 0.01), ``optimizer_config`` (clip 35),
+    ``lr_config`` and ``momentum_config`` (cyclic) and
+    ``samples_per_gpu`` 4. The config file has no ``data`` section: the
+    4 is the per-card batch of its name (``4x8``: 4 samples a card on 8
+    cards)."""
+    from .config import Config
+
+    cfg = Config.fromfile(CENTERPOINT_CFG)
+    out = {k: copy.deepcopy(dict(cfg[k])) for k in (
+        "optimizer", "optimizer_config", "lr_config", "momentum_config")}
+    out["samples_per_gpu"] = 4
+    return out
+
+
+def build_centerpoint(tiny: bool = False, device=None, seed: int = 0
+                      ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): the CenterPoint nuScenes detector with weights
+    drawn from ``seed``, in eval mode on ``device`` (default: the CUDA
+    card; raises if it is missing), and ``batch_fn(batch_size, seed=0)``
+    giving a numpy batch (bench shape: the flagship's serve cloud of
+    200,000 points over +-54 m and 64 padded GT boxes; tiny: 2,048 points
+    over +-8 m and 8 boxes; labels over the 10 classes)."""
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model_cfg = centerpoint_model_cfg(tiny)
+    model = init_weights(build_detector(model_cfg), seed).to(dev).eval()
+    if tiny:
+        pcr = tuple(model_cfg["pts_voxel_layer"]["point_cloud_range"])
+
+        def batch_fn(b, seed=0):
+            return synthetic_points_batch(b, num_points=2048, num_gt=8,
+                                          seed=seed, pcr=pcr)
+    else:
+        def batch_fn(b, seed=0):
+            return synthetic_points_batch(b, num_points=200000, seed=seed,
+                                          pcr=CENTERPOINT_CLOUD_RANGE)
+
+    def all_classes(b, seed=0):
+        # the synthetic batch labels 7 classes; CenterPoint's six tasks
+        # cover all 10, so every task head gets GT rows
+        batch = batch_fn(b, seed)
+        batch["gt_labels_3d"] = np.random.default_rng(seed + 1).integers(
+            0, 10, batch["gt_labels_3d"].shape)
+        return batch
+    return model, all_classes

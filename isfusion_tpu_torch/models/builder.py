@@ -1,6 +1,7 @@
-"""Builders for the model types of the IS-Fusion and PointPillars paths
-(counterpart of ``isfusion_tpu/models/builder.py``): config dicts with a
-``type`` key become modules through the port's registries."""
+"""Builders for the model types of the IS-Fusion, PointPillars and
+CenterPoint paths (counterpart of ``isfusion_tpu/models/builder.py``):
+config dicts with a ``type`` key become modules through the port's
+registries."""
 from __future__ import annotations
 
 from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
@@ -8,23 +9,27 @@ from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
 from .backbones.second import SECOND, SECONDV2
 from .backbones.swin import SwinTransformer
 from .dense_heads.anchor3d_head import Anchor3DHead
+from .dense_heads.centerpoint_head import CenterHead
 from .dense_heads.transfusion_head import TransFusionHeadV2
 from .middle_encoders.isfusion_encoder import ISFusionEncoder
 from .middle_encoders.pillar_scatter import PointPillarsScatter
 from .middle_encoders.sparse_encoder import SparseEncoder
 from .necks.generalized_lss import GeneralizedLSSFPN
 from .necks.second_fpn import SECONDFPN
-from .voxel_encoders import DynamicVFE, HardVFE, PillarFeatureNet
+from .voxel_encoders import (DynamicVFE, HardSimpleVFE, HardVFE,
+                             PillarFeatureNet)
 
 for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (BACKBONES, SECOND),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
                    (VOXEL_ENCODERS, DynamicVFE), (VOXEL_ENCODERS, HardVFE),
                    (VOXEL_ENCODERS, PillarFeatureNet),
+                   (VOXEL_ENCODERS, HardSimpleVFE),
                    (MIDDLE_ENCODERS, SparseEncoder),
                    (MIDDLE_ENCODERS, PointPillarsScatter),
                    (FUSION_LAYERS, ISFusionEncoder),
-                   (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead)):
+                   (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead),
+                   (HEADS, CenterHead)):
     _reg.register_module(module=_cls)
 
 
@@ -55,5 +60,6 @@ def build_fusion_layer(cfg, **kwargs):
 def build_detector(cfg):
     """Build a detector from its config dict (on the CPU, uninitialised:
     the factories of ``flagship.py`` initialise and place it)."""
-    from .detectors import isfusion, mvx_two_stage  # noqa: F401  (register)
+    from .detectors import (centerpoint, isfusion,  # noqa: F401  (register)
+                            mvx_two_stage)
     return build_from_cfg(dict(cfg), DETECTORS)

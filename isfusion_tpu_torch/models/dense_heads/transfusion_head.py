@@ -266,9 +266,8 @@ class TransFusionHeadV2(nn.Module):
         radius = torch.floor(radius).clamp_min(float(tc.get("min_radius", 2)))
         ok = gt_mask.bool() & (dxw > 0) & (dyl > 0) & (cx >= 0) & (cx < w) & \
             (cy >= 0) & (cy < h)
-        heatmap = torch.stack([draw_heatmap_gaussian_batch(
-            (h, w), torch.stack([cx[i], cy[i]], -1), radius[i], ok[i],
-            gt_labels[i], nc) for i in range(b)])
+        heatmap = draw_heatmap_gaussian_batch(
+            (h, w), torch.stack([cx, cy], -1), radius, ok, gt_labels, nc)
         return (labels, label_weights, bbox_targets, bbox_weights, num_pos,
                 matched_ious, heatmap)
 

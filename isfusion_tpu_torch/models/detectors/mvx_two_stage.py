@@ -4,8 +4,10 @@ hard-voxelization branch that the PointPillars nuScenes configs run.
 
 ``forward(batch, mode='predict' | 'feats' | 'loss')``: hard voxelization
 with the config's per-sample ``max_voxels`` cap (train cap in train mode,
-test cap in eval mode, as the JAX ``_capacity``) -> HardVFE ->
-PointPillarsScatter -> SECOND -> SECONDFPN -> Anchor3DHead.
+test cap in eval mode, as the JAX ``_capacity``) -> the voxel encoder
+(HardVFE; HardSimpleVFE for CenterPoint) -> the middle encoder
+(PointPillarsScatter; SparseEncoder for CenterPoint) -> SECOND ->
+SECONDFPN -> the head (Anchor3DHead; CenterHead).
 
 Batch contract (numpy arrays or tensors): points (B, P, C), points_mask
 (B, P); for ``mode='loss'`` also gt_bboxes_3d (B, G, 9), gt_labels_3d
@@ -25,6 +27,7 @@ from ...registry import DETECTORS
 from ..builder import (build_backbone, build_head, build_middle_encoder,
                        build_neck, build_voxel_encoder)
 from ..layers import random_source
+from ..middle_encoders.sparse_encoder import SparseEncoder
 
 
 def capacity(max_voxels, train: bool) -> int:
@@ -65,8 +68,9 @@ class MVXTwoStageDetector(nn.Module):
         (the head's loss dict). Runs on ``device`` (default: the CUDA card;
         raises if it is missing), where the parameters must already be.
         ``stats`` (a dict, optional) receives the voxels per sample and the
-        cap. The branch draws no random numbers; ``generator`` is accepted
-        for the train step's interface."""
+        cap (and a SparseEncoder's active sites per stage). The branch
+        draws no random numbers; ``generator`` is accepted for the train
+        step's interface."""
         if mode not in ("predict", "feats", "loss"):
             raise ValueError(f"unknown mode {mode!r} (predict, feats or "
                              "loss)")
@@ -85,7 +89,10 @@ class MVXTwoStageDetector(nn.Module):
         vox = voxelize_hard(points, points_mask, vl["point_cloud_range"],
                             vl["voxel_size"], int(vl["max_num_points"]), cap)
         feats = self.pts_voxel_encoder(vox.voxels, vox.num_points, vox.coors)
-        x = self.pts_backbone(self.pts_middle_encoder(feats, vox.coors, b))
+        kw = dict(return_stats=stats) if stats is not None and isinstance(
+            self.pts_middle_encoder, SparseEncoder) else {}
+        x = self.pts_backbone(self.pts_middle_encoder(feats, vox.coors, b,
+                                                      **kw))
         if self.pts_neck is not None:
             x = self.pts_neck(x)
         preds = self.pts_bbox_head(x)

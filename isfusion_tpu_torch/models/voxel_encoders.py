@@ -1,6 +1,6 @@
 """Voxel feature encoders (counterpart of
 ``isfusion_tpu/models/voxel_encoders.py``): DynamicVFE, and HardVFE /
-PillarFeatureNet over hard-voxelized (V, T, C) buffers.
+PillarFeatureNet / HardSimpleVFE over hard-voxelized (V, T, C) buffers.
 
 Per-point features [point, xyz - voxel mean, xyz - voxel centre] go
 through Linear+BN+ReLU layers; after each layer the per-voxel max is
@@ -158,3 +158,19 @@ class PillarFeatureNet(HardVFE):
 
     def __init__(self, in_channels: int = 4, feat_channels=(64,), **kw):
         super().__init__(in_channels, feat_channels, **kw)
+
+
+class HardSimpleVFE(nn.Module):
+    """The mean of each voxel's points over their first ``num_features``
+    channels (CenterPoint's voxel encoder); no parameters."""
+
+    def __init__(self, num_features: int = 4, **unused):
+        super().__init__()
+        self.num_features = int(num_features)
+
+    def forward(self, features: torch.Tensor, num_points: torch.Tensor,
+                coors: torch.Tensor) -> torch.Tensor:
+        """features (V, T, C) zero-padded points; num_points (V,) ->
+        (V, num_features)."""
+        total = features[..., :self.num_features].float().sum(-2)
+        return total / num_points.clamp_min(1)[:, None].float()

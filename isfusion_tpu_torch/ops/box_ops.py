@@ -17,13 +17,20 @@ K)) -> keep (B, C, K)``: for each sample and class, the JAX package's
 walk the boxes by descending score (ties: lower index first); a valid box
 that no kept box suppresses is kept. BEV boxes are (x, y, dx, dy, yaw).
 
+``circle_nms_mask(centers (R, K, 2), scores (R, K), thresh (R,), valid
+(R, K)) -> keep (R, K)``: K10-circle, the JAX package's
+``circle_nms_mask`` for R independent sets, each with its own threshold:
+the same greedy walk over ``squared centre distance <= thresh``.
+
 On a CPU tensor each function takes its plain PyTorch version
-(``boxes_iou_3d_ref``, ``nms_bev_mask_ref``: the tests' and the kernels'
-yardsticks); on a CUDA tensor it launches its kernel
-(``csrc/boxes_iou_3d.cu``, ``csrc/nms_bev.cu``, sharing the geometry of
-``csrc/rotated_box.cuh``) or raises. The assigner's IoU3DCost calls K10
-once per train step, on all samples and decoder layers; Anchor3DHead's
-``get_bboxes`` calls K10-NMS once per request.
+(``boxes_iou_3d_ref``, ``nms_bev_mask_ref``, ``circle_nms_mask_ref``: the
+tests' and the kernels' yardsticks); on a CUDA tensor it launches its
+kernel (``csrc/boxes_iou_3d.cu``, ``csrc/nms_bev.cu``, sharing the
+geometry of ``csrc/rotated_box.cuh``, ``csrc/nms_circle.cu``; both NMS
+kernels share the greedy pass of ``csrc/nms_greedy.cuh``) or raises. The
+assigner's IoU3DCost calls K10 once per train step, on all samples and
+decoder layers; Anchor3DHead's ``get_bboxes`` calls K10-NMS once per
+request, CenterHead's ``get_bboxes`` K10-circle.
 """
 from __future__ import annotations
 
@@ -317,16 +324,16 @@ def _nms_order(lead: torch.Tensor, scores: torch.Tensor,
     tensor (boxes or a suppression matrix)."""
     if scores.dim() != 3 or scores.shape[0] != lead.shape[0] or \
             scores.shape[2] != lead.shape[1]:
-        raise ValueError(f"nms_bev_mask: scores (B, C, K) for (B, K, ...) "
-                         f"boxes, got {tuple(scores.shape)} and "
+        raise ValueError(f"nms: scores (B, C, K) for (B, K, ...) boxes, "
+                         f"got {tuple(scores.shape)} and "
                          f"{tuple(lead.shape)}")
     if valid is None:
         valid = torch.ones(scores.shape, dtype=torch.bool,
                            device=scores.device)
     if valid.shape != scores.shape:
-        raise ValueError("nms_bev_mask: valid must have the scores' shape")
+        raise ValueError("nms: valid must have the scores' shape")
     if len({lead.device, scores.device, valid.device}) != 1:
-        raise ValueError("nms_bev_mask: inputs on different devices")
+        raise ValueError("nms: inputs on different devices")
     # descending scores, ties keep the lower index first (jnp.argsort of
     # the negated scores, as the JAX package orders them)
     order = torch.sort(scores.float(), dim=-1, descending=True,
@@ -428,3 +435,84 @@ def nms_bev_suppression_bits(boxes_bev: torch.Tensor, thresh: float
     shift = torch.arange(64, device=words.device)
     bits = (words[..., None] >> shift) & 1
     return bits.reshape(words.shape[0], k, -1)[..., :k].bool()
+
+
+# K10-circle's pairwise pass: a squared distance and a comparison per pair
+# (2 differences, 2 products, a sum, the comparison)
+CIRCLE_OPS_PER_PAIR = 6
+
+
+def circle_nms_ops(sets: int, k: int) -> int:
+    """float32 operations of K10-circle on ``sets`` sets of K boxes: one
+    squared distance per unordered pair (the greedy pass is bit
+    operations)."""
+    return CIRCLE_OPS_PER_PAIR * sets * (k * (k - 1) // 2)
+
+
+def _circle_args(centers: torch.Tensor, scores: torch.Tensor, thresh,
+                 valid: Optional[torch.Tensor]):
+    """(thresholds (R,) float32, valid (R, K), order (R, K))."""
+    if centers.dim() != 3 or centers.shape[-1] != 2 or \
+            scores.shape != centers.shape[:2]:
+        raise ValueError(f"circle_nms_mask: centres (R, K, 2) and scores "
+                         f"(R, K), got {tuple(centers.shape)} and "
+                         f"{tuple(scores.shape)}")
+    thr = torch.as_tensor(thresh, dtype=torch.float32).to(centers.device)
+    thr = thr.expand(scores.shape[0]) if thr.dim() == 0 else thr
+    if thr.shape != scores.shape[:1]:
+        raise ValueError(f"circle_nms_mask: one threshold per set, got "
+                         f"{tuple(thr.shape)} for {scores.shape[0]} sets")
+    valid, order = _nms_order(centers, scores[:, None],
+                              None if valid is None else valid[:, None])
+    return thr, valid[:, 0], order[:, 0]
+
+
+def circle_nms_mask_ref(centers: torch.Tensor, scores: torch.Tensor,
+                        thresh, valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of ``circle_nms_mask``: the squared centre
+    distances (x_j - x_i)^2 + (y_j - y_i)^2 in float32, each step rounded
+    as the kernel rounds it, and the sequential greedy walk per set."""
+    thr, valid, _ = _circle_args(centers, scores, thresh, valid)
+    c = centers.float()
+    d = c[:, None, :, :] - c[:, :, None, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+    return greedy_suppress_ref(d2 <= thr[:, None, None], scores[:, None],
+                               valid[:, None])[:, 0]
+
+
+def circle_nms_mask(centers: torch.Tensor, scores: torch.Tensor, thresh,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, K) bool keep masks of greedy circle NMS over R independent sets
+    of K boxes' (x, y) centres: a kept box suppresses every later box
+    whose squared centre distance to it is <= the set's threshold
+    (``thresh``: a number or one per set); one kernel launch for all
+    sets."""
+    thr, valid, order = _circle_args(centers, scores, thresh, valid)
+    if centers.device.type == "cpu":
+        return circle_nms_mask_ref(centers, scores, thr, valid)
+    if centers.device.type != "cuda":
+        raise RuntimeError(f"circle_nms_mask: no kernel for "
+                           f"{centers.device}")
+    r, k = scores.shape
+    keep = torch.empty((r, k), dtype=torch.bool, device=scores.device)
+    if keep.numel() == 0:
+        return keep
+    if nms_smem_bytes(1, k) > NMS_SMEM_BYTES or r > 65535:
+        raise ValueError(f"circle_nms_mask: at most 65,535 sets and "
+                         f"{NMS_SMEM_BYTES} bytes of shared memory ((1 + K) "
+                         f"* ceil(K / 64) * 8), got R = {r}, K = {k}")
+    c, thr = centers.float().contiguous(), thr.contiguous()
+    mask = torch.empty((r, k, (k + 63) // 64), dtype=torch.int64,
+                       device=c.device)
+    lib = cuda_build.load("nms_circle")
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    strides = (ctypes.c_longlong * 4)(*(order.stride() + valid.stride()))
+    err = lib.nms_circle(c.data_ptr(), thr.data_ptr(),
+                         order.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+                         keep.data_ptr(), r, k, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"nms_circle: kernel launch failed with CUDA "
+                           f"error {err}")
+    cuda_build.LAUNCHES["nms_circle"] += 1
+    return keep

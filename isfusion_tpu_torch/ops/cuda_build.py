@@ -40,6 +40,9 @@ SIGNATURES = {
     "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
     "nms_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, ctypes.c_int, _P,
                  _P], ctypes.c_int),
+    "nms_circle": ([_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P], ctypes.c_int),
+    "gaussian_heatmap": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P],
+                         ctypes.c_int),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

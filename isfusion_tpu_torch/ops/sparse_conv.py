@@ -33,6 +33,7 @@ import itertools
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .gather import masked_gather, masked_gather_ref
 
@@ -244,10 +245,14 @@ def sparse_conv(feats: torch.Tensor, rows: torch.Tensor, found: torch.Tensor,
     if feats.device.type == "cpu":
         return sparse_conv_plain(feats, rows, found, weight)
     # K12 moves 16-byte row vectors: the forward gathers Cin-wide rows, the
-    # backward Cout-wide ones
+    # backward Cout-wide ones. Other widths (CenterPoint's 5 point
+    # features) are padded with zero channels, which add exact zeros
     align = 16 // feats.element_size()
-    if feats.shape[1] % align or weight.shape[0] % align:
-        raise ValueError(
-            f"sparse_conv: Cin {feats.shape[1]} and Cout {weight.shape[0]} "
-            f"must be multiples of {align} {feats.dtype} values (16 bytes)")
-    return SparseConvFunction.apply(feats, rows, found, weight)
+    cout = weight.shape[0]
+    pin, pout = -feats.shape[1] % align, -cout % align
+    if pin:
+        feats, weight = F.pad(feats, (0, pin)), F.pad(weight, (0, pin))
+    if pout:
+        weight = F.pad(weight, (0, 0) * 4 + (0, pout))
+    out = SparseConvFunction.apply(feats, rows, found, weight)
+    return out[:, :cout] if pout else out

@@ -1,5 +1,5 @@
-"""Carry the JAX package's IS-Fusion and PointPillars variables into the
-port's state_dict.
+"""Carry the JAX package's IS-Fusion, PointPillars and CenterPoint
+variables into the port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -141,6 +141,18 @@ _RULES = [
     (r"pts_bbox_head_m/(conv_cls|conv_reg|conv_dir_cls)",
      r"pts_bbox_head.\1", "conv2d"),
     (r"pts_bbox_head_m/shared_conv", "pts_bbox_head.shared_conv", "conv2d"),
+    # CenterHead: a ConvModule shared conv and per-task SeparateHeads (the
+    # final conv's index, num_conv - 1, is set after the walk)
+    (r"pts_bbox_head_m/shared_conv/Conv_0", "pts_bbox_head.shared_conv.conv",
+     "conv2d"),
+    (r"pts_bbox_head_m/shared_conv/bn", "pts_bbox_head.shared_conv.bn",
+     "norm"),
+    (r"pts_bbox_head_m/task_heads_(\d+)/([a-z]+)_(\d+)/Conv_0",
+     r"pts_bbox_head.task_heads.\1.\2.\3.conv", "conv2d"),
+    (r"pts_bbox_head_m/task_heads_(\d+)/([a-z]+)_(\d+)/bn",
+     r"pts_bbox_head.task_heads.\1.\2.\3.bn", "norm"),
+    (r"pts_bbox_head_m/task_heads_(\d+)/([a-z]+)_final",
+     r"pts_bbox_head.task_heads.\1.\2.final", "conv2d"),
     (r"pts_bbox_head_m/heatmap_conv/Conv_0",
      "pts_bbox_head.heatmap_head.0.conv", "conv2d"),
     (r"pts_bbox_head_m/heatmap_conv/bn", "pts_bbox_head.heatmap_head.0.bn",
@@ -258,6 +270,15 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
             [parts[f"{n}/bias"].reshape(e) for n in ("query", "key", "value")])
         sd[f"{key}.out_proj.weight"] = parts["out/kernel"].reshape(e, e).T
         sd[f"{key}.out_proj.bias"] = parts["out/bias"]
+
+    # a SeparateHead branch's final conv follows its ConvModules
+    for k in [k for k in sd if k.startswith("pts_bbox_head.task_heads.")
+              and ".final." in k]:
+        base, leaf = k.split(".final.")
+        n = 0
+        while f"{base}.{n}.conv.weight" in sd:
+            n += 1
+        sd[f"{base}.{n}.{leaf}"] = sd.pop(k)
 
     n_conv = len({k.split(".")[2] for k in sd
                   if k.startswith("pts_neck.deblocks.")})

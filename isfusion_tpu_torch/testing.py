@@ -1,7 +1,8 @@
 """Helpers shared by the port's checks (``chip_smoke.py``,
 ``tests/test_torch_cuda.py`` and the CPU tests): what makes a
-PointPillars prediction on the card comparable with the same prediction
-on the CPU, and the NMS input sets that K10-NMS is held on."""
+PointPillars or CenterPoint prediction on the card comparable with the
+same prediction on the CPU, and the NMS input sets that K10-NMS and
+K10-circle are held on."""
 from __future__ import annotations
 
 import math
@@ -103,3 +104,65 @@ def nms_sparse_set(gen, k: int = 1000, c: int = 10):
     boxes[:, 2:4] = 0.5 + 4.1 * torch.rand((k, 2), generator=gen)
     boxes[:, 4] = (torch.rand(k, generator=gen) * 2 - 1) * math.pi
     return _scored(gen, boxes, c)
+
+
+def cp_kept_boxes(model, batch: dict, dev: str):
+    """Every box a CenterPoint model keeps after circle NMS
+    (``post_max_size`` lifted to the coder's ``max_num``, so that no
+    near-tie decides which ones make the cut), in a canonical order:
+    (boxes, scores, sample * C + label) sorted by that key, then by x."""
+    head = model.pts_bbox_head
+    cfg = dict(head.test_cfg)
+    head.test_cfg["post_max_size"] = head.bbox_coder.max_num
+    try:
+        out = {k: v.cpu() for k, v in model(batch, device=dev).items()}
+    finally:
+        head.test_cfg = cfg
+    m = out["mask"]
+    key = (torch.arange(m.shape[0])[:, None] * head.task_offsets[-1] +
+           out["labels"])[m]
+    boxes, scores = out["bboxes"][m], out["scores"][m]
+    o = torch.argsort(boxes[:, 0], stable=True)
+    o = o[torch.argsort(key[o], stable=True)]
+    return boxes[o], scores[o], key[o]
+
+
+def circle_nms_sets(gen, r: int, k: int, thresholds=(0.25, 1.0, 4.0, 12.0)):
+    """(centres (R, K, 2), scores (R, K), valid (R, K), thresholds (R,))
+    for K10-circle: centres on a 0.5 m lattice over +-8 m (every squared
+    distance is exact, so many pairs lie exactly on the thresholds),
+    scores in steps of 0.1 (ties), 10% invalid; set r takes threshold r
+    (mod the list)."""
+    centers = torch.round((torch.rand((r, k, 2), generator=gen) * 2 - 1) *
+                          16) * 0.5
+    scores = torch.round(torch.rand((r, k), generator=gen) * 10) / 10
+    valid = torch.rand((r, k), generator=gen) > 0.1
+    thr = torch.tensor([thresholds[i % len(thresholds)] for i in range(r)])
+    return centers, scores, valid, thr
+
+
+def circle_nms_adversarial_sets(gen):
+    """(name, centres (1, K, 2), scores (1, K), valid (1, K), threshold
+    (1,)) sets: identical centres, all within the radius, none within,
+    pairs exactly on the threshold (centres 2.0 apart against 4.0), equal
+    scores, all invalid and a single box."""
+    def one(name, c, scores=None, valid=None, thr=4.0):
+        k = c.shape[0]
+        s = torch.rand((1, k), generator=gen) if scores is None else scores
+        v = torch.ones((1, k), dtype=torch.bool) if valid is None else valid
+        return name, c[None].float(), s, v, torch.tensor([thr])
+
+    lattice = torch.stack(torch.meshgrid(torch.arange(16.0),
+                                         torch.arange(16.0), indexing="ij"),
+                          -1).reshape(-1, 2)
+    # a 1.4 m square: every squared distance under 4
+    disc = (torch.rand((64, 2), generator=gen) - 0.5) * 1.4
+    return [one("identical", torch.full((64, 2), 3.0)),
+            one("all_within", disc),
+            one("none_within", lattice * 10.0),
+            one("on_threshold", lattice * 2.0),
+            one("equal_scores", lattice * 1.5,
+                scores=torch.full((1, 256), 0.5)),
+            one("all_invalid", disc, valid=torch.zeros((1, 64),
+                                                       dtype=torch.bool)),
+            one("single_box", torch.zeros((1, 2)))]

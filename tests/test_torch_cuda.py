@@ -11,20 +11,21 @@ kernel against its plain version, batched or not; NMS keep masks equal
 to the plain greedy walk over the kernel's own suppression bits, those
 bits equal to the plain IoU's more than 1e-5 from the threshold, and keep
 masks equal to the plain version's when no pair is that close, the bits
-symmetric; 1e-5 of
+symmetric; circle-NMS keep masks and gaussian heatmaps equal to their
+plain versions (the positives, cells at 1.0, included); 1e-5 of
 the max for the sparse conv's
 K12 backward against plain autograd on the CPU, 1e-3 of the max for the
 tiny flagship on the card against the CPU, 1e-4 of the max for the tiny
-PointPillars' kept boxes (the same entries and labels), and 1e-4 relative
-for the tiny train step's losses (float32, TF32 off: sums run in another
-order).
+PointPillars' and CenterPoint's kept boxes (the same entries and
+labels), and 1e-4 relative for the tiny train steps' losses (float32, TF32
+off: sums run in another order).
 """
 import pytest
 import torch
 
 import numpy as np
 
-from isfusion_tpu_torch.ops import box_ops, cuda_build, sparse_conv
+from isfusion_tpu_torch.ops import box_ops, cuda_build, gaussian, sparse_conv
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
 
 pytestmark = pytest.mark.cuda
@@ -116,21 +117,23 @@ def test_boxes_iou_3d_kernel_matches_plain_version(card):
     assert float((got[range(4), range(4)] - 1).abs().max()) <= 1e-5
 
 
+# cin 5: CenterPoint's point features, padded to K12's 16-byte rows
+@pytest.mark.parametrize("cin", [16, 5])
 @pytest.mark.parametrize("kind", ["subm", "strided"])
-def test_sparse_conv_backward_on_card_matches_cpu(card, kind):
+def test_sparse_conv_backward_on_card_matches_cpu(card, kind, cin):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
     grid = (21, 64, 64)
     cells = torch.randperm(int(np.prod(grid)), generator=gen)[:3000]
     coords = torch.stack([torch.zeros_like(cells), cells // (64 * 64),
                           (cells // 64) % 64, cells % 64], -1)
-    feats = torch.randn((3000, 16), generator=gen)
+    feats = torch.randn((3000, cin), generator=gen)
     sp = sparse_conv.build_sparse(feats, coords, grid, 1)
     if kind == "subm":
         rows, found = sparse_conv.subm_rulebook(sp)
     else:
         _, rows, found = sparse_conv.strided_rulebook(sp, 3, 2, 1)
-    w0 = torch.randn((32, 3, 3, 3, 16), generator=gen)
+    w0 = torch.randn((32, 3, 3, 3, cin), generator=gen)
     dy = torch.randn((rows.shape[0], 32), generator=gen)
     res = []
     for dev in ("cpu", card):
@@ -319,3 +322,108 @@ def test_pointpillars_tiny_on_card_matches_cpu(card):
     assert torch.equal(ck, gk) and len(ck) > 10
     for got, want in ((gb, cb), (gs, cs)):
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def _check_circle(centers, scores, valid, thr):
+    before = cuda_build.LAUNCHES["nms_circle"]
+    got = box_ops.circle_nms_mask(centers, scores, thr, valid)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["nms_circle"] == before + 1
+    want = box_ops.circle_nms_mask_ref(centers, scores, thr, valid)
+    assert torch.equal(got, want)
+    assert not (got & ~valid).any()
+    return got
+
+
+# K at the greedy pass's chunk edges, a request's (6 x 500) and larger
+@pytest.mark.parametrize("r,k", [(3, 1), (2, 63), (4, 64), (2, 65),
+                                 (6, 500), (24, 500), (2, 1000)])
+def test_nms_circle_kernel_matches_plain_version(card, r, k):
+    from isfusion_tpu_torch.testing import circle_nms_sets
+
+    centers, scores, valid, thr = (t.to(card) for t in circle_nms_sets(
+        torch.Generator().manual_seed(r * k), r, k))
+    c = centers
+    d2 = ((c[:, :, None] - c[:, None]) ** 2).sum(-1)
+    if k > 1:       # pairs exactly on their set's threshold, tied scores
+        assert int((d2 == thr[:, None, None]).sum()) > 0
+        assert int((scores[:, 1:] == scores[:, :1]).sum()) > 0
+    got = _check_circle(centers, scores, valid, thr)
+    assert 0 < int(got.sum()) <= int(valid.sum())
+
+
+def test_nms_circle_adversarial_sets(card):
+    from isfusion_tpu_torch.testing import circle_nms_adversarial_sets
+
+    kept = {}
+    for name, *args in circle_nms_adversarial_sets(
+            torch.Generator().manual_seed(0)):
+        kept[name] = int(_check_circle(*(t.to(card) for t in args)).sum())
+    assert kept["identical"] == kept["all_within"] == 1
+    assert kept["none_within"] == 256 and kept["all_invalid"] == 0
+    assert kept["single_box"] == 1 and 0 < kept["on_threshold"] < 256
+
+
+def _gaussian_inputs(gen, b, g, nc, hw, step):
+    """The heads' K11 inputs for B x G random boxes over +-54 m: centres
+    in cells of ``step`` m, radii from ``gaussian_radius`` (overlap 0.1,
+    floored, at least 2), labels over ``nc`` classes, 10% padded."""
+    xy = (torch.rand((b, g, 2), generator=gen) * 2 - 1) * 54
+    size = 0.5 + torch.rand((b, g, 2), generator=gen) * 10
+    cxy = (xy + 54) / step
+    r = gaussian.gaussian_radius((size[..., 1] / step, size[..., 0] / step),
+                                 0.1)
+    r = torch.floor(r).clamp_min(2.0)
+    labels = torch.randint(0, nc, (b, g), generator=gen)
+    valid = (torch.rand((b, g), generator=gen) > 0.1) & \
+        (cxy >= 0).all(-1) & (cxy[..., 0] < hw[1]) & (cxy[..., 1] < hw[0])
+    return cxy, r, valid, labels
+
+
+@pytest.mark.parametrize("b,g,hw,nc", [(4, 64, (180, 180), 10),
+                                       (2, 500, (180, 180), 10),
+                                       (1, 3, (24, 20), 4)])
+def test_gaussian_heatmap_kernel_matches_plain_version(card, b, g, hw, nc):
+    cxy, r, valid, labels = (t.to(card) for t in _gaussian_inputs(
+        torch.Generator().manual_seed(g), b, g, nc, hw, 0.6))
+    before = cuda_build.LAUNCHES["gaussian_heatmap"]
+    got = gaussian.draw_heatmap_gaussian_batch(hw, cxy, r, valid, labels, nc)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["gaussian_heatmap"] == before + 1
+    want = gaussian.draw_heatmap_gaussian_batch_ref(hw, cxy, r, valid,
+                                                    labels, nc)
+    assert got.shape == (b,) + hw + (nc,)
+    assert torch.equal(got, want)
+    assert int((got == 1.0).sum()) == int((want == 1.0).sum()) > 0
+
+
+def test_centerpoint_tiny_on_card_matches_cpu(card):
+    from isfusion_tpu_torch.flagship import build_centerpoint
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+    from isfusion_tpu_torch.testing import cp_kept_boxes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs, losses = [], []
+    for dev in ("cpu", "cuda"):
+        model, batch_fn = build_centerpoint(tiny=True, device=dev, seed=2)
+        batch = batch_fn(2, seed=5)
+        before = dict(cuda_build.LAUNCHES)
+        outs.append(cp_kept_boxes(model, batch, dev))
+        model.train()
+        step = make_train_step(model, build_optimizer(
+            model, dict(type="AdamW", lr=1e-4)))
+        m = step(batch, torch.Generator(dev).manual_seed(0))
+        losses.append({k: float(v) for k, v in m.items()})
+        launched = {k: cuda_build.LAUNCHES[k] - before[k]
+                    for k in ("nms_circle", "gaussian_heatmap")}
+        assert launched == ({"nms_circle": 1, "gaussian_heatmap": 1}
+                            if dev == "cuda" else
+                            {"nms_circle": 0, "gaussian_heatmap": 0})
+    (cb, cs, ck), (gb, gs, gk) = outs
+    assert torch.equal(ck, gk) and len(ck) > 10
+    for got, want in ((gb, cb), (gs, cs)):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    for k, want in losses[0].items():
+        assert abs(losses[1][k] - want) <= 1e-4 * max(abs(want), 1e-6), k
