@@ -15,11 +15,18 @@ Phases, each printing one line (every failure raises, exit code != 0):
    ``configs/isfusion/isfusion_0075voxel.py``) serves one warm-up and five
    timed batch-1 requests at bench shape (200,000 points, 6 x 384 x 1056
    images), each with the points jittered as ``bench.py`` does. Launch
-   counts are zeroed just before the five requests and read just after;
-   the phase fails unless every kernel of the predict path (K12) launched;
+   counts are zeroed just before the five requests and read after each;
+   the phase fails unless every kernel of the predict path (K12, K1
+   dynamic voxelization, K2 dynamic scatter) launched in every request;
 4. kernel check: each kernel against its plain PyTorch version on the
    inputs the main path gave it (stage-0 and stage-1 im2col gathers) and
-   on the TPU microbenchmark's shape, bit for bit, with timings.
+   on the TPU microbenchmark's shape, bit for bit, with timings; K1 and
+   K2 (``[dynamic_check]``) on the request's own voxelization and
+   DynamicVFE inputs, and after phase 8 on the first train batch's (batch
+   4): K1's rows and table and K2's max (forward and backward) equal to
+   their plain versions, K2's mean equal to the plain version on the CPU
+   and within 1e-6 of the max of the plain version on the card, with ms,
+   device ms, plain ms, library ms and the byte bound.
    The K12 backward (the transposed-rulebook gather of a sparse conv's dX)
    at the stage-0 shapes, bit for bit, and one conv's dX and dW against
    plain autograd; K10 (rotated 3D IoU) on 4 x 200 x 64 box pairs with
@@ -38,7 +45,8 @@ Phases, each printing one line (every failure raises, exit code != 0):
    read after, split into each step's forward and backward. Prints each
    step's losses, grad norm and ms, peak memory, the host Hungarian's ms
    and the launches per step (K12 forward and backward, K10, K11 for the
-   dense heatmap target); fails on a non-finite loss or grad norm, a
+   dense heatmap target, K1, K2 forward and backward); fails on a
+   non-finite loss or grad norm, a
    zero grad norm, a kernel not launched in every step, or an unchanged
    weight of the sparse encoder, the fusion encoder or the head;
 9. train reference: one float32 step of the tiny flagship (dropout off) on
@@ -139,7 +147,40 @@ Phases, each printing one line (every failure raises, exit code != 0):
 19. CenterPoint reference: the tiny CenterPoint in float32 on the card
     against the CPU, predict (same kept entries and labels, boxes within
     1e-4 of their max) and one train step (losses 1e-4 relative,
-    gradients per top-level module 1e-3 of their max).
+    gradients per top-level module 1e-3 of their max);
+20. MVX-Net main path (``[mvx_main_path]``): the full-width MVX-Net of
+    ``configs/mvxnet/dv_mvx-fpn_second_secfpn_adamw_2x8_80e_kitti-3d-
+    3class.py`` (seeded random weights, the head's class bias zeroed and
+    its box regression scaled by 0.01 so that NMS sees full sets of
+    scene-sized boxes; ResNet-50, FPN, PointFusion's
+    lateral convs, the SparseEncoder, SECOND, SECONDFPN and the head in
+    bf16; dynamic voxels, the VFE, PointFusion's transforms, decode and
+    NMS float32) serves one warm-up and five batch-1 requests of a
+    KITTI-like 120,000-point 360-degree cloud (about half in the front
+    range) and one 384 x 1280 view; launch counts zeroed just before the
+    five and read after each: fails unless K1, K2, K12 and K10-NMS
+    launched in every request. Prints the median and max ms, the voxels
+    against the JAX package's (80000, 90000) cap (not applied), active
+    sites per sparse stage, boxes kept, peak memory; then
+    ``mvx_breakdown`` / ``mvx_profile`` (the device idle share);
+21. MVX-Net train (``[mvx_train]``): batch 2, 16 padded 3-class GT rows,
+    the config's AdamW, CosineAnnealing with linear warmup and clip 35, 1
+    warm-up and 5 timed steps; prints the losses, grad norm, ms, peak
+    memory and the launches per step (K1, K2 forward and backward, K12
+    forward and backward); fails on a non-finite loss, a step without one
+    of them, an unchanged weight of the VFE, PointFusion, the sparse
+    encoder, FPN, ResNet's layer4 or the head, or a changed frozen ResNet
+    tensor (the stem, layer1, every BatchNorm);
+22. MVX-Net kernel check (``[mvx_kernel_check]``): K1 and K2 against
+    their plain versions on the MVX request's own inputs and K1 on the
+    adversarial sets of ``testing.voxel_adversarial_sets`` (points on
+    voxel faces, duplicates, out-of-range and masked points, empty
+    samples) at MVX-Net's grid;
+23. MVX-Net reference (``[mvx_reference]``): the tiny MVX-Net in float32
+    (TF32 off) on the card against the CPU, predict (the same kept boxes
+    and labels, boxes within 1e-4 of their max) and one train step
+    (losses 1e-4 relative, gradients per top-level module 1e-3 of their
+    max).
 
 The card's ``nvidia-smi`` line, then the kernels' JSON record, then
 ``{"ok": true, "device": {...}}`` end the output.
@@ -318,8 +359,9 @@ def phase_main_path(model, batch: dict, dev: str = "cuda"):
     sparse_conv.masked_gather_ref = recording(real_ref)
     try:
         stats = {}
-        model(jittered(batch, 0), device=dev, stats=stats)
-        sync(dev)
+        with recording_dynamic() as dynamic_in:
+            model(jittered(batch, 0), device=dev, stats=stats)
+            sync(dev)
     finally:
         sparse_conv.masked_gather = real_gather
         sparse_conv.masked_gather_ref = real_ref
@@ -338,12 +380,15 @@ def phase_main_path(model, batch: dict, dev: str = "cuda"):
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launches()
-    times = []
+    times, per_request = [], []
     for i in range(N_REQUESTS):
+        before = dict(cuda_build.LAUNCHES)
         t0 = time.perf_counter()
         out = model(jittered(batch, i + 1), device=dev)
         sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                            for k in PREDICT_KERNELS})
     launches = dict(cuda_build.LAUNCHES)
     p = model.pts_bbox_head.num_proposals
     shapes = {k: tuple(v.shape) for k, v in out.items()}
@@ -356,10 +401,14 @@ def phase_main_path(model, batch: dict, dev: str = "cuda"):
     req = dict(median_ms=statistics.median(times), max_ms=max(times),
                all_ms=times, voxels=stats["voxels"],
                pillars=stats["pillars"], active_sites=stats["active_sites"],
-               launches=launches)
+               launches_per_request=per_request, launches=launches)
     if dev == "cuda":
         req["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log("main_path", **req)
+    if dev == "cuda" and any(min(r.values()) == 0 for r in per_request):
+        raise RuntimeError(f"a request launched no {PREDICT_KERNELS}: "
+                           f"{per_request}")
+    req["dynamic_inputs"] = dynamic_in
     return launches, stage, req
 
 
@@ -606,8 +655,8 @@ def phase_breakdown(model, batch: dict, modules=BREAKDOWN_MODULES,
     log(f"{prefix}breakdown", request_ms=wall, module_ms=module_ms,
         rest_ms=wall - top)
 
-    device_profile(f"{prefix}profile",
-                   lambda: model(jittered(batch, 0), device="cuda"))
+    return device_profile(f"{prefix}profile",
+                          lambda: model(jittered(batch, 0), device="cuda"))
 
 
 def phase_precision_gap(model_bf16, batch: dict):
@@ -669,7 +718,7 @@ def phase_reference_check():
                            f"CPU by {worst:.3g} of the heatmap's max")
 
 
-PREDICT_KERNELS = ("masked_gather",)
+PREDICT_KERNELS = ("masked_gather", "dynamic_voxelize", "dynamic_scatter")
 TRAIN_WATCH = ("pts_middle_encoder", "fusion_encoder", "pts_bbox_head")
 
 
@@ -702,12 +751,13 @@ def device_profile(phase: str, fn, top: int = 10) -> None:
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ops) / 1e3
-    log(phase, wall_ms=wall, device_busy_ms=busy,
-        device_idle_share=1 - busy / wall if busy > 0 else "not measured",
-        device_ops=sum(e.count for e in ops),
-        top_device_ops=[dict(name=e.key[:70], count=e.count,
-                             ms=e.self_device_time_total / 1e3)
-                        for e in ops[:top]])
+    rec = dict(wall_ms=wall, device_busy_ms=busy,
+               device_idle_share=1 - busy / wall if busy > 0
+               else "not measured", device_ops=sum(e.count for e in ops))
+    log(phase, **rec, top_device_ops=[dict(name=e.key[:70], count=e.count,
+                                           ms=e.self_device_time_total / 1e3)
+                                      for e in ops[:top]])
+    return rec
 
 
 def _unchanged(model, watch: dict) -> list:
@@ -768,8 +818,9 @@ def phase_train(model, batch: dict, dev: str = "cuda",
         real_heat, heat_in)
     hook = model.register_forward_hook(at_forward_end)
     try:
-        step(jittered(batch, 0), gen)
-        sync(dev)
+        with recording_dynamic() as dynamic_in:
+            step(jittered(batch, 0), gen)
+            sync(dev)
         watch = {n: [p.detach().clone() for p in getattr(model,
                                                          n).parameters()]
                  for n in TRAIN_WATCH}
@@ -797,7 +848,13 @@ def phase_train(model, batch: dict, dev: str = "cuda",
                 mid["masked_gather"],
                 boxes_iou_3d=after["boxes_iou_3d"] - before["boxes_iou_3d"],
                 gaussian_heatmap=after["gaussian_heatmap"] -
-                before["gaussian_heatmap"])
+                before["gaussian_heatmap"],
+                dynamic_voxelize=mid["dynamic_voxelize"] -
+                before["dynamic_voxelize"],
+                dynamic_scatter_forward=mid["dynamic_scatter"] -
+                before["dynamic_scatter"],
+                dynamic_scatter_backward=after["dynamic_scatter"] -
+                mid["dynamic_scatter"])
             vals = {k: float(v) for k, v in m.items()}
             log("train_step", step=i, ms=times[-1], **split,
                 launches=launches, hungarian_ms=hungarian_ms[-1], **vals)
@@ -830,6 +887,7 @@ def phase_train(model, batch: dict, dev: str = "cuda",
         rec["peak_mem_gib"] = peak
     log("train", **rec)
     rec["heatmap_inputs"] = heat_in[0]
+    rec["dynamic_inputs"] = dynamic_in
     if unchanged:
         raise RuntimeError(f"weights unchanged by {steps} train steps: "
                            f"{unchanged[:10]}")
@@ -2177,6 +2235,486 @@ def phase_cp_reference(dev: str = "cuda"):
                            f"kernel of {lg}")
 
 
+# ------------------------------------------------ K1 / K2 (both detectors)
+@contextlib.contextmanager
+def recording_dynamic():
+    """Inside the block, the first call of ``voxelize_dynamic`` (as the
+    IS-Fusion and MVX detectors call it), of ``segment_mean`` and of
+    ``segment_max`` at each width (as DynamicVFE calls them) keep their
+    inputs in the yielded dict ("voxelize", "mean", "max64", ...); the
+    kernels still run."""
+    from isfusion_tpu_torch.models import voxel_encoders
+    from isfusion_tpu_torch.models.detectors import isfusion, mvx_two_stage
+
+    seen = {}
+    real_vox = isfusion.voxelize_dynamic
+    real_max = voxel_encoders.segment_max
+    real_mean = voxel_encoders.segment_mean
+
+    def vox(points, mask, pcr, vs):
+        seen.setdefault("voxelize", (points.detach().clone(), mask.clone(),
+                                     tuple(pcr), tuple(vs)))
+        return real_vox(points, mask, pcr, vs)
+
+    def smax(data, ids, n):
+        seen.setdefault(f"max{data.shape[1]}", (data.detach().clone(),
+                                                ids.clone(), int(n)))
+        return real_max(data, ids, n)
+
+    def smean(data, ids, n):
+        seen.setdefault("mean", (data.detach().clone(), ids.clone(), int(n)))
+        return real_mean(data, ids, n)
+
+    isfusion.voxelize_dynamic = mvx_two_stage.voxelize_dynamic = vox
+    voxel_encoders.segment_max, voxel_encoders.segment_mean = smax, smean
+    try:
+        yield seen
+    finally:
+        isfusion.voxelize_dynamic = mvx_two_stage.voxelize_dynamic = real_vox
+        voxel_encoders.segment_max = real_max
+        voxel_encoders.segment_mean = real_mean
+
+
+def device_ms_per_call(fn, iters: int = 20):
+    """Device ms of every device operation of one ``fn()`` call (the
+    profiler's), or "not measured" off the card."""
+    import torch
+    if not torch.cuda.is_available():
+        return "not measured"
+    ops = device_kernels(fn, iters)
+    return sum(n * ms for n, ms in ops.values())
+
+
+def voxelize_bytes(points, nv: int) -> int:
+    """Least bytes of K1: xyz (12) and the mask (1) read once per point,
+    the point's row (8) written once, each voxel's (b, z, y, x) (16)
+    written once."""
+    p = points.shape[0] * points.shape[1]
+    return p * (12 + 1 + 8) + nv * 16
+
+
+def voxelize_design_bytes(points, nv: int, grid) -> int:
+    """Bytes the bitmap design moves beyond that: the bitmap zeroed,
+    scanned and read by the table pass (4 bytes a word, 3 times), the
+    word prefixes written and read (twice), each point's key written and
+    read (16) and its word read (4)."""
+    b, p = points.shape[:2]
+    words = (b * grid[0] * grid[1] * grid[2] + 31) // 32
+    return voxelize_bytes(points, nv) + words * 4 * 5 + b * p * 20
+
+
+def scatter_bytes(p: int, c: int, s: int) -> int:
+    """Least bytes of a K2 forward: the (P, C) rows (4 each) and the ids
+    (8) read once, the (S, C) segments written once."""
+    return p * c * 4 + p * 8 + s * c * 4
+
+
+def dynamic_check(label: str, seen: dict, dev: str = "cuda",
+                  sets=()) -> dict:
+    """K1 and K2 against their plain versions on ``seen``
+    (``recording_dynamic``: the main path's own inputs) and on ``sets``
+    ((name, points, mask, pcr, voxel size) for K1 alone). K1: rows and
+    table equal. K2 max: forward and backward (a seeded gradient) equal;
+    K2 mean: equal to the plain version on the CPU (the same sum order),
+    within 1e-6 of the output's max of the plain version on the card,
+    equal to itself on a second call. Each case logs a ``[dynamic_check]``
+    line with the kernel's ms (CUDA events), device ms (profiler, every
+    device operation of one call), the plain version's ms, the library
+    call's ms (``torch.unique(return_inverse=True)`` of the linear ids for
+    K1, ``scatter_reduce_`` for K2) and the byte bound. Returns the
+    records by case."""
+    import torch
+    from isfusion_tpu_torch.ops import scatter, voxel
+
+    recs = {}
+    cases = []
+    if "voxelize" in seen:
+        cases.append(("voxelize",) + tuple(seen["voxelize"]))
+    cases += [(n,) + tuple(args) for n, *args in sets]
+    for name, pts, mask, pcr, vs in cases:
+        pts, mask = pts.to(dev), mask.to(dev)
+        got = voxel.voxelize_dynamic(pts, mask, pcr, vs)
+        ref = voxel.voxelize_dynamic_ref(pts, mask, pcr, vs)
+        sync(dev)
+        equal = torch.equal(got.point_voxel_index, ref.point_voxel_index) \
+            and torch.equal(got.voxel_coors, ref.voxel_coors)
+        nv = int(ref.voxel_coors.shape[0])
+        coors, in_range, grid = voxel.compute_voxel_coords(pts, pcr, vs)
+        keys = voxel._keys(coors, grid).reshape(-1)[
+            (mask.bool() & in_range).reshape(-1)]
+        nbytes = voxelize_bytes(pts, nv)
+        r = dict(kernel="dynamic_voxelize", points=int(pts.shape[0] *
+                                                       pts.shape[1]),
+                 voxels=nv, equal=equal, bytes=nbytes,
+                 design_bytes=voxelize_design_bytes(
+                     pts, nv, (grid[2], grid[1], grid[0])),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 max_abs_err=0.0 if equal else float("inf"))
+        if name == "voxelize":
+            r.update(ms=cuda_ms(lambda: voxel.voxelize_dynamic(
+                         pts, mask, pcr, vs), dev),
+                     device_ms=device_ms_per_call(
+                         lambda: voxel.voxelize_dynamic(pts, mask, pcr, vs)),
+                     plain_ms=cuda_ms(lambda: voxel.voxelize_dynamic_ref(
+                         pts, mask, pcr, vs), dev, iters=5),
+                     library_ms=cuda_ms(lambda: torch.unique(
+                         keys, sorted=True, return_inverse=True), dev,
+                         iters=5))
+        recs[name] = r
+        log("dynamic_check", on=label, case=name, **r)
+        if not equal:
+            raise RuntimeError(f"dynamic_voxelize differs from its plain "
+                               f"version on {label} {name}")
+    gen = torch.Generator().manual_seed(21)
+    for name in sorted(k for k in seen if k.startswith("max")):
+        data, ids, n = seen[name]
+        p, c = data.shape
+        g = torch.randn((n, c), generator=gen).to(dev)
+        res = []
+        for fn in (scatter.segment_max, scatter.segment_max_ref):
+            x = data.clone().requires_grad_(True)
+            out = fn(x, ids, n)
+            out.backward(g)
+            res.append((out.detach(), x.grad))
+        sync(dev)
+        (ko, kg), (po, pg) = res
+        equal = torch.equal(ko, po) and torch.equal(kg, pg)
+        idx = ids.view(-1, 1).expand(p, c)
+
+        def bwd():
+            x = data.clone().requires_grad_(True)
+            scatter.segment_max(x, ids, n).backward(g)
+
+        nbytes = scatter_bytes(p, c, n)
+        bwd_bytes = p * c * 4 * 2 + p * 8 + n * c * 4 * 2
+        r = dict(kernel="dynamic_scatter", op="max", P=p, C=c, S=n,
+                 equal=equal, max_abs_err=max(float((ko - po).abs().max()),
+                                              float((kg - pg).abs().max())),
+                 bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes",
+                 ms=cuda_ms(lambda: scatter.segment_max(data, ids, n), dev),
+                 device_ms=device_ms_per_call(
+                     lambda: scatter.segment_max(data, ids, n)),
+                 plain_ms=cuda_ms(lambda: scatter.segment_max_ref(
+                     data, ids, n), dev),
+                 library_ms=cuda_ms(lambda: torch.zeros(
+                     (n, c), device=dev).scatter_reduce_(
+                         0, idx, data, "amax", include_self=False), dev),
+                 fwd_bwd_ms=cuda_ms(bwd, dev, iters=10),
+                 backward_bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3)
+        recs[name] = r
+        log("dynamic_check", on=label, case=name, **r)
+        if not equal:
+            raise RuntimeError(f"segment_max differs from its plain version "
+                               f"on {label} {name}")
+    if "mean" in seen:
+        data, ids, n = seen["mean"]
+        p, c = data.shape
+        got = scatter.segment_mean(data, ids, n)
+        again = scatter.segment_mean(data, ids, n)
+        plain = scatter.segment_mean_ref(data, ids, n)
+        cpu = scatter.segment_mean_ref(data.cpu(), ids.cpu(), n)
+        sync(dev)
+        scale = float(plain.abs().max().clamp_min(1e-30))
+        err = float((got - plain).abs().max())
+        nbytes = scatter_bytes(p, c, n)
+        r = dict(kernel="dynamic_scatter", op="mean", P=p, C=c, S=n,
+                 equal_to_cpu=torch.equal(got.cpu(), cpu),
+                 repeats=torch.equal(got, again),
+                 plain_on_card_repeats=torch.equal(
+                     plain, scatter.segment_mean_ref(data, ids, n)),
+                 max_abs_err=err, err_of_max=err / scale, bytes=nbytes,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 ms=cuda_ms(lambda: scatter.segment_mean(data, ids, n), dev),
+                 device_ms=device_ms_per_call(
+                     lambda: scatter.segment_mean(data, ids, n)),
+                 plain_ms=cuda_ms(lambda: scatter.segment_mean_ref(
+                     data, ids, n), dev),
+                 library_ms=cuda_ms(lambda: torch.zeros(
+                     (n, c), device=dev).scatter_reduce_(
+                         0, ids.view(-1, 1).expand(p, c), data, "mean",
+                         include_self=False), dev))
+        recs["mean"] = r
+        log("dynamic_check", on=label, case="mean", **r)
+        if not (r["equal_to_cpu"] and r["repeats"]) or r["err_of_max"] > 1e-6:
+            raise RuntimeError(f"segment_mean off its plain versions on "
+                               f"{label}: {r}")
+    return recs
+
+
+# ------------------------------------------------------------------ MVX-Net
+MVX_PREDICT_KERNELS = ("dynamic_voxelize", "dynamic_scatter", "masked_gather",
+                       "nms_bev")
+MVX_MODULES = ("img_backbone", "img_neck", "pts_voxel_encoder",
+               "pts_middle_encoder", "pts_backbone", "pts_neck",
+               "pts_bbox_head")
+# parameters a train step must move: the VFE's layers, PointFusion, the
+# sparse encoder, FPN, ResNet's last stage, the head
+MVX_TRAIN_WATCH = ("pts_voxel_encoder.vfe_layers.",
+                   "pts_voxel_encoder.fusion_layer.", "pts_middle_encoder.",
+                   "img_neck.", "img_backbone.layer4.", "pts_bbox_head.")
+
+
+def phase_mvx_main_path(model, batch: dict, dev: str = "cuda"):
+    """MVX-Net serving: 1 warm-up + N_REQUESTS batch-1 requests (bf16
+    convs; voxelization, the VFE, PointFusion's sampling and transforms,
+    decode and NMS float32), the points jittered per request. Launch
+    counts are zeroed just before the timed requests and read after each;
+    fails unless K1, K2, K12 and K10-NMS launched in every request.
+    Returns (launch counts, the warm-up's K1 / K2 inputs, record)."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+
+    stats = {}
+    with recording_dynamic() as seen:
+        model(jittered(batch, 0), device=dev, stats=stats)
+        sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_request = [], []
+    for i in range(N_REQUESTS):
+        before = dict(cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = model(jittered(batch, i + 1), device=dev)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                            for k in MVX_PREDICT_KERNELS})
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+    idle = phase_breakdown(model, batch, MVX_MODULES, (), "mvx_")[
+        "device_idle_share"] if dev == "cuda" else "not measured"
+    n = int(model.pts_bbox_head.test_cfg.get("max_num", 500))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != dict(bboxes=(1, n, 7), scores=(1, n), labels=(1, n),
+                      mask=(1, n)):
+        raise RuntimeError(f"unexpected MVX-Net output shapes {shapes}")
+    m = out["mask"]
+    if not (torch.isfinite(out["bboxes"][m]).all()
+            and torch.isfinite(out["scores"][m]).all()):
+        raise RuntimeError("non-finite MVX-Net boxes")
+    cap_train, cap_test = model.pts_voxel_layer["max_voxels"]
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, points=int(batch["points"].shape[1]),
+               voxels=stats["voxels"], jax_cap=[cap_train, cap_test],
+               over_jax_cap=max(stats["voxels"]) > cap_test,
+               active_sites=stats["active_sites"], kept_boxes=int(m.sum()),
+               kept_per_class=torch.bincount(
+                   out["labels"][m], minlength=3).tolist(),
+               device_idle_share=idle,
+               launches_per_request=per_request, launches=launches)
+    if peak is not None:
+        rec["peak_mem_gib"] = peak
+    log("mvx_main_path", **rec)
+    if dev == "cuda" and any(min(r.values()) == 0 for r in per_request):
+        raise RuntimeError(f"an MVX-Net request launched no "
+                           f"{MVX_PREDICT_KERNELS}: {per_request}")
+    return launches, seen, rec
+
+
+def _watched(model, prefixes) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if n.startswith(prefixes) and p.requires_grad}
+
+
+def phase_mvx_train(model, batch: dict, dev: str = "cuda",
+                    steps: int = N_TRAIN_STEPS) -> dict:
+    """1 warm-up + ``steps`` MVX-Net train steps at batch 2 with the
+    config's AdamW, CosineAnnealing with linear warmup and clip 35;
+    launches per step split at the end of each step's forward. Fails on a
+    non-finite loss or a zero grad norm, a step without K1, K2 forward, K2
+    backward, K12 forward or K12 backward, an unchanged weight of the
+    VFE, PointFusion, the sparse encoder, FPN, ResNet's layer4 or the
+    head, or a changed frozen ResNet parameter or BN statistic (the stem,
+    layer1, every BatchNorm). Returns the record (with the warm-up's K1 /
+    K2 inputs)."""
+    import torch
+    from isfusion_tpu_torch.flagship import mvxnet_optim_cfg
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    cfg = mvxnet_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(
+        model, opt, build_schedule(opt, cfg["lr_config"], None),
+        grad_clip_norm(cfg["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    frozen = {n: t.detach().clone() for n, t in
+              model.img_backbone.state_dict().items()
+              if n.split(".")[0] in ("conv1", "bn1", "layer1") or
+              ".bn" in n or ".downsample.1." in n}
+    with recording_dynamic() as seen:
+        step(jittered(batch, 0), gen)
+        sync(dev)
+    watch = _watched(model, MVX_TRAIN_WATCH)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+
+    def event():
+        if dev != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    marks = []
+    hook = model.register_forward_hook(
+        lambda *_: marks.append((dict(cuda_build.LAUNCHES), event())))
+    times, per_step = [], []
+    try:
+        for i in range(steps):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            ev0 = event()
+            m = step(jittered(batch, i + 1), gen)
+            ev1 = event()
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            after, (mid, ev_fwd) = dict(cuda_build.LAUNCHES), marks[-1]
+            split = {} if ev0 is None else dict(
+                forward_stream_ms=ev0.elapsed_time(ev_fwd),
+                backward_update_stream_ms=ev_fwd.elapsed_time(ev1))
+            launches = dict(
+                dynamic_voxelize=mid["dynamic_voxelize"] -
+                before["dynamic_voxelize"],
+                dynamic_scatter_forward=mid["dynamic_scatter"] -
+                before["dynamic_scatter"],
+                dynamic_scatter_backward=after["dynamic_scatter"] -
+                mid["dynamic_scatter"],
+                masked_gather_forward=mid["masked_gather"] -
+                before["masked_gather"],
+                masked_gather_backward=after["masked_gather"] -
+                mid["masked_gather"])
+            vals = {k: float(v) for k, v in m.items()}
+            log("mvx_train_step", step=i, ms=times[-1], **split,
+                launches=launches, **vals)
+            per_step.append(launches)
+            if any(not math.isfinite(v) for v in vals.values()) or \
+                    vals["grad_norm"] == 0:
+                raise RuntimeError(f"MVX-Net train step {i}: {vals}")
+            if dev == "cuda" and min(launches.values()) == 0:
+                raise RuntimeError(f"MVX-Net train step {i}: a kernel did "
+                                   f"not launch: {launches}")
+    finally:
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+    if dev == "cuda":
+        device_profile("mvx_train_profile",
+                       lambda: step(jittered(batch, 0), gen), top=12)
+    params = dict(model.named_parameters())
+    unchanged = [n for n, t in watch.items() if torch.equal(params[n], t)]
+    now = model.img_backbone.state_dict()
+    moved = [n for n, t in frozen.items() if not torch.equal(now[n], t)]
+    rec = dict(batch=batch["points"].shape[0],
+               median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, launches_per_step=per_step,
+               losses={k: float(v) for k, v in m.items()},
+               watched=len(watch), unchanged_weights=unchanged,
+               frozen_checked=len(frozen), frozen_moved=moved)
+    if peak is not None:
+        rec["peak_mem_gib"] = peak
+    log("mvx_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"weights unchanged by {steps} MVX-Net train "
+                           f"steps: {unchanged[:10]}")
+    if moved:
+        raise RuntimeError(f"frozen ResNet tensors changed: {moved[:10]}")
+    rec["dynamic_inputs"] = seen
+    return rec
+
+
+def phase_mvx_kernel_check(seen: dict, dev: str = "cuda") -> dict:
+    """K1 and K2 against their plain versions on the MVX request's own
+    inputs (``phase_mvx_main_path``) and K1 on ``testing.
+    voxel_adversarial_sets`` at MVX-Net's grid (points on voxel faces,
+    duplicates, out-of-range and masked points, empty samples)."""
+    import numpy as np
+    import torch
+    from isfusion_tpu_torch.flagship import mvxnet_model_cfg
+    from isfusion_tpu_torch.testing import voxel_adversarial_sets
+
+    vl = mvxnet_model_cfg()["pts_voxel_layer"]
+    pcr, vs = tuple(vl["point_cloud_range"]), tuple(vl["voxel_size"])
+    sets = [(name, torch.from_numpy(p), torch.from_numpy(m), pcr, vs)
+            for name, p, m in voxel_adversarial_sets(
+                np.random.default_rng(5), pcr, vs, p=60000)]
+    recs = dynamic_check("mvx_request", seen, dev, sets)
+    log("mvx_kernel_check", **{k: {f: v[f] for f in (
+        "ms", "device_ms", "bound_ms", "plain_ms", "library_ms") if f in v}
+        for k, v in recs.items()})
+    return recs
+
+
+def phase_mvx_reference(dev: str = "cuda"):
+    """Tiny MVX-Net, float32 (TF32 off): predict and one train step on
+    the card (its kernels) against the CPU (the plain versions) from the
+    same weights and batch, the box deltas tamed and the class prior
+    evened (``testing``) so that NMS sees full sets. The same boxes kept
+    with the same labels (``testing.pp_kept_boxes``), boxes and scores
+    within 1e-4 of their max; losses within 1e-4 relative, each top-level
+    module's gradient within 1e-3 of its max."""
+    import torch
+    from isfusion_tpu_torch.flagship import build_mvxnet
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+    from isfusion_tpu_torch.testing import (even_class_prior, pp_kept_boxes,
+                                            tame_box_deltas)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def run(d):
+        model, batch_fn = build_mvxnet(tiny=True, device=d, seed=1)
+        even_class_prior(tame_box_deltas(model))
+        batch = batch_fn(2, seed=3)
+        before = dict(cuda_build.LAUNCHES)
+        out = pp_kept_boxes(model, batch, d)
+        model.train()
+        opt = build_optimizer(model, dict(type="AdamW", lr=1e-4))
+        m = make_train_step(model, opt)(batch,
+                                        torch.Generator(d).manual_seed(0))
+        grads = {top: [p.grad.detach().cpu().flatten()
+                       for p in getattr(model, top).parameters()
+                       if p.grad is not None]
+                 for top in MVX_MODULES}
+        launched = {k: cuda_build.LAUNCHES[k] - before[k]
+                    for k in MVX_PREDICT_KERNELS}
+        return out, {k: float(v) for k, v in m.items()}, grads, launched
+
+    (og, mg, gg, lg), (oc, mc, gc, _) = run(dev), run("cpu")
+    if not torch.equal(og[2], oc[2]):
+        raise RuntimeError("tiny MVX-Net on the card kept other boxes than "
+                           "on the CPU")
+
+    def rel_to_max(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    box_err = max(rel_to_max(og[i], oc[i]) for i in (0, 1))
+    loss_err = max(abs(mg[k] - v) / max(abs(v), 1e-12) for k, v in mc.items())
+    grad_err = {top: rel_to_max(torch.cat(gg[top]), torch.cat(gc[top]))
+                for top in MVX_MODULES}
+    log("mvx_reference", kept=len(oc[2]), box_rel_err=box_err,
+        loss_rel_err=loss_err, grad_rel_err=grad_err, card_launches=lg,
+        losses=mc)
+    if len(oc[2]) == 0 or box_err > 1e-4 or loss_err > 1e-4 or \
+            max(grad_err.values()) > 1e-3:
+        raise RuntimeError(f"tiny MVX-Net on the card differs from the CPU: "
+                           f"boxes {box_err:.3g}, losses {loss_err:.3g}, "
+                           f"grads {grad_err}")
+    if dev == "cuda" and min(lg.values()) == 0:
+        raise RuntimeError(f"tiny MVX-Net on the card launched no kernel of "
+                           f"{lg}")
+
+
 def learn_run(work_dir: str) -> int:
     """``python3 chip_smoke.py --learn WORK_DIR``: the learnability recipe
     in full on the card. A fixture of 48 train / 16 val samples (seed 0,
@@ -2238,13 +2776,14 @@ def main() -> int:
                                              flagship_optim_cfg)
     model, batch_fn = build_isfusion_flagship(device="cuda", seed=0)
     batch = batch_fn(1)
-    launches, stage, _ = phase_main_path(model, batch)
+    launches, stage, serve_req = phase_main_path(model, batch)
     # K10 serves the assigner: it is on the train path, not this one
     missing = [k for k in PREDICT_KERNELS if launches[k] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")
     rec = phase_kernel_check(stage)
+    dyn_serve = dynamic_check("serve", serve_req.pop("dynamic_inputs"))
     bwd = phase_backward_check(*stage["stage0"])
     iou = phase_iou_check()
     del stage
@@ -2255,6 +2794,8 @@ def main() -> int:
     train = phase_train(model, train_batch(
         batch_fn, flagship_optim_cfg()["samples_per_gpu"]))
     del model
+    torch.cuda.empty_cache()
+    dyn_train = dynamic_check("train", train.pop("dynamic_inputs"))
     torch.cuda.empty_cache()
     phase_train_reference()
     torch.cuda.empty_cache()
@@ -2307,6 +2848,27 @@ def main() -> int:
                 "gaussian_heatmap"]))
     del circle_in, circle_eval_in
     phase_cp_reference()
+    torch.cuda.empty_cache()
+
+    from isfusion_tpu_torch.flagship import build_mvxnet, mvxnet_optim_cfg
+    from isfusion_tpu_torch.testing import even_class_prior
+    mvx, mvx_batch_fn = build_mvxnet(device="cuda", seed=0)
+    # random weights score every anchor near the focal prior's 0.01, under
+    # the 0.1 threshold, and regress boxes wider than the scene: serve
+    # (and train) with an even class prior and scene-sized boxes, so that
+    # NMS sees full candidate sets
+    even_class_prior(tame_box_deltas(mvx))
+    mvx_launches, mvx_seen, mvx_req = phase_mvx_main_path(mvx,
+                                                          mvx_batch_fn(1))
+    mvx.pts_bbox_head.reset_special_parameters()   # the focal prior back
+    mvx_train = phase_mvx_train(mvx, mvx_batch_fn(mvxnet_optim_cfg()[
+        "samples_per_gpu"]))
+    mvx_train.pop("dynamic_inputs")
+    del mvx
+    torch.cuda.empty_cache()
+    mvx_dyn = phase_mvx_kernel_check(mvx_seen)
+    del mvx_seen
+    phase_mvx_reference()
 
     kernels = [dict(
         name="masked_gather", route="cuda",
@@ -2394,7 +2956,64 @@ def main() -> int:
              cp_train_launches_per_step=[s["gaussian_heatmap"] for s in
                                          cp_train["launches_per_step"]],
              train_launches_per_step=per_step["gaussian_heatmap"],
-             flagship_train_shape=cp_rec["flagship_train"])]
+             flagship_train_shape=cp_rec["flagship_train"]),
+        dict(name="dynamic_voxelize", route="cuda",
+             source="isfusion_tpu_torch/csrc/dynamic_voxelize.cu",
+             replaces="isfusion_tpu/ops/voxel.py:125",
+             launches=launches["dynamic_voxelize"],
+             max_abs_err=max(r["voxelize"]["max_abs_err"] for r in (
+                 dyn_serve, dyn_train, mvx_dyn)),
+             **{k: dyn_serve["voxelize"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "device_ms", "points", "voxels", "design_bytes")},
+             launches_per_request=[r["dynamic_voxelize"] for r in serve_req[
+                 "launches_per_request"]],
+             train_launches_per_step=per_step["dynamic_voxelize"],
+             train_shape={k: dyn_train["voxelize"][k] for k in (
+                 "points", "voxels", "ms", "device_ms", "plain_ms",
+                 "library_ms", "bound_ms")},
+             mvx_launches_per_request=[r["dynamic_voxelize"] for r in
+                                       mvx_req["launches_per_request"]],
+             mvx_train_launches_per_step=[s["dynamic_voxelize"] for s in
+                                          mvx_train["launches_per_step"]],
+             mvx_shape={k: mvx_dyn["voxelize"][k] for k in (
+                 "points", "voxels", "ms", "device_ms", "plain_ms",
+                 "library_ms", "bound_ms")}),
+        dict(name="dynamic_scatter", route="cuda",
+             source="isfusion_tpu_torch/csrc/dynamic_scatter.cu",
+             replaces="isfusion_tpu/ops/voxel.py:169",
+             launches=launches["dynamic_scatter"],
+             max_abs_err=max(r[k]["max_abs_err"] for r in (
+                 dyn_serve, dyn_train, mvx_dyn) for k in r
+                 if r[k]["kernel"] == "dynamic_scatter"),
+             **{k: dyn_serve["max64"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "device_ms", "P", "C", "S", "fwd_bwd_ms")},
+             mean=dict({k: dyn_serve["mean"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+                 "err_of_max", "equal_to_cpu", "repeats",
+                 "plain_on_card_repeats")}),
+             launches_per_request=[r["dynamic_scatter"] for r in serve_req[
+                 "launches_per_request"]],
+             train_launches_per_step=dict(
+                 forward=per_step["dynamic_scatter_forward"],
+                 backward=per_step["dynamic_scatter_backward"]),
+             mvx_launches_per_request=[r["dynamic_scatter"] for r in
+                                       mvx_req["launches_per_request"]],
+             mvx_train_launches_per_step=[dict(
+                 forward=s["dynamic_scatter_forward"],
+                 backward=s["dynamic_scatter_backward"])
+                 for s in mvx_train["launches_per_step"]],
+             train_shape={k: {f: v[f] for f in ("P", "C", "S", "ms",
+                                                "fwd_bwd_ms", "plain_ms",
+                                                "bound_ms") if f in v}
+                          for k, v in dyn_train.items()
+                          if v["kernel"] == "dynamic_scatter"},
+             mvx_shape={k: {f: v[f] for f in ("P", "C", "S", "ms",
+                                              "fwd_bwd_ms", "plain_ms",
+                                              "bound_ms") if f in v}
+                        for k, v in mvx_dyn.items()
+                        if v["kernel"] == "dynamic_scatter"})]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,12 @@ nus-3d.py`` the same way, and ``pointpillars_optim_cfg`` gives its
 ``configs/centerpoint/centerpoint_0075voxel_second_secfpn_circlenms_4x8_
 cyclic_20e_nus.py`` (hard 0.075 m voxels, circle NMS), and
 ``centerpoint_optim_cfg`` gives its recipe (AdamW, cyclic lr and
-momentum, clip 35).
+momentum, clip 35). ``build_mvxnet`` builds MVX-Net of
+``configs/mvxnet/dv_mvx-fpn_second_secfpn_adamw_2x8_80e_kitti-3d-3class.py``
+(``DynamicMVXFasterRCNN``: ResNet-50 + FPN, dynamic voxels, PointFusion,
+the conv_module SparseEncoder, the 3-class KITTI Anchor3DHead) with a
+KITTI-like synthetic batch of one camera, and ``mvxnet_optim_cfg`` its
+recipe (AdamW, CosineAnnealing with linear warmup, clip 35).
 """
 from __future__ import annotations
 
@@ -47,6 +52,9 @@ POINTPILLARS_CFG = os.path.join(
 CENTERPOINT_CFG = os.path.join(
     REPO_ROOT, "configs", "centerpoint",
     "centerpoint_0075voxel_second_secfpn_circlenms_4x8_cyclic_20e_nus.py")
+MVXNET_CFG = os.path.join(
+    REPO_ROOT, "configs", "mvxnet",
+    "dv_mvx-fpn_second_secfpn_adamw_2x8_80e_kitti-3d-3class.py")
 
 # config keys of the modules that carry a compute_dtype
 _DTYPE_MODULES = ("img_backbone", "img_neck", "pts_middle_encoder",
@@ -86,10 +94,11 @@ def synthetic_multimodal_batch(batch_size: int, num_points: int = 200000,
 
 
 def _lidar_cloud(rng: np.random.Generator, num_points: int,
-                 pcr, sweeps: int = 10) -> np.ndarray:
+                 pcr, sweeps: int = 10,
+                 sensor_height: float = 1.84) -> np.ndarray:
     """Ray-cast a nuScenes-like multi-sweep cloud: 32-beam spinning LiDAR
-    over a ground plane with random walls plus dense object clusters.
-    Returns (num_points, 3) xyz inside ``pcr``."""
+    ``sensor_height`` m over a ground plane with random walls plus dense
+    object clusters. Returns (num_points, 3) xyz inside ``pcr``."""
     beams = 32
     elev = np.deg2rad(np.linspace(-30.0, 10.0, beams))
     clouds = []
@@ -99,7 +108,8 @@ def _lidar_cloud(rng: np.random.Generator, num_points: int,
             rng.uniform(0, 0.01)
         A, E = np.meshgrid(az, elev)
         with np.errstate(divide="ignore"):
-            r_ground = np.where(E < -0.005, 1.84 / np.tan(-E), 1e9)
+            r_ground = np.where(E < -0.005, sensor_height / np.tan(-E),
+                                1e9)
         wall_d = rng.uniform(4.0, 60.0, n_az)
         has_wall = rng.uniform(size=n_az) < 0.55
         r_wall = np.where(has_wall[None, :], wall_d[None, :], 1e9)
@@ -474,3 +484,169 @@ def build_centerpoint(tiny: bool = False, device=None, seed: int = 0
             0, 10, batch["gt_labels_3d"].shape)
         return batch
     return model, all_classes
+
+
+# MVX-Net: the KITTI LiDAR's mount height and the span of the serve cloud
+# (360 degrees; the config's range is the front half)
+KITTI_SENSOR_HEIGHT = 1.73
+MVXNET_CLOUD_RANGE = (-70.4, -40.0, -3.0, 70.4, 40.0, 1.0)
+MVXNET_IMG_HW = (384, 1280)
+# the anchor sizes of the three classes (Pedestrian, Cyclist, Car)
+KITTI_CLASS_SIZES = ((0.6, 0.8, 1.73), (0.6, 1.76, 1.73), (1.6, 3.9, 1.56))
+KITTI_CLASS_Z = (-0.6, -0.6, -1.78)
+
+
+def synthetic_kitti_batch(batch_size: int, num_points: int = 120000,
+                          img_hw=MVXNET_IMG_HW, num_gt: int = 16,
+                          seed: int = 0, pcr=MVXNET_CLOUD_RANGE,
+                          gt_range=(0.0, -40.0, 70.4, 40.0)) -> dict:
+    """KITTI-like synthetic batch: 4-dim points (x, y, z, reflectance) of
+    a 360-degree ray-cast cloud from a LiDAR 1.73 m above the ground
+    (``_lidar_cloud``, 4 sweeps) inside ``pcr``, one camera view (B, 1, H,
+    W, 3) with the KITTI-like ``lidar2img`` (``testing.kitti_lidar2img``),
+    and 3-class 7-dim GT boxes (pedestrian, cyclist, car: the anchors'
+    sizes and centres' heights, scaled by U(0.8, 1.2)) inside
+    ``gt_range`` (x0, y0, x1, y1), padded with a mask."""
+    from .testing import kitti_lidar2img
+
+    rng = np.random.default_rng(seed)
+    pts = np.empty((batch_size, num_points, 4), np.float32)
+    for b in range(batch_size):
+        pts[b, :, :3] = _lidar_cloud(np.random.default_rng(seed + b),
+                                     num_points, pcr, sweeps=4,
+                                     sensor_height=KITTI_SENSOR_HEIGHT)
+    pts[..., 3] = rng.uniform(0, 1, (batch_size, num_points))
+    h, w = img_hw
+    img = rng.uniform(size=(batch_size, 1, h, w, 3)).astype(np.float32)
+    l2i = np.broadcast_to(kitti_lidar2img(img_hw),
+                          (batch_size, 1, 4, 4)).copy()
+    labels = rng.integers(0, 3, (batch_size, num_gt))
+    size = np.asarray(KITTI_CLASS_SIZES, np.float32)[labels] * \
+        rng.uniform(0.8, 1.2, (batch_size, num_gt, 1))
+    boxes = np.zeros((batch_size, num_gt, 7), np.float32)
+    x0, y0, x1, y1 = gt_range
+    boxes[..., 0] = rng.uniform(x0 + 0.05 * (x1 - x0), x1 - 0.05 * (x1 - x0),
+                                (batch_size, num_gt))
+    boxes[..., 1] = rng.uniform(y0 + 0.05 * (y1 - y0), y1 - 0.05 * (y1 - y0),
+                                (batch_size, num_gt))
+    boxes[..., 2] = np.asarray(KITTI_CLASS_Z, np.float32)[labels]
+    boxes[..., 3:6] = size
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (batch_size, num_gt))
+    gt_mask = np.arange(num_gt)[None, :] < rng.integers(
+        max(num_gt // 2, 1), num_gt + 1, (batch_size, 1))
+    return dict(points=pts, points_mask=np.ones((batch_size, num_points),
+                                                bool),
+                img=img, lidar2img=l2i, gt_bboxes_3d=boxes,
+                gt_labels_3d=labels, gt_mask=gt_mask)
+
+
+# config keys of MVX-Net's modules that compute in bf16 at full width
+_MVX_BF16 = ("img_backbone", "img_neck", "pts_middle_encoder",
+             "pts_backbone", "pts_neck", "pts_bbox_head")
+# the tiny MVX-Net's scene: 12.8 m x 16 m in front of the car
+MVXNET_TINY_RANGE = [0.0, -8.0, -3.0, 12.8, 8.0, 1.0]
+
+
+def mvxnet_model_cfg(tiny: bool = False) -> dict:
+    """MVX-Net's model config dict. Full width: the config as written, the
+    convs (ResNet, FPN, PointFusion's lateral convs, the SparseEncoder,
+    SECOND, SECONDFPN, the head) in bf16; dynamic voxelization, the VFE,
+    PointFusion's sampling and transforms, targets, losses, decode and NMS
+    in float32. ``tiny``: a 12.8 x 16 m front scene at 0.2 x 0.2 x 0.4 m
+    voxels (a 64 x 80 x 10 grid), a 2-stage ResNet-50 of base width 4
+    (caffe, stage 1 frozen), a 2-level FPN with 3 outputs, a 2-stage
+    conv_module SparseEncoder, narrow SECOND / SECONDFPN / head, float32,
+    the JAX SparseEncoder's column caps lifted to the whole grid and its
+    voxel cap above the points (``stage_cap_ratios``, ``max_voxels``: read
+    by the JAX package only)."""
+    from .config import Config
+
+    model_cfg = copy.deepcopy(dict(Config.fromfile(MVXNET_CFG).model))
+    if not tiny:
+        for key in _MVX_BF16:
+            model_cfg[key] = dict(model_cfg[key], compute_dtype="bfloat16")
+        vfe = dict(model_cfg["pts_voxel_encoder"])
+        vfe["fusion_layer"] = dict(vfe["fusion_layer"],
+                                   compute_dtype="bfloat16")
+        model_cfg["pts_voxel_encoder"] = vfe
+        return model_cfg
+    pcr = MVXNET_TINY_RANGE
+    vs = [0.2, 0.2, 0.4]
+    ny, nx, cap = 80, 64, 4096
+    model_cfg["img_backbone"] = dict(
+        model_cfg["img_backbone"], base_channels=4, num_stages=2,
+        strides=(1, 2), out_indices=(0, 1))
+    model_cfg["img_neck"] = dict(model_cfg["img_neck"], in_channels=[16, 32],
+                                 out_channels=16, num_outs=3)
+    model_cfg["pts_voxel_layer"] = dict(
+        model_cfg["pts_voxel_layer"], point_cloud_range=pcr, voxel_size=vs,
+        max_voxels=(cap, cap))
+    model_cfg["pts_voxel_encoder"] = dict(
+        model_cfg["pts_voxel_encoder"], feat_channels=[16, 16],
+        voxel_size=vs, point_cloud_range=pcr,
+        fusion_layer=dict(model_cfg["pts_voxel_encoder"]["fusion_layer"],
+                          img_channels=16, pts_channels=16, mid_channels=16,
+                          out_channels=16, img_levels=[0, 1, 2]))
+    model_cfg["pts_middle_encoder"] = dict(
+        model_cfg["pts_middle_encoder"], in_channels=16,
+        sparse_shape=[11, ny, nx], base_channels=8, output_channels=16,
+        encoder_channels=((8,), (16, 16)), encoder_paddings=((1,), (1, 1)),
+        stage_cap_ratios=tuple((ny >> i) * (nx >> i) / cap + 1e-9
+                               for i in range(2)), dilation_ratio=1.0)
+    model_cfg["pts_backbone"] = dict(
+        model_cfg["pts_backbone"], in_channels=32, out_channels=[16, 32],
+        layer_nums=[1, 1])
+    model_cfg["pts_neck"] = dict(model_cfg["pts_neck"], in_channels=[16, 32],
+                                 out_channels=[16, 16])
+    head = dict(model_cfg["pts_bbox_head"], in_channels=32, feat_channels=32)
+    head["anchor_generator"] = dict(
+        head["anchor_generator"],
+        ranges=[[pcr[0], pcr[1], r[2], pcr[3], pcr[4], r[5]]
+                for r in head["anchor_generator"]["ranges"]])
+    model_cfg["pts_bbox_head"] = head
+    return model_cfg
+
+
+def mvxnet_optim_cfg() -> dict:
+    """MVX-Net's training recipe: ``optimizer`` (AdamW, lr 0.003, weight
+    decay 0.01), ``optimizer_config`` (clip 35), ``lr_config``
+    (CosineAnnealing, linear warmup over 1,000 steps from 0.1 of the lr,
+    ``min_lr_ratio`` 1e-5), ``momentum_config`` (None) and
+    ``samples_per_gpu`` 2. The config has no ``data`` section: the 2 is
+    the per-card batch of its name (``2x8``)."""
+    from .config import Config
+
+    cfg = Config.fromfile(MVXNET_CFG)
+    out = {k: copy.deepcopy(dict(cfg[k])) for k in (
+        "optimizer", "optimizer_config", "lr_config")}
+    out["momentum_config"] = None
+    out["samples_per_gpu"] = 2
+    return out
+
+
+def build_mvxnet(tiny: bool = False, device=None, seed: int = 0
+                 ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): MVX-Net (``DynamicMVXFasterRCNN``) with weights
+    drawn from ``seed``, in eval mode on ``device`` (default: the CUDA
+    card; raises if it is missing), and ``batch_fn(batch_size, seed=0)``
+    giving a KITTI-like numpy batch (``synthetic_kitti_batch``; full
+    width: 120,000 points of a 360-degree cloud, about half in the
+    config's front range, one 384 x 1280 view, 16 padded GT rows; tiny:
+    2,048 points over the tiny scene, one 64 x 192 view, 8 GT rows)."""
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model_cfg = mvxnet_model_cfg(tiny)
+    model = init_weights(build_detector(model_cfg), seed).to(dev).eval()
+    if tiny:
+        pcr = MVXNET_TINY_RANGE
+
+        def batch_fn(b, seed=0):
+            return synthetic_kitti_batch(
+                b, num_points=2048, img_hw=(64, 192), num_gt=8, seed=seed,
+                pcr=pcr, gt_range=(pcr[0], pcr[1], pcr[3], pcr[4]))
+    else:
+        def batch_fn(b, seed=0):
+            return synthetic_kitti_batch(b, seed=seed)
+    return model, batch_fn

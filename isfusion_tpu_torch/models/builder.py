@@ -1,27 +1,31 @@
-"""Builders for the model types of the IS-Fusion, PointPillars and
-CenterPoint paths (counterpart of ``isfusion_tpu/models/builder.py``):
+"""Builders for the model types of the IS-Fusion, PointPillars,
+CenterPoint and MVX-Net paths (counterpart of ``isfusion_tpu/models/builder.py``):
 config dicts with a ``type`` key become modules through the port's
 registries."""
 from __future__ import annotations
 
 from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
                         MIDDLE_ENCODERS, NECKS, VOXEL_ENCODERS, build_from_cfg)
+from .backbones.resnet import ResNet
 from .backbones.second import SECOND, SECONDV2
 from .backbones.swin import SwinTransformer
 from .dense_heads.anchor3d_head import Anchor3DHead
 from .dense_heads.centerpoint_head import CenterHead
 from .dense_heads.transfusion_head import TransFusionHeadV2
+from .fusion_layers.point_fusion import PointFusion
 from .middle_encoders.isfusion_encoder import ISFusionEncoder
 from .middle_encoders.pillar_scatter import PointPillarsScatter
 from .middle_encoders.sparse_encoder import SparseEncoder
+from .necks.fpn import FPN
 from .necks.generalized_lss import GeneralizedLSSFPN
 from .necks.second_fpn import SECONDFPN
 from .voxel_encoders import (DynamicVFE, HardSimpleVFE, HardVFE,
                              PillarFeatureNet)
 
 for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
-                   (BACKBONES, SECOND),
+                   (BACKBONES, SECOND), (BACKBONES, ResNet),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
+                   (NECKS, FPN), (FUSION_LAYERS, PointFusion),
                    (VOXEL_ENCODERS, DynamicVFE), (VOXEL_ENCODERS, HardVFE),
                    (VOXEL_ENCODERS, PillarFeatureNet),
                    (VOXEL_ENCODERS, HardSimpleVFE),

@@ -11,6 +11,10 @@ to (B, H * W * A, C), anchors ordered (H, W, size, rotation) as
 selections run on float32 scores with a stable order (equal scores keep
 the lower index first, as ``jax.lax.top_k``). The per-class NMS of a
 request is one launch of the K10-NMS kernel (``ops/box_ops.py``).
+With ``assigner_per_size`` (MVX-Net's KITTI head) the anchors of size i
+are matched only to the GTs of class i, as the reference's per-size
+assignment does; the JAX package reads the flag but matches every anchor
+to every GT (ROADMAP queue 3).
 Reference names: ``conv_cls``, ``conv_reg``, ``conv_dir_cls``.
 """
 from __future__ import annotations
@@ -100,9 +104,11 @@ class Anchor3DHead(nn.Module):
                  dir_offset: float = 0.7854, dir_limit_offset: float = 0.0,
                  bbox_coder=None, loss_cls=None, loss_bbox=None,
                  loss_dir=None, train_cfg=None, test_cfg=None,
-                 compute_dtype=None, **unused):
+                 assigner_per_size: bool = False, compute_dtype=None,
+                 **unused):
         super().__init__()
         self.num_classes = int(num_classes)
+        self.assigner_per_size = bool(assigner_per_size)
         self.use_direction_classifier = bool(use_direction_classifier)
         self.diff_rad_by_sin = bool(diff_rad_by_sin)
         self.dir_offset = float(dir_offset)
@@ -169,6 +175,31 @@ class Anchor3DHead(nn.Module):
         return (self._anchors[key], cat(0, self.num_classes),
                 cat(1, self.box_code_size), dirs)
 
+    def anchor_sizes(self, n_anchors: int, device) -> torch.Tensor:
+        """(A,) the size index of each anchor of ``_flat``'s order (H, W,
+        size, rotation per level)."""
+        gen = self.anchor_generator
+        r = len(gen.rotations)
+        return (torch.arange(n_anchors, device=device) // r) % len(gen.sizes)
+
+    def assign(self, anchors: torch.Tensor, gts: torch.Tensor,
+               labels: torch.Tensor, gmask: torch.Tensor) -> torch.Tensor:
+        """MaxIoUAssigner over nearest-BEV IoUs: (A,) -1 negative, -2
+        ignored, >= 0 the matched GT; per size with ``assigner_per_size``
+        (an anchor of size i sees only the GTs labelled i)."""
+        cfg = dict(self.train_cfg.get("assigner", dict(
+            pos_iou_thr=0.6, neg_iou_thr=0.45, min_pos_iou=0.45)))
+        ious = bbox_overlaps_nearest_3d(anchors, gts)
+        if self.assigner_per_size:
+            same = self.anchor_sizes(anchors.shape[0], anchors.device)[
+                :, None] == labels.long()[None, :]
+            ious = torch.where(same, ious, torch.full_like(ious, -1.0))
+        assigned, _ = max_iou_assign(
+            ious, gmask, float(cfg.get("pos_iou_thr", 0.6)),
+            float(cfg.get("neg_iou_thr", 0.45)),
+            float(cfg.get("min_pos_iou", 0.45)))
+        return assigned
+
     def loss(self, preds, gt_bboxes: torch.Tensor, gt_labels: torch.Tensor,
              gt_mask: torch.Tensor) -> dict:
         """Per-sample focal, smooth-L1 (sin difference of yaw, code
@@ -176,8 +207,6 @@ class Anchor3DHead(nn.Module):
         over the batch: dict(loss_cls, loss_bbox[, loss_dir])."""
         anchors, cls_scores, bbox_preds, dir_preds = self._flat(preds)
         code = self.box_code_size
-        assigner = dict(self.train_cfg.get("assigner", dict(
-            pos_iou_thr=0.6, neg_iou_thr=0.45, min_pos_iou=0.45)))
         code_weight = torch.tensor(
             [float(v) for v in self.train_cfg.get("code_weight",
                                                   [1.0] * code)],
@@ -185,11 +214,7 @@ class Anchor3DHead(nn.Module):
         per_sample = []
         for i in range(cls_scores.shape[0]):
             gts, gmask = gt_bboxes[i].float(), gt_mask[i].bool()
-            assigned, _ = max_iou_assign(
-                bbox_overlaps_nearest_3d(anchors, gts), gmask,
-                float(assigner.get("pos_iou_thr", 0.6)),
-                float(assigner.get("neg_iou_thr", 0.45)),
-                float(assigner.get("min_pos_iou", 0.45)))
+            assigned = self.assign(anchors, gts, gt_labels[i], gmask)
             pos, neg = assigned >= 0, assigned == -1
             safe = assigned.clamp_min(0)
             num_pos = pos.float().sum().clamp_min(1.0)

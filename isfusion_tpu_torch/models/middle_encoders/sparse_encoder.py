@@ -1,10 +1,14 @@
 """SECOND-style sparse 3D conv encoder (counterpart of
 ``isfusion_tpu/models/middle_encoders/sparse_encoder.py:SparseEncoder``).
 
-conv_input (SubM) -> encoder stages (basicblock layout: residual
-SparseBasicBlocks, each non-final stage closed by a stride-2
-SparseConv3d) -> conv_out (kernel (3,1,1), stride (2,1,1)) -> dense BEV
-(B, ny, nx, Z*C) with channel order z*C + c.
+conv_input (SubM) -> encoder stages -> conv_out (kernel (3,1,1), stride
+(2,1,1)) -> dense BEV (B, ny, nx, Z*C) with channel order z*C + c. Two
+stage layouts: ``block_type='basicblock'`` (IS-Fusion, CenterPoint:
+residual SparseBasicBlocks, each non-final stage closed by a stride-2
+SparseConv3d) and ``'conv_module'`` (the reference default, MVX-Net: in
+every stage but the first, block 0 is a stride-2 SparseConv3d with the
+stage's padding and the other blocks SubM conv + BN + ReLU modules on
+that stage's rulebook).
 
 Runs on the rulebook engine of ``ops/sparse_conv.py`` (spconv
 semantics, no capacity caps); its backward is built from the K12 gather.
@@ -20,7 +24,8 @@ and need no code here.
 
 Reference names: ``conv_input.{0,1}``,
 ``encoder_layers.encoder_layer{i}.{j}.{conv1,bn1,conv2,bn2}`` (blocks) or
-``.{0,1}`` (strided convs), ``conv_out.{0,1}``; spconv2 weight layout
+``.{0,1}`` (conv modules, strided or SubM), ``conv_out.{0,1}``; spconv2
+weight layout
 (out, kz, ky, kx, in).
 """
 from __future__ import annotations
@@ -127,10 +132,14 @@ class SparseEncoder(nn.Module):
                  dense_from_stage=None, engine=None, z_pad_to=None,
                  **unused):
         super().__init__()
-        if block_type != "basicblock":
-            raise NotImplementedError(
-                "the port's SparseEncoder implements block_type="
-                "'basicblock' (the IS-Fusion layout)")
+        if block_type not in ("basicblock", "conv_module"):
+            raise NotImplementedError(f"block_type {block_type!r}: the port's "
+                                      "SparseEncoder implements 'basicblock' "
+                                      "and 'conv_module'")
+        if tuple(order) != ("conv", "norm", "act"):
+            raise NotImplementedError("the port's SparseEncoder runs its "
+                                      "modules in ('conv', 'norm', 'act') "
+                                      "order")
         norm_cfg = norm_cfg or dict(type="BN1d", eps=1e-3, momentum=0.01)
         eps = norm_eps(norm_cfg, 1e-3)
         bn = dict(eps=eps, momentum=norm_momentum(norm_cfg, 0.01))
@@ -147,13 +156,17 @@ class SparseEncoder(nn.Module):
             stage = nn.ModuleList()
             for j, out_ch in enumerate(tuple(blocks)):
                 pad = _pad3(tuple(encoder_paddings[i])[j])
-                if j == len(blocks) - 1 and i != n_stages - 1:
+                strided = (j == len(blocks) - 1 and i != n_stages - 1) \
+                    if block_type == "basicblock" else (i != 0 and j == 0)
+                if strided:
                     stage.append(SparseConvModule(in_ch, out_ch, stride=2,
                                                   padding=pad, subm=False,
                                                   **bn))
                     nz = (nz + 2 * pad[0] - 3) // 2 + 1
-                else:
+                elif block_type == "basicblock":
                     stage.append(SparseBasicBlock(in_ch, out_ch, **bn))
+                else:
+                    stage.append(SparseConvModule(in_ch, out_ch, **bn))
                 in_ch = out_ch
             self.encoder_layers.add_module(f"encoder_layer{i + 1}", stage)
         self.n_stages = n_stages
@@ -183,6 +196,8 @@ class SparseEncoder(nn.Module):
             for blk in getattr(self.encoder_layers, f"encoder_layer{i + 1}"):
                 if isinstance(blk, SparseBasicBlock):
                     sp = blk(sp, rb)
+                elif blk.subm:
+                    sp, _ = blk(sp, rb)
                 else:
                     sp, _ = blk(sp)
                     rb = subm_rulebook(sp)

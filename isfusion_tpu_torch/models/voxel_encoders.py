@@ -5,7 +5,12 @@ PillarFeatureNet / HardSimpleVFE over hard-voxelized (V, T, C) buffers.
 Per-point features [point, xyz - voxel mean, xyz - voxel centre] go
 through Linear+BN+ReLU layers; after each layer the per-voxel max is
 taken, and concatenated back onto the points for the next layer.
-DynamicVFE works on the valid points only (dynamic shapes); the hard
+DynamicVFE works on the valid points only (dynamic shapes); its voxel
+means and maxima go through K2 (``ops/scatter.py``). With a
+``fusion_layer`` (MVX-Net's PointFusion) the last layer's point features
+are fused with the image features before the last voxel max, the
+reference layout (the JAX package fuses after the first layer; ROADMAP
+queue 3). The hard
 encoders keep the JAX package's padded buffers, masked BatchNorm
 (statistics of the valid point slots) and zeroed padded slots. Float32
 throughout: the JAX package runs its VFE without a compute dtype.
@@ -13,7 +18,7 @@ Reference names: ``vfe_layers.{i}.{linear,norm}``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -41,13 +46,18 @@ class DynamicVFE(nn.Module):
                  with_voxel_center: bool = True,
                  voxel_size=(0.2, 0.2, 4), point_cloud_range=(0, -40, -3,
                                                               70.4, 40, 1),
-                 norm_cfg=None, **unused):
+                 norm_cfg=None, fusion_layer=None, **unused):
         super().__init__()
         self.with_distance = with_distance
         self.with_cluster_center = with_cluster_center
         self.with_voxel_center = with_voxel_center
         self.voxel_size = list(voxel_size)
         self.point_cloud_range = list(point_cloud_range)
+        if fusion_layer:
+            from .builder import build_fusion_layer
+            self.fusion_layer = build_fusion_layer(fusion_layer)
+        else:
+            self.fusion_layer = None
         norm_cfg = dict(norm_cfg or dict(type="BN1d", eps=1e-3))
         cin = in_channels + 3 * with_cluster_center + \
             3 * with_voxel_center + int(with_distance)
@@ -58,9 +68,13 @@ class DynamicVFE(nn.Module):
         self.vfe_layers = nn.ModuleList(layers)
 
     def forward(self, points: torch.Tensor, point_voxel_index: torch.Tensor,
-                voxel_coors: torch.Tensor) -> torch.Tensor:
+                voxel_coors: torch.Tensor, img_feats=None,
+                calib: Optional[dict] = None) -> torch.Tensor:
         """points (B*P, C); point_voxel_index (B*P,) voxel row or -1;
-        voxel_coors (Nv, 4) (b, z, y, x). Returns (Nv, feat_channels[-1])."""
+        voxel_coors (Nv, 4) (b, z, y, x); with a fusion layer, img_feats
+        (per level (B, N, h, w, C)) and calib (``PointFusion.forward``).
+        Returns (Nv, width) voxel features: width feat_channels[-1], or the
+        fusion layer's out_channels."""
         nv = voxel_coors.shape[0]
         sel = point_voxel_index >= 0
         pts = points[sel].float()
@@ -77,10 +91,15 @@ class DynamicVFE(nn.Module):
             feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
         x = torch.cat(feats, -1)
         voxel_feats = None
+        last = len(self.vfe_layers) - 1
         for i, layer in enumerate(self.vfe_layers):
             x = layer(x)
+            if i == last and self.fusion_layer is not None and \
+                    img_feats is not None:
+                x = self.fusion_layer(img_feats, xyz, voxel_coors[vid, 0],
+                                      x, calib)
             voxel_feats = segment_max(x, vid, nv)
-            if i < len(self.vfe_layers) - 1:
+            if i < last:
                 x = torch.cat([x, voxel_feats[vid]], -1)
         return voxel_feats
 

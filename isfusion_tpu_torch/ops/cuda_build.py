@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # C signature of each kernel's entry point: (argtypes, restype)
-_P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+_P, _LL, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, \
+    ctypes.c_int
 SIGNATURES = {
     "masked_gather": ([_P, _P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
     "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
@@ -43,7 +44,15 @@ SIGNATURES = {
     "nms_circle": ([_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P], ctypes.c_int),
     "gaussian_heatmap": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P],
                          ctypes.c_int),
+    "dynamic_voxelize": ([_I, _P, _P, _LL, _LL, _LL, _F, _F, _F, _F, _F, _F,
+                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "dynamic_scatter": ([_I, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P], _I),
 }
+
+# values one block of csrc/prefix_scan.cuh scans (its TILE): the kernels
+# that use it take ceil(n / PREFIX_SCAN_TILE) words of tile totals
+PREFIX_SCAN_TILE = 2048
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -5,13 +5,35 @@ Dynamic shapes. Without a ``max_voxels`` cap (the reference's
 ``voxelize_hard`` takes the JAX package's per-sample cap. Voxel tables are
 ordered by batch, then by the z-major linear id — the order of the JAX
 voxelizers' dense relabelling — and carry (b, z, y, x) int32 coordinates.
-Plain PyTorch for now (ROADMAP queue K1/K5 for hand-written kernels).
+
+``voxelize_dynamic`` is K1: on a CUDA tensor it launches
+``csrc/dynamic_voxelize.cu`` (an occupancy bitmap, a popcount prefix sum:
+no sort) or raises; on a CPU tensor it takes its plain version
+``voxelize_dynamic_ref`` (``torch.unique``). Both give the same rows and
+the same table bit for bit. ``voxelize_hard`` is plain PyTorch (ROADMAP
+queue K5).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from . import cuda_build
+
+
+def grid_geometry(point_cloud_range: Sequence[float],
+                  voxel_size: Sequence[float]):
+    """(low, inv: (3,) float32 CPU tensors; grid (nx, ny, nz)): ``inv`` is
+    1/voxel_size rounded once from float64 to float32."""
+    pcr = tuple(float(v) for v in point_cloud_range)
+    vs = tuple(float(v) for v in voxel_size)
+    grid = (int(round((pcr[3] - pcr[0]) / vs[0])),
+            int(round((pcr[4] - pcr[1]) / vs[1])),
+            int(round((pcr[5] - pcr[2]) / vs[2])))
+    low = torch.tensor(pcr[:3], dtype=torch.float32)
+    inv = torch.tensor([1.0 / v for v in vs], dtype=torch.float32)
+    return low, inv, grid
 
 
 def compute_voxel_coords(points: torch.Tensor,
@@ -24,15 +46,9 @@ def compute_voxel_coords(points: torch.Tensor,
     floor((xyz - low) * inv) in float32, with ``inv`` = 1/voxel_size
     rounded once from float64 to float32 — the JAX package's arithmetic, so
     points on voxel boundaries land in the same voxel."""
-    pcr = tuple(float(v) for v in point_cloud_range)
-    vs = tuple(float(v) for v in voxel_size)
-    nx = int(round((pcr[3] - pcr[0]) / vs[0]))
-    ny = int(round((pcr[4] - pcr[1]) / vs[1]))
-    nz = int(round((pcr[5] - pcr[2]) / vs[2]))
+    low, inv, (nx, ny, nz) = grid_geometry(point_cloud_range, voxel_size)
     xyz = points[..., :3].float()
-    low = torch.tensor(pcr[:3], dtype=torch.float32, device=points.device)
-    inv = torch.tensor([1.0 / vs[0], 1.0 / vs[1], 1.0 / vs[2]],
-                       dtype=torch.float32, device=points.device)
+    low, inv = low.to(points.device), inv.to(points.device)
     cxyz = torch.floor((xyz - low) * inv).to(torch.int32)
     grid = torch.tensor([nx, ny, nz], dtype=torch.int32, device=points.device)
     in_range = ((cxyz >= 0) & (cxyz < grid)).all(-1)
@@ -68,10 +84,10 @@ class DynamicVoxels(NamedTuple):
     voxel_coors: torch.Tensor        # (Nv, 4) int32 (b, z, y, x), sorted
 
 
-def voxelize_dynamic(points: torch.Tensor, points_mask: torch.Tensor,
-                     point_cloud_range, voxel_size) -> DynamicVoxels:
-    """points (B, P, C), points_mask (B, P) -> per-point voxel rows and the
-    sorted unique voxel table (``dynamic_voxelize`` semantics)."""
+def voxelize_dynamic_ref(points: torch.Tensor, points_mask: torch.Tensor,
+                         point_cloud_range, voxel_size) -> DynamicVoxels:
+    """Plain PyTorch version of ``voxelize_dynamic`` (the CPU path and
+    K1's yardstick)."""
     coors, in_range, grid = compute_voxel_coords(points, point_cloud_range,
                                                  voxel_size)
     valid = (points_mask.bool() & in_range).reshape(-1)
@@ -80,6 +96,61 @@ def voxelize_dynamic(points: torch.Tensor, points_mask: torch.Tensor,
     pvi = torch.full_like(keys, -1)
     pvi[valid] = inv
     return DynamicVoxels(pvi, _decode_keys(uniq, grid))
+
+
+def voxelize_dynamic(points: torch.Tensor, points_mask: torch.Tensor,
+                     point_cloud_range, voxel_size) -> DynamicVoxels:
+    """points (B, P, C) float32, points_mask (B, P) -> per-point voxel rows
+    and the sorted unique voxel table (``dynamic_voxelize`` semantics, no
+    cap) — K1. Finite points; C >= 3."""
+    if points.dim() != 3 or points.shape[-1] < 3 or \
+            tuple(points_mask.shape) != tuple(points.shape[:2]):
+        raise ValueError(f"voxelize_dynamic: points (B, P, C >= 3) and mask "
+                         f"(B, P), got {tuple(points.shape)} and "
+                         f"{tuple(points_mask.shape)}")
+    if points.device != points_mask.device:
+        raise ValueError("voxelize_dynamic: points and mask on different "
+                         "devices")
+    if points.device.type == "cpu":
+        return voxelize_dynamic_ref(points, points_mask, point_cloud_range,
+                                    voxel_size)
+    if points.device.type != "cuda":
+        raise RuntimeError(f"voxelize_dynamic: no kernel for {points.device}")
+    if points.dtype != torch.float32:
+        raise TypeError("voxelize_dynamic: the kernel takes float32 points")
+    low, inv, grid = grid_geometry(point_cloud_range, voxel_size)
+    b, p, c = points.shape
+    dev = points.device
+    pts = points.contiguous()
+    mask = points_mask.to(torch.bool).contiguous()
+    n_words = (b * grid[0] * grid[1] * grid[2] + 31) // 32
+    tiles = -(-n_words // cuda_build.PREFIX_SCAN_TILE)
+    bitmap = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    prefix = torch.empty(n_words, dtype=torch.int32, device=dev)
+    tile_sums = torch.empty(tiles, dtype=torch.int32, device=dev)
+    keys = torch.empty(b * p, dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    rows = torch.empty(b * p, dtype=torch.int64, device=dev)
+    lib = cuda_build.load("dynamic_voxelize")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    geo = [float(v) for v in low.tolist() + inv.tolist()] + list(grid)
+
+    def launch(stage, table):
+        err = lib.dynamic_voxelize(
+            stage, pts.data_ptr(), mask.data_ptr(), b, p, c, *geo,
+            bitmap.data_ptr(), prefix.data_ptr(), tile_sums.data_ptr(),
+            keys.data_ptr(), total.data_ptr(), rows.data_ptr(),
+            table.data_ptr() if table is not None else None, stream)
+        if err != 0:
+            raise RuntimeError(f"dynamic_voxelize: kernel launch failed with "
+                               f"CUDA error {err}")
+
+    launch(0, None)
+    nv = int(total.item())
+    table = torch.empty((nv, 4), dtype=torch.int32, device=dev)
+    launch(1, table)
+    cuda_build.LAUNCHES["dynamic_voxelize"] += 1
+    return DynamicVoxels(rows, table)
 
 
 class HardVoxels(NamedTuple):

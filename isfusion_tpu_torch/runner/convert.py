@@ -1,5 +1,5 @@
-"""Carry the JAX package's IS-Fusion, PointPillars and CenterPoint
-variables into the port's state_dict.
+"""Carry the JAX package's IS-Fusion, PointPillars, CenterPoint and
+MVX-Net variables into the port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -60,11 +60,43 @@ _RULES = [
     (r"img_neck_m/lateral_(\d+)/bn", r"img_neck.lateral_convs.\1.bn", "norm"),
     (r"img_neck_m/fpn_(\d+)/Conv_0", r"img_neck.fpn_convs.\1.conv", "conv2d"),
     (r"img_neck_m/fpn_(\d+)/bn", r"img_neck.fpn_convs.\1.bn", "norm"),
+    # ResNet (mmdet names) and FPN (its extra convs numbered after the
+    # output convs, below)
+    (r"img_backbone_m/conv1", "img_backbone.conv1", "conv2d"),
+    (r"img_backbone_m/bn1/BatchNorm_0", "img_backbone.bn1", "norm"),
+    (r"img_backbone_m/layer(\d+)_(\d+)/(conv[123])",
+     r"img_backbone.layer\1.\2.\3", "conv2d"),
+    (r"img_backbone_m/layer(\d+)_(\d+)/(bn[123])/BatchNorm_0",
+     r"img_backbone.layer\1.\2.\3", "norm"),
+    (r"img_backbone_m/layer(\d+)_(\d+)/downsample",
+     r"img_backbone.layer\1.\2.downsample.0", "conv2d"),
+    (r"img_backbone_m/layer(\d+)_(\d+)/downsample_bn/BatchNorm_0",
+     r"img_backbone.layer\1.\2.downsample.1", "norm"),
+    (r"img_neck_m/(fpn_conv|extra_conv)_(\d+)/Conv_0",
+     r"img_neck.\1s.\2.conv", "conv2d"),
+    (r"img_neck_m/(fpn_conv|extra_conv)_(\d+)/bn", r"img_neck.\1s.\2.bn",
+     "norm"),
     # ------------------------------------------------------------- LiDAR
     (r"pts_voxel_encoder_m/LinearNormAct_(\d+)/Dense_0",
      r"pts_voxel_encoder.vfe_layers.\1.linear", "dense"),
     (r"pts_voxel_encoder_m/LinearNormAct_(\d+)/bn",
      r"pts_voxel_encoder.vfe_layers.\1.norm", "norm"),
+    # MVX-Net's PointFusion inside DynamicVFE: its MaskedBatchNorms are
+    # numbered img_transform's, pts_transform's, fuse's
+    (r"pts_voxel_encoder_m/PointFusion_0/lateral_(\d+)/Conv_0",
+     r"pts_voxel_encoder.fusion_layer.lateral_convs.\1.conv", "conv2d"),
+    (r"pts_voxel_encoder_m/PointFusion_0/lateral_(\d+)/bn",
+     r"pts_voxel_encoder.fusion_layer.lateral_convs.\1.bn", "norm"),
+    (r"pts_voxel_encoder_m/PointFusion_0/(img_transform|pts_transform)",
+     r"pts_voxel_encoder.fusion_layer.\1.0", "dense"),
+    (r"pts_voxel_encoder_m/PointFusion_0/fuse",
+     "pts_voxel_encoder.fusion_layer.fuse_conv.0", "dense"),
+    (r"pts_voxel_encoder_m/PointFusion_0/bn",
+     "pts_voxel_encoder.fusion_layer.img_transform.1", "norm"),
+    (r"pts_voxel_encoder_m/PointFusion_0/MaskedBatchNorm_1",
+     "pts_voxel_encoder.fusion_layer.pts_transform.1", "norm"),
+    (r"pts_voxel_encoder_m/PointFusion_0/MaskedBatchNorm_2",
+     "pts_voxel_encoder.fusion_layer.fuse_conv.1", "norm"),
     (r"pts_middle_encoder_m/(conv_input|conv_out)",
      r"pts_middle_encoder.\1.0", "sparse"),
     (r"pts_middle_encoder_m/(conv_input|conv_out)/bn",
@@ -279,6 +311,12 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
         while f"{base}.{n}.conv.weight" in sd:
             n += 1
         sd[f"{base}.{n}.{leaf}"] = sd.pop(k)
+
+    n_fpn = len({k.split(".")[2] for k in sd
+                 if k.startswith("img_neck.fpn_convs.")})
+    for k in [k for k in sd if k.startswith("img_neck.extra_convs.")]:
+        _, _, i, rest = k.split(".", 3)
+        sd[f"img_neck.fpn_convs.{int(i) + n_fpn}.{rest}"] = sd.pop(k)
 
     n_conv = len({k.split(".")[2] for k in sd
                   if k.startswith("pts_neck.deblocks.")})

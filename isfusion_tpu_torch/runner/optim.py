@@ -12,7 +12,10 @@
   each step from a copy of the JAX cyclic policy (mmcv CyclicLrUpdater /
   CyclicMomentumUpdater: cosine from the base value to ``base *
   target_ratio[0]`` over ``step_ratio_up`` of the steps, then cosine down
-  to ``base * target_ratio[1]``).
+  to ``base * target_ratio[1]``), the step policy with linear warmup
+  (PointPillars) or CosineAnnealing with linear warmup (MVX-Net; the JAX
+  package's optax cosine decay to ``base * min_lr_ratio`` after the
+  warmup).
 - ``grad_clip_norm``: the global-norm clip of ``optimizer_config``.
 
 Where the two packages differ: optax's ``adamw`` still decays a parameter
@@ -77,6 +80,32 @@ def step_schedule(base: float, steps, gamma: float = 0.1,
     return sched
 
 
+def cosine_schedule(base: float, total_steps: int,
+                    min_lr_ratio: float = 1e-3, warmup: Optional[str] = None,
+                    warmup_iters: int = 0, warmup_ratio: float = 1e-3
+                    ) -> Callable[[int], float]:
+    """mmcv CosineAnnealing as the JAX package composes it with optax: a
+    linear warmup from ``base * warmup_ratio`` to ``base`` over
+    ``warmup_iters`` steps, then ``optax.cosine_decay_schedule(base,
+    total_steps - warmup_iters, alpha=min_lr_ratio)`` counted from the
+    warmup's end."""
+    warm = warmup == "linear" and warmup_iters > 0
+    decay = max(total_steps - (warmup_iters if warm else 0), 1)
+    init = base * float(warmup_ratio)
+
+    def sched(count: int) -> float:
+        if warm:
+            if count < warmup_iters:
+                frac = 1 - min(max(count, 0), warmup_iters) / warmup_iters
+                return (init - base) * frac + base
+            count -= warmup_iters
+        t = min(max(count, 0), decay)
+        cos = 0.5 * (1 + math.cos(math.pi * t / decay))
+        return base * ((1 - min_lr_ratio) * cos + min_lr_ratio)
+
+    return sched
+
+
 def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict
                     ) -> torch.optim.AdamW:
     """AdamW with a param group per ``paramwise_cfg.custom_keys`` prefix
@@ -128,8 +157,9 @@ def build_schedule(optimizer: torch.optim.Optimizer,
                    momentum_config: Optional[dict] = None,
                    total_steps: int = 10000,
                    steps_per_epoch: int = 1) -> Schedule:
-    """lr and beta1 schedules of a config: cyclic (IS-Fusion) or step
-    with linear warmup (PointPillars' lr), else constant."""
+    """lr and beta1 schedules of a config: cyclic (IS-Fusion), step with
+    linear warmup (PointPillars' lr) or CosineAnnealing with linear warmup
+    (MVX-Net's lr), else constant."""
     base_lr = float(optimizer.param_groups[0].get(
         "base_lr", optimizer.param_groups[0]["lr"]))
     base_b1 = float(optimizer.param_groups[0]["betas"][0])
@@ -143,10 +173,15 @@ def build_schedule(optimizer: torch.optim.Optimizer,
                 base, cfg.get("step", []), float(cfg.get("gamma", 0.1)),
                 cfg.get("warmup"), int(cfg.get("warmup_iters", 0)),
                 float(cfg.get("warmup_ratio", 1e-3)), steps_per_epoch)
+        if cfg.get("policy") in ("CosineAnnealing", "cosine") and is_lr:
+            return cosine_schedule(
+                base, total_steps, float(cfg.get("min_lr_ratio", 1e-3)),
+                cfg.get("warmup"), int(cfg.get("warmup_iters", 0)),
+                float(cfg.get("warmup_ratio", 1e-3)))
         if cfg.get("policy") != "cyclic":
             raise NotImplementedError(
-                f"the port's schedules are cyclic or step (lr), not "
-                f"{cfg.get('policy')}")
+                f"the port's schedules are cyclic, step or CosineAnnealing "
+                f"(lr), not {cfg.get('policy')}")
         return cyclic_schedule(base, cfg.get("target_ratio", default_ratio),
                                int(cfg.get("cyclic_times", 1)),
                                float(cfg.get("step_ratio_up", 0.4)),

@@ -1,12 +1,14 @@
 """Helpers shared by the port's checks (``chip_smoke.py``,
 ``tests/test_torch_cuda.py`` and the CPU tests): what makes a
 PointPillars or CenterPoint prediction on the card comparable with the
-same prediction on the CPU, and the NMS input sets that K10-NMS and
-K10-circle are held on."""
+same prediction on the CPU, the NMS input sets that K10-NMS and
+K10-circle are held on, MVX-Net's KITTI-like camera and the voxel sets
+that K1 (dynamic voxelization) is held on."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -18,6 +20,15 @@ def tame_box_deltas(model, scale: float = 0.01):
     the boxes stay near their anchors (scene-sized)."""
     with torch.no_grad():
         model.pts_bbox_head.conv_reg.weight.mul_(scale)
+    return model
+
+
+def even_class_prior(model):
+    """Zero the Anchor3DHead's class bias (the focal prior puts every
+    random-weight score near 0.01, under MVX-Net's 0.1 threshold): the
+    scores spread around 0.5 and NMS sees full candidate sets."""
+    with torch.no_grad():
+        model.pts_bbox_head.conv_cls.bias.zero_()
     return model
 
 
@@ -166,3 +177,66 @@ def circle_nms_adversarial_sets(gen):
             one("all_invalid", disc, valid=torch.zeros((1, 64),
                                                        dtype=torch.bool)),
             one("single_box", torch.zeros((1, 2)))]
+
+
+# KITTI's P2 (the left colour camera of a 1242 x 375 frame: focal 721.54
+# px, principal point (609.56, 172.85)); the reference test scale (1280,
+# 384) with keep_ratio resizes it by 1.024 and pads it to 1280 x 384
+KITTI_FOCAL, KITTI_CX, KITTI_CY = 721.5377, 609.5593, 172.854
+KITTI_SCALE = 1.024
+
+
+def kitti_lidar2img(img_hw=(384, 1280)) -> np.ndarray:
+    """(4, 4) float32 lidar2img of a KITTI-like camera looking along +x
+    from 0.27 m behind and 0.08 m below the LiDAR (cam x = -y, cam y =
+    -z, cam z = x), P2 scaled to the test scale and then by ``img_hw[0] /
+    384``."""
+    s = KITTI_SCALE * img_hw[0] / 384.0
+    k = np.array([[KITTI_FOCAL * s, 0, KITTI_CX * s, 0],
+                  [0, KITTI_FOCAL * s, KITTI_CY * s, 0],
+                  [0, 0, 1, 0], [0, 0, 0, 1]], np.float64)
+    tr = np.array([[0, -1, 0, 0], [0, 0, -1, -0.08], [1, 0, 0, -0.27],
+                   [0, 0, 0, 1]], np.float64)
+    return (k @ tr).astype(np.float32)
+
+
+def voxel_adversarial_sets(gen: np.random.Generator, point_cloud_range,
+                           voxel_size, p: int = 4096, c: int = 4):
+    """(name, points (B, P, C) float32, mask (B, P) bool) sets for K1:
+    points exactly on voxel faces (float32 images of low + k * size, the
+    range's own faces included), many duplicates of a few points, points
+    out of range on every side and masked points, and a batch whose first
+    and last samples are empty."""
+    low = np.asarray(point_cloud_range[:3], np.float64)
+    high = np.asarray(point_cloud_range[3:], np.float64)
+    vs = np.asarray(voxel_size, np.float64)
+    n = np.round((high - low) / vs).astype(np.int64)
+
+    def pts(xyz):
+        out = np.zeros((1, xyz.shape[0], c), np.float32)
+        out[0, :, :3] = xyz
+        out[0, :, 3:] = gen.uniform(0, 1, (xyz.shape[0], c - 3))
+        return out
+
+    k = gen.integers(0, n + 1, (p, 3))          # n: the far faces
+    faces = (low + k * vs).astype(np.float32)
+    dup = np.repeat(gen.uniform(low, high, (8, 3)), p // 8, 0).astype(
+        np.float32)
+    out = gen.uniform(low - 5, high + 5, (p, 3)).astype(np.float32)
+    side = gen.integers(0, 3, p)
+    out[np.arange(p), side] = np.where(gen.uniform(size=p) < 0.5,
+                                       low[side] - gen.uniform(0, 3, p),
+                                       high[side] + gen.uniform(0, 3, p))
+    out[: p // 4] = gen.uniform(low, high, (p // 4, 3))   # some inside
+    mixed = pts(gen.uniform(low, high, (p, 3)).astype(np.float32))
+    sets = [("faces", pts(faces), np.ones((1, p), bool)),
+            ("duplicates", pts(dup), np.ones((1, p), bool)),
+            ("out_of_range", pts(out), np.ones((1, p), bool)),
+            ("masked", mixed, gen.uniform(size=(1, p)) < 0.5)]
+    empty = np.concatenate([pts(gen.uniform(low, high, (p, 3)).astype(
+        np.float32)) for _ in range(3)])
+    emask = np.ones((3, p), bool)
+    emask[0] = emask[2] = False
+    sets.append(("empty_samples", empty, emask))
+    sets.append(("all_empty", empty[:1], np.zeros((1, p), bool)))
+    return sets

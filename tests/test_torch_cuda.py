@@ -12,20 +12,26 @@ to the plain greedy walk over the kernel's own suppression bits, those
 bits equal to the plain IoU's more than 1e-5 from the threshold, and keep
 masks equal to the plain version's when no pair is that close, the bits
 symmetric; circle-NMS keep masks and gaussian heatmaps equal to their
-plain versions (the positives, cells at 1.0, included); 1e-5 of
+plain versions (the positives, cells at 1.0, included); K1's rows and
+voxel table equal to its plain version's; K2's max, forward and backward,
+equal to its plain version's, its mean equal to the plain version's on the
+CPU (the same sum order) and within 1e-6 of the output's max of the plain
+version's on the card (``index_add_`` sums in atomic order); 1e-5 of
 the max for the sparse conv's
 K12 backward against plain autograd on the CPU, 1e-3 of the max for the
 tiny flagship on the card against the CPU, 1e-4 of the max for the tiny
 PointPillars' and CenterPoint's kept boxes (the same entries and
 labels), and 1e-4 relative for the tiny train steps' losses (float32, TF32
-off: sums run in another order).
+off: sums run in another order); the tiny MVX-Net as the tiny
+PointPillars.
 """
 import pytest
 import torch
 
 import numpy as np
 
-from isfusion_tpu_torch.ops import box_ops, cuda_build, gaussian, sparse_conv
+from isfusion_tpu_torch.ops import (box_ops, cuda_build, gaussian, scatter,
+                                    sparse_conv, voxel)
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
 
 pytestmark = pytest.mark.cuda
@@ -421,6 +427,121 @@ def test_centerpoint_tiny_on_card_matches_cpu(card):
         assert launched == ({"nms_circle": 1, "gaussian_heatmap": 1}
                             if dev == "cuda" else
                             {"nms_circle": 0, "gaussian_heatmap": 0})
+    (cb, cs, ck), (gb, gs, gk) = outs
+    assert torch.equal(ck, gk) and len(ck) > 10
+    for got, want in ((gb, cb), (gs, cs)):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    for k, want in losses[0].items():
+        assert abs(losses[1][k] - want) <= 1e-4 * max(abs(want), 1e-6), k
+
+
+MVX_PCR = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+MVX_VS = (0.05, 0.05, 0.1)
+
+
+def _voxel_sets():
+    from isfusion_tpu_torch.flagship import synthetic_points_batch
+    from isfusion_tpu_torch.testing import voxel_adversarial_sets
+    sets = voxel_adversarial_sets(np.random.default_rng(3), MVX_PCR, MVX_VS,
+                                  p=20000)
+    cloud = synthetic_points_batch(2, num_points=50000, seed=4)
+    sets.append(("flagship_cloud", cloud["points"], cloud["points_mask"]))
+    return sets
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_dynamic_voxelize_kernel_matches_plain_version(card, case):
+    name, pts, mask = _voxel_sets()[case]
+    pcr, vs = (MVX_PCR, MVX_VS) if name != "flagship_cloud" else \
+        ((-54.0, -54.0, -5.0, 54.0, 54.0, 3.0), (0.075, 0.075, 0.2))
+    pts, mask = torch.from_numpy(pts).to(card), torch.from_numpy(mask).to(card)
+    before = cuda_build.LAUNCHES["dynamic_voxelize"]
+    got = voxel.voxelize_dynamic(pts, mask, pcr, vs)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["dynamic_voxelize"] == before + 1
+    want = voxel.voxelize_dynamic_ref(pts, mask, pcr, vs)
+    assert torch.equal(got.point_voxel_index, want.point_voxel_index), name
+    assert torch.equal(got.voxel_coors, want.voxel_coors), name
+
+
+def _segments(gen, p, c, s):
+    data = torch.randint(-3, 4, (p, c), generator=gen).float()
+    data[: p // 2] = torch.randn((p // 2, c), generator=gen)
+    ids = torch.randint(0, s, (p,), generator=gen)
+    ids[ids == 1] = 2                          # segment 1 stays empty
+    data[ids == 3] = data[ids == 3].clamp_max(0)   # max 0, tied
+    return data, ids
+
+
+@pytest.mark.parametrize("c", [3, 64, 128])
+def test_dynamic_scatter_max_kernel_matches_plain_version(card, c):
+    gen = torch.Generator().manual_seed(c)
+    data, ids = _segments(gen, 20000, c, 3000)
+    data, ids = data.to(card), ids.to(card)
+    g = torch.randn((3000, c), generator=gen).to(card)
+    outs = []
+    for fn in (scatter.segment_max, scatter.segment_max_ref):
+        x = data.clone().requires_grad_(True)
+        before = cuda_build.LAUNCHES["dynamic_scatter"]
+        out = fn(x, ids, 3000)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        launched = cuda_build.LAUNCHES["dynamic_scatter"] - before
+        outs.append((out.detach(), x.grad, launched))
+    (ko, kg, kl), (po, pg, pl) = outs
+    assert (kl, pl) == (2, 0)                  # forward and backward
+    assert torch.equal(ko, po) and torch.equal(kg, pg)
+    assert (ko[1] == 0).all()
+
+
+def test_dynamic_scatter_mean_kernel_order_is_fixed(card):
+    gen = torch.Generator().manual_seed(7)
+    data = torch.randn((30000, 3), generator=gen) * 40
+    ids = torch.randint(0, 4000, (30000,), generator=gen)
+    ids[:500] = 5                              # one crowded segment
+    want_cpu = scatter.segment_mean_ref(data, ids, 4000)
+    data, ids = data.to(card), ids.to(card)
+    got = scatter.segment_mean(data, ids, 4000)
+    again = scatter.segment_mean(data, ids, 4000)
+    plain = scatter.segment_mean_ref(data, ids, 4000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want_cpu)
+    assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-6
+    x = data.clone().requires_grad_(True)
+    w = torch.randn((4000, 3), generator=gen).to(card)
+    (scatter.segment_mean(x, ids, 4000) * w).sum().backward()
+    xr = data.clone().requires_grad_(True)
+    (scatter.segment_mean_ref(xr, ids, 4000) * w).sum().backward()
+    assert torch.equal(x.grad, xr.grad)
+
+
+def test_mvxnet_tiny_on_card_matches_cpu(card):
+    from isfusion_tpu_torch.flagship import build_mvxnet
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+    from isfusion_tpu_torch.testing import (even_class_prior, pp_kept_boxes,
+                                            tame_box_deltas)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs, losses = [], []
+    for dev in ("cpu", "cuda"):
+        model, batch_fn = build_mvxnet(tiny=True, device=dev, seed=2)
+        even_class_prior(tame_box_deltas(model))
+        batch = batch_fn(2, seed=5)
+        before = dict(cuda_build.LAUNCHES)
+        outs.append(pp_kept_boxes(model, batch, dev))
+        model.train()
+        step = make_train_step(model, build_optimizer(
+            model, dict(type="AdamW", lr=1e-4)))
+        m = step(batch, torch.Generator(dev).manual_seed(0))
+        losses.append({k: float(v) for k, v in m.items()})
+        launched = {k: cuda_build.LAUNCHES[k] - before[k]
+                    for k in ("dynamic_voxelize", "dynamic_scatter",
+                              "nms_bev")}
+        if dev == "cuda":
+            assert min(launched.values()) >= 1, launched
     (cb, cs, ck), (gb, gs, gk) = outs
     assert torch.equal(ck, gk) and len(ck) > 10
     for got, want in ((gb, cb), (gs, cs)):

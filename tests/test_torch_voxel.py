@@ -1,7 +1,15 @@
 """Voxelization, segment reductions and DynamicVFE: the port against the
-JAX package on the same numpy inputs.
+JAX package on the same numpy inputs — the plain versions of K1
+(``voxelize_dynamic_ref``) and K2 (``segment_max_ref``,
+``segment_mean_ref``) on MVX-Net's grid and adversarial point sets
+(``testing.voxel_adversarial_sets``: points on voxel faces, duplicates,
+out-of-range and masked points, empty samples), the max's gradient with
+ties (equal shares, as ``jax.ops.segment_max``), and the mean's fixed sum
+order (rows in increasing order, the order K2 keeps on the card).
 
-Tolerances: coordinates, voxel tables and point -> voxel indices exact
+Tolerances: coordinates, voxel tables and point -> voxel indices exact;
+the max and its gradient exact, the mean bit-equal to a sequential
+float32 sum of numpy's
 (the port repeats the JAX arithmetic: float32 floor against a reciprocal
 rounded once from float64, so points on voxel boundaries land alike);
 features 1e-5 of their max (float32 sums in another order; intensities up
@@ -18,6 +26,7 @@ from isfusion_tpu.ops import scatter as jscatter
 from isfusion_tpu.ops import voxel as jvoxel
 from isfusion_tpu_torch.models.voxel_encoders import DynamicVFE
 from isfusion_tpu_torch.ops import scatter, voxel
+from isfusion_tpu_torch.testing import voxel_adversarial_sets
 from torch_parity import assert_close_to_max, load_from_jax, random_variables
 
 PCR = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
@@ -132,3 +141,92 @@ def test_dynamic_vfe_matches():
     counts = np.asarray(jdv.voxel_mask).sum(1)
     want = np.concatenate([want[i, :counts[i]] for i in range(b)])
     assert_close_to_max(got, want, 1e-5)
+
+
+MVX_PCR = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+MVX_VS = (0.05, 0.05, 0.1)
+ADVERSARIAL = [name for name, *_ in voxel_adversarial_sets(
+    np.random.default_rng(0), MVX_PCR, MVX_VS, p=64)]
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_voxelize_dynamic_adversarial_sets_match_jax(name):
+    """K1's plain version on MVX-Net's grid against the JAX voxelizer."""
+    pts, mask = {n: (p, m) for n, p, m in voxel_adversarial_sets(
+        np.random.default_rng(11), MVX_PCR, MVX_VS, p=2048)}[name]
+    b, p, _ = pts.shape
+    dv = voxel.voxelize_dynamic(torch.from_numpy(pts), torch.from_numpy(mask),
+                                MVX_PCR, MVX_VS)
+    ref = voxel.voxelize_dynamic_ref(torch.from_numpy(pts),
+                                     torch.from_numpy(mask), MVX_PCR, MVX_VS)
+    assert torch.equal(dv.point_voxel_index, ref.point_voxel_index)
+    assert torch.equal(dv.voxel_coors, ref.voxel_coors)
+    base = 0
+    for i in range(b):
+        j = jvoxel.voxelize_dynamic(jnp.asarray(pts[i]), jnp.asarray(mask[i]),
+                                    MVX_PCR, MVX_VS, max_voxels=p)
+        nv = int(j.num_voxels)
+        mine = dv.voxel_coors[dv.voxel_coors[:, 0] == i]
+        assert mine.shape[0] == nv
+        np.testing.assert_array_equal(mine[:, 1:].numpy(),
+                                      np.asarray(j.voxel_coors)[:nv])
+        tp = dv.point_voxel_index[i * p:(i + 1) * p].numpy()
+        np.testing.assert_array_equal(np.where(tp >= 0, tp - base, p),
+                                      np.asarray(j.point_voxel_index))
+        base += nv
+    if name == "faces":          # the range's far faces lie outside it
+        assert (dv.point_voxel_index < 0).any()
+    if name in ("empty_samples", "all_empty"):
+        assert not (dv.voxel_coors[:, 0] == 0).any()
+
+
+def _ties(seed=4):
+    """(data (P, C), ids, S): rows with exact ties of the maximum, a
+    segment whose maximum is 0 (tied), negative-only and empty
+    segments."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(-3, 4, (400, 6)).astype(np.float32)
+    ids = rng.integers(0, 50, 400)
+    ids[ids == 7] = 8                         # segment 7 stays empty
+    data[ids == 9] = -np.abs(data[ids == 9]) - 1     # all negative
+    data[ids == 10] = np.minimum(data[ids == 10], 0)  # max 0, tied
+    return data, ids, 50
+
+
+def test_segment_max_gradient_with_ties_matches_jax():
+    data, ids, s = _ties()
+    w = np.random.default_rng(5).normal(size=(s, data.shape[1])).astype(
+        np.float32)
+    x = torch.from_numpy(data).requires_grad_(True)
+    out = scatter.segment_max(x, torch.from_numpy(ids), s)
+    (out * torch.from_numpy(w)).sum().backward()
+
+    def f(d):
+        o = jscatter.segment_max(d, jnp.asarray(ids), s)
+        return (jnp.where(jnp.isfinite(o), o, 0.0) * w).sum(), o
+
+    (_, jo), jg = jax.value_and_grad(f, has_aux=True)(jnp.asarray(data))
+    jo = np.where(np.isfinite(jo), np.asarray(jo), 0.0)
+    np.testing.assert_array_equal(out.detach().numpy(), jo)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), rtol=1e-6,
+                               atol=1e-7)
+    assert (out[7] == 0).all() and (out[9] < 0).all()
+
+
+def test_segment_mean_sums_rows_in_order_and_its_gradient_matches_jax():
+    rng = np.random.default_rng(6)
+    data = (rng.normal(size=(600, 3)) * 40).astype(np.float32)
+    ids = rng.integers(0, 40, 600)
+    want = np.zeros((40, 3), np.float32)
+    for i in range(600):                     # one row at a time, in order
+        want[ids[i]] = want[ids[i]] + data[i]
+    want = want / np.maximum(np.bincount(ids, minlength=40), 1).astype(
+        np.float32)[:, None]
+    x = torch.from_numpy(data).requires_grad_(True)
+    out = scatter.segment_mean(x, torch.from_numpy(ids), 40)
+    np.testing.assert_array_equal(out.detach().numpy(), want)
+    w = rng.normal(size=(40, 3)).astype(np.float32)
+    (out * torch.from_numpy(w)).sum().backward()
+    jg = jax.grad(lambda d: (jscatter.segment_mean(
+        d, jnp.asarray(ids), 40) * w).sum())(jnp.asarray(data))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), rtol=1e-6)
