@@ -23,10 +23,12 @@ Phases, each printing one line (every failure raises, exit code != 0):
    on the TPU microbenchmark's shape, bit for bit, with timings; K1 and
    K2 (``[dynamic_check]``) on the request's own voxelization and
    DynamicVFE inputs, and after phase 8 on the first train batch's (batch
-   4): K1's rows and table and K2's max (forward and backward) equal to
-   their plain versions, K2's mean equal to the plain version on the CPU
-   and within 1e-6 of the max of the plain version on the card, with ms,
-   device ms, plain ms, library ms and the byte bound.
+   4): K1's rows, table and point lists and K2's max (forward and
+   backward, through the lists the path's K1 built) equal to their plain
+   versions, K2's mean equal to the plain version on the CPU and within
+   1e-6 of the max of the plain version on the card, with ms, device ms,
+   plain ms, library ms and the byte bound. No K2 call of the flagship or
+   MVX-Net paths builds a list of its own (``check_no_layout_builds``).
    The K12 backward (the transposed-rulebook gather of a sparse conv's dX)
    at the stage-0 shapes, bit for bit, and one conv's dX and dW against
    plain autograd; K10 (rotated 3D IoU) on 4 x 200 x 64 box pairs with
@@ -190,6 +192,12 @@ requests, then the K10-NMS wrapper's device and host time), with the port
 imported from the checkout TREE: two checkouts compared in one call
 (``pp_serve_timing``).
 
+``python3 chip_smoke.py --dynamic TREE`` runs only the four cells of K1
+and K2 (serve, train, mvx-serve, mvx-train; more requests and steps) and
+times K1 and K2 on each cell's own inputs, with the port imported from
+the checkout TREE: two checkouts compared in one call
+(``dynamic_compare``).
+
 ``python3 chip_smoke.py --learn WORK_DIR`` runs the learnability recipe in
 full (48 train / 16 val samples, 100 epochs, ``learn_run``) and leaves
 ``WORK_DIR/train_log.jsonl``.
@@ -199,6 +207,7 @@ device and build phases).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -265,6 +274,17 @@ def device_kernels(fn, iters: int = 50) -> dict:
     return {e.key: (e.count / iters, e.self_device_time_total / 1e3 / e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.count}
+
+
+def kernel_breakdown(fn, iters: int = 20) -> dict:
+    """{kernel's short name: device ms per ``fn()`` call}
+    (``device_kernels``), largest first."""
+    import re
+    per = collections.Counter()
+    for name, (n, ms) in device_kernels(fn, iters).items():
+        m = re.search(r"(\w+)(?:<[^>]*>)?\(", name)
+        per[m.group(1) if m else name] += n * ms
+    return dict(per.most_common())
 
 
 def kernel_ms(ops: dict, kernel: str):
@@ -2240,39 +2260,57 @@ def phase_cp_reference(dev: str = "cuda"):
 def recording_dynamic():
     """Inside the block, the first call of ``voxelize_dynamic`` (as the
     IS-Fusion and MVX detectors call it), of ``segment_mean`` and of
-    ``segment_max`` at each width (as DynamicVFE calls them) keep their
-    inputs in the yielded dict ("voxelize", "mean", "max64", ...); the
-    kernels still run."""
+    ``segment_max`` at each width (as DynamicVFE calls them, with the
+    point lists the path's own K1 built, or None) keep their inputs in the
+    yielded dict ("voxelize", "mean", "max64", ...), and "calls" counts
+    each key's calls; the kernels still run."""
     from isfusion_tpu_torch.models import voxel_encoders
     from isfusion_tpu_torch.models.detectors import isfusion, mvx_two_stage
 
-    seen = {}
+    seen, calls = {}, collections.Counter()
     real_vox = isfusion.voxelize_dynamic
     real_max = voxel_encoders.segment_max
     real_mean = voxel_encoders.segment_mean
 
     def vox(points, mask, pcr, vs):
+        calls["voxelize"] += 1
         seen.setdefault("voxelize", (points.detach().clone(), mask.clone(),
                                      tuple(pcr), tuple(vs)))
         return real_vox(points, mask, pcr, vs)
 
-    def smax(data, ids, n):
-        seen.setdefault(f"max{data.shape[1]}", (data.detach().clone(),
-                                                ids.clone(), int(n)))
-        return real_max(data, ids, n)
+    def record(key, data, ids, n, args):
+        layout = args[0] if args else None
+        calls[key] += 1
+        seen.setdefault(key, (data.detach().clone(), ids.clone(), int(n),
+                              None if layout is None else
+                              tuple(t.clone() for t in layout)))
 
-    def smean(data, ids, n):
-        seen.setdefault("mean", (data.detach().clone(), ids.clone(), int(n)))
-        return real_mean(data, ids, n)
+    def smax(data, ids, n, *args):
+        record(f"max{data.shape[1]}", data, ids, n, args)
+        return real_max(data, ids, n, *args)
+
+    def smean(data, ids, n, *args):
+        record("mean", data, ids, n, args)
+        return real_mean(data, ids, n, *args)
 
     isfusion.voxelize_dynamic = mvx_two_stage.voxelize_dynamic = vox
     voxel_encoders.segment_max, voxel_encoders.segment_mean = smax, smean
     try:
         yield seen
     finally:
+        seen["calls"] = dict(calls)
         isfusion.voxelize_dynamic = mvx_two_stage.voxelize_dynamic = real_vox
         voxel_encoders.segment_max = real_max
         voxel_encoders.segment_mean = real_mean
+
+
+def check_no_layout_builds(label: str, launches: dict):
+    """On the DynamicVFE paths every K2 call takes the point lists of the
+    path's own K1: none is built inside ``segment_max`` /
+    ``segment_mean``."""
+    if launches.get("segment_layout", 0):
+        raise RuntimeError(f"{label}: K2 built {launches['segment_layout']} "
+                           f"point lists itself (DynamicVFE passed none)")
 
 
 def device_ms_per_call(fn, iters: int = 20):
@@ -2285,22 +2323,25 @@ def device_ms_per_call(fn, iters: int = 20):
     return sum(n * ms for n, ms in ops.values())
 
 
-def voxelize_bytes(points, nv: int) -> int:
+def voxelize_bytes(points, n_valid: int, nv: int) -> int:
     """Least bytes of K1: xyz (12) and the mask (1) read once per point,
-    the point's row (8) written once, each voxel's (b, z, y, x) (16)
-    written once."""
+    the point's row (8) written once, each voxel's (b, z, y, x) (16) and
+    offset (4) and each valid point's list entry (4) written once."""
     p = points.shape[0] * points.shape[1]
-    return p * (12 + 1 + 8) + nv * 16
+    return p * (12 + 1 + 8) + n_valid * 4 + (nv + 1) * 20
 
 
-def voxelize_design_bytes(points, nv: int, grid) -> int:
-    """Bytes the bitmap design moves beyond that: the bitmap zeroed,
-    scanned and read by the table pass (4 bytes a word, 3 times), the
-    word prefixes written and read (twice), each point's key written and
-    read (16) and its word read (4)."""
+def voxelize_design_bytes(points, n_valid: int, nv: int, grid) -> int:
+    """Bytes the K1 design moves beyond that, estimated: the L1 words
+    (one bit an L0 word) scanned, their prefixes written and read (12 a
+    word), each occupied L0 word's slot (<= a voxel; 16), each point's key
+    read again (8), each valid point's compacted index, list entry, count
+    and cursor as 4-byte words written and read (24)."""
     b, p = points.shape[:2]
-    words = (b * grid[0] * grid[1] * grid[2] + 31) // 32
-    return voxelize_bytes(points, nv) + words * 4 * 5 + b * p * 20
+    l0_words = -(-(b * grid[0] * grid[1] * grid[2]) // 32)
+    l1_words = -(-l0_words // 32)
+    return voxelize_bytes(points, n_valid, nv) + l1_words * 12 + nv * 16 + \
+        b * p * 8 + n_valid * 24
 
 
 def scatter_bytes(p: int, c: int, s: int) -> int:
@@ -2312,17 +2353,21 @@ def scatter_bytes(p: int, c: int, s: int) -> int:
 def dynamic_check(label: str, seen: dict, dev: str = "cuda",
                   sets=()) -> dict:
     """K1 and K2 against their plain versions on ``seen``
-    (``recording_dynamic``: the main path's own inputs) and on ``sets``
-    ((name, points, mask, pcr, voxel size) for K1 alone). K1: rows and
-    table equal. K2 max: forward and backward (a seeded gradient) equal;
-    K2 mean: equal to the plain version on the CPU (the same sum order),
-    within 1e-6 of the output's max of the plain version on the card,
-    equal to itself on a second call. Each case logs a ``[dynamic_check]``
-    line with the kernel's ms (CUDA events), device ms (profiler, every
-    device operation of one call), the plain version's ms, the library
-    call's ms (``torch.unique(return_inverse=True)`` of the linear ids for
-    K1, ``scatter_reduce_`` for K2) and the byte bound. Returns the
-    records by case."""
+    (``recording_dynamic``: the main path's own inputs, K2's with the
+    point lists the path's K1 built) and on ``sets`` ((name, points,
+    mask, pcr, voxel size) for K1 alone). K1: rows, table, ``voxel_ptr``
+    and ``point_order`` equal. K2 max: forward and backward (a seeded
+    gradient) equal; K2 mean: equal to the plain version on the CPU (the
+    same sum order), within 1e-6 of the output's max of the plain version
+    on the card, equal to itself on a second call. Each case logs a
+    ``[dynamic_check]`` line with the kernel's ms (CUDA events), device ms
+    (profiler, every device operation of one call), the plain version's
+    ms, the library call's ms (``torch.unique(sorted, return_inverse,
+    return_counts)`` of the linear ids for K1, with ``sort_ms`` of
+    ``torch.sort(stable)`` of the voxel ids beside it; ``scatter_reduce_``
+    for K2) and the byte bound; K1 the list's largest and mean points a
+    voxel, the max its backward's device ms (``bwd_device_ms``) and
+    bound. Returns the records by case."""
     import torch
     from isfusion_tpu_torch.ops import scatter, voxel
 
@@ -2336,30 +2381,40 @@ def dynamic_check(label: str, seen: dict, dev: str = "cuda",
         got = voxel.voxelize_dynamic(pts, mask, pcr, vs)
         ref = voxel.voxelize_dynamic_ref(pts, mask, pcr, vs)
         sync(dev)
-        equal = torch.equal(got.point_voxel_index, ref.point_voxel_index) \
-            and torch.equal(got.voxel_coors, ref.voxel_coors)
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref))
         nv = int(ref.voxel_coors.shape[0])
+        n_valid = int(ref.point_order.shape[0])
+        per_voxel = (ref.voxel_ptr[1:] - ref.voxel_ptr[:-1]).float()
         coors, in_range, grid = voxel.compute_voxel_coords(pts, pcr, vs)
         keys = voxel._keys(coors, grid).reshape(-1)[
             (mask.bool() & in_range).reshape(-1)]
-        nbytes = voxelize_bytes(pts, nv)
+        vid = ref.point_voxel_index[ref.point_voxel_index >= 0]
+        nbytes = voxelize_bytes(pts, n_valid, nv)
         r = dict(kernel="dynamic_voxelize", points=int(pts.shape[0] *
                                                        pts.shape[1]),
-                 voxels=nv, equal=equal, bytes=nbytes,
-                 design_bytes=voxelize_design_bytes(
-                     pts, nv, (grid[2], grid[1], grid[0])),
+                 voxels=nv, valid_points=n_valid, equal=equal,
+                 layout_equal=torch.equal(got.voxel_ptr, ref.voxel_ptr) and
+                 torch.equal(got.point_order, ref.point_order),
+                 max_points_per_voxel=int(per_voxel.max()) if nv else 0,
+                 mean_points_per_voxel=float(per_voxel.mean()) if nv else 0,
+                 bytes=nbytes, design_bytes=voxelize_design_bytes(
+                     pts, n_valid, nv, (grid[2], grid[1], grid[0])),
                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                  max_abs_err=0.0 if equal else float("inf"))
         if name == "voxelize":
+            parts = kernel_breakdown(lambda: voxel.voxelize_dynamic(
+                pts, mask, pcr, vs)) if dev == "cuda" else {}
             r.update(ms=cuda_ms(lambda: voxel.voxelize_dynamic(
                          pts, mask, pcr, vs), dev),
-                     device_ms=device_ms_per_call(
-                         lambda: voxel.voxelize_dynamic(pts, mask, pcr, vs)),
+                     device_ms=sum(parts.values()) if parts else
+                     "not measured", device_kernels=parts,
                      plain_ms=cuda_ms(lambda: voxel.voxelize_dynamic_ref(
                          pts, mask, pcr, vs), dev, iters=5),
                      library_ms=cuda_ms(lambda: torch.unique(
-                         keys, sorted=True, return_inverse=True), dev,
-                         iters=5))
+                         keys, sorted=True, return_inverse=True,
+                         return_counts=True), dev, iters=5),
+                     sort_ms=cuda_ms(lambda: torch.sort(vid, stable=True),
+                                     dev, iters=5))
         recs[name] = r
         log("dynamic_check", on=label, case=name, **r)
         if not equal:
@@ -2367,13 +2422,14 @@ def dynamic_check(label: str, seen: dict, dev: str = "cuda",
                                f"version on {label} {name}")
     gen = torch.Generator().manual_seed(21)
     for name in sorted(k for k in seen if k.startswith("max")):
-        data, ids, n = seen[name]
+        data, ids, n, layout = seen[name]
         p, c = data.shape
         g = torch.randn((n, c), generator=gen).to(dev)
         res = []
-        for fn in (scatter.segment_max, scatter.segment_max_ref):
+        for fn, args in ((scatter.segment_max, (layout,)),
+                         (scatter.segment_max_ref, ())):
             x = data.clone().requires_grad_(True)
-            out = fn(x, ids, n)
+            out = fn(x, ids, n, *args)
             out.backward(g)
             res.append((out.detach(), x.grad))
         sync(dev)
@@ -2383,7 +2439,7 @@ def dynamic_check(label: str, seen: dict, dev: str = "cuda",
 
         def bwd():
             x = data.clone().requires_grad_(True)
-            scatter.segment_max(x, ids, n).backward(g)
+            scatter.segment_max(x, ids, n, layout).backward(g)
 
         nbytes = scatter_bytes(p, c, n)
         bwd_bytes = p * c * 4 * 2 + p * 8 + n * c * 4 * 2
@@ -2392,15 +2448,18 @@ def dynamic_check(label: str, seen: dict, dev: str = "cuda",
                                               float((kg - pg).abs().max())),
                  bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                  bound_by="bytes",
-                 ms=cuda_ms(lambda: scatter.segment_max(data, ids, n), dev),
+                 ms=cuda_ms(lambda: scatter.segment_max(data, ids, n, layout),
+                            dev),
                  device_ms=device_ms_per_call(
-                     lambda: scatter.segment_max(data, ids, n)),
+                     lambda: scatter.segment_max(data, ids, n, layout)),
                  plain_ms=cuda_ms(lambda: scatter.segment_max_ref(
                      data, ids, n), dev),
                  library_ms=cuda_ms(lambda: torch.zeros(
                      (n, c), device=dev).scatter_reduce_(
                          0, idx, data, "amax", include_self=False), dev),
                  fwd_bwd_ms=cuda_ms(bwd, dev, iters=10),
+                 bwd_device_ms=kernel_device_ms(bwd, "max_grad_kernel", 20)
+                 if dev == "cuda" else "not measured",
                  backward_bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3)
         recs[name] = r
         log("dynamic_check", on=label, case=name, **r)
@@ -2408,10 +2467,10 @@ def dynamic_check(label: str, seen: dict, dev: str = "cuda",
             raise RuntimeError(f"segment_max differs from its plain version "
                                f"on {label} {name}")
     if "mean" in seen:
-        data, ids, n = seen["mean"]
+        data, ids, n, layout = seen["mean"]
         p, c = data.shape
-        got = scatter.segment_mean(data, ids, n)
-        again = scatter.segment_mean(data, ids, n)
+        got = scatter.segment_mean(data, ids, n, layout)
+        again = scatter.segment_mean(data, ids, n, layout)
         plain = scatter.segment_mean_ref(data, ids, n)
         cpu = scatter.segment_mean_ref(data.cpu(), ids.cpu(), n)
         sync(dev)
@@ -2425,9 +2484,10 @@ def dynamic_check(label: str, seen: dict, dev: str = "cuda",
                      plain, scatter.segment_mean_ref(data, ids, n)),
                  max_abs_err=err, err_of_max=err / scale, bytes=nbytes,
                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                 ms=cuda_ms(lambda: scatter.segment_mean(data, ids, n), dev),
+                 ms=cuda_ms(lambda: scatter.segment_mean(data, ids, n,
+                                                         layout), dev),
                  device_ms=device_ms_per_call(
-                     lambda: scatter.segment_mean(data, ids, n)),
+                     lambda: scatter.segment_mean(data, ids, n, layout)),
                  plain_ms=cuda_ms(lambda: scatter.segment_mean_ref(
                      data, ids, n), dev),
                  library_ms=cuda_ms(lambda: torch.zeros(
@@ -2764,6 +2824,12 @@ def learn_run(work_dir: str) -> int:
     return 0 if ok else 1
 
 
+# the K2 fields of the kernels line at the train and MVX-Net shapes
+SCATTER_FIELDS = ("P", "C", "S", "ms", "device_ms", "fwd_bwd_ms",
+                  "bwd_device_ms", "plain_ms", "library_ms", "bound_ms",
+                  "backward_bound_ms")
+
+
 def main() -> int:
     import torch
     if not os.path.isdir(os.path.join(REPO, "isfusion_tpu_torch")):
@@ -2782,6 +2848,7 @@ def main() -> int:
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")
+    check_no_layout_builds("serve", launches)
     rec = phase_kernel_check(stage)
     dyn_serve = dynamic_check("serve", serve_req.pop("dynamic_inputs"))
     bwd = phase_backward_check(*stage["stage0"])
@@ -2793,6 +2860,7 @@ def main() -> int:
     phase_reference_check()
     train = phase_train(model, train_batch(
         batch_fn, flagship_optim_cfg()["samples_per_gpu"]))
+    check_no_layout_builds("train", train["launches"])
     del model
     torch.cuda.empty_cache()
     dyn_train = dynamic_check("train", train.pop("dynamic_inputs"))
@@ -2851,6 +2919,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     from isfusion_tpu_torch.flagship import build_mvxnet, mvxnet_optim_cfg
+    from isfusion_tpu_torch.ops import cuda_build
     from isfusion_tpu_torch.testing import even_class_prior
     mvx, mvx_batch_fn = build_mvxnet(device="cuda", seed=0)
     # random weights score every anchor near the focal prior's 0.01, under
@@ -2861,8 +2930,10 @@ def main() -> int:
     mvx_launches, mvx_seen, mvx_req = phase_mvx_main_path(mvx,
                                                           mvx_batch_fn(1))
     mvx.pts_bbox_head.reset_special_parameters()   # the focal prior back
+    check_no_layout_builds("mvx-serve", mvx_launches)
     mvx_train = phase_mvx_train(mvx, mvx_batch_fn(mvxnet_optim_cfg()[
         "samples_per_gpu"]))
+    check_no_layout_builds("mvx-train", cuda_build.LAUNCHES)
     mvx_train.pop("dynamic_inputs")
     del mvx
     torch.cuda.empty_cache()
@@ -2965,20 +3036,23 @@ def main() -> int:
                  dyn_serve, dyn_train, mvx_dyn)),
              **{k: dyn_serve["voxelize"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "device_ms", "points", "voxels", "design_bytes")},
+                 "device_ms", "sort_ms", "points", "voxels", "design_bytes",
+                 "max_points_per_voxel", "mean_points_per_voxel")},
              launches_per_request=[r["dynamic_voxelize"] for r in serve_req[
                  "launches_per_request"]],
              train_launches_per_step=per_step["dynamic_voxelize"],
              train_shape={k: dyn_train["voxelize"][k] for k in (
                  "points", "voxels", "ms", "device_ms", "plain_ms",
-                 "library_ms", "bound_ms")},
+                 "library_ms", "sort_ms", "bound_ms",
+                 "max_points_per_voxel")},
              mvx_launches_per_request=[r["dynamic_voxelize"] for r in
                                        mvx_req["launches_per_request"]],
              mvx_train_launches_per_step=[s["dynamic_voxelize"] for s in
                                           mvx_train["launches_per_step"]],
              mvx_shape={k: mvx_dyn["voxelize"][k] for k in (
                  "points", "voxels", "ms", "device_ms", "plain_ms",
-                 "library_ms", "bound_ms")}),
+                 "library_ms", "sort_ms", "bound_ms",
+                 "max_points_per_voxel")}),
         dict(name="dynamic_scatter", route="cuda",
              source="isfusion_tpu_torch/csrc/dynamic_scatter.cu",
              replaces="isfusion_tpu/ops/voxel.py:169",
@@ -2988,7 +3062,9 @@ def main() -> int:
                  if r[k]["kernel"] == "dynamic_scatter"),
              **{k: dyn_serve["max64"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "device_ms", "P", "C", "S", "fwd_bwd_ms")},
+                 "device_ms", "P", "C", "S", "fwd_bwd_ms", "bwd_device_ms",
+                 "backward_bound_ms")},
+             layout_builds_on_path=launches["segment_layout"],
              mean=dict({k: dyn_serve["mean"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
                  "err_of_max", "equal_to_cpu", "repeats",
@@ -3004,14 +3080,10 @@ def main() -> int:
                  forward=s["dynamic_scatter_forward"],
                  backward=s["dynamic_scatter_backward"])
                  for s in mvx_train["launches_per_step"]],
-             train_shape={k: {f: v[f] for f in ("P", "C", "S", "ms",
-                                                "fwd_bwd_ms", "plain_ms",
-                                                "bound_ms") if f in v}
+             train_shape={k: {f: v[f] for f in SCATTER_FIELDS if f in v}
                           for k, v in dyn_train.items()
                           if v["kernel"] == "dynamic_scatter"},
-             mvx_shape={k: {f: v[f] for f in ("P", "C", "S", "ms",
-                                              "fwd_bwd_ms", "plain_ms",
-                                              "bound_ms") if f in v}
+             mvx_shape={k: {f: v[f] for f in SCATTER_FIELDS if f in v}
                         for k, v in mvx_dyn.items()
                         if v["kernel"] == "dynamic_scatter"})]
     print(smi)
@@ -3071,6 +3143,128 @@ def pp_serve_timing(tree: str, requests: int = 50) -> int:
     return 0
 
 
+def dynamic_times(seen: dict) -> dict:
+    """K1 and K2 on one forward's recorded inputs (``recording_dynamic``,
+    with the lists that forward passed, if any): CUDA-event and device ms
+    (profiler, every device operation of one call) of the voxelization,
+    the mean and each max, the device ms of each max's backward kernels,
+    and the device ms of all K1 and K2 calls of one forward (``fwd``) and
+    of one train step (``fwd_bwd``: the maxima's backwards too)."""
+    import torch
+    from isfusion_tpu_torch.ops import scatter, voxel
+
+    pts, mask, pcr, vs = seen["voxelize"]
+    r = dict(k1_ms=cuda_ms(lambda: voxel.voxelize_dynamic(pts, mask, pcr,
+                                                          vs)),
+             k1_device_ms=device_ms_per_call(
+                 lambda: voxel.voxelize_dynamic(pts, mask, pcr, vs)))
+    fwd = r["k1_device_ms"] * seen["calls"]["voxelize"]
+    bwd = 0.0
+    gen = torch.Generator().manual_seed(21)
+    for key in sorted(k for k in seen if k == "mean" or k.startswith("max")):
+        data, ids, n, layout = seen[key]
+        args = () if layout is None else (layout,)
+        fn = getattr(scatter, "segment_mean" if key == "mean" else
+                     "segment_max")
+        r[f"{key}_ms"] = cuda_ms(lambda: fn(data, ids, n, *args))
+        r[f"{key}_device_ms"] = device_ms_per_call(
+            lambda: fn(data, ids, n, *args))
+        fwd += r[f"{key}_device_ms"] * seen["calls"][key]
+        if key == "mean":
+            continue
+        g = torch.randn((n, data.shape[1]), generator=gen).to(data.device)
+
+        def backward():
+            x = data.clone().requires_grad_(True)
+            fn(x, ids, n, *args).backward(g)
+
+        ops = device_kernels(backward, 20)
+        r[f"{key}_bwd_device_ms"] = sum(
+            k * ms for name, (k, ms) in ops.items()
+            if "ties_kernel" in name or "max_grad_kernel" in name)
+        bwd += r[f"{key}_bwd_device_ms"] * seen["calls"][key]
+    r.update(calls=seen["calls"], fwd_device_ms=fwd,
+             fwd_bwd_device_ms=fwd + bwd)
+    return r
+
+
+def dynamic_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
+    """``python3 chip_smoke.py --dynamic TREE``: the four cells that run
+    K1 and K2 — the flagship's serve (batch 1) and train (batch 4) and
+    MVX-Net's (batch 1, batch 2) — with the port imported from the
+    checkout TREE, to compare two checkouts on one card in one call (run
+    them in the order A, B, B, A). Each cell: one warm-up under
+    ``recording_dynamic``, then ``requests`` requests or ``steps`` steps
+    (host-clock median, min, max), then ``dynamic_times`` on the
+    warm-up's K1 and K2 inputs. Prints one JSON record."""
+    import torch
+    smi = phase_device()
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import isfusion_tpu_torch
+    from isfusion_tpu_torch.flagship import (build_isfusion_flagship,
+                                             build_mvxnet,
+                                             flagship_optim_cfg,
+                                             mvxnet_optim_cfg)
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+    from isfusion_tpu_torch.testing import even_class_prior, tame_box_deltas
+    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"isfusion_tpu_torch imported from "
+                           f"{isfusion_tpu_torch.__file__}, not {tree}")
+    rec = dict(tree=tree, nvidia_smi=smi, build_s=cuda_build.build_all(),
+               libraries=[cuda_build._lib_path(n).name for n in (
+                   "dynamic_voxelize", "dynamic_scatter")])
+
+    def timed(label, run, n):
+        with recording_dynamic() as seen:
+            run(0)
+            sync("cuda")
+        times = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            run(i + 1)
+            sync("cuda")
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec[label] = dict(median_ms=statistics.median(times),
+                          min_ms=min(times), max_ms=max(times),
+                          **dynamic_times(seen))
+
+    def stepper(model, cfg, momentum):
+        model.train()
+        opt = build_optimizer(model, cfg["optimizer"])
+        step = make_train_step(
+            model, opt, build_schedule(opt, cfg["lr_config"], momentum),
+            grad_clip_norm(cfg["optimizer_config"]))
+        return step, torch.Generator("cuda").manual_seed(0)
+
+    model, batch_fn = build_isfusion_flagship(device="cuda", seed=0)
+    batch = batch_fn(1)
+    timed("serve", lambda i: model(jittered(batch, i), device="cuda"),
+          requests)
+    cfg = flagship_optim_cfg()
+    tb = train_batch(batch_fn, cfg["samples_per_gpu"])
+    step, gen = stepper(model, cfg, cfg["momentum_config"])
+    timed("train", lambda i: step(jittered(tb, i), gen), steps)
+    del model, step
+    torch.cuda.empty_cache()
+    mvx, mvx_batch_fn = build_mvxnet(device="cuda", seed=0)
+    even_class_prior(tame_box_deltas(mvx))
+    mb = mvx_batch_fn(1)
+    timed("mvx_serve", lambda i: mvx(jittered(mb, i), device="cuda"),
+          requests)
+    mvx.pts_bbox_head.reset_special_parameters()
+    cfg = mvxnet_optim_cfg()
+    mtb = mvx_batch_fn(cfg["samples_per_gpu"])
+    step, gen = stepper(mvx, cfg, None)
+    timed("mvx_train", lambda i: step(jittered(mtb, i), gen), steps)
+    log("dynamic_compare", **rec)
+    return 0
+
+
 def isfusion_learn_run() -> int:
     """``python3 chip_smoke.py --isfusion-learn``: the device and build
     phases, then ``phase_isfusion_learn`` alone."""
@@ -3087,6 +3281,8 @@ if __name__ == "__main__":
         sys.exit(isfusion_learn_run())
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) == 3:
         sys.exit(learn_run(sys.argv[2]))
+    if sys.argv[1:2] == ["--dynamic"] and len(sys.argv) == 3:
+        sys.exit(dynamic_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-serve"]:
         sys.exit(pp_serve_timing(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

@@ -1,14 +1,15 @@
-// Exclusive prefix sums of uint32 values for Hopper (sm_90a), in two
-// passes and no atomics, shared by dynamic_voxelize.cu (popcounts of an
-// occupancy bitmap's words) and dynamic_scatter.cu (points per segment).
+// Exclusive prefix sums of uint32 values for Hopper (sm_90a) in one
+// launch, for dynamic_voxelize.cu (the points' valid flags, the popcounts
+// of its bitmap's words, the points per voxel).
 //
-// Pass 1 (scan_tile, inside a caller's kernel): block b scans the TILE
-// values [b * TILE, (b + 1) * TILE), writing each value's exclusive prefix
-// inside its tile to prefix[] and the tile's total to tile_sums[b]. Pass 2
-// (scan_tiles_kernel, one block): an exclusive scan of the tile totals in
-// place, the grand total into *total. The prefix of value i is then
-// tile_sums[i / TILE] + prefix[i] (tile_offset). Both passes add the same
-// integers in a fixed order: the result does not depend on scheduling.
+// Each block scans its tile of THREADS * ITEMS values (scan_tile), writing
+// each value's exclusive prefix inside the tile to prefix[] and the tile's
+// total to tile_sums[b]; then the last block to finish (a ticket taken with
+// one atomic after a fence: the threadFenceReduction pattern) scans the
+// tile totals in place and writes the grand total (finish_scan). The
+// prefix of value i is then tile_sums[i / TILE] + prefix[i] (tile_offset),
+// for the kernels that run after. The sums are integers added in a fixed
+// order; only which block does the second pass depends on scheduling.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -16,9 +17,17 @@
 namespace pscan {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 8;                       // values per thread
-constexpr int64_t TILE = THREADS * ITEMS;      // values per block
 constexpr int WARPS = THREADS / 32;
+
+template <int ITEMS>
+__host__ __device__ constexpr int64_t tile() {
+  return (int64_t)THREADS * ITEMS;
+}
+
+template <int ITEMS>
+inline int64_t n_tiles(int64_t n) {
+  return (n + tile<ITEMS>() - 1) / tile<ITEMS>();
+}
 
 __device__ __forceinline__ uint32_t warp_inclusive(uint32_t x, int lane) {
 #pragma unroll
@@ -51,12 +60,13 @@ __device__ __forceinline__ uint32_t block_inclusive(uint32_t x,
   return x;
 }
 
-// Pass 1 for the tile of this block; load(i) gives value i < n.
-template <typename Load>
+// The first pass for this block's tile; load(i) gives value i < n. Thread
+// t takes values t * ITEMS .. t * ITEMS + ITEMS - 1 of the tile.
+template <int ITEMS, typename Load>
 __device__ __forceinline__ void scan_tile(Load load, int64_t n,
                                           uint32_t* __restrict__ prefix,
                                           uint32_t* __restrict__ tile_sums) {
-  const int64_t base = (int64_t)blockIdx.x * TILE +
+  const int64_t base = (int64_t)blockIdx.x * tile<ITEMS>() +
                        (int64_t)threadIdx.x * ITEMS;
   uint32_t v[ITEMS];
   uint32_t sum = 0;
@@ -75,28 +85,45 @@ __device__ __forceinline__ void scan_tile(Load load, int64_t n,
   if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
 }
 
-// Pass 2: launch with one block of THREADS threads.
-__global__ void __launch_bounds__(THREADS)
-    scan_tiles_kernel(uint32_t* __restrict__ tile_sums, int64_t n_tiles,
-                      long long* __restrict__ total) {
-  uint32_t carry = 0;
-  for (int64_t start = 0; start < n_tiles; start += THREADS) {
-    const int64_t i = start + threadIdx.x;
-    const uint32_t v = i < n_tiles ? tile_sums[i] : 0u;
-    uint32_t chunk;
-    const uint32_t incl = block_inclusive(v, &chunk);
-    if (i < n_tiles) tile_sums[i] = carry + incl - v;
-    carry += chunk;
+// The second pass, by the last block of the grid to get here: an exclusive
+// scan of the gridDim.x tile totals in place, the grand total into *total.
+// *ticket (zero on entry) is zero again on return. Every thread of every
+// block calls it after scan_tile.
+__device__ __forceinline__ void finish_scan(uint32_t* tile_sums,
+                                            unsigned* ticket,
+                                            long long* total) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {               // the writer of this tile's total
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
-  if (threadIdx.x == 0) *total = (long long)carry;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  volatile uint32_t* sums = tile_sums;  // written by the other blocks
+  // thread t scans the run [t * per, t * per + per) of the totals
+  const int64_t n = gridDim.x, per = (n + THREADS - 1) / THREADS;
+  const int64_t lo = min(n, threadIdx.x * per), hi = min(n, lo + per);
+  uint32_t run = 0;
+  for (int64_t i = lo; i < hi; ++i) run += sums[i];
+  uint32_t all;
+  uint32_t excl = block_inclusive(run, &all) - run;
+  for (int64_t i = lo; i < hi; ++i) {
+    const uint32_t v = sums[i];
+    sums[i] = excl;
+    excl += v;
+  }
+  if (threadIdx.x == 0) {
+    *total = (long long)all;
+    *ticket = 0u;
+  }
 }
 
+template <int ITEMS>
 __device__ __forceinline__ uint32_t tile_offset(
     const uint32_t* __restrict__ prefix,
     const uint32_t* __restrict__ tile_sums, int64_t i) {
-  return tile_sums[i / TILE] + prefix[i];
+  return tile_sums[i / tile<ITEMS>()] + prefix[i];
 }
-
-inline int64_t n_tiles(int64_t n) { return (n + TILE - 1) / TILE; }
 
 }  // namespace pscan

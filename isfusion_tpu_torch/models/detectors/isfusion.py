@@ -133,7 +133,8 @@ class ISFusionDetector(nn.Module):
         dv = voxelize_dynamic(points, points_mask, vl["point_cloud_range"],
                               vl["voxel_size"])
         feats = self.pts_voxel_encoder(points.reshape(-1, points.shape[-1]),
-                                       dv.point_voxel_index, dv.voxel_coors)
+                                       dv.point_voxel_index, dv.voxel_coors,
+                                       layout=(dv.voxel_ptr, dv.point_order))
         enc_stats = {} if stats is not None else None
         lidar_bev = self.pts_middle_encoder(feats, dv.voxel_coors, b,
                                             return_stats=enc_stats)

@@ -131,7 +131,8 @@ class MVXTwoStageDetector(nn.Module):
             coors = dv.voxel_coors
             feats = self.pts_voxel_encoder(
                 points.reshape(-1, points.shape[-1]), dv.point_voxel_index,
-                coors, img_feats=img_feats, calib=self.calib_from_batch(t))
+                coors, img_feats=img_feats, calib=self.calib_from_batch(t),
+                layout=(dv.voxel_ptr, dv.point_order))
         else:
             cap = capacity(vl.get("max_voxels", 30000), self.training)
             vox = voxelize_hard(points, points_mask, vl["point_cloud_range"],

@@ -18,7 +18,7 @@ Reference names: ``vfe_layers.{i}.{linear,norm}``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -69,10 +69,15 @@ class DynamicVFE(nn.Module):
 
     def forward(self, points: torch.Tensor, point_voxel_index: torch.Tensor,
                 voxel_coors: torch.Tensor, img_feats=None,
-                calib: Optional[dict] = None) -> torch.Tensor:
+                calib: Optional[dict] = None,
+                layout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """points (B*P, C); point_voxel_index (B*P,) voxel row or -1;
         voxel_coors (Nv, 4) (b, z, y, x); with a fusion layer, img_feats
-        (per level (B, N, h, w, C)) and calib (``PointFusion.forward``).
+        (per level (B, N, h, w, C)) and calib (``PointFusion.forward``);
+        layout: each voxel's points (``DynamicVoxels.voxel_ptr``,
+        ``point_order``), handed to every voxel mean and max (K2 on the
+        card; the CPU ignores it).
         Returns (Nv, width) voxel features: width feat_channels[-1], or the
         fusion layer's out_channels."""
         nv = voxel_coors.shape[0]
@@ -82,7 +87,7 @@ class DynamicVFE(nn.Module):
         feats = [pts]
         xyz = pts[:, :3]
         if self.with_cluster_center:
-            feats.append(xyz - segment_mean(xyz, vid, nv)[vid])
+            feats.append(xyz - segment_mean(xyz, vid, nv, layout)[vid])
         if self.with_voxel_center:
             centers = voxel_center_xyz(voxel_coors[:, 1:], self.voxel_size,
                                        self.point_cloud_range)
@@ -98,7 +103,7 @@ class DynamicVFE(nn.Module):
                     img_feats is not None:
                 x = self.fusion_layer(img_feats, xyz, voxel_coors[vid, 0],
                                       x, calib)
-            voxel_feats = segment_max(x, vid, nv)
+            voxel_feats = segment_max(x, vid, nv, layout)
             if i < last:
                 x = torch.cat([x, voxel_feats[vid]], -1)
         return voxel_feats

@@ -44,17 +44,17 @@ SIGNATURES = {
     "nms_circle": ([_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P], ctypes.c_int),
     "gaussian_heatmap": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P],
                          ctypes.c_int),
-    "dynamic_voxelize": ([_I, _P, _P, _LL, _LL, _LL, _F, _F, _F, _F, _F, _F,
-                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
-    "dynamic_scatter": ([_I, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _P], _I),
+    "dynamic_voxelize": ([_I, _P, _P, _P, _LL, _LL, _LL, _LL, _F, _F, _F,
+                          _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                         _I),
+    "dynamic_scatter": ([_I, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P],
+                        _I),
 }
 
-# values one block of csrc/prefix_scan.cuh scans (its TILE): the kernels
-# that use it take ceil(n / PREFIX_SCAN_TILE) words of tile totals
-PREFIX_SCAN_TILE = 2048
-
+# launches per kernel, and "segment_layout": the lists that K1's list stage
+# built for a K2 caller that passed none (ops/voxel.py:segment_layout)
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+LAUNCHES["segment_layout"] = 0
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

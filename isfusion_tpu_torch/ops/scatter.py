@@ -7,23 +7,33 @@ and every row belongs to one; there is no trash slot. Empty segments give
 
 On a CPU tensor ``segment_max`` / ``segment_mean`` take their plain
 versions (``segment_max_ref``: ``scatter_reduce`` amax; ``segment_mean_ref``:
-``index_add_`` sums over the counts); on a CUDA tensor they launch
-``csrc/dynamic_scatter.cu`` or raise. Both are autograd functions. The
-max's gradient goes in equal parts to the rows equal to the maximum, as
-``jax.ops.segment_max`` splits it (PyTorch's own ``scatter_reduce``
-backward also counts the zero it starts from when a maximum is exactly 0,
-so the plain version spells the split out). The mean's gradient is the
-segment's gradient over its count. The kernel's max, forward and
-backward, equals the plain version bit for bit; its mean sums each
-segment's rows in increasing row order (the CPU's ``index_add_`` order),
-so it repeats from run to run on the card and equals the plain version on
-the CPU bit for bit.
+``index_add_`` sums over the counts) and ignore ``layout``; on a CUDA
+tensor they launch ``csrc/dynamic_scatter.cu`` or raise. The kernel reads
+each segment's rows from a list, ``layout = (voxel_ptr, point_order)``
+(int32 CSR offsets and rows, each segment's in increasing order): the one
+K1 emits with a voxelization (``DynamicVoxels``), or one built from the
+ids by K1's list stage (``voxel.segment_layout``) when the caller passes
+none. Both are autograd functions. The max's gradient goes in equal parts
+to the rows equal to the maximum, as ``jax.ops.segment_max`` splits it
+(PyTorch's own ``scatter_reduce`` backward also counts the zero it starts
+from when a maximum is exactly 0, so the plain version spells the split
+out). The mean's gradient is the segment's gradient over its count. The
+kernel's max, forward and backward, equals the plain version bit for bit;
+its mean sums each segment's rows in increasing row order (the CPU's
+``index_add_`` order), so it repeats from run to run on the card and
+equals the plain version on the CPU bit for bit.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from . import cuda_build
+from .voxel import segment_layout
+
+Layout = Tuple[torch.Tensor, torch.Tensor]
+
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
@@ -86,94 +96,108 @@ def _check(name, data, ids, num_segments):
         raise ValueError(f"{name}: needs num_segments >= 0 and C >= 1")
 
 
-def _launch(op, data, ids, s, out, grad_out=None, ties=None, grad_in=None,
-            counts=None, cursor=None, prefix=None, tile_sums=None,
-            members=None, total=None):
-    def ptr(t):
+def _launch(op, data, ptr, order, out, grad_out=None, grad_in=None):
+    def addr(t):
         return None if t is None else t.data_ptr()
     lib = cuda_build.load("dynamic_scatter")
     err = lib.dynamic_scatter(
-        op, data.data_ptr(), ids.data_ptr(), data.shape[0], data.shape[1], s,
-        ptr(out), ptr(grad_out), ptr(ties), ptr(grad_in), ptr(counts),
-        ptr(cursor), ptr(prefix), ptr(tile_sums), ptr(members), ptr(total),
-        torch.cuda.current_stream(data.device).cuda_stream)
+        op, data.data_ptr(), ptr.data_ptr(), order.data_ptr(), data.shape[0],
+        data.shape[1], out.shape[0], out.data_ptr(), addr(grad_out),
+        addr(grad_in), torch.cuda.current_stream(data.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dynamic_scatter: kernel launch failed with CUDA "
                            f"error {err}")
     cuda_build.LAUNCHES["dynamic_scatter"] += 1
 
 
-def _cuda_operands(name, data, ids):
+def _cuda_operands(name, data, ids, num_segments,
+                   layout: Optional[Layout]):
+    """data, int64 ids and the list (the caller's, checked, or K1's list
+    stage's) for a kernel launch."""
     if data.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for {data.device}")
     if data.dtype != torch.float32:
         raise TypeError(f"{name}: the kernel takes float32 data")
-    return data.contiguous(), ids.to(torch.int64).contiguous()
+    ids = ids.to(torch.int64).contiguous()
+    if layout is None:
+        ptr, order = segment_layout(ids, num_segments)
+    else:
+        ptr, order = layout
+        if ptr.dtype != torch.int32 or order.dtype != torch.int32 or \
+                tuple(ptr.shape) != (num_segments + 1,) or \
+                tuple(order.shape) != (data.shape[0],) or \
+                ptr.device != data.device or order.device != data.device:
+            raise ValueError(
+                f"{name}: layout (voxel_ptr (S + 1,), point_order (P,)) "
+                f"int32 on {data.device}, got {ptr.dtype} "
+                f"{tuple(ptr.shape)}, {order.dtype} {tuple(order.shape)}")
+    return data.contiguous(), ids, ptr.contiguous(), order.contiguous()
+
+
+def _reduce(op, data, ptr, order):
+    out = torch.empty((ptr.shape[0] - 1, data.shape[1]), dtype=data.dtype,
+                      device=data.device)
+    _launch(op, data, ptr, order, out)
+    return out
 
 
 class _SegmentMaxKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, ids, num_segments):
-        out = torch.zeros((num_segments, data.shape[1]), dtype=data.dtype,
-                          device=data.device)
-        _launch(0, data, ids, num_segments, out)
-        ctx.save_for_backward(data, ids, out)
+    def forward(ctx, data, ptr, order):
+        out = _reduce(0, data, ptr, order)
+        ctx.save_for_backward(data, ptr, order, out)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        data, ids, out = ctx.saved_tensors
-        ties = torch.zeros(out.shape, dtype=torch.int32, device=out.device)
+        data, ptr, order, out = ctx.saved_tensors
         grad_in = torch.empty_like(data)
-        _launch(1, data, ids, out.shape[0], out,
-                grad_out=grad_out.contiguous(), ties=ties, grad_in=grad_in)
+        _launch(1, data, ptr, order, out, grad_out=grad_out.contiguous(),
+                grad_in=grad_in)
         return grad_in, None, None
 
 
 class _SegmentMeanKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, ids, num_segments):
-        p, c = data.shape
-        dev = data.device
-        counts = torch.zeros(num_segments, dtype=torch.int32, device=dev)
-        cursor = torch.zeros(num_segments, dtype=torch.int32, device=dev)
-        prefix = torch.empty(num_segments, dtype=torch.int32, device=dev)
-        tile_sums = torch.empty(max(-(-num_segments //
-                                      cuda_build.PREFIX_SCAN_TILE), 1),
-                                dtype=torch.int32, device=dev)
-        members = torch.empty(p, dtype=torch.int32, device=dev)
-        total = torch.empty(1, dtype=torch.int64, device=dev)
-        out = torch.zeros((num_segments, c), dtype=data.dtype, device=dev)
-        _launch(2, data, ids, num_segments, out, counts=counts,
-                cursor=cursor, prefix=prefix, tile_sums=tile_sums,
-                members=members, total=total)
-        ctx.save_for_backward(ids, counts)
-        return out
+    def forward(ctx, data, ids, ptr, order):
+        ctx.save_for_backward(ids, ptr)
+        return _reduce(2, data, ptr, order)
 
     @staticmethod
     def backward(ctx, grad_out):
-        ids, counts = ctx.saved_tensors
-        count = counts.to(grad_out.dtype).clamp_min(1.0)
-        return (grad_out / count[:, None])[ids], None, None
+        ids, ptr = ctx.saved_tensors
+        count = (ptr[1:] - ptr[:-1]).to(grad_out.dtype).clamp_min(1.0)
+        return (grad_out / count[:, None])[ids], None, None, None
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+                num_segments: int, layout: Optional[Layout] = None
+                ) -> torch.Tensor:
     """(P, C) rows, (P,) ids in [0, num_segments) -> (num_segments, C)
-    per-segment max; empty segments give 0 — K2."""
+    per-segment max; empty segments give 0 — K2. ``layout``: the
+    segments' rows (``voxel_ptr``, ``point_order``) where the caller has
+    them."""
     _check("segment_max", data, segment_ids, num_segments)
     if data.device.type == "cpu":
         return segment_max_ref(data, segment_ids, num_segments)
-    data, ids = _cuda_operands("segment_max", data, segment_ids)
-    return _SegmentMaxKernel.apply(data, ids, int(num_segments))
+    data, _, ptr, order = _cuda_operands("segment_max", data, segment_ids,
+                                         int(num_segments), layout)
+    if not (data.requires_grad and torch.is_grad_enabled()):
+        return _reduce(0, data, ptr, order)
+    return _SegmentMaxKernel.apply(data, ptr, order)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
+                 num_segments: int, layout: Optional[Layout] = None
+                 ) -> torch.Tensor:
     """(P, C) rows, (P,) ids in [0, num_segments) -> (num_segments, C)
-    per-segment mean; empty segments give 0 — K2."""
+    per-segment mean; empty segments give 0 — K2. ``layout`` as for
+    ``segment_max``."""
     _check("segment_mean", data, segment_ids, num_segments)
     if data.device.type == "cpu":
         return segment_mean_ref(data, segment_ids, num_segments)
-    data, ids = _cuda_operands("segment_mean", data, segment_ids)
-    return _SegmentMeanKernel.apply(data, ids, int(num_segments))
+    data, ids, ptr, order = _cuda_operands("segment_mean", data, segment_ids,
+                                           int(num_segments), layout)
+    if not (data.requires_grad and torch.is_grad_enabled()):
+        return _reduce(2, data, ptr, order)
+    return _SegmentMeanKernel.apply(data, ids, ptr, order)

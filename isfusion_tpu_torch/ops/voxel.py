@@ -7,15 +7,20 @@ ordered by batch, then by the z-major linear id — the order of the JAX
 voxelizers' dense relabelling — and carry (b, z, y, x) int32 coordinates.
 
 ``voxelize_dynamic`` is K1: on a CUDA tensor it launches
-``csrc/dynamic_voxelize.cu`` (an occupancy bitmap, a popcount prefix sum:
-no sort) or raises; on a CPU tensor it takes its plain version
-``voxelize_dynamic_ref`` (``torch.unique``). Both give the same rows and
-the same table bit for bit. ``voxelize_hard`` is plain PyTorch (ROADMAP
-queue K5).
+``csrc/dynamic_voxelize.cu`` (a two-level occupancy bitmap and popcount
+prefix sums: no sort of the points) or raises; on a CPU tensor it takes
+its plain version ``voxelize_dynamic_ref`` (``torch.unique``). Both give
+the same rows, table and point lists bit for bit: each voxel's valid
+points in increasing order, as CSR offsets (``voxel_ptr``) and compacted
+point indices (``point_order``), which K2 (``ops/scatter.py``) reduces
+over. ``segment_layout`` builds that list from segment ids (K1's list
+stage). ``voxelize_hard`` is plain PyTorch (ROADMAP queue K5).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,6 +87,23 @@ def _decode_keys(keys: torch.Tensor, grid: Tuple[int, int, int]
 class DynamicVoxels(NamedTuple):
     point_voxel_index: torch.Tensor  # (B*P,) int64 voxel row per point, -1 = none
     voxel_coors: torch.Tensor        # (Nv, 4) int32 (b, z, y, x), sorted
+    # voxel v's points: point_order[voxel_ptr[v]:voxel_ptr[v + 1]], indices
+    # into the valid points in their order (points[point_voxel_index >= 0]),
+    # increasing
+    voxel_ptr: torch.Tensor          # (Nv + 1,) int32
+    point_order: torch.Tensor        # (n_valid,) int32
+
+
+def segment_layout_ref(segment_ids: torch.Tensor, num_segments: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``segment_layout``: a stable sort of the
+    ids and the offsets of their counts."""
+    ids = segment_ids.long()
+    order = torch.sort(ids, stable=True).indices.to(torch.int32)
+    ptr = torch.zeros(int(num_segments) + 1, dtype=torch.int64,
+                      device=ids.device)
+    ptr[1:] = torch.bincount(ids, minlength=int(num_segments)).cumsum(0)
+    return ptr.to(torch.int32), order
 
 
 def voxelize_dynamic_ref(points: torch.Tensor, points_mask: torch.Tensor,
@@ -95,14 +117,98 @@ def voxelize_dynamic_ref(points: torch.Tensor, points_mask: torch.Tensor,
     uniq, inv = torch.unique(keys[valid], sorted=True, return_inverse=True)
     pvi = torch.full_like(keys, -1)
     pvi[valid] = inv
-    return DynamicVoxels(pvi, _decode_keys(uniq, grid))
+    return DynamicVoxels(pvi, _decode_keys(uniq, grid),
+                         *segment_layout_ref(inv, uniq.shape[0]))
+
+
+# K1's workspace, one per (device index, stream): the zeroed region (all
+# zero between calls: each call clears what it set), the scratch and the
+# pinned host words the totals are copied to. Calls on one stream run in
+# order; another stream gets a workspace of its own. A cache of the
+# process, as the compiled libraries are: the entry points keep their JAX
+# counterparts' signatures.
+_WORKSPACES: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]] = {}
+# the regions' sizes (int32 words) by op, shape and grid, as the kernel's
+# source lays them out
+_SIZES: Dict[tuple, Tuple[int, int]] = {}
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_geometry(point_cloud_range: tuple, voxel_size: tuple) -> tuple:
+    """(low x, y, z, inv x, y, z, nx, ny, nz) as the kernel takes them."""
+    low, inv, grid = grid_geometry(point_cloud_range, voxel_size)
+    return tuple(float(v) for v in low.tolist() + inv.tolist()) + grid
+
+
+def _launch_k1(op: int, dev: torch.device, out: torch.Tensor, b: int,
+               p: int, c: int = 3, s: int = 0, pts=None, mask=None,
+               ids=None, geo=(0.0,) * 6 + (1, 1, 1)):
+    """One call of ``csrc/dynamic_voxelize.cu`` (op 0 voxelize, op 1 the
+    list of ``ids``) into ``out``. Returns the pinned (3,) int64 host
+    tensor that holds op 0's totals (valid points, voxels, points listed)
+    when the call returns: op 0 ends by synchronising the stream."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    lib = cuda_build.load("dynamic_voxelize")
+    args = (op, ptr(pts), ptr(mask), ptr(ids), b, p, c, s, *geo)
+    sizes = _SIZES.get((op, b, p, c, s) + geo[6:])
+    if sizes is None:
+        buf = (ctypes.c_longlong * 2)()
+        err = lib.dynamic_voxelize(*args, None, None, None, None, buf, None)
+        if err != 0:
+            raise ValueError(f"dynamic_voxelize: invalid arguments {args}")
+        sizes = _SIZES[(op, b, p, c, s) + geo[6:]] = (buf[0], buf[1])
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    zeroed, scratch, host = _WORKSPACES.get(key, (None, None, None))
+    if zeroed is None or zeroed.numel() < sizes[0]:
+        zeroed = torch.zeros(max(sizes[0], 1), dtype=torch.int32, device=dev)
+    if scratch is None or scratch.numel() < sizes[1]:
+        scratch = torch.empty(sizes[1], dtype=torch.int32, device=dev)
+    if host is None:
+        host = torch.zeros(3, dtype=torch.int64, pin_memory=True)
+    _WORKSPACES[key] = (zeroed, scratch, host)
+    err = lib.dynamic_voxelize(*args, zeroed.data_ptr(), scratch.data_ptr(),
+                               out.data_ptr(), host.data_ptr(), None,
+                               stream.cuda_stream)
+    if err != 0:
+        del _WORKSPACES[key]        # its zeroed region may be left dirty
+        raise RuntimeError(f"dynamic_voxelize: kernel launch failed with "
+                           f"CUDA error {err}")
+    return host
+
+
+def segment_layout(segment_ids: torch.Tensor, num_segments: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(P,) ids in [0, num_segments) -> (voxel_ptr (S + 1,) int32,
+    point_order (P,) int32): segment s holds rows
+    ``point_order[voxel_ptr[s]:voxel_ptr[s + 1]]``, in increasing order —
+    K1's list stage, for a K2 caller that has no list. On a CUDA tensor it
+    launches ``csrc/dynamic_voxelize.cu`` (op 1) or raises."""
+    if segment_ids.dim() != 1 or num_segments < 0:
+        raise ValueError(f"segment_layout: ids (P,) and num_segments >= 0, "
+                         f"got {tuple(segment_ids.shape)}, {num_segments}")
+    if segment_ids.device.type == "cpu":
+        return segment_layout_ref(segment_ids, num_segments)
+    if segment_ids.device.type != "cuda":
+        raise RuntimeError(f"segment_layout: no kernel for "
+                           f"{segment_ids.device}")
+    s, p = int(num_segments), int(segment_ids.shape[0])
+    if s + 1 + p >= 2 ** 31:
+        raise ValueError("segment_layout: the kernel lists < 2^31 rows")
+    ids = segment_ids.to(torch.int64).contiguous()
+    out = torch.empty(s + 1 + p, dtype=torch.int32, device=ids.device)
+    _launch_k1(1, ids.device, out, 1, p, s=s, ids=ids)
+    cuda_build.LAUNCHES["segment_layout"] += 1
+    return out[:s + 1], out[s + 1:]
 
 
 def voxelize_dynamic(points: torch.Tensor, points_mask: torch.Tensor,
                      point_cloud_range, voxel_size) -> DynamicVoxels:
-    """points (B, P, C) float32, points_mask (B, P) -> per-point voxel rows
-    and the sorted unique voxel table (``dynamic_voxelize`` semantics, no
-    cap) — K1. Finite points; C >= 3."""
+    """points (B, P, C) float32, points_mask (B, P) -> per-point voxel rows,
+    the sorted unique voxel table (``dynamic_voxelize`` semantics, no cap)
+    and each voxel's points — K1. Finite points; C >= 3."""
     if points.dim() != 3 or points.shape[-1] < 3 or \
             tuple(points_mask.shape) != tuple(points.shape[:2]):
         raise ValueError(f"voxelize_dynamic: points (B, P, C >= 3) and mask "
@@ -118,39 +224,24 @@ def voxelize_dynamic(points: torch.Tensor, points_mask: torch.Tensor,
         raise RuntimeError(f"voxelize_dynamic: no kernel for {points.device}")
     if points.dtype != torch.float32:
         raise TypeError("voxelize_dynamic: the kernel takes float32 points")
-    low, inv, grid = grid_geometry(point_cloud_range, voxel_size)
+    geo = _kernel_geometry(tuple(float(v) for v in point_cloud_range),
+                           tuple(float(v) for v in voxel_size))
     b, p, c = points.shape
-    dev = points.device
-    pts = points.contiguous()
-    mask = points_mask.to(torch.bool).contiguous()
-    n_words = (b * grid[0] * grid[1] * grid[2] + 31) // 32
-    tiles = -(-n_words // cuda_build.PREFIX_SCAN_TILE)
-    bitmap = torch.zeros(n_words, dtype=torch.int32, device=dev)
-    prefix = torch.empty(n_words, dtype=torch.int32, device=dev)
-    tile_sums = torch.empty(tiles, dtype=torch.int32, device=dev)
-    keys = torch.empty(b * p, dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    rows = torch.empty(b * p, dtype=torch.int64, device=dev)
-    lib = cuda_build.load("dynamic_voxelize")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    geo = [float(v) for v in low.tolist() + inv.tolist()] + list(grid)
-
-    def launch(stage, table):
-        err = lib.dynamic_voxelize(
-            stage, pts.data_ptr(), mask.data_ptr(), b, p, c, *geo,
-            bitmap.data_ptr(), prefix.data_ptr(), tile_sums.data_ptr(),
-            keys.data_ptr(), total.data_ptr(), rows.data_ptr(),
-            table.data_ptr() if table is not None else None, stream)
-        if err != 0:
-            raise RuntimeError(f"dynamic_voxelize: kernel launch failed with "
-                               f"CUDA error {err}")
-
-    launch(0, None)
-    nv = int(total.item())
-    table = torch.empty((nv, 4), dtype=torch.int32, device=dev)
-    launch(1, table)
+    n = b * p
+    if 8 * n + 1 >= 2 ** 31:
+        raise ValueError("voxelize_dynamic: the kernel takes < 2^28 points")
+    # one output buffer: the table sized for the worst case (16-byte rows
+    # first), the rows (int64), voxel_ptr, point_order
+    out = torch.empty(8 * n + 1, dtype=torch.int32, device=points.device)
+    host = _launch_k1(0, points.device, out, b, p, c,
+                      pts=points.contiguous(),
+                      mask=points_mask.to(torch.bool).contiguous(), geo=geo)
     cuda_build.LAUNCHES["dynamic_voxelize"] += 1
-    return DynamicVoxels(rows, table)
+    n_valid, nv, _ = host.tolist()
+    table, _, rows, ptr, _, order, _ = out.split_with_sizes(
+        [4 * nv, 4 * (n - nv), 2 * n, nv + 1, n - nv, n_valid, n - n_valid])
+    return DynamicVoxels(rows.view(torch.int64), table.view(nv, 4), ptr,
+                         order)
 
 
 class HardVoxels(NamedTuple):

@@ -12,11 +12,13 @@ to the plain greedy walk over the kernel's own suppression bits, those
 bits equal to the plain IoU's more than 1e-5 from the threshold, and keep
 masks equal to the plain version's when no pair is that close, the bits
 symmetric; circle-NMS keep masks and gaussian heatmaps equal to their
-plain versions (the positives, cells at 1.0, included); K1's rows and
-voxel table equal to its plain version's; K2's max, forward and backward,
-equal to its plain version's, its mean equal to the plain version's on the
-CPU (the same sum order) and within 1e-6 of the output's max of the plain
-version's on the card (``index_add_`` sums in atomic order); 1e-5 of
+plain versions (the positives, cells at 1.0, included); K1's rows,
+voxel table and point lists (``voxel_ptr``, ``point_order``; also
+``segment_layout``'s) equal to its plain version's; K2's max, forward and
+backward, equal to its plain version's with or without a list, its mean
+equal to the plain version's on the CPU (the same sum order), equal over
+two calls, and within 1e-6 of the output's max of the plain version's on
+the card (``index_add_`` sums in atomic order); 1e-5 of
 the max for the sparse conv's
 K12 backward against plain autograd on the CPU, 1e-3 of the max for the
 tiny flagship on the card against the CPU, 1e-4 of the max for the tiny
@@ -87,9 +89,14 @@ def test_tiny_flagship_on_card_matches_cpu(card):
     gpu, batch_fn = build_isfusion_flagship(tiny=True, device="cuda", seed=2)
     cpu, _ = build_isfusion_flagship(tiny=True, device="cpu", seed=2)
     batch = batch_fn(1, seed=5)
-    before = cuda_build.LAUNCHES["masked_gather"]
+    before = dict(cuda_build.LAUNCHES)
     pg, _ = gpu(batch, mode="feats", device="cuda")
-    assert cuda_build.LAUNCHES["masked_gather"] > before
+    assert cuda_build.LAUNCHES["masked_gather"] > before["masked_gather"]
+    # one voxelization, whose lists every voxel mean and max take
+    assert cuda_build.LAUNCHES["dynamic_voxelize"] == \
+        before["dynamic_voxelize"] + 1
+    assert cuda_build.LAUNCHES["dynamic_scatter"] > before["dynamic_scatter"]
+    assert cuda_build.LAUNCHES["segment_layout"] == before["segment_layout"]
     pc, _ = cpu(batch, mode="feats", device="cpu")
     want = pc["dense_heatmap"]
     err = (pg["dense_heatmap"].cpu() - want).abs().max() / want.abs().max()
@@ -446,10 +453,28 @@ def _voxel_sets():
                                   p=20000)
     cloud = synthetic_points_batch(2, num_points=50000, seed=4)
     sets.append(("flagship_cloud", cloud["points"], cloud["points_mask"]))
+    rng = np.random.default_rng(6)
+    low, size = np.asarray(MVX_PCR[:3]), np.asarray(MVX_VS)
+    # all 20,000 points in one voxel: one long slice (a block sorts it)
+    one = np.zeros((1, 20000, 4), np.float32)
+    one[0, :, :3] = low + (np.array([700, 400, 20]) +
+                           rng.uniform(0.1, 0.9, (20000, 3))) * size
+    sets.append(("one_voxel", one, np.ones((1, 20000), bool)))
+    # slices across the thread, warp and block sorts, in shuffled order
+    lens = [1, 2, 5, 16, 17, 31, 32, 33, 64, 100, 255, 256, 257, 300, 600,
+            1500] * 6
+    cells = rng.choice(1000 * 1000, len(lens), replace=False)
+    xyz = np.concatenate([
+        low + (np.array([cell % 1000, cell // 1000, 7]) +
+               rng.uniform(0.1, 0.9, (n, 3))) * size
+        for cell, n in zip(cells, lens)])
+    sl = np.zeros((1, len(xyz), 4), np.float32)
+    sl[0, :, :3] = xyz[rng.permutation(len(xyz))]
+    sets.append(("slices", sl, np.ones((1, len(xyz)), bool)))
     return sets
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(9))
 def test_dynamic_voxelize_kernel_matches_plain_version(card, case):
     name, pts, mask = _voxel_sets()[case]
     pcr, vs = (MVX_PCR, MVX_VS) if name != "flagship_cloud" else \
@@ -462,6 +487,27 @@ def test_dynamic_voxelize_kernel_matches_plain_version(card, case):
     want = voxel.voxelize_dynamic_ref(pts, mask, pcr, vs)
     assert torch.equal(got.point_voxel_index, want.point_voxel_index), name
     assert torch.equal(got.voxel_coors, want.voxel_coors), name
+    assert torch.equal(got.voxel_ptr, want.voxel_ptr), name
+    assert torch.equal(got.point_order, want.point_order), name
+    if name == "one_voxel":
+        assert got.voxel_ptr.tolist() == [0, 20000]
+    again = voxel.voxelize_dynamic(pts, mask, pcr, vs)   # the workspace
+    assert torch.equal(again.point_order, want.point_order), name
+
+
+def test_segment_layout_kernel_matches_plain_version(card):
+    gen = torch.Generator().manual_seed(9)
+    ids = torch.randint(0, 3000, (40000,), generator=gen)
+    ids[ids == 1] = 2                           # an empty segment
+    ids[:5000] = 7                              # a long one
+    ids[5000:5100] = 8                          # a medium one
+    ids = ids.to(card)
+    before = cuda_build.LAUNCHES["segment_layout"]
+    ptr, order = voxel.segment_layout(ids, 3000)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["segment_layout"] == before + 1
+    want_ptr, want_order = voxel.segment_layout_ref(ids, 3000)
+    assert torch.equal(ptr, want_ptr) and torch.equal(order, want_order)
 
 
 def _segments(gen, p, c, s):
@@ -494,6 +540,39 @@ def test_dynamic_scatter_max_kernel_matches_plain_version(card, c):
     assert (ko[1] == 0).all()
 
 
+@pytest.mark.parametrize("c,aligned", [(3, True), (64, True), (64, False),
+                                       (128, True)])
+def test_dynamic_scatter_max_with_layout_matches_plain_version(card, c,
+                                                               aligned):
+    """The max, forward and backward, through a list built once: no list
+    is built again; bit-equal to the plain version with the empty segment
+    and the zero ties; rows 16-byte aligned (16-byte loads) or not."""
+    gen = torch.Generator().manual_seed(c + 1)
+    data, ids = _segments(gen, 20000, c, 3000)
+    data, ids = data.to(card), ids.to(card)
+    if not aligned:                            # one float past an alignment
+        data = torch.empty(data.numel() + 1, device=card)[1:].view_as(
+            data).copy_(data)
+        assert data.data_ptr() % 16 != 0
+    g = torch.randn((3000, c), generator=gen).to(card)
+    layout = voxel.segment_layout(ids, 3000)
+    before = dict(cuda_build.LAUNCHES)
+    outs = []
+    for fn, kw in ((scatter.segment_max, dict(layout=layout)),
+                   (scatter.segment_max_ref, {})):
+        x = data.detach().clone().requires_grad_(True)
+        out = fn(x, ids, 3000, **kw)
+        (out * g).sum().backward()
+        outs.append((out.detach(), x.grad))
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["segment_layout"] == before["segment_layout"]
+    assert cuda_build.LAUNCHES["dynamic_scatter"] == \
+        before["dynamic_scatter"] + 2
+    (ko, kg), (po, pg) = outs
+    assert torch.equal(ko, po) and torch.equal(kg, pg)
+    assert (ko[1] == 0).all()
+
+
 def test_dynamic_scatter_mean_kernel_order_is_fixed(card):
     gen = torch.Generator().manual_seed(7)
     data = torch.randn((30000, 3), generator=gen) * 40
@@ -514,6 +593,25 @@ def test_dynamic_scatter_mean_kernel_order_is_fixed(card):
     xr = data.clone().requires_grad_(True)
     (scatter.segment_mean_ref(xr, ids, 4000) * w).sum().backward()
     assert torch.equal(x.grad, xr.grad)
+
+
+def test_dynamic_scatter_mean_with_layout_repeats(card):
+    gen = torch.Generator().manual_seed(8)
+    data = torch.randn((30000, 3), generator=gen) * 40
+    ids = torch.randint(0, 4000, (30000,), generator=gen)
+    ids[:500] = 5                              # one crowded segment
+    ids[ids == 6] = 7                          # an empty one
+    want_cpu = scatter.segment_mean_ref(data, ids, 4000)
+    data, ids = data.to(card), ids.to(card)
+    layout = voxel.segment_layout(ids, 4000)
+    before = cuda_build.LAUNCHES["segment_layout"]
+    got = scatter.segment_mean(data, ids, 4000, layout)
+    again = scatter.segment_mean(data, ids, 4000, layout)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["segment_layout"] == before
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want_cpu)
+    assert (got[6] == 0).all()
 
 
 def test_mvxnet_tiny_on_card_matches_cpu(card):
@@ -539,8 +637,12 @@ def test_mvxnet_tiny_on_card_matches_cpu(card):
         losses.append({k: float(v) for k, v in m.items()})
         launched = {k: cuda_build.LAUNCHES[k] - before[k]
                     for k in ("dynamic_voxelize", "dynamic_scatter",
-                              "nms_bev")}
+                              "nms_bev", "segment_layout")}
         if dev == "cuda":
+            # a voxelization a predict and a step, whose lists every K2
+            # call takes
+            assert launched.pop("segment_layout") == 0, launched
+            assert launched["dynamic_voxelize"] == 2, launched
             assert min(launched.values()) >= 1, launched
     (cb, cs, ck), (gb, gs, gk) = outs
     assert torch.equal(ck, gk) and len(ck) > 10

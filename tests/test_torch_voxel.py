@@ -5,7 +5,11 @@ JAX package on the same numpy inputs — the plain versions of K1
 (``testing.voxel_adversarial_sets``: points on voxel faces, duplicates,
 out-of-range and masked points, empty samples), the max's gradient with
 ties (equal shares, as ``jax.ops.segment_max``), and the mean's fixed sum
-order (rows in increasing order, the order K2 keeps on the card).
+order (rows in increasing order, the order K2 keeps on the card). K1's
+point lists (``voxel_ptr``, ``point_order``, and ``segment_layout``)
+against a numpy oracle (a stable argsort of the voxel ids and the offsets
+of their counts); K2 and DynamicVFE given the lists against the same
+calls without them and against JAX.
 
 Tolerances: coordinates, voxel tables and point -> voxel indices exact;
 the max and its gradient exact, the mean bit-equal to a sequential
@@ -120,6 +124,16 @@ def test_segment_reductions_match(reduce):
 
 
 def test_dynamic_vfe_matches():
+    _check_dynamic_vfe(with_layout=False)
+
+
+def test_dynamic_vfe_with_layout_matches():
+    """The layout DynamicVFE's callers hand it (K1's point lists) changes
+    nothing on the CPU: the same features as the JAX DynamicVFE."""
+    _check_dynamic_vfe(with_layout=True)
+
+
+def _check_dynamic_vfe(with_layout):
     pts, mask = _points(seed=2)
     b, p, _ = pts.shape
     kw = dict(in_channels=5, feat_channels=[16, 16], with_cluster_center=True,
@@ -135,9 +149,11 @@ def test_dynamic_vfe_matches():
                         "pts_voxel_encoder")
     dv = voxel.voxelize_dynamic(torch.from_numpy(pts), torch.from_numpy(mask),
                                 PCR, VS)
+    layout = (dv.voxel_ptr, dv.point_order) if with_layout else None
     with torch.no_grad():
         got = vfe(torch.from_numpy(pts).reshape(b * p, -1),
-                  dv.point_voxel_index, dv.voxel_coors).numpy()
+                  dv.point_voxel_index, dv.voxel_coors,
+                  layout=layout).numpy()
     counts = np.asarray(jdv.voxel_mask).sum(1)
     want = np.concatenate([want[i, :counts[i]] for i in range(b)])
     assert_close_to_max(got, want, 1e-5)
@@ -230,3 +246,106 @@ def test_segment_mean_sums_rows_in_order_and_its_gradient_matches_jax():
     jg = jax.grad(lambda d: (jscatter.segment_mean(
         d, jnp.asarray(ids), 40) * w).sum())(jnp.asarray(data))
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), rtol=1e-6)
+
+
+def _layout_oracle(vid, n):
+    """numpy: each segment's rows in increasing order, and the offsets."""
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(vid, minlength=n))])
+    return ptr.astype(np.int32), np.argsort(vid, kind="stable").astype(
+        np.int32)
+
+
+def _layout_sets():
+    from isfusion_tpu_torch.flagship import synthetic_points_batch
+    sets = [(name, p, m, MVX_PCR, MVX_VS) for name, p, m in
+            voxel_adversarial_sets(np.random.default_rng(13), MVX_PCR,
+                                   MVX_VS, p=2048)]
+    cloud = synthetic_points_batch(2, num_points=20000, seed=3, pcr=PCR)
+    sets.append(("flagship_cloud", cloud["points"], cloud["points_mask"],
+                 PCR, VS))
+    return sets
+
+
+LAYOUT_SETS = ADVERSARIAL + ["flagship_cloud"]
+
+
+@pytest.mark.parametrize("name", LAYOUT_SETS)
+def test_voxel_layout_matches_numpy_oracle(name):
+    """K1's plain point lists: voxel v's valid points in increasing order
+    of their compacted index, as CSR offsets."""
+    pts, mask, pcr, vs = {n: (p, m, r, v) for n, p, m, r, v in
+                          _layout_sets()}[name]
+    dv = voxel.voxelize_dynamic(torch.from_numpy(pts), torch.from_numpy(mask),
+                                pcr, vs)
+    pvi = dv.point_voxel_index.numpy()
+    vid = pvi[pvi >= 0]
+    nv = dv.voxel_coors.shape[0]
+    ptr, order = _layout_oracle(vid, nv)
+    assert dv.voxel_ptr.dtype == dv.point_order.dtype == torch.int32
+    np.testing.assert_array_equal(dv.voxel_ptr.numpy(), ptr)
+    np.testing.assert_array_equal(dv.point_order.numpy(), order)
+    for v in range(0, nv, max(nv // 50, 1)):     # each slice is one voxel
+        rows = order[ptr[v]:ptr[v + 1]]
+        assert (vid[rows] == v).all() and (np.diff(rows) > 0).all()
+    if name == "duplicates":                     # long slices
+        assert np.diff(ptr).max() >= 2048 // 8
+
+
+def test_segment_layout_matches_numpy_oracle():
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 300, 5000)
+    ids[ids == 4] = 5                            # an empty segment
+    ids[:700] = 9                                # a long one
+    ptr, order = voxel.segment_layout(torch.from_numpy(ids), 300)
+    want_ptr, want_order = _layout_oracle(ids, 300)
+    np.testing.assert_array_equal(ptr.numpy(), want_ptr)
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    assert ptr[4] == ptr[5]
+
+
+@pytest.mark.parametrize("reduce", ["max", "mean"])
+def test_segment_reductions_with_layout_match_jax(reduce):
+    """The list changes nothing on the CPU: forward and gradient equal to
+    the same call without it, and to JAX."""
+    data, ids, s = _ties(seed=12)
+    w = np.random.default_rng(13).normal(size=(s, data.shape[1])).astype(
+        np.float32)
+    fn, jfn = {"max": (scatter.segment_max, jscatter.segment_max),
+               "mean": (scatter.segment_mean, jscatter.segment_mean)}[reduce]
+    layout = voxel.segment_layout(torch.from_numpy(ids), s)
+    res = []
+    for lay in (None, layout):
+        x = torch.from_numpy(data).requires_grad_(True)
+        out = fn(x, torch.from_numpy(ids), s, lay)
+        (out * torch.from_numpy(w)).sum().backward()
+        res.append((out.detach().numpy(), x.grad.numpy()))
+    (o0, g0), (o1, g1) = res
+    np.testing.assert_array_equal(o1, o0)
+    np.testing.assert_array_equal(g1, g0)
+
+    def f(d):
+        o = jfn(d, jnp.asarray(ids), s)
+        return (jnp.where(jnp.isfinite(o), o, 0.0) * w).sum(), o
+
+    (_, jo), jg = jax.value_and_grad(f, has_aux=True)(jnp.asarray(data))
+    jo = np.where(np.isfinite(jo), np.asarray(jo), 0.0)
+    assert_close_to_max(o1, jo, 1e-6)
+    np.testing.assert_allclose(g1, np.asarray(jg), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("call", ["voxelize", "layout", "max", "mean"])
+def test_kernel_wrappers_raise_off_cpu_and_cuda(call):
+    """A tensor neither on the CPU nor on a CUDA device has no kernel and
+    no plain fallback."""
+    dev = torch.device("meta")
+    data = torch.empty((10, 4), device=dev)
+    ids = torch.zeros(10, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        if call == "voxelize":
+            voxel.voxelize_dynamic(torch.empty((1, 10, 4), device=dev),
+                                   torch.ones((1, 10), dtype=torch.bool,
+                                              device=dev), PCR, VS)
+        elif call == "layout":
+            voxel.segment_layout(ids, 3)
+        else:
+            getattr(scatter, f"segment_{call}")(data, ids, 3)
