@@ -31,9 +31,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
    MVX-Net paths builds a list of its own (``check_no_layout_builds``).
    The K12 backward (the transposed-rulebook gather of a sparse conv's dX)
    at the stage-0 shapes, bit for bit, and one conv's dX and dW against
-   plain autograd; K10 (rotated 3D IoU) on 4 x 200 x 64 box pairs with
-   identical, disjoint, rotated and nested boxes against its plain
-   version (all four samples in one launch, as a train step calls it);
+   plain autograd;
 5. breakdown: one request with CUDA events around each top-level module,
    one under torch.profiler (device busy share, top kernels);
 6. precision gap: the same request with every compute dtype float32 (TF32
@@ -43,14 +41,24 @@ Phases, each printing one line (every failure raises, exit code != 0):
 8. train: the full-width flagship in train mode with the config's AdamW,
    cyclic schedules and grad clip takes 1 warm-up and 5 timed steps at
    batch 4 (``samples_per_gpu``; one sample with two camera views
-   dropped), bf16. Launch counts are zeroed before the timed steps and
+   dropped), bf16; the warm-up step records K10's inputs. Launch counts
+   are zeroed before the timed steps and
    read after, split into each step's forward and backward. Prints each
    step's losses, grad norm and ms, peak memory, the host Hungarian's ms
    and the launches per step (K12 forward and backward, K10, K11 for the
    dense heatmap target, K1, K2 forward and backward); fails on a
    non-finite loss or grad norm, a
    zero grad norm, a kernel not launched in every step, or an unchanged
-   weight of the sparse encoder, the fusion encoder or the head;
+   weight of the sparse encoder, the fusion encoder or the head. Then K10
+   (rotated 3D IoU) against its plain version on that step's own
+   assigner inputs (4 x 200 x 64 pairs, every sample in one launch,
+   read in the assigner's 9-wide rows), on 4 x 200 x 64 pairs with
+   identical, disjoint, rotated and nested boxes, and on edge sets
+   (touching, nested, identical, 45 degrees, stacked in z, far apart):
+   within 1e-5 and exactly 0 wherever the plain version is, with the
+   shares of pairs each exact cut settles, ms, whole-call device ms and
+   operations, the data-dependent and all-pairs bounds
+   (``[iou_case]``, ``[iou_check]``) and the floor of an empty launch;
 9. train reference: one float32 step of the tiny flagship (dropout off) on
    the card and on the CPU from the same weights and batch: loss terms
    within 1e-4 relative, each top-level module's gradient within 1e-3 of
@@ -144,8 +152,9 @@ Phases, each printing one line (every failure raises, exit code != 0):
     all invalid, a single box): keep masks equal. K11 against its plain
     version on the CenterPoint step's inputs (B 4 x G 64, 180 x 180, 10
     classes) and the flagship step's: heatmaps equal, cells at 1.0 equal.
-    Each kernel's ms (CUDA events), device ms (profiler), plain ms and
-    bound;
+    Each kernel's ms (CUDA events), device ms (profiler; K10-circle's
+    whole call and its device operations, also on the request's sets
+    shuffled), plain ms and bound, and the floor of an empty launch;
 19. CenterPoint reference: the tiny CenterPoint in float32 on the card
     against the CPU, predict (same kept entries and labels, boxes within
     1e-4 of their max) and one train step (losses 1e-4 relative,
@@ -197,6 +206,13 @@ and K2 (serve, train, mvx-serve, mvx-train; more requests and steps) and
 times K1 and K2 on each cell's own inputs, with the port imported from
 the checkout TREE: two checkouts compared in one call
 (``dynamic_compare``).
+
+``python3 chip_smoke.py --boxes TREE`` runs only cp-serve and the
+flagship's train step (more requests and steps) and times K10-circle and
+K10 on their own inputs (CUDA-event ms, whole-call device ms and
+operations), with the port imported from the checkout TREE, beside the
+floor of an empty launch: two checkouts compared in one call
+(``boxes_compare``).
 
 ``python3 chip_smoke.py --learn WORK_DIR`` runs the learnability recipe in
 full (48 train / 16 val samples, 100 epochs, ``learn_run``) and leaves
@@ -262,18 +278,31 @@ def device_kernels(fn, iters: int = 50) -> dict:
     warm-up: the card's own clock, without the host's launch overhead."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    # a warm-up step under the profiler first: the trace misses the first
+    # launches of a profile (up to a fifth of 50 short calls), which
+    # undercounted the operations of a call
+    done = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: done.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the profiler's own device-side events (the step's annotation spans
+    # the step; buffer requests; the synchronisations the profile waits
+    # on) are no operations of fn
     return {e.key: (e.count / iters, e.self_device_time_total / 1e3 / e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count}
+            for e in done[0] if e.device_type == DeviceType.CUDA and e.count
+            and not (e.key.startswith(("ProfilerStep",
+                                       "Activity Buffer Request"))
+                     or "Sync" in e.key)}
 
 
 def kernel_breakdown(fn, iters: int = 20) -> dict:
@@ -558,71 +587,143 @@ def phase_backward_check(src, idx, fmask, dev: str = "cuda") -> dict:
     return rec
 
 
-def iou_test_boxes(gen, n: int = 200, m: int = 64):
-    """(a (n, 7), b (m, 7), rows of a copied into b[:8]) at flagship
-    range: b holds 8 copies of boxes of a (identical), 8 rotated copies,
-    8 nested (shrunk) copies, 8 disjoint boxes and 32 jittered copies."""
+def same_layout(t):
+    """A copy of ``t`` with its strides (a slice of wider rows stays one)."""
     import torch
-    a = torch.empty((n, 7))
-    a[:, :2] = (torch.rand((n, 2), generator=gen) * 2 - 1) * 48
-    a[:, 2] = -1 - torch.rand(n, generator=gen)
-    a[:, 3:6] = 0.5 + torch.rand((n, 3), generator=gen) * 4.5
-    a[:, 6] = (torch.rand(n, generator=gen) * 2 - 1) * 3.14159
-    src = torch.randperm(n, generator=gen)[:m]
-    pick = a[src].clone()
-    pick[8:16, 6] += 0.7                       # rotated
-    pick[16:24, 3:6] *= 0.5                    # nested
-    pick[16:24, 2] += 0.1
-    pick[24:32, :2] += 500.0                   # disjoint
-    pick[32:] += torch.randn((m - 32, 7), generator=gen) * 0.3
-    pick[32:, 3:6] = pick[32:, 3:6].abs() + 0.1
-    return a, pick, src[:8]
+    out = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                              device=t.device)
+    return out.copy_(t)
 
 
-def phase_iou_check(dev: str = "cuda") -> dict:
-    """K10 against its plain version on 4 x 200 x 64 pairs (the
-    assigner's shape at batch 4, all samples in one launch, as a train
-    step calls it), within 1e-5; the batched launch timed beside its
-    operation bound and beside one launch per sample (the earlier
-    design), by CUDA events around the wrapper (``ms``, ``one_sample_ms``,
-    ``per_sample_launches_ms`` for all four) and by the profiler's device
-    time of the kernel alone (``device_ms``, ``one_sample_device_ms``)."""
+@contextlib.contextmanager
+def recording_iou():
+    """Inside the block, every K10 call of the assigner appends its
+    inputs (the proposals' and the GTs' rows, in their own layout) to the
+    yielded list; the kernel still runs."""
+    from isfusion_tpu_torch.core.bbox import assigners
+
+    real, seen = assigners.boxes_iou_3d, []
+
+    def recording(a, b):
+        seen.append((same_layout(a), same_layout(b)))
+        return real(a, b)
+
+    assigners.boxes_iou_3d = recording
+    try:
+        yield seen
+    finally:
+        assigners.boxes_iou_3d = real
+
+
+def launch_floor(dev: str = "cuda") -> dict:
+    """The floor of one launch on this card: an empty kernel
+    (``csrc/empty_launch.cu``) through ctypes, as the wrappers launch
+    theirs: CUDA-event ms a launch (launches queued back to back), device
+    ms (profiler)."""
+    if dev != "cuda":
+        return dict(ms="not measured", device_ms="not measured")
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("empty_launch")
+
+    def launch():
+        err = lib.empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty_launch failed with CUDA error {err}")
+
+    return dict(ms=cuda_ms(launch, iters=200),
+                device_ms=device_ms_per_call(launch, iters=50))
+
+
+def iou_case(a, b, dev: str = "cuda", timed: bool = True) -> dict:
+    """K10 on (a, b) against its plain version: max error, the pairs the
+    plain version makes exactly 0 that the kernel does not (must be 0),
+    the shares of pairs settled by each cut, and, ``timed``: CUDA-event
+    ms, whole-call device ms and device operations (profiler, every
+    operation the wrapper issues), plain ms, the data-dependent bound
+    (``iou3d_needed_ops``: each pair's cheapest certificate, or the bytes)
+    and the all-pairs one."""
     import torch
     from isfusion_tpu_torch.ops import box_ops
+
+    got = box_ops.boxes_iou_3d(a, b)
+    ref = box_ops.boxes_iou_3d_ref(a, b)
+    sync(dev)
+    by_z, by_circle = box_ops.iou3d_early_outs(a, b)
+    r = dict(shape=[list(a.shape), list(b.shape)],
+             row_strides=[a.stride(-2), b.stride(-2)],
+             max_abs_err=float((got - ref).abs().max()),
+             zeros=int((ref == 0).sum()),
+             nonzero_where_plain_zero=int((got[ref == 0] != 0).sum()),
+             cut_by_z=float(by_z.float().mean()),
+             cut_by_circle=float((by_circle & ~by_z).float().mean()))
+    if not timed:
+        return r
+    n, m = a.shape[-2], b.shape[-2]
+    nbytes = (a[..., 0].numel() + b[..., 0].numel()) * 7 * 4 + \
+        got.numel() * 4
+    needed, every = box_ops.iou3d_needed_ops(a, b), box_ops.iou3d_ops(a, b)
+    t_ops, t_bytes = needed / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    r.update(pairs=got.numel(), needed_ops=needed, all_pairs_ops=every,
+             ms=cuda_ms(lambda: box_ops.boxes_iou_3d(a, b), dev, iters=50),
+             plain_ms=cuda_ms(lambda: box_ops.boxes_iou_3d_ref(a, b), dev),
+             bound_ms=max(t_ops, t_bytes) * 1e3,
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             all_pairs_bound_ms=max(every / F32_OPS_PER_S, t_bytes) * 1e3)
+    if dev == "cuda":
+        ops = device_kernels(lambda: box_ops.boxes_iou_3d(a, b), iters=50)
+        r.update(device_ms=sum(k * ms for k, ms in ops.values()),
+                 kernel_device_ms=kernel_ms(ops, "boxes_iou_3d_kernel"),
+                 device_ops_per_call={k[:60]: v for k, (v, _) in
+                                      ops.items()})
+    return r
+
+
+def phase_iou_check(train_in=None, dev: str = "cuda") -> dict:
+    """K10 against its plain version: on the train step's own assigner
+    inputs (``train_in``, recorded by ``phase_train``: every sample and
+    decoder layer, in the assigner's strided rows; the main path's shape),
+    on 4 x 200 x 64 pairs with identical, disjoint, rotated and nested
+    boxes (``testing.iou_test_boxes``, all samples in one launch) and on
+    the edge sets of ``testing.iou_edge_sets`` (touching, nested,
+    identical, 45 degrees, stacked in z, far apart): within 1e-5, and
+    exactly 0 wherever the plain version is. The first two timed
+    (``iou_case``), the batched test boxes also launched once per sample
+    (``per_sample_launches_ms``: the design before batching)."""
+    import torch
+    from isfusion_tpu_torch.ops import box_ops
+    from isfusion_tpu_torch.testing import iou_edge_sets, iou_test_boxes
 
     gen = torch.Generator().manual_seed(2)
     sets = [iou_test_boxes(gen) for _ in range(4)]
     a = torch.stack([s[0] for s in sets]).to(dev)
     b = torch.stack([s[1] for s in sets]).to(dev)
+    recs = {}
+    if train_in is not None:
+        recs["train"] = iou_case(*train_in, dev=dev)
+    recs["test_boxes"] = iou_case(a, b, dev=dev)
     got = box_ops.boxes_iou_3d(a, b)
-    ref = box_ops.boxes_iou_3d_ref(a, b)
-    sync(dev)
-    err = float((got - ref).abs().max())
     for i, (_, _, same) in enumerate(sets):
-        err = max(err, float((got[i, same, range(8)] - 1).abs().max()))
-    ops = box_ops.iou3d_ops(a, b)
-    nbytes = (a.numel() + b.numel() + got.numel()) * 4
-    rec = dict(B=a.shape[0], N=a.shape[1], M=b.shape[1], max_abs_err=err,
-               ops=ops,
-               ms=cuda_ms(lambda: box_ops.boxes_iou_3d(a, b), dev, iters=50),
-               one_sample_ms=cuda_ms(lambda: box_ops.boxes_iou_3d(a[0], b[0]),
-                                     dev, iters=50),
-               per_sample_launches_ms=cuda_ms(
-                   lambda: [box_ops.boxes_iou_3d(a[i], b[i])
-                            for i in range(a.shape[0])], dev, iters=50),
-               plain_ms=cuda_ms(lambda: box_ops.boxes_iou_3d_ref(a, b), dev),
-               bound_ms=max(ops / F32_OPS_PER_S,
-                            nbytes / HBM_BYTES_PER_S) * 1e3,
-               library_ms=None)
-    if dev == "cuda":
-        rec["device_ms"] = kernel_device_ms(
-            lambda: box_ops.boxes_iou_3d(a, b), "boxes_iou_3d_kernel")
-        rec["one_sample_device_ms"] = kernel_device_ms(
-            lambda: box_ops.boxes_iou_3d(a[0], b[0]), "boxes_iou_3d_kernel")
-    log("iou_check", **rec)
-    if err > 1e-5:
-        raise RuntimeError(f"boxes_iou_3d differs from its plain version by "
-                           f"{err:.3g}")
+        recs["test_boxes"]["max_abs_err"] = max(
+            recs["test_boxes"]["max_abs_err"],
+            float((got[i, same, range(8)] - 1).abs().max()))
+    recs["test_boxes"]["per_sample_launches_ms"] = cuda_ms(
+        lambda: [box_ops.boxes_iou_3d(a[i], b[i]) for i in range(4)], dev,
+        iters=50)
+    for name, ea, eb in iou_edge_sets():
+        recs[name] = iou_case(ea.to(dev), eb.to(dev), dev, timed=False)
+    for name, r in recs.items():
+        log("iou_case", case=name, **r)
+        if r["max_abs_err"] > 1e-5 or r["nonzero_where_plain_zero"]:
+            raise RuntimeError(f"boxes_iou_3d differs from its plain version "
+                               f"on {name}: {r}")
+    main = recs["train" if train_in is not None else "test_boxes"]
+    rec = dict(main, max_abs_err=max(r["max_abs_err"] for r in
+                                     recs.values()),
+               test_boxes=recs["test_boxes"],
+               launch_floor=launch_floor(dev))
+    log("iou_check", **{k: v for k, v in rec.items()
+                        if k != "device_ops_per_call"})
     return rec
 
 
@@ -838,7 +939,7 @@ def phase_train(model, batch: dict, dev: str = "cuda",
         real_heat, heat_in)
     hook = model.register_forward_hook(at_forward_end)
     try:
-        with recording_dynamic() as dynamic_in:
+        with recording_dynamic() as dynamic_in, recording_iou() as iou_in:
             step(jittered(batch, 0), gen)
             sync(dev)
         watch = {n: [p.detach().clone() for p in getattr(model,
@@ -908,6 +1009,7 @@ def phase_train(model, batch: dict, dev: str = "cuda",
     log("train", **rec)
     rec["heatmap_inputs"] = heat_in[0]
     rec["dynamic_inputs"] = dynamic_in
+    rec["iou_inputs"] = iou_in[0]
     if unchanged:
         raise RuntimeError(f"weights unchanged by {steps} train steps: "
                            f"{unchanged[:10]}")
@@ -2083,15 +2185,53 @@ def phase_cp_train(model, batch: dict, dev: str = "cuda",
 
 def circle_bound_ms(centers) -> tuple:
     """K10-circle's least time on these (R, K, 2) centres and what bounds
-    it: the larger of its operations (one squared distance a pair) over
-    the float32 rate and its bytes (centres, scores, valid, keep,
-    thresholds) over the memory rate."""
+    it: the larger of its operations (one squared distance a pair, K
+    log2 K comparisons a set for the score order) over the float32 rate
+    and its bytes (centres, scores, valid, keep, thresholds) over the
+    memory rate."""
     from isfusion_tpu_torch.ops import box_ops
     r, k = centers.shape[:2]
-    t_ops = box_ops.circle_nms_ops(r, k) / F32_OPS_PER_S
+    t_ops = (box_ops.circle_nms_ops(r, k) + box_ops.circle_order_ops(r, k)
+             ) / F32_OPS_PER_S
     t_bytes = (r * k * (8 + 4 + 1 + 1) + 4 * r) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def circle_walk_rounds(centers, scores, valid, thresh) -> list:
+    """Per set, the rounds K10-circle's walk takes to resolve its chunks
+    (``csrc/nms_circle.cu`` step (c): each chunk of 64 score positions
+    iterated from "all alive kept" to its fixed point, two ballots a
+    round), from the plain suppression bits in ``torch.sort``'s order:
+    the walk's serial length, which the slowest set sets for the
+    launch."""
+    import numpy as np
+    import torch
+    out = []
+    for c, s, v, t in zip(centers.float().cpu(), scores.float().cpu(),
+                          valid.cpu(), thresh.float().cpu()):
+        order = torch.sort(s, descending=True, stable=True).indices
+        c, removed = c[order], ~v[order].numpy()
+        d = c[None, :, :] - c[:, None, :]
+        near = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] <= t).numpy()
+        k, rounds = len(removed), 0
+        for base in range(0, k, 64):
+            end = min(base + 64, k)
+            alive = ~removed[base:end]
+            if not alive.any():
+                continue
+            # sub[p, q]: p suppresses q, p before q in the chunk
+            sub = np.triu(near[base:end, base:end], 1)
+            kept = alive
+            while True:
+                rounds += 1
+                nxt = alive & ~(sub & kept[:, None]).any(0)
+                if (nxt == kept).all():
+                    break
+                kept = nxt
+            removed[end:] |= near[base:end, end:][kept].any(0)
+        out.append(rounds)
+    return out
 
 
 def gaussian_bound_ms(shape_hw, radii, valid, num_classes: int) -> tuple:
@@ -2133,7 +2273,16 @@ def phase_cp_kernel_check(nms_in, eval_in, heat_sets, dev: str = "cuda",
     def circle_ref(c, s, v, t):
         return box_ops.circle_nms_mask_ref(c, s, t, v)
 
-    cases = [("request",) + tuple(nms_in), ("eval",) + tuple(eval_in)]
+    # the request's sets with each set's boxes shuffled: the score order by
+    # counting, where the decode's top-k order takes the index order
+    gen = torch.Generator().manual_seed(13)
+    perm = torch.stack([torch.randperm(nms_in[0].shape[1], generator=gen)
+                        for _ in range(nms_in[0].shape[0])]).to(dev)
+    shuffled = (torch.gather(nms_in[0], 1, perm[..., None].expand(
+        -1, -1, 2)), torch.gather(nms_in[1], 1, perm),
+        torch.gather(nms_in[2], 1, perm), nms_in[3])
+    cases = [("request",) + tuple(nms_in), ("eval",) + tuple(eval_in),
+             ("request_shuffled",) + shuffled]
     cases += [(n,) + tuple(a.to(dev) for a in args) for n, *args in
               circle_nms_adversarial_sets(torch.Generator().manual_seed(12))]
     recs = {}
@@ -2143,22 +2292,22 @@ def phase_cp_kernel_check(nms_in, eval_in, heat_sets, dev: str = "cuda",
         r = dict(R=args[0].shape[0], K=args[0].shape[1],
                  kept=int(ref.sum()), keep_equal=torch.equal(got, ref),
                  keep_flags_differ=int((got != ref).sum()))
-        if name in ("request", "eval"):
+        if name in ("request", "eval", "request_shuffled"):
             bound, by = circle_bound_ms(args[0])
             r.update(ms=cuda_ms(lambda: circle(*args), dev, iters=50),
                      plain_ms=cuda_ms(lambda: circle_ref(*args), dev,
                                       iters=2),
                      bound_ms=bound, bound_by=by,
-                     thresholds=args[3].tolist()[:6])
+                     thresholds=args[3].tolist()[:6],
+                     walk_rounds=circle_walk_rounds(*args)[:6])
             if dev == "cuda":
-                ops = device_kernels(lambda: circle(*args), iters=20)
-                r.update(pairwise_device_ms=kernel_ms(ops,
-                                                      "circle_mask_kernel"),
-                         greedy_device_ms=kernel_ms(ops, "nms_greedy_kernel"),
+                # the whole call: every device operation the wrapper issues
+                ops = device_kernels(lambda: circle(*args), iters=50)
+                r.update(device_ms=sum(n * ms for n, ms in ops.values()),
+                         kernel_device_ms=kernel_ms(ops,
+                                                    "nms_circle_kernel"),
                          device_ops_per_call={k[:60]: n for k, (n, _) in
                                               ops.items()})
-                r["device_ms"] = r["pairwise_device_ms"] + \
-                    r["greedy_device_ms"]
             recs[name] = r
         log("cp_nms_case", case=name, **r)
         if not r["keep_equal"]:
@@ -2189,10 +2338,14 @@ def phase_cp_kernel_check(nms_in, eval_in, heat_sets, dev: str = "cuda",
         if not r["equal"] or r["positives"] != r["plain_positives"]:
             raise RuntimeError(f"gaussian_heatmap differs from its plain "
                                f"version on {name}: {r}")
+    recs["launch_floor"] = launch_floor(dev)
     log("cp_kernel_check", launches=launches, nms_circle=recs["request"],
         nms_circle_eval=recs["eval"],
+        nms_circle_shuffled=recs["request_shuffled"],
+        launch_floor=recs["launch_floor"],
         gaussian_heatmap={k: v for k, v in recs.items()
-                          if k not in ("request", "eval")})
+                          if k not in ("request", "eval", "request_shuffled",
+                                       "launch_floor")})
     return recs
 
 
@@ -2852,7 +3005,6 @@ def main() -> int:
     rec = phase_kernel_check(stage)
     dyn_serve = dynamic_check("serve", serve_req.pop("dynamic_inputs"))
     bwd = phase_backward_check(*stage["stage0"])
-    iou = phase_iou_check()
     del stage
     torch.cuda.empty_cache()
     phase_breakdown(model, batch)
@@ -2863,6 +3015,7 @@ def main() -> int:
     check_no_layout_builds("train", train["launches"])
     del model
     torch.cuda.empty_cache()
+    iou = phase_iou_check(train.pop("iou_inputs"))
     dyn_train = dynamic_check("train", train.pop("dynamic_inputs"))
     torch.cuda.empty_cache()
     phase_train_reference()
@@ -2973,13 +3126,18 @@ def main() -> int:
              launches=train["launches"]["boxes_iou_3d"],
              max_abs_err=iou["max_abs_err"], ms=iou["ms"],
              plain_ms=iou["plain_ms"], bound_ms=iou["bound_ms"],
-             bound_by="operations", library_ms=None,
+             bound_by=iou["bound_by"], library_ms=None,
              train_launches_per_step=per_step["boxes_iou_3d"],
              isfusion_learn_launches_per_step=isfusion_learn[
                  "launches_per_step"]["boxes_iou_3d"],
-             device_ms=iou["device_ms"],
-             one_sample_device_ms=iou["one_sample_device_ms"],
-             per_sample_launches_ms=iou["per_sample_launches_ms"]),
+             **{k: iou[k] for k in (
+                 "shape", "row_strides", "device_ms", "kernel_device_ms",
+                 "all_pairs_bound_ms", "cut_by_z", "cut_by_circle",
+                 "nonzero_where_plain_zero", "launch_floor")},
+             device_ops_per_call=sum(iou["device_ops_per_call"].values()),
+             test_boxes={k: iou["test_boxes"][k] for k in (
+                 "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "all_pairs_bound_ms", "per_sample_launches_ms")}),
         dict(name="nms_bev", route="cuda",
              source="isfusion_tpu_torch/csrc/nms_bev.cu",
              replaces="isfusion_tpu/ops/box_ops.py:216",
@@ -3008,10 +3166,14 @@ def main() -> int:
              launches_per_request=[r["nms_circle"] for r in cp_req[
                  "launches_per_request"]],
              device_ms=cp_rec["request"]["device_ms"],
-             pairwise_device_ms=cp_rec["request"]["pairwise_device_ms"],
-             greedy_device_ms=cp_rec["request"]["greedy_device_ms"],
+             kernel_device_ms=cp_rec["request"]["kernel_device_ms"],
+             device_ops_per_call=sum(cp_rec["request"][
+                 "device_ops_per_call"].values()),
+             launch_floor=cp_rec["launch_floor"],
              eval_shape={k: v for k, v in cp_rec["eval"].items()
-                         if k != "device_ops_per_call"}),
+                         if k != "device_ops_per_call"},
+             shuffled_request={k: cp_rec["request_shuffled"][k] for k in (
+                 "ms", "device_ms", "bound_ms")}),
         dict(name="gaussian_heatmap", route="cuda",
              source="isfusion_tpu_torch/csrc/gaussian_heatmap.cu",
              replaces="isfusion_tpu/ops/gaussian.py:65",
@@ -3265,6 +3427,120 @@ def dynamic_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     return 0
 
 
+def boxes_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
+    """``python3 chip_smoke.py --boxes TREE``: the cells of K10-circle and
+    K10 with the port imported from the checkout TREE, to compare two
+    checkouts on one card in one call (run them in the order A, B, B, A):
+    cp-serve (one warm-up recording K10-circle's inputs, ``requests``
+    timed requests) and the flagship's train step at batch 4 (one warm-up
+    recording K10's inputs, ``steps`` timed steps), host-clock median, min
+    and max; then each kernel on the warm-up's inputs (K10-circle also on
+    an eval batch's 24 sets, K10 also on ``testing.iou_test_boxes``):
+    CUDA-event ms and whole-call device ms and operations (profiler);
+    K10-NMS's two passes on ``testing.nms_scene_set`` (unchanged code:
+    their spread); the tree's ``ptxas -v`` registers, stack and spills of
+    both sources; the floor of an empty launch where the tree has one.
+    Prints one JSON record."""
+    import torch
+    smi = phase_device()
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import isfusion_tpu_torch
+    from isfusion_tpu_torch.flagship import (build_centerpoint,
+                                             build_isfusion_flagship,
+                                             flagship_optim_cfg)
+    from isfusion_tpu_torch.ops import box_ops, cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"isfusion_tpu_torch imported from "
+                           f"{isfusion_tpu_torch.__file__}, not {tree}")
+    names = ("boxes_iou_3d", "nms_circle", "nms_bev")
+    rec = dict(tree=tree, nvidia_smi=smi, build_s=cuda_build.build_all(),
+               libraries=[cuda_build._lib_path(n).name for n in names],
+               ptxas={n: cuda_build.ptxas_usage(cuda_build.CSRC_DIR /
+                                                f"{n}.cu")
+                      for n in names[:2]})
+    if "empty_launch" in cuda_build.SIGNATURES:
+        rec["launch_floor"] = launch_floor()
+
+    def timed(run, n):
+        times = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            run(i + 1)
+            sync("cuda")
+            times.append((time.perf_counter() - t0) * 1e3)
+        return dict(median_ms=statistics.median(times), min_ms=min(times),
+                    max_ms=max(times))
+
+    def kernel_times(fn):
+        ops = device_kernels(fn, iters=50)
+        return dict(ms=cuda_ms(fn, iters=200),
+                    device_ms=sum(n * ms for n, ms in ops.values()),
+                    device_ops_per_call=sum(n for n, _ in ops.values()))
+
+    cp, cp_batch_fn = build_centerpoint(device="cuda", seed=0)
+    batch = cp_batch_fn(1)
+    with recording_circle_nms() as seen:
+        cp(jittered(batch, 0), device="cuda")
+        sync("cuda")
+    rec["cp_serve"] = timed(lambda i: cp(jittered(batch, i), device="cuda"),
+                            requests)
+    eval_in = record_cp_eval_sets(cp, cp_batch_fn(4, seed=1), "cuda")
+    del cp
+    torch.cuda.empty_cache()
+    for label, (c, sc, v, t) in (("circle_request", seen[0]),
+                                 ("circle_eval", eval_in)):
+        rec[label] = dict(R=c.shape[0], K=c.shape[1], **kernel_times(
+            lambda: box_ops.circle_nms_mask(c, sc, t, v)))
+
+    model, batch_fn = build_isfusion_flagship(device="cuda", seed=0)
+    cfg = flagship_optim_cfg()
+    tb = train_batch(batch_fn, cfg["samples_per_gpu"])
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(
+        model, opt, build_schedule(opt, cfg["lr_config"],
+                                   cfg["momentum_config"]),
+        grad_clip_norm(cfg["optimizer_config"]))
+    gen = torch.Generator("cuda").manual_seed(0)
+    with recording_iou() as iou_in:
+        step(jittered(tb, 0), gen)
+        sync("cuda")
+    rec["train"] = timed(lambda i: step(jittered(tb, i), gen), steps)
+    del model, step, opt
+    torch.cuda.empty_cache()
+    a, b = iou_in[0]
+    rec["iou_train"] = dict(shape=[list(a.shape), list(b.shape)],
+                            **kernel_times(lambda: box_ops.boxes_iou_3d(a,
+                                                                        b)))
+    # the box sets of this checkout's testing module, whatever TREE holds
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_testing", os.path.join(REPO, "isfusion_tpu_torch",
+                                           "testing.py"))
+    testing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(testing)
+    g = torch.Generator().manual_seed(2)
+    sets = [testing.iou_test_boxes(g) for _ in range(4)]
+    ta = torch.stack([x[0] for x in sets]).cuda()
+    tb7 = torch.stack([x[1] for x in sets]).cuda()
+    rec["iou_test_boxes"] = kernel_times(lambda: box_ops.boxes_iou_3d(ta,
+                                                                      tb7))
+    boxes, scores, valid = (x.cuda() for x in testing.nms_scene_set(
+        torch.Generator().manual_seed(3)))
+    ops = device_kernels(lambda: box_ops.nms_bev_mask(boxes, scores, 0.2,
+                                                      valid), iters=50)
+    rec["nms_bev_scene"] = dict(
+        pairwise_device_ms=kernel_ms(ops, "nms_mask_kernel"),
+        greedy_device_ms=kernel_ms(ops, "nms_greedy_kernel"))
+    log("boxes_compare", **rec)
+    return 0
+
+
 def isfusion_learn_run() -> int:
     """``python3 chip_smoke.py --isfusion-learn``: the device and build
     phases, then ``phase_isfusion_learn`` alone."""
@@ -3283,6 +3559,8 @@ if __name__ == "__main__":
         sys.exit(learn_run(sys.argv[2]))
     if sys.argv[1:2] == ["--dynamic"] and len(sys.argv) == 3:
         sys.exit(dynamic_compare(sys.argv[2]))
+    if sys.argv[1:2] == ["--boxes"] and len(sys.argv) == 3:
+        sys.exit(boxes_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-serve"]:
         sys.exit(pp_serve_timing(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

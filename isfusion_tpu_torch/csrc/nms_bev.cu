@@ -44,7 +44,7 @@
 //    The diagonal bits stay iou(i, i) > thr. The JAX package computes both
 //    orders of a pair; they differ only by rounding, as close pairs near
 //    the threshold may.
-// 2. Greedy pass (csrc/nms_greedy.cuh, shared with K10-circle): one block
+// 2. Greedy pass (csrc/nms_greedy.cuh): one block
 //    per sample, one warp per class, over the sample's mask in shared
 //    memory, 64 sorted positions at a time resolved on a register word
 //    (1-4 rounds a chunk on testing.py's nms_scene_set, at most 65).

@@ -1,5 +1,5 @@
-// The greedy walk of the port's NMS kernels, shared by K10-NMS
-// (csrc/nms_bev.cu) and K10-circle (csrc/nms_circle.cu): keep masks from
+// The greedy walk of K10-NMS (csrc/nms_bev.cu; K10-circle, csrc/
+// nms_circle.cu, walks its own score-ordered bits): keep masks from
 // a (K, ceil(K / 64)) 64-bit suppression bitmask per sample, bit (i, j) =
 // box i suppresses box j, for C score orders of that sample — the
 // function of isfusion_tpu/ops/box_ops.py:196 _greedy_suppress: walk the

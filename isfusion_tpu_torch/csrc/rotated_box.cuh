@@ -1,5 +1,5 @@
-// Rotated-rectangle intersection for Hopper (sm_90a), shared by K10
-// (boxes_iou_3d.cu) and K10-NMS (nms_bev.cu).
+// Rotated-rectangle intersection for Hopper (sm_90a), K10-NMS's
+// (nms_bev.cu; K10, boxes_iou_3d.cu, computes a pair with a warp instead).
 //
 // The candidate-point method of the JAX package's
 // isfusion_tpu/ops/box_ops.py:122 rotated_rect_intersection_area: the
@@ -13,10 +13,8 @@
 //
 // One thread computes one pair: the at most 24 candidates and their angles
 // live in per-thread arrays, and a stable insertion sort over the valid
-// ones orders them (invalid candidates never enter it). A caller that
-// meets a box in many pairs passes its cos / sin once computed
-// (intersection_area_cs); intersection_area takes the yaws and computes
-// them where the corners are formed.
+// ones orders them (invalid candidates never enter it). The caller passes
+// each box's cos / sin, computed once (intersection_area_cs).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,13 +24,7 @@ namespace rotated_box {
 
 constexpr int NCAND = 24;
 
-// a box's rotation, given by its yaw or by its cos and sin
-struct Yaw {
-  float yaw;
-  __device__ __forceinline__ float2 cos_sin() const {
-    return make_float2(cosf(yaw), sinf(yaw));
-  }
-};
+// a box's rotation, given by its cos and sin
 struct CosSin {
   float c, s;
   __device__ __forceinline__ float2 cos_sin() const {
@@ -151,14 +143,7 @@ __device__ inline float intersection(float adx, float ady, Rot ar, float bx,
   return 0.5f * fabsf(sum);
 }
 
-__device__ __forceinline__ float intersection_area(float adx, float ady,
-                                                   float ayaw, float bx,
-                                                   float by, float bdx,
-                                                   float bdy, float byaw) {
-  return intersection(adx, ady, Yaw{ayaw}, bx, by, bdx, bdy, Yaw{byaw});
-}
-
-// the same with each box's cos and sin (ac, as), (bc, bs)
+// with each box's cos and sin (ac, as), (bc, bs)
 __device__ __forceinline__ float intersection_area_cs(
     float adx, float ady, float ac, float as, float bx, float by, float bdx,
     float bdy, float bc, float bs) {

@@ -94,6 +94,13 @@ class CenterHead(nn.Module):
             type="GaussianFocalLoss", reduction="mean"))
         self.loss_bbox = build_loss(loss_bbox or dict(
             type="L1Loss", reduction="none", loss_weight=0.25))
+        # circle NMS's per-task thresholds live with the module, and their
+        # repeats over a batch are kept per (batch size, device): a request
+        # copies nothing from the host for them
+        self.register_buffer("nms_min_radius", torch.tensor([float(v) for v in
+                             self.test_cfg.get("min_radius", [4] * len(
+                                 self.num_classes))]), persistent=False)
+        self._nms_thresholds = {}
 
     def forward(self, feats):
         """feats: an NHWC map or a list of them -> per level, per task, a
@@ -185,6 +192,15 @@ class CenterHead(nn.Module):
         return losses
 
     # ---------------------------------------------------------- inference
+    def _circle_thresholds(self, b: int, device) -> torch.Tensor:
+        """(B * T,) float32 ``min_radius`` of every (sample, task) set."""
+        key = (b, torch.device(device))
+        thr = self._nms_thresholds.get(key)
+        if thr is None:
+            thr = self.nms_min_radius.to(device, torch.float32).repeat(b)
+            self._nms_thresholds[key] = thr
+        return thr
+
     def get_bboxes(self, preds) -> dict:
         """Per task: decode the top ``max_num`` cells, circle NMS (every
         sample and task in one launch, each task with its ``min_radius``),
@@ -210,9 +226,7 @@ class CenterHead(nn.Module):
                                                   "labels", "mask"))
         b, _, k, code = boxes.shape
         if tc.get("nms_type", "circle") == "circle":
-            thr = torch.tensor([float(v) for v in tc.get("min_radius",
-                                                         [4] * nt)],
-                               device=boxes.device).repeat(b)
+            thr = self._circle_thresholds(b, boxes.device)
             keep = circle_nms_mask(boxes[..., :2].reshape(b * nt, k, 2),
                                    scores.reshape(b * nt, k), thr,
                                    valid.reshape(b * nt, k))

@@ -26,11 +26,11 @@ On a CPU tensor each function takes its plain PyTorch version
 (``boxes_iou_3d_ref``, ``nms_bev_mask_ref``, ``circle_nms_mask_ref``: the
 tests' and the kernels' yardsticks); on a CUDA tensor it launches its
 kernel (``csrc/boxes_iou_3d.cu``, ``csrc/nms_bev.cu``, sharing the
-geometry of ``csrc/rotated_box.cuh``, ``csrc/nms_circle.cu``; both NMS
-kernels share the greedy pass of ``csrc/nms_greedy.cuh``) or raises. The
-assigner's IoU3DCost calls K10 once per train step, on all samples and
-decoder layers; Anchor3DHead's ``get_bboxes`` calls K10-NMS once per
-request, CenterHead's ``get_bboxes`` K10-circle.
+geometry of ``csrc/rotated_box.cuh``; K10-NMS's greedy pass is
+``csrc/nms_greedy.cuh``; ``csrc/nms_circle.cu`` is K10-circle in one
+launch) or raises. The assigner's IoU3DCost calls K10 once per train
+step, on all samples and decoder layers; Anchor3DHead's ``get_bboxes``
+calls K10-NMS once per request, CenterHead's ``get_bboxes`` K10-circle.
 """
 from __future__ import annotations
 
@@ -71,6 +71,13 @@ NMS_CUT_REL, NMS_CUT_ABS = 1.0 + 1e-4, 1e-3
 NMS_CIRCLE_OPS = 8
 NMS_RATIO_OPS = 4
 NMS_SAT_OPS = 6 + 2 + 4 * (4 + 5 + 2)
+
+# K10 settles a pair of tame boxes (every value finite, coordinates and
+# sides within 1e8 m) as IoU 0 when their vertical overlap is <= 0 (min,
+# max, a difference and a comparison) or their circles do not meet
+# (``iou3d_early_outs``; why both are exact: csrc/boxes_iou_3d.cu)
+IOU3D_TAME = 1e8
+IOU3D_Z_OPS = 4
 
 
 def nms_smem_bytes(classes: int, boxes: int) -> int:
@@ -205,9 +212,67 @@ def rotated_iou_ops(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
 
 
 def iou3d_ops(boxes1: torch.Tensor, boxes2: torch.Tensor) -> int:
-    """float32 operations K10 needs on these boxes (all pairs)."""
+    """float32 operations of K10's exact IoU for every pair of these
+    boxes."""
     cols = [0, 1, 3, 4, 6]
     return int(rotated_iou_ops(boxes1[..., cols], boxes2[..., cols]).sum())
+
+
+def iou3d_tame(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool: the boxes K10 may cut, every value finite and
+    |x|, |y|, |z|, |dx|, |dy|, |dz| <= ``IOU3D_TAME``: their BEV
+    intersection area is finite, so that no vertical overlap makes the IoU
+    exactly 0."""
+    b = boxes[..., :7].float()
+    return (b[..., :6].abs() <= IOU3D_TAME).all(-1) & \
+        torch.isfinite(b[..., 6])
+
+
+def iou3d_early_outs(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """(by_z, by_circle), each (..., N, M) bool: the pairs K10's kernel
+    settles as IoU 0 without the exact intersection, in its float32
+    arithmetic. Both boxes tame (``iou3d_tame``), and ``by_z``: the
+    vertical overlap min(top) - max(bottom) is <= 0; ``by_circle``: the
+    BEV bounding circles do not meet (``bev_circles_meet``'s test, centres
+    taken b - a)."""
+    a, b = boxes1[..., :7].float(), boxes2[..., :7].float()
+    tame = iou3d_tame(a)[..., :, None] & iou3d_tame(b)[..., None, :]
+    ov = torch.minimum((a[..., 2] + a[..., 5])[..., :, None],
+                       (b[..., 2] + b[..., 5])[..., None, :]) - \
+        torch.maximum(a[..., 2][..., :, None], b[..., 2][..., None, :])
+
+    def reach(x):
+        return 0.5 * torch.hypot(x[..., 3], x[..., 4]) + \
+            NMS_QUAD_TOL / x[..., 3].abs() + NMS_QUAD_TOL / x[..., 4].abs()
+
+    d = b[..., None, :, :2] - a[..., :, None, :2]
+    lim = (reach(a)[..., :, None] + reach(b)[..., None, :]) * NMS_CUT_REL + \
+        NMS_CUT_ABS
+    apart = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] > lim * lim
+    return tame & (ov <= 0), tame & apart
+
+
+def iou3d_needed_ops(boxes1: torch.Tensor, boxes2: torch.Tensor) -> int:
+    """float32 operations that settle every pair of these boxes, each by
+    its cheapest certificate: the vertical overlap test where the boxes do
+    not overlap in z, else the circle test where their circles are apart,
+    else a separating-axis test where the plain BEV intersection area is
+    0, else the exact IoU (``rotated_iou_ops``): K10's data-dependent
+    bound."""
+    by_z, by_circle = iou3d_early_outs(boxes1, boxes2)
+    cols = [0, 1, 3, 4, 6]
+    a = boxes1[..., cols].float()
+    b = boxes2[..., cols].float()
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    n, m = a.shape[-2], b.shape[-2]
+    rest = torch.nonzero(~by_z & ~by_circle, as_tuple=True)
+    ai = a.expand(lead + (n, 5))[rest[:-1]][:, None]
+    bj = b.expand(lead + (m, 5))[rest[:-2] + rest[-1:]][:, None]
+    touch = rotated_rect_intersection_area(ai, bj)[:, 0, 0] > 0
+    n_circle = int((by_circle & ~by_z).sum())
+    return (IOU3D_Z_OPS * int(by_z.sum()) + NMS_CIRCLE_OPS * n_circle +
+            NMS_SAT_OPS * int((~touch).sum()) +
+            int(rotated_iou_ops(ai[touch], bj[touch]).sum()))
 
 
 def nms_bev_ops(boxes_bev: torch.Tensor) -> int:
@@ -273,14 +338,30 @@ def nms_bev_needed_ops(boxes_bev: torch.Tensor, thresh: float) -> int:
 
 
 def _lead_check(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor):
-    if boxes1.dim() < 2 or boxes1.dim() != boxes2.dim() or \
-            boxes1.shape[:-2] != boxes2.shape[:-2] or \
-            boxes1.shape[-1] < 7 or boxes2.shape[-1] < 7:
+    s1, s2 = boxes1.shape, boxes2.shape
+    if len(s1) < 2 or len(s1) != len(s2) or s1[:-2] != s2[:-2] or \
+            s1[-1] < 7 or s2[-1] < 7:
         raise ValueError(f"{name}: boxes (..., N, >=7) and (..., M, >=7) "
                          f"with equal leading dims, got {tuple(boxes1.shape)}"
                          f" and {tuple(boxes2.shape)}")
     if boxes1.device != boxes2.device:
         raise ValueError(f"{name}: boxes on different devices")
+
+
+def _raw_stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer (one call
+    into the C++ runtime: a wrapper's host time bounds these kernels)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _iou_rows(boxes: torch.Tensor, n: int) -> torch.Tensor:
+    """(S, n, >=7) float32 rows of unit element stride: a view of
+    ``boxes`` where one exists, else a copy."""
+    if boxes.dim() == 3 and boxes.dtype == torch.float32 and \
+            boxes.stride(-1) == 1:
+        return boxes
+    x = boxes.float().reshape(-1, n, boxes.shape[-1])
+    return x if x.stride(-1) == 1 else x[..., :7].contiguous()
 
 
 def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
@@ -293,16 +374,17 @@ def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"boxes_iou_3d: no kernel for {boxes1.device}")
     lead = boxes1.shape[:-2]
     n, m = boxes1.shape[-2], boxes2.shape[-2]
-    a = boxes1[..., :7].float().reshape(-1, n, 7).contiguous()
-    b = boxes2[..., :7].float().reshape(-1, m, 7).contiguous()
+    # the kernel reads rows of 7 or more floats through their batch and
+    # row strides: float32 rows with unit element stride are not copied
+    a, b = (_iou_rows(x, k) for x, k in ((boxes1, n), (boxes2, m)))
     out = torch.empty((a.shape[0], n, m), dtype=torch.float32,
                       device=a.device)
     if out.numel() == 0:
         return out.view(lead + (n, m))
     lib = cuda_build.load("boxes_iou_3d")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    strides = (ctypes.c_longlong * 4)(*(a.stride()[:2] + b.stride()[:2]))
     err = lib.boxes_iou_3d(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                           a.shape[0], n, m, stream)
+                           a.shape[0], n, m, strides, _raw_stream(a))
     if err != 0:
         raise RuntimeError(f"boxes_iou_3d: kernel launch failed with CUDA "
                            f"error {err}")
@@ -440,31 +522,60 @@ def nms_bev_suppression_bits(boxes_bev: torch.Tensor, thresh: float
 # K10-circle's pairwise pass: a squared distance and a comparison per pair
 # (2 differences, 2 products, a sum, the comparison)
 CIRCLE_OPS_PER_PAIR = 6
+# the fused kernel holds a set's upper-triangle suppression words, its
+# sorted centres, indices and valid flags in one block's shared memory
+# (csrc/nms_circle.cu): at most 28 words a row, K <= 1,792
+CIRCLE_MAX_BOXES = 1792
 
 
 def circle_nms_ops(sets: int, k: int) -> int:
-    """float32 operations of K10-circle on ``sets`` sets of K boxes: one
-    squared distance per unordered pair (the greedy pass is bit
-    operations)."""
+    """float32 operations of K10-circle's suppression bits on ``sets``
+    sets of K boxes: one squared distance per unordered pair (the greedy
+    pass is bit operations)."""
     return CIRCLE_OPS_PER_PAIR * sets * (k * (k - 1) // 2)
+
+
+def circle_order_ops(sets: int, k: int) -> int:
+    """Comparisons that order ``sets`` sets of K scores: K ceil(log2 K) a
+    set (a comparison sort's)."""
+    return sets * k * max(math.ceil(math.log2(k)), 0) if k > 0 else 0
+
+
+def circle_smem_bytes(k: int) -> int:
+    """Shared memory of K10-circle's block for a set of K boxes: 256 W (W
+    + 1) bytes of bits and 720 W of sorted arrays, removed words and
+    chunk counts, W = ceil(K / 64)."""
+    w = (k + 63) // 64
+    return 256 * w * (w + 1) + 720 * w
 
 
 def _circle_args(centers: torch.Tensor, scores: torch.Tensor, thresh,
                  valid: Optional[torch.Tensor]):
-    """(thresholds (R,) float32, valid (R, K), order (R, K))."""
-    if centers.dim() != 3 or centers.shape[-1] != 2 or \
-            scores.shape != centers.shape[:2]:
-        raise ValueError(f"circle_nms_mask: centres (R, K, 2) and scores "
-                         f"(R, K), got {tuple(centers.shape)} and "
-                         f"{tuple(scores.shape)}")
+    """(thresholds (R,) float32, valid (R, K) bool) for the plain
+    version."""
+    _circle_shapes(centers, scores, valid)
     thr = torch.as_tensor(thresh, dtype=torch.float32).to(centers.device)
     thr = thr.expand(scores.shape[0]) if thr.dim() == 0 else thr
     if thr.shape != scores.shape[:1]:
         raise ValueError(f"circle_nms_mask: one threshold per set, got "
                          f"{tuple(thr.shape)} for {scores.shape[0]} sets")
-    valid, order = _nms_order(centers, scores[:, None],
-                              None if valid is None else valid[:, None])
-    return thr, valid[:, 0], order[:, 0]
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    return thr, valid.bool()
+
+
+def _circle_shapes(centers, scores, valid):
+    cs = centers.shape
+    if len(cs) != 3 or cs[2] != 2 or scores.shape != cs[:2]:
+        raise ValueError(f"circle_nms_mask: centres (R, K, 2) and scores "
+                         f"(R, K), got {tuple(centers.shape)} and "
+                         f"{tuple(scores.shape)}")
+    if valid is not None and valid.shape != scores.shape:
+        raise ValueError("nms: valid must have the scores' shape")
+    if centers.device != scores.device or (
+            valid is not None and valid.device != centers.device):
+        raise ValueError("nms: inputs on different devices")
 
 
 def circle_nms_mask_ref(centers: torch.Tensor, scores: torch.Tensor,
@@ -473,7 +584,7 @@ def circle_nms_mask_ref(centers: torch.Tensor, scores: torch.Tensor,
     """Plain PyTorch version of ``circle_nms_mask``: the squared centre
     distances (x_j - x_i)^2 + (y_j - y_i)^2 in float32, each step rounded
     as the kernel rounds it, and the sequential greedy walk per set."""
-    thr, valid, _ = _circle_args(centers, scores, thresh, valid)
+    thr, valid = _circle_args(centers, scores, thresh, valid)
     c = centers.float()
     d = c[:, None, :, :] - c[:, :, None, :]
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
@@ -487,30 +598,47 @@ def circle_nms_mask(centers: torch.Tensor, scores: torch.Tensor, thresh,
     of K boxes' (x, y) centres: a kept box suppresses every later box
     whose squared centre distance to it is <= the set's threshold
     (``thresh``: a number or one per set); one kernel launch for all
-    sets."""
-    thr, valid, order = _circle_args(centers, scores, thresh, valid)
+    sets and, for float32 centres, scores and thresholds and bool valid
+    flags on the card, no other device operation (any strides)."""
     if centers.device.type == "cpu":
-        return circle_nms_mask_ref(centers, scores, thr, valid)
+        return circle_nms_mask_ref(centers, scores, thresh, valid)
     if centers.device.type != "cuda":
         raise RuntimeError(f"circle_nms_mask: no kernel for "
                            f"{centers.device}")
+    _circle_shapes(centers, scores, valid)
     r, k = scores.shape
+    thr_value = 0.0
+    if isinstance(thresh, (int, float)):
+        thr, thr_value = None, float(thresh)
+    elif isinstance(thresh, torch.Tensor) and thresh.shape == (r,) and \
+            thresh.dtype == torch.float32 and thresh.device == centers.device:
+        thr = thresh
+    else:
+        thr = torch.as_tensor(thresh, device=centers.device,
+                              dtype=torch.float32)
+        if thr.dim() == 0:
+            thr = thr.expand(r)
+        if thr.shape != (r,):
+            raise ValueError(f"circle_nms_mask: one threshold per set, got "
+                             f"{tuple(thr.shape)} for {r} sets")
+    if k > CIRCLE_MAX_BOXES or r > 2 ** 31 - 1:
+        raise ValueError(f"circle_nms_mask: at most {CIRCLE_MAX_BOXES} boxes "
+                         f"a set ({circle_smem_bytes(CIRCLE_MAX_BOXES)} bytes "
+                         f"of shared memory), got R = {r}, K = {k}")
     keep = torch.empty((r, k), dtype=torch.bool, device=scores.device)
     if keep.numel() == 0:
         return keep
-    if nms_smem_bytes(1, k) > NMS_SMEM_BYTES or r > 65535:
-        raise ValueError(f"circle_nms_mask: at most 65,535 sets and "
-                         f"{NMS_SMEM_BYTES} bytes of shared memory ((1 + K) "
-                         f"* ceil(K / 64) * 8), got R = {r}, K = {k}")
-    c, thr = centers.float().contiguous(), thr.contiguous()
-    mask = torch.empty((r, k, (k + 63) // 64), dtype=torch.int64,
-                       device=c.device)
+    c = centers if centers.dtype == torch.float32 else centers.float()
+    s = scores if scores.dtype == torch.float32 else scores.float()
+    v = valid if valid is None or valid.dtype == torch.bool else valid.bool()
+    strides = (ctypes.c_longlong * 8)(
+        *c.stride(), *s.stride(), *(v.stride() if v is not None else (0, 0)),
+        thr.stride(0) if thr is not None else 0)
     lib = cuda_build.load("nms_circle")
-    stream = torch.cuda.current_stream(c.device).cuda_stream
-    strides = (ctypes.c_longlong * 4)(*(order.stride() + valid.stride()))
-    err = lib.nms_circle(c.data_ptr(), thr.data_ptr(),
-                         order.data_ptr(), valid.data_ptr(), mask.data_ptr(),
-                         keep.data_ptr(), r, k, strides, stream)
+    err = lib.nms_circle(c.data_ptr(), s.data_ptr(),
+                         0 if v is None else v.data_ptr(),
+                         0 if thr is None else thr.data_ptr(), thr_value,
+                         keep.data_ptr(), r, k, strides, _raw_stream(c))
     if err != 0:
         raise RuntimeError(f"nms_circle: kernel launch failed with CUDA "
                            f"error {err}")

@@ -1,7 +1,7 @@
 """Helpers shared by the port's checks (``chip_smoke.py``,
 ``tests/test_torch_cuda.py`` and the CPU tests): what makes a
 PointPillars or CenterPoint prediction on the card comparable with the
-same prediction on the CPU, the NMS input sets that K10-NMS and
+same prediction on the CPU, the box sets that K10, K10-NMS and
 K10-circle are held on, MVX-Net's KITTI-like camera and the voxel sets
 that K1 (dynamic voxelization) is held on."""
 from __future__ import annotations
@@ -177,6 +177,71 @@ def circle_nms_adversarial_sets(gen):
             one("all_invalid", disc, valid=torch.zeros((1, 64),
                                                        dtype=torch.bool)),
             one("single_box", torch.zeros((1, 2)))]
+
+
+def iou_test_boxes(gen, n: int = 200, m: int = 64):
+    """(a (n, 7), b (m, 7), rows of a copied into b[:8]) at flagship
+    range: b holds 8 copies of boxes of a (identical), 8 rotated copies,
+    8 nested (shrunk) copies, 8 disjoint boxes and 32 jittered copies."""
+    a = torch.empty((n, 7))
+    a[:, :2] = (torch.rand((n, 2), generator=gen) * 2 - 1) * 48
+    a[:, 2] = -1 - torch.rand(n, generator=gen)
+    a[:, 3:6] = 0.5 + torch.rand((n, 3), generator=gen) * 4.5
+    a[:, 6] = (torch.rand(n, generator=gen) * 2 - 1) * 3.14159
+    src = torch.randperm(n, generator=gen)[:m]
+    pick = a[src].clone()
+    pick[8:16, 6] += 0.7                       # rotated
+    pick[16:24, 3:6] *= 0.5                    # nested
+    pick[16:24, 2] += 0.1
+    pick[24:32, :2] += 500.0                   # disjoint
+    pick[32:] += torch.randn((m - 32, 7), generator=gen) * 0.3
+    pick[32:, 3:6] = pick[32:, 3:6].abs() + 0.1
+    return a, pick, src[:8]
+
+
+def iou_edge_sets():
+    """(name, a (N, 7), b (M, 7)) box sets for K10's exact cuts, boxes
+    (x, y, z_bottom, dx, dy, dz, yaw): side by side along an edge and
+    corner to corner at gaps from -1e-3 to 1e-2 m (at several yaws),
+    nested, identical, rotated by 45 degrees, stacked in z (b's bottom
+    exactly on a's top, and 1 cm above), and far apart."""
+    gaps = (-1e-3, 0.0, 1e-6, 1e-4, 1e-2)
+    sizes = ((4.6, 1.95, 1.7), (0.7, 0.7, 1.8), (1e-3, 2.0, 1.0))
+    edge_a, edge_b, corner_a, corner_b = [], [], [], []
+    for dx, dy, dz in sizes:
+        for yaw in (0.0, 0.3, math.pi / 4):
+            c, s = math.cos(yaw), math.sin(yaw)
+            for g in gaps:
+                step = dx + g
+                edge_a.append([3.0, 2.0, -1.0, dx, dy, dz, yaw])
+                edge_b.append([3.0 + step * c, 2.0 - step * s, -1.0, dx, dy,
+                               dz, yaw])
+        r = 0.5 * math.hypot(dx, dy)
+        yaw = math.atan2(dy, dx)
+        for g in gaps:
+            corner_a.append([-20.0, 5.0, -1.5, dx, dy, dz, yaw])
+            corner_b.append([-20.0 + 2 * r + g, 5.0, -1.5, dx, dy, dz, yaw])
+    base = torch.tensor([[3.0, -2.0, -1.0, 4.0, 2.0, 1.5, 0.3],
+                         [-30.0, 12.0, -1.8, 1.0, 0.8, 1.7, -2.0],
+                         [45.0, 45.0, -0.5, 10.0, 2.9, 3.4, 1.2]])
+    k = torch.arange(16, dtype=torch.float32)
+    nested = base[:1].repeat(16, 1)
+    nested[:, 3:6] *= (0.9 ** k)[:, None]
+    rot45 = base.clone()
+    rot45[:, 6] += math.pi / 4
+    stacked = torch.cat([base, base])
+    stacked[:3, 2] = base[:, 2] + base[:, 5]          # on a's top
+    stacked[3:, 2] = base[:, 2] + base[:, 5] + 0.01   # 1 cm above
+    far = base.clone()
+    far[:, :2] += 500.0
+    t = torch.tensor
+    return [("touching_edges", t(edge_a), t(edge_b)),
+            ("touching_corners", t(corner_a), t(corner_b)),
+            ("nested", base[:1], nested),
+            ("identical", base, base.clone()),
+            ("rotated_45", base, rot45),
+            ("z_stacked", base, stacked),
+            ("far_apart", base, far)]
 
 
 # KITTI's P2 (the left colour camera of a 1242 x 375 frame: focal 721.54

@@ -12,7 +12,9 @@ to the plain greedy walk over the kernel's own suppression bits, those
 bits equal to the plain IoU's more than 1e-5 from the threshold, and keep
 masks equal to the plain version's when no pair is that close, the bits
 symmetric; circle-NMS keep masks and gaussian heatmaps equal to their
-plain versions (the positives, cells at 1.0, included); K1's rows,
+plain versions (the positives, cells at 1.0, included), circle NMS and
+the IoU one device operation a call, the IoU exactly 0 wherever its
+plain version is; K1's rows,
 voxel table and point lists (``voxel_ptr``, ``point_order``; also
 ``segment_layout``'s) equal to its plain version's; K2's max, forward and
 backward, equal to its plain version's with or without a list, its mean
@@ -375,6 +377,202 @@ def test_nms_circle_adversarial_sets(card):
     assert kept["identical"] == kept["all_within"] == 1
     assert kept["none_within"] == 256 and kept["all_invalid"] == 0
     assert kept["single_box"] == 1 and 0 < kept["on_threshold"] < 256
+
+
+def _profiler_own(key):
+    """Device-side events that are no operation of the profiled code: the
+    profile step's annotation, the trace's buffer requests, and the
+    synchronisations the profile waits on (recorded when the card is still
+    busy as the host synchronises)."""
+    return key.startswith(("ProfilerStep", "Activity Buffer Request")) or \
+        "Sync" in key
+
+
+def _device_ops(fn, calls=20):
+    """{device operation: count} over ``calls`` calls of ``fn()``
+    (torch.profiler, after a warm-up step under the profiler: a profile's
+    first launches can go untraced; the step's own annotation left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    done = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: done.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: e.count for e in done[0]
+            if e.device_type == DeviceType.CUDA and e.count and
+            not _profiler_own(e.key)}
+
+
+def _one_operation(fn, name, kernel, calls=20):
+    """Each call of ``fn`` launches kernel ``name`` once (its counter)
+    and the profile of ``calls`` calls holds that kernel and no other
+    device operation (no copy, no sort)."""
+    before = cuda_build.LAUNCHES[name]
+    ops = _device_ops(fn, calls)
+    assert cuda_build.LAUNCHES[name] - before == 2 * calls
+    assert len(ops) == 1 and kernel in next(iter(ops)), ops
+    assert 0 < next(iter(ops.values())) <= calls
+
+
+@pytest.mark.parametrize("kind", ["signed_zeros", "nan", "all_equal",
+                                  "decode_order"])
+def test_nms_circle_order_cases(card, kind):
+    """Scores that torch.sort orders by its own rules: -0.0 tied with
+    +0.0, NaN first, all equal (the index order), and the decode's top-k
+    order with masked boxes zeroed (the kernel's index-order shortcut)."""
+    from isfusion_tpu_torch.testing import circle_nms_sets
+
+    gen = torch.Generator().manual_seed(31)
+    centers, scores, valid, thr = circle_nms_sets(gen, 4, 300)
+    pick = torch.rand(scores.shape, generator=gen)
+    if kind == "signed_zeros":
+        scores = torch.where(pick < 0.4, torch.tensor(-0.0),
+                             torch.where(pick < 0.8, torch.tensor(0.0),
+                                         scores))
+        assert bool((torch.signbit(scores) & (scores == 0)).any())
+    elif kind == "nan":
+        scores = torch.where(pick < 0.2, torch.tensor(float("nan")), scores)
+    elif kind == "all_equal":
+        scores = torch.full_like(scores, 0.5)
+    else:
+        scores, order = torch.sort(scores, dim=-1, descending=True,
+                                   stable=True)
+        centers = torch.gather(centers, 1, order[..., None].expand(-1, -1,
+                                                                   2))
+        valid = torch.gather(valid, 1, order)
+        scores = torch.where(valid, scores, 0.0)
+    got = _check_circle(*(t.to(card) for t in (centers, scores, valid,
+                                                thr)))
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+def test_nms_circle_on_long_chains(card):
+    """Centres 0.9 m apart along a line in score order, threshold 1: each
+    box suppresses the next, so every chunk's walk takes its most rounds;
+    invalid boxes break some chains."""
+    k = 500
+    x = torch.arange(k, dtype=torch.float32) * 0.9
+    centers = torch.stack([x, torch.zeros(k)], -1).repeat(3, 1, 1)
+    centers[1, :, 1] = 40.0
+    scores = torch.linspace(1, 0, k).repeat(3, 1)
+    valid = torch.ones((3, k), dtype=torch.bool)
+    valid[2, ::7] = False
+    thr = torch.ones(3)
+    got = _check_circle(*(t.to(card) for t in (centers, scores, valid, thr)))
+    assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
+def test_nms_circle_at_and_above_its_limit(card):
+    """K = 1,792 fills the block's shared memory; 1,793 is refused."""
+    from isfusion_tpu_torch.testing import circle_nms_sets
+
+    k = box_ops.CIRCLE_MAX_BOXES
+    centers, scores, valid, thr = (t.to(card) for t in circle_nms_sets(
+        torch.Generator().manual_seed(k), 2, k))
+    _check_circle(centers, scores, valid, thr)
+    before = cuda_build.LAUNCHES["nms_circle"]
+    centers, scores, valid, thr = (t.to(card) for t in circle_nms_sets(
+        torch.Generator().manual_seed(0), 1, k + 1))
+    with pytest.raises(ValueError):
+        box_ops.circle_nms_mask(centers, scores, thr, valid)
+    assert cuda_build.LAUNCHES["nms_circle"] == before
+
+
+def test_nms_circle_is_one_device_operation(card):
+    """Contiguous inputs, a threshold tensor or a number, and the head's
+    strided centres (a slice of its box rows): one launch, nothing else."""
+    from isfusion_tpu_torch.testing import circle_nms_sets
+
+    centers, scores, valid, thr = (t.to(card) for t in circle_nms_sets(
+        torch.Generator().manual_seed(6), 6, 500))
+    rows = torch.cat([centers, torch.randn(6, 500, 7, device=card)], -1)
+    for args in ((centers, scores, thr, valid), (centers, scores, 1.0, valid),
+                 (rows[..., :2], scores, thr, valid)):
+        _one_operation(lambda: box_ops.circle_nms_mask(*args), "nms_circle",
+                       "nms_circle_kernel")
+    got = box_ops.circle_nms_mask(rows[..., :2], scores, thr, valid)
+    assert torch.equal(got, box_ops.circle_nms_mask_ref(centers, scores,
+                                                        thr, valid))
+
+
+def _check_iou(a, b):
+    got = box_ops.boxes_iou_3d(a, b)
+    torch.cuda.synchronize()
+    want = box_ops.boxes_iou_3d_ref(a, b)
+    assert float((got - want).abs().max()) <= 1e-5
+    # exactly 0 wherever the plain version is
+    assert int((got[want == 0] != 0).sum()) == 0
+    return got, want
+
+
+# the names of testing.iou_edge_sets()
+IOU_EDGE_SETS = ("touching_edges", "touching_corners", "nested", "identical",
+                 "rotated_45", "z_stacked", "far_apart")
+
+
+@pytest.mark.parametrize("name", IOU_EDGE_SETS)
+def test_boxes_iou_3d_exact_zeros_on_edge_sets(card, name):
+    from isfusion_tpu_torch.testing import iou_edge_sets
+
+    _, a, b = next(s for s in iou_edge_sets() if s[0] == name)
+    got, want = _check_iou(a.to(card), b.to(card))
+    if name == "far_apart":
+        assert not bool(got.any())
+
+
+def test_boxes_iou_3d_reads_strided_rows_without_a_copy(card):
+    """The assigner's (B, Q, 10) and (B, G, 9) rows sliced to 7: one
+    launch, no copy kernel."""
+    gen = torch.Generator().manual_seed(8)
+    a = torch.stack([_boxes(gen, 200) for _ in range(4)])
+    b = a[:, torch.randperm(200, generator=gen)[:64]] + \
+        torch.randn((4, 64, 7), generator=gen) * 0.3
+    b[..., 3:6] = b[..., 3:6].abs() + 0.1
+    q = torch.cat([a, torch.randn(4, 200, 3, generator=gen)], -1).to(card)
+    g = torch.cat([b, torch.randn(4, 64, 2, generator=gen)], -1).to(card)
+    got, want = _check_iou(q[..., :7], g[..., :7])
+    assert torch.equal(got, box_ops.boxes_iou_3d(q[..., :7].contiguous(),
+                                                 g[..., :7].contiguous()))
+    assert (want > 0.1).sum() >= 4 * 32
+    _one_operation(lambda: box_ops.boxes_iou_3d(q[..., :7], g[..., :7]),
+                   "boxes_iou_3d", "boxes_iou_3d_kernel")
+
+
+def test_boxes_iou_3d_on_a_train_steps_assigner_inputs(card):
+    """The tiny flagship's train step on the card: K10 on the assigner's
+    own decoded proposals and GTs (every sample and decoder layer)."""
+    from isfusion_tpu_torch.core.bbox import assigners
+    from isfusion_tpu_torch.flagship import build_isfusion_flagship
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import build_optimizer
+
+    model, batch_fn = build_isfusion_flagship(tiny=True, device="cuda",
+                                              seed=3, dropout=False)
+    model.train()
+    step = make_train_step(model, build_optimizer(model, dict(
+        type="AdamW", lr=1e-4)))
+    real, seen = assigners.boxes_iou_3d, []
+
+    def recording(a, b):
+        seen.append((a.clone(), b.clone()))
+        return real(a, b)
+
+    assigners.boxes_iou_3d = recording
+    try:
+        step(batch_fn(2, seed=4), torch.Generator("cuda").manual_seed(0))
+    finally:
+        assigners.boxes_iou_3d = real
+    assert len(seen) == 1
+    a, b = seen[0]
+    got, want = _check_iou(a, b)
+    assert got.shape == a.shape[:-1] + b.shape[-2:-1]
 
 
 def _gaussian_inputs(gen, b, g, nc, hw, step):

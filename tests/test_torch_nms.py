@@ -4,12 +4,17 @@ the CPU, where the kernel cannot run: its bounding-circle cut
 area is above 0, a numpy mirror of its chunked greedy walk (64 sorted
 boxes at a time, resolved on one 64-bit word) equals the plain greedy
 walk and the JAX package's ``_greedy_suppress``, and the operation counts
-of its data-dependent bound and of its circle cut.
+of its data-dependent bound and of its circle cut. Then K10-circle's
+fused launch (``csrc/nms_circle.cu``): a numpy mirror of its score order
+(keys, the index-order shortcut, positions by counting), its
+upper-triangle words in score order and its walk equals the plain
+version and the JAX package's ``circle_nms_mask``; the order equals
+``torch.sort``'s on ties, signed zeros and NaN.
 
-The mirror holds the algorithm (a chunk resolved as a fixed point), not
-the kernel: ``nms_greedy_kernel`` itself is held exactly against
-``greedy_suppress_ref`` only on the card, by ``tests/test_torch_cuda.py::
-test_nms_bev_kernel_matches_plain_version``.
+The mirrors hold the algorithms (a chunk resolved as a fixed point), not
+the kernels: ``nms_greedy_kernel`` and ``nms_circle_kernel`` themselves
+are held exactly against their plain versions only on the card, by
+``tests/test_torch_cuda.py``.
 
 Tolerance: exact everywhere (boolean masks and integer counts). The area
 is the port's plain ``rotated_rect_intersection_area``, the kernel's
@@ -298,4 +303,207 @@ def test_chunked_walk_on_a_chain():
                                        torch.from_numpy(scores)[None, None],
                                        torch.from_numpy(valid)[None, None])
     np.testing.assert_array_equal(got, want[0, 0].numpy())
+    np.testing.assert_array_equal(got, np.arange(k) % 2 == 0)
+
+
+# ------------------------------------ K10-circle's fused launch, mirrored
+MASK64 = (1 << 64) - 1
+
+
+def score_keys(scores):
+    """uint32 keys of csrc/nms_circle.cu's score order: -0.0 made +0.0,
+    every NaN the largest key, else the order-preserving image of the
+    float."""
+    s = np.asarray(scores, np.float32).copy()
+    s[s == 0] = 0.0
+    u = s.view(np.uint32)
+    key = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+    key[np.isnan(s)] = 0xFFFFFFFF
+    return key
+
+
+def circle_positions(scores, valid):
+    """(positions (K,), took the index order): the kernel's step (a)."""
+    key = score_keys(scores)
+    k = len(key)
+    vk = key[valid]
+    if (vk[:-1] >= vk[1:]).all():
+        return np.arange(k), True
+    idx = np.arange(k)
+    pos = np.array([int(((key > key[i]) | ((key == key[i]) & (idx < i)))
+                        .sum()) for i in range(k)])
+    return pos, False
+
+
+def block_word(c, u, w):
+    return 64 * (c * w - c * (c - 1) // 2 + u - c)
+
+
+def fused_circle(centers, scores, thr, valid):
+    """keep (K,) of csrc/nms_circle.cu's algorithm in numpy (a copy: the
+    kernel is tested on the card only): the score positions, the upper
+    triangle's words in the kernel's layout (each word's place decoded
+    from its linear index as the kernel does), the walk chunk by chunk on
+    one 64-bit word with the removed words ORed from the kept rows."""
+    k = len(scores)
+    w = (k + 63) // 64
+    pos, _ = circle_positions(scores, valid)
+    sx = np.full(64 * w, np.nan, np.float32)
+    sy = sx.copy()
+    sidx = np.zeros(64 * w, np.int64)
+    sval = np.zeros(64 * w, bool)
+    sx[pos], sy[pos] = centers[:, 0], centers[:, 1]
+    sidx[pos], sval[pos] = np.arange(k), valid
+    dx = sx[None, :] - sx[:, None]
+    dy = sy[None, :] - sy[:, None]
+    with np.errstate(invalid="ignore"):
+        near = dx * dx + dy * dy <= np.float32(thr)      # float32, no FMA
+    shifts = np.arange(64, dtype=np.uint64)
+    bits = np.zeros(32 * w * (w + 1), np.uint64)
+    for e in range(0, len(bits), 64):
+        q, c = e >> 6, 0
+        while q >= w - c:
+            q -= w - c
+            c += 1
+        u = c + q
+        assert e == block_word(c, u, w)
+        blk = near[64 * c:64 * c + 64, 64 * u:64 * u + 64].astype(np.uint64)
+        bits[e:e + 64] = np.bitwise_or.reduce(blk << shifts, axis=1)
+    words = [int(x) for x in bits]
+    removed = [~int(np.bitwise_or.reduce(
+        sval[64 * u:64 * u + 64].astype(np.uint64) << shifts)) & MASK64
+        for u in range(w)]
+    keep = np.zeros(k, bool)
+    for c in range(w):
+        alive = ~removed[c] & MASK64
+        rows = words[block_word(c, c, w):block_word(c, c, w) + 64]
+        kept, rounds = alive, 0
+        while True:
+            nxt = sum(1 << j for j in range(64) if alive >> j & 1 and
+                      not rows[j] & kept & ((1 << j) - 1))
+            rounds += 1
+            if nxt == kept:
+                break
+            kept = nxt
+        assert rounds <= 65
+        for u in range(c + 1, w):
+            col = words[block_word(c, u, w):block_word(c, u, w) + 64]
+            for j in range(64):
+                if kept >> j & 1:
+                    removed[u] |= col[j]
+        for j in range(64):
+            if 64 * c + j < k:
+                keep[sidx[64 * c + j]] = bool(kept >> j & 1)
+    return keep
+
+
+def _circle_want(c, s, thr, v):
+    return box_ops.circle_nms_mask_ref(torch.from_numpy(c)[None],
+                                       torch.from_numpy(s)[None], float(thr),
+                                       torch.from_numpy(v)[None])[0].numpy()
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 500, 1000])
+def test_fused_circle_matches_plain_and_jax(k):
+    from isfusion_tpu_torch.testing import circle_nms_sets
+
+    c, s, v, thr = (t.numpy() for t in circle_nms_sets(
+        torch.Generator().manual_seed(k), 2, k))
+    for r in range(2):
+        got = fused_circle(c[r], s[r], thr[r], v[r])
+        np.testing.assert_array_equal(got, _circle_want(c[r], s[r], thr[r],
+                                                        v[r]))
+        assert not (got & ~v[r]).any()
+    jwant = np.asarray(jbox.circle_nms_mask(jnp.asarray(c[0]),
+                                            jnp.asarray(s[0]), float(thr[0]),
+                                            jnp.asarray(v[0])))
+    np.testing.assert_array_equal(fused_circle(c[0], s[0], thr[0], v[0]),
+                                  jwant)
+    # the decode's layout: top-k scores, masked boxes zeroed and invalid,
+    # takes the index order and gives the same keep mask
+    order = np.argsort(-s[1], kind="stable")
+    cs, ss, vs = c[1][order], s[1][order], v[1][order]
+    ss = np.where(vs, ss, 0).astype(np.float32)
+    assert circle_positions(ss, vs)[1]
+    np.testing.assert_array_equal(fused_circle(cs, ss, thr[1], vs),
+                                  _circle_want(cs, ss, thr[1], vs))
+
+
+def test_fused_circle_on_adversarial_sets():
+    from isfusion_tpu_torch.testing import circle_nms_adversarial_sets
+
+    for name, c, s, v, thr in circle_nms_adversarial_sets(
+            torch.Generator().manual_seed(0)):
+        c, s, v = c[0].numpy(), s[0].numpy(), v[0].numpy()
+        np.testing.assert_array_equal(fused_circle(c, s, float(thr), v),
+                                      _circle_want(c, s, float(thr), v),
+                                      err_msg=name)
+
+
+ODD_SCORES = np.array([0.5, np.nan, -0.0, 0.0, 0.5, np.nan, -1.0, np.inf,
+                       -np.inf, 0.0, -0.0, 0.25, np.nan, 0.5],
+                      np.float32)
+
+
+@pytest.mark.parametrize("valid", ["all", "some"])
+def test_score_positions_are_torch_sorts(valid):
+    """Ties by index, -0.0 tied with +0.0, NaN first (torch.sort
+    descending, stable), with and without invalid boxes in the set."""
+    v = np.ones(len(ODD_SCORES), bool) if valid == "all" else \
+        np.arange(len(ODD_SCORES)) % 3 != 1
+    pos, fast = circle_positions(ODD_SCORES, v)
+    assert not fast
+    order = torch.sort(torch.from_numpy(ODD_SCORES), descending=True,
+                       stable=True).indices.numpy()
+    np.testing.assert_array_equal(np.argsort(pos), order)
+    # NaN first, then +inf; the zeros keep their index order
+    assert list(order[:4]) == [1, 5, 12, 7]
+    assert [i for i in order if ODD_SCORES[i] == 0] == [2, 3, 9, 10]
+
+
+def test_fused_circle_on_nan_and_signed_zero_scores():
+    rng = np.random.default_rng(7)
+    k = 130
+    c = (np.round(rng.uniform(-4, 4, (k, 2)) * 2) / 2).astype(np.float32)
+    s = np.resize(ODD_SCORES, k)
+    v = rng.uniform(size=k) > 0.1
+    got = fused_circle(c, s, 1.0, v)
+    np.testing.assert_array_equal(got, _circle_want(c, s, 1.0, v))
+    assert 0 < got.sum() < v.sum()
+    # all scores equal: the index order
+    eq = np.full(k, 0.5, np.float32)
+    assert circle_positions(eq, v)[1]
+    np.testing.assert_array_equal(fused_circle(c, eq, 1.0, v),
+                                  _circle_want(c, eq, 1.0, v))
+
+
+def test_circle_shared_memory_limit():
+    """K = 1,792 (28 words a row) fits a block's 227 KB; 1,793 does not."""
+    assert box_ops.circle_smem_bytes(box_ops.CIRCLE_MAX_BOXES) <= 232448
+    assert box_ops.circle_smem_bytes(box_ops.CIRCLE_MAX_BOXES + 1) > 232448
+    assert box_ops.circle_order_ops(6, 500) == 6 * 500 * 9
+
+
+def test_center_head_keeps_its_thresholds_on_the_device():
+    from isfusion_tpu_torch.flagship import build_centerpoint
+
+    model, _ = build_centerpoint(tiny=True, device="cpu", seed=0)
+    head = model.pts_bbox_head
+    thr = head._circle_thresholds(2, "cpu")
+    assert thr is head._circle_thresholds(2, torch.device("cpu"))
+    want = torch.tensor([float(r) for r in head.test_cfg["min_radius"]] * 2)
+    assert thr.dtype == torch.float32 and torch.equal(thr, want)
+    assert "nms_min_radius" not in head.state_dict()
+
+
+def test_fused_circle_on_long_chains():
+    """Centres 0.9 m apart along a line in score order, threshold 1: each
+    box suppresses the next, so a chunk's fixed point takes 64 rounds
+    (the most a chunk can take) and keeps every other box."""
+    k = 200
+    c = np.stack([np.arange(k) * 0.9, np.zeros(k)], -1).astype(np.float32)
+    s = np.linspace(1, 0, k).astype(np.float32)
+    v = np.ones(k, bool)
+    got = fused_circle(c, s, 1.0, v)
+    np.testing.assert_array_equal(got, _circle_want(c, s, 1.0, v))
     np.testing.assert_array_equal(got, np.arange(k) % 2 == 0)
