@@ -31,6 +31,12 @@ momentum, clip 35). ``build_mvxnet`` builds MVX-Net of
 the conv_module SparseEncoder, the 3-class KITTI Anchor3DHead) with a
 KITTI-like synthetic batch of one camera, and ``mvxnet_optim_cfg`` its
 recipe (AdamW, CosineAnnealing with linear warmup, clip 35).
+``build_fcos3d`` builds the monocular FCOS3D of ``configs/fcos3d/fcos3d_
+r101_caffe_fpn_gn-head_2x8_1x_nus-mono3d.py`` (ResNet-101 caffe, FPN with
+two extra levels, the GN FCOSMono3DHead) with a nuScenes-like synthetic
+camera batch (``synthetic_mono_batch``), and ``fcos3d_optim_cfg`` its
+recipe (SGD with momentum, weight decay and the bias multipliers, step lr
+with linear warmup, clip 35).
 """
 from __future__ import annotations
 
@@ -55,6 +61,9 @@ CENTERPOINT_CFG = os.path.join(
 MVXNET_CFG = os.path.join(
     REPO_ROOT, "configs", "mvxnet",
     "dv_mvx-fpn_second_secfpn_adamw_2x8_80e_kitti-3d-3class.py")
+FCOS3D_CFG = os.path.join(
+    REPO_ROOT, "configs", "fcos3d",
+    "fcos3d_r101_caffe_fpn_gn-head_2x8_1x_nus-mono3d.py")
 
 # config keys of the modules that carry a compute_dtype
 _DTYPE_MODULES = ("img_backbone", "img_neck", "pts_middle_encoder",
@@ -649,4 +658,316 @@ def build_mvxnet(tiny: bool = False, device=None, seed: int = 0
     else:
         def batch_fn(b, seed=0):
             return synthetic_kitti_batch(b, seed=seed)
+    return model, batch_fn
+
+
+# FCOS3D: nuScenes' 1600 x 900 camera padded to a multiple of 32 (the
+# reference mono pipeline's Pad(size_divisor=32)) and a CAM_FRONT-like
+# intrinsic
+FCOS3D_IMG_HW = (928, 1600)
+FCOS3D_VALID_HW = (900, 1600)
+NUSCENES_CAM_INTRINSIC = ((1266.417, 0.0, 816.267), (0.0, 1266.417, 491.507),
+                          (0.0, 0.0, 1.0))
+# the tiny FCOS3D of the JAX package's test (tests/test_models/
+# test_fcos3d.py): a 64 x 96 image, 3 classes, 4 attributes
+FCOS3D_TINY_HW = (64, 96)
+
+
+def synthetic_mono_batch(batch_size: int, seed: int = 0,
+                         img_hw=FCOS3D_IMG_HW, valid_hw=FCOS3D_VALID_HW,
+                         intrinsic=NUSCENES_CAM_INTRINSIC, num_gt: int = 24,
+                         num_classes: int = 10, num_attrs: int = 9,
+                         depth_range=(5.0, 60.0)) -> dict:
+    """A camera batch of the FCOS3D head's contract
+    (``models/dense_heads/fcos_mono3d_head.py``): one view a sample, (B,
+    H, W, 3) in [0, 1) over ``valid_hw`` and zero padding below and right
+    of it, a 4x4 ``cam2img`` from ``intrinsic``, and ``num_gt`` padded GT
+    rows (between half and all valid) whose projected centres lie inside
+    the valid image at ``depth_range`` metres: camera-frame 9-dim boxes
+    (x, y, z, sizes U(0.5, 4), yaw U(-pi, pi), vx, vz U(-1, 1)) whose
+    centre projects to ``centers2d``, ``depths`` = z, and the 2D box
+    around the centre of half-size ``f * size / (2 z)`` clipped to the
+    image; labels and attributes uniform."""
+    rng = np.random.default_rng(seed)
+    h, w = img_hw
+    vh, vw = valid_hw
+    img = np.zeros((batch_size, h, w, 3), np.float32)
+    img[:, :vh, :vw] = rng.uniform(size=(batch_size, vh, vw, 3))
+    k = np.asarray(intrinsic, np.float32)
+    cam2img = np.broadcast_to(np.eye(4, dtype=np.float32),
+                              (batch_size, 4, 4)).copy()
+    cam2img[:, :3, :3] = k
+    shape = (batch_size, num_gt)
+    u = rng.uniform(0.02 * vw, 0.98 * vw, shape).astype(np.float32)
+    v = rng.uniform(0.02 * vh, 0.98 * vh, shape).astype(np.float32)
+    z = rng.uniform(*depth_range, shape).astype(np.float32)
+    boxes = np.zeros(shape + (9,), np.float32)
+    boxes[..., 0] = (u - k[0, 2]) * z / k[0, 0]
+    boxes[..., 1] = (v - k[1, 2]) * z / k[1, 1]
+    boxes[..., 2] = z
+    boxes[..., 3:6] = rng.uniform(0.5, 4.0, shape + (3,))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, shape)
+    boxes[..., 7:9] = rng.uniform(-1.0, 1.0, shape + (2,))
+    half_w = k[0, 0] * np.maximum(boxes[..., 3], boxes[..., 5]) / (2 * z)
+    half_h = k[1, 1] * boxes[..., 4] / (2 * z)
+    gt2d = np.stack([np.clip(u - half_w, 0, vw), np.clip(v - half_h, 0, vh),
+                     np.clip(u + half_w, 0, vw), np.clip(v + half_h, 0, vh)],
+                    -1).astype(np.float32)
+    gt_mask = np.arange(num_gt)[None, :] < rng.integers(
+        max(num_gt // 2, 1), num_gt + 1, (batch_size, 1))
+    return dict(img=img, cam2img=cam2img, gt_bboxes=gt2d,
+                centers2d=np.stack([u, v], -1), depths=z, gt_bboxes_3d=boxes,
+                gt_labels_3d=rng.integers(0, num_classes, shape),
+                attr_labels=rng.integers(0, num_attrs, shape),
+                gt_mask=gt_mask)
+
+
+def fcos3d_model_cfg(tiny: bool = False) -> dict:
+    """FCOS3D's model config dict. Full width: the config as written
+    (ResNet-101 caffe, ``frozen_stages=1``, ``norm_eval``; FPN from C3 with
+    two extra convs on P5's output; the GN head with 10 classes and 9
+    attributes; ``max_per_img`` 200), the backbone, neck and head convs in
+    bf16 (GN statistics, decode and losses float32). ``tiny``: the JAX
+    package's test model (``tests/test_models/test_fcos3d.py``): a
+    ResNet-18 of base width 8 (stages 2-4), a 3-level FPN of 16 channels,
+    a one-conv head of 16 channels over strides 8-32, 3 classes, 4
+    attributes, GN of 4 groups, the top 16; float32."""
+    from .config import Config
+
+    if not tiny:
+        model_cfg = copy.deepcopy(dict(Config.fromfile(FCOS3D_CFG).model))
+        for key in ("backbone", "neck", "bbox_head"):
+            model_cfg[key] = dict(model_cfg[key], compute_dtype="bfloat16")
+        return model_cfg
+    return dict(
+        type="FCOSMono3D",
+        backbone=dict(type="ResNet", depth=18, base_channels=8,
+                      out_indices=(1, 2, 3)),
+        neck=dict(type="FPN", in_channels=[16, 32, 64], out_channels=16,
+                  start_level=0, num_outs=3),
+        bbox_head=dict(
+            type="FCOSMono3DHead", num_classes=3, in_channels=16,
+            feat_channels=16, stacked_convs=1, strides=(8, 16, 32),
+            regress_ranges=((-1, 48), (48, 96), (96, 1e8)),
+            cls_branch=(16,), reg_branch=((16,), (16,), (16,), (16,), ()),
+            dir_branch=(16,), attr_branch=(16,), centerness_branch=(16,),
+            num_attrs=4, norm_cfg=dict(type="GN", num_groups=4)),
+        test_cfg=dict(max_per_img=16))
+
+
+def fcos3d_optim_cfg() -> dict:
+    """FCOS3D's training recipe: ``optimizer`` (SGD, lr 0.002, momentum
+    0.9, weight decay 1e-4, biases at 2x the lr and no decay),
+    ``optimizer_config`` (clip 35), ``lr_config`` (step at epochs 8 and
+    11, linear warmup over 500 steps from a third of the lr),
+    ``momentum_config`` (None), ``samples_per_gpu`` 2 (the ``2x8`` of the
+    config's name) and ``max_epochs`` 12."""
+    from .config import Config
+
+    cfg = Config.fromfile(FCOS3D_CFG)
+    out = {k: copy.deepcopy(dict(cfg[k])) for k in (
+        "optimizer", "optimizer_config", "lr_config")}
+    out["momentum_config"] = None
+    out["samples_per_gpu"] = 2
+    out["max_epochs"] = int(cfg["runner"]["max_epochs"])
+    return out
+
+
+def build_fcos3d(tiny: bool = False, device=None, seed: int = 0
+                 ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): FCOS3D (``FCOSMono3D``) with weights drawn from
+    ``seed``, in eval mode on ``device`` (default: the CUDA card; raises
+    if it is missing), and ``batch_fn(batch_size, seed=0)`` giving a
+    numpy camera batch (``synthetic_mono_batch``; full width: one 928 x
+    1600 view, 24 padded GT rows over 10 classes and 9 attributes; tiny:
+    the JAX test's 64 x 96 view, focal 50, 4 GT rows over 3 classes and 4
+    attributes at 5-40 m)."""
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model = init_weights(build_detector(fcos3d_model_cfg(tiny)), seed).to(
+        dev).eval()
+    if tiny:
+        h, w = FCOS3D_TINY_HW
+
+        def batch_fn(b, seed=0):
+            return synthetic_mono_batch(
+                b, seed, img_hw=(h, w), valid_hw=(h, w),
+                intrinsic=((50.0, 0.0, w / 2), (0.0, 50.0, h / 2),
+                           (0.0, 0.0, 1.0)), num_gt=4, num_classes=3,
+                num_attrs=4, depth_range=(5.0, 40.0))
+    else:
+        def batch_fn(b, seed=0):
+            return synthetic_mono_batch(b, seed)
+    return model, batch_fn
+
+
+# The LiDAR detectors built from ported parts, tiny (no config in
+# configs/): DynamicVoxelNet on DynamicSimpleVFE, on dynamic pillars
+# (DynamicPillarFeatureNet) and on DynamicVFE, DynamicCenterPoint on
+# DynamicVFE, VoxelNet on hard voxels and TransFusion-L, over a 12.8 m
+# scene at 0.2 x 0.2 x 0.4 m voxels (a 64 x 64 x 10 grid, a 32 x 32 BEV)
+# or 0.4 m pillars (a 32 x 32 BEV)
+LIDAR_VARIANTS = ("dynamic_simple", "dynamic_pillar", "dynamic_centerpoint",
+                  "voxelnet", "dynamic_voxelnet", "transfusion_l")
+LIDAR_TINY_RANGE = [-6.4, -6.4, -3.0, 6.4, 6.4, 1.0]
+# the kernels each variant's predict (and train) path launches
+LIDAR_VARIANT_KERNELS = {
+    "dynamic_simple": dict(predict=("dynamic_voxelize", "dynamic_scatter",
+                                    "masked_gather", "nms_circle"),
+                           train=("gaussian_heatmap",)),
+    "dynamic_pillar": dict(predict=("dynamic_voxelize", "dynamic_scatter",
+                                    "nms_bev"), train=()),
+    "dynamic_centerpoint": dict(predict=("dynamic_voxelize",
+                                         "dynamic_scatter", "masked_gather",
+                                         "nms_circle"),
+                                train=("gaussian_heatmap",)),
+    "voxelnet": dict(predict=("masked_gather", "nms_bev"), train=()),
+    "dynamic_voxelnet": dict(predict=("dynamic_voxelize", "dynamic_scatter",
+                                      "masked_gather", "nms_bev"), train=()),
+    "transfusion_l": dict(predict=("masked_gather",),
+                          train=("boxes_iou_3d", "gaussian_heatmap")),
+}
+
+
+def lidar_variant_model_cfg(name: str) -> dict:
+    """The tiny model config of a ``LIDAR_VARIANTS`` entry, float32, the
+    JAX package's voxel and column caps above what the scene holds. A
+    2-stage SparseEncoder (MVX-Net's tiny one) -> SECOND (16, 32) ->
+    SECONDFPN (16, 16) gives a 32-channel 32 x 32 BEV map to one of three
+    heads: CenterPoint's six-task CenterHead (narrow), the 10-class
+    nuScenes Anchor3DHead of PointPillars, or the tiny flagship's
+    TransFusionHeadV2 (16 proposals, dropout off):
+
+    - ``dynamic_simple``: DynamicVoxelNet, DynamicSimpleVFE (the 5 point
+      features' mean a voxel), CenterHead (a VoxelNet: the JAX package's
+      DynamicCenterPoint hands its voxel encoder image arguments that
+      DynamicSimpleVFE does not take);
+    - ``dynamic_centerpoint``: DynamicCenterPoint, DynamicVFE (16, 16),
+      CenterHead;
+    - ``dynamic_pillar``: DynamicVoxelNet, DynamicPillarFeatureNet (16) on
+      0.4 m pillars -> PointPillarsScatter -> the tiny PointPillars'
+      SECOND and SECONDFPN -> Anchor3DHead;
+    - ``voxelnet``: VoxelNet, hard voxels -> HardSimpleVFE ->
+      Anchor3DHead;
+    - ``dynamic_voxelnet``: DynamicVoxelNet, DynamicVFE -> Anchor3DHead;
+    - ``transfusion_l``: TransFusionDetector, hard voxels ->
+      HardSimpleVFE -> TransFusionHeadV2."""
+    if name not in LIDAR_VARIANTS:
+        raise KeyError(f"unknown LiDAR variant {name!r}: {LIDAR_VARIANTS}")
+    cp = centerpoint_model_cfg(tiny=True)
+    pp = pointpillars_model_cfg(tiny=True)
+    pcr = list(LIDAR_TINY_RANGE)
+    vs = [0.2, 0.2, 0.4]
+    n, nz, cap, osf = 64, 10, 2048, 2
+    hard_layer = dict(max_num_points=10, point_cloud_range=pcr,
+                      voxel_size=vs, max_voxels=(cap, cap))
+    dyn_layer = dict(hard_layer, max_num_points=-1)
+    dvfe = dict(type="DynamicVFE", in_channels=5, feat_channels=[16, 16],
+                with_cluster_center=True, with_voxel_center=True,
+                voxel_size=vs, point_cloud_range=pcr,
+                norm_cfg=dict(type="BN1d", eps=1e-3, momentum=0.01))
+    simple = dict(type="HardSimpleVFE", num_features=5)
+
+    def sparse(cin):
+        return dict(type="SparseEncoder", in_channels=cin,
+                    sparse_shape=[nz + 1, n, n], order=("conv", "norm", "act"),
+                    base_channels=8, output_channels=16,
+                    encoder_channels=((8,), (16, 16)),
+                    encoder_paddings=((1,), (1, 1)),
+                    stage_cap_ratios=tuple((n >> i) ** 2 / cap + 1e-9
+                                           for i in range(2)),
+                    dilation_ratio=1.0)
+
+    bev = dict(backbone=dict(cp["pts_backbone"], in_channels=32),
+               neck=cp["pts_neck"])
+    anchor = dict(pp["pts_bbox_head"], in_channels=32, feat_channels=32)
+    anchor["anchor_generator"] = dict(
+        anchor["anchor_generator"],
+        ranges=[[pcr[0], pcr[1], r[2], pcr[3], pcr[4], r[5]]
+                for r in anchor["anchor_generator"]["ranges"]])
+    lidar_cfgs = dict(train_cfg=pp["train_cfg"], test_cfg=pp["test_cfg"])
+
+    def voxelnet(kind, layer, vfe, middle, backbone=bev["backbone"],
+                 neck=bev["neck"], head=anchor):
+        return dict(type=kind, voxel_layer=layer, voxel_encoder=vfe,
+                    middle_encoder=middle, backbone=backbone, neck=neck,
+                    bbox_head=head, **lidar_cfgs)
+
+    if name == "voxelnet":
+        return voxelnet("VoxelNet", hard_layer, simple, sparse(5))
+    if name == "dynamic_voxelnet":
+        return voxelnet("DynamicVoxelNet", dyn_layer, dvfe, sparse(16))
+    if name == "dynamic_pillar":
+        pvs = [0.4, 0.4, pcr[5] - pcr[2]]
+        return voxelnet(
+            "DynamicVoxelNet", dict(dyn_layer, voxel_size=pvs),
+            dict(dvfe, type="DynamicPillarFeatureNet", feat_channels=[16],
+                 voxel_size=pvs),
+            dict(pp["pts_middle_encoder"], output_shape=[32, 32]),
+            pp["pts_backbone"], pp["pts_neck"],
+            dict(anchor, in_channels=48, feat_channels=48))
+    grid = dict(point_cloud_range=pcr, grid_size=[n, n, nz],
+                voxel_size=vs, out_size_factor=osf)
+    if name == "transfusion_l":
+        fl = flagship_model_cfg(tiny=True, dropout=False)
+        head = dict(fl["pts_bbox_head"], in_channels=32)
+        head["bbox_coder"] = dict(head["bbox_coder"], pc_range=pcr[:2],
+                                  voxel_size=vs[:2], out_size_factor=osf,
+                                  post_center_range=[-8.0, -8.0, -10.0,
+                                                     8.0, 8.0, 10.0])
+        train = dict(dict(fl["train_cfg"])["pts"], **grid)
+        test = dict(dict(fl["test_cfg"])["pts"], grid_size=[n, n, nz],
+                    out_size_factor=osf, pc_range=pcr[:2],
+                    voxel_size=vs[:2])
+        return dict(type="TransFusionDetector", pts_voxel_layer=hard_layer,
+                    pts_voxel_encoder=simple, pts_middle_encoder=sparse(5),
+                    pts_backbone=bev["backbone"], pts_neck=bev["neck"],
+                    pts_bbox_head=head, train_cfg=dict(pts=train),
+                    test_cfg=dict(pts=test))
+    head = dict(cp["pts_bbox_head"])
+    head["bbox_coder"] = dict(head["bbox_coder"], pc_range=pcr[:2],
+                              voxel_size=vs[:2], out_size_factor=osf,
+                              post_center_range=[-8.0, -8.0, -10.0, 8.0,
+                                                 8.0, 10.0])
+    center_cfgs = dict(
+        train_cfg=dict(pts=dict(cp["train_cfg"]["pts"], **grid)),
+        test_cfg=dict(pts=dict(cp["test_cfg"]["pts"], voxel_size=vs[:2],
+                               out_size_factor=osf, pc_range=pcr[:2],
+                               post_center_limit_range=[-8.0, -8.0, -10.0,
+                                                        8.0, 8.0, 10.0])))
+    if name == "dynamic_simple":
+        return dict(voxelnet("DynamicVoxelNet", dyn_layer,
+                             dict(simple, type="DynamicSimpleVFE"),
+                             sparse(5), head=head), **center_cfgs)
+    return dict(type="DynamicCenterPoint", pts_voxel_layer=dyn_layer,
+                pts_voxel_encoder=dvfe, pts_middle_encoder=sparse(16),
+                pts_backbone=bev["backbone"], pts_neck=bev["neck"],
+                pts_bbox_head=head, **center_cfgs)
+
+
+def build_lidar_variant(name: str, device=None, seed: int = 0
+                        ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn) of a ``LIDAR_VARIANTS`` entry with weights drawn
+    from ``seed``, in eval mode on ``device`` (default: the CUDA card;
+    raises if it is missing); ``batch_fn(batch_size, seed=0)``: 2,048
+    points over the 12.8 m scene (``synthetic_points_batch``, reflectance
+    in [0, 1) as KITTI's) and 8 padded GT boxes over the 10 classes."""
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model_cfg = lidar_variant_model_cfg(name)
+    model = init_weights(build_detector(model_cfg), seed).to(dev).eval()
+    layer = model_cfg.get("pts_voxel_layer", model_cfg.get("voxel_layer"))
+    pcr = tuple(layer["point_cloud_range"])
+
+    def batch_fn(b, seed=0):
+        batch = synthetic_points_batch(b, num_points=2048, num_gt=8,
+                                       seed=seed, pcr=pcr)
+        batch["points"][..., 3] /= 255.0
+        batch["gt_labels_3d"] = np.random.default_rng(seed + 1).integers(
+            0, 10, batch["gt_labels_3d"].shape)
+        return batch
     return model, batch_fn

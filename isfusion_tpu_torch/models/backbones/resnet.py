@@ -7,7 +7,8 @@ pick the stages returned. As in the reference, and unlike the JAX package
 (which reads neither, so its optimizer moves those weights; ROADMAP queue
 3):
 
-- ``frozen_stages`` = k freezes the stem and ``layer1`` .. ``layerk``:
+- ``frozen_stages`` = k >= 0 freezes the stem and ``layer1`` ..
+  ``layerk`` (-1 freezes nothing):
   their parameters do not require gradients and their BatchNorms stay in
   eval mode;
 - ``norm_cfg.requires_grad=False`` freezes every BatchNorm's affine
@@ -124,9 +125,9 @@ class ResNet(nn.Module):
                                     norm_cfg, dt, style))
                 cin = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
-        frozen = [self.conv1, self.bn1] + [
-            getattr(self, f"layer{i}") for i in range(
-                1, min(self.frozen_stages, self.num_stages) + 1)]
+        frozen = [self.conv1, self.bn1] if self.frozen_stages >= 0 else []
+        frozen += [getattr(self, f"layer{i}") for i in range(
+            1, min(self.frozen_stages, self.num_stages) + 1)]
         self._frozen = frozen
         for m in frozen:
             for p in m.parameters():

@@ -1,5 +1,5 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
-CenterPoint and MVX-Net paths (counterpart of ``isfusion_tpu/models/builder.py``):
+CenterPoint, MVX-Net, FCOS3D, VoxelNet and TransFusion-L paths (counterpart of ``isfusion_tpu/models/builder.py``):
 config dicts with a ``type`` key become modules through the port's
 registries."""
 from __future__ import annotations
@@ -11,6 +11,7 @@ from .backbones.second import SECOND, SECONDV2
 from .backbones.swin import SwinTransformer
 from .dense_heads.anchor3d_head import Anchor3DHead
 from .dense_heads.centerpoint_head import CenterHead
+from .dense_heads.fcos_mono3d_head import FCOSMono3DHead
 from .dense_heads.transfusion_head import TransFusionHeadV2
 from .fusion_layers.point_fusion import PointFusion
 from .middle_encoders.isfusion_encoder import ISFusionEncoder
@@ -19,8 +20,9 @@ from .middle_encoders.sparse_encoder import SparseEncoder
 from .necks.fpn import FPN
 from .necks.generalized_lss import GeneralizedLSSFPN
 from .necks.second_fpn import SECONDFPN
-from .voxel_encoders import (DynamicVFE, HardSimpleVFE, HardVFE,
-                             PillarFeatureNet)
+from .voxel_encoders import (DynamicFusionVFE, DynamicPillarFeatureNet,
+                             DynamicSimpleVFE, DynamicVFE, HardSimpleVFE,
+                             HardVFE, PillarFeatureNet)
 
 for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (BACKBONES, SECOND), (BACKBONES, ResNet),
@@ -29,11 +31,14 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (VOXEL_ENCODERS, DynamicVFE), (VOXEL_ENCODERS, HardVFE),
                    (VOXEL_ENCODERS, PillarFeatureNet),
                    (VOXEL_ENCODERS, HardSimpleVFE),
+                   (VOXEL_ENCODERS, DynamicSimpleVFE),
+                   (VOXEL_ENCODERS, DynamicPillarFeatureNet),
+                   (VOXEL_ENCODERS, DynamicFusionVFE),
                    (MIDDLE_ENCODERS, SparseEncoder),
                    (MIDDLE_ENCODERS, PointPillarsScatter),
                    (FUSION_LAYERS, ISFusionEncoder),
                    (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead),
-                   (HEADS, CenterHead)):
+                   (HEADS, CenterHead), (HEADS, FCOSMono3DHead)):
     _reg.register_module(module=_cls)
 
 
@@ -65,5 +70,6 @@ def build_detector(cfg):
     """Build a detector from its config dict (on the CPU, uninitialised:
     the factories of ``flagship.py`` initialise and place it)."""
     from .detectors import (centerpoint, isfusion,  # noqa: F401  (register)
-                            mvx_two_stage)
+                            mvx_two_stage, single_stage_mono3d,
+                            transfusion, voxelnet)
     return build_from_cfg(dict(cfg), DETECTORS)

@@ -63,8 +63,6 @@ class MVXTwoStageDetector(nn.Module):
                 "configure pts_voxel_encoder.fusion_layer (DynamicVFE "
                 "PointFusion) instead")
         self.pts_voxel_layer = dict(pts_voxel_layer)
-        self.dynamic = int(self.pts_voxel_layer.get("max_num_points",
-                                                    32)) <= 0
         self.img_backbone = build_backbone(img_backbone) \
             if img_backbone else None
         self.img_neck = build_neck(img_neck) if img_neck else None
@@ -119,44 +117,62 @@ class MVXTwoStageDetector(nn.Module):
 
     def _forward(self, batch, mode, device, stats):
         t = upload(self, batch, device)
-        points, points_mask = t["points"].float(), t["points_mask"].bool()
-        b = points.shape[0]
         img_feats = self.extract_img_feat(t["img"].float()) \
             if self.img_backbone is not None and "img" in t else None
-        vl = self.pts_voxel_layer
-        if self.dynamic:
-            cap = capacity(vl.get("max_voxels", 60000), self.training)
-            dv = voxelize_dynamic(points, points_mask,
-                                  vl["point_cloud_range"], vl["voxel_size"])
-            coors = dv.voxel_coors
-            feats = self.pts_voxel_encoder(
-                points.reshape(-1, points.shape[-1]), dv.point_voxel_index,
-                coors, img_feats=img_feats, calib=self.calib_from_batch(t),
-                layout=(dv.voxel_ptr, dv.point_order))
-        else:
-            cap = capacity(vl.get("max_voxels", 30000), self.training)
-            vox = voxelize_hard(points, points_mask, vl["point_cloud_range"],
-                                vl["voxel_size"], int(vl["max_num_points"]),
-                                cap)
-            coors = vox.coors
-            feats = self.pts_voxel_encoder(vox.voxels, vox.num_points, coors)
-        kw = dict(return_stats=stats) if stats is not None and isinstance(
-            self.pts_middle_encoder, SparseEncoder) else {}
-        x = self.pts_backbone(self.pts_middle_encoder(feats, coors, b, **kw))
-        if self.pts_neck is not None:
-            x = self.pts_neck(x)
-        preds = self.pts_bbox_head(x)
-        if stats is not None:
-            # a dynamic branch reports the config's cap without applying it
-            stats.update(voxels=torch.bincount(
-                coors[:, 0].long(), minlength=b).tolist(), cap=cap)
-        if mode == "feats":
-            return preds
-        if mode == "loss":
-            return self.pts_bbox_head.loss(
-                preds, t["gt_bboxes_3d"], t["gt_labels_3d"].long(),
-                t["gt_mask"].bool())
-        return self.pts_bbox_head.get_bboxes(preds)
+        x = lidar_features(
+            t, self.pts_voxel_layer, self.training, self.pts_voxel_encoder,
+            self.pts_middle_encoder, self.pts_backbone, self.pts_neck,
+            img_feats, self.calib_from_batch(t), stats)
+        return head_outputs(self.pts_bbox_head, x, t, mode)
+
+
+def lidar_features(t: dict, voxel_layer: dict, training: bool,
+                   voxel_encoder, middle_encoder, backbone, neck,
+                   img_feats=None, calib=None, stats: Optional[dict] = None):
+    """The LiDAR branch of a batch of tensors ``t``: voxelization (hard
+    with the train or test cap, or dynamic with ``max_num_points <= 0``)
+    -> the voxel encoder -> the middle encoder -> the BEV backbone -> the
+    neck. ``stats`` (optional) receives the voxels per sample, the cap
+    and a SparseEncoder's active sites per stage."""
+    points, points_mask = t["points"].float(), t["points_mask"].bool()
+    b = points.shape[0]
+    vl = voxel_layer
+    if int(vl.get("max_num_points", 32)) <= 0:
+        cap = capacity(vl.get("max_voxels", 60000), training)
+        dv = voxelize_dynamic(points, points_mask, vl["point_cloud_range"],
+                              vl["voxel_size"])
+        coors = dv.voxel_coors
+        feats = voxel_encoder(
+            points.reshape(-1, points.shape[-1]), dv.point_voxel_index,
+            coors, img_feats=img_feats, calib=calib,
+            layout=(dv.voxel_ptr, dv.point_order))
+    else:
+        cap = capacity(vl.get("max_voxels", 30000), training)
+        vox = voxelize_hard(points, points_mask, vl["point_cloud_range"],
+                            vl["voxel_size"], int(vl["max_num_points"]), cap)
+        coors = vox.coors
+        feats = voxel_encoder(vox.voxels, vox.num_points, coors)
+    kw = dict(return_stats=stats) if stats is not None and isinstance(
+        middle_encoder, SparseEncoder) else {}
+    x = backbone(middle_encoder(feats, coors, b, **kw))
+    if neck is not None:
+        x = neck(x)
+    if stats is not None:
+        # a dynamic branch reports the config's cap without applying it
+        stats.update(voxels=torch.bincount(
+            coors[:, 0].long(), minlength=b).tolist(), cap=cap)
+    return x
+
+
+def head_outputs(head, x, t: dict, mode: str):
+    """The head's maps ('feats'), its loss dict ('loss') or its boxes."""
+    preds = head(x)
+    if mode == "feats":
+        return preds
+    if mode == "loss":
+        return head.loss(preds, t["gt_bboxes_3d"], t["gt_labels_3d"].long(),
+                         t["gt_mask"].bool())
+    return head.get_bboxes(preds)
 
 
 @DETECTORS.register_module()

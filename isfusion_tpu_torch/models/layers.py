@@ -77,7 +77,11 @@ class Conv1x1(nn.Conv1d):
 
 
 class Conv2d(nn.Conv2d):
-    """Conv2d over NHWC maps (OIHW weight, reference layout)."""
+    """Conv2d over NHWC maps (OIHW weight, reference layout). A strided
+    1x1 conv without padding samples its input first and runs at stride 1
+    (the same products and sums): PyTorch's CPU backward of a strided 1x1
+    conv over a channels-last input corrupts the heap (the process then
+    fails at exit)."""
 
     def __init__(self, *args, dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -85,8 +89,12 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = compute_dtype(x, self.cdtype)
+        stride = self.stride
+        if self.kernel_size == (1, 1) and self.padding == (0, 0) and \
+                stride != (1, 1):
+            x, stride = x[:, ::stride[0], ::stride[1]], 1
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
-                     _cast(self.bias, dt), self.stride, self.padding,
+                     _cast(self.bias, dt), stride, self.padding,
                      self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
@@ -191,6 +199,21 @@ class DropPath(nn.Module):
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over the channels (last axis) of NHWC maps, statistics in
+    float32 (flax ``nn.GroupNorm``, mmcv's ``gn``)."""
+
+    def __init__(self, num_groups, num_channels, eps=1e-5, dtype=None):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.cdtype = dtype
+
+    def forward(self, x):
+        out_dt = compute_dtype(x, self.cdtype)
+        y = F.group_norm(x.float().movedim(-1, 1), self.num_groups,
+                         self.weight.float(), self.bias.float(), self.eps)
+        return y.movedim(1, -1).to(out_dt)
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis, statistics in float32."""
 
@@ -240,9 +263,16 @@ def norm_momentum(norm_cfg: Optional[dict], default: float = 0.1) -> float:
     return float((norm_cfg or {}).get("momentum", default))
 
 
+def is_group_norm(norm_cfg: Optional[dict]) -> bool:
+    return norm_cfg is not None and str(norm_cfg.get("type", "")).upper() \
+        .startswith("GN")
+
+
 class ConvModule(nn.Module):
-    """conv(+bn)(+act) over NHWC maps — mmcv ConvModule naming (``conv``,
-    ``bn``). The conv has a bias iff there is no norm (bias='auto')."""
+    """conv(+norm)(+act) over NHWC maps — mmcv ConvModule naming (``conv``,
+    then ``bn`` for a batch norm or ``gn`` for a GroupNorm config, with
+    its ``num_groups`` and ``eps``, default 1e-5). The conv has a bias iff
+    there is no norm (bias='auto')."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=0, bias="auto", norm_cfg=None, act_cfg=None,
@@ -252,15 +282,22 @@ class ConvModule(nn.Module):
         self.conv = Conv2d(in_channels, out_channels, kernel_size,
                            stride=stride, padding=padding, bias=use_bias,
                            dtype=dtype)
-        self.bn = BatchNorm(out_channels, eps=norm_eps(norm_cfg),
-                            momentum=norm_momentum(norm_cfg),
-                            dtype=dtype) if norm_cfg is not None else None
+        self.bn = self.gn = None
+        if is_group_norm(norm_cfg):
+            self.gn = GroupNorm(int(norm_cfg.get("num_groups", 32)),
+                                out_channels, float(norm_cfg.get("eps", 1e-5)),
+                                dtype=dtype)
+        elif norm_cfg is not None:
+            self.bn = BatchNorm(out_channels, eps=norm_eps(norm_cfg),
+                                momentum=norm_momentum(norm_cfg), dtype=dtype)
         self.act = build_activation(act_cfg)
 
     def forward(self, x):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
+        if self.gn is not None:
+            x = self.gn(x)
         if self.act is not None:
             x = self.act(x)
         return x

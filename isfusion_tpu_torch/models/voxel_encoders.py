@@ -1,6 +1,8 @@
 """Voxel feature encoders (counterpart of
-``isfusion_tpu/models/voxel_encoders.py``): DynamicVFE, and HardVFE /
-PillarFeatureNet / HardSimpleVFE over hard-voxelized (V, T, C) buffers.
+``isfusion_tpu/models/voxel_encoders.py``): DynamicVFE (and its
+DynamicPillarFeatureNet and DynamicFusionVFE forms), DynamicSimpleVFE,
+and HardVFE / PillarFeatureNet / HardSimpleVFE over hard-voxelized (V, T,
+C) buffers.
 
 Per-point features [point, xyz - voxel mean, xyz - voxel centre] go
 through Linear+BN+ReLU layers; after each layer the per-voxel max is
@@ -107,6 +109,40 @@ class DynamicVFE(nn.Module):
             if i < last:
                 x = torch.cat([x, voxel_feats[vid]], -1)
         return voxel_feats
+
+
+class DynamicPillarFeatureNet(DynamicVFE):
+    """The JAX package's dynamic PillarFeatureNet: DynamicVFE with one
+    layer (``feat_channels=(64,)``) by default."""
+
+    def __init__(self, in_channels: int = 4, feat_channels=(64,), **kw):
+        super().__init__(in_channels, feat_channels, **kw)
+
+
+class DynamicFusionVFE(DynamicVFE):
+    """DynamicVFE with a PointFusion ``fusion_layer``; fuses after the last
+    layer and adds, as DynamicVFE does (the reference; ROADMAP queue 3)."""
+
+
+class DynamicSimpleVFE(nn.Module):
+    """The mean of each dynamic voxel's points over their first
+    ``num_features`` channels (K2's mean on the card); no parameters."""
+
+    def __init__(self, num_features: int = 4, **unused):
+        super().__init__()
+        self.num_features = int(num_features)
+
+    def forward(self, points: torch.Tensor, point_voxel_index: torch.Tensor,
+                voxel_coors: torch.Tensor, img_feats=None, calib=None,
+                layout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """points (B*P, C); point_voxel_index (B*P,) voxel row or -1;
+        voxel_coors (Nv, 4); layout as DynamicVFE's -> (Nv,
+        num_features)."""
+        sel = point_voxel_index >= 0
+        return segment_mean(points[sel, :self.num_features].float(),
+                            point_voxel_index[sel], voxel_coors.shape[0],
+                            layout)
 
 
 class HardVFE(nn.Module):

@@ -1,5 +1,5 @@
-"""Carry the JAX package's IS-Fusion, PointPillars, CenterPoint and
-MVX-Net variables into the port's state_dict.
+"""Carry the JAX package's IS-Fusion, PointPillars, CenterPoint, MVX-Net,
+FCOS3D, VoxelNet and TransFusion-L variables into the port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -21,6 +21,13 @@ that converter's arithmetic, because the two differ there:
   reordered from the JAX BEV's z*C + c to the reference's c*D + z with the
   true image width and depth D (the JAX converter assumes 256 image
   channels and D = 2).
+
+Single-stage trees name their modules without the ``pts_`` / ``img_``
+prefixes: a camera detector (FCOS3D: ``backbone_m``, ``neck_m``,
+``bbox_head_m``) and a VoxelNet (``voxel_encoder_m`` ...). They are read
+with the prefixed rules and their keys given the reference's names
+(``backbone.``, ``voxel_encoder.`` ...); the JAX FPN names its laterals by
+input level (``lateral_{start_level + i}``), the reference from 0.
 
 The port keeps its own copy of this mapping (it imports nothing of the
 JAX package).
@@ -185,6 +192,25 @@ _RULES = [
      r"pts_bbox_head.task_heads.\1.\2.\3.bn", "norm"),
     (r"pts_bbox_head_m/task_heads_(\d+)/([a-z]+)_final",
      r"pts_bbox_head.task_heads.\1.\2.final", "conv2d"),
+    # FCOSMono3DHead: GN ConvModule towers, 1x1 branch convs, level scales
+    (r"bbox_head_m/(cls_convs|reg_convs|conv_cls_prev|conv_attr_prev|"
+     r"conv_centerness_prev)_(\d+)/Conv_0", r"bbox_head.\1.\2.conv", "conv2d"),
+    (r"bbox_head_m/(cls_convs|reg_convs|conv_cls_prev|conv_attr_prev|"
+     r"conv_centerness_prev)_(\d+)/gn", r"bbox_head.\1.\2.gn", "norm"),
+    (r"bbox_head_m/conv_dir_prev_(\d+)/Conv_0",
+     r"bbox_head.conv_dir_cls_prev.\1.conv", "conv2d"),
+    (r"bbox_head_m/conv_dir_prev_(\d+)/gn", r"bbox_head.conv_dir_cls_prev.\1.gn",
+     "norm"),
+    (r"bbox_head_m/conv_reg_prev_(\d+)_(\d+)/Conv_0",
+     r"bbox_head.conv_reg_prevs.\1.\2.conv", "conv2d"),
+    (r"bbox_head_m/conv_reg_prev_(\d+)_(\d+)/gn",
+     r"bbox_head.conv_reg_prevs.\1.\2.gn", "norm"),
+    (r"bbox_head_m/conv_reg_(\d+)", r"bbox_head.conv_regs.\1", "conv2d"),
+    (r"bbox_head_m/(conv_cls|conv_dir_cls|conv_attr|conv_centerness)",
+     r"bbox_head.\1", "conv2d"),
+    (r"bbox_head_m/scale(\d+)_offset", r"bbox_head.scales.\1.0", "leaf"),
+    (r"bbox_head_m/scale(\d+)_depth", r"bbox_head.scales.\1.1", "leaf"),
+    (r"bbox_head_m/scale(\d+)_size", r"bbox_head.scales.\1.2", "leaf"),
     (r"pts_bbox_head_m/heatmap_conv/Conv_0",
      "pts_bbox_head.heatmap_head.0.conv", "conv2d"),
     (r"pts_bbox_head_m/heatmap_conv/bn", "pts_bbox_head.heatmap_head.0.bn",
@@ -231,6 +257,7 @@ def _flatten(tree, prefix=()):
 def _module_path(path: Tuple[str, ...]) -> str:
     """JAX module path with flax's norm wrappers folded to ``bn``."""
     s = "/".join(path)
+    s = re.sub(r"/Norm_0/GroupNorm_0$", "/gn", s)
     s = re.sub(r"/Norm_0/BatchNorm_0$", "/bn", s)
     return re.sub(r"/MaskedBatchNorm_0$", "/bn", s)
 
@@ -260,9 +287,40 @@ def fusion_lidar_perm(n_img: int, c_lidar: int, depth: int) -> np.ndarray:
     return np.concatenate([np.arange(n_img), n_img + lid])
 
 
+# single-stage trees: JAX top-level module -> the prefixed name its rules
+# read, and the reference prefix of the keys they give back
+_VOXELNET_MODULES = {"voxel_encoder_m": "pts_voxel_encoder_m",
+                     "middle_encoder_m": "pts_middle_encoder_m",
+                     "backbone_m": "pts_backbone_m", "neck_m": "pts_neck_m",
+                     "bbox_head_m": "pts_bbox_head_m"}
+_CAMERA_MODULES = {"backbone_m": "img_backbone_m", "neck_m": "img_neck_m"}
+
+
+def _renamed(variables: Dict, names: Dict[str, str]) -> Dict:
+    return {c: {names.get(k, k): v for k, v in t.items()}
+            for c, t in variables.items()}
+
+
 def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` -> the port's state_dict
     (reference layout), buffers included."""
+    params = variables.get("params", {})
+    if "voxel_encoder_m" in params or "middle_encoder_m" in params:
+        sd = state_dict_from_jax(_renamed(variables, _VOXELNET_MODULES))
+        return {k[len("pts_"):] if k.startswith("pts_") else k: v
+                for k, v in sd.items()}
+    if any(k in params for k in _CAMERA_MODULES):
+        sd = state_dict_from_jax(_renamed(variables, _CAMERA_MODULES))
+        lat = sorted({int(k.split(".")[2]) for k in sd
+                      if k.startswith("img_neck.lateral_convs.")})
+        out = {}
+        for k, v in sd.items():
+            if k.startswith("img_neck.lateral_convs."):
+                _, _, i, rest = k.split(".", 3)
+                k = f"img_neck.lateral_convs.{int(i) - lat[0]}.{rest}"
+            out[k[len("img_"):] if k.startswith(("img_backbone.",
+                                                 "img_neck.")) else k] = v
+        return out
     sd: Dict[str, np.ndarray] = {}
     attn: Dict[str, Dict[str, np.ndarray]] = {}
     for coll in ("params", "batch_stats"):
@@ -278,6 +336,9 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
                 sd[f"{key}.{_NORM_LEAF[leaf]}"] = v
                 if leaf == "mean":
                     sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+                continue
+            if kind == "leaf":
+                sd[f"{key}.{leaf}"] = v
                 continue
             if kind == "same":
                 sd[f"{key}.{leaf}"] = v

@@ -7,7 +7,10 @@
   ``paramwise_cfg.custom_keys`` match (the flagship's ``img_backbone`` at
   ``lr_mult`` 0.1) and one for the rest. The JAX package multiplies the
   whole AdamW update (weight decay included) by the group's multiplier,
-  which is AdamW at ``lr * lr_mult``.
+  which is AdamW at ``lr * lr_mult``. Or ``torch.optim.SGD`` (FCOS3D:
+  momentum, weight decay) with mmcv's paramwise rules: a custom key's
+  ``lr_mult`` / ``decay_mult``, else ``bias_lr_mult`` and
+  ``bias_decay_mult`` on the biases of every layer but the norms.
 - ``build_schedule``: sets every group's ``lr`` and ``betas[0]`` before
   each step from a copy of the JAX cyclic policy (mmcv CyclicLrUpdater /
   CyclicMomentumUpdater: cosine from the base value to ``base *
@@ -18,10 +21,13 @@
   warmup).
 - ``grad_clip_norm``: the global-norm clip of ``optimizer_config``.
 
-Where the two packages differ: optax's ``adamw`` still decays a parameter
-whose gradient is zero (the ``img_backbone`` under ``detach=True``);
-torch's AdamW skips a parameter whose ``grad`` is None, as the reference
-does. The port follows the reference.
+Where the two packages differ, the port follows the reference (ROADMAP
+queue 3): optax's ``adamw`` still decays a parameter whose gradient is
+zero (the ``img_backbone`` under ``detach=True``); torch's AdamW skips a
+parameter whose ``grad`` is None. The JAX SGD is ``optax.sgd(lr,
+momentum)``: it drops ``weight_decay`` and the bias multipliers, which
+the port applies (with ``weight_decay=0`` and the multipliers at 1 the
+two compute the same step).
 """
 from __future__ import annotations
 
@@ -106,30 +112,62 @@ def cosine_schedule(base: float, total_steps: int,
     return sched
 
 
+_NORMS = (torch.nn.modules.batchnorm._BatchNorm, torch.nn.GroupNorm,
+          torch.nn.LayerNorm)
+
+
+def _paramwise_mults(model: torch.nn.Module, paramwise: dict, bias_rules: bool
+                     ):
+    """(name, parameter, lr_mult, decay_mult) of every parameter: a
+    ``custom_keys`` match (the last key its name contains, as the JAX
+    package's ``_lr_mult_mask``) sets both; otherwise, with
+    ``bias_rules``, a bias of a layer other than a norm takes
+    ``bias_lr_mult`` and ``bias_decay_mult`` (mmcv's
+    DefaultOptimizerConstructor)."""
+    keys = dict(paramwise.get("custom_keys", {}))
+    bias_lr = float(paramwise.get("bias_lr_mult", 1.0))
+    bias_decay = float(paramwise.get("bias_decay_mult", 1.0))
+    for mod_name, mod in model.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            lr_mult = decay_mult = 1.0
+            custom = [k for k in keys if k in name]
+            if custom:
+                kcfg = dict(keys[custom[-1]])
+                lr_mult = float(kcfg.get("lr_mult", 1.0))
+                decay_mult = float(kcfg.get("decay_mult", 1.0))
+            elif bias_rules and leaf == "bias" and \
+                    not isinstance(mod, _NORMS):
+                lr_mult, decay_mult = bias_lr, bias_decay
+            yield name, p, lr_mult, decay_mult
+
+
 def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict
-                    ) -> torch.optim.AdamW:
-    """AdamW with a param group per ``paramwise_cfg.custom_keys`` prefix
-    (a parameter belongs to the last key its name contains, as the JAX
-    package's ``_lr_mult_mask``); each group records its ``lr_mult``."""
+                    ) -> torch.optim.Optimizer:
+    """AdamW or SGD with a param group per (``lr_mult``, ``decay_mult``)
+    of ``_paramwise_mults``; each group records its ``lr_mult`` (the
+    schedule sets ``lr = lr(count) * lr_mult``). AdamW reads only the
+    custom keys; SGD the bias multipliers too."""
     cfg = dict(optimizer_cfg)
-    kind = cfg.pop("type", "AdamW")
-    if kind.lower() != "adamw":
-        raise NotImplementedError(f"the port's optimizer is AdamW, not "
-                                  f"{kind}")
+    kind = cfg.pop("type", "AdamW").lower()
+    if kind not in ("adamw", "sgd"):
+        raise NotImplementedError(f"the port's optimizers are AdamW and SGD, "
+                                  f"not {optimizer_cfg.get('type')}")
     lr = float(cfg.pop("lr", 1e-3))
-    betas = tuple(float(b) for b in cfg.pop("betas", (0.9, 0.999)))
-    wd = float(cfg.pop("weight_decay", 0.01))
-    keys = dict(dict(cfg.pop("paramwise_cfg", None) or {}).get(
-        "custom_keys", {}))
+    wd = float(cfg.pop("weight_decay", 0.01 if kind == "adamw" else 0.0))
+    paramwise = dict(cfg.pop("paramwise_cfg", None) or {})
     groups = {}
-    for name, p in model.named_parameters():
-        mult = 1.0
-        for key, kcfg in keys.items():
-            if key in name:
-                mult = float(dict(kcfg).get("lr_mult", 1.0))
-        groups.setdefault(mult, []).append(p)
-    param_groups = [dict(params=ps, lr=lr * m, lr_mult=m, base_lr=lr)
-                    for m, ps in groups.items()]
+    for _, p, lr_mult, decay_mult in _paramwise_mults(model, paramwise,
+                                                      kind == "sgd"):
+        groups.setdefault((lr_mult, decay_mult), []).append(p)
+    param_groups = [dict(params=ps, lr=lr * m, lr_mult=m, base_lr=lr,
+                         weight_decay=wd * d)
+                    for (m, d), ps in groups.items()]
+    if kind == "sgd":
+        return torch.optim.SGD(param_groups, lr=lr,
+                               momentum=float(cfg.pop("momentum", 0.0)),
+                               weight_decay=wd)
+    betas = tuple(float(b) for b in cfg.pop("betas", (0.9, 0.999)))
     return torch.optim.AdamW(param_groups, lr=lr, betas=betas,
                              weight_decay=wd)
 
@@ -162,7 +200,7 @@ def build_schedule(optimizer: torch.optim.Optimizer,
     (MVX-Net's lr), else constant."""
     base_lr = float(optimizer.param_groups[0].get(
         "base_lr", optimizer.param_groups[0]["lr"]))
-    base_b1 = float(optimizer.param_groups[0]["betas"][0])
+    base_b1 = float(optimizer.param_groups[0].get("betas", (0.9,))[0])
 
     def build(cfg, base, default_ratio, is_lr):
         if not cfg:

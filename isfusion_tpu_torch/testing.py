@@ -12,6 +12,13 @@ import numpy as np
 import torch
 
 
+def bbox_head(model):
+    """A detector's head: ``pts_bbox_head`` (MVX family) or ``bbox_head``
+    (VoxelNet, FCOS3D)."""
+    head = getattr(model, "pts_bbox_head", None)
+    return head if head is not None else model.bbox_head
+
+
 def tame_box_deltas(model, scale: float = 0.01):
     """Scale the Anchor3DHead's box-regression weights by ``scale``.
     Seeded random weights regress size residuals whose exp() decodes to
@@ -19,7 +26,7 @@ def tame_box_deltas(model, scale: float = 0.01):
     float32 rounding, which the card and the CPU do differently. Scaled,
     the boxes stay near their anchors (scene-sized)."""
     with torch.no_grad():
-        model.pts_bbox_head.conv_reg.weight.mul_(scale)
+        bbox_head(model).conv_reg.weight.mul_(scale)
     return model
 
 
@@ -28,7 +35,7 @@ def even_class_prior(model):
     random-weight score near 0.01, under MVX-Net's 0.1 threshold): the
     scores spread around 0.5 and NMS sees full candidate sets."""
     with torch.no_grad():
-        model.pts_bbox_head.conv_cls.bias.zero_()
+        bbox_head(model).conv_cls.bias.zero_()
     return model
 
 
@@ -36,7 +43,7 @@ def pp_kept_boxes(model, batch: dict, dev: str):
     """Every box the model keeps after NMS (``max_num`` lifted so that no
     near-tie decides which ones make the cut), in a canonical order:
     (boxes, scores, sample * C + label) sorted by that key, then by x."""
-    head = model.pts_bbox_head
+    head = bbox_head(model)
     cfg = dict(head.test_cfg)
     head.test_cfg["max_num"] = int(cfg.get("nms_pre", 1000)) * \
         head.num_classes
@@ -122,7 +129,7 @@ def cp_kept_boxes(model, batch: dict, dev: str):
     (``post_max_size`` lifted to the coder's ``max_num``, so that no
     near-tie decides which ones make the cut), in a canonical order:
     (boxes, scores, sample * C + label) sorted by that key, then by x."""
-    head = model.pts_bbox_head
+    head = bbox_head(model)
     cfg = dict(head.test_cfg)
     head.test_cfg["post_max_size"] = head.bbox_coder.max_num
     try:

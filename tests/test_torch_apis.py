@@ -271,7 +271,13 @@ NEW_MODULES = [
     "datasets/pipelines/loading.py", "datasets/pipelines/transforms_3d.py",
     "datasets/pipelines/formating.py", "runner/checkpoint.py",
     "apis/train.py", "apis/test.py", "apis/inference.py", "tools/train.py",
-    "tools/test.py", "tools/make_synthetic_nuscenes.py"]
+    "tools/test.py", "tools/make_synthetic_nuscenes.py",
+    "datasets/nuscenes_mono_dataset.py",
+    "models/dense_heads/fcos_mono3d_head.py",
+    "models/detectors/single_stage_mono3d.py",
+    "models/detectors/voxelnet.py", "models/detectors/transfusion.py",
+    "models/detectors/centerpoint.py", "models/voxel_encoders.py",
+    "models/layers.py", "runner/optim.py", "runner/convert.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)

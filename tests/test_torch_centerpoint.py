@@ -264,6 +264,77 @@ def test_gaussian_heatmap_batch_matches_jax():
         assert got[s, y, x, labels[s, i]] == 1.0
 
 
+def _heatmap_case():
+    """test_gaussian_heatmap_batch_matches_jax's inputs."""
+    rng = np.random.default_rng(4)
+    b, n, nc = 3, 20, 4
+    cxy = rng.uniform(-2, 22, (b, n, 2)).astype(np.float32)
+    cxy[:, :4] = [[0.0, 0.0], [19.5, 23.9], [-0.5, 10.0], [10.0, 23.99]]
+    rad = np.floor(rng.uniform(2, 5, (b, n))).astype(np.float32)
+    rad[:, 4:7] = 1e-6
+    labels = rng.integers(0, nc, (b, n))
+    valid = rng.uniform(size=(b, n)) > 0.2
+    valid[:, :7] = True
+    return cxy, rad, labels, valid, nc
+
+
+def test_gaussian_heatmap_batch_repeats_under_the_suite_state():
+    """Each side of test_gaussian_heatmap_batch_matches_jax computed again
+    under each global state the suite sets (PyTorch's deterministic
+    algorithms on, one intra-op thread; the JAX side eager twice and
+    jitted once): the port's heatmaps equal bit for bit, the JAX eager
+    ones too, and every one within 1e-6 of a float64 numpy oracle of the
+    same expression, so a drift names its side."""
+    cxy, rad, labels, valid, nc = _heatmap_case()
+    (h, w), b = (24, 20), cxy.shape[0]
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None, :]
+    oracle = np.zeros((b, h, w, nc))
+    for s in range(b):
+        for i in np.nonzero(valid[s])[0]:
+            cx, cy = np.floor(cxy[s, i].astype(np.float64))
+            r = float(rad[s, i])
+            sigma = (2 * r + 1) / 6
+            g = np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2) /
+                       (2 * sigma * sigma))
+            g = np.where((np.abs(xs - cx) <= r) & (np.abs(ys - cy) <= r), g,
+                         0.0)
+            c = labels[s, i]
+            oracle[s, ..., c] = np.maximum(oracle[s, ..., c], g)
+
+    def port():
+        return gaussian.draw_heatmap_gaussian_batch(
+            (h, w), torch.from_numpy(cxy), torch.from_numpy(rad),
+            torch.from_numpy(valid), torch.from_numpy(labels), nc).numpy()
+
+    def jax_side(fn):
+        return np.stack([np.stack([np.asarray(fn(
+            (h, w), jnp.asarray(cxy[s]), jnp.asarray(rad[s]),
+            jnp.asarray(valid[s] & (labels[s] == c)))) for c in range(nc)],
+            -1) for s in range(b)])
+
+    threads = torch.get_num_threads()
+    ports = [port()]
+    torch.use_deterministic_algorithms(True)
+    try:
+        ports.append(port())
+        torch.set_num_threads(1)
+        ports.append(port())
+    finally:
+        torch.set_num_threads(threads)
+        torch.use_deterministic_algorithms(False)
+    ports.append(port())
+    jitted = jax.jit(jgauss.draw_heatmap_gaussian_batch, static_argnums=0)
+    jaxes = [jax_side(jgauss.draw_heatmap_gaussian_batch),
+             jax_side(jgauss.draw_heatmap_gaussian_batch), jax_side(jitted)]
+    for p in ports[1:]:
+        np.testing.assert_array_equal(p, ports[0])
+    np.testing.assert_array_equal(jaxes[1], jaxes[0])
+    for name, got in [("port", ports[0]), ("jax eager", jaxes[0]),
+                      ("jax jitted", jaxes[2])]:
+        np.testing.assert_allclose(got, oracle, rtol=0, atol=1e-6,
+                                   err_msg=name)
+
+
 # ------------------------------------------------------------------- head
 def _heads(**test_cfg):
     cfg = tflagship.centerpoint_model_cfg(tiny=True)
@@ -541,7 +612,9 @@ def test_entry_point_defaults_to_the_card():
 
 
 def test_dynamic_centerpoint_raises():
+    """DynamicCenterPoint is ported (``tests/test_torch_lidar_variants_
+    center.py``); on this config's hard voxel layer it raises."""
     cfg = dict(tflagship.centerpoint_model_cfg(tiny=True),
                type="DynamicCenterPoint")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dynamically"):
         build_detector(cfg)

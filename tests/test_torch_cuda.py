@@ -388,37 +388,49 @@ def _profiler_own(key):
         "Sync" in key
 
 
-def _device_ops(fn, calls=20):
-    """{device operation: count} over ``calls`` calls of ``fn()``
-    (torch.profiler, after a warm-up step under the profiler: a profile's
-    first launches can go untraced; the step's own annotation left out)."""
+def _device_ops(fn, calls=20, attempts=3):
+    """({device operation: count} over ``calls`` calls of ``fn()``, the
+    profiles taken) (torch.profiler, after a warm-up step under the
+    profiler: a profile's first launches can go untraced; the step's own
+    annotation left out). A trace that holds no device event at all lost
+    its event buffer (2 of 240 profiles of 20 calls on the H100): it is
+    taken again, at most ``attempts`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    done = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: done.append(p.key_averages())
-                 ) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return {e.key: e.count for e in done[0]
-            if e.device_type == DeviceType.CUDA and e.count and
-            not _profiler_own(e.key)}
+    for taken in range(1, attempts + 1):
+        done = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: done.append(p.key_averages())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in done[0] if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return {e.key: e.count for e in events
+            if e.count and not _profiler_own(e.key)}, taken
 
 
 def _one_operation(fn, name, kernel, calls=20):
     """Each call of ``fn`` launches kernel ``name`` once (its counter)
     and the profile of ``calls`` calls holds that kernel and no other
-    device operation (no copy, no sort)."""
+    device operation (no copy, no sort). ``fn`` runs once and the card
+    drains before the profile starts, so the profile sees neither the
+    library's first load nor an earlier test's work still running."""
+    fn()
+    torch.cuda.synchronize()
     before = cuda_build.LAUNCHES[name]
-    ops = _device_ops(fn, calls)
-    assert cuda_build.LAUNCHES[name] - before == 2 * calls
+    ops, taken = _device_ops(fn, calls)
+    assert cuda_build.LAUNCHES[name] - before == 2 * calls * taken
     assert len(ops) == 1 and kernel in next(iter(ops)), ops
-    assert 0 < next(iter(ops.values())) <= calls
+    assert 0 < next(iter(ops.values())) <= calls, ops
 
 
 @pytest.mark.parametrize("kind", ["signed_zeros", "nan", "all_equal",
@@ -848,3 +860,79 @@ def test_mvxnet_tiny_on_card_matches_cpu(card):
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
     for k, want in losses[0].items():
         assert abs(losses[1][k] - want) <= 1e-4 * max(abs(want), 1e-6), k
+
+
+# ------------------------------------------------ FCOS3D, LiDAR variants
+def test_tiny_fcos3d_on_card_matches_cpu(card):
+    """The tiny FCOS3D (no hand-written kernel on its path) in float32:
+    head outputs 1e-3 of their max, decoded scores and boxes 1e-4 with
+    equal labels, loss terms 1e-4 relative, gradients 1e-3 of each
+    top-level module's max."""
+    from isfusion_tpu_torch.flagship import build_fcos3d
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model, batch_fn = build_fcos3d(tiny=True, device=dev, seed=2)
+        batch = batch_fn(2, seed=5)
+        feats = model(batch, mode="feats", device=dev)
+        out = {k: v.cpu() for k, v in model(batch, device=dev).items()}
+        model.train()
+        losses = model(batch, mode="loss", device=dev)
+        sum(losses.values()).backward()
+        grads = {top: torch.cat([p.grad.cpu().flatten() for p in getattr(
+            model, top).parameters()]) for top in ("backbone", "neck",
+                                                   "bbox_head")}
+        runs.append(([{k: v.cpu() for k, v in f.items()} for f in feats],
+                     out, {k: float(v.detach()) for k, v in losses.items()},
+                     grads))
+    (fc, oc, lc, gc), (fg, og, lg, gg) = runs
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for a, b in zip(fg, fc):
+        for k in b:
+            assert rel(a[k], b[k]) <= 1e-3, k
+    assert torch.equal(og["labels"], oc["labels"])
+    for k in ("bboxes", "scores"):
+        assert rel(og[k], oc[k]) <= 1e-4, k
+    for k, want in lc.items():
+        assert abs(lg[k] - want) <= 1e-4 * max(abs(want), 1e-6), k
+    for top, want in gc.items():
+        assert rel(gg[top], want) <= 1e-3, top
+
+
+@pytest.mark.parametrize("name", ["dynamic_simple", "dynamic_pillar",
+                                  "dynamic_centerpoint", "voxelnet",
+                                  "dynamic_voxelnet", "transfusion_l"])
+def test_lidar_variant_launches_its_kernels(card, name):
+    """A tiny LiDAR variant's predict launches every kernel of its predict
+    path and its train forward + backward every kernel of its train path
+    (``flagship.LIDAR_VARIANT_KERNELS``); no K2 call builds a point list
+    of its own."""
+    from isfusion_tpu_torch.flagship import (LIDAR_VARIANT_KERNELS,
+                                             build_lidar_variant)
+
+    model, batch_fn = build_lidar_variant(name, device=card, seed=1)
+    batch = batch_fn(2, seed=3)
+    kernels = LIDAR_VARIANT_KERNELS[name]
+    before = dict(cuda_build.LAUNCHES)
+    out = model(batch, device=card)
+    torch.cuda.synchronize()
+    predict = {k: cuda_build.LAUNCHES[k] - before[k] for k in
+               kernels["predict"] + ("segment_layout",)}
+    assert torch.isfinite(out["bboxes"][out["mask"]]).all()
+    model.train()
+    before = dict(cuda_build.LAUNCHES)
+    losses = model(batch, mode="loss", device=card,
+                   generator=torch.Generator(card).manual_seed(0))
+    sum(v for k, v in losses.items() if "loss" in k).backward()
+    torch.cuda.synchronize()
+    train = {k: cuda_build.LAUNCHES[k] - before[k] for k in
+             kernels["train"] + ("segment_layout",)}
+    assert predict.pop("segment_layout") == 0 and \
+        train.pop("segment_layout") == 0
+    assert min(predict.values()) >= 1, predict
+    assert not train or min(train.values()) >= 1, train

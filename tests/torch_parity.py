@@ -1,6 +1,7 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py):
-random JAX variables drawn with numpy, and carrying a JAX module's
-variables into the matching port module."""
+random JAX variables drawn with numpy, carrying a JAX module's variables
+into the matching port module, and the tiny LiDAR detectors of
+``flagship.LIDAR_VARIANTS`` run on both sides."""
 import jax
 import numpy as np
 import torch
@@ -60,3 +61,154 @@ def assert_close_to_max(got, want, tol):
     scale = max(np.abs(want).max(), 1e-12)
     err = np.abs(got - want).max() / scale
     assert err <= tol, f"max error {err:.3g} of the max exceeds {tol}"
+
+
+# XLA:CPU's backend optimisation level 1 for one compile: under the
+# suite's level 0 (tests/conftest.py) a jitted JAX train step of a sparse
+# detector computes gradients 1e-3 to 4e-3 of their max away from the
+# same step at levels 1 and 2, whose gradients the port matches to 1e-5
+OPTIMIZED_XLA = {"xla_backend_optimization_level": 1,
+                 "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_cfg(v):
+    """A port config for the JAX builder (no compute_dtype keys)."""
+    if isinstance(v, dict):
+        return {k: jax_cfg(x) for k, x in v.items() if k != "compute_dtype"}
+    return v
+
+
+def tree_leaves(tree):
+    """(path, leaf) of nested dicts / lists, sorted by key; None skipped."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from ((f"{k}/{p}", v) for p, v in tree_leaves(tree[k]))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from ((f"{i}/{p}", v) for p, v in tree_leaves(t))
+    elif tree is not None:
+        yield "", tree
+
+
+def lidar_variant_case(name: str) -> dict:
+    """A tiny ``flagship.LIDAR_VARIANTS`` detector on both sides from one
+    batch (2 samples): JAX variables drawn with numpy and carried
+    (strict); the JAX head outputs and decode (eval) and the losses and
+    gradients (train, batch statistics) in one jitted call; the port's
+    head outputs and predict in eval mode, its losses and gradients in
+    train mode."""
+    import copy
+
+    import jax.numpy as jnp
+
+    from isfusion_tpu.models import build_detector as jbuild_detector
+    from isfusion_tpu.parallel.train_step import total_loss
+    from isfusion_tpu_torch import flagship
+    from isfusion_tpu_torch.models.builder import build_detector
+
+    cfg = flagship.lidar_variant_model_cfg(name)
+    _, batch_fn = flagship.build_lidar_variant(name, device="cpu")
+    batch = batch_fn(2, seed=1)
+    jcfg = jax_cfg(cfg)
+    jmodel = jbuild_detector(jcfg)
+    head = "bbox_head_m" if "bbox_head" in jcfg else "pts_bbox_head_m"
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = random_variables(jmodel, jbatch, train=False, mode="feats")
+    port = build_detector(cfg)
+    port.load_state_dict(state_dict_from_jax(variables))
+
+    def loss_fn(params, bs):
+        losses, _ = jmodel.apply({"params": params, "batch_stats": bs},
+                                 jbatch, train=True, mode="loss",
+                                 mutable=["batch_stats"])
+        return total_loss(losses), losses
+
+    def run(v):
+        feats = jmodel.apply(v, jbatch, train=False, mode="feats")
+        decoded = jmodel.apply(v, feats, method=lambda m, p: getattr(
+            m, head).get_bboxes(p))
+        (_, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            v["params"], v.get("batch_stats", {}))
+        return feats, decoded, losses, grads
+
+    compiled = jax.jit(run).lower(variables).compile(OPTIMIZED_XLA)
+    feats, decoded, jl, jg = compiled(variables)
+    port.eval()
+    got_feats = port(batch, mode="feats", device="cpu")
+    got_pred = port(batch, device="cpu")
+    trained = copy.deepcopy(port).train()
+    tl = trained(batch, mode="loss", device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    sum(v for k, v in tl.items() if "loss" in k).backward()
+    return dict(feats=feats, decoded=decoded, got_feats=got_feats,
+                got_pred=got_pred, jl={k: float(v) for k, v in jl.items()},
+                jg=state_dict_from_jax({"params": jax.device_get(jg)}),
+                trained=trained,
+                tl={k: float(v.detach()) for k, v in tl.items()})
+
+
+def assert_same_kept_boxes(got: dict, want: dict, tol: float = 1e-4,
+                           tie: float = 1e-5):
+    """Decoded boxes (``bboxes``, ``scores``, ``labels``, ``mask``; (B, K,
+    ...) numpy) equal: the same mask; each kept box matched to its
+    nearest kept box of the other side with the same label (one to one,
+    boxes and scores within ``tol`` of their max); a box may sit at
+    another position only among scores within ``tie`` of their max (two
+    nearly equal scores in either order)."""
+    mask = np.asarray(want["mask"])
+    np.testing.assert_array_equal(np.asarray(got["mask"]), mask)
+    for b in range(mask.shape[0]):
+        m = mask[b]
+        wb, gb = [np.concatenate([np.asarray(d["bboxes"])[b][m],
+                                  np.asarray(d["scores"])[b][m][:, None]],
+                                 -1).astype(np.float64)
+                  for d in (want, got)]
+        wl, gl = np.asarray(want["labels"])[b][m], \
+            np.asarray(got["labels"])[b][m]
+        if not len(wb):
+            continue
+        scale = np.array([max(np.abs(wb[:, :-1]).max(), 1e-12),
+                          max(np.abs(wb[:, -1]).max(), 1e-12)])
+        diff = np.abs(wb[:, None] - gb[None])
+        dist = np.maximum(diff[..., :-1].max(-1) / scale[0],
+                          diff[..., -1] / scale[1])
+        dist[wl[:, None] != gl[None]] = np.inf
+        match = dist.argmin(1)
+        assert len(set(match.tolist())) == len(match), "not one to one"
+        assert dist[np.arange(len(match)), match].max() <= tol
+        moved = match != np.arange(len(match))
+        s = wb[:, -1]
+        assert (np.abs(s[moved] - s[match[moved]]) <= tie * scale[1]).all()
+
+
+def check_variant_outputs(case):
+    """A ``lidar_variant_case``: head outputs 1e-3 of their max, the kept
+    boxes as ``assert_same_kept_boxes``."""
+    got = dict(tree_leaves(case["got_feats"]))
+    want = {k: np.asarray(v) for k, v in tree_leaves(case["feats"])}
+    assert set(got) == set(want) and got
+    for k, w in want.items():
+        assert_close_to_max(got[k].numpy(), w, 1e-3)
+    assert np.asarray(case["decoded"]["mask"]).sum() >= 8
+    assert_same_kept_boxes({k: v.numpy() for k, v in case[
+        "got_pred"].items()}, case["decoded"])
+
+
+def check_variant_gradients(case):
+    """A ``lidar_variant_case``: loss terms 1e-4 relative, each top-level
+    module's gradient 1e-3 of its max."""
+    jl, tl = case["jl"], case["tl"]
+    assert set(tl) == set(jl) and len(jl) >= 3
+    for k in jl:
+        assert abs(tl[k] - jl[k]) <= 1e-4 * max(abs(jl[k]), 1e-12), k
+    jg, port = case["jg"], case["trained"]
+    tops = sorted({n.split(".")[0] for n, p in port.named_parameters()})
+    for top in tops:
+        got, want = [], []
+        for name, p in port.named_parameters():
+            if name.split(".")[0] == top:
+                want.append(jg[name].numpy().ravel())
+                got.append(p.grad.numpy().ravel())
+        want = np.concatenate(want)
+        assert np.abs(want).max() > 0, top
+        assert_close_to_max(np.concatenate(got), want, 1e-3)
