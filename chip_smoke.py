@@ -213,10 +213,13 @@ Phases, each printing one line (every failure raises, exit code != 0):
 27. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
     dynamic pillars and on DynamicVFE, DynamicCenterPoint, VoxelNet,
-    TransFusion-L) on the card against the CPU (head outputs, kept boxes,
-    losses, gradients), each kernel's launches on the predict and loss
-    paths (every kernel of a path must launch) and each kernel against its
-    plain version on that path's own inputs.
+    TransFusion-L) on nuScenes' raw intensities, on the card against the
+    CPU with the card taking the CPU's discrete choices (each one it
+    would have made otherwise must be a tie within rounding): head
+    outputs, kept boxes, train-mode losses and gradients; each kernel's
+    launches on the predict and loss paths (every kernel of a path must
+    launch) and each kernel against its plain version on that path's own
+    inputs.
 
 The card's ``nvidia-smi`` line, then the kernels' JSON record (each
 kernel with its launches on the LiDAR variants' paths), then
@@ -3333,26 +3336,14 @@ def variant_kernel_check(name: str, rec: dict, dev: str) -> dict:
             for k, v in out.items()}
 
 
-# variants whose loss on the tiny batch rests on discrete choices:
-# TransFusion-L's train-mode loss (its top-16 proposals, the Hungarian
-# match) moved by 3.0e-4 on the CPU alone under 1e-6 relative noise on the
-# weights (1 of 4 trials; eval mode at most 2.8e-6), and its eval-mode
-# gradients, which 16 proposals a sample gather from few positions, by up
-# to 4e-3 of their max (ReLU kinks there; 3 of 4 trials). Their
-# loss is taken in eval mode, and their gradients are held within 1e-3
-# or within twice the CPU's own largest move under such noise
-# (``NOISE_TRIALS``), whichever is larger
-KINKED_LOSS = ("transfusion_l",)
-NOISE_TRIALS = 3
-
-
 def _variant_run(name: str, dev: str, record: bool = False,
-                 noise: int = -1) -> dict:
-    """One LiDAR variant on ``dev`` from seed 1 (``noise`` >= 0: with
-    seeded 1e-6 relative noise on every weight): its head outputs, the
-    kept boxes (all of them, canonical order), the loss terms and each
-    top-level module's gradient of one loss forward (train mode, or eval
-    mode for ``KINKED_LOSS``); with ``record``, the launches of the
+                 pins=None) -> dict:
+    """One LiDAR variant on ``dev`` from seed 1, on nuScenes' raw 0-255
+    intensities: its head outputs, the kept boxes (all of them, canonical
+    order), the loss terms and each top-level module's gradient of one
+    train-mode loss forward, all under ``testing.pinned_choices(pins)``
+    (``choices``: recorded, or taken from ``pins`` with this run's own
+    differing choices reported); with ``record``, the launches of the
     predict and loss paths (counts zeroed just before each) and every
     kernel's inputs on them."""
     import torch
@@ -3364,23 +3355,18 @@ def _variant_run(name: str, dev: str, record: bool = False,
         CenterHead
     from isfusion_tpu_torch.ops import cuda_build
     from isfusion_tpu_torch.testing import (bbox_head, cp_kept_boxes,
-                                            even_class_prior, pp_kept_boxes,
-                                            tame_box_deltas)
+                                            even_class_prior, pinned_choices,
+                                            pp_kept_boxes, tame_box_deltas)
 
     model, batch_fn = build_lidar_variant(name, device=dev, seed=1)
-    if noise >= 0:                  # 1e-6 relative noise on every weight
-        gen = torch.Generator().manual_seed(noise)
-        with torch.no_grad():
-            for p in model.parameters():
-                p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen).to(
-                    p.device))
     head = bbox_head(model)
     if isinstance(head, Anchor3DHead):
         even_class_prior(tame_box_deltas(model))
     batch = batch_fn(2, seed=3)
-    rec = dict(feats=[t.detach().cpu() for t in _leaves(
-        model(batch, mode="feats", device=dev))])
     with contextlib.ExitStack() as stack:
+        choices = stack.enter_context(pinned_choices(pins))
+        rec = dict(feats=[t.detach().cpu() for t in _leaves(
+            model(batch, mode="feats", device=dev))], choices=choices)
         if record:
             rec.update(dynamic=stack.enter_context(recording_dynamic()),
                        gathers=stack.enter_context(recording_gathers()),
@@ -3398,7 +3384,7 @@ def _variant_run(name: str, dev: str, record: bool = False,
             kept = (out["bboxes"], out["scores"], out["labels"])
         sync(dev)
         predict = dict(cuda_build.LAUNCHES)
-        model.train(name not in KINKED_LOSS)
+        model.train()
         cuda_build.reset_launches()
         losses = model(batch, mode="loss", device=dev,
                        generator=torch.Generator(dev).manual_seed(0))
@@ -3463,17 +3449,21 @@ def _leaves(tree):
 
 def phase_lidar_variants(dev: str = "cuda") -> dict:
     """The tiny LiDAR detectors on ported parts (``flagship.
-    LIDAR_VARIANTS``), float32 (TF32 off), each on the card against the
-    CPU from the same weights and batch: head outputs within 1e-4 of their
-    max; as many kept boxes of each sample and class, at least 98% of
-    them matched within 1e-4 of the boxes' and scores' max (the rest are
-    NMS decisions on pairs whose IoU lies within float32 rounding of the
-    threshold: the scene-sized boxes of one anchor position overlap
-    densely, and the kernel itself is held exactly on the card path's own
-    inputs); loss terms within 1e-4 relative, each top-level module's
-    gradient within 1e-3 of its max (``KINKED_LOSS``: the loss in eval
-    mode, and the gradients within the larger of 1e-3 and twice the CPU's
-    own largest move under 1e-6 relative noise on the weights). On the card each kernel of the path (``flagship.
+    LIDAR_VARIANTS``), float32 (TF32 off), on nuScenes' raw 0-255
+    intensities, each on the card against the CPU from the same weights
+    and batch. The card run takes the CPU run's discrete choices (every
+    ReLU's signs, the heads' top-k picks, TransFusion's Hungarian
+    matches, the NMS keep masks: ``testing.pinned_choices``), and each
+    choice the card would have made otherwise must be a tie within
+    rounding: a ReLU input within 1e-4 of its tensor's max of 0, top-k
+    picks within 1e-4 of the scores' max, a match within 1e-4 of the
+    optimal cost, NMS suppression bits that differ only at pairs within
+    1e-4 of the threshold and score orders only among scores within 1e-4
+    of their max. Given those choices: head outputs within 1e-4 of their
+    max; the same kept boxes of each sample and class, every one within
+    1e-4 of the boxes' and scores' max; loss terms (train mode) within
+    1e-4 relative; each top-level module's gradient within 1e-3 of its
+    max. On the card each kernel of the path (``flagship.
     LIDAR_VARIANT_KERNELS``) must launch in the predict or the train
     forward (counts zeroed just before each), and each is held against its
     plain version on the inputs the path gave it
@@ -3486,41 +3476,34 @@ def phase_lidar_variants(dev: str = "cuda") -> dict:
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for name in LIDAR_VARIANTS:
-        card, cpu = _variant_run(name, dev, record=True), \
-            _variant_run(name, "cpu")
+        cpu = _variant_run(name, "cpu")
+        card = _variant_run(name, dev, record=True, pins=cpu["choices"])
         (bg, sg, kg), (bc, sc, kc) = card["kept"], cpu["kept"]
         same = bg.shape == bc.shape and torch.equal(kg.cpu(), kc.cpu())
         errs = kept_match_errs((bg.cpu(), sg.cpu(), kg.cpu()),
                                (bc, sc, kc)) if same else None
-        kept_share = float((errs <= 1e-4).float().mean()) \
-            if errs is not None else 0.0
+        kept_err = float(errs.max()) if errs is not None and len(errs) \
+            else (0.0 if errs is not None or not len(kc) else None)
         feat_err = max(_rel_to_max(a.cpu(), b) for a, b in zip(
             card["feats"], cpu["feats"]))
         loss_err = max(abs(card["losses"][k] - v) / max(abs(v), 1e-12)
                        for k, v in cpu["losses"].items() if "loss" in k)
         grad_err = {top: _rel_to_max(card["grads"][top], g)
                     for top, g in cpu["grads"].items()}
-        grad_tol = 1e-3
-        if name in KINKED_LOSS:
-            moved = [_variant_run(name, "cpu", noise=i)["grads"]
-                     for i in range(NOISE_TRIALS)]
-            # the card's rounding is one more such perturbation: it may
-            # sit across other kinks than a trial does, so twice the move
-            grad_tol = max(grad_tol, 2 * max(
-                _rel_to_max(m[top], g) for m in moved
-                for top, g in cpu["grads"].items()))
+        choices = card["choices"]
         checks = variant_kernel_check(name, card, dev)
         rec = dict(kept=int(kc.numel()), same_kept_per_class=same,
-                   kept_within_1e4_share=kept_share,
-                   kept_max_rel_err=float(errs.max()) if errs is not None
-                   else None, head_rel_err=feat_err,
+                   kept_max_rel_err=kept_err, head_rel_err=feat_err,
                    loss_rel_err=loss_err, grad_rel_err=grad_err,
-                   grad_tolerance=grad_tol, loss_mode="eval" if name in
-                   KINKED_LOSS else "train",
+                   choices_pinned={k: len(choices[k]) for k in (
+                       "relu", "topk", "assign", "nms_bev", "nms_circle")},
+                   card_own_choices_differ=choices["flips"],
+                   unexplained_choices=choices["unexplained"],
                    launches=card["launches"], kernel_checks=checks)
         log("lidar_variants", variant=name, **rec)
-        if not same or kept_share < 0.98 or feat_err > 1e-4 or \
-                loss_err > 1e-4 or max(grad_err.values()) > grad_tol:
+        if not same or kept_err is None or kept_err > 1e-4 or \
+                feat_err > 1e-4 or loss_err > 1e-4 or \
+                max(grad_err.values()) > 1e-3 or choices["unexplained"]:
             raise RuntimeError(f"tiny {name} on the card differs from the "
                                f"CPU: {rec}")
         kernels = LIDAR_VARIANT_KERNELS[name]

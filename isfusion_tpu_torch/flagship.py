@@ -951,9 +951,11 @@ def build_lidar_variant(name: str, device=None, seed: int = 0
                         ) -> Tuple[nn.Module, Callable[..., dict]]:
     """(model, batch_fn) of a ``LIDAR_VARIANTS`` entry with weights drawn
     from ``seed``, in eval mode on ``device`` (default: the CUDA card;
-    raises if it is missing); ``batch_fn(batch_size, seed=0)``: 2,048
-    points over the 12.8 m scene (``synthetic_points_batch``, reflectance
-    in [0, 1) as KITTI's) and 8 padded GT boxes over the 10 classes."""
+    raises if it is missing); ``batch_fn(batch_size, seed=0,
+    reflectance=False)``: 2,048 points over the 12.8 m scene
+    (``synthetic_points_batch``: nuScenes' raw 0-255 intensity, or with
+    ``reflectance`` that intensity scaled into [0, 1) as KITTI's) and 8
+    padded GT boxes over the 10 classes."""
     from .models.builder import build_detector
     from .models.layers import init_weights
 
@@ -963,10 +965,11 @@ def build_lidar_variant(name: str, device=None, seed: int = 0
     layer = model_cfg.get("pts_voxel_layer", model_cfg.get("voxel_layer"))
     pcr = tuple(layer["point_cloud_range"])
 
-    def batch_fn(b, seed=0):
+    def batch_fn(b, seed=0, reflectance=False):
         batch = synthetic_points_batch(b, num_points=2048, num_gt=8,
                                        seed=seed, pcr=pcr)
-        batch["points"][..., 3] /= 255.0
+        if reflectance:
+            batch["points"][..., 3] /= 255.0
         batch["gt_labels_3d"] = np.random.default_rng(seed + 1).integers(
             0, 10, batch["gt_labels_3d"].shape)
         return batch

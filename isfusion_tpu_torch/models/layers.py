@@ -77,11 +77,12 @@ class Conv1x1(nn.Conv1d):
 
 
 class Conv2d(nn.Conv2d):
-    """Conv2d over NHWC maps (OIHW weight, reference layout). A strided
-    1x1 conv without padding samples its input first and runs at stride 1
-    (the same products and sums): PyTorch's CPU backward of a strided 1x1
-    conv over a channels-last input corrupts the heap (the process then
-    fails at exit)."""
+    """Conv2d over NHWC maps (OIHW weight, reference layout). On the CPU a
+    strided 1x1 conv without padding samples its input first and runs at
+    stride 1 (the same products and sums): PyTorch's CPU backward of a
+    strided 1x1 conv over a channels-last input corrupts the heap (the
+    process then fails at exit). The card has no such fault and runs the
+    strided conv."""
 
     def __init__(self, *args, dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -91,7 +92,7 @@ class Conv2d(nn.Conv2d):
         dt = compute_dtype(x, self.cdtype)
         stride = self.stride
         if self.kernel_size == (1, 1) and self.padding == (0, 0) and \
-                stride != (1, 1):
+                stride != (1, 1) and x.device.type == "cpu":
             x, stride = x[:, ::stride[0], ::stride[1]], 1
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
                      _cast(self.bias, dt), stride, self.padding,

@@ -116,14 +116,12 @@ _NORMS = (torch.nn.modules.batchnorm._BatchNorm, torch.nn.GroupNorm,
           torch.nn.LayerNorm)
 
 
-def _paramwise_mults(model: torch.nn.Module, paramwise: dict, bias_rules: bool
-                     ):
+def _paramwise_mults(model: torch.nn.Module, paramwise: dict):
     """(name, parameter, lr_mult, decay_mult) of every parameter: a
     ``custom_keys`` match (the last key its name contains, as the JAX
-    package's ``_lr_mult_mask``) sets both; otherwise, with
-    ``bias_rules``, a bias of a layer other than a norm takes
-    ``bias_lr_mult`` and ``bias_decay_mult`` (mmcv's
-    DefaultOptimizerConstructor)."""
+    package's ``_lr_mult_mask``) sets both; otherwise a bias of a layer
+    other than a norm takes ``bias_lr_mult`` and ``bias_decay_mult``
+    (mmcv's DefaultOptimizerConstructor, for every optimizer)."""
     keys = dict(paramwise.get("custom_keys", {}))
     bias_lr = float(paramwise.get("bias_lr_mult", 1.0))
     bias_decay = float(paramwise.get("bias_decay_mult", 1.0))
@@ -136,8 +134,7 @@ def _paramwise_mults(model: torch.nn.Module, paramwise: dict, bias_rules: bool
                 kcfg = dict(keys[custom[-1]])
                 lr_mult = float(kcfg.get("lr_mult", 1.0))
                 decay_mult = float(kcfg.get("decay_mult", 1.0))
-            elif bias_rules and leaf == "bias" and \
-                    not isinstance(mod, _NORMS):
+            elif leaf == "bias" and not isinstance(mod, _NORMS):
                 lr_mult, decay_mult = bias_lr, bias_decay
             yield name, p, lr_mult, decay_mult
 
@@ -146,8 +143,7 @@ def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict
                     ) -> torch.optim.Optimizer:
     """AdamW or SGD with a param group per (``lr_mult``, ``decay_mult``)
     of ``_paramwise_mults``; each group records its ``lr_mult`` (the
-    schedule sets ``lr = lr(count) * lr_mult``). AdamW reads only the
-    custom keys; SGD the bias multipliers too."""
+    schedule sets ``lr = lr(count) * lr_mult``)."""
     cfg = dict(optimizer_cfg)
     kind = cfg.pop("type", "AdamW").lower()
     if kind not in ("adamw", "sgd"):
@@ -157,8 +153,7 @@ def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict
     wd = float(cfg.pop("weight_decay", 0.01 if kind == "adamw" else 0.0))
     paramwise = dict(cfg.pop("paramwise_cfg", None) or {})
     groups = {}
-    for _, p, lr_mult, decay_mult in _paramwise_mults(model, paramwise,
-                                                      kind == "sgd"):
+    for _, p, lr_mult, decay_mult in _paramwise_mults(model, paramwise):
         groups.setdefault((lr_mult, decay_mult), []).append(p)
     param_groups = [dict(params=ps, lr=lr * m, lr_mult=m, base_lr=lr,
                          weight_decay=wd * d)

@@ -3,9 +3,11 @@
 PointPillars or CenterPoint prediction on the card comparable with the
 same prediction on the CPU, the box sets that K10, K10-NMS and
 K10-circle are held on, MVX-Net's KITTI-like camera and the voxel sets
-that K1 (dynamic voxelization) is held on."""
+that K1 (dynamic voxelization) is held on, and ``pinned_choices``, which
+makes two runs of one detector take the same discrete choices."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -312,3 +314,206 @@ def voxel_adversarial_sets(gen: np.random.Generator, point_cloud_range,
     sets.append(("empty_samples", empty, emask))
     sets.append(("all_empty", empty[:1], np.zeros((1, p), bool)))
     return sets
+
+
+@contextlib.contextmanager
+def pinned_choices(recorded: dict = None):
+    """The discrete choices of a LiDAR detector's forwards, in call order:
+    each ReLU's sign pattern (``torch.relu``, which ``nn.ReLU`` calls), the
+    heads' top-k indices (``topk_stable``), TransFusion's Hungarian
+    matches (``assign_batch``) and the keep masks of K10-NMS and
+    K10-circle. With ``recorded=None`` the block records them in the
+    yielded dict. Given the record of an earlier run of the same weights
+    and inputs (the CPU's for a card run, a float64 run's for a float32
+    one), every choice is taken from it, and the yielded dict counts
+    where this run's own choice differs (``flips``) and lists each
+    difference that is not a tie within rounding (``unexplained``): a
+    ReLU input farther than 1e-4 of its tensor's max from 0 on either
+    run, top-k picks whose scores differ by more than 1e-4 of their max,
+    a match costing more than 1e-4 (relative) over this run's own, or NMS
+    suppression bits or score orders that differ away from the threshold
+    (1e-4, relative to the threshold or the scores' max). This run's own
+    choices are still computed (every kernel of the path still
+    launches)."""
+    tol = 1e-4
+    from .core.bbox import coders
+    from .models.dense_heads import (anchor3d_head, centerpoint_head,
+                                     transfusion_head)
+    from .ops import box_ops
+
+    out = dict(relu=[], topk=[], assign=[], nms_bev=[], nms_circle=[],
+               flips={}, unexplained=[])
+
+    def prior(kind, now):
+        """The recorded entry of this call (None when recording)."""
+        i = len(out[kind])
+        out[kind].append(now)
+        if recorded is None:
+            return None
+        then = recorded[kind][i]
+        shapes = [tuple(t.shape) for t in now if t is not None], \
+            [tuple(t.shape) for t in then if t is not None]
+        if shapes[0] != shapes[1]:
+            raise RuntimeError(f"pinned_choices: {kind} call {i} has shapes "
+                               f"{shapes[0]}, the record {shapes[1]}")
+        return then
+
+    def flip(kind, n, margin, limit=None):
+        out["flips"][kind] = out["flips"].get(kind, 0) + int(n)
+        if n and margin > (tol if limit is None else limit):
+            out["unexplained"].append(dict(kind=kind, call=len(out[kind]) - 1,
+                                           flips=int(n), margin=margin))
+
+    def host(t):
+        return None if t is None else t.detach().to("cpu", torch.float64)
+
+    real_relu = torch.relu
+
+    def relu(x):
+        then = prior("relu", (host(x),))
+        if then is None:
+            return real_relu(x)
+        mine, theirs = x.detach().cpu().double(), then[0]
+        differ = (mine > 0) != (theirs > 0)
+        if differ.any():
+            flip("relu", differ.sum(), float(torch.maximum(
+                mine.abs(), theirs.abs())[differ].max()) / float(
+                    theirs.abs().max()))
+        return torch.where((theirs > 0).to(x.device), x, x.new_zeros(()))
+
+    real_topk = transfusion_head.topk_stable
+
+    def topk(x, k):
+        own = real_topk(x, k)
+        then = prior("topk", (host(x), own.cpu()))
+        if then is None:
+            return own
+        idx = then[1]
+        mine = x.detach().cpu().double()
+        if not torch.equal(own.cpu().sort(-1)[0], idx.sort(-1)[0]):
+            margin = max(float((v.gather(-1, own.cpu()).sort(-1)[0] -
+                                v.gather(-1, idx).sort(-1)[0]).abs().max())
+                         / float(v.abs().max().clamp_min(1e-30))
+                         for v in (mine, then[0]))
+            flip("topk", 1, margin)
+        return idx.to(own.device)
+
+    real_assign = transfusion_head.assign_batch
+
+    def total(cost, cols):
+        picked = cost.gather(-1, cols.clamp_min(0)[..., None])[..., 0]
+        return (picked * (cols >= 0)).sum(-1)
+
+    def assign(cost):
+        own = real_assign(cost)
+        then = prior("assign", (host(cost), own.cpu()))
+        if then is None:
+            return own
+        cols, mine = then[1], cost.detach().cpu().double()
+        if not torch.equal(own.cpu(), cols):
+            # each run's matches cost no more than the other's on its own
+            # costs, by at most rounding
+            extra = max(float(((total(c, b) - total(c, a)) /
+                               total(c, a).abs().clamp_min(1e-12)).max())
+                        for c, a, b in ((mine, own.cpu(), cols),
+                                        (then[0], cols, own.cpu())))
+            flip("assign", int((own.cpu() != cols).any(-1).sum()), extra)
+        return cols.to(own.device)
+
+    def order_flips(mine, theirs, valid):
+        """(…, K) scores: pairs of valid boxes that the two runs' greedy
+        orders (descending, ties by index) put the other way round,
+        farther apart than ``tol`` of the scores' max on either run."""
+        k = mine.shape[-1]
+        lower = torch.arange(k)[:, None] < torch.arange(k)[None]
+
+        def before(s):
+            d = s[..., :, None] - s[..., None, :]
+            return (d > 0) | ((d == 0) & lower)
+
+        both = valid[..., :, None] & valid[..., None, :]
+        swapped = (before(mine) != before(theirs)) & both
+        scale = float(theirs.abs().max().clamp_min(1e-30))
+        far = ((mine[..., :, None] - mine[..., None, :]).abs() > tol * scale
+               ) | ((theirs[..., :, None] - theirs[..., None, :]).abs() >
+                    tol * scale)
+        return int((swapped & far).sum())
+
+    def nms_flip(kind, own, keep, bits, thr, scores, valid):
+        """Differing keep masks: explained when the two runs' suppression
+        bits differ only at pairs within ``tol`` of the threshold on
+        either run and their score orders only among near-equal scores."""
+        if torch.equal(own.cpu(), keep):
+            return
+        (m_mine, m_theirs), (s_mine, s_theirs), (v_mine, v_theirs) = \
+            bits, scores, valid
+        near = tol * max(float(thr.abs().max()), 1.0)
+        tie = (m_mine - thr).abs() <= near
+        tie |= (m_theirs - thr).abs() <= near
+        bad = int((((m_mine > thr) != (m_theirs > thr)) & ~tie).sum())
+        if not torch.equal(v_mine, v_theirs):
+            bad += int((v_mine != v_theirs).sum())
+        else:
+            bad += order_flips(s_mine, s_theirs, v_theirs)
+        flip(kind, (own.cpu() != keep).sum(), float(bad), limit=0.0)
+
+    real_bev = anchor3d_head.nms_bev_mask
+
+    def nms_bev(boxes, scores, thresh, valid=None):
+        own = real_bev(boxes, scores, thresh, valid)
+        then = prior("nms_bev", (host(boxes), host(scores), None if valid is
+                                 None else valid.cpu(), own.cpu()))
+        if then is None:
+            return own
+        mine = [host(boxes), host(scores), None if valid is None else
+                valid.cpu()]
+        vm = mine[2] if mine[2] is not None else torch.ones_like(
+            mine[1], dtype=torch.bool)
+        vt = then[2] if then[2] is not None else torch.ones_like(
+            then[1], dtype=torch.bool)
+        iou = [box_ops.boxes_iou_bev_ref(b.float(), b.float()).double()
+               for b in (mine[0], then[0])]
+        nms_flip("nms_bev", own, then[3], iou, torch.tensor(float(thresh)),
+                 (mine[1], then[1]), (vm, vt))
+        return then[3].to(own.device)
+
+    real_circle = centerpoint_head.circle_nms_mask
+
+    def nms_circle(centers, scores, thresh, valid=None):
+        own = real_circle(centers, scores, thresh, valid)
+        thr = torch.as_tensor(thresh, dtype=torch.float64).cpu()
+        then = prior("nms_circle", (host(centers), host(scores), None if
+                                    valid is None else valid.cpu(),
+                                    own.cpu()))
+        if then is None:
+            return own
+        thr = thr.reshape(-1, 1, 1) if thr.dim() else thr
+
+        def d2(c):
+            d = c[:, None, :, :] - c[:, :, None, :]
+            # "suppresses" is d2 <= thr: negate so that "> thr" suppresses
+            return -(d[..., 0] ** 2 + d[..., 1] ** 2)
+
+        vm = valid.cpu() if valid is not None else torch.ones_like(
+            own.cpu())
+        vt = then[2] if then[2] is not None else torch.ones_like(vm)
+        nms_flip("nms_circle", own, then[3],
+                 (d2(host(centers)), d2(then[0])), -thr,
+                 (host(scores), then[1]), (vm, vt))
+        return then[3].to(own.device)
+
+    saved = [(torch, "relu", relu), (transfusion_head, "assign_batch",
+                                     assign),
+             (anchor3d_head, "nms_bev_mask", nms_bev),
+             (centerpoint_head, "nms_bev_mask", nms_bev),
+             (centerpoint_head, "circle_nms_mask", nms_circle)] + \
+        [(m, "topk_stable", topk) for m in (anchor3d_head, centerpoint_head,
+                                            transfusion_head, coders)]
+    saved = [(m, name, getattr(m, name), new) for m, name, new in saved]
+    for m, name, _, new in saved:
+        setattr(m, name, new)
+    try:
+        yield out
+    finally:
+        for m, name, old, _ in saved:
+            setattr(m, name, old)

@@ -489,6 +489,33 @@ def test_config_sgd_matches_the_reference_oracle():
         toptim.build_optimizer(model, dict(type="Adam"))
 
 
+def test_adamw_takes_the_bias_multipliers():
+    """AdamW reads ``bias_lr_mult`` and ``bias_decay_mult`` as SGD does
+    (mmcv's rule for every optimizer): a bias of every layer but the
+    norms in a group at 2x the lr and no decay, a ``custom_keys`` match
+    before them, the other parameters at the base lr and decay."""
+    model = build_detector(tflagship.fcos3d_model_cfg(tiny=True))
+    opt = toptim.build_optimizer(model, dict(
+        type="AdamW", lr=1e-3, weight_decay=0.01,
+        paramwise_cfg=dict(bias_lr_mult=2.0, bias_decay_mult=0.0,
+                           custom_keys={"conv_cls": dict(lr_mult=0.5)})))
+    assert isinstance(opt, torch.optim.AdamW)
+    group = {id(p): (g["lr"], g["weight_decay"]) for g in opt.param_groups
+             for p in g["params"]}
+    names = dict(model.named_modules())
+    for name, p in model.named_parameters():
+        mod = names[name.rsplit(".", 1)[0]]
+        if "conv_cls" in name:
+            want = (5e-4, 0.01)
+        elif name.endswith(".bias") and not isinstance(
+                mod, (torch.nn.GroupNorm,
+                      torch.nn.modules.batchnorm._BatchNorm)):
+            want = (2e-3, 0.0)
+        else:
+            want = (1e-3, 0.01)
+        assert group[id(p)] == pytest.approx(want), name
+
+
 # ---------------------------------------------------------------- dataset
 def _mono_infos(n=3, seed=10):
     rng = np.random.default_rng(seed)

@@ -2,6 +2,8 @@
 random JAX variables drawn with numpy, carrying a JAX module's variables
 into the matching port module, and the tiny LiDAR detectors of
 ``flagship.LIDAR_VARIANTS`` run on both sides."""
+import contextlib
+
 import jax
 import numpy as np
 import torch
@@ -90,14 +92,35 @@ def tree_leaves(tree):
         yield "", tree
 
 
-def lidar_variant_case(name: str) -> dict:
+@contextlib.contextmanager
+def float64_port():
+    """Inside the block the port computes in float64: its float32 casts
+    (``torch.float32``, ``Tensor.float``) and new tensors widen. Undone on
+    exit."""
+    saved = torch.float32, torch.Tensor.float, torch.get_default_dtype()
+    torch.float32, torch.Tensor.float = torch.float64, torch.Tensor.double
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.float32, torch.Tensor.float = saved[:2]
+        torch.set_default_dtype(saved[2])
+
+
+def lidar_variant_case(name: str, reflectance: bool = True,
+                       pin_float64: bool = False) -> dict:
     """A tiny ``flagship.LIDAR_VARIANTS`` detector on both sides from one
-    batch (2 samples): JAX variables drawn with numpy and carried
-    (strict); the JAX head outputs and decode (eval) and the losses and
-    gradients (train, batch statistics) in one jitted call; the port's
-    head outputs and predict in eval mode, its losses and gradients in
-    train mode."""
+    batch (2 samples; ``reflectance``: intensity in [0, 1), else the raw
+    0-255): JAX variables drawn with numpy and carried (strict); the JAX
+    head outputs and decode (eval) and the losses and gradients (train,
+    batch statistics) in one jitted call; the port's head outputs and
+    predict in eval mode, its losses and gradients in train mode. With
+    ``pin_float64`` the port's train forward takes the discrete choices
+    (ReLU signs) of a float64 run of itself (``testing.pinned_choices``;
+    their report under ``pins``)."""
     import copy
+
+    from isfusion_tpu_torch.testing import pinned_choices
 
     import jax.numpy as jnp
 
@@ -108,7 +131,7 @@ def lidar_variant_case(name: str) -> dict:
 
     cfg = flagship.lidar_variant_model_cfg(name)
     _, batch_fn = flagship.build_lidar_variant(name, device="cpu")
-    batch = batch_fn(2, seed=1)
+    batch = batch_fn(2, seed=1, reflectance=reflectance)
     jcfg = jax_cfg(cfg)
     jmodel = jbuild_detector(jcfg)
     head = "bbox_head_m" if "bbox_head" in jcfg else "pts_bbox_head_m"
@@ -136,14 +159,23 @@ def lidar_variant_case(name: str) -> dict:
     port.eval()
     got_feats = port(batch, mode="feats", device="cpu")
     got_pred = port(batch, device="cpu")
-    trained = copy.deepcopy(port).train()
-    tl = trained(batch, mode="loss", device="cpu",
+    pins = None
+    if pin_float64:
+        wide = copy.deepcopy(port).double().train()
+        wide_batch = {k: v.astype(np.float64) if v.dtype.kind == "f" else v
+                      for k, v in batch.items()}
+        with float64_port(), pinned_choices() as pins:
+            wide(wide_batch, mode="loss", device="cpu",
                  generator=torch.Generator().manual_seed(0))
-    sum(v for k, v in tl.items() if "loss" in k).backward()
+    trained = copy.deepcopy(port).train()
+    with pinned_choices(pins) if pins else contextlib.nullcontext() as pin:
+        tl = trained(batch, mode="loss", device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+        sum(v for k, v in tl.items() if "loss" in k).backward()
     return dict(feats=feats, decoded=decoded, got_feats=got_feats,
                 got_pred=got_pred, jl={k: float(v) for k, v in jl.items()},
                 jg=state_dict_from_jax({"params": jax.device_get(jg)}),
-                trained=trained,
+                trained=trained, pins=pin,
                 tl={k: float(v.detach()) for k, v in tl.items()})
 
 
