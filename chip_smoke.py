@@ -42,7 +42,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
 7. reference check: the tiny flagship on the card against the same model
    on the CPU (the kernels' plain versions), float32;
 8. train: the full-width flagship in train mode with the config's AdamW,
-   cyclic schedules and grad clip takes 1 warm-up and 5 timed steps at
+   cyclic schedules and grad clip takes 1 warm-up and 3 timed steps at
    batch 4 (``samples_per_gpu``; one sample with two camera views
    dropped), bf16; the warm-up step records K10's inputs. Launch counts
    are zeroed before the timed steps and
@@ -66,13 +66,13 @@ Phases, each printing one line (every failure raises, exit code != 0):
    the card and on the CPU from the same weights and batch: loss terms
    within 1e-4 relative, each top-level module's gradient within 1e-3 of
    its max (the K12 route against plain autograd on the card is
-   reported beside it); then 30 steps on that batch on the card (lr
+   reported beside it); then 10 steps on that batch on the card (lr
    1e-3, no clip) must lower the loss;
 10. isfusion_learn: the flagship's train -> eval loop
     from ``configs/isfusion/isfusion_0075voxel.py`` as written (CBGS,
     10-sweep LiDAR, six 900 x 1600 PNG views, GT-paste with image
     patches, ModalMask3D, ImageAug3D, global rot / scale / flip; batch 4,
-    6 loader workers) on an 8 / 4-sample fixture with its GT database
+    6 loader workers) on a 4 / 2-sample fixture with its GT database
     under ``build/``: the first 2 of the 10 epochs at full width by
     ``train_model``, a fresh model resumed from ``epoch_1.pth`` (step
     count, weights, optimizer and generator state and the epoch's
@@ -122,7 +122,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     settles every pair, the kernel's circle cut, every pair) and each
     pass's device time;
 14. PointPillars train: batch 4, the ``schedule_2x`` recipe (AdamW, step
-    lr with linear warmup, clip 35), 1 warm-up and 5 timed steps; fails on
+    lr with linear warmup, clip 35), 1 warm-up and 3 timed steps; fails on
     a non-finite or zero grad norm or an unchanged weight of the VFE, the
     backbone or the head;
 15. PointPillars reference: the tiny PointPillars in float32 on the card
@@ -142,7 +142,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     stage and the boxes kept per task; then ``cp_breakdown`` /
     ``cp_profile``;
 17. CenterPoint train: batch 4, 64 padded GT rows, the config's AdamW,
-    cyclic lr and momentum and clip 35, 1 warm-up and 5 timed steps;
+    cyclic lr and momentum and clip 35, 1 warm-up and 3 timed steps;
     fails on a non-finite loss or grad norm, a zero grad norm, an
     unchanged weight of the SparseEncoder, SECOND or CenterHead, or a step
     without K12 forward, K12 backward or K11 (``gaussian_heatmap``)
@@ -179,7 +179,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     ``mvx_breakdown`` / ``mvx_profile`` (the device idle share);
 21. MVX-Net train (``[mvx_train]``): batch 2, 16 padded 3-class GT rows,
     the config's AdamW, CosineAnnealing with linear warmup and clip 35, 1
-    warm-up and 5 timed steps; prints the losses, grad norm, ms, peak
+    warm-up and 3 timed steps; prints the losses, grad norm, ms, peak
     memory and the launches per step (K1, K2 forward and backward, K12
     forward and backward); fails on a non-finite loss, a step without one
     of them, an unchanged weight of the VFE, PointFusion, the sparse
@@ -204,7 +204,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     backbone, neck, head and decode, the device idle share
     (``[fcos_profile]``) and the precision gap against a float32 run;
 25. FCOS3D train (``[fcos_train]``): batch 2, 24 GT rows a view, the
-    config's SGD, warmup and clip 35, 1 warm-up and 5 timed steps; fails
+    config's SGD, warmup and clip 35, 1 warm-up and 3 timed steps; fails
     on a non-finite loss term, a frozen ResNet tensor that moved or any
     other parameter that did not;
 26. FCOS3D reference (``[fcos_reference]``): the tiny FCOS3D in float32
@@ -221,9 +221,50 @@ Phases, each printing one line (every failure raises, exit code != 0):
     launch) and each kernel against its plain version on that path's own
     inputs.
 
+28. data-parallel train (``[dp_train]``): the flagship's one-card step
+    at batch 4 (the config's recipe, seed 0) three times (how far it
+    repeats: P2G's ``index_add_`` and ``grid_sampler_2d_backward`` sum by
+    atomics) and once with the sync norms' pooled sums
+    (``testing.pooled_sync_norms``), then the same step as a
+    data-parallel step in a process group of one rank under NCCL (the
+    config's backend) against the first: losses 1e-4 relative, updated
+    parameters 1e-3 of each top-level module's max, each module's
+    gradients within 1e-3 of its max where the one-card step repeats
+    that closely, else within ``DP_GRAD_CEILING``, which no module's
+    repeat gap may pass; one all-reduce and the one-card step's
+    launches. Then ``DP_WORLD`` (2) ranks spawned under gloo, both on
+    ``cuda:0`` (NCCL refuses two ranks on one device), each running
+    ``dp_rank`` (spawned before phase 27, where they start, build the
+    flagship and warm it up with a batch-1 DP step while the variants
+    run, then wait for the references): (a) a flagship step at batch 4 a rank on identical halves, held as
+    above against the one-card step with the pooled sums (the ranks'
+    sums double exactly); (b) 2 steps on the distinct halves of a global
+    batch of 8 (each rank its own generator): the first step's averaged
+    gradients against the mean of the ranks' own (gathered on the host,
+    1e-6 of the max), the synced VFE's running statistics after it
+    against one train-mode pass of the VFE over all 8 samples (1e-4 of
+    their max); PointPillars with every norm synced: the feature path
+    up to the neck (float32, TF32 off, train mode) on each rank's 4
+    samples against its rows of one forward over the 8, every running
+    statistic too (1e-4 of the max), then 2 DP train steps at its
+    precision. Prints per rank the step ms (two ranks share one card:
+    not a scaling figure), the gradient all-reduce's ms and bytes, the
+    sync-BN collectives per step, the peak GiB, each step's launches
+    (equal to the one-card step's) and the host seconds of each part;
+29. gathered eval (``[dp_eval]``): the learnability PointPillars (seeded,
+    box deltas tamed, float32, TF32 off) on a 5-sample val split, 2
+    samples a rank, the last global batch padded: every rank's gathered
+    results against ``single_device_test`` in one process (the same
+    kept entries and labels, boxes and scores 1e-4 of their max), the
+    metrics within 1e-4.
+
 The card's ``nvidia-smi`` line, then the kernels' JSON record (each
-kernel with its launches on the LiDAR variants' paths), then
+kernel with its launches on the LiDAR variants' paths and, for K12, K1,
+K2, K11 and K10, on each rank's DP steps), then
 ``{"ok": true, "device": {...}}`` end the output.
+
+``python3 chip_smoke.py --dp`` runs the device and build phases, then
+phases 28-29 alone.
 
 ``python3 chip_smoke.py --fcos`` runs the device and build phases, then
 phases 24-26 alone.
@@ -266,14 +307,18 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 N_REQUESTS = 5
-N_TRAIN_STEPS = 5
+N_TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12               # H100 SXM float32 rate, no tensor cores
 MICRO_SHAPE = (145_000, 1536, 145_408)  # (V, F, N) of micro_dma_gather.py
 
 
 def log(phase: str, **kw) -> None:
+    """One line of ``phase``'s results; ``t_s`` is the host seconds since
+    the script started."""
+    kw["t_s"] = round(time.perf_counter() - T0, 1)
     print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
 
 
@@ -1103,7 +1148,7 @@ def _module_grad_errs(ga: dict, gb: dict) -> dict:
 def phase_train_reference(dev: str = "cuda"):
     """Tiny flagship, float32, dropout off: one train step on the card
     against the CPU (and, on the card, the K12 route against plain
-    autograd through ``sparse_conv_plain``), then 30 steps on one batch
+    autograd through ``sparse_conv_plain``), then 10 steps on one batch
     that must lower the loss."""
     import torch
 
@@ -1154,7 +1199,7 @@ def _train_reference(dev: str):
     opt = build_optimizer(model, dict(type="AdamW", lr=1e-3))
     step = make_train_step(model, opt)
     gen = torch.Generator(dev).manual_seed(1)
-    curve = [float(step(batch, gen)["loss"]) for _ in range(30)]
+    curve = [float(step(batch, gen)["loss"]) for _ in range(10)]
     log("train_reference", loss_rel_err=loss_err, grad_rel_err=grad_err,
         kernel_vs_plain_on_card_loss_rel_err=max(
             abs(mg[k] - v) / max(abs(v), 1e-12) for k, v in mp.items()),
@@ -1166,7 +1211,7 @@ def _train_reference(dev: str):
         raise RuntimeError(f"tiny train step on the card differs from the "
                            f"CPU: losses {loss_err:.3g}, grads {grad_err}")
     if not curve[-1] < curve[0]:
-        raise RuntimeError(f"30 steps did not lower the loss: {curve}")
+        raise RuntimeError(f"10 steps did not lower the loss: {curve}")
 
 # ------------------------------------------------------------ PointPillars
 PP_PREDICT_KERNELS = ("nms_bev",)
@@ -1798,7 +1843,7 @@ class LoopProbe:
                                           marks[2::2])]
 
 
-def phase_isfusion_learn(dev: str = "cuda", train: int = 8, val: int = 4,
+def phase_isfusion_learn(dev: str = "cuda", train: int = 4, val: int = 2,
                          points: int = 128_000, img_hw=(900, 1600),
                          nvidia_smi: str = None):
     """The flagship's train -> eval loop from its own config's data: a
@@ -1873,9 +1918,11 @@ def phase_isfusion_learn(dev: str = "cuda", train: int = 8, val: int = 4,
                         for k, v in fresh.state_dict().items()),
             optimizer=_same_tree(opt.state_dict(), ckpt["optimizer"]),
             generator=torch.equal(gen.get_state(),
-                                  ckpt["generator"].cpu()))
-        del fresh, opt, ckpt
-        model2 = init_model(cfg, device=dev, seed=5)
+                                  ckpt["generator_states"][0].cpu()))
+        del opt, ckpt
+        # the same fresh model trains epoch 2 from the checkpoint
+        model2 = fresh
+        del fresh
         probe2 = LoopProbe(model2)
         resumed = train_model(model2, build_dataset(cfg.data.train), cfg,
                               os.path.join(root, "resumed"), device=dev,
@@ -3567,6 +3614,734 @@ def learn_run(work_dir: str) -> int:
 
 
 # the K2 fields of the kernels line at the train and MVX-Net shapes
+DP_WORLD = 2                # ranks of [dp_train] / [dp_eval] on one card
+DP_STEPS = 2
+# a module's gradients in a DP step against the one-card step: within
+# 1e-3 of its max where the one-card step repeats that closely, else
+# within DP_GRAD_CEILING, and no module's one-card repeat gap above it:
+# about twice the largest gap read on an H100 80GB HBM3 (2.26e-2, the
+# VFE's; the sparse encoder's 1.53e-2), where P2G's index_add_ and
+# grid_sampler_2d_backward sum by atomics
+DP_GRAD_CEILING = 5e-2
+DP_KERNELS = ("masked_gather_forward", "masked_gather_backward",
+              "dynamic_voxelize", "dynamic_scatter_forward",
+              "dynamic_scatter_backward", "gaussian_heatmap", "boxes_iou_3d")
+
+
+def _module_errs(got: dict, want: dict) -> dict:
+    """Per top-level module: max |got - want| over the module's tensors
+    relative to its max |want|."""
+    import torch
+    errs = {}
+    for top in sorted({n.split(".")[0] for n in want}):
+        names = [n for n in want if n.split(".")[0] == top]
+        w = torch.cat([want[n].float().ravel() for n in names])
+        g = torch.cat([got[n].float().ravel().to(w.device) for n in names])
+        errs[top] = float((g - w).abs().max() /
+                          w.abs().max().clamp_min(1e-30))
+    return errs
+
+
+class StepProbe:
+    """Launch counts of each step of ``model`` (forward and backward split
+    at the end of the detector's forward) and the all-reduce calls (a
+    sync BatchNorm's and the gradients') made during it."""
+
+    def __init__(self, model):
+        import torch.distributed as dist
+        from isfusion_tpu_torch.ops import cuda_build
+        self.launches = cuda_build.LAUNCHES
+        self.mid = None
+        self.calls = 0
+        self.hook = model.register_forward_hook(self._forward_end)
+        self.real = dist.all_reduce
+        probe = self
+
+        def counted(*args, **kw):
+            probe.calls += 1
+            return probe.real(*args, **kw)
+
+        dist.all_reduce = counted
+
+    def _forward_end(self, *_):
+        self.mid = dict(self.launches)
+
+    def close(self):
+        import torch.distributed as dist
+        dist.all_reduce = self.real
+        self.hook.remove()
+
+    def run(self, step, batch, gen, dev: str):
+        """One ``step``: (metrics as floats, host ms ending in a sync,
+        launches, all-reduce calls)."""
+        before, self.calls = dict(self.launches), 0
+        t0 = time.perf_counter()
+        m = step(batch, gen)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        after, mid = dict(self.launches), self.mid
+        launches = dict(
+            masked_gather_forward=mid["masked_gather"] -
+            before["masked_gather"],
+            masked_gather_backward=after["masked_gather"] -
+            mid["masked_gather"],
+            dynamic_voxelize=mid["dynamic_voxelize"] -
+            before["dynamic_voxelize"],
+            dynamic_scatter_forward=mid["dynamic_scatter"] -
+            before["dynamic_scatter"],
+            dynamic_scatter_backward=after["dynamic_scatter"] -
+            mid["dynamic_scatter"],
+            gaussian_heatmap=after["gaussian_heatmap"] -
+            before["gaussian_heatmap"],
+            boxes_iou_3d=after["boxes_iou_3d"] - before["boxes_iou_3d"])
+        return {k: float(v) for k, v in m.items()}, ms, launches, self.calls
+
+
+def _dp_models(tiny: bool, dev: str):
+    """(flagship, its batch_fn, the flagship recipe's step factory)."""
+    from isfusion_tpu_torch.flagship import (build_isfusion_flagship,
+                                             flagship_optim_cfg)
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+    model, batch_fn = build_isfusion_flagship(tiny=tiny, device=dev, seed=0)
+    cfg = flagship_optim_cfg()
+
+    def make_step():
+        opt = build_optimizer(model, cfg["optimizer"])
+        return make_train_step(
+            model, opt, build_schedule(opt, cfg["lr_config"],
+                                       cfg["momentum_config"]),
+            grad_clip_norm(cfg["optimizer_config"]))
+
+    return model.train(), batch_fn, make_step
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _params(model) -> dict:
+    return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def _grad_limits(spread: dict) -> dict:
+    """Each module's gradient limit from its one-card repeat gap
+    (``spread``: the largest gap of two more one-card steps from the
+    first): 1e-3 of its max below 1e-3, else DP_GRAD_CEILING."""
+    return {k: 1e-3 if v < 1e-3 else DP_GRAD_CEILING
+            for k, v in spread.items()}
+
+
+def _step_check(got: dict, want: dict, spread: dict) -> dict:
+    """A DP step against the one-card step: losses within 1e-4 relative,
+    updated parameters within 1e-3 of each top-level module's max, each
+    module's gradients within its ``_grad_limits``, and no one-card
+    repeat gap above DP_GRAD_CEILING."""
+    loss_err = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in want["metrics"].items()
+                   if "loss" in k)
+    grad_err = _module_errs(got["grads"], want["grads"])
+    param_err = _module_errs(got["params"], want["params"])
+    limits = _grad_limits(spread)
+    grad_ok = all(e <= limits[k] for k, e in grad_err.items()) and \
+        max(spread.values()) <= DP_GRAD_CEILING
+    return dict(loss_rel_err=loss_err, grad_err_of_max=max(
+        grad_err.values()), param_err_of_max=max(param_err.values()),
+        ok=loss_err <= 1e-4 and grad_ok and max(param_err.values()) <= 1e-3,
+        grad_err_per_module=grad_err)
+
+
+def _vfe_stats(model) -> dict:
+    return {n: b.detach().cpu().clone() for n, b in
+            model.pts_voxel_encoder.named_buffers() if "running" in n}
+
+
+def _vfe_reference(model, batch: dict, dev: str) -> dict:
+    """The flagship VFE's running statistics after one train-mode pass
+    of the VFE alone over every point of ``batch``, voxelized as the
+    detector's forward voxelizes them (nothing else reaches those
+    statistics)."""
+    import torch
+    from isfusion_tpu_torch import upload
+    from isfusion_tpu_torch.ops.voxel import voxelize_dynamic
+    t = upload(model, {k: batch[k] for k in ("points", "points_mask")}, dev)
+    points, mask = t["points"].float(), t["points_mask"].bool()
+    vl = model.pts_voxel_layer
+    with torch.no_grad():
+        dv = voxelize_dynamic(points, mask, vl["point_cloud_range"],
+                              vl["voxel_size"])
+        model.pts_voxel_encoder(points.reshape(-1, points.shape[-1]),
+                                dv.point_voxel_index, dv.voxel_coors,
+                                layout=(dv.voxel_ptr, dv.point_order))
+    return _vfe_stats(model)
+
+
+def _pp_model(dev: str, tiny: bool, float32: bool):
+    """The PointPillars of the nuScenes config (every norm synced), seed
+    0; ``float32`` computes the backbone and neck in float32."""
+    import copy
+    from isfusion_tpu_torch.flagship import pointpillars_model_cfg
+    from isfusion_tpu_torch.models.builder import build_detector
+    from isfusion_tpu_torch.models.layers import init_weights
+    cfg = copy.deepcopy(pointpillars_model_cfg(tiny))
+    if float32:
+        for key in ("pts_backbone", "pts_neck", "pts_bbox_head"):
+            cfg[key] = dict(cfg[key], compute_dtype=None)
+    return init_weights(build_detector(cfg), 0).to(dev).train()
+
+
+def _pp_feats(model, batch: dict, dev: str):
+    """Train-mode (batch statistics) feature path of PointPillars up to
+    the neck, no gradient."""
+    import torch
+    from isfusion_tpu_torch import upload
+    from isfusion_tpu_torch.models.detectors.mvx_two_stage import \
+        lidar_features
+    with torch.no_grad():
+        return lidar_features(
+            upload(model, batch, dev), model.pts_voxel_layer, True,
+            model.pts_voxel_encoder, model.pts_middle_encoder,
+            model.pts_backbone, model.pts_neck)
+
+
+def _set_tf32(matmul: bool, cudnn: bool):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def _dp_eval_cfg(data: str):
+    cfg = learn_cfg(data, epochs=1, eval_interval=1, ckpt_interval=1,
+                    log_interval=1)
+    cfg.data.samples_per_gpu = 2
+    cfg.data.workers_per_gpu = 0
+    return cfg
+
+
+def _dp_eval_model(cfg, dev: str):
+    from isfusion_tpu_torch.apis import init_model
+    from isfusion_tpu_torch.testing import tame_box_deltas
+    return tame_box_deltas(init_model(cfg, device=dev, seed=0))
+
+
+def dp_rank(rank: int, size: int, work: str, dev: str, tiny: bool,
+            refs) -> None:
+    """One rank of [dp_train] / [dp_eval] (spawned; gloo, every rank on
+    ``cuda:0`` on the card). Builds the flagship and warms it up with one
+    DP step at batch 1 (the first step of a fresh process loads its
+    kernels and its collectives' buffers), then takes the one-process
+    references from the queue ``refs`` (CPU tensors in shared memory,
+    and the parent's TF32 flags), compares against them and writes
+    ``work/rank{rank}.json``, with the wall-clock time each part ended
+    at (``ended_at``)."""
+    ended = dict(entered=time.time())
+    sys.path.insert(0, REPO)
+    import copy
+    import torch
+    import torch.distributed as dist
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        work, "group"), rank=rank, world_size=size)
+    ended["group"] = time.time()
+    try:
+        model, batch_fn, make_step = _dp_models(tiny, dev)
+        init = copy.deepcopy(model.state_dict())
+        ended["build"] = time.time()
+        make_step()(train_batch(batch_fn, 1), torch.Generator(
+            dev).manual_seed(0))
+        model.load_state_dict(init)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        ended["warm_up"] = time.time()
+        ref = refs.get()
+        ended["references"] = time.time()
+        if dev == "cuda":
+            _set_tf32(*ref["tf32"])
+        out = dict(flagship=_dp_rank_flagship(rank, size, dev, model,
+                                              make_step, init,
+                                              ref["flagship"]))
+        del model, init
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        ended["flagship"] = time.time()
+        out["pointpillars"] = _dp_rank_pp(rank, size, dev, tiny,
+                                          ref["tf32"], ref["pp"])
+        ended["pointpillars"] = time.time()
+        out["eval"] = _dp_rank_eval(rank, size, dev, ref["eval"])
+        del ref
+        ended["eval"] = time.time()
+        out["ended_at"] = ended
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=float)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dp_ranks(dev: str = "cuda", tiny: bool = False) -> dict:
+    """Spawn the ``DP_WORLD`` ranks of [dp_train] / [dp_eval] (``dp_rank``)
+    early: they start, build and warm up while earlier phases run, then
+    wait for ``phase_dp``'s references. ``stop_dp_ranks`` ends them."""
+    import tempfile
+    import torch.multiprocessing as mp
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="dp_", dir=os.path.join(REPO, "build"))
+    refs = mp.get_context("spawn").SimpleQueue()
+    started = time.time()
+    ctx = mp.spawn(dp_rank, args=(DP_WORLD, work, dev, tiny, refs),
+                   nprocs=DP_WORLD, join=False)
+    return dict(work=work, refs=refs, ctx=ctx, started=started, dev=dev,
+                tiny=tiny)
+
+
+def stop_dp_ranks(ranks: dict) -> None:
+    """End the ranks that are still running (after a failure they wait
+    for references that never come) and remove their directory."""
+    import shutil
+    for p in ranks["ctx"].processes:
+        if p.is_alive():
+            p.terminate()
+        p.join()
+    shutil.rmtree(ranks["work"], ignore_errors=True)
+
+
+def _dp_run(model, step, batch, gen, dev, steps=DP_STEPS,
+            keep_first=False):
+    """``steps`` steps; per step metrics, ms, launches, all-reduce calls;
+    with ``keep_first``, the first step's gradients and updated
+    parameters."""
+    probe = StepProbe(model)
+    try:
+        recs, first = [], None
+        for i in range(steps):
+            m, ms, launches, calls = probe.run(step, batch, gen, dev)
+            recs.append(dict(metrics=m, ms=ms, launches=launches,
+                             allreduce_calls=calls))
+            if i == 0 and keep_first:
+                first = dict(metrics=m, grads=_grads(model),
+                             params=_params(model))
+    finally:
+        probe.close()
+    return recs, first
+
+
+@contextlib.contextmanager
+def _recorded_pmean():
+    """Within the block the train step's gradient all-reduce also keeps
+    host copies of its flat input (this rank's gradients, has-gradient
+    flags and loss terms) and of its output (their mean) in the yielded
+    dict."""
+    import torch
+    from isfusion_tpu_torch.parallel import train_step
+    real, seen = train_step.all_reduce_mean_, {}
+
+    def recorded(tensors):
+        seen["local"] = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+        n = real(tensors)
+        seen["mean"] = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+        return n
+
+    train_step.all_reduce_mean_ = recorded
+    try:
+        yield seen
+    finally:
+        train_step.all_reduce_mean_ = real
+
+
+def _pmean_err(seen: dict, size: int) -> float:
+    """The step's averaged buffer against the mean of every rank's own
+    buffer, gathered on the host (``all_gather``: another collective than
+    the step's), relative to the mean's max."""
+    import torch
+    import torch.distributed as dist
+    every = [torch.empty_like(seen["local"]) for _ in range(size)]
+    dist.all_gather(every, seen["local"])
+    want = torch.stack(every).sum(0) / size
+    return float((seen["mean"] - want).abs().max() /
+                 want.abs().max().clamp_min(1e-30))
+
+
+def _packed(tensors: dict) -> tuple:
+    """(names, shapes, one flat float32 tensor) of a name -> tensor dict:
+    one storage to share with the ranks (a shared storage holds a file
+    descriptor)."""
+    import torch
+    names = list(tensors)
+    return names, [tuple(tensors[n].shape) for n in names], torch.cat(
+        [tensors[n].float().reshape(-1) for n in names])
+
+
+def _as_tensors(batch: dict) -> dict:
+    """A numpy batch as CPU tensors (shared with the ranks, not
+    pickled)."""
+    import numpy as np
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+def _unpacked(packed: tuple) -> dict:
+    names, shapes, flat = packed
+    parts = flat.split([math.prod(s) for s in shapes])
+    return {n: t.view(s) for n, t, s in zip(names, parts, shapes)}
+
+
+def _dp_rank_flagship(rank, size, dev, model, make_step, init,
+                      ref) -> dict:
+    """[dp_train]'s flagship on rank ``rank``: ``model`` (in its initial
+    state ``init``), the recipe's step factory ``make_step`` and the
+    parent's references ``ref``."""
+    import torch
+    from isfusion_tpu_torch.apis.train import rank_seed
+    from isfusion_tpu_torch.parallel.mesh import all_reduce_mean_, \
+        shard_batch
+    marks = [("start", time.perf_counter())]
+    pooled = dict(ref["pooled_step"], grads=_unpacked(ref["pooled_step"][
+        "grads"]), params=_unpacked(ref["pooled_step"]["params"]))
+    out = {}
+    # (a) identical halves: every rank the one-card step's batch (the
+    # first half of the global batch) and draws, against the one-card
+    # step with the pooled statistics
+    step = make_step()
+    marks.append(("load", time.perf_counter()))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    recs, first = _dp_run(model, step, shard_batch(ref["global_batch"], 0,
+                                                   size),
+                          torch.Generator(dev).manual_seed(0), dev, steps=1,
+                          keep_first=True)
+    out["same"] = dict(steps=recs, check=_step_check(
+        first, pooled, ref["spread"]),
+        allreduce_bytes=step.state["allreduce_bytes"])
+    grads = [p.grad.detach().clone() for p in model.parameters()
+             if p.grad is not None]
+    times = []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        all_reduce_mean_(grads)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = statistics.median(times)
+    del step, grads, first
+    marks.append(("identical_halves", time.perf_counter()))
+    # (b) distinct halves of the global batch, each rank its own draws;
+    # the first step's gradient pmean against the ranks' own gradients
+    model.load_state_dict(init)
+    step = make_step()
+    own = shard_batch(ref["global_batch"], rank, size)
+    gen = torch.Generator(dev).manual_seed(rank_seed(0, rank))
+    with _recorded_pmean() as seen:
+        recs, _ = _dp_run(model, step, own, gen, dev, steps=1)
+    vfe = _vfe_stats(model)     # after one forward over both halves
+    pmean_err = _pmean_err(seen, size)
+    del seen
+    recs += _dp_run(model, step, own, gen, dev, steps=DP_STEPS - 1)[0]
+    errs = {n: float((vfe[n] - w).abs().max() / w.abs().max().clamp_min(
+        1e-30)) for n, w in ref["vfe_stats"].items()}
+    out["distinct"] = dict(steps=recs, vfe_stats_err=max(errs.values()),
+                           vfe_stats_err_per_buffer=errs,
+                           pmean_err_of_max=pmean_err)
+    if dev == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del step
+    marks.append(("distinct_halves", time.perf_counter()))
+    out["seconds"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    return out
+
+
+def _dp_rank_pp(rank, size, dev, tiny, tf32, ref) -> dict:
+    import torch
+    from isfusion_tpu_torch.flagship import pointpillars_optim_cfg
+    from isfusion_tpu_torch.parallel.mesh import shard_batch
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+    own = shard_batch(ref["batch"], rank, size)
+    # the feature path up to the neck, float32 (TF32 off), train mode
+    if dev == "cuda":
+        _set_tf32(False, False)
+    model = _pp_model(dev, tiny, float32=True)
+    feats = _pp_feats(model, own, dev).float().cpu()
+    want = ref["feats"][rank]
+    stats = {n: b.cpu() for n, b in model.named_buffers() if "running" in n}
+    out = dict(feats_err_of_max=float((feats - want).abs().max() /
+                                      want.abs().max()),
+               running_err_of_max=max(_module_errs(
+                   stats, ref["running"]).values()),
+               running_buffers=len(stats))
+    del model
+    # the train steps at the config's precision (bf16 convs)
+    if dev == "cuda":
+        _set_tf32(*tf32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = _pp_model(dev, tiny, float32=False)
+    cfg = pointpillars_optim_cfg()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, cfg["lr_config"], cfg["momentum_config"]),
+        grad_clip_norm(cfg["optimizer_config"]))
+    recs, _ = _dp_run(model, step, own, torch.Generator(dev).manual_seed(0),
+                      dev)
+    out.update(steps=recs, allreduce_bytes=step.state["allreduce_bytes"])
+    if dev == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, step, opt
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank_eval(rank, size, dev, ref) -> dict:
+    import torch
+    from isfusion_tpu_torch.apis import single_device_test
+    from isfusion_tpu_torch.apis.train import evaluate_split
+    from isfusion_tpu_torch.datasets import build_dataloader, build_dataset
+    if dev == "cuda":
+        _set_tf32(False, False)
+    cfg = _dp_eval_cfg(ref["data"])
+    model = _dp_eval_model(cfg, dev)
+    dataset = build_dataset(cfg.data.val)
+    loader = build_dataloader(dataset, samples_per_gpu=2 * size,
+                              shuffle=False)
+    t0 = time.perf_counter()
+    got = single_device_test(model, loader, dev)
+    eval_s = time.perf_counter() - t0
+    metrics = evaluate_split(model, cfg, "val", dev)
+    same = len(got) == len(ref["results"]) and all(
+        all((g[k] == w[k]).all() for k in w)
+        for g, w in zip(got, ref["results"]))
+    errs = []
+    for g, w in zip(got, ref["results"]):
+        m_g, m_w = g["mask"], w["mask"]
+        if not (m_g == m_w).all() or not (g["labels"][m_w] ==
+                                          w["labels"][m_w]).all():
+            errs.append(float("inf"))
+            continue
+        for k in ("bboxes", "scores"):
+            scale = max(abs(w[k][m_w]).max(), 1e-30) if m_w.any() else 1
+            errs.append(float(abs(g[k][m_w] - w[k][m_w]).max() / scale)
+                        if m_w.any() else 0.0)
+    metrics_err = None if metrics is None else max(
+        abs(float(metrics[k]) - float(v)) for k, v in ref["metrics"].items()
+        if isinstance(v, (int, float)))
+    return dict(samples=len(got), bit_equal=bool(same),
+                max_err_of_max=max(errs) if errs else 0.0, eval_s=eval_s,
+                metrics_max_abs_err=metrics_err)
+
+
+def phase_dp(ranks: dict) -> dict:
+    """[dp_train] and [dp_eval]: the one-process references and the
+    one-rank NCCL step, then the ranks of ``start_dp_ranks`` run on
+    those references."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from isfusion_tpu_torch.apis import single_device_test
+    from isfusion_tpu_torch.apis.train import evaluate_split
+    from isfusion_tpu_torch.flagship import build_pointpillars_flagship
+    from isfusion_tpu_torch.datasets import build_dataloader, build_dataset
+    from isfusion_tpu_torch.parallel.mesh import shard_batch
+    from isfusion_tpu_torch.testing import pooled_sync_norms
+    from isfusion_tpu_torch.tools.make_synthetic_nuscenes import make_dataset
+
+    dev, tiny, work = ranks["dev"], ranks["tiny"], ranks["work"]
+    # the ranks take this process's TF32 flags (earlier phases turn TF32
+    # off), so that their steps compute what the references here compute
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    marks = [("start", time.time())]
+    try:
+        # the flagship's one-card step (the identical-halves reference)
+        model, batch_fn, make_step = _dp_models(tiny, dev)
+        init = copy.deepcopy(model.state_dict())
+        spg = 2 if tiny else 4
+        global_batch = train_batch(batch_fn, spg * DP_WORLD)
+        batch = shard_batch(global_batch, 0, DP_WORLD)
+        runs = []
+        # the step three times (how far it repeats), then with the sync
+        # norms' pooled sums, which identical halves double exactly
+        for pooled in (False, False, False, True):
+            model.load_state_dict(init)
+            probe = StepProbe(model)
+            try:
+                with pooled_sync_norms() if pooled else \
+                        contextlib.nullcontext():
+                    m, ms, one_launches, _ = probe.run(
+                        make_step(), batch,
+                        torch.Generator(dev).manual_seed(0), dev)
+            finally:
+                probe.close()
+            runs.append(dict(metrics=m, grads=_grads(model),
+                             params=_params(model)))
+        ref_step, pooled_step = runs[0], runs[3]
+        gaps = [_module_errs(r["grads"], ref_step["grads"])
+                for r in runs[1:3]]
+        spread = {k: max(g[k] for g in gaps) for k in gaps[0]}
+        del runs, gaps
+        marks.append(("one_card_steps", time.time()))
+        # one rank under the config's backend: the DP step is the one-card
+        # step (its only all-reduce the gradients')
+        model.load_state_dict(init)
+        backend = "nccl" if dev == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method="file://" +
+                                os.path.join(work, "one"), rank=0,
+                                world_size=1)
+        try:
+            recs, first = _dp_run(model, make_step(), batch,
+                                  torch.Generator(dev).manual_seed(0), dev,
+                                  steps=1, keep_first=True)
+        finally:
+            dist.destroy_process_group()
+        one_rank = dict(backend=backend,
+                        **_step_check(first, ref_step, spread),
+                        allreduce_calls=recs[0]["allreduce_calls"],
+                        launches_equal=recs[0]["launches"] == one_launches,
+                        one_card_repeat_grad_err=spread,
+                        grad_limits=_grad_limits(spread))
+        marks.append(("one_nccl_rank", time.time()))
+        # the synced VFE statistics of one pass over both halves
+        model.load_state_dict(init)
+        ref = dict(tf32=tf32, flagship=dict(
+            global_batch=_as_tensors(global_batch), spread=spread,
+            vfe_stats=_vfe_reference(model, global_batch, dev),
+            pooled_step=dict(metrics=pooled_step["metrics"],
+                             grads=_packed(pooled_step["grads"]),
+                             params=_packed(pooled_step["params"]))))
+        del model, first, init, ref_step, pooled_step
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        marks.append(("vfe_reference", time.time()))
+        # PointPillars: the feature path over the concatenated batch
+        if dev == "cuda":
+            _set_tf32(False, False)
+        _, pp_batch_fn = build_pointpillars_flagship(tiny=tiny, device=dev)
+        pp_batch = pp_batch_fn(spg * DP_WORLD, seed=2)
+        pp = _pp_model(dev, tiny, float32=True)
+        feats = _pp_feats(pp, pp_batch, dev).float().cpu()
+        ref["pp"] = dict(batch=_as_tensors(pp_batch),
+                         feats=list(feats.split(spg)),
+                         running={n: b.cpu() for n, b in pp.named_buffers()
+                                  if "running" in n})
+        del pp, feats
+        marks.append(("pp_reference", time.time()))
+        # the eval reference: a ragged val split, one process
+        data = os.path.join(work, "data")
+        make_dataset(data, train=1, val=5, points=20000 if tiny else 120000,
+                     img_hw=(16, 32), seed=0, classes=LEARN_CLASSES)
+        cfg = _dp_eval_cfg(data)
+        ev_model = _dp_eval_model(cfg, dev)
+        loader = build_dataloader(build_dataset(cfg.data.val),
+                                  samples_per_gpu=2, shuffle=False)
+        ref["eval"] = dict(data=data, results=single_device_test(
+            ev_model, loader, dev), metrics=evaluate_split(
+                ev_model, cfg, "val", dev))
+        del ev_model
+        if dev == "cuda":
+            _set_tf32(*tf32)
+            torch.cuda.empty_cache()
+
+        marks.append(("eval_reference", time.time()))
+        for _ in range(DP_WORLD):
+            ranks["refs"].put(ref)
+        while not ranks["ctx"].join():
+            pass
+        del ref
+        marks.append(("ranks", time.time()))
+        results = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        stop_dp_ranks(ranks)
+    seconds = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    return _dp_report(results, one_rank, one_launches, ms, seconds,
+                      ranks["started"], dev)
+
+
+def _dp_report(ranks, one_rank, one_launches, one_ms, seconds, spawned_at,
+               dev) -> dict:
+    """Log [dp_train] / [dp_eval] and fail on a check not met.
+    ``seconds``: the host seconds of each part of ``phase_dp``; each
+    rank's parts are timed from ``spawned_at``."""
+    bad = []
+    if not one_rank["ok"] or one_rank["allreduce_calls"] != 1 or \
+            not one_rank["launches_equal"]:
+        bad.append(f"one rank: {one_rank}")
+    per_rank = []
+    for r, rec in enumerate(ranks):
+        f, pp = rec["flagship"], rec["pointpillars"]
+        steps = f["same"]["steps"] + f["distinct"]["steps"]
+        if not f["same"]["check"]["ok"]:
+            bad.append(f"rank {r} identical halves: {f['same']['check']}")
+        if f["distinct"]["pmean_err_of_max"] > 1e-6:
+            bad.append(f"rank {r} gradient pmean "
+                       f"{f['distinct']['pmean_err_of_max']}")
+        if f["distinct"]["vfe_stats_err"] > 1e-4:
+            bad.append(f"rank {r} VFE statistics "
+                       f"{f['distinct']['vfe_stats_err']}")
+        if pp["feats_err_of_max"] > 1e-4 or pp["running_err_of_max"] > 1e-4:
+            bad.append(f"rank {r} PointPillars feature path {pp}")
+        if dev == "cuda" and any(s["launches"] != one_launches
+                                 for s in steps):
+            bad.append(f"rank {r} launches {[s['launches'] for s in steps]}"
+                       f" against one card's {one_launches}")
+        finite = [math.isfinite(v) for s in steps + pp["steps"]
+                  for v in s["metrics"].values()]
+        if not all(finite):
+            bad.append(f"rank {r}: a non-finite loss")
+        ev = rec["eval"]
+        if ev["samples"] != 5 or ev["max_err_of_max"] > 1e-4 or (
+                ev["metrics_max_abs_err"] or 0) > 1e-4:
+            bad.append(f"rank {r} eval {ev}")
+        per_rank.append(dict(
+            rank=r,
+            step_ms=[s["ms"] for s in f["distinct"]["steps"]],
+            identical_halves_step_ms=[s["ms"] for s in f["same"][
+                "steps"]],
+            identical_halves=f["same"]["check"],
+            distinct_halves=[dict(s["metrics"]) for s in f["distinct"][
+                "steps"]],
+            vfe_running_stats_err_of_max=f["distinct"]["vfe_stats_err"],
+            pmean_err_of_max=f["distinct"]["pmean_err_of_max"],
+            seconds=dict(f["seconds"], **{
+                f"{k}_ended_at": v - spawned_at
+                for k, v in rec["ended_at"].items()}),
+            allreduce_ms=f["allreduce_ms"],
+            allreduce_bytes=f["same"]["allreduce_bytes"],
+            sync_bn_collectives_per_step=[s["allreduce_calls"] - 1
+                                          for s in steps],
+            peak_gib=f.get("peak_gib"),
+            launches_per_step=[s["launches"] for s in steps],
+            pp=dict(feats_err_of_max=pp["feats_err_of_max"],
+                    running_err_of_max=pp["running_err_of_max"],
+                    running_buffers=pp["running_buffers"],
+                    step_ms=[s["ms"] for s in pp["steps"]],
+                    losses=[s["metrics"]["loss"] for s in pp["steps"]],
+                    grad_norm=[s["metrics"]["grad_norm"]
+                               for s in pp["steps"]],
+                    sync_bn_collectives_per_step=[s["allreduce_calls"] - 1
+                                                  for s in pp["steps"]],
+                    allreduce_bytes=pp["allreduce_bytes"],
+                    peak_gib=pp.get("peak_gib"))))
+    log("dp_train", ranks=DP_WORLD, backend="gloo, every rank on cuda:0"
+        if dev == "cuda" else "gloo on the CPU",
+        note="two ranks share one card: step ms is not a scaling figure",
+        one_card_step_ms=one_ms,
+        one_card_launches=one_launches,
+        one_rank=one_rank, seconds=seconds, per_rank=per_rank)
+    log("dp_eval", **{f"rank{r}": rec["eval"] for r, rec in
+                      enumerate(ranks)})
+    if bad:
+        raise RuntimeError("dp: " + "; ".join(bad))
+    return dict(per_rank=per_rank, one_rank=one_rank)
+
+
 SCATTER_FIELDS = ("P", "C", "S", "ms", "device_ms", "fwd_bwd_ms",
                   "bwd_device_ms", "plain_ms", "library_ms", "bound_ms",
                   "backward_bound_ms")
@@ -3686,7 +4461,15 @@ def main() -> int:
 
     run_fcos_phases()
     torch.cuda.empty_cache()
-    variants = phase_lidar_variants()
+    # the DP ranks start, build and warm up during the variants, which
+    # time nothing
+    dp_ranks = start_dp_ranks()
+    try:
+        variants = phase_lidar_variants()
+        torch.cuda.empty_cache()
+        dp = phase_dp(dp_ranks)
+    finally:
+        stop_dp_ranks(dp_ranks)
 
     def on_variants(kernel):
         """Each LiDAR variant's launches of ``kernel`` (predict, train)."""
@@ -3851,7 +4634,19 @@ def main() -> int:
              mvx_shape={k: {f: v[f] for f in SCATTER_FIELDS if f in v}
                         for k, v in mvx_dyn.items()
                         if v["kernel"] == "dynamic_scatter"})]
+    dp_keys = dict(masked_gather=("masked_gather_forward",
+                                  "masked_gather_backward"),
+                   dynamic_voxelize=("dynamic_voxelize",),
+                   dynamic_scatter=("dynamic_scatter_forward",
+                                    "dynamic_scatter_backward"),
+                   gaussian_heatmap=("gaussian_heatmap",),
+                   boxes_iou_3d=("boxes_iou_3d",))
     for k in kernels:
+        if k["name"] in dp_keys:
+            # per rank, per DP step: [dp_train]'s flagship steps
+            k["dp_launches_per_step"] = [
+                [{n: s[n] for n in dp_keys[k["name"]]}
+                 for s in r["launches_per_step"]] for r in dp["per_rank"]]
         k["lidar_variants"] = on_variants(k["name"])
         errs = [r["max_abs_err"] for r in k["lidar_variants"].values()
                 if r["max_abs_err"] is not None]
@@ -4149,6 +4944,21 @@ def boxes_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     return 0
 
 
+def dp_run() -> int:
+    """``python3 chip_smoke.py --dp``: the device and build phases, then
+    ``phase_dp`` alone."""
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    dp_ranks = start_dp_ranks()
+    try:
+        phase_dp(dp_ranks)
+    finally:
+        stop_dp_ranks(dp_ranks)
+    print(smi)
+    return 0
+
+
 def isfusion_learn_run() -> int:
     """``python3 chip_smoke.py --isfusion-learn``: the device and build
     phases, then ``phase_isfusion_learn`` alone."""
@@ -4165,6 +4975,8 @@ if __name__ == "__main__":
         sys.exit(fcos_run())
     if sys.argv[1:] == ["--isfusion-learn"]:
         sys.exit(isfusion_learn_run())
+    if sys.argv[1:] == ["--dp"]:
+        sys.exit(dp_run())
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) == 3:
         sys.exit(learn_run(sys.argv[2]))
     if sys.argv[1:2] == ["--dynamic"] and len(sys.argv) == 3:

@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..layers import BatchNorm, Conv2d, norm_eps, norm_momentum, resolve_dtype
+from ..layers import BatchNorm, Conv2d, bn_args, resolve_dtype
 
 
 def _conv_bn_relu(cin, cout, stride, bn, dt):
@@ -24,9 +24,8 @@ def _conv_bn_relu(cin, cout, stride, bn, dt):
 
 
 def _bn_args(norm_cfg):
-    norm_cfg = norm_cfg or dict(type="BN", eps=1e-3, momentum=0.01)
-    return dict(eps=norm_eps(norm_cfg, 1e-3),
-                momentum=norm_momentum(norm_cfg, 0.01))
+    return bn_args(norm_cfg or dict(type="BN", eps=1e-3, momentum=0.01),
+                   1e-3, 0.01)
 
 
 class SECOND(nn.Module):

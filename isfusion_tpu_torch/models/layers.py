@@ -25,8 +25,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import world
 
 # flax's LayerNorm default; the reference's torch LayerNorms use 1e-5
 LN_EPS = 1e-6
@@ -115,6 +118,24 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         return y.permute(0, 2, 3, 1)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """psum over the ranks of the default process group. Every rank reads
+    the sum, so the backward sums the incoming gradients over the ranks
+    too (psum's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last axis, statistics in float32.
 
@@ -123,14 +144,26 @@ class BatchNorm(nn.BatchNorm1d):
     convention; the running variance takes the unbiased batch variance, as
     torch and the reference do (flax takes the biased one). Eval mode uses
     the running statistics. Keeps BatchNorm1d/2d's parameter and buffer
-    names (weight, bias, running_mean, running_var, num_batches_tracked)."""
+    names (weight, bias, running_mean, running_var, num_batches_tracked).
 
-    def __init__(self, num_features, eps=1e-5, momentum=0.1, dtype=None):
+    ``sync=True`` (a norm type containing 'sync') pools the statistics of
+    the data-parallel ranks (``parallel/mesh.py:world``) in train mode
+    when there are more than one: one all-reduce of (count, sum x, sum
+    x^2) in float32, then the count-weighted mean and ``E[x^2] - mean^2``
+    (the JAX package's ``MaskedBatchNorm`` rule: exact global-batch
+    statistics; the running variance unbiased by the global count). On
+    one rank, and in eval mode, a sync norm is the plain one."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1, dtype=None,
+                 sync: bool = False):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.cdtype = dtype
+        self.sync = bool(sync)
 
     def forward(self, x):
         out_dt = compute_dtype(x, self.cdtype)
+        if self.training and self.sync and world()[1] > 1:
+            return self.pooled(x.float(), None, unbiased=True).to(out_dt)
         if self.training:
             self.num_batches_tracked.add_(1)
             y = F.batch_norm(x.float().reshape(-1, x.shape[-1]),
@@ -142,6 +175,39 @@ class BatchNorm(nn.BatchNorm1d):
             self.weight.float()
         y = (x.float() - self.running_mean.float()) * inv + self.bias.float()
         return y.to(out_dt)
+
+    def pooled(self, x32: torch.Tensor, m: Optional[torch.Tensor],
+               unbiased: bool) -> torch.Tensor:
+        """Normalise float32 ``x32`` (..., C) with the statistics of the
+        rows of every rank (those where the (..., 1) float mask ``m`` is 1)
+        and update the running ones (variance unbiased by the global count
+        when ``unbiased``); the ranks' sums are pooled when ``sync``."""
+        self.num_batches_tracked.add_(1)
+        dims = tuple(range(x32.dim() - 1))
+        c = x32.shape[-1]
+        if m is None:
+            cnt = torch.full((1,), float(x32.numel() // c),
+                             device=x32.device)
+            s1, s2 = x32.sum(dims), (x32 ** 2).sum(dims)
+        else:
+            cnt = m.sum().reshape(1)
+            s1, s2 = (x32 * m).sum(dims), ((x32 * m) ** 2).sum(dims)
+        stats = torch.cat([cnt, s1, s2])
+        if self.sync and world()[1] > 1:
+            stats = _AllReduceSum.apply(stats)
+        total = stats[0]
+        n = total.clamp_min(1.0)
+        mean = stats[1:c + 1] / n
+        var = (stats[c + 1:] / n - mean ** 2).clamp_min(0.0)
+        with torch.no_grad():
+            run_var = var * total / (total - 1.0).clamp_min(1.0) \
+                if unbiased else var
+            self.running_mean.mul_(1 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(
+                self.momentum * run_var)
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (x32 - mean) * inv + self.bias.float()
 
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
@@ -245,8 +311,8 @@ def build_activation(act_cfg: Optional[dict]):
     }[t]
 
 
-# norm types a config may name for the port's BatchNorm: the synchronised
-# kinds reduce to it on one card (NaiveSyncBN over a world of one)
+# norm types a config may name for the port's BatchNorm; the kinds whose
+# name contains 'sync' build it with sync=True (``is_sync_norm``)
 BN_TYPES = ("BN", "BN1d", "BN2d", "SyncBN", "naiveSyncBN1d", "naiveSyncBN2d")
 
 
@@ -262,6 +328,21 @@ def norm_eps(norm_cfg: Optional[dict], default: float = 1e-5) -> float:
 def norm_momentum(norm_cfg: Optional[dict], default: float = 0.1) -> float:
     """torch momentum of a norm config (flax's is 1 - this)."""
     return float((norm_cfg or {}).get("momentum", default))
+
+
+def is_sync_norm(norm_cfg: Optional[dict]) -> bool:
+    """Whether a norm config syncs its statistics over the ranks (the
+    JAX package's ``is_sync_norm``)."""
+    return "sync" in str((norm_cfg or {}).get("type", "")).lower()
+
+
+def bn_args(norm_cfg: Optional[dict], eps: float = 1e-5,
+            momentum: float = 0.1) -> dict:
+    """``BatchNorm`` keyword arguments of a batch-norm config (defaults
+    ``eps``, ``momentum``)."""
+    return dict(eps=norm_eps(norm_cfg, eps),
+                momentum=norm_momentum(norm_cfg, momentum),
+                sync=is_sync_norm(norm_cfg))
 
 
 def is_group_norm(norm_cfg: Optional[dict]) -> bool:
@@ -289,8 +370,8 @@ class ConvModule(nn.Module):
                                 out_channels, float(norm_cfg.get("eps", 1e-5)),
                                 dtype=dtype)
         elif norm_cfg is not None:
-            self.bn = BatchNorm(out_channels, eps=norm_eps(norm_cfg),
-                                momentum=norm_momentum(norm_cfg), dtype=dtype)
+            self.bn = BatchNorm(out_channels, dtype=dtype,
+                                **bn_args(norm_cfg))
         self.act = build_activation(act_cfg)
 
     def forward(self, x):
@@ -309,25 +390,14 @@ class MaskedBatchNorm(BatchNorm):
     mask — the JAX package's ``MaskedBatchNorm``. Train mode takes the
     statistics of the valid rows only, as that package computes them
     (mean and mean square in float32, variance ``meansqr - mean**2``
-    floored at 0), normalises every row with them, and feeds the same
-    biased variance into ``running_var``."""
+    floored at 0; pooled over the ranks when ``sync``), normalises every
+    row with them, and feeds the same biased variance into
+    ``running_var``."""
 
     def forward(self, x, mask):
         if not self.training:
             return super().forward(x)
-        self.num_batches_tracked.add_(1)
-        m = mask.float()[..., None]
-        x32 = x.float()
-        dims = tuple(range(x.dim() - 1))
-        cnt = m.sum().clamp_min(1.0)
-        mean = (x32 * m).sum(dims) / cnt
-        var = (((x32 * m) ** 2).sum(dims) / cnt - mean ** 2).clamp_min(0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1 - self.momentum).add_(
-                self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
-        inv = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (x32 - mean) * inv + self.bias.float()
+        y = self.pooled(x.float(), mask.float()[..., None], unbiased=False)
         return y.to(compute_dtype(x, self.cdtype))
 
 
@@ -343,8 +413,7 @@ class LinearNormAct(nn.Module):
         super().__init__()
         self.linear = Linear(in_channels, out_channels, bias=False)
         bn = MaskedBatchNorm if masked else BatchNorm
-        self.norm = bn(out_channels, eps=norm_eps(norm_cfg, 1e-3),
-                       momentum=norm_momentum(norm_cfg, 0.01))
+        self.norm = bn(out_channels, **bn_args(norm_cfg, 1e-3, 0.01))
 
     def forward(self, x, mask=None):
         if mask is None:

@@ -13,7 +13,8 @@ that stage's rulebook).
 Runs on the rulebook engine of ``ops/sparse_conv.py`` (spconv
 semantics, no capacity caps); its backward is built from the K12 gather.
 Train-mode BatchNorm takes its statistics over the active sites only —
-the rows of the site table — as the JAX package's ``zmask`` does. The
+the rows of the site table — as the JAX package's ``zmask`` does; a sync
+norm type pools them over the ranks, weighted by each rank's sites. The
 JAX config's capacity keys (``stage_cap_ratios``, ``dilation_ratio(s)``,
 ``subm_dilation_ratios``, ``dense_from_stage``, ``engine``,
 ``z_pad_to``) size TPU tables and are read and ignored. ``z_windows`` is semantics: its first entry (z_lo,
@@ -37,7 +38,7 @@ from torch import nn
 
 from ...ops.sparse_conv import (SparseTensor, build_sparse, sparse_conv,
                                 strided_rulebook, subm_rulebook)
-from ..layers import BatchNorm, norm_eps, norm_momentum, resolve_dtype
+from ..layers import BatchNorm, bn_args, resolve_dtype
 
 
 def _pad3(p) -> Tuple[int, int, int]:
@@ -59,9 +60,10 @@ class SparseConvModule(nn.Sequential):
 
     def __init__(self, cin, cout, kernel_size=(3, 3, 3), stride=1,
                  padding=1, subm=True, eps=1e-3, momentum=0.01,
-                 with_act=True):
+                 with_act=True, sync=False):
         super().__init__(SparseConv3dWeight(cin, cout, kernel_size),
-                         BatchNorm(cout, eps=eps, momentum=momentum))
+                         BatchNorm(cout, eps=eps, momentum=momentum,
+                                   sync=sync))
         self.ks, self.stride, self.padding = tuple(kernel_size), stride, \
             padding
         self.subm, self.with_act = subm, with_act
@@ -85,15 +87,16 @@ class SparseBasicBlock(nn.Module):
     extension the reference layout cannot express, keyed ``{j}.0``/``{j}.1``
     as the JAX converter maps it."""
 
-    def __init__(self, cin, ch, eps=1e-3, momentum=0.01):
+    def __init__(self, cin, ch, eps=1e-3, momentum=0.01, sync=False):
         super().__init__()
+        bn = dict(eps=eps, momentum=momentum, sync=sync)
         if cin != ch:
             self.add_module("0", SparseConv3dWeight(cin, ch))
-            self.add_module("1", BatchNorm(ch, eps=eps, momentum=momentum))
+            self.add_module("1", BatchNorm(ch, **bn))
         self.conv1 = SparseConv3dWeight(ch, ch)
-        self.bn1 = BatchNorm(ch, eps=eps, momentum=momentum)
+        self.bn1 = BatchNorm(ch, **bn)
         self.conv2 = SparseConv3dWeight(ch, ch)
-        self.bn2 = BatchNorm(ch, eps=eps, momentum=momentum)
+        self.bn2 = BatchNorm(ch, **bn)
 
     def forward(self, sp: SparseTensor, rulebook) -> SparseTensor:
         x = sp.feats
@@ -140,9 +143,8 @@ class SparseEncoder(nn.Module):
             raise NotImplementedError("the port's SparseEncoder runs its "
                                       "modules in ('conv', 'norm', 'act') "
                                       "order")
-        norm_cfg = norm_cfg or dict(type="BN1d", eps=1e-3, momentum=0.01)
-        eps = norm_eps(norm_cfg, 1e-3)
-        bn = dict(eps=eps, momentum=norm_momentum(norm_cfg, 0.01))
+        bn = bn_args(norm_cfg or dict(type="BN1d", eps=1e-3, momentum=0.01),
+                     1e-3, 0.01)
         self.sparse_shape = tuple(int(s) for s in sparse_shape)
         self.z_window = tuple(int(v) for v in z_windows[0]) \
             if z_windows and z_windows[0] is not None else None

@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..layers import (BatchNorm, Conv2d, ConvTranspose2d, norm_eps,
-                      norm_momentum, resolve_dtype)
+from ..layers import (BatchNorm, Conv2d, ConvTranspose2d, bn_args,
+                      resolve_dtype)
 
 
 class SECONDFPN(nn.Module):
@@ -26,8 +26,7 @@ class SECONDFPN(nn.Module):
         dt = resolve_dtype(compute_dtype)
         self.cdtype = dt
         norm_cfg = norm_cfg or dict(type="BN", eps=1e-3, momentum=0.01)
-        bn = dict(eps=norm_eps(norm_cfg, 1e-3),
-                  momentum=norm_momentum(norm_cfg, 0.01))
+        bn = bn_args(norm_cfg, 1e-3, 0.01)
         blocks = []
         for cin, cout, s in zip(in_channels, out_channels, upsample_strides):
             if s == 1 and use_conv_for_no_stride:

@@ -14,7 +14,9 @@ are fused with the image features before the last voxel max, the
 reference layout (the JAX package fuses after the first layer; ROADMAP
 queue 3). The hard
 encoders keep the JAX package's padded buffers, masked BatchNorm
-(statistics of the valid point slots) and zeroed padded slots. Float32
+(statistics of the valid point slots) and zeroed padded slots. A sync
+``norm_cfg`` (the flagship's ``naiveSyncBN1d``) pools each layer's
+statistics over the ranks, weighted by each rank's valid points. Float32
 throughout: the JAX package runs its VFE without a compute dtype.
 Reference names: ``vfe_layers.{i}.{linear,norm}``.
 """

@@ -3,8 +3,9 @@
 PointPillars or CenterPoint prediction on the card comparable with the
 same prediction on the CPU, the box sets that K10, K10-NMS and
 K10-circle are held on, MVX-Net's KITTI-like camera and the voxel sets
-that K1 (dynamic voxelization) is held on, and ``pinned_choices``, which
-makes two runs of one detector take the same discrete choices."""
+that K1 (dynamic voxelization) is held on, ``pinned_choices``, which
+makes two runs of one detector take the same discrete choices, and
+``pooled_sync_norms``, the one-card reference of a data-parallel step."""
 from __future__ import annotations
 
 import contextlib
@@ -517,3 +518,28 @@ def pinned_choices(recorded: dict = None):
     finally:
         for m, name, old, _ in saved:
             setattr(m, name, old)
+
+
+@contextlib.contextmanager
+def pooled_sync_norms():
+    """Sync-typed BatchNorms in train mode take the statistics of their
+    pooled sums (count, sum x, sum x^2) on one rank too, as they do over
+    several (``models/layers.py:BatchNorm.pooled``; on one rank a sync
+    norm is otherwise ``F.batch_norm``, whose statistics differ from
+    those sums in float32 rounding). Inside the block a one-card step is
+    the reference that a data-parallel step on identical halves must
+    equal bit for bit: the ranks' sums double exactly."""
+    from .models.layers import BatchNorm, compute_dtype
+    real = BatchNorm.forward
+
+    def forward(self, x):
+        if self.training and self.sync:
+            return self.pooled(x.float(), None, unbiased=True).to(
+                compute_dtype(x, self.cdtype))
+        return real(self, x)
+
+    BatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm.forward = real

@@ -2,18 +2,20 @@
 
     python -m isfusion_tpu_torch.tools.test CONFIG WORK_DIR --eval bbox
         [--format-only] [--out METRICS.json] [--jsonfile-prefix DIR]
-        [--cfg-options k=v ...] [--device cuda|cpu]
+        [--cfg-options k=v ...] [--device cuda|cpu] [--launcher none|pytorch]
 
 Loads the latest checkpoint of WORK_DIR (or the checkpoint file given),
 predicts the config's ``data.test`` split (else ``data.val``) on the card
-and prints the nuScenes metrics as JSON.
+and prints the nuScenes metrics as JSON. With ``--launcher pytorch``
+(under ``torchrun``, as ``tools/train.py``) every rank predicts its rows
+of each global batch and rank 0 evaluates, prints and writes.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-from .train import parse_cfg_options
+from .train import launch, parse_cfg_options
 
 
 def parse_args(argv=None):
@@ -27,26 +29,44 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="+", default=[],
                    help="key=value overrides with dotted keys")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--launcher", choices=["none", "pytorch"],
+                   default="none")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    from ..apis import init_model, single_device_test
     from ..config import Config
-    from ..datasets import build_dataloader, build_dataset
 
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
-    model = init_model(cfg, args.checkpoint, device=args.device)
+    device = launch(cfg, args.launcher, args.device)
+    try:
+        return _test(args, cfg, device)
+    finally:
+        if args.launcher == "pytorch":
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _test(args, cfg, device) -> dict:
+    from ..apis import init_model, single_device_test
+    from ..datasets import build_dataloader, build_dataset
+    from ..parallel.mesh import world
+
+    rank, size = world()
+    model = init_model(cfg, args.checkpoint, device=device)
     dataset = build_dataset(cfg.data["test" if "test" in cfg.data
                                      else "val"])
     loader = build_dataloader(
-        dataset, samples_per_gpu=int(cfg.data.get("samples_per_gpu", 1)),
+        dataset,
+        samples_per_gpu=int(cfg.data.get("samples_per_gpu", 1)) * size,
         workers_per_gpu=int(cfg.data.get("workers_per_gpu", 0)),
         shuffle=False)
-    results = single_device_test(model, loader, device=args.device)
+    results = single_device_test(model, loader, device=device)
+    if rank != 0:
+        return {}
     if args.format_only:
         path, _ = dataset.format_results(results, args.jsonfile_prefix)
         print(f"wrote {path}")

@@ -31,7 +31,6 @@ from isfusion_tpu.models import build_detector as jbuild_detector
 from isfusion_tpu.parallel.train_step import TrainState
 from isfusion_tpu_torch.apis import (inference_detector, init_model,
                                      single_device_test, train_model)
-from isfusion_tpu_torch.config import Config
 from isfusion_tpu_torch.datasets import build_dataloader, build_dataset
 from isfusion_tpu_torch.models import layers
 from isfusion_tpu_torch.models.builder import build_detector
@@ -41,11 +40,10 @@ from isfusion_tpu_torch.runner.convert import state_dict_from_jax
 from isfusion_tpu_torch.tools import make_synthetic_nuscenes as tgen
 from isfusion_tpu_torch.tools import test as ttest_cli
 from isfusion_tpu_torch.tools import train as ttrain_cli
+from torch_dp_workers import tiny_learn_cfg
 from torch_parity import assert_close_to_max, random_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LEARN_CFG = os.path.join(REPO, "configs", "pointpillars",
-                         "hv_pointpillars_learnability_syn.py")
 TPU_LOG = os.path.join(REPO, "evidence", "learnability_tpu_train_log.jsonl")
 
 
@@ -55,40 +53,6 @@ def fixture_dir(tmp_path_factory):
     tgen.make_dataset(out, train=4, val=2, points=2048, img_hw=(16, 32),
                       seed=0, classes=["car", "pedestrian"])
     return out
-
-
-def tiny_learn_cfg(data_root: str) -> Config:
-    """The learnability config at tiny width: 6.4 m pillars over +-51.2 m
-    (16 x 16 after the first SECOND stride), SECOND 16/32/64, 4,096
-    points, its nms_pre 256 and max_num 100; 2 epochs of batch 4, eval and
-    checkpoint every epoch, every step logged."""
-    cfg = Config.fromfile(LEARN_CFG)
-    vs = [3.2, 3.2, 8]
-    m = cfg.model
-    m.pts_voxel_layer.update(voxel_size=vs, max_num_points=8,
-                             max_voxels=(1024, 1024))
-    m.pts_voxel_encoder.update(feat_channels=[16], voxel_size=vs)
-    m.pts_middle_encoder.update(in_channels=16, output_shape=[32, 32])
-    m.pts_backbone.update(in_channels=16, out_channels=[16, 32, 64],
-                          layer_nums=[1, 1, 1])
-    m.pts_neck.update(in_channels=[16, 32, 64], out_channels=[16, 16, 16])
-    m.pts_bbox_head.update(in_channels=48, feat_channels=48)
-    for split in ("train", "val", "test"):
-        ann = "train" if split == "train" else "val"
-        d = cfg.data[split]
-        d.update(data_root=data_root, ann_file=os.path.join(
-            data_root, f"nuscenes_infos_{ann}.pkl"))
-        for t in d.pipeline:
-            if t["type"] == "DefaultFormatBundle3D":
-                t["max_points"] = 4096
-    cfg.data.workers_per_gpu = 0
-    cfg.total_epochs = 2
-    cfg.runner.max_epochs = 2
-    cfg.evaluation = dict(interval=1)
-    cfg.checkpoint_config = dict(interval=1)
-    cfg.log_config = dict(interval=1)
-    cfg.seed = 0
-    return cfg
 
 
 # ------------------------------------------------------ the eval path
@@ -254,6 +218,7 @@ def test_norm_builders_take_batch_norm_types(kind):
     bns = [m for m in model.modules() if isinstance(m, layers.BatchNorm)]
     assert len(bns) == 1 + 6 + 3
     assert all(m.eps == 2e-3 and m.momentum == 0.02 for m in bns)
+    assert all(m.sync == ("sync" in kind.lower()) for m in bns)
 
 
 def test_norm_builders_refuse_other_norms():

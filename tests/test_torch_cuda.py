@@ -27,8 +27,13 @@ tiny flagship on the card against the CPU, 1e-4 of the max for the tiny
 PointPillars' and CenterPoint's kept boxes (the same entries and
 labels), and 1e-4 relative for the tiny train steps' losses (float32, TF32
 off: sums run in another order); the tiny MVX-Net as the tiny
-PointPillars.
+PointPillars. In a process group of one NCCL rank: a sync norm launches
+no collective and equals the plain norm bit for bit, and the tiny
+PointPillars' DP step equals the plain step (losses 1e-4 relative,
+parameters 1e-3 of each module's max) with one all-reduce.
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -936,3 +941,111 @@ def test_lidar_variant_launches_its_kernels(card, name):
         train.pop("segment_layout") == 0
     assert min(predict.values()) >= 1, predict
     assert not train or min(train.values()) >= 1, train
+
+
+@contextlib.contextmanager
+def one_nccl_rank(path):
+    """A process group of one rank under NCCL (the configs' backend);
+    yields the sizes of the all-reduce calls made while it is up."""
+    import torch.distributed as dist
+    calls = []
+    real = dist.all_reduce
+
+    def counted(*args, **kw):
+        calls.append(args[0].numel())
+        return real(*args, **kw)
+
+    dist.init_process_group("nccl", init_method=f"file://{path}/group",
+                            rank=0, world_size=1)
+    dist.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+
+
+@pytest.fixture
+def nccl_rank(card, tmp_path):
+    with one_nccl_rank(tmp_path) as calls:
+        yield calls
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_sync_bn_at_one_nccl_rank_is_the_plain_norm(nccl_rank, masked):
+    """A sync norm in a group of one launches no collective and gives the
+    plain norm's output, gradients and running statistics bit for
+    bit."""
+    from isfusion_tpu_torch.models.layers import BatchNorm, MaskedBatchNorm
+
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn((6, 40, 16), generator=gen) * 3 + 1).cuda()
+    mask = (torch.rand((6, 40), generator=gen) < 0.6).cuda()
+    ct = torch.randn((6, 40, 16), generator=gen).cuda()
+    out = []
+    for sync in (True, False):
+        kind = MaskedBatchNorm if masked else BatchNorm
+        bn = kind(16, eps=1e-3, momentum=0.01, sync=sync).cuda().train()
+        xs = x.clone().requires_grad_(True)
+        y = bn(xs, mask) if masked else bn(xs)
+        (y * ct).sum().backward()
+        out.append([t.detach().cpu() for t in (
+            y, xs.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+            bn.running_var)])
+    assert nccl_rank == []
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+
+
+def test_dp_step_at_one_nccl_rank_is_the_plain_step(card, tmp_path):
+    """The tiny PointPillars (every norm synced) on the card, float32,
+    TF32 off: the step in a group of one NCCL rank (the DP step) against
+    the step without a group from the same weights: losses 1e-4
+    relative, each top-level module's updated parameters 1e-3 of their
+    max; one all-reduce (the gradients', the losses with them) and no
+    sync-norm collective."""
+    import copy
+
+    from isfusion_tpu_torch.flagship import (build_pointpillars_flagship,
+                                             pointpillars_optim_cfg)
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model, batch_fn = build_pointpillars_flagship(tiny=True,
+                                                      device="cuda")
+        batch = batch_fn(4, seed=2)
+        cfg = pointpillars_optim_cfg()
+        runs = []
+        for grouped in (False, True):
+            m = copy.deepcopy(model).train()
+            opt = build_optimizer(m, cfg["optimizer"])
+            step = make_train_step(m, opt, build_schedule(
+                opt, cfg["lr_config"], cfg["momentum_config"]),
+                grad_clip_norm(cfg["optimizer_config"]))
+            with one_nccl_rank(tmp_path) if grouped else \
+                    contextlib.nullcontext([]) as calls:
+                metrics = step(batch, torch.Generator("cuda"))
+                torch.cuda.synchronize()
+                runs.append(({k: float(v) for k, v in metrics.items()},
+                             dict(m.named_parameters()), len(calls)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    (plain, p_plain, n_plain), (dp, p_dp, n_dp) = runs
+    assert (n_plain, n_dp) == (0, 1)
+    assert set(dp) == set(plain)
+    for k, v in plain.items():
+        assert abs(dp[k] - v) <= 1e-4 * max(abs(v), 1e-12), k
+    for top in {n.split(".")[0] for n in p_plain}:
+        names = [n for n in p_plain if n.split(".")[0] == top]
+        want = torch.cat([p_plain[n].detach().ravel() for n in names])
+        got = torch.cat([p_dp[n].detach().ravel() for n in names])
+        assert float((got - want).abs().max() /
+                     want.abs().max().clamp_min(1e-30)) <= 1e-3, top
