@@ -210,7 +210,30 @@ Phases, each printing one line (every failure raises, exit code != 0):
 26. FCOS3D reference (``[fcos_reference]``): the tiny FCOS3D in float32
     on the card against the CPU: head outputs, decode, losses, gradients
     and one SGD step;
-27. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
+27. PartA2 (``[parta2_main_path]``, ``[parta2_train]``,
+    ``[parta2_kernel_check]``, ``[parta2_reference]``): the full-width
+    two-stage PartA2 (``flagship.build_parta2``: MVX-Net's KITTI 3-class
+    settings, the SparseUNet with its inverse convs, the RPN
+    Anchor3DHead, the RoI head's K16 pooling; bf16 convs, float32
+    pooling, RoI MLP and losses; the RPN's box regression scaled by
+    0.01) serves one warm-up and five batch-1 requests of MVX-Net's
+    KITTI-like cloud (K16, K12 and K10-NMS in every request; voxels
+    against the 40,000 test cap, active sites per SparseUNet table,
+    proposals, stream ms per module, the idle share of one profiled
+    request, the precision gap against a float32 run), then 1 warm-up
+    and 3 train steps at batch 2 with the reference PartA2 recipe
+    (AdamW, cyclic lr and momentum, clip 10; K16 forward and backward,
+    K12 forward and backward, K10 and K10-NMS in every step); K16 against
+    its plain version on the request's and the step's own inputs and on
+    the request's voxels under 100 RoIs centred on occupied voxels, and
+    ``testing.roiaware_adversarial_sets`` (the forward's list of inside
+    pairs and its counts equal, pooled features and dfeats within 1e-6
+    of their max, two calls bit-equal; event ms, whole-call device ms,
+    plain ms, the bounds, the empty-launch floor); the tiny PartA2 on the card against the CPU with
+    the CPU's discrete choices pinned (head outputs, decoded boxes, loss
+    terms 1e-4; gradients per module 1e-3);
+
+28. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
     dynamic pillars and on DynamicVFE, DynamicCenterPoint, VoxelNet,
     TransFusion-L) on nuScenes' raw intensities, on the card against the
@@ -221,7 +244,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     launch) and each kernel against its plain version on that path's own
     inputs.
 
-28. data-parallel train (``[dp_train]``): the flagship's one-card step
+29. data-parallel train (``[dp_train]``): the flagship's one-card step
     at batch 4 (the config's recipe, seed 0) three times (how far it
     repeats: P2G's ``index_add_`` and ``grid_sampler_2d_backward`` sum by
     atomics) and once with the sync norms' pooled sums
@@ -234,7 +257,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     repeat gap may pass; one all-reduce and the one-card step's
     launches. Then ``DP_WORLD`` (2) ranks spawned under gloo, both on
     ``cuda:0`` (NCCL refuses two ranks on one device), each running
-    ``dp_rank`` (spawned before phase 27, where they start, build the
+    ``dp_rank`` (spawned before phase 28, where they start, build the
     flagship and warm it up with a batch-1 DP step while the variants
     run, then wait for the references): (a) a flagship step at batch 4 a rank on identical halves, held as
     above against the one-card step with the pooled sums (the ranks'
@@ -251,7 +274,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     not a scaling figure), the gradient all-reduce's ms and bytes, the
     sync-BN collectives per step, the peak GiB, each step's launches
     (equal to the one-card step's) and the host seconds of each part;
-29. gathered eval (``[dp_eval]``): the learnability PointPillars (seeded,
+30. gathered eval (``[dp_eval]``): the learnability PointPillars (seeded,
     box deltas tamed, float32, TF32 off) on a 5-sample val split, 2
     samples a rank, the last global batch padded: every rank's gathered
     results against ``single_device_test`` in one process (the same
@@ -260,11 +283,15 @@ Phases, each printing one line (every failure raises, exit code != 0):
 
 The card's ``nvidia-smi`` line, then the kernels' JSON record (each
 kernel with its launches on the LiDAR variants' paths and, for K12, K1,
-K2, K11 and K10, on each rank's DP steps), then
+K2, K11 and K10, on each rank's DP steps; K16 ``roiaware_pool`` with
+PartA2's), then
 ``{"ok": true, "device": {...}}`` end the output.
 
 ``python3 chip_smoke.py --dp`` runs the device and build phases, then
-phases 28-29 alone.
+phases 29-30 alone.
+
+``python3 chip_smoke.py --parta2`` runs the device and build phases, then
+phase 27 alone.
 
 ``python3 chip_smoke.py --fcos`` runs the device and build phases, then
 phases 24-26 alone.
@@ -3304,6 +3331,530 @@ def run_fcos_phases(dev: str = "cuda") -> dict:
     return dict(serve=serve, train=train, reference=phase_fcos_reference(dev))
 
 
+# ------------------------------------------------------------------ PartA2
+PARTA2_PREDICT_KERNELS = ("roiaware_pool", "masked_gather", "nms_bev")
+PARTA2_MODULES = ("voxel_encoder", "middle_encoder", "backbone", "neck",
+                  "rpn_head", "roi_head")
+PARTA2_TOPS = ("middle_encoder", "backbone", "neck", "rpn_head", "roi_head",
+               "seg_head", "part_head")
+# K16's timed cases beside serve's in the kernels line
+K16_SHAPE_FIELDS = ("B", "R", "V", "valid_voxels", "inside_pairs",
+                    "rois_holding_voxels", "ms", "device_ms",
+                    "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "fwd_bwd_ms", "fwd_bwd_device_ms", "bwd_kernel_device_ms",
+                    "plain_fwd_bwd_ms", "backward_bound_ms")
+
+
+@contextlib.contextmanager
+def recording_roiaware():
+    """Inside the block, every K16 call of the RoI head appends its inputs
+    (rois, centres, features, mask, grid size) to the yielded list; the
+    kernel (or its plain version) still runs."""
+    from isfusion_tpu_torch.models.roi_heads import \
+        part_aggregation_roi_head as roi_mod
+
+    real, seen = roi_mod.roiaware_pool, []
+
+    def recording(rois, centers, feats, mask, g):
+        seen.append(tuple(t.detach().clone() for t in (
+            rois, centers, feats, mask)) + (g,))
+        return real(rois, centers, feats, mask, g)
+
+    roi_mod.roiaware_pool = recording
+    try:
+        yield seen
+    finally:
+        roi_mod.roiaware_pool = real
+
+
+def parta2_precision_gap(model, batch: dict, dev: str) -> dict:
+    """The same request with every module in float32 (TF32 off) against
+    the bf16 one: the RPN's class logits' and the seg logits' largest gap,
+    the share of the float32 run's proposals the bf16 run also takes
+    (reported, not asserted)."""
+    import torch
+    from isfusion_tpu_torch.flagship import build_parta2
+    from isfusion_tpu_torch.testing import tame_box_deltas
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model32, _ = build_parta2(device=dev, seed=0)
+    tame_box_deltas(model32)
+    for mod in model32.modules():
+        if hasattr(mod, "cdtype"):
+            mod.cdtype = None if mod is not model32.middle_encoder \
+                else torch.float32
+    a = model(batch, mode="feats", device=dev)
+    b = model32(batch, mode="feats", device=dev)
+    ra, rb = a["roi"]["rois"][0], b["roi"]["rois"][0]
+    shared = (ra[:, None] == rb[None]).all(-1).any(0).float().mean()
+    rec = dict(rpn_cls_logit_max_abs_gap=max(
+        float((x[0].float() - y[0].float()).abs().max())
+        for x, y in zip(a["rpn"], b["rpn"])),
+        rpn_cls_logit_max_abs=max(float(y[0].abs().max()) for y in b["rpn"]),
+        seg_logit_max_abs_gap=float((a["seg"] - b["seg"]).abs().max()),
+        seg_logit_max_abs=float(b["seg"].abs().max()),
+        proposals_shared=float(shared))
+    del model32, a, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_parta2_main_path(model, batch: dict, dev: str = "cuda"):
+    """parta2-serve: the full-width PartA2 (bf16 SparseUNet, SECOND,
+    SECONDFPN and RPN convs; pooling, the RoI MLP, decode and NMS
+    float32; the RPN's box regression scaled by 0.01 so that proposals are
+    scene-sized) serves 1 warm-up + N_REQUESTS batch-1 requests of
+    MVX-Net's KITTI-like cloud, the points jittered. Launch counts are
+    zeroed just before the timed requests and read after each; fails
+    unless K16, K12 and K10-NMS launched in every request. Reports the
+    voxels against the test cap, active sites per SparseUNet table,
+    proposals, kept boxes, peak memory, the stream ms per module and the
+    idle share of one profiled request (``parta2_breakdown`` /
+    ``parta2_profile``) and the precision gap. Returns (launch counts,
+    the warm-up's K16 inputs, record)."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+
+    stats = {}
+    with recording_roiaware() as seen:
+        model(jittered(batch, 0), device=dev, stats=stats)
+        sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_request = [], []
+    for i in range(N_REQUESTS):
+        before = dict(cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = model(jittered(batch, i + 1), device=dev)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                            for k in PARTA2_PREDICT_KERNELS})
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+    n = model.num_proposals
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != dict(bboxes=(1, n, 7), scores=(1, n), labels=(1, n),
+                      mask=(1, n)):
+        raise RuntimeError(f"unexpected PartA2 output shapes {shapes}")
+    m = out["mask"]
+    if not (torch.isfinite(out["bboxes"][m]).all()
+            and torch.isfinite(out["scores"][m]).all()):
+        raise RuntimeError("non-finite PartA2 boxes")
+    cap_train, cap_test = model.voxel_layer["max_voxels"]
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, points=int(batch["points"].shape[1]),
+               voxels=stats["voxels"], cap=[cap_train, cap_test],
+               active_sites=stats["active_sites"],
+               proposals=stats["proposals"], kept_boxes=int(m.sum()),
+               proposal_classes=torch.bincount(
+                   out["labels"][m].flatten(), minlength=3).tolist(),
+               launches_per_request=per_request, launches=launches,
+               pooled_voxels=int(seen[0][3].sum()))
+    if dev == "cuda":
+        rec["peak_mem_gib"] = peak
+        rec["device_idle_share"] = phase_breakdown(
+            model, batch, PARTA2_MODULES, (), "parta2_")["device_idle_share"]
+        rec["precision_gap"] = parta2_precision_gap(model, batch, dev)
+    log("parta2_main_path", **rec)
+    if dev == "cuda" and any(min(r.values()) == 0 for r in per_request):
+        raise RuntimeError(f"a PartA2 request launched no "
+                           f"{PARTA2_PREDICT_KERNELS}: {per_request}")
+    return launches, seen[0], rec
+
+
+def phase_parta2_train(model, batch: dict, dev: str = "cuda",
+                       steps: int = N_TRAIN_STEPS) -> dict:
+    """parta2-train: 1 warm-up + ``steps`` steps at batch 2 (the
+    reference's ``2x8``), 16 padded 3-class GT rows, the reference's
+    PartA2 recipe (AdamW, cyclic lr and momentum, clip 10); launches per
+    step split at the end of the loss forward. Fails on a non-finite loss
+    or a zero grad norm, a step without K16 forward and backward, K12
+    forward and backward, K10 and K10-NMS, or an unchanged weight of the
+    SparseUNet, SECOND, SECONDFPN, the RPN, the RoI head or the part
+    heads (the RoI head's ``conv_reg`` excepted when its gradient is 0:
+    no RoI reached ``pos_iou_thr``, reported). Returns the record (with
+    the warm-up's K16 inputs)."""
+    import torch
+    from isfusion_tpu_torch.flagship import parta2_optim_cfg
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    cfg = parta2_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, cfg["lr_config"], cfg["momentum_config"]),
+        grad_clip_norm(cfg["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    with recording_roiaware() as seen:
+        step(jittered(batch, 0), gen)
+        sync(dev)
+    watch = _watched(model, tuple(f"{t}." for t in PARTA2_TOPS))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    marks = []
+    hook = model.register_forward_hook(
+        lambda *_: marks.append(dict(cuda_build.LAUNCHES)))
+    times, per_step = [], []
+    try:
+        for i in range(steps):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            m = step(jittered(batch, i + 1), gen)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            after, mid = dict(cuda_build.LAUNCHES), marks[-1]
+            launches = dict(
+                roiaware_pool_forward=mid["roiaware_pool"] -
+                before["roiaware_pool"],
+                roiaware_pool_backward=after["roiaware_pool"] -
+                mid["roiaware_pool"],
+                masked_gather_forward=mid["masked_gather"] -
+                before["masked_gather"],
+                masked_gather_backward=after["masked_gather"] -
+                mid["masked_gather"],
+                boxes_iou_3d=after["boxes_iou_3d"] - before["boxes_iou_3d"],
+                nms_bev=after["nms_bev"] - before["nms_bev"])
+            vals = {k: float(v) for k, v in m.items()}
+            log("parta2_train_step", step=i, ms=times[-1],
+                launches=launches, **vals)
+            per_step.append(launches)
+            if any(not math.isfinite(v) for v in vals.values()) or \
+                    vals["grad_norm"] == 0:
+                raise RuntimeError(f"PartA2 train step {i}: {vals}")
+            if dev == "cuda" and min(launches.values()) == 0:
+                raise RuntimeError(f"PartA2 train step {i}: a kernel did "
+                                   f"not launch: {launches}")
+    finally:
+        hook.remove()
+    params = dict(model.named_parameters())
+    # the RoI head's regression trains on RoIs over pos_iou_thr only: with
+    # random weights no proposal may reach a GT (loss_roi_reg 0), and
+    # then only weight decay moves conv_reg
+    idle = [n for n, p in params.items() if n.startswith("roi_head.conv_reg")
+            and p.grad is not None and not p.grad.any()]
+    unchanged = [n for n, t in watch.items() if torch.equal(params[n], t)
+                 and n not in idle]
+    rec = dict(batch=int(batch["points"].shape[0]),
+               median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, launches_per_step=per_step, losses=vals,
+               watched=len(watch), unchanged_weights=unchanged,
+               roi_reg_without_gradient=idle)
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("parta2_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"weights unchanged by {steps} PartA2 train "
+                           f"steps: {unchanged[:10]}")
+    model.eval()
+    rec["roiaware_inputs"] = seen[0]
+    return rec
+
+
+def roiaware_check(label: str, rois, centers, feats, mask, g: int,
+                   dev: str = "cuda", timed: bool = True) -> dict:
+    """K16 against its plain version on one input set: the forward's cell
+    counts and its list of inside (voxel, cell) pairs in voxel order equal
+    the plain version's (``roiaware_pool_state``), pooled features and
+    dfeats (a random dpooled) within 1e-6 of their max, two kernel calls
+    bit-equal (forward and backward). ``timed``: CUDA-event ms of the
+    forward and of forward + backward, each one's whole-call device ms,
+    the plain version's ms, and the bounds from these inputs (bytes or
+    operations). Also reports how many RoIs hold a voxel, and the median
+    bottom height of the RoIs and height of the valid voxels."""
+    import torch
+    from isfusion_tpu_torch.ops import roiaware_pool as rp
+
+    b, r = rois.shape[:2]
+    v, c = feats.shape[1:]
+    cells_ref = rp.roiaware_cells_ref(rois, centers, mask, g)
+    counts_ref, entries_ref = rp.roiaware_list_ref(cells_ref, g)
+    _, counts, entries = rp.roiaware_pool_state(rois, centers, feats, mask,
+                                                g)
+    dy = torch.randn((b, r, g, g, g, c), generator=torch.Generator(
+        ).manual_seed(0)).to(rois.device)
+
+    def fwd_bwd(fn):
+        f = feats.detach().float().clone().requires_grad_()
+        out = fn(rois, centers, f, mask, g)
+        out.backward(dy)
+        return out.detach(), f.grad
+
+    runs = [fwd_bwd(rp.roiaware_pool) for _ in range(2)]
+    plain = fwd_bwd(rp.roiaware_pool_ref)
+    sync(dev)
+
+    def err(a, b_):
+        return float((a - b_).abs().max() / b_.abs().max().clamp_min(
+            1e-30)) if b_.numel() else 0.0
+
+    inside = cells_ref >= 0
+    pairs = int(inside.sum())
+    valid = int(mask.sum())
+    inside_voxels = int(inside.any(1).sum())
+    occupied_cells = int((counts_ref > 0).sum())
+    rec = dict(label=label, B=b, R=r, V=v, C=c, G=g, valid_voxels=valid,
+               inside_pairs=pairs, inside_voxels=inside_voxels,
+               rois_holding_voxels=int(inside.any(-1).sum()),
+               roi_bottom_z_median=float(rois[..., 2].median())
+               if r else None,
+               voxel_z_median=float(centers[..., 2][mask.bool()].median())
+               if valid else None,
+               list_equal=bool(torch.equal(entries, entries_ref)),
+               counts_equal=bool(torch.equal(counts, counts_ref)),
+               pooled_rel_err=err(runs[0][0], plain[0]),
+               dfeats_rel_err=err(runs[0][1], plain[1]),
+               max_abs_err=max(float((runs[0][i] - plain[i]).abs().max())
+                               if plain[i].numel() else 0.0
+                               for i in (0, 1)),
+               repeat_bit_equal=bool(torch.equal(runs[0][0], runs[1][0]) and
+                                     torch.equal(runs[0][1], runs[1][1])))
+    if timed:
+        cells_n = b * r * g ** 3
+        fwd_bytes = rp.roiaware_pool_bytes(b, r, v, c, g, valid,
+                                           inside_voxels)
+        bwd_bytes = rp.roiaware_pool_backward_bytes(b, r, v, c, valid,
+                                                    occupied_cells)
+        fwd_ops = rp.roiaware_pool_ops(valid, r, pairs, c, cells_n)
+        bwd_ops = rp.roiaware_pool_ops(valid, r, pairs, c, cells_n,
+                                       backward=True)
+
+        def forward():
+            with torch.no_grad():
+                rp.roiaware_pool(rois, centers, feats, mask, g)
+
+        def forward_backward():
+            f = feats.detach().float().clone().requires_grad_()
+            rp.roiaware_pool(rois, centers, f, mask, g).backward(dy)
+
+        def plain_forward():
+            with torch.no_grad():
+                rp.roiaware_pool_ref(rois, centers, feats, mask, g)
+
+        bound, by = rp.roiaware_bound_ms(fwd_bytes, fwd_ops,
+                                         HBM_BYTES_PER_S, F32_OPS_PER_S)
+        bwd_bound, bwd_by = rp.roiaware_bound_ms(
+            bwd_bytes, bwd_ops, HBM_BYTES_PER_S, F32_OPS_PER_S)
+        rec.update(backward_bytes=bwd_bytes, backward_ops=bwd_ops)
+        rec.update(ms=cuda_ms(forward, dev), plain_ms=cuda_ms(
+            plain_forward, dev), fwd_bwd_ms=cuda_ms(forward_backward, dev),
+            plain_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(rp.roiaware_pool_ref),
+                                     dev),
+            bound_ms=bound, bound_by=by, backward_bound_ms=bwd_bound,
+            backward_bound_by=bwd_by, bytes=fwd_bytes, ops=fwd_ops,
+            library_ms=None)
+        if dev == "cuda":
+            ops = device_kernels(forward)
+            rec.update(device_ms=sum(n * ms for n, ms in ops.values()),
+                       kernel_device_ms=kernel_ms(ops,
+                                                  "roiaware_forward_kernel"),
+                       device_ops_per_call={k[:60]: n for k, (n, _) in
+                                            ops.items()})
+            ops = device_kernels(forward_backward)
+            rec.update(fwd_bwd_device_ms=sum(n * ms for n, ms in
+                                             ops.values()),
+                       bwd_kernel_device_ms=kernel_ms(
+                           ops, "roiaware_backward_kernel"))
+    return rec
+
+
+def occupied_rois(rois, centers, mask, seed: int = 0):
+    """As many RoIs as ``rois`` holds, each centred on a valid voxel of
+    the sample drawn from ``seed``: the three KITTI classes' anchor sizes
+    in turn, a random yaw, the voxel at half height. The serve shape with
+    every RoI over occupied space (the list and sum stages at work)."""
+    import torch
+    from isfusion_tpu_torch.flagship import KITTI_CLASS_SIZES
+
+    b, r = rois.shape[:2]
+    gen = torch.Generator().manual_seed(seed)
+    out = torch.empty((b, r, 7), dtype=torch.float32)
+    sizes = torch.tensor(KITTI_CLASS_SIZES, dtype=torch.float32)
+    centers, mask = centers.float().cpu(), mask.bool().cpu()
+    for i in range(b):
+        valid = torch.nonzero(mask[i]).flatten()
+        pick = valid[torch.randint(len(valid), (r,), generator=gen)]
+        out[i, :, :3] = centers[i, pick]
+        out[i, :, 3:6] = sizes[torch.arange(r) % 3]
+        out[i, :, 2] -= out[i, :, 5] / 2
+        out[i, :, 6] = (torch.rand(r, generator=gen) * 2 - 1) * math.pi
+    return out.to(rois.device)
+
+
+def phase_parta2_kernel_check(serve_in, train_in, dev: str = "cuda") -> dict:
+    """K16 against its plain version (``roiaware_check``) on the serve
+    request's and the train step's own inputs and on the serve request's
+    voxels with its RoIs moved onto occupied space (``occupied_rois``;
+    these three timed), and on ``testing.roiaware_adversarial_sets`` at G
+    6 (an empty RoI, stacked RoIs, centres on faces and at u = 1 - 2^-24,
+    masked voxels, V not a multiple of 256, one RoI holding 40,000
+    voxels), beside the floor of an empty launch. Fails unless every
+    list of inside pairs and every count equals the plain version's,
+    every pooled output and dfeats is within 1e-6 of its max and every
+    pair of kernel calls is bit-equal."""
+    import numpy as np
+    import torch
+    from isfusion_tpu_torch.testing import roiaware_adversarial_sets
+
+    rois, centers, feats, mask, g = serve_in
+    recs = {"serve": roiaware_check("serve", *serve_in, dev=dev),
+            "serve_occupied": roiaware_check(
+                "serve_occupied", occupied_rois(rois, centers, mask),
+                centers, feats, mask, g, dev=dev),
+            "train": roiaware_check("train", *train_in, dev=dev)}
+    for name, *arrays in roiaware_adversarial_sets(np.random.default_rng(6)):
+        recs[name] = roiaware_check(name, *(torch.from_numpy(a).to(dev)
+                                            for a in arrays), 6, dev=dev,
+                                    timed=False)
+    floor = launch_floor(dev)
+    bad = {k: r for k, r in recs.items()
+           if not (r["list_equal"] and r["counts_equal"] and
+                   r["repeat_bit_equal"]) or r["pooled_rel_err"] > 1e-6 or
+           r["dfeats_rel_err"] > 1e-6}
+    for k, r in recs.items():
+        log("parta2_kernel_case", **r)
+    log("parta2_kernel_check", launch_floor=floor, failed=sorted(bad))
+    if bad:
+        raise RuntimeError(f"K16 differs from its plain version: {bad}")
+    recs["launch_floor"] = floor
+    return recs
+
+
+def _parta2_run(dev: str, pins=None) -> dict:
+    """The tiny PartA2 on ``dev`` from seed 1 (the RPN's box regression
+    scaled by 0.01), under ``testing.pinned_choices(pins)``: the head
+    outputs, the decoded boxes, the loss terms and each top-level module's
+    gradient of one train-mode loss forward, and the launches of the
+    predict and loss paths."""
+    import torch
+    from isfusion_tpu_torch.flagship import build_parta2
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.testing import pinned_choices, tame_box_deltas
+
+    model, batch_fn = build_parta2(tiny=True, device=dev, seed=1)
+    tame_box_deltas(model)
+    batch = batch_fn(2, seed=3)
+    with pinned_choices(pins) as choices:
+        feats = [t.detach().cpu() for t in _leaves(
+            model(batch, mode="feats", device=dev))]
+        cuda_build.reset_launches()
+        out = {k: v.cpu() for k, v in model(batch, device=dev).items()}
+        sync(dev)
+        predict = dict(cuda_build.LAUNCHES)
+        model.train()
+        cuda_build.reset_launches()
+        losses = model(batch, mode="loss", device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+        sum(losses.values()).backward()
+        sync(dev)
+        train = dict(cuda_build.LAUNCHES)
+    grads = {top: torch.cat([p.grad.detach().cpu().flatten() for p in
+                             getattr(model, top).parameters()])
+             for top in PARTA2_TOPS}
+    return dict(feats=feats, out=out, choices=choices, grads=grads,
+                losses={k: float(v.detach()) for k, v in losses.items()},
+                launches=dict(predict={k: predict[k] for k in
+                                       PARTA2_PREDICT_KERNELS},
+                              train={k: train[k] for k in (
+                                  "roiaware_pool", "masked_gather",
+                                  "boxes_iou_3d", "nms_bev")}))
+
+
+def phase_parta2_reference(dev: str = "cuda") -> dict:
+    """The tiny PartA2 in float32 (TF32 off) on the card against the CPU
+    from the same weights and batch, the card taking the CPU's discrete
+    choices (ReLU signs, the proposals' top-k, the NMS keep masks:
+    ``testing.pinned_choices``; each differing choice of its own must be
+    a tie within rounding). Given those: head outputs within 1e-4 of their
+    max, the decoded boxes and scores within 1e-4 of their max with equal
+    masks and labels, loss terms within 1e-4 relative, each top-level
+    module's gradient within 1e-3 of its max; on the card K16, K12 and
+    K10-NMS launch on the predict path and K16 (forward and backward),
+    K12, K10 and K10-NMS on the loss path."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = _parta2_run("cpu")
+    card = _parta2_run(dev, pins=cpu["choices"])
+    feat_err = max(_rel_to_max(a, b) for a, b in zip(card["feats"],
+                                                     cpu["feats"]))
+    same = all(torch.equal(card["out"][k], cpu["out"][k])
+               for k in ("mask", "labels"))
+    box_err = max(_rel_to_max(card["out"][k], cpu["out"][k])
+                  for k in ("bboxes", "scores"))
+    loss_err = max(abs(card["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu["losses"].items())
+    grad_err = {top: _rel_to_max(card["grads"][top], g)
+                for top, g in cpu["grads"].items()}
+    choices = card["choices"]
+    rec = dict(head_rel_err=feat_err, same_mask_and_labels=same,
+               box_rel_err=box_err, loss_rel_err=loss_err,
+               grad_rel_err=grad_err, losses=cpu["losses"],
+               choices_pinned={k: len(choices[k]) for k in (
+                   "relu", "topk", "nms_bev")},
+               card_own_choices_differ=choices["flips"],
+               unexplained_choices=choices["unexplained"],
+               launches=card["launches"])
+    log("parta2_reference", **rec)
+    if not same or feat_err > 1e-4 or box_err > 1e-4 or loss_err > 1e-4 or \
+            max(grad_err.values()) > 1e-3 or choices["unexplained"]:
+        raise RuntimeError(f"tiny PartA2 on the card differs from the CPU: "
+                           f"{rec}")
+    if dev == "cuda" and (min(card["launches"]["predict"].values()) == 0 or
+                          min(card["launches"]["train"].values()) == 0 or
+                          card["launches"]["train"]["roiaware_pool"] < 2):
+        raise RuntimeError(f"tiny PartA2 on the card missed a kernel: "
+                           f"{card['launches']}")
+    return rec
+
+
+def run_parta2_phases(dev: str = "cuda") -> dict:
+    """parta2-serve, parta2-train, K16's checks and the tiny reference."""
+    import torch
+    from isfusion_tpu_torch.flagship import build_parta2, parta2_optim_cfg
+    from isfusion_tpu_torch.testing import tame_box_deltas
+
+    model, batch_fn = build_parta2(device=dev, seed=0)
+    # random weights regress boxes far wider than the scene: serve and
+    # train with anchor-sized proposals
+    tame_box_deltas(model)
+    launches, serve_in, serve = phase_parta2_main_path(model, batch_fn(1),
+                                                       dev)
+    train = phase_parta2_train(model, batch_fn(
+        parta2_optim_cfg()["samples_per_gpu"], seed=1), dev)
+    train_in = train.pop("roiaware_inputs")
+    del model
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    check = phase_parta2_kernel_check(serve_in, train_in, dev)
+    return dict(launches=launches, serve=serve, train=train, check=check,
+                reference=phase_parta2_reference(dev))
+
+
+def parta2_run() -> int:
+    """``python3 chip_smoke.py --parta2``: the device and build phases,
+    then the PartA2 phases alone."""
+    import torch
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    run_parta2_phases()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 # ------------------------------------------------ LiDAR detectors on parts
 @contextlib.contextmanager
 def recording_heatmaps():
@@ -4461,6 +5012,8 @@ def main() -> int:
 
     run_fcos_phases()
     torch.cuda.empty_cache()
+    parta2 = run_parta2_phases()
+    torch.cuda.empty_cache()
     # the DP ranks start, build and warm up during the variants, which
     # time nothing
     dp_ranks = start_dp_ranks()
@@ -4634,6 +5187,50 @@ def main() -> int:
              mvx_shape={k: {f: v[f] for f in SCATTER_FIELDS if f in v}
                         for k, v in mvx_dyn.items()
                         if v["kernel"] == "dynamic_scatter"})]
+    k16 = parta2["check"]
+    k16_serve = k16["serve"]
+    p_req = parta2["serve"]["launches_per_request"]
+    p_steps = parta2["train"]["launches_per_step"]
+    kernels.append(dict(
+        name="roiaware_pool", route="cuda",
+        source="isfusion_tpu_torch/csrc/roiaware_pool.cu",
+        replaces="isfusion_tpu/models/roi_heads/"
+                 "part_aggregation_roi_head.py:26",
+        launches=parta2["launches"]["roiaware_pool"],
+        max_abs_err=max(r["max_abs_err"] for key, r in k16.items()
+                        if key != "launch_floor"),
+        ms=k16_serve["ms"], plain_ms=k16_serve["plain_ms"],
+        bound_ms=k16_serve["bound_ms"], bound_by=k16_serve["bound_by"],
+        library_ms=None,
+        **{key: k16_serve[key] for key in (
+            "device_ms", "kernel_device_ms", "B", "R", "V", "C", "G",
+            "valid_voxels", "inside_pairs", "rois_holding_voxels",
+            "fwd_bwd_ms", "fwd_bwd_device_ms", "bwd_kernel_device_ms",
+            "plain_fwd_bwd_ms", "backward_bound_ms")},
+        launches_per_request=[r["roiaware_pool"] for r in p_req],
+        train_launches_per_step=[dict(
+            forward=s_["roiaware_pool_forward"],
+            backward=s_["roiaware_pool_backward"]) for s_ in p_steps],
+        **{shape: {key: k16[case][key] for key in K16_SHAPE_FIELDS}
+           for shape, case in (("train_shape", "train"),
+                               ("serve_occupied", "serve_occupied"))},
+        adversarial_sets=sorted(key for key in k16 if key not in (
+            "serve", "serve_occupied", "train", "launch_floor")),
+        launch_floor=k16["launch_floor"]))
+    for k in kernels:
+        if k["name"] == "masked_gather":
+            k["parta2_launches_per_request"] = [r["masked_gather"]
+                                                for r in p_req]
+            k["parta2_train_launches_per_step"] = [dict(
+                forward=s_["masked_gather_forward"],
+                backward=s_["masked_gather_backward"]) for s_ in p_steps]
+        elif k["name"] == "nms_bev":
+            k["parta2_launches_per_request"] = [r["nms_bev"] for r in p_req]
+            k["parta2_train_launches_per_step"] = [s_["nms_bev"]
+                                                   for s_ in p_steps]
+        elif k["name"] == "boxes_iou_3d":
+            k["parta2_train_launches_per_step"] = [s_["boxes_iou_3d"]
+                                                   for s_ in p_steps]
     dp_keys = dict(masked_gather=("masked_gather_forward",
                                   "masked_gather_backward"),
                    dynamic_voxelize=("dynamic_voxelize",),
@@ -4973,6 +5570,8 @@ def isfusion_learn_run() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--fcos"]:
         sys.exit(fcos_run())
+    if sys.argv[1:] == ["--parta2"]:
+        sys.exit(parta2_run())
     if sys.argv[1:] == ["--isfusion-learn"]:
         sys.exit(isfusion_learn_run())
     if sys.argv[1:] == ["--dp"]:

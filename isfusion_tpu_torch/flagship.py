@@ -31,7 +31,11 @@ momentum, clip 35). ``build_mvxnet`` builds MVX-Net of
 the conv_module SparseEncoder, the 3-class KITTI Anchor3DHead) with a
 KITTI-like synthetic batch of one camera, and ``mvxnet_optim_cfg`` its
 recipe (AdamW, CosineAnnealing with linear warmup, clip 35).
-``build_fcos3d`` builds the monocular FCOS3D of ``configs/fcos3d/fcos3d_
+``build_parta2`` builds the two-stage PartA2 (SparseUNet, the RPN
+Anchor3DHead, the RoI head with K16's pooling) at MVX-Net's KITTI
+settings on its batch, and ``parta2_optim_cfg`` its recipe (AdamW, cyclic
+lr and momentum, clip 10). ``build_fcos3d`` builds the monocular FCOS3D
+of ``configs/fcos3d/fcos3d_
 r101_caffe_fpn_gn-head_2x8_1x_nus-mono3d.py`` (ResNet-101 caffe, FPN with
 two extra levels, the GN FCOSMono3DHead) with a nuScenes-like synthetic
 camera batch (``synthetic_mono_batch``), and ``fcos3d_optim_cfg`` its
@@ -654,6 +658,142 @@ def build_mvxnet(tiny: bool = False, device=None, seed: int = 0
         def batch_fn(b, seed=0):
             return synthetic_kitti_batch(
                 b, num_points=2048, img_hw=(64, 192), num_gt=8, seed=seed,
+                pcr=pcr, gt_range=(pcr[0], pcr[1], pcr[3], pcr[4]))
+    else:
+        def batch_fn(b, seed=0):
+            return synthetic_kitti_batch(b, seed=seed)
+    return model, batch_fn
+
+
+# PartA2: the KITTI 3-class settings of MVX-Net's config (range, voxel
+# size, sparse shape, SECOND, SECONDFPN, the anchors), the JAX SparseUNet's
+# and PartAggregationROIHead's defaults (the reference's widths), and the
+# reference PartA2's RPN test config, which the JAX module uses in
+# training too (one proposal config, ROADMAP queue 3)
+PARTA2_RPN_TEST_CFG = dict(use_rotate_nms=True, nms_across_levels=False,
+                           nms_pre=1024, nms_thr=0.7, score_thr=0.0,
+                           min_bbox_size=0, max_num=100)
+# the tiny PartA2's scene (the JAX package's PartA2 test): 16 x 16 x 8 m,
+# at 0.25 x 0.25 x 0.2 m voxels (an 8 x 8 BEV after the three stride-2
+# stages)
+PARTA2_TINY_RANGE = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+
+
+def parta2_model_cfg(tiny: bool = False) -> dict:
+    """PartA2's model config dict. Full width: hard voxels (5 points, the
+    caps (16000, 40000)), HardSimpleVFE(4), the SparseUNet of sparse shape
+    [41, 1600, 1408] (base 16, output 128, the default encoder and decoder
+    widths), MVX-Net's SECOND (256 -> [128, 256]), SECONDFPN (-> [256,
+    256]) and 3-class Anchor3DHead (512 wide, the three KITTI anchors, 2
+    rotations, assigned per class), the RoI head's defaults (grid 6,
+    shared (128, 128), 20 input channels) and 100 proposals; the
+    SparseUNet, SECOND, SECONDFPN and the RPN's convs in bf16, the pooling,
+    the RoI MLP, the part heads, targets and losses in float32. ``tiny``:
+    the JAX package's PartA2 test model (a 16 m scene, a 4-stage SparseUNet
+    of widths 8-16, SECOND / SECONDFPN 16-32 wide, grid 4, shared (32, 32))
+    with the three KITTI anchors, 0.25 m voxels (an 8 x 8 BEV: 384
+    anchors), the full width's RPN test config over all of them with 64
+    proposals, the sparse shape's depth 41 as the reference's (so conv_out
+    gives SECOND its 32 channels) and
+    the JAX SparseUNet's table caps lifted above what a stride-2 conv can
+    make (``stage_cap_ratios``, read by the JAX package only); float32."""
+    from .config import Config
+
+    cfg = Config.fromfile(MVXNET_CFG)
+    mvx = copy.deepcopy(dict(cfg.model))
+    rpn = dict(mvx["pts_bbox_head"])
+    roi = dict(type="PartAggregationROIHead", num_classes=3)
+    train_cfg = dict(rpn=dict(mvx["train_cfg"]["pts"]))
+    if not tiny:
+        bf16 = dict(compute_dtype="bfloat16")
+        return dict(
+            type="PartA2",
+            voxel_layer=dict(max_num_points=5,
+                             point_cloud_range=list(cfg["point_cloud_range"]),
+                             voxel_size=list(cfg["voxel_size"]),
+                             max_voxels=(16000, 40000)),
+            voxel_encoder=dict(type="HardSimpleVFE", num_features=4),
+            middle_encoder=dict(
+                type="SparseUNet", in_channels=4,
+                sparse_shape=list(mvx["pts_middle_encoder"]["sparse_shape"]),
+                order=("conv", "norm", "act"), **bf16),
+            backbone=dict(mvx["pts_backbone"], **bf16),
+            neck=dict(mvx["pts_neck"], **bf16), rpn_head=dict(rpn, **bf16),
+            roi_head=roi, num_proposals=100, train_cfg=train_cfg,
+            test_cfg=dict(rpn=dict(PARTA2_RPN_TEST_CFG)))
+    pcr = PARTA2_TINY_RANGE
+    rpn.update(in_channels=32, feat_channels=32, anchor_generator=dict(
+        rpn["anchor_generator"],
+        ranges=[[pcr[0], pcr[1], z, pcr[3], pcr[4], z] for z in
+                KITTI_CLASS_Z]))
+    return dict(
+        type="PartA2",
+        voxel_layer=dict(max_num_points=5, point_cloud_range=pcr,
+                         voxel_size=[0.25, 0.25, 0.2],
+                         max_voxels=(1024, 1024)),
+        voxel_encoder=dict(type="HardSimpleVFE", num_features=4),
+        middle_encoder=dict(
+            type="SparseUNet", in_channels=4, sparse_shape=[41, 64, 64],
+            base_channels=8, output_channels=16,
+            encoder_channels=((8,), (16, 16), (16, 16), (16, 16)),
+            encoder_paddings=((1,), (1, 1), (1, 1), ((0, 1, 1), 1)),
+            decoder_channels=((16, 16, 16), (16, 16, 16), (16, 16, 8),
+                              (8, 8, 8)),
+            decoder_paddings=((1, 0), (1, 0), (0, 0), (0, 1)),
+            stage_cap_ratios=(8.0, 8.0, 8.0, 8.0)),
+        backbone=dict(type="SECOND", in_channels=32, out_channels=[16, 32],
+                      layer_nums=[1, 1], layer_strides=[1, 2]),
+        neck=dict(type="SECONDFPN", in_channels=[16, 32],
+                  out_channels=[16, 16], upsample_strides=[1, 2]),
+        rpn_head=rpn,
+        roi_head=dict(roi, grid_size=4, shared_channels=(32, 32)),
+        num_proposals=64,
+        train_cfg=dict(rpn=dict(
+            assigner=dict(pos_iou_thr=0.6, neg_iou_thr=0.3, min_pos_iou=0.3),
+            code_weight=[1.0] * 7)),
+        test_cfg=dict(rpn=dict(PARTA2_RPN_TEST_CFG, nms_pre=512,
+                               max_num=64)))
+
+
+def parta2_optim_cfg() -> dict:
+    """PartA2's training recipe, the reference's cyclic schedule as PartA2
+    sets it: ``optimizer`` (AdamW, lr 0.001, betas (0.95, 0.99), weight
+    decay 0.01), ``optimizer_config`` (clip 10), ``lr_config`` (cyclic, to
+    10x over 40% of the steps, then to 1e-4x) and ``momentum_config``
+    (cyclic, beta1 0.95 -> 0.85 -> 0.95), ``samples_per_gpu`` 2 (its
+    ``2x8``)."""
+    return dict(
+        optimizer=dict(type="AdamW", lr=0.001, betas=(0.95, 0.99),
+                       weight_decay=0.01),
+        optimizer_config=dict(grad_clip=dict(max_norm=10, norm_type=2)),
+        lr_config=dict(policy="cyclic", target_ratio=(10, 1e-4),
+                       cyclic_times=1, step_ratio_up=0.4),
+        momentum_config=dict(policy="cyclic",
+                             target_ratio=(0.85 / 0.95, 1), cyclic_times=1,
+                             step_ratio_up=0.4),
+        samples_per_gpu=2)
+
+
+def build_parta2(tiny: bool = False, device=None, seed: int = 0
+                 ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): PartA2 with weights drawn from ``seed``, in eval
+    mode on ``device`` (default: the CUDA card; raises if it is missing),
+    and ``batch_fn(batch_size, seed=0)`` giving a KITTI-like numpy batch
+    (``synthetic_kitti_batch``: full width, MVX-Net's 120,000-point cloud
+    and 16 padded 3-class GT rows; tiny, 1,024 points over the tiny scene
+    and 8 GT rows)."""
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model_cfg = parta2_model_cfg(tiny)
+    model = init_weights(build_detector(model_cfg), seed).to(dev).eval()
+    if tiny:
+        pcr = PARTA2_TINY_RANGE
+
+        def batch_fn(b, seed=0):
+            return synthetic_kitti_batch(
+                b, num_points=1024, img_hw=(8, 8), num_gt=8, seed=seed,
                 pcr=pcr, gt_range=(pcr[0], pcr[1], pcr[3], pcr[4]))
     else:
         def batch_fn(b, seed=0):

@@ -1,5 +1,5 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
-CenterPoint, MVX-Net, FCOS3D, VoxelNet and TransFusion-L paths (counterpart of ``isfusion_tpu/models/builder.py``):
+CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L and PartA2 paths (counterpart of ``isfusion_tpu/models/builder.py``):
 config dicts with a ``type`` key become modules through the port's
 registries."""
 from __future__ import annotations
@@ -17,9 +17,11 @@ from .fusion_layers.point_fusion import PointFusion
 from .middle_encoders.isfusion_encoder import ISFusionEncoder
 from .middle_encoders.pillar_scatter import PointPillarsScatter
 from .middle_encoders.sparse_encoder import SparseEncoder
+from .middle_encoders.sparse_unet import SparseUNet
 from .necks.fpn import FPN
 from .necks.generalized_lss import GeneralizedLSSFPN
 from .necks.second_fpn import SECONDFPN
+from .roi_heads.part_aggregation_roi_head import PartAggregationROIHead
 from .voxel_encoders import (DynamicFusionVFE, DynamicPillarFeatureNet,
                              DynamicSimpleVFE, DynamicVFE, HardSimpleVFE,
                              HardVFE, PillarFeatureNet)
@@ -35,10 +37,12 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (VOXEL_ENCODERS, DynamicPillarFeatureNet),
                    (VOXEL_ENCODERS, DynamicFusionVFE),
                    (MIDDLE_ENCODERS, SparseEncoder),
+                   (MIDDLE_ENCODERS, SparseUNet),
                    (MIDDLE_ENCODERS, PointPillarsScatter),
                    (FUSION_LAYERS, ISFusionEncoder),
                    (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead),
-                   (HEADS, CenterHead), (HEADS, FCOSMono3DHead)):
+                   (HEADS, CenterHead), (HEADS, FCOSMono3DHead),
+                   (HEADS, PartAggregationROIHead)):
     _reg.register_module(module=_cls)
 
 
@@ -70,6 +74,6 @@ def build_detector(cfg):
     """Build a detector from its config dict (on the CPU, uninitialised:
     the factories of ``flagship.py`` initialise and place it)."""
     from .detectors import (centerpoint, isfusion,  # noqa: F401  (register)
-                            mvx_two_stage, single_stage_mono3d,
+                            mvx_two_stage, parta2, single_stage_mono3d,
                             transfusion, voxelnet)
     return build_from_cfg(dict(cfg), DETECTORS)

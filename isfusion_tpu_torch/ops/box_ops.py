@@ -31,6 +31,10 @@ geometry of ``csrc/rotated_box.cuh``; K10-NMS's greedy pass is
 launch) or raises. The assigner's IoU3DCost calls K10 once per train
 step, on all samples and decoder layers; Anchor3DHead's ``get_bboxes``
 calls K10-NMS once per request, CenterHead's ``get_bboxes`` K10-circle.
+
+``box_local_uvw(boxes, centers)``: the world-to-box transform of points
+(normalised in-box coordinates and the inside mask), shared by PartA2's
+part targets and K16 (``ops/roiaware_pool.py``).
 """
 from __future__ import annotations
 
@@ -88,6 +92,36 @@ def nms_smem_bytes(classes: int, boxes: int) -> int:
 def limit_period(val: torch.Tensor, offset: float = 0.5,
                  period: float = math.pi) -> torch.Tensor:
     return val - torch.floor(val / period + offset) * period
+
+
+def box_trig(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., N, 2) cos and sin of the boxes' yaws (``boxes`` (..., N, 7+))."""
+    yaw = boxes[..., 6]
+    return torch.stack([torch.cos(yaw), torch.sin(yaw)], -1)
+
+
+def box_local_uvw(boxes: torch.Tensor, centers: torch.Tensor):
+    """Normalised in-box coordinates of points against bottom-centre
+    LiDAR boxes: ``boxes`` (..., N, 7+), ``centers`` (..., P, 3) -> (uvw
+    (..., P, N, 3), in [0, 1) where inside; inside (..., P, N) bool). The
+    one home of the world-to-box transform (the part targets and K16
+    use it), in the JAX package's order of operations, each step rounded
+    once: rel = p - c, rel_z -= dz / 2, lx = rx cos - ry sin, ly = rx sin
+    + ry cos, dims = max(dims, 1e-3), u = lx / dx + 0.5 (v, w alike),
+    inside = all(0 <= uvw < 1); the yaws' cos and sin are ``box_trig``'s,
+    which K16's wrapper hands its kernel."""
+    trig = box_trig(boxes)
+    b = boxes[..., None, :, :]
+    rel = centers[..., :, None, :] - b[..., :3]
+    rz = rel[..., 2] - b[..., 5] * 0.5
+    cos, sin = trig[..., None, :, 0], trig[..., None, :, 1]
+    lx = rel[..., 0] * cos - rel[..., 1] * sin
+    ly = rel[..., 0] * sin + rel[..., 1] * cos
+    dims = b[..., 3:6].clamp_min(1e-3)
+    uvw = torch.stack([lx / dims[..., 0] + 0.5, ly / dims[..., 1] + 0.5,
+                       rz / dims[..., 2] + 0.5], -1)
+    inside = ((uvw >= 0) & (uvw < 1)).all(-1)
+    return uvw, inside
 
 
 def rotated_corners_2d(boxes_bev: torch.Tensor) -> torch.Tensor:

@@ -11,13 +11,19 @@ host plans, capacity caps).
   site o reads input o + k - k//2.
 - ``strided_rulebook``: output site o is active iff some active input lies
   in its receptive field, input = o * s - p + k.
+- ``inverse_rulebook``: a sparse inverse conv (SparseUNet's upsampling)
+  writes onto a saved site table; tap k of target site h reads the low
+  site l with l * s - p + k = h. The JAX package's strided conv caps its
+  output sites (``out_cap``, a TPU table size); ``strided_rulebook``
+  keeps them all.
 - ``sparse_conv``: output-stationary gather-GEMM. The (N_out, K * Cin)
   im2col is formed by the masked-gather kernel (``ops/gather.py``, K12)
   with ``fmask`` = neighbour found, then one matmul with the
   (K * Cin, Cout) weight. No atomics: deterministic.
 - Its backward is built from K12 too (``SparseConvFunction``). For a
   fixed tap k the map o -> rows[o, k] is injective over found pairs (subm:
-  i = o + k - k//2; strided: i = o * s - p + k), so the transposed
+  i = o + k - k//2; strided: i = o * s - p + k; inverse: o = i * s - p +
+  k; ``rulebook_is_injective`` checks it), so the transposed
   rulebook ``rows_T[rows[o, k], k] = o`` is written by one collision-free
   ``index_put_``. dX is the gather-GEMM of dY over it with the per-tap
   transposed weights; dW is im2col^T @ dY with the im2col regathered chunk
@@ -135,6 +141,33 @@ def strided_rulebook(sp: SparseTensor, ksize, stride, padding
     q[..., 1:] = q[..., 1:] * sv - pv + off[None]
     rows, found = _lookup(sp, q, _in_bounds(q, sp.shape))
     return out, rows, found
+
+
+def inverse_rulebook(low: SparseTensor, target: SparseTensor, ksize,
+                     stride, padding) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N_target, K) rows of ``low`` + found mask of a sparse inverse conv
+    onto ``target``'s saved sites: tap k of target site h reads the low
+    site l with l * s - p + k == h (exact division, l inside ``low``'s
+    grid, the same sample), the transpose of ``strided_rulebook``."""
+    ks, s, p = _norm3(ksize), _norm3(stride), _norm3(padding)
+    dev = target.coords.device
+    off = _offsets(ks, dev)                                   # (K, 3)
+    sv = torch.tensor(s, device=dev)
+    num = target.coords.long()[:, None, 1:] + torch.tensor(p, device=dev) \
+        - off[None]                                           # (N, K, 3)
+    l_zyx = torch.div(num, sv, rounding_mode="floor")
+    exact = (l_zyx * sv == num).all(-1)
+    q = torch.cat([target.coords.long()[:, None, :1].expand(
+        -1, off.shape[0], 1), l_zyx], -1)
+    return _lookup(low, q, exact & _in_bounds(q, low.shape))
+
+
+def rulebook_is_injective(rows: torch.Tensor, found: torch.Tensor) -> bool:
+    """Whether, for each tap k, no two found pairs of a rulebook read the
+    same row: what ``transpose_rulebook`` (the backward) assumes."""
+    k = rows.shape[1]
+    keys = (rows.long() * k + torch.arange(k, device=rows.device))[found]
+    return bool(torch.unique(keys).numel() == keys.numel())
 
 
 def flat_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

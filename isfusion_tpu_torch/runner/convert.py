@@ -1,5 +1,6 @@
 """Carry the JAX package's IS-Fusion, PointPillars, CenterPoint, MVX-Net,
-FCOS3D, VoxelNet and TransFusion-L variables into the port's state_dict.
+FCOS3D, VoxelNet, TransFusion-L and PartA2 variables into the port's
+state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -28,6 +29,16 @@ prefixes: a camera detector (FCOS3D: ``backbone_m``, ``neck_m``,
 with the prefixed rules and their keys given the reference's names
 (``backbone.``, ``voxel_encoder.`` ...); the JAX FPN names its laterals by
 input level (``lateral_{start_level + i}``), the reference from 0.
+PartA2's tree is read the same way, its ``rpn_head_m`` as the
+reference's ``rpn_head.``; its SparseUNet's encoder takes the reference's
+names (``middle_encoder.conv_input``, ``encoder_layers.encoder_layer{i}.
+{j}``, ``conv_out``), while its decoder (``decoder_conv{i}``,
+``decoder_up{i}``, ``decoder_same{i}``, ``decoder_merge{i}``), RoI head
+(``roi_head.shared_{i}``, ``conv_cls``, ``conv_reg``), ``seg_head`` and
+``part_head`` keep the JAX module's own names: they are not the
+reference's lateral / merge / upsample layers or its sparse-conv bbox
+head. The inverse convs' kernels take the spconv layout of the other
+sparse convs.
 
 The port keeps its own copy of this mapping (it imports nothing of the
 JAX package).
@@ -112,6 +123,11 @@ _RULES = [
      r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.0", "sparse"),
     (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)(?:_proj)?/bn",
      r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.1", "norm"),
+    # SparseUNet's decoder (PartA2): the JAX module's own names
+    (r"pts_middle_encoder_m/(decoder_(?:conv|up|same|merge)\d+)",
+     r"pts_middle_encoder.\1.0", "sparse"),
+    (r"pts_middle_encoder_m/(decoder_(?:conv|up|same|merge)\d+)/bn",
+     r"pts_middle_encoder.\1.1", "norm"),
     (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)/_SparseConvModule_0",
      r"pts_middle_encoder.encoder_layers.encoder_layer\1.\2.conv1", "sparse"),
     (r"pts_middle_encoder_m/encoder_layer(\d+)_(\d+)/_SparseConvModule_0/bn",
@@ -177,6 +193,9 @@ _RULES = [
     (r"pts_neck_m/ConvTransposeModule_(\d+)/bn", r"pts_neck.deconv.\1.1",
      "norm"),
     # -------------------------------------------------------------- head
+    # PartA2's RoI head and part-aware heads (the JAX module's layers)
+    (r"roi_head_m/(shared_\d+|conv_cls|conv_reg)", r"roi_head.\1", "dense"),
+    (r"(seg_head|part_head)", r"\1", "dense"),
     (r"pts_bbox_head_m/(conv_cls|conv_reg|conv_dir_cls)",
      r"pts_bbox_head.\1", "conv2d"),
     (r"pts_bbox_head_m/shared_conv", "pts_bbox_head.shared_conv", "conv2d"),
@@ -305,6 +324,13 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` -> the port's state_dict
     (reference layout), buffers included."""
     params = variables.get("params", {})
+    if "rpn_head_m" in params:
+        names = dict(_VOXELNET_MODULES, rpn_head_m="pts_bbox_head_m")
+        sd = state_dict_from_jax(_renamed(variables, names))
+        return {("rpn_head." + k[len("pts_bbox_head."):]
+                 if k.startswith("pts_bbox_head.") else
+                 k[len("pts_"):] if k.startswith("pts_") else k): v
+                for k, v in sd.items()}
     if "voxel_encoder_m" in params or "middle_encoder_m" in params:
         sd = state_dict_from_jax(_renamed(variables, _VOXELNET_MODULES))
         return {k[len("pts_"):] if k.startswith("pts_") else k: v

@@ -16,10 +16,13 @@ import torch
 
 
 def bbox_head(model):
-    """A detector's head: ``pts_bbox_head`` (MVX family) or ``bbox_head``
-    (VoxelNet, FCOS3D)."""
-    head = getattr(model, "pts_bbox_head", None)
-    return head if head is not None else model.bbox_head
+    """A detector's head: ``pts_bbox_head`` (MVX family), ``bbox_head``
+    (VoxelNet, FCOS3D) or PartA2's ``rpn_head``."""
+    for name in ("pts_bbox_head", "bbox_head", "rpn_head"):
+        head = getattr(model, name, None)
+        if head is not None:
+            return head
+    raise AttributeError(f"{type(model).__name__} has no box head")
 
 
 def tame_box_deltas(model, scale: float = 0.01):
@@ -317,11 +320,74 @@ def voxel_adversarial_sets(gen: np.random.Generator, point_cloud_range,
     return sets
 
 
+def roiaware_case(gen: np.random.Generator, b: int, r: int, v: int, c: int,
+                  span: float = 8.0):
+    """(rois (B, R, 7), centers (B, V, 3), feats (B, V, C), mask (B, V))
+    float32 / bool: RoIs of 1-5 m around the middle of a ``span`` m
+    square (they overlap), voxel centres uniform over it, a tenth of the
+    voxels masked."""
+    rois = np.zeros((b, r, 7), np.float32)
+    rois[..., :2] = gen.uniform(-span / 4, span / 4, (b, r, 2))
+    rois[..., 2] = gen.uniform(-2.0, -1.0, (b, r))
+    rois[..., 3:6] = gen.uniform(1.0, 5.0, (b, r, 3))
+    rois[..., 6] = gen.uniform(-np.pi, np.pi, (b, r))
+    centers = gen.uniform(-span / 2, span / 2, (b, v, 3)).astype(np.float32)
+    centers[..., 2] = gen.uniform(-2.5, 2.0, (b, v))
+    feats = gen.normal(size=(b, v, c)).astype(np.float32)
+    return rois, centers, feats, gen.uniform(size=(b, v)) >= 0.1
+
+
+def roiaware_adversarial_sets(gen: np.random.Generator, c: int = 20):
+    """K16's edge cases, each (name, rois, centers, feats, mask) as
+    ``roiaware_case``: an empty RoI among others, 100 RoIs stacked on one
+    spot, voxel centres exactly on the faces of axis-aligned RoIs (u = 0
+    inside, u = 1 outside) and at u = 1 - 2^-24 (inside, the last cell),
+    masked voxels inside RoIs, V not a multiple of the 256-voxel chunk
+    (1,037 over 2 samples), and one RoI holding all 40,000 voxels."""
+    sets = []
+    rois, centers, feats, mask = roiaware_case(gen, 2, 12, 2000, c)
+    rois[0, 3, :2] = 500.0                                   # holds nothing
+    sets.append(("empty_roi", rois, centers, feats, mask))
+    rois, centers, feats, mask = roiaware_case(gen, 1, 100, 5000, c, 4.0)
+    rois[..., :3] = rois[:, :1, :3]
+    sets.append(("stacked", rois, centers, feats, mask))
+    # axis-aligned RoIs of 2 x 2 x 2 m at the origin (bottom at z = -1):
+    # centres on each face (u = 0 inside, u = 1 outside), at u = 1 - 2^-24
+    # and in between
+    rois = np.zeros((1, 3, 7), np.float32)
+    rois[0, :, 2] = -1.0
+    rois[0, :, 3:6] = 2.0
+    rois[0, 1, 6] = np.float32(np.pi)                       # turned round
+    rois[0, 2, 3] = 1.0                                      # 1 m long in x
+    last = np.float32(0.5) - np.float32(2.0 ** -24)          # u = 1 - 2^-24
+    grid = np.linspace(-0.95, 0.95, 9, dtype=np.float32)
+    pts = []
+    for axis in range(3):
+        for face in (-1.0, 1.0, float(last), -float(last), 0.5, -0.5):
+            for a, b2 in zip(grid, grid[::-1]):
+                p = [a, b2, (a + b2) / 2]
+                p[axis] = face
+                pts.append(p)
+    centers = np.asarray(pts, np.float32)[None]
+    feats = gen.normal(size=(1, centers.shape[1], c)).astype(np.float32)
+    sets.append(("faces", rois, centers, feats,
+                 np.ones(centers.shape[:2], bool)))
+    rois, centers, feats, mask = roiaware_case(gen, 2, 8, 3000, c, 4.0)
+    mask = gen.uniform(size=mask.shape) < 0.5
+    sets.append(("masked", rois, centers, feats, mask))
+    sets.append(("ragged_v",) + roiaware_case(gen, 2, 20, 1037, c))
+    rois, centers, feats, mask = roiaware_case(gen, 1, 3, 40000, c)
+    rois[0, 0, :6] = (0.0, 0.0, -10.0, 100.0, 100.0, 100.0)
+    sets.append(("one_roi_holds_all", rois, centers, feats, mask))
+    return sets
+
+
 @contextlib.contextmanager
 def pinned_choices(recorded: dict = None):
     """The discrete choices of a LiDAR detector's forwards, in call order:
     each ReLU's sign pattern (``torch.relu``, which ``nn.ReLU`` calls), the
-    heads' top-k indices (``topk_stable``), TransFusion's Hungarian
+    heads' and PartA2's proposal top-k indices (``topk_stable``),
+    TransFusion's Hungarian
     matches (``assign_batch``) and the keep masks of K10-NMS and
     K10-circle. With ``recorded=None`` the block records them in the
     yielded dict. Given the record of an earlier run of the same weights
@@ -340,6 +406,7 @@ def pinned_choices(recorded: dict = None):
     from .core.bbox import coders
     from .models.dense_heads import (anchor3d_head, centerpoint_head,
                                      transfusion_head)
+    from .models.detectors import parta2
     from .ops import box_ops
 
     out = dict(relu=[], topk=[], assign=[], nms_bev=[], nms_circle=[],
@@ -509,7 +576,8 @@ def pinned_choices(recorded: dict = None):
              (centerpoint_head, "nms_bev_mask", nms_bev),
              (centerpoint_head, "circle_nms_mask", nms_circle)] + \
         [(m, "topk_stable", topk) for m in (anchor3d_head, centerpoint_head,
-                                            transfusion_head, coders)]
+                                            transfusion_head, coders,
+                                            parta2)]
     saved = [(m, name, getattr(m, name), new) for m, name, new in saved]
     for m, name, _, new in saved:
         setattr(m, name, new)

@@ -30,7 +30,12 @@ off: sums run in another order); the tiny MVX-Net as the tiny
 PointPillars. In a process group of one NCCL rank: a sync norm launches
 no collective and equals the plain norm bit for bit, and the tiny
 PointPillars' DP step equals the plain step (losses 1e-4 relative,
-parameters 1e-3 of each module's max) with one all-reduce.
+parameters 1e-3 of each module's max) with one all-reduce. K16 (RoI-aware
+pooling): the (r, v) -> cell map and the cell counts equal to the plain
+version's on the card, pooled features and dfeats within 1e-6 of their
+max (the plain version sums with atomics), two calls bit-equal; the
+sparse inverse conv through K12 on the card within 1e-5 of the max of the
+CPU's.
 """
 import contextlib
 
@@ -1049,3 +1054,108 @@ def test_dp_step_at_one_nccl_rank_is_the_plain_step(card, tmp_path):
         got = torch.cat([p_dp[n].detach().ravel() for n in names])
         assert float((got - want).abs().max() /
                      want.abs().max().clamp_min(1e-30)) <= 1e-3, top
+
+
+# ------------------------------------------------------ K16 RoI-aware pooling
+def _roiaware_check(rois, centers, feats, mask, g, card):
+    """K16 against its plain version on the card: the forward's list of
+    inside (voxel, cell) pairs in voxel order and its cell counts equal,
+    pooled features and dfeats within 1e-6 of their max, two calls
+    bit-equal, one launch forward and one backward."""
+    from isfusion_tpu_torch.ops.roiaware_pool import (
+        roiaware_pool, roiaware_pool_ref, roiaware_pool_state)
+    rois, centers, feats, mask = (torch.from_numpy(a) for a in (
+        rois, centers, feats, mask))
+    _, counts, entries = roiaware_pool_state(rois, centers, feats, mask, g)
+    rois, centers, feats, mask = (t.to(card) for t in (
+        rois, centers, feats, mask))
+    r = rois.shape[1]
+    pooled_k, counts_k, entries_k = roiaware_pool_state(rois, centers,
+                                                        feats, mask, g)
+    assert torch.equal(counts_k.cpu(), counts)
+    assert torch.equal(entries_k.cpu(), entries)
+    dy = torch.randn(pooled_k.shape, generator=torch.Generator().manual_seed(
+        r), dtype=torch.float32).to(card)
+    runs = []
+    for _ in range(2):
+        f = feats.clone().requires_grad_()
+        before = cuda_build.LAUNCHES["roiaware_pool"]
+        out = roiaware_pool(rois, centers, f, mask, g)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["roiaware_pool"] - before == \
+            (2 if r * centers.shape[1] else int(r > 0))
+        runs.append((out.detach(), f.grad))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0], pooled_k)
+    fp = feats.clone().requires_grad_()
+    plain = roiaware_pool_ref(rois, centers, fp, mask, g)
+    plain.backward(dy)
+    for got, want in ((runs[0][0], plain.detach()), (runs[0][1], fp.grad)):
+        if want.numel():
+            assert float((got - want).abs().max()) <= \
+                1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("g", [4, 6])
+@pytest.mark.parametrize("c", [3, 20])
+@pytest.mark.parametrize("r", [0, 1, 100])
+@pytest.mark.parametrize("v", [1, 1000, 40000])
+def test_roiaware_pool_kernel_matches_plain_version(card, g, c, r, v):
+    from isfusion_tpu_torch.testing import roiaware_case
+    case = roiaware_case(np.random.default_rng(g + c + r + v), 2, r, v, c)
+    _roiaware_check(*case, g, card)
+
+
+@pytest.mark.parametrize("g", [4, 6])
+def test_roiaware_pool_kernel_on_adversarial_sets(card, g):
+    """An empty RoI, stacked RoIs, centres exactly on faces and at u = 1 -
+    2^-24, masked voxels, V not a multiple of 256, one RoI holding 40,000
+    voxels (``testing.roiaware_adversarial_sets``)."""
+    from isfusion_tpu_torch.testing import roiaware_adversarial_sets
+    for _, *case in roiaware_adversarial_sets(np.random.default_rng(g)):
+        _roiaware_check(*case, g, card)
+
+
+def test_inverse_conv_on_card_matches_cpu(card):
+    """A sparse inverse conv (SparseUNet's upsampling) through K12 on the
+    card against the plain version on the CPU: output, dX and dW within
+    1e-5 of their max; K12 launched forward and backward."""
+    gen = np.random.default_rng(3)
+    grid, b = (9, 30, 28), 2
+    coords = []
+    for i in range(b):
+        ids = np.sort(gen.choice(np.prod(grid), 1500, replace=False))
+        coords.append(np.stack([np.full_like(ids, i), ids // (grid[1] *
+                                grid[2]), ids // grid[2] % grid[1],
+                                ids % grid[2]], -1))
+    coords = torch.from_numpy(np.concatenate(coords)).int()
+
+    def run(dev):
+        target = sparse_conv.build_sparse(torch.zeros(len(coords), 1),
+                                          coords, grid, b)
+        low, _, _ = sparse_conv.strided_rulebook(target, 3, 2, 1)
+        wgen = torch.Generator().manual_seed(0)
+        x = torch.randn((low.coords.shape[0], 16), generator=wgen)
+        w = torch.randn((16, 3, 3, 3, 16), generator=wgen) * 0.1
+        dy = torch.randn((len(coords), 16), generator=wgen)
+        low = sparse_conv.SparseTensor(x.to(dev), low.coords.to(dev),
+                                       low.keys.to(dev), low.shape, b)
+        target = sparse_conv.SparseTensor(target.feats.to(dev),
+                                          target.coords.to(dev),
+                                          target.keys.to(dev), target.shape,
+                                          b)
+        rows, found = sparse_conv.inverse_rulebook(low, target, 3, 2, 1)
+        assert sparse_conv.rulebook_is_injective(rows, found)
+        xg, wg = low.feats.requires_grad_(), w.to(dev).requires_grad_()
+        out = sparse_conv.sparse_conv(xg, rows, found, wg)
+        out.backward(dy.to(dev))
+        return [t.detach().cpu() for t in (out, xg.grad, wg.grad)]
+
+    before = cuda_build.LAUNCHES["masked_gather"]
+    got = run(card)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["masked_gather"] - before >= 3
+    for g_, w_ in zip(got, run("cpu")):
+        assert float((g_ - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
