@@ -228,8 +228,9 @@ Phases, each printing one line (every failure raises, exit code != 0):
     the request's voxels under 100 RoIs centred on occupied voxels, and
     ``testing.roiaware_adversarial_sets`` (the forward's list of inside
     pairs and its counts equal, pooled features and dfeats within 1e-6
-    of their max, two calls bit-equal; event ms, whole-call device ms,
-    plain ms, the bounds, the empty-launch floor); the tiny PartA2 on the card against the CPU with
+    of their max, two calls bit-equal, every inside pair through the
+    cut; event ms, whole-call device ms, each kernel's device ms, plain
+    ms, the bounds, the empty-launch floor); the tiny PartA2 on the card against the CPU with
     the CPU's discrete choices pinned (head outputs, decoded boxes, loss
     terms 1e-4; gradients per module 1e-3);
 
@@ -313,6 +314,14 @@ K10 on their own inputs (CUDA-event ms, whole-call device ms and
 operations), with the port imported from the checkout TREE, beside the
 floor of an empty launch: two checkouts compared in one call
 (``boxes_compare``).
+
+``python3 chip_smoke.py --roiaware TREE`` builds the full-width PartA2
+with the port imported from the checkout TREE, records K16's inputs in a
+serve request and a train step, and times K16 on them and on the
+request's voxels under occupied RoIs (event ms, whole-call device ms,
+forward and backward kernel device ms, the tree's bounds), with a SHA-256
+of pooled and dfeats there and on the adversarial sets: two checkouts
+compared bit for bit and in time in one call (``roiaware_compare``).
 
 ``python3 chip_smoke.py --learn WORK_DIR`` runs the learnability recipe in
 full (48 train / 16 val samples, 100 epochs, ``learn_run``) and leaves
@@ -3339,7 +3348,7 @@ PARTA2_TOPS = ("middle_encoder", "backbone", "neck", "rpn_head", "roi_head",
                "seg_head", "part_head")
 # K16's timed cases beside serve's in the kernels line
 K16_SHAPE_FIELDS = ("B", "R", "V", "valid_voxels", "inside_pairs",
-                    "rois_holding_voxels", "ms", "device_ms",
+                    "cut_pairs", "rois_holding_voxels", "ms", "device_ms",
                     "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
                     "fwd_bwd_ms", "fwd_bwd_device_ms", "bwd_kernel_device_ms",
                     "plain_fwd_bwd_ms", "backward_bound_ms")
@@ -3565,11 +3574,14 @@ def roiaware_check(label: str, rois, centers, feats, mask, g: int,
     counts and its list of inside (voxel, cell) pairs in voxel order equal
     the plain version's (``roiaware_pool_state``), pooled features and
     dfeats (a random dpooled) within 1e-6 of their max, two kernel calls
-    bit-equal (forward and backward). ``timed``: CUDA-event ms of the
-    forward and of forward + backward, each one's whole-call device ms,
-    the plain version's ms, and the bounds from these inputs (bytes or
-    operations). Also reports how many RoIs hold a voxel, and the median
-    bottom height of the RoIs and height of the valid voxels."""
+    bit-equal (forward and backward), every inside pair through the
+    cut's plain mirror (``roiaware_cut_ref``). ``timed``: CUDA-event ms
+    of the forward and of forward + backward, each one's whole-call
+    device ms and its kernels' device ms, the plain version's ms, and the
+    bounds from these inputs (bytes or operations; the forward's counts
+    the cut for every pair and the exact test for the pairs through it).
+    Also reports how many RoIs hold a voxel, and the median bottom height
+    of the RoIs and height of the valid voxels."""
     import torch
     from isfusion_tpu_torch.ops import roiaware_pool as rp
 
@@ -3597,12 +3609,15 @@ def roiaware_check(label: str, rois, centers, feats, mask, g: int,
             1e-30)) if b_.numel() else 0.0
 
     inside = cells_ref >= 0
+    cut = rp.roiaware_cut_ref(rois, centers, mask)
     pairs = int(inside.sum())
     valid = int(mask.sum())
     inside_voxels = int(inside.any(1).sum())
     occupied_cells = int((counts_ref > 0).sum())
     rec = dict(label=label, B=b, R=r, V=v, C=c, G=g, valid_voxels=valid,
                inside_pairs=pairs, inside_voxels=inside_voxels,
+               cut_pairs=int(cut.sum()),
+               cut_keeps_inside=not bool((inside & ~cut).any()),
                rois_holding_voxels=int(inside.any(-1).sum()),
                roi_bottom_z_median=float(rois[..., 2].median())
                if r else None,
@@ -3621,11 +3636,11 @@ def roiaware_check(label: str, rois, centers, feats, mask, g: int,
         cells_n = b * r * g ** 3
         fwd_bytes = rp.roiaware_pool_bytes(b, r, v, c, g, valid,
                                            inside_voxels)
-        bwd_bytes = rp.roiaware_pool_backward_bytes(b, r, v, c, valid,
+        bwd_bytes = rp.roiaware_pool_backward_bytes(b, r, v, c, pairs,
                                                     occupied_cells)
-        fwd_ops = rp.roiaware_pool_ops(valid, r, pairs, c, cells_n)
-        bwd_ops = rp.roiaware_pool_ops(valid, r, pairs, c, cells_n,
-                                       backward=True)
+        fwd_ops = rp.roiaware_pool_ops(valid, r, rec["cut_pairs"], pairs, c,
+                                       cells_n)
+        bwd_ops = rp.roiaware_pool_backward_ops(pairs, c)
 
         def forward():
             with torch.no_grad():
@@ -3654,16 +3669,27 @@ def roiaware_check(label: str, rois, centers, feats, mask, g: int,
         if dev == "cuda":
             ops = device_kernels(forward)
             rec.update(device_ms=sum(n * ms for n, ms in ops.values()),
-                       kernel_device_ms=kernel_ms(ops,
-                                                  "roiaware_forward_kernel"),
+                       kernel_device_ms=k16_kernel_ms(ops),
+                       test_kernel_device_ms=kernel_ms(
+                           ops, "roiaware_test_kernel"),
+                       pool_kernel_device_ms=kernel_ms(
+                           ops, "roiaware_pool_kernel"),
                        device_ops_per_call={k[:60]: n for k, (n, _) in
                                             ops.items()})
             ops = device_kernels(forward_backward)
             rec.update(fwd_bwd_device_ms=sum(n * ms for n, ms in
                                              ops.values()),
-                       bwd_kernel_device_ms=kernel_ms(
-                           ops, "roiaware_backward_kernel"))
+                       bwd_kernel_device_ms=k16_kernel_ms(ops, True))
     return rec
+
+
+def k16_kernel_ms(ops: dict, backward: bool = False) -> float:
+    """Device ms a call of K16's forward (every ``roiaware_*`` kernel but
+    the backward's, however many a checkout's design launches) or of its
+    backward kernel, from ``device_kernels``."""
+    return sum(n * ms for name, (n, ms) in ops.items()
+               if "roiaware_" in name and
+               ("roiaware_backward" in name) == backward)
 
 
 def occupied_rois(rois, centers, mask, seed: int = 0):
@@ -3698,8 +3724,9 @@ def phase_parta2_kernel_check(serve_in, train_in, dev: str = "cuda") -> dict:
     masked voxels, V not a multiple of 256, one RoI holding 40,000
     voxels), beside the floor of an empty launch. Fails unless every
     list of inside pairs and every count equals the plain version's,
-    every pooled output and dfeats is within 1e-6 of its max and every
-    pair of kernel calls is bit-equal."""
+    every pooled output and dfeats is within 1e-6 of its max, every
+    pair of kernel calls is bit-equal and every inside pair passes the
+    cut's plain mirror."""
     import numpy as np
     import torch
     from isfusion_tpu_torch.testing import roiaware_adversarial_sets
@@ -3717,8 +3744,8 @@ def phase_parta2_kernel_check(serve_in, train_in, dev: str = "cuda") -> dict:
     floor = launch_floor(dev)
     bad = {k: r for k, r in recs.items()
            if not (r["list_equal"] and r["counts_equal"] and
-                   r["repeat_bit_equal"]) or r["pooled_rel_err"] > 1e-6 or
-           r["dfeats_rel_err"] > 1e-6}
+                   r["repeat_bit_equal"] and r["cut_keeps_inside"]) or
+           r["pooled_rel_err"] > 1e-6 or r["dfeats_rel_err"] > 1e-6}
     for k, r in recs.items():
         log("parta2_kernel_case", **r)
     log("parta2_kernel_check", launch_floor=floor, failed=sorted(bad))
@@ -5204,9 +5231,11 @@ def main() -> int:
         library_ms=None,
         **{key: k16_serve[key] for key in (
             "device_ms", "kernel_device_ms", "B", "R", "V", "C", "G",
-            "valid_voxels", "inside_pairs", "rois_holding_voxels",
-            "fwd_bwd_ms", "fwd_bwd_device_ms", "bwd_kernel_device_ms",
-            "plain_fwd_bwd_ms", "backward_bound_ms")},
+            "valid_voxels", "inside_pairs", "cut_pairs",
+            "rois_holding_voxels", "test_kernel_device_ms",
+            "pool_kernel_device_ms", "fwd_bwd_ms", "fwd_bwd_device_ms",
+            "bwd_kernel_device_ms", "plain_fwd_bwd_ms",
+            "backward_bound_ms")},
         launches_per_request=[r["roiaware_pool"] for r in p_req],
         train_launches_per_step=[dict(
             forward=s_["roiaware_pool_forward"],
@@ -5541,6 +5570,168 @@ def boxes_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     return 0
 
 
+def roiaware_compare(tree: str, dev: str = "cuda", requests: int = 20,
+                     steps: int = 10) -> int:
+    """``python3 chip_smoke.py --roiaware TREE``: K16 with the port
+    imported from the checkout TREE, to compare two checkouts on one card
+    in one call (run them in the order A, B, B, A). The full-width PartA2
+    (seed 0, box deltas tamed) serves one request and takes one train
+    step at batch 2, recording K16's inputs, then ``requests`` requests
+    and ``steps`` steps (host-clock median, min, max); then on those, and
+    on the
+    request's voxels under ``occupied_rois``: CUDA-event ms of the
+    forward and of forward + backward, whole-call device ms, the forward's
+    and the backward's kernel device ms (``k16_kernel_ms``), the tree's
+    own bounds, and a SHA-256 of pooled and of dfeats (a fixed dpooled);
+    the digests also on ``testing.roiaware_adversarial_sets`` (this
+    checkout's), and the tree's ``ptxas -v`` of its source. Prints one
+    JSON record. ``dev="cpu"`` rehearses it on the tiny PartA2 with the
+    plain versions (no build, no device times)."""
+    import hashlib
+    import importlib.util
+
+    import numpy as np
+    import torch
+    smi = phase_device() if dev == "cuda" else None
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import isfusion_tpu_torch
+    from isfusion_tpu_torch.flagship import build_parta2, parta2_optim_cfg
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.ops import roiaware_pool as rp
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+    from isfusion_tpu_torch.testing import tame_box_deltas
+    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"isfusion_tpu_torch imported from "
+                           f"{isfusion_tpu_torch.__file__}, not {tree}")
+    rec = dict(tree=tree, nvidia_smi=smi)
+    if dev == "cuda":
+        rec.update(build_s=cuda_build.build_all(),
+                   library=cuda_build._lib_path("roiaware_pool").name,
+                   ptxas=cuda_build.ptxas_usage(cuda_build.CSRC_DIR /
+                                                "roiaware_pool.cu"))
+
+    model, batch_fn = build_parta2(tiny=dev != "cuda", device=dev, seed=0)
+    tame_box_deltas(model)
+    def timed(run, n):
+        times = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            run(i + 1)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return dict(median_ms=statistics.median(times), min_ms=min(times),
+                    max_ms=max(times))
+
+    serve_batch = batch_fn(1)
+    with recording_roiaware() as seen:
+        model(jittered(serve_batch, 0), device=dev)
+        sync(dev)
+    serve_in = seen[0]
+    rec["parta2_serve"] = timed(
+        lambda i: model(jittered(serve_batch, i), device=dev), requests)
+    cfg = parta2_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, cfg["lr_config"], cfg["momentum_config"]),
+        grad_clip_norm(cfg["optimizer_config"]))
+    tb = batch_fn(cfg["samples_per_gpu"], seed=1)
+    gen = torch.Generator(dev).manual_seed(0)
+    with recording_roiaware() as seen:
+        step(jittered(tb, 0), gen)
+        sync(dev)
+    train_in = seen[0]
+    rec["parta2_train"] = timed(
+        lambda i: step(jittered(tb, i), gen), steps)
+    del model, step, opt, gen
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    def digests(rois, centers, feats, mask, g):
+        f = feats.detach().float().clone().requires_grad_()
+        out = rp.roiaware_pool(rois, centers, f, mask, g)
+        dy = torch.randn(out.shape, generator=torch.Generator(
+            ).manual_seed(0)).to(out.device)
+        out.backward(dy)
+        sync(dev)
+        return {k: hashlib.sha256(t.detach().cpu().numpy().tobytes()
+                                  ).hexdigest()[:16]
+                for k, t in (("pooled", out), ("dfeats", f.grad))}
+
+    rois, centers, feats, mask, g = serve_in
+    cases = (("serve", serve_in), ("serve_occupied", (
+        occupied_rois(rois, centers, mask), centers, feats, mask, g)),
+        ("train", train_in))
+    for label, (rois, centers, feats, mask, g) in cases:
+        b, r = rois.shape[:2]
+        v, c = feats.shape[1:]
+        cells = rp.roiaware_cells_ref(rois, centers, mask, g)
+        counts, _ = rp.roiaware_list_ref(cells, g)
+        inside = cells >= 0
+        pairs, valid = int(inside.sum()), int(mask.sum())
+        inside_voxels = int(inside.any(1).sum())
+        dy = torch.randn((b, r, g, g, g, c), generator=torch.Generator(
+            ).manual_seed(0)).to(rois.device)
+
+        def forward():
+            with torch.no_grad():
+                rp.roiaware_pool(rois, centers, feats, mask, g)
+
+        def forward_backward():
+            f = feats.detach().float().clone().requires_grad_()
+            rp.roiaware_pool(rois, centers, f, mask, g).backward(dy)
+
+        fwd_ops = device_kernels(forward) if dev == "cuda" else {}
+        bwd_ops = device_kernels(forward_backward) if dev == "cuda" else {}
+        if hasattr(rp, "roiaware_cut_ref"):
+            cut_pairs = int(rp.roiaware_cut_ref(rois, centers, mask).sum())
+            f_ops = rp.roiaware_pool_ops(valid, r, cut_pairs, pairs, c,
+                                         b * r * g ** 3)
+            b_ops = rp.roiaware_pool_backward_ops(pairs, c)
+            b_bytes = rp.roiaware_pool_backward_bytes(
+                b, r, v, c, pairs, int((counts > 0).sum()))
+        else:
+            cut_pairs = None
+            f_ops = rp.roiaware_pool_ops(valid, r, pairs, c, b * r * g ** 3)
+            b_ops = rp.roiaware_pool_ops(valid, r, pairs, c, b * r * g ** 3,
+                                         backward=True)
+            b_bytes = rp.roiaware_pool_backward_bytes(
+                b, r, v, c, valid, int((counts > 0).sum()))
+        rec[label] = dict(
+            B=b, R=r, V=v, valid_voxels=valid, inside_pairs=pairs,
+            cut_pairs=cut_pairs, ms=cuda_ms(forward, dev, 200),
+            fwd_bwd_ms=cuda_ms(forward_backward, dev, 200),
+            device_ms=sum(n * ms for n, ms in fwd_ops.values()),
+            device_ops_per_call=sum(n for n, _ in fwd_ops.values()),
+            kernel_device_ms=k16_kernel_ms(fwd_ops),
+            test_kernel_device_ms=kernel_ms(fwd_ops, "roiaware_test_kernel"),
+            pool_kernel_device_ms=kernel_ms(fwd_ops, "roiaware_pool_kernel"),
+            bwd_kernel_device_ms=k16_kernel_ms(bwd_ops, True),
+            bound_ms=rp.roiaware_bound_ms(
+                rp.roiaware_pool_bytes(b, r, v, c, g, valid, inside_voxels),
+                f_ops, HBM_BYTES_PER_S, F32_OPS_PER_S)[0],
+            backward_bound_ms=rp.roiaware_bound_ms(
+                b_bytes, b_ops, HBM_BYTES_PER_S, F32_OPS_PER_S)[0],
+            **digests(rois, centers, feats, mask, g))
+    # the adversarial sets of this checkout's testing module, whatever
+    # TREE holds
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_testing", os.path.join(REPO, "isfusion_tpu_torch",
+                                           "testing.py"))
+    testing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(testing)
+    rec["adversarial"] = {
+        name: digests(*(torch.from_numpy(a).to(dev) for a in arrays), 6)
+        for name, *arrays in testing.roiaware_adversarial_sets(
+            np.random.default_rng(6))}
+    log("roiaware_compare", **rec)
+    return 0
+
+
 def dp_run() -> int:
     """``python3 chip_smoke.py --dp``: the device and build phases, then
     ``phase_dp`` alone."""
@@ -5582,6 +5773,8 @@ if __name__ == "__main__":
         sys.exit(dynamic_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--boxes"] and len(sys.argv) == 3:
         sys.exit(boxes_compare(sys.argv[2]))
+    if sys.argv[1:2] == ["--roiaware"] and len(sys.argv) == 3:
+        sys.exit(roiaware_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-serve"]:
         sys.exit(pp_serve_timing(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

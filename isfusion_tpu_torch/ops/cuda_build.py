@@ -49,8 +49,8 @@ SIGNATURES = {
                          _I),
     "dynamic_scatter": ([_I, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P],
                         _I),
-    "roiaware_pool": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                       _LL, _LL, _P], _I),
+    "roiaware_pool": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                       _LL, _LL, _LL, _LL, _P], _I),
     # no kernel of a path: the floor of one launch, timed by chip_smoke.py
     "empty_launch": ([_P], _I),
 }

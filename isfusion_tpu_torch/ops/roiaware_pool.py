@@ -15,8 +15,11 @@ voxel order); on a CUDA tensor ``RoIAwarePoolFunction``, whose forward and
 backward are ``csrc/roiaware_pool.cu`` (no float atomics; two calls agree
 bit for bit; the (r, v) -> cell map equals the plain version's on the
 card: the wrapper hands the kernel torch's cos and sin of the yaws), or it
-raises. ``roiaware_pool_state`` gives the forward's cell counts and its
-list of inside voxels, for checks.
+raises. The forward's first launch writes a membership bitmap and the
+inside pairs' cells behind an exact cut (``roiaware_cut_ref`` mirrors the
+cut; ``roiaware_bitmap_ref`` the bitmap), which the second launch and the
+backward read. ``roiaware_pool_state`` gives the forward's cell counts and
+its list of inside voxels, for checks.
 """
 from __future__ import annotations
 
@@ -25,14 +28,24 @@ import torch
 from . import cuda_build
 from .box_ops import box_local_uvw, box_trig
 
-# float32 operations of one membership test (3 + 1 subtractions, 4
-# products and 2 sums for the rotation, 3 divisions and 3 sums, 6
-# comparisons) and of a cell (3 products)
-ROIAWARE_TEST_OPS = 22
+# float32 operations of the cut a pair (the vertical slab: 2 subtractions,
+# an absolute value, a comparison; the BEV circle: 2 subtractions, 2
+# products, a sum, a comparison), of the exact test behind it (4 products
+# and 2 sums for the rotation, 3 divisions and 3 sums, 6 comparisons) and
+# of a cell (3 products)
+ROIAWARE_CUT_OPS = 10
+ROIAWARE_EXACT_OPS = 18
 ROIAWARE_CELL_OPS = 3
-# the forward's shared memory: a block holds its RoI's (G^3, C + 1) sums
-# and counts
+# the cut's slack (csrc/roiaware_pool.cu says why no inside pair is cut)
+ROIAWARE_CUT_REL, ROIAWARE_CUT_ABS = 1.0 + 1e-4, 1e-3
+# shared memory a block may use; the pool kernel's 32 warps each count the
+# G^3 cells of their part of a RoI's list, beside each cell's count and
+# start and 256 bytes of its own; a backward block stages 128 RoIs' words,
+# the cells of their pairs and each warp's pairs in order (25,088 bytes)
+# and its 32 rows of C + 1 floats
 ROIAWARE_SMEM_BYTES = 227 * 1024
+ROIAWARE_POOL_WARPS = 32
+ROIAWARE_BWD_STATIC_BYTES = 128 * (4 + 32 * 4) + 8 * 128 * 4 * 2
 
 
 def _check(rois, centers, feats, mask, grid_size):
@@ -62,6 +75,42 @@ def roiaware_cells_ref(rois: torch.Tensor, centers: torch.Tensor,
     ijk = (uvw * g).to(torch.int32).clamp(0, g - 1).long()
     cell = (ijk[..., 0] * g + ijk[..., 1]) * g + ijk[..., 2]
     return torch.where(inside, cell, -1).transpose(1, 2)
+
+
+def roiaware_cut_ref(rois: torch.Tensor, centers: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """(B, R, V) bool: the valid (voxel, RoI) pairs that pass the forward
+    kernel's cut, in its float32 arithmetic: |rz| <= (dz' 0.5) (1 + 1e-4) +
+    1e-3 and rx^2 + ry^2 <= (0.5 hypot(dx', dy') (1 + 1e-4) + 1e-3)^2, with
+    rx, ry, rz as ``box_local_uvw`` computes them and d' = max(d, 1e-3); a
+    NaN passes. Only these pairs run the exact test; every inside pair is
+    among them."""
+    r = rois[..., :7].float()
+    p = centers.float()
+    dims = r[..., 3:6].clamp_min(1e-3)
+    zlim = dims[..., 2] * 0.5 * ROIAWARE_CUT_REL + ROIAWARE_CUT_ABS
+    lim = 0.5 * torch.hypot(dims[..., 0], dims[..., 1]) * ROIAWARE_CUT_REL \
+        + ROIAWARE_CUT_ABS
+    rx = p[:, None, :, 0] - r[..., 0, None]
+    ry = p[:, None, :, 1] - r[..., 1, None]
+    rz = (p[:, None, :, 2] - r[..., 2, None]) - r[..., 5, None] * 0.5
+    d2 = rx * rx + ry * ry
+    through = ~(rz.abs() > zlim[..., None]) & ~(d2 > (lim * lim)[..., None])
+    return through & mask.bool()[:, None, :]
+
+
+def roiaware_bitmap_ref(cells: torch.Tensor) -> torch.Tensor:
+    """(B, R, ceil(V / 32)) int32 membership words of a cell map
+    (``roiaware_cells_ref``), the forward kernel's layout: bit i of word w
+    is set where voxel 32 w + i is inside the RoI."""
+    b, r, v = cells.shape
+    w = -(-v // 32)
+    inside = torch.zeros((b, r, w * 32), dtype=torch.int64,
+                         device=cells.device)
+    inside[..., :v] = (cells >= 0).long()
+    shifts = torch.arange(32, device=cells.device)
+    words = (inside.view(b, r, w, 32) << shifts).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int()
 
 
 def roiaware_list_ref(cells: torch.Tensor, grid_size: int):
@@ -102,19 +151,28 @@ def roiaware_pool_ref(rois: torch.Tensor, centers: torch.Tensor,
 
 
 def _launch(op: int, rois, trig, centers, mask, inp, counts, out, scratch,
-            b: int, r: int, v: int, c: int, g: int) -> None:
+            bits, cells, b: int, r: int, v: int, c: int, g: int) -> None:
     lib = cuda_build.load("roiaware_pool")
-    stream = torch.cuda.current_stream(rois.device).cuda_stream
+    stream = torch.cuda.current_stream(counts.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = lib.roiaware_pool(op, ptr(rois), ptr(trig), ptr(centers),
                             ptr(mask), ptr(inp), ptr(counts), ptr(out),
-                            ptr(scratch), b, r, v, c, g, stream)
+                            ptr(scratch), ptr(bits), ptr(cells), b, r, v, c,
+                            g, stream)
     if err != 0:
         raise RuntimeError(f"roiaware_pool: kernel launch failed with CUDA "
                            f"error {err}")
+
+
+def roiaware_smem_bytes(grid_size: int, channels: int) -> int:
+    """Shared memory of K16's largest block: the pool kernel's cell counts
+    and starts, or the backward's chunk and staged rows."""
+    g3 = int(grid_size) ** 3
+    return max((ROIAWARE_POOL_WARPS + 2) * g3 * 4 + 256,
+               ROIAWARE_BWD_STATIC_BYTES + 32 * (int(channels) + 1) * 4)
 
 
 def _kernel_args(rois, centers, mask, grid_size, channels):
@@ -125,60 +183,69 @@ def _kernel_args(rois, centers, mask, grid_size, channels):
     if v * g ** 3 >= 2 ** 31:
         raise ValueError(f"roiaware_pool: V * G^3 = {v * g ** 3} must stay "
                          f"below 2^31")
-    if g ** 3 * (channels + 1) * 4 > ROIAWARE_SMEM_BYTES:
-        raise ValueError(f"roiaware_pool: G^3 (C + 1) 4 bytes = "
-                         f"{g ** 3 * (channels + 1) * 4} exceed a block's "
-                         f"shared memory")
+    smem = roiaware_smem_bytes(g, channels)
+    if smem > ROIAWARE_SMEM_BYTES:
+        raise ValueError(f"roiaware_pool: G = {g}, C = {channels} need "
+                         f"{smem} bytes of a block's shared memory")
     rois = rois[..., :7].float().contiguous()
     return rois, box_trig(rois).contiguous(), \
         centers.float().contiguous(), mask.bool().contiguous()
 
 
 def _forward(rois, trig, centers, feats, mask, g: int):
+    """(pooled, counts, scratch, bits, cells): two launches, the cut and
+    tests writing ``bits`` and the inside pairs' ``cells``, then the lists,
+    counts and sums."""
     b, r = rois.shape[:2]
     v, c = feats.shape[1:]
     feats = feats.contiguous()
+    dev = feats.device
     pooled = torch.empty((b, r, g, g, g, c), dtype=torch.float32,
-                         device=feats.device)
-    counts = torch.empty((b, r, g ** 3), dtype=torch.int32,
-                         device=feats.device)
-    scratch = torch.empty((b * r, v), dtype=torch.int32, device=feats.device)
-    if b * r and c:
+                         device=dev)
+    counts = torch.empty((b, r, g ** 3), dtype=torch.int32, device=dev)
+    # each RoI's list in voxel order, then the same voxels sorted by cell
+    scratch = torch.empty((b * r, 2 * v), dtype=torch.int32, device=dev)
+    bits = torch.empty((b, r, -(-v // 32)), dtype=torch.int32, device=dev)
+    # each inside pair's cell (uint16 in the kernel); the rest unwritten
+    cells = torch.empty((b, r, v), dtype=torch.int16, device=dev)
+    if b * r * v and c:
         _launch(0, rois, trig, centers, mask, feats, counts, pooled, scratch,
-                b, r, v, c, g)
-        cuda_build.LAUNCHES["roiaware_pool"] += 1
+                bits, cells, b, r, v, c, g)
+        cuda_build.LAUNCHES["roiaware_pool"] += 2
     else:
+        pooled.zero_()
         counts.zero_()
-    return pooled, counts, scratch
+    return pooled, counts, scratch, bits, cells
 
 
 class RoIAwarePoolFunction(torch.autograd.Function):
     """K16 forward and backward (``csrc/roiaware_pool.cu``): saves the
-    RoIs, their cos and sin, the centres, the mask and the forward's cell
-    counts."""
+    forward's cell counts, its membership bitmap and the inside pairs'
+    cells."""
 
     @staticmethod
     def forward(ctx, rois, trig, centers, feats, mask, grid_size):
         g = int(grid_size)
-        pooled, counts, _ = _forward(rois, trig, centers, feats.float(),
-                                     mask, g)
-        ctx.save_for_backward(rois, trig, centers, mask, counts)
-        c = feats.shape[-1]
-        ctx.grid_size, ctx.channels = g, c
+        pooled, counts, _, bits, cells = _forward(rois, trig, centers,
+                                                  feats.float(), mask, g)
+        ctx.save_for_backward(counts, bits, cells)
+        ctx.grid_size, ctx.channels = g, feats.shape[-1]
         return pooled
 
     @staticmethod
     def backward(ctx, dpooled):
-        rois, trig, centers, mask, counts = ctx.saved_tensors
-        b, r = rois.shape[:2]
-        v, c, g = centers.shape[1], ctx.channels, ctx.grid_size
-        dfeats = torch.zeros((b, v, c), dtype=torch.float32,
-                             device=rois.device)
+        counts, bits, cells = ctx.saved_tensors
+        b, r, v = cells.shape
+        c, g = ctx.channels, ctx.grid_size
         if b * r * v and c:
-            _launch(1, rois, trig, centers, mask,
-                    dpooled.float().contiguous(), counts, dfeats, None, b, r,
-                    v, c, g)
+            dfeats = torch.empty((b, v, c), dtype=torch.float32,
+                                 device=cells.device)
+            _launch(1, None, None, None, None, dpooled.float().contiguous(),
+                    counts, dfeats, None, bits, cells, b, r, v, c, g)
             cuda_build.LAUNCHES["roiaware_pool"] += 1
+        else:
+            dfeats = torch.zeros((b, v, c), dtype=torch.float32,
+                                 device=cells.device)
         return None, None, None, dfeats, None, None
 
 
@@ -186,7 +253,8 @@ def roiaware_pool(rois: torch.Tensor, centers: torch.Tensor,
                   feats: torch.Tensor, mask: torch.Tensor,
                   grid_size: int) -> torch.Tensor:
     """(B, R, G, G, G, C) float32 mean-pooled features of the voxels inside
-    each RoI (module docstring); one kernel launch forward, one backward."""
+    each RoI (module docstring); two kernel launches forward, one
+    backward, no host synchronisation."""
     _check(rois, centers, feats, mask, grid_size)
     if rois.device.type == "cpu":
         return roiaware_pool_ref(rois, centers, feats, mask, grid_size)
@@ -218,12 +286,12 @@ def roiaware_pool_state(rois: torch.Tensor, centers: torch.Tensor,
     rois, trig, centers, mask = _kernel_args(rois, centers, mask, g,
                                              feats.shape[-1])
     with torch.no_grad():
-        pooled, counts, scratch = _forward(rois, trig, centers,
-                                           feats.float(), mask, g)
+        pooled, counts, scratch, _, _ = _forward(rois, trig, centers,
+                                                 feats.float(), mask, g)
     listed = torch.arange(v, device=rois.device) < counts.sum(
         -1, keepdim=True)
-    return pooled, counts, torch.where(listed, scratch.view(b, r, v).long(),
-                                       -1)
+    return pooled, counts, torch.where(
+        listed, scratch[:, :v].reshape(b, r, v).long(), -1)
 
 
 def roiaware_pool_bytes(b: int, r: int, v: int, c: int, g: int,
@@ -237,25 +305,32 @@ def roiaware_pool_bytes(b: int, r: int, v: int, c: int, g: int,
 
 
 def roiaware_pool_backward_bytes(b: int, r: int, v: int, c: int,
-                                 valid_voxels: int,
-                                 occupied_cells: int) -> int:
-    """Least bytes the backward moves on these inputs: the RoIs and the
-    mask read once, the centres of the ``valid_voxels``, dpooled and the
-    count of each of the ``occupied_cells`` (no other cell reaches a
-    voxel), dfeats written once."""
-    return 4 * b * r * 7 + b * v + 12 * valid_voxels + \
+                                 pairs: int, occupied_cells: int) -> int:
+    """Least bytes the backward moves on these inputs, given what the
+    forward saved: the membership bitmap read once, the cell of each of
+    the inside ``pairs`` (2 bytes), dpooled and the count of each of the
+    ``occupied_cells`` (no other cell reaches a voxel), dfeats written
+    once."""
+    return 4 * b * r * -(-v // 32) + 2 * pairs + \
         4 * occupied_cells * (c + 1) + 4 * b * v * c
 
 
-def roiaware_pool_ops(valid_voxels: int, r: int, pairs: int, c: int,
-                      cells: int, backward: bool = False) -> int:
-    """Float32 operations these inputs need: every valid voxel tested
-    against every RoI of its sample, a cell for each inside pair and its C
-    sums, and the C divisions of each of the ``cells`` (B R G^3) outputs
-    (forward) or of each pair (backward: dpooled / count, then the sum)."""
-    per_pair = ROIAWARE_CELL_OPS + (2 * c if backward else c)
-    return valid_voxels * r * ROIAWARE_TEST_OPS + pairs * per_pair + \
-        (0 if backward else cells * c)
+def roiaware_pool_ops(valid_voxels: int, r: int, cut_pairs: int,
+                      pairs: int, c: int, cells: int) -> int:
+    """Float32 operations the forward needs on these inputs, as designed:
+    the cut for every valid voxel against every RoI of its sample, the
+    exact test for the ``cut_pairs`` that pass it (``roiaware_cut_ref``),
+    a cell and its C sums for each inside pair, and the C divisions of
+    each of the ``cells`` (B R G^3) outputs."""
+    return valid_voxels * r * ROIAWARE_CUT_OPS + \
+        cut_pairs * ROIAWARE_EXACT_OPS + \
+        pairs * (ROIAWARE_CELL_OPS + c) + cells * c
+
+
+def roiaware_pool_backward_ops(pairs: int, c: int) -> int:
+    """Float32 operations the backward needs given the forward's cells:
+    dpooled / count and the sum, per inside pair and channel."""
+    return pairs * 2 * c
 
 
 def roiaware_bound_ms(bytes_: int, ops: int, hbm_bytes_per_s: float,

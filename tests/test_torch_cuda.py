@@ -33,7 +33,8 @@ PointPillars' DP step equals the plain step (losses 1e-4 relative,
 parameters 1e-3 of each module's max) with one all-reduce. K16 (RoI-aware
 pooling): the (r, v) -> cell map and the cell counts equal to the plain
 version's on the card, pooled features and dfeats within 1e-6 of their
-max (the plain version sums with atomics), two calls bit-equal; the
+max (the plain version sums with atomics), two calls bit-equal, no host
+synchronisation, the saved membership bitmap equal to the plain one; the
 sparse inverse conv through K12 on the card within 1e-5 of the max of the
 CPU's.
 """
@@ -1061,7 +1062,7 @@ def _roiaware_check(rois, centers, feats, mask, g, card):
     """K16 against its plain version on the card: the forward's list of
     inside (voxel, cell) pairs in voxel order and its cell counts equal,
     pooled features and dfeats within 1e-6 of their max, two calls
-    bit-equal, one launch forward and one backward."""
+    bit-equal, two launches forward and one backward."""
     from isfusion_tpu_torch.ops.roiaware_pool import (
         roiaware_pool, roiaware_pool_ref, roiaware_pool_state)
     rois, centers, feats, mask = (torch.from_numpy(a) for a in (
@@ -1084,7 +1085,7 @@ def _roiaware_check(rois, centers, feats, mask, g, card):
         out.backward(dy)
         torch.cuda.synchronize()
         assert cuda_build.LAUNCHES["roiaware_pool"] - before == \
-            (2 if r * centers.shape[1] else int(r > 0))
+            (3 if r * centers.shape[1] else 0)
         runs.append((out.detach(), f.grad))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
@@ -1116,6 +1117,43 @@ def test_roiaware_pool_kernel_on_adversarial_sets(card, g):
     from isfusion_tpu_torch.testing import roiaware_adversarial_sets
     for _, *case in roiaware_adversarial_sets(np.random.default_rng(g)):
         _roiaware_check(*case, g, card)
+
+
+@pytest.mark.parametrize("v", [1, 1037, 40000])
+def test_roiaware_pool_saves_membership_without_host_sync(card, v):
+    """K16's forward and backward under ``set_sync_debug_mode("error")``
+    (no ``.item()``, no ``nonzero``, no size read back), two launches
+    forward and one backward; the bitmap the forward saves for the
+    backward has its bits set exactly where the plain membership is
+    inside (``roiaware_bitmap_ref`` of ``roiaware_cells_ref``), the saved
+    cells there equal the plain cells, and every inside pair passes the
+    plain mirror of the kernel's cut."""
+    from isfusion_tpu_torch.ops import roiaware_pool as rp
+    from isfusion_tpu_torch.testing import roiaware_case
+    rois, centers, feats, mask = (torch.from_numpy(a).to(card) for a in
+                                  roiaware_case(np.random.default_rng(v), 2,
+                                                100, v, 20))
+    f = feats.clone().requires_grad_()
+    dy = torch.randn((2, 100, 6, 6, 6, 20), device=card)
+    torch.cuda.synchronize()
+    before = cuda_build.LAUNCHES["roiaware_pool"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rp.roiaware_pool(rois, centers, f, mask, 6)
+        mid = cuda_build.LAUNCHES["roiaware_pool"]
+        _, bits, saved_cells = out.grad_fn.saved_tensors
+        out.backward(dy)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (mid - before, cuda_build.LAUNCHES["roiaware_pool"] - mid) == \
+        (2, 1)
+    cells = rp.roiaware_cells_ref(rois, centers, mask, 6)
+    assert bits.dtype == torch.int32
+    assert torch.equal(bits, rp.roiaware_bitmap_ref(cells))
+    inside = cells >= 0
+    assert torch.equal(saved_cells.long()[inside], cells[inside])
+    assert not (inside & ~rp.roiaware_cut_ref(rois, centers, mask)).any()
 
 
 def test_inverse_conv_on_card_matches_cpu(card):
