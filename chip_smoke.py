@@ -233,8 +233,33 @@ Phases, each printing one line (every failure raises, exit code != 0):
     ms, the bounds, the empty-launch floor); the tiny PartA2 on the card against the CPU with
     the CPU's discrete choices pinned (head outputs, decoded boxes, loss
     terms 1e-4; gradients per module 1e-3);
+28. SSN and FreeAnchor (``[ssn_main_path]`` / ``[ssn_train]``,
+    ``[fa_main_path]`` / ``[fa_train]``, ``[ssn_reference]`` /
+    ``[fa_reference]``, ``[post_check]``): the full-width SSN
+    (``flagship.build_ssn``: the PointPillars config's voxels, HardVFE,
+    SECOND and SECONDFPN, the reference SSN config's ShapeAwareHead with
+    five tasks over 500,000 anchors) and FreeAnchor
+    (``flagship.build_free_anchor``: NoStemRegNet regnetx_400mf + FPN +
+    FreeAnchor3DHead over 420,000 anchors), bf16 convs, float32 decode
+    and NMS, box regression scaled by 0.01, each serving one warm-up and
+    five batch-1 requests of the PointPillars cloud (K10-NMS in every
+    request; median and max ms, peak memory, stream ms of voxelization +
+    VFE, scatter + backbone, neck, head and decode, the idle share of one
+    profiled request) and taking 1 warm-up and 3 train steps (SSN batch
+    2, FreeAnchor batch 4, ``schedule_2x``; every trainable parameter
+    must move unless its gradient stayed exactly 0); the tiny models on
+    the card against the CPU with the CPU's discrete choices pinned (head
+    outputs, boxes 1e-4, losses 1e-4 relative, gradients 1e-3); and the
+    post-processing path on ssn-serve's request under four flips
+    (``box3d_multiclass_nms``, the plain and the weighted
+    ``merge_aug_bboxes_3d``, the axis-aligned NMS of the merged
+    rectangles; K10-NMS, K10-BEV and K10-normal must launch), held against
+    the same calls on the CPU, then K10-BEV (1e-5, exactly 0 where the
+    plain version is) and K10-normal (equal keep masks) against their
+    plain versions on the path's own inputs and on edge sets, with event
+    ms, whole-call device ms, plain ms and bounds;
 
-28. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
+29. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
     dynamic pillars and on DynamicVFE, DynamicCenterPoint, VoxelNet,
     TransFusion-L) on nuScenes' raw intensities, on the card against the
@@ -245,7 +270,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     launch) and each kernel against its plain version on that path's own
     inputs.
 
-29. data-parallel train (``[dp_train]``): the flagship's one-card step
+30. data-parallel train (``[dp_train]``): the flagship's one-card step
     at batch 4 (the config's recipe, seed 0) three times (how far it
     repeats: P2G's ``index_add_`` and ``grid_sampler_2d_backward`` sum by
     atomics) and once with the sync norms' pooled sums
@@ -258,7 +283,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     repeat gap may pass; one all-reduce and the one-card step's
     launches. Then ``DP_WORLD`` (2) ranks spawned under gloo, both on
     ``cuda:0`` (NCCL refuses two ranks on one device), each running
-    ``dp_rank`` (spawned before phase 28, where they start, build the
+    ``dp_rank`` (spawned before phase 29, where they start, build the
     flagship and warm it up with a batch-1 DP step while the variants
     run, then wait for the references): (a) a flagship step at batch 4 a rank on identical halves, held as
     above against the one-card step with the pooled sums (the ranks'
@@ -275,7 +300,7 @@ Phases, each printing one line (every failure raises, exit code != 0):
     not a scaling figure), the gradient all-reduce's ms and bytes, the
     sync-BN collectives per step, the peak GiB, each step's launches
     (equal to the one-card step's) and the host seconds of each part;
-30. gathered eval (``[dp_eval]``): the learnability PointPillars (seeded,
+31. gathered eval (``[dp_eval]``): the learnability PointPillars (seeded,
     box deltas tamed, float32, TF32 off) on a 5-sample val split, 2
     samples a rank, the last global batch padded: every rank's gathered
     results against ``single_device_test`` in one process (the same
@@ -285,14 +310,18 @@ Phases, each printing one line (every failure raises, exit code != 0):
 The card's ``nvidia-smi`` line, then the kernels' JSON record (each
 kernel with its launches on the LiDAR variants' paths and, for K12, K1,
 K2, K11 and K10, on each rank's DP steps; K16 ``roiaware_pool`` with
-PartA2's), then
+PartA2's; K10-BEV ``boxes_iou_bev`` and K10-normal ``nms_normal_bev``
+with phase 28's post-processing path), then
 ``{"ok": true, "device": {...}}`` end the output.
 
 ``python3 chip_smoke.py --dp`` runs the device and build phases, then
-phases 29-30 alone.
+phases 30-31 alone.
 
 ``python3 chip_smoke.py --parta2`` runs the device and build phases, then
 phase 27 alone.
+
+``python3 chip_smoke.py --ssn`` runs the device and build phases, then
+phase 28 alone.
 
 ``python3 chip_smoke.py --fcos`` runs the device and build phases, then
 phases 24-26 alone.
@@ -509,7 +538,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from isfusion_tpu_torch.ops import cuda_build
     secs = cuda_build.build_all()
-    names = sorted(cuda_build.SIGNATURES)
+    names = sorted({cuda_build.source_of(n) for n in cuda_build.SIGNATURES})
     with ThreadPoolExecutor(max_workers=len(names)) as ex:
         usage = list(ex.map(lambda n: cuda_build.ptxas_usage(
             cuda_build.CSRC_DIR / f"{n}.cu"), names))
@@ -3882,6 +3911,615 @@ def parta2_run() -> int:
     return 0
 
 
+# ------------------------------------------------- SSN and FreeAnchor
+FAMILY_SPANS = ("voxelize_vfe", "scatter_backbone", "neck", "head",
+                "decode")
+FAMILY_TOPS = ("pts_voxel_encoder", "pts_backbone", "pts_neck",
+               "pts_bbox_head")
+# the hand-written kernels of the SSN and FreeAnchor serve and train paths
+FAMILY_KERNELS = ("nms_bev",)
+POST_KERNELS = ("nms_bev", "boxes_iou_bev", "nms_normal_bev")
+POST_VIEWS = (dict(), dict(pcd_horizontal_flip=True),
+              dict(pcd_vertical_flip=True),
+              dict(pcd_horizontal_flip=True, pcd_vertical_flip=True))
+
+
+def family_stream_ms(model, batch: dict) -> dict:
+    """Stream ms of one request by stage, from CUDA events at the forward
+    hooks of the voxel encoder, the backbone, the neck and the head:
+    voxelization and the VFE (upload included), the scatter and the
+    backbone, the neck, the head's convs, and the decode with its NMS."""
+    import torch
+
+    marks = {}
+
+    def stamp(name):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[name] = ev
+        return hook
+
+    handles = [getattr(model, top).register_forward_hook(stamp(top))
+               for top in FAMILY_TOPS]
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model(jittered(batch, 0), device="cuda")
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    points = [start] + [marks[t] for t in FAMILY_TOPS] + [end]
+    return {name: a.elapsed_time(b) for name, a, b in zip(
+        FAMILY_SPANS, points[:-1], points[1:])}
+
+
+def phase_family_main_path(name: str, model, batch: dict,
+                           dev: str = "cuda") -> tuple:
+    """``{name}``-serve (ssn or fa): 1 warm-up + N_REQUESTS batch-1
+    requests of the PointPillars cloud (bf16 convs; decode and K10-NMS
+    float32; the box regression scaled by 0.01 so that boxes are
+    scene-sized). Launch counts are zeroed just before the timed requests
+    and read after each; fails unless K10-NMS launched in every request.
+    Reports median and max ms, peak memory, pillars against the cap, kept
+    boxes, the stream ms by stage (``family_stream_ms``) and the idle
+    share of one profiled request. Returns (launch counts, record)."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+
+    stats = {}
+    model(jittered(batch, 0), device=dev, stats=stats)
+    sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_request = [], []
+    for i in range(N_REQUESTS):
+        before = dict(cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = model(jittered(batch, i + 1), device=dev)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                            for k in FAMILY_KERNELS})
+    launches = dict(cuda_build.LAUNCHES)
+    head = model.pts_bbox_head
+    n = int(head.test_cfg.get("max_num", 500))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != dict(bboxes=(1, n, 9), scores=(1, n), labels=(1, n),
+                      mask=(1, n)):
+        raise RuntimeError(f"unexpected {name} output shapes {shapes}")
+    m = out["mask"]
+    if not (torch.isfinite(out["bboxes"][m]).all()
+            and torch.isfinite(out["scores"][m]).all()):
+        raise RuntimeError(f"non-finite {name} boxes")
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, pillars=stats["voxels"], cap=stats["cap"],
+               anchors=int(head._flat(model(jittered(batch, 0), mode="feats",
+                                            device=dev))[0].shape[0]),
+               kept_boxes=int(m.sum()), launches_per_request=per_request)
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["stream_ms"] = family_stream_ms(model, batch)
+        rec["device_idle_share"] = device_profile(
+            f"{name}_profile", lambda: model(jittered(batch, 0),
+                                            device="cuda"))[
+                                                "device_idle_share"]
+    log(f"{name}_main_path", **rec)
+    if dev == "cuda" and any(min(r.values()) == 0 for r in per_request):
+        raise RuntimeError(f"a {name} request launched no "
+                           f"{FAMILY_KERNELS}: "
+                           f"{per_request}")
+    return launches, rec
+
+
+def phase_family_train(name: str, model, batch: dict, optim: dict,
+                       dev: str = "cuda", steps: int = N_TRAIN_STEPS
+                       ) -> dict:
+    """``{name}``-train: 1 warm-up + ``steps`` steps of the config's
+    ``schedule_2x`` recipe (AdamW, step lr with linear warmup, clip 35);
+    launches per step (K10-NMS: none on a train step). Fails on a
+    non-finite loss or grad norm, a zero grad norm, or a trainable
+    parameter that did not move, unless its gradient was exactly 0 in
+    every step (an SSN task whose classes matched no anchor: no box or
+    direction target; reported, with weight decay too small to move a
+    zero bias). Prints each step's losses, grad norm,
+    forward and backward + update stream ms, then the median and max ms,
+    peak memory and the idle share of one profiled step."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    model.train()
+    opt = build_optimizer(model, optim["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, optim["lr_config"], optim["momentum_config"]),
+        grad_clip_norm(optim["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    step(jittered(batch, 0), gen)
+    sync(dev)
+    watch = {n: p.detach().clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    marks = []
+
+    def event():
+        if dev != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    hook = model.register_forward_hook(lambda *_: marks.append(event()))
+    cuda_build.reset_launches()
+    times, per_step = [], []
+    no_grad = set(watch)
+    params = dict(model.named_parameters())
+    try:
+        for i in range(steps):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            ev0 = event()
+            m = step(jittered(batch, i + 1), gen)
+            ev1 = event()
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            no_grad = {n for n in no_grad if params[n].grad is None
+                       or not bool(params[n].grad.any())}
+            per_step.append({k: cuda_build.LAUNCHES[k] - before[k]
+                             for k in FAMILY_KERNELS})
+            split = {} if ev0 is None else dict(
+                forward_stream_ms=ev0.elapsed_time(marks[-1]),
+                backward_update_stream_ms=marks[-1].elapsed_time(ev1))
+            vals = {k: float(v) for k, v in m.items()}
+            log(f"{name}_train_step", step=i, ms=times[-1], **split,
+                launches=per_step[-1], **vals)
+            if any(not math.isfinite(v) for v in vals.values()) or \
+                    vals["grad_norm"] == 0:
+                raise RuntimeError(f"{name} train step {i}: {vals}")
+    finally:
+        hook.remove()
+    unchanged = [n for n, t in watch.items() if torch.equal(params[n], t)
+                 and n not in no_grad]
+    rec = dict(batch=int(batch["points"].shape[0]),
+               median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, launches_per_step=per_step, losses=vals,
+               trainable=len(watch), unchanged_weights=unchanged,
+               without_gradient=sorted(no_grad))
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["device_idle_share"] = device_profile(
+            f"{name}_train_profile", lambda: step(jittered(batch, 0), gen),
+            top=12)["device_idle_share"]
+    log(f"{name}_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"trainable parameters unchanged by {steps} "
+                           f"{name} train steps: {unchanged[:10]}")
+    model.eval()
+    return rec
+
+
+def _family_run(name: str, dev: str, pins=None) -> dict:
+    """The tiny ``{name}`` model on ``dev`` from seed 1 (box regression
+    scaled by 0.01), under ``testing.pinned_choices(pins)``: head
+    outputs, decoded boxes, loss terms and each top-level module's
+    gradient of one train-mode loss forward, and the launches of the
+    predict path."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.testing import pinned_choices, tame_box_deltas
+
+    model, batch_fn = _family_build(name)(tiny=True, device=dev, seed=1)
+    tame_box_deltas(model)
+    batch = batch_fn(2, seed=3)
+    with pinned_choices(pins) as choices:
+        feats = [t.detach().cpu() for t in _leaves(
+            model(batch, mode="feats", device=dev))]
+        cuda_build.reset_launches()
+        out = {k: v.cpu() for k, v in model(batch, device=dev).items()}
+        sync(dev)
+        predict = {k: cuda_build.LAUNCHES[k] for k in FAMILY_KERNELS}
+        model.train()
+        losses = model(batch, mode="loss", device=dev)
+        sum(losses.values()).backward()
+        sync(dev)
+    grads = {top: torch.cat([p.grad.detach().cpu().flatten() for p in
+                             getattr(model, top).parameters()])
+             for top in FAMILY_TOPS}
+    return dict(feats=feats, out=out, choices=choices, grads=grads,
+                losses={k: float(v.detach()) for k, v in losses.items()},
+                launches=predict)
+
+
+def phase_family_reference(name: str, dev: str = "cuda") -> dict:
+    """The tiny ``{name}`` model in float32 (TF32 off) on the card against
+    the CPU from the same weights and batch, the card taking the CPU's
+    discrete choices (``testing.pinned_choices``: ReLU signs, top-k picks
+    and FreeAnchor's bags, NMS keep masks; each differing choice of its
+    own must be a tie within rounding): head outputs and the decoded
+    boxes and scores within 1e-4 of their max with equal masks and
+    labels, loss terms within 1e-4 relative, each top-level module's
+    gradient within 1e-3 of its max; on the card K10-NMS launches on the
+    predict path."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = _family_run(name, "cpu")
+    card = _family_run(name, dev, pins=cpu["choices"])
+    feat_err = max(_rel_to_max(a, b) for a, b in zip(card["feats"],
+                                                     cpu["feats"]))
+    same = all(torch.equal(card["out"][k], cpu["out"][k])
+               for k in ("mask", "labels"))
+    box_err = max(_rel_to_max(card["out"][k], cpu["out"][k])
+                  for k in ("bboxes", "scores"))
+    loss_err = max(abs(card["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu["losses"].items())
+    grad_err = {top: _rel_to_max(card["grads"][top], g)
+                for top, g in cpu["grads"].items()}
+    choices = card["choices"]
+    rec = dict(head_rel_err=feat_err, same_mask_and_labels=same,
+               kept=int(cpu["out"]["mask"].sum()), box_rel_err=box_err,
+               loss_rel_err=loss_err, grad_rel_err=grad_err,
+               losses=cpu["losses"],
+               choices_pinned={k: len(choices[k]) for k in (
+                   "relu", "topk", "nms_bev")},
+               card_own_choices_differ=choices["flips"],
+               unexplained_choices=choices["unexplained"],
+               launches=card["launches"])
+    log(f"{name}_reference", **rec)
+    if not same or feat_err > 1e-4 or box_err > 1e-4 or loss_err > 1e-4 or \
+            max(grad_err.values()) > 1e-3 or choices["unexplained"]:
+        raise RuntimeError(f"tiny {name} on the card differs from the CPU: "
+                           f"{rec}")
+    if dev == "cuda" and min(card["launches"].values()) == 0:
+        raise RuntimeError(f"tiny {name} on the card missed a kernel: "
+                           f"{card['launches']}")
+    return rec
+
+
+def flipped(batch: dict, meta: dict) -> dict:
+    """The request seen through a test-time flip (``POST_VIEWS``): y
+    negated for a horizontal flip, x for a vertical one."""
+    pts = batch["points"].copy()
+    if meta.get("pcd_horizontal_flip"):
+        pts[..., 1] = -pts[..., 1]
+    if meta.get("pcd_vertical_flip"):
+        pts[..., 0] = -pts[..., 0]
+    return dict(batch, points=pts)
+
+
+def post_views(model, batch: dict, dev: str) -> list:
+    """ssn-serve's request under the four flips: each view's ``max_num``
+    (500) decoded boxes (bboxes, scores, labels, mask) on ``dev``, so the
+    merge holds 2,000."""
+    return [{k: v[0] for k, v in model(flipped(batch, meta),
+                                       device=dev).items()}
+            for meta in POST_VIEWS]
+
+
+def post_path(views: list, num_classes: int) -> dict:
+    """The post-processing path on the views' results: the four views'
+    boxes through ``box3d_multiclass_nms`` (each score in its label's
+    column), the plain and the weighted ``merge_aug_bboxes_3d``, and the
+    axis-aligned NMS (K10-normal) of the merged boxes' nearest-BEV
+    rectangles, one score row per class."""
+    import torch
+    from isfusion_tpu_torch.core.post_processing import (
+        box3d_multiclass_nms, merge_aug_bboxes_3d, undo_view)
+    from isfusion_tpu_torch.models.dense_heads.anchor3d_head import \
+        nearest_bev_boxes
+    from isfusion_tpu_torch.ops.box_ops import nms_normal_bev_mask
+
+    boxes = torch.cat([undo_view(v["bboxes"], m)
+                       for v, m in zip(views, POST_VIEWS)])
+    labels = torch.cat([v["labels"] for v in views])
+    valid = torch.cat([v["mask"] for v in views])
+    per_class = torch.zeros((len(boxes), num_classes), device=boxes.device)
+    per_class[torch.arange(len(boxes)), labels] = torch.cat(
+        [v["scores"] for v in views])
+    kw = dict(score_thr=0.05, nms_thr=0.25, max_num=500, merge_thr=0.5)
+    out = dict(multiclass=box3d_multiclass_nms(boxes, per_class, 0.05, 0.2,
+                                               500, valid),
+               plain=merge_aug_bboxes_3d(views, POST_VIEWS, **kw),
+               weighted=merge_aug_bboxes_3d(views, POST_VIEWS,
+                                            use_weighted_nms=True, **kw))
+    rects = nearest_bev_boxes(boxes)[None]
+    scores = per_class.T[None].contiguous()
+    out["normal"] = dict(keep=nms_normal_bev_mask(rects, scores, 0.2,
+                                                  (scores > 0.05) &
+                                                  valid[None, None]))
+    out["inputs"] = dict(rects=rects, scores=scores, valid=(
+        scores > 0.05) & valid[None, None], boxes=boxes)
+    return out
+
+
+def _weighted_sets(views: list, inputs: dict) -> list:
+    """The BEV sets ``weighted_nms`` hands K10-BEV in the weighted merge:
+    each class's valid boxes, by descending score."""
+    import torch
+    from isfusion_tpu_torch.core.post_processing import BEV_COLS
+
+    boxes = inputs["boxes"]
+    labels = torch.cat([v["labels"] for v in views])
+    scores = torch.cat([v["scores"] for v in views])
+    valid = torch.cat([v["mask"] for v in views]) & (scores > 0.05)
+    sets = []
+    for c in torch.unique(labels[valid]).tolist():
+        sel = valid & (labels == c)
+        order = torch.sort(-scores[sel].double(), stable=True).indices
+        sets.append((f"class_{c}", boxes[sel][order][:, BEV_COLS].float()))
+    return sets
+
+
+def iou_bev_case(a, b, dev: str, timed: bool = True) -> dict:
+    """K10-BEV against its plain version on one set: the largest error
+    (of 1, or of the plain value where a degenerate pair's IoU exceeds
+    1), nonzeros where the plain version is 0, the cut's share; event ms,
+    whole-call device ms, plain ms and the bound: the larger of the bytes
+    (each input read once, the output written once) and the operations
+    each pair's cheapest certificate needs (``iou_bev_needed_ops``)."""
+    from isfusion_tpu_torch.ops import box_ops
+
+    got = box_ops.boxes_iou_bev(a, b)
+    want = box_ops.boxes_iou_bev_ref(a, b)
+    err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) \
+        if want.numel() else 0.0
+    ops = box_ops.iou_bev_needed_ops(a.cpu(), b.cpu())
+    nbytes = (a.numel() + b.numel() + want.numel()) * 4
+    rec = dict(shape=list(want.shape), max_abs_err=err,
+               nonzero_where_plain_zero=int((got[want == 0] != 0).sum()),
+               cut_share=float(box_ops.iou_bev_cut(a, b).float().mean()),
+               ops=ops, bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                     ops / F32_OPS_PER_S) * 1e3,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+               ops / F32_OPS_PER_S else "operations", library_ms=None)
+    if dev == "cuda" and timed:
+        rec.update(ms=cuda_ms(lambda: box_ops.boxes_iou_bev(a, b), dev,
+                              iters=50),
+                   device_ms=device_ms_per_call(
+                       lambda: box_ops.boxes_iou_bev(a, b)),
+                   plain_ms=cuda_ms(lambda: box_ops.boxes_iou_bev_ref(a, b),
+                                    dev, iters=3))
+    return rec
+
+
+def normal_case(rects, scores, valid, thr: float, dev: str,
+                timed: bool = True) -> dict:
+    """K10-normal against its plain version: keep masks equal; event ms,
+    whole-call device ms (the sort included) and each pass's kernel, plain
+    ms and the bound (the larger of the bytes and 15 operations an
+    unordered pair)."""
+    from isfusion_tpu_torch.ops import box_ops
+
+    got = box_ops.nms_normal_bev_mask(rects, scores, thr, valid)
+    want = box_ops.nms_normal_bev_mask_ref(rects.cpu(), scores.cpu(), thr,
+                                           valid.cpu())
+    b, c, k = scores.shape
+    ops = box_ops.NORMAL_OPS_PER_PAIR * b * (k * (k - 1) // 2)
+    nbytes = rects.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
+    rec = dict(B=b, C=c, K=k, keep_flags_differ=int((got.cpu() != want)
+                                                     .sum()),
+               kept=int(want.sum()), ops=ops,
+               bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                            ops / F32_OPS_PER_S) * 1e3,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+               ops / F32_OPS_PER_S else "operations", library_ms=None)
+    if dev == "cuda" and timed:
+        fn = (lambda: box_ops.nms_normal_bev_mask(rects, scores, thr, valid))
+        kern = device_kernels(fn, iters=20)
+        rec.update(ms=cuda_ms(fn, dev, iters=50),
+                   device_ms=sum(n * ms for n, ms in kern.values()),
+                   pairwise_device_ms=kernel_ms(kern, "nms_normal_mask"),
+                   greedy_device_ms=kernel_ms(kern, "nms_greedy_kernel"),
+                   plain_ms=cuda_ms(lambda: box_ops.nms_normal_bev_mask_ref(
+                       rects, scores, thr, valid), dev, iters=2))
+    return rec
+
+
+def merge_nms_case(views: list, boxes, thr: float, dev: str) -> dict:
+    """K10-NMS on the plain merge's class-agnostic set (the four views'
+    boxes, K = 2,000: past the greedy pass's shared memory, so it reads
+    the suppression words from global memory): keep flags equal to the
+    plain greedy walk over the kernel's own bits; event ms, whole-call
+    device ms and each pass's kernel, plain ms and the bound
+    (``nms_bev_needed_ops``)."""
+    import torch
+    from isfusion_tpu_torch.core.post_processing import BEV_COLS
+    from isfusion_tpu_torch.ops import box_ops
+
+    bev = boxes[None, :, BEV_COLS].float()
+    scores = torch.cat([v["scores"] for v in views]).float()[None, None]
+    valid = (torch.cat([v["mask"] for v in views]) &
+             (scores[0, 0] > 0.05))[None, None]
+    got = box_ops.nms_bev_mask(bev, scores, thr, valid)
+    bits = box_ops.nms_bev_suppression_bits(bev, thr) if dev == "cuda" \
+        else box_ops.boxes_iou_bev_ref(bev, bev) > thr
+    want = box_ops.greedy_suppress_ref(bits.cpu(), scores.cpu(),
+                                       valid.cpu())
+    k = bev.shape[1]
+    ops = box_ops.nms_bev_needed_ops(bev.cpu(), thr)
+    nbytes = bev.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
+    rec = dict(K=k, mask_in_shared_memory=box_ops.nms_smem_bytes(1, k) <=
+               box_ops.NMS_SMEM_BYTES,
+               keep_flags_differ=int((got.cpu() != want).sum()),
+               kept=int(want.sum()), ops=ops,
+               bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                            ops / F32_OPS_PER_S) * 1e3,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+               ops / F32_OPS_PER_S else "operations", library_ms=None)
+    if dev == "cuda":
+        fn = (lambda: box_ops.nms_bev_mask(bev, scores, thr, valid))
+        kern = device_kernels(fn, iters=20)
+        rec.update(ms=cuda_ms(fn, dev, iters=50),
+                   device_ms=sum(n * ms for n, ms in kern.values()),
+                   pairwise_device_ms=kernel_ms(kern, "nms_mask_kernel"),
+                   greedy_device_ms=kernel_ms(kern, "nms_greedy_kernel"),
+                   plain_ms=cuda_ms(lambda: box_ops.nms_bev_mask_ref(
+                       bev, scores, thr, valid), dev, iters=1))
+    return rec
+
+
+def _same_results(a: dict, b: dict) -> dict:
+    """Two post-processing results (dicts of tensors): labels and masks
+    equal, boxes and scores' largest gap relative to their max."""
+    import torch
+    return dict(same_labels_and_mask=all(
+        torch.equal(a[k].cpu(), b[k].cpu()) for k in ("labels", "mask")),
+        box_rel_err=_rel_to_max(a["bboxes"].double().cpu(),
+                                b["bboxes"].double().cpu()),
+        score_rel_err=_rel_to_max(a["scores"].double().cpu(),
+                                  b["scores"].double().cpu()),
+        kept=int(b["mask"].sum()))
+
+
+def phase_post_check(model, batch: dict, dev: str = "cuda") -> dict:
+    """``[post_check]``: ssn-serve's request under four flips (none,
+    horizontal, vertical, both; each view's 500 boxes), the
+    post-processing path (``post_path``) on the card with launch counts
+    zeroed just before and read just after (K10-NMS, K10-BEV and
+    K10-normal must each launch), held against the same calls on the CPU
+    (equal labels, masks and keep flags; boxes and scores within 1e-6 of
+    their max); then K10-BEV against its plain version on each class set
+    of the weighted merge and on ``testing.iou_bev_edge_sets`` (1e-5,
+    exactly 0 where the plain version is 0), K10-normal on the merged
+    boxes' nearest-BEV rectangles and ``testing.nms_normal_edge_sets``
+    (equal keep masks), each with event ms, whole-call device ms, plain
+    ms and bound. Returns the record for the kernels line."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.testing import (iou_bev_edge_sets,
+                                            nms_normal_edge_sets)
+
+    views = post_views(model, batch, dev)
+    nc = model.pts_bbox_head.num_classes
+    cuda_build.reset_launches()
+    got = post_path(views, nc)
+    sync(dev)
+    launches = {k: cuda_build.LAUNCHES[k] for k in POST_KERNELS}
+    cpu_views = [{k: v.cpu() for k, v in view.items()} for view in views]
+    want = post_path(cpu_views, nc)
+    compare = {k: _same_results(got[k], want[k])
+               for k in ("multiclass", "plain", "weighted")}
+    normal_equal = torch.equal(got["normal"]["keep"].cpu(),
+                               want["normal"]["keep"])
+    rec = dict(view_boxes=[int(v["mask"].sum()) for v in views],
+               launches=launches, compare=compare,
+               normal_keep_equal=normal_equal,
+               normal_kept=int(want["normal"]["keep"].sum()))
+    log("post_check", **rec)
+    bad = [k for k, r in compare.items() if not r["same_labels_and_mask"]
+           or r["box_rel_err"] > 1e-6 or r["score_rel_err"] > 1e-6]
+    if bad or not normal_equal:
+        raise RuntimeError(f"post-processing on the card differs from the "
+                           f"CPU: {bad}, K10-normal equal {normal_equal}")
+    if dev == "cuda" and (launches["nms_bev"] < 2 or
+                          min(launches.values()) == 0):
+        raise RuntimeError(f"the post-processing path missed a kernel: "
+                           f"{launches}")
+    floor = launch_floor(dev)
+    bev = {}
+    sets = _weighted_sets(views, got["inputs"])
+    largest = max(range(len(sets)), key=lambda i: len(sets[i][1]))
+    for i, (name, boxes) in enumerate(sets):
+        bev[name] = iou_bev_case(boxes, boxes, dev, timed=i == largest)
+        log("post_iou_bev_case", case=name, **bev[name])
+    for name, a, b in iou_bev_edge_sets():
+        bev[name] = iou_bev_case(a.to(dev), b.to(dev), dev, timed=False)
+        log("post_iou_bev_case", case=name, **bev[name])
+    inp = got["inputs"]
+    normal = {"merged": normal_case(inp["rects"], inp["scores"],
+                                    inp["valid"], 0.2, dev)}
+    log("post_normal_case", case="merged", **normal["merged"])
+    merge_nms = merge_nms_case(views, inp["boxes"], 0.25, dev)
+    log("post_merge_nms", **merge_nms)
+    gen = torch.Generator().manual_seed(5)
+    for name, boxes, scores, valid in nms_normal_edge_sets(gen):
+        normal[name] = normal_case(boxes.to(dev), scores.to(dev),
+                                   valid.to(dev), 0.3, dev, timed=False)
+        log("post_normal_case", case=name, **normal[name])
+    bad_bev = [k for k, r in bev.items() if r["max_abs_err"] > 1e-5 or
+               r["nonzero_where_plain_zero"]]
+    bad_normal = [k for k, r in normal.items() if r["keep_flags_differ"]]
+    if bad_bev or bad_normal or merge_nms["keep_flags_differ"]:
+        raise RuntimeError(f"K10-BEV differs from its plain version on "
+                           f"{bad_bev}; K10-normal on {bad_normal}; "
+                           f"K10-NMS on the merge: {merge_nms}")
+    largest = sets[largest][0]
+    rec = dict(launches=launches, launch_floor=floor,
+               iou_bev=dict(bev[largest], case=largest,
+                            max_abs_err=max(r["max_abs_err"]
+                                            for r in bev.values()),
+                            class_sets={k: r["shape"][0] for k, r in
+                                        bev.items() if k.startswith(
+                                            "class_")},
+                            edge_sets=sorted(k for k in bev
+                                             if not k.startswith("class_"))),
+               normal=dict(normal["merged"], edge_sets=sorted(
+                   k for k in normal if k != "merged")),
+               merge_nms=merge_nms)
+    log("post_kernel_check", **rec)
+    return rec
+
+
+def _family_build(name: str):
+    """The builder of ``name`` (ssn or fa) in ``flagship.py``."""
+    from isfusion_tpu_torch import flagship
+    return dict(ssn=flagship.build_ssn, fa=flagship.build_free_anchor)[name]
+
+
+def run_ssn_phases(dev: str = "cuda") -> dict:
+    """ssn-serve, ssn-train, fa-serve, fa-train, the tiny references and
+    ``[post_check]`` on ssn-serve's request."""
+    import torch
+    from isfusion_tpu_torch.testing import tame_box_deltas
+
+    from isfusion_tpu_torch import flagship
+
+    optims = dict(ssn=flagship.ssn_optim_cfg(),
+                  fa=flagship.free_anchor_optim_cfg())
+    out = {}
+    for name in ("ssn", "fa"):
+        model, batch_fn = _family_build(name)(device=dev, seed=0)
+        # random weights regress boxes far wider than the scene: serve and
+        # train with anchor-sized boxes
+        tame_box_deltas(model)
+        launches, serve = phase_family_main_path(name, model, batch_fn(1),
+                                                 dev)
+        if name == "ssn":
+            out["post"] = phase_post_check(model, batch_fn(1), dev)
+        train = phase_family_train(name, model, batch_fn(
+            optims[name]["samples_per_gpu"], seed=1), optims[name], dev)
+        del model
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        out[name] = dict(launches=launches, serve=serve, train=train,
+                         reference=phase_family_reference(name, dev))
+    return out
+
+
+def ssn_run() -> int:
+    """``python3 chip_smoke.py --ssn``: the device and build phases, then
+    the SSN, FreeAnchor and post-processing phases alone."""
+    import torch
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    run_ssn_phases()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 # ------------------------------------------------ LiDAR detectors on parts
 @contextlib.contextmanager
 def recording_heatmaps():
@@ -5041,6 +5679,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parta2 = run_parta2_phases()
     torch.cuda.empty_cache()
+    ssn = run_ssn_phases()
+    torch.cuda.empty_cache()
     # the DP ranks start, build and warm up during the variants, which
     # time nothing
     dp_ranks = start_dp_ranks()
@@ -5246,6 +5886,39 @@ def main() -> int:
         adversarial_sets=sorted(key for key in k16 if key not in (
             "serve", "serve_occupied", "train", "launch_floor")),
         launch_floor=k16["launch_floor"]))
+    post = ssn["post"]
+    kernels.append(dict(
+        name="boxes_iou_bev", route="cuda",
+        source="isfusion_tpu_torch/csrc/boxes_iou_3d.cu",
+        replaces="isfusion_tpu/ops/box_ops.py:154",
+        launches=post["launches"]["boxes_iou_bev"],
+        **{key: post["iou_bev"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "shape", "case", "cut_share",
+            "class_sets", "edge_sets")},
+        launch_floor=post["launch_floor"]))
+    normal = post["normal"]
+    kernels.append(dict(
+        name="nms_normal_bev", route="cuda",
+        source="isfusion_tpu_torch/csrc/nms_normal_bev.cu",
+        replaces="isfusion_tpu/ops/box_ops.py:226",
+        launches=post["launches"]["nms_normal_bev"],
+        max_abs_err=float(normal["keep_flags_differ"]),
+        **{key: normal[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "pairwise_device_ms", "greedy_device_ms", "B", "C",
+            "K", "edge_sets")}))
+    for k in kernels:
+        if k["name"] == "nms_bev":
+            for fam in ("ssn", "fa"):
+                k[f"{fam}_launches_per_request"] = [
+                    r["nms_bev"] for r in ssn[fam]["serve"][
+                        "launches_per_request"]]
+            k["post_check_launches"] = post["launches"]["nms_bev"]
+            k["merge_k2000"] = {key: post["merge_nms"][key] for key in (
+                "K", "mask_in_shared_memory", "ms", "device_ms",
+                "pairwise_device_ms", "greedy_device_ms", "plain_ms",
+                "bound_ms", "bound_by")}
     for k in kernels:
         if k["name"] == "masked_gather":
             k["parta2_launches_per_request"] = [r["masked_gather"]
@@ -5763,6 +6436,8 @@ if __name__ == "__main__":
         sys.exit(fcos_run())
     if sys.argv[1:] == ["--parta2"]:
         sys.exit(parta2_run())
+    if sys.argv[1:] == ["--ssn"]:
+        sys.exit(ssn_run())
     if sys.argv[1:] == ["--isfusion-learn"]:
         sys.exit(isfusion_learn_run())
     if sys.argv[1:] == ["--dp"]:

@@ -1,35 +1,44 @@
-// Pairwise 3D IoU of LiDAR boxes for Hopper (sm_90a) — K10.
+// Pairwise 3D IoU of LiDAR boxes (K10) and pairwise rotated BEV IoU
+// (K10-BEV) for Hopper (sm_90a): one kernel, templated on BEV.
 //
-// out[s, i, j] = IoU of a[s, i] and b[s, j] for every sample s, boxes
-// (x, y, z_bottom, dx, dy, dz, yaw) in float32. The function of
-// isfusion_tpu/ops/box_ops.py:180 boxes_iou_3d (the JAX package's own
-// arithmetic for the reference's iou3d_kernel.cu): the BEV intersection by
-// the candidate-point method (the 4 + 4 corners of each box inside the
-// other, the 16 edge intersections, sorted by angle around their
-// centroid, shoelace; in a frame centred on box a) times the vertical
-// overlap of the bottom-origin boxes, over the union clamped at 1e-8.
+// K10, entry boxes_iou_3d: out[s, i, j] = IoU of a[s, i] and b[s, j] for
+// every sample s, boxes (x, y, z_bottom, dx, dy, dz, yaw) in float32. The
+// function of isfusion_tpu/ops/box_ops.py:180 boxes_iou_3d (the JAX
+// package's own arithmetic for the reference's iou3d_kernel.cu): the BEV
+// intersection by the candidate-point method (the 4 + 4 corners of each
+// box inside the other, the 16 edge intersections, sorted by angle around
+// their centroid, shoelace; in a frame centred on box a) times the
+// vertical overlap of the bottom-origin boxes, over the union clamped at
+// 1e-8.
+// K10-BEV, entry boxes_iou_bev: the same for BEV boxes (x, y, dx, dy,
+// yaw): the function of isfusion_tpu/ops/box_ops.py:154 boxes_iou_bev,
+// the intersection area over a1 + a2 - inter clamped at 1e-8, as
+// ops/box_ops.py:boxes_iou_bev_ref computes it; no vertical overlap.
+// weighted_nms (core/post_processing.py) calls it on the merge's
+// candidates of one class against themselves.
 //
-// Bound: what these inputs need. Each pair reads 14 floats and writes one.
-// Most pairs of the assigner's 200 proposals x 64 GTs a sample are far
-// apart, and each pair needs only its cheapest certificate that the IoU is
-// 0 (a vertical overlap test, ~4 float32 operations; a bounding-circle
-// test, ~8; a separating-axis test, ~52) or else the exact intersection
-// (~630; box_ops.iou3d_needed_ops). At the assigner's shapes the output's
-// bytes then bound it (4 x 200 x 64 floats, 0.06 us at 3.35 TB/s), far
-// under one launch's latency.
+// Bound: what these inputs need. Each pair reads 14 floats (10 BEV) and
+// writes one. Most pairs of the assigner's 200 proposals x 64 GTs a
+// sample are far apart, and each pair needs only its cheapest certificate
+// that the IoU is 0 (a vertical overlap test, ~4 float32 operations; a
+// bounding-circle test, ~8; a separating-axis test, ~52) or else the exact
+// intersection (~630; box_ops.iou3d_needed_ops, iou_bev_needed_ops). At
+// the assigner's shapes the output's bytes then bound it (4 x 200 x 64
+// floats, 0.06 us at 3.35 TB/s), far under one launch's latency.
 //
 // Design: one launch, no copies: a and b are read through their batch and
 // row strides (the assigner hands slices of 10- and 9-wide rows). A block
 // takes a 16 x 32 tile of one sample's pairs with 8 warps:
 // 0. stages its 16 + 32 boxes once in shared memory: centre, sides, cos
-//    and sin of the yaw, z range, volume, reach (below) and whether the box
-//    is tame (every value finite, |x|, |y|, |z|, |dx|, |dy|, |dz| <= 1e8);
+//    and sin of the yaw, z range, volume (area for BEV), reach (below) and
+//    whether the box is tame (every value finite, |x|, |y|, |z|, |dx|,
+//    |dy|, |dz| <= 1e8);
 // A. settles the tile's 512 pairs, 2 a thread: a tame pair whose vertical
-//    overlap min(top) - max(bottom) is <= 0, or whose BEV bounding circles,
-//    widened by the point-in-box tolerance, do not meet, has IoU exactly 0
-//    and is written at once; the other pairs are compacted into a list in
-//    shared memory (warp ballot, popcount prefix, one shared atomic a
-//    warp);
+//    overlap min(top) - max(bottom) is <= 0 (3D only), or whose BEV
+//    bounding circles, widened by the point-in-box tolerance, do not meet,
+//    has IoU exactly 0 and is written at once; the other pairs are
+//    compacted into a list in shared memory (warp ballot, popcount prefix,
+//    one shared atomic a warp);
 // B. a warp computes one listed pair at a time, a lane a candidate point:
 //    lanes 0-3 the corners of a inside b, 4-7 those of b inside a, 8-23
 //    the 16 edge intersections; the centroid summed in candidate order by
@@ -69,33 +78,41 @@ constexpr float TAME = 1e8f;
 
 template <int T>
 struct Boxes {
+  // vol: the volume, or the area for BEV boxes (lo, hi unused)
   float x[T], y[T], dx[T], dy[T], c[T], s[T], lo[T], hi[T], vol[T],
       reach[T];
   bool tame[T];
 };
 
-template <int T>
+// a row's columns: 3D (x, y, z, dx, dy, dz, yaw), BEV (x, y, dx, dy, yaw)
+template <bool BEV, int T>
 __device__ void stage(Boxes<T>& t, const float* row, bool in, int e) {
-  float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  constexpr int W = BEV ? 5 : 7, DX = BEV ? 2 : 3, YAW = W - 1;
+  float v[W] = {};
   if (in) {
 #pragma unroll
-    for (int q = 0; q < 7; ++q) v[q] = row[q];
+    for (int q = 0; q < W; ++q) v[q] = row[q];
   }
+  const float dx = v[DX], dy = v[DX + 1];
   t.x[e] = v[0];
   t.y[e] = v[1];
-  t.dx[e] = v[3];
-  t.dy[e] = v[4];
-  t.c[e] = cosf(v[6]);
-  t.s[e] = sinf(v[6]);
-  t.lo[e] = v[2];
-  t.hi[e] = __fadd_rn(v[2], v[5]);
-  t.vol[e] = __fmul_rn(__fmul_rn(v[3], v[4]), v[5]);
-  t.reach[e] = __fadd_rn(__fadd_rn(__fmul_rn(0.5f, hypotf(v[3], v[4])),
-                                   __fdiv_rn(QUAD_TOL, fabsf(v[3]))),
-                         __fdiv_rn(QUAD_TOL, fabsf(v[4])));
-  bool tame = isfinite(v[6]);
+  t.dx[e] = dx;
+  t.dy[e] = dy;
+  t.c[e] = cosf(v[YAW]);
+  t.s[e] = sinf(v[YAW]);
+  if (BEV) {
+    t.vol[e] = __fmul_rn(dx, dy);
+  } else {
+    t.lo[e] = v[2];
+    t.hi[e] = __fadd_rn(v[2], v[5]);
+    t.vol[e] = __fmul_rn(__fmul_rn(dx, dy), v[5]);
+  }
+  t.reach[e] = __fadd_rn(__fadd_rn(__fmul_rn(0.5f, hypotf(dx, dy)),
+                                   __fdiv_rn(QUAD_TOL, fabsf(dx))),
+                         __fdiv_rn(QUAD_TOL, fabsf(dy)));
+  bool tame = isfinite(v[YAW]);
 #pragma unroll
-  for (int q = 0; q < 6; ++q) tame = tame && fabsf(v[q]) <= TAME;
+  for (int q = 0; q < YAW; ++q) tame = tame && fabsf(v[q]) <= TAME;
   t.tame[e] = tame;
 }
 
@@ -228,11 +245,14 @@ __device__ __forceinline__ float warp_intersection(
   return mul(0.5f, fabsf(sum));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    boxes_iou_3d_kernel(const float* __restrict__ a,
-                        const float* __restrict__ b, float* __restrict__ out,
-                        int64_t n, int64_t m, int64_t asb, int64_t asn,
-                        int64_t bsb, int64_t bsn) {
+// the body of both kernels (each keeps its own name in a profile)
+template <bool BEV>
+__device__ __forceinline__ void boxes_iou(const float* __restrict__ a,
+                                          const float* __restrict__ b,
+                                          float* __restrict__ out, int64_t n,
+                                          int64_t m, int64_t asb,
+                                          int64_t asn, int64_t bsb,
+                                          int64_t bsn) {
   __shared__ Boxes<TILE_N> rows;
   __shared__ Boxes<TILE_M> cols;
   __shared__ uint16_t list[TILE_N * TILE_M];
@@ -246,10 +266,10 @@ __global__ void __launch_bounds__(THREADS)
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   if (t < TILE_N) {
     const int64_t i = n0 + t;
-    stage(rows, a + s * asb + i * asn, i < n, t);
+    stage<BEV>(rows, a + s * asb + i * asn, i < n, t);
   } else if (t < TILE_N + TILE_M) {
     const int64_t j = m0 + t - TILE_N;
-    stage(cols, b + s * bsb + j * bsn, j < m, t - TILE_N);
+    stage<BEV>(cols, b + s * bsb + j * bsn, j < m, t - TILE_N);
   }
   if (t == 0) count = 0;
   __syncthreads();
@@ -263,8 +283,9 @@ __global__ void __launch_bounds__(THREADS)
     const bool in = i < n && j < m;
     bool zero = false;
     if (in && rows.tame[r] && cols.tame[c]) {
-      const float ov = sub(fminf(rows.hi[r], cols.hi[c]),
-                           fmaxf(rows.lo[r], cols.lo[c]));
+      // BEV boxes have no vertical extent: only the circle cut
+      const float ov = BEV ? 1.f : sub(fminf(rows.hi[r], cols.hi[c]),
+                                       fmaxf(rows.lo[r], cols.lo[c]));
       const float ddx = sub(cols.x[c], rows.x[r]);
       const float ddy = sub(cols.y[c], rows.y[r]);
       const float lim =
@@ -292,29 +313,55 @@ __global__ void __launch_bounds__(THREADS)
     if (lane == 0) {
       const float hi = fminf(rows.hi[r], cols.hi[c]);
       const float lo = fmaxf(rows.lo[r], cols.lo[c]);
-      const float inter = mul(area, fmaxf(sub(hi, lo), 0.f));
+      const float inter = BEV ? area : mul(area, fmaxf(sub(hi, lo), 0.f));
       out[(n0 + r) * m + m0 + c] = __fdiv_rn(
           inter, fmaxf(sub(add(rows.vol[r], cols.vol[c]), inter), 1e-8f));
     }
   }
 }
 
-}  // namespace
+#define IOU_KERNEL(NAME, BEV)                                              \
+  __global__ void __launch_bounds__(THREADS)                               \
+      NAME(const float* __restrict__ a, const float* __restrict__ b,       \
+           float* __restrict__ out, int64_t n, int64_t m, int64_t asb,     \
+           int64_t asn, int64_t bsb, int64_t bsn) {                        \
+    boxes_iou<BEV>(a, b, out, n, m, asb, asn, bsb, bsn);                   \
+  }
+IOU_KERNEL(boxes_iou_3d_kernel, false)
+IOU_KERNEL(boxes_iou_bev_kernel, true)
+#undef IOU_KERNEL
 
-// a (batch, n, >=7) and b (batch, m, >=7) float32 with unit element
-// stride along a row; strides: a's batch and row strides, then b's, in
-// elements; out a contiguous (batch, n, m) float32 tensor.
-extern "C" int boxes_iou_3d(const void* a, const void* b, void* out,
-                            long long batch, long long n, long long m,
-                            const long long* strides, void* stream) {
+template <bool BEV>
+int launch(const void* a, const void* b, void* out, long long batch,
+           long long n, long long m, const long long* strides,
+           void* stream) {
   if (batch <= 0 || n <= 0 || m <= 0) return 0;
   const long long gy = (n + TILE_N - 1) / TILE_N;
   const long long gx = (m + TILE_M - 1) / TILE_M;
   if (gy > 65535 || batch > 65535 || gx > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  boxes_iou_3d_kernel<<<dim3((unsigned)gx, (unsigned)gy, (unsigned)batch),
-                        THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = BEV ? boxes_iou_bev_kernel : boxes_iou_3d_kernel;
+  kernel<<<dim3((unsigned)gx, (unsigned)gy, (unsigned)batch), THREADS, 0,
+           (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (float*)out, (int64_t)n, (int64_t)m,
       strides[0], strides[1], strides[2], strides[3]);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// a (batch, n, >=7) and b (batch, m, >=7) float32 (>=5 for boxes_iou_bev)
+// with unit element stride along a row; strides: a's batch and row
+// strides, then b's, in elements; out a contiguous (batch, n, m) float32
+// tensor.
+extern "C" int boxes_iou_3d(const void* a, const void* b, void* out,
+                            long long batch, long long n, long long m,
+                            const long long* strides, void* stream) {
+  return launch<false>(a, b, out, batch, n, m, strides, stream);
+}
+
+extern "C" int boxes_iou_bev(const void* a, const void* b, void* out,
+                             long long batch, long long n, long long m,
+                             const long long* strides, void* stream) {
+  return launch<true>(a, b, out, batch, n, m, strides, stream);
 }

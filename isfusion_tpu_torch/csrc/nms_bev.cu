@@ -46,7 +46,7 @@
 //    the threshold may.
 // 2. Greedy pass (csrc/nms_greedy.cuh): one block
 //    per sample, one warp per class, over the sample's mask in shared
-//    memory, 64 sorted positions at a time resolved on a register word
+//    memory (global memory past K = 1,344), 64 sorted positions at a time resolved on a register word
 //    (1-4 rounds a chunk on testing.py's nms_scene_set, at most 65).
 //
 // Why the circle cut is exact. Take box B (sides dx, dy, circumradius r).
@@ -65,11 +65,11 @@
 // computation at most two spurious candidates (one on each of A's two
 // parallel edges), whose area is again 0 up to rounding.
 //
-// The launch is refused (cudaErrorInvalidValue) when the mask and the
-// removed-bitmasks, (K + C) * ceil(K / 64) words, exceed SMEM_MAX: K <=
-// 1,344 at any class count up to 32 (so ceil(K / 64) <= 21 < 32: one
-// removed word a lane), against an nms_pre of at most 1,000 in the repo's
-// configs.
+// The greedy pass holds the mask in shared memory up to K = 1,344 at 32
+// classes (an nms_pre of at most 1,000 in the repo's configs) and reads it
+// from global memory past that; the launch is refused
+// (cudaErrorInvalidValue) past 32 classes or C * ceil(K / 64) removed
+// words over SMEM_MAX.
 // Allocates nothing (the wrapper passes the mask scratch) and does not
 // synchronise.
 #include <stdint.h>
@@ -204,9 +204,7 @@ extern "C" int nms_bev(const void* boxes, const void* order,
                        long long batch, long long nc, long long k, float thr,
                        int greedy, const long long* strides, void* stream) {
   if (batch <= 0 || nc <= 0 || k <= 0) return 0;
-  const int w = (int)((k + 63) / 64);
-  const size_t bytes = (size_t)(nc + k) * w * sizeof(uint64_t);
-  if (nc > 32 || bytes > (size_t)SMEM_MAX || batch > 65535)
+  if (!greedy_fits(nc, k) || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int tiles = (int)((k + TILE - 1) / TILE);

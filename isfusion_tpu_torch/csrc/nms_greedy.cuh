@@ -7,10 +7,14 @@
 // lower index first); a valid box that no kept box suppresses is kept.
 // Invalid boxes neither keep nor suppress.
 //
-// One block per sample, one warp per score order (class). The sample's
-// mask (128 KB at K = 1,000) is copied into shared memory by all 1,024
-// threads, with one removed-bitmask of ceil(K / 64) words per class,
-// which starts as the class's invalid boxes (so validity is read once).
+// One block per sample, one warp per score order (class). Each class has
+// a removed-bitmask of ceil(K / 64) words in shared memory, which starts
+// as the class's invalid boxes (so validity is read once). Where the
+// sample's mask fits beside them (128 KB at K = 1,000), all 1,024 threads
+// first copy it into shared memory; past that (K > 1,344 at any class count,
+// such as a test-time merge of four views' 500 boxes) the walk reads the
+// mask rows from global memory (K^2 / 8 bytes a sample: 500 KB at K =
+// 2,000, held in L2), the same steps on the same words.
 // The warp walks its class's sorted order 64 positions at a time:
 // (a) the chunk's alive word: not removed (two ballots); the alive
 //     positions are compacted, lane j holding the j-th and (32 + j)-th;
@@ -26,10 +30,12 @@
 //     longest chain of suppressions in the chunk, plus one (at most 65),
 //     each a few register operations;
 // (d) the keep flags, and the kept boxes' mask rows ORed into the
-//     removed-bitmask, one word a lane.
+//     removed-bitmask, one word a lane (32 words a pass).
 // A box is suppressed only by a kept box earlier in the order: the same
-// result as one step a box. Shared memory: (C + K) * ceil(K / 64) words,
-// at most SMEM_MAX (launch_greedy refuses more).
+// result as one step a box. Shared memory: (C + K) * ceil(K / 64) words
+// with the mask, C * ceil(K / 64) without it; launch_greedy refuses more
+// than 32 classes or C * ceil(K / 64) words over SMEM_MAX (K > 58,112 at
+// 32 classes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,22 +99,24 @@ __device__ __forceinline__ uint64_t row_bits(const uint64_t* rows, int w,
   return r;
 }
 
-// removed word `lane` |= the mask rows of the boxes of set bits
-// FROM..FROM + 31 of kept, q_i held by lane i as q
+// removed word u (< w, one a lane) |= the mask rows of the boxes of set
+// bits FROM..FROM + 31 of kept, q_i held by lane i as q
 template <int FROM>
 __device__ __forceinline__ uint64_t kept_rows(const uint64_t* rows, int w,
-                                              int q, uint64_t kept,
-                                              int lane) {
+                                              int q, uint64_t kept, int u) {
   uint64_t acc = 0ull;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int qi = __shfl_sync(FULL, q, i);
-    if (((kept >> (FROM + i)) & 1ull) && lane < w)
-      acc |= rows[(int64_t)qi * w + lane];
+    if (((kept >> (FROM + i)) & 1ull) && u < w)
+      acc |= rows[(int64_t)qi * w + u];
   }
   return acc;
 }
 
+// SHARED: the sample's mask is copied into shared memory beside the
+// removed-bitmasks; else its rows are read where they lie
+template <bool SHARED>
 __global__ void __launch_bounds__(GREEDY_THREADS)
     nms_greedy_kernel(const uint64_t* __restrict__ mask,
                       const int64_t* __restrict__ order,
@@ -119,11 +127,15 @@ __global__ void __launch_bounds__(GREEDY_THREADS)
   const int64_t s = blockIdx.x;
   const int tid = threadIdx.x;
   uint64_t* removed_all = smem;            // nc * w words
-  uint64_t* rows = smem + nc * w;          // the sample's k * w mask words
-  const uint64_t* src = mask + s * k * w;
-  // every warp copies; warps past the classes then leave
+  const uint64_t* src = mask + s * k * w;  // the sample's k * w mask words
+  const uint64_t* rows = src;
+  if (SHARED) {
+    uint64_t* copy = smem + nc * w;
+    // every warp copies; warps past the classes then leave
 #pragma unroll 4
-  for (int64_t e = tid; e < k * w; e += GREEDY_THREADS) rows[e] = src[e];
+    for (int64_t e = tid; e < k * w; e += GREEDY_THREADS) copy[e] = src[e];
+    rows = copy;
+  }
 
   const int c = tid >> 5, lane = tid & 31;
   uint64_t* removed = removed_all + c * w;
@@ -186,10 +198,13 @@ __global__ void __launch_bounds__(GREEDY_THREADS)
         if (next == kept) break;
         kept = next;
       }
-      // (d) the kept boxes' mask rows into the removed-bitmask
-      uint64_t acc = kept_rows<0>(rows, w, q0, kept, lane);
-      if (kept >> 32) acc |= kept_rows<32>(rows, w, q1, kept, lane);
-      if (lane < w) removed[lane] |= acc;
+      // (d) the kept boxes' mask rows into the removed-bitmask, 32 words
+      // a pass (one pass for K <= 2,048)
+      for (int u0 = 0; u0 < w; u0 += 32) {
+        uint64_t acc = kept_rows<0>(rows, w, q0, kept, u0 + lane);
+        if (kept >> 32) acc |= kept_rows<32>(rows, w, q1, kept, u0 + lane);
+        if (u0 + lane < w) removed[u0 + lane] |= acc;
+      }
     }
     // keep flags: each position once over the walk, no zeroing
     const int c_lo = __popcll(alive & ((1ull << lane) - 1ull));
@@ -203,21 +218,31 @@ __global__ void __launch_bounds__(GREEDY_THREADS)
   }
 }
 
+// whether the greedy pass takes nc classes of k boxes: one warp a class,
+// the removed-bitmasks in shared memory
+inline bool greedy_fits(int64_t nc, int64_t k) {
+  return nc <= 32 &&
+         (size_t)nc * ((k + 63) / 64) * sizeof(uint64_t) <= (size_t)SMEM_MAX;
+}
+
 // The greedy pass over `batch` samples' (k, w) mask words, nc score
-// orders each, on `st`; sets the kernel's shared-memory limit on every
-// call (the attribute belongs to the current device).
+// orders each, on `st`, the mask in shared memory where it fits; sets the
+// kernel's shared-memory limit on every call (the attribute belongs to
+// the current device).
 inline cudaError_t launch_greedy(const uint64_t* mask, const int64_t* order,
                                  const uint8_t* valid, uint8_t* keep,
                                  int64_t batch, int64_t nc, int64_t k,
                                  const Strides& sd, cudaStream_t st) {
+  if (!greedy_fits(nc, k)) return cudaErrorInvalidValue;
   const int w = (int)((k + 63) / 64);
-  const size_t bytes = (size_t)(nc + k) * w * sizeof(uint64_t);
-  if (nc > 32 || bytes > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+  const size_t with_mask = (size_t)(nc + k) * w * sizeof(uint64_t);
+  const bool shared = with_mask <= (size_t)SMEM_MAX;
+  const size_t bytes = shared ? with_mask : (size_t)nc * w * sizeof(uint64_t);
+  auto kernel = shared ? nms_greedy_kernel<true> : nms_greedy_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      nms_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_MAX);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (err != cudaSuccess) return err;
-  nms_greedy_kernel<<<(unsigned)batch, GREEDY_THREADS, bytes, st>>>(
+  kernel<<<(unsigned)batch, GREEDY_THREADS, bytes, st>>>(
       mask, order, valid, keep, nc, k, w, sd);
   return cudaGetLastError();
 }

@@ -1,17 +1,21 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
-CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L and PartA2 paths (counterpart of ``isfusion_tpu/models/builder.py``):
+CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN and
+FreeAnchor paths (counterpart of ``isfusion_tpu/models/builder.py``):
 config dicts with a ``type`` key become modules through the port's
 registries."""
 from __future__ import annotations
 
 from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
                         MIDDLE_ENCODERS, NECKS, VOXEL_ENCODERS, build_from_cfg)
+from .backbones.regnet import NoStemRegNet, RegNet
 from .backbones.resnet import ResNet
 from .backbones.second import SECOND, SECONDV2
 from .backbones.swin import SwinTransformer
 from .dense_heads.anchor3d_head import Anchor3DHead
 from .dense_heads.centerpoint_head import CenterHead
 from .dense_heads.fcos_mono3d_head import FCOSMono3DHead
+from .dense_heads.free_anchor3d_head import FreeAnchor3DHead
+from .dense_heads.shape_aware_head import ShapeAwareHead
 from .dense_heads.transfusion_head import TransFusionHeadV2
 from .fusion_layers.point_fusion import PointFusion
 from .middle_encoders.isfusion_encoder import ISFusionEncoder
@@ -28,6 +32,7 @@ from .voxel_encoders import (DynamicFusionVFE, DynamicPillarFeatureNet,
 
 for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (BACKBONES, SECOND), (BACKBONES, ResNet),
+                   (BACKBONES, RegNet), (BACKBONES, NoStemRegNet),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
                    (NECKS, FPN), (FUSION_LAYERS, PointFusion),
                    (VOXEL_ENCODERS, DynamicVFE), (VOXEL_ENCODERS, HardVFE),
@@ -42,6 +47,7 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (FUSION_LAYERS, ISFusionEncoder),
                    (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead),
                    (HEADS, CenterHead), (HEADS, FCOSMono3DHead),
+                   (HEADS, ShapeAwareHead), (HEADS, FreeAnchor3DHead),
                    (HEADS, PartAggregationROIHead)):
     _reg.register_module(module=_cls)
 

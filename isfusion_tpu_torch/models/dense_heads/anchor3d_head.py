@@ -11,10 +11,13 @@ to (B, H * W * A, C), anchors ordered (H, W, size, rotation) as
 selections run on float32 scores with a stable order (equal scores keep
 the lower index first, as ``jax.lax.top_k``). The per-class NMS of a
 request is one launch of the K10-NMS kernel (``ops/box_ops.py``).
-With ``assigner_per_size`` (MVX-Net's KITTI head) the anchors of size i
-are matched only to the GTs of class i, as the reference's per-size
-assignment does; the JAX package reads the flag but matches every anchor
-to every GT (ROADMAP queue 3).
+With ``assigner_per_size`` (MVX-Net's KITTI head) or ``assign_per_class``
+(SSN's) the anchors of size i are matched only to the GTs of class i, as
+the reference's per-size and per-class assignment does; the JAX package
+declares both flags but matches every anchor to every GT (ROADMAP queue
+3). The size of each anchor comes from ``anchor_size_index``, which
+follows the anchors' own layout (ShapeAwareHead's per-task anchors
+override it).
 Reference names: ``conv_cls``, ``conv_reg``, ``conv_dir_cls``.
 """
 from __future__ import annotations
@@ -104,11 +107,13 @@ class Anchor3DHead(nn.Module):
                  dir_offset: float = 0.7854, dir_limit_offset: float = 0.0,
                  bbox_coder=None, loss_cls=None, loss_bbox=None,
                  loss_dir=None, train_cfg=None, test_cfg=None,
-                 assigner_per_size: bool = False, compute_dtype=None,
+                 assigner_per_size: bool = False,
+                 assign_per_class: bool = False, compute_dtype=None,
                  **unused):
         super().__init__()
         self.num_classes = int(num_classes)
         self.assigner_per_size = bool(assigner_per_size)
+        self.assign_per_class = bool(assign_per_class)
         self.use_direction_classifier = bool(use_direction_classifier)
         self.diff_rad_by_sin = bool(diff_rad_by_sin)
         self.dir_offset = float(dir_offset)
@@ -158,13 +163,14 @@ class Anchor3DHead(nn.Module):
 
     def _flat(self, preds):
         """(anchors (N, code), cls (B, N, C), reg (B, N, code), dir (B, N,
-        2) or None), float32."""
+        2) or None, each anchor's size index (N,)), float32."""
         sizes = tuple(tuple(p[0].shape[1:3]) for p in preds)
         dev = preds[0][0].device
         key = (sizes, str(dev))
         if key not in self._anchors:
-            self._anchors[key] = torch.from_numpy(
-                self.anchors_for(sizes)).to(dev)
+            self._anchors[key] = (
+                torch.from_numpy(self.anchors_for(sizes)).to(dev),
+                torch.from_numpy(self.anchor_size_index(sizes)).to(dev))
         b = preds[0][0].shape[0]
 
         def cat(i, width):
@@ -172,27 +178,31 @@ class Anchor3DHead(nn.Module):
                              1).float()
 
         dirs = cat(2, 2) if self.use_direction_classifier else None
-        return (self._anchors[key], cat(0, self.num_classes),
-                cat(1, self.box_code_size), dirs)
+        anchors, size_index = self._anchors[key]
+        return (anchors, cat(0, self.num_classes),
+                cat(1, self.box_code_size), dirs, size_index)
 
-    def anchor_sizes(self, n_anchors: int, device) -> torch.Tensor:
-        """(A,) the size index of each anchor of ``_flat``'s order (H, W,
-        size, rotation per level)."""
+    def anchor_size_index(self, featmap_sizes: Sequence[Tuple[int, int]]
+                          ) -> np.ndarray:
+        """(N,) int64: the generator's size index of each anchor of
+        ``anchors_for(featmap_sizes)`` (H, W, size, rotation per level)."""
         gen = self.anchor_generator
-        r = len(gen.rotations)
-        return (torch.arange(n_anchors, device=device) // r) % len(gen.sizes)
+        r, s = len(gen.rotations), len(gen.sizes)
+        return np.concatenate([np.arange(int(h) * int(w) * s * r) // r % s
+                               for h, w in featmap_sizes])
 
     def assign(self, anchors: torch.Tensor, gts: torch.Tensor,
-               labels: torch.Tensor, gmask: torch.Tensor) -> torch.Tensor:
+               labels: torch.Tensor, gmask: torch.Tensor,
+               size_index: torch.Tensor) -> torch.Tensor:
         """MaxIoUAssigner over nearest-BEV IoUs: (A,) -1 negative, -2
         ignored, >= 0 the matched GT; per size with ``assigner_per_size``
-        (an anchor of size i sees only the GTs labelled i)."""
+        or ``assign_per_class`` (an anchor of size i, ``size_index`` (A,),
+        sees only the GTs labelled i)."""
         cfg = dict(self.train_cfg.get("assigner", dict(
             pos_iou_thr=0.6, neg_iou_thr=0.45, min_pos_iou=0.45)))
         ious = bbox_overlaps_nearest_3d(anchors, gts)
-        if self.assigner_per_size:
-            same = self.anchor_sizes(anchors.shape[0], anchors.device)[
-                :, None] == labels.long()[None, :]
+        if self.assigner_per_size or self.assign_per_class:
+            same = size_index[:, None] == labels.long()[None, :]
             ious = torch.where(same, ious, torch.full_like(ious, -1.0))
         assigned, _ = max_iou_assign(
             ious, gmask, float(cfg.get("pos_iou_thr", 0.6)),
@@ -205,7 +215,8 @@ class Anchor3DHead(nn.Module):
         """Per-sample focal, smooth-L1 (sin difference of yaw, code
         weights) and direction losses over the sample's positives, averaged
         over the batch: dict(loss_cls, loss_bbox[, loss_dir])."""
-        anchors, cls_scores, bbox_preds, dir_preds = self._flat(preds)
+        anchors, cls_scores, bbox_preds, dir_preds, size_index = \
+            self._flat(preds)
         code = self.box_code_size
         code_weight = torch.tensor(
             [float(v) for v in self.train_cfg.get("code_weight",
@@ -214,7 +225,8 @@ class Anchor3DHead(nn.Module):
         per_sample = []
         for i in range(cls_scores.shape[0]):
             gts, gmask = gt_bboxes[i].float(), gt_mask[i].bool()
-            assigned = self.assign(anchors, gts, gt_labels[i], gmask)
+            assigned = self.assign(anchors, gts, gt_labels[i], gmask,
+                                   size_index)
             pos, neg = assigned >= 0, assigned == -1
             safe = assigned.clamp_min(0)
             num_pos = pos.float().sum().clamp_min(1.0)
@@ -254,7 +266,7 @@ class Anchor3DHead(nn.Module):
         score_thr = float(tc.get("score_thr", 0.05))
         nms_thr = float(tc.get("nms_thr", 0.2))
         max_num = int(tc.get("max_num", 500))
-        anchors, cls_scores, bbox_preds, dir_preds = self._flat(preds)
+        anchors, cls_scores, bbox_preds, dir_preds, _ = self._flat(preds)
         b, n, nc = cls_scores.shape
         scores = torch.sigmoid(cls_scores)
         topi = topk_stable(scores.amax(-1), min(nms_pre, n))      # (B, k)

@@ -22,15 +22,26 @@ that no kept box suppresses is kept. BEV boxes are (x, y, dx, dy, yaw).
 ``circle_nms_mask`` for R independent sets, each with its own threshold:
 the same greedy walk over ``squared centre distance <= thresh``.
 
+``boxes_iou_bev(a (..., N, 5), b (..., M, 5)) -> (..., N, M)``: K10-BEV,
+the JAX package's ``boxes_iou_bev`` (rotated BEV IoU, union clamped at
+1e-8), one launch for all leading dims. ``nms_normal_bev_mask(boxes (B,
+K, 4), scores (B, C, K), thresh, valid (B, C, K)) -> keep (B, C, K)``:
+K10-normal, the JAX package's ``nms_normal_bev_mask`` (the greedy walk
+over axis-aligned ``(x1, y1, x2, y2)`` IoU > thresh).
+
 On a CPU tensor each function takes its plain PyTorch version
-(``boxes_iou_3d_ref``, ``nms_bev_mask_ref``, ``circle_nms_mask_ref``: the
-tests' and the kernels' yardsticks); on a CUDA tensor it launches its
-kernel (``csrc/boxes_iou_3d.cu``, ``csrc/nms_bev.cu``, sharing the
-geometry of ``csrc/rotated_box.cuh``; K10-NMS's greedy pass is
-``csrc/nms_greedy.cuh``; ``csrc/nms_circle.cu`` is K10-circle in one
+(``boxes_iou_3d_ref``, ``nms_bev_mask_ref``, ``circle_nms_mask_ref``,
+``boxes_iou_bev_ref``, ``nms_normal_bev_mask_ref``: the tests' and the
+kernels' yardsticks); on a CUDA tensor it launches its kernel
+(``csrc/boxes_iou_3d.cu``, K10 and K10-BEV; ``csrc/nms_bev.cu``,
+sharing the geometry of ``csrc/rotated_box.cuh``; K10-NMS's and
+K10-normal's greedy pass is ``csrc/nms_greedy.cuh``;
+``csrc/nms_normal_bev.cu``; ``csrc/nms_circle.cu`` is K10-circle in one
 launch) or raises. The assigner's IoU3DCost calls K10 once per train
 step, on all samples and decoder layers; Anchor3DHead's ``get_bboxes``
-calls K10-NMS once per request, CenterHead's ``get_bboxes`` K10-circle.
+and ``core/post_processing.py:box3d_multiclass_nms`` call K10-NMS once
+per request, CenterHead's ``get_bboxes`` K10-circle; ``weighted_nms``
+calls K10-BEV once per class it merges.
 
 ``box_local_uvw(boxes, centers)``: the world-to-box transform of points
 (normalised in-box coordinates and the inside mask), shared by PartA2's
@@ -53,10 +64,12 @@ from . import cuda_build
 # counted per pair by ``rotated_iou_ops``
 IOU3D_OPS_PER_PAIR = 22 + 8 * 4 * 6 + 16 * 22 + 50 + 16
 
-# the greedy pass holds a sample's (K, ceil(K / 64)) suppression words and
-# one removed-mask of ceil(K / 64) words per class (one warp each) in
-# shared memory: at most 32 classes and Hopper's 227 KB a block (K <=
-# 1,344 at 32 classes, 1,000 at the configs' largest nms_pre)
+# the greedy pass holds one removed-mask of ceil(K / 64) words per class
+# (one warp each) in shared memory, and a sample's (K, ceil(K / 64))
+# suppression words beside them where they fit in Hopper's 227 KB a block
+# (K <= 1,344 at 32 classes, 1,000 at the configs' largest nms_pre; past
+# that it reads them from global memory): at most 32 classes and 227 KB of
+# removed-masks (K <= 58,112 at 32 classes)
 NMS_MAX_CLASSES = 32
 NMS_SMEM_BYTES = 227 * 1024
 
@@ -85,7 +98,9 @@ IOU3D_Z_OPS = 4
 
 
 def nms_smem_bytes(classes: int, boxes: int) -> int:
-    """Shared memory of K10-NMS's greedy pass for one sample."""
+    """Shared memory of K10-NMS's greedy pass for one sample with the
+    suppression words in it (it reads them from global memory when this
+    exceeds ``NMS_SMEM_BYTES``)."""
     return (classes + boxes) * ((boxes + 63) // 64) * 8
 
 
@@ -262,28 +277,34 @@ def iou3d_tame(boxes: torch.Tensor) -> torch.Tensor:
         torch.isfinite(b[..., 6])
 
 
+def _circles_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., N, M) bool: the bounding circles of float32 (..., N, 4) and
+    (..., M, 4) BEV boxes (x, y, dx, dy) do not meet, in the kernels'
+    arithmetic (``bev_circles_meet``'s test, centres taken b - a)."""
+    def reach(x):
+        return 0.5 * torch.hypot(x[..., 2], x[..., 3]) + \
+            NMS_QUAD_TOL / x[..., 2].abs() + NMS_QUAD_TOL / x[..., 3].abs()
+
+    d = b[..., None, :, :2] - a[..., :, None, :2]
+    lim = (reach(a)[..., :, None] + reach(b)[..., None, :]) * NMS_CUT_REL + \
+        NMS_CUT_ABS
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] > lim * lim
+
+
 def iou3d_early_outs(boxes1: torch.Tensor, boxes2: torch.Tensor):
     """(by_z, by_circle), each (..., N, M) bool: the pairs K10's kernel
     settles as IoU 0 without the exact intersection, in its float32
     arithmetic. Both boxes tame (``iou3d_tame``), and ``by_z``: the
     vertical overlap min(top) - max(bottom) is <= 0; ``by_circle``: the
-    BEV bounding circles do not meet (``bev_circles_meet``'s test, centres
-    taken b - a)."""
+    BEV bounding circles do not meet (``_circles_apart``)."""
     a, b = boxes1[..., :7].float(), boxes2[..., :7].float()
     tame = iou3d_tame(a)[..., :, None] & iou3d_tame(b)[..., None, :]
     ov = torch.minimum((a[..., 2] + a[..., 5])[..., :, None],
                        (b[..., 2] + b[..., 5])[..., None, :]) - \
         torch.maximum(a[..., 2][..., :, None], b[..., 2][..., None, :])
-
-    def reach(x):
-        return 0.5 * torch.hypot(x[..., 3], x[..., 4]) + \
-            NMS_QUAD_TOL / x[..., 3].abs() + NMS_QUAD_TOL / x[..., 4].abs()
-
-    d = b[..., None, :, :2] - a[..., :, None, :2]
-    lim = (reach(a)[..., :, None] + reach(b)[..., None, :]) * NMS_CUT_REL + \
-        NMS_CUT_ABS
-    apart = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] > lim * lim
-    return tame & (ov <= 0), tame & apart
+    cols = [0, 1, 3, 4]
+    return tame & (ov <= 0), tame & _circles_apart(a[..., cols],
+                                                   b[..., cols])
 
 
 def iou3d_needed_ops(boxes1: torch.Tensor, boxes2: torch.Tensor) -> int:
@@ -371,13 +392,14 @@ def nms_bev_needed_ops(boxes_bev: torch.Tensor, thresh: float) -> int:
             int(rotated_iou_ops(lo[touch], hi[touch]).sum()))
 
 
-def _lead_check(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor):
+def _lead_check(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor,
+                width: int = 7):
     s1, s2 = boxes1.shape, boxes2.shape
     if len(s1) < 2 or len(s1) != len(s2) or s1[:-2] != s2[:-2] or \
-            s1[-1] < 7 or s2[-1] < 7:
-        raise ValueError(f"{name}: boxes (..., N, >=7) and (..., M, >=7) "
-                         f"with equal leading dims, got {tuple(boxes1.shape)}"
-                         f" and {tuple(boxes2.shape)}")
+            s1[-1] < width or s2[-1] < width:
+        raise ValueError(f"{name}: boxes (..., N, >={width}) and (..., M, "
+                         f">={width}) with equal leading dims, got "
+                         f"{tuple(boxes1.shape)} and {tuple(boxes2.shape)}")
     if boxes1.device != boxes2.device:
         raise ValueError(f"{name}: boxes on different devices")
 
@@ -388,14 +410,37 @@ def _raw_stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _iou_rows(boxes: torch.Tensor, n: int) -> torch.Tensor:
-    """(S, n, >=7) float32 rows of unit element stride: a view of
+def _iou_rows(boxes: torch.Tensor, n: int, width: int = 7) -> torch.Tensor:
+    """(S, n, >=width) float32 rows of unit element stride: a view of
     ``boxes`` where one exists, else a copy."""
     if boxes.dim() == 3 and boxes.dtype == torch.float32 and \
             boxes.stride(-1) == 1:
         return boxes
     x = boxes.float().reshape(-1, n, boxes.shape[-1])
-    return x if x.stride(-1) == 1 else x[..., :7].contiguous()
+    return x if x.stride(-1) == 1 else x[..., :width].contiguous()
+
+
+def _launch_pairwise(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor,
+                     width: int) -> torch.Tensor:
+    """(..., N, M) float32 from kernel ``name`` (K10 or K10-BEV), which
+    reads rows of ``width`` or more floats through their batch and row
+    strides: float32 rows with unit element stride are not copied."""
+    lead = boxes1.shape[:-2]
+    n, m = boxes1.shape[-2], boxes2.shape[-2]
+    a, b = (_iou_rows(x, k, width) for x, k in ((boxes1, n), (boxes2, m)))
+    out = torch.empty((a.shape[0], n, m), dtype=torch.float32,
+                      device=a.device)
+    if out.numel() == 0:
+        return out.view(lead + (n, m))
+    lib = cuda_build.load(name)
+    strides = (ctypes.c_longlong * 4)(*(a.stride()[:2] + b.stride()[:2]))
+    err = getattr(lib, name)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             a.shape[0], n, m, strides, _raw_stream(a))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    cuda_build.LAUNCHES[name] += 1
+    return out.view(lead + (n, m))
 
 
 def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
@@ -406,24 +451,21 @@ def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
         return boxes_iou_3d_ref(boxes1, boxes2)
     if boxes1.device.type != "cuda":
         raise RuntimeError(f"boxes_iou_3d: no kernel for {boxes1.device}")
-    lead = boxes1.shape[:-2]
-    n, m = boxes1.shape[-2], boxes2.shape[-2]
-    # the kernel reads rows of 7 or more floats through their batch and
-    # row strides: float32 rows with unit element stride are not copied
-    a, b = (_iou_rows(x, k) for x, k in ((boxes1, n), (boxes2, m)))
-    out = torch.empty((a.shape[0], n, m), dtype=torch.float32,
-                      device=a.device)
-    if out.numel() == 0:
-        return out.view(lead + (n, m))
-    lib = cuda_build.load("boxes_iou_3d")
-    strides = (ctypes.c_longlong * 4)(*(a.stride()[:2] + b.stride()[:2]))
-    err = lib.boxes_iou_3d(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                           a.shape[0], n, m, strides, _raw_stream(a))
-    if err != 0:
-        raise RuntimeError(f"boxes_iou_3d: kernel launch failed with CUDA "
-                           f"error {err}")
-    cuda_build.LAUNCHES["boxes_iou_3d"] += 1
-    return out.view(lead + (n, m))
+    return _launch_pairwise("boxes_iou_3d", boxes1, boxes2, 7)
+
+
+def boxes_iou_bev(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
+                  ) -> torch.Tensor:
+    """(..., N, M) float32 IoU of rotated BEV boxes (x, y, dx, dy, yaw[,
+    ...]; the first five columns), one kernel launch for all leading
+    dims."""
+    _lead_check("boxes_iou_bev", boxes1_bev, boxes2_bev, 5)
+    if boxes1_bev.device.type == "cpu":
+        return boxes_iou_bev_ref(boxes1_bev[..., :5], boxes2_bev[..., :5])
+    if boxes1_bev.device.type != "cuda":
+        raise RuntimeError(f"boxes_iou_bev: no kernel for "
+                           f"{boxes1_bev.device}")
+    return _launch_pairwise("boxes_iou_bev", boxes1_bev, boxes2_bev, 5)
 
 
 def _nms_args(boxes_bev: torch.Tensor, scores: torch.Tensor,
@@ -511,13 +553,18 @@ def nms_bev_mask(boxes_bev: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
+def _greedy_capacity(name: str, c: int, k: int) -> None:
+    """Raise unless the greedy pass (csrc/nms_greedy.cuh) holds the
+    removed-masks of C classes of K boxes in one block."""
+    if c > NMS_MAX_CLASSES or c * ((k + 63) // 64) * 8 > NMS_SMEM_BYTES:
+        raise ValueError(f"{name}: at most {NMS_MAX_CLASSES} classes and "
+                         f"{NMS_SMEM_BYTES} bytes of removed-masks (C * "
+                         f"ceil(K / 64) * 8), got C = {c}, K = {k}")
+
+
 def _launch_nms(boxes_bev, order, valid, keep, c, thresh, greedy):
     b, k = boxes_bev.shape[:2]
-    if c > NMS_MAX_CLASSES or nms_smem_bytes(c, k) > NMS_SMEM_BYTES:
-        raise ValueError(f"nms_bev_mask: at most {NMS_MAX_CLASSES} classes "
-                         f"and {NMS_SMEM_BYTES} bytes of shared memory "
-                         f"((C + K) * ceil(K / 64) * 8), got C = {c}, K = "
-                         f"{k}")
+    _greedy_capacity("nms_bev_mask", c, k)
     boxes = boxes_bev.float().contiguous()
     mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64,
                        device=boxes.device)
@@ -551,6 +598,123 @@ def nms_bev_suppression_bits(boxes_bev: torch.Tensor, thresh: float
     shift = torch.arange(64, device=words.device)
     bits = (words[..., None] >> shift) & 1
     return bits.reshape(words.shape[0], k, -1)[..., :k].bool()
+
+
+def iou_bev_tame(boxes_bev: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool: the BEV boxes K10-BEV may cut, every value finite and
+    |x|, |y|, |dx|, |dy| <= ``IOU3D_TAME``."""
+    b = boxes_bev[..., :5].float()
+    return (b[..., :4].abs() <= IOU3D_TAME).all(-1) & torch.isfinite(
+        b[..., 4])
+
+
+def iou_bev_cut(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
+                ) -> torch.Tensor:
+    """(..., N, M) bool: the pairs K10-BEV's kernel settles as IoU 0
+    without the exact intersection, in its float32 arithmetic: both boxes
+    tame (``iou_bev_tame``) and their bounding circles apart
+    (``_circles_apart``)."""
+    a, b = boxes1_bev[..., :4].float(), boxes2_bev[..., :4].float()
+    tame = iou_bev_tame(boxes1_bev)[..., :, None] & \
+        iou_bev_tame(boxes2_bev)[..., None, :]
+    return tame & _circles_apart(a, b)
+
+
+def iou_bev_needed_ops(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
+                       ) -> int:
+    """float32 operations that settle every pair of these BEV boxes, each
+    by its cheapest certificate: the circle test where the circles are
+    apart, else a separating-axis test where the plain intersection area is
+    0, else the exact IoU (``rotated_iou_ops``): K10-BEV's data-dependent
+    bound."""
+    cut = iou_bev_cut(boxes1_bev, boxes2_bev)
+    a, b = boxes1_bev[..., :5].float(), boxes2_bev[..., :5].float()
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    n, m = a.shape[-2], b.shape[-2]
+    rest = torch.nonzero(~cut, as_tuple=True)
+    ai = a.expand(lead + (n, 5))[rest[:-1]][:, None]
+    bj = b.expand(lead + (m, 5))[rest[:-2] + rest[-1:]][:, None]
+    touch = rotated_rect_intersection_area(ai, bj)[:, 0, 0] > 0
+    return (NMS_CIRCLE_OPS * int(cut.sum()) + NMS_SAT_OPS *
+            int((~touch).sum()) + int(rotated_iou_ops(ai[touch],
+                                                      bj[touch]).sum()))
+
+
+# K10-normal's IoU of a pair: two max, two min, two differences, two
+# clamps, the product, the union's sum, difference and floor, the ratio
+# and the comparison
+NORMAL_OPS_PER_PAIR = 15
+
+
+def normal_iou_ref(boxes_xyxy: torch.Tensor) -> torch.Tensor:
+    """(B, K, K) float32 axis-aligned IoU of each sample's (x1, y1, x2, y2)
+    boxes, in the JAX package's order of operations (``nms_normal_bev_
+    mask``: areas and the intersection's sides clamped at 0, the union
+    floored at 1e-8)."""
+    b = boxes_xyxy.float()
+    area = (b[..., 2] - b[..., 0]).clamp_min(0) * \
+        (b[..., 3] - b[..., 1]).clamp_min(0)
+    x1 = torch.maximum(b[..., :, None, 0], b[..., None, :, 0])
+    y1 = torch.maximum(b[..., :, None, 1], b[..., None, :, 1])
+    x2 = torch.minimum(b[..., :, None, 2], b[..., None, :, 2])
+    y2 = torch.minimum(b[..., :, None, 3], b[..., None, :, 3])
+    inter = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
+    return inter / (area[..., :, None] + area[..., None, :] -
+                    inter).clamp_min(1e-8)
+
+
+def _normal_args(boxes_xyxy, scores, valid):
+    if boxes_xyxy.dim() != 3 or boxes_xyxy.shape[-1] != 4:
+        raise ValueError(f"nms_normal_bev_mask: boxes (B, K, 4), got "
+                         f"{tuple(boxes_xyxy.shape)}")
+    return _nms_order(boxes_xyxy, scores, valid)
+
+
+def nms_normal_bev_mask_ref(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
+                            thresh: float,
+                            valid: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of ``nms_normal_bev_mask``: the plain
+    axis-aligned IoU and a sequential greedy walk per sample and class."""
+    _normal_args(boxes_xyxy, scores, valid)
+    return greedy_suppress_ref(normal_iou_ref(boxes_xyxy) > thresh, scores,
+                               valid)
+
+
+def nms_normal_bev_mask(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
+                        thresh: float, valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """(B, C, K) bool keep masks of greedy axis-aligned BEV NMS over (B, K,
+    4) boxes (x1, y1, x2, y2) shared by C score rows per sample
+    (``nms_normal_gpu`` semantics: ``iou > thresh`` suppresses); one
+    pairwise and one greedy launch for the batch."""
+    valid, order = _normal_args(boxes_xyxy, scores, valid)
+    if boxes_xyxy.device.type == "cpu":
+        return nms_normal_bev_mask_ref(boxes_xyxy, scores, thresh, valid)
+    if boxes_xyxy.device.type != "cuda":
+        raise RuntimeError(f"nms_normal_bev_mask: no kernel for "
+                           f"{boxes_xyxy.device}")
+    b, c, k = scores.shape
+    keep = torch.empty((b, c, k), dtype=torch.bool, device=scores.device)
+    if keep.numel() == 0:
+        return keep
+    _greedy_capacity("nms_normal_bev_mask", c, k)
+    # the kernel reads (x1, y1, x2, y2) as one 16-byte vector a box
+    boxes = boxes_xyxy.float().contiguous()
+    if boxes.data_ptr() % 16:
+        boxes = boxes.clone()
+    mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64,
+                       device=boxes.device)
+    strides = (ctypes.c_longlong * 6)(*(order.stride() + valid.stride()))
+    err = cuda_build.load("nms_normal_bev").nms_normal_bev(
+        boxes.data_ptr(), order.data_ptr(), valid.data_ptr(),
+        mask.data_ptr(), keep.data_ptr(), b, c, k, float(thresh), strides,
+        _raw_stream(boxes))
+    if err != 0:
+        raise RuntimeError(f"nms_normal_bev: kernel launch failed with CUDA "
+                           f"error {err}")
+    cuda_build.LAUNCHES["nms_normal_bev"] += 1
+    return keep
 
 
 # K10-circle's pairwise pass: a squared distance and a comparison per pair

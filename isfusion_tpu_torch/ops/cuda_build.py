@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
+Each ``csrc/<name>.cu`` exposes a plain C entry point (``SOURCES`` names
+the file of an entry point that shares another's) and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).
 Libraries go to ``build/isfusion_tpu_torch_kernels/`` at the repository
@@ -39,9 +40,12 @@ _P, _LL, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, \
 SIGNATURES = {
     "masked_gather": ([_P, _P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
     "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _LL, _P, _P], ctypes.c_int),
+    "boxes_iou_bev": ([_P, _P, _P, _LL, _LL, _LL, _P, _P], ctypes.c_int),
     "nms_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, ctypes.c_int, _P,
                  _P], ctypes.c_int),
     "nms_circle": ([_P, _P, _P, _P, _F, _P, _LL, _LL, _P, _P], ctypes.c_int),
+    "nms_normal_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, _P, _P],
+                       ctypes.c_int),
     "gaussian_heatmap": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P],
                          ctypes.c_int),
     "dynamic_voxelize": ([_I, _P, _P, _P, _LL, _LL, _LL, _LL, _F, _F, _F,
@@ -54,6 +58,10 @@ SIGNATURES = {
     # no kernel of a path: the floor of one launch, timed by chip_smoke.py
     "empty_launch": ([_P], _I),
 }
+
+# entry points that live in another kernel's source: K10-BEV is K10's
+# kernel without the vertical overlap
+SOURCES = {"boxes_iou_bev": "boxes_iou_3d"}
 
 # launches per kernel, and "segment_layout": the lists that K1's list stage
 # built for a K2 caller that passed none (ops/voxel.py:segment_layout)
@@ -80,7 +88,13 @@ def find_nvcc() -> str:
     return found
 
 
+def source_of(name: str) -> str:
+    """The ``csrc/<source>.cu`` stem that holds kernel ``name``."""
+    return SOURCES.get(name, name)
+
+
 def _lib_path(name: str) -> Path:
+    name = source_of(name)
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     for hdr in sorted(CSRC_DIR.glob("*.cuh")):
         src += hdr.read_bytes()
@@ -89,8 +103,10 @@ def _lib_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile the source of kernel ``name`` unless its library is already
+    built."""
     out = _lib_path(name)
+    name = source_of(name)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -108,8 +124,9 @@ def build_all() -> float:
     """Build every kernel, one ``nvcc`` per source, all started together.
     Returns the wall seconds taken."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as ex:
-        list(ex.map(build, SIGNATURES))
+    sources = sorted({source_of(n) for n in SIGNATURES})
+    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
+        list(ex.map(build, sources))
     return time.perf_counter() - t0
 
 

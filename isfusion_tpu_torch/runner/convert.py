@@ -1,6 +1,6 @@
 """Carry the JAX package's IS-Fusion, PointPillars, CenterPoint, MVX-Net,
-FCOS3D, VoxelNet, TransFusion-L and PartA2 variables into the port's
-state_dict.
+FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN and FreeAnchor variables into
+the port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -184,6 +184,29 @@ _RULES = [
      lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2])}", "conv2d"),
     (r"pts_backbone_m/_SECONDBlock_(\d+)/ConvModule_(\d+)/bn",
      lambda m: f"pts_backbone.blocks.{m[1]}.{3 * int(m[2]) + 1}", "norm"),
+    # RegNet / NoStemRegNet (mmdet names: the stem is conv1 / bn1, stage
+    # i is layer{i + 1}); a grouped kernel (kh, kw, in / groups, out)
+    # becomes (out, in / groups, kh, kw) as any other conv's
+    (r"pts_backbone_m/stem/Conv_0", "pts_backbone.conv1", "conv2d"),
+    (r"pts_backbone_m/stem/bn", "pts_backbone.bn1", "norm"),
+    (r"pts_backbone_m/stage(\d+)_block(\d+)/conv([123])/Conv_0",
+     lambda m: f"pts_backbone.layer{int(m[1]) + 1}.{m[2]}.conv{m[3]}",
+     "conv2d"),
+    (r"pts_backbone_m/stage(\d+)_block(\d+)/conv([123])/bn",
+     lambda m: f"pts_backbone.layer{int(m[1]) + 1}.{m[2]}.bn{m[3]}", "norm"),
+    (r"pts_backbone_m/stage(\d+)_block(\d+)/downsample/Conv_0",
+     lambda m: f"pts_backbone.layer{int(m[1]) + 1}.{m[2]}.downsample.0",
+     "conv2d"),
+    (r"pts_backbone_m/stage(\d+)_block(\d+)/downsample/bn",
+     lambda m: f"pts_backbone.layer{int(m[1]) + 1}.{m[2]}.downsample.1",
+     "norm"),
+    # FPN as the LiDAR neck (FreeAnchor): laterals and output convs
+    (r"pts_neck_m/lateral_(\d+)/Conv_0", r"pts_neck.lateral_convs.\1.conv",
+     "conv2d"),
+    (r"pts_neck_m/lateral_(\d+)/bn", r"pts_neck.lateral_convs.\1.bn", "norm"),
+    (r"pts_neck_m/fpn_conv_(\d+)/Conv_0", r"pts_neck.fpn_convs.\1.conv",
+     "conv2d"),
+    (r"pts_neck_m/fpn_conv_(\d+)/bn", r"pts_neck.fpn_convs.\1.bn", "norm"),
     (r"pts_neck_m/ConvModule_(\d+)/Conv_0", r"pts_neck.deblocks.\1.0",
      "conv2d"),
     (r"pts_neck_m/ConvModule_(\d+)/bn", r"pts_neck.deblocks.\1.1", "norm"),
@@ -199,6 +222,13 @@ _RULES = [
     (r"pts_bbox_head_m/(conv_cls|conv_reg|conv_dir_cls)",
      r"pts_bbox_head.\1", "conv2d"),
     (r"pts_bbox_head_m/shared_conv", "pts_bbox_head.shared_conv", "conv2d"),
+    # ShapeAwareHead (SSN): per-task shared ConvModules and 1x1 convs
+    (r"pts_bbox_head_m/task(\d+)_conv(\d+)/Conv_0",
+     r"pts_bbox_head.heads.\1.shared_conv.\2.conv", "conv2d"),
+    (r"pts_bbox_head_m/task(\d+)_conv(\d+)/bn",
+     r"pts_bbox_head.heads.\1.shared_conv.\2.bn", "norm"),
+    (r"pts_bbox_head_m/task(\d+)_(conv_cls|conv_reg|conv_dir_cls)",
+     r"pts_bbox_head.heads.\1.\2", "conv2d"),
     # CenterHead: a ConvModule shared conv and per-task SeparateHeads (the
     # final conv's index, num_conv - 1, is set after the walk)
     (r"pts_bbox_head_m/shared_conv/Conv_0", "pts_bbox_head.shared_conv.conv",

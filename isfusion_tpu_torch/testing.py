@@ -25,6 +25,13 @@ def bbox_head(model):
     raise AttributeError(f"{type(model).__name__} has no box head")
 
 
+def _head_convs(model, name: str):
+    """The box head's 1x1 convs called ``name`` (one, or one a task for
+    ShapeAwareHead)."""
+    return [m for n, m in bbox_head(model).named_modules()
+            if n.rsplit(".", 1)[-1] == name]
+
+
 def tame_box_deltas(model, scale: float = 0.01):
     """Scale the Anchor3DHead's box-regression weights by ``scale``.
     Seeded random weights regress size residuals whose exp() decodes to
@@ -32,7 +39,8 @@ def tame_box_deltas(model, scale: float = 0.01):
     float32 rounding, which the card and the CPU do differently. Scaled,
     the boxes stay near their anchors (scene-sized)."""
     with torch.no_grad():
-        bbox_head(model).conv_reg.weight.mul_(scale)
+        for conv in _head_convs(model, "conv_reg"):
+            conv.weight.mul_(scale)
     return model
 
 
@@ -41,7 +49,8 @@ def even_class_prior(model):
     random-weight score near 0.01, under MVX-Net's 0.1 threshold): the
     scores spread around 0.5 and NMS sees full candidate sets."""
     with torch.no_grad():
-        bbox_head(model).conv_cls.bias.zero_()
+        for conv in _head_convs(model, "conv_cls"):
+            conv.bias.zero_()
     return model
 
 
@@ -257,6 +266,71 @@ def iou_edge_sets():
             ("far_apart", base, far)]
 
 
+def iou_bev_edge_sets():
+    """(name, a (N, 5), b (M, 5)) BEV box sets (x, y, dx, dy, yaw) for
+    K10-BEV: those of ``iou_edge_sets`` (touching along an edge or at a
+    corner at gaps from -1e-3 to 1e-2 m, nested, identical, rotated by 45
+    degrees, far apart), zero-size boxes (a side or both 0, on and off
+    other boxes), and yaws near 1e4 rad (equal modulo 2 pi to small ones,
+    and not)."""
+    cols = [0, 1, 3, 4, 6]
+    sets = [(name, a[:, cols], b[:, cols]) for name, a, b in iou_edge_sets()
+            if name != "z_stacked"]
+    base = torch.tensor([[3.0, -2.0, 4.0, 2.0, 0.3],
+                         [-30.0, 12.0, 1.0, 0.8, -2.0],
+                         [45.0, 45.0, 10.0, 2.9, 1.2]])
+    zero = base.repeat(3, 1)
+    zero[:3, 2] = 0.0                  # no length
+    zero[3:6, 3] = 0.0                 # no width
+    zero[6:, 2:4] = 0.0                # a point
+    zero[::2, :2] += 0.5               # half of them off the centre
+    turns = 2 * math.pi * 1591.0       # ~1e4 rad
+    far_yaw = base.clone()
+    far_yaw[:, 4] = base[:, 4] + turns
+    odd = base.clone()
+    odd[:, 4] = 1e4 + torch.arange(3.0)
+    return sets + [("zero_size", base, zero), ("zero_size_pairs", zero,
+                                               zero.clone()),
+                   ("yaw_1e4", base, far_yaw),
+                   ("yaw_1e4_both", far_yaw, torch.cat([odd, far_yaw]))]
+
+
+def nms_normal_edge_sets(gen):
+    """(name, boxes (1, K, 4) (x1, y1, x2, y2), scores (1, C, K), valid)
+    sets for K10-normal: identical boxes, boxes touching along an edge
+    (inter 0), nested, zero-size and inverted boxes, equal scores, a
+    chain where each box suppresses the next, all invalid, and one box."""
+    def case(name, boxes, c=2, scores=None, valid=None):
+        k = boxes.shape[0]
+        if scores is None:
+            scores = torch.rand((1, c, k), generator=gen)
+        if valid is None:
+            valid = torch.ones(scores.shape, dtype=torch.bool)
+        return name, boxes[None].float(), scores, valid
+
+    unit = torch.tensor([0.0, 0.0, 2.0, 1.0])
+    grid = torch.arange(40.0)
+    touching = torch.stack([unit + torch.tensor([2.0 * i, 0, 2.0 * i, 0])
+                            for i in grid])
+    nested = torch.stack([unit * (0.9 ** i) for i in grid])
+    chain = torch.stack([unit + torch.tensor([0.5 * i, 0, 0.5 * i, 0])
+                         for i in grid])
+    zero = unit.repeat(40, 1)
+    zero[::3, 2] = zero[::3, 0]            # no width
+    zero[1::3, 3] = zero[1::3, 1] - 1.0    # inverted
+    k = 70
+    return [case("identical", unit.repeat(k, 1)),
+            case("touching", touching),
+            case("nested", nested, c=3),
+            case("zero_size", zero),
+            case("equal_scores", chain, scores=torch.full((1, 2, 40), 0.5)),
+            case("chain", chain, scores=torch.linspace(1, 0, 40).repeat(
+                1, 1, 1)),
+            case("all_invalid", chain, valid=torch.zeros((1, 2, 40),
+                                                         dtype=torch.bool)),
+            case("one_box", unit[None])]
+
+
 # KITTI's P2 (the left colour camera of a 1242 x 375 frame: focal 721.54
 # px, principal point (609.56, 172.85)); the reference test scale (1280,
 # 384) with keep_ratio resizes it by 1.024 and pads it to 1280 x 384
@@ -386,7 +460,8 @@ def roiaware_adversarial_sets(gen: np.random.Generator, c: int = 20):
 def pinned_choices(recorded: dict = None):
     """The discrete choices of a LiDAR detector's forwards, in call order:
     each ReLU's sign pattern (``torch.relu``, which ``nn.ReLU`` calls), the
-    heads' and PartA2's proposal top-k indices (``topk_stable``),
+    heads' and PartA2's proposal top-k indices and FreeAnchor's bags
+    (``topk_stable``),
     TransFusion's Hungarian
     matches (``assign_batch``) and the keep masks of K10-NMS and
     K10-circle. With ``recorded=None`` the block records them in the
@@ -405,7 +480,7 @@ def pinned_choices(recorded: dict = None):
     tol = 1e-4
     from .core.bbox import coders
     from .models.dense_heads import (anchor3d_head, centerpoint_head,
-                                     transfusion_head)
+                                     free_anchor3d_head, transfusion_head)
     from .models.detectors import parta2
     from .ops import box_ops
 
@@ -577,7 +652,7 @@ def pinned_choices(recorded: dict = None):
              (centerpoint_head, "circle_nms_mask", nms_circle)] + \
         [(m, "topk_stable", topk) for m in (anchor3d_head, centerpoint_head,
                                             transfusion_head, coders,
-                                            parta2)]
+                                            parta2, free_anchor3d_head)]
     saved = [(m, name, getattr(m, name), new) for m, name, new in saved]
     for m, name, _, new in saved:
         setattr(m, name, new)

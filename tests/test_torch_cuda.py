@@ -313,21 +313,28 @@ def _check_nms(boxes, scores, valid):
 
 def test_nms_bev_shared_memory_limit(card):
     """K = 1,344 at 32 classes fills the greedy pass's shared memory
-    ((32 + 1344) * 21 words); K = 1,345 is refused at any class count."""
+    ((32 + 1344) * 21 words); past it (K = 1,345 at one class; 2,000 at
+    ten, a four-view merge of 500 boxes; 2,100, more than 32 removed words
+    a class) the pass reads the suppression words from global memory, with
+    the same keep masks; 33 classes are refused."""
     assert box_ops.nms_smem_bytes(32, 1344) <= box_ops.NMS_SMEM_BYTES
     assert box_ops.nms_smem_bytes(1, 1345) > box_ops.NMS_SMEM_BYTES
     gen = torch.Generator().manual_seed(0)
-    boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, 32,
-                                                            1344))
     before = cuda_build.LAUNCHES["nms_bev"]
-    got = box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
-    assert cuda_build.LAUNCHES["nms_bev"] == before + 1
-    bits = box_ops.nms_bev_suppression_bits(boxes, 0.2)
-    assert torch.equal(got, box_ops.greedy_suppress_ref(bits, scores, valid))
-    boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, 1, 1345))
+    for c, k in ((32, 1344), (1, 1345), (10, 2000), (3, 2100)):
+        boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, c,
+                                                                k))
+        got = box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
+        assert cuda_build.LAUNCHES["nms_bev"] == before + 1
+        bits = box_ops.nms_bev_suppression_bits(boxes, 0.2)
+        assert torch.equal(got, box_ops.greedy_suppress_ref(bits, scores,
+                                                            valid))
+        assert 0 < int(got.sum()) < int(valid.sum())
+        before += 2
+    boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, 33, 64))
     with pytest.raises(ValueError):
         box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
-    assert cuda_build.LAUNCHES["nms_bev"] == before + 2
+    assert cuda_build.LAUNCHES["nms_bev"] == before
 
 
 def test_pointpillars_tiny_on_card_matches_cpu(card):
@@ -1197,3 +1204,180 @@ def test_inverse_conv_on_card_matches_cpu(card):
     assert cuda_build.LAUNCHES["masked_gather"] - before >= 3
     for g_, w_ in zip(got, run("cpu")):
         assert float((g_ - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
+
+
+# ------------------------------------------------- K10-BEV, K10-normal
+def _check_iou_bev(a, b):
+    """K10-BEV against its plain version: one launch, within 1e-5 (of 1,
+    or of the plain value where a degenerate pair's IoU exceeds 1), and
+    exactly 0 wherever the plain version is."""
+    before = cuda_build.LAUNCHES["boxes_iou_bev"]
+    got = box_ops.boxes_iou_bev(a, b)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["boxes_iou_bev"] == before + 1
+    want = box_ops.boxes_iou_bev_ref(a[..., :5], b[..., :5])
+    err = (got - want).abs() / want.abs().clamp_min(1.0)
+    assert float(err.max()) <= 1e-5
+    assert int((got[want == 0] != 0).sum()) == 0
+    return got, want
+
+
+def test_boxes_iou_bev_kernel_matches_plain_version(card):
+    gen = torch.Generator().manual_seed(21)
+    a = torch.stack([_boxes(gen, 150) for _ in range(3)])
+    b = a[:, torch.randperm(150, generator=gen)[:70]] + \
+        torch.randn((3, 70, 7), generator=gen) * 0.3
+    b[..., 3:6] = b[..., 3:6].abs() + 0.1
+    cols = [0, 1, 3, 4, 6]
+    got, want = _check_iou_bev(a[..., cols].to(card), b[..., cols].to(card))
+    assert (want > 0.1).sum() >= 3 * 40
+    # 9-wide rows read through their strides: one device operation
+    rows = torch.cat([a[..., cols], torch.randn(3, 150, 4, generator=gen)],
+                     -1).to(card)
+    assert torch.equal(box_ops.boxes_iou_bev(rows, rows), box_ops.boxes_iou_bev(
+        rows[..., :5].contiguous(), rows[..., :5].contiguous()))
+    _one_operation(lambda: box_ops.boxes_iou_bev(rows, rows),
+                   "boxes_iou_bev", "boxes_iou_bev_kernel")
+
+
+@pytest.mark.parametrize("name", [
+    "touching_edges", "touching_corners", "nested", "identical", "rotated_45",
+    "far_apart", "zero_size", "zero_size_pairs", "yaw_1e4", "yaw_1e4_both"])
+def test_boxes_iou_bev_kernel_on_edge_sets(card, name):
+    from isfusion_tpu_torch.testing import iou_bev_edge_sets
+
+    _, a, b = next(s for s in iou_bev_edge_sets() if s[0] == name)
+    got, _ = _check_iou_bev(a.to(card), b.to(card))
+    if name == "far_apart":
+        assert not bool(got.any())
+
+
+def _check_normal(boxes, scores, valid, thr=0.3):
+    before = cuda_build.LAUNCHES["nms_normal_bev"]
+    got = box_ops.nms_normal_bev_mask(boxes, scores, thr, valid)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["nms_normal_bev"] == before + 1
+    want = box_ops.nms_normal_bev_mask_ref(boxes.cpu(), scores.cpu(), thr,
+                                           valid.cpu())
+    assert torch.equal(got.cpu(), want)
+    return got
+
+
+@pytest.mark.parametrize("b,c,k", [(2, 10, 1000), (1, 3, 63), (2, 2, 64),
+                                   (1, 4, 65), (3, 1, 1), (1, 32, 300),
+                                   (1, 10, 2000), (1, 2, 2100)])
+def test_nms_normal_bev_kernel_matches_plain_version(card, b, c, k):
+    gen = torch.Generator().manual_seed(k)
+    centre = (torch.rand((b, k, 2), generator=gen) * 2 - 1) * 20
+    size = 0.3 + torch.rand((b, k, 2), generator=gen) * 4
+    boxes = torch.cat([centre - size / 2, centre + size / 2], -1)
+    scores = torch.rand((b, c, k), generator=gen)
+    keep = _check_normal(boxes.to(card), scores.to(card),
+                         (scores > 0.1).to(card))
+    if k >= 64:
+        assert 0 < int(keep.sum()) < int((scores > 0.1).sum())
+
+
+def test_nms_normal_bev_kernel_on_edge_sets(card):
+    from isfusion_tpu_torch.testing import nms_normal_edge_sets
+
+    gen = torch.Generator().manual_seed(5)
+    for _, boxes, scores, valid in nms_normal_edge_sets(gen):
+        _check_normal(boxes.to(card), scores.to(card), valid.to(card))
+
+
+def _merge_views(gen, n_views=4, per_view=500, num_classes=10):
+    """Four views' detections of one scene (``max_num`` 500 each): 150
+    objects, each view holding every object jittered plus its own false
+    positives, in the view's own frame (flipped as its meta says)."""
+    from isfusion_tpu_torch.core.post_processing import undo_view
+
+    metas = [dict(), dict(pcd_horizontal_flip=True),
+             dict(pcd_vertical_flip=True),
+             dict(pcd_horizontal_flip=True, pcd_vertical_flip=True)]
+    objs = torch.cat([(torch.rand((150, 2), generator=gen) * 2 - 1) * 50,
+                      torch.rand((150, 1), generator=gen) * -2,
+                      0.5 + torch.rand((150, 3), generator=gen) * 4,
+                      (torch.rand((150, 1), generator=gen) * 2 - 1) * np.pi,
+                      torch.randn((150, 2), generator=gen)], 1)
+    obj_labels = torch.randint(0, num_classes, (150,), generator=gen)
+    views = []
+    for meta in metas[:n_views]:
+        extra = per_view - 150
+        b = torch.cat([objs + torch.randn((150, 9), generator=gen) * 0.05,
+                       objs[torch.randint(0, 150, (extra,), generator=gen)] +
+                       torch.randn((extra, 9), generator=gen) * 1.5])
+        b[:, 3:6] = b[:, 3:6].abs() + 0.1
+        labels = torch.cat([obj_labels, torch.randint(
+            0, num_classes, (extra,), generator=gen)])
+        scores = torch.rand((per_view,), generator=gen)
+        views.append(dict(bboxes=undo_view(b, meta), scores=scores,
+                          labels=labels, mask=scores > 0.05))
+    return views, metas
+
+
+def test_merge_of_four_views_of_500_boxes_on_card_matches_cpu(card):
+    """The test-time merge at the configs' size: four views of ``max_num``
+    500 boxes, 2,000 in one class-agnostic K10-NMS (past the greedy pass's
+    shared memory) and ``box3d_multiclass_nms`` over 2,000 x 10 scores, on
+    the card and on the CPU: labels and masks equal, boxes and scores
+    within 1e-6 of their max; the weighted merge too."""
+    from isfusion_tpu_torch.core.post_processing import (
+        box3d_multiclass_nms, merge_aug_bboxes_3d)
+
+    views, metas = _merge_views(torch.Generator().manual_seed(12))
+    assert box_ops.nms_smem_bytes(1, 2000) > box_ops.NMS_SMEM_BYTES
+    kw = dict(score_thr=0.05, nms_thr=0.25, max_num=500, merge_thr=0.5)
+    boxes = torch.cat([v["bboxes"] for v in views])
+    # no pair within float32 rounding of a threshold (0.2, 0.25, 0.5),
+    # where the kernel's IoU and the plain one may fall either side
+    bev = boxes[None, :, [0, 1, 3, 4, 6]]
+    iou = box_ops.boxes_iou_bev_ref(bev, bev)
+    assert not any(bool(((iou - t).abs() < 1e-5).any())
+                   for t in (0.2, 0.25, 0.5))
+    per_class = torch.zeros((len(boxes), 10))
+    per_class[torch.arange(len(boxes)), torch.cat(
+        [v["labels"] for v in views])] = torch.cat([v["scores"]
+                                                    for v in views])
+    valid = torch.cat([v["mask"] for v in views])
+    out = {}
+    for dev in ("cpu", card):
+        vs = [{k: t.to(dev) for k, t in v.items()} for v in views]
+        before = cuda_build.LAUNCHES["nms_bev"]
+        out[str(dev)] = dict(
+            plain=merge_aug_bboxes_3d(vs, metas, **kw),
+            weighted=merge_aug_bboxes_3d(vs, metas, use_weighted_nms=True,
+                                         **kw),
+            multiclass=box3d_multiclass_nms(boxes.to(dev),
+                                            per_class.to(dev), 0.05, 0.2,
+                                            500, valid.to(dev)))
+        if dev != "cpu":
+            assert cuda_build.LAUNCHES["nms_bev"] == before + 2
+    for mode, want in out["cpu"].items():
+        got = out["cuda"][mode]
+        assert got["bboxes"].is_cuda, mode
+        for k in ("labels", "mask"):
+            assert torch.equal(got[k].cpu(), want[k]), (mode, k)
+        for k in ("bboxes", "scores"):
+            scale = want[k].abs().max().clamp_min(1e-30)
+            assert float((got[k].cpu() - want[k]).abs().max() / scale) \
+                <= 1e-6, (mode, k)
+    kept = {k: int(r["mask"].sum()) for k, r in out["cpu"].items()}
+    assert all(0 < n <= 500 for n in kept.values()), kept
+
+
+def test_card_tensors_never_reach_the_plain_versions(card, monkeypatch):
+    """K10-BEV and K10-normal on CUDA tensors launch their kernels: their
+    plain versions raise if called."""
+    def refuse(*_, **__):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(box_ops, "boxes_iou_bev_ref", refuse)
+    monkeypatch.setattr(box_ops, "nms_normal_bev_mask_ref", refuse)
+    monkeypatch.setattr(box_ops, "greedy_suppress_ref", refuse)
+    gen = torch.Generator().manual_seed(3)
+    a = _boxes(gen, 40)[:, [0, 1, 3, 4, 6]].to(card)
+    assert box_ops.boxes_iou_bev(a, a).is_cuda
+    boxes = torch.cat([a[:, :2] - 1, a[:, :2] + 1], -1)[None]
+    scores = torch.rand((1, 2, 40), generator=gen).to(card)
+    assert box_ops.nms_normal_bev_mask(boxes, scores, 0.3).is_cuda

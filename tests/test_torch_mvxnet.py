@@ -350,7 +350,7 @@ def test_assigner_per_size_matches_numpy_oracle(per_size):
                             min_pos_iou=0.45)))
     head.assigner_per_size = per_size
     anchors = torch.from_numpy(head.anchors_for([(20, 16)]))
-    sizes = head.anchor_sizes(len(anchors), "cpu").numpy()
+    sizes = head.anchor_size_index([(20, 16)])
     rng = np.random.default_rng(15)
     # GTs on jittered anchors: 16 of their own class's size, 8 of another
     # size, so that every size sees close GTs of its class and of others
@@ -363,7 +363,8 @@ def test_assigner_per_size_matches_numpy_oracle(per_size):
     gts[:, :2] += rng.normal(0, 0.1, (24, 2))
     gts[:, 3:6] *= rng.uniform(0.9, 1.1, (24, 3))
     got = head.assign(anchors, torch.from_numpy(gts), torch.from_numpy(
-        labels), torch.ones(24, dtype=torch.bool)).numpy()
+        labels), torch.ones(24, dtype=torch.bool),
+        torch.from_numpy(sizes)).numpy()
     if per_size:
         want = _oracle_assign(anchors.numpy(), sizes, gts, labels, 3, 0.6,
                               0.45, 0.45)

@@ -1,8 +1,10 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py):
 random JAX variables drawn with numpy, carrying a JAX module's variables
-into the matching port module, and the tiny LiDAR detectors of
-``flagship.LIDAR_VARIANTS`` run on both sides."""
+into the matching port module, the tiny LiDAR detectors of
+``flagship.LIDAR_VARIANTS`` and the tiny PointPillars-family detectors
+(SSN, FreeAnchor) run on both sides."""
 import contextlib
+import math
 
 import jax
 import numpy as np
@@ -244,3 +246,107 @@ def check_variant_gradients(case):
         want = np.concatenate(want)
         assert np.abs(want).max() > 0, top
         assert_close_to_max(np.concatenate(got), want, 1e-3)
+
+
+def anchor_family_case(cfg: dict, batch: dict, optim: dict,
+                       variables=None) -> dict:
+    """A tiny PointPillars-family detector (SSN, FreeAnchor: an
+    ``MVXFasterRCNN`` config of the port) on both sides from one numpy
+    batch: JAX variables drawn with numpy (or ``variables``) and carried
+    (strict). The JAX side in one call compiled at XLA:CPU level 1 (as
+    ``lidar_variant_case``; these detectors' gradients there equal their
+    eager trace's within 2e-5 of their max): head outputs and predict
+    (eval), loss terms and gradients (train, batch statistics), and one
+    step of ``optim``'s optimizer (``runner/optim.py:build_optimizer``:
+    clip, then AdamW). The port: the same in eval mode, loss terms and
+    gradients in train mode, and one ``make_train_step`` from the carried
+    weights."""
+    import copy
+
+    import jax.numpy as jnp
+    import optax
+
+    from isfusion_tpu.models import build_detector as jbuild_detector
+    from isfusion_tpu.parallel.train_step import total_loss
+    from isfusion_tpu.runner import optim as joptim
+    from isfusion_tpu_torch.models.builder import build_detector
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner import optim as toptim
+
+    jmodel = jbuild_detector(jax_cfg(cfg))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if variables is None:
+        variables = random_variables(jmodel, jbatch, train=False,
+                                     mode="feats")
+    port = build_detector(cfg)
+    port.load_state_dict(state_dict_from_jax(variables))
+    port.eval()
+    opt_cfg, opt_conf, lr_cfg = (optim["optimizer"],
+                                 optim["optimizer_config"],
+                                 optim["lr_config"])
+    tx = joptim.build_optimizer(variables["params"], opt_cfg, opt_conf,
+                                lr_cfg, None, total_steps=100)
+
+    def loss_fn(params, bs):
+        losses, _ = jmodel.apply({"params": params, "batch_stats": bs},
+                                 jbatch, train=True, mode="loss",
+                                 mutable=["batch_stats"])
+        return total_loss(losses), losses
+
+    def run(v):
+        feats = jmodel.apply(v, jbatch, train=False, mode="feats")
+        decoded = jmodel.apply(v, jbatch, train=False, mode="predict")
+        (_, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            v["params"], v["batch_stats"])
+        updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
+        return feats, decoded, losses, grads, optax.apply_updates(
+            v["params"], updates)
+
+    feats, decoded, jl, jg, after = jax.jit(run).lower(variables).compile(
+        OPTIMIZED_XLA)(variables)
+    got_feats = port(batch, mode="feats", device="cpu")
+    got_pred = port(batch, device="cpu")
+    trained = copy.deepcopy(port).train()
+    tl = trained(batch, mode="loss", device="cpu")
+    sum(v for k, v in tl.items() if "loss" in k).backward()
+    stepped = copy.deepcopy(port).train()
+    opt = toptim.build_optimizer(stepped, opt_cfg)
+    tm = make_train_step(stepped, opt, toptim.build_schedule(
+        opt, lr_cfg, None, 100), toptim.grad_clip_norm(opt_conf))(
+            batch, torch.Generator().manual_seed(0))
+    return dict(feats=feats, decoded=decoded, got_feats=got_feats,
+                got_pred=got_pred, jl={k: float(v) for k, v in jl.items()},
+                jg=state_dict_from_jax({"params": jax.device_get(jg)}),
+                trained=trained, tl={k: float(v.detach())
+                                     for k, v in tl.items()},
+                before=port.state_dict(), stepped=stepped,
+                tm={k: float(v) for k, v in tm.items()},
+                jafter=state_dict_from_jax({"params": jax.device_get(
+                    after)}))
+
+
+def check_step(case, lr: float, grad_clip: float):
+    """An ``anchor_family_case``'s optimizer step: the clipped gradient's
+    norm 1e-4 relative; each parameter's update within 1e-2 of the lr
+    (Adam's first update is ~lr * sign(g)) where its gradient is above
+    1e-4 of its tensor's max and its clipped value far above Adam's eps;
+    a parameter whose gradient is exactly 0 everywhere moves by weight
+    decay alone on both sides."""
+    jg, before, jafter = case["jg"], case["before"], case["jafter"]
+    norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in jg.values()))
+    assert abs(case["tm"]["grad_norm"] - norm) <= 1e-4 * norm
+    clip = min(1.0, grad_clip / norm)
+    checked = 0
+    for name, p in case["stepped"].named_parameters():
+        g = jg[name].numpy()
+        b = before[name].numpy()
+        d_port = p.detach().numpy() - b
+        d_jax = jafter[name].numpy() - b
+        sel = (np.abs(g) > 1e-4 * np.abs(g).max()) & \
+            (np.abs(g) * clip > 100 * 1e-8)
+        if not g.any():
+            sel = np.ones_like(g, bool)
+        tol = 1e-2 * lr + 2 * np.spacing(np.abs(b[sel]))
+        assert (np.abs(d_port[sel] - d_jax[sel]) <= tol).all(), name
+        checked += int(sel.sum())
+    return checked
