@@ -473,6 +473,23 @@ def kernel_device_ms(fn, kernel: str, iters: int = 50):
     return kernel_ms(device_kernels(fn, iters), kernel)
 
 
+def nms_pass_ms(ops: dict) -> dict:
+    """Device ms a call of an NMS wrapper's passes, from ``device_kernels``:
+    the pairwise pass (by any checkout's kernel name), the greedy pass and
+    the rest (the score sort)."""
+    out = dict(pairwise_device_ms=0.0, greedy_device_ms=0.0,
+               other_device_ms=0.0)
+    for name, (n, ms) in ops.items():
+        key = "other_device_ms"
+        if "nms_greedy" in name:
+            key = "greedy_device_ms"
+        elif any(k in name for k in ("nms_pairwise", "nms_normal_mask",
+                                     "nms_mask_kernel")):
+            key = "pairwise_device_ms"
+        out[key] += n * ms
+    return out
+
+
 def gather_bytes(src, idx, fmask) -> int:
     """Least bytes a masked gather must move: each distinct kept source
     row read once, every output row written once, idx and fmask read."""
@@ -4263,9 +4280,11 @@ def iou_bev_case(a, b, dev: str, timed: bool = True) -> dict:
     """K10-BEV against its plain version on one set: the largest error
     (of 1, or of the plain value where a degenerate pair's IoU exceeds
     1), nonzeros where the plain version is 0, the cut's share; event ms,
-    whole-call device ms, plain ms and the bound: the larger of the bytes
-    (each input read once, the output written once) and the operations
-    each pair's cheapest certificate needs (``iou_bev_needed_ops``)."""
+    whole-call device ms and each operation's (the list count's memset,
+    the tile kernel, the drain), plain ms and the bound: the larger of the
+    bytes (each input read once, the output written once) and the
+    operations each pair's cheapest certificate needs
+    (``iou_bev_needed_ops``)."""
     from isfusion_tpu_torch.ops import box_ops
 
     got = box_ops.boxes_iou_bev(a, b)
@@ -4285,6 +4304,8 @@ def iou_bev_case(a, b, dev: str, timed: bool = True) -> dict:
         rec.update(ms=cuda_ms(lambda: box_ops.boxes_iou_bev(a, b), dev,
                               iters=50),
                    device_ms=device_ms_per_call(
+                       lambda: box_ops.boxes_iou_bev(a, b)),
+                   kernels=kernel_breakdown(
                        lambda: box_ops.boxes_iou_bev(a, b)),
                    plain_ms=cuda_ms(lambda: box_ops.boxes_iou_bev_ref(a, b),
                                     dev, iters=3))
@@ -4317,8 +4338,8 @@ def normal_case(rects, scores, valid, thr: float, dev: str,
         kern = device_kernels(fn, iters=20)
         rec.update(ms=cuda_ms(fn, dev, iters=50),
                    device_ms=sum(n * ms for n, ms in kern.values()),
-                   pairwise_device_ms=kernel_ms(kern, "nms_normal_mask"),
-                   greedy_device_ms=kernel_ms(kern, "nms_greedy_kernel"),
+                   **nms_pass_ms(kern),
+                   greedy_chunks_per_class=-(-k // 64),
                    plain_ms=cuda_ms(lambda: box_ops.nms_normal_bev_mask_ref(
                        rects, scores, thr, valid), dev, iters=2))
     return rec
@@ -4326,11 +4347,9 @@ def normal_case(rects, scores, valid, thr: float, dev: str,
 
 def merge_nms_case(views: list, boxes, thr: float, dev: str) -> dict:
     """K10-NMS on the plain merge's class-agnostic set (the four views'
-    boxes, K = 2,000: past the greedy pass's shared memory, so it reads
-    the suppression words from global memory): keep flags equal to the
-    plain greedy walk over the kernel's own bits; event ms, whole-call
-    device ms and each pass's kernel, plain ms and the bound
-    (``nms_bev_needed_ops``)."""
+    boxes, K = 2,000, one class): keep flags equal to the plain greedy
+    walk over the kernel's own bits; event ms, whole-call device ms and
+    each pass's, plain ms and the bound (``nms_bev_needed_ops``)."""
     import torch
     from isfusion_tpu_torch.core.post_processing import BEV_COLS
     from isfusion_tpu_torch.ops import box_ops
@@ -4347,9 +4366,8 @@ def merge_nms_case(views: list, boxes, thr: float, dev: str) -> dict:
     k = bev.shape[1]
     ops = box_ops.nms_bev_needed_ops(bev.cpu(), thr)
     nbytes = bev.numel() * 4 + scores.numel() * 4 + 2 * valid.numel()
-    rec = dict(K=k, mask_in_shared_memory=box_ops.nms_smem_bytes(1, k) <=
-               box_ops.NMS_SMEM_BYTES,
-               keep_flags_differ=int((got.cpu() != want).sum()),
+    rec = dict(K=k, greedy_smem_bytes=box_ops.greedy_smem_bytes(k),
+               greedy_chunks=-(-k // 64), keep_flags_differ=int((got.cpu() != want).sum()),
                kept=int(want.sum()), ops=ops,
                bound_ms=max(nbytes / HBM_BYTES_PER_S,
                             ops / F32_OPS_PER_S) * 1e3,
@@ -4360,11 +4378,104 @@ def merge_nms_case(views: list, boxes, thr: float, dev: str) -> dict:
         kern = device_kernels(fn, iters=20)
         rec.update(ms=cuda_ms(fn, dev, iters=50),
                    device_ms=sum(n * ms for n, ms in kern.values()),
-                   pairwise_device_ms=kernel_ms(kern, "nms_mask_kernel"),
-                   greedy_device_ms=kernel_ms(kern, "nms_greedy_kernel"),
+                   **nms_pass_ms(kern),
                    plain_ms=cuda_ms(lambda: box_ops.nms_bev_mask_ref(
                        bev, scores, thr, valid), dev, iters=1))
     return rec
+
+
+def limit_sets(seed: int = 16) -> list:
+    """(kind, name, inputs) at sizes the NMS kernels' greedy pass and
+    K10-circle's pairwise route take and a whole-mask or one-block design
+    would refuse: K10-normal at
+    33 and 64 classes of 300 boxes and at 2 x 3,000; K10-NMS at 33
+    classes of 300 (a scene-like set); K10-circle at K = 1,793 and 4,000
+    (one set each, the lattice centres of ``circle_nms_sets``)."""
+    import torch
+    from isfusion_tpu_torch.testing import circle_nms_sets, nms_scene_set
+
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for c, k in ((33, 300), (64, 300), (2, 3000)):
+        centre = (torch.rand((1, k, 2), generator=gen) * 2 - 1) * 20
+        size = 0.3 + torch.rand((1, k, 2), generator=gen) * 4
+        scores = torch.rand((1, c, k), generator=gen)
+        out.append(("normal", f"c{c}_k{k}", (torch.cat(
+            [centre - size / 2, centre + size / 2], -1), scores,
+            scores > 0.1)))
+    out.append(("nms", "c33_k300", nms_scene_set(gen, k=300, c=33)))
+    for k in (1793, 4000):
+        out.append(("circle", f"k{k}", circle_nms_sets(gen, 1, k)))
+    return out
+
+
+def limit_cases(dev: str) -> dict:
+    """``[post_limits]``: ``limit_sets`` through the wrappers on ``dev`` with
+    the launch counts zeroed just before and read just after (K10-normal
+    3, K10-NMS 1, K10-circle's pairwise route 2 and its one-launch kernel
+    0 on the card), each held against its plain version: keep masks equal
+    (K10-NMS's to the plain walk over its own bits, and to the plain
+    version when no pair is near the threshold). The K = 4,000 circle set
+    is timed (event and whole-call device ms, each pass, plain ms, the
+    bound). Returns {case: record, "launches": ...}."""
+    import torch
+    from isfusion_tpu_torch.ops import box_ops, cuda_build
+
+    sets = [(kind, name, tuple(t.to(dev) for t in args))
+            for kind, name, args in limit_sets()]
+    cuda_build.reset_launches()
+    got = []
+    for kind, name, args in sets:
+        if kind == "normal":
+            got.append(box_ops.nms_normal_bev_mask(args[0], args[1], 0.3,
+                                                   args[2]))
+        elif kind == "nms":
+            got.append(box_ops.nms_bev_mask(args[0], args[1], 0.2, args[2]))
+        else:
+            centers, scores, valid, thr = args
+            got.append(box_ops.circle_nms_mask(centers, scores, thr, valid))
+    sync(dev)
+    names = ("nms_normal_bev", "nms_bev", "nms_circle_pairwise", "nms_circle")
+    launches = {k: cuda_build.LAUNCHES[k] for k in names}
+    out = dict(launches=launches)
+    for (kind, name, args), keep in zip(sets, got):
+        cpu = tuple(t.cpu() for t in args)
+        if kind == "normal":
+            want = box_ops.nms_normal_bev_mask_ref(cpu[0], cpu[1], 0.3, cpu[2])
+        elif kind == "nms":
+            bits = box_ops.nms_bev_suppression_bits(args[0], 0.2) \
+                if dev == "cuda" else box_ops.boxes_iou_bev_ref(
+                    cpu[0], cpu[0]) > 0.2
+            want = box_ops.greedy_suppress_ref(bits.cpu(), cpu[1], cpu[2])
+        else:
+            want = box_ops.circle_nms_mask_ref(*cpu[:2], cpu[3], cpu[2])
+        rec = dict(kind=kind, shape=list(args[1].shape),
+                   keep_flags_differ=int((keep.cpu() != want).sum()),
+                   kept=int(want.sum()))
+        if kind == "circle" and name == "k4000":
+            centers, scores, valid, thr = args
+            fn = (lambda: box_ops.circle_nms_mask(centers, scores, thr,
+                                                  valid))
+            bound, by = circle_bound_ms(centers)
+            rec.update(bound_ms=bound, bound_by=by, library_ms=None)
+            if dev == "cuda":
+                kern = device_kernels(fn, iters=20)
+                rec.update(ms=cuda_ms(fn, dev, iters=50),
+                           device_ms=sum(n * ms for n, ms in kern.values()),
+                           **nms_pass_ms(kern),
+                           plain_ms=cuda_ms(lambda: box_ops.circle_nms_mask_ref(
+                               centers, scores, thr, valid), dev, iters=1))
+        out[f"{kind}_{name}"] = rec
+        log("post_limits", case=f"{kind}_{name}", **rec)
+    bad = [k for k, r in out.items() if k != "launches" and
+           r["keep_flags_differ"]]
+    want_launches = dict(nms_normal_bev=3, nms_bev=1, nms_circle_pairwise=2,
+                         nms_circle=0)
+    if bad or (dev == "cuda" and launches != want_launches):
+        raise RuntimeError(f"the NMS kernels past their former limits: "
+                           f"{bad} differ, launches {launches}")
+    log("post_limits", launches=launches)
+    return out
 
 
 def _same_results(a: dict, b: dict) -> dict:
@@ -4440,6 +4551,7 @@ def phase_post_check(model, batch: dict, dev: str = "cuda") -> dict:
     log("post_normal_case", case="merged", **normal["merged"])
     merge_nms = merge_nms_case(views, inp["boxes"], 0.25, dev)
     log("post_merge_nms", **merge_nms)
+    limits = limit_cases(dev)
     gen = torch.Generator().manual_seed(5)
     for name, boxes, scores, valid in nms_normal_edge_sets(gen):
         normal[name] = normal_case(boxes.to(dev), scores.to(dev),
@@ -4464,7 +4576,7 @@ def phase_post_check(model, batch: dict, dev: str = "cuda") -> dict:
                                              if not k.startswith("class_"))),
                normal=dict(normal["merged"], edge_sets=sorted(
                    k for k in normal if k != "merged")),
-               merge_nms=merge_nms)
+               merge_nms=merge_nms, limits=limits)
     log("post_kernel_check", **rec)
     return rec
 
@@ -5906,8 +6018,27 @@ def main() -> int:
         max_abs_err=float(normal["keep_flags_differ"]),
         **{key: normal[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "pairwise_device_ms", "greedy_device_ms", "B", "C",
-            "K", "edge_sets")}))
+            "device_ms", "pairwise_device_ms", "greedy_device_ms",
+            "other_device_ms", "greedy_chunks_per_class", "B", "C", "K",
+            "edge_sets")},
+        past_former_limits={k: r["keep_flags_differ"] for k, r in
+                            post["limits"].items()
+                            if k.startswith("normal_")},
+        limit_launches=post["limits"]["launches"]["nms_normal_bev"]))
+    wide = post["limits"]["circle_k4000"]
+    kernels.append(dict(
+        name="nms_circle_pairwise", route="cuda",
+        source="isfusion_tpu_torch/csrc/nms_circle.cu",
+        replaces="isfusion_tpu/ops/box_ops.py:243",
+        launches=post["limits"]["launches"]["nms_circle_pairwise"],
+        max_abs_err=float(max(r["keep_flags_differ"] for k, r in
+                              post["limits"].items()
+                              if k.startswith("circle_"))),
+        **{key: wide[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "pairwise_device_ms", "greedy_device_ms",
+            "other_device_ms", "shape")},
+        cases=sorted(k for k in post["limits"] if k.startswith("circle_"))))
     for k in kernels:
         if k["name"] == "nms_bev":
             for fam in ("ssn", "fa"):
@@ -5916,9 +6047,11 @@ def main() -> int:
                         "launches_per_request"]]
             k["post_check_launches"] = post["launches"]["nms_bev"]
             k["merge_k2000"] = {key: post["merge_nms"][key] for key in (
-                "K", "mask_in_shared_memory", "ms", "device_ms",
+                "K", "greedy_smem_bytes", "greedy_chunks", "ms", "device_ms",
                 "pairwise_device_ms", "greedy_device_ms", "plain_ms",
                 "bound_ms", "bound_by")}
+            k["past_former_limits"] = post["limits"]["nms_c33_k300"][
+                "keep_flags_differ"]
     for k in kernels:
         if k["name"] == "masked_gather":
             k["parta2_launches_per_request"] = [r["masked_gather"]
@@ -6159,12 +6292,13 @@ def boxes_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"isfusion_tpu_torch imported from "
                            f"{isfusion_tpu_torch.__file__}, not {tree}")
-    names = ("boxes_iou_3d", "nms_circle", "nms_bev")
+    data = boxes_inputs(os.path.join(REPO, "build", "boxes_inputs.pt"))
+    names = ("boxes_iou_3d", "nms_circle", "nms_bev", "nms_normal_bev")
     rec = dict(tree=tree, nvidia_smi=smi, build_s=cuda_build.build_all(),
                libraries=[cuda_build._lib_path(n).name for n in names],
                ptxas={n: cuda_build.ptxas_usage(cuda_build.CSRC_DIR /
                                                 f"{n}.cu")
-                      for n in names[:2]})
+                      for n in names})
     if "empty_launch" in cuda_build.SIGNATURES:
         rec["launch_floor"] = launch_floor()
 
@@ -6232,15 +6366,126 @@ def boxes_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     tb7 = torch.stack([x[1] for x in sets]).cuda()
     rec["iou_test_boxes"] = kernel_times(lambda: box_ops.boxes_iou_3d(ta,
                                                                       tb7))
-    boxes, scores, valid = (x.cuda() for x in testing.nms_scene_set(
-        torch.Generator().manual_seed(3)))
-    ops = device_kernels(lambda: box_ops.nms_bev_mask(boxes, scores, 0.2,
-                                                      valid), iters=50)
-    rec["nms_bev_scene"] = dict(
-        pairwise_device_ms=kernel_ms(ops, "nms_mask_kernel"),
-        greedy_device_ms=kernel_ms(ops, "nms_greedy_kernel"))
+    by_z, by_circle = box_ops.iou3d_early_outs(a.cpu(), b.cpu())
+    rec["iou_train"]["tiles"] = tile_stats(box_ops, ~(by_z | by_circle))
+    rec.update(boxes_kernel_cases(data, testing))
     log("boxes_compare", **rec)
     return 0
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def tile_stats(box_ops, listed):
+    """The listed pairs (no exact cut settles them) per 16 x 32 tile of
+    K10's and K10-BEV's kernel (``box_ops.iou_tile_counts``; None for a
+    checkout without it): the largest, the mean, the tiles."""
+    if not hasattr(box_ops, "iou_tile_counts"):
+        return None
+    c = box_ops.iou_tile_counts(listed)
+    return dict(listed=int(c.sum()), tiles=c.numel(), max=int(c.max()),
+                mean=float(c.float().mean()))
+
+
+def boxes_inputs(path: str) -> dict:
+    """The box sets ``--boxes`` times beside its cells, made once on the
+    card (the first checkout's run) and saved to ``path`` so that every
+    checkout times the same tensors: ssn-serve's request under
+    ``[post_check]``'s four flips (the merged boxes' nearest-BEV
+    rectangles and class scores for K10-normal, the weighted merge's class
+    sets for K10-BEV, the plain merge's class-agnostic set for K10-NMS)
+    and pp-serve's request (K10-NMS's top 1,000 boxes of 10 classes)."""
+    import torch
+    if os.path.isfile(path):
+        return torch.load(path)
+    from isfusion_tpu_torch.core.post_processing import BEV_COLS
+    from isfusion_tpu_torch.flagship import (build_pointpillars_flagship,
+                                             build_ssn)
+    from isfusion_tpu_torch.testing import tame_box_deltas
+
+    ssn, batch_fn = build_ssn(device="cuda", seed=0)
+    tame_box_deltas(ssn)
+    views = post_views(ssn, batch_fn(1), "cuda")
+    inp = post_path(views, ssn.pts_bbox_head.num_classes)["inputs"]
+    scores = torch.cat([v["scores"] for v in views]).float()[None, None]
+    valid = (torch.cat([v["mask"] for v in views]) &
+             (scores[0, 0] > 0.05))[None, None]
+    data = dict(normal=(inp["rects"], inp["scores"], inp["valid"]),
+                bev_sets=_weighted_sets(views, inp),
+                merge=(inp["boxes"][None, :, BEV_COLS].float(), scores,
+                       valid))
+    del ssn
+    pp, pp_batch_fn = build_pointpillars_flagship(device="cuda", seed=0)
+    tame_box_deltas(pp)
+    data["pp_request"] = record_nms_inputs(pp, jittered(pp_batch_fn(1), 0),
+                                           "cuda")
+    del pp
+    torch.cuda.empty_cache()
+    data = {k: ([(n, x.cpu()) for n, x in v] if k == "bev_sets" else
+                tuple(x.cpu() for x in v)) for k, v in data.items()}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(data, path)
+    return data
+
+
+def boxes_kernel_cases(data: dict, testing) -> dict:
+    """K10-normal, K10-BEV and K10-NMS on ``boxes_inputs``' sets and
+    ``testing``'s scene and sparse sets: event ms, whole-call device ms
+    and each pass's (``nms_pass_ms``), the outputs' digests (equal across
+    checkouts when they compute the same); K10-BEV also on its largest
+    set against itself moved 10 km away (every pair cut: phase A alone),
+    the device ms of each of its operations on both, and the listed pairs
+    per tile."""
+    import torch
+    from isfusion_tpu_torch.ops import box_ops
+
+    def timed(fn, iters=100):
+        ops = device_kernels(fn, iters=50)
+        return dict(ms=cuda_ms(fn, iters=iters),
+                    device_ms=sum(n * ms for n, ms in ops.values()),
+                    **nms_pass_ms(ops))
+
+    out = {}
+    rects, scores, valid = (x.cuda() for x in data["normal"])
+    keep = box_ops.nms_normal_bev_mask(rects, scores, 0.2, valid)
+    out["normal_merged"] = dict(shape=list(scores.shape), digest=digest(
+        keep), **timed(lambda: box_ops.nms_normal_bev_mask(rects, scores,
+                                                           0.2, valid)))
+    sets = [(n, x.cuda()) for n, x in data["bev_sets"]]
+    name, big = max(sets, key=lambda s: s[1].shape[0])
+    far = big.clone()
+    far[:, :2] += 1e4
+    cut = box_ops.iou_bev_cut(big.cpu(), big.cpu())
+    out["iou_bev"] = dict(
+        case=name, shape=list(big.shape),
+        digest=digest(torch.cat([box_ops.boxes_iou_bev(x, x).reshape(-1)
+                                 for _, x in sets])),
+        tiles=tile_stats(box_ops, ~cut), cut_share=float(cut.float().mean()),
+        all_sets_device_ms=sum(device_ms_per_call(
+            lambda x=x: box_ops.boxes_iou_bev(x, x)) for _, x in sets),
+        all_cut_device_ms=device_ms_per_call(
+            lambda: box_ops.boxes_iou_bev(big, far)),
+        kernels=kernel_breakdown(lambda: box_ops.boxes_iou_bev(big, big)),
+        all_cut_kernels=kernel_breakdown(
+            lambda: box_ops.boxes_iou_bev(big, far)),
+        **timed(lambda: box_ops.boxes_iou_bev(big, big)))
+    nms_sets = dict(
+        pp_request=(data["pp_request"], 0.2),
+        scene=(testing.nms_scene_set(torch.Generator().manual_seed(3)), 0.2),
+        sparse=(testing.nms_sparse_set(torch.Generator().manual_seed(5)),
+                0.2),
+        merge=(data["merge"], 0.25))
+    for label, (args, thr) in nms_sets.items():
+        b, sc, v = (x.cuda() for x in args)
+        keep = box_ops.nms_bev_mask(b, sc, thr, v)
+        out[f"nms_{label}"] = dict(
+            shape=list(sc.shape), digest=digest(keep),
+            **timed(lambda: box_ops.nms_bev_mask(b, sc, thr, v)))
+    return out
 
 
 def roiaware_compare(tree: str, dev: str = "cuda", requests: int = 20,

@@ -1,5 +1,6 @@
 // Pairwise 3D IoU of LiDAR boxes (K10) and pairwise rotated BEV IoU
-// (K10-BEV) for Hopper (sm_90a): one kernel, templated on BEV.
+// (K10-BEV) for Hopper (sm_90a): one tile kernel, templated on BEV, and
+// K10-BEV's drain kernel.
 //
 // K10, entry boxes_iou_3d: out[s, i, j] = IoU of a[s, i] and b[s, j] for
 // every sample s, boxes (x, y, z_bottom, dx, dy, dz, yaw) in float32. The
@@ -26,9 +27,9 @@
 // the assigner's shapes the output's bytes then bound it (4 x 200 x 64
 // floats, 0.06 us at 3.35 TB/s), far under one launch's latency.
 //
-// Design: one launch, no copies: a and b are read through their batch and
-// row strides (the assigner hands slices of 10- and 9-wide rows). A block
-// takes a 16 x 32 tile of one sample's pairs with 8 warps:
+// Design: no copies: a and b are read through their batch and row strides
+// (the assigner hands slices of 10- and 9-wide rows). A block takes a
+// 16 x 32 tile of one sample's pairs with 8 warps:
 // 0. stages its 16 + 32 boxes once in shared memory: centre, sides, cos
 //    and sin of the yaw, z range, volume (area for BEV), reach (below) and
 //    whether the box is tame (every value finite, |x|, |y|, |z|, |dx|,
@@ -46,6 +47,19 @@
 //    counting (ties: the lower candidate first, torch.argsort's stable
 //    order), the shoelace over the order by a warp sum. No per-thread
 //    array: nothing in local memory.
+// K10 (entry boxes_iou_3d) is that one launch: the assigner's exact pairs
+// are few and spread over its tiles (box_ops.iou_tile_counts). K10-BEV
+// (entry boxes_iou_bev) spreads step B over the card: a score-sorted merge
+// set holds each object up to four times, so its exact pairs bunch on the
+// diagonal tiles (on the merge's 808-box class set at most 32 in a tile
+// against a mean of 5), which one block's 8 warps would take one after
+// another. Its call is three operations on the caller's stream: the list
+// counter zeroed (a memset of 8 bytes), the tile kernel doing 0 and A and
+// appending the tile's list, by output index, to one list in a scratch
+// that the wrapper allocates (one global atomic a tile), then the drain
+// kernel: a grid of the resident blocks whose every warp takes a listed
+// pair at a time (step B, its two boxes' values formed again from their
+// rows by step 0's code). Neither kernel waits on another block.
 // Rounding: every step is rounded as the plain version (box_ops.
 // rotated_rect_intersection_area) rounds it, in its order (the _rn
 // intrinsics keep nvcc from contracting into FMAs): candidates that
@@ -174,7 +188,13 @@ __device__ __forceinline__ bool in_quad(float px, float py, const float* qx,
 
 // Intersection area of box a = (0, 0, adx, ady) rotated by (ac, as) and
 // box b, centre (bx, by) relative to a's, computed by one warp (every lane
-// returns it); scratch: 64 floats of the warp's shared memory
+// returns it); scratch: 64 floats of the warp's shared memory. UNROLLED:
+// the centroid's and the angle order's 24 candidate shuffles issued at
+// once (the valid ones still added in candidate order), shorter for a
+// warp alone on its pair (the drain); else a loop over the valid
+// candidates, fewer instructions where a block's warps share the issue
+// slots
+template <bool UNROLLED>
 __device__ __forceinline__ float warp_intersection(
     float adx, float ady, float ac, float as, float bx, float by, float bdx,
     float bdy, float bc, float bs, float* scratch, int lane) {
@@ -215,20 +235,40 @@ __device__ __forceinline__ float warp_intersection(
   const int n = __popc(valid);
   // the centroid, summed in candidate order
   float sx = 0.f, sy = 0.f;
-  for (unsigned m = valid; m; m &= m - 1u) {
-    const int d = __ffs(m) - 1;
-    sx = add(sx, __shfl_sync(FULL, px, d));
-    sy = add(sy, __shfl_sync(FULL, py, d));
+  if (UNROLLED) {
+#pragma unroll
+    for (int d = 0; d < 24; ++d) {
+      const float xd = __shfl_sync(FULL, px, d);
+      const float yd = __shfl_sync(FULL, py, d);
+      if ((valid >> d) & 1u) {
+        sx = add(sx, xd);
+        sy = add(sy, yd);
+      }
+    }
+  } else {
+    for (unsigned m = valid; m; m &= m - 1u) {
+      const int d = __ffs(m) - 1;
+      sx = add(sx, __shfl_sync(FULL, px, d));
+      sy = add(sy, __shfl_sync(FULL, py, d));
+    }
   }
   const float x = sub(px, __fdiv_rn(sx, (float)n));
   const float y = sub(py, __fdiv_rn(sy, (float)n));
   const float ang = ok ? atan2f(y, x) : 0.f;
   // place in the angle order: valid candidates before, ties by lane
   int rank = 0;
-  for (unsigned m = valid; m; m &= m - 1u) {
-    const int d = __ffs(m) - 1;
-    const float ad = __shfl_sync(FULL, ang, d);
-    rank += (ad < ang) || (ad == ang && d < lane);
+  if (UNROLLED) {
+#pragma unroll
+    for (int d = 0; d < 24; ++d) {
+      const float ad = __shfl_sync(FULL, ang, d);
+      rank += ((valid >> d) & 1u) && ((ad < ang) || (ad == ang && d < lane));
+    }
+  } else {
+    for (unsigned m = valid; m; m &= m - 1u) {
+      const int d = __ffs(m) - 1;
+      const float ad = __shfl_sync(FULL, ang, d);
+      rank += (ad < ang) || (ad == ang && d < lane);
+    }
   }
   if (ok) {
     scratch[rank] = x;
@@ -245,14 +285,15 @@ __device__ __forceinline__ float warp_intersection(
   return mul(0.5f, fabsf(sum));
 }
 
-// the body of both kernels (each keeps its own name in a profile)
+// the tile kernel's body (each kernel keeps its own name in a profile);
+// BEV: step B left to the drain, the tile's list appended to `pairs` at
+// `npairs`
 template <bool BEV>
-__device__ __forceinline__ void boxes_iou(const float* __restrict__ a,
-                                          const float* __restrict__ b,
-                                          float* __restrict__ out, int64_t n,
-                                          int64_t m, int64_t asb,
-                                          int64_t asn, int64_t bsb,
-                                          int64_t bsn) {
+__device__ __forceinline__ void boxes_iou(
+    const float* __restrict__ a, const float* __restrict__ b,
+    float* __restrict__ out, int64_t n, int64_t m, int64_t asb, int64_t asn,
+    int64_t bsb, int64_t bsn, int64_t* __restrict__ pairs,
+    unsigned long long* npairs) {
   __shared__ Boxes<TILE_N> rows;
   __shared__ Boxes<TILE_M> cols;
   __shared__ uint16_t list[TILE_N * TILE_M];
@@ -302,11 +343,23 @@ __device__ __forceinline__ void boxes_iou(const float* __restrict__ a,
   }
   __syncthreads();
 
-  // B. the listed pairs, a warp each
   const int total = count;
+  if (BEV) {
+    // the tile's list appended to the global one, by output index
+    __shared__ unsigned long long at;
+    if (t == 0 && total) at = atomicAdd(npairs, (unsigned long long)total);
+    __syncthreads();
+    for (int e = t; e < total; e += THREADS) {
+      const int p = list[e];
+      pairs[at + e] = (s * n + n0 + p / TILE_M) * m + m0 + p % TILE_M;
+    }
+    return;
+  }
+
+  // B. the listed pairs, a warp each
   for (int e = warp; e < total; e += WARPS) {
     const int p = list[e], r = p / TILE_M, c = p % TILE_M;
-    const float area = warp_intersection(
+    const float area = warp_intersection<false>(
         rows.dx[r], rows.dy[r], rows.c[r], rows.s[r], sub(cols.x[c], rows.x[r]),
         sub(cols.y[c], rows.y[r]), cols.dx[c], cols.dy[c], cols.c[c], cols.s[c],
         scratch[warp], lane);
@@ -320,32 +373,62 @@ __device__ __forceinline__ void boxes_iou(const float* __restrict__ a,
   }
 }
 
-#define IOU_KERNEL(NAME, BEV)                                              \
-  __global__ void __launch_bounds__(THREADS)                               \
-      NAME(const float* __restrict__ a, const float* __restrict__ b,       \
-           float* __restrict__ out, int64_t n, int64_t m, int64_t asb,     \
-           int64_t asn, int64_t bsb, int64_t bsn) {                        \
-    boxes_iou<BEV>(a, b, out, n, m, asb, asn, bsb, bsn);                   \
-  }
-IOU_KERNEL(boxes_iou_3d_kernel, false)
-IOU_KERNEL(boxes_iou_bev_kernel, true)
-#undef IOU_KERNEL
+__global__ void __launch_bounds__(THREADS)
+    boxes_iou_3d_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b, float* __restrict__ out,
+                        int64_t n, int64_t m, int64_t asb, int64_t asn,
+                        int64_t bsb, int64_t bsn) {
+  boxes_iou<false>(a, b, out, n, m, asb, asn, bsb, bsn, nullptr, nullptr);
+}
 
-template <bool BEV>
-int launch(const void* a, const void* b, void* out, long long batch,
-           long long n, long long m, const long long* strides,
-           void* stream) {
-  if (batch <= 0 || n <= 0 || m <= 0) return 0;
+__global__ void __launch_bounds__(THREADS)
+    boxes_iou_bev_kernel(const float* __restrict__ a,
+                         const float* __restrict__ b,
+                         float* __restrict__ out, int64_t n, int64_t m,
+                         int64_t asb, int64_t asn, int64_t bsb, int64_t bsn,
+                         int64_t* __restrict__ pairs,
+                         unsigned long long* npairs) {
+  boxes_iou<true>(a, b, out, n, m, asb, asn, bsb, bsn, pairs, npairs);
+}
+
+// K10-BEV's step B over the tile kernel's list: every warp of the grid
+// takes a listed pair at a time
+__global__ void __launch_bounds__(THREADS)
+    boxes_iou_bev_drain(const float* __restrict__ a,
+                        const float* __restrict__ b, float* __restrict__ out,
+                        int64_t n, int64_t m, int64_t asb, int64_t asn,
+                        int64_t bsb, int64_t bsn,
+                        const int64_t* __restrict__ pairs,
+                        const unsigned long long* __restrict__ npairs) {
+  __shared__ float scratch[WARPS][64];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned long long total = *npairs;
+  const unsigned long long step = (unsigned long long)gridDim.x * WARPS;
+  for (unsigned long long e = (unsigned long long)blockIdx.x * WARPS + warp;
+       e < total; e += step) {
+    const int64_t o = pairs[e];
+    const int64_t j = o % m, si = o / m;
+    const int64_t i = si % n, s = si / n;
+    Boxes<1> r, c;  // in registers: every index is a constant
+    stage<true>(r, a + s * asb + i * asn, true, 0);
+    stage<true>(c, b + s * bsb + j * bsn, true, 0);
+    const float area = warp_intersection<true>(
+        r.dx[0], r.dy[0], r.c[0], r.s[0], sub(c.x[0], r.x[0]),
+        sub(c.y[0], r.y[0]), c.dx[0], c.dy[0], c.c[0], c.s[0],
+        scratch[warp], lane);
+    if (lane == 0)
+      out[o] = __fdiv_rn(area,
+                         fmaxf(sub(add(r.vol[0], c.vol[0]), area), 1e-8f));
+  }
+}
+
+// the tile grid of (batch, n, m): false where it is too large
+bool tile_grid(long long batch, long long n, long long m, dim3* grid) {
   const long long gy = (n + TILE_N - 1) / TILE_N;
   const long long gx = (m + TILE_M - 1) / TILE_M;
-  if (gy > 65535 || batch > 65535 || gx > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = BEV ? boxes_iou_bev_kernel : boxes_iou_3d_kernel;
-  kernel<<<dim3((unsigned)gx, (unsigned)gy, (unsigned)batch), THREADS, 0,
-           (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (float*)out, (int64_t)n, (int64_t)m,
-      strides[0], strides[1], strides[2], strides[3]);
-  return (int)cudaGetLastError();
+  if (gy > 65535 || batch > 65535 || gx > 0x7fffffffLL) return false;
+  *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)batch);
+  return true;
 }
 
 }  // namespace
@@ -357,11 +440,44 @@ int launch(const void* a, const void* b, void* out, long long batch,
 extern "C" int boxes_iou_3d(const void* a, const void* b, void* out,
                             long long batch, long long n, long long m,
                             const long long* strides, void* stream) {
-  return launch<false>(a, b, out, batch, n, m, strides, stream);
+  if (batch <= 0 || n <= 0 || m <= 0) return 0;
+  dim3 grid;
+  if (!tile_grid(batch, n, m, &grid)) return (int)cudaErrorInvalidValue;
+  boxes_iou_3d_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (float*)out, (int64_t)n, (int64_t)m,
+      strides[0], strides[1], strides[2], strides[3]);
+  return (int)cudaGetLastError();
 }
 
+// list: a (1 + batch * n * m) int64 scratch, element 0 the list's count
 extern "C" int boxes_iou_bev(const void* a, const void* b, void* out,
                              long long batch, long long n, long long m,
-                             const long long* strides, void* stream) {
-  return launch<true>(a, b, out, batch, n, m, strides, stream);
+                             const long long* strides, void* list,
+                             void* stream) {
+  if (batch <= 0 || n <= 0 || m <= 0) return 0;
+  dim3 grid;
+  if (!tile_grid(batch, n, m, &grid)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* npairs = (unsigned long long*)list;
+  int64_t* pairs = (int64_t*)list + 1;
+  // the drain's grid: the blocks resident at once
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, boxes_iou_bev_drain, THREADS, 0);
+  if (err == cudaSuccess) err = cudaMemsetAsync(npairs, 0, 8, st);
+  if (err != cudaSuccess) return (int)err;
+  boxes_iou_bev_kernel<<<grid, THREADS, 0, st>>>(
+      (const float*)a, (const float*)b, (float*)out, (int64_t)n, (int64_t)m,
+      strides[0], strides[1], strides[2], strides[3], pairs, npairs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  boxes_iou_bev_drain<<<per_sm * sms > 0 ? per_sm * sms : 1, THREADS, 0,
+                        st>>>(
+      (const float*)a, (const float*)b, (float*)out, (int64_t)n, (int64_t)m,
+      strides[0], strides[1], strides[2], strides[3], pairs, npairs);
+  return (int)cudaGetLastError();
 }

@@ -44,10 +44,10 @@
 //    The diagonal bits stay iou(i, i) > thr. The JAX package computes both
 //    orders of a pair; they differ only by rounding, as close pairs near
 //    the threshold may.
-// 2. Greedy pass (csrc/nms_greedy.cuh): one block
-//    per sample, one warp per class, over the sample's mask in shared
-//    memory (global memory past K = 1,344), 64 sorted positions at a time resolved on a register word
-//    (1-4 rounds a chunk on testing.py's nms_scene_set, at most 65).
+// 2. Greedy pass (csrc/nms_greedy.cuh): one block per (sample, class),
+//    64 sorted positions a step resolved on a register word by one warp
+//    while sixteen prepare the next step's bits from the mask rows (1-4
+//    rounds a chunk on testing.py's nms_scene_set, at most 65).
 //
 // Why the circle cut is exact. Take box B (sides dx, dy, circumradius r).
 // in_quad (rotated_box.cuh) accepts a point whose cross product with each
@@ -65,11 +65,9 @@
 // computation at most two spurious candidates (one on each of A's two
 // parallel edges), whose area is again 0 up to rounding.
 //
-// The greedy pass holds the mask in shared memory up to K = 1,344 at 32
-// classes (an nms_pre of at most 1,000 in the repo's configs) and reads it
-// from global memory past that; the launch is refused
-// (cudaErrorInvalidValue) past 32 classes or C * ceil(K / 64) removed
-// words over SMEM_MAX.
+// Refused (cudaErrorInvalidValue) only past the grids' limits (65,535
+// samples, 2^31 - 1 tiles or (sample, class) pairs) or a class whose
+// removed words exceed the greedy pass's shared memory (greedy_fits).
 // Allocates nothing (the wrapper passes the mask scratch) and does not
 // synchronise.
 #include <stdint.h>
@@ -204,14 +202,15 @@ extern "C" int nms_bev(const void* boxes, const void* order,
                        long long batch, long long nc, long long k, float thr,
                        int greedy, const long long* strides, void* stream) {
   if (batch <= 0 || nc <= 0 || k <= 0) return 0;
-  if (!greedy_fits(nc, k) || batch > 65535)
+  const int64_t tiles = (k + TILE - 1) / TILE;
+  if (!greedy_fits(batch, nc, k) || batch > 65535 ||
+      tiles * (tiles + 1) / 2 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (int)((k + TILE - 1) / TILE);
   nms_mask_kernel<<<dim3((unsigned)(tiles * (tiles + 1) / 2),
                          (unsigned)batch),
                     THREADS, 0, st>>>((const float*)boxes, (uint32_t*)mask,
-                                      (int64_t)k, tiles, thr);
+                                      (int64_t)k, (int)tiles, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !greedy) return (int)err;
 

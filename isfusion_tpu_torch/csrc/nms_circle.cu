@@ -60,18 +60,30 @@
 // Shared memory: 256 W (W + 1) bytes of bits and 704 W of sorted centres,
 // indices and valid flags (the keys and positions reuse the bits' space),
 // plus 16 W of removed words and chunk counts: 228,032 bytes at W = 28,
-// so K <= 1,792 (box_ops.
-// CIRCLE_MAX_BOXES; a larger K is refused). The shared-memory attribute is
-// set once per device.
+// so this launch takes K <= 1,792 (box_ops.CIRCLE_MAX_BOXES). The
+// shared-memory attribute is set once per device.
+//
+// Past 1,792 boxes a set (entry nms_circle_pairwise; CenterPoint's sets of
+// 500 never reach it), two launches: the wrapper sorts each set's scores
+// with torch.sort(descending=True, stable=True), the order the plain
+// version takes (torch's own NaN and signed-zero rules); the pairwise pass
+// of csrc/nms_pairwise.cuh writes the bits d2 <= thr[r] in index order
+// into a (R, K, ceil(K / 64)) scratch, d2 rounded as above, and the
+// greedy pass of csrc/nms_greedy.cuh walks each set as one class. The
+// mirror is exact: dx(j, i) is the exact negation of dx(i, j), so the
+// squares, their sum and the comparison are the same numbers. Bound:
+// operations, as above (6 a pair); refused only past 65,535 sets or the
+// passes' own limits.
 // Allocates nothing and does not synchronise.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nms_greedy.cuh"
+#include "nms_pairwise.cuh"
+
 namespace {
 
 constexpr int THREADS = 1024;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_MAX = 227 * 1024;  // Hopper's opt-in shared memory/block
 constexpr int MAX_WORDS = 28;         // K <= 1,792
 constexpr int MAX_DEVICES = 64;
 
@@ -97,11 +109,6 @@ __device__ __forceinline__ uint32_t score_key(float s) {
   if (s != s) return 0xffffffffu;  // NaN: first, NaNs tie
   uint32_t u = __float_as_uint(s == 0.f ? 0.f : s);  // -0.0 ties +0.0
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
-  return (uint64_t)__ballot_sync(FULL, lo) |
-         ((uint64_t)__ballot_sync(FULL, hi) << 32);
 }
 
 // index (in 64-bit words) of word u of chunk c's block
@@ -300,6 +307,31 @@ __global__ void __launch_bounds__(THREADS)
 
 bool attribute_set[MAX_DEVICES];
 
+// squared centre distance <= the set's threshold
+struct CirclePair {
+  struct Box {
+    float x, y;
+  };
+  using Ctx = float;  // the set's threshold
+  const float* centers;  // (R, K, 2), element strides cr, ck, cx
+  int64_t cr, ck, cx;
+  const float* thr;  // (R,), stride tr; null: thr_value
+  int64_t tr;
+  float thr_value;
+
+  __device__ Ctx ctx(int64_t r) const {
+    return thr ? thr[r * tr] : thr_value;
+  }
+  __device__ Box load(int64_t r, int64_t i) const {
+    const float* c = centers + r * cr + i * ck;
+    return {c[0], c[cx]};
+  }
+  __device__ bool bit(Ctx t, const Box& a, const Box& b) const {
+    const float dx = __fsub_rn(b.x, a.x), dy = __fsub_rn(b.y, a.y);
+    return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <= t;
+  }
+};
+
 }  // namespace
 
 // centers (R, K, 2) float32, scores (R, K) float32, valid (R, K) bool (or
@@ -334,4 +366,29 @@ extern "C" int nms_circle(const void* centers, const void* scores,
   nms_circle_kernel<<<(unsigned)sets, THREADS, bytes, (cudaStream_t)stream>>>(
       a);
   return (int)cudaGetLastError();
+}
+
+// The route past K = 1,792: centers and thr as for nms_circle; order (R,
+// K) int64, each set's stable descending score order, and valid (R, K)
+// bool (or null) read through strides = (centers' three, order's two,
+// valid's two, thr's one); mask a (R, K, ceil(K / 64)) 64-bit scratch;
+// keep a contiguous (R, K) byte tensor.
+extern "C" int nms_circle_pairwise(const void* centers, const void* order,
+                                   const void* valid, const void* thr,
+                                   float thr_value, void* mask, void* keep,
+                                   long long sets, long long k,
+                                   const long long* strides, void* stream) {
+  if (sets <= 0 || k <= 0) return 0;
+  if (!greedy_fits(sets, 1, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const CirclePair pair{(const float*)centers, strides[0], strides[1],
+                        strides[2], (const float*)thr, strides[7],
+                        thr_value};
+  cudaError_t err = launch_pairwise(pair, (uint64_t*)mask, (int64_t)sets,
+                                    (int64_t)k, st);
+  if (err != cudaSuccess) return (int)err;
+  const Strides sd{strides[3], 0, strides[4], strides[5], 0, strides[6]};
+  return (int)launch_greedy((const uint64_t*)mask, (const int64_t*)order,
+                            (const uint8_t*)valid, (uint8_t*)keep,
+                            (int64_t)sets, 1, (int64_t)k, sd, st);
 }

@@ -1,41 +1,61 @@
-// The greedy walk of K10-NMS (csrc/nms_bev.cu; K10-circle, csrc/
-// nms_circle.cu, walks its own score-ordered bits): keep masks from
-// a (K, ceil(K / 64)) 64-bit suppression bitmask per sample, bit (i, j) =
-// box i suppresses box j, for C score orders of that sample — the
-// function of isfusion_tpu/ops/box_ops.py:196 _greedy_suppress: walk the
-// boxes by descending score (the wrapper's stable sort: ties keep the
-// lower index first); a valid box that no kept box suppresses is kept.
-// Invalid boxes neither keep nor suppress.
+// The greedy walk of K10-NMS (csrc/nms_bev.cu), K10-normal (csrc/
+// nms_normal_bev.cu) and K10-circle past its one-launch size (csrc/
+// nms_circle.cu): keep masks from a (K, ceil(K / 64)) 64-bit suppression
+// bitmask per sample, bit (i, j) = box i suppresses box j (nothing here
+// assumes it symmetric), for C score orders of that sample — the function
+// of isfusion_tpu/ops/box_ops.py:196 _greedy_suppress: walk the boxes by
+// descending score (the wrapper's stable sort: ties keep the lower index
+// first); a valid box that no kept box suppresses is kept. Invalid boxes
+// neither keep nor suppress.
 //
-// One block per sample, one warp per score order (class). Each class has
-// a removed-bitmask of ceil(K / 64) words in shared memory, which starts
-// as the class's invalid boxes (so validity is read once). Where the
-// sample's mask fits beside them (128 KB at K = 1,000), all 1,024 threads
-// first copy it into shared memory; past that (K > 1,344 at any class count,
-// such as a test-time merge of four views' 500 boxes) the walk reads the
-// mask rows from global memory (K^2 / 8 bytes a sample: 500 KB at K =
-// 2,000, held in L2), the same steps on the same words.
-// The warp walks its class's sorted order 64 positions at a time:
-// (a) the chunk's alive word: not removed (two ballots); the alive
-//     positions are compacted, lane j holding the j-th and (32 + j)-th;
-// (b) their submatrix in sorted order: lane j forms the row of alive box
-//     j, bit i = mask bit (box i, box j), one mask row read by all lanes
-//     at a time, fixed trip counts (32 columns, 64 when more than 32 are
-//     alive), so the loads and shuffles pipeline;
-// (c) the chunk resolved on one 64-bit register word: a box is kept iff
-//     no kept box before it suppresses it. The warp applies that rule to
-//     all boxes at once (one ballot a round) from "all kept" until the
-//     word stops changing: round t settles box t, and the greedy walk's
-//     result is the only word the rule leaves unchanged. Rounds: the
-//     longest chain of suppressions in the chunk, plus one (at most 65),
-//     each a few register operations;
-// (d) the keep flags, and the kept boxes' mask rows ORed into the
-//     removed-bitmask, one word a lane (32 words a pass).
+// Bound: the walk has an inherent serial length of K dependent steps per
+// class, taken here as K / 64 chunks, each resolved on a 64-bit register
+// word; the bits it reads are 64 x 64 blocks of the mask and the kept
+// rows (bytes, held in L2: K^2 / 8 a sample, 500 KB at K = 2,000).
+//
+// Design: one block per (sample, class), so classes walk on their own SMs;
+// warp 0 walks a chunk of 64 sorted positions a step, while helper warps
+// in three roles prepare the next step and finish the last: warps 1-8
+// gather blocks, 9-12 stage rows and sorted indices, 13-16 OR kept rows
+// into the removed words. Each step's phases run side by side, one block
+// barrier a step: each phase is a few dependent shared-memory round trips
+// whatever its work, so phases done in turn by every helper add up.
+// Shared memory holds the class's removed words (ceil(K / 64), original
+// index order, starting as its invalid boxes), the sorted indices of eight
+// chunks, two copies each of the gathered blocks and, where it fits (K <=
+// 5,632), a ring of staged mask rows: five chunks' 64 rows, copied by
+// cp.async (16 bytes a copy) three chunks ahead of the walk, 16 KB a chunk
+// at K = 2,000, so the gathers and ORs read shared memory. Past 5,632
+// boxes the rows are read from L2 through L1 (prefetched three chunks
+// ahead), the same steps on the same words; shared memory is then 8
+// ceil(K / 64) + 4,112 bytes, so a class of up to 1.8 M boxes fits (the
+// (B, K, ceil(K / 64)) mask scratch runs out of device memory first).
+// Step c:
+// - the walker, the only serial path: chunk c's alive word is its
+//   positions in the set that are not removed (read from the removed
+//   words: as of chunk c - 2, and maybe some of chunk c - 1's rows, which
+//   the OR warps add meanwhile; every bit there is a kept box's
+//   suppression) and not suppressed by a kept box of chunk c - 1 (the
+//   off-diagonal block ANDed with chunk c - 1's kept word, held in a
+//   register); the chunk resolves on one word: a box is kept iff it is
+//   alive and no kept box before it in the chunk suppresses it, the rule
+//   applied to all 64 positions at once (one ballot a round) from "all
+//   alive kept" until the word stops changing: round t settles position t,
+//   and the greedy walk's result is the only word the rule leaves
+//   unchanged, so at most 65 rounds (the longest suppression chain plus
+//   one); then the keep flags, each position written once;
+// - the gathering warps: chunk c + 1's diagonal block (word j bit i = its
+//   i-th sorted box suppresses its j-th, i < j) and off-diagonal block
+//   (bit i = chunk c's i-th box suppresses chunk c + 1's j-th), a thread
+//   32 rows of a column, its 32 reads issued before any bit is taken;
+// - the staging warps: chunk c + 3's row copies, chunk c + 4's sorted
+//   indices (loaded a step before) stored and chunk c + 5's loaded, then a
+//   wait for chunk c + 2's rows;
+// - the OR warps: chunk c - 1's kept rows into the removed words, a thread
+//   a word and a group of rows, 32-bit shared atomics.
 // A box is suppressed only by a kept box earlier in the order: the same
-// result as one step a box. Shared memory: (C + K) * ceil(K / 64) words
-// with the mask, C * ceil(K / 64) without it; launch_greedy refuses more
-// than 32 classes or C * ceil(K / 64) words over SMEM_MAX (K > 58,112 at
-// 32 classes).
+// result as one step a box. launch_greedy refuses only more than 2^31 - 1
+// (sample, class) pairs or a class whose removed words do not fit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,13 +63,29 @@
 
 namespace {
 
-constexpr int GREEDY_THREADS = 1024;  // greedy pass: all copy, C walk
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMEM_MAX = 227 * 1024;  // Hopper's opt-in shared memory/block
+// the helpers' roles: warps 1-8 gather blocks, 9-12 stage rows and sorted
+// indices, 13-16 OR kept rows into the removed words
+constexpr int GATHER_WARPS = 8, STAGE_WARPS = 4, KEPT_WARPS = 4;
+constexpr int GREEDY_HELPERS = GATHER_WARPS + STAGE_WARPS + KEPT_WARPS;
+constexpr int GATHER_ROWS = 32;  // rows of a gathering thread's column piece
+constexpr int GREEDY_THREADS = 32 * (1 + GREEDY_HELPERS);
+constexpr int GREEDY_RING = 8;    // sorted indices of chunks c - 1 .. c + 4
+constexpr int GREEDY_STAGES = 5;  // staged rows of chunks c - 1 .. c + 3
 
 // element strides of the (B, C, K) order (int64) and valid (bool) tensors
 struct Strides {
   int64_t ob, oc, ok, vb, vc, vk;
+};
+
+// the fixed part of the greedy pass's shared memory (the class's removed
+// words and the staged rows follow it); index [c & 1] is chunk c's copy
+struct GreedyShared {
+  uint64_t diag[2][64];  // word j bit i: sorted box i suppresses box j
+  uint64_t prev[2][64];  // word j bit i: chunk c - 1's box i suppresses j
+  uint64_t kept[2];      // chunk c's kept word
+  int ord[GREEDY_RING][64];  // chunk's sorted box indices, -1 past K
 };
 
 __device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
@@ -57,66 +93,153 @@ __device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
          ((uint64_t)__ballot_sync(FULL, hi) << 32);
 }
 
-__device__ __forceinline__ bool bit(const uint64_t* words, int i) {
-  return (words[i >> 6] >> (i & 63)) & 1ull;
+// word u of the mask row of chunk `chunk`'s position p (box q): from the
+// staged ring, or from global memory through L1
+template <bool STAGED>
+__device__ __forceinline__ uint64_t row_word(const uint64_t* ring,
+                                             const uint64_t* rows, int w,
+                                             int chunk, int p, int q,
+                                             int u) {
+  if (STAGED) return ring[((chunk % GREEDY_STAGES) * 64 + p) * w + u];
+  return __ldg(rows + (int64_t)q * w + u);
 }
 
-// position (0..63) of the j-th set bit of m (j from 0, j < popc(m)), by
-// a branch-free binary search on popcounts
-__device__ __forceinline__ int nth_set(uint64_t m, int j) {
-  int pos = 0;
-#pragma unroll
-  for (int width = 32; width > 0; width >>= 1) {
-    const int c = __popcll(m & ((1ull << width) - 1ull));
-    const bool up = j >= c;
-    j -= up ? c : 0;
-    pos += up ? width : 0;
-    m = up ? m >> width : m;
+// the staging threads (t = 0..127): chunk `chunk`'s 64 rows into the ring by
+// cp.async, 16 bytes a copy where the rows are 16-byte aligned (an even
+// word count) and 8 otherwise, consecutive threads on consecutive pieces
+// of a row; or into L1 by prefetches, a 128-byte line at a time
+template <bool STAGED>
+__device__ __forceinline__ void stage_rows(uint64_t* ring,
+                                           const uint64_t* rows,
+                                           const GreedyShared& sh, int w,
+                                           int chunk, int h) {
+  const int* qs = sh.ord[chunk % GREEDY_RING];
+  const int threads = 32 * STAGE_WARPS;
+  if (STAGED) {
+    uint64_t* dst = ring + (chunk % GREEDY_STAGES) * 64 * w;
+    const int words = w & 1 ? 1 : 2;  // words a copy
+    const int per_row = w / words;
+    for (int e = h; e < 64 * per_row; e += threads) {
+      const int p = e / per_row, u = (e - p * per_row) * words;
+      const int q = qs[p];
+      if (q < 0) continue;  // past K
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + p * w + u);
+      const uint64_t* src = rows + (int64_t)q * w + u;
+      if (words == 2)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                     "l"(src)
+                     : "memory");
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d),
+                     "l"(src)
+                     : "memory");
+    }
+  } else {
+    for (int e = h; e < 64 * ((w + 15) / 16); e += threads) {
+      const int p = e % 64, u = e / 64 * 16;
+      if (qs[p] >= 0)
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(rows +
+                                                     (int64_t)qs[p] * w + u));
+    }
   }
-  return pos;
 }
 
-// the box of chunk position a (per lane), held by lane a % 32 as o_lo
-// (a < 32) or o_hi
-__device__ __forceinline__ int box_at(int o_lo, int o_hi, int a) {
-  const int x = __shfl_sync(FULL, o_lo, a & 31);
-  const int y = __shfl_sync(FULL, o_hi, a & 31);
-  return a < 32 ? x : y;
-}
-
-// bits FROM..FROM + 31 of the compact row of box qj: bit FROM + i is mask
-// bit (q_i, qj) (q_i suppresses qj), q_i held by lane i as q; the lanes
-// read one mask row at a time, conflict-free
-template <int FROM>
-__device__ __forceinline__ uint64_t row_bits(const uint64_t* rows, int w,
-                                             int q, int qj) {
-  uint64_t r = 0ull;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int qi = __shfl_sync(FULL, q, i);
-    r |= (uint64_t)bit(rows + (int64_t)qi * w, qj) << (FROM + i);
+// gathering thread h (0..255): rows 32 ((h >> 6) & 1) .. + 31 of column
+// h & 63 of chunk `chunk`'s diagonal block (h < 128, rows of the same
+// chunk, i < j only) or off-diagonal block (rows of the chunk before; none
+// for chunk 0). The 32 words are read first (32-bit halves, one per row,
+// no branch), then their bits taken; a warp with no row to read skips
+template <bool STAGED>
+__device__ __forceinline__ void gather_block(GreedyShared& sh,
+                                             const uint64_t* ring,
+                                             const uint64_t* rows, int w,
+                                             int64_t k, int chunk, int h) {
+  const bool off = h >= 128;
+  const int j = h & 63, lo = GATHER_ROWS * ((h >> 6) & 1);
+  const int rc = off ? chunk - 1 : chunk;  // the rows' chunk
+  const int qj = sh.ord[chunk % GREEDY_RING][j];
+  uint32_t want = 0u;  // bit i: position lo + i of chunk rc is read
+  if (rc >= 0 && qj >= 0) {
+    const int64_t left = k - (int64_t)rc * 64;
+    const int n = left < 64 ? (int)left : 64;
+    const int cnt = (off ? n : min(n, j)) - lo;
+    want = cnt <= 0 ? 0u : cnt >= GATHER_ROWS ? ~0u : (1u << cnt) - 1u;
   }
-  return r;
-}
-
-// removed word u (< w, one a lane) |= the mask rows of the boxes of set
-// bits FROM..FROM + 31 of kept, q_i held by lane i as q
-template <int FROM>
-__device__ __forceinline__ uint64_t kept_rows(const uint64_t* rows, int w,
-                                              int q, uint64_t kept, int u) {
-  uint64_t acc = 0ull;
+  uint32_t bits = 0u;
+  if (__any_sync(FULL, want != 0u)) {
+    const int word = qj >> 5, shift = qj & 31;  // qj's 32-bit half-word
+    uint32_t v[GATHER_ROWS];
+    if (STAGED) {
+      const uint32_t* base = (const uint32_t*)ring +
+                             ((rc % GREEDY_STAGES) * 64 + lo) * 2 * w + word;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int qi = __shfl_sync(FULL, q, i);
-    if (((kept >> (FROM + i)) & 1ull) && u < w)
-      acc |= rows[(int64_t)qi * w + u];
+      for (int i = 0; i < GATHER_ROWS; ++i)
+        v[i] = want ? base[i * 2 * w] : 0u;
+    } else {
+      const int* qs = sh.ord[(rc + GREEDY_RING) % GREEDY_RING] + lo;
+#pragma unroll
+      for (int i = 0; i < GATHER_ROWS; ++i) {
+        const int qi = qs[i] < 0 ? 0 : qs[i];
+        v[i] = want ? __ldg((const uint32_t*)rows + (int64_t)qi * 2 * w +
+                            word)
+                    : 0u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < GATHER_ROWS; ++i)
+      bits |= ((v[i] >> shift) & 1u) << i;
+    bits &= want;
   }
-  return acc;
+  uint32_t* dst = (uint32_t*)&(off ? sh.prev : sh.diag)[chunk & 1][j];
+  dst[lo / GATHER_ROWS] = bits;
 }
 
-// SHARED: the sample's mask is copied into shared memory beside the
-// removed-bitmasks; else its rows are read where they lie
-template <bool SHARED>
+// the OR threads (h = 0..127): chunk `chunk`'s kept rows (kept word kw)
+// ORed into the removed words, a thread a word: below 128 words the
+// threads form 128 / w groups, group g taking rows g, g + 128 / w, ...;
+// every row is read (no branch) and the kept ones ORed, by 32-bit atomics
+// (a warp of several groups ORs them first)
+template <bool STAGED>
+__device__ __forceinline__ void or_kept_rows(const GreedyShared& sh,
+                                             uint64_t* removed,
+                                             const uint64_t* ring,
+                                             const uint64_t* rows, int w,
+                                             int chunk, uint64_t kw, int h) {
+  if (!kw) return;
+  const int* qs = sh.ord[chunk % GREEDY_RING];
+  const int threads = 32 * KEPT_WARPS;
+  const int groups = w < threads ? threads / w : 1;
+  const int g = w < threads ? h / w : 0;
+  if (g >= groups) return;
+  for (int u = w < threads ? h - g * w : h; u < w; u += threads) {
+    uint64_t acc = 0ull;
+#pragma unroll 4
+    for (int p = g; p < 64; p += groups) {
+      const uint64_t v = row_word<STAGED>(ring, rows, w, chunk, p,
+                                          STAGED ? 0 : max(qs[p], 0), u);
+      acc |= ((kw >> p) & 1ull) ? v : 0ull;
+    }
+    if (32 % w == 0)
+      for (int off = w; off < 32; off <<= 1)
+        acc |= __shfl_xor_sync(FULL, acc, off);
+    if (32 % w || (h & 31) < w) {
+      unsigned* word = (unsigned*)&removed[u];
+      if ((unsigned)acc) atomicOr(word, (unsigned)acc);
+      if ((unsigned)(acc >> 32)) atomicOr(word + 1, (unsigned)(acc >> 32));
+    }
+  }
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// every copy group but the most recent one complete
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+template <bool STAGED>
 __global__ void __launch_bounds__(GREEDY_THREADS)
     nms_greedy_kernel(const uint64_t* __restrict__ mask,
                       const int64_t* __restrict__ order,
@@ -124,125 +247,148 @@ __global__ void __launch_bounds__(GREEDY_THREADS)
                       uint8_t* __restrict__ keep, int64_t nc, int64_t k,
                       int w, Strides st) {
   extern __shared__ uint64_t smem[];
-  const int64_t s = blockIdx.x;
-  const int tid = threadIdx.x;
-  uint64_t* removed_all = smem;            // nc * w words
-  const uint64_t* src = mask + s * k * w;  // the sample's k * w mask words
-  const uint64_t* rows = src;
-  if (SHARED) {
-    uint64_t* copy = smem + nc * w;
-    // every warp copies; warps past the classes then leave
-#pragma unroll 4
-    for (int64_t e = tid; e < k * w; e += GREEDY_THREADS) copy[e] = src[e];
-    rows = copy;
-  }
+  GreedyShared& sh = *reinterpret_cast<GreedyShared*>(smem);
+  uint64_t* removed = smem + sizeof(GreedyShared) / sizeof(uint64_t);
+  uint64_t* ring = removed + w;  // STAGED: GREEDY_STAGES x 64 x w words
+  const int64_t job = blockIdx.x;  // sample * nc + class
+  const int64_t s = job / nc, c = job % nc;
+  const uint64_t* rows = mask + s * k * w;
+  const int64_t* ord = order + s * st.ob + c * st.oc;
+  uint8_t* kp = keep + job * k;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // each role's own thread index
+  const int gt = tid - 32, stt = tid - 32 * (1 + GATHER_WARPS),
+            kt = tid - 32 * (1 + GATHER_WARPS + STAGE_WARPS);
+  const bool gathers = warp >= 1 && warp <= GATHER_WARPS;
+  const bool stages = stt >= 0 && kt < 0;
+  const int chunks = (int)((k + 63) / 64);
 
-  const int c = tid >> 5, lane = tid & 31;
-  uint64_t* removed = removed_all + c * w;
-  if (c < nc) {
-    // the class's invalid boxes start removed: they neither keep nor
-    // suppress
-    const uint8_t* val = valid + s * st.vb + c * st.vc;
-#pragma unroll 4
-    for (int u = 0; u < w; ++u) {
-      const int64_t i = (int64_t)u * 64 + lane;
-      const uint64_t ok = ballot64(i < k && val[i * st.vk],
-                                   i + 32 < k && val[(i + 32) * st.vk]);
-      if (lane == 0) removed[u] = ~ok;
+  // the first four chunks' sorted indices (loaded first, stored below);
+  // the removed words start as the invalid boxes (valid null: all valid)
+  // gathering thread gt: position gt of chunks 0..3
+  const int64_t q_first = gathers && gt < k ? ord[(int64_t)gt * st.ok] : -1;
+  const uint8_t* val = valid ? valid + s * st.vb + c * st.vc : nullptr;
+  for (int u = warp; u < w; u += 1 + GREEDY_HELPERS) {
+    const int64_t i = (int64_t)u * 64 + lane;
+    const bool ok0 = i < k && (!val || val[i * st.vk]);
+    const bool ok1 = i + 32 < k && (!val || val[(i + 32) * st.vk]);
+    const uint64_t ok = ballot64(ok0, ok1);
+    if (lane == 0) removed[u] = ~ok;
+  }
+  if (gathers) sh.ord[gt >> 6][gt & 63] = (int)q_first;
+  // chunk 4's sorted indices, stored at step 0 (each load is stored a step
+  // after it is issued, so its latency is hidden)
+  int64_t q_next = -1;
+  if (stages && stt < 64 && 4 * 64 + stt < k)
+    q_next = ord[(4 * 64 + stt) * st.ok];
+  __syncthreads();
+  // the first three chunks' rows; chunks 0 and 1 awaited
+  if (stages) {
+    for (int e = 0; e < 3; ++e) {
+      if (e < chunks) stage_rows<STAGED>(ring, rows, sh, w, e, stt);
+      commit_copies();
     }
+    wait_copies();
   }
   __syncthreads();
-  if (c >= nc) return;
+  if (gathers) gather_block<STAGED>(sh, ring, rows, w, k, 0, gt);
+  __syncthreads();
 
-  const int64_t* ord = order + s * st.ob + c * st.oc;
-  uint8_t* kp = keep + (s * nc + c) * k;
-  int o_lo = lane < k ? (int)ord[lane * st.ok] : 0;
-  int o_hi = lane + 32 < k ? (int)ord[(lane + 32) * st.ok] : 0;
-  for (int64_t base = 0; base < k; base += 64) {
-    const int n = k - base < 64 ? (int)(k - base) : 64;
-    const bool in_lo = lane < n, in_hi = lane + 32 < n;
-    // the next chunk's order, loaded while this one is resolved
-    const int64_t nb = base + 64;
-    const int p_lo = nb + lane < k ? (int)ord[(nb + lane) * st.ok] : 0;
-    const int p_hi = nb + lane + 32 < k ? (int)ord[(nb + lane + 32) * st.ok]
-                                        : 0;
-    // (a) alive: in the chunk and not removed (or invalid); the alive
-    // positions, in order, are compacted: lane j holds the boxes of the
-    // j-th and (32 + j)-th (q0, q1)
-    const uint64_t alive = ballot64(in_lo && !bit(removed, o_lo),
-                                    in_hi && !bit(removed, o_hi));
-    const int na = __popcll(alive);
-    uint64_t kept = 0ull;  // over the compacted positions
-    if (na) {
-      const int q0 = box_at(o_lo, o_hi, nth_set(alive, lane));
-      const int q1 = box_at(o_lo, o_hi, nth_set(alive, lane + 32));
-      // (b) the submatrix of the alive boxes: lane j forms rows j and
-      // 32 + j, bit i = "alive box i suppresses alive box j"
-      uint64_t r0 = row_bits<0>(rows, w, q0, q0), r1 = 0ull;
-      if (na > 32) {
-        r0 |= row_bits<32>(rows, w, q1, q0);
-        r1 = row_bits<0>(rows, w, q0, q1) | row_bits<32>(rows, w, q1, q1);
-      }
-      // (c) the walk on a register word: a box is kept iff no kept box
-      // before it suppresses it. Start from all and apply that rule to
-      // every box at once until the word stops changing: round t fixes
-      // box t, and the greedy walk's result is the one word the rule
-      // leaves unchanged, so the loop ends on it after at most 65 rounds
-      kept = na == 64 ? ~0ull : (1ull << na) - 1ull;
-      const uint64_t before0 = (1ull << lane) - 1ull;
-      const uint64_t before1 = (1ull << (lane + 32)) - 1ull;
+  // the walker's: chunk c - 1's kept word, chunk c's boxes (each chunk's
+  // read a step ahead)
+  uint64_t kept_prev = 0ull;
+  int q0 = sh.ord[0][lane], q1 = sh.ord[0][lane + 32];
+  for (int cc = 0; cc < chunks; ++cc) {
+    if (warp == 0) {
+      const int64_t base = (int64_t)cc * 64;
+      const int n = k - base < 64 ? (int)(k - base) : 64;
+      // removed as of chunk c - 2, and maybe some of chunk c - 1's rows,
+      // which the helpers OR in now: every bit is a kept box's suppression,
+      // and chunk c - 1's are taken from the off-diagonal block anyway
+      const volatile uint64_t* rv = removed;
+      const bool r0 = lane < n && ((rv[q0 >> 6] >> (q0 & 63)) & 1ull);
+      const bool r1 = lane + 32 < n && ((rv[q1 >> 6] >> (q1 & 63)) & 1ull);
+      const uint64_t d0 = sh.diag[cc & 1][lane], d1 = sh.diag[cc & 1][lane + 32];
+      const uint64_t o0 = sh.prev[cc & 1][lane], o1 = sh.prev[cc & 1][lane + 32];
+      const bool a0 = lane < n && !r0 && !(o0 & kept_prev);
+      const bool a1 = lane + 32 < n && !r1 && !(o1 & kept_prev);
+      const uint64_t alive = ballot64(a0, a1);
+      // the diagonal block holds i < j only: no mask of earlier positions
+      uint64_t kept = alive;
       for (;;) {
-        const uint64_t next = ballot64(lane < na && !(r0 & kept & before0),
-                                       lane + 32 < na &&
-                                           !(r1 & kept & before1));
+        const uint64_t next = ballot64(a0 && !(d0 & kept),
+                                       a1 && !(d1 & kept));
         if (next == kept) break;
         kept = next;
       }
-      // (d) the kept boxes' mask rows into the removed-bitmask, 32 words
-      // a pass (one pass for K <= 2,048)
-      for (int u0 = 0; u0 < w; u0 += 32) {
-        uint64_t acc = kept_rows<0>(rows, w, q0, kept, u0 + lane);
-        if (kept >> 32) acc |= kept_rows<32>(rows, w, q1, kept, u0 + lane);
-        if (u0 + lane < w) removed[u0 + lane] |= acc;
+      kept_prev = kept;
+      if (lane == 0) sh.kept[cc & 1] = kept;
+      if (lane < n) kp[q0] = (uint8_t)((kept >> lane) & 1ull);
+      if (lane + 32 < n) kp[q1] = (uint8_t)((kept >> (lane + 32)) & 1ull);
+      q0 = sh.ord[(cc + 1) % GREEDY_RING][lane];
+      q1 = sh.ord[(cc + 1) % GREEDY_RING][lane + 32];
+    } else if (gathers) {
+      if (cc + 1 < chunks)
+        gather_block<STAGED>(sh, ring, rows, w, k, cc + 1, gt);
+    } else if (stages) {
+      if (cc + 3 < chunks)
+        stage_rows<STAGED>(ring, rows, sh, w, cc + 3, stt);
+      commit_copies();
+      if (stt < 64) {
+        // chunk c + 4's sorted indices (loaded a step ago); chunk c + 5's
+        sh.ord[(cc + 4) % GREEDY_RING][stt] = (int)q_next;
+        const int64_t p = (int64_t)(cc + 5) * 64 + stt;
+        q_next = p < k ? ord[p * st.ok] : -1;
       }
+      wait_copies();  // chunk c + 2's rows
+    } else if (cc >= 1) {
+      or_kept_rows<STAGED>(sh, removed, ring, rows, w, cc - 1,
+                           sh.kept[(cc - 1) & 1], kt);
     }
-    // keep flags: each position once over the walk, no zeroing
-    const int c_lo = __popcll(alive & ((1ull << lane) - 1ull));
-    const int c_hi = __popcll(alive & ((1ull << (lane + 32)) - 1ull));
-    if (in_lo) kp[o_lo] = ((alive >> lane) & 1ull) && ((kept >> c_lo) & 1ull);
-    if (in_hi)
-      kp[o_hi] = ((alive >> (lane + 32)) & 1ull) && ((kept >> c_hi) & 1ull);
-    __syncwarp();  // the next chunk's (a) reads other lanes' words
-    o_lo = p_lo;
-    o_hi = p_hi;
+    __syncthreads();
   }
 }
 
-// whether the greedy pass takes nc classes of k boxes: one warp a class,
-// the removed-bitmasks in shared memory
-inline bool greedy_fits(int64_t nc, int64_t k) {
-  return nc <= 32 &&
-         (size_t)nc * ((k + 63) / 64) * sizeof(uint64_t) <= (size_t)SMEM_MAX;
+// whether the greedy pass stages a class's rows in shared memory
+inline bool greedy_staged(int64_t k) {
+  const size_t w = (size_t)((k + 63) / 64);
+  return sizeof(GreedyShared) + w * 8 * (1 + 64 * GREEDY_STAGES) <=
+         (size_t)SMEM_MAX;
+}
+
+// shared memory of one (sample, class) block
+inline size_t greedy_smem_bytes(int64_t k) {
+  const size_t w = (size_t)((k + 63) / 64);
+  return sizeof(GreedyShared) +
+         w * 8 * (1 + (greedy_staged(k) ? 64 * GREEDY_STAGES : 0));
+}
+
+// whether the greedy pass takes batch samples of nc classes of k boxes
+inline bool greedy_fits(int64_t batch, int64_t nc, int64_t k) {
+  return batch <= 0x7fffffffLL / (nc > 0 ? nc : 1) &&
+         greedy_smem_bytes(k) <= (size_t)SMEM_MAX;
 }
 
 // The greedy pass over `batch` samples' (k, w) mask words, nc score
-// orders each, on `st`, the mask in shared memory where it fits; sets the
-// kernel's shared-memory limit on every call (the attribute belongs to
-// the current device).
+// orders each (order (B, C, K) int64 and valid (B, C, K) bool read through
+// their strides; valid null: all valid), on `st`; raises the kernel's
+// shared-memory limit where a class needs more than 48 KB (the attribute
+// belongs to the current device).
 inline cudaError_t launch_greedy(const uint64_t* mask, const int64_t* order,
                                  const uint8_t* valid, uint8_t* keep,
                                  int64_t batch, int64_t nc, int64_t k,
                                  const Strides& sd, cudaStream_t st) {
-  if (!greedy_fits(nc, k)) return cudaErrorInvalidValue;
+  if (!greedy_fits(batch, nc, k)) return cudaErrorInvalidValue;
   const int w = (int)((k + 63) / 64);
-  const size_t with_mask = (size_t)(nc + k) * w * sizeof(uint64_t);
-  const bool shared = with_mask <= (size_t)SMEM_MAX;
-  const size_t bytes = shared ? with_mask : (size_t)nc * w * sizeof(uint64_t);
-  auto kernel = shared ? nms_greedy_kernel<true> : nms_greedy_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)batch, GREEDY_THREADS, bytes, st>>>(
+  const size_t bytes = greedy_smem_bytes(k);
+  auto kernel = greedy_staged(k) ? nms_greedy_kernel<true>
+                                 : nms_greedy_kernel<false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)(batch * nc), GREEDY_THREADS, bytes, st>>>(
       mask, order, valid, keep, nc, k, w, sd);
   return cudaGetLastError();
 }

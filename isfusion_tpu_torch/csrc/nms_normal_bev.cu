@@ -21,100 +21,96 @@
 // dependent steps per class, taken here as K / 64 chunks.
 //
 // Design, two launches on the caller's stream:
-// 1. Pairwise pass: the IoU matrix is computed once a sample for all its
-//    classes, as a (K, ceil(K / 64)) 64-bit suppression bitmask in
-//    original index order (mask[s, i, u] bit b = iou(i, 64 u + b) > thr;
-//    the IoU is symmetric in rounding too, so both orders of a pair are
-//    computed and agree). A block stages one 64-box column word in shared
-//    memory and a thread forms one row's word: 64 IoUs from registers and
-//    shared memory, one 8-byte store.
-// 2. Greedy pass: csrc/nms_greedy.cuh, shared with K10-NMS (one block a
-//    sample, one warp a class, 64 sorted positions at a time resolved on
-//    a register word).
-// The launch is refused (cudaErrorInvalidValue) past 32 classes or C *
-// ceil(K / 64) removed words over SMEM_MAX (launch_greedy). Allocates
-// nothing (the wrapper passes the mask scratch) and does not synchronise.
+// 1. Pairwise pass (csrc/nms_pairwise.cuh): the IoU matrix is computed
+//    once a sample for all its classes, as a (K, ceil(K / 64)) 64-bit
+//    suppression bitmask in original index order, a warp a 32 x 32 tile
+//    on or above the diagonal, the other half mirrored by ballots; max
+//    and min propagate NaN in one instruction each (max.NaN, min.NaN). The
+//    mirror is exact: every step commutes bit for bit. nan_max and nan_min
+//    are symmetric (a NaN gives the canonical NaN either way; two zeros of
+//    either sign may come back either way, and no comparison tells them
+//    apart), __fadd_rn(area_i, area_j) is commutative, and the
+//    intersection's sides are the same numbers in both orders. A pair
+//    whose clamped intersection is exactly 0 has IoU exactly 0 (the union
+//    is at least 1e-8, or NaN when the areas' sum is), so its bit is 0 >
+//    thr, taken without the division; a NaN intersection takes the full
+//    path.
+// 2. Greedy pass: csrc/nms_greedy.cuh, shared with K10-NMS (a block a
+//    (sample, class), 64 sorted positions a step resolved on a register
+//    word by one warp while sixteen prepare the next step's bits).
+// Refused (cudaErrorInvalidValue) only past the grids' limits or a class
+// whose removed words exceed the greedy pass's shared memory (greedy_fits,
+// launch_pairwise). Allocates nothing (the wrapper passes the mask
+// scratch) and does not synchronise.
 #include <math.h>
 #include <stdint.h>
 
 #include "nms_greedy.cuh"
+#include "nms_pairwise.cuh"
 
 namespace {
 
-constexpr int ROWS = 128;  // pairwise pass: rows (threads) a block
-
-// torch.maximum / torch.minimum: NaN if either input is NaN
+// torch.maximum / torch.minimum: NaN if either input is NaN (one
+// instruction each: max.NaN / min.NaN, sm_80 and later)
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-__device__ __forceinline__ float area(float4 r) {
-  return __fmul_rn(nan_max(__fsub_rn(r.z, r.x), 0.f),
-                   nan_max(__fsub_rn(r.w, r.y), 0.f));
-}
+// axis-aligned IoU > thr of a sample's (x1, y1, x2, y2) boxes
+struct NormalPair {
+  struct Box {
+    float4 r;
+    float area;
+  };
+  struct Ctx {};
+  const float4* boxes;  // (B, K) contiguous, 16-byte aligned
+  int64_t k;
+  float thr;
+  bool zero_bit;  // 0 > thr: the bit of a pair with IoU 0
 
-__global__ void __launch_bounds__(ROWS)
-    nms_normal_mask_kernel(const float4* __restrict__ boxes,
-                           uint64_t* __restrict__ mask, int64_t k, int w,
-                           float thr) {
-  __shared__ float4 col[64];
-  __shared__ float col_area[64];
-  const int64_t s = blockIdx.z;
-  const int u = blockIdx.y;
-  const float4* bx = boxes + s * k;
-  const int t = threadIdx.x;
-  if (t < 64) {
-    const int64_t j = (int64_t)u * 64 + t;
-    const float4 r = j < k ? bx[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    col[t] = r;
-    col_area[t] = area(r);
+  __device__ Ctx ctx(int64_t) const { return {}; }
+  __device__ Box load(int64_t s, int64_t i) const {
+    const float4 r = boxes[s * k + i];
+    return {r, __fmul_rn(nan_max(__fsub_rn(r.z, r.x), 0.f),
+                         nan_max(__fsub_rn(r.w, r.y), 0.f))};
   }
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * ROWS + t;
-  if (i >= k) return;
-  const float4 a = bx[i];
-  const float aa = area(a);
-  const int n = k - (int64_t)u * 64 < 64 ? (int)(k - (int64_t)u * 64) : 64;
-  uint64_t word = 0ull;
-  for (int e = 0; e < n; ++e) {
-    const float4 b = col[e];
-    const float iw = nan_max(__fsub_rn(nan_min(a.z, b.z), nan_max(a.x, b.x)),
-                             0.f);
-    const float ih = nan_max(__fsub_rn(nan_min(a.w, b.w), nan_max(a.y, b.y)),
-                             0.f);
+  __device__ bool bit(Ctx, const Box& a, const Box& b) const {
+    const float iw = nan_max(
+        __fsub_rn(nan_min(a.r.z, b.r.z), nan_max(a.r.x, b.r.x)), 0.f);
+    const float ih = nan_max(
+        __fsub_rn(nan_min(a.r.w, b.r.w), nan_max(a.r.y, b.r.y)), 0.f);
     const float inter = __fmul_rn(iw, ih);
-    const float uni =
-        nan_max(__fsub_rn(__fadd_rn(aa, col_area[e]), inter), 1e-8f);
-    word |= (uint64_t)(__fdiv_rn(inter, uni) > thr) << e;
+    const float sum = __fadd_rn(a.area, b.area);
+    if (inter == 0.f) return zero_bit && sum == sum;
+    const float uni = nan_max(__fsub_rn(sum, inter), 1e-8f);
+    return __fdiv_rn(inter, uni) > thr;
   }
-  mask[(s * k + i) * w + u] = word;
-}
+};
 
 }  // namespace
 
-// boxes: contiguous (B, K, 4) float32 (x1, y1, x2, y2); mask: (B, K,
-// ceil(K / 64)) 64-bit scratch; strides: the six element strides of order
-// (B, C, K) int64 and valid (B, C, K) bool, in that order; keep a
-// contiguous (B, C, K) byte tensor.
+// boxes: contiguous (B, K, 4) float32 (x1, y1, x2, y2), 16-byte aligned;
+// mask: (B, K, ceil(K / 64)) 64-bit scratch; strides: the six element
+// strides of order (B, C, K) int64 and valid (B, C, K) bool, in that
+// order; keep a contiguous (B, C, K) byte tensor.
 extern "C" int nms_normal_bev(const void* boxes, const void* order,
                               const void* valid, void* mask, void* keep,
                               long long batch, long long nc, long long k,
                               float thr, const long long* strides,
                               void* stream) {
   if (batch <= 0 || nc <= 0 || k <= 0) return 0;
-  const int w = (int)((k + 63) / 64);
-  if (!greedy_fits(nc, k) || batch > 65535 || w > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!greedy_fits(batch, nc, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  nms_normal_mask_kernel<<<dim3((unsigned)((k + ROWS - 1) / ROWS),
-                                (unsigned)w, (unsigned)batch),
-                           ROWS, 0, st>>>((const float4*)boxes,
-                                          (uint64_t*)mask, (int64_t)k, w,
-                                          thr);
-  cudaError_t err = cudaGetLastError();
+  const NormalPair pair{(const float4*)boxes, (int64_t)k, thr, 0.f > thr};
+  cudaError_t err =
+      launch_pairwise(pair, (uint64_t*)mask, (int64_t)batch, (int64_t)k, st);
   if (err != cudaSuccess) return (int)err;
   const Strides sd{strides[0], strides[1], strides[2],
                    strides[3], strides[4], strides[5]};

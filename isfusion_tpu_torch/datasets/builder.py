@@ -34,12 +34,14 @@ def collate_batch(samples: list) -> dict:
     """Stack per-sample dicts of numpy arrays into (B, ...) tensors;
     'img_metas' is collected as a list. A sample given as a list of
     test-time variants (``MultiScaleFlipAug3D``) is unwrapped when it
-    holds one; several raise (the merge of variants is not ported)."""
+    holds one; several raise: each variant is run on its own and the
+    results merged by ``core.post_processing.merge_aug_bboxes_3d``."""
     if samples and isinstance(samples[0], list):
         if any(len(s) != 1 for s in samples):
             raise NotImplementedError(
-                "multi-variant test-time augmentation: a sample's variants "
-                "cannot be stacked into one batch")
+                "multi-variant TTA samples cannot be stacked into one "
+                "batch; run per-variant inference + "
+                "core.post_processing.merge_aug_bboxes_3d")
         samples = [s[0] for s in samples]
     out = {}
     for k in samples[0]:

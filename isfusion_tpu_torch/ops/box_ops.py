@@ -24,8 +24,10 @@ the same greedy walk over ``squared centre distance <= thresh``.
 
 ``boxes_iou_bev(a (..., N, 5), b (..., M, 5)) -> (..., N, M)``: K10-BEV,
 the JAX package's ``boxes_iou_bev`` (rotated BEV IoU, union clamped at
-1e-8), one launch for all leading dims. ``nms_normal_bev_mask(boxes (B,
-K, 4), scores (B, C, K), thresh, valid (B, C, K)) -> keep (B, C, K)``:
+1e-8), for all leading dims at once: a tile kernel settles the pairs the
+exact cuts can and lists the rest, a drain kernel computes those.
+``nms_normal_bev_mask(boxes (B, K, 4), scores (B, C, K), thresh, valid
+(B, C, K)) -> keep (B, C, K)``:
 K10-normal, the JAX package's ``nms_normal_bev_mask`` (the greedy walk
 over axis-aligned ``(x1, y1, x2, y2)`` IoU > thresh).
 
@@ -36,8 +38,10 @@ kernels' yardsticks); on a CUDA tensor it launches its kernel
 (``csrc/boxes_iou_3d.cu``, K10 and K10-BEV; ``csrc/nms_bev.cu``,
 sharing the geometry of ``csrc/rotated_box.cuh``; K10-NMS's and
 K10-normal's greedy pass is ``csrc/nms_greedy.cuh``;
-``csrc/nms_normal_bev.cu``; ``csrc/nms_circle.cu`` is K10-circle in one
-launch) or raises. The assigner's IoU3DCost calls K10 once per train
+``csrc/nms_normal_bev.cu``, whose pairwise pass is
+``csrc/nms_pairwise.cuh``; ``csrc/nms_circle.cu`` is K10-circle in one
+launch, and past 1,792 boxes a set the pairwise and greedy passes) or
+raises. The assigner's IoU3DCost calls K10 once per train
 step, on all samples and decoder layers; Anchor3DHead's ``get_bboxes``
 and ``core/post_processing.py:box3d_multiclass_nms`` call K10-NMS once
 per request, CenterHead's ``get_bboxes`` K10-circle; ``weighted_nms``
@@ -64,14 +68,17 @@ from . import cuda_build
 # counted per pair by ``rotated_iou_ops``
 IOU3D_OPS_PER_PAIR = 22 + 8 * 4 * 6 + 16 * 22 + 50 + 16
 
-# the greedy pass holds one removed-mask of ceil(K / 64) words per class
-# (one warp each) in shared memory, and a sample's (K, ceil(K / 64))
-# suppression words beside them where they fit in Hopper's 227 KB a block
-# (K <= 1,344 at 32 classes, 1,000 at the configs' largest nms_pre; past
-# that it reads them from global memory): at most 32 classes and 227 KB of
-# removed-masks (K <= 58,112 at 32 classes)
-NMS_MAX_CLASSES = 32
+# the greedy pass (csrc/nms_greedy.cuh) takes a block per (sample, class),
+# up to 2^31 - 1 of them, and holds 4,112 bytes of gathered blocks and
+# sorted indices, the class's ceil(K / 64) removed words and, where they
+# fit in Hopper's 227 KB of shared memory a block (K <= 5,632), five
+# chunks' staged mask rows (64 ceil(K / 64) words each); without them it
+# takes K <= 1,826,688; the pairwise passes take up to 65,535 samples a
+# launch
 NMS_SMEM_BYTES = 227 * 1024
+GREEDY_FIXED_BYTES = 4112
+GREEDY_STAGES = 5
+NMS_MAX_SAMPLES = 65535
 
 # K10-NMS's pairwise pass computes a pair only when its boxes' bounding
 # circles, widened by the point-in-box tolerance, meet
@@ -97,11 +104,20 @@ IOU3D_TAME = 1e8
 IOU3D_Z_OPS = 4
 
 
-def nms_smem_bytes(classes: int, boxes: int) -> int:
-    """Shared memory of K10-NMS's greedy pass for one sample with the
-    suppression words in it (it reads them from global memory when this
-    exceeds ``NMS_SMEM_BYTES``)."""
-    return (classes + boxes) * ((boxes + 63) // 64) * 8
+def greedy_staged(boxes: int) -> bool:
+    """Whether the greedy pass stages a class's mask rows in shared memory
+    (csrc/nms_greedy.cuh ``greedy_staged``)."""
+    w = (boxes + 63) // 64
+    return GREEDY_FIXED_BYTES + w * 8 * (1 + 64 * GREEDY_STAGES) <= \
+        NMS_SMEM_BYTES
+
+
+def greedy_smem_bytes(boxes: int) -> int:
+    """Shared memory of the greedy pass's block for one class of K boxes
+    (``launch_greedy`` refuses more than ``NMS_SMEM_BYTES``)."""
+    w = (boxes + 63) // 64
+    return GREEDY_FIXED_BYTES + w * 8 * (
+        1 + (64 * GREEDY_STAGES if greedy_staged(boxes) else 0))
 
 
 def limit_period(val: torch.Tensor, offset: float = 0.5,
@@ -424,7 +440,8 @@ def _launch_pairwise(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor,
                      width: int) -> torch.Tensor:
     """(..., N, M) float32 from kernel ``name`` (K10 or K10-BEV), which
     reads rows of ``width`` or more floats through their batch and row
-    strides: float32 rows with unit element stride are not copied."""
+    strides: float32 rows with unit element stride are not copied. K10-BEV
+    also takes a list scratch: its count, then one int64 an output."""
     lead = boxes1.shape[:-2]
     n, m = boxes1.shape[-2], boxes2.shape[-2]
     a, b = (_iou_rows(x, k, width) for x, k in ((boxes1, n), (boxes2, m)))
@@ -433,9 +450,15 @@ def _launch_pairwise(name: str, boxes1: torch.Tensor, boxes2: torch.Tensor,
     if out.numel() == 0:
         return out.view(lead + (n, m))
     lib = cuda_build.load(name)
+    stream = _raw_stream(a)
     strides = (ctypes.c_longlong * 4)(*(a.stride()[:2] + b.stride()[:2]))
+    extra = ()
+    if name == "boxes_iou_bev":
+        scratch = torch.empty(1 + out.numel(), dtype=torch.int64,
+                              device=a.device)
+        extra = (scratch.data_ptr(),)
     err = getattr(lib, name)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                             a.shape[0], n, m, strides, _raw_stream(a))
+                             a.shape[0], n, m, strides, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -457,8 +480,8 @@ def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
 def boxes_iou_bev(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
                   ) -> torch.Tensor:
     """(..., N, M) float32 IoU of rotated BEV boxes (x, y, dx, dy, yaw[,
-    ...]; the first five columns), one kernel launch for all leading
-    dims."""
+    ...]; the first five columns), all leading dims at once: the list
+    count's memset, the tile kernel and the drain kernel."""
     _lead_check("boxes_iou_bev", boxes1_bev, boxes2_bev, 5)
     if boxes1_bev.device.type == "cpu":
         return boxes_iou_bev_ref(boxes1_bev[..., :5], boxes2_bev[..., :5])
@@ -553,18 +576,22 @@ def nms_bev_mask(boxes_bev: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-def _greedy_capacity(name: str, c: int, k: int) -> None:
-    """Raise unless the greedy pass (csrc/nms_greedy.cuh) holds the
-    removed-masks of C classes of K boxes in one block."""
-    if c > NMS_MAX_CLASSES or c * ((k + 63) // 64) * 8 > NMS_SMEM_BYTES:
-        raise ValueError(f"{name}: at most {NMS_MAX_CLASSES} classes and "
-                         f"{NMS_SMEM_BYTES} bytes of removed-masks (C * "
-                         f"ceil(K / 64) * 8), got C = {c}, K = {k}")
+def _greedy_capacity(name: str, b: int, c: int, k: int) -> None:
+    """Raise unless the NMS kernels take B samples of C classes of K
+    boxes: at most ``NMS_MAX_SAMPLES`` samples (the pairwise passes'
+    grids), 2^31 - 1 (sample, class) blocks and ``greedy_smem_bytes(K)``
+    within ``NMS_SMEM_BYTES`` (the greedy pass)."""
+    if b > NMS_MAX_SAMPLES or b * c > 2 ** 31 - 1 or \
+            greedy_smem_bytes(k) > NMS_SMEM_BYTES:
+        raise ValueError(f"{name}: at most {NMS_MAX_SAMPLES} samples, 2^31 "
+                         f"- 1 (sample, class) pairs and {NMS_SMEM_BYTES} "
+                         f"bytes of shared memory a class (4,112 + 8 "
+                         f"ceil(K / 64)), got B = {b}, C = {c}, K = {k}")
 
 
 def _launch_nms(boxes_bev, order, valid, keep, c, thresh, greedy):
     b, k = boxes_bev.shape[:2]
-    _greedy_capacity("nms_bev_mask", c, k)
+    _greedy_capacity("nms_bev_mask", b, c, k)
     boxes = boxes_bev.float().contiguous()
     mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64,
                        device=boxes.device)
@@ -618,6 +645,17 @@ def iou_bev_cut(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
     tame = iou_bev_tame(boxes1_bev)[..., :, None] & \
         iou_bev_tame(boxes2_bev)[..., None, :]
     return tame & _circles_apart(a, b)
+
+
+def iou_tile_counts(listed: torch.Tensor) -> torch.Tensor:
+    """(T,) int64: the listed pairs (``listed`` (..., N, M) bool, the pairs
+    no exact cut settles) in each 16 x 32 tile of K10's kernel, every
+    leading index its own tiles."""
+    n, m = listed.shape[-2:]
+    x = listed.reshape(-1, n, m).long()
+    x = torch.nn.functional.pad(x, (0, -m % 32, 0, -n % 16))
+    return x.reshape(x.shape[0], x.shape[1] // 16, 16, x.shape[2] // 32,
+                     32).sum((2, 4)).reshape(-1)
 
 
 def iou_bev_needed_ops(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
@@ -698,7 +736,7 @@ def nms_normal_bev_mask(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
     keep = torch.empty((b, c, k), dtype=torch.bool, device=scores.device)
     if keep.numel() == 0:
         return keep
-    _greedy_capacity("nms_normal_bev_mask", c, k)
+    _greedy_capacity("nms_normal_bev_mask", b, c, k)
     # the kernel reads (x1, y1, x2, y2) as one 16-byte vector a box
     boxes = boxes_xyxy.float().contiguous()
     if boxes.data_ptr() % 16:
@@ -722,8 +760,16 @@ def nms_normal_bev_mask(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
 CIRCLE_OPS_PER_PAIR = 6
 # the fused kernel holds a set's upper-triangle suppression words, its
 # sorted centres, indices and valid flags in one block's shared memory
-# (csrc/nms_circle.cu): at most 28 words a row, K <= 1,792
+# (csrc/nms_circle.cu): at most 28 words a row, K <= 1,792; larger sets
+# take the pairwise and greedy passes (``nms_circle_pairwise``)
 CIRCLE_MAX_BOXES = 1792
+
+
+def circle_kernel(k: int) -> str:
+    """The kernel (``cuda_build.LAUNCHES`` key) that ``circle_nms_mask``
+    launches for sets of K boxes: the one-launch kernel up to
+    ``CIRCLE_MAX_BOXES``, the pairwise and greedy passes past it."""
+    return "nms_circle" if k <= CIRCLE_MAX_BOXES else "nms_circle_pairwise"
 
 
 def circle_nms_ops(sets: int, k: int) -> int:
@@ -795,9 +841,11 @@ def circle_nms_mask(centers: torch.Tensor, scores: torch.Tensor, thresh,
     """(R, K) bool keep masks of greedy circle NMS over R independent sets
     of K boxes' (x, y) centres: a kept box suppresses every later box
     whose squared centre distance to it is <= the set's threshold
-    (``thresh``: a number or one per set); one kernel launch for all
-    sets and, for float32 centres, scores and thresholds and bool valid
-    flags on the card, no other device operation (any strides)."""
+    (``thresh``: a number or one per set); up to ``CIRCLE_MAX_BOXES``
+    boxes a set, one kernel launch for all sets and, for float32 centres,
+    scores and thresholds and bool valid flags on the card, no other
+    device operation (any strides); past it the score sort, the pairwise
+    pass and the greedy pass (``nms_circle_pairwise``)."""
     if centers.device.type == "cpu":
         return circle_nms_mask_ref(centers, scores, thresh, valid)
     if centers.device.type != "cuda":
@@ -819,16 +867,18 @@ def circle_nms_mask(centers: torch.Tensor, scores: torch.Tensor, thresh,
         if thr.shape != (r,):
             raise ValueError(f"circle_nms_mask: one threshold per set, got "
                              f"{tuple(thr.shape)} for {r} sets")
-    if k > CIRCLE_MAX_BOXES or r > 2 ** 31 - 1:
-        raise ValueError(f"circle_nms_mask: at most {CIRCLE_MAX_BOXES} boxes "
-                         f"a set ({circle_smem_bytes(CIRCLE_MAX_BOXES)} bytes "
-                         f"of shared memory), got R = {r}, K = {k}")
+    if r > 2 ** 31 - 1:
+        raise ValueError(f"circle_nms_mask: at most 2^31 - 1 sets, got "
+                         f"R = {r}")
     keep = torch.empty((r, k), dtype=torch.bool, device=scores.device)
     if keep.numel() == 0:
         return keep
     c = centers if centers.dtype == torch.float32 else centers.float()
     s = scores if scores.dtype == torch.float32 else scores.float()
     v = valid if valid is None or valid.dtype == torch.bool else valid.bool()
+    if circle_kernel(k) == "nms_circle_pairwise":
+        _circle_wide(c, s, v, thr, thr_value, keep)
+        return keep
     strides = (ctypes.c_longlong * 8)(
         *c.stride(), *s.stride(), *(v.stride() if v is not None else (0, 0)),
         thr.stride(0) if thr is not None else 0)
@@ -842,3 +892,27 @@ def circle_nms_mask(centers: torch.Tensor, scores: torch.Tensor, thresh,
                            f"error {err}")
     cuda_build.LAUNCHES["nms_circle"] += 1
     return keep
+
+
+def _circle_wide(c, s, v, thr, thr_value: float, keep) -> None:
+    """K10-circle past ``CIRCLE_MAX_BOXES`` boxes a set: the stable
+    descending score order (``torch.sort``, as the plain version orders
+    them), then the pairwise and greedy passes (``nms_circle_pairwise``)
+    into ``keep``."""
+    r, k = s.shape
+    _greedy_capacity("circle_nms_mask", r, 1, k)
+    order = torch.sort(s, dim=-1, descending=True, stable=True).indices
+    mask = torch.empty((r, k, (k + 63) // 64), dtype=torch.int64,
+                       device=c.device)
+    strides = (ctypes.c_longlong * 8)(
+        *c.stride(), *order.stride(),
+        *(v.stride() if v is not None else (0, 0)),
+        thr.stride(0) if thr is not None else 0)
+    err = cuda_build.load("nms_circle_pairwise").nms_circle_pairwise(
+        c.data_ptr(), order.data_ptr(), 0 if v is None else v.data_ptr(),
+        0 if thr is None else thr.data_ptr(), thr_value, mask.data_ptr(),
+        keep.data_ptr(), r, k, strides, _raw_stream(c))
+    if err != 0:
+        raise RuntimeError(f"nms_circle_pairwise: kernel launch failed with "
+                           f"CUDA error {err}")
+    cuda_build.LAUNCHES["nms_circle_pairwise"] += 1

@@ -40,10 +40,12 @@ _P, _LL, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, \
 SIGNATURES = {
     "masked_gather": ([_P, _P, _P, _P, _LL, _LL, _LL, _P], ctypes.c_int),
     "boxes_iou_3d": ([_P, _P, _P, _LL, _LL, _LL, _P, _P], ctypes.c_int),
-    "boxes_iou_bev": ([_P, _P, _P, _LL, _LL, _LL, _P, _P], ctypes.c_int),
+    "boxes_iou_bev": ([_P, _P, _P, _LL, _LL, _LL, _P, _P, _P], ctypes.c_int),
     "nms_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, ctypes.c_int, _P,
                  _P], ctypes.c_int),
     "nms_circle": ([_P, _P, _P, _P, _F, _P, _LL, _LL, _P, _P], ctypes.c_int),
+    "nms_circle_pairwise": ([_P, _P, _P, _P, _F, _P, _P, _LL, _LL, _P, _P],
+                            ctypes.c_int),
     "nms_normal_bev": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _F, _P, _P],
                        ctypes.c_int),
     "gaussian_heatmap": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P],
@@ -60,8 +62,10 @@ SIGNATURES = {
 }
 
 # entry points that live in another kernel's source: K10-BEV is K10's
-# kernel without the vertical overlap
-SOURCES = {"boxes_iou_bev": "boxes_iou_3d"}
+# kernel without the vertical overlap; K10-circle's route past its
+# one-launch size shares its source
+SOURCES = {"boxes_iou_bev": "boxes_iou_3d",
+           "nms_circle_pairwise": "nms_circle"}
 
 # launches per kernel, and "segment_layout": the lists that K1's list stage
 # built for a K2 caller that passed none (ops/voxel.py:segment_layout)

@@ -13,7 +13,7 @@ bits equal to the plain IoU's more than 1e-5 from the threshold, and keep
 masks equal to the plain version's when no pair is that close, the bits
 symmetric; circle-NMS keep masks and gaussian heatmaps equal to their
 plain versions (the positives, cells at 1.0, included), circle NMS and
-the IoU one device operation a call, the IoU exactly 0 wherever its
+K10 one device operation a call, the IoU exactly 0 wherever its
 plain version is; K1's rows,
 voxel table and point lists (``voxel_ptr``, ``point_order``; also
 ``segment_layout``'s) equal to its plain version's; K2's max, forward and
@@ -312,16 +312,17 @@ def _check_nms(boxes, scores, valid):
 
 
 def test_nms_bev_shared_memory_limit(card):
-    """K = 1,344 at 32 classes fills the greedy pass's shared memory
-    ((32 + 1344) * 21 words); past it (K = 1,345 at one class; 2,000 at
-    ten, a four-view merge of 500 boxes; 2,100, more than 32 removed words
-    a class) the pass reads the suppression words from global memory, with
-    the same keep masks; 33 classes are refused."""
-    assert box_ops.nms_smem_bytes(32, 1344) <= box_ops.NMS_SMEM_BYTES
-    assert box_ops.nms_smem_bytes(1, 1345) > box_ops.NMS_SMEM_BYTES
+    """The sizes around the greedy pass's former shared-memory limits, all
+    taken now, with keep masks equal to the plain walk over the kernel's
+    own bits: K = 1,344 at 32 classes (the whole mask in shared memory
+    before), 1,345 at one class, 2,000 at ten (a four-view merge of 500
+    boxes), 2,100 (more than 32 removed words a class), and 33 and 64
+    classes (refused before)."""
+    assert box_ops.greedy_smem_bytes(2100) <= box_ops.NMS_SMEM_BYTES
     gen = torch.Generator().manual_seed(0)
     before = cuda_build.LAUNCHES["nms_bev"]
-    for c, k in ((32, 1344), (1, 1345), (10, 2000), (3, 2100)):
+    for c, k in ((32, 1344), (1, 1345), (10, 2000), (3, 2100), (33, 64),
+                 (64, 300)):
         boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, c,
                                                                 k))
         got = box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
@@ -331,10 +332,6 @@ def test_nms_bev_shared_memory_limit(card):
                                                             valid))
         assert 0 < int(got.sum()) < int(valid.sum())
         before += 2
-    boxes, scores, valid = (t.to(card) for t in _nms_inputs(gen, 1, 33, 64))
-    with pytest.raises(ValueError):
-        box_ops.nms_bev_mask(boxes, scores, 0.2, valid)
-    assert cuda_build.LAUNCHES["nms_bev"] == before
 
 
 def test_pointpillars_tiny_on_card_matches_cpu(card):
@@ -358,10 +355,11 @@ def test_pointpillars_tiny_on_card_matches_cpu(card):
 
 
 def _check_circle(centers, scores, valid, thr):
-    before = cuda_build.LAUNCHES["nms_circle"]
+    name = box_ops.circle_kernel(scores.shape[1])
+    before = cuda_build.LAUNCHES[name]
     got = box_ops.circle_nms_mask(centers, scores, thr, valid)
     torch.cuda.synchronize()
-    assert cuda_build.LAUNCHES["nms_circle"] == before + 1
+    assert cuda_build.LAUNCHES[name] == before + 1
     want = box_ops.circle_nms_mask_ref(centers, scores, thr, valid)
     assert torch.equal(got, want)
     assert not (got & ~valid).any()
@@ -439,16 +437,20 @@ def _device_ops(fn, calls=20, attempts=3):
 def _one_operation(fn, name, kernel, calls=20):
     """Each call of ``fn`` launches kernel ``name`` once (its counter)
     and the profile of ``calls`` calls holds that kernel and no other
-    device operation (no copy, no sort). ``fn`` runs once and the card
+    device operation (no copy, no sort); ``kernel`` a tuple: the device
+    operations of one call, each once. ``fn`` runs once and the card
     drains before the profile starts, so the profile sees neither the
     library's first load nor an earlier test's work still running."""
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     before = cuda_build.LAUNCHES[name]
     ops, taken = _device_ops(fn, calls)
     assert cuda_build.LAUNCHES[name] - before == 2 * calls * taken
-    assert len(ops) == 1 and kernel in next(iter(ops)), ops
-    assert 0 < next(iter(ops.values())) <= calls, ops
+    assert len(ops) == len(kernels), ops
+    for k in kernels:
+        hits = [n for op, n in ops.items() if k in op]
+        assert len(hits) == 1 and 0 < hits[0] <= calls, ops
 
 
 @pytest.mark.parametrize("kind", ["signed_zeros", "nan", "all_equal",
@@ -500,7 +502,9 @@ def test_nms_circle_on_long_chains(card):
 
 
 def test_nms_circle_at_and_above_its_limit(card):
-    """K = 1,792 fills the block's shared memory; 1,793 is refused."""
+    """K = 1,792 fills the one-launch kernel's shared memory; 1,793 (refused
+    before) takes the pairwise and greedy passes, equal to the plain
+    version, and launches no one-launch kernel."""
     from isfusion_tpu_torch.testing import circle_nms_sets
 
     k = box_ops.CIRCLE_MAX_BOXES
@@ -510,9 +514,31 @@ def test_nms_circle_at_and_above_its_limit(card):
     before = cuda_build.LAUNCHES["nms_circle"]
     centers, scores, valid, thr = (t.to(card) for t in circle_nms_sets(
         torch.Generator().manual_seed(0), 1, k + 1))
-    with pytest.raises(ValueError):
-        box_ops.circle_nms_mask(centers, scores, thr, valid)
+    got = _check_circle(centers, scores, valid, thr)
     assert cuda_build.LAUNCHES["nms_circle"] == before
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize("k", [1793, 4000, 6000])
+def test_nms_circle_past_the_one_launch_size(card, k):
+    """The pairwise and greedy passes at K = 1,793, 4,000 and 6,000 (past
+    the greedy pass's staged rows: its rows read through L1): two sets, one
+    threshold each, with NaN scores (first in torch.sort's order) and
+    scores of either zero sign (tied), and a number as the threshold."""
+    from isfusion_tpu_torch.testing import circle_nms_sets
+
+    gen = torch.Generator().manual_seed(k)
+    centers, scores, valid, thr = circle_nms_sets(gen, 2, k)
+    pick = torch.rand(scores.shape, generator=gen)
+    scores = torch.where(pick < 0.05, torch.tensor(float("nan")), scores)
+    scores = torch.where((pick > 0.5) & (pick < 0.6), torch.tensor(-0.0),
+                         torch.where(pick > 0.9, torch.tensor(0.0), scores))
+    centers, scores, valid, thr = (t.to(card) for t in (centers, scores,
+                                                        valid, thr))
+    got = _check_circle(centers, scores, valid, thr)
+    assert 0 < int(got.sum()) < int(valid.sum())
+    one = _check_circle(centers, scores, valid, 1.0)
+    assert torch.equal(one[1], got[1])       # set 1's threshold is 1.0
 
 
 def test_nms_circle_is_one_device_operation(card):
@@ -1208,7 +1234,7 @@ def test_inverse_conv_on_card_matches_cpu(card):
 
 # ------------------------------------------------- K10-BEV, K10-normal
 def _check_iou_bev(a, b):
-    """K10-BEV against its plain version: one launch, within 1e-5 (of 1,
+    """K10-BEV against its plain version: one counted call, within 1e-5 (of 1,
     or of the plain value where a degenerate pair's IoU exceeds 1), and
     exactly 0 wherever the plain version is."""
     before = cuda_build.LAUNCHES["boxes_iou_bev"]
@@ -1231,13 +1257,15 @@ def test_boxes_iou_bev_kernel_matches_plain_version(card):
     cols = [0, 1, 3, 4, 6]
     got, want = _check_iou_bev(a[..., cols].to(card), b[..., cols].to(card))
     assert (want > 0.1).sum() >= 3 * 40
-    # 9-wide rows read through their strides: one device operation
+    # 9-wide rows read through their strides, no copy: the list count's
+    # memset, the tile kernel and the drain
     rows = torch.cat([a[..., cols], torch.randn(3, 150, 4, generator=gen)],
                      -1).to(card)
     assert torch.equal(box_ops.boxes_iou_bev(rows, rows), box_ops.boxes_iou_bev(
         rows[..., :5].contiguous(), rows[..., :5].contiguous()))
     _one_operation(lambda: box_ops.boxes_iou_bev(rows, rows),
-                   "boxes_iou_bev", "boxes_iou_bev_kernel")
+                   "boxes_iou_bev", ("Memset", "boxes_iou_bev_kernel",
+                                     "boxes_iou_bev_drain"))
 
 
 @pytest.mark.parametrize("name", [
@@ -1265,7 +1293,9 @@ def _check_normal(boxes, scores, valid, thr=0.3):
 
 @pytest.mark.parametrize("b,c,k", [(2, 10, 1000), (1, 3, 63), (2, 2, 64),
                                    (1, 4, 65), (3, 1, 1), (1, 32, 300),
-                                   (1, 10, 2000), (1, 2, 2100)])
+                                   (1, 10, 2000), (1, 2, 2100), (1, 33, 300),
+                                   (1, 64, 300), (1, 2, 3000),
+                                   (1, 2, 4097), (1, 1, 6000)])
 def test_nms_normal_bev_kernel_matches_plain_version(card, b, c, k):
     gen = torch.Generator().manual_seed(k)
     centre = (torch.rand((b, k, 2), generator=gen) * 2 - 1) * 20
@@ -1284,6 +1314,85 @@ def test_nms_normal_bev_kernel_on_edge_sets(card):
     gen = torch.Generator().manual_seed(5)
     for _, boxes, scores, valid in nms_normal_edge_sets(gen):
         _check_normal(boxes.to(card), scores.to(card), valid.to(card))
+
+
+def test_boxes_iou_bev_kernel_on_a_sorted_merge_set(card):
+    """K10-BEV on the set a weighted merge hands it: four views' boxes of
+    one scene by descending score, the same object up to four times:
+    within 1e-5, exactly 0 where
+    the plain version is, and bit-equal over repeated calls with another
+    shape between them."""
+    from isfusion_tpu_torch.core.post_processing import BEV_COLS, undo_view
+
+    views, metas = _merge_views(torch.Generator().manual_seed(7))
+    boxes = torch.cat([undo_view(v["bboxes"], m)
+                       for v, m in zip(views, metas)])
+    scores = torch.cat([v["scores"] for v in views])
+    bev = boxes[torch.sort(scores, descending=True, stable=True).indices][
+        :, BEV_COLS].contiguous().to(card)
+    got, want = _check_iou_bev(bev, bev)
+    assert int((want == 0).sum()) > 0 and int((want > 0.5).sum()) > 0
+    small = bev[:37, None].expand(37, 3, 5).transpose(0, 1)
+    _check_iou_bev(small, small.flip(1))
+    assert torch.equal(box_ops.boxes_iou_bev(bev, bev), got)
+
+
+def test_boxes_iou_bev_kernel_under_repeats_and_streams(card):
+    """K10-BEV on 60 random and score-sorted four-view sets (1-3 samples,
+    up to 800 boxes) with the output's memory filled with NaN just before
+    each call, so a pair that neither kernel writes shows; 300 repeated
+    calls with another shape between them, bit-equal; and 8 sets on two
+    streams at once beside matrix products on a third, bit-equal to their
+    calls alone."""
+    gen = torch.Generator().manual_seed(41)
+    cols = [0, 1, 3, 4, 6]
+
+    def four_views(n):
+        base = _boxes(gen, n, r=30.0)[:, cols]
+        views = torch.cat([base + torch.randn(base.shape, generator=gen) *
+                           0.05 for _ in range(4)])
+        score = torch.rand(views.shape[0], generator=gen)
+        return views[torch.sort(score, descending=True).indices][None]
+
+    for i in range(60):
+        if i % 2:
+            a = b = four_views(int(torch.randint(20, 200, (1,),
+                                                 generator=gen)))
+        else:
+            s = int(torch.randint(1, 4, (1,), generator=gen))
+            n, m = (int(x) for x in torch.randint(1, 300, (2,),
+                                                  generator=gen))
+            a = torch.stack([_boxes(gen, n, r=20.0)[:, cols]
+                             for _ in range(s)])
+            b = torch.stack([_boxes(gen, m, r=20.0)[:, cols]
+                             for _ in range(s)])
+        a, b = a.to(card), b.to(card)
+        torch.full((a.shape[0] * a.shape[1] * b.shape[1],), float("nan"),
+                   device=card)  # freed at once: the output's block
+        _check_iou_bev(a, b)
+    x = four_views(202).to(card)
+    first = box_ops.boxes_iou_bev(x, x).clone()
+    for i in range(300):
+        torch.full(first.shape, float("nan"), device=card)
+        if i % 7 == 0:
+            box_ops.boxes_iou_bev(x[:, :37], x[:, 5:90])
+        assert torch.equal(box_ops.boxes_iou_bev(x, x), first)
+    sets = [four_views(150).to(card) for _ in range(8)]
+    want = [box_ops.boxes_iou_bev(y, y).clone() for y in sets]
+    big = torch.randn(2048, 2048, device=card)
+    streams = [torch.cuda.Stream() for _ in range(3)]
+    torch.cuda.synchronize()
+    for _ in range(10):
+        with torch.cuda.stream(streams[2]):
+            y = big
+            for _ in range(4):
+                y = y @ big
+        outs = []
+        for k, y in enumerate(sets):
+            with torch.cuda.stream(streams[k % 2]):
+                outs.append(box_ops.boxes_iou_bev(y, y))
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
 
 
 def _merge_views(gen, n_views=4, per_view=500, num_classes=10):
@@ -1326,7 +1435,7 @@ def test_merge_of_four_views_of_500_boxes_on_card_matches_cpu(card):
         box3d_multiclass_nms, merge_aug_bboxes_3d)
 
     views, metas = _merge_views(torch.Generator().manual_seed(12))
-    assert box_ops.nms_smem_bytes(1, 2000) > box_ops.NMS_SMEM_BYTES
+    assert box_ops.greedy_smem_bytes(2000) <= box_ops.NMS_SMEM_BYTES
     kw = dict(score_thr=0.05, nms_thr=0.25, max_num=500, merge_thr=0.5)
     boxes = torch.cat([v["bboxes"] for v in views])
     # no pair within float32 rounding of a threshold (0.2, 0.25, 0.5),

@@ -164,38 +164,95 @@ def test_circle_cut_keeps_degenerate_and_nan_boxes():
 
 
 # ----------------------------------------------- the chunked greedy walk
+MASK64 = (1 << 64) - 1
+
+
 def chunked_walk(suppress, scores, valid):
-    """keep (K,) of the algorithm of the greedy pass of csrc/nms_bev.cu,
-    in numpy (a copy: the kernel is tested on the card only): the
-    removed words start as the invalid boxes; per 64 sorted positions,
-    the alive boxes in order, their submatrix rows (row j bit i: alive box
-    i suppresses alive box j), the chunk resolved on one 64-bit integer
-    by applying "kept iff no kept box before suppresses it" to all boxes
-    at once from all-kept until it stops changing, then the kept boxes'
-    rows ORed into removed."""
+    """keep (K,) of the algorithm of the greedy pass of csrc/nms_greedy.cuh,
+    in Python (a copy: the kernel is tested on the card only), with its
+    pipeline: the removed words (original index order) start as the
+    invalid boxes; for chunk c (64 sorted positions) the helpers gathered,
+    one chunk ahead, its diagonal block (word j bit i: sorted box i
+    suppresses sorted box j, i < j), its off-diagonal block (bit i: chunk c
+    - 1's box i suppresses its box j) and its removed bits as of chunk c -
+    2; the walker takes all 64 positions, masks the removed ones and those
+    that chunk c - 1's kept word suppresses, and resolves the chunk on one
+    64-bit integer by applying "kept iff alive and no kept box before
+    suppresses it" to all positions at once from all alive until it stops
+    changing; the helpers OR chunk c - 1's kept rows into the removed words
+    while chunk c is walked. Returns (keep, the most rounds a chunk
+    took)."""
     k = len(scores)
-    order = np.argsort(-scores, kind="stable")
-    removed = ~valid
+    order = torch.sort(torch.from_numpy(np.asarray(scores, np.float32)),
+                       descending=True, stable=True).indices.tolist()
+    w = (k + 63) // 64
+    sup = np.asarray(suppress, bool)
+    rows = [[int(sum(1 << b for b in np.flatnonzero(sup[i, 64 * u:
+                                                         64 * u + 64])))
+             for u in range(w)] for i in range(k)]
+    removed = [~sum(1 << b for b in range(64) if 64 * u + b < k and
+                    valid[64 * u + b]) & MASK64 for u in range(w)]
+    chunks = (k + 63) // 64
+
+    def pos(c):
+        return [order[64 * c + e] if 64 * c + e < k else -1
+                for e in range(64)]
+
+    def bit(i, j):
+        return rows[i][j >> 6] >> (j & 63) & 1
+
+    def blocks(c):
+        q, p = pos(c), pos(c - 1) if c else [-1] * 64
+        diag = [sum(bit(q[i], q[j]) << i for i in range(j) if q[i] >= 0)
+                if q[j] >= 0 else 0 for j in range(64)]
+        off = [sum(bit(p[i], q[j]) << i for i in range(64) if p[i] >= 0)
+               if q[j] >= 0 else 0 for j in range(64)]
+        return diag, off
+
+    def removed_bits(c):
+        return sum(1 << e for e, q in enumerate(pos(c))
+                   if q < 0 or removed[q >> 6] >> (q & 63) & 1)
+
     keep = np.zeros(k, bool)
-    for base in range(0, k, 64):
-        o = order[base:base + 64]
-        q = [int(i) for i in o if not removed[i]]
-        rows = [sum(1 << i for i in range(len(q)) if suppress[q[i], q[j]])
-                for j in range(len(q))]
-        kept, rounds = (1 << len(q)) - 1, 0
+    ahead = {0: blocks(0) + (removed_bits(0),)}
+    kept_of, most = {}, 0
+    for c in range(chunks):
+        # the walker
+        diag, off, rem = ahead.pop(c)
+        prev = kept_of.get(c - 1, 0)
+        alive = sum(1 << j for j in range(64)
+                    if not rem >> j & 1 and not off[j] & prev)
+        kept, rounds = alive, 0
         while True:
-            nxt = sum(1 << j for j in range(len(q))
-                      if not rows[j] & kept & ((1 << j) - 1))
+            nxt = sum(1 << j for j in range(64)
+                      if alive >> j & 1 and not diag[j] & kept)
             rounds += 1
             if nxt == kept:
                 break
             kept = nxt
-        assert rounds <= 65
-        for j in range(len(q)):
-            if kept >> j & 1:
-                keep[q[j]] = True
-                removed = removed | suppress[q[j]]
-    return keep
+        most = max(most, rounds)
+        kept_of[c] = kept
+        for e, q in enumerate(pos(c)):
+            if q >= 0:
+                keep[q] = bool(kept >> e & 1)
+        # the helpers: chunk c + 1's blocks, chunk c - 1's kept rows, then
+        # chunk c + 1's removed bits
+        nxt_blocks = blocks(c + 1) if c + 1 < chunks else None
+        if c >= 1:
+            for e, q in enumerate(pos(c - 1)):
+                if kept_of[c - 1] >> e & 1:
+                    removed = [r | x for r, x in zip(removed, rows[q])]
+        if nxt_blocks is not None:
+            ahead[c + 1] = nxt_blocks + (removed_bits(c + 1),)
+    assert most <= 65
+    return keep, most
+
+
+def _greedy_want(suppress, scores, valid):
+    return box_ops.greedy_suppress_ref(
+        torch.from_numpy(np.asarray(suppress, bool))[None],
+        torch.from_numpy(np.asarray(scores, np.float32))[None, None],
+        torch.from_numpy(np.asarray(valid, bool))[None, None])[0, 0].numpy()
 
 
 @pytest.mark.parametrize("k", [1, 63, 64, 65, 130, 1000])
@@ -206,11 +263,8 @@ def test_chunked_walk_matches_greedy(k):
     suppress |= np.eye(k, dtype=bool)
     scores = np.round(rng.uniform(size=k), 1).astype(np.float32)   # ties
     valid = rng.uniform(size=k) > 0.2
-    got = chunked_walk(suppress, scores, valid)
-    want = box_ops.greedy_suppress_ref(torch.from_numpy(suppress)[None],
-                                       torch.from_numpy(scores)[None, None],
-                                       torch.from_numpy(valid)[None, None])
-    np.testing.assert_array_equal(got, want[0, 0].numpy())
+    got, _ = chunked_walk(suppress, scores, valid)
+    np.testing.assert_array_equal(got, _greedy_want(suppress, scores, valid))
     assert not (got & ~valid).any()
     if k == 130:
         jwant = np.asarray(jbox._greedy_suppress(
@@ -298,16 +352,67 @@ def test_chunked_walk_on_a_chain():
     suppress = np.eye(k, dtype=bool) | np.eye(k, k=1, dtype=bool)
     scores = np.linspace(1, 0, k).astype(np.float32)
     valid = np.ones(k, bool)
-    got = chunked_walk(suppress, scores, valid)
-    want = box_ops.greedy_suppress_ref(torch.from_numpy(suppress)[None],
-                                       torch.from_numpy(scores)[None, None],
-                                       torch.from_numpy(valid)[None, None])
-    np.testing.assert_array_equal(got, want[0, 0].numpy())
+    got, most = chunked_walk(suppress, scores, valid)
+    np.testing.assert_array_equal(got, _greedy_want(suppress, scores, valid))
     np.testing.assert_array_equal(got, np.arange(k) % 2 == 0)
+    assert most == 64
+
+
+def _walk_case(name):
+    """(suppress, scores, valid) of a named case of the pipelined walk."""
+    rng = np.random.default_rng(len(name))
+    k = 200
+    eye = np.eye(k, dtype=bool)
+    scores = rng.uniform(size=k).astype(np.float32)
+    valid = np.ones(k, bool)
+    if name == "chain_64":
+        # in score order, box p suppresses box p + 1 for p < 64 (a chain
+        # as long as a chunk, the next chunk hanging on its last box) and
+        # box p + 1 of the rest
+        scores = np.linspace(1, 0, k).astype(np.float32)
+        suppress = eye | np.eye(k, k=1, dtype=bool)
+    elif name == "all_suppressing":
+        suppress = np.ones((k, k), bool)
+    elif name == "none_suppressing":
+        suppress = eye.copy()
+    elif name == "all_invalid":
+        suppress = rng.uniform(size=(k, k)) < 0.05
+        valid = np.zeros(k, bool)
+    else:   # tied scores, some invalid, the chunks' rows dense
+        scores = np.round(scores * 3) / 3
+        suppress = (rng.uniform(size=(k, k)) < 0.03) | eye
+        valid = rng.uniform(size=k) > 0.3
+    return suppress, scores, valid
+
+
+@pytest.mark.parametrize("name", ["chain_64", "all_suppressing",
+                                  "none_suppressing", "all_invalid",
+                                  "tied_scores"])
+def test_pipelined_walk_cases(name):
+    suppress, scores, valid = _walk_case(name)
+    got, _ = chunked_walk(suppress, scores, valid)
+    np.testing.assert_array_equal(got, _greedy_want(suppress, scores, valid))
+    kept = int(got.sum())
+    assert kept == dict(all_suppressing=1, none_suppressing=len(scores),
+                        all_invalid=0, chain_64=len(scores) // 2).get(
+                            name, kept)
+
+
+def test_pipelined_walk_takes_an_asymmetric_mask():
+    """Rows are suppressions "box i suppresses box j", not symmetric: a
+    later box that the kept box does not suppress stays, though it would
+    suppress the kept box."""
+    rng = np.random.default_rng(3)
+    k = 150
+    suppress = rng.uniform(size=(k, k)) < 0.04
+    assert not (suppress == suppress.T).all()
+    scores = rng.uniform(size=k).astype(np.float32)
+    valid = rng.uniform(size=k) > 0.1
+    got, _ = chunked_walk(suppress, scores, valid)
+    np.testing.assert_array_equal(got, _greedy_want(suppress, scores, valid))
 
 
 # ------------------------------------ K10-circle's fused launch, mirrored
-MASK64 = (1 << 64) - 1
 
 
 def score_keys(scores):
@@ -475,6 +580,43 @@ def test_fused_circle_on_nan_and_signed_zero_scores():
     assert circle_positions(eq, v)[1]
     np.testing.assert_array_equal(fused_circle(c, eq, 1.0, v),
                                   _circle_want(c, eq, 1.0, v))
+
+
+def test_circle_plain_version_matches_jax_past_the_one_launch_size():
+    """K = 2,000 (the route of the pairwise and greedy passes): the plain
+    version equals the JAX package's ``circle_nms_mask``, and so does the
+    route's algorithm: the bits d2 <= thr in index order (symmetric bit for
+    bit), walked by the greedy pass in torch.sort's order, with NaN and
+    signed-zero scores."""
+    from isfusion_tpu_torch.testing import circle_nms_sets
+
+    k = 2000
+    c, s, v, thr = (t.numpy() for t in circle_nms_sets(
+        torch.Generator().manual_seed(k), 1, k, thresholds=(4.0,)))
+    c, s, v, thr = c[0], s[0].copy(), v[0], float(thr[0])
+    want = _circle_want(c, s, thr, v)
+    jwant = np.asarray(jbox.circle_nms_mask(jnp.asarray(c), jnp.asarray(s),
+                                            thr, jnp.asarray(v)))
+    np.testing.assert_array_equal(want, jwant)
+    s[::97] = np.nan
+    s[1::89], s[2::89] = -0.0, 0.0
+    d = c[None, :, :] - c[:, None, :]
+    near = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] <= np.float32(thr)
+    assert (near == near.T).all()
+    got, _ = chunked_walk(near, s, v)
+    np.testing.assert_array_equal(got, _circle_want(c, s, thr, v))
+    assert 0 < got.sum() < v.sum()
+
+
+def test_circle_route_choice():
+    """Up to 1,792 boxes a set the one-launch kernel, past it the pairwise
+    and greedy passes, which take 4,000 boxes a set."""
+    assert box_ops.circle_kernel(1) == "nms_circle"
+    assert box_ops.circle_kernel(box_ops.CIRCLE_MAX_BOXES) == "nms_circle"
+    assert box_ops.circle_kernel(box_ops.CIRCLE_MAX_BOXES + 1) == \
+        "nms_circle_pairwise"
+    assert box_ops.circle_kernel(4000) == "nms_circle_pairwise"
+    box_ops._greedy_capacity("circle_nms_mask", 24, 1, 4000)
 
 
 def test_circle_shared_memory_limit():

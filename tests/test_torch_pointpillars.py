@@ -391,12 +391,31 @@ def test_greedy_suppress_ref_matches_jax(density):
 
 
 def test_nms_shared_memory_limit():
-    """The greedy pass's shared memory: K = 1,344 fits at 32 classes,
-    K = 1,345 at none (the card test launches both)."""
-    assert box_ops.nms_smem_bytes(32, 1344) == (32 + 1344) * 21 * 8
-    assert box_ops.nms_smem_bytes(32, 1344) <= box_ops.NMS_SMEM_BYTES
-    assert box_ops.nms_smem_bytes(1, 1345) > box_ops.NMS_SMEM_BYTES
-    assert box_ops.nms_smem_bytes(10, 1000) <= box_ops.NMS_SMEM_BYTES
+    """The greedy pass's shared memory is one class's: 4,112 bytes, its ceil(K / 64)
+    removed words and, up to K = 5,632, five chunks' staged rows. Whatever the class count, K = 1,344 and
+    1,345 (where the whole-mask copy stopped fitting), 2,000 and 58,113
+    (removed-masks of 32 classes past 227 KB) are taken, as are 33 classes
+    (the card test launches them); the limit is K = 1,826,688. On the CPU
+    the wrapper at 33 classes equals the JAX package's walk."""
+    assert box_ops.greedy_smem_bytes(1344) == 4112 + 21 * 8 * 321
+    assert box_ops.greedy_smem_bytes(1826688) == box_ops.NMS_SMEM_BYTES
+    assert box_ops.greedy_smem_bytes(1826689) > box_ops.NMS_SMEM_BYTES
+    for c, k in ((32, 1344), (1, 1345), (10, 2000), (32, 58113), (33, 64),
+                 (64, 1000)):
+        box_ops._greedy_capacity("nms_bev_mask", 1, c, k)
+    rng = np.random.default_rng(33)
+    boxes = np.concatenate([rng.uniform(-6, 6, (64, 2)),
+                            rng.uniform(1, 4, (64, 2)),
+                            rng.uniform(-3, 3, (64, 1))], 1).astype(np.float32)
+    scores = rng.uniform(size=(33, 64)).astype(np.float32)
+    got = box_ops.nms_bev_mask(torch.from_numpy(boxes)[None],
+                               torch.from_numpy(scores)[None], 0.2)[0]
+    suppress = jnp.asarray(np.asarray(jbox.boxes_iou_bev(
+        jnp.asarray(boxes), jnp.asarray(boxes))) > 0.2)
+    for c in (0, 32):
+        want = np.asarray(jbox._greedy_suppress(
+            jnp.asarray(scores[c]), suppress, jnp.ones(64, bool)))
+        np.testing.assert_array_equal(got[c].numpy(), want)
 
 
 def test_nms_bev_mask_batches_and_checks():

@@ -280,14 +280,95 @@ def test_nms_normal_checks_shapes():
 
 
 def test_greedy_pass_takes_the_merge_size():
-    """The greedy pass of K10-NMS and K10-normal keeps only its classes'
-    removed-masks in shared memory once the suppression words do not fit
-    (``nms_smem_bytes`` over ``NMS_SMEM_BYTES``): four views of 500 boxes
-    at one or ten classes are taken; 33 classes, or removed-masks over
-    227 KB (K > 58,112 at 32 classes), are refused before any launch."""
-    assert box_ops.nms_smem_bytes(1, 2000) > box_ops.NMS_SMEM_BYTES
-    for c, k in ((1, 2000), (10, 2000), (32, 1344), (32, 58112)):
-        box_ops._greedy_capacity("nms_bev_mask", c, k)
-    for c, k in ((33, 64), (32, 58113)):
-        with pytest.raises(ValueError, match="removed-masks"):
-            box_ops._greedy_capacity("nms_bev_mask", c, k)
+    """The greedy pass of K10-NMS and K10-normal holds only one class's
+    removed words in a block's shared memory (``greedy_smem_bytes``), one
+    block a (sample, class): four views of 500 boxes at one or ten classes,
+    33 and 64 classes, and K = 58,113 at 32 classes (all refused before)
+    are taken, up to K = 1,826,688; past it, or past 65,535 samples, the
+    wrapper refuses before any launch. At 33 classes the pass's algorithm
+    (``test_torch_nms.chunked_walk``) equals the plain walk."""
+    from test_torch_nms import chunked_walk
+
+    assert box_ops.greedy_smem_bytes(2000) == 4112 + 32 * 8 * 321
+    assert box_ops.greedy_staged(5632) and not box_ops.greedy_staged(5633)
+    assert box_ops.greedy_smem_bytes(5633) == 4112 + 89 * 8
+    for b, c, k in ((1, 1, 2000), (1, 10, 2000), (1, 33, 64), (1, 64, 300),
+                    (1, 32, 58113), (1, 1, 1826688), (65535, 1, 64)):
+        box_ops._greedy_capacity("nms_bev_mask", b, c, k)
+    for b, c, k in ((1, 1, 1826689), (65536, 1, 64)):
+        with pytest.raises(ValueError, match="shared memory"):
+            box_ops._greedy_capacity("nms_bev_mask", b, c, k)
+    rng = np.random.default_rng(33)
+    boxes = _xyxy(rng, 64)
+    scores = rng.uniform(size=(33, 64)).astype(np.float32)
+    valid = rng.uniform(size=(33, 64)) > 0.2
+    bits = (box_ops.normal_iou_ref(torch.from_numpy(boxes)[None]) > 0.1)[0]
+    want = box_ops.nms_normal_bev_mask(torch.from_numpy(boxes)[None],
+                                       torch.from_numpy(scores)[None], 0.1,
+                                       torch.from_numpy(valid)[None])[0]
+    for c in range(33):
+        got, _ = chunked_walk(bits.numpy(), scores[c], valid[c])
+        np.testing.assert_array_equal(got, want[c].numpy())
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+def _normal_sets():
+    from isfusion_tpu_torch.testing import nms_normal_edge_sets
+
+    rng = np.random.default_rng(8)
+    odd = _xyxy(rng, 60)
+    odd[::7] = np.nan
+    odd[1::7, :2] = -0.0
+    odd[2::7, 2] = np.inf
+    return [("random", torch.from_numpy(_xyxy(rng, 90))[None]),
+            ("nan_zero_inf", torch.from_numpy(odd)[None])] + \
+        [(name, b) for name, b, _, _ in nms_normal_edge_sets(
+            torch.Generator().manual_seed(5))]
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_normal_iou_ref_is_symmetric_bit_for_bit(case):
+    """The plain axis-aligned IoU equals its transpose bit for bit (int32
+    views, so NaN positions and signed zeros count): K10-normal computes
+    each unordered pair once and mirrors it."""
+    name, boxes = _normal_sets()[case]
+    iou = box_ops.normal_iou_ref(boxes)
+    bits = iou.view(torch.int32)
+    assert torch.equal(bits, bits.transpose(1, 2)), name
+    if name == "nan_zero_inf":
+        assert bool(iou.isnan().any())
+
+
+def test_iou_tile_counts_find_the_crowded_tiles():
+    """The listed pairs per 16 x 32 tile of K10-BEV's kernel: a sorted set
+    whose near pairs lie on the diagonal gives its largest count on a
+    diagonal tile, many times the mean."""
+    rng = np.random.default_rng(4)
+    centers = np.repeat(rng.uniform(-50, 50, (40, 2)), 4, 0)
+    bev = np.zeros((160, 5), np.float32)
+    bev[:, :2] = centers + rng.normal(0, 0.1, (160, 2))
+    bev[:, 2:4] = 2.0
+    b = torch.from_numpy(bev)
+    listed = ~box_ops.iou_bev_cut(b, b)
+    counts = box_ops.iou_tile_counts(listed)
+    assert counts.shape == (10 * 5,)
+    assert int(counts.sum()) == int(listed.sum())
+    grid = counts.view(10, 5)
+    assert int(grid.max()) == int(max(grid[r, r // 2] for r in range(10)))
+    assert float(grid.max()) > 4 * float(counts.float().mean())
+
+
+def test_collate_points_multi_variant_batches_at_the_merge():
+    """A batch of several test-time variants is refused, with a message
+    naming the merge of their results (as the JAX collate's does)."""
+    from isfusion_tpu.datasets.builder import collate_batch as jcollate
+    from isfusion_tpu_torch.datasets.builder import collate_batch
+
+    sample = dict(points=np.zeros((3, 4), np.float32))
+    batch = [[sample, sample]]
+    for fn in (collate_batch, jcollate):
+        with pytest.raises(NotImplementedError,
+                           match=r"core\.post_processing\.merge_aug_bboxes_3d"):
+            fn(batch)
+    got = collate_batch([[sample]])
+    assert got["points"].shape == (1, 3, 4)
