@@ -96,7 +96,7 @@ def evaluate_split(model: torch.nn.Module, cfg, split: str = "val",
         workers_per_gpu=int(data_cfg.get("workers_per_gpu", 0)),
         shuffle=False)
     results = single_device_test(model, loader, device)
-    return dataset.evaluate(results) if rank == 0 else None
+    return dataset.evaluate(results, device=device) if rank == 0 else None
 
 
 def train_model(model: torch.nn.Module, dataset, cfg,

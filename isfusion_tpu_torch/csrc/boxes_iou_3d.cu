@@ -62,9 +62,14 @@
 // rows by step 0's code). Neither kernel waits on another block.
 // Rounding: every step is rounded as the plain version (box_ops.
 // rotated_rect_intersection_area) rounds it, in its order (the _rn
-// intrinsics keep nvcc from contracting into FMAs): candidates that
-// coincide there coincide here, so a degenerate pair (boxes touching
-// along an edge or at a corner) whose plain area is exactly 0 is 0 here.
+// intrinsics keep nvcc from contracting into FMAs; the primitives,
+// corners and point-in-box test are rotated_box.cuh's, K10-NMS's):
+// candidates that coincide there coincide here, so a degenerate pair
+// (boxes touching along an edge or at a corner) whose plain area is
+// exactly 0 is 0 here. The vertical overlap and the union's clamp take
+// NaN through as torch.minimum, torch.maximum and clamp_min do (nan_min,
+// nan_max): a box with an infinite side and a zero one has a NaN volume,
+// and its IoU is NaN, as the plain version's.
 // Why the cuts are exact: the plain version (box_ops.boxes_iou_3d_ref)
 // multiplies the BEV area by the overlap clamped at 0; for tame boxes the
 // area is finite (every valid candidate lies on the boxes, and the
@@ -78,7 +83,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rotated_box.cuh"
+
 namespace {
+
+using rotated_box::add;
+using rotated_box::corners;
+using rotated_box::in_quad;
+using rotated_box::mul;
+using rotated_box::nan_max;
+using rotated_box::nan_min;
+using rotated_box::QUAD_TOL;
+using rotated_box::sub;
+using rotated_box::TAME;
 
 constexpr int TILE_N = 16;   // rows of a per block
 constexpr int TILE_M = 32;   // columns of b per block
@@ -86,9 +103,7 @@ constexpr int THREADS = 256;  // 8 warps share the tile's listed pairs
 constexpr int WARPS = THREADS / 32;
 constexpr int PAIRS = TILE_N * TILE_M / THREADS;  // cut tests a thread
 constexpr unsigned FULL = 0xffffffffu;
-constexpr float QUAD_TOL = 1e-5f;  // in_quad's tolerance
 constexpr float CUT_REL = 1.0f + 1e-4f, CUT_ABS = 1e-3f;
-constexpr float TAME = 1e8f;
 
 template <int T>
 struct Boxes {
@@ -137,16 +152,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-
 // the value of arr[k] for a run-time k in 0..3, without indexing a
 // register array at run time
 __device__ __forceinline__ float pick(const float* arr, int k) {
@@ -154,36 +159,6 @@ __device__ __forceinline__ float pick(const float* arr, int k) {
 #pragma unroll
   for (int q = 1; q < 4; ++q) r = k == q ? arr[q] : r;
   return r;
-}
-
-// CCW corners of a BEV box (x, y, dx, dy) rotated by (c, s), as
-// box_ops.rotated_corners_2d forms them, step by step
-__device__ __forceinline__ void corners(float x, float y, float dx, float dy,
-                                        float c, float s, float* cx,
-                                        float* cy) {
-  const float hx = mul(dx, 0.5f), hy = mul(dy, 0.5f);
-  const float ox[4] = {hx, hx, -hx, -hx};
-  const float oy[4] = {-hy, hy, hy, -hy};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    cx[k] = add(add(mul(ox[k], c), mul(oy[k], s)), x);
-    cy[k] = add(add(mul(-ox[k], s), mul(oy[k], c)), y);
-  }
-}
-
-// point (px, py) inside the convex CCW quad (qx, qy), tolerance 1e-5
-// (box_ops._point_in_rect)
-__device__ __forceinline__ bool in_quad(float px, float py, const float* qx,
-                                        const float* qy) {
-  bool inside = true;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int f = (e + 1) & 3;
-    const float abx = sub(qx[f], qx[e]), aby = sub(qy[f], qy[e]);
-    const float apx = sub(px, qx[e]), apy = sub(py, qy[e]);
-    inside = inside && sub(mul(abx, apy), mul(aby, apx)) >= -QUAD_TOL;
-  }
-  return inside;
 }
 
 // Intersection area of box a = (0, 0, adx, ady) rotated by (ac, as) and
@@ -364,11 +339,11 @@ __device__ __forceinline__ void boxes_iou(
         sub(cols.y[c], rows.y[r]), cols.dx[c], cols.dy[c], cols.c[c], cols.s[c],
         scratch[warp], lane);
     if (lane == 0) {
-      const float hi = fminf(rows.hi[r], cols.hi[c]);
-      const float lo = fmaxf(rows.lo[r], cols.lo[c]);
-      const float inter = BEV ? area : mul(area, fmaxf(sub(hi, lo), 0.f));
+      const float hi = nan_min(rows.hi[r], cols.hi[c]);
+      const float lo = nan_max(rows.lo[r], cols.lo[c]);
+      const float inter = BEV ? area : mul(area, nan_max(sub(hi, lo), 0.f));
       out[(n0 + r) * m + m0 + c] = __fdiv_rn(
-          inter, fmaxf(sub(add(rows.vol[r], cols.vol[c]), inter), 1e-8f));
+          inter, nan_max(sub(add(rows.vol[r], cols.vol[c]), inter), 1e-8f));
     }
   }
 }
@@ -418,7 +393,7 @@ __global__ void __launch_bounds__(THREADS)
         scratch[warp], lane);
     if (lane == 0)
       out[o] = __fdiv_rn(area,
-                         fmaxf(sub(add(r.vol[0], c.vol[0]), area), 1e-8f));
+                         nan_max(sub(add(r.vol[0], c.vol[0]), area), 1e-8f));
   }
 }
 

@@ -5,8 +5,9 @@
 // (the reference's nms_gpu): walk the class's boxes by descending score
 // (the wrapper's stable sort: ties keep the lower index first); a box that
 // is valid and not suppressed is kept, and it suppresses every box whose
-// BEV IoU with it (inter / max(union, 1e-8), rotated_box.cuh) exceeds
-// thr. Invalid boxes neither keep nor suppress.
+// BEV IoU with it (inter / union clamped at 1e-8, NaN where the union is;
+// rotated_box.cuh, rounded as the plain version rounds it) exceeds thr.
+// Invalid boxes neither keep nor suppress.
 //
 // Bound: operations, and what these inputs need of them. Each unordered
 // pair of a sample's K boxes needs only its cheapest certificate: an area
@@ -41,9 +42,16 @@
 //       warp, and sets bit (i, j) in a shared row word and bit (j, i) in a
 //       shared column word; then writes the tile's 32 row half-words and,
 //       off the diagonal, its 32 mirrored half-words.
-//    The diagonal bits stay iou(i, i) > thr. The JAX package computes both
-//    orders of a pair; they differ only by rounding, as close pairs near
-//    the threshold may.
+//    The diagonal bits stay iou(i, i) > thr. The plain version (like the
+//    JAX package) computes both orders of a pair, each in its first box's
+//    frame. For regular boxes (every value finite, |x|, |y|, |dx|, |dy| <=
+//    1e8 as K10's tame boxes, and neither side 0) the two differ only by
+//    rounding, as close pairs near the threshold may, and one order gives
+//    both bits. A pair with another box may differ by more (a side past
+//    float32's range once squared; a zero-area box, which accepts every
+//    point of the other box in one order and none in the other), so bit
+//    (j, i) is computed in j's frame; such pairs are rare, and an
+//    untrained detector's decode makes them.
 // 2. Greedy pass (csrc/nms_greedy.cuh): one block per (sample, class),
 //    64 sorted positions a step resolved on a register word by one warp
 //    while sixteen prepare the next step's bits from the mask rows (1-4
@@ -80,12 +88,14 @@ namespace {
 constexpr int TILE = 32;      // boxes a tile side: a half mask word
 constexpr int THREADS = 128;  // pairwise pass: 4 warps, 4 blocks an SM
 constexpr int PAIRS = TILE * TILE / THREADS;  // circle tests a thread
-constexpr float QUAD_TOL = 1e-5f;     // in_quad's tolerance
+using rotated_box::QUAD_TOL;
+using rotated_box::TAME;
 constexpr float CUT_REL = 1.0f + 1e-4f, CUT_ABS = 1e-3f;
 
 struct TileBoxes {
   float x[TILE], y[TILE], dx[TILE], dy[TILE], c[TILE], s[TILE], area[TILE],
       reach[TILE];
+  bool regular[TILE];  // one order of a pair of these gives both bits
 };
 
 __device__ void stage(TileBoxes& t, const float* bx, int64_t i, int64_t k,
@@ -101,9 +111,29 @@ __device__ void stage(TileBoxes& t, const float* bx, int64_t i, int64_t k,
   t.dy[e] = v[3];
   t.c[e] = cosf(v[4]);
   t.s[e] = sinf(v[4]);
-  t.area[e] = v[2] * v[3];
+  t.area[e] = rotated_box::mul(v[2], v[3]);
   t.reach[e] = 0.5f * hypotf(v[2], v[3]) + QUAD_TOL / fabsf(v[2]) +
                QUAD_TOL / fabsf(v[3]);
+  bool regular = isfinite(v[4]) && v[2] != 0.f && v[3] != 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) regular = regular && fabsf(v[q]) <= TAME;
+  t.regular[e] = regular;
+}
+
+// BEV IoU(p[a], q[b]) > thr in p[a]'s frame, the plain version's order:
+// the intersection over the union clamped at 1e-8 as torch's clamp_min
+// clamps it (a NaN union, an infinite side times a zero one, gives IoU
+// NaN, which is not > thr)
+__device__ __forceinline__ bool suppresses(const TileBoxes& p, int a,
+                                           const TileBoxes& q, int b,
+                                           float thr) {
+  using rotated_box::add;
+  using rotated_box::sub;
+  const float inter = rotated_box::intersection_area_cs(
+      p.dx[a], p.dy[a], p.c[a], p.s[a], sub(q.x[b], p.x[a]),
+      sub(q.y[b], p.y[a]), q.dx[b], q.dy[b], q.c[b], q.s[b]);
+  const float uni = sub(add(p.area[a], q.area[b]), inter);
+  return __fdiv_rn(inter, rotated_box::nan_max(uni, 1e-8f)) > thr;
 }
 
 // mask32 views the (K, w) 64-bit mask words of a sample as (K, 2 w)
@@ -163,14 +193,12 @@ __global__ void __launch_bounds__(THREADS, 4)
   const int n = count;
   for (int e = t; e < n; e += THREADS) {
     const int p = list[e], a = p / TILE, b = p % TILE;
-    const float inter = rotated_box::intersection_area_cs(
-        rows.dx[a], rows.dy[a], rows.c[a], rows.s[a], cols.x[b] - rows.x[a],
-        cols.y[b] - rows.y[a], cols.dx[b], cols.dy[b], cols.c[b], cols.s[b]);
-    const float uni = rows.area[a] + cols.area[b] - inter;
-    if (inter / fmaxf(uni, 1e-8f) > thr) {
-      atomicOr(&row_bits[a], 1u << b);
-      atomicOr(&col_bits[b], 1u << a);
-    }
+    const bool ab = suppresses(rows, a, cols, b, thr);
+    const bool ba = rows.regular[a] && cols.regular[b]
+                        ? ab
+                        : suppresses(cols, b, rows, a, thr);
+    if (ab) atomicOr(&row_bits[a], 1u << b);
+    if (ba) atomicOr(&col_bits[b], 1u << a);
   }
   __syncthreads();
 

@@ -47,21 +47,13 @@
 
 #include "nms_greedy.cuh"
 #include "nms_pairwise.cuh"
+#include "rotated_box.cuh"
 
 namespace {
 
-// torch.maximum / torch.minimum: NaN if either input is NaN (one
-// instruction each: max.NaN / min.NaN, sm_80 and later)
-__device__ __forceinline__ float nan_max(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
+// torch.maximum / torch.minimum: NaN if either input is NaN
+using rotated_box::nan_max;
+using rotated_box::nan_min;
 
 // axis-aligned IoU > thr of a sample's (x1, y1, x2, y2) boxes
 struct NormalPair {

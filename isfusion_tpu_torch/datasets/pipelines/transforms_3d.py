@@ -4,7 +4,9 @@ the LiDAR ones (``GlobalRotScaleTrans``, ``RandomFlip3D``,
 ``PointsRangeFilter``, ``ObjectRangeFilter``, ``ObjectNameFilter``,
 ``PointShuffle``, ``PointSample``) and the IS-Fusion flagship's
 (``ImageNormalize``, ``ImageAug3D``, ``GlobalRotScaleTransV2``,
-``RandomFlip3DV2``, ``ModalMask3D``, ``ObjectSampleV2``).
+``RandomFlip3DV2``, ``ModalMask3D``, ``ObjectSampleV2``) and the outdoor
+KITTI ones (``ObjectNoise``, ``RandomJitterPoints``,
+``BackgroundPointsFilter``, ``VoxelBasedPointSampler``).
 
 Every random draw comes from ``results['rng']``, a
 ``numpy.random.RandomState`` that the dataset seeds from (seed, epoch,
@@ -406,4 +408,183 @@ class ObjectSampleV2:
             np.concatenate([sampled["points"], points.numpy()], 0))
         if self.sample_2d and sampled.get("imgs") is not None:
             data["img"] = sampled["imgs"]
+        return data
+
+
+# --------------------------------------------- the outdoor LiDAR transforms
+@PIPELINES.register_module()
+class ObjectNoise:
+    """Per-object jitter (SECOND's ``noise_per_object_v3_``): each GT box,
+    in order, draws a translation N(0, ``translation_std``) and a yaw
+    U(``rot_range``) until the moved box overlaps no other current box in
+    BEV (at most ``num_try`` draws; else it stays), then moves with its
+    points (those inside it before any move)."""
+
+    def __init__(self, translation_std=(0.25, 0.25, 0.25),
+                 rot_range=(-0.15707963267, 0.15707963267),
+                 num_try: int = 100, global_rot_range=(0.0, 0.0)):
+        self.translation_std = np.asarray(translation_std, np.float32)
+        self.rot_range = rot_range
+        self.num_try = int(num_try)
+
+    def __call__(self, data: dict) -> dict:
+        from ...core.bbox.box_np_ops import box_collision_test
+        boxes, pts = data["gt_bboxes_3d"], data["points"]
+        arr = boxes.numpy()
+        if len(arr) == 0:
+            return data
+        rng = sample_rng(data)
+        inside = points_in_rbbox(pts.numpy(), arr)
+        tensor = pts.numpy()
+        for i in range(len(arr)):
+            t, r = np.zeros(3, np.float32), 0.0
+            others = np.delete(arr, i, axis=0)
+            for _ in range(max(1, self.num_try)):
+                t_c = rng.normal(scale=self.translation_std, size=3)
+                r_c = rng.uniform(*self.rot_range)
+                cand = arr[i:i + 1].copy()
+                cand[0, :3] += t_c
+                cand[0, 6] += r_c
+                if len(others) == 0 or not box_collision_test(
+                        cand[:, [0, 1, 3, 4, 6]],
+                        others[:, [0, 1, 3, 4, 6]]).any():
+                    t, r = t_c, r_c
+                    break
+            if r == 0.0 and not np.any(t):
+                continue
+            sel = inside[:, i]
+            c = arr[i, :3].copy()
+            cs, sn = np.cos(r), np.sin(r)
+            rot = np.array([[cs, -sn, 0], [sn, cs, 0], [0, 0, 1]],
+                           np.float32)
+            # the points turn with the box's shape (yaw += r)
+            tensor[sel, :3] = (tensor[sel, :3] - c) @ rot + c + t
+            arr[i, :3] += t
+            arr[i, 6] += r
+        data["points"] = pts.new_point(tensor)
+        data["gt_bboxes_3d"] = boxes.new_box(arr)
+        return data
+
+
+@PIPELINES.register_module()
+class RandomJitterPoints:
+    """Per-point N(0, ``jitter_std``) noise on xyz, clipped to
+    ``clip_range`` (boxes untouched)."""
+
+    def __init__(self, jitter_std=(0.01, 0.01, 0.01),
+                 clip_range=(-0.05, 0.05)):
+        if isinstance(jitter_std, (int, float)):
+            jitter_std = [jitter_std] * 3
+        self.jitter_std = np.asarray(jitter_std, np.float32)
+        if clip_range is not None and isinstance(clip_range, (int, float)):
+            clip_range = [-clip_range, clip_range]
+        self.clip_range = clip_range
+
+    def __call__(self, data: dict) -> dict:
+        pts = data["points"]
+        noise = sample_rng(data).randn(len(pts), 3).astype(np.float32) * \
+            self.jitter_std[None, :]
+        if self.clip_range is not None:
+            noise = np.clip(noise, self.clip_range[0], self.clip_range[1])
+        pts.translate(noise)
+        return data
+
+
+@PIPELINES.register_module()
+class BackgroundPointsFilter:
+    """Drops the points inside a GT box enlarged by
+    ``bbox_enlarge_range`` but outside the box itself (a clean margin
+    around each object)."""
+
+    def __init__(self, bbox_enlarge_range):
+        if isinstance(bbox_enlarge_range, (int, float)):
+            bbox_enlarge_range = [float(bbox_enlarge_range)] * 3
+        self.bbox_enlarge_range = np.asarray(bbox_enlarge_range,
+                                             np.float32)[None, :]
+
+    def __call__(self, data: dict) -> dict:
+        boxes = data["gt_bboxes_3d"]
+        arr = boxes.numpy().copy()
+        arr[:, :3] = boxes.gravity_center
+        enlarged = arr.copy()
+        enlarged[:, 3:6] += self.bbox_enlarge_range
+        pts = data["points"].numpy()
+        if len(arr):
+            fg = points_in_rbbox(pts, arr, origin=(0.5, 0.5, 0.5)).max(1)
+            fg_en = points_in_rbbox(pts, enlarged,
+                                    origin=(0.5, 0.5, 0.5)).max(1)
+        else:
+            fg = fg_en = np.zeros(len(pts), bool)
+        valid = ~(~fg & fg_en)
+        data["points"] = data["points"][valid]
+        for key in ("pts_instance_mask", "pts_semantic_mask"):
+            if data.get(key) is not None:
+                data[key] = np.asarray(data[key])[valid]
+        return data
+
+
+@PIPELINES.register_module()
+class VoxelBasedPointSampler:
+    """Samples points by voxel budget: the current sweep's points (time
+    channel ``time_dim`` 0) and the earlier sweeps' are each shuffled
+    (current first), voxelized (``core/voxel_generator.py``) and padded
+    to their ``max_voxels`` with copies of the first voxel; the per-point
+    mask and segmentation fields ride along as extra channels."""
+
+    def __init__(self, cur_sweep_cfg: dict, prev_sweep_cfg=None,
+                 time_dim: int = 3):
+        from ...core.voxel_generator import VoxelGenerator
+        self.cur_voxel_generator = VoxelGenerator(**cur_sweep_cfg)
+        self.cur_voxel_num = self.cur_voxel_generator._max_voxels
+        self.time_dim = int(time_dim)
+        if prev_sweep_cfg is not None:
+            assert prev_sweep_cfg["max_num_points"] == \
+                cur_sweep_cfg["max_num_points"]
+            self.prev_voxel_generator = VoxelGenerator(**prev_sweep_cfg)
+            self.prev_voxel_num = self.prev_voxel_generator._max_voxels
+        else:
+            self.prev_voxel_generator = None
+            self.prev_voxel_num = 0
+
+    @staticmethod
+    def _sample(points: np.ndarray, sampler) -> np.ndarray:
+        voxels, _, _ = sampler.generate(points)
+        cap, per = sampler._max_voxels, sampler._max_num_points
+        if voxels.shape[0] == 0:
+            return np.zeros((cap, per, points.shape[-1]), points.dtype)
+        if voxels.shape[0] < cap:
+            pad = np.broadcast_to(voxels[:1], (cap - voxels.shape[0],) +
+                                  voxels.shape[1:])
+            voxels = np.concatenate([voxels, pad], 0)
+        return voxels
+
+    def __call__(self, data: dict) -> dict:
+        pts = data["points"]
+        arr = pts.numpy()
+        original_dim = arr.shape[1]
+        extra, fields2dim = [arr], []
+        for key in list(data.get("pts_mask_fields", [])) + \
+                list(data.get("pts_seg_fields", [])):
+            fields2dim.append((key, original_dim + len(fields2dim)))
+            extra.append(np.asarray(data[key])[..., None])
+        arr = np.concatenate(extra, -1)
+        cur_flag = arr[:, self.time_dim] == 0
+        cur, prev = arr[cur_flag], arr[~cur_flag]
+        if prev.shape[0] == 0:
+            prev = cur
+        rng = sample_rng(data)
+        rng.shuffle(cur)
+        rng.shuffle(prev)
+        cur = self._sample(cur, self.cur_voxel_generator)
+        if self.prev_voxel_generator is not None:
+            arr = np.concatenate(
+                [cur, self._sample(prev, self.prev_voxel_generator)], 0)
+        else:
+            arr = cur
+        if self.cur_voxel_generator._max_num_points == 1:
+            arr = arr.squeeze(1)
+        data["points"] = pts.new_point(
+            arr[..., :original_dim].astype(np.float32))
+        for key, dim in fields2dim:
+            data[key] = arr[..., dim]
         return data

@@ -1306,3 +1306,232 @@ def build_free_anchor(tiny: bool = False, device=None, seed: int = 0
     (``free_anchor_model_cfg``, ``MVXFasterRCNN``), as ``build_ssn``."""
     return _build_pointpillars_family(free_anchor_model_cfg(tiny), tiny,
                                       device, seed)
+
+
+# ImVoxelNet: mmdet3d's configs/imvoxelnet/imvoxelnet_kitti-3d-car.py (one
+# class, Car; the images at the KITTI test scale 384 x 1280)
+IMVOXELNET_RANGE = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
+IMVOXELNET_IMG_HW = (384, 1280)
+# the JAX package's tiny ImVoxelNet (tests/test_models/test_imvoxelnet.py);
+# its batch here is 48 x 160 (the KITTI camera's aspect) with the KITTI
+# lidar2img scaled to it
+IMVOXELNET_TINY_RANGE = (-8.0, -8.0, -3.0, 8.0, 8.0, 1.0)
+IMVOXELNET_TINY_HW = (48, 160)
+
+
+def imvoxelnet_model_cfg(tiny: bool = False) -> dict:
+    """ImVoxelNet's model config dict. Full width: mmdet3d's
+    ``imvoxelnet_kitti-3d-car.py``: ResNet-50 (``frozen_stages=1``, BN
+    without gradients, ``norm_eval``), FPN [256, 512, 1024, 2048] -> 64
+    with four outputs, a (216, 248, 12) volume of 0.32 x 0.32 x 0.33 m
+    voxels over [0, -39.68, -3, 69.12, 39.68, 1], OutdoorImVoxelNeck 64
+    -> 256, a one-class Anchor3DHead (256 wide; the Car anchor at z -1.78,
+    rotations 0 and 1.57; focal loss, smooth-L1 with beta 1/9 and weight
+    2, direction loss 0.2; assigner IoU 0.6 / 0.45 / 0.45; test top 100,
+    rotated NMS at 0.01, scores above 0.1, 50 kept). The backbone, the
+    FPN, the 3D neck and the head compute in bf16; the lift, targets,
+    losses, decode and NMS in float32. ``tiny``: the JAX package's test
+    model (ResNet-18 of base width 8 to its third stage, a one-level FPN
+    16 wide, a 16 x 16 x 4 volume of 1 m voxels, a 16-wide neck and
+    head), float32. The JAX ResNet reads ``frozen_stages`` and freezes
+    nothing; the port freezes as the reference (ROADMAP queue 3)."""
+    head = dict(
+        type="Anchor3DHead", num_classes=1, in_channels=256,
+        feat_channels=256,
+        anchor_generator=dict(
+            type="AlignedAnchor3DRangeGenerator",
+            ranges=[[-0.16, -39.68, -1.78, 68.96, 39.68, -1.78]],
+            sizes=[[1.6, 3.9, 1.56]], rotations=[0, 1.57],
+            reshape_out=True),
+        bbox_coder=dict(type="DeltaXYZWLHRBBoxCoder", code_size=7),
+        loss_cls=dict(type="FocalLoss", use_sigmoid=True, gamma=2.0,
+                      alpha=0.25, loss_weight=1.0),
+        loss_bbox=dict(type="SmoothL1Loss", beta=1.0 / 9.0, loss_weight=2.0),
+        loss_dir=dict(type="CrossEntropyLoss", loss_weight=0.2))
+    cfg = dict(
+        type="ImVoxelNet",
+        backbone=dict(type="ResNet", depth=50, num_stages=4,
+                      out_indices=(0, 1, 2, 3), frozen_stages=1,
+                      norm_cfg=dict(type="BN", requires_grad=False),
+                      norm_eval=True, style="pytorch"),
+        neck=dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+                  out_channels=64, num_outs=4),
+        neck_3d=dict(type="OutdoorImVoxelNeck", in_channels=64,
+                     out_channels=256),
+        n_voxels=(216, 248, 12), voxel_size=(0.32, 0.32, 0.33),
+        point_cloud_range=list(IMVOXELNET_RANGE), bbox_head=head,
+        train_cfg=dict(assigner=dict(pos_iou_thr=0.6, neg_iou_thr=0.45,
+                                     min_pos_iou=0.45),
+                       code_weight=[1.0] * 7),
+        test_cfg=dict(use_rotate_nms=True, nms_pre=100, nms_thr=0.01,
+                      score_thr=0.1, max_num=50))
+    if not tiny:
+        for key in ("backbone", "neck", "neck_3d", "bbox_head"):
+            cfg[key] = dict(cfg[key], compute_dtype="bfloat16")
+        return cfg
+    pcr = list(IMVOXELNET_TINY_RANGE)
+    cfg.update(
+        backbone=dict(type="ResNet", depth=18, base_channels=8,
+                      out_indices=(2,)),
+        neck=dict(type="FPN", in_channels=[32], out_channels=16,
+                  num_outs=1),
+        neck_3d=dict(type="OutdoorImVoxelNeck", in_channels=16,
+                     out_channels=16),
+        n_voxels=(16, 16, 4), voxel_size=(1.0, 1.0, 1.0),
+        point_cloud_range=pcr,
+        bbox_head=dict(head, in_channels=16, feat_channels=16,
+                       anchor_generator=dict(
+                           head["anchor_generator"],
+                           ranges=[[-8, -8, -1.8, 8, 8, -1.8]],
+                           sizes=[[1.9, 4.5, 1.7]]),
+                       loss_bbox=dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                                      loss_weight=1.0)),
+        train_cfg=dict(assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.3,
+                                     min_pos_iou=0.3),
+                       code_weight=[1.0] * 7),
+        test_cfg=dict(nms_pre=32, nms_thr=0.3, score_thr=0.0, max_num=8))
+    return cfg
+
+
+def imvoxelnet_optim_cfg() -> dict:
+    """ImVoxelNet's training recipe (mmdet3d's config): ``optimizer``
+    (AdamW, lr 1e-4, weight decay 1e-4, the backbone at ``lr_mult`` 0.1),
+    ``optimizer_config`` (clip 35), ``lr_config`` (step at epochs 8 and
+    11), ``momentum_config`` (None), ``samples_per_gpu`` 4 and
+    ``max_epochs`` 12."""
+    return dict(
+        optimizer=dict(type="AdamW", lr=1e-4, weight_decay=1e-4,
+                       paramwise_cfg=dict(custom_keys={
+                           "backbone": dict(lr_mult=0.1, decay_mult=1.0)})),
+        optimizer_config=dict(grad_clip=dict(max_norm=35.0, norm_type=2)),
+        lr_config=dict(policy="step", step=[8, 11]),
+        momentum_config=None, samples_per_gpu=4, max_epochs=12)
+
+
+def synthetic_imvoxelnet_batch(batch_size: int,
+                               img_hw=IMVOXELNET_IMG_HW, num_gt: int = 8,
+                               seed: int = 0,
+                               gt_range=(3.0, -25.0, 60.0, 25.0)) -> dict:
+    """One-view camera batch: img (B, H, W, 3) uniform in [0, 1), the
+    KITTI-like lidar2img (B, 4, 4) (``testing.kitti_lidar2img`` at this
+    size), and Car GT boxes (B, G, 7) of the KITTI car anchor's size
+    scaled by U(0.8, 1.2) and its bottom height, inside ``gt_range`` (x0,
+    y0, x1, y1), padded with a mask (labels 0)."""
+    from .testing import kitti_lidar2img
+
+    rng = np.random.default_rng(seed)
+    h, w = img_hw
+    img = rng.uniform(size=(batch_size, h, w, 3)).astype(np.float32)
+    l2i = np.broadcast_to(kitti_lidar2img(img_hw),
+                          (batch_size, 4, 4)).copy()
+    boxes = np.zeros((batch_size, num_gt, 7), np.float32)
+    x0, y0, x1, y1 = gt_range
+    boxes[..., 0] = rng.uniform(x0, x1, (batch_size, num_gt))
+    boxes[..., 1] = rng.uniform(y0, y1, (batch_size, num_gt))
+    boxes[..., 2] = KITTI_CLASS_Z[2]
+    boxes[..., 3:6] = np.asarray(KITTI_CLASS_SIZES[2], np.float32) * \
+        rng.uniform(0.8, 1.2, (batch_size, num_gt, 1))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (batch_size, num_gt))
+    gt_mask = np.arange(num_gt)[None, :] < rng.integers(
+        max(num_gt // 2, 1), num_gt + 1, (batch_size, 1))
+    return dict(img=img, lidar2img=l2i, gt_bboxes_3d=boxes,
+                gt_labels_3d=np.zeros((batch_size, num_gt), np.int64),
+                gt_mask=gt_mask)
+
+
+def build_imvoxelnet(tiny: bool = False, device=None, seed: int = 0
+                     ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): ImVoxelNet with weights drawn from ``seed``, in
+    eval mode on ``device`` (default: the CUDA card; raises if it is
+    missing), and ``batch_fn(batch_size, seed=0)`` giving a one-view numpy
+    batch (``synthetic_imvoxelnet_batch``; full width: 384 x 1280, 8
+    padded Car rows at 3-60 m; tiny: 48 x 160, 4 rows at 1-7 m)."""
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model = init_weights(build_detector(imvoxelnet_model_cfg(tiny)),
+                         seed).to(dev).eval()
+    if tiny:
+        def batch_fn(b, seed=0):
+            return synthetic_imvoxelnet_batch(
+                b, img_hw=IMVOXELNET_TINY_HW, num_gt=4, seed=seed,
+                gt_range=(1.0, -6.0, 7.0, 6.0))
+    else:
+        def batch_fn(b, seed=0):
+            return synthetic_imvoxelnet_batch(b, seed=seed)
+    return model, batch_fn
+
+
+# PartA2's KITTI loop: the three classes in the anchors' order, as the
+# KITTI evaluator names them
+PARTA2_KITTI_CLASSES = ("pedestrian", "cyclist", "car")
+
+
+def parta2_kitti_cfg(data_root: str, tiny: bool = False, epochs: int = 2,
+                     max_points: int = 20000):
+    """The PartA2 train -> eval loop on a KITTI layout (``tools/
+    make_synthetic_kitti.py``, ``tools/kitti_converter.py``): the model of
+    ``parta2_model_cfg(tiny)``, ``KittiDataset`` splits from
+    ``kitti_infos_{train,val}.pkl``, the reference PartA2's KITTI train
+    pipeline without its GT-database sampler (LoadPointsFromFile with 4
+    dims, LoadAnnotations3D, ObjectNoise, RandomFlip3D,
+    GlobalRotScaleTrans, PointsRangeFilter, ObjectRangeFilter,
+    PointShuffle, DefaultFormatBundle3D padded to ``max_points``,
+    Collect3D), the test pipeline (LoadPointsFromFile,
+    PointsRangeFilter, the bundle, Collect3D), ``parta2_optim_cfg``'s
+    recipe over ``epochs``, eval and checkpoint every epoch, every step
+    logged. A ``Config``."""
+    import os
+
+    from .config import Config
+
+    model = parta2_model_cfg(tiny)
+    pcr = list(model["voxel_layer"]["point_cloud_range"])
+    classes = list(PARTA2_KITTI_CLASSES)
+    load = dict(type="LoadPointsFromFile", coord_type="LIDAR", load_dim=4,
+                use_dim=4)
+    bundle = dict(type="DefaultFormatBundle3D", class_names=classes,
+                  max_points=max_points, max_gt=32)
+    train_pipeline = [
+        load,
+        dict(type="LoadAnnotations3D", with_bbox_3d=True,
+             with_label_3d=True),
+        dict(type="ObjectNoise", num_try=100,
+             translation_std=[1.0, 1.0, 0.5], global_rot_range=[0.0, 0.0],
+             rot_range=[-0.78539816, 0.78539816]),
+        dict(type="RandomFlip3D", flip_ratio_bev_horizontal=0.5),
+        dict(type="GlobalRotScaleTrans", rot_range=[-0.78539816, 0.78539816],
+             scale_ratio_range=[0.95, 1.05]),
+        dict(type="PointsRangeFilter", point_cloud_range=pcr),
+        dict(type="ObjectRangeFilter", point_cloud_range=pcr),
+        dict(type="PointShuffle"),
+        bundle,
+        dict(type="Collect3D", keys=["points", "gt_bboxes_3d",
+                                     "gt_labels_3d"])]
+    test_pipeline = [
+        load, dict(type="PointsRangeFilter", point_cloud_range=pcr),
+        dict(bundle, with_label=False), dict(type="Collect3D",
+                                             keys=["points"])]
+
+    def split(name, pipeline, test_mode):
+        return dict(type="KittiDataset", data_root=data_root,
+                    ann_file=os.path.join(data_root,
+                                          f"kitti_infos_{name}.pkl"),
+                    pipeline=pipeline, classes=classes, test_mode=test_mode)
+
+    optim = parta2_optim_cfg()
+    return Config(dict(
+        model=model,
+        data=dict(samples_per_gpu=optim["samples_per_gpu"],
+                  workers_per_gpu=0,
+                  train=split("train", train_pipeline, False),
+                  val=split("val", test_pipeline, True),
+                  test=split("val", test_pipeline, True)),
+        optimizer=optim["optimizer"],
+        optimizer_config=optim["optimizer_config"],
+        lr_config=optim["lr_config"],
+        momentum_config=optim["momentum_config"],
+        total_epochs=epochs, runner=dict(max_epochs=epochs),
+        evaluation=dict(interval=1), checkpoint_config=dict(interval=1),
+        log_config=dict(interval=1), seed=0))

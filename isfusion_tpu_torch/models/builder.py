@@ -1,8 +1,8 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
-CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN and
-FreeAnchor paths (counterpart of ``isfusion_tpu/models/builder.py``):
-config dicts with a ``type`` key become modules through the port's
-registries."""
+CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN,
+FreeAnchor and ImVoxelNet paths (counterpart of
+``isfusion_tpu/models/builder.py``): config dicts with a ``type`` key
+become modules through the port's registries."""
 from __future__ import annotations
 
 from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
@@ -25,6 +25,7 @@ from .middle_encoders.sparse_unet import SparseUNet
 from .necks.fpn import FPN
 from .necks.generalized_lss import GeneralizedLSSFPN
 from .necks.second_fpn import SECONDFPN
+from .necks.yolox_pafpn import YOLOXPAFPN
 from .roi_heads.part_aggregation_roi_head import PartAggregationROIHead
 from .voxel_encoders import (DynamicFusionVFE, DynamicPillarFeatureNet,
                              DynamicSimpleVFE, DynamicVFE, HardSimpleVFE,
@@ -34,7 +35,8 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (BACKBONES, SECOND), (BACKBONES, ResNet),
                    (BACKBONES, RegNet), (BACKBONES, NoStemRegNet),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
-                   (NECKS, FPN), (FUSION_LAYERS, PointFusion),
+                   (NECKS, FPN), (NECKS, YOLOXPAFPN),
+                   (FUSION_LAYERS, PointFusion),
                    (VOXEL_ENCODERS, DynamicVFE), (VOXEL_ENCODERS, HardVFE),
                    (VOXEL_ENCODERS, PillarFeatureNet),
                    (VOXEL_ENCODERS, HardSimpleVFE),
@@ -79,7 +81,7 @@ def build_fusion_layer(cfg, **kwargs):
 def build_detector(cfg):
     """Build a detector from its config dict (on the CPU, uninitialised:
     the factories of ``flagship.py`` initialise and place it)."""
-    from .detectors import (centerpoint, isfusion,  # noqa: F401  (register)
-                            mvx_two_stage, parta2, single_stage_mono3d,
-                            transfusion, voxelnet)
+    from .detectors import (centerpoint, imvoxelnet,  # noqa: F401
+                            isfusion, mvx_two_stage, parta2,
+                            single_stage_mono3d, transfusion, voxelnet)
     return build_from_cfg(dict(cfg), DETECTORS)

@@ -167,7 +167,9 @@ class PartA2(nn.Module):
             return dict(rpn=rpn_preds, roi=roi_preds, seg=seg_logit,
                         part=part_pred)
         if mode == "loss":
-            gts, labels = t["gt_bboxes_3d"].float(), t["gt_labels_3d"].long()
+            # the box's 7 columns: a loader's bundle pads GT rows to 9
+            gts = t["gt_bboxes_3d"].float()[..., :7]
+            labels = t["gt_labels_3d"].long()
             gmask = t["gt_mask"].bool()
             losses = {f"rpn_{key}": v for key, v in self.rpn_head.loss(
                 rpn_preds, gts, labels, gmask).items()}

@@ -103,6 +103,21 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class Conv3d(nn.Conv3d):
+    """Conv3d over (B, C, D, H, W) volumes (OIDHW weight), computed in
+    ``dtype``."""
+
+    def __init__(self, *args, dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.cdtype = dtype
+
+    def forward(self, x):
+        dt = compute_dtype(x, self.cdtype)
+        return F.conv3d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
+                        self.stride, self.padding, self.dilation,
+                        self.groups)
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
     """ConvTranspose2d over NHWC maps ((in, out, kh, kw) weight)."""
 
@@ -208,6 +223,27 @@ class BatchNorm(nn.BatchNorm1d):
                 self.momentum * run_var)
         inv = torch.rsqrt(var + self.eps) * self.weight.float()
         return (x32 - mean) * inv + self.bias.float()
+
+
+class BatchNorm3d(BatchNorm):
+    """``BatchNorm`` (without ``sync``) over dim 1 of channels-first
+    (B, C, D, H, W) volumes: the same statistics and running updates,
+    normalised in place of a move of the channels to the last axis."""
+
+    def forward(self, x):
+        out_dt = compute_dtype(x, self.cdtype)
+        if self.training:
+            self.num_batches_tracked.add_(1)
+            return F.batch_norm(x.float(), self.running_mean,
+                                self.running_var, self.weight.float(),
+                                self.bias.float(), True, self.momentum,
+                                self.eps).to(out_dt)
+        shape = (-1,) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(self.running_var.float() + self.eps) * \
+            self.weight.float()
+        y = (x.float() - self.running_mean.float().view(shape)) * \
+            inv.view(shape) + self.bias.float().view(shape)
+        return y.to(out_dt)
 
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar(

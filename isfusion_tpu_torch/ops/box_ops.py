@@ -237,21 +237,24 @@ def rotated_rect_intersection_area(boxes1_bev: torch.Tensor,
     return torch.where(valid.any(-1), area, torch.zeros_like(area))
 
 
-def boxes_iou_bev_ref(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor
-                      ) -> torch.Tensor:
+def boxes_iou_bev_ref(boxes1_bev: torch.Tensor, boxes2_bev: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., N, M) IoU of rotated BEV boxes (x, y, dx, dy, yaw) (the JAX
-    package's ``boxes_iou_bev``), plain PyTorch."""
-    a, b = boxes1_bev.float(), boxes2_bev.float()
+    package's ``boxes_iou_bev``), plain PyTorch, in ``dtype`` (float64:
+    the same formula without float32's rounding, the checks' measure of
+    how far float32 determines it)."""
+    a, b = boxes1_bev.to(dtype), boxes2_bev.to(dtype)
     inter = rotated_rect_intersection_area(a, b)
     a1, a2 = a[..., 2] * a[..., 3], b[..., 2] * b[..., 3]
     return inter / (a1[..., :, None] + a2[..., None, :] -
                     inter).clamp_min(1e-8)
 
 
-def boxes_iou_3d_ref(boxes1: torch.Tensor, boxes2: torch.Tensor
-                     ) -> torch.Tensor:
-    """Plain PyTorch version of ``boxes_iou_3d``."""
-    a, b = boxes1[..., :7].float(), boxes2[..., :7].float()
+def boxes_iou_3d_ref(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of ``boxes_iou_3d``, in ``dtype`` (as
+    ``boxes_iou_bev_ref``)."""
+    a, b = boxes1[..., :7].to(dtype), boxes2[..., :7].to(dtype)
     cols = [0, 1, 3, 4, 6]
     inter = rotated_rect_intersection_area(a[..., cols], b[..., cols])
     hi = torch.minimum((a[..., 2] + a[..., 5])[..., :, None],

@@ -130,10 +130,12 @@ def roiaware_list_ref(cells: torch.Tensor, grid_size: int):
 
 def roiaware_pool_ref(rois: torch.Tensor, centers: torch.Tensor,
                       feats: torch.Tensor, mask: torch.Tensor,
-                      grid_size: int) -> torch.Tensor:
+                      grid_size: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of ``roiaware_pool``: the sums run over the
     inside (voxel, RoI) pairs in voxel order, autograd gives the
-    backward."""
+    backward; in ``dtype`` (float64: the checks' measure of what float32
+    leaves to the order of the sums)."""
     _check(rois, centers, feats, mask, grid_size)
     g = int(grid_size)
     b, r = rois.shape[:2]
@@ -142,10 +144,10 @@ def roiaware_pool_ref(rois: torch.Tensor, centers: torch.Tensor,
     cells = roiaware_cells_ref(rois, centers, mask, g).transpose(1, 2)
     bi, vi, ri = torch.nonzero(cells >= 0, as_tuple=True)
     seg = (bi * r + ri) * g3 + cells[bi, vi, ri]
-    total = torch.zeros((b * r * g3, c), dtype=torch.float32,
+    total = torch.zeros((b * r * g3, c), dtype=dtype,
                         device=feats.device).index_add(
-                            0, seg, feats.float()[bi, vi])
-    cnt = torch.bincount(seg, minlength=b * r * g3).float()
+                            0, seg, feats.to(dtype)[bi, vi])
+    cnt = torch.bincount(seg, minlength=b * r * g3).to(dtype)
     pooled = total / cnt.clamp_min(1.0)[:, None]
     return pooled.view(b, r, g, g, g, c)
 

@@ -1,6 +1,6 @@
 """Carry the JAX package's IS-Fusion, PointPillars, CenterPoint, MVX-Net,
-FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN and FreeAnchor variables into
-the port's state_dict.
+FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN, FreeAnchor and ImVoxelNet
+variables into the port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -29,6 +29,10 @@ prefixes: a camera detector (FCOS3D: ``backbone_m``, ``neck_m``,
 with the prefixed rules and their keys given the reference's names
 (``backbone.``, ``voxel_encoder.`` ...); the JAX FPN names its laterals by
 input level (``lateral_{start_level + i}``), the reference from 0.
+ImVoxelNet's tree is a camera detector's with an Anchor3DHead, read as
+the reference's ``bbox_head.``, and a 3D neck that the JAX package's
+converter leaves out: its ``neck_3d_m`` takes the port's own names
+(``neck_3d.conv{i}a`` (OIDHW), ``bn{i}a``, ``out_conv.conv`` / ``.bn``).
 PartA2's tree is read the same way, its ``rpn_head_m`` as the
 reference's ``rpn_head.``; its SparseUNet's encoder takes the reference's
 names (``middle_encoder.conv_input``, ``encoder_layers.encoder_layer{i}.
@@ -50,6 +54,16 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+_YOLOX = dict(reduce="reduce_layers", downsample="downsamples",
+              out="out_convs")
+
+
+def _csp(name: str) -> str:
+    """A JAX CSP layer's ConvModule name -> mmdet's (``block{j}/conv{k}``
+    -> ``blocks.{j}.conv{k}``)."""
+    return re.sub(r"block(\d+)/", r"blocks.\1.", name)
+
 
 # (module path regex over the JAX tree, reference key template, kind)
 _ATTN = "mha"
@@ -77,6 +91,18 @@ _RULES = [
      "conv2d"),
     (r"img_neck_m/lateral_(\d+)/bn", r"img_neck.lateral_convs.\1.bn", "norm"),
     (r"img_neck_m/fpn_(\d+)/Conv_0", r"img_neck.fpn_convs.\1.conv", "conv2d"),
+    # YOLOXPAFPN: the JAX module's names -> mmdet's (a CSP layer's
+    # ConvModules, its bottlenecks under ``blocks``)
+    (r"img_neck_m/(reduce|downsample|out)_(\d+)/Conv_0",
+     lambda m: f"img_neck.{_YOLOX[m[1]]}.{m[2]}.conv", "conv2d"),
+    (r"img_neck_m/(reduce|downsample|out)_(\d+)/bn",
+     lambda m: f"img_neck.{_YOLOX[m[1]]}.{m[2]}.bn", "norm"),
+    (r"img_neck_m/(top_down|bottom_up)_(\d+)/(main_conv|short_conv|"
+     r"final_conv|block\d+/conv[12])/Conv_0",
+     lambda m: f"img_neck.{m[1]}_blocks.{m[2]}.{_csp(m[3])}.conv", "conv2d"),
+    (r"img_neck_m/(top_down|bottom_up)_(\d+)/(main_conv|short_conv|"
+     r"final_conv|block\d+/conv[12])/bn",
+     lambda m: f"img_neck.{m[1]}_blocks.{m[2]}.{_csp(m[3])}.bn", "norm"),
     (r"img_neck_m/fpn_(\d+)/bn", r"img_neck.fpn_convs.\1.bn", "norm"),
     # ResNet (mmdet names) and FPN (its extra convs numbered after the
     # output convs, below)
@@ -215,6 +241,12 @@ _RULES = [
      r"pts_neck.deconv.\1.0", "deconv"),
     (r"pts_neck_m/ConvTransposeModule_(\d+)/bn", r"pts_neck.deconv.\1.1",
      "norm"),
+    # ImVoxelNet's 3D neck (the port's own names: the JAX module's three
+    # conv + BN stages and its out ConvModule)
+    (r"neck3d_m/conv(\d)a", r"neck_3d.conv\1a", "conv3d"),
+    (r"neck3d_m/bn(\d)a", r"neck_3d.bn\1a", "norm"),
+    (r"neck3d_m/out_conv/Conv_0", "neck_3d.out_conv.conv", "conv2d"),
+    (r"neck3d_m/out_conv/bn", "neck_3d.out_conv.bn", "norm"),
     # -------------------------------------------------------------- head
     # PartA2's RoI head and part-aware heads (the JAX module's layers)
     (r"roi_head_m/(shared_\d+|conv_cls|conv_reg)", r"roi_head.\1", "dense"),
@@ -354,6 +386,15 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` -> the port's state_dict
     (reference layout), buffers included."""
     params = variables.get("params", {})
+    if "neck_3d_m" in params:
+        # ImVoxelNet: the camera branch's names, the head's as a LiDAR
+        # head's, the 3D neck's own
+        sd = state_dict_from_jax(_renamed(
+            variables, {"bbox_head_m": "pts_bbox_head_m",
+                        "neck_3d_m": "neck3d_m"}))
+        return {("bbox_head." + k[len("pts_bbox_head."):]
+                 if k.startswith("pts_bbox_head.") else k): v
+                for k, v in sd.items()}
     if "rpn_head_m" in params:
         names = dict(_VOXELNET_MODULES, rpn_head_m="pts_bbox_head_m")
         sd = state_dict_from_jax(_renamed(variables, names))
@@ -407,6 +448,7 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
             w = {"dense": lambda a: a.T,
                  "conv1d": lambda a: a.T[:, :, None],
                  "conv2d": lambda a: a.transpose(3, 2, 0, 1),
+                 "conv3d": lambda a: a.transpose(4, 3, 0, 1, 2),
                  "deconv": lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1],
                  "sparse": lambda a: a.transpose(4, 0, 1, 2, 3)}[kind](v)
             sd[f"{key}.weight"] = w

@@ -4,8 +4,10 @@ PointPillars or CenterPoint prediction on the card comparable with the
 same prediction on the CPU, the box sets that K10, K10-NMS and
 K10-circle are held on, MVX-Net's KITTI-like camera and the voxel sets
 that K1 (dynamic voxelization) is held on, ``pinned_choices``, which
-makes two runs of one detector take the same discrete choices, and
-``pooled_sync_norms``, the one-card reference of a data-parallel step."""
+makes two runs of one detector take the same discrete choices,
+``pooled_sync_norms``, the one-card reference of a data-parallel step,
+and ``recording_eval_ious``, which keeps the KITTI evaluator's IoU
+inputs."""
 from __future__ import annotations
 
 import contextlib
@@ -293,6 +295,75 @@ def iou_bev_edge_sets():
                                                zero.clone()),
                    ("yaw_1e4", base, far_yaw),
                    ("yaw_1e4_both", far_yaw, torch.cat([odd, far_yaw]))]
+
+
+def degenerate_box_sets(seed: int = 0):
+    """(name, boxes (K, 7)) sets of the degenerate LiDAR boxes (x, y,
+    z_bottom, dx, dy, dz, yaw) that an untrained detector decodes, each
+    beside 32 scene boxes: zero-size boxes (both sides 0) thousands of
+    metres apart; boxes with an infinite side and a zero one (a NaN
+    area); boxes with sides from 1e4 to 1e20 m (areas past float32's
+    range) over the scene; the first two mixed. The kernels must give what
+    their plain versions give on them: IoU 0 for zero-size pairs, NaN
+    where the union is NaN. (A box past 1e8 m against a zero-area one has
+    an IoU that float32 leaves to rounding, as ``iou_undetermined`` says:
+    the plain version on the card and on the CPU differ there by up to 94
+    times, so no set pairs them.)"""
+    gen = torch.Generator().manual_seed(seed)
+
+    def scene(k):
+        b = torch.empty((k, 7))
+        b[:, :2] = (torch.rand((k, 2), generator=gen) * 2 - 1) * 40
+        b[:, 2] = -1.5
+        b[:, 3:6] = 0.6 + torch.rand((k, 3), generator=gen) * 4
+        b[:, 6] = (torch.rand(k, generator=gen) * 2 - 1) * math.pi
+        return b
+
+    zero = scene(32)
+    zero[:, :2] = (torch.rand((32, 2), generator=gen) * 2 - 1) * 6000
+    zero[:, 3:5] = 0.0
+    inf_zero = scene(32)
+    inf_zero[:, :2] = (torch.rand((32, 2), generator=gen) * 2 - 1) * 2e4
+    inf_zero[:, 3], inf_zero[:, 4] = math.inf, 0.0
+    huge = scene(16)
+    huge[:, 3:5] = 10.0 ** (4 + torch.rand((16, 2), generator=gen) * 16)
+    mixed = torch.cat([zero[:8], inf_zero[:8]])
+    return [(name, torch.cat([scene(32), b])[torch.randperm(
+        32 + len(b), generator=gen)])
+        for name, b in (("zero_size_far", zero), ("inf_by_zero", inf_zero),
+                        ("huge", huge), ("mixed", mixed))]
+
+
+def iou_undetermined(a, b, want, bev: bool, tol: float = 1e-5,
+                     zero_area: bool = False):
+    """(..., N, M) bool: the pairs whose IoU float32 does not determine to
+    ``tol`` of max(1, |IoU|): a pair with an untame box (past
+    ``box_ops.IOU3D_TAME`` or not finite; with ``zero_area``, also a box
+    of zero area) whose float32 plain IoU ``want`` (``box_ops.
+    boxes_iou_bev_ref`` of (a, b) if ``bev``, else ``boxes_iou_3d_ref``)
+    lies farther than that from the same formula in float64. Corners 1e8
+    m and more apart leave the shoelace's sum to rounding; a zero-area box
+    accepts a whole box by the point test's tolerance, and the union is
+    then the rounding of an area less itself. Two float32 evaluations in
+    another order (a kernel's, or the pair's other order) may then differ
+    by up to the IoU itself."""
+    from .ops import box_ops
+
+    tame = box_ops.iou_bev_tame if bev else box_ops.iou3d_tame
+
+    def regular(x):
+        t = tame(x)
+        if zero_area:
+            t = t & (x[..., 2:4] if bev else x[..., 3:5]).ne(0).all(-1)
+        return t
+
+    untame = ~regular(a)[..., :, None] | ~regular(b)[..., None, :]
+    if not bool(untame.any()):
+        return untame
+    v64 = (box_ops.boxes_iou_bev_ref if bev else box_ops.boxes_iou_3d_ref)(
+        a, b, dtype=torch.float64)
+    off = (want.double() - v64).abs() > tol * v64.abs().clamp_min(1.0)
+    return untame & off
 
 
 def nms_normal_edge_sets(gen):
@@ -686,3 +757,27 @@ def pooled_sync_norms():
         yield
     finally:
         BatchNorm.forward = real
+
+
+@contextlib.contextmanager
+def recording_eval_ious():
+    """Inside the block, each ``box_ops.boxes_iou_bev`` / ``boxes_iou_3d``
+    call made through the module's names (the KITTI evaluator's, which
+    imports them at each call) appends (kind, a, b), kind "bev" or "3d",
+    to the yielded list; the kernel still runs."""
+    from .ops import box_ops
+
+    seen, real = [], (box_ops.boxes_iou_bev, box_ops.boxes_iou_3d)
+
+    def wrap(kind, fn):
+        def call(a, b):
+            seen.append((kind, a.clone(), b.clone()))
+            return fn(a, b)
+        return call
+
+    box_ops.boxes_iou_bev = wrap("bev", real[0])
+    box_ops.boxes_iou_3d = wrap("3d", real[1])
+    try:
+        yield seen
+    finally:
+        box_ops.boxes_iou_bev, box_ops.boxes_iou_3d = real

@@ -71,7 +71,8 @@ def _test(args, cfg, device) -> dict:
         path, _ = dataset.format_results(results, args.jsonfile_prefix)
         print(f"wrote {path}")
         return {}
-    metrics = dataset.evaluate(results, jsonfile_prefix=args.jsonfile_prefix)
+    metrics = dataset.evaluate(results, jsonfile_prefix=args.jsonfile_prefix,
+                               device=device)
     print(json.dumps(metrics, indent=2))
     if args.out:
         with open(args.out, "w") as f:

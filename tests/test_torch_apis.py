@@ -244,7 +244,11 @@ NEW_MODULES = [
     "models/detectors/centerpoint.py", "models/voxel_encoders.py",
     "models/layers.py", "runner/optim.py", "runner/convert.py",
     "models/backbones/regnet.py", "models/dense_heads/shape_aware_head.py",
-    "models/dense_heads/free_anchor3d_head.py", "core/post_processing.py"]
+    "models/dense_heads/free_anchor3d_head.py", "core/post_processing.py",
+    "models/detectors/imvoxelnet.py", "models/necks/yolox_pafpn.py",
+    "core/voxel_generator.py", "datasets/kitti_dataset.py",
+    "core/evaluation/kitti_eval.py", "tools/kitti_converter.py",
+    "tools/make_synthetic_kitti.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)

@@ -36,7 +36,13 @@ version's on the card, pooled features and dfeats within 1e-6 of their
 max (the plain version sums with atomics), two calls bit-equal, no host
 synchronisation, the saved membership bitmap equal to the plain one; the
 sparse inverse conv through K12 on the card within 1e-5 of the max of the
-CPU's.
+CPU's. The KITTI evaluator's K10-BEV and K10 calls as above (1e-5, exact
+zeros, one launch a call) and its metrics equal to the CPU's to 1e-12;
+the tiny ImVoxelNet's head outputs and kept boxes 1e-3 of their max. On
+degenerate boxes (zero-size, an infinite side times a zero one, past
+float32's range) K10 and K10-BEV within 1e-5 of the plain value (or of 1)
+with NaN and infinities where the plain version has them, K10-NMS's bits
+equal to the plain IoU's in both orders of each pair.
 """
 import contextlib
 
@@ -48,6 +54,7 @@ import numpy as np
 from isfusion_tpu_torch.ops import (box_ops, cuda_build, gaussian, scatter,
                                     sparse_conv, voxel)
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
+from isfusion_tpu_torch.testing import degenerate_box_sets, iou_undetermined
 
 pytestmark = pytest.mark.cuda
 
@@ -293,7 +300,8 @@ def _check_nms(boxes, scores, valid):
     near = (iou - 0.2).abs() < 1e-5
     bits = box_ops.nms_bev_suppression_bits(boxes, 0.2)
     assert not ((bits != (iou > 0.2)) & ~near).any()
-    # each unordered pair is computed once and mirrored
+    # each unordered pair of regular boxes (tame, no zero side) is
+    # computed once and mirrored
     assert torch.equal(bits, bits.transpose(1, 2))
     # the greedy pass, exactly, on the bits the kernel computed
     assert torch.equal(got, box_ops.greedy_suppress_ref(bits, scores, valid))
@@ -332,6 +340,53 @@ def test_nms_bev_shared_memory_limit(card):
                                                             valid))
         assert 0 < int(got.sum()) < int(valid.sum())
         before += 2
+
+
+@pytest.mark.parametrize("name", [n for n, _ in degenerate_box_sets()])
+def test_box_kernels_match_plain_versions_on_degenerate_boxes(card, name):
+    """Zero-size boxes far apart, boxes with an infinite side and a zero
+    one and boxes past float32's range once squared among scene boxes
+    (``testing.degenerate_box_sets``, as an untrained detector decodes
+    them): K10 and K10-BEV within 1e-5 of their plain versions (of the
+    plain value where it exceeds 1), exactly 0 and NaN where they are;
+    K10-NMS's bits equal to the plain IoU's (in both orders of each pair)
+    away from the threshold and its keep masks to the plain walk over
+    them and, with no pair that close, to the plain version's, at
+    thresholds 0.7 and 0.01. Left out: the pairs whose IoU float32 does
+    not determine (``testing.iou_undetermined``: an untame box, for
+    K10-NMS also a zero-area one, and the plain float32 value more than
+    1e-5 from its float64 one; there the plain version on the card and
+    on the CPU differ too)."""
+    boxes = dict(degenerate_box_sets())[name].to(card)
+    bev = boxes[:, [0, 1, 3, 4, 6]].contiguous()
+    for a, kernel, plain, is_bev in (
+            (boxes, box_ops.boxes_iou_3d, box_ops.boxes_iou_3d_ref, False),
+            (bev, box_ops.boxes_iou_bev, box_ops.boxes_iou_bev_ref, True)):
+        got, want = kernel(a, a), plain(a, a)
+        ok = ~iou_undetermined(a, a, want, bev=is_bev)
+        got, want = got[ok], want[ok]
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.isinf(), want.isinf())
+        fin = torch.isfinite(want)
+        err = (got - want)[fin].abs() / want[fin].abs().clamp_min(1.0)
+        assert float(err.max()) <= 1e-5
+        assert int((got[want == 0] != 0).sum()) == 0
+    gen = torch.Generator().manual_seed(len(bev))
+    scores = torch.rand((1, 3, len(bev)), generator=gen).to(card)
+    valid = torch.ones_like(scores, dtype=torch.bool)
+    iou = box_ops.boxes_iou_bev_ref(bev, bev)[None]
+    und = iou_undetermined(bev[None], bev[None], iou, bev=True,
+                           zero_area=True)
+    for thr in (0.7, 0.01):
+        bits = box_ops.nms_bev_suppression_bits(bev[None], thr)
+        near = ((iou - thr).abs() < 1e-5) | und
+        assert not ((bits != (iou > thr)) & ~near).any()
+        got = box_ops.nms_bev_mask(bev[None], scores, thr, valid)
+        assert torch.equal(got, box_ops.greedy_suppress_ref(bits, scores,
+                                                            valid))
+        if not near.any():
+            assert torch.equal(got, box_ops.nms_bev_mask_ref(
+                bev[None], scores, thr, valid))
 
 
 def test_pointpillars_tiny_on_card_matches_cpu(card):
@@ -1490,3 +1545,104 @@ def test_card_tensors_never_reach_the_plain_versions(card, monkeypatch):
     boxes = torch.cat([a[:, :2] - 1, a[:, :2] + 1], -1)[None]
     scores = torch.rand((1, 2, 40), generator=gen).to(card)
     assert box_ops.nms_normal_bev_mask(boxes, scores, 0.3).is_cuda
+
+
+# --------------------------------------------- KITTI evaluator, ImVoxelNet
+def _kitti_eval_case(tmp_path, seed: int = 0):
+    """A synthetic KITTI val split (``tools/make_synthetic_kitti.py``) and
+    detections around its GT: each GT box jittered by 0.3 m and 10% of
+    its size, one far copy and one near duplicate a sample, random
+    scores."""
+    from isfusion_tpu_torch.datasets import KittiDataset
+    from isfusion_tpu_torch.tools.make_synthetic_kitti import make_dataset
+
+    make_dataset(str(tmp_path), train=1, val=6, points=2000, objects=10,
+                 seed=seed)
+    ds = KittiDataset(ann_file=str(tmp_path / "kitti_infos_val.pkl"),
+                      classes=("pedestrian", "cyclist", "car"),
+                      test_mode=True)
+    rng = np.random.default_rng(seed)
+    dets = []
+    for i in range(len(ds)):
+        ann = ds.get_ann_info(i)
+        g, n = ann["gt_bboxes_3d"].numpy(), len(ann["gt_labels_3d"])
+        b = np.concatenate([g, g[:1], g[:1]]).astype(np.float32)
+        b[:n, :3] += rng.normal(0, 0.3, (n, 3))
+        b[:n, 3:6] *= rng.uniform(0.9, 1.1, (n, 3))
+        b[n, :2] += 20.0
+        b[n + 1, :2] += 0.05
+        dets.append(dict(bboxes=b, scores=rng.uniform(0.1, 1, n + 2),
+                         labels=np.concatenate([ann["gt_labels_3d"]] +
+                                               [ann["gt_labels_3d"][:1]] * 2),
+                         mask=np.ones(n + 2, bool)))
+    return ds, dets
+
+
+def test_kitti_eval_iou_calls_on_card_match_plain_versions(card, tmp_path):
+    """The KITTI evaluator on the card: each of its K10-BEV and K10 calls
+    (one a sample, class and mode; one launch each) within 1e-5 of its
+    plain version and exactly 0 where it is; the metrics equal to the
+    CPU's (the plain IoU) to 1e-12 unless a pair lies within 1e-5 of a
+    threshold."""
+    from isfusion_tpu_torch.testing import recording_eval_ious
+
+    ds, dets = _kitti_eval_case(tmp_path)
+    before = {k: cuda_build.LAUNCHES[k] for k in ("boxes_iou_bev",
+                                                   "boxes_iou_3d")}
+    with recording_eval_ious() as seen:
+        got = ds.evaluate(dets, device="cuda")
+    want = ds.evaluate(dets, device="cpu")
+    kinds = [k for k, _, _ in seen]
+    assert kinds.count("bev") == kinds.count("3d") >= 6
+    assert cuda_build.LAUNCHES["boxes_iou_bev"] - before["boxes_iou_bev"] \
+        == kinds.count("bev")
+    assert cuda_build.LAUNCHES["boxes_iou_3d"] - before["boxes_iou_3d"] \
+        == kinds.count("3d")
+    nearest = 1.0
+    for kind, a, b in seen:
+        assert a.is_cuda and b.is_cuda
+        if kind == "bev":
+            g, w = _check_iou_bev(a, b)
+        else:
+            g = box_ops.boxes_iou_3d(a, b)
+            w = box_ops.boxes_iou_3d_ref(a.cpu(), b.cpu()).to(card)
+            assert float((g - w).abs().max()) <= 1e-5
+            assert int((g[w == 0] != 0).sum()) == 0
+        for th in (0.7, 0.5):
+            if w.numel():
+                nearest = min(nearest, float((w - th).abs().min()))
+    assert set(got) == set(want) and "car_3d_moderate" in got
+    if nearest > 1e-5:
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-12, k
+
+
+def test_tiny_imvoxelnet_predict_on_card_matches_cpu(card):
+    """The tiny ImVoxelNet in float32 (TF32 off): head outputs 1e-3 of
+    their max; every kept box (K10-NMS on the card, one launch a request)
+    with the same labels, boxes and scores 1e-3 of their max."""
+    from isfusion_tpu_torch.flagship import build_imvoxelnet
+    from isfusion_tpu_torch.testing import pp_kept_boxes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model, batch_fn = build_imvoxelnet(tiny=True, device=dev, seed=4)
+        batch = batch_fn(2, seed=6)
+        feats = [x.cpu() for x in model(batch, mode="feats", device=dev)[0]]
+        before = cuda_build.LAUNCHES["nms_bev"]
+        kept = pp_kept_boxes(model, batch, dev)
+        if dev == "cuda":
+            assert cuda_build.LAUNCHES["nms_bev"] == before + 1
+        runs.append((feats, kept))
+    (fc, kc), (fg, kg) = runs
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    for a, b in zip(fg, fc):
+        assert rel(a, b) <= 1e-3
+    assert len(kc[0]) >= 8 and torch.equal(kg[2], kc[2])
+    for a, b in zip(kg[:2], kc[:2]):
+        assert rel(a, b) <= 1e-3

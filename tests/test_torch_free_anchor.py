@@ -35,8 +35,9 @@ from isfusion_tpu_torch.models.dense_heads.free_anchor3d_head import \
     FreeAnchor3DHead
 from torch_parity import (OPTIMIZED_XLA, anchor_family_case,
                           assert_close_to_max, assert_same_kept_boxes,
-                          check_step, float64_port, jax_cfg,
-                          random_variables, state_dict_from_jax, tree_leaves)
+                          check_step, float64_jax, float64_port,
+                          jax_cfg, random_variables, state_dict_from_jax,
+                          tree_leaves)
 
 LOSSES = {"positive_bag_loss", "negative_bag_loss"}
 
@@ -179,7 +180,10 @@ def test_regnet_free_anchor_float64_gradients_match(norm):
     terms 1e-4 relative, each top-level module's gradient (voxel encoder,
     RegNet, FPN, head) 1e-3 of its max; ``naiveSyncBN2d`` with the
     full-width config's eps 1e-3 and momentum 0.01 (one process: no
-    collective)."""
+    collective). The JAX VFE's BatchNorm computes in float64 too
+    (``float64_jax``): its float32 statistics, rounded as XLA:CPU
+    fuses them on the host at hand, moved RegNet's last-block gradients
+    2e-3 of their max on one kind of machine."""
     from isfusion_tpu.models import build_detector as jbuild_detector
     from isfusion_tpu.parallel.train_step import total_loss
     from isfusion_tpu_torch.models.builder import build_detector
@@ -213,8 +217,10 @@ def test_regnet_free_anchor_float64_gradients_match(norm):
             return total_loss(losses), losses
 
         args = (v64["params"], v64["batch_stats"])
-        (_, jl), jg = jax.jit(jax.value_and_grad(
-            loss_fn, has_aux=True)).lower(*args).compile(OPTIMIZED_XLA)(*args)
+        with float64_jax():
+            lowered = jax.jit(jax.value_and_grad(
+                loss_fn, has_aux=True)).lower(*args)
+        (_, jl), jg = lowered.compile(OPTIMIZED_XLA)(*args)
         assert jax.tree_util.tree_leaves(jg)[0].dtype == jnp.float64
         jl = {k: float(v) for k, v in jl.items()}
         jg = state_dict_from_jax({"params": jax.device_get(jg)})

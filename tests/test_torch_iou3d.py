@@ -11,6 +11,10 @@ The plain version against the JAX package stays in
 kernel against the plain version is held on the card by
 ``tests/test_torch_cuda.py``.
 
+The plain versions on degenerate boxes (zero-size, an infinite side
+times a zero one, past float32's range), the yardstick of the kernels'
+card tests on such boxes.
+
 Tolerance: exact everywhere (boolean masks, zeros and integer counts).
 """
 import math
@@ -19,7 +23,8 @@ import pytest
 import torch
 
 from isfusion_tpu_torch.ops import box_ops
-from isfusion_tpu_torch.testing import iou_edge_sets, iou_test_boxes
+from isfusion_tpu_torch.testing import (degenerate_box_sets, iou_edge_sets,
+                                        iou_test_boxes)
 
 EDGE_SETS = {name: (a, b) for name, a, b in iou_edge_sets()}
 
@@ -147,3 +152,21 @@ def test_assigner_rows_reach_the_kernel_without_a_copy():
     odd = box_ops._iou_rows(q.transpose(-1, -2).contiguous().transpose(
         -1, -2)[..., :7], 200)
     assert odd.stride(-1) == 1 and odd.shape == (4, 200, 7)
+
+
+@pytest.mark.parametrize("name", [n for n, _ in degenerate_box_sets()])
+def test_plain_iou_on_degenerate_boxes(name):
+    """The yardstick the kernels are held to on the card on an untrained
+    detector's boxes (``testing.degenerate_box_sets``): two zero-size
+    boxes have IoU exactly 0 (their shoelace terms cancel exactly), and a
+    box with an infinite side and a zero one has a NaN IoU with every box
+    (a NaN area), in BEV and in 3D, and no other pair is NaN."""
+    boxes = dict(degenerate_box_sets())[name]
+    bev = boxes[:, [0, 1, 3, 4, 6]]
+    zero = (bev[:, 2] == 0) & (bev[:, 3] == 0)
+    nan_box = bev[:, 2].isinf() & (bev[:, 3] == 0)
+    for iou in (box_ops.boxes_iou_bev_ref(bev, bev),
+                box_ops.boxes_iou_3d_ref(boxes, boxes)):
+        assert torch.equal(iou.isnan(), nan_box[:, None] | nan_box[None, :])
+        assert not iou[zero][:, zero].any()
+    assert int(zero.sum()) + int(nan_box.sum()) > 0 or name == "huge"

@@ -14,15 +14,20 @@ every GT, ROADMAP queue 3). The batch's GT boxes are anchors of their
 class moved by a few centimetres (the RPN and the RoI head both see
 positives). Voxel centres lie on a grid and the boxes are continuous, so
 no centre sits within float32 rounding of a box face (the fixture checks
-the margin against the RoIs and the GTs). The JAX side is one jitted call
-(feats, decode, losses, gradients, the optimizer step) at XLA:CPU
-backend level 1 (``torch_parity.OPTIMIZED_XLA``, as the other sparse
-detectors' tests).
-The port's train step runs on one CPU thread: on several, its float32
-sums take another order and one ReLU input within rounding of 0 changes
-sign, which moves some decoder gradients by up to 6e-3 of their max
-(``test_many_threads_differ_by_a_tie_only`` holds that this is the only
-difference).
+the margin against the RoIs and the GTs). The JAX side is two jitted calls at
+XLA:CPU backend level 1 (``torch_parity.OPTIMIZED_XLA``, as the other
+sparse detectors' tests): feats, decode and losses in float32; the
+gradients and the optimizer step in float64 (``torch_parity.
+float64_jax``), the exact function's, which the port's float32 run
+matches once it takes that function's discrete choices.
+The port's train forward and step take the discrete choices of a
+float64 run of the port (``torch_parity.float64_choices``): one ReLU
+input lies within float32 rounding of 0, and the side the port's float32
+sums put it on depends on the thread count and on the host (one thread
+matched JAX on one kind of machine and not on another), which moves some
+decoder gradients by up to 6e-3 of their max
+(``test_many_threads_differ_by_a_tie_only`` holds that a run on many
+threads differs from the float64 run's choices by such ties only).
 
 Tolerances (float32, CPU): masks, labels and proposal indices exact;
 head outputs, boxes and gradients 1e-3 of their max (sums in another
@@ -41,6 +46,11 @@ import pytest
 import torch
 
 from isfusion_tpu.models import build_detector as jbuild_detector
+from isfusion_tpu.models import layers as jlayers
+from isfusion_tpu.models import voxel_encoders as jvfe
+from isfusion_tpu.models.detectors import parta2 as jparta2
+from isfusion_tpu.models.roi_heads import part_aggregation_roi_head as jroi
+from isfusion_tpu.ops import sparse as jsparse
 from isfusion_tpu.parallel.train_step import total_loss
 from isfusion_tpu.runner import optim as joptim
 from isfusion_tpu_torch import flagship as tflagship
@@ -49,7 +59,9 @@ from isfusion_tpu_torch.ops.box_ops import box_local_uvw
 from isfusion_tpu_torch.parallel.train_step import make_train_step
 from isfusion_tpu_torch.runner import optim as toptim
 from isfusion_tpu_torch.runner.convert import state_dict_from_jax
-from torch_parity import (OPTIMIZED_XLA, assert_close_to_max, jax_cfg,
+from isfusion_tpu_torch.testing import pinned_choices
+from torch_parity import (OPTIMIZED_XLA, assert_close_to_max,
+                          float64_choices, float64_jax, jax_cfg,
                           random_variables)
 
 MODULES = ("middle_encoder", "backbone", "neck", "rpn_head", "roi_head",
@@ -77,7 +89,6 @@ def one_thread():
 def _train_loss(port, batch, pins=None):
     """The port's train-mode loss terms and gradients, the discrete
     choices recorded (or, given ``pins``, replayed)."""
-    from isfusion_tpu_torch.testing import pinned_choices
     port = copy.deepcopy(port).train()
     with pinned_choices(pins) as rec:
         tl = port(batch, mode="loss", device="cpu",
@@ -139,20 +150,47 @@ def case():
                            m.roi_head_m.get_bboxes(p))
         _, topi = jax.lax.top_k(det["scores"], k)
         out["labels"] = jnp.take_along_axis(det["labels"], topi, 1)
-        (_, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-            v["params"], v["batch_stats"], jb)
+        _, losses = loss_fn(v["params"], v["batch_stats"], jb)
+        return feats, out, losses
+
+    def step(v, jb):
+        grads = jax.grad(lambda p: loss_fn(p, v["batch_stats"], jb)[0])(
+            v["params"])
         updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
-        return feats, out, losses, grads, optax.apply_updates(v["params"],
-                                                              updates)
+        return grads, optax.apply_updates(v["params"], updates)
 
     compiled = jax.jit(run).lower(variables, jbatch).compile(OPTIMIZED_XLA)
-    feats, pred, jl, jg, jafter = jax.device_get(compiled(variables, jbatch))
+    feats, pred, jl = jax.device_get(compiled(variables, jbatch))
+    # The JAX gradients and step in float64 (the points stay float32: the
+    # voxels are the data's own). In float32 XLA:CPU's fusion of the
+    # U-Net decoder's sums rounds a ReLU input within float32 rounding of
+    # 0 to the side the host's vector code gives: 5.7e-3 of the decoder
+    # gradients' max from the float64 result on one kind of machine.
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(np.asarray(x, np.float64))
+            if np.asarray(x).dtype.kind == "f" else jnp.asarray(x),
+            jax.device_get(variables))
+        jb64 = {key: jnp.asarray(v.astype(np.float64) if v.dtype.kind == "f"
+                                 and key != "points" else v)
+                for key, v in batch.items()}
+        with float64_jax(jlayers, jsparse, jparta2, jvfe, jroi):
+            lowered = jax.jit(step).lower(v64, jb64)
+        jg, jafter = jax.device_get(lowered.compile(OPTIMIZED_XLA)(v64,
+                                                                   jb64))
     port.eval()
     stats = {}
     got_feats = port(batch, mode="feats", device="cpu", stats=stats)
     got_pred = port(batch, device="cpu")
+    # the exact function's discrete choices: a ReLU input of the tiny
+    # model lies within float32 rounding of 0, and the side the port's
+    # float32 sums put it on depends on the host and the thread count
+    choices = float64_choices(port, lambda m, b: m.train()(
+        b, mode="loss", device="cpu",
+        generator=torch.Generator().manual_seed(0)), batch)
     with one_thread():
-        trained, tl, choices = _train_loss(port, batch)
+        trained, tl, pins = _train_loss(port, batch, choices)
+    assert not pins["unexplained"]
     return dict(cfg=cfg, batch=batch, variables=variables, sd=sd, port=port,
                 feats=feats, pred=pred, jl={key: float(x) for key, x in
                                             jl.items()},
@@ -230,11 +268,13 @@ def test_loss_terms_match(case):
 def test_many_threads_differ_by_a_tie_only(case):
     """On several threads the port's train forward sums in another order,
     and a ReLU input of the tiny model lies within float32 rounding of 0:
-    given the one-thread run's discrete choices (``testing.
-    pinned_choices``), a run on the default threads differs from it only
-    in ReLU signs that are ties (none farther than 1e-4 of its tensor's
-    max from 0), and then its gradients equal the one-thread run's to 1e-4
-    of each parameter's max."""
+    given the float64 run's discrete choices (``case['choices']``, from
+    ``torch_parity.float64_choices``, through ``testing.pinned_choices``;
+    the one-thread run of the fixture takes them too), a run on the
+    default threads differs from them only in ReLU signs that are ties
+    (none farther than 1e-4 of its tensor's max from 0), and then its
+    gradients equal the one-thread run's to 1e-4 of each parameter's
+    max."""
     many, tl, pins = _train_loss(case["port"], case["batch"],
                                  case["choices"])
     assert set(pins["flips"]) <= {"relu"} and not pins["unexplained"]
@@ -273,7 +313,7 @@ def test_train_step_matches_jax(case):
     step = make_train_step(port, opt, toptim.build_schedule(
         opt, cfg["lr_config"], cfg["momentum_config"], 100),
         toptim.grad_clip_norm(cfg["optimizer_config"]))
-    with one_thread():
+    with one_thread(), pinned_choices(case["choices"]):
         tm = step(case["batch"], torch.Generator().manual_seed(0))
     jg = case["jg"]
     assert _rel(tm["loss"], sum(case["jl"].values())) <= 1e-4

@@ -61,9 +61,11 @@ from isfusion_tpu_torch.ops.hungarian import assign_proposals
 from isfusion_tpu_torch.parallel.train_step import make_train_step
 from isfusion_tpu_torch.runner import optim as toptim
 from isfusion_tpu_torch.runner.convert import state_dict_from_jax
+from isfusion_tpu_torch.testing import pinned_choices
 from test_models.test_isfusion import tiny_batch
 from test_torch_isfusion import _uncapped_cfg
-from torch_parity import assert_close_to_max, load_from_jax, random_variables
+from torch_parity import (assert_close_to_max, float64_choices, load_from_jax,
+                          random_variables)
 
 MODULES = ("img_backbone", "img_neck", "pts_voxel_encoder",
            "pts_middle_encoder", "fusion_encoder", "pts_backbone",
@@ -355,15 +357,23 @@ def test_sparse_encoder_train_mode_matches_jax():
 
     tenc = load_from_jax(SparseEncoder(**kw), variables,
                          "pts_middle_encoder_m", "pts_middle_encoder").train()
+    tc = torch.from_numpy(np.concatenate([np.zeros((v, 1), np.int64),
+                                          coors], 1))
+    # the ReLU signs of the exact function: two of this encoder's ReLU
+    # inputs lie within float32 rounding of 0, and the port's float32 sums
+    # put them on the JAX side on one kind of host and not on another
+    choices = float64_choices(tenc, lambda m, f: m(f, tc, 1),
+                              torch.from_numpy(feats))
     before = {f"pts_middle_encoder.{k}": t.clone()
               for k, t in tenc.state_dict().items()}
     rows, handles = _bn_rows(tenc)
     x = torch.from_numpy(feats).requires_grad_(True)
-    tc = np.concatenate([np.zeros((v, 1), np.int64), coors], 1)
-    got = tenc(x, torch.from_numpy(tc), 1)
+    with pinned_choices(choices) as pins:
+        got = tenc(x, tc, 1)
     (got * torch.from_numpy(probe)).sum().backward()
     for h in handles:
         h.remove()
+    assert set(pins["flips"]) <= {"relu"} and not pins["unexplained"]
     assert_close_to_max(got.detach().numpy(), np.asarray(want), 1e-4)
     assert_close_to_max(x.grad.numpy(), np.asarray(gx)[0], 1e-4)
     jg = state_dict_from_jax({"params": {

@@ -97,16 +97,111 @@ def tree_leaves(tree):
 @contextlib.contextmanager
 def float64_port():
     """Inside the block the port computes in float64: its float32 casts
-    (``torch.float32``, ``Tensor.float``) and new tensors widen. Undone on
-    exit."""
-    saved = torch.float32, torch.Tensor.float, torch.get_default_dtype()
-    torch.float32, torch.Tensor.float = torch.float64, torch.Tensor.double
+    (``torch.float32`` and its alias ``torch.float``, ``Tensor.float``) and
+    new tensors widen. Undone on exit. Dtypes a module fixed when it was
+    built (``cdtype``) stay: ``widen`` them."""
+    saved = torch.float32, torch.float, torch.Tensor.float, \
+        torch.get_default_dtype()
+    torch.float32 = torch.float = torch.float64
+    torch.Tensor.float = torch.Tensor.double
     torch.set_default_dtype(torch.float64)
     try:
         yield
     finally:
-        torch.float32, torch.Tensor.float = saved[:2]
-        torch.set_default_dtype(saved[2])
+        torch.float32, torch.float, torch.Tensor.float = saved[:3]
+        torch.set_default_dtype(saved[3])
+
+
+_FLOAT32, _TENSOR_FLOAT = torch.float32, torch.Tensor.float
+
+
+def widen(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` in float64: its tensors (``.double()``) and every float32
+    compute dtype its submodules fixed when they were built (``cdtype``:
+    the BatchNorms of the sparse encoders, their convs), so that under
+    ``float64_port`` no float32 island is left."""
+    module = module.double()
+    for m in module.modules():
+        for name, v in list(vars(m).items()):
+            if v is _FLOAT32:
+                setattr(m, name, torch.float64)
+    return module
+
+
+@contextlib.contextmanager
+def float64_jax(*modules):
+    """While the JAX package traces inside the block (under
+    ``jax.enable_x64``), the float32 that each of its ``modules`` names
+    (``jnp.float32``: casts, ``preferred_element_type``) is float64, as the
+    port's is under ``float64_port``. Default: ``models/layers.py``, whose
+    ``MaskedBatchNorm`` (the VFEs' BatchNorm) takes its statistics
+    ``E[x^2] - E[x]^2`` in float32 for bf16 safety. Left in float32, such
+    a module's rounding follows XLA:CPU's fusion of its sums (compiled or
+    eager, the host's vector width) and can flip a ReLU downstream."""
+    import jax.numpy as jnp
+
+    from isfusion_tpu.models import layers
+
+    class _Wide:
+        def __getattr__(self, name):
+            return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+    saved = [(m, m.jnp) for m in (modules or (layers,))]
+    for m, _ in saved:
+        m.jnp = _Wide()
+    try:
+        yield
+    finally:
+        for m, jnp_ in saved:
+            m.jnp = jnp_
+
+
+def float64_choices(port: torch.nn.Module, run, *args):
+    """The discrete choices (``testing.pinned_choices``: ReLU signs, top-k,
+    NMS) of ``run(module, *args)`` on a float64 copy of ``port`` (``widen``,
+    ``float64_port``; float numpy arrays and tensors among ``args``, or
+    inside a dict of them, widened; voxel coordinates computed in float32
+    from the same points). A float32 run given them takes the
+    exact function's choices: where a ReLU input lies within float32
+    rounding of 0, the side it falls on depends on the order of the host's
+    sums (its vector width, its threads), so an unpinned float32 run
+    matches the JAX package on one kind of machine and not on another."""
+    import copy
+
+    from isfusion_tpu_torch.testing import pinned_choices
+
+    def wide(v):
+        if isinstance(v, dict):
+            return {k: wide(x) for k, x in v.items()}
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            return v.astype(np.float64)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.detach().double()
+        return v
+
+    from isfusion_tpu_torch.ops import voxel
+
+    real_coords = voxel.compute_voxel_coords
+
+    def coords(points, *rest):
+        # voxel coordinates are the float32 data's own (the JAX package's
+        # arithmetic): the float64 run voxelizes the same points alike
+        inside = torch.float32, torch.float, torch.Tensor.float
+        torch.float32 = torch.float = _FLOAT32
+        torch.Tensor.float = _TENSOR_FLOAT
+        try:
+            return real_coords(points.to(_FLOAT32), *rest)
+        finally:
+            torch.float32, torch.float, torch.Tensor.float = inside
+
+    model = widen(copy.deepcopy(port))
+    voxel.compute_voxel_coords = coords
+    try:
+        with float64_port(), pinned_choices() as rec:
+            run(model, *[wide(a) for a in args])
+    finally:
+        voxel.compute_voxel_coords = real_coords
+    return rec
 
 
 def lidar_variant_case(name: str, reflectance: bool = True,
