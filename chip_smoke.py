@@ -295,6 +295,27 @@ Phases, each printing one line (every failure raises, exit code != 0):
     plain version is) and K10-normal (equal keep masks) against their
     plain versions on the path's own inputs and on edge sets, with event
     ms, whole-call device ms, plain ms and bounds;
+28a. VoteNet and H3DNet (``[votenet_main_path]``, ``[votenet_train]``,
+    ``[h3d_main_path]``, ``[h3d_train]``, ``[k14_check]``,
+    ``[votenet_reference]``, ``[h3d_reference]``): the full-width VoteNet
+    of mmdet3d's ``votenet_8x8_scannet-3d-18class.py``
+    (``flagship.build_votenet``: PointNet2SASSG over 40,000 points of xyz
+    + height, the 18-class VoteHead; float32) and the JAX package's
+    H3DNet on it (``build_h3dnet``), each serving one warm-up and five
+    batch-1 requests of a synthetic room (``synthetic_indoor_batch``;
+    every K14 kernel (FPS, ball query, K-NN, the gathers) in every
+    request and no plain K14 version; median and max ms, peak memory, the
+    stream ms of SA1-SA4, FP1-FP2, the vote module, the aggregation, the
+    head and the decode, the idle share of one profiled request) and
+    taking 1 warm-up and 3 train steps at batch 8 (``schedule_3x``:
+    AdamW, clip 10; every K14 kernel and K14-gather's backward in every
+    step); every K14 call that the VoteNet cells recorded and
+    ``testing.point_op_sets`` held against the plain versions (indices,
+    valid flags and gathers equal, the gathers' backward within 1e-6 of
+    the max and bit-equal over two calls; the largest serve call of each
+    op timed: event ms, whole-call device ms, plain ms, the bound,
+    ``index_select``'s ms for the row gathers); the tiny VoteNet and
+    H3DNet on the card against the CPU;
 
 29. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
@@ -350,7 +371,8 @@ K2, K11 and K10, on each rank's DP steps; K16 ``roiaware_pool`` with
 PartA2's; K10-BEV ``boxes_iou_bev`` and K10-normal ``nms_normal_bev``
 with phase 28's post-processing path; K10-NMS with ImVoxelNet's
 requests; K10-BEV and K10 with one KITTI evaluate's; every kernel with
-kitti-learn's loop), then
+kitti-learn's loop; the four K14 kernels with votenet-serve's requests,
+votenet-train's and the H3DNet cells' launches), then
 ``{"ok": true, "device": {...}}`` end the output.
 
 ``python3 chip_smoke.py --dp`` runs the device and build phases, then
@@ -367,6 +389,9 @@ phases 24-26 alone.
 
 ``python3 chip_smoke.py --imvoxelnet`` runs the device and build phases,
 then phase 27a alone; ``--kitti``, phase 27b alone.
+
+``python3 chip_smoke.py --votenet`` runs the device and build phases,
+then phase 28a alone and prints the K14 entries of the kernels' record.
 
 ``python3 chip_smoke.py --pp-serve [TREE]`` runs only pp-serve (more
 requests, then the K10-NMS wrapper's device and host time), with the port
@@ -1115,21 +1140,31 @@ def train_batch(batch_fn, size: int) -> dict:
 
 
 def device_profile(phase: str, fn, top: int = 10) -> None:
-    """``fn()`` once under torch.profiler: its host-clock ms (ending in a
-    synchronize), the device's busy ms and idle share, and the top device
-    operations (kernels and copies)."""
+    """``fn()`` once under torch.profiler after a warm-up call under the
+    same profile, left out of the trace (as ``device_kernels``: a profile
+    can miss its first launches; after many profiles in one process,
+    votenet-serve's K14-FPS walks, 75% of its device time, went untraced):
+    its host-clock ms (ending in a synchronize), the device's busy ms and
+    idle share, and the top device operations (kernels and copies)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    done = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: done.append(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ops = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA),
+        prof.step()
+    ops = sorted((e for e in done[0] if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ops) / 1e3
     rec = dict(wall_ms=wall, device_busy_ms=busy,
@@ -4425,6 +4460,680 @@ def imv_run() -> int:
     return 0
 
 
+# ------------------------------------------------- VoteNet, H3DNet (K14)
+K14 = ("furthest_point_sample", "ball_query", "three_nn", "point_gather")
+K14_SOURCES = dict(furthest_point_sample="furthest_point_sample.cu",
+                   ball_query="ball_query.cu", three_nn="three_nn.cu",
+                   point_gather="point_gather.cu")
+K14_REPLACES = dict(
+    furthest_point_sample="isfusion_tpu/ops/pointnet_ops.py:33",
+    ball_query="isfusion_tpu/ops/pointnet_ops.py:77",
+    three_nn="isfusion_tpu/ops/pointnet_ops.py:66",
+    point_gather="isfusion_tpu/ops/pointnet_ops.py:61")
+# the wrappers of the backbone and head (models/backbones/pointnet2.py)
+POINT_OPS = ("furthest_point_sample", "ball_query", "three_nn",
+             "gather_points", "group_points", "three_interpolate")
+INDOOR_TOPS = ("backbone", "bbox_head", "face_vote", "edge_vote",
+               "prim_proj")
+
+
+@contextlib.contextmanager
+def recording_point_ops():
+    """Inside the block, the first call of each K14 op at each argument
+    shape keeps (detached copies of) its arguments in the yielded dict
+    {(op, shapes...): args}; the op still runs."""
+    import torch
+    from isfusion_tpu_torch.models.backbones import pointnet2
+
+    real = {n: getattr(pointnet2, n) for n in POINT_OPS}
+    seen = {}
+
+    def recording(name, fn):
+        def op(*args):
+            key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a)
+                                  else a for a in args)
+            if key not in seen:
+                seen[key] = tuple(a.detach().clone() if torch.is_tensor(a)
+                                  else a for a in args)
+            return fn(*args)
+        return op
+
+    for n in POINT_OPS:
+        setattr(pointnet2, n, recording(n, real[n]))
+    try:
+        yield seen
+    finally:
+        for n in POINT_OPS:
+            setattr(pointnet2, n, real[n])
+
+
+PLAIN_K14 = ("furthest_point_sample_ref", "ball_query_ref", "knn_ref",
+             "gather_points_ref", "group_points_ref",
+             "three_interpolate_ref")
+
+
+@contextlib.contextmanager
+def counting_plain_k14():
+    """Inside the block, each call of a K14 plain version (through the
+    module's names, which the wrappers call) is counted in the yielded
+    dict; on the card the path must make none."""
+    from isfusion_tpu_torch.ops import pointnet_ops
+
+    real = {n: getattr(pointnet_ops, n) for n in PLAIN_K14}
+    calls = dict.fromkeys(PLAIN_K14, 0)
+
+    def counting(name, fn):
+        def plain(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return plain
+
+    for n in PLAIN_K14:
+        setattr(pointnet_ops, n, counting(n, real[n]))
+    try:
+        yield calls
+    finally:
+        for n in PLAIN_K14:
+            setattr(pointnet_ops, n, real[n])
+
+
+def indoor_stream_ms(model, batch: dict) -> dict:
+    """One request with CUDA events around SA1-SA4, FP1-FP2, the vote
+    module, the vote aggregation, the prediction convs (head) and the
+    decode (stream ms; the rest is the upload, H3DNet's primitive votes
+    and host gaps)."""
+    import torch
+
+    spans, handles = {}, []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    head = model.bbox_head
+    mods = [(f"SA{i + 1}", m) for i, m in
+            enumerate(model.backbone.SA_modules)] + \
+        [(f"FP{i + 1}", m) for i, m in enumerate(model.backbone.FP_modules)] \
+        + [("vote_module", head.vote_module),
+           ("aggregation", head.vote_aggregation), ("head", head.conv_pred)]
+    for n, mod in mods:
+        handles += [mod.register_forward_pre_hook(
+            lambda *_, n=n: spans.__setitem__(n, [event(), None])),
+            mod.register_forward_hook(
+                lambda *_, n=n: spans[n].__setitem__(1, event()))]
+    real = head.get_bboxes
+
+    def decode(*a, **kw):
+        spans["decode"] = [event(), None]
+        out = real(*a, **kw)
+        spans["decode"][1] = event()
+        return out
+
+    head.get_bboxes = decode
+    try:
+        t0 = time.perf_counter()
+        model(batch, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        del head.get_bboxes
+        for h in handles:
+            h.remove()
+    ms = {n: a.elapsed_time(b) for n, (a, b) in spans.items()}
+    return dict(request_ms=wall, stream_ms=ms,
+                rest_ms=wall - sum(ms.values()))
+
+
+def phase_indoor_main_path(name: str, model, batch: dict,
+                           dev: str = "cuda") -> dict:
+    """votenet-serve / h3d-serve: the full-width detector serves 1 warm-up
+    (its K14 calls recorded) + N_REQUESTS batch-1 requests of 40,000
+    points, launch counts zeroed just before the timed requests and read
+    after each: fails unless every K14 kernel launched in every request,
+    on a wrong output shape or a non-finite kept box. Median and max ms,
+    peak memory, the kept boxes, and on the card the stream ms of each
+    module and the device idle share of one profiled request."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+
+    with recording_point_ops() as seen:
+        model(batch, device=dev)
+        sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_request = [], []
+    with counting_plain_k14() as plain:
+        for i in range(N_REQUESTS):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = model(jittered(batch, i), device=dev)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                                for k in K14})
+    launches = {k: cuda_build.LAUNCHES[k] for k in K14}
+    k = min(int(model.bbox_head.test_cfg.get("max_output_num", 128)),
+            model.bbox_head.vote_aggregation.num_point)
+    b = batch["points"].shape[0]
+    shapes = {key: tuple(v.shape) for key, v in out.items()}
+    if shapes != dict(bboxes=(b, k, 7), scores=(b, k), labels=(b, k),
+                      mask=(b, k)):
+        raise RuntimeError(f"unexpected {name} output shapes {shapes}")
+    if not torch.isfinite(out["bboxes"][out["mask"]]).all():
+        raise RuntimeError(f"non-finite {name} boxes")
+    if dev == "cuda" and (any(r[n] < 1 for r in per_request for n in K14)
+                          or any(plain.values())):
+        raise RuntimeError(f"a K14 kernel did not launch in every {name} "
+                           f"request, or a plain version ran: "
+                           f"{per_request}, {plain}")
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, points=int(batch["points"].shape[1]),
+               kept_boxes=int(out["mask"].sum()),
+               launches_per_request=per_request, plain_k14_calls=plain)
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec.update(indoor_stream_ms(model, batch))
+        rec["device_idle_share"] = device_profile(
+            f"{name}_profile", lambda: model(batch, device=dev))[
+                "device_idle_share"]
+    log(f"{name}_main_path", **rec)
+    rec["launches"] = launches
+    rec["point_inputs"] = seen
+    return rec
+
+
+def _indoor_step(name, i, step, batch, gen, dev, marks, times) -> dict:
+    """One timed train step of ``phase_indoor_train``: its K14 launches
+    (K14-gather split at the end of the loss forward) and losses; fails on
+    a non-finite loss or grad norm, a zero grad norm or a missing
+    launch."""
+    from isfusion_tpu_torch.ops import cuda_build
+    before = dict(cuda_build.LAUNCHES)
+    t0 = time.perf_counter()
+    m = step(jittered(batch, i + 1), gen)
+    sync(dev)
+    times.append((time.perf_counter() - t0) * 1e3)
+    after, mid = dict(cuda_build.LAUNCHES), marks[-1]
+    launches = {k: after[k] - before[k] for k in K14[:3]}
+    launches.update(
+        point_gather_forward=mid["point_gather"] - before["point_gather"],
+        point_gather_backward=after["point_gather"] - mid["point_gather"])
+    vals = {k: float(v) for k, v in m.items()}
+    log(f"{name}_train_step", step=i, ms=times[-1], launches=launches,
+        **vals)
+    if any(not math.isfinite(v) for v in vals.values()) or \
+            vals["grad_norm"] == 0:
+        raise RuntimeError(f"{name} train step {i}: {vals}")
+    if dev == "cuda" and min(launches.values()) == 0:
+        raise RuntimeError(f"{name} train step {i}: a K14 kernel did not "
+                           f"launch: {launches}")
+    return dict(launches, losses=vals)
+
+
+def phase_indoor_train(name: str, model, batch: dict, dev: str = "cuda",
+                       steps: int = N_TRAIN_STEPS) -> dict:
+    """votenet-train / h3d-train: ``schedule_3x`` (AdamW, clip 10, step
+    lr) at batch 8 (``8x8``), 64 padded GT rows; 1 warm-up (its K14 calls
+    recorded) + ``steps`` steps, launches split at the end of the loss
+    forward. Fails on a non-finite loss or grad norm, a zero grad norm, a
+    step without every K14 kernel's forward launch and K14-gather's
+    backward, or a weight that did not move."""
+    import torch
+    from isfusion_tpu_torch.flagship import votenet_optim_cfg
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    cfg = votenet_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, cfg["lr_config"], None), grad_clip_norm(cfg["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    with recording_point_ops() as seen:
+        step(jittered(batch, 0), gen)
+        sync(dev)
+    watch = _watched(model, tuple(f"{t}." for t in INDOOR_TOPS))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    marks = []
+    hook = model.register_forward_hook(
+        lambda *_: marks.append(dict(cuda_build.LAUNCHES)))
+    times, per_step = [], []
+    try:
+        with counting_plain_k14() as plain:
+            for i in range(steps):
+                per_step.append(_indoor_step(name, i, step, batch, gen,
+                                             dev, marks, times))
+    finally:
+        hook.remove()
+    if dev == "cuda" and any(plain.values()):
+        raise RuntimeError(f"a K14 plain version ran in {name}'s steps: "
+                           f"{plain}")
+    losses = [s_.pop("losses") for s_ in per_step][-1]
+    params = dict(model.named_parameters())
+    unchanged = [n for n, t in watch.items() if torch.equal(params[n], t)]
+    rec = dict(batch=int(batch["points"].shape[0]),
+               median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, launches_per_step=per_step, losses=losses,
+               watched=len(watch), unchanged_weights=unchanged,
+               plain_k14_calls=plain)
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["device_idle_share"] = device_profile(
+            f"{name}_train_profile", lambda: step(batch, gen))[
+                "device_idle_share"]
+    log(f"{name}_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"weights unchanged by {steps} {name} steps: "
+                           f"{unchanged[:10]}")
+    model.eval()
+    rec["point_inputs"] = seen
+    return rec
+
+
+def _k14_bound(op: str, args, out) -> tuple:
+    """(bound ms, 'bytes' or 'operations', bytes, operations) of one K14
+    call on these inputs: each input read once and each output written
+    once over 3.35 TB/s, against the float operations these inputs need
+    over 67 TFLOP/s: FPS 9 a point a pick (3 differences, 3 products, 2
+    sums, the minimum); a ball query 8 a distance up to each query's K-th
+    in-radius point (all N for a ball with fewer); K-NN 9 a distance (the
+    distance and one comparison); a gather none (an interpolation 2 a
+    weighted element)."""
+    import torch
+    if op == "furthest_point_sample":
+        xyz, s = args[0], args[1]
+        b, n, _ = xyz.shape
+        nbytes = b * n * 13 + b * s * 4
+        ops = 9 * b * n * (s - 1)
+    elif op == "ball_query":
+        xyz, q = args[2], args[3]
+        idx, valid = out
+        n, k = xyz.shape[1], idx.shape[-1]
+        scanned = torch.where(valid[..., -1], idx[..., -1].long() + 1, n)
+        nbytes = xyz.numel() * 4 + xyz.shape[0] * n + q.numel() * 4 + \
+            idx.numel() * 5
+        ops = 8 * int(scanned.sum())
+    elif op == "three_nn":
+        q, xyz = args[0], args[1]
+        b, n, _ = xyz.shape
+        nbytes = xyz.numel() * 4 + b * n + q.numel() * 4 + \
+            out[1].numel() * 8
+        ops = 9 * q.shape[1] * n * b
+    else:
+        feats, idx = args[0], args[1]
+        b, n, c = feats.shape
+        flat = (idx.reshape(b, -1).long() + n * torch.arange(
+            b, device=idx.device)[:, None]).reshape(-1)
+        rows = int(torch.unique(flat).numel())
+        nbytes = rows * c * 4 + idx.numel() * 4 + out.numel() * 4
+        ops = 0
+        if op == "three_interpolate":
+            nbytes += idx.numel() * 4
+            ops = 2 * idx.numel() * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def _k14_call(op: str, args, plain: bool):
+    """The wrapper (``plain``: the plain version) of K14 op ``op`` on
+    recorded arguments; ``three_nn`` is K-NN with k = 3."""
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    if op == "three_nn":
+        q, xyz, mask = args
+        return (P.knn_ref if plain else P.knn)(3, xyz, q, mask)
+    fn = getattr(P, op + "_ref" if plain else op)
+    return fn(*args)
+
+
+def _same(a, b) -> bool:
+    import torch
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
+    """One recorded K14 call: the kernel against its plain version on the
+    same inputs (indices, valid flags and gathers equal; K-NN distances
+    equal), for a gather with float features its backward (the features'
+    and weights' gradients within 1e-6 of the max of the plain autograd's,
+    two kernel backwards bit-equal); ``timed``: event ms, whole-call
+    device ms, plain ms, the bound, and for the gathers ``index_select``'s
+    ms and the backward's ms and bound."""
+    import torch
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    got = _k14_call(op, args, plain=False)
+    want = _k14_call(op, args, plain=True)
+    sync(dev)
+    equal = _same(got, want)
+    gather = op in ("gather_points", "group_points", "three_interpolate")
+    if gather or op == "three_nn":
+        # the largest gap of the gathered values or K-NN's distances
+        g, w = (got, want) if gather else (got[1], want[1])
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+    else:
+        err = 0.0 if equal else 1.0      # an index or flag that differs
+    rec = dict(label=label, op=op, shapes=[list(a.shape) for a in args
+                                           if torch.is_tensor(a)],
+               equal=equal, max_abs_err=err)
+    if gather:
+        rec.update(_gather_backward(op, args, got, dev))
+    bound = _k14_bound(op, args, got)
+    rec.update(bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
+               operations=bound[3])
+    if timed and dev == "cuda":
+        heavy = op == "furthest_point_sample"
+        rec["ms"] = cuda_ms(lambda: _k14_call(op, args, False), dev,
+                            iters=5 if heavy else 20)
+        ops = device_kernels(lambda: _k14_call(op, args, False),
+                             iters=5 if heavy else 20) or device_kernels(
+            lambda: _k14_call(op, args, False), iters=5 if heavy else 20)
+        # an empty trace (the profiler can miss every launch of a call)
+        # is not a time
+        rec["device_ms"] = sum(n * ms for n, ms in ops.values()) if ops \
+            else "not measured"
+        rec["device_ops_per_call"] = {k[:60]: n for k, (n, _) in ops.items()}
+        rec["plain_ms"] = cuda_ms(lambda: _k14_call(op, args, True), dev,
+                                  iters=1 if heavy else 5)
+        rec["library_ms"] = None
+        if op in ("gather_points", "group_points"):
+            feats, idx = args
+            b, n, c = feats.shape
+            flat = feats.reshape(-1, c)
+            gidx = (idx.reshape(b, -1).long() + n * torch.arange(
+                b, device=idx.device)[:, None]).reshape(-1)
+            rec["library_ms"] = cuda_ms(lambda: flat.index_select(0, gidx),
+                                        dev)
+    return rec
+
+
+def _gather_backward(op: str, args, fwd, dev: str) -> dict:
+    """The gather's backward on the card against plain autograd: a seeded
+    output gradient, the features' (and weights') gradients within 1e-6 of
+    the max, two kernel backwards bit-equal; timed on the card."""
+    import torch
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    if fwd.numel() == 0:
+        return {}
+    g = torch.randn(fwd.shape, generator=torch.Generator(dev).manual_seed(
+        7), device=dev)
+
+    def grads(plain: bool):
+        feats = args[0].detach().clone().requires_grad_(True)
+        rest = list(args[1:])
+        if op == "three_interpolate":
+            rest[1] = rest[1].detach().clone().requires_grad_(True)
+        fn = getattr(P, op + "_ref" if plain else op)
+        out = fn(feats, *rest)
+        out.backward(g)
+        return [feats.grad] + ([rest[1].grad] if op == "three_interpolate"
+                               else [])
+
+    got, again, want = grads(False), grads(False), grads(True)
+    rec = dict(bwd_max_abs_err=max(
+        float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        for a, b in zip(got, want)),
+        bwd_repeats=all(torch.equal(a, b) for a, b in zip(got, again)))
+    if dev == "cuda":
+        rec["fwd_bwd_ms"] = cuda_ms(lambda: grads(False), dev)
+        rec["plain_fwd_bwd_ms"] = cuda_ms(lambda: grads(True), dev)
+        feats, idx = args[0], args[1]
+        nbytes = g.numel() * 4 + idx.numel() * 4 * (
+            3 if op == "three_interpolate" else 2) + feats.numel() * 4
+        rec["backward_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    return rec
+
+
+def _largest(recorded: dict, op: str):
+    """The recorded call of ``op`` with the most elements."""
+    import torch
+    keys = [k for k in recorded if k[0] == op]
+    return max(keys, key=lambda k: sum(
+        a.numel() for a in recorded[k] if torch.is_tensor(a)))
+
+
+def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
+    """Every K14 kernel against its plain version on every call the
+    VoteNet path recorded (``recorded``: {cell: recording_point_ops()'s
+    dict}) and on ``testing.point_op_sets`` (FPS, ball query, K-NN at k 3
+    and 8, the three gathers forward and backward): fails unless every
+    call is equal (K14-gather's backward within 1e-6 of the max and
+    repeating bit for bit). The largest serve call of each op is timed."""
+    import numpy as np
+    import torch
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    from isfusion_tpu_torch.testing import point_op_sets
+
+    cases = []
+    for cell, seen in recorded.items():
+        timed = {_largest(seen, op) for op in POINT_OPS
+                 if any(k[0] == op for k in seen)} if cell.endswith(
+                     "serve") else set()
+        for key, args in seen.items():
+            cases.append(k14_case(cell, key[0], args, dev, key in timed))
+    for name, xyz, mask, q, radius, k, s in point_op_sets(
+            np.random.default_rng(14)):
+        xyz, mask, q = (torch.from_numpy(a).to(dev) for a in (xyz, mask, q))
+        feats = torch.randn(xyz.shape[:2] + (5,), generator=torch.Generator(
+            dev).manual_seed(3), device=dev)
+        fps = P.furthest_point_sample_ref(xyz, s, mask)
+        gi, _ = P.ball_query_ref(radius, k, xyz, q, mask)
+        ni, d = P.knn_ref(3, xyz, q, mask)
+        w = P.interpolation_weights(torch.sqrt(d.clamp_min(1e-10)))
+        calls = [("furthest_point_sample", (xyz, s, mask)),
+                 ("ball_query", (radius, k, xyz, q, mask)),
+                 ("three_nn", (q, xyz, mask)),
+                 ("gather_points", (feats, fps)),
+                 ("group_points", (feats, gi)),
+                 ("three_interpolate", (feats, ni, w))]
+        for op, args in calls:
+            cases.append(k14_case(name, op, args, dev, False))
+        for kk in (1, 8, 16):
+            if kk <= xyz.shape[1]:
+                got = P.knn(kk, xyz, q, mask)
+                want = P.knn_ref(kk, xyz, q, mask)
+                cases.append(dict(label=name, op=f"knn_k{kk}",
+                                  equal=_same(got, want), max_abs_err=0.0))
+    bad = [c for c in cases if not c["equal"] or c.get(
+        "bwd_max_abs_err", 0.0) > 1e-6 or c.get("bwd_repeats") is False]
+    for c in cases:
+        if "ms" in c:
+            log("k14_case", **{k: v for k, v in c.items()
+                               if k != "device_ops_per_call"})
+    per_kernel = {}
+    for kern, ops in (("furthest_point_sample", ("furthest_point_sample",)),
+                      ("ball_query", ("ball_query",)),
+                      ("three_nn", ("three_nn",)),
+                      ("point_gather", ("gather_points", "group_points",
+                                        "three_interpolate"))):
+        mine = [c for c in cases if c["op"] in ops or (
+            kern == "three_nn" and c["op"].startswith("knn_k"))]
+        timed = [c for c in mine if "ms" in c]
+        main = max(timed, key=lambda c: c["bound_ms"]) if timed else {}
+        per_kernel[kern] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            checked_calls=len(mine),
+            path_calls=sum(1 for c in mine if c["label"] in recorded),
+            bwd_max_abs_err=max([c.get("bwd_max_abs_err", 0.0)
+                                 for c in mine]),
+            bwd_repeats=all(c.get("bwd_repeats", True) for c in mine),
+            main={k: v for k, v in main.items()
+                  if k != "device_ops_per_call"},
+            timed=[{k: c.get(k) for k in ("label", "op", "shapes", "ms",
+                                          "device_ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by", "fwd_bwd_ms",
+                                          "plain_fwd_bwd_ms",
+                                          "backward_bound_ms")}
+                   for c in timed])
+    rec = dict(cases=len(cases), failed=[{k: c.get(k) for k in (
+        "label", "op", "shapes", "equal", "max_abs_err", "bwd_max_abs_err",
+        "bwd_repeats")} for c in bad], per_kernel=per_kernel)
+    log("k14_check", **rec)
+    if bad:
+        raise RuntimeError(f"K14 kernels differ from their plain versions: "
+                           f"{rec['failed'][:5]}")
+    return rec
+
+
+def phase_indoor_reference(name: str, dev: str = "cuda") -> dict:
+    """The tiny VoteNet or H3DNet in float32 (TF32 off) on the card
+    against the CPU from the same weights and batch (its GT boxes on the
+    CPU model's train-mode proposals, ``testing.indoor_positives``): head
+    outputs 1e-3 of their max (indices and masks equal), predict (the same
+    mask and labels, boxes and scores 1e-3 of their max), loss terms 1e-4
+    relative, each top module's gradient 1e-3 of its max."""
+    import torch
+    from isfusion_tpu_torch.flagship import build_h3dnet, build_votenet
+    from isfusion_tpu_torch.testing import indoor_positives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = build_votenet if name == "votenet" else build_h3dnet
+    cpu_model, batch_fn = build(tiny=True, device="cpu", seed=1)
+    batch = indoor_positives(cpu_model, batch_fn(2, seed=3), "cpu")
+
+    def run(d):
+        model, _ = build(tiny=True, device=d, seed=1)
+        feats = {k: v.cpu() for k, v in model(batch, mode="feats",
+                                              device=d).items()}
+        pred = {k: v.cpu() for k, v in model(batch, device=d).items()}
+        model.train()
+        losses = model(batch, mode="loss", device=d)
+        sum(losses.values()).backward()
+        grads = {}
+        for top in INDOOR_TOPS:
+            ps = [p.grad.detach().cpu().flatten() for n, p in
+                  model.named_parameters() if n.split(".")[0] == top]
+            if ps:
+                grads[top] = torch.cat(ps)
+        return feats, pred, {k: float(v.detach()) for k, v in
+                             losses.items()}, grads
+
+    (fg, pg, lg, gg), (fc, pc, lc, gc) = run(dev), run("cpu")
+    exact = [k for k, v in fc.items() if not v.is_floating_point()]
+    rec = dict(
+        exact_equal={k: torch.equal(fg[k], fc[k]) for k in exact},
+        feat_rel_err=max(_rel_to_max(fg[k], fc[k]) for k in fc
+                         if k not in exact),
+        mask_equal=torch.equal(pg["mask"], pc["mask"]),
+        labels_equal=torch.equal(pg["labels"], pc["labels"]),
+        box_rel_err=max(_rel_to_max(pg[k], pc[k]) for k in ("bboxes",
+                                                             "scores")),
+        loss_rel_err=max(abs(lg[k] - v) / max(abs(v), 1e-12)
+                         for k, v in lc.items()),
+        grad_rel_err={t: _rel_to_max(gg[t], gc[t]) for t in gc},
+        losses=lc)
+    log(f"{name}_reference", **rec)
+    if not all(rec["exact_equal"].values()) or rec["feat_rel_err"] > 1e-3 \
+            or not rec["mask_equal"] or not rec["labels_equal"] or \
+            rec["box_rel_err"] > 1e-3 or rec["loss_rel_err"] > 1e-4 or \
+            max(rec["grad_rel_err"].values()) > 1e-3 or \
+            min(lc.values()) <= 0:
+        raise RuntimeError(f"tiny {name} on the card differs from the CPU: "
+                           f"{rec}")
+    return rec
+
+
+def run_votenet_phases(dev: str = "cuda") -> dict:
+    """votenet-serve, votenet-train, h3d-serve, h3d-train, the K14 check
+    on the VoteNet cells' recorded calls and the adversarial sets, and the
+    tiny references."""
+    import torch
+    from isfusion_tpu_torch.flagship import (build_h3dnet, build_votenet,
+                                             votenet_optim_cfg)
+
+    bsz = votenet_optim_cfg()["samples_per_gpu"]
+    out = {}
+    for name, build in (("votenet", build_votenet), ("h3d", build_h3dnet)):
+        model, batch_fn = build(device=dev, seed=0)
+        out[f"{name}_serve"] = phase_indoor_main_path(name, model,
+                                                      batch_fn(1), dev)
+        out[f"{name}_train"] = phase_indoor_train(name, model, batch_fn(
+            bsz, seed=1), dev)
+        del model
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    recorded = {cell: out[cell].pop("point_inputs")
+                for cell in ("votenet_serve", "votenet_train")}
+    for cell in ("h3d_serve", "h3d_train"):
+        out[cell].pop("point_inputs")
+    out["check"] = phase_k14_check(recorded, dev)
+    del recorded
+    for name in ("votenet", "h3d"):
+        out[f"{name}_reference"] = phase_indoor_reference(name, dev)
+    return out
+
+
+def k14_kernel_records(indoor: dict) -> list:
+    """The four K14 entries of the kernels' JSON line: votenet-serve's
+    launches, the check's errors and the largest serve call's times."""
+    serve, train = indoor["votenet_serve"], indoor["votenet_train"]
+    recs = []
+    for kern in K14:
+        chk = indoor["check"]["per_kernel"][kern]
+        main = chk["main"]
+        rec = dict(
+            name=kern, route="cuda",
+            source=f"isfusion_tpu_torch/csrc/{K14_SOURCES[kern]}",
+            replaces=K14_REPLACES[kern], launches=serve["launches"][kern],
+            max_abs_err=max(chk["max_abs_err"], chk["bwd_max_abs_err"]),
+            **{k: main.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "device_ms", "shapes", "op")},
+            launches_per_request=[r[kern] for r in serve[
+                "launches_per_request"]],
+            h3d_launches_per_request=[r[kern] for r in indoor["h3d_serve"][
+                "launches_per_request"]],
+            checked_calls=chk["checked_calls"], path_calls=chk["path_calls"],
+            timed=chk["timed"])
+        if kern == "point_gather":
+            rec["train_launches_per_step"] = [dict(
+                forward=s["point_gather_forward"],
+                backward=s["point_gather_backward"])
+                for s in train["launches_per_step"]]
+            rec["h3d_train_launches_per_step"] = [dict(
+                forward=s["point_gather_forward"],
+                backward=s["point_gather_backward"])
+                for s in indoor["h3d_train"]["launches_per_step"]]
+            rec["bwd_repeats"] = chk["bwd_repeats"]
+            rec.update({k: main.get(k) for k in (
+                "fwd_bwd_ms", "plain_fwd_bwd_ms", "backward_bound_ms")})
+        else:
+            rec["train_launches_per_step"] = [s[kern] for s in train[
+                "launches_per_step"]]
+            rec["h3d_train_launches_per_step"] = [
+                s[kern] for s in indoor["h3d_train"]["launches_per_step"]]
+        recs.append(rec)
+    return recs
+
+
+def votenet_run() -> int:
+    """``python3 chip_smoke.py --votenet``: the device and build phases,
+    then the VoteNet and H3DNet phases alone, and the K14 entries of the
+    kernels' line."""
+    import torch
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    indoor = run_votenet_phases()
+    print(smi)
+    print(json.dumps({"kernels": k14_kernel_records(indoor)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 # ------------------------------------------------------------- KITTI loop
 KITTI_THRESHOLDS = (0.7, 0.5)
 
@@ -6555,6 +7264,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssn = run_ssn_phases()
     torch.cuda.empty_cache()
+    indoor = run_votenet_phases()
+    torch.cuda.empty_cache()
     # the DP ranks start, build and warm up during the variants, which
     # time nothing
     dp_ranks = start_dp_ranks()
@@ -6875,6 +7586,7 @@ def main() -> int:
         errs = [r["max_abs_err"] for r in k["lidar_variants"].values()
                 if r["max_abs_err"] is not None]
         k["max_abs_err"] = max([k["max_abs_err"]] + errs)
+    kernels += k14_kernel_records(indoor)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7479,6 +8191,8 @@ if __name__ == "__main__":
         sys.exit(imv_run())
     if sys.argv[1:] == ["--kitti"]:
         sys.exit(kitti_run())
+    if sys.argv[1:] == ["--votenet"]:
+        sys.exit(votenet_run())
     if sys.argv[1:] == ["--isfusion-learn"]:
         sys.exit(isfusion_learn_run())
     if sys.argv[1:] == ["--dp"]:

@@ -2,15 +2,18 @@
 ``DeltaXYZWLHRBBoxCoder`` (anchor residuals of PointPillars),
 ``TransFusionBBoxCoder`` (``encode`` for the training targets, ``decode``
 and ``valid_mask`` for the predictions) and ``CenterPointBBoxCoder``
-(CenterHead's heatmap decode). Geometry stays float32: the ``exp`` of
+(CenterHead's heatmap decode) and ``PartialBinBasedBBoxCoder`` (VoteNet's
+direction bins and size clusters). Geometry stays float32: the ``exp`` of
 the size residuals overflows bf16."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 
 from ...models.middle_encoders.isfusion_encoder import topk_stable
+from ...registry import BBOX_CODERS
 
 
 class DeltaXYZWLHRBBoxCoder:
@@ -178,3 +181,70 @@ class CenterPointBBoxCoder:
                 (bboxes[..., :3] <= pcr[3:]).all(-1)
         return dict(bboxes=bboxes, scores=torch.where(mask, topv, 0.0),
                     labels=labels, mask=mask)
+
+
+@BBOX_CODERS.register_module()
+class PartialBinBasedBBoxCoder:
+    """VoteNet's coder (the JAX package's ``coders.py:137``; reference
+    ``partial_bin_based_bbox_coder.py``): the yaw as a class of
+    ``num_dir_bins`` equal bins and a residual from the bin's centre, the
+    size as one of ``num_sizes`` mean sizes and a residual. Boxes are
+    (..., 7) gravity-centred (x, y, z, dx, dy, dz, yaw). The bin width and
+    2 pi are Python floats that meet float32 tensors, so they are rounded
+    to float32 as the JAX package's weak-typed constants are."""
+
+    def __init__(self, num_dir_bins: int, num_sizes: int, mean_sizes,
+                 with_rot: bool = True):
+        if len(mean_sizes) != num_sizes:
+            raise ValueError("PartialBinBasedBBoxCoder: one mean size a "
+                             "size class")
+        self.num_dir_bins = int(num_dir_bins)
+        self.num_sizes = int(num_sizes)
+        self.mean_sizes = torch.as_tensor(mean_sizes, dtype=torch.float32)
+        self.with_rot = bool(with_rot)
+
+    def angle2class(self, angle: torch.Tensor):
+        """-> (class int64, residual): bins centred on k * 2 pi / bins."""
+        two_pi = 2 * math.pi
+        per = two_pi / self.num_dir_bins
+        shifted = torch.remainder(torch.remainder(angle, two_pi) + per / 2,
+                                  two_pi)
+        # a true division (CUDA divides by a Python scalar through its
+        # reciprocal, which can move a yaw on a bin's edge)
+        cls = torch.remainder((shifted / torch.full(
+            (), per, dtype=angle.dtype, device=angle.device)).to(torch.int32),
+            self.num_dir_bins)
+        res = shifted - (cls.to(angle.dtype) * per + per / 2)
+        return cls.long(), res
+
+    def class2angle(self, cls: torch.Tensor, res: torch.Tensor):
+        return cls.to(res.dtype) * (2 * math.pi / self.num_dir_bins) + res
+
+    def encode(self, gt_gravity_center, gt_dims, gt_yaw, gt_labels):
+        """-> (centre, size class (the label), size residual, direction
+        class, direction residual)."""
+        size_res = gt_dims - self.mean_sizes.to(gt_dims.device)[gt_labels]
+        if self.with_rot:
+            dir_cls, dir_res = self.angle2class(gt_yaw)
+        else:
+            dir_cls = torch.zeros(gt_yaw.shape, dtype=torch.long,
+                                  device=gt_yaw.device)
+            dir_res = torch.zeros_like(gt_yaw)
+        return gt_gravity_center, gt_labels, size_res, dir_cls, dir_res
+
+    def decode(self, center, dir_class_logits, dir_res, size_class_logits,
+               size_res):
+        """centre (..., P, 3), direction logits and residuals (..., P,
+        bins), size logits (..., P, sizes), size residuals (..., P, sizes,
+        3) -> (..., P, 7) gravity-centred boxes (sizes at least 0.01)."""
+        dir_cls = dir_class_logits.argmax(-1)
+        dres = torch.gather(dir_res, -1, dir_cls[..., None])[..., 0]
+        yaw = self.class2angle(dir_cls, dres) if self.with_rot else \
+            torch.zeros(center.shape[:-1], dtype=center.dtype,
+                        device=center.device)
+        size_cls = size_class_logits.argmax(-1)
+        sres = torch.gather(size_res, -2, size_cls[..., None, None].expand(
+            *size_cls.shape, 1, 3))[..., 0, :]
+        dims = (self.mean_sizes.to(center.device)[size_cls] + sres
+                ).clamp_min(0.01)
+        return torch.cat([center, dims, yaw[..., None]], -1)

@@ -43,7 +43,12 @@ recipe (SGD with momentum, weight decay and the bias multipliers, step lr
 with linear warmup, clip 35). ``build_ssn`` and ``build_free_anchor`` build
 SSN (ShapeAwareHead) and FreeAnchor on RegNetX-400MF + FPN on the
 PointPillars config's voxels and recipe (``ssn_optim_cfg``,
-``free_anchor_optim_cfg``: batch 2 and 4).
+``free_anchor_optim_cfg``: batch 2 and 4). ``build_votenet`` and
+``build_h3dnet`` build the indoor VoteNet of mmdet3d's
+``votenet_8x8_scannet-3d-18class.py`` and the JAX package's H3DNet on it
+with a synthetic room of 40,000 points (``synthetic_indoor_batch``), and
+``votenet_optim_cfg`` gives their ``schedule_3x`` recipe (AdamW, clip 10,
+step lr, batch 8).
 """
 from __future__ import annotations
 
@@ -1535,3 +1540,222 @@ def parta2_kitti_cfg(data_root: str, tiny: bool = False, epochs: int = 2,
         total_epochs=epochs, runner=dict(max_epochs=epochs),
         evaluation=dict(interval=1), checkpoint_config=dict(interval=1),
         log_config=dict(interval=1), seed=0))
+
+
+# ----------------------------------------------------------- indoor (VoteNet)
+# ScanNet's 18 classes' mean sizes are not in this repository: 18 seeded
+# sizes in 0.2-2.0 m take their place (they change no shape and no cost)
+SCANNET_MEAN_SIZES = tuple(tuple(round(float(v), 4) for v in row) for row in
+                           np.random.default_rng(18).uniform(0.2, 2.0,
+                                                             (18, 3)))
+# the JAX package's tiny VoteNet (tests/test_models/test_votenet.py)
+VOTENET_TINY_SIZES = ((0.6, 0.6, 0.5), (1.0, 1.0, 1.0), (2.0, 1.0, 1.0),
+                      (0.5, 0.5, 1.8))
+
+
+def votenet_model_cfg(tiny: bool = False) -> dict:
+    """VoteNet's model config dict. Full width: mmdet3d's
+    ``votenet_8x8_scannet-3d-18class.py`` (``_base_/models/votenet.py``):
+    PointNet2SASSG over xyz + height (4 channels; SA 2,048 / 1,024 / 512 /
+    256 points, radii 0.2 / 0.4 / 0.8 / 1.2, 64 / 32 / 16 / 16 samples,
+    widths (64, 64, 128), (128, 128, 256) x 3; FP (256, 256) x 2; max
+    pool, ``use_xyz``, ``normalize_xyz``); VoteHead, 18 classes,
+    PartialBinBasedBBoxCoder (1 direction bin, 18 sizes, no rotation), the
+    vote module (256, 256) with ``norm_feats``, the vote aggregation (256
+    points, radius 0.3, 16 samples, ``mlp_channels`` [256, 128, 128,
+    128]), shared convs (128, 128). Float32 throughout, as the reference
+    trains it. ``tiny``: the JAX package's test model (4 classes, 6
+    direction bins with rotation, 128 / 64 / 32 / 16 points, widths 8-32)
+    with ``in_channels`` 4, its points' width (the JAX package ignores
+    the key; its test sets 1)."""
+    head = dict(
+        type="VoteHead", num_classes=18,
+        bbox_coder=dict(type="PartialBinBasedBBoxCoder", num_sizes=18,
+                        num_dir_bins=1, with_rot=False,
+                        mean_sizes=[list(s) for s in SCANNET_MEAN_SIZES]),
+        vote_module_cfg=dict(in_channels=256, vote_per_seed=1,
+                             gt_per_seed=3, conv_channels=(256, 256),
+                             conv_cfg=dict(type="Conv1d"),
+                             norm_cfg=dict(type="BN1d"), norm_feats=True,
+                             vote_loss=dict(type="ChamferDistance",
+                                            mode="l1", reduction="none",
+                                            loss_dst_weight=10.0)),
+        vote_aggregation_cfg=dict(type="PointSAModule", num_point=256,
+                                  radius=0.3, num_sample=16,
+                                  mlp_channels=[256, 128, 128, 128],
+                                  use_xyz=True, normalize_xyz=True),
+        pred_layer_cfg=dict(in_channels=128, shared_conv_channels=(128, 128),
+                            bias=True),
+        feat_channels=(128, 128),
+        objectness_loss=dict(type="CrossEntropyLoss",
+                             class_weight=[0.2, 0.8], reduction="sum",
+                             loss_weight=5.0),
+        center_loss=dict(type="ChamferDistance", mode="l2",
+                         reduction="sum", loss_src_weight=10.0,
+                         loss_dst_weight=10.0),
+        dir_class_loss=dict(type="CrossEntropyLoss", reduction="sum",
+                            loss_weight=1.0),
+        dir_res_loss=dict(type="SmoothL1Loss", reduction="sum",
+                          loss_weight=10.0),
+        size_class_loss=dict(type="CrossEntropyLoss", reduction="sum",
+                             loss_weight=1.0),
+        size_res_loss=dict(type="SmoothL1Loss", reduction="sum",
+                           loss_weight=10.0 / 3.0),
+        semantic_loss=dict(type="CrossEntropyLoss", reduction="sum",
+                           loss_weight=1.0))
+    cfg = dict(
+        type="VoteNet",
+        backbone=dict(type="PointNet2SASSG", in_channels=4,
+                      num_points=(2048, 1024, 512, 256),
+                      radius=(0.2, 0.4, 0.8, 1.2),
+                      num_samples=(64, 32, 16, 16),
+                      sa_channels=((64, 64, 128), (128, 128, 256),
+                                   (128, 128, 256), (128, 128, 256)),
+                      fp_channels=((256, 256), (256, 256)),
+                      norm_cfg=dict(type="BN2d"),
+                      sa_cfg=dict(type="PointSAModule", pool_mod="max",
+                                  use_xyz=True, normalize_xyz=True)),
+        bbox_head=head,
+        train_cfg=dict(pos_distance_thr=0.3, neg_distance_thr=0.6,
+                       sample_mod="vote"),
+        test_cfg=dict(sample_mod="seed", nms_thr=0.25, score_thr=0.05,
+                      per_class_proposal=True))
+    if not tiny:
+        return cfg
+    return dict(
+        type="VoteNet",
+        backbone=dict(type="PointNet2SASSG", in_channels=4,
+                      num_points=(128, 64, 32, 16),
+                      radius=(0.4, 0.8, 1.2, 2.4), num_samples=(8, 8, 8, 8),
+                      sa_channels=((8, 8, 16), (16, 16, 32), (16, 16, 32),
+                                   (16, 16, 32)),
+                      fp_channels=((32, 32), (32, 32))),
+        bbox_head=dict(
+            type="VoteHead", num_classes=4,
+            bbox_coder=dict(type="PartialBinBasedBBoxCoder", num_dir_bins=6,
+                            num_sizes=4, with_rot=True,
+                            mean_sizes=[list(s) for s in
+                                        VOTENET_TINY_SIZES]),
+            vote_module_cfg=dict(in_channels=32, vote_per_seed=1,
+                                 conv_channels=(32, 32)),
+            vote_aggregation_cfg=dict(num_point=32, radius=0.9,
+                                      num_sample=8,
+                                      mlp_channels=[32, 32, 32, 32]),
+            feat_channels=(32, 32)),
+        test_cfg=dict(max_output_num=16))
+
+
+def votenet_optim_cfg() -> dict:
+    """VoteNet's training recipe (``schedule_3x``): AdamW (lr 0.008, weight
+    decay 0.01), clip 10, step lr at epochs 24 and 32 with no warmup,
+    ``samples_per_gpu`` 8 (``8x8``), 36 epochs."""
+    return dict(optimizer=dict(type="AdamW", lr=0.008, weight_decay=0.01),
+                optimizer_config=dict(grad_clip=dict(max_norm=10.0,
+                                                     norm_type=2)),
+                lr_config=dict(policy="step", step=[24, 32]),
+                momentum_config=None, samples_per_gpu=8, max_epochs=36)
+
+
+def h3dnet_model_cfg(tiny: bool = False) -> dict:
+    """H3DNet, the JAX package's compact version: VoteNet's backbone and
+    head (``votenet_model_cfg(tiny)``) plus the face and edge primitive
+    vote branches, ``primitive_channels`` 64 (the JAX default; tiny 16)."""
+    return dict(votenet_model_cfg(tiny), type="H3DNet",
+                primitive_channels=16 if tiny else 64)
+
+
+def synthetic_indoor_batch(batch_size: int, num_points: int = 40000,
+                           num_classes: int = 18, max_gt: int = 64,
+                           seed: int = 0, room=(8.0, 8.0, 3.0),
+                           scan_share: float = 0.75) -> dict:
+    """An indoor batch in the JAX package's contract: a room of ``room``
+    metres (x, y centred on 0, floor at z 0) with its floor and four walls
+    and 8-16 axis-aligned boxes standing on the floor (sizes 0.3-2.0 m,
+    labels over ``num_classes``), scanned as ``scan_share * num_points``
+    points spread over the floor, the walls and the boxes' tops and sides
+    by area (1 cm noise), then exactly ``num_points`` drawn from them with
+    replacement (exact duplicates exist, as ``IndoorPointSample`` makes
+    them from a short scan). Points (B, N, 4): xyz and the height above the
+    floor, ``z - percentile(z, 0.99)`` (``shift_height``); points_mask all
+    True; gt_bboxes_3d (B, ``max_gt``, 7) bottom-centred, yaw 0,
+    gt_labels_3d (B, ``max_gt``) int64, gt_mask (B, ``max_gt``). numpy,
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lx, ly, lz = room
+    pts = np.zeros((batch_size, num_points, 4), np.float32)
+    boxes = np.zeros((batch_size, max_gt, 7), np.float32)
+    labels = np.zeros((batch_size, max_gt), np.int64)
+    gt_mask = np.zeros((batch_size, max_gt), bool)
+    for b in range(batch_size):
+        g = int(rng.integers(8, 17))
+        size = rng.uniform(0.3, 2.0, (g, 3))
+        size[:, 2] = np.minimum(size[:, 2], lz - 0.2)
+        ctr = np.stack([rng.uniform(-lx / 2 + size[:, 0] / 2,
+                                    lx / 2 - size[:, 0] / 2),
+                        rng.uniform(-ly / 2 + size[:, 1] / 2,
+                                    ly / 2 - size[:, 1] / 2)], -1)
+        # (origin, edge u, edge v) of every scanned rectangle
+        rects = [((-lx / 2, -ly / 2, 0), (lx, 0, 0), (0, ly, 0)),
+                 ((-lx / 2, -ly / 2, 0), (lx, 0, 0), (0, 0, lz)),
+                 ((-lx / 2, ly / 2, 0), (lx, 0, 0), (0, 0, lz)),
+                 ((-lx / 2, -ly / 2, 0), (0, ly, 0), (0, 0, lz)),
+                 ((lx / 2, -ly / 2, 0), (0, ly, 0), (0, 0, lz))]
+        for (cx, cy), (dx, dy, dz) in zip(ctr, size):
+            x0, y0 = cx - dx / 2, cy - dy / 2
+            rects += [((x0, y0, dz), (dx, 0, 0), (0, dy, 0)),
+                      ((x0, y0, 0), (dx, 0, 0), (0, 0, dz)),
+                      ((x0, y0 + dy, 0), (dx, 0, 0), (0, 0, dz)),
+                      ((x0, y0, 0), (0, dy, 0), (0, 0, dz)),
+                      ((x0 + dx, y0, 0), (0, dy, 0), (0, 0, dz))]
+        o, u, v = (np.asarray(t, np.float64) for t in zip(*rects))
+        area = np.linalg.norm(np.cross(u, v), axis=-1)
+        scan = int(num_points * scan_share)
+        which = rng.choice(len(rects), scan, p=area / area.sum())
+        st = rng.uniform(size=(scan, 2))
+        xyz = o[which] + st[:, :1] * u[which] + st[:, 1:] * v[which] + \
+            rng.normal(0, 0.01, (scan, 3))
+        xyz = xyz[rng.integers(0, scan, num_points)].astype(np.float32)
+        pts[b, :, :3] = xyz
+        pts[b, :, 3] = xyz[:, 2] - np.percentile(xyz[:, 2], 0.99)
+        boxes[b, :g, :2] = ctr
+        boxes[b, :g, 3:6] = size
+        labels[b, :g] = rng.integers(0, num_classes, g)
+        gt_mask[b, :g] = True
+    return dict(points=pts, points_mask=np.ones((batch_size, num_points),
+                                                bool),
+                gt_bboxes_3d=boxes, gt_labels_3d=labels, gt_mask=gt_mask)
+
+
+def _build_indoor(cfg: dict, tiny: bool, device, seed: int):
+    from .models.builder import build_detector
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model = init_weights(build_detector(cfg), seed).to(dev).eval()
+    if tiny:
+        def batch_fn(b, seed=0):
+            return synthetic_indoor_batch(b, num_points=256, num_classes=4,
+                                          max_gt=16, seed=seed,
+                                          room=(4.0, 4.0, 2.5))
+    else:
+        def batch_fn(b, seed=0):
+            return synthetic_indoor_batch(b, seed=seed)
+    return model, batch_fn
+
+
+def build_votenet(tiny: bool = False, device=None, seed: int = 0
+                  ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): VoteNet (``votenet_model_cfg(tiny)``) with weights
+    drawn from ``seed``, in eval mode on ``device`` (default: the CUDA
+    card; raises if it is missing), and ``batch_fn(batch_size, seed=0)``
+    giving ``synthetic_indoor_batch`` (full width: 40,000 points, 18
+    classes, 64 GT rows; tiny: 256 points in a 4 x 4 x 2.5 m room, 4
+    classes, 16 rows)."""
+    return _build_indoor(votenet_model_cfg(tiny), tiny, device, seed)
+
+
+def build_h3dnet(tiny: bool = False, device=None, seed: int = 0
+                 ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): H3DNet (``h3dnet_model_cfg(tiny)``) as
+    ``build_votenet`` builds VoteNet."""
+    return _build_indoor(h3dnet_model_cfg(tiny), tiny, device, seed)

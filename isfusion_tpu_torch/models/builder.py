@@ -1,12 +1,14 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
 CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN,
-FreeAnchor and ImVoxelNet paths (counterpart of
+FreeAnchor, ImVoxelNet, VoteNet and H3DNet paths (counterpart of
 ``isfusion_tpu/models/builder.py``): config dicts with a ``type`` key
 become modules through the port's registries."""
 from __future__ import annotations
 
 from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
                         MIDDLE_ENCODERS, NECKS, VOXEL_ENCODERS, build_from_cfg)
+from .backbones.multi_backbone import MultiBackbone
+from .backbones.pointnet2 import PointNet2SASSG
 from .backbones.regnet import NoStemRegNet, RegNet
 from .backbones.resnet import ResNet
 from .backbones.second import SECOND, SECONDV2
@@ -17,6 +19,7 @@ from .dense_heads.fcos_mono3d_head import FCOSMono3DHead
 from .dense_heads.free_anchor3d_head import FreeAnchor3DHead
 from .dense_heads.shape_aware_head import ShapeAwareHead
 from .dense_heads.transfusion_head import TransFusionHeadV2
+from .dense_heads.vote_head import VoteHead
 from .fusion_layers.point_fusion import PointFusion
 from .middle_encoders.isfusion_encoder import ISFusionEncoder
 from .middle_encoders.pillar_scatter import PointPillarsScatter
@@ -34,6 +37,7 @@ from .voxel_encoders import (DynamicFusionVFE, DynamicPillarFeatureNet,
 for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (BACKBONES, SECOND), (BACKBONES, ResNet),
                    (BACKBONES, RegNet), (BACKBONES, NoStemRegNet),
+                   (BACKBONES, PointNet2SASSG), (BACKBONES, MultiBackbone),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
                    (NECKS, FPN), (NECKS, YOLOXPAFPN),
                    (FUSION_LAYERS, PointFusion),
@@ -50,7 +54,7 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead),
                    (HEADS, CenterHead), (HEADS, FCOSMono3DHead),
                    (HEADS, ShapeAwareHead), (HEADS, FreeAnchor3DHead),
-                   (HEADS, PartAggregationROIHead)):
+                   (HEADS, PartAggregationROIHead), (HEADS, VoteHead)):
     _reg.register_module(module=_cls)
 
 
@@ -81,7 +85,8 @@ def build_fusion_layer(cfg, **kwargs):
 def build_detector(cfg):
     """Build a detector from its config dict (on the CPU, uninitialised:
     the factories of ``flagship.py`` initialise and place it)."""
-    from .detectors import (centerpoint, imvoxelnet,  # noqa: F401
-                            isfusion, mvx_two_stage, parta2,
-                            single_stage_mono3d, transfusion, voxelnet)
+    from .detectors import (centerpoint, h3dnet,  # noqa: F401
+                            imvoxelnet, isfusion, mvx_two_stage, parta2,
+                            single_stage_mono3d, transfusion, voxelnet,
+                            votenet)
     return build_from_cfg(dict(cfg), DETECTORS)

@@ -57,6 +57,12 @@ SIGNATURES = {
                         _I),
     "roiaware_pool": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
                        _LL, _LL, _LL, _LL, _P], _I),
+    # K14: the PointNet++ ops (ops/pointnet_ops.py)
+    "furthest_point_sample": ([_P, _P, _LL, _LL, _LL, _P, _P], _I),
+    "ball_query": ([_P, _P, _P, _LL, _LL, _LL, _LL, _F, _P, _P, _P], _I),
+    "three_nn": ([_P, _P, _P, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
+    "point_gather": ([_I, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL,
+                      _P], _I),
     # no kernel of a path: the floor of one launch, timed by chip_smoke.py
     "empty_launch": ([_P], _I),
 }

@@ -112,6 +112,7 @@ DETECTORS = Registry("detectors", parent=MODELS)
 VOXEL_ENCODERS = Registry("voxel_encoders", parent=MODELS)
 MIDDLE_ENCODERS = Registry("middle_encoders", parent=MODELS)
 FUSION_LAYERS = Registry("fusion_layers", parent=MODELS)
+BBOX_CODERS = Registry("bbox_coders")
 # The data side: datasets, their pipeline transforms and the GT-paste
 # samplers.
 DATASETS = Registry("datasets")

@@ -1,6 +1,6 @@
 """Carry the JAX package's IS-Fusion, PointPillars, CenterPoint, MVX-Net,
-FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN, FreeAnchor and ImVoxelNet
-variables into the port's state_dict.
+FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN, FreeAnchor, ImVoxelNet,
+VoteNet, H3DNet and MultiBackbone variables into the port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -43,6 +43,21 @@ names (``middle_encoder.conv_input``, ``encoder_layers.encoder_layer{i}.
 reference's lateral / merge / upsample layers or its sparse-conv bbox
 head. The inverse convs' kernels take the spconv layout of the other
 sparse convs.
+
+The point detectors (VoteNet, H3DNet; a PointNet2SASSG or MultiBackbone
+``backbone_m``) take the reference's names (``_POINT_RULES``): an SA or FP
+level's ``mlp{scale}/fc{j}`` and ``bn{j}`` are ``backbone.SA_modules.{i}.
+mlps.{scale}.layer{j}.conv`` (a (out, in, 1, 1) Conv2d weight) and
+``.bn``; a MultiBackbone's streams are ``backbone.backbone_list.{i}.`` and
+its ``agg_{i}`` / ``Norm_{i}`` ``backbone.aggregation_layers.layer{i}.conv``
+(Conv1d) / ``.bn``; the VoteHead's ``vote_mlp`` is ``vote_module.
+vote_conv.{j}``, ``vote_out`` ``vote_module.conv_out``, ``pred_mlp``
+``conv_pred.shared_convs.layer{j}``. Its one ``conv_pred`` dense layer
+goes to ``bbox_head.conv_pred.conv_out`` in the JAX column order, which
+the port's ``ConvPred`` splits into the reference's ``conv_cls`` and
+``conv_reg`` on load (only the head knows its widths). H3DNet's
+``face_vote`` / ``edge_vote`` (VoteModules) and ``prim_proj`` (a Linear)
+are the JAX package's own modules and keep its names.
 
 The port keeps its own copy of this mapping (it imports nothing of the
 JAX package).
@@ -382,10 +397,84 @@ def _renamed(variables: Dict, names: Dict[str, str]) -> Dict:
             for c, t in variables.items()}
 
 
+_SA = r"(?:backbone_m/(?:PointNet2SASSG_(\d+)/)?)"
+_POINT_RULES = [(re.compile(p), t, k) for p, t, k in [
+    (_SA + r"sa(\d+)/mlp(\d+)/(fc|bn)(\d+)",
+     lambda m: _stream(m) + f"SA_modules.{m[2]}.mlps.{m[3]}.layer{m[5]}", None),
+    (_SA + r"fp(\d+)/mlp/(fc|bn)(\d+)",
+     lambda m: _stream(m) + f"FP_modules.{m[2]}.mlps.layer{m[4]}", None),
+    (r"backbone_m/agg_(\d+)",
+     r"backbone.aggregation_layers.layer\1.conv", "conv1d"),
+    (r"backbone_m/Norm_(\d+)/BatchNorm_0",
+     r"backbone.aggregation_layers.layer\1.bn", "norm"),
+    (r"bbox_head_m/vote_module/vote_mlp/(fc|bn)(\d+)",
+     r"bbox_head.vote_module.vote_conv.\2", None),
+    (r"(face_vote|edge_vote)/vote_mlp/(fc|bn)(\d+)", r"\1.vote_conv.\3",
+     None),
+    (r"bbox_head_m/vote_module/vote_out", "bbox_head.vote_module.conv_out",
+     "conv1d"),
+    (r"(face_vote|edge_vote)/vote_out", r"\1.conv_out", "conv1d"),
+    (r"bbox_head_m/vote_aggregation/mlp(\d+)/(fc|bn)(\d+)",
+     r"bbox_head.vote_aggregation.mlps.\1.layer\3", None),
+    (r"bbox_head_m/pred_mlp/(fc|bn)(\d+)",
+     r"bbox_head.conv_pred.shared_convs.layer\2", None),
+    (r"bbox_head_m/conv_pred", "bbox_head.conv_pred.conv_out", "conv1d"),
+    (r"prim_proj", "prim_proj", "dense"),
+]]
+
+
+def _stream(m) -> str:
+    """``backbone.`` or a MultiBackbone stream's ``backbone.backbone_list.
+    {i}.``."""
+    return "backbone." if m[1] is None else \
+        f"backbone.backbone_list.{m[1]}."
+
+
+def _point_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A point detector's or point backbone's tree (``_POINT_RULES``)."""
+    sd: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _flatten(variables.get(coll, {})):
+            mod, leaf = "/".join(path[:-1]), path[-1]
+            for pat, tmpl, kind in _POINT_RULES:
+                m = pat.fullmatch(mod)
+                if m:
+                    break
+            else:
+                raise KeyError(f"no reference key for JAX module {mod!r}")
+            key = tmpl(m) if callable(tmpl) else m.expand(tmpl)
+            if kind is None:       # a shared-MLP layer: conv or its BN
+                is_bn = mod.rsplit("/", 1)[-1].startswith("bn")
+                kind = "norm" if is_bn else (
+                    "conv2d1x1" if "SA_modules" in key or "FP_modules" in key
+                    or "vote_aggregation" in key else "conv1d")
+                key += ".bn" if is_bn else ".conv"
+            if kind == "norm":
+                sd[f"{key}.{_NORM_LEAF[leaf]}"] = v
+                if leaf == "mean":
+                    sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+            elif leaf == "bias":
+                sd[f"{key}.bias"] = v
+            else:
+                sd[f"{key}.weight"] = {
+                    "dense": v.T, "conv1d": v.T[:, :, None],
+                    "conv2d1x1": v.T[:, :, None, None]}[kind]
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _is_point_tree(params: Dict) -> bool:
+    return "prim_proj" in params or "vote_module" in params.get(
+        "bbox_head_m", {}) or any(
+            re.fullmatch(r"(sa|fp)\d+|PointNet2SASSG_\d+", k)
+            for k in params.get("backbone_m", {}))
+
+
 def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` -> the port's state_dict
     (reference layout), buffers included."""
     params = variables.get("params", {})
+    if _is_point_tree(params):
+        return _point_state_dict(variables)
     if "neck_3d_m" in params:
         # ImVoxelNet: the camera branch's names, the head's as a LiDAR
         # head's, the 3D neck's own

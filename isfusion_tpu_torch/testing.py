@@ -6,8 +6,9 @@ K10-circle are held on, MVX-Net's KITTI-like camera and the voxel sets
 that K1 (dynamic voxelization) is held on, ``pinned_choices``, which
 makes two runs of one detector take the same discrete choices,
 ``pooled_sync_norms``, the one-card reference of a data-parallel step,
-and ``recording_eval_ious``, which keeps the KITTI evaluator's IoU
-inputs."""
+``recording_eval_ious``, which keeps the KITTI evaluator's IoU
+inputs, and ``point_op_sets``, the clouds that K14 (the PointNet++ ops)
+is held on."""
 from __future__ import annotations
 
 import contextlib
@@ -781,3 +782,76 @@ def recording_eval_ious():
         yield seen
     finally:
         box_ops.boxes_iou_bev, box_ops.boxes_iou_3d = real
+
+
+def point_op_sets(gen: np.random.Generator):
+    """The clouds that K14 is held on: (name, xyz (B, N, 3) float32, mask
+    (B, N) bool, queries (B, S, 3) float32, radius, K, num_samples) with
+    random clouds, exact duplicates, masked tails, a sample with every
+    point masked, more FPS samples than valid points, balls with no point,
+    points at exactly the radius (and one float32 step beyond it) and
+    lattices whose neighbours tie in distance. numpy."""
+    f32 = np.float32
+
+    def cloud(b, n, scale=2.0):
+        return gen.uniform(-scale, scale, (b, n, 3)).astype(f32)
+
+    sets = []
+    xyz = cloud(2, 300, 1.0)
+    sets.append(("random", xyz, np.ones((2, 300), bool), xyz[:, :40].copy(),
+                 0.5, 16, 64))
+    base = cloud(2, 40)
+    dup = base[:, gen.integers(0, 40, 256)]
+    sets.append(("duplicates", dup, np.ones((2, 256), bool),
+                 dup[:, :32].copy(), 0.6, 32, 64))
+    xyz = cloud(2, 200)
+    mask = np.ones((2, 200), bool)
+    mask[0, 120:] = False
+    mask[1] = False
+    sets.append(("masked_tail_and_all_masked", xyz, mask, cloud(2, 24),
+                 0.8, 16, 48))
+    xyz = cloud(1, 64)
+    mask = np.zeros((1, 64), bool)
+    mask[0, gen.choice(64, 10, replace=False)] = True
+    sets.append(("samples_past_valid", xyz, mask, xyz[:, :8].copy(), 1.0, 8,
+                 32))
+    xyz = cloud(2, 128, 1.0)
+    far = (gen.uniform(-1, 1, (2, 16, 3)) + 50.0).astype(f32)
+    sets.append(("empty_balls", xyz, np.ones((2, 128), bool), far, 0.25, 8,
+                 16))
+    # points at exactly 0.5 (r^2 = 0.25 exactly) and one float32 step past
+    r = f32(0.5)
+    step = np.nextafter(r, f32(1))
+    on = np.array([[r, 0, 0], [-r, 0, 0], [0, r, 0], [0, 0, -r],
+                   [step, 0, 0], [0, -step, 0], [0.3, 0.4, 0.0],
+                   [0, 0, 0]], f32)
+    pad = cloud(1, 56, 3.0) + f32(3.5)
+    xyz = np.concatenate([on[None], pad], 1).astype(f32)
+    sets.append(("radius_boundary", xyz, np.ones((1, 64), bool),
+                 np.zeros((1, 4, 3), f32), 0.5, 16, 16))
+    g = np.stack(np.meshgrid(np.arange(6), np.arange(6), np.arange(4),
+                             indexing="ij"), -1).reshape(1, -1, 3)
+    lattice = (g * 0.5).astype(f32)[:, gen.permutation(g.shape[1])]
+    q = ((gen.integers(0, 5, (1, 20, 3)) + 0.5) * 0.5).astype(f32)
+    sets.append(("lattice_ties", lattice, np.ones((1, 144), bool),
+                 np.concatenate([q, lattice[:, :12]], 1), 0.55, 8, 40))
+    return sets
+
+
+def indoor_positives(model, batch: dict, dev, shift: float = 0.06) -> dict:
+    """``batch`` with each valid GT box moved onto an aggregated point of
+    ``model``'s train-mode forward (``shift`` metres off in x and y, the
+    box standing on it), so that VoteHead's box terms have positives:
+    seeded random weights vote far from a synthetic room's boxes. The
+    model is not changed (a copy runs)."""
+    import copy
+
+    agg = copy.deepcopy(model).train()(batch, mode="feats", device=dev)[
+        "aggregated_points"].cpu().numpy()
+    boxes = np.array(batch["gt_bboxes_3d"], copy=True)
+    for b in range(boxes.shape[0]):
+        for g in np.flatnonzero(np.asarray(batch["gt_mask"])[b]):
+            c = agg[b, (5 * g) % agg.shape[1]] + np.float32(shift)
+            boxes[b, g, :2] = c[:2]
+            boxes[b, g, 2] = c[2] - boxes[b, g, 5] / 2
+    return dict(batch, gt_bboxes_3d=boxes)

@@ -42,7 +42,13 @@ the tiny ImVoxelNet's head outputs and kept boxes 1e-3 of their max. On
 degenerate boxes (zero-size, an infinite side times a zero one, past
 float32's range) K10 and K10-BEV within 1e-5 of the plain value (or of 1)
 with NaN and infinities where the plain version has them, K10-NMS's bits
-equal to the plain IoU's in both orders of each pair.
+equal to the plain IoU's in both orders of each pair. K14 (the PointNet++
+ops) on ``testing.point_op_sets`` and VoteNet's first-level shapes:
+FPS, ball-query and K-NN indices, valid flags and distances equal to the
+plain versions', the gathers equal forward, their gradients within 1e-6
+of the max of plain autograd's and equal over two calls; the tiny VoteNet
+and H3DNet on the card against the CPU as the tiny ImVoxelNet (losses
+1e-4 relative, gradients 1e-3 of their max).
 """
 import contextlib
 
@@ -53,8 +59,10 @@ import numpy as np
 
 from isfusion_tpu_torch.ops import (box_ops, cuda_build, gaussian, scatter,
                                     sparse_conv, voxel)
+from isfusion_tpu_torch.ops import pointnet_ops as pn
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
-from isfusion_tpu_torch.testing import degenerate_box_sets, iou_undetermined
+from isfusion_tpu_torch.testing import (degenerate_box_sets, iou_undetermined,
+                                       point_op_sets)
 
 pytestmark = pytest.mark.cuda
 
@@ -1646,3 +1654,214 @@ def test_tiny_imvoxelnet_predict_on_card_matches_cpu(card):
     assert len(kc[0]) >= 8 and torch.equal(kg[2], kc[2])
     for a, b in zip(kg[:2], kc[:2]):
         assert rel(a, b) <= 1e-3
+
+
+# ------------------------------------------------ K14 (the PointNet++ ops)
+POINT_SETS = [s[0] for s in point_op_sets(np.random.default_rng(14))]
+
+
+def _point_set(name, card):
+    for s in point_op_sets(np.random.default_rng(14)):
+        if s[0] == name:
+            xyz, mask, q = (torch.from_numpy(a).to(card) for a in s[1:4])
+            return xyz, mask, q, s[4], s[5], s[6]
+    raise KeyError(name)
+
+
+def _launched(name, fn):
+    before = cuda_build.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("name", POINT_SETS)
+def test_k14_index_kernels_match_plain_versions(card, name):
+    """K14-FPS, K14-ball and K14-NN (k = 1, 3, 8, 16) bit-equal to their
+    plain versions on the adversarial sets: indices, valid flags, squared
+    distances."""
+    xyz, mask, q, radius, k, s = _point_set(name, card)
+    got = _launched("furthest_point_sample",
+                    lambda: pn.furthest_point_sample(xyz, s, mask))
+    assert torch.equal(got, pn.furthest_point_sample_ref(xyz, s, mask))
+    got = _launched("ball_query", lambda: pn.ball_query(radius, k, xyz, q,
+                                                        mask))
+    want = pn.ball_query_ref(radius, k, xyz, q, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for kk in (1, 3, 8, 16):
+        if kk <= xyz.shape[1]:
+            got = _launched("three_nn", lambda: pn.knn(kk, xyz, q, mask))
+            want = pn.knn_ref(kk, xyz, q, mask)
+            assert torch.equal(got[0], want[0]), kk
+            assert torch.equal(got[1], want[1]), kk
+
+
+@pytest.mark.parametrize("name", POINT_SETS)
+def test_k14_gathers_match_plain_versions(card, name):
+    """K14-gather's three forms bit-equal forward; the features' and
+    weights' gradients within 1e-6 of the max of plain autograd's, and two
+    kernel backwards bit-equal."""
+    xyz, mask, q, radius, k, s = _point_set(name, card)
+    gen = torch.Generator(card).manual_seed(5)
+    feats = torch.randn(xyz.shape[:2] + (7,), generator=gen, device=card)
+    fps = pn.furthest_point_sample_ref(xyz, s, mask)
+    gi, _ = pn.ball_query_ref(radius, k, xyz, q, mask)
+    ni, d2 = pn.knn_ref(3, xyz, q, mask)
+    w = pn.interpolation_weights(torch.sqrt(d2.clamp_min(1e-10)))
+    for op, idx, weight in (("gather_points", fps, None),
+                            ("group_points", gi, None),
+                            ("three_interpolate", ni, w)):
+        grads = []
+        for fn in (getattr(pn, op), getattr(pn, op), getattr(pn, op +
+                                                             "_ref")):
+            f = feats.clone().requires_grad_(True)
+            extra = () if weight is None else (
+                weight.clone().requires_grad_(True),)
+            out = fn(f, idx, *extra)
+            g = torch.randn(out.shape, generator=torch.Generator(
+                card).manual_seed(9), device=card)
+            out.backward(g)
+            grads.append((out.detach(), f.grad) + tuple(
+                e.grad for e in extra))
+        (o1, *g1), (o2, *g2), (o3, *g3) = grads
+        assert torch.equal(o1, o3), op
+        for a, b, c in zip(g1, g2, g3):
+            assert torch.equal(a, b), op
+            assert float((a - c).abs().max()) <= 1e-6 * max(
+                float(c.abs().max()), 1e-30), op
+
+
+def test_k14_at_votenets_first_level(card):
+    """The first SA level's shapes: FPS 40,000 -> 2,048 and the ball query
+    (K 64, r 0.2) on a synthetic room, K14-NN at the FP shape (1,024 over
+    512), each equal to its plain version."""
+    from isfusion_tpu_torch.flagship import synthetic_indoor_batch
+
+    pts = torch.from_numpy(synthetic_indoor_batch(1, seed=2)["points"]).to(
+        card)
+    xyz = pts[..., :3].contiguous()
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=card)
+    fps = pn.furthest_point_sample(xyz, 2048, mask)
+    assert torch.equal(fps, pn.furthest_point_sample_ref(xyz, 2048, mask))
+    q = pn.gather_points(xyz, fps)
+    got = pn.ball_query(0.2, 64, xyz, q, mask)
+    want = pn.ball_query_ref(0.2, 64, xyz, q, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = pn.knn(3, q[:, :512], q[:, :1024])
+    want = pn.knn_ref(3, q[:, :512], q[:, :1024])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k14_fps_past_shared_memory_and_knn_past_its_k(card):
+    """K14-FPS takes up to 50,000 points a sample (its running distances
+    in shared memory: equal picks at the limit) and raises past them
+    without a launch; K14-NN raises for k > 16."""
+    gen = torch.Generator(card).manual_seed(11)
+    xyz = torch.rand((2, 50001, 3), generator=gen, device=card) * 8
+    mask = torch.rand((2, 50001), generator=gen, device=card) > 0.2
+    x0, m0 = xyz[:, :50000].contiguous(), mask[:, :50000].contiguous()
+    got = _launched("furthest_point_sample",
+                    lambda: pn.furthest_point_sample(x0, 96, m0))
+    assert torch.equal(got, pn.furthest_point_sample_ref(x0, 96, m0))
+    before = cuda_build.LAUNCHES["furthest_point_sample"]
+    with pytest.raises(ValueError, match="N <= 50000"):
+        pn.furthest_point_sample(xyz, 96, mask)
+    assert cuda_build.LAUNCHES["furthest_point_sample"] == before
+    with pytest.raises(ValueError, match="k <= 16"):
+        pn.knn(17, xyz[:, :100], xyz[:, :8])
+
+
+_BAD_INDEX = """
+import sys
+import torch
+from isfusion_tpu_torch.ops import pointnet_ops as pn
+form, bad, dev = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+feats = torch.randn(2, 10, 3, device=dev)
+shape = {"gather_points": (2, 4), "group_points": (2, 4, 2),
+         "three_interpolate": (2, 4, 3)}[form]
+idx = torch.zeros(shape, dtype=torch.int32, device=dev)
+idx.view(-1)[-2] = bad
+extra = (torch.full(shape, 1 / 3, device=dev),) \
+    if form == "three_interpolate" else ()
+getattr(pn, form)(feats, idx, *extra)
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
+@pytest.mark.parametrize("form,bad", [("gather_points", 10),
+                                      ("group_points", -1),
+                                      ("three_interpolate", 10)])
+def test_k14_gather_fails_on_an_index_out_of_range(card, form, bad):
+    """An index outside the source rows stops K14-gather with a CUDA error,
+    where the plain version on the CPU raises: the kernel reads no other
+    row in its place. The error loses the card's context, so the card's
+    case runs in a process of its own."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    runs = {dev: subprocess.run(
+        [sys.executable, "-c", _BAD_INDEX, form, str(bad), dev], cwd=root,
+        capture_output=True, text=True, timeout=300) for dev in ("cpu",
+                                                                 "cuda")}
+    for dev, res in runs.items():
+        assert res.returncode != 0 and "no error" not in res.stdout, dev
+    assert "index" in runs["cpu"].stderr.lower(), runs["cpu"].stderr
+    assert "CUDA error" in runs["cuda"].stderr, runs["cuda"].stderr[-2000:]
+
+
+@pytest.mark.parametrize("name", ["votenet", "h3d"])
+def test_tiny_votenet_on_card_matches_cpu(card, name):
+    """The tiny VoteNet / H3DNet in float32 (TF32 off), its GT boxes on
+    the CPU model's proposals: head outputs 1e-3 of their max (indices and
+    masks equal), predict (mask and labels equal, boxes 1e-3), losses 1e-4
+    relative, gradients 1e-3 of their max; every K14 kernel launched in
+    the card's predict and loss."""
+    from isfusion_tpu_torch.flagship import build_h3dnet, build_votenet
+    from isfusion_tpu_torch.testing import indoor_positives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = build_votenet if name == "votenet" else build_h3dnet
+    cpu_model, batch_fn = build(tiny=True, device="cpu", seed=1)
+    batch = indoor_positives(cpu_model, batch_fn(2, seed=3), "cpu")
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model, _ = build(tiny=True, device=dev, seed=1)
+        cuda_build.reset_launches()
+        feats = {k: v.cpu() for k, v in model(batch, mode="feats",
+                                              device=dev).items()}
+        pred = {k: v.cpu() for k, v in model(batch, device=dev).items()}
+        model.train()
+        losses = model(batch, mode="loss", device=dev)
+        sum(losses.values()).backward()
+        if dev == "cuda":
+            assert all(cuda_build.LAUNCHES[k] > 0 for k in (
+                "furthest_point_sample", "ball_query", "three_nn",
+                "point_gather"))
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        runs.append((feats, pred, {k: float(v) for k, v in
+                                   losses.items()}, grads))
+    (fc, pc, lc, gc), (fg, pg, lg, gg) = runs
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() /
+                     b.float().abs().max().clamp_min(1e-30))
+
+    for k, v in fc.items():
+        if v.is_floating_point():
+            assert rel(fg[k], v) <= 1e-3, k
+        else:
+            assert torch.equal(fg[k], v), k
+    assert torch.equal(pg["mask"], pc["mask"])
+    assert torch.equal(pg["labels"], pc["labels"])
+    assert rel(pg["bboxes"], pc["bboxes"]) <= 1e-3
+    for k, v in lc.items():
+        assert v > 0 and abs(lg[k] - v) <= 1e-4 * abs(v), k
+    for top in sorted({n.split(".")[0] for n in gc}):
+        names = [n for n in gc if n.split(".")[0] == top]
+        assert rel(torch.cat([gg[n].flatten() for n in names]),
+                   torch.cat([gc[n].flatten() for n in names])) <= 1e-3, top
