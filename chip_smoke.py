@@ -312,10 +312,13 @@ Phases, each printing one line (every failure raises, exit code != 0):
     step); every K14 call that the VoteNet cells recorded and
     ``testing.point_op_sets`` held against the plain versions (indices,
     valid flags and gathers equal, the gathers' backward within 1e-6 of
-    the max and bit-equal over two calls; the largest serve call of each
-    op timed: event ms, whole-call device ms, plain ms, the bound,
-    ``index_select``'s ms for the row gathers); the tiny VoteNet and
-    H3DNet on the card against the CPU;
+    the max and bit-equal over two calls, the grad call's forward equal
+    to the no-grad call's; the largest serve call of each op timed: event
+    ms, whole-call device ms, plain ms, the bound, ``index_select``'s ms
+    for the row gathers and ``index_add_``'s beside their backward, and
+    K14-FPS's chain floor (2,048 picks over one point a thread of its
+    cluster, a pick)); the tiny VoteNet and H3DNet on the card against
+    the CPU;
 
 29. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
@@ -418,6 +421,15 @@ request's voxels under occupied RoIs (event ms, whole-call device ms,
 forward and backward kernel device ms, the tree's bounds), with a SHA-256
 of pooled and dfeats there and on the adversarial sets: two checkouts
 compared bit for bit and in time in one call (``roiaware_compare``).
+
+``python3 chip_smoke.py --k14 TREE`` serves the full-width VoteNet and
+H3DNet with the port imported from the checkout TREE, records VoteNet's
+K14 inputs and times K14-FPS (each walk, with a SHA-256 of the picks) and
+K14-gather (SA2's grouping and FP2's interpolate: the no-grad forward,
+the forward with a gradient, forward + backward, beside ``index_select``
+and ``index_add_``, with digests) on them, and the FPS routes and chain
+floors where TREE has them: two checkouts compared in turns in one call
+(``k14_compare``).
 
 ``python3 chip_smoke.py --learn WORK_DIR`` runs the learnability recipe in
 full (48 train / 16 val samples, 100 epochs, ``learn_run``) and leaves
@@ -4801,15 +4813,45 @@ def _same(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def k14_device_ms(run, heavy: bool = True):
+    """(whole-call device ms, ``device_kernels``' dict) of ``run()``: 5
+    calls a trace (20 for a light call), then 2 and 1 where a trace comes
+    back empty (the profiler can miss every launch of a long call); "not
+    measured" when every trace is empty."""
+    for iters in ((5, 2, 1) if heavy else (20, 20)):
+        ops = device_kernels(run, iters=iters)
+        if ops:
+            return sum(n * ms for n, ms in ops.values()), ops
+    return "not measured", {}
+
+
+def fps_chain_floor(dev: str, cluster: int, picks: int = 2048) -> dict:
+    """K14-FPS's chain floor on the cluster route: the whole-call device
+    ms of ``picks`` picks over ``cluster`` x 1,024 random points (one
+    point a thread), divided by ``picks``: the latency of one pick's
+    exchange."""
+    import torch
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    gen = torch.Generator(dev).manual_seed(19)
+    xyz = torch.rand((1, cluster * 1024, 3), generator=gen, device=dev)
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    ms, _ = k14_device_ms(lambda: P.fps_launch(xyz, picks, mask, cluster))
+    return dict(cluster=cluster, points=xyz.shape[1],
+                picks=picks, device_ms=ms,
+                ms_per_pick=ms / picks if isinstance(ms, float) else ms)
+
+
 def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
     """One recorded K14 call: the kernel against its plain version on the
     same inputs (indices, valid flags and gathers equal; K-NN distances
     equal), for a gather with float features its backward (the features'
     and weights' gradients within 1e-6 of the max of the plain autograd's,
-    two kernel backwards bit-equal); ``timed``: event ms, whole-call
-    device ms, plain ms, the bound, and for the gathers ``index_select``'s
-    ms and the backward's ms and bound."""
+    two kernel backwards bit-equal, the grad call's forward equal to the
+    no-grad call's); ``timed``: event ms, whole-call device ms, plain ms,
+    the bound, for the gathers ``index_select``'s ms and the backward's ms,
+    bound and ``index_add_``'s ms, for FPS its chain floor."""
     import torch
+    from isfusion_tpu_torch.ops import pointnet_ops as P
     args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
     got = _k14_call(op, args, plain=False)
     want = _k14_call(op, args, plain=True)
@@ -4826,21 +4868,16 @@ def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
                                            if torch.is_tensor(a)],
                equal=equal, max_abs_err=err)
     if gather:
-        rec.update(_gather_backward(op, args, got, dev))
+        rec.update(_gather_backward(op, args, got, dev, timed))
     bound = _k14_bound(op, args, got)
     rec.update(bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
                operations=bound[3])
     if timed and dev == "cuda":
         heavy = op == "furthest_point_sample"
         rec["ms"] = cuda_ms(lambda: _k14_call(op, args, False), dev,
-                            iters=5 if heavy else 20)
-        ops = device_kernels(lambda: _k14_call(op, args, False),
-                             iters=5 if heavy else 20) or device_kernels(
-            lambda: _k14_call(op, args, False), iters=5 if heavy else 20)
-        # an empty trace (the profiler can miss every launch of a call)
-        # is not a time
-        rec["device_ms"] = sum(n * ms for n, ms in ops.values()) if ops \
-            else "not measured"
+                            iters=5 if heavy else 100)
+        rec["device_ms"], ops = k14_device_ms(
+            lambda: _k14_call(op, args, False), heavy)
         rec["device_ops_per_call"] = {k[:60]: n for k, (n, _) in ops.items()}
         rec["plain_ms"] = cuda_ms(lambda: _k14_call(op, args, True), dev,
                                   iters=1 if heavy else 5)
@@ -4853,19 +4890,30 @@ def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
                 b, device=idx.device)[:, None]).reshape(-1)
             rec["library_ms"] = cuda_ms(lambda: flat.index_select(0, gidx),
                                         dev)
+        if heavy:
+            s = args[1]
+            floor = fps_chain_floor(dev, P.fps_cluster(args[0].shape[0]))
+            rec["chain_floor"] = floor
+            rec["chain_floor_ms"] = floor["ms_per_pick"] * (s - 1) \
+                if isinstance(floor["ms_per_pick"], float) else None
     return rec
 
 
-def _gather_backward(op: str, args, fwd, dev: str) -> dict:
+def _gather_backward(op: str, args, fwd, dev: str, timed: bool) -> dict:
     """The gather's backward on the card against plain autograd: a seeded
     output gradient, the features' (and weights') gradients within 1e-6 of
-    the max, two kernel backwards bit-equal; timed on the card."""
+    the max, two kernel backwards bit-equal, the grad call's forward equal
+    to ``fwd`` (the no-grad call's); ``timed`` on the card: its ms beside
+    plain autograd's (medians of three rounds in turns) and, for the row
+    gathers, ``index_add_``'s (one call that computes the features'
+    gradient)."""
     import torch
     from isfusion_tpu_torch.ops import pointnet_ops as P
     if fwd.numel() == 0:
         return {}
     g = torch.randn(fwd.shape, generator=torch.Generator(dev).manual_seed(
         7), device=dev)
+    outs = []
 
     def grads(plain: bool):
         feats = args[0].detach().clone().requires_grad_(True)
@@ -4875,6 +4923,7 @@ def _gather_backward(op: str, args, fwd, dev: str) -> dict:
         fn = getattr(P, op + "_ref" if plain else op)
         out = fn(feats, *rest)
         out.backward(g)
+        outs.append(out.detach())
         return [feats.grad] + ([rest[1].grad] if op == "three_interpolate"
                                else [])
 
@@ -4882,14 +4931,33 @@ def _gather_backward(op: str, args, fwd, dev: str) -> dict:
     rec = dict(bwd_max_abs_err=max(
         float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
         for a, b in zip(got, want)),
-        bwd_repeats=all(torch.equal(a, b) for a, b in zip(got, again)))
-    if dev == "cuda":
-        rec["fwd_bwd_ms"] = cuda_ms(lambda: grads(False), dev)
-        rec["plain_fwd_bwd_ms"] = cuda_ms(lambda: grads(True), dev)
+        bwd_repeats=all(torch.equal(a, b) for a, b in zip(got, again)),
+        grad_call_equal=torch.equal(outs[0], fwd))
+    if timed and dev == "cuda":
+        # the kernel's and plain autograd's in turns, three rounds (both
+        # are host-bound: one window alone reads the host's pace)
+        rounds = [(cuda_ms(lambda: grads(False), dev),
+                   cuda_ms(lambda: grads(True), dev)) for _ in range(3)]
+        rec["fwd_bwd_rounds_ms"] = [r[0] for r in rounds]
+        rec["plain_fwd_bwd_rounds_ms"] = [r[1] for r in rounds]
+        rec["fwd_bwd_ms"] = statistics.median(r[0] for r in rounds)
+        rec["plain_fwd_bwd_ms"] = statistics.median(r[1] for r in rounds)
+        # what an earlier phase may leave behind for these host-bound
+        # timings: PyTorch's deterministic kernels, the allocator's pool
+        rec["deterministic"] = torch.are_deterministic_algorithms_enabled()
+        rec["reserved_gib"] = torch.cuda.memory_reserved() / 2 ** 30
         feats, idx = args[0], args[1]
         nbytes = g.numel() * 4 + idx.numel() * 4 * (
             3 if op == "three_interpolate" else 2) + feats.numel() * 4
         rec["backward_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        rec["backward_library_ms"] = None
+        if op != "three_interpolate":
+            b, n, c = feats.shape
+            gidx = (idx.reshape(b, -1).long() + n * torch.arange(
+                b, device=idx.device)[:, None]).reshape(-1)
+            flat_g = g.reshape(-1, c)
+            rec["backward_library_ms"] = cuda_ms(lambda: torch.zeros(
+                (b * n, c), device=dev).index_add_(0, gidx, flat_g), dev)
     return rec
 
 
@@ -4911,7 +4979,8 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
     import numpy as np
     import torch
     from isfusion_tpu_torch.ops import pointnet_ops as P
-    from isfusion_tpu_torch.testing import point_op_sets
+    from isfusion_tpu_torch.testing import (POINT_SET_ROWS, offset_rows,
+                                           point_op_sets)
 
     cases = []
     for cell, seen in recorded.items():
@@ -4923,8 +4992,10 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
     for name, xyz, mask, q, radius, k, s in point_op_sets(
             np.random.default_rng(14)):
         xyz, mask, q = (torch.from_numpy(a).to(dev) for a in (xyz, mask, q))
-        feats = torch.randn(xyz.shape[:2] + (5,), generator=torch.Generator(
-            dev).manual_seed(3), device=dev)
+        c, offset = POINT_SET_ROWS.get(name, (5, 0))
+        _, feats = offset_rows(torch.randn(
+            xyz.shape[:2] + (c,), generator=torch.Generator(dev).manual_seed(
+                3), device=dev), offset, dev)
         fps = P.furthest_point_sample_ref(xyz, s, mask)
         gi, _ = P.ball_query_ref(radius, k, xyz, q, mask)
         ni, d = P.knn_ref(3, xyz, q, mask)
@@ -4944,7 +5015,8 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
                 cases.append(dict(label=name, op=f"knn_k{kk}",
                                   equal=_same(got, want), max_abs_err=0.0))
     bad = [c for c in cases if not c["equal"] or c.get(
-        "bwd_max_abs_err", 0.0) > 1e-6 or c.get("bwd_repeats") is False]
+        "bwd_max_abs_err", 0.0) > 1e-6 or c.get("bwd_repeats") is False
+        or c.get("grad_call_equal") is False]
     for c in cases:
         if "ms" in c:
             log("k14_case", **{k: v for k, v in c.items()
@@ -4973,11 +5045,14 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
                                           "library_ms", "bound_ms",
                                           "bound_by", "fwd_bwd_ms",
                                           "plain_fwd_bwd_ms",
-                                          "backward_bound_ms")}
+                                          "backward_bound_ms",
+                                          "backward_library_ms",
+                                          "chain_floor", "chain_floor_ms")}
                    for c in timed])
     rec = dict(cases=len(cases), failed=[{k: c.get(k) for k in (
         "label", "op", "shapes", "equal", "max_abs_err", "bwd_max_abs_err",
-        "bwd_repeats")} for c in bad], per_kernel=per_kernel)
+        "bwd_repeats", "grad_call_equal")} for c in bad],
+        per_kernel=per_kernel)
     log("k14_check", **rec)
     if bad:
         raise RuntimeError(f"K14 kernels differ from their plain versions: "
@@ -5107,8 +5182,12 @@ def k14_kernel_records(indoor: dict) -> list:
                 for s in indoor["h3d_train"]["launches_per_step"]]
             rec["bwd_repeats"] = chk["bwd_repeats"]
             rec.update({k: main.get(k) for k in (
-                "fwd_bwd_ms", "plain_fwd_bwd_ms", "backward_bound_ms")})
+                "fwd_bwd_ms", "plain_fwd_bwd_ms", "backward_bound_ms",
+                "backward_library_ms")})
         else:
+            if kern == "furthest_point_sample":
+                rec.update({k: main.get(k) for k in ("chain_floor",
+                                                     "chain_floor_ms")})
             rec["train_launches_per_step"] = [s[kern] for s in train[
                 "launches_per_step"]]
             rec["h3d_train_launches_per_step"] = [
@@ -7595,6 +7674,20 @@ def main() -> int:
     return 0
 
 
+def import_tree(tree: str) -> str:
+    """The compare modes' start: put the checkout ``tree`` first on the
+    import path and import the port from it (raises where
+    ``isfusion_tpu_torch`` comes from elsewhere). Returns its absolute
+    path."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import isfusion_tpu_torch
+    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"isfusion_tpu_torch imported from "
+                           f"{isfusion_tpu_torch.__file__}, not {tree}")
+    return tree
+
+
 def pp_serve_timing(tree: str, requests: int = 50) -> int:
     """``python3 chip_smoke.py --pp-serve [TREE]``: pp-serve alone, with
     the port imported from the checkout TREE (default: this one), to
@@ -7605,15 +7698,10 @@ def pp_serve_timing(tree: str, requests: int = 50) -> int:
     (from an idle card, no sync inside). Prints one JSON record."""
     import torch
     smi = phase_device()
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    import isfusion_tpu_torch
+    tree = import_tree(tree)
     from isfusion_tpu_torch.flagship import build_pointpillars_flagship
     from isfusion_tpu_torch.ops import box_ops, cuda_build
     from isfusion_tpu_torch.testing import tame_box_deltas
-    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"isfusion_tpu_torch imported from "
-                           f"{isfusion_tpu_torch.__file__}, not {tree}")
     pp, batch_fn = build_pointpillars_flagship(device="cuda", seed=0)
     batch = batch_fn(1)
     tame_box_deltas(pp)
@@ -7700,9 +7788,7 @@ def dynamic_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     warm-up's K1 and K2 inputs. Prints one JSON record."""
     import torch
     smi = phase_device()
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    import isfusion_tpu_torch
+    tree = import_tree(tree)
     from isfusion_tpu_torch.flagship import (build_isfusion_flagship,
                                              build_mvxnet,
                                              flagship_optim_cfg,
@@ -7713,9 +7799,6 @@ def dynamic_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
                                                  build_schedule,
                                                  grad_clip_norm)
     from isfusion_tpu_torch.testing import even_class_prior, tame_box_deltas
-    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"isfusion_tpu_torch imported from "
-                           f"{isfusion_tpu_torch.__file__}, not {tree}")
     rec = dict(tree=tree, nvidia_smi=smi, build_s=cuda_build.build_all(),
                libraries=[cuda_build._lib_path(n).name for n in (
                    "dynamic_voxelize", "dynamic_scatter")])
@@ -7782,9 +7865,7 @@ def boxes_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     Prints one JSON record."""
     import torch
     smi = phase_device()
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    import isfusion_tpu_torch
+    tree = import_tree(tree)
     from isfusion_tpu_torch.flagship import (build_centerpoint,
                                              build_isfusion_flagship,
                                              flagship_optim_cfg)
@@ -7793,9 +7874,6 @@ def boxes_compare(tree: str, requests: int = 20, steps: int = 10) -> int:
     from isfusion_tpu_torch.runner.optim import (build_optimizer,
                                                  build_schedule,
                                                  grad_clip_norm)
-    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"isfusion_tpu_torch imported from "
-                           f"{isfusion_tpu_torch.__file__}, not {tree}")
     data = boxes_inputs(os.path.join(REPO, "build", "boxes_inputs.pt"))
     names = ("boxes_iou_3d", "nms_circle", "nms_bev", "nms_normal_bev")
     rec = dict(tree=tree, nvidia_smi=smi, build_s=cuda_build.build_all(),
@@ -8015,9 +8093,7 @@ def roiaware_compare(tree: str, dev: str = "cuda", requests: int = 20,
     import numpy as np
     import torch
     smi = phase_device() if dev == "cuda" else None
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    import isfusion_tpu_torch
+    tree = import_tree(tree)
     from isfusion_tpu_torch.flagship import build_parta2, parta2_optim_cfg
     from isfusion_tpu_torch.ops import cuda_build
     from isfusion_tpu_torch.ops import roiaware_pool as rp
@@ -8026,9 +8102,6 @@ def roiaware_compare(tree: str, dev: str = "cuda", requests: int = 20,
                                                  build_schedule,
                                                  grad_clip_norm)
     from isfusion_tpu_torch.testing import tame_box_deltas
-    if not isfusion_tpu_torch.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"isfusion_tpu_torch imported from "
-                           f"{isfusion_tpu_torch.__file__}, not {tree}")
     rec = dict(tree=tree, nvidia_smi=smi)
     if dev == "cuda":
         rec.update(build_s=cuda_build.build_all(),
@@ -8154,6 +8227,301 @@ def roiaware_compare(tree: str, dev: str = "cuda", requests: int = 20,
     return 0
 
 
+def _k14_pick(seen: dict, op: str, shape_of, shape) -> tuple:
+    """The recorded arguments of the ``op`` call whose argument
+    ``shape_of`` has shape ``shape``."""
+    for key, args in seen.items():
+        if key[0] == op and tuple(args[shape_of].shape) == tuple(shape):
+            return args
+    raise RuntimeError(f"no recorded {op} call with argument {shape_of} of "
+                       f"shape {shape}: {list(seen)}")
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of ``fn()`` takes to enqueue its work (n
+    calls after a warm-up, timed before the closing synchronisation)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def gather_host_split(args, dev: str) -> dict:
+    """A no-grad K14-gather call at ``args`` split on the card: host us to
+    enqueue (and event ms, 200 calls) of the whole wrapper, of one empty
+    kernel through ctypes (``csrc/empty_launch.cu``), of allocating the
+    output, and of ``index_select`` on the same rows, all inside one
+    ``no_grad``; then the same of forward + backward (a fresh leaf each
+    call), of plain autograd's, and of autograd's floor (one elementwise
+    op on the features and its backward)."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    feats, idx = args
+    b, n, c = feats.shape
+    shape = tuple(idx.shape) + (c,)
+    gidx = (idx.reshape(b, -1).long() + n * torch.arange(
+        b, device=idx.device)[:, None]).reshape(-1)
+    flat = feats.reshape(-1, c)
+    empty = cuda_build.load("empty_launch").empty_launch
+    stream = torch.cuda.current_stream().cuda_stream
+
+    calls = dict(wrapper=lambda: P.group_points(feats, idx),
+                 empty_launch=lambda: empty(stream),
+                 alloc=lambda: torch.empty(shape, device=dev),
+                 index_select=lambda: flat.index_select(0, gidx))
+    with torch.no_grad():           # as a request calls it
+        split = {k: dict(host_us=host_us(f), ms=cuda_ms(f, dev, 200))
+                 for k, f in calls.items()}
+    g = torch.ones(shape, device=dev)
+    ones = torch.ones_like(feats)
+
+    def fwd_bwd(op):
+        f = feats.detach().clone().requires_grad_(True)
+        op(f).backward(g if op is not floor else ones)
+
+    def floor(f):               # autograd's own cost: one op and its grad
+        return f.mul(1.0)
+
+    # forward + backward: the kernel's, plain autograd's, and the floor
+    for k, op in (("fwd_bwd", lambda f: P.group_points(f, idx)),
+                  ("plain_fwd_bwd", lambda f: P.group_points_ref(f, idx)),
+                  ("autograd_floor", floor)):
+        split[k] = dict(host_us=host_us(lambda: fwd_bwd(op)),
+                        ms=cuda_ms(lambda: fwd_bwd(op), dev, 200))
+    return split
+
+
+def k14_train_ms(model, batch: dict, dev: str, steps: int) -> dict:
+    """votenet-train's / h3d-train's step on ``model`` (AdamW, clip 10,
+    step lr: ``votenet_optim_cfg``) at ``batch``'s size: one warm-up
+    step, then ``steps`` timed steps (host clock to a synchronised end:
+    median, min, max ms) and the last step's loss and grad norm."""
+    import torch
+    from isfusion_tpu_torch.flagship import votenet_optim_cfg
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+    cfg = votenet_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, cfg["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, cfg["lr_config"], None), grad_clip_norm(cfg["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    step(jittered(batch, 0), gen)
+    sync(dev)
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out = step(jittered(batch, i + 1), gen)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(batch=int(batch["points"].shape[0]), steps=steps,
+                median_ms=statistics.median(times), min_ms=min(times),
+                max_ms=max(times), **{k: float(out[k]) for k in (
+                    "loss", "grad_norm") if k in out})
+
+
+def k14_compare(tree: str, dev: str = "cuda", requests: int = 20,
+                steps: int = 10) -> int:
+    """``python3 chip_smoke.py --k14 TREE``: K14-FPS and K14-gather with the
+    port imported from the checkout TREE, to compare two checkouts on one
+    card in one call (run them in turns, at least three rounds). The
+    full-width VoteNet and H3DNet (seed 0) serve one warm-up (VoteNet's
+    K14 calls recorded) and ``requests`` requests (host-clock median, min,
+    max), then train one warm-up and ``steps`` steps at votenet-train's
+    batch of 8 (``k14_train_ms``); then on VoteNet's recorded inputs: each
+    FPS walk (SA1-SA4 and the aggregation: event ms, whole-call device ms,
+    a SHA-256 of the picks); SA2's grouping (1,024 x 32 rows of 128): the
+    no-grad forward (event and whole-call device ms, ``index_select``'s
+    ms), the forward with a gradient, forward + backward beside the plain
+    version's under autograd (event ms, three rounds in turns), its
+    device ms by kernel, ``index_add_``'s ms, the lists of K1's list stage
+    and of a stable argsort (device ms), and digests of the output and the
+    features' gradient; the same grouping with 80% of its slots on 4 rows
+    (the backward's list at rows of ~6,500 slots); FP2's interpolate
+    (1,024 x 3 of 256) likewise, with the weights' gradient. Where TREE
+    has ``pointnet_ops.fps_launch``, the FPS design too: SA1's walk by a
+    cluster of 8 and of 16, the chain floor of each, a batch of 8 such
+    walks by each (and the size ``fps_cluster`` picks by batch), and one
+    block against a cluster of 8 at 1,024-8,192 points. Prints one JSON
+    record. ``dev="cpu"`` rehearses it on the tiny models with the plain
+    versions (no build, no device times)."""
+    import torch
+    smi = phase_device() if dev == "cuda" else None
+    tree = import_tree(tree)
+    from isfusion_tpu_torch.flagship import (build_h3dnet, build_votenet,
+                                             votenet_optim_cfg)
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    rec = dict(tree=tree, nvidia_smi=smi)
+    if dev == "cuda":
+        rec["build_s"] = cuda_build.build_all()
+
+    bsz = votenet_optim_cfg()["samples_per_gpu"] if dev == "cuda" else 2
+    seen = None
+    for name, build in (("votenet", build_votenet), ("h3d", build_h3dnet)):
+        model, batch_fn = build(tiny=dev != "cuda", device=dev, seed=0)
+        batch = batch_fn(1)
+        with recording_point_ops() as calls:
+            model(jittered(batch, 0), device=dev)
+            sync(dev)
+        seen = seen or calls
+        times = []
+        for i in range(requests):
+            t0 = time.perf_counter()
+            model(jittered(batch, i + 1), device=dev)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec[f"{name}_serve"] = dict(median_ms=statistics.median(times),
+                                    min_ms=min(times), max_ms=max(times))
+        rec[f"{name}_train"] = k14_train_ms(model, batch_fn(bsz, seed=1),
+                                            dev, steps)
+        del model
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    def device(run, heavy=False):
+        return k14_device_ms(run, heavy)[0] if dev == "cuda" else None
+
+    walks = {}
+    for key, args in seen.items():
+        if key[0] != "furthest_point_sample":
+            continue
+        xyz, s, mask = args
+        label = f"{xyz.shape[1]}->{s}"
+        picks = P.furthest_point_sample(xyz, s, mask)
+        walks[label] = dict(
+            ms=cuda_ms(lambda: P.furthest_point_sample(xyz, s, mask), dev,
+                       iters=5),
+            device_ms=device(lambda: P.furthest_point_sample(xyz, s, mask),
+                             True),
+            picks_equal_plain=torch.equal(
+                picks, P.furthest_point_sample_ref(xyz, s, mask)),
+            picks=digest(picks))
+    rec["fps"] = walks
+
+    def gather_case(op, args, library):
+        feats, idx, rest = args[0], args[1], list(args[2:])
+        g = torch.randn(_k14_call(op, args, True).shape,
+                        generator=torch.Generator(dev).manual_seed(7),
+                        device=dev)
+
+        def forward():
+            return _k14_call(op, args, False)
+
+        def with_grad(backward, plain=False):
+            f = feats.detach().clone().requires_grad_(True)
+            extra = [r.detach().clone().requires_grad_(True)
+                     for r in rest]
+            out = getattr(P, op + "_ref" if plain else op)(f, idx, *extra)
+            if backward:
+                out.backward(g)
+            return out, f, extra
+
+        out, f, extra = with_grad(True)
+        if dev == "cuda":
+            kernels = kernel_breakdown(lambda: with_grad(True))
+        # the no-grad call as a request makes it: inside one no_grad
+        with torch.no_grad():
+            ms, dms, plain = (cuda_ms(forward, dev, 200), device(forward),
+                              forward())
+        # the kernel's and the plain version's forward + backward in turns
+        fwd_bwd, plain_fwd_bwd = [], []
+        for _ in range(3):
+            fwd_bwd.append(cuda_ms(lambda: with_grad(True), dev))
+            plain_fwd_bwd.append(cuda_ms(lambda: with_grad(True, True), dev))
+        case = dict(
+            shapes=[list(a.shape) for a in args], ms=ms, device_ms=dms,
+            grad_forward_ms=cuda_ms(lambda: with_grad(False), dev),
+            fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
+            out=digest(plain), grad_call_out=digest(out),
+            dfeats=digest(f.grad),
+            dweights=digest(extra[0].grad) if extra else None)
+        if dev == "cuda":
+            case.update(fwd_bwd_device_ms=sum(kernels.values()),
+                        fwd_bwd_kernels=kernels,
+                        list_kernels_device_ms=sum(
+                            v for k, v in kernels.items() if k in (
+                                "count_kernel", "scan_kernel",
+                                "place_kernel", "order_kernel")))
+        if library and dev == "cuda":
+            from isfusion_tpu_torch.ops.voxel import segment_layout
+            b, n, c = feats.shape
+            gidx = (idx.reshape(b, -1).long() + n * torch.arange(
+                b, device=idx.device)[:, None]).reshape(-1)
+            flat, flat_g = feats.reshape(-1, c), g.reshape(-1, c)
+            # the backward's list by a stable argsort (the parent's) and
+            # by K1's list stage, on the same keys
+            idx2 = idx.reshape(b, -1)
+            case["argsort_list_device_ms"] = device(
+                lambda: P.slot_lists(idx2, n))
+            case["k1_list_device_ms"] = device(
+                lambda: segment_layout(gidx, b * n))
+            case["index_select_ms"] = cuda_ms(
+                lambda: flat.index_select(0, gidx), dev, 200)
+            case["index_add_ms"] = cuda_ms(lambda: torch.zeros(
+                (b * n, c), device=dev).index_add_(0, gidx, flat_g), dev)
+        return case
+
+    if dev == "cuda":
+        sa2 = _k14_pick(seen, "group_points", 1, (1, 1024, 32))
+        fp2 = _k14_pick(seen, "three_interpolate", 1, (1, 1024, 3))
+    else:   # the tiny VoteNet's second level and last interpolation
+        sa2 = max((a for k, a in seen.items() if k[0] == "group_points"
+                   and a[0].shape[-1] > 3), key=lambda a: a[1].shape[1])
+        fp2 = max((a for k, a in seen.items() if k[0] ==
+                   "three_interpolate"), key=lambda a: a[1].shape[1])
+    rec["sa2_group"] = gather_case("group_points", sa2, True)
+    # the same grouping with 80% of its slots on 4 rows
+    gen = torch.Generator(dev).manual_seed(5)
+    feats, idx = sa2
+    few = torch.tensor([0, 7, 100, feats.shape[1] - 1], dtype=idx.dtype,
+                       device=dev)
+    crowd = torch.where(torch.rand(idx.shape, generator=gen, device=dev)
+                        < 0.8, few[idx.long() % 4], idx)
+    rec["sa2_group_long_rows"] = gather_case("group_points", (feats, crowd),
+                                             False)
+    rec["fp2_interpolate"] = gather_case("three_interpolate", fp2, False)
+    if dev == "cuda":
+        rec["sa2_group_host"] = gather_host_split(sa2, dev)
+
+    if hasattr(P, "fps_launch") and dev == "cuda":
+        xyz, s, mask = _k14_pick(seen, "furthest_point_sample", 0,
+                                 (1, 40000, 3))
+        want = P.furthest_point_sample_ref(xyz, s, mask)
+        routes = {}
+        for cluster in (8, 16):
+            run = (lambda c=cluster: P.fps_launch(xyz, s, mask.bool(), c))
+            routes[f"c{cluster}"] = dict(
+                device_ms=device(run, True), equal=torch.equal(run(), want),
+                chain_floor=fps_chain_floor(dev, cluster))
+        rec["sa1_routes"] = routes
+        # votenet-train's batch of 8 walks (jittered copies of SA1's)
+        x8 = xyz.repeat(8, 1, 1) + 1e-3 * torch.arange(
+            8, device=dev)[:, None, None]
+        m8 = mask.bool().repeat(8, 1)
+        rec["sa1_batch8"] = {f"c{c}": device(
+            lambda c=c: P.fps_launch(x8, s, m8, c), True) for c in (8, 16)}
+        rec["fps_cluster"] = {b: P.fps_cluster(b) for b in (1, 2, 4, 8, 16)}
+        small = {}
+        for n in (1024, 2048, 4096, 8192):
+            x = torch.rand((1, n, 3), generator=gen, device=dev)
+            m = torch.ones((1, n), dtype=torch.bool, device=dev)
+            small[n] = {f"cluster_{c}": device(
+                lambda c=c: P.fps_launch(x, n // 2, m, c), True)
+                for c in ((1, 8) if n <= 4096 else (8,))}
+        rec["route_by_points"] = small
+    log("k14_compare", **rec)
+    return 0
+
+
 def dp_run() -> int:
     """``python3 chip_smoke.py --dp``: the device and build phases, then
     ``phase_dp`` alone."""
@@ -8205,6 +8573,8 @@ if __name__ == "__main__":
         sys.exit(boxes_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--roiaware"] and len(sys.argv) == 3:
         sys.exit(roiaware_compare(sys.argv[2]))
+    if sys.argv[1:2] == ["--k14"] and len(sys.argv) == 3:
+        sys.exit(k14_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-serve"]:
         sys.exit(pp_serve_timing(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

@@ -13,34 +13,71 @@
 // 2,048, 2,048 -> 1,024, 1,024 -> 512, 512 -> 256) and the vote
 // aggregation once (1,024 votes -> 256).
 //
-// Bound: the picks are serial. The work is S x N distance updates (about
-// 12 float operations each) and the bytes are the points read once and the
-// picks written once, both far below a millisecond on the card; what
-// bounds the kernel is the chain of S dependent block-wide argmax
-// reductions, each waiting for the one before.
+// Bound. The operations bound is S x N distance updates (9 float
+// operations each) over the card's float32 rate: 0.011 ms at SA1; the
+// bytes (the points read once, the picks written once) are less. What
+// bounds a walk is the chain of S dependent argmax reductions, each
+// waiting for the one before: the chain floor, the time of one pick's
+// exchange when every thread holds one point (chip_smoke.py --k14 times it
+// as 2,048 picks over C x 1,024 points, divided by 2,048: 1.25-1.26 us a
+// pick for C = 8, 1.27-1.28 for C = 16, on an H100 at 700 W; SA1's walk
+// adds ~0.22 (C = 16) to 0.45 (C = 8) us a pick of point updates). The
+// first design of this kernel, one 1,024-thread block a sample, re-read
+// all of SA1's xyz and mask (480 KB) from L2 at every pick, with two block
+// barriers: one SM's L2 bandwidth, ~7.3 us a pick.
 //
-// Design: one block of 1,024 threads a sample walks the S picks. A thread
-// owns the points t, t + 1024, ...: each step it reads its points (the
-// warp's 32 neighbouring points are 384 contiguous bytes), updates their
-// running distances, kept in shared memory (up to 50,000 points: the
-// entry point refuses more), and keeps its best (value, index). The warps
-// reduce by shuffles, then warp 0 reduces the 32 warp results and
-// publishes the pick: two barriers a step. At batch 1 one SM of 132
-// works; a cluster that spreads a sample's points over several SMs is
-// left for later. Squared distances are (dx*dx + dy*dy) + dz*dz
-// rounded step by step (__fsub_rn, __fmul_rn, __fadd_rn), the plain
-// version's float32 arithmetic with no FMA contraction, so the running
-// distances and the picks are the plain version's bit for bit. Allocates
-// nothing and does not synchronise.
+// Design: the cloud is read from device memory once and lives in
+// registers for the whole walk; nothing is read from device memory inside
+// the pick loop.
+// - Past FPS_BLOCK_MAX points (the SA1 walk) a sample is a thread-block
+//   cluster of C blocks (C = 8, or 16 as a non-portable size where the
+//   batch's clusters of 16 are resident at once: fps_cluster), launched
+//   with cudaLaunchKernelEx on a grid of B x C blocks of 1,024 threads.
+//   Block r owns the contiguous share [r * ceil(N / C), ...) of the
+//   points; thread t of it the points share + t + 1,024 * j, j < PPT (a
+//   template: 1-8 points a thread, so a cluster of 8 holds 65,536 points),
+//   each as x, y, z and its running distance in registers, its valid and
+//   present bits in two words.
+// - Each pick: every thread updates its points and keeps its best (value,
+//   index, xyz); the warp reduces by __reduce_max_sync on the value's
+//   order-preserving bits and __reduce_min_sync on the index among the
+//   largest, and takes the winner's xyz by shuffle. The candidates are
+//   published through distributed shared memory (cluster.map_shared_rank)
+//   into every block's candidate array, double-buffered by the pick's
+//   parity, one a block: after one block barrier warp 0 reduces the
+//   block's warps and stores the block's best into every block of the
+//   cluster (publishing every warp's candidate instead, C x 32 of them,
+//   measured ~0.5 us a pick slower). Then one cluster barrier
+//   (barrier.cluster.arrive.release / wait.acquire), and every warp of
+//   every block reduces the same candidates in its own order: the rule
+//   (larger value, then lower index) is order-free, so each block reaches
+//   the same pick with the winner's xyz in hand. Block 0 writes the pick.
+//   The first pick (the lowest valid index, or 0 when none is valid) goes
+//   through the same exchange with value 1 for a valid point and 0 for
+//   point 0.
+// - Up to FPS_BLOCK_MAX points (SA2-SA4 and the aggregation) a sample is
+//   one block of 256 threads, 1-16 points a thread in registers, the same
+//   reduction with the warps' candidates in its own shared memory: one
+//   block barrier a pick.
+// Squared distances are (dx*dx + dy*dy) + dz*dz rounded step by step
+// (__fsub_rn, __fmul_rn, __fadd_rn), the plain version's float32
+// arithmetic with no FMA contraction, so the running distances and the
+// picks are the plain version's bit for bit. Allocates nothing and does
+// not synchronise.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int CLUSTER_THREADS = 1024;
+constexpr int BLOCK_THREADS = 256;
+constexpr int CLUSTER_PPT = 8;     // points a thread, cluster route
+constexpr int BLOCK_PPT = 16;      // points a thread, one-block route
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                                         float bx, float by, float bz) {
@@ -50,111 +87,280 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-// (v, i) becomes the better of itself and (v2, i2): the larger value, the
-// lower index among equal values
-__device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
+// a float's bits as an unsigned that orders as the float does (the running
+// distances are never -0, so -0 and +0 never meet)
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_down_sync(0xffffffffu, v, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, i, off);
-    better(v, i, v2, i2);
-  }
+// one candidate: the key of its value, its index, its point's xyz
+struct Best {
+  unsigned key, idx;
+  float x, y, z;
+};
+
+// every lane ends with the warp's best candidate
+__device__ __forceinline__ void warp_best(Best& b) {
+  const unsigned key = __reduce_max_sync(FULL, b.key);
+  const unsigned idx = __reduce_min_sync(FULL, b.key == key ? b.idx : ~0u);
+  const int owner =
+      __ffs(__ballot_sync(FULL, b.key == key && b.idx == idx)) - 1;
+  b.x = __shfl_sync(FULL, b.x, owner);
+  b.y = __shfl_sync(FULL, b.y, owner);
+  b.z = __shfl_sync(FULL, b.z, owner);
+  b.key = key;
+  b.idx = idx;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// a candidate in the arrays: its (key, index) and its xyz apart, so that
+// a reduction reads 8 bytes a candidate and the winner's xyz once
+__device__ __forceinline__ void store(uint2* k, float4* p, const Best& b) {
+  *k = make_uint2(b.key, b.idx);
+  *p = make_float4(b.x, b.y, b.z, 0.f);
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the best of n candidates (key, index in ks, xyz in ps), every lane of
+// the warp ending with it
+__device__ __forceinline__ Best best_of(const uint2* ks, const float4* ps,
+                                        int n, int lane) {
+  unsigned key = 0u, idx = ~0u;
+  int slot = 0;
+  for (int c = lane; c < n; c += 32) {
+    const uint2 v = ks[c];
+    if (v.x > key || (v.x == key && v.y < idx)) {
+      key = v.x;
+      idx = v.y;
+      slot = c;
+    }
+  }
+  const unsigned wk = __reduce_max_sync(FULL, key);
+  const unsigned wi = __reduce_min_sync(FULL, key == wk ? idx : ~0u);
+  const int owner = __ffs(__ballot_sync(FULL, key == wk && idx == wi)) - 1;
+  const float4 p = ps[__shfl_sync(FULL, slot, owner)];
+  return Best{wk, wi, p.x, p.y, p.z};
+}
+
+// C blocks a sample (C = 1: one block, block barriers only), THREADS
+// threads a block, PPT points a thread; past one block each block
+// publishes its best after one block barrier
+template <int C, int THREADS, int PPT>
+__global__ void __launch_bounds__(THREADS, 1)
     fps_kernel(const float* __restrict__ xyz,
-               const uint8_t* __restrict__ mask, int64_t n, int64_t s,
+               const uint8_t* __restrict__ mask, int n, int s,
                int32_t* __restrict__ out) {
-  extern __shared__ float dist[];
-  __shared__ float warp_v[WARPS];
-  __shared__ int warp_i[WARPS];
-  __shared__ int pick;
+  constexpr int WARPS = THREADS / 32;
+  constexpr int SLOTS = C == 1 ? WARPS : C;
+  __shared__ uint2 cand_k[2][SLOTS];
+  __shared__ float4 cand_p[2][SLOTS];
+  __shared__ uint2 block_k[C == 1 ? 1 : WARPS];
+  __shared__ float4 block_p[C == 1 ? 1 : WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t b = blockIdx.x;
-  const float* p = xyz + b * n * 3;
-  const uint8_t* m = mask + b * n;
-  int32_t* o = out + b * s;
+  const int rank = C == 1 ? 0 : (int)(blockIdx.x % C);
+  const int64_t b = blockIdx.x / C;
+  const float* p = xyz + b * (int64_t)n * 3;
+  const uint8_t* m = mask + b * (int64_t)n;
+  int32_t* o = out + b * (int64_t)s;
+  const int share = (n + C - 1) / C;
+  const int begin = rank * share;
+  const int end = min(n, begin + share);
 
-  // the first valid point: the lowest valid index (0 when none is valid)
-  int first = INT_MAX;
-  for (int64_t i = tid; i < n; i += THREADS) {
-    dist[i] = 1e10f;
-    if (m[i] && i < first) first = (int)i;
-  }
-  float fv = first == INT_MAX ? 0.f : 1.f;   // valid first beats none
-  int fi = first == INT_MAX ? 0 : first;
-  // a valid candidate wins over "none"; among valid, the lowest index
-  // wins: rank (1, -i) by value 1 and lower index
-  warp_best(fv, fi);
-  if (lane == 0) {
-    warp_v[warp] = fv;
-    warp_i[warp] = fi;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    fv = warp_v[lane];
-    fi = warp_i[lane];
-    warp_best(fv, fi);
-    if (lane == 0) {
-      pick = fv > 0.f ? fi : 0;
-      o[0] = pick;
-    }
-  }
-  __syncthreads();
-  int last = pick;
-
-  for (int64_t k = 1; k < s; ++k) {
-    const float lx = p[3 * last], ly = p[3 * last + 1], lz = p[3 * last + 2];
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int64_t i = tid; i < n; i += THREADS) {
-      const float d = fminf(dist[i], sqdist(p[3 * i], p[3 * i + 1],
-                                            p[3 * i + 2], lx, ly, lz));
-      dist[i] = d;
-      better(bv, bi, m[i] ? d : -1e10f, (int)i);
-    }
-    warp_best(bv, bi);
-    if (lane == 0) {
-      warp_v[warp] = bv;
-      warp_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = warp_v[lane];
-      bi = warp_i[lane];
-      warp_best(bv, bi);
-      if (lane == 0) {
-        pick = bi;
-        o[k] = bi;
+  // the block's share, read once: point begin + tid + THREADS * j
+  float px[PPT], py[PPT], pz[PPT], pd[PPT];
+  unsigned here = 0u, valid = 0u;
+  Best first{order_key(-INFINITY), ~0u, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = PPT - 1; j >= 0; --j) {   // down: the lowest valid wins
+    const int i = begin + tid + THREADS * j;
+    px[j] = py[j] = pz[j] = 0.f;
+    pd[j] = 1e10f;
+    if (i < end) {
+      px[j] = p[3 * i];
+      py[j] = p[3 * i + 1];
+      pz[j] = p[3 * i + 2];
+      here |= 1u << j;
+      if (m[i]) {
+        valid |= 1u << j;
+        first = Best{order_key(1.f), (unsigned)i, px[j], py[j], pz[j]};
+      } else if (i == 0 && first.key != order_key(1.f)) {
+        first = Best{order_key(0.f), 0u, px[j], py[j], pz[j]};
       }
     }
-    __syncthreads();
-    last = pick;
+  }
+
+  auto exchange = [&](Best best, int par) -> Best {
+    warp_best(best);
+    if constexpr (C == 1) {
+      if (lane == 0) store(&cand_k[par][warp], &cand_p[par][warp], best);
+      __syncthreads();
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (lane == 0) store(&block_k[warp], &block_p[warp], best);
+      __syncthreads();
+      if (warp == 0) {
+        const Best wb = best_of(block_k, block_p, WARPS, lane);
+        if (lane < C)
+          store(cluster.map_shared_rank(&cand_k[par][rank], lane),
+                cluster.map_shared_rank(&cand_p[par][rank], lane), wb);
+      }
+      __syncwarp();
+      cluster_barrier();
+    }
+    return best_of(cand_k[par], cand_p[par], SLOTS, lane);
+  };
+
+  Best pick = exchange(first, 0);
+  if (rank == 0 && tid == 0) o[0] = (int32_t)pick.idx;
+  const unsigned masked_key = order_key(-1e10f);
+  const unsigned absent_key = order_key(-INFINITY);
+  for (int k = 1; k < s; ++k) {
+    Best best{absent_key, ~0u, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {       // up: ties keep the lower index
+      const float d = fminf(pd[j], sqdist(px[j], py[j], pz[j], pick.x,
+                                          pick.y, pick.z));
+      pd[j] = d;
+      const unsigned key = (valid >> j) & 1u ? order_key(d)
+                           : (here >> j) & 1u ? masked_key : absent_key;
+      if (key > best.key) {
+        best = Best{key, (unsigned)(begin + tid + THREADS * j), px[j],
+                    py[j], pz[j]};
+      }
+    }
+    pick = exchange(best, k & 1);
+    if (rank == 0 && tid == 0) o[k] = (int32_t)pick.idx;
+  }
+}
+
+template <int C, int THREADS, int PPT>
+int launch(const float* xyz, const uint8_t* mask, int b, int n, int s,
+           int32_t* out, cudaStream_t st) {
+  auto kern = fps_kernel<C, THREADS, PPT>;
+  if constexpr (C == 1) {
+    kern<<<b, THREADS, 0, st>>>(xyz, mask, n, s, out);
+    return (int)cudaGetLastError();
+  } else {
+    if constexpr (C > 8) {
+      static bool allowed = false;
+      if (!allowed) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+        allowed = true;
+      }
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(b * C));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e =
+        cudaLaunchKernelEx(&cfg, kern, xyz, mask, n, s, out);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  }
+}
+
+template <int C>
+int launch_cluster(const float* xyz, const uint8_t* mask, int b, int n,
+                   int s, int32_t* out, cudaStream_t st) {
+  const int share = (n + C - 1) / C;
+  switch ((share + CLUSTER_THREADS - 1) / CLUSTER_THREADS) {
+#define FPS_CASE(P)                                                       \
+  case P:                                                                 \
+    return launch<C, CLUSTER_THREADS, P>(xyz, mask, b, n, s, out, st);
+    FPS_CASE(1) FPS_CASE(2) FPS_CASE(3) FPS_CASE(4)
+    FPS_CASE(5) FPS_CASE(6) FPS_CASE(7) FPS_CASE(8)
+#undef FPS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_block(const float* xyz, const uint8_t* mask, int b, int n, int s,
+                 int32_t* out, cudaStream_t st) {
+  switch ((n + BLOCK_THREADS - 1) / BLOCK_THREADS) {
+#define FPS_CASE(P)                                                      \
+  case P:                                                                \
+    return launch<1, BLOCK_THREADS, P>(xyz, mask, b, n, s, out, st);
+    FPS_CASE(1) FPS_CASE(2) FPS_CASE(3) FPS_CASE(4)
+    FPS_CASE(5) FPS_CASE(6) FPS_CASE(7) FPS_CASE(8)
+    FPS_CASE(9) FPS_CASE(10) FPS_CASE(11) FPS_CASE(12)
+    FPS_CASE(13) FPS_CASE(14) FPS_CASE(15) FPS_CASE(16)
+#undef FPS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// xyz (b, n, 3) float32, mask (b, n) uint8, out (b, s) int32; n <= 50,000
-// (the running distances live in shared memory).
+// The cluster size of the route past FPS_BLOCK_MAX for b samples: 16 when
+// b clusters of 16 blocks are resident at once (cudaOccupancyMaxActive-
+// Clusters, asked once), else 8, the portable size, whose clusters all fit
+// at VoteNet's batch of 8. At one sample 16 walks SA1 faster (its
+// threads hold 3 points, not 5); past the resident count a cluster of 16
+// would wait for another to end.
+extern "C" int fps_cluster(long long b) {
+  static int resident16 = -1;
+  if (resident16 < 0) {
+    auto kern = fps_kernel<16, CLUSTER_THREADS, CLUSTER_PPT>;
+    int count = 0;
+    if (cudaFuncSetAttribute(
+            kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) ==
+        cudaSuccess) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(16);
+      cfg.blockDim = dim3(CLUSTER_THREADS);
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 16;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if (cudaOccupancyMaxActiveClusters(&count, kern, &cfg) != cudaSuccess)
+        count = 0;
+    }
+    cudaGetLastError();        // a refused query leaves no error behind
+    resident16 = count;
+  }
+  return b <= resident16 ? 16 : 8;
+}
+
+// xyz (b, n, 3) float32, mask (b, n) uint8, out (b, s) int32. cluster: 1
+// (one 256-thread block a sample, n <= 4,096), 8 or 16 (a cluster of that
+// many 1,024-thread blocks a sample, n <= cluster * 8,192).
 extern "C" int furthest_point_sample(const void* xyz, const void* mask,
                                      long long b, long long n, long long s,
-                                     void* out, void* stream) {
+                                     void* out, int cluster, void* stream) {
   if (b <= 0 || s <= 0) return 0;
-  if (n <= 0 || n > 50000) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n * sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  fps_kernel<<<(unsigned)b, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)xyz, (const uint8_t*)mask, (int64_t)n, (int64_t)s,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
+  if (n <= 0 || b > 65535 || s >= ((long long)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const float* x = (const float*)xyz;
+  const uint8_t* m = (const uint8_t*)mask;
+  int32_t* o = (int32_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cluster == 1) {
+    if (n > (long long)BLOCK_THREADS * BLOCK_PPT)
+      return (int)cudaErrorInvalidValue;
+    return launch_block(x, m, (int)b, (int)n, (int)s, o, st);
+  }
+  if ((cluster != 8 && cluster != 16) ||
+      n > (long long)cluster * CLUSTER_THREADS * CLUSTER_PPT)
+    return (int)cudaErrorInvalidValue;
+  if (cluster == 8)
+    return launch_cluster<8>(x, m, (int)b, (int)n, (int)s, o, st);
+  return launch_cluster<16>(x, m, (int)b, (int)n, (int)s, o, st);
 }

@@ -58,25 +58,32 @@ SIGNATURES = {
     "roiaware_pool": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
                        _LL, _LL, _LL, _LL, _P], _I),
     # K14: the PointNet++ ops (ops/pointnet_ops.py)
-    "furthest_point_sample": ([_P, _P, _LL, _LL, _LL, _P, _P], _I),
+    "furthest_point_sample": ([_P, _P, _LL, _LL, _LL, _P, _I, _P], _I),
+    "fps_cluster": ([_LL], _I),
     "ball_query": ([_P, _P, _P, _LL, _LL, _LL, _LL, _F, _P, _P, _P], _I),
     "three_nn": ([_P, _P, _P, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
-    "point_gather": ([_I, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL,
-                      _P], _I),
+    "point_gather": ([_P, _P], _I),
+    "point_gather_scratch": ([_LL, _LL], _LL),
     # no kernel of a path: the floor of one launch, timed by chip_smoke.py
     "empty_launch": ([_P], _I),
 }
 
 # entry points that live in another kernel's source: K10-BEV is K10's
 # kernel without the vertical overlap; K10-circle's route past its
-# one-launch size shares its source
+# one-launch size shares its source; K14-FPS's cluster size and
+# K14-gather's scratch words (queries, no launch)
 SOURCES = {"boxes_iou_bev": "boxes_iou_3d",
-           "nms_circle_pairwise": "nms_circle"}
+           "nms_circle_pairwise": "nms_circle",
+           "fps_cluster": "furthest_point_sample",
+           "point_gather_scratch": "point_gather"}
 
 # launches per kernel, and "segment_layout": the lists that K1's list stage
-# built for a K2 caller that passed none (ops/voxel.py:segment_layout)
+# built for a K2 caller that passed none (ops/voxel.py:segment_layout);
+# "point_gather_layout": the slot lists K14-gather built (its backward's,
+# ops/pointnet_ops.py:slot_lists)
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 LAUNCHES["segment_layout"] = 0
+LAUNCHES["point_gather_layout"] = 0
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

@@ -41,7 +41,9 @@ tensor it launches its hand-written kernel or raises:
 ``csrc/furthest_point_sample.cu`` (K14-FPS), ``csrc/ball_query.cu``
 (K14-ball), ``csrc/three_nn.cu`` (K14-NN; k <= 16) and
 ``csrc/point_gather.cu`` (K14-gather: the three gathers forward, their
-backward by a CSR of each source row's slots, and the weights' gradient).
+backward by a CSR of each source row's slots that the same call builds,
+and the weights' gradient; a call with no input that needs a gradient
+skips autograd).
 The plain versions bound their (S, N) matrices by working on
 ``QUERY_CHUNK`` queries at a time, with equal results. The index ops have
 no gradient; ``knn`` raises when asked for one (its distances are
@@ -52,6 +54,8 @@ over (S, 3)).
 from __future__ import annotations
 
 import ctypes
+import struct
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -65,9 +69,13 @@ _BIG = 1e10
 QUERY_CHUNK = 256
 # the largest k of the K14-NN kernel (no ported model asks for more)
 KNN_MAX_K = 16
-# the most points of a K14-FPS sample (its running distances live in
-# shared memory; no ported path has more than 40,000)
+# the most points of a K14-FPS sample (a cluster of 8 blocks holds 65,536
+# in registers; no ported path has more than 40,000)
 FPS_MAX_POINTS = 50_000
+# K14-FPS walks a sample of up to FPS_BLOCK_MAX points in one block (256
+# threads, 16 points a thread at most), a larger one in a cluster of 8 or
+# 16 blocks of 1,024 threads (``fps_cluster``)
+FPS_BLOCK_MAX = 4096
 
 
 # ------------------------------------------------------------ plain parts
@@ -204,8 +212,26 @@ def interpolation_weights(dists: torch.Tensor, eps: float = 1e-8
 
 
 # --------------------------------------------------------------- kernels
+_RAW_STREAM = None
+_FNS = {}
+
+
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of ``t``'s device."""
+    global _RAW_STREAM
+    if _RAW_STREAM is None:
+        _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _RAW_STREAM(t.device.index)
+
+
+def _fn(name: str):
+    """The ctypes function of kernel ``name``, its argtypes set (built and
+    loaded on first use, then cached)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(cuda_build.load(name), name)
+    return fn
 
 
 def _launched(name: str, err: int, count: int = 1) -> None:
@@ -215,18 +241,19 @@ def _launched(name: str, err: int, count: int = 1) -> None:
     cuda_build.LAUNCHES[name] += count
 
 
-def _on_card(name: str, *tensors) -> bool:
+def _on_card(name: str, t: torch.Tensor, *others) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU ones (the
     plain version); raises on mixed or other devices."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: tensors on different devices {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
+    dev = t.device
+    for o in others:
+        if o is not None and o.device != dev:
+            raise ValueError(f"{name}: tensors on different devices "
+                             f"{dev} and {o.device}")
+    if t.is_cuda:
+        return True
+    if dev.type != "cpu":
         raise RuntimeError(f"{name}: no kernel for {dev}")
-    return True
+    return False
 
 
 def _points(name: str, xyz: torch.Tensor, mask) -> torch.Tensor:
@@ -247,18 +274,43 @@ def furthest_point_sample(xyz: torch.Tensor, num_samples: int,
     m = _points("furthest_point_sample", xyz, mask)
     if not _on_card("furthest_point_sample", xyz, m):
         return furthest_point_sample_ref(xyz, num_samples, mask)
-    b, n, _ = xyz.shape
+    n = xyz.shape[1]
     if n > FPS_MAX_POINTS:
         raise ValueError(f"furthest_point_sample: the kernel takes N <= "
                          f"{FPS_MAX_POINTS} points, not {n}")
+    return fps_launch(xyz, num_samples, m, 1 if n <= FPS_BLOCK_MAX
+                      else fps_cluster(xyz.shape[0]))
+
+
+_FPS_CLUSTERS = {}
+
+
+def fps_cluster(b: int) -> int:
+    """The blocks of K14-FPS's cluster for ``b`` samples on the card: 16
+    when the card keeps ``b`` clusters of 16 resident at once, else 8
+    (the kernel's ``fps_cluster`` query, cached by ``b``)."""
+    c = _FPS_CLUSTERS.get(b)
+    if c is None:
+        c = _FPS_CLUSTERS[b] = _fn("fps_cluster")(b)
+    return c
+
+
+def fps_launch(xyz: torch.Tensor, num_samples: int, mask: torch.Tensor,
+               cluster: int) -> torch.Tensor:
+    """One K14-FPS launch on CUDA tensors (xyz (B, N, 3) float32, mask (B,
+    N) bool) by a chosen route: ``cluster`` 1 (one block a sample, N <=
+    4,096), 8 or 16 (a cluster of that many blocks, N <= 8,192 x cluster).
+    ``furthest_point_sample`` takes the route by N and batch; the others
+    are for measuring the design (``chip_smoke.py``)."""
+    b, n, _ = xyz.shape
     s = int(num_samples)
     out = torch.empty((b, s), dtype=torch.int32, device=xyz.device)
     if b == 0 or s == 0:
         return out
     xyz = xyz.detach().contiguous()
-    lib = cuda_build.load("furthest_point_sample")
-    err = lib.furthest_point_sample(xyz.data_ptr(), m.data_ptr(), b, n, s,
-                                    out.data_ptr(), _stream(xyz))
+    err = _fn("furthest_point_sample")(
+        xyz.data_ptr(), mask.contiguous().data_ptr(), b, n, s,
+        out.data_ptr(), int(cluster), _stream(xyz))
     _launched("furthest_point_sample", err)
     return out
 
@@ -280,10 +332,9 @@ def ball_query(radius: float, num_samples: int, xyz: torch.Tensor,
     if b * s == 0 or k == 0:
         return idx, valid
     xyz, q = xyz.detach().contiguous(), query_xyz.detach().contiguous()
-    lib = cuda_build.load("ball_query")
-    err = lib.ball_query(xyz.data_ptr(), q.data_ptr(), m.data_ptr(), b, n,
-                         s, k, ctypes.c_float(_radius2(radius)),
-                         idx.data_ptr(), valid.data_ptr(), _stream(xyz))
+    err = _fn("ball_query")(xyz.data_ptr(), q.data_ptr(), m.data_ptr(), b,
+                            n, s, k, ctypes.c_float(_radius2(radius)),
+                            idx.data_ptr(), valid.data_ptr(), _stream(xyz))
     _launched("ball_query", err)
     return idx, valid
 
@@ -314,9 +365,8 @@ def knn(k: int, xyz: torch.Tensor, query_xyz: torch.Tensor,
     if b * s == 0:
         return idx, d2
     xyz, q = xyz.contiguous(), query_xyz.contiguous()
-    lib = cuda_build.load("three_nn")
-    err = lib.three_nn(xyz.data_ptr(), q.data_ptr(), m.data_ptr(), b, n, s,
-                       k, idx.data_ptr(), d2.data_ptr(), _stream(xyz))
+    err = _fn("three_nn")(xyz.data_ptr(), q.data_ptr(), m.data_ptr(), b, n,
+                          s, k, idx.data_ptr(), d2.data_ptr(), _stream(xyz))
     _launched("three_nn", err)
     return idx, d2
 
@@ -334,13 +384,30 @@ def three_nn(query_xyz: torch.Tensor, xyz: torch.Tensor,
 _FORWARD, _BACKWARD, _WEIGHT_GRAD = 0, 1, 2
 
 
-def _gather_call(op: int, a, b, idx, w, ptr, out, rows: int, j: int, n: int,
-                 c: int, r: int) -> None:
-    lib = cuda_build.load("point_gather")
-    p = [0 if t is None else t.data_ptr() for t in (a, b, idx, w, ptr)]
-    err = lib.point_gather(op, *p, out.data_ptr(), rows, j, n, c, r,
-                           _stream(out))
-    _launched("point_gather", err)
+_PACK = struct.Struct("12q").pack_into
+_ARGS = threading.local()
+
+
+def _gather_call(op: int, a, b, idx, w, scratch, out, rows: int, j: int,
+                 n: int, c: int, r: int) -> None:
+    """One call of ``point_gather``: its twelve arguments packed into a
+    buffer of this thread (one ctypes argument converts faster than
+    twelve)."""
+    args = getattr(_ARGS, "buf", None)
+    if args is None:
+        buf = (ctypes.c_longlong * 12)()
+        args = _ARGS.buf = (buf, ctypes.addressof(buf))
+    _PACK(args[0], 0, op, 0 if a is None else a.data_ptr(),
+          0 if b is None else b.data_ptr(), idx.data_ptr(),
+          0 if w is None else w.data_ptr(),
+          0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+          rows, j, n, c, r)
+    _launched("point_gather", _fn("point_gather")(args[1], _stream(out)))
+
+
+def _list_scratch(segs: int, slots: int, device) -> torch.Tensor:
+    words = _fn("point_gather_scratch")(segs, slots)
+    return torch.empty(words, dtype=torch.int32, device=device)
 
 
 def slot_lists(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor,
@@ -348,7 +415,10 @@ def slot_lists(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor,
     """CSR of the slots that read each source row: (B, R) int32 indices
     into (B, n) rows -> ptr (B * n + 1) int32 offsets and the slot ids
     (flattened over B * R) grouped by row, each row's in increasing order
-    (a stable sort: the backward's sums run in slot order and repeat)."""
+    (the backward's sums run in slot order and repeat): the plain
+    version, a stable sort, of the list that K14-gather's backward builds
+    in its own call on the card (``csrc/point_gather.cu``, op 1, counted
+    as ``LAUNCHES["point_gather_layout"]``)."""
     b, r = idx.shape
     keys = (idx.long() + n * torch.arange(b, device=idx.device)[:, None]
             ).reshape(-1)
@@ -358,47 +428,56 @@ def slot_lists(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor,
     return ptr.to(torch.int32), order.to(torch.int32)
 
 
+def _gather(feats, idx, weight, j: int, rows: int, shape) -> torch.Tensor:
+    """K14-gather's forward on the card: (B, N, C) contiguous rows at
+    contiguous int32 slots, ``rows`` x ``j`` a sample [x weights of the
+    slots' shape] -> ``shape``, (B, rows, C) in memory."""
+    b, n, c = feats.shape
+    out = feats.new_empty(shape)
+    if b and rows and c:
+        _gather_call(_FORWARD, feats, None, idx, weight, None, out,
+                     b * rows, j, n, c, rows)
+    return out
+
+
 class _PointGather(torch.autograd.Function):
-    """K14-gather over flattened slots: feats (B, N, C), idx (B, R * J)
-    int32, weight (B, R * J) float32 or None -> (B, R, C), each row the
-    sum of its J slots' weighted source rows (J = 1 without weights: a
-    copy). Backward: the features' gradient summed over each source row's
-    slots in slot order (``slot_lists``), the weights' the dot of the
-    output gradient with each slot's row."""
+    """K14-gather with a gradient (``_gather``'s arguments). Backward: the
+    features' gradient summed over each source row's slots in slot order
+    (over ``slot_lists``' list, built in the same call), the weights' the
+    dot of the output gradient with each slot's row."""
 
     @staticmethod
-    def forward(ctx, feats, idx, weight, j):
-        b, n, c = feats.shape
-        rows = idx.shape[1] // j
-        out = torch.empty((b, rows, c), dtype=feats.dtype,
-                          device=feats.device)
-        if out.numel():
-            _gather_call(_FORWARD, feats, None, idx, weight, None, out,
-                         b * rows, j, n, c, rows)
-        ctx.j = j
+    def forward(ctx, feats, idx, weight, j, rows, shape):
+        ctx.j, ctx.rows = j, rows
         ctx.save_for_backward(feats if weight is not None else None, idx,
                               weight)
-        ctx.feats_shape = (b, n, c)
-        return out
+        ctx.feats_shape = tuple(feats.shape)
+        return _gather(feats, idx, weight, j, rows, shape)
 
     @staticmethod
     def backward(ctx, g):
         feats, idx, weight = ctx.saved_tensors
         b, n, c = ctx.feats_shape
-        j = ctx.j
-        rows = idx.shape[1] // j
+        j, rows = ctx.j, ctx.rows
         g = g.contiguous()
         gf = gw = None
         if ctx.needs_input_grad[0]:
-            gf = torch.empty((b, n, c), dtype=g.dtype, device=g.device)
-            ptr, slots = slot_lists(idx, n)
-            _gather_call(_BACKWARD, g, None, slots, weight, ptr, gf, b * n,
-                         j, n, c, rows)
+            if not g.numel():                 # no rows read: zero
+                gf = g.new_zeros((b, n, c))
+            else:
+                gf = g.new_empty((b, n, c))
+                _gather_call(_BACKWARD, g, None, idx, weight, _list_scratch(
+                    b * n, b * rows * j, g.device), gf, b * rows, j, n, c,
+                    rows)
+                cuda_build.LAUNCHES["point_gather_layout"] += 1
         if weight is not None and ctx.needs_input_grad[2]:
-            gw = torch.empty(idx.shape, dtype=g.dtype, device=g.device)
-            _gather_call(_WEIGHT_GRAD, g, feats, idx, None, None, gw,
-                         b * rows, j, n, c, rows)
-        return gf, None, gw, None
+            if not g.numel():
+                gw = g.new_zeros(weight.shape)
+            else:
+                gw = g.new_empty(weight.shape)
+                _gather_call(_WEIGHT_GRAD, g, feats, idx, None, None, gw,
+                             b * rows, j, n, c, rows)
+        return gf, None, gw, None, None, None
 
 
 def _gather_args(name: str, feats: torch.Tensor, idx: torch.Tensor) -> None:
@@ -410,12 +489,32 @@ def _gather_args(name: str, feats: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"{name}: no source rows")
 
 
+def _point_gather(feats, idx, weight, j: int, rows: int, shape
+                  ) -> torch.Tensor:
+    """The card's call: ``rows`` rows of ``j`` slots a sample into
+    ``shape``; without autograd when no input needs a gradient (the serve
+    path runs under ``no_grad``)."""
+    if not feats.is_contiguous():
+        feats = feats.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    if weight is not None:
+        if not weight.is_contiguous():
+            weight = weight.contiguous()
+        if weight.requires_grad and torch.is_grad_enabled():
+            return _PointGather.apply(feats, idx, weight, j, rows, shape)
+    if feats.requires_grad and torch.is_grad_enabled():
+        return _PointGather.apply(feats, idx, weight, j, rows, shape)
+    return _gather(feats, idx, weight, j, rows, shape)
+
+
 def gather_points(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K14-gather: (B, N, C) x (B, S) int32 -> (B, S, C)."""
     _gather_args("gather_points", feats, idx)
     if not _on_card("gather_points", feats, idx):
         return gather_points_ref(feats, idx)
-    return _PointGather.apply(feats.contiguous(), idx.contiguous(), None, 1)
+    b, s = idx.shape
+    return _point_gather(feats, idx, None, 1, s, (b, s, feats.shape[2]))
 
 
 def group_points(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -424,9 +523,8 @@ def group_points(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not _on_card("group_points", feats, idx):
         return group_points_ref(feats, idx)
     b, s, k = idx.shape
-    out = _PointGather.apply(feats.contiguous(), idx.reshape(b, s * k)
-                             .contiguous(), None, 1)
-    return out.reshape(b, s, k, feats.shape[-1])
+    return _point_gather(feats, idx, None, 1, s * k,
+                         (b, s, k, feats.shape[2]))
 
 
 def three_interpolate(feats: torch.Tensor, idx: torch.Tensor,
@@ -440,6 +538,4 @@ def three_interpolate(feats: torch.Tensor, idx: torch.Tensor,
     if not _on_card("three_interpolate", feats, idx, weight):
         return three_interpolate_ref(feats, idx, weight)
     b, s, j = idx.shape
-    return _PointGather.apply(feats.contiguous(), idx.reshape(b, s * j)
-                              .contiguous(), weight.reshape(b, s * j)
-                              .contiguous(), j)
+    return _point_gather(feats, idx, weight, j, s, (b, s, feats.shape[2]))

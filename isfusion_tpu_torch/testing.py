@@ -784,13 +784,45 @@ def recording_eval_ious():
         box_ops.boxes_iou_bev, box_ops.boxes_iou_3d = real
 
 
+# the feature rows the gather tests draw for a set of ``point_op_sets``:
+# (C, storage offset in floats); the other sets take the test's own width
+# at offset 0. Rows of C <= 4 take a thread a row in K14-gather, C % 4 ==
+# 0 rows at a 16-byte aligned base move as float4, the others as floats.
+POINT_SET_ROWS = {"rows_c1": (1, 0), "rows_c3": (3, 0), "rows_c5": (5, 0),
+                  "rows_c128": (128, 0), "rows_c130": (130, 0),
+                  "rows_unaligned": (128, 1)}
+
+
+def offset_rows(values, offset: int, device="cpu",
+                requires_grad: bool = False):
+    """(base, view): ``values`` (a numpy array or tensor) copied into a
+    flat float32 tensor ``base`` of ``offset`` more elements, and the
+    contiguous view of its shape that starts ``offset`` elements into
+    ``base``'s storage (with ``offset`` % 4 != 0 its rows are not 16-byte
+    aligned). With ``requires_grad`` the view's gradient lands in
+    ``base.grad[offset:]``."""
+    values = torch.as_tensor(values).to(device, torch.float32)
+    base = torch.zeros(offset + values.numel(), device=device)
+    base[offset:] = values.reshape(-1)
+    base.requires_grad_(requires_grad)
+    return base, base[offset:].view(values.shape)
+
+
 def point_op_sets(gen: np.random.Generator):
     """The clouds that K14 is held on: (name, xyz (B, N, 3) float32, mask
     (B, N) bool, queries (B, S, 3) float32, radius, K, num_samples) with
     random clouds, exact duplicates, masked tails, a sample with every
     point masked, more FPS samples than valid points, balls with no point,
     points at exactly the radius (and one float32 step beyond it) and
-    lattices whose neighbours tie in distance. numpy."""
+    lattices whose neighbours tie in distance. Then K14-FPS's partition
+    (``ops/pointnet_ops.py``: one 256-thread block a sample up to
+    FPS_BLOCK_MAX = 4,096 points, past it a cluster of 8 blocks of 1,024
+    threads, one point a thread up to 8,192): N at, one below and one
+    above both; the largest running distance tied between points in
+    different blocks' shares (the lower index wins); a block's whole share
+    masked; a sample at FPS_MAX_POINTS. Then the small clouds of
+    ``POINT_SET_ROWS``, whose gathers take other row widths and an
+    unaligned view. numpy."""
     f32 = np.float32
 
     def cloud(b, n, scale=2.0):
@@ -835,6 +867,42 @@ def point_op_sets(gen: np.random.Generator):
     q = ((gen.integers(0, 5, (1, 20, 3)) + 0.5) * 0.5).astype(f32)
     sets.append(("lattice_ties", lattice, np.ones((1, 144), bool),
                  np.concatenate([q, lattice[:, :12]], 1), 0.55, 8, 40))
+    for label, edge in (("block_share", 4096), ("cluster_span", 8192)):
+        for tag, n in (("below", edge - 1), ("at", edge), ("above", edge + 1)):
+            xyz = cloud(1, n)
+            mask = gen.uniform(size=(1, n)) > 0.1
+            sets.append((f"{label}_{tag}", xyz, mask, xyz[:, :16].copy(),
+                         0.3, 8, 64))
+    # 40,000 points in a 2 m cube around point 0 at the origin, and four
+    # points 10 m out on the axes (squared distance exactly 100 from it),
+    # at indices in four blocks' shares of a cluster of 8 (5,000 points a
+    # block) or 16 (2,500): the running distances tie at 100 across
+    # blocks, and the lowest index must win each time
+    n = 40_000
+    xyz = cloud(1, n, 1.0)
+    xyz[0, 0] = 0.0
+    far = {3000: (10, 0, 0), 20500: (0, 10, 0), 30000: (-10, 0, 0),
+           39990: (0, 0, 10)}
+    for i, p in far.items():
+        xyz[0, i] = p
+    sets.append(("tie_across_blocks", xyz, np.ones((1, n), bool),
+                 xyz[:, :16].copy(), 0.3, 8, 32))
+    # sample 0: block 1's share of a cluster of 8 masked (blocks 2-3 of
+    # 16); sample 1: the last block's
+    xyz = cloud(2, n)
+    mask = np.ones((2, n), bool)
+    mask[0, 5000:10000] = False
+    mask[1, 35000:] = False
+    sets.append(("block_share_masked", xyz, mask, xyz[:, :16].copy(), 0.3,
+                 8, 48))
+    n = 50_000                          # FPS_MAX_POINTS
+    xyz = cloud(1, n)
+    sets.append(("fps_max_points", xyz, gen.uniform(size=(1, n)) > 0.2,
+                 xyz[:, :16].copy(), 0.3, 8, 40))
+    for name in POINT_SET_ROWS:
+        xyz = cloud(2, 200)
+        sets.append((name, xyz, np.ones((2, 200), bool), cloud(2, 24), 0.8,
+                     16, 48))
     return sets
 
 

@@ -44,9 +44,13 @@ float32's range) K10 and K10-BEV within 1e-5 of the plain value (or of 1)
 with NaN and infinities where the plain version has them, K10-NMS's bits
 equal to the plain IoU's in both orders of each pair. K14 (the PointNet++
 ops) on ``testing.point_op_sets`` and VoteNet's first-level shapes:
-FPS, ball-query and K-NN indices, valid flags and distances equal to the
-plain versions', the gathers equal forward, their gradients within 1e-6
-of the max of plain autograd's and equal over two calls; the tiny VoteNet
+FPS (by every route: one block, clusters of 8 and 16), ball-query and
+K-NN indices, valid flags and distances equal to the plain versions',
+the gathers equal forward (rows of 1-130 floats, an unaligned view;
+no-grad and grad calls alike), their gradients within 1e-6 of the max
+of plain autograd's and equal over two calls, the features' gradient
+equal to the sums in slot order (the backward's list, rows of up to
+3,000 slots), the list counted apart from K2's; the tiny VoteNet
 and H3DNet on the card against the CPU as the tiny ImVoxelNet (losses
 1e-4 relative, gradients 1e-3 of their max).
 """
@@ -61,7 +65,8 @@ from isfusion_tpu_torch.ops import (box_ops, cuda_build, gaussian, scatter,
                                     sparse_conv, voxel)
 from isfusion_tpu_torch.ops import pointnet_ops as pn
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
-from isfusion_tpu_torch.testing import (degenerate_box_sets, iou_undetermined,
+from isfusion_tpu_torch.testing import (POINT_SET_ROWS, degenerate_box_sets,
+                                       iou_undetermined, offset_rows,
                                        point_op_sets)
 
 pytestmark = pytest.mark.cuda
@@ -1699,12 +1704,16 @@ def test_k14_index_kernels_match_plain_versions(card, name):
 
 @pytest.mark.parametrize("name", POINT_SETS)
 def test_k14_gathers_match_plain_versions(card, name):
-    """K14-gather's three forms bit-equal forward; the features' and
-    weights' gradients within 1e-6 of the max of plain autograd's, and two
-    kernel backwards bit-equal."""
+    """K14-gather's three forms bit-equal forward (the rows' width and
+    storage offset from ``POINT_SET_ROWS``), the no-grad call equal to the
+    grad call; the features' and weights' gradients within 1e-6 of the
+    max of plain autograd's, and two kernel backwards bit-equal; one
+    forward launch a call, and a backward's launches (one per gradient)
+    beside one list of K1's list stage, none counted as K2's."""
     xyz, mask, q, radius, k, s = _point_set(name, card)
+    c, offset = POINT_SET_ROWS.get(name, (7, 0))
     gen = torch.Generator(card).manual_seed(5)
-    feats = torch.randn(xyz.shape[:2] + (7,), generator=gen, device=card)
+    feats = torch.randn(xyz.shape[:2] + (c,), generator=gen, device=card)
     fps = pn.furthest_point_sample_ref(xyz, s, mask)
     gi, _ = pn.ball_query_ref(radius, k, xyz, q, mask)
     ni, d2 = pn.knn_ref(3, xyz, q, mask)
@@ -1712,24 +1721,126 @@ def test_k14_gathers_match_plain_versions(card, name):
     for op, idx, weight in (("gather_points", fps, None),
                             ("group_points", gi, None),
                             ("three_interpolate", ni, w)):
+        extra = () if weight is None else (weight,)
+        _, view = offset_rows(feats, offset, card)
+        with torch.no_grad():
+            lean = _launched("point_gather",
+                             lambda: getattr(pn, op)(view, idx, *extra))
         grads = []
         for fn in (getattr(pn, op), getattr(pn, op), getattr(pn, op +
                                                              "_ref")):
-            f = feats.clone().requires_grad_(True)
-            extra = () if weight is None else (
-                weight.clone().requires_grad_(True),)
-            out = fn(f, idx, *extra)
+            base, f = offset_rows(feats, offset, card, requires_grad=True)
+            wt = tuple(e.clone().requires_grad_(True) for e in extra)
+            out = fn(f, idx, *wt)
             g = torch.randn(out.shape, generator=torch.Generator(
                 card).manual_seed(9), device=card)
+            before = dict(cuda_build.LAUNCHES)
             out.backward(g)
-            grads.append((out.detach(), f.grad) + tuple(
-                e.grad for e in extra))
+            torch.cuda.synchronize()
+            if fn is not getattr(pn, op + "_ref"):
+                launched = {key: cuda_build.LAUNCHES[key] - before[key]
+                            for key in ("point_gather", "point_gather_layout",
+                                        "segment_layout")}
+                assert launched == dict(point_gather=1 + len(wt),
+                                        point_gather_layout=1,
+                                        segment_layout=0), (op, launched)
+            grads.append((out.detach(), base.grad[offset:].view(
+                feats.shape)) + tuple(e.grad for e in wt))
         (o1, *g1), (o2, *g2), (o3, *g3) = grads
         assert torch.equal(o1, o3), op
-        for a, b, c in zip(g1, g2, g3):
+        assert torch.equal(lean, o1), op
+        for a, b, c_ in zip(g1, g2, g3):
             assert torch.equal(a, b), op
-            assert float((a - c).abs().max()) <= 1e-6 * max(
-                float(c.abs().max()), 1e-30), op
+            assert float((a - c_).abs().max()) <= 1e-6 * max(
+                float(c_.abs().max()), 1e-30), op
+
+
+def _slot_order_grad(idx, n, g, weight=None):
+    """The features' gradient of a gather of (B, R * J) slots into (B, n)
+    rows, each row's sum taken in increasing slot order in float32 (the
+    order K14-gather's list gives its backward): numpy's ``add.at``
+    applies its updates one at a time, in order."""
+    b, slots = idx.shape
+    c = g.shape[-1]
+    j = slots // g.reshape(b, -1, c).shape[1]
+    rows = (idx.cpu().numpy().astype(np.int64) + n * np.arange(b)[:, None]
+            ).reshape(-1)
+    vals = np.repeat(g.reshape(-1, c).cpu().numpy(), j, axis=0)
+    if weight is not None:
+        vals = vals * weight.reshape(-1, 1).cpu().numpy()
+    out = np.zeros((b * n, c), np.float32)
+    np.add.at(out, rows, vals)
+    return torch.from_numpy(out.reshape(b, n, c))
+
+
+@pytest.mark.parametrize("name", POINT_SETS + ["one_row", "long_rows"])
+def test_k14_slot_lists_match_plain_version(card, name):
+    """K14-gather's list (the CSR of the slots that read each source row,
+    each row's in increasing order), held through the backward that builds
+    it: the features' gradient bit-equal to the sums in slot order, for
+    group_points on the balls of each set and three_interpolate on its
+    neighbours (rows of 5 floats); on 3,000 slots of one row, and on SA2's
+    32 x 1,024 slots with most of them on a few rows (rows of 8 floats;
+    rows past a warp's 256 slots take a block's bitmap order). One list
+    counted a backward, none as K2's."""
+    gen = torch.Generator(card).manual_seed(3)
+    if name == "one_row":
+        n = 5
+        cases = [("group_points", torch.full((2, 1500, 1), 3,
+                                             dtype=torch.int32,
+                                             device=card), None)]
+    elif name == "long_rows":
+        n = 2048
+        idx = torch.randint(0, n, (1, 1024, 32), generator=gen,
+                            device=card, dtype=torch.int32)
+        few = torch.tensor([0, 7, 100, n - 1], dtype=torch.int32,
+                           device=card)
+        pick = torch.rand(idx.shape, generator=gen, device=card) < 0.8
+        idx = torch.where(pick, few[idx % 4], idx)
+        cases = [("group_points", idx, None)]
+    else:
+        xyz, mask, q, radius, k, _ = _point_set(name, card)
+        n = xyz.shape[1]
+        gi, _ = pn.ball_query_ref(radius, k, xyz, q, mask)
+        ni, d2 = pn.knn_ref(3, xyz, q, mask)
+        w = pn.interpolation_weights(torch.sqrt(d2.clamp_min(1e-10)))
+        cases = [("group_points", gi, None), ("three_interpolate", ni, w)]
+    for op, idx, weight in cases:
+        b = idx.shape[0]
+        # rows of 5 floats a lane each, of 8 as float4 (aligned)
+        c = 5 if name in POINT_SETS else 8
+        feats = torch.randn((b, n, c), generator=gen, device=card
+                            ).requires_grad_(True)
+        extra = () if weight is None else (weight,)
+        out = getattr(pn, op)(feats, idx, *extra)
+        g = torch.randn(out.shape, generator=gen, device=card)
+        before = dict(cuda_build.LAUNCHES)
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["point_gather_layout"] == \
+            before["point_gather_layout"] + 1
+        assert cuda_build.LAUNCHES["segment_layout"] == \
+            before["segment_layout"]
+        want = _slot_order_grad(idx.reshape(b, -1), n, g, weight)
+        assert torch.equal(feats.grad.cpu(), want), (name, op)
+
+
+# (set, cluster) for each K14-FPS route and the sets it takes (one block:
+# N <= 4,096; a cluster of C: N <= 8,192 x C)
+FPS_ROUTES = [(name, cluster) for name, xyz, *_ in point_op_sets(
+    np.random.default_rng(14)) for cluster in (1, 8, 16)
+              if xyz.shape[1] <= (4096 if cluster == 1 else 8192 * cluster)]
+
+
+@pytest.mark.parametrize("name,route", FPS_ROUTES)
+def test_k14_fps_routes_match_plain_version(card, name, route):
+    """Every route of K14-FPS (one block a sample, a cluster of 8 or 16
+    blocks) bit-equal to the plain version on the sets that route
+    takes."""
+    xyz, mask, _, _, _, s = _point_set(name, card)
+    got = _launched("furthest_point_sample", lambda: pn.fps_launch(
+        xyz, s, mask, route))
+    assert torch.equal(got, pn.furthest_point_sample_ref(xyz, s, mask))
 
 
 def test_k14_at_votenets_first_level(card):
@@ -1754,9 +1865,9 @@ def test_k14_at_votenets_first_level(card):
 
 
 def test_k14_fps_past_shared_memory_and_knn_past_its_k(card):
-    """K14-FPS takes up to 50,000 points a sample (its running distances
-    in shared memory: equal picks at the limit) and raises past them
-    without a launch; K14-NN raises for k > 16."""
+    """K14-FPS takes up to 50,000 points a sample (FPS_MAX_POINTS; the
+    cluster holds them in registers: equal picks at the limit) and raises
+    past them without a launch; K14-NN raises for k > 16."""
     gen = torch.Generator(card).manual_seed(11)
     xyz = torch.rand((2, 50001, 3), generator=gen, device=card) * 8
     mask = torch.rand((2, 50001), generator=gen, device=card) > 0.2

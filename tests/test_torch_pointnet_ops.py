@@ -3,7 +3,10 @@ against the JAX package's PointNet++ ops, vmapped over the batch, on the
 seeded sets of ``testing.point_op_sets``: random clouds, exact
 duplicates, masked tails and a sample with every point masked, more FPS
 samples than valid points, empty balls, points at exactly the radius and
-lattices whose neighbours tie.
+lattices whose neighbours tie; clouds at the edges of K14-FPS's one-block
+and cluster routes, ties across a cluster's blocks, a block's share
+masked, a sample at ``FPS_MAX_POINTS``; gathers of rows of C = 1, 3, 5,
+128 and 130 floats and of a view whose rows are not 16-byte aligned.
 
 Tolerances: FPS, ball-query and nearest-neighbour indices and valid flags
 equal; squared distances, three_nn distances, interpolation weights and
@@ -21,7 +24,8 @@ import torch
 
 from isfusion_tpu.ops import pointnet_ops as J
 from isfusion_tpu_torch.ops import pointnet_ops as P
-from isfusion_tpu_torch.testing import point_op_sets
+from isfusion_tpu_torch.testing import (POINT_SET_ROWS, offset_rows,
+                                       point_op_sets)
 from torch_parity import assert_close_to_max
 
 SETS = point_op_sets(np.random.default_rng(0))
@@ -113,7 +117,7 @@ def test_gathers_and_their_gradients_match_jax(name):
     ``jax.grad`` of a probe's dot with the JAX ops' outputs."""
     _, xyz, mask, q, radius, k, s = _set(name)
     rng = np.random.default_rng(2)
-    c = 6
+    c, offset = POINT_SET_ROWS.get(name, (6, 0))
     feats = rng.normal(size=xyz.shape[:2] + (c,)).astype(np.float32)
     fps = P.furthest_point_sample(*_t(xyz), s, _t(mask)[0])
     gi, _ = P.ball_query(radius, k, *_t(xyz, q), _t(mask)[0])
@@ -131,7 +135,7 @@ def test_gathers_and_their_gradients_match_jax(name):
     (_, wouts), (wgf, wgw) = jax.value_and_grad(
         jax_loss, argnums=(0, 1), has_aux=True)(jnp.asarray(feats),
                                                 jnp.asarray(w))
-    f = torch.from_numpy(feats).requires_grad_(True)
+    base, f = offset_rows(feats, offset, requires_grad=True)
     wt = torch.from_numpy(w).requires_grad_(True)
     outs = (P.gather_points(f, fps), P.group_points(f, gi),
             P.three_interpolate(f, ni, wt))
@@ -141,7 +145,8 @@ def test_gathers_and_their_gradients_match_jax(name):
         np.testing.assert_array_equal(got.detach().numpy()[..., :0].shape,
                                       np.asarray(want)[..., :0].shape)
         assert_close_to_max(got.detach().numpy(), np.asarray(want), 1e-6)
-    assert_close_to_max(f.grad.numpy(), np.asarray(wgf), 1e-6)
+    assert_close_to_max(base.grad[offset:].view(feats.shape).numpy(),
+                        np.asarray(wgf), 1e-6)
     assert_close_to_max(wt.grad.numpy(), np.asarray(wgw), 1e-6)
 
 
