@@ -4749,16 +4749,48 @@ def phase_indoor_train(name: str, model, batch: dict, dev: str = "cuda",
     return rec
 
 
+def ball_scan_ops(args, out) -> int:
+    """Float operations of a K14-ball call in index order: 8 a distance up
+    to each query's K-th in-radius point (all N for a ball with fewer)."""
+    import torch
+    xyz = args[2]
+    idx, valid = out
+    scanned = torch.where(valid[..., -1], idx[..., -1].long() + 1,
+                          xyz.shape[1])
+    return 8 * int(scanned.sum())
+
+
+def ball_cut_ops(args):
+    """Float operations of a K14-ball call through the cell grid's cut: 8
+    a distance to each valid point of the cells each query's cube reads
+    (``pointnet_ops.ball_grid_cut``, before hashing); None where the grid
+    does not take the radius or the port has no grid."""
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    radius, _, xyz, q, mask = args
+    if not hasattr(P, "ball_grid_cut") or P.ball_grid_params(radius) is None:
+        return None
+    mask = P._valid(mask, xyz)
+    cand = 0
+    for lo in range(0, q.shape[1], 128):
+        cut = P.ball_grid_cut(radius, xyz, q[:, lo:lo + 128])
+        cand += int((cut & mask[:, None, :]).sum())
+    return 8 * cand
+
+
 def _k14_bound(op: str, args, out) -> tuple:
-    """(bound ms, 'bytes' or 'operations', bytes, operations) of one K14
-    call on these inputs: each input read once and each output written
+    """(bound ms, 'bytes' or 'operations', bytes, operations, extra) of one
+    K14 call on these inputs: each input read once and each output written
     once over 3.35 TB/s, against the float operations these inputs need
     over 67 TFLOP/s: FPS 9 a point a pick (3 differences, 3 products, 2
-    sums, the minimum); a ball query 8 a distance up to each query's K-th
-    in-radius point (all N for a ball with fewer); K-NN 9 a distance (the
-    distance and one comparison); a gather none (an interpolation 2 a
-    weighted element)."""
+    sums, the minimum); a ball query 8 a distance, the fewer of the index
+    order's (``ball_scan_ops``) and the cell grid's cut
+    (``ball_cut_ops``), each beside the bound in ``extra`` as
+    ``scan_bound_ms`` (the parent design's) and ``cut_bound_ms`` (None
+    where the grid does not take the radius), with the cut's mean
+    candidates a query; K-NN 9 a distance (the distance and one
+    comparison); a gather none (an interpolation 2 a weighted element)."""
     import torch
+    extra = {}
     if op == "furthest_point_sample":
         xyz, s = args[0], args[1]
         b, n, _ = xyz.shape
@@ -4766,12 +4798,19 @@ def _k14_bound(op: str, args, out) -> tuple:
         ops = 9 * b * n * (s - 1)
     elif op == "ball_query":
         xyz, q = args[2], args[3]
-        idx, valid = out
-        n, k = xyz.shape[1], idx.shape[-1]
-        scanned = torch.where(valid[..., -1], idx[..., -1].long() + 1, n)
+        idx = out[0]
+        n = xyz.shape[1]
         nbytes = xyz.numel() * 4 + xyz.shape[0] * n + q.numel() * 4 + \
             idx.numel() * 5
-        ops = 8 * int(scanned.sum())
+        scan, cut = ball_scan_ops(args, out), ball_cut_ops(args)
+        ops = scan if cut is None else min(cut, scan)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        extra = dict(
+            scan_bound_ms=max(t_bytes, scan / F32_OPS_PER_S * 1e3),
+            cut_bound_ms=None if cut is None else max(
+                t_bytes, cut / F32_OPS_PER_S * 1e3),
+            cut_candidates_mean=None if cut is None else
+            cut / 8 / (q.shape[0] * q.shape[1]))
     elif op == "three_nn":
         q, xyz = args[0], args[1]
         b, n, _ = xyz.shape
@@ -4792,7 +4831,7 @@ def _k14_bound(op: str, args, out) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops)
+            else "operations", nbytes, ops, extra)
 
 
 def _k14_call(op: str, args, plain: bool):
@@ -4871,7 +4910,7 @@ def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
         rec.update(_gather_backward(op, args, got, dev, timed))
     bound = _k14_bound(op, args, got)
     rec.update(bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
-               operations=bound[3])
+               operations=bound[3], **bound[4])
     if timed and dev == "cuda":
         heavy = op == "furthest_point_sample"
         rec["ms"] = cuda_ms(lambda: _k14_call(op, args, False), dev,
@@ -4879,9 +4918,13 @@ def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
         rec["device_ms"], ops = k14_device_ms(
             lambda: _k14_call(op, args, False), heavy)
         rec["device_ops_per_call"] = {k[:60]: n for k, (n, _) in ops.items()}
+        if op == "ball_query":
+            rec["grid_build_device_ms"] = grid_build_ms(ops)
         rec["plain_ms"] = cuda_ms(lambda: _k14_call(op, args, True), dev,
                                   iters=1 if heavy else 5)
         rec["library_ms"] = None
+        if op == "three_nn":
+            rec["cdist_topk_ms"] = cdist_topk_ms(args, dev)
         if op in ("gather_points", "group_points"):
             feats, idx = args
             b, n, c = feats.shape
@@ -4897,6 +4940,54 @@ def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
             rec["chain_floor_ms"] = floor["ms_per_pick"] * (s - 1) \
                 if isinstance(floor["ms_per_pick"], float) else None
     return rec
+
+
+def cdist_topk_ms(args, dev: str) -> float:
+    """Event ms of ``torch.cdist`` + ``topk(3)`` on a K14-NN call's
+    (queries, sources): two PyTorch calls beside the kernel for reference
+    (no yardstick: cdist's distances are not the kernel's float32 sums,
+    and it ignores the mask)."""
+    import torch
+    q, xyz = args[0], args[1]
+    return cuda_ms(lambda: torch.cdist(q, xyz).topk(3, largest=False), dev,
+                   iters=100)
+
+
+def grid_build_ms(ops: dict):
+    """Device ms a K14-ball call spends building its cell grid (every
+    operation of ``device_kernels``' dict but the query kernel's): 0.0 on
+    the scan route."""
+    if not ops:
+        return "not measured"
+    return sum(n * ms for name, (n, ms) in ops.items()
+               if "ball_grid_kernel" not in name and "ball_scan_kernel"
+               not in name and "ball_query_kernel" not in name)
+
+
+def ball_route_cases(label: str, args, dev: str) -> list:
+    """K14-ball's routes on one call against the plain version: the scan,
+    the grid with its table and with 4 buckets (every cell collides),
+    where the grid takes the radius (none on the CPU: the plain version
+    is the CPU's only route)."""
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    if dev != "cuda":
+        return []
+    radius, k, xyz, q, mask = (a.to(dev) if hasattr(a, "to") else a
+                               for a in args)
+    m = P._valid(mask, xyz)
+    want = P.ball_query_ref(radius, k, xyz, q, mask)
+    routes = [("scan", False, None)]
+    if P.ball_grid_params(radius) is not None:
+        routes += [("grid", True, None), ("grid_4_buckets", True, 2)]
+    out = []
+    for name, grid, bits in routes:
+        got = P.ball_query_launch(radius, k, xyz, q, m, grid=grid,
+                                  table_bits=bits)
+        equal = _same(got, want)
+        out.append(dict(label=label, op=f"ball_query_{name}",
+                        shapes=[list(xyz.shape), list(q.shape)],
+                        equal=equal, max_abs_err=0.0 if equal else 1.0))
+    return out
 
 
 def _gather_backward(op: str, args, fwd, dev: str, timed: bool) -> dict:
@@ -4972,15 +5063,18 @@ def _largest(recorded: dict, op: str):
 def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
     """Every K14 kernel against its plain version on every call the
     VoteNet path recorded (``recorded``: {cell: recording_point_ops()'s
-    dict}) and on ``testing.point_op_sets`` (FPS, ball query, K-NN at k 3
-    and 8, the three gathers forward and backward): fails unless every
-    call is equal (K14-gather's backward within 1e-6 of the max and
-    repeating bit for bit). The largest serve call of each op is timed."""
+    dict}) and on ``testing.point_op_sets`` (FPS; ball query by its
+    default route and, on the card, by each route: the scan, the grid,
+    the grid with 4 buckets; K-NN at k 1, 3, 8, 16, 17, 32 and 64; the
+    three gathers forward and backward, on the sets other than
+    ``BALL_GRID_SETS``): fails unless every call is equal (K14-gather's
+    backward within 1e-6 of the max and repeating bit for bit). The
+    largest serve call of each op is timed."""
     import numpy as np
     import torch
     from isfusion_tpu_torch.ops import pointnet_ops as P
-    from isfusion_tpu_torch.testing import (POINT_SET_ROWS, offset_rows,
-                                           point_op_sets)
+    from isfusion_tpu_torch.testing import (BALL_GRID_SETS, POINT_SET_ROWS,
+                                           offset_rows, point_op_sets)
 
     cases = []
     for cell, seen in recorded.items():
@@ -4989,6 +5083,8 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
                      "serve") else set()
         for key, args in seen.items():
             cases.append(k14_case(cell, key[0], args, dev, key in timed))
+            if key[0] == "ball_query":
+                cases += ball_route_cases(cell, args, dev)
     for name, xyz, mask, q, radius, k, s in point_op_sets(
             np.random.default_rng(14)):
         xyz, mask, q = (torch.from_numpy(a).to(dev) for a in (xyz, mask, q))
@@ -5002,13 +5098,15 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
         w = P.interpolation_weights(torch.sqrt(d.clamp_min(1e-10)))
         calls = [("furthest_point_sample", (xyz, s, mask)),
                  ("ball_query", (radius, k, xyz, q, mask)),
-                 ("three_nn", (q, xyz, mask)),
-                 ("gather_points", (feats, fps)),
-                 ("group_points", (feats, gi)),
-                 ("three_interpolate", (feats, ni, w))]
+                 ("three_nn", (q, xyz, mask))]
+        if name not in BALL_GRID_SETS:
+            calls += [("gather_points", (feats, fps)),
+                      ("group_points", (feats, gi)),
+                      ("three_interpolate", (feats, ni, w))]
         for op, args in calls:
             cases.append(k14_case(name, op, args, dev, False))
-        for kk in (1, 8, 16):
+        cases += ball_route_cases(name, (radius, k, xyz, q, mask), dev)
+        for kk in (1, 8, 16, 17, 32, 64):
             if kk <= xyz.shape[1]:
                 got = P.knn(kk, xyz, q, mask)
                 want = P.knn_ref(kk, xyz, q, mask)
@@ -5023,7 +5121,9 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
                                if k != "device_ops_per_call"})
     per_kernel = {}
     for kern, ops in (("furthest_point_sample", ("furthest_point_sample",)),
-                      ("ball_query", ("ball_query",)),
+                      ("ball_query", ("ball_query", "ball_query_scan",
+                                      "ball_query_grid",
+                                      "ball_query_grid_4_buckets")),
                       ("three_nn", ("three_nn",)),
                       ("point_gather", ("gather_points", "group_points",
                                         "three_interpolate"))):
@@ -5043,7 +5143,11 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
             timed=[{k: c.get(k) for k in ("label", "op", "shapes", "ms",
                                           "device_ms", "plain_ms",
                                           "library_ms", "bound_ms",
-                                          "bound_by", "fwd_bwd_ms",
+                                          "bound_by", "scan_bound_ms",
+                                          "cut_bound_ms",
+                                          "cut_candidates_mean",
+                                          "grid_build_device_ms",
+                                          "fwd_bwd_ms",
                                           "plain_fwd_bwd_ms",
                                           "backward_bound_ms",
                                           "backward_library_ms",
@@ -5188,6 +5292,10 @@ def k14_kernel_records(indoor: dict) -> list:
             if kern == "furthest_point_sample":
                 rec.update({k: main.get(k) for k in ("chain_floor",
                                                      "chain_floor_ms")})
+            if kern == "ball_query":
+                rec.update({k: main.get(k) for k in (
+                    "scan_bound_ms", "cut_bound_ms", "cut_candidates_mean",
+                    "grid_build_device_ms")})
             rec["train_launches_per_step"] = [s[kern] for s in train[
                 "launches_per_step"]]
             rec["h3d_train_launches_per_step"] = [
@@ -8297,11 +8405,12 @@ def gather_host_split(args, dev: str) -> dict:
     return split
 
 
-def k14_train_ms(model, batch: dict, dev: str, steps: int) -> dict:
+def k14_train_ms(model, batch: dict, dev: str, steps: int) -> tuple:
     """votenet-train's / h3d-train's step on ``model`` (AdamW, clip 10,
     step lr: ``votenet_optim_cfg``) at ``batch``'s size: one warm-up
-    step, then ``steps`` timed steps (host clock to a synchronised end:
-    median, min, max ms) and the last step's loss and grad norm."""
+    step (its K14 calls recorded), then ``steps`` timed steps (host clock
+    to a synchronised end: median, min, max ms, peak GiB) and the last
+    step's loss and grad norm; and the warm-up's recorded calls."""
     import torch
     from isfusion_tpu_torch.flagship import votenet_optim_cfg
     from isfusion_tpu_torch.parallel.train_step import make_train_step
@@ -8314,9 +8423,12 @@ def k14_train_ms(model, batch: dict, dev: str, steps: int) -> dict:
     step = make_train_step(model, opt, build_schedule(
         opt, cfg["lr_config"], None), grad_clip_norm(cfg["optimizer_config"]))
     gen = torch.Generator(dev).manual_seed(0)
-    step(jittered(batch, 0), gen)
-    sync(dev)
+    with recording_point_ops() as seen:
+        step(jittered(batch, 0), gen)
+        sync(dev)
     times = []
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         t0 = time.perf_counter()
         out = step(jittered(batch, i + 1), gen)
@@ -8325,34 +8437,110 @@ def k14_train_ms(model, batch: dict, dev: str, steps: int) -> dict:
     return dict(batch=int(batch["points"].shape[0]), steps=steps,
                 median_ms=statistics.median(times), min_ms=min(times),
                 max_ms=max(times), **{k: float(out[k]) for k in (
-                    "loss", "grad_norm") if k in out})
+                    "loss", "grad_norm") if k in out},
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+                if dev == "cuda" else None), seen
+
+
+def k14_ball_times(seen: dict, dev: str) -> dict:
+    """K14-ball on each recorded call (SA1-SA4, the aggregation) of one
+    cell: event ms, host us to enqueue (``host_us``), whole-call device ms
+    and the grid build's share of it, device ms by kernel, SHA-256
+    digests of idx and valid; where the tree has the grid, each route's
+    device ms and its equality with the default route's output; on the
+    serve cell, equality with the plain version."""
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    out = {}
+    for key, args in seen.items():
+        if key[0] != "ball_query":
+            continue
+        radius, k, xyz, q, mask = args
+        label = f"{q.shape[0]}x{q.shape[1]}/{xyz.shape[1]} K{k} r{radius}"
+
+        def run(args=args):
+            return P.ball_query(*args)
+        got = run()
+        rec = dict(ms=cuda_ms(run, dev, iters=50),
+                   idx=digest(got[0]), valid=digest(got[1]))
+        if dev == "cuda":
+            rec["host_us"] = host_us(run)
+            rec["device_ms"], ops = k14_device_ms(run)
+            rec["grid_build_device_ms"] = grid_build_ms(ops)
+            rec["kernels"] = kernel_breakdown(run)
+        if q.shape[0] == 1:
+            rec["equal_plain"] = _same(got, P.ball_query_ref(*args))
+        if hasattr(P, "ball_query_launch") and dev == "cuda":
+            m = P._valid(mask, xyz)
+            routes = {"scan": False}
+            if P.ball_grid_params(radius) is not None:
+                routes["grid"] = True
+            for name, grid in routes.items():
+                def launch(grid=grid):
+                    return P.ball_query_launch(radius, k, xyz, q, m,
+                                               grid=grid)
+                dms, ops = k14_device_ms(launch)
+                rec[f"{name}_device_ms"] = dms
+                rec[f"{name}_build_device_ms"] = grid_build_ms(ops)
+                rec[f"{name}_equal"] = _same(launch(), got)
+        out[label] = rec
+    return out
+
+
+def k14_knn_times(seen: dict, dev: str) -> dict:
+    """K14-NN on each recorded call (FP1, FP2) of the serve cell: event
+    ms, host us to enqueue, whole-call device ms, digests of the indices
+    and distances, equality with the plain version, and
+    ``cdist_topk_ms``."""
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    out = {}
+    for key, args in seen.items():
+        if key[0] != "three_nn":
+            continue
+        q, xyz, mask = args
+        label = f"{q.shape[0]}x{q.shape[1]}/{xyz.shape[1]}"
+
+        def run(q=q, xyz=xyz, mask=mask):
+            return P.knn(3, xyz, q, mask)
+        got = run()
+        out[label] = dict(
+            ms=cuda_ms(run, dev, iters=100),
+            host_us=host_us(run) if dev == "cuda" else None,
+            device_ms=k14_device_ms(run)[0] if dev == "cuda" else None,
+            idx=digest(got[0]), dist=digest(got[1]),
+            equal_plain=_same(got, P.knn_ref(3, xyz, q, mask)),
+            cdist_topk_ms=cdist_topk_ms(args, dev))
+    return out
 
 
 def k14_compare(tree: str, dev: str = "cuda", requests: int = 20,
                 steps: int = 10) -> int:
-    """``python3 chip_smoke.py --k14 TREE``: K14-FPS and K14-gather with the
-    port imported from the checkout TREE, to compare two checkouts on one
-    card in one call (run them in turns, at least three rounds). The
-    full-width VoteNet and H3DNet (seed 0) serve one warm-up (VoteNet's
-    K14 calls recorded) and ``requests`` requests (host-clock median, min,
-    max), then train one warm-up and ``steps`` steps at votenet-train's
-    batch of 8 (``k14_train_ms``); then on VoteNet's recorded inputs: each
-    FPS walk (SA1-SA4 and the aggregation: event ms, whole-call device ms,
-    a SHA-256 of the picks); SA2's grouping (1,024 x 32 rows of 128): the
-    no-grad forward (event and whole-call device ms, ``index_select``'s
+    """``python3 chip_smoke.py --k14 TREE``: the K14 kernels with the port
+    imported from the checkout TREE, to compare two checkouts on one card in
+    one call (run them in turns, at least three rounds). The full-width
+    VoteNet and H3DNet (seed 0) serve one warm-up (VoteNet's K14 calls
+    recorded) and ``requests`` requests (host-clock median, min, max, peak
+    GiB), then train one warm-up (its calls recorded) and ``steps`` steps at
+    votenet-train's batch of 8 (``k14_train_ms``); then on VoteNet's
+    recorded inputs: K14-ball at SA1-SA4 and the aggregation, serve and
+    train (``k14_ball_times``: event and whole-call device ms, the grid
+    build's share, digests, each route where TREE has the grid); K14-NN at
+    FP1 and FP2 (``k14_knn_times``, with ``torch.cdist`` + ``topk``'s ms);
+    each FPS walk (SA1-SA4 and the aggregation: event ms, whole-call device
+    ms, a SHA-256 of the picks); SA2's grouping (1,024 x 32 rows of 128):
+    the no-grad forward (event and whole-call device ms, ``index_select``'s
     ms), the forward with a gradient, forward + backward beside the plain
-    version's under autograd (event ms, three rounds in turns), its
-    device ms by kernel, ``index_add_``'s ms, the lists of K1's list stage
-    and of a stable argsort (device ms), and digests of the output and the
-    features' gradient; the same grouping with 80% of its slots on 4 rows
-    (the backward's list at rows of ~6,500 slots); FP2's interpolate
-    (1,024 x 3 of 256) likewise, with the weights' gradient. Where TREE
-    has ``pointnet_ops.fps_launch``, the FPS design too: SA1's walk by a
-    cluster of 8 and of 16, the chain floor of each, a batch of 8 such
-    walks by each (and the size ``fps_cluster`` picks by batch), and one
-    block against a cluster of 8 at 1,024-8,192 points. Prints one JSON
-    record. ``dev="cpu"`` rehearses it on the tiny models with the plain
-    versions (no build, no device times)."""
+    version's under autograd (event ms, three rounds in turns), its device
+    ms by kernel, ``index_add_``'s ms, the lists of K1's list stage and of a
+    stable argsort (device ms), and digests of the output and the features'
+    gradient; the same grouping with 80% of its slots on 4 rows (the
+    backward's list at rows of ~6,500 slots); FP2's interpolate (1,024 x 3
+    of 256) likewise, with the weights' gradient. Where TREE has
+    ``pointnet_ops.fps_launch``, the FPS design too: SA1's walk by a cluster
+    of 8 and of 16, the chain floor of each, a batch of 8 such walks by each
+    (and the size ``fps_cluster`` picks by batch), and one block against a
+    cluster of 8 at 1,024-8,192 points. Prints one JSON record.
+    ``dev="cpu"`` rehearses it on the tiny models with the plain versions
+    (no build, no device times)."""
     import torch
     smi = phase_device() if dev == "cuda" else None
     tree = import_tree(tree)
@@ -8365,7 +8553,7 @@ def k14_compare(tree: str, dev: str = "cuda", requests: int = 20,
         rec["build_s"] = cuda_build.build_all()
 
     bsz = votenet_optim_cfg()["samples_per_gpu"] if dev == "cuda" else 2
-    seen = None
+    seen = seen_train = None
     for name, build in (("votenet", build_votenet), ("h3d", build_h3dnet)):
         model, batch_fn = build(tiny=dev != "cuda", device=dev, seed=0)
         batch = batch_fn(1)
@@ -8374,15 +8562,20 @@ def k14_compare(tree: str, dev: str = "cuda", requests: int = 20,
             sync(dev)
         seen = seen or calls
         times = []
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         for i in range(requests):
             t0 = time.perf_counter()
             model(jittered(batch, i + 1), device=dev)
             sync(dev)
             times.append((time.perf_counter() - t0) * 1e3)
-        rec[f"{name}_serve"] = dict(median_ms=statistics.median(times),
-                                    min_ms=min(times), max_ms=max(times))
-        rec[f"{name}_train"] = k14_train_ms(model, batch_fn(bsz, seed=1),
-                                            dev, steps)
+        rec[f"{name}_serve"] = dict(
+            median_ms=statistics.median(times), min_ms=min(times),
+            max_ms=max(times), peak_gib=torch.cuda.max_memory_allocated() /
+            2 ** 30 if dev == "cuda" else None)
+        rec[f"{name}_train"], train_calls = k14_train_ms(
+            model, batch_fn(bsz, seed=1), dev, steps)
+        seen_train = seen_train or train_calls
         del model
         if dev == "cuda":
             torch.cuda.empty_cache()
@@ -8390,6 +8583,9 @@ def k14_compare(tree: str, dev: str = "cuda", requests: int = 20,
     def device(run, heavy=False):
         return k14_device_ms(run, heavy)[0] if dev == "cuda" else None
 
+    rec["ball"] = {cell: k14_ball_times(calls, dev) for cell, calls in (
+        ("serve", seen), ("train", seen_train))}
+    rec["knn"] = k14_knn_times(seen, dev)
     walks = {}
     for key, args in seen.items():
         if key[0] != "furthest_point_sample":

@@ -54,14 +54,14 @@
 //   four in order), then a fixed butterfly of shuffles adds the G partial
 //   sums.
 // - op 1's list: the CSR of the slots that read each source row, each
-//   row's in increasing order (see list_layout): a warp orders a row of
-//   up to 256 slots, a block a longer row by a bitmap of its sample's
-//   slot ids, so its cost grows with the slots, not their square. K1's
-//   list stage (dynamic_voxelize.cu, op 1) builds the same list with a
-//   thread ordering a segment, 2-8 SMs busy at VoteNet's 1,024-2,048
-//   rows: 0.14 device ms at SA2's grouping against 0.018 for the warp
-//   stage here (chip_smoke.py --k14). The two list builders share their
-//   count and scan steps' pattern, not their code (ROADMAP queue 2).
+//   row's in increasing order, by the builder of stable_lists.cuh (which
+//   ball_query.cu's cell grid shares): a warp orders a row of up to 256
+//   slots, a block a longer row by a bitmap of its sample's slot ids, so
+//   its cost grows with the slots, not their square. K1's list stage
+//   (dynamic_voxelize.cu, op 1) builds the same list with a thread
+//   ordering a segment, 2-8 SMs busy at VoteNet's 1,024-2,048 rows: 0.14
+//   device ms at SA2's grouping against 0.018 for the warp stage here
+//   (chip_smoke.py --k14). K1 keeps its own (ROADMAP queue 2).
 // Products and sums are rounded step by step (__fmul_rn, __fadd_rn: no FMA
 // contraction), so the forward equals the plain version bit for bit.
 // Allocates nothing and does not synchronise.
@@ -69,7 +69,7 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "prefix_scan.cuh"
+#include "stable_lists.cuh"
 
 namespace {
 
@@ -78,12 +78,11 @@ constexpr int THREADS = 256;
 // or fewer wider rows): one, so that the registers leave room for more
 // resident warps, which hide the two dependent reads' latency
 constexpr int UNROLL = 1;
-constexpr int SCAN_ITEMS = 8;       // counts a thread scans
-constexpr int PER_LANE = 8;         // a list's ids a lane ranks at a time
-// a row of more slots than this is ordered by a block, not a warp
-constexpr uint32_t WARP_ROW = 32 * PER_LANE;
-// the most bitmap words of a block's window (32 KB: 262,144 slot ids)
-constexpr int64_t WINDOW_WORDS = 8192;
+
+using slist::build_list;
+using slist::grid_for;
+using slist::list_layout;
+using slist::source_row;
 
 __device__ __forceinline__ float mul(float a, float w) {
   return __fmul_rn(a, w);
@@ -112,13 +111,6 @@ __device__ __forceinline__ float dot(float acc, float4 a, float4 b) {
   acc = __fadd_rn(acc, __fmul_rn(a.y, b.y));
   acc = __fadd_rn(acc, __fmul_rn(a.z, b.z));
   return __fadd_rn(acc, __fmul_rn(a.w, b.w));
-}
-
-// a slot's source row; an index outside [0, n) is a fault upstream: stop
-template <typename I>
-__device__ __forceinline__ I source_row(int32_t s, I n) {
-  if (s < 0 || (I)s >= n) __trap();
-  return (I)s;
 }
 
 // op 0. V: float or float4 (cv = C in V units); G lanes a row; I: offset
@@ -226,175 +218,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// op 1's list: a CSR of the slots that read each source row, each row's
-// slot ids in increasing order (the stable order of a sort by row; K1's
-// list stage in dynamic_voxelize.cu follows the same steps, with a thread
-// a segment in its last). In four launches after a memset of the counts:
-// count (each slot's row counted by an integer atomic, its arrival rank
-// kept), scan (prefix_scan.cuh: the rows' offsets), place (each slot id at
-// its row's offset plus its arrival rank: in no fixed order), order (a
-// warp a row of up to WARP_ROW slots ranks its slot ids, each the count of
-// smaller ones in the row, and writes them in increasing order, with the
-// row's offsets; then a block a longer row sets one bit a slot id in a
-// bitmap of its sample's ids and writes the set bits in order).
-struct ListLayout {          // offsets in 4-byte words of the scratch
-  int64_t counts, ticket, totals, tiles, prefix, arrival, unsorted, words;
-};
-
-ListLayout list_layout(int64_t segs, int64_t slots) {
-  ListLayout L{};
-  L.counts = 0;
-  L.ticket = segs;                                  // zeroed: segs + 1
-  L.totals = (segs + 2) & ~int64_t(1);              // a long long total
-  L.tiles = L.totals + 2;
-  L.prefix = L.tiles + pscan::n_tiles<SCAN_ITEMS>(segs);
-  L.arrival = L.prefix + segs;
-  L.unsorted = L.arrival + slots;
-  L.words = L.unsorted + slots;
-  return L;
-}
-
-// a slot's row among all samples' source rows: rs slots a sample
-__device__ __forceinline__ int64_t slot_key(const int32_t* idx, int64_t i,
-                                            int64_t rs, int64_t n) {
-  return i / rs * n + idx[i];
-}
-
-__global__ void __launch_bounds__(THREADS)
-    count_kernel(const int32_t* __restrict__ idx, int64_t slots, int64_t rs,
-                 int64_t n, uint32_t* __restrict__ counts,
-                 uint32_t* __restrict__ arrival) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= slots) return;
-  source_row<int64_t>(idx[i], n);
-  arrival[i] = atomicAdd(counts + slot_key(idx, i, rs, n), 1u);
-}
-
-__global__ void __launch_bounds__(pscan::THREADS)
-    scan_kernel(const uint32_t* __restrict__ counts, int64_t segs,
-                uint32_t* __restrict__ prefix, uint32_t* tiles,
-                unsigned* ticket, long long* total) {
-  pscan::scan_tile<SCAN_ITEMS>([&](int64_t i) { return counts[i]; }, segs,
-                               prefix, tiles);
-  pscan::finish_scan(tiles, ticket, total);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    place_kernel(const int32_t* __restrict__ idx, int64_t slots, int64_t rs,
-                 int64_t n, const uint32_t* __restrict__ prefix,
-                 const uint32_t* __restrict__ tiles,
-                 const uint32_t* __restrict__ arrival,
-                 int32_t* __restrict__ unsorted) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= slots) return;
-  const int64_t key = slot_key(idx, i, rs, n);
-  unsorted[pscan::tile_offset<SCAN_ITEMS>(prefix, tiles, key) + arrival[i]] =
-      (int32_t)i;
-}
-
-// a block's exclusive prefix sum of one value a thread; total: the sum
-__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* total) {
-  __shared__ uint32_t warp_sums[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  uint32_t before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) {
-    before += w < warp ? warp_sums[w] : 0u;
-    all += warp_sums[w];
-  }
-  __syncthreads();
-  *total = all;
-  return before + x - v;
-}
-
-// rows of up to WARP_ROW slots: a warp a row; then longer rows: a block a
-// row, through windows of `window` bitmap words (dynamic shared memory)
-// over its sample's rs slot ids
-__global__ void __launch_bounds__(THREADS)
-    order_kernel(const uint32_t* __restrict__ counts,
-                 const uint32_t* __restrict__ prefix,
-                 const uint32_t* __restrict__ tiles, int64_t segs,
-                 int64_t rs, int64_t n, int64_t window,
-                 const int32_t* __restrict__ unsorted,
-                 int32_t* __restrict__ ptr, int32_t* __restrict__ order) {
-  extern __shared__ uint32_t bits[];
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * (THREADS / 32);
-  if (blockIdx.x == 0 && threadIdx.x == 0) ptr[0] = 0;
-  for (int64_t seg = (int64_t)blockIdx.x * (THREADS / 32) +
-                     (threadIdx.x >> 5);
-       seg < segs; seg += warps) {
-    const uint32_t start = pscan::tile_offset<SCAN_ITEMS>(prefix, tiles, seg);
-    const uint32_t m = counts[seg];
-    if (lane == 0) ptr[seg + 1] = (int32_t)(start + m);
-    if (m > WARP_ROW) continue;             // a block's, below
-    // PER_LANE of the row's ids a lane at a time, each ranked against all
-    // m, streamed 32 at a time through shuffles
-    for (uint32_t base = 0; base < m; base += 32 * PER_LANE) {
-      int32_t e[PER_LANE];
-      uint32_t rank[PER_LANE];
-#pragma unroll
-      for (int k = 0; k < PER_LANE; ++k) {
-        const uint32_t at = base + lane + 32 * k;
-        e[k] = at < m ? unsorted[start + at] : INT_MAX;
-        rank[k] = 0;
-      }
-      for (uint32_t t0 = 0; t0 < m; t0 += 32) {
-        const int32_t mine = t0 + lane < m ? unsorted[start + t0 + lane]
-                                           : INT_MAX;
-        const uint32_t cnt = min(32u, m - t0);
-        for (uint32_t t = 0; t < cnt; ++t) {
-          const int32_t x = __shfl_sync(0xffffffffu, mine, t);
-#pragma unroll
-          for (int k = 0; k < PER_LANE; ++k) rank[k] += x < e[k];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < PER_LANE; ++k)
-        if (base + lane + 32 * k < m) order[start + rank[k]] = e[k];
-    }
-  }
-  // every thread of the block reads the same counts: the branches and
-  // barriers below are uniform
-  for (int64_t seg = blockIdx.x; seg < segs; seg += gridDim.x) {
-    const uint32_t m = counts[seg];
-    if (m <= WARP_ROW) continue;
-    const uint32_t start = pscan::tile_offset<SCAN_ITEMS>(prefix, tiles, seg);
-    const int64_t first = seg / n * rs;     // the sample's first slot id
-    // each thread writes the set bits of a run of consecutive words
-    const int64_t per = (window + THREADS - 1) / THREADS;
-    const int64_t lo = threadIdx.x * per;
-    const int64_t hi = lo + per < window ? lo + per : window;
-    uint32_t done = 0;
-    for (int64_t w0 = 0; w0 < rs; w0 += window * 32) {
-      for (int64_t t = threadIdx.x; t < window; t += THREADS) bits[t] = 0u;
-      __syncthreads();
-      for (uint32_t at = threadIdx.x; at < m; at += THREADS) {
-        const int64_t id = unsorted[start + at] - first - w0;
-        if (id >= 0 && id < window * 32)
-          atomicOr(bits + (id >> 5), 1u << (id & 31));
-      }
-      __syncthreads();
-      uint32_t mine = 0, total;
-      for (int64_t t = lo; t < hi; ++t) mine += __popc(bits[t]);
-      uint32_t at = start + done + block_scan(mine, &total);
-      for (int64_t t = lo; t < hi; ++t)
-        for (uint32_t x = bits[t]; x; x &= x - 1)
-          order[at++] = (int32_t)(first + w0 + t * 32 + __ffs(x) - 1);
-      done += total;
-      __syncthreads();                      // before the next window
-    }
-  }
-}
-
 // op 1: G lanes a source row sum its slots' gradient rows in slot order,
 // IN_FLIGHT slots' loads at a time, the next IN_FLIGHT slot ids loaded
 // beside them: a row read by many slots (thousands, where a cloud's
@@ -477,12 +300,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-unsigned grid_for(int64_t threads) {
-  int64_t blocks = (threads + THREADS - 1) / THREADS;
-  const int64_t cap = 132 * 16;            // grid-stride beyond
-  return (unsigned)(blocks < 1 ? 1 : (blocks > cap ? cap : blocks));
-}
-
 // the group width for cv elements a row: a thread a row up to 4 elements
 // of float (C <= 4) or one float4; else the power of two up to 32 that
 // covers the row
@@ -492,32 +309,6 @@ int lanes_for(int64_t cv, bool vec) {
   int g = 1;
   while (g < 32 && g < cv) g <<= 1;
   return g;
-}
-
-// op 1's list into (ptr, order), its scratch at w
-int build_list(const int32_t* idx, int64_t slots, int64_t rs, int64_t n,
-               int64_t segs, uint32_t* w, int32_t* ptr, int32_t* order,
-               cudaStream_t st) {
-  const ListLayout L = list_layout(segs, slots);
-  cudaError_t e = cudaMemsetAsync(w + L.counts, 0,
-                                  (L.ticket + 1) * sizeof(uint32_t), st);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned slot_blocks = (unsigned)((slots + THREADS - 1) / THREADS);
-  count_kernel<<<slot_blocks, THREADS, 0, st>>>(idx, slots, rs, n,
-                                                w + L.counts, w + L.arrival);
-  scan_kernel<<<(unsigned)pscan::n_tiles<SCAN_ITEMS>(segs), pscan::THREADS,
-                0, st>>>(w + L.counts, segs, w + L.prefix, w + L.tiles,
-                         w + L.ticket, (long long*)(w + L.totals));
-  place_kernel<<<slot_blocks, THREADS, 0, st>>>(
-      idx, slots, rs, n, w + L.prefix, w + L.tiles, w + L.arrival,
-      (int32_t*)(w + L.unsorted));
-  const int64_t window = (rs + 31) / 32 < WINDOW_WORDS ? (rs + 31) / 32
-                                                       : WINDOW_WORDS;
-  order_kernel<<<grid_for(segs * 32), THREADS, window * sizeof(uint32_t),
-                 st>>>(w + L.counts, w + L.prefix, w + L.tiles, segs, rs, n,
-                       window, (const int32_t*)(w + L.unsorted), ptr,
-                       order);
-  return (int)cudaGetLastError();
 }
 
 template <typename V, int G>
@@ -604,7 +395,7 @@ int launch_v(int lanes, int op, const void* a, const void* b,
 // slots = B * R * J slots (the list stage's words, then ptr (segs + 1) and
 // order (slots)).
 extern "C" long long point_gather_scratch(long long segs, long long slots) {
-  return list_layout(segs, slots).words + segs + 1 + slots;
+  return slist::list_words(segs, slots);
 }
 
 // args: twelve int64 (op, a, b, idx, w, scratch, out, rows, j, n, c, r):

@@ -60,7 +60,9 @@ SIGNATURES = {
     # K14: the PointNet++ ops (ops/pointnet_ops.py)
     "furthest_point_sample": ([_P, _P, _LL, _LL, _LL, _P, _I, _P], _I),
     "fps_cluster": ([_LL], _I),
-    "ball_query": ([_P, _P, _P, _LL, _LL, _LL, _LL, _F, _P, _P, _P], _I),
+    "ball_query": ([_P, _P, _P, _LL, _LL, _LL, _LL, _F, _I, _F, _F, _I, _P,
+                    _P, _P, _P], _I),
+    "ball_query_scratch": ([_LL, _LL, _LL], _LL),
     "three_nn": ([_P, _P, _P, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
     "point_gather": ([_P, _P], _I),
     "point_gather_scratch": ([_LL, _LL], _LL),
@@ -71,11 +73,12 @@ SIGNATURES = {
 # entry points that live in another kernel's source: K10-BEV is K10's
 # kernel without the vertical overlap; K10-circle's route past its
 # one-launch size shares its source; K14-FPS's cluster size and
-# K14-gather's scratch words (queries, no launch)
+# K14-gather's and K14-ball's scratch words (queries, no launch)
 SOURCES = {"boxes_iou_bev": "boxes_iou_3d",
            "nms_circle_pairwise": "nms_circle",
            "fps_cluster": "furthest_point_sample",
-           "point_gather_scratch": "point_gather"}
+           "point_gather_scratch": "point_gather",
+           "ball_query_scratch": "ball_query"}
 
 # launches per kernel, and "segment_layout": the lists that K1's list stage
 # built for a K2 caller that passed none (ops/voxel.py:segment_layout);

@@ -39,11 +39,15 @@ give the same float32 values and the same discrete choices.
 On a CPU tensor each op takes its plain version (``*_ref``); on a CUDA
 tensor it launches its hand-written kernel or raises:
 ``csrc/furthest_point_sample.cu`` (K14-FPS), ``csrc/ball_query.cu``
-(K14-ball), ``csrc/three_nn.cu`` (K14-NN; k <= 16) and
+(K14-ball: a full scan in index order a query for up to
+``BALL_SCAN_MAX_POINTS`` points, past it a cell grid built in the same
+call that cuts each query's candidates to the points near its ball),
+``csrc/three_nn.cu`` (K14-NN, a warp a query, any k) and
 ``csrc/point_gather.cu`` (K14-gather: the three gathers forward, their
 backward by a CSR of each source row's slots that the same call builds,
 and the weights' gradient; a call with no input that needs a gradient
-skips autograd).
+skips autograd). K14-ball's grid and K14-gather's backward build their
+lists with one builder (``csrc/stable_lists.cuh``).
 The plain versions bound their (S, N) matrices by working on
 ``QUERY_CHUNK`` queries at a time, with equal results. The index ops have
 no gradient; ``knn`` raises when asked for one (its distances are
@@ -54,6 +58,7 @@ over (S, 3)).
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 import threading
 from typing import Optional, Tuple
@@ -67,8 +72,15 @@ _BIG = 1e10
 # queries a plain version handles at once: its (chunk, N) matrices stay
 # near 100 MB at the first SA level's 40,000 points
 QUERY_CHUNK = 256
-# the largest k of the K14-NN kernel (no ported model asks for more)
-KNN_MAX_K = 16
+# K14-ball scans every point of a sample of up to this many points; a
+# larger sample gets the cell grid (csrc/ball_query.cu). On the H100 at
+# VoteNet's shapes the grid took SA1 (40,000 points) from 0.60 to 0.040
+# device ms; at SA2 (2,048) it saved 0.012 device ms but its six more
+# launches cost 35-50 host us a call, and a request is host-bound; SA3,
+# SA4 and the aggregation (512-1,024) are no faster by the grid (PERF.md)
+BALL_SCAN_MAX_POINTS = 2048
+# masked points lie at this squared distance (the plain versions' 1e10)
+_MASKED_D2 = float(np.float32(_BIG))
 # the most points of a K14-FPS sample (a cluster of 8 blocks holds 65,536
 # in registers; no ported path has more than 40,000)
 FPS_MAX_POINTS = 50_000
@@ -102,6 +114,62 @@ def _masked_distance(query, xyz, mask) -> torch.Tensor:
 def _radius2(radius: float) -> float:
     """``radius ** 2`` as the float32 that JAX compares against."""
     return float(np.float32(float(radius) ** 2))
+
+
+@functools.lru_cache(maxsize=64)
+def ball_grid_params(radius: float) -> Optional[Tuple[float, float]]:
+    """(inv, reach) of K14-ball's cell grid for ``radius``, as float32
+    values: ``inv`` the reciprocal of the cell side 33/32 x rho, rho =
+    sqrt(r2) (1 + 2^-18) (r2: ``_radius2``; rho bounds every per-axis
+    |q - p| that the float32 test admits), ``reach`` rho x inv rounded up;
+    None where the grid route does not hold (r2 = 0 or not finite, or r2
+    >= 1e10: masked points would be in the ball)."""
+    r2 = _radius2(radius)
+    if not 0.0 < r2 < _MASKED_D2:
+        return None
+    rho = float(np.sqrt(np.float64(r2))) * (1.0 + 2.0 ** -18)
+    inv = np.float32(1.0 / (rho * 33.0 / 32.0))
+    if not (np.isfinite(inv) and inv > 0):
+        return None
+    reach = np.nextafter(np.float32(rho * float(inv)), np.float32(np.inf))
+    return float(inv), float(reach)
+
+
+def ball_grid_table_bits(n: int) -> int:
+    """log2 of K14-ball's hash table: the least power of two >= 2n."""
+    return max(0, int(2 * n - 1).bit_length())
+
+
+def ball_grid_cut(radius: float, xyz: torch.Tensor,
+                  query_xyz: torch.Tensor) -> torch.Tensor:
+    """Plain version of K14-ball's cut: (B, S, N) bool, True where point
+    n's cell lies in query s's cube, the cells that the grid route reads
+    (before hashing, which only adds candidates), in the kernel's float32
+    arithmetic: a coordinate's cell floor((x - o) * inv) with o the
+    sample's first point, clamped to +-2^30; the cube floor(f(q) -+ a)
+    with a = (reach + 2^-12) + |f(q)| 2^-18. Every point that the float32
+    test admits lies in it (``csrc/ball_query.cu`` argues why)."""
+    inv, reach = ball_grid_params(radius)
+    f32 = torch.float32
+    inv_t = torch.tensor(inv, dtype=f32)
+    origin = xyz[:, :1, :]
+    lim = 2.0 ** 30
+
+    def coord(x):
+        return (x - origin) * inv_t
+
+    def cell(f):
+        return torch.floor(f).clamp(-lim, lim)
+
+    fq = coord(query_xyz)
+    margin = (torch.tensor(reach, dtype=f32) + torch.tensor(
+        2.0 ** -12, dtype=f32)) + fq.abs() * torch.tensor(2.0 ** -18,
+                                                           dtype=f32)
+    lo, hi = cell(fq - margin), cell(fq + margin)
+    cp = cell(coord(xyz))
+    inside = (cp[:, None, :, :] >= lo[:, :, None, :]) & \
+        (cp[:, None, :, :] <= hi[:, :, None, :])
+    return inside.all(-1)
 
 
 def furthest_point_sample_ref(xyz: torch.Tensor, num_samples: int,
@@ -325,6 +393,28 @@ def ball_query(radius: float, num_samples: int, xyz: torch.Tensor,
         raise ValueError("ball_query: query_xyz must be (B, S, 3) float32")
     if not _on_card("ball_query", xyz, query_xyz, m):
         return ball_query_ref(radius, num_samples, xyz, query_xyz, mask)
+    grid = xyz.shape[1] > BALL_SCAN_MAX_POINTS and \
+        ball_grid_params(radius) is not None
+    return ball_query_launch(radius, num_samples, xyz, query_xyz, m,
+                             grid=grid)
+
+
+@functools.lru_cache(maxsize=64)
+def _ball_scratch_words(b: int, n: int, bits: int) -> int:
+    """int32 words of K14-ball's grid scratch (the kernel's query)."""
+    return _fn("ball_query_scratch")(b, n, bits)
+
+
+def ball_query_launch(radius: float, num_samples: int, xyz: torch.Tensor,
+                      query_xyz: torch.Tensor, mask: torch.Tensor,
+                      grid: bool, table_bits: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K14-ball call on CUDA tensors (mask (B, N) bool) by a chosen
+    route: ``grid`` False scans every point in index order, True builds
+    the cell grid in a hash table of 2^``table_bits`` buckets a sample
+    (default ``ball_grid_table_bits(N)``; a small table forces collisions)
+    and reads each query's cells. ``ball_query`` takes the route by N and
+    the radius; the other routes are for tests and measuring."""
     b, n, _ = xyz.shape
     s, k = query_xyz.shape[1], int(num_samples)
     idx = torch.empty((b, s, k), dtype=torch.int32, device=xyz.device)
@@ -332,9 +422,24 @@ def ball_query(radius: float, num_samples: int, xyz: torch.Tensor,
     if b * s == 0 or k == 0:
         return idx, valid
     xyz, q = xyz.detach().contiguous(), query_xyz.detach().contiguous()
-    err = _fn("ball_query")(xyz.data_ptr(), q.data_ptr(), m.data_ptr(), b,
-                            n, s, k, ctypes.c_float(_radius2(radius)),
-                            idx.data_ptr(), valid.data_ptr(), _stream(xyz))
+    inv = reach = 0.0
+    bits, scratch = 0, None
+    if grid:
+        params = ball_grid_params(radius)
+        if params is None:
+            raise ValueError(f"ball_query: no grid route for radius "
+                             f"{radius}")
+        inv, reach = params
+        bits = ball_grid_table_bits(n) if table_bits is None \
+            else int(table_bits)
+        scratch = torch.empty(_ball_scratch_words(b, n, bits),
+                              dtype=torch.int32, device=xyz.device)
+    err = _fn("ball_query")(
+        xyz.data_ptr(), q.data_ptr(), mask.contiguous().data_ptr(), b, n, s,
+        k, ctypes.c_float(_radius2(radius)), int(grid), ctypes.c_float(inv),
+        ctypes.c_float(reach), bits,
+        None if scratch is None else scratch.data_ptr(), idx.data_ptr(),
+        valid.data_ptr(), _stream(xyz))
     _launched("ball_query", err)
     return idx, valid
 
@@ -356,8 +461,6 @@ def knn(k: int, xyz: torch.Tensor, query_xyz: torch.Tensor,
                            "ported path feeds coordinates as data)")
     if not _on_card("knn", xyz, query_xyz, m):
         return knn_ref(k, xyz, query_xyz, mask)
-    if k > KNN_MAX_K:
-        raise ValueError(f"knn: the kernel takes k <= {KNN_MAX_K}, not {k}")
     b, n, _ = xyz.shape
     s = query_xyz.shape[1]
     idx = torch.empty((b, s, k), dtype=torch.int32, device=xyz.device)

@@ -903,6 +903,146 @@ def point_op_sets(gen: np.random.Generator):
         xyz = cloud(2, 200)
         sets.append((name, xyz, np.ones((2, 200), bool), cloud(2, 24), 0.8,
                      16, 48))
+    sets += _ball_grid_sets(gen, cloud)
+    return sets
+
+
+def _radius_edge(q: float, r2: float, sign: int) -> tuple:
+    """(inside, outside): the float32 coordinates p along one axis whose
+    squared difference fl(fl(q - p)^2) from ``q`` is the last <= ``r2``,
+    and the first past it, going from ``q`` in direction ``sign``."""
+    f32 = np.float32
+    q, r2 = f32(q), f32(r2)
+    p = f32(q + sign * np.sqrt(r2))
+    toward = f32(sign * np.inf)
+
+    def d(x):
+        dx = f32(q - x)
+        return f32(dx * dx)
+
+    while d(p) > r2:
+        p = np.nextafter(p, -toward)
+    while d(np.nextafter(p, toward)) <= r2:
+        p = np.nextafter(p, toward)
+    return p, np.nextafter(p, toward)
+
+
+def _cell_faces(x: np.ndarray, origin: float, inv: float) -> np.ndarray:
+    """For each float32 coordinate in ``x``, the float32 coordinate nearest
+    it at which K14-ball's cell floor(fl(fl(x - origin) * inv)) changes,
+    and the one below it: points on both sides of a cell face."""
+    f32 = np.float32
+    o, inv = f32(origin), f32(inv)
+
+    def cell(v):
+        return np.floor(f32(f32(v - o) * inv))
+
+    out = []
+    for v in x.astype(f32):
+        target = np.ceil(f32(f32(v - o) * inv))
+        p = f32(o + target / inv)
+        while cell(p) >= target:
+            p = np.nextafter(p, f32(-np.inf))
+        while cell(p) < target:
+            p = np.nextafter(p, f32(np.inf))
+        out += [p, np.nextafter(p, f32(-np.inf))]
+    return np.asarray(out, f32)
+
+
+# the sets of ``_ball_grid_sets``: K14-ball's and K14-NN's. The gathers are
+# held on the others: grid_masked's all-masked sample reads one row from
+# 1,024 slots, whose float32 sum in slot order (the kernel's) and in
+# autograd's atomic order differ by ~1e-6 of the max
+BALL_GRID_SETS = ("grid_edges", "one_point_40k", "crowded_spots",
+                  "grid_masked", "radius_past_room", "radius_below_spacing",
+                  "batch8_4099", "ties_across_tiles")
+
+
+def _ball_grid_sets(gen: np.random.Generator, cloud) -> list:
+    """The sets of K14-ball's cell grid and K14-NN's warp merge: points on
+    the grid's cell faces and at exactly r after float32 rounding (and one
+    step past), queries on faces; 40,000 copies of one point; 80% of the
+    points on 4 spots (balls of far more than K points); masked points, an
+    all-masked sample and empty balls; a radius larger than the room and
+    one smaller than the points' spacing; a batch of 8 samples of 4,099
+    points (not a multiple of 32); K-NN ties at equal distance across
+    lanes and staged tiles, with masked sources. Past
+    ``BALL_SCAN_MAX_POINTS`` points the ball query takes the grid by
+    default."""
+    from .ops.pointnet_ops import _radius2, ball_grid_params
+
+    f32 = np.float32
+    sets = []
+    # cell faces and the radius's float32 edge: r 0.2 (r2 is not 0.04)
+    r = 0.2
+    r2 = _radius2(r)
+    inv, _ = ball_grid_params(r)
+    base = cloud(1, 2600, 1.5)
+    o = base[0, 0]
+    faces = []
+    for axis in range(3):
+        at = base[0, 1:201].copy()
+        walls = _cell_faces(at[:, axis], o[axis], inv)
+        at = np.repeat(at, 2, 0)
+        at[:, axis] = walls
+        faces.append(at)
+    qs = base[0, 1:17].copy()
+    edge = []
+    for qq in qs:
+        for axis in range(3):
+            for sign in (-1, 1):
+                for v in _radius_edge(qq[axis], r2, sign):
+                    p = qq.copy()
+                    p[axis] = v
+                    edge.append(p)
+    xyz = np.concatenate([base[0], *faces, np.asarray(edge, f32)])
+    xyz = np.concatenate([xyz, cloud(1, 4500 - len(xyz), 1.5)[0]])[None]
+    q = np.concatenate([qs, faces[0][::25], xyz[0, 3000:3032]])[None]
+    sets.append(("grid_edges", xyz.astype(f32), np.ones((1, 4500), bool),
+                 q.astype(f32), r, 64, 64))
+    n = 40_000
+    xyz = np.broadcast_to(np.array([0.5, -0.2, 1.0], f32), (1, n, 3)).copy()
+    q = (xyz[:, :4] + np.array([[0, 0, 0], [0.1, 0, 0], [0, 0.25, 0],
+                                [3, 3, 3]], f32)).astype(f32)
+    sets.append(("one_point_40k", xyz, np.ones((1, n), bool), q, 0.2, 64,
+                 8))
+    n = 20_000
+    spots = gen.uniform(-2, 2, (4, 3)).astype(f32)
+    crowd = spots[gen.integers(0, 4, int(n * 0.8))] + gen.normal(
+        0, 0.005, (int(n * 0.8), 3)).astype(f32)
+    xyz = np.concatenate([crowd, cloud(1, n - len(crowd))[0]])[
+        gen.permutation(n)][None].astype(f32)
+    q = np.concatenate([spots, spots + f32(0.15), spots + f32(0.3),
+                        xyz[0, :20]])[None].astype(f32)
+    sets.append(("crowded_spots", xyz, np.ones((1, n), bool), q, 0.2, 64,
+                 32))
+    xyz = cloud(2, 6000)
+    mask = gen.uniform(size=(2, 6000)) > 0.5
+    mask[1] = False
+    q = np.concatenate([xyz[:, :24], cloud(2, 8) + f32(20)], 1)
+    sets.append(("grid_masked", xyz, mask, q, 0.3, 32, 32))
+    xyz = cloud(1, 5000, 1.0)
+    sets.append(("radius_past_room", xyz, np.ones((1, 5000), bool),
+                 np.concatenate([xyz[:, :12], cloud(1, 4, 3.0)], 1), 10.0,
+                 32, 16))
+    xyz = cloud(1, 5000)
+    xyz[0, 4000:] = xyz[0, np.repeat(np.arange(100), 10)]
+    xyz[0, 3900:4000] = xyz[0, :100] + f32(5e-5)
+    q = np.concatenate([xyz[:, :16], cloud(1, 16)], 1)
+    sets.append(("radius_below_spacing", xyz, np.ones((1, 5000), bool), q,
+                 1e-4, 8, 16))
+    xyz = cloud(8, 4099)
+    sets.append(("batch8_4099", xyz, gen.uniform(size=(8, 4099)) > 0.1,
+                 xyz[:, 7:39].copy(), 0.3, 16, 24))
+    g = np.stack(np.meshgrid(np.arange(3), np.arange(4), np.arange(2),
+                             indexing="ij"), -1).reshape(-1, 3)
+    spots = (g * 0.5).astype(f32)
+    xyz = spots[gen.integers(0, len(spots), (2, 3000))]
+    mask = np.ones((2, 3000), bool)
+    mask[1] = gen.uniform(size=3000) > 0.2
+    q = np.broadcast_to(spots[None] + f32(0.25), (2, 24, 3)).astype(f32)
+    sets.append(("ties_across_tiles", xyz.astype(f32), mask, q, 0.55, 32,
+                 24))
     return sets
 
 

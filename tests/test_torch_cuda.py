@@ -44,8 +44,9 @@ float32's range) K10 and K10-BEV within 1e-5 of the plain value (or of 1)
 with NaN and infinities where the plain version has them, K10-NMS's bits
 equal to the plain IoU's in both orders of each pair. K14 (the PointNet++
 ops) on ``testing.point_op_sets`` and VoteNet's first-level shapes:
-FPS (by every route: one block, clusters of 8 and 16), ball-query and
-K-NN indices, valid flags and distances equal to the plain versions',
+FPS (by every route: one block, clusters of 8 and 16), ball-query (by
+every route: the scan, the cell grid, the grid with 4 buckets) and K-NN
+(k = 1 to N) indices, valid flags and distances equal to the plain versions',
 the gathers equal forward (rows of 1-130 floats, an unaligned view;
 no-grad and grad calls alike), their gradients within 1e-6 of the max
 of plain autograd's and equal over two calls, the features' gradient
@@ -65,9 +66,9 @@ from isfusion_tpu_torch.ops import (box_ops, cuda_build, gaussian, scatter,
                                     sparse_conv, voxel)
 from isfusion_tpu_torch.ops import pointnet_ops as pn
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
-from isfusion_tpu_torch.testing import (POINT_SET_ROWS, degenerate_box_sets,
-                                       iou_undetermined, offset_rows,
-                                       point_op_sets)
+from isfusion_tpu_torch.testing import (BALL_GRID_SETS, POINT_SET_ROWS,
+                                       degenerate_box_sets, iou_undetermined,
+                                       offset_rows, point_op_sets)
 
 pytestmark = pytest.mark.cuda
 
@@ -1663,6 +1664,9 @@ def test_tiny_imvoxelnet_predict_on_card_matches_cpu(card):
 
 # ------------------------------------------------ K14 (the PointNet++ ops)
 POINT_SETS = [s[0] for s in point_op_sets(np.random.default_rng(14))]
+# the gathers' sets: the ball grid's sets feed the index kernels and the
+# gathers' lists (``test_k14_slot_lists_match_plain_version``)
+GATHER_SETS = [n for n in POINT_SETS if n not in BALL_GRID_SETS]
 
 
 def _point_set(name, card):
@@ -1702,7 +1706,7 @@ def test_k14_index_kernels_match_plain_versions(card, name):
             assert torch.equal(got[1], want[1]), kk
 
 
-@pytest.mark.parametrize("name", POINT_SETS)
+@pytest.mark.parametrize("name", GATHER_SETS)
 def test_k14_gathers_match_plain_versions(card, name):
     """K14-gather's three forms bit-equal forward (the rows' width and
     storage offset from ``POINT_SET_ROWS``), the no-grad call equal to the
@@ -1843,6 +1847,40 @@ def test_k14_fps_routes_match_plain_version(card, name, route):
     assert torch.equal(got, pn.furthest_point_sample_ref(xyz, s, mask))
 
 
+# (set, route) for each K14-ball route on the sets whose radius the grid
+# takes: the scan, the grid with its default table, the grid with 4
+# buckets (every cell collides)
+BALL_ROUTES = [(name, route) for name, *_, radius, _, _ in point_op_sets(
+    np.random.default_rng(14)) if pn.ball_grid_params(radius) is not None
+               for route in ("scan", "grid", "grid_4_buckets")]
+
+
+@pytest.mark.parametrize("name,route", BALL_ROUTES)
+def test_k14_ball_routes_match_plain_version(card, name, route):
+    """Every route of K14-ball bit-equal to the plain version: indices and
+    valid flags, one launch a call."""
+    xyz, mask, q, radius, k, _ = _point_set(name, card)
+    got = _launched("ball_query", lambda: pn.ball_query_launch(
+        radius, k, xyz, q, mask, grid=route != "scan",
+        table_bits=2 if route == "grid_4_buckets" else None))
+    want = pn.ball_query_ref(radius, k, xyz, q, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", POINT_SETS)
+def test_k14_knn_past_16_matches_plain_version(card, name):
+    """K14-NN at k = 16, 17, 32, 64 and k = N (up to 6,000 points) equal
+    to the plain version bit for bit: ties, duplicates, masked sources."""
+    xyz, mask, q, _, _, _ = _point_set(name, card)
+    n = xyz.shape[1]
+    for kk in sorted({16, 17, 32, 64} | ({n} if n <= 6000 else set())):
+        if kk <= n:
+            got = _launched("three_nn", lambda: pn.knn(kk, xyz, q, mask))
+            want = pn.knn_ref(kk, xyz, q, mask)
+            assert torch.equal(got[0], want[0]), kk
+            assert torch.equal(got[1], want[1]), kk
+
+
 def test_k14_at_votenets_first_level(card):
     """The first SA level's shapes: FPS 40,000 -> 2,048 and the ball query
     (K 64, r 0.2) on a synthetic room, K14-NN at the FP shape (1,024 over
@@ -1867,7 +1905,8 @@ def test_k14_at_votenets_first_level(card):
 def test_k14_fps_past_shared_memory_and_knn_past_its_k(card):
     """K14-FPS takes up to 50,000 points a sample (FPS_MAX_POINTS; the
     cluster holds them in registers: equal picks at the limit) and raises
-    past them without a launch; K14-NN raises for k > 16."""
+    past them without a launch; K14-NN answers k > 16 (its rounds of 16)
+    as the plain version does."""
     gen = torch.Generator(card).manual_seed(11)
     xyz = torch.rand((2, 50001, 3), generator=gen, device=card) * 8
     mask = torch.rand((2, 50001), generator=gen, device=card) > 0.2
@@ -1879,8 +1918,10 @@ def test_k14_fps_past_shared_memory_and_knn_past_its_k(card):
     with pytest.raises(ValueError, match="N <= 50000"):
         pn.furthest_point_sample(xyz, 96, mask)
     assert cuda_build.LAUNCHES["furthest_point_sample"] == before
-    with pytest.raises(ValueError, match="k <= 16"):
-        pn.knn(17, xyz[:, :100], xyz[:, :8])
+    src, q = xyz[:, :100].contiguous(), xyz[:, :8].contiguous()
+    got = _launched("three_nn", lambda: pn.knn(17, src, q))
+    want = pn.knn_ref(17, src, q)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 _BAD_INDEX = """

@@ -10,9 +10,13 @@ outputs, predict, loss terms, every top module's gradients and one AdamW
 + clip step of the VoteNet recipe (lr 0.008, clip 10).
 
 The JAX variables are drawn with numpy (``tests/torch_parity.py``) and
-carried with ``state_dict_from_jax``; each JAX detector is one jitted call
-at XLA:CPU backend level 1 (head outputs, predict, losses, gradients, the
-optimizer update). The port's ops run their plain versions (the CPU).
+carried with ``state_dict_from_jax``; each JAX detector is two jitted
+calls at XLA:CPU backend level 1: head outputs, predict and losses in
+float32, then the gradients and the optimizer update in float64
+(``torch_parity.float64_jax``: a ReLU input of the tiny VoteNet's head
+lies within float32 rounding of 0, and the side XLA:CPU's float32 sums
+put it on depends on the host). The port's ops run their plain versions
+(the CPU).
 
 Tolerances (float32, CPU): outputs and gradients 1e-3 of their max (the
 modules alone 1e-4), losses 1e-4 relative, the sampled, grouped and
@@ -29,11 +33,13 @@ import torch
 
 from isfusion_tpu.core.bbox.coders import PartialBinBasedBBoxCoder as JCoder
 from isfusion_tpu.models import build_detector as jbuild_detector
+from isfusion_tpu.models import layers as jlayers
 from isfusion_tpu.models.backbones.multi_backbone import \
     MultiBackbone as JMulti
 from isfusion_tpu.models.backbones.pointnet2 import (
     PointFPModule as JFP, PointNet2SASSG as JSASSG, PointSAModule as JSA,
     _SharedMLP as JMLP)
+from isfusion_tpu.models.dense_heads import vote_head as jvote_head
 from isfusion_tpu.models.dense_heads.vote_head import (VoteHead as JHead,
                                                        VoteModule as JVote)
 from isfusion_tpu.models.detectors import h3dnet as jh3d
@@ -56,7 +62,8 @@ from isfusion_tpu_torch.runner.convert import state_dict_from_jax
 from isfusion_tpu_torch.testing import indoor_positives
 from test_models.test_votenet import tiny_batch, tiny_votenet_cfg
 from torch_parity import (OPTIMIZED_XLA, assert_close_to_max, check_step,
-                          jax_cfg, load_from_jax, random_variables)
+                          float64_jax, jax_cfg, load_from_jax,
+                          random_variables)
 
 VOTENET_LOSSES = {"vote_loss", "objectness_loss", "center_loss",
                   "dir_class_loss", "dir_res_loss", "size_class_loss",
@@ -405,10 +412,11 @@ def test_multi_backbone_matches(train):
 
 # ------------------------------------------------------- tiny detectors
 def _detector_case(jcfg: dict, cfg: dict, batch: dict) -> dict:
-    """One tiny point detector on both sides (the JAX side one jitted call
-    at XLA:CPU level 1), the port from the carried weights: head outputs
-    and predict (eval), loss terms and gradients (train), one step of
-    ``votenet_optim_cfg``'s AdamW + clip 10."""
+    """One tiny point detector on both sides (the JAX side jitted at
+    XLA:CPU level 1, its gradients and step in float64), the port from the
+    carried weights: head outputs and predict (eval), loss terms and
+    gradients (train), one step of ``votenet_optim_cfg``'s AdamW + clip
+    10."""
     ocfg = tflagship.votenet_optim_cfg()
     jmodel = jbuild_detector(jcfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -431,14 +439,35 @@ def _detector_case(jcfg: dict, cfg: dict, batch: dict) -> dict:
     def run(v):
         feats = jmodel.apply(v, jbatch, train=False, mode="feats")
         decoded = jmodel.apply(v, jbatch, train=False, mode="predict")
-        (_, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        (_, losses), _ = jax.value_and_grad(loss_fn, has_aux=True)(
             v["params"], v["batch_stats"])
-        updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
-        return feats, decoded, losses, grads, optax.apply_updates(
-            v["params"], updates)
+        return feats, decoded, losses
 
-    feats, decoded, jl, jg, after = jax.device_get(
-        _compiled(run, variables))
+    def step(v):
+        grads = jax.grad(lambda p: loss_fn(p, v["batch_stats"])[0])(
+            v["params"])
+        updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
+        return grads, optax.apply_updates(v["params"], updates)
+
+    feats, decoded, jl = jax.device_get(_compiled(run, variables))
+    # The JAX gradients and step in float64 (the points stay float32: the
+    # data's own). In float32 one ReLU input of the head's second shared
+    # conv (conv_pred.shared_convs.layer1) lies 3.6e-6 of its tensor's max
+    # from 0, and XLA:CPU's sums put it on the side the host's vector code
+    # gives: on one kind of machine the other side from the exact
+    # function's, which moves the head's gradients by 1.2e-3 of their max.
+    # The port's float32 run takes the float64 run's side there.
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(np.asarray(x, np.float64))
+            if np.asarray(x).dtype.kind == "f" else jnp.asarray(x),
+            jax.device_get(variables))
+        jbatch = {k: jnp.asarray(v.astype(np.float64) if v.dtype.kind == "f"
+                                 and k != "points" else v)
+                  for k, v in batch.items()}
+        with float64_jax(jlayers, jvote_head, jh3d):
+            lowered = jax.jit(step).lower(v64)
+        jg, after = jax.device_get(lowered.compile(OPTIMIZED_XLA)(v64))
     num_reg = port.bbox_head.conv_pred.num_reg
     jg, jafter = (state_dict_from_jax({"params": t}) for t in (jg, after))
     for sd in (jg, jafter):
