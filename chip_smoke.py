@@ -309,16 +309,33 @@ Phases, each printing one line (every failure raises, exit code != 0):
     head and the decode, the idle share of one profiled request) and
     taking 1 warm-up and 3 train steps at batch 8 (``schedule_3x``:
     AdamW, clip 10; every K14 kernel and K14-gather's backward in every
-    step); every K14 call that the VoteNet cells recorded and
-    ``testing.point_op_sets`` held against the plain versions (indices,
-    valid flags and gathers equal, the gathers' backward within 1e-6 of
-    the max and bit-equal over two calls, the grad call's forward equal
-    to the no-grad call's; the largest serve call of each op timed: event
-    ms, whole-call device ms, plain ms, the bound, ``index_select``'s ms
-    for the row gathers and ``index_add_``'s beside their backward, and
-    K14-FPS's chain floor (2,048 picks over one point a thread of its
-    cluster, a pick)); the tiny VoteNet and H3DNet on the card against
-    the CPU;
+    step); the tiny VoteNet and H3DNet on the card against the CPU;
+28b. the VoteNet family's variants (``[ssd3d_main_path]``,
+    ``[ssd3d_train]``, ``[gf3d_main_path]``, ``[gf3d_train]``,
+    ``[imvote_main_path]``, ``[imvote_train]``, their ``_reference``
+    lines): mmdet3d's ``3dssd_4x4_kitti-3d-car.py`` (``flagship.
+    build_ssd3dnet``: 16,384 KITTI points, no FP level; serve, train at
+    batch 4), ``groupfree3d_8x4_scannet-3d-18class-L6-O256.py``
+    (``build_groupfree3d``: 50,000 points of xyz, six decoder layers;
+    batch 8, dropout from the step's generator) and
+    ``imvotenet_stage2_16x8_sunrgbd-3d-10class.py`` (``build_imvotenet``:
+    20,000 points and a 530 x 730 image through a ResNet-50; batch 16;
+    the share of seeds with a non-zero cue a request, which must not be
+    0), as phase 28a's cells (3DSSD's requests without K14-NN); then
+    (``[k14_check]``) every K14 call that the VoteNet and variant cells
+    recorded and ``testing.point_op_sets`` held against the plain
+    versions (indices, valid flags and gathers equal, the gathers'
+    backward within 1e-6 of the max of the slot-order float32 sums (the
+    weights' gradient of the float64 plain version's) and bit-equal over
+    two calls, the grad call's forward equal to the no-grad
+    call's, on every set; K14-FPS also at 50,000-200,000 points a sample
+    past the cluster's registers, ``fps_large_n``, by each route, with
+    its device ms and chain floor; the largest serve call of each op of
+    each serve cell timed: event ms, whole-call device ms, plain ms, the
+    bound, ``index_select``'s ms for the row gathers and ``index_add_``'s
+    beside their backward, and K14-FPS's chain floor (2,048 picks over
+    one point a thread of its cluster, a pick)); the tiny variants on the
+    card against the CPU;
 
 29. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
@@ -374,8 +391,8 @@ K2, K11 and K10, on each rank's DP steps; K16 ``roiaware_pool`` with
 PartA2's; K10-BEV ``boxes_iou_bev`` and K10-normal ``nms_normal_bev``
 with phase 28's post-processing path; K10-NMS with ImVoxelNet's
 requests; K10-BEV and K10 with one KITTI evaluate's; every kernel with
-kitti-learn's loop; the four K14 kernels with votenet-serve's requests,
-votenet-train's and the H3DNet cells' launches), then
+kitti-learn's loop; the four K14 kernels with the indoor serve cells'
+requests and each indoor cell's launches a request and a step), then
 ``{"ok": true, "device": {...}}`` end the output.
 
 ``python3 chip_smoke.py --dp`` runs the device and build phases, then
@@ -394,7 +411,9 @@ phases 24-26 alone.
 then phase 27a alone; ``--kitti``, phase 27b alone.
 
 ``python3 chip_smoke.py --votenet`` runs the device and build phases,
-then phase 28a alone and prints the K14 entries of the kernels' record.
+then phase 28a alone (with its K14 check and references) and prints the
+K14 entries of the kernels' record; ``--indoor-variants`` the same for
+phase 28b's cells.
 
 ``python3 chip_smoke.py --pp-serve [TREE]`` runs only pp-serve (more
 requests, then the K10-NMS wrapper's device and host time), with the port
@@ -4486,7 +4505,7 @@ K14_REPLACES = dict(
 POINT_OPS = ("furthest_point_sample", "ball_query", "three_nn",
              "gather_points", "group_points", "three_interpolate")
 INDOOR_TOPS = ("backbone", "bbox_head", "face_vote", "edge_vote",
-               "prim_proj")
+               "prim_proj", "img_backbone", "img_fuse")
 
 
 @contextlib.contextmanager
@@ -4549,11 +4568,37 @@ def counting_plain_k14():
             setattr(pointnet_ops, n, real[n])
 
 
+def indoor_stream_modules(model) -> list:
+    """(span, module) of an indoor detector's request: SA1.., FP1..,
+    ImVoteNet's image branch (``img_backbone``, ``img_fuse``), the head's
+    vote module (3DSSD: the candidate shift), Group-Free 3D's KPS
+    objectness (``kps``), the vote aggregation, the prediction convs
+    (``head``; Group-Free 3D: the proposal's) and Group-Free 3D's decoder
+    layers with their prediction heads (``decoder{i}``, ``pred{i}``)."""
+    head = model.bbox_head
+    mods = [(f"SA{i + 1}", m) for i, m in
+            enumerate(model.backbone.SA_modules)] + \
+        [(f"FP{i + 1}", m) for i, m in enumerate(model.backbone.FP_modules)]
+    if getattr(model, "img_backbone", None) is not None:
+        mods += [("img_backbone", model.img_backbone),
+                 ("img_fuse", model.img_fuse)]
+    for span, attr in (("vote_module", "vote_module"),
+                       ("kps", "points_obj_cls"),
+                       ("aggregation", "vote_aggregation"),
+                       ("head", "conv_pred")):
+        if hasattr(head, attr):
+            mods.append((span, getattr(head, attr)))
+    for i, layer in enumerate(getattr(head, "decoder_layers", ())):
+        mods += [(f"decoder{i}", layer), (f"pred{i}",
+                                          head.prediction_heads[i])]
+    return mods
+
+
 def indoor_stream_ms(model, batch: dict) -> dict:
-    """One request with CUDA events around SA1-SA4, FP1-FP2, the vote
-    module, the vote aggregation, the prediction convs (head) and the
-    decode (stream ms; the rest is the upload, H3DNet's primitive votes
-    and host gaps)."""
+    """One request with CUDA events around each span of
+    ``indoor_stream_modules`` and the decode (stream ms; the rest is the
+    upload, H3DNet's primitive votes, ImVoteNet's seed cues, Group-Free
+    3D's position embeddings and host gaps)."""
     import torch
 
     spans, handles = {}, []
@@ -4564,12 +4609,7 @@ def indoor_stream_ms(model, batch: dict) -> dict:
         return ev
 
     head = model.bbox_head
-    mods = [(f"SA{i + 1}", m) for i, m in
-            enumerate(model.backbone.SA_modules)] + \
-        [(f"FP{i + 1}", m) for i, m in enumerate(model.backbone.FP_modules)] \
-        + [("vote_module", head.vote_module),
-           ("aggregation", head.vote_aggregation), ("head", head.conv_pred)]
-    for n, mod in mods:
+    for n, mod in indoor_stream_modules(model):
         handles += [mod.register_forward_pre_hook(
             lambda *_, n=n: spans.__setitem__(n, [event(), None])),
             mod.register_forward_hook(
@@ -4597,15 +4637,50 @@ def indoor_stream_ms(model, batch: dict) -> dict:
                 rest_ms=wall - sum(ms.values()))
 
 
+def indoor_outputs(model) -> int:
+    """The boxes an indoor detector's predict returns a sample: the top
+    ``max_output_num`` (Group-Free 3D: default 64, else 128) of its
+    proposals."""
+    head = model.bbox_head
+    if hasattr(head, "decoder_layers"):
+        stages = head.test_cfg.get("prediction_stages", "last")
+        n = {"all": len(head.decoder_layers) + 1, "last_three": min(
+            3, len(head.decoder_layers))}.get(stages, 1)
+        return min(int(model.test_cfg.get("max_output_num", 64)),
+                   n * head.num_proposal)
+    return min(int(head.test_cfg.get("max_output_num", 128)),
+               head.vote_aggregation.num_point)
+
+
+@contextlib.contextmanager
+def recording_cues(model):
+    """Inside the block, the share of seeds whose image cue is not all
+    zero, a forward of ImVoteNet (``img_fuse``'s input), in the yielded
+    list; nothing for another detector."""
+    shares = []
+    fuse = getattr(model, "img_fuse", None)
+    hook = None if fuse is None else fuse.register_forward_pre_hook(
+        lambda _, a: shares.append(float((a[0] != 0).any(-1).float()
+                                         .mean())))
+    try:
+        yield shares
+    finally:
+        if hook is not None:
+            hook.remove()
+
+
 def phase_indoor_main_path(name: str, model, batch: dict,
-                           dev: str = "cuda") -> dict:
-    """votenet-serve / h3d-serve: the full-width detector serves 1 warm-up
-    (its K14 calls recorded) + N_REQUESTS batch-1 requests of 40,000
-    points, launch counts zeroed just before the timed requests and read
-    after each: fails unless every K14 kernel launched in every request,
-    on a wrong output shape or a non-finite kept box. Median and max ms,
-    peak memory, the kept boxes, and on the card the stream ms of each
-    module and the device idle share of one profiled request."""
+                           dev: str = "cuda", kernels=K14) -> dict:
+    """votenet-serve, h3d-serve, ssd3d-serve, gf3d-serve, imvote-serve:
+    the full-width detector serves 1 warm-up (its K14 calls recorded) +
+    N_REQUESTS batch-1 requests, launch counts zeroed just before the
+    timed requests and read after each: fails unless every kernel of
+    ``kernels`` (3DSSD has no FP level: no K14-NN) launched in every
+    request, on a wrong output shape, a non-finite kept box or (ImVoteNet)
+    a request whose seed cues are all zero. Median and max ms, peak
+    memory, the kept boxes, ImVoteNet's share of seeds with a cue a
+    request, and on the card the stream ms of each module and the device
+    idle share of one profiled request."""
     import torch
     from isfusion_tpu_torch.ops import cuda_build
 
@@ -4616,7 +4691,7 @@ def phase_indoor_main_path(name: str, model, batch: dict,
         torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launches()
     times, per_request = [], []
-    with counting_plain_k14() as plain:
+    with counting_plain_k14() as plain, recording_cues(model) as cues:
         for i in range(N_REQUESTS):
             before = dict(cuda_build.LAUNCHES)
             t0 = time.perf_counter()
@@ -4626,8 +4701,7 @@ def phase_indoor_main_path(name: str, model, batch: dict,
             per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
                                 for k in K14})
     launches = {k: cuda_build.LAUNCHES[k] for k in K14}
-    k = min(int(model.bbox_head.test_cfg.get("max_output_num", 128)),
-            model.bbox_head.vote_aggregation.num_point)
+    k = indoor_outputs(model)
     b = batch["points"].shape[0]
     shapes = {key: tuple(v.shape) for key, v in out.items()}
     if shapes != dict(bboxes=(b, k, 7), scores=(b, k), labels=(b, k),
@@ -4635,15 +4709,20 @@ def phase_indoor_main_path(name: str, model, batch: dict,
         raise RuntimeError(f"unexpected {name} output shapes {shapes}")
     if not torch.isfinite(out["bboxes"][out["mask"]]).all():
         raise RuntimeError(f"non-finite {name} boxes")
-    if dev == "cuda" and (any(r[n] < 1 for r in per_request for n in K14)
-                          or any(plain.values())):
+    if dev == "cuda" and (any(r[n] < 1 for r in per_request
+                              for n in kernels) or any(plain.values())):
         raise RuntimeError(f"a K14 kernel did not launch in every {name} "
                            f"request, or a plain version ran: "
                            f"{per_request}, {plain}")
+    if cues and min(cues) == 0:
+        raise RuntimeError(f"{name}: a request's seed cues are all zero: "
+                           f"{cues}")
     rec = dict(median_ms=statistics.median(times), max_ms=max(times),
                all_ms=times, points=int(batch["points"].shape[1]),
                kept_boxes=int(out["mask"].sum()),
                launches_per_request=per_request, plain_k14_calls=plain)
+    if cues:
+        rec["cue_seed_share_per_request"] = cues
     if dev == "cuda":
         rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         rec.update(indoor_stream_ms(model, batch))
@@ -4656,11 +4735,12 @@ def phase_indoor_main_path(name: str, model, batch: dict,
     return rec
 
 
-def _indoor_step(name, i, step, batch, gen, dev, marks, times) -> dict:
+def _indoor_step(name, i, step, batch, gen, dev, marks, times,
+                 kernels=K14) -> dict:
     """One timed train step of ``phase_indoor_train``: its K14 launches
     (K14-gather split at the end of the loss forward) and losses; fails on
-    a non-finite loss or grad norm, a zero grad norm or a missing
-    launch."""
+    a non-finite loss or grad norm, a zero grad norm or a missing launch
+    of ``kernels``."""
     from isfusion_tpu_torch.ops import cuda_build
     before = dict(cuda_build.LAUNCHES)
     t0 = time.perf_counter()
@@ -4678,19 +4758,25 @@ def _indoor_step(name, i, step, batch, gen, dev, marks, times) -> dict:
     if any(not math.isfinite(v) for v in vals.values()) or \
             vals["grad_norm"] == 0:
         raise RuntimeError(f"{name} train step {i}: {vals}")
-    if dev == "cuda" and min(launches.values()) == 0:
+    need = [k for k in launches if k in kernels or
+            k.startswith("point_gather")]
+    if dev == "cuda" and min(launches[k] for k in need) == 0:
         raise RuntimeError(f"{name} train step {i}: a K14 kernel did not "
                            f"launch: {launches}")
     return dict(launches, losses=vals)
 
 
 def phase_indoor_train(name: str, model, batch: dict, dev: str = "cuda",
-                       steps: int = N_TRAIN_STEPS) -> dict:
-    """votenet-train / h3d-train: ``schedule_3x`` (AdamW, clip 10, step
-    lr) at batch 8 (``8x8``), 64 padded GT rows; 1 warm-up (its K14 calls
+                       steps: int = N_TRAIN_STEPS, optim: dict = None,
+                       kernels=K14) -> dict:
+    """votenet-train, h3d-train (``schedule_3x``: AdamW, clip 10, step lr;
+    batch 8), ssd3d-train (3DSSD's AdamW, clip 35; batch 4), gf3d-train
+    (Group-Free 3D's AdamW with the decoder at lr_mult 0.1, clip 0.1; batch
+    8, dropout from the step's generator), imvote-train (``schedule_3x``;
+    batch 16): ``optim`` (default VoteNet's), 1 warm-up (its K14 calls
     recorded) + ``steps`` steps, launches split at the end of the loss
     forward. Fails on a non-finite loss or grad norm, a zero grad norm, a
-    step without every K14 kernel's forward launch and K14-gather's
+    step without every forward launch of ``kernels`` and K14-gather's
     backward, or a weight that did not move."""
     import torch
     from isfusion_tpu_torch.flagship import votenet_optim_cfg
@@ -4700,7 +4786,7 @@ def phase_indoor_train(name: str, model, batch: dict, dev: str = "cuda",
                                                  build_schedule,
                                                  grad_clip_norm)
 
-    cfg = votenet_optim_cfg()
+    cfg = optim or votenet_optim_cfg()
     model.train()
     opt = build_optimizer(model, cfg["optimizer"])
     step = make_train_step(model, opt, build_schedule(
@@ -4721,7 +4807,7 @@ def phase_indoor_train(name: str, model, batch: dict, dev: str = "cuda",
         with counting_plain_k14() as plain:
             for i in range(steps):
                 per_step.append(_indoor_step(name, i, step, batch, gen,
-                                             dev, marks, times))
+                                             dev, marks, times, kernels))
     finally:
         hook.remove()
     if dev == "cuda" and any(plain.values()):
@@ -4991,15 +5077,20 @@ def ball_route_cases(label: str, args, dev: str) -> list:
 
 
 def _gather_backward(op: str, args, fwd, dev: str, timed: bool) -> dict:
-    """The gather's backward on the card against plain autograd: a seeded
-    output gradient, the features' (and weights') gradients within 1e-6 of
-    the max, two kernel backwards bit-equal, the grad call's forward equal
-    to ``fwd`` (the no-grad call's); ``timed`` on the card: its ms beside
-    plain autograd's (medians of three rounds in turns) and, for the row
-    gathers, ``index_add_``'s (one call that computes the features'
-    gradient)."""
+    """The gather's backward on the card: a seeded output gradient, the
+    features' gradient within 1e-6 of the max of the float32 sums in slot
+    order (``testing.slot_order_grad``: plain float32 autograd sums a
+    row's slots by atomics, in no fixed order, and a float64 sum parts
+    from a long row's float32 sum by more than that), the weights' within
+    1e-6 of the max of the plain version's float64 gradient, two kernel
+    backwards bit-equal, the grad call's forward equal to ``fwd`` (the
+    no-grad call's); ``timed``
+    on the card: its ms beside plain autograd's (medians of three rounds
+    in turns) and, for the row gathers, ``index_add_``'s (one call that
+    computes the features' gradient)."""
     import torch
     from isfusion_tpu_torch.ops import pointnet_ops as P
+    from isfusion_tpu_torch.testing import slot_order_grad
     if fwd.numel() == 0:
         return {}
     g = torch.randn(fwd.shape, generator=torch.Generator(dev).manual_seed(
@@ -5018,7 +5109,21 @@ def _gather_backward(op: str, args, fwd, dev: str, timed: bool) -> dict:
         return [feats.grad] + ([rest[1].grad] if op == "three_interpolate"
                                else [])
 
-    got, again, want = grads(False), grads(False), grads(True)
+    def reference():
+        # the features' gradient as float32 sums in slot order; the
+        # weights' in float64
+        idx = args[1]
+        weight = args[2] if op == "three_interpolate" else None
+        want = [slot_order_grad(idx.reshape(idx.shape[0], -1),
+                                args[0].shape[1], g, weight).to(dev)]
+        if weight is not None:
+            w = weight.detach().double().requires_grad_(True)
+            P.three_interpolate_ref(args[0].detach().double(), idx,
+                                    w).backward(g.double())
+            want.append(w.grad.float())
+        return want
+
+    got, again, want = grads(False), grads(False), reference()
     rec = dict(bwd_max_abs_err=max(
         float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
         for a, b in zip(got, want)),
@@ -5060,21 +5165,80 @@ def _largest(recorded: dict, op: str):
         a.numel() for a in recorded[k] if torch.is_tensor(a)))
 
 
+# K14-FPS past a cluster's registers (8 blocks hold 65,536 points, 16
+# hold 131,072): at and past 50,000 points, around 65,536, and past both
+FPS_LARGE_N = (50_000, 50_001, 65_536, 65_537, 100_000, 200_000)
+
+
+def fps_large_cases(dev: str) -> tuple:
+    """K14-FPS at each N of ``FPS_LARGE_N`` (the card only: the CPU's only
+    route is the plain version): ``testing.fps_large_cloud``'s batch of 2
+    clouds in an 8 m cube, the second's first 3 points and last quarter
+    masked, ties across a block's registers, its tail and another block
+    that decide the first picks; 2,048 picks by the
+    wrapper's route and by clusters of 8 and 16, each against the plain
+    version (the checks' cases); each cluster's event ms and whole-call
+    device ms (the tail route past ``FPS_CLUSTER_POINTS`` x C points)
+    beside its chain floor at these picks and the bound (the
+    ``[fps_large_n]`` line)."""
+    import torch
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    from isfusion_tpu_torch.testing import fps_large_cloud
+    if dev != "cuda":
+        return [], []
+    cases, times, floors = [], [], {}
+    for n in FPS_LARGE_N:
+        xyz, mask, ties = fps_large_cloud(n, dev)
+        want = P.furthest_point_sample_ref(xyz, 2048, mask)
+        assert torch.equal(want[:, 1:1 + ties.shape[1]], ties), n
+        for route in ("wrapper", 8, 16):
+            if route == "wrapper":
+                def run():
+                    return P.furthest_point_sample(xyz, 2048, mask)
+            else:
+                def run(c=route):
+                    return P.fps_launch(xyz, 2048, mask, c)
+            got = run()
+            sync(dev)
+            equal = torch.equal(got, want)
+            cases.append(dict(label=f"fps_large_n_{n}_{route}",
+                              op="furthest_point_sample",
+                              shapes=[[2, n, 3]], equal=equal,
+                              max_abs_err=0.0 if equal else 1.0))
+            if route == "wrapper":
+                continue
+            if route not in floors:
+                floors[route] = fps_chain_floor(dev, route)
+            per = floors[route]["ms_per_pick"]
+            times.append(dict(
+                points=n, batch=2, picks=2048, cluster=route,
+                tail=n > P.FPS_CLUSTER_POINTS * route,
+                ms=cuda_ms(run, dev, iters=3),
+                device_ms=k14_device_ms(run)[0],
+                chain_floor_ms=per * 2047 if isinstance(per, float)
+                else None,
+                bound_ms=_k14_bound("furthest_point_sample",
+                                    (xyz, 2048, mask), got)[0]))
+    log("fps_large_n", times=times)
+    return cases, times
+
+
 def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
     """Every K14 kernel against its plain version on every call the
-    VoteNet path recorded (``recorded``: {cell: recording_point_ops()'s
+    indoor paths recorded (``recorded``: {cell: recording_point_ops()'s
     dict}) and on ``testing.point_op_sets`` (FPS; ball query by its
     default route and, on the card, by each route: the scan, the grid,
     the grid with 4 buckets; K-NN at k 1, 3, 8, 16, 17, 32 and 64; the
-    three gathers forward and backward, on the sets other than
-    ``BALL_GRID_SETS``): fails unless every call is equal (K14-gather's
-    backward within 1e-6 of the max and repeating bit for bit). The
-    largest serve call of each op is timed."""
+    three gathers forward and backward on every set): fails unless every
+    call is equal (K14-gather's backward within 1e-6 of the max of the
+    slot-order sums, the weights' of the float64 plain version's, and
+    repeating bit for bit). The largest serve
+    call of each op of each serve cell is timed."""
     import numpy as np
     import torch
     from isfusion_tpu_torch.ops import pointnet_ops as P
-    from isfusion_tpu_torch.testing import (BALL_GRID_SETS, POINT_SET_ROWS,
-                                           offset_rows, point_op_sets)
+    from isfusion_tpu_torch.testing import (POINT_SET_ROWS, offset_rows,
+                                           point_op_sets)
 
     cases = []
     for cell, seen in recorded.items():
@@ -5098,11 +5262,10 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
         w = P.interpolation_weights(torch.sqrt(d.clamp_min(1e-10)))
         calls = [("furthest_point_sample", (xyz, s, mask)),
                  ("ball_query", (radius, k, xyz, q, mask)),
-                 ("three_nn", (q, xyz, mask))]
-        if name not in BALL_GRID_SETS:
-            calls += [("gather_points", (feats, fps)),
-                      ("group_points", (feats, gi)),
-                      ("three_interpolate", (feats, ni, w))]
+                 ("three_nn", (q, xyz, mask)),
+                 ("gather_points", (feats, fps)),
+                 ("group_points", (feats, gi)),
+                 ("three_interpolate", (feats, ni, w))]
         for op, args in calls:
             cases.append(k14_case(name, op, args, dev, False))
         cases += ball_route_cases(name, (radius, k, xyz, q, mask), dev)
@@ -5112,6 +5275,8 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
                 want = P.knn_ref(kk, xyz, q, mask)
                 cases.append(dict(label=name, op=f"knn_k{kk}",
                                   equal=_same(got, want), max_abs_err=0.0))
+    large, large_times = fps_large_cases(dev)
+    cases += large
     bad = [c for c in cases if not c["equal"] or c.get(
         "bwd_max_abs_err", 0.0) > 1e-6 or c.get("bwd_repeats") is False
         or c.get("grad_call_equal") is False]
@@ -5158,33 +5323,64 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
         "bwd_repeats", "grad_call_equal")} for c in bad],
         per_kernel=per_kernel)
     log("k14_check", **rec)
+    rec["fps_large_n"] = large_times
     if bad:
         raise RuntimeError(f"K14 kernels differ from their plain versions: "
                            f"{rec['failed'][:5]}")
     return rec
 
 
+# each indoor cell: its builder and optimizer config in flagship.py and
+# the K14 kernels its request must launch (3DSSD has no FP level)
+K14_NO_NN = tuple(k for k in K14 if k != "three_nn")
+INDOOR_CELLS = dict(
+    votenet=("build_votenet", "votenet_optim_cfg", K14),
+    h3d=("build_h3dnet", "votenet_optim_cfg", K14),
+    ssd3d=("build_ssd3dnet", "ssd3dnet_optim_cfg", K14_NO_NN),
+    gf3d=("build_groupfree3d", "groupfree3d_optim_cfg", K14),
+    imvote=("build_imvotenet", "imvotenet_optim_cfg", K14))
+INDOOR_VARIANT_CELLS = ("ssd3d", "gf3d", "imvote")
+
+
+def no_dropout(model):
+    """``model`` with its decoder's dropout off (Group-Free 3D: the card's
+    and the CPU's generators draw differently)."""
+    from isfusion_tpu_torch.models.transformer import (
+        MultiheadAttention, TransformerDecoderLayer)
+    for m in model.modules():
+        if isinstance(m, TransformerDecoderLayer):
+            m.p = 0.0
+        elif isinstance(m, MultiheadAttention):
+            m.dropout = 0.0
+    return model
+
+
 def phase_indoor_reference(name: str, dev: str = "cuda") -> dict:
-    """The tiny VoteNet or H3DNet in float32 (TF32 off) on the card
-    against the CPU from the same weights and batch (its GT boxes on the
-    CPU model's train-mode proposals, ``testing.indoor_positives``): head
-    outputs 1e-3 of their max (indices and masks equal), predict (the same
-    mask and labels, boxes and scores 1e-3 of their max), loss terms 1e-4
-    relative, each top module's gradient 1e-3 of its max."""
+    """The tiny indoor detector ``name`` (an ``INDOOR_CELLS`` key) in
+    float32 (TF32 off) on the card against the CPU from the same weights
+    and batch (a VoteHead's GT boxes on the CPU model's train-mode
+    proposals, ``testing.indoor_positives``; Group-Free 3D's dropout
+    off): head outputs 1e-3 of their max (indices and masks equal),
+    predict (the same mask and labels, boxes and scores 1e-3 of their
+    max), loss terms 1e-4 relative, each top module's gradient 1e-3 of its
+    max."""
     import torch
-    from isfusion_tpu_torch.flagship import build_h3dnet, build_votenet
+    from isfusion_tpu_torch import flagship
     from isfusion_tpu_torch.testing import indoor_positives
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build = build_votenet if name == "votenet" else build_h3dnet
+    build = getattr(flagship, INDOOR_CELLS[name][0])
     cpu_model, batch_fn = build(tiny=True, device="cpu", seed=1)
-    batch = indoor_positives(cpu_model, batch_fn(2, seed=3), "cpu")
+    batch = batch_fn(2, seed=3)
+    if type(cpu_model.bbox_head).__name__ == "VoteHead":
+        batch = indoor_positives(cpu_model, batch, "cpu")
 
     def run(d):
-        model, _ = build(tiny=True, device=d, seed=1)
+        model = no_dropout(build(tiny=True, device=d, seed=1)[0])
         feats = {k: v.cpu() for k, v in model(batch, mode="feats",
-                                              device=d).items()}
+                                              device=d).items()
+                 if torch.is_tensor(v)}
         pred = {k: v.cpu() for k, v in model(batch, device=d).items()}
         model.train()
         losses = model(batch, mode="loss", device=d)
@@ -5192,7 +5388,8 @@ def phase_indoor_reference(name: str, dev: str = "cuda") -> dict:
         grads = {}
         for top in INDOOR_TOPS:
             ps = [p.grad.detach().cpu().flatten() for n, p in
-                  model.named_parameters() if n.split(".")[0] == top]
+                  model.named_parameters() if n.split(".")[0] == top
+                  and p.grad is not None]
             if ps:
                 grads[top] = torch.cat(ps)
         return feats, pred, {k: float(v.detach()) for k, v in
@@ -5223,40 +5420,46 @@ def phase_indoor_reference(name: str, dev: str = "cuda") -> dict:
     return rec
 
 
-def run_votenet_phases(dev: str = "cuda") -> dict:
-    """votenet-serve, votenet-train, h3d-serve, h3d-train, the K14 check
-    on the VoteNet cells' recorded calls and the adversarial sets, and the
-    tiny references."""
+def run_indoor_phases(dev: str = "cuda", cells=tuple(INDOOR_CELLS)) -> dict:
+    """For each of ``cells`` (``INDOOR_CELLS`` keys: votenet-, h3d-,
+    ssd3d-, gf3d-, imvote-serve and -train), the full-width serve and
+    train phases at the config's batch; then the K14 check on every cell's
+    recorded calls (H3DNet's are VoteNet's shapes, left out) and the
+    adversarial sets, and each cell's tiny reference."""
     import torch
-    from isfusion_tpu_torch.flagship import (build_h3dnet, build_votenet,
-                                             votenet_optim_cfg)
+    from isfusion_tpu_torch import flagship
 
-    bsz = votenet_optim_cfg()["samples_per_gpu"]
     out = {}
-    for name, build in (("votenet", build_votenet), ("h3d", build_h3dnet)):
-        model, batch_fn = build(device=dev, seed=0)
-        out[f"{name}_serve"] = phase_indoor_main_path(name, model,
-                                                      batch_fn(1), dev)
-        out[f"{name}_train"] = phase_indoor_train(name, model, batch_fn(
-            bsz, seed=1), dev)
+    for name in cells:
+        build, optim, kernels = INDOOR_CELLS[name]
+        model, batch_fn = getattr(flagship, build)(device=dev, seed=0)
+        ocfg = getattr(flagship, optim)()
+        out[f"{name}_serve"] = phase_indoor_main_path(
+            name, model, batch_fn(1), dev, kernels)
+        out[f"{name}_train"] = phase_indoor_train(
+            name, model, batch_fn(ocfg["samples_per_gpu"], seed=1), dev,
+            optim=ocfg, kernels=kernels)
         del model
         if dev == "cuda":
             torch.cuda.empty_cache()
-    recorded = {cell: out[cell].pop("point_inputs")
-                for cell in ("votenet_serve", "votenet_train")}
-    for cell in ("h3d_serve", "h3d_train"):
-        out[cell].pop("point_inputs")
+    recorded = {}
+    for cell in list(out):
+        seen = out[cell].pop("point_inputs")
+        if not cell.startswith("h3d_"):
+            recorded[cell] = seen
     out["check"] = phase_k14_check(recorded, dev)
     del recorded
-    for name in ("votenet", "h3d"):
+    for name in cells:
         out[f"{name}_reference"] = phase_indoor_reference(name, dev)
     return out
 
 
 def k14_kernel_records(indoor: dict) -> list:
-    """The four K14 entries of the kernels' JSON line: votenet-serve's
-    launches, the check's errors and the largest serve call's times."""
-    serve, train = indoor["votenet_serve"], indoor["votenet_train"]
+    """The four K14 entries of the kernels' line: the launches of every
+    indoor serve cell's requests (``launches``, their sum; a request's and
+    a train step's by cell), the check's errors and the largest serve
+    call's times."""
+    cells = [c[:-len("_serve")] for c in indoor if c.endswith("_serve")]
     recs = []
     for kern in K14:
         chk = indoor["check"]["per_kernel"][kern]
@@ -5264,55 +5467,50 @@ def k14_kernel_records(indoor: dict) -> list:
         rec = dict(
             name=kern, route="cuda",
             source=f"isfusion_tpu_torch/csrc/{K14_SOURCES[kern]}",
-            replaces=K14_REPLACES[kern], launches=serve["launches"][kern],
+            replaces=K14_REPLACES[kern],
+            launches=sum(indoor[f"{c}_serve"]["launches"][kern]
+                         for c in cells),
             max_abs_err=max(chk["max_abs_err"], chk["bwd_max_abs_err"]),
             **{k: main.get(k) for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
                                         "device_ms", "shapes", "op")},
-            launches_per_request=[r[kern] for r in serve[
-                "launches_per_request"]],
-            h3d_launches_per_request=[r[kern] for r in indoor["h3d_serve"][
-                "launches_per_request"]],
             checked_calls=chk["checked_calls"], path_calls=chk["path_calls"],
             timed=chk["timed"])
+        for c in cells:
+            rec[f"{c}_launches_per_request"] = [
+                r[kern] for r in indoor[f"{c}_serve"]["launches_per_request"]]
+            steps = indoor[f"{c}_train"]["launches_per_step"]
+            rec[f"{c}_train_launches_per_step"] = [dict(
+                forward=s_["point_gather_forward"],
+                backward=s_["point_gather_backward"]) for s_ in steps] \
+                if kern == "point_gather" else [s_[kern] for s_ in steps]
         if kern == "point_gather":
-            rec["train_launches_per_step"] = [dict(
-                forward=s["point_gather_forward"],
-                backward=s["point_gather_backward"])
-                for s in train["launches_per_step"]]
-            rec["h3d_train_launches_per_step"] = [dict(
-                forward=s["point_gather_forward"],
-                backward=s["point_gather_backward"])
-                for s in indoor["h3d_train"]["launches_per_step"]]
             rec["bwd_repeats"] = chk["bwd_repeats"]
             rec.update({k: main.get(k) for k in (
                 "fwd_bwd_ms", "plain_fwd_bwd_ms", "backward_bound_ms",
                 "backward_library_ms")})
-        else:
-            if kern == "furthest_point_sample":
-                rec.update({k: main.get(k) for k in ("chain_floor",
-                                                     "chain_floor_ms")})
-            if kern == "ball_query":
-                rec.update({k: main.get(k) for k in (
-                    "scan_bound_ms", "cut_bound_ms", "cut_candidates_mean",
-                    "grid_build_device_ms")})
-            rec["train_launches_per_step"] = [s[kern] for s in train[
-                "launches_per_step"]]
-            rec["h3d_train_launches_per_step"] = [
-                s[kern] for s in indoor["h3d_train"]["launches_per_step"]]
+        elif kern == "furthest_point_sample":
+            rec.update({k: main.get(k) for k in ("chain_floor",
+                                                 "chain_floor_ms")})
+            rec["large_n"] = indoor["check"].get("fps_large_n")
+        elif kern == "ball_query":
+            rec.update({k: main.get(k) for k in (
+                "scan_bound_ms", "cut_bound_ms", "cut_candidates_mean",
+                "grid_build_device_ms")})
         recs.append(rec)
     return recs
 
 
-def votenet_run() -> int:
-    """``python3 chip_smoke.py --votenet``: the device and build phases,
-    then the VoteNet and H3DNet phases alone, and the K14 entries of the
-    kernels' line."""
+def votenet_run(cells=("votenet", "h3d")) -> int:
+    """``python3 chip_smoke.py --votenet`` (VoteNet and H3DNet) or
+    ``--indoor-variants`` (3DSSD, Group-Free 3D, ImVoteNet): the device
+    and build phases, then those cells' phases alone (``run_indoor_phases``)
+    and the K14 entries of the kernels' line."""
     import torch
     smi = phase_device()
     sys.path.insert(0, REPO)
     phase_build()
-    indoor = run_votenet_phases()
+    indoor = run_indoor_phases("cuda", cells)
     print(smi)
     print(json.dumps({"kernels": k14_kernel_records(indoor)}))
     print(json.dumps({"ok": True, "device": {
@@ -7451,7 +7649,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssn = run_ssn_phases()
     torch.cuda.empty_cache()
-    indoor = run_votenet_phases()
+    indoor = run_indoor_phases()
     torch.cuda.empty_cache()
     # the DP ranks start, build and warm up during the variants, which
     # time nothing
@@ -8757,6 +8955,8 @@ if __name__ == "__main__":
         sys.exit(kitti_run())
     if sys.argv[1:] == ["--votenet"]:
         sys.exit(votenet_run())
+    if sys.argv[1:] == ["--indoor-variants"]:
+        sys.exit(votenet_run(INDOOR_VARIANT_CELLS))
     if sys.argv[1:] == ["--isfusion-learn"]:
         sys.exit(isfusion_learn_run())
     if sys.argv[1:] == ["--dp"]:

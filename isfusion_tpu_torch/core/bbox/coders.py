@@ -1,10 +1,11 @@
 """Box coders (counterpart of ``isfusion_tpu/core/bbox/coders.py``):
 ``DeltaXYZWLHRBBoxCoder`` (anchor residuals of PointPillars),
 ``TransFusionBBoxCoder`` (``encode`` for the training targets, ``decode``
-and ``valid_mask`` for the predictions) and ``CenterPointBBoxCoder``
-(CenterHead's heatmap decode) and ``PartialBinBasedBBoxCoder`` (VoteNet's
-direction bins and size clusters). Geometry stays float32: the ``exp`` of
-the size residuals overflows bf16."""
+and ``valid_mask`` for the predictions), ``CenterPointBBoxCoder``
+(CenterHead's heatmap decode), ``PartialBinBasedBBoxCoder`` (VoteNet's
+direction bins and size clusters), ``AnchorFreeBBoxCoder`` (3DSSD) and
+``GroupFree3DBBoxCoder`` (Group-Free 3D). Geometry stays float32: the
+``exp`` of the size residuals overflows bf16."""
 from __future__ import annotations
 
 import math
@@ -247,4 +248,95 @@ class PartialBinBasedBBoxCoder:
             *size_cls.shape, 1, 3))[..., 0, :]
         dims = (self.mean_sizes.to(center.device)[size_cls] + sres
                 ).clamp_min(0.01)
+        return torch.cat([center, dims, yaw[..., None]], -1)
+
+
+def _per_bin(like: torch.Tensor, num_dir_bins: int) -> torch.Tensor:
+    """2 pi / bins as a float32 tensor: a true division by it, as JAX
+    divides by the weak-typed constant (CUDA divides by a Python scalar
+    through its reciprocal)."""
+    return torch.full((), 2 * math.pi / num_dir_bins, dtype=like.dtype,
+                      device=like.device)
+
+
+@BBOX_CODERS.register_module()
+class AnchorFreeBBoxCoder(PartialBinBasedBBoxCoder):
+    """3DSSD's coder (the JAX package's ``coders.py:251``; reference
+    ``anchor_free_bbox_coder.py``): the size as half extents (decoded as
+    twice the prediction, at least 0.1), the yaw as a bin and a residual
+    normalised by the bin's width. No size classes."""
+
+    def __init__(self, num_dir_bins: int, with_rot: bool = True, **unused):
+        super().__init__(num_dir_bins, 0, [], with_rot=with_rot)
+
+    def encode(self, gt_gravity_center, gt_dims, gt_yaw, gt_labels):
+        """-> (centre, half extents, direction class, normalised
+        direction residual)."""
+        if self.with_rot:
+            dir_cls, dir_res = self.angle2class(gt_yaw)
+            dir_res = dir_res / _per_bin(dir_res, self.num_dir_bins)
+        else:
+            dir_cls = torch.zeros_like(gt_labels)
+            dir_res = torch.zeros_like(gt_yaw)
+        return gt_gravity_center, gt_dims / 2, dir_cls, dir_res
+
+    def decode(self, center, dir_class_logits, dir_res_norm, size):
+        """centre (..., P, 3), direction logits and normalised residuals
+        (..., P, bins), half extents (..., P, 3) -> (..., P, 7)
+        gravity-centred boxes."""
+        if self.with_rot:
+            dir_cls = dir_class_logits.argmax(-1)
+            res = torch.gather(dir_res_norm * (2 * math.pi /
+                                               self.num_dir_bins), -1,
+                               dir_cls[..., None])[..., 0]
+            yaw = self.class2angle(dir_cls, res)
+        else:
+            yaw = torch.zeros(center.shape[:-1], dtype=center.dtype,
+                              device=center.device)
+        dims = (size * 2).clamp_min(0.1)
+        return torch.cat([center, dims, yaw[..., None]], -1)
+
+
+@BBOX_CODERS.register_module()
+class GroupFree3DBBoxCoder(PartialBinBasedBBoxCoder):
+    """Group-Free 3D's coder (the JAX package's ``coders.py:285``;
+    reference ``groupfree3d_bbox_coder.py``): the partial-bin yaw, and the
+    size either regressed directly (``size_cls_agnostic``) or as a class's
+    mean size plus a residual. ``decode`` reads a head's prediction dict
+    under a stage's prefix."""
+
+    def __init__(self, num_dir_bins: int, num_sizes: int, mean_sizes,
+                 with_rot: bool = True, size_cls_agnostic: bool = True,
+                 **unused):
+        super().__init__(num_dir_bins, num_sizes, mean_sizes,
+                         with_rot=with_rot)
+        self.size_cls_agnostic = bool(size_cls_agnostic)
+
+    def encode(self, gt_gravity_center, gt_dims, gt_yaw, gt_labels):
+        """-> (centre, size (the dims), size class, size residual,
+        direction class, normalised direction residual)."""
+        center, size_cls, size_res, dir_cls, dir_res = super().encode(
+            gt_gravity_center, gt_dims, gt_yaw, gt_labels)
+        dir_res = dir_res / _per_bin(dir_res, self.num_dir_bins)
+        return center, gt_dims, size_cls, size_res, dir_cls, dir_res
+
+    def decode(self, bbox_out: dict, prefix: str = "") -> torch.Tensor:
+        """A stage's ``{prefix}center``, direction and size predictions ->
+        (..., P, 7) gravity-centred boxes."""
+        center = bbox_out[f"{prefix}center"]
+        if self.with_rot:
+            dir_cls = bbox_out[f"{prefix}dir_class"].argmax(-1)
+            res = torch.gather(bbox_out[f"{prefix}dir_res"], -1,
+                               dir_cls[..., None])[..., 0]
+            yaw = self.class2angle(dir_cls, res)
+        else:
+            yaw = torch.zeros(center.shape[:-1], dtype=center.dtype,
+                              device=center.device)
+        if self.size_cls_agnostic:
+            dims = bbox_out[f"{prefix}size"]
+        else:
+            size_cls = bbox_out[f"{prefix}size_class"].argmax(-1)
+            res = torch.gather(bbox_out[f"{prefix}size_res"], -2, size_cls[
+                ..., None, None].expand(*size_cls.shape, 1, 3))[..., 0, :]
+            dims = self.mean_sizes.to(center.device)[size_cls] + res
         return torch.cat([center, dims, yaw[..., None]], -1)

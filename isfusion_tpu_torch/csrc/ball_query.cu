@@ -9,7 +9,9 @@
 // int32 indices and a (B, S, K) valid flag. Slots past the in-radius count
 // repeat the first in-radius point (valid False); a query with no point in
 // its ball takes the nearest point (masked points lie at 1e10; the lowest
-// index among equal distances) in every slot, valid False. Each SA level
+// index among equal distances; a NaN distance counts as the nearest, as
+// in torch's argmin, so a NaN query takes its first valid point) in every
+// slot, valid False: every index is inside [0, N). Each SA level
 // of the PointNet++ backbone calls it once (VoteNet: 2,048 queries over
 // 40,000 points, K 64, r 0.2; then 1,024 / 2,048, 512 / 1,024 and 256 /
 // 512), the vote aggregation once (256 queries over 1,024 votes, K 16).
@@ -112,6 +114,16 @@ __device__ __forceinline__ uint32_t bucket_of(int cx, int cy, int cz,
   return h & table_mask;
 }
 
+// (d, i) before (bd, bi) in the plain version's argmin order: a NaN
+// distance before every number (a NaN query's or a NaN point's), then the
+// smaller distance, then the lower index; bi == INT_MAX is no point yet
+__device__ __forceinline__ bool nearer(float d, int i, float bd, int bi) {
+  if (i == INT_MAX) return false;
+  if (bi == INT_MAX) return true;
+  if (isnan(d) != isnan(bd)) return isnan(d);
+  return d < bd || (!(d > bd) && i < bi);
+}
+
 // the scan route for one query (a whole warp): see the header
 __device__ void scan_query(const float* __restrict__ p,
                            const uint8_t* __restrict__ m, int64_t n,
@@ -129,7 +141,7 @@ __device__ void scan_query(const float* __restrict__ p,
                                     p[3 * i + 2])
                            : 1e10f;
       in = d <= r2;
-      if (d < near_d) {                    // points arrive in index order
+      if (nearer(d, (int)i, near_d, near_i)) {
         near_d = d;
         near_i = (int)i;
       }
@@ -149,7 +161,7 @@ __device__ void scan_query(const float* __restrict__ p,
     for (int off = 16; off > 0; off >>= 1) {
       const float d2 = __shfl_down_sync(0xffffffffu, near_d, off);
       const int i2 = __shfl_down_sync(0xffffffffu, near_i, off);
-      if (d2 < near_d || (d2 == near_d && i2 < near_i)) {
+      if (nearer(d2, i2, near_d, near_i)) {
         near_d = d2;
         near_i = i2;
       }

@@ -26,9 +26,9 @@
 // all of SA1's xyz and mask (480 KB) from L2 at every pick, with two block
 // barriers: one SM's L2 bandwidth, ~7.3 us a pick.
 //
-// Design: the cloud is read from device memory once and lives in
-// registers for the whole walk; nothing is read from device memory inside
-// the pick loop.
+// Design: up to C x 8,192 points a sample the cloud is read from device
+// memory once and lives in registers for the whole walk; nothing is read
+// from device memory inside the pick loop (past it, the tail route below).
 // - Past FPS_BLOCK_MAX points (the SA1 walk) a sample is a thread-block
 //   cluster of C blocks (C = 8, or 16 as a non-portable size where the
 //   batch's clusters of 16 are resident at once: fps_cluster), launched
@@ -59,6 +59,18 @@
 //   one block of 256 threads, 1-16 points a thread in registers, the same
 //   reduction with the warps' candidates in its own shared memory: one
 //   block barrier a pick.
+// - Past what the cluster holds in registers (C x 8,192 points) a block
+//   keeps the first 8,192 points of its share in registers and streams the
+//   rest (the tail: points share + 8,192 + t + 1,024 * j) from device
+//   memory at every pick: their xyz from the input, their running
+//   distances from a (B, N) float32 scratch that the caller passes, which
+//   the kernel fills in its prologue (1e10 a valid point, -1e10 a masked
+//   one: a masked tail point's running distance stays -1e10, so it scores
+//   -1e10 as in the registers, and the mask is not read again). Each
+//   thread reads and writes only its own tail slots, so no barrier guards
+//   them. The route has no cap on N (below 2^31); a tail point costs 20
+//   bytes of L2 traffic a pick, so its cost grows with N past the
+//   registers' 65,536 (C = 8) or 131,072 (C = 16) points.
 // Squared distances are (dx*dx + dy*dy) + dz*dz rounded step by step
 // (__fsub_rn, __fmul_rn, __fadd_rn), the plain version's float32
 // arithmetic with no FMA contraction, so the running distances and the
@@ -148,12 +160,14 @@ __device__ __forceinline__ Best best_of(const uint2* ks, const float4* ps,
 
 // C blocks a sample (C = 1: one block, block barriers only), THREADS
 // threads a block, PPT points a thread; past one block each block
-// publishes its best after one block barrier
-template <int C, int THREADS, int PPT>
+// publishes its best after one block barrier. TAIL: the block's share
+// holds more than THREADS x PPT points, the rest streamed through
+// ``tail`` (the running distances, (B, N) float32)
+template <int C, int THREADS, int PPT, bool TAIL>
 __global__ void __launch_bounds__(THREADS, 1)
     fps_kernel(const float* __restrict__ xyz,
                const uint8_t* __restrict__ mask, int n, int s,
-               int32_t* __restrict__ out) {
+               int32_t* __restrict__ out, float* __restrict__ tail) {
   constexpr int WARPS = THREADS / 32;
   constexpr int SLOTS = C == 1 ? WARPS : C;
   __shared__ uint2 cand_k[2][SLOTS];
@@ -170,10 +184,26 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int begin = rank * share;
   const int end = min(n, begin + share);
 
-  // the block's share, read once: point begin + tid + THREADS * j
+  // the tail of the block's share (TAIL): point tail_begin + tid +
+  // THREADS * j, its running distance at td[i]
+  const int tail_begin = begin + THREADS * PPT;
+  float* td = TAIL ? tail + b * (int64_t)n : nullptr;
+  Best first{order_key(-INFINITY), ~0u, 0.f, 0.f, 0.f};
+  if constexpr (TAIL) {
+    for (int i = tail_begin + tid; i < end; i += THREADS) {
+      const bool v = m[i] != 0;
+      td[i] = v ? 1e10f : -1e10f;
+      if (v && first.idx == ~0u) {      // up: the lowest valid tail point
+        const float* q = p + 3 * (int64_t)i;
+        first = Best{order_key(1.f), (unsigned)i, q[0], q[1], q[2]};
+      }
+    }
+  }
+
+  // the block's share, read once: point begin + tid + THREADS * j (below
+  // every tail point of the thread, so a valid one takes the first pick)
   float px[PPT], py[PPT], pz[PPT], pd[PPT];
   unsigned here = 0u, valid = 0u;
-  Best first{order_key(-INFINITY), ~0u, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int j = PPT - 1; j >= 0; --j) {   // down: the lowest valid wins
     const int i = begin + tid + THREADS * j;
@@ -232,17 +262,27 @@ __global__ void __launch_bounds__(THREADS, 1)
                     py[j], pz[j]};
       }
     }
+    if constexpr (TAIL) {
+      for (int i = tail_begin + tid; i < end; i += THREADS) {
+        const float* q = p + 3 * (int64_t)i;
+        const float x = q[0], y = q[1], z = q[2];
+        const float d = fminf(td[i], sqdist(x, y, z, pick.x, pick.y, pick.z));
+        td[i] = d;
+        const unsigned key = order_key(d);
+        if (key > best.key) best = Best{key, (unsigned)i, x, y, z};
+      }
+    }
     pick = exchange(best, k & 1);
     if (rank == 0 && tid == 0) o[k] = (int32_t)pick.idx;
   }
 }
 
-template <int C, int THREADS, int PPT>
+template <int C, int THREADS, int PPT, bool TAIL = false>
 int launch(const float* xyz, const uint8_t* mask, int b, int n, int s,
-           int32_t* out, cudaStream_t st) {
-  auto kern = fps_kernel<C, THREADS, PPT>;
+           int32_t* out, float* tail, cudaStream_t st) {
+  auto kern = fps_kernel<C, THREADS, PPT, TAIL>;
   if constexpr (C == 1) {
-    kern<<<b, THREADS, 0, st>>>(xyz, mask, n, s, out);
+    kern<<<b, THREADS, 0, st>>>(xyz, mask, n, s, out, tail);
     return (int)cudaGetLastError();
   } else {
     if constexpr (C > 8) {
@@ -267,19 +307,25 @@ int launch(const float* xyz, const uint8_t* mask, int b, int n, int s,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t e =
-        cudaLaunchKernelEx(&cfg, kern, xyz, mask, n, s, out);
+        cudaLaunchKernelEx(&cfg, kern, xyz, mask, n, s, out, tail);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
   }
 }
 
 template <int C>
 int launch_cluster(const float* xyz, const uint8_t* mask, int b, int n,
-                   int s, int32_t* out, cudaStream_t st) {
+                   int s, int32_t* out, float* tail, cudaStream_t st) {
   const int share = (n + C - 1) / C;
+  if (share > CLUSTER_THREADS * CLUSTER_PPT) {
+    if (tail == nullptr) return (int)cudaErrorInvalidValue;
+    return launch<C, CLUSTER_THREADS, CLUSTER_PPT, true>(xyz, mask, b, n, s,
+                                                         out, tail, st);
+  }
   switch ((share + CLUSTER_THREADS - 1) / CLUSTER_THREADS) {
 #define FPS_CASE(P)                                                       \
   case P:                                                                 \
-    return launch<C, CLUSTER_THREADS, P>(xyz, mask, b, n, s, out, st);
+    return launch<C, CLUSTER_THREADS, P>(xyz, mask, b, n, s, out, nullptr, \
+                                         st);
     FPS_CASE(1) FPS_CASE(2) FPS_CASE(3) FPS_CASE(4)
     FPS_CASE(5) FPS_CASE(6) FPS_CASE(7) FPS_CASE(8)
 #undef FPS_CASE
@@ -293,7 +339,8 @@ int launch_block(const float* xyz, const uint8_t* mask, int b, int n, int s,
   switch ((n + BLOCK_THREADS - 1) / BLOCK_THREADS) {
 #define FPS_CASE(P)                                                      \
   case P:                                                                \
-    return launch<1, BLOCK_THREADS, P>(xyz, mask, b, n, s, out, st);
+    return launch<1, BLOCK_THREADS, P>(xyz, mask, b, n, s, out, nullptr, \
+                                       st);
     FPS_CASE(1) FPS_CASE(2) FPS_CASE(3) FPS_CASE(4)
     FPS_CASE(5) FPS_CASE(6) FPS_CASE(7) FPS_CASE(8)
     FPS_CASE(9) FPS_CASE(10) FPS_CASE(11) FPS_CASE(12)
@@ -315,7 +362,7 @@ int launch_block(const float* xyz, const uint8_t* mask, int b, int n, int s,
 extern "C" int fps_cluster(long long b) {
   static int resident16 = -1;
   if (resident16 < 0) {
-    auto kern = fps_kernel<16, CLUSTER_THREADS, CLUSTER_PPT>;
+    auto kern = fps_kernel<16, CLUSTER_THREADS, CLUSTER_PPT, false>;
     int count = 0;
     if (cudaFuncSetAttribute(
             kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) ==
@@ -341,26 +388,28 @@ extern "C" int fps_cluster(long long b) {
 
 // xyz (b, n, 3) float32, mask (b, n) uint8, out (b, s) int32. cluster: 1
 // (one 256-thread block a sample, n <= 4,096), 8 or 16 (a cluster of that
-// many 1,024-thread blocks a sample, n <= cluster * 8,192).
+// many 1,024-thread blocks a sample; past cluster * 8,192 points the tail
+// route, which needs tail: a (b, n) float32 scratch, else unused).
 extern "C" int furthest_point_sample(const void* xyz, const void* mask,
                                      long long b, long long n, long long s,
-                                     void* out, int cluster, void* stream) {
+                                     void* out, int cluster, void* tail,
+                                     void* stream) {
   if (b <= 0 || s <= 0) return 0;
-  if (n <= 0 || b > 65535 || s >= ((long long)1 << 31))
+  if (n <= 0 || n >= ((long long)1 << 31) || b > 65535 ||
+      s >= ((long long)1 << 31))
     return (int)cudaErrorInvalidValue;
   const float* x = (const float*)xyz;
   const uint8_t* m = (const uint8_t*)mask;
   int32_t* o = (int32_t*)out;
+  float* t = (float*)tail;
   cudaStream_t st = (cudaStream_t)stream;
   if (cluster == 1) {
     if (n > (long long)BLOCK_THREADS * BLOCK_PPT)
       return (int)cudaErrorInvalidValue;
     return launch_block(x, m, (int)b, (int)n, (int)s, o, st);
   }
-  if ((cluster != 8 && cluster != 16) ||
-      n > (long long)cluster * CLUSTER_THREADS * CLUSTER_PPT)
-    return (int)cudaErrorInvalidValue;
+  if (cluster != 8 && cluster != 16) return (int)cudaErrorInvalidValue;
   if (cluster == 8)
-    return launch_cluster<8>(x, m, (int)b, (int)n, (int)s, o, st);
-  return launch_cluster<16>(x, m, (int)b, (int)n, (int)s, o, st);
+    return launch_cluster<8>(x, m, (int)b, (int)n, (int)s, o, t, st);
+  return launch_cluster<16>(x, m, (int)b, (int)n, (int)s, o, t, st);
 }

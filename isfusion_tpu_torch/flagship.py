@@ -1726,12 +1726,16 @@ def synthetic_indoor_batch(batch_size: int, num_points: int = 40000,
                 gt_bboxes_3d=boxes, gt_labels_3d=labels, gt_mask=gt_mask)
 
 
-def _build_indoor(cfg: dict, tiny: bool, device, seed: int):
+def _build_indoor(cfg: dict, device, seed: int, batch_fn):
     from .models.builder import build_detector
     from .models.layers import init_weights
 
     dev = resolve_device(device)
-    model = init_weights(build_detector(cfg), seed).to(dev).eval()
+    return init_weights(build_detector(cfg), seed).to(dev).eval(), batch_fn
+
+
+def _votenet_batch(tiny: bool):
+    """VoteNet's and H3DNet's ``batch_fn``."""
     if tiny:
         def batch_fn(b, seed=0):
             return synthetic_indoor_batch(b, num_points=256, num_classes=4,
@@ -1740,7 +1744,7 @@ def _build_indoor(cfg: dict, tiny: bool, device, seed: int):
     else:
         def batch_fn(b, seed=0):
             return synthetic_indoor_batch(b, seed=seed)
-    return model, batch_fn
+    return batch_fn
 
 
 def build_votenet(tiny: bool = False, device=None, seed: int = 0
@@ -1751,11 +1755,398 @@ def build_votenet(tiny: bool = False, device=None, seed: int = 0
     giving ``synthetic_indoor_batch`` (full width: 40,000 points, 18
     classes, 64 GT rows; tiny: 256 points in a 4 x 4 x 2.5 m room, 4
     classes, 16 rows)."""
-    return _build_indoor(votenet_model_cfg(tiny), tiny, device, seed)
+    return _build_indoor(votenet_model_cfg(tiny), device, seed,
+                         _votenet_batch(tiny))
 
 
 def build_h3dnet(tiny: bool = False, device=None, seed: int = 0
                  ) -> Tuple[nn.Module, Callable[..., dict]]:
     """(model, batch_fn): H3DNet (``h3dnet_model_cfg(tiny)``) as
     ``build_votenet`` builds VoteNet."""
-    return _build_indoor(h3dnet_model_cfg(tiny), tiny, device, seed)
+    return _build_indoor(h3dnet_model_cfg(tiny), device, seed,
+                         _votenet_batch(tiny))
+
+
+# ------------------------------------------- the VoteNet family's variants
+# 3DSSD's KITTI scene: the config's point cloud range (front half)
+SSD3D_CLOUD_RANGE = (0.0, -40.0, -5.0, 70.0, 40.0, 3.0)
+# the JAX package's tiny indoor variants (tests/test_models/
+# test_indoor_variants.py): 3 classes, unit mean sizes
+INDOOR_VARIANT_TINY_CLASSES = 3
+
+
+def _tiny_variant_backbone() -> dict:
+    """The JAX test's backbone, ``in_channels`` 4 (its points' width)."""
+    return dict(type="PointNet2SASSG", in_channels=4,
+                num_points=(128, 64), radius=(0.5, 1.0), num_samples=(8, 8),
+                sa_channels=((8, 8, 16), (16, 16, 32)),
+                fp_channels=((32, 32),))
+
+
+def ssd3dnet_model_cfg(tiny: bool = False) -> dict:
+    """3DSSD's model config dict. Full width: mmdet3d's
+    ``configs/3dssd/3dssd_4x4_kitti-3d-car.py`` (``_base_/models/
+    3dssd.py``) over KITTI Car's 16,384 points of (x, y, z, reflectance),
+    float32. Where the JAX modules cannot take the reference's shape:
+
+    - the backbone ``PointNet2SAMSG`` (three scales a level, D-FPS / F-FPS
+      sampling, aggregation convs) becomes a ``PointNet2SASSG`` that keeps
+      each level's point count and its widest scale: 4,096 / 512 / 256
+      points, radii 0.8 / 1.6 / 4.8, 64 / 64 / 32 samples, widths (32, 32,
+      64), (64, 96, 128), (128, 256, 256), no FP levels, plain FPS (the
+      reference's F-FPS and D-FPS mix, and its MSG aggregation, are
+      reductions);
+    - the head's vote module (128 wide, with the vote range clip) is the
+      JAX candidate shift (128,); its aggregation takes the first scale
+      (256 points, radius 4.8, 16 samples, [256, 256, 256, 512]) and
+      normalises the grouped xyz; ``pred_layer_cfg``'s shared convs (512,
+      128) are ``feat_channels``, one prediction conv after them;
+    - BN eps 1e-5 (the reference 1e-3); the JAX losses (L1 and cross
+      entropy, no corner loss), ``AnchorFreeBBoxCoder`` with 12 direction
+      bins and rotation, 1 class; predict keeps the top
+      ``max_output_num`` 100 with no NMS.
+
+    ``tiny``: the JAX test's model (3 classes, ``PartialBinBasedBBoxCoder``
+    with 6 bins, the two-level backbone with one FP level), ``in_channels``
+    4."""
+    if tiny:
+        nc = INDOOR_VARIANT_TINY_CLASSES
+        return dict(
+            type="SSD3DNet", backbone=_tiny_variant_backbone(),
+            bbox_head=dict(
+                type="SSD3DHead", num_classes=nc,
+                bbox_coder=dict(type="PartialBinBasedBBoxCoder",
+                                num_dir_bins=6, num_sizes=nc, with_rot=True,
+                                mean_sizes=[[1, 1, 1]] * nc),
+                candidate_shift_channels=(16,), feat_channels=(32,),
+                vote_aggregation_cfg=dict(num_point=16, radius=2.0,
+                                          num_sample=8,
+                                          mlp_channels=[16, 16, 32])),
+            test_cfg=dict(max_output_num=8))
+    return dict(
+        type="SSD3DNet",
+        backbone=dict(type="PointNet2SASSG", in_channels=4,
+                      num_points=(4096, 512, 256), radius=(0.8, 1.6, 4.8),
+                      num_samples=(64, 64, 32),
+                      sa_channels=((32, 32, 64), (64, 96, 128),
+                                   (128, 256, 256)),
+                      fp_channels=(),
+                      sa_cfg=dict(type="PointSAModule", pool_mod="max",
+                                  use_xyz=True, normalize_xyz=False)),
+        bbox_head=dict(
+            type="SSD3DHead", num_classes=1,
+            bbox_coder=dict(type="AnchorFreeBBoxCoder", num_dir_bins=12,
+                            with_rot=True),
+            candidate_shift_channels=(128,), feat_channels=(512, 128),
+            vote_aggregation_cfg=dict(num_point=256, radius=4.8,
+                                      num_sample=16,
+                                      mlp_channels=[256, 256, 256, 512])),
+        train_cfg=dict(sample_mod="spec", pos_distance_thr=10.0,
+                       expand_dims_length=0.05),
+        test_cfg=dict(sample_mod="spec", score_thr=0.0,
+                      per_class_proposal=True, max_output_num=100))
+
+
+def ssd3dnet_optim_cfg() -> dict:
+    """3DSSD's KITTI recipe: AdamW (lr 0.002, no weight decay), clip 35,
+    step lr at epochs 45 and 60, ``samples_per_gpu`` 4 (``4x4``), 80
+    epochs."""
+    return dict(optimizer=dict(type="AdamW", lr=0.002, weight_decay=0.0),
+                optimizer_config=dict(grad_clip=dict(max_norm=35.0,
+                                                     norm_type=2)),
+                lr_config=dict(policy="step", step=[45, 60]),
+                momentum_config=None, samples_per_gpu=4, max_epochs=80)
+
+
+def synthetic_kitti_car_batch(batch_size: int, num_points: int = 16384,
+                              seed: int = 0, max_gt: int = 16) -> dict:
+    """3DSSD's KITTI Car batch: ``synthetic_kitti_batch``'s LiDAR cloud
+    inside ``SSD3D_CLOUD_RANGE`` (``num_points`` of x, y, z, reflectance)
+    and only its car rows of the GT (label 0, first in the padded rows);
+    no image."""
+    b = synthetic_kitti_batch(batch_size, num_points, img_hw=(8, 8),
+                              num_gt=max_gt, seed=seed,
+                              pcr=SSD3D_CLOUD_RANGE,
+                              gt_range=(0.0, -40.0, 70.0, 40.0))
+    car = (b["gt_labels_3d"] == 2) & b["gt_mask"]
+    boxes = np.zeros_like(b["gt_bboxes_3d"])
+    mask = np.zeros_like(b["gt_mask"])
+    for s in range(batch_size):
+        g = int(car[s].sum())
+        boxes[s, :g] = b["gt_bboxes_3d"][s][car[s]]
+        mask[s, :g] = True
+    return dict(points=b["points"], points_mask=b["points_mask"],
+                gt_bboxes_3d=boxes,
+                gt_labels_3d=np.zeros_like(b["gt_labels_3d"]),
+                gt_mask=mask)
+
+
+def _tiny_variant_batch(b: int, seed: int = 0) -> dict:
+    """The tiny variants' batch: a 4 x 4 x 2.5 m room of 256 points, the
+    JAX test's 3 classes, 16 GT rows."""
+    return synthetic_indoor_batch(b, num_points=256,
+                                  num_classes=INDOOR_VARIANT_TINY_CLASSES,
+                                  max_gt=16, seed=seed, room=(4.0, 4.0, 2.5))
+
+
+def build_ssd3dnet(tiny: bool = False, device=None, seed: int = 0
+                   ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): 3DSSD (``ssd3dnet_model_cfg(tiny)``) with weights
+    drawn from ``seed``, in eval mode on ``device`` (default: the CUDA
+    card; raises if it is missing), and ``batch_fn(batch_size, seed=0)``:
+    ``synthetic_kitti_car_batch`` (tiny: ``_tiny_variant_batch``)."""
+    return _build_indoor(ssd3dnet_model_cfg(tiny), device, seed,
+                         _tiny_variant_batch if tiny
+                         else synthetic_kitti_car_batch)
+
+
+def groupfree3d_model_cfg(tiny: bool = False) -> dict:
+    """Group-Free 3D's model config dict. Full width: mmdet3d's
+    ``configs/groupfree3d/groupfree3d_8x4_scannet-3d-18class-L6-O256.py``
+    over 50,000 points of xyz (``in_channels`` 3), float32: VoteNet's SA
+    widths with FP widths (256, 256), (256, 288); the head's 6 decoder
+    layers, 256 proposals (KPS), embedding 288, 8 heads, FFN 2,048, dropout
+    0.1, 18 classes, sizes by class (``size_cls_agnostic`` False, 18 seeded
+    mean sizes, ``SCANNET_MEAN_SIZES``), 1 direction bin without rotation,
+    shared convs (288, 288), the reference's loss weights. Where the JAX
+    modules cannot take the reference's shape: mmcv's
+    ``BaseTransformerLayer`` (``GroupFree3DMHA``) is the JAX post-norm
+    ``TransformerDecoderLayer`` (the same operation order); every smooth
+    L1 term uses beta 1 (the reference's size residual 1/9); the points'
+    owners are geometric (the JAX package has no instance masks);
+    predict keeps the top ``max_output_num`` 64 with no NMS.
+
+    ``tiny``: the JAX test's model (3 classes, 2 decoder layers, 16
+    proposals, width 32, 4 heads, size-agnostic sizes), ``in_channels``
+    4; ``size_cls_agnostic`` and ``prediction_stages`` as given."""
+    if tiny:
+        nc = INDOOR_VARIANT_TINY_CLASSES
+        return dict(
+            type="GroupFree3DNet", backbone=_tiny_variant_backbone(),
+            bbox_head=dict(
+                type="GroupFree3DHead", num_classes=nc, in_channels=32,
+                num_decoder_layers=2, num_proposal=16, embed_dims=32,
+                num_heads=4, ffn_channels=64,
+                pred_layer_cfg=dict(in_channels=32,
+                                    shared_conv_channels=(32, 32)),
+                bbox_coder=dict(type="GroupFree3DBBoxCoder", num_dir_bins=6,
+                                num_sizes=nc, with_rot=True,
+                                size_cls_agnostic=True,
+                                mean_sizes=[[1, 1, 1]] * nc),
+                sampling_objectness_loss=dict(type="FocalLoss",
+                                              loss_weight=8.0),
+                center_loss=dict(type="SmoothL1Loss", loss_weight=10.0),
+                dir_res_loss=dict(type="SmoothL1Loss", loss_weight=10.0),
+                size_reg_loss=dict(type="SmoothL1Loss", loss_weight=10.0),
+                size_res_loss=dict(type="SmoothL1Loss", loss_weight=10.0)),
+            test_cfg=dict(max_output_num=8, prediction_stages="last"))
+    return dict(
+        type="GroupFree3DNet",
+        backbone=dict(type="PointNet2SASSG", in_channels=3,
+                      num_points=(2048, 1024, 512, 256),
+                      radius=(0.2, 0.4, 0.8, 1.2),
+                      num_samples=(64, 32, 16, 16),
+                      sa_channels=((64, 64, 128), (128, 128, 256),
+                                   (128, 128, 256), (128, 128, 256)),
+                      fp_channels=((256, 256), (256, 288)),
+                      norm_cfg=dict(type="BN2d"),
+                      sa_cfg=dict(type="PointSAModule", pool_mod="max",
+                                  use_xyz=True, normalize_xyz=True)),
+        bbox_head=dict(
+            type="GroupFree3DHead", num_classes=18, in_channels=288,
+            num_decoder_layers=6, num_proposal=256, embed_dims=288,
+            num_heads=8, ffn_channels=2048, dropout=0.1,
+            pred_layer_cfg=dict(in_channels=288,
+                                shared_conv_channels=(288, 288), bias=True),
+            bbox_coder=dict(type="GroupFree3DBBoxCoder", num_sizes=18,
+                            num_dir_bins=1, with_rot=False,
+                            size_cls_agnostic=False,
+                            mean_sizes=[list(s) for s in
+                                        SCANNET_MEAN_SIZES]),
+            # the weights alone: the head computes the reference's focal
+            # loss and cross entropies, and smooth L1 with beta 1 where the
+            # reference's size residual takes 1/9 (as the JAX head)
+            sampling_objectness_loss=dict(type="FocalLoss", loss_weight=8.0),
+            objectness_loss=dict(type="FocalLoss", loss_weight=1.0),
+            center_loss=dict(type="SmoothL1Loss", loss_weight=10.0),
+            dir_class_loss=dict(type="CrossEntropyLoss", loss_weight=1.0),
+            dir_res_loss=dict(type="SmoothL1Loss", loss_weight=10.0),
+            size_class_loss=dict(type="CrossEntropyLoss", loss_weight=1.0),
+            size_res_loss=dict(type="SmoothL1Loss", loss_weight=10.0 / 9.0),
+            semantic_loss=dict(type="CrossEntropyLoss", loss_weight=1.0)),
+        train_cfg=dict(sample_mod="kps"),
+        test_cfg=dict(sample_mod="kps", nms_thr=0.25, score_thr=0.0,
+                      per_class_proposal=True, prediction_stages="last"))
+
+
+# the decoder's modules train at a tenth of the lr (the reference config's
+# paramwise_cfg)
+GROUPFREE3D_DECODER_KEYS = ("bbox_head.decoder_layers",
+                            "bbox_head.decoder_self_posembeds",
+                            "bbox_head.decoder_cross_posembeds",
+                            "bbox_head.decoder_query_proj",
+                            "bbox_head.decoder_key_proj")
+
+
+def groupfree3d_optim_cfg() -> dict:
+    """Group-Free 3D's ScanNet recipe: AdamW (lr 0.006, weight decay
+    0.0005; the decoder's modules at ``lr_mult`` 0.1), clip 0.1, step lr
+    at epochs 280 and 340, ``samples_per_gpu`` 8 (``8x4``), 400 epochs."""
+    return dict(optimizer=dict(
+        type="AdamW", lr=0.006, weight_decay=0.0005,
+        paramwise_cfg=dict(custom_keys={
+            k: dict(lr_mult=0.1, decay_mult=1.0)
+            for k in GROUPFREE3D_DECODER_KEYS})),
+        optimizer_config=dict(grad_clip=dict(max_norm=0.1, norm_type=2)),
+        lr_config=dict(policy="step", step=[280, 340]),
+        momentum_config=None, samples_per_gpu=8, max_epochs=400)
+
+
+def synthetic_scannet_batch(batch_size: int, num_points: int = 50000,
+                            seed: int = 0) -> dict:
+    """Group-Free 3D's ScanNet batch: ``synthetic_indoor_batch``'s room of
+    ``num_points`` points, xyz only, 18 classes, 64 GT rows."""
+    b = synthetic_indoor_batch(batch_size, num_points=num_points,
+                               seed=seed)
+    return dict(b, points=np.ascontiguousarray(b["points"][..., :3]))
+
+
+def build_groupfree3d(tiny: bool = False, device=None, seed: int = 0
+                      ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): Group-Free 3D (``groupfree3d_model_cfg(tiny)``)
+    as ``build_ssd3dnet`` builds 3DSSD; ``synthetic_scannet_batch`` (tiny:
+    ``_tiny_variant_batch``)."""
+    return _build_indoor(groupfree3d_model_cfg(tiny), device, seed,
+                         _tiny_variant_batch if tiny
+                         else synthetic_scannet_batch)
+
+
+# SUN RGB-D: 10 classes; their mean sizes are not in this repository: 10
+# seeded sizes in 0.2-2.0 m take their place (no shape or cost changes)
+SUNRGBD_MEAN_SIZES = tuple(tuple(round(float(v), 4) for v in row) for row in
+                           np.random.default_rng(10).uniform(0.2, 2.0,
+                                                             (10, 3)))
+SUNRGBD_IMG_HW = (530, 730)
+# the JAX test's image and camera
+IMVOTENET_TINY_HW = (32, 48)
+
+
+def sunrgbd_cam2img(img_hw=SUNRGBD_IMG_HW, center=(0.0, -4.5, 1.5),
+                    focal: float = 529.5) -> np.ndarray:
+    """(4, 4) float32: the depth frame's points (x right, y forward, z up)
+    to pixels of a level camera at ``center`` looking along +y, pinhole
+    ``focal`` pixels, principal point at the image's centre. At the
+    default an 8 x 8 m room centred on 0 lies in front of it."""
+    h, w = img_hw
+    k = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]])
+    r = np.array([[1.0, 0, 0], [0, 0, -1], [0, 1, 0]])
+    out = np.eye(4)
+    out[:3, :3] = k @ r
+    out[:3, 3] = k @ (-r @ np.asarray(center, np.float64))
+    return out.astype(np.float32)
+
+
+def imvotenet_model_cfg(tiny: bool = False) -> dict:
+    """ImVoteNet's model config dict. Full width: mmdet3d's
+    ``configs/imvotenet/imvotenet_stage2_16x8_sunrgbd-3d-10class.py`` over
+    20,000 SUN RGB-D points of xyz + height and one 530 x 730 image,
+    float32: VoteNet's backbone; the VoteHead with 10 classes (10 seeded
+    mean sizes, ``SUNRGBD_MEAN_SIZES``), 12 direction bins with rotation,
+    the vote module's input 256 + ``img_feat_dim`` 16 (the JAX default);
+    the image branch a ResNet-50 whose last map is sampled. Where the JAX
+    modules cannot take the reference's shape: the reference's three
+    cues from a 2D detector (Faster R-CNN on the ResNet + FPN: geometric,
+    semantic, texture) and its three vote heads become the texture cue
+    alone (the image features at the seeds' projections, ``img_fuse`` to
+    16 channels) into one VoteHead; the image branch is trained (the
+    reference freezes it); predict keeps the top ``max_output_num`` 128
+    with no NMS. The ResNet's BatchNorms normalise by the batch in train
+    mode (``norm_eval`` False; the reference keeps a pretrained branch's
+    statistics): with random weights no running statistics describe the
+    images, and under ``norm_eval`` the branch trained at the recipe's lr
+    grew its last map from 3.3 to 3.8e20 in two AdamW steps on an H100
+    and turned the votes to NaN.
+
+    ``tiny``: the JAX test's model (a ResNet-18 of base width 8, its
+    second stage sampled, ``img_feat_dim`` 8, the tiny VoteHead of 3
+    classes and 6 bins), ``in_channels`` 4."""
+    if tiny:
+        nc = INDOOR_VARIANT_TINY_CLASSES
+        return dict(
+            type="ImVoteNet", backbone=_tiny_variant_backbone(),
+            img_backbone=dict(type="ResNet", depth=18, base_channels=8,
+                              out_indices=(1,)),
+            img_feat_dim=8,
+            bbox_head=dict(
+                type="VoteHead", num_classes=nc,
+                bbox_coder=dict(type="PartialBinBasedBBoxCoder",
+                                num_dir_bins=6, num_sizes=nc, with_rot=True,
+                                mean_sizes=[[1, 1, 1]] * nc),
+                vote_module_cfg=dict(in_channels=40, conv_channels=(32,)),
+                vote_aggregation_cfg=dict(num_point=16, radius=1.0,
+                                          num_sample=8,
+                                          mlp_channels=[32, 32, 32]),
+                feat_channels=(32,)),
+            test_cfg=dict(max_output_num=8))
+    cfg = votenet_model_cfg()
+    head = cfg["bbox_head"]
+    head.update(
+        num_classes=10,
+        bbox_coder=dict(type="PartialBinBasedBBoxCoder", num_sizes=10,
+                        num_dir_bins=12, with_rot=True,
+                        mean_sizes=[list(s) for s in SUNRGBD_MEAN_SIZES]),
+        vote_module_cfg=dict(head["vote_module_cfg"], in_channels=256 + 16))
+    return dict(cfg, type="ImVoteNet",
+                img_backbone=dict(type="ResNet", depth=50, num_stages=4,
+                                  out_indices=(0, 1, 2, 3), norm_eval=False,
+                                  style="pytorch"),
+                img_feat_dim=16,
+                test_cfg=dict(sample_mod="seed", nms_thr=0.25,
+                              score_thr=0.05, per_class_proposal=True))
+
+
+def imvotenet_optim_cfg() -> dict:
+    """ImVoteNet's stage-2 recipe (``schedule_3x``: AdamW lr 0.008, clip
+    10, step lr at 24 and 32) at ``samples_per_gpu`` 16 (``16x8``)."""
+    return dict(votenet_optim_cfg(), samples_per_gpu=16)
+
+
+def synthetic_sunrgbd_batch(batch_size: int, num_points: int = 20000,
+                            seed: int = 0, img_hw=SUNRGBD_IMG_HW,
+                            num_classes: int = 10, max_gt: int = 64,
+                            room=(8.0, 8.0, 3.0), cam2img=None) -> dict:
+    """ImVoteNet's batch: ``synthetic_indoor_batch``'s room (xyz + height,
+    ``num_classes``), one (B, H, W, 3) float32 image in [0, 1) and its
+    ``cam2img`` (default ``sunrgbd_cam2img(img_hw)``)."""
+    b = synthetic_indoor_batch(batch_size, num_points=num_points,
+                               num_classes=num_classes, max_gt=max_gt,
+                               seed=seed, room=room)
+    rng = np.random.default_rng(seed + 1)
+    h, w = img_hw
+    c2i = sunrgbd_cam2img(img_hw) if cam2img is None else cam2img
+    return dict(b, img=rng.uniform(size=(batch_size, h, w, 3)).astype(
+        np.float32), cam2img=np.broadcast_to(
+            np.asarray(c2i, np.float32), (batch_size, 4, 4)).copy())
+
+
+# the JAX test's tiny camera: depth along z, principal point at the
+# image's centre
+IMVOTENET_TINY_CAM2IMG = ((30, 0, 24, 0), (0, 30, 16, 0), (0, 0, 1, 0),
+                          (0, 0, 0, 1))
+
+
+def build_imvotenet(tiny: bool = False, device=None, seed: int = 0
+                    ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): ImVoteNet (``imvotenet_model_cfg(tiny)``) as
+    ``build_ssd3dnet`` builds 3DSSD; ``synthetic_sunrgbd_batch`` (tiny: 256
+    points in a 4 x 4 x 2.5 m room, 3 classes, 16 GT rows, a 32 x 48
+    image under the JAX test's camera)."""
+    if tiny:
+        def batch_fn(b, seed=0):
+            return synthetic_sunrgbd_batch(
+                b, num_points=256, seed=seed, img_hw=IMVOTENET_TINY_HW,
+                num_classes=INDOOR_VARIANT_TINY_CLASSES, max_gt=16,
+                room=(4.0, 4.0, 2.5), cam2img=IMVOTENET_TINY_CAM2IMG)
+    else:
+        batch_fn = synthetic_sunrgbd_batch
+    return _build_indoor(imvotenet_model_cfg(tiny), device, seed, batch_fn)

@@ -117,6 +117,7 @@ class ResNet(nn.Module):
                             padding=3, bias=False, dtype=dt)
         self.bn1 = _bn(base_channels, norm_cfg, dt)
         cin = base_channels
+        widths = []
         for i in range(self.num_stages):
             planes = base_channels * 2 ** i
             blocks = []
@@ -125,6 +126,9 @@ class ResNet(nn.Module):
                                     norm_cfg, dt, style))
                 cin = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
+            widths.append(cin)
+        # the width of each returned stage
+        self.out_channels = tuple(widths[i] for i in self.out_indices)
         frozen = [self.conv1, self.bn1] if self.frozen_stages >= 0 else []
         frozen += [getattr(self, f"layer{i}") for i in range(
             1, min(self.frozen_stages, self.num_stages) + 1)]

@@ -1,6 +1,7 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
 CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN,
-FreeAnchor, ImVoxelNet, VoteNet and H3DNet paths (counterpart of
+FreeAnchor, ImVoxelNet, VoteNet, H3DNet, SSD3DNet, GroupFree3DNet and
+ImVoteNet paths (counterpart of
 ``isfusion_tpu/models/builder.py``): config dicts with a ``type`` key
 become modules through the port's registries."""
 from __future__ import annotations
@@ -17,7 +18,9 @@ from .dense_heads.anchor3d_head import Anchor3DHead
 from .dense_heads.centerpoint_head import CenterHead
 from .dense_heads.fcos_mono3d_head import FCOSMono3DHead
 from .dense_heads.free_anchor3d_head import FreeAnchor3DHead
+from .dense_heads.groupfree3d_head import GroupFree3DHead
 from .dense_heads.shape_aware_head import ShapeAwareHead
+from .dense_heads.ssd_3d_head import SSD3DHead
 from .dense_heads.transfusion_head import TransFusionHeadV2
 from .dense_heads.vote_head import VoteHead
 from .fusion_layers.point_fusion import PointFusion
@@ -54,7 +57,8 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (HEADS, TransFusionHeadV2), (HEADS, Anchor3DHead),
                    (HEADS, CenterHead), (HEADS, FCOSMono3DHead),
                    (HEADS, ShapeAwareHead), (HEADS, FreeAnchor3DHead),
-                   (HEADS, PartAggregationROIHead), (HEADS, VoteHead)):
+                   (HEADS, PartAggregationROIHead), (HEADS, VoteHead),
+                   (HEADS, SSD3DHead), (HEADS, GroupFree3DHead)):
     _reg.register_module(module=_cls)
 
 
@@ -86,7 +90,7 @@ def build_detector(cfg):
     """Build a detector from its config dict (on the CPU, uninitialised:
     the factories of ``flagship.py`` initialise and place it)."""
     from .detectors import (centerpoint, h3dnet,  # noqa: F401
-                            imvoxelnet, isfusion, mvx_two_stage, parta2,
-                            single_stage_mono3d, transfusion, voxelnet,
-                            votenet)
+                            imvoxelnet, indoor_variants, isfusion,
+                            mvx_two_stage, parta2, single_stage_mono3d,
+                            transfusion, voxelnet, votenet)
     return build_from_cfg(dict(cfg), DETECTORS)

@@ -29,8 +29,13 @@ class VoteNet(nn.Module):
         head = dict(bbox_head)
         head.setdefault("train_cfg", train_cfg)
         head.setdefault("test_cfg", test_cfg)
-        self.bbox_head = build_head(head)
+        self.bbox_head = build_head(self.head_cfg(head))
         self.test_cfg = dict(test_cfg or {})
+
+    def head_cfg(self, head: dict) -> dict:
+        """The head's config as built (a subclass adds what the backbone
+        fixes)."""
+        return head
 
     def forward(self, batch: dict, mode: str = "predict", device=None,
                 generator: Optional[torch.Generator] = None):

@@ -22,7 +22,7 @@ from .layers import (BatchNorm, Conv1x1, LayerNorm, Linear, compute_dtype,
 
 
 class PositionEmbeddingLearned(nn.Module):
-    """Conv1d(2->C) + BN1d + ReLU + Conv1d(C->C) over (B, N, 2) coords
+    """Conv1d(in->C) + BN1d + ReLU + Conv1d(C->C) over (B, N, in) coords
     (reference ``position_embedding_head`` naming)."""
 
     def __init__(self, input_channel: int, num_pos_feats: int, dtype=None):
@@ -77,10 +77,19 @@ class TransformerDecoderLayer(nn.Module):
     """Post-norm decoder layer (``transfusion_head_v2.py:42``): self-attn
     with q = k = v = query + pos, cross-attn with k = v = key + key pos,
     FFN. Train mode drops (``dropout``) the attention weights and each
-    residual branch and the FFN's hidden activations, as the JAX layer."""
+    residual branch and the FFN's hidden activations, as the JAX layer.
+
+    ``with_posembed``: the layer holds the query's and the key's
+    ``PositionEmbeddingLearned`` over TransFusion's 2-wide BEV positions;
+    False (Group-Free 3D, whose head holds its embeddings): ``query_pos``
+    / ``key_pos`` are the embeddings themselves (None: nothing added).
+    ``key_mask`` (B, M) and ``query_mask`` (B, N), True = valid, mask the
+    cross-attention's keys and the self-attention's keys as flax's
+    ``mask`` does: a masked key's logit is the dtype's lowest value, so a
+    row whose every key is masked takes uniform weights."""
 
     def __init__(self, d_model, nhead, dim_feedforward=256, activation="relu",
-                 dropout=0.0, dtype=None):
+                 dropout=0.0, dtype=None, with_posembed: bool = True):
         super().__init__()
         self.p = float(dropout)
         self.self_attn = MultiheadAttention(d_model, nhead, dropout,
@@ -92,22 +101,38 @@ class TransformerDecoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, dtype=dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
         self.norm3 = LayerNorm(d_model, dtype=dtype)
-        self.self_posembed = PositionEmbeddingLearned(2, d_model, dtype=dtype)
-        self.cross_posembed = PositionEmbeddingLearned(2, d_model,
-                                                       dtype=dtype)
+        self.self_posembed = self.cross_posembed = None
+        if with_posembed:
+            self.self_posembed = PositionEmbeddingLearned(2, d_model,
+                                                          dtype=dtype)
+            self.cross_posembed = PositionEmbeddingLearned(2, d_model,
+                                                           dtype=dtype)
         self.act = {"relu": nn.ReLU(), "gelu": nn.GELU()}[activation]
         self.cdtype = dtype
 
-    def forward(self, query, key, query_pos, key_pos):
-        qp = self.self_posembed(query_pos)
-        kp = self.cross_posembed(key_pos)
+    def forward(self, query, key, query_pos, key_pos,
+                key_mask: Optional[torch.Tensor] = None,
+                query_mask: Optional[torch.Tensor] = None):
+        qp = query_pos if self.self_posembed is None or query_pos is None \
+            else self.self_posembed(query_pos)
+        kp = key_pos if self.cross_posembed is None or key_pos is None \
+            else self.cross_posembed(key_pos)
         if self.cdtype is not None:
             query, key = query.to(self.cdtype), key.to(self.cdtype)
         p, train = self.p, self.training
-        q = query + qp
-        query = self.norm1(query + dropout(self.self_attn(q, q, q), p, train))
-        kk = key + kp
+
+        def add(t, pos):
+            return t if pos is None else t + pos
+
+        def keys(m):
+            return None if m is None else m.bool()[:, None, None, :]
+
+        q = add(query, qp)
+        query = self.norm1(query + dropout(self.self_attn(
+            q, q, q, keys(query_mask)), p, train))
+        kk = add(key, kp)
         query = self.norm2(query + dropout(
-            self.multihead_attn(query + qp, kk, kk), p, train))
+            self.multihead_attn(add(query, qp), kk, kk, keys(key_mask)), p,
+            train))
         ff = self.linear2(dropout(self.act(self.linear1(query)), p, train))
         return self.norm3(query + dropout(ff, p, train))

@@ -58,7 +58,7 @@ SIGNATURES = {
     "roiaware_pool": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
                        _LL, _LL, _LL, _LL, _P], _I),
     # K14: the PointNet++ ops (ops/pointnet_ops.py)
-    "furthest_point_sample": ([_P, _P, _LL, _LL, _LL, _P, _I, _P], _I),
+    "furthest_point_sample": ([_P, _P, _LL, _LL, _LL, _P, _I, _P, _P], _I),
     "fps_cluster": ([_LL], _I),
     "ball_query": ([_P, _P, _P, _LL, _LL, _LL, _LL, _F, _I, _F, _F, _I, _P,
                     _P, _P, _P], _I),

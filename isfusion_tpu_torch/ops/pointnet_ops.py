@@ -81,13 +81,13 @@ QUERY_CHUNK = 256
 BALL_SCAN_MAX_POINTS = 2048
 # masked points lie at this squared distance (the plain versions' 1e10)
 _MASKED_D2 = float(np.float32(_BIG))
-# the most points of a K14-FPS sample (a cluster of 8 blocks holds 65,536
-# in registers; no ported path has more than 40,000)
-FPS_MAX_POINTS = 50_000
 # K14-FPS walks a sample of up to FPS_BLOCK_MAX points in one block (256
 # threads, 16 points a thread at most), a larger one in a cluster of 8 or
-# 16 blocks of 1,024 threads (``fps_cluster``)
+# 16 blocks of 1,024 threads (``fps_cluster``), which holds up to
+# FPS_CLUSTER_POINTS points a block in registers and streams the rest of
+# its share from device memory at each pick (the tail route, any N)
 FPS_BLOCK_MAX = 4096
+FPS_CLUSTER_POINTS = 8192
 
 
 # ------------------------------------------------------------ plain parts
@@ -343,9 +343,6 @@ def furthest_point_sample(xyz: torch.Tensor, num_samples: int,
     if not _on_card("furthest_point_sample", xyz, m):
         return furthest_point_sample_ref(xyz, num_samples, mask)
     n = xyz.shape[1]
-    if n > FPS_MAX_POINTS:
-        raise ValueError(f"furthest_point_sample: the kernel takes N <= "
-                         f"{FPS_MAX_POINTS} points, not {n}")
     return fps_launch(xyz, num_samples, m, 1 if n <= FPS_BLOCK_MAX
                       else fps_cluster(xyz.shape[0]))
 
@@ -367,18 +364,24 @@ def fps_launch(xyz: torch.Tensor, num_samples: int, mask: torch.Tensor,
                cluster: int) -> torch.Tensor:
     """One K14-FPS launch on CUDA tensors (xyz (B, N, 3) float32, mask (B,
     N) bool) by a chosen route: ``cluster`` 1 (one block a sample, N <=
-    4,096), 8 or 16 (a cluster of that many blocks, N <= 8,192 x cluster).
-    ``furthest_point_sample`` takes the route by N and batch; the others
-    are for measuring the design (``chip_smoke.py``)."""
+    4,096), 8 or 16 (a cluster of that many blocks; past FPS_CLUSTER_POINTS
+    x cluster points the blocks stream the rest, their running distances
+    in a (B, N) float32 scratch allocated here). ``furthest_point_sample``
+    takes the route by N and batch; the others are for measuring the
+    design (``chip_smoke.py``)."""
     b, n, _ = xyz.shape
     s = int(num_samples)
     out = torch.empty((b, s), dtype=torch.int32, device=xyz.device)
     if b == 0 or s == 0:
         return out
     xyz = xyz.detach().contiguous()
+    tail = None
+    if cluster != 1 and n > FPS_CLUSTER_POINTS * int(cluster):
+        tail = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
     err = _fn("furthest_point_sample")(
         xyz.data_ptr(), mask.contiguous().data_ptr(), b, n, s,
-        out.data_ptr(), int(cluster), _stream(xyz))
+        out.data_ptr(), int(cluster), None if tail is None
+        else tail.data_ptr(), _stream(xyz))
     _launched("furthest_point_sample", err)
     return out
 

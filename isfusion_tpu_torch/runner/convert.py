@@ -1,6 +1,7 @@
 """Carry the JAX package's IS-Fusion, PointPillars, CenterPoint, MVX-Net,
 FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN, FreeAnchor, ImVoxelNet,
-VoteNet, H3DNet and MultiBackbone variables into the port's state_dict.
+VoteNet, H3DNet, MultiBackbone, SSD3DNet, GroupFree3DNet and ImVoteNet
+variables into the port's state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -58,6 +59,26 @@ the port's ``ConvPred`` splits into the reference's ``conv_cls`` and
 ``conv_reg`` on load (only the head knows its widths). H3DNet's
 ``face_vote`` / ``edge_vote`` (VoteModules) and ``prim_proj`` (a Linear)
 are the JAX package's own modules and keep its names.
+
+The VoteNet family's variants are point trees too. Where the reference
+module has a layer, its name is the reference's: 3DSSD's candidate
+shift (``shift_mlp``, ``shift_out``) is ``bbox_head.vote_module.
+vote_conv.{j}`` / ``conv_out`` and its ``aggregation`` ``bbox_head.
+vote_aggregation``; Group-Free 3D's ``points_obj_cls`` is ``bbox_head.
+points_obj_cls.mlp.layer{j}`` (its last dense layer ``layer{n}.conv``),
+``conv_pred`` and ``prediction_head_{i}`` are ``conv_pred`` and
+``prediction_heads.{i}`` (``shared_convs.layer{j}``, ``conv_cls``,
+``conv_reg``), ``decoder_query_proj`` / ``decoder_key_proj`` keep their
+names, and each ``decoder_{i}``'s position embeddings are
+``decoder_self_posembeds.{i}`` / ``decoder_cross_posembeds.{i}``
+(``position_embedding_head.{0,1,3}``). Where it has none, the port's own
+names stand: 3DSSD's one prediction dense layer is ``bbox_head.
+conv_pred.conv_out`` (the JAX column order), the decoder layers'
+attention, FFN and norms are the port's ``TransformerDecoderLayer``'s
+under ``decoder_layers.{i}`` (``self_attn``, ``multihead_attn``,
+``linear1`` / ``2``, ``norm1``-``3``; mmcv names them otherwise), and
+ImVoteNet's ``img_fuse`` keeps its name; its ``img_backbone_m`` is a
+ResNet read by the camera rules (``img_backbone.``).
 
 The port keeps its own copy of this mapping (it imports nothing of the
 JAX package).
@@ -420,6 +441,47 @@ _POINT_RULES = [(re.compile(p), t, k) for p, t, k in [
      r"bbox_head.conv_pred.shared_convs.layer\2", None),
     (r"bbox_head_m/conv_pred", "bbox_head.conv_pred.conv_out", "conv1d"),
     (r"prim_proj", "prim_proj", "dense"),
+    # SSD3DHead: the candidate shift as the reference's vote module
+    (r"bbox_head_m/shift_mlp/(fc|bn)(\d+)",
+     r"bbox_head.vote_module.vote_conv.\2", None),
+    (r"bbox_head_m/shift_out", "bbox_head.vote_module.conv_out", "conv1d"),
+    (r"bbox_head_m/aggregation/mlp(\d+)/(fc|bn)(\d+)",
+     r"bbox_head.vote_aggregation.mlps.\1.layer\3", None),
+    # GroupFree3DHead (the last objectness conv is numbered after the
+    # walk, ``_point_state_dict``)
+    (r"bbox_head_m/points_obj_cls/mlp/(fc|bn)(\d+)",
+     r"bbox_head.points_obj_cls.mlp.layer\2", None),
+    (r"bbox_head_m/points_obj_cls/out", "bbox_head.points_obj_cls.mlp.out",
+     "conv1d"),
+    (r"bbox_head_m/conv_pred/shared/(fc|bn)(\d+)",
+     r"bbox_head.conv_pred.shared_convs.layer\2", None),
+    (r"bbox_head_m/conv_pred/(conv_cls|conv_reg)", r"bbox_head.conv_pred.\1",
+     "conv1d"),
+    (r"bbox_head_m/prediction_head_(\d+)/shared/(fc|bn)(\d+)",
+     r"bbox_head.prediction_heads.\1.shared_convs.layer\3", None),
+    (r"bbox_head_m/prediction_head_(\d+)/(conv_cls|conv_reg)",
+     r"bbox_head.prediction_heads.\1.\2", "conv1d"),
+    (r"bbox_head_m/(decoder_query_proj|decoder_key_proj)", r"bbox_head.\1",
+     "conv1d"),
+    (r"bbox_head_m/decoder_(\d+)/(self|cross)_posembed/fc1",
+     r"bbox_head.decoder_\2_posembeds.\1.position_embedding_head.0",
+     "conv1d"),
+    (r"bbox_head_m/decoder_(\d+)/(self|cross)_posembed/bn",
+     r"bbox_head.decoder_\2_posembeds.\1.position_embedding_head.1", "norm"),
+    (r"bbox_head_m/decoder_(\d+)/(self|cross)_posembed/fc2",
+     r"bbox_head.decoder_\2_posembeds.\1.position_embedding_head.3",
+     "conv1d"),
+    (r"bbox_head_m/decoder_(\d+)/self_attn",
+     r"bbox_head.decoder_layers.\1.self_attn", _ATTN),
+    (r"bbox_head_m/decoder_(\d+)/cross_attn",
+     r"bbox_head.decoder_layers.\1.multihead_attn", _ATTN),
+    (r"bbox_head_m/decoder_(\d+)/(linear[12])",
+     r"bbox_head.decoder_layers.\1.\2", "dense"),
+    (r"bbox_head_m/decoder_(\d+)/(norm[123])",
+     r"bbox_head.decoder_layers.\1.\2", "norm"),
+    # ImVoteNet's image feature projection (the image backbone's names are
+    # the camera detectors', ``_RULES``)
+    (r"img_fuse", "img_fuse", "dense"),
 ]]
 
 
@@ -430,12 +492,40 @@ def _stream(m) -> str:
         f"backbone.backbone_list.{m[1]}."
 
 
+def _attention(parts: Dict[str, np.ndarray], key: str,
+               sd: Dict[str, np.ndarray]) -> None:
+    """flax MHA's per-head query / key / value / out kernels and biases
+    (``parts``: ``'{name}/{leaf}'``) -> ``nn.MultiheadAttention``'s
+    ``in_proj_weight`` / ``in_proj_bias`` / ``out_proj`` under ``key``."""
+    e = parts["query/kernel"].shape[0]
+    sd[f"{key}.in_proj_weight"] = np.concatenate(
+        [parts[f"{n}/kernel"].reshape(e, e).T
+         for n in ("query", "key", "value")])
+    sd[f"{key}.in_proj_bias"] = np.concatenate(
+        [parts[f"{n}/bias"].reshape(e) for n in ("query", "key", "value")])
+    sd[f"{key}.out_proj.weight"] = parts["out/kernel"].reshape(e, e).T
+    sd[f"{key}.out_proj.bias"] = parts["out/bias"]
+
+
 def _point_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
-    """A point detector's or point backbone's tree (``_POINT_RULES``)."""
+    """A point detector's or point backbone's tree (``_POINT_RULES``; an
+    ImVoteNet's ``img_backbone_m`` by the camera rules)."""
     sd: Dict[str, np.ndarray] = {}
+    attn: Dict[str, Dict[str, np.ndarray]] = {}
+    image = {c: {"img_backbone_m": t["img_backbone_m"]}
+             for c, t in variables.items() if "img_backbone_m" in t}
     for coll in ("params", "batch_stats"):
         for path, v in _flatten(variables.get(coll, {})):
+            if path[0] == "img_backbone_m":
+                continue
             mod, leaf = "/".join(path[:-1]), path[-1]
+            if path[-2] in ("query", "key", "value", "out"):
+                base = "/".join(path[:-2])
+                hits = [m.expand(t) for p, t, k in _POINT_RULES if k == _ATTN
+                        for m in [p.fullmatch(base)] if m]
+                if hits:
+                    attn.setdefault(hits[0], {})[f"{path[-2]}/{leaf}"] = v
+                    continue
             for pat, tmpl, kind in _POINT_RULES:
                 m = pat.fullmatch(mod)
                 if m:
@@ -459,14 +549,26 @@ def _point_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
                 sd[f"{key}.weight"] = {
                     "dense": v.T, "conv1d": v.T[:, :, None],
                     "conv2d1x1": v.T[:, :, None, None]}[kind]
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    for key, parts in attn.items():
+        _attention(parts, key, sd)
+    # the objectness module's last conv follows its shared layers
+    head = "bbox_head.points_obj_cls.mlp."
+    n = len({k.split(".")[3] for k in sd if k.startswith(head + "layer")})
+    for leaf in ("weight", "bias"):
+        if f"{head}out.{leaf}" in sd:
+            sd[f"{head}layer{n}.conv.{leaf}"] = sd.pop(f"{head}out.{leaf}")
+    out = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    if image:
+        out.update(state_dict_from_jax(image))
+    return out
 
 
 def _is_point_tree(params: Dict) -> bool:
-    return "prim_proj" in params or "vote_module" in params.get(
-        "bbox_head_m", {}) or any(
-            re.fullmatch(r"(sa|fp)\d+|PointNet2SASSG_\d+", k)
-            for k in params.get("backbone_m", {}))
+    head = params.get("bbox_head_m", {})
+    return "prim_proj" in params or any(
+        k in head for k in ("vote_module", "shift_mlp", "points_obj_cls")) \
+        or any(re.fullmatch(r"(sa|fp)\d+|PointNet2SASSG_\d+", k)
+               for k in params.get("backbone_m", {}))
 
 
 def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
@@ -542,14 +644,7 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
                  "sparse": lambda a: a.transpose(4, 0, 1, 2, 3)}[kind](v)
             sd[f"{key}.weight"] = w
     for key, parts in attn.items():
-        e = parts["query/kernel"].shape[0]
-        sd[f"{key}.in_proj_weight"] = np.concatenate(
-            [parts[f"{n}/kernel"].reshape(e, e).T
-             for n in ("query", "key", "value")])
-        sd[f"{key}.in_proj_bias"] = np.concatenate(
-            [parts[f"{n}/bias"].reshape(e) for n in ("query", "key", "value")])
-        sd[f"{key}.out_proj.weight"] = parts["out/kernel"].reshape(e, e).T
-        sd[f"{key}.out_proj.bias"] = parts["out/bias"]
+        _attention(parts, key, sd)
 
     # a SeparateHead branch's final conv follows its ConvModules
     for k in [k for k in sd if k.startswith("pts_bbox_head.task_heads.")

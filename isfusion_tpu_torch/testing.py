@@ -7,8 +7,8 @@ that K1 (dynamic voxelization) is held on, ``pinned_choices``, which
 makes two runs of one detector take the same discrete choices,
 ``pooled_sync_norms``, the one-card reference of a data-parallel step,
 ``recording_eval_ious``, which keeps the KITTI evaluator's IoU
-inputs, and ``point_op_sets``, the clouds that K14 (the PointNet++ ops)
-is held on."""
+inputs, and ``point_op_sets`` and ``fps_large_cloud``, the clouds that
+K14 (the PointNet++ ops) is held on."""
 from __future__ import annotations
 
 import contextlib
@@ -793,6 +793,26 @@ POINT_SET_ROWS = {"rows_c1": (1, 0), "rows_c3": (3, 0), "rows_c5": (5, 0),
                   "rows_unaligned": (128, 1)}
 
 
+def slot_order_grad(idx, n: int, g, weight=None) -> torch.Tensor:
+    """The features' gradient of a K14 gather of (B, R * J) slots into (B,
+    n) rows, each row's sum taken in increasing slot order in float32 (the
+    order K14-gather's list gives its backward): numpy's ``add.at``
+    applies its updates one at a time, in order. ``g`` is the output's
+    gradient (B, R, C) (a slot's value repeated over its J slots), times
+    ``weight`` (B, R, J) where given. A CPU tensor."""
+    b, slots = idx.shape
+    c = g.shape[-1]
+    j = slots // g.reshape(b, -1, c).shape[1]
+    rows = (idx.cpu().numpy().astype(np.int64) + n * np.arange(b)[:, None]
+            ).reshape(-1)
+    vals = np.repeat(g.detach().reshape(-1, c).cpu().numpy(), j, axis=0)
+    if weight is not None:
+        vals = vals * weight.detach().reshape(-1, 1).cpu().numpy()
+    out = np.zeros((b * n, c), np.float32)
+    np.add.at(out, rows, vals)
+    return torch.from_numpy(out.reshape(b, n, c))
+
+
 def offset_rows(values, offset: int, device="cpu",
                 requires_grad: bool = False):
     """(base, view): ``values`` (a numpy array or tensor) copied into a
@@ -808,6 +828,58 @@ def offset_rows(values, offset: int, device="cpu",
     return base, base[offset:].view(values.shape)
 
 
+# points far outside fps_large_cloud's 8 m cube, each farther from it
+# than from the others, so that they are picked first, in this order
+FPS_TIE_SPOTS = ((1000.0, 4.0, 4.0), (4.0, -800.0, 4.0), (4.0, 4.0, 600.0),
+                 (-400.0, 4.0, 4.0))
+
+
+def fps_large_cloud(n: int, device="cpu", clusters=(8, 16)):
+    """(xyz (2, n, 3), mask (2, n), ties (2, T) int64): K14-FPS's clouds
+    past a cluster's registers. Two clouds in an 8 m cube (a generator on
+    ``device`` seeded by ``n``), the second's first 3 points and its last
+    quarter masked, and for each cluster size C ties that the kernel's
+    layout must break by the lowest index, each group of copies at one of
+    ``FPS_TIE_SPOTS`` so that the groups are picks 1, 2, ..., T. Block 1
+    of C owns the share [s, 2s), s = ceil(n / C); its thread t holds s + t
+    + 1,024 j in registers (j < 8) and s + 8,192 + t + 1,024 j in its tail.
+    - registers against the tail: s + k, the same thread's tail point s +
+      8,192 + k where the share has a tail, and block 2's 2s + k; s + k
+      wins;
+    - within a tail, where it holds 1,025 points past k + 1: s + 8,192 + k
+      against the same thread's next tail point (+ 1,024) and the next
+      lane's (+ 1); the first wins.
+    ``ties`` are the picks 1..T that the lowest-index rule gives, the same
+    in both clouds."""
+    from .ops.pointnet_ops import FPS_CLUSTER_POINTS as regs
+
+    gen = torch.Generator(device).manual_seed(n)
+    xyz = torch.rand((2, n, 3), generator=gen, device=device) * 8
+    mask = torch.ones((2, n), dtype=torch.bool, device=device)
+    mask[1, n - n // 4:] = False
+    mask[1, :3] = False
+    groups = []
+    for c in clusters:
+        s = -(-n // c)
+        tail = min(s, n - s) - regs                 # block 1's tail points
+        k = 5 * c if tail <= 0 else min(5 * c, tail - 1)
+        groups.append([s + k, 2 * s + k] + ([s + regs + k] if tail > 0
+                                            else []))
+    for c in clusters:
+        s = -(-n // c)
+        k = 7 * c
+        if min(s, n - s) - regs > k + 1025:
+            t = s + regs + k
+            groups.append([t, t + 1024, t + 1])
+    assert len(groups) <= len(FPS_TIE_SPOTS)
+    flat = [i for g in groups for i in g]
+    assert len(set(flat)) == len(flat) and bool(mask[:, flat].all())
+    for g, spot in zip(groups, FPS_TIE_SPOTS):
+        xyz[:, g] = torch.tensor(spot, device=device)
+    ties = torch.tensor([min(g) for g in groups], device=device)
+    return xyz, mask, ties.expand(2, -1)
+
+
 def point_op_sets(gen: np.random.Generator):
     """The clouds that K14 is held on: (name, xyz (B, N, 3) float32, mask
     (B, N) bool, queries (B, S, 3) float32, radius, K, num_samples) with
@@ -820,7 +892,8 @@ def point_op_sets(gen: np.random.Generator):
     threads, one point a thread up to 8,192): N at, one below and one
     above both; the largest running distance tied between points in
     different blocks' shares (the lower index wins); a block's whole share
-    masked; a sample at FPS_MAX_POINTS. Then the small clouds of
+    masked; a sample of 50,000 points (GroupFree3D's ScanNet input). Then
+    the small clouds of
     ``POINT_SET_ROWS``, whose gathers take other row widths and an
     unaligned view. numpy."""
     f32 = np.float32
@@ -895,7 +968,7 @@ def point_op_sets(gen: np.random.Generator):
     mask[1, 35000:] = False
     sets.append(("block_share_masked", xyz, mask, xyz[:, :16].copy(), 0.3,
                  8, 48))
-    n = 50_000                          # FPS_MAX_POINTS
+    n = 50_000                          # GroupFree3D's ScanNet input
     xyz = cloud(1, n)
     sets.append(("fps_max_points", xyz, gen.uniform(size=(1, n)) > 0.2,
                  xyz[:, :16].copy(), 0.3, 8, 40))

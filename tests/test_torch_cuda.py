@@ -66,9 +66,10 @@ from isfusion_tpu_torch.ops import (box_ops, cuda_build, gaussian, scatter,
                                     sparse_conv, voxel)
 from isfusion_tpu_torch.ops import pointnet_ops as pn
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
-from isfusion_tpu_torch.testing import (BALL_GRID_SETS, POINT_SET_ROWS,
-                                       degenerate_box_sets, iou_undetermined,
-                                       offset_rows, point_op_sets)
+from isfusion_tpu_torch.testing import (POINT_SET_ROWS, degenerate_box_sets,
+                                       fps_large_cloud, iou_undetermined,
+                                       offset_rows, point_op_sets,
+                                       slot_order_grad)
 
 pytestmark = pytest.mark.cuda
 
@@ -1664,9 +1665,8 @@ def test_tiny_imvoxelnet_predict_on_card_matches_cpu(card):
 
 # ------------------------------------------------ K14 (the PointNet++ ops)
 POINT_SETS = [s[0] for s in point_op_sets(np.random.default_rng(14))]
-# the gathers' sets: the ball grid's sets feed the index kernels and the
-# gathers' lists (``test_k14_slot_lists_match_plain_version``)
-GATHER_SETS = [n for n in POINT_SETS if n not in BALL_GRID_SETS]
+# the gathers' sets: every set, the ball grid's among them
+GATHER_SETS = POINT_SETS
 
 
 def _point_set(name, card):
@@ -1708,12 +1708,17 @@ def test_k14_index_kernels_match_plain_versions(card, name):
 
 @pytest.mark.parametrize("name", GATHER_SETS)
 def test_k14_gathers_match_plain_versions(card, name):
-    """K14-gather's three forms bit-equal forward (the rows' width and
-    storage offset from ``POINT_SET_ROWS``), the no-grad call equal to the
-    grad call; the features' and weights' gradients within 1e-6 of the
-    max of plain autograd's, and two kernel backwards bit-equal; one
-    forward launch a call, and a backward's launches (one per gradient)
-    beside one list of K1's list stage, none counted as K2's."""
+    """K14-gather's three forms bit-equal forward to the plain versions on
+    every set, the ball grid's crowded balls among them (the rows' width
+    and storage offset from ``POINT_SET_ROWS``), the no-grad call equal to
+    the grad call; the features' gradient within 1e-6 of the max of the
+    float32 sums in slot order (``testing.slot_order_grad``; plain float32
+    autograd sums a row's slots by atomics, in no fixed order, and a
+    float64 sum parts from a long row's float32 sum by more than that),
+    the weights' gradient within 1e-6 of the max of the plain version's
+    float64 one, and two kernel backwards bit-equal; one forward launch a call, and a backward's
+    launches (one per gradient) beside one list of K1's list stage, none
+    counted as K2's."""
     xyz, mask, q, radius, k, s = _point_set(name, card)
     c, offset = POINT_SET_ROWS.get(name, (7, 0))
     gen = torch.Generator(card).manual_seed(5)
@@ -1731,50 +1736,40 @@ def test_k14_gathers_match_plain_versions(card, name):
             lean = _launched("point_gather",
                              lambda: getattr(pn, op)(view, idx, *extra))
         grads = []
-        for fn in (getattr(pn, op), getattr(pn, op), getattr(pn, op +
-                                                             "_ref")):
+        for _ in range(2):
             base, f = offset_rows(feats, offset, card, requires_grad=True)
             wt = tuple(e.clone().requires_grad_(True) for e in extra)
-            out = fn(f, idx, *wt)
+            out = getattr(pn, op)(f, idx, *wt)
             g = torch.randn(out.shape, generator=torch.Generator(
                 card).manual_seed(9), device=card)
             before = dict(cuda_build.LAUNCHES)
             out.backward(g)
             torch.cuda.synchronize()
-            if fn is not getattr(pn, op + "_ref"):
-                launched = {key: cuda_build.LAUNCHES[key] - before[key]
-                            for key in ("point_gather", "point_gather_layout",
-                                        "segment_layout")}
-                assert launched == dict(point_gather=1 + len(wt),
-                                        point_gather_layout=1,
-                                        segment_layout=0), (op, launched)
+            launched = {key: cuda_build.LAUNCHES[key] - before[key]
+                        for key in ("point_gather", "point_gather_layout",
+                                    "segment_layout")}
+            assert launched == dict(point_gather=1 + len(wt),
+                                    point_gather_layout=1,
+                                    segment_layout=0), (op, launched)
             grads.append((out.detach(), base.grad[offset:].view(
                 feats.shape)) + tuple(e.grad for e in wt))
-        (o1, *g1), (o2, *g2), (o3, *g3) = grads
-        assert torch.equal(o1, o3), op
+        with torch.no_grad():
+            plain = getattr(pn, op + "_ref")(feats, idx, *extra)
+        f64 = feats.double().requires_grad_(True)
+        w64 = tuple(e.double().requires_grad_(True) for e in extra)
+        getattr(pn, op + "_ref")(f64, idx, *w64).backward(g.double())
+        b = idx.shape[0]
+        want = [slot_order_grad(idx.reshape(b, -1), feats.shape[1], g,
+                                *extra).to(card)] + [e.grad.float()
+                                                    for e in w64]
+        (o1, *g1), (o2, *g2) = grads
+        assert torch.equal(o1, plain), op
+        assert torch.equal(o2, plain), op
         assert torch.equal(lean, o1), op
-        for a, b, c_ in zip(g1, g2, g3):
-            assert torch.equal(a, b), op
+        for a, b_, c_ in zip(g1, g2, want):
+            assert torch.equal(a, b_), op
             assert float((a - c_).abs().max()) <= 1e-6 * max(
                 float(c_.abs().max()), 1e-30), op
-
-
-def _slot_order_grad(idx, n, g, weight=None):
-    """The features' gradient of a gather of (B, R * J) slots into (B, n)
-    rows, each row's sum taken in increasing slot order in float32 (the
-    order K14-gather's list gives its backward): numpy's ``add.at``
-    applies its updates one at a time, in order."""
-    b, slots = idx.shape
-    c = g.shape[-1]
-    j = slots // g.reshape(b, -1, c).shape[1]
-    rows = (idx.cpu().numpy().astype(np.int64) + n * np.arange(b)[:, None]
-            ).reshape(-1)
-    vals = np.repeat(g.reshape(-1, c).cpu().numpy(), j, axis=0)
-    if weight is not None:
-        vals = vals * weight.reshape(-1, 1).cpu().numpy()
-    out = np.zeros((b * n, c), np.float32)
-    np.add.at(out, rows, vals)
-    return torch.from_numpy(out.reshape(b, n, c))
 
 
 @pytest.mark.parametrize("name", POINT_SETS + ["one_row", "long_rows"])
@@ -1825,7 +1820,7 @@ def test_k14_slot_lists_match_plain_version(card, name):
             before["point_gather_layout"] + 1
         assert cuda_build.LAUNCHES["segment_layout"] == \
             before["segment_layout"]
-        want = _slot_order_grad(idx.reshape(b, -1), n, g, weight)
+        want = slot_order_grad(idx.reshape(b, -1), n, g, weight)
         assert torch.equal(feats.grad.cpu(), want), (name, op)
 
 
@@ -1867,6 +1862,40 @@ def test_k14_ball_routes_match_plain_version(card, name, route):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("route", ["scan", "grid"])
+def test_k14_ball_on_nan_coordinates_matches_plain_version(card, route):
+    """NaN queries and NaN points: K14-ball's indices and valid flags by
+    either route equal the plain version's, every index inside [0, N) (a
+    ball with no point takes the nearest, and a NaN distance ranks first
+    as in torch's argmin: a NaN query takes its sample's first valid
+    point, an empty ball of a sample with an unmasked NaN point takes
+    that point), and K14-gather groups by them as its plain version."""
+    rng = np.random.default_rng(21)
+    n = 5000
+    xyz = rng.uniform(0, 4, (2, n, 3)).astype(np.float32)
+    mask = np.ones((2, n), bool)
+    xyz[0, 10, 2] = np.nan
+    xyz[1, 0] = np.nan
+    mask[1, :2] = False
+    xyz[1, 7, 0] = np.nan
+    q = xyz[:, 100:164].copy()
+    q[0, :4] = np.nan
+    q[1, 5, 1] = np.nan
+    q[:, 6] = 100.0
+    xyz, mask, q = (torch.from_numpy(a).to(card) for a in (xyz, mask, q))
+    got = _launched("ball_query", lambda: pn.ball_query_launch(
+        0.2, 16, xyz, q, mask, grid=route == "grid"))
+    want = pn.ball_query_ref(0.2, 16, xyz, q, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].min()) >= 0 and int(got[0].max()) < n
+    assert (got[0][0, :4] == 0).all() and (got[0][1, 5] == 2).all()
+    assert (got[0][1, 6] == 7).all()
+    feats = torch.randn((2, n, 8), device=card)
+    grouped = _launched("point_gather", lambda: pn.group_points(feats,
+                                                                got[0]))
+    assert torch.equal(grouped, pn.group_points_ref(feats, got[0]))
+
+
 @pytest.mark.parametrize("name", POINT_SETS)
 def test_k14_knn_past_16_matches_plain_version(card, name):
     """K14-NN at k = 16, 17, 32, 64 and k = N (up to 6,000 points) equal
@@ -1902,22 +1931,35 @@ def test_k14_at_votenets_first_level(card):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_k14_fps_past_shared_memory_and_knn_past_its_k(card):
-    """K14-FPS takes up to 50,000 points a sample (FPS_MAX_POINTS; the
-    cluster holds them in registers: equal picks at the limit) and raises
-    past them without a launch; K14-NN answers k > 16 (its rounds of 16)
-    as the plain version does."""
-    gen = torch.Generator(card).manual_seed(11)
-    xyz = torch.rand((2, 50001, 3), generator=gen, device=card) * 8
-    mask = torch.rand((2, 50001), generator=gen, device=card) > 0.2
-    x0, m0 = xyz[:, :50000].contiguous(), mask[:, :50000].contiguous()
+# K14-FPS past a cluster's registers: at and past 50,000 points, around
+# 65,536 (8 blocks' 8,192 points in registers) and twice and three times
+# that (the tail route streams the rest)
+FPS_LARGE_N = (50_000, 50_001, 65_536, 65_537, 100_000, 200_000)
+
+
+@pytest.mark.parametrize("n", FPS_LARGE_N)
+def test_k14_fps_past_shared_memory_and_knn_past_its_k(card, n):
+    """K14-FPS takes any N: on ``testing.fps_large_cloud``'s batch of 2
+    clouds of N points, the second with its first 3 points and its last
+    quarter masked, the picks are bit-equal to the plain version's (the
+    first valid point first; the lowest index among ties, which decide
+    the first picks: a block's register point against its thread's tail
+    copy and another block's, and within a tail against the thread's next
+    tail point and the next lane's), by the route the wrapper takes and by
+    clusters of 8 and 16 (the tail route wherever N passes 8,192 x C), one
+    launch a call. K14-NN answers k > 16 (its rounds of 16) as the plain
+    version does."""
+    xyz, mask, ties = fps_large_cloud(n, card)
+    want = pn.furthest_point_sample_ref(xyz, 512, mask)
+    assert int(want[1, 0]) == 3
+    assert torch.equal(want[:, 1:1 + ties.shape[1]], ties)
     got = _launched("furthest_point_sample",
-                    lambda: pn.furthest_point_sample(x0, 96, m0))
-    assert torch.equal(got, pn.furthest_point_sample_ref(x0, 96, m0))
-    before = cuda_build.LAUNCHES["furthest_point_sample"]
-    with pytest.raises(ValueError, match="N <= 50000"):
-        pn.furthest_point_sample(xyz, 96, mask)
-    assert cuda_build.LAUNCHES["furthest_point_sample"] == before
+                    lambda: pn.furthest_point_sample(xyz, 512, mask))
+    assert torch.equal(got, want)
+    for cluster in (8, 16):
+        got = _launched("furthest_point_sample", lambda: pn.fps_launch(
+            xyz, 512, mask, cluster))
+        assert torch.equal(got, want), cluster
     src, q = xyz[:, :100].contiguous(), xyz[:, :8].contiguous()
     got = _launched("three_nn", lambda: pn.knn(17, src, q))
     want = pn.knn_ref(17, src, q)

@@ -5,7 +5,7 @@ duplicates, masked tails and a sample with every point masked, more FPS
 samples than valid points, empty balls, points at exactly the radius and
 lattices whose neighbours tie; clouds at the edges of K14-FPS's one-block
 and cluster routes, ties across a cluster's blocks, a block's share
-masked, a sample at ``FPS_MAX_POINTS``; gathers of rows of C = 1, 3, 5,
+masked, a sample of 50,000 points; gathers of rows of C = 1, 3, 5,
 128 and 130 floats and of a view whose rows are not 16-byte aligned;
 K14-ball's cell grid and K14-NN's warp merge (``GRID_SETS``, held
 against JAX in the ball query and K-NN): points on the grid's cell faces

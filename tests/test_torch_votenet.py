@@ -11,23 +11,21 @@ outputs, predict, loss terms, every top module's gradients and one AdamW
 
 The JAX variables are drawn with numpy (``tests/torch_parity.py``) and
 carried with ``state_dict_from_jax``; each JAX detector is two jitted
-calls at XLA:CPU backend level 1: head outputs, predict and losses in
-float32, then the gradients and the optimizer update in float64
-(``torch_parity.float64_jax``: a ReLU input of the tiny VoteNet's head
-lies within float32 rounding of 0, and the side XLA:CPU's float32 sums
-put it on depends on the host). The port's ops run their plain versions
-(the CPU).
+calls at XLA:CPU backend level 1 (``torch_parity.indoor_variant_case``):
+head outputs, predict and losses in float32, then the gradients and the
+optimizer update in float64 (``torch_parity.float64_jax``: a ReLU input
+of the tiny VoteNet's head lies within float32 rounding of 0, and the
+side XLA:CPU's float32 sums put it on depends on the host). The port's
+ops run their plain versions (the CPU).
 
 Tolerances (float32, CPU): outputs and gradients 1e-3 of their max (the
 modules alone 1e-4), losses 1e-4 relative, the sampled, grouped and
 predicted indices and labels equal, updates within 1e-2 of the lr.
 """
-import copy
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -43,8 +41,6 @@ from isfusion_tpu.models.dense_heads import vote_head as jvote_head
 from isfusion_tpu.models.dense_heads.vote_head import (VoteHead as JHead,
                                                        VoteModule as JVote)
 from isfusion_tpu.models.detectors import h3dnet as jh3d
-from isfusion_tpu.parallel.train_step import total_loss
-from isfusion_tpu.runner import optim as joptim
 from isfusion_tpu_torch import flagship as tflagship
 from isfusion_tpu_torch.core.bbox.coders import PartialBinBasedBBoxCoder
 from isfusion_tpu_torch.models.backbones.multi_backbone import MultiBackbone
@@ -53,16 +49,13 @@ from isfusion_tpu_torch.models.backbones.pointnet2 import (PointFPModule,
                                                            PointSAModule,
                                                            SharedMLP)
 from isfusion_tpu_torch.models.builder import build_detector
-from isfusion_tpu_torch.models.dense_heads.vote_head import (
-    VoteHead, VoteModule, split_joint_pred)
+from isfusion_tpu_torch.models.dense_heads.vote_head import (VoteHead,
+                                                             VoteModule)
 from isfusion_tpu_torch.models.detectors import h3dnet as tvote
-from isfusion_tpu_torch.parallel.train_step import make_train_step
-from isfusion_tpu_torch.runner import optim as toptim
 from isfusion_tpu_torch.runner.convert import state_dict_from_jax
-from isfusion_tpu_torch.testing import indoor_positives
 from test_models.test_votenet import tiny_batch, tiny_votenet_cfg
 from torch_parity import (OPTIMIZED_XLA, assert_close_to_max, check_step,
-                          float64_jax, jax_cfg, load_from_jax,
+                          indoor_variant_case, jax_cfg, load_from_jax,
                           random_variables)
 
 VOTENET_LOSSES = {"vote_loss", "objectness_loss", "center_loss",
@@ -411,94 +404,22 @@ def test_multi_backbone_matches(train):
 
 
 # ------------------------------------------------------- tiny detectors
-def _detector_case(jcfg: dict, cfg: dict, batch: dict) -> dict:
-    """One tiny point detector on both sides (the JAX side jitted at
-    XLA:CPU level 1, its gradients and step in float64), the port from the
-    carried weights: head outputs and predict (eval), loss terms and
-    gradients (train), one step of ``votenet_optim_cfg``'s AdamW + clip
-    10."""
-    ocfg = tflagship.votenet_optim_cfg()
-    jmodel = jbuild_detector(jcfg)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    variables = random_variables(jmodel, jbatch, train=False, mode="feats")
-    port = build_detector(cfg)
-    port.load_state_dict(state_dict_from_jax(variables))
-    port.eval()
-    batch = indoor_positives(port, batch, "cpu")
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    tx = joptim.build_optimizer(variables["params"], ocfg["optimizer"],
-                                ocfg["optimizer_config"], ocfg["lr_config"],
-                                None, total_steps=100)
-
-    def loss_fn(params, bs):
-        losses, _ = jmodel.apply({"params": params, "batch_stats": bs},
-                                 jbatch, train=True, mode="loss",
-                                 mutable=["batch_stats"])
-        return total_loss(losses), losses
-
-    def run(v):
-        feats = jmodel.apply(v, jbatch, train=False, mode="feats")
-        decoded = jmodel.apply(v, jbatch, train=False, mode="predict")
-        (_, losses), _ = jax.value_and_grad(loss_fn, has_aux=True)(
-            v["params"], v["batch_stats"])
-        return feats, decoded, losses
-
-    def step(v):
-        grads = jax.grad(lambda p: loss_fn(p, v["batch_stats"])[0])(
-            v["params"])
-        updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
-        return grads, optax.apply_updates(v["params"], updates)
-
-    feats, decoded, jl = jax.device_get(_compiled(run, variables))
-    # The JAX gradients and step in float64 (the points stay float32: the
-    # data's own). In float32 one ReLU input of the head's second shared
-    # conv (conv_pred.shared_convs.layer1) lies 3.6e-6 of its tensor's max
-    # from 0, and XLA:CPU's sums put it on the side the host's vector code
-    # gives: on one kind of machine the other side from the exact
-    # function's, which moves the head's gradients by 1.2e-3 of their max.
-    # The port's float32 run takes the float64 run's side there.
-    with jax.enable_x64(True):
-        v64 = jax.tree_util.tree_map(
-            lambda x: jnp.asarray(np.asarray(x, np.float64))
-            if np.asarray(x).dtype.kind == "f" else jnp.asarray(x),
-            jax.device_get(variables))
-        jbatch = {k: jnp.asarray(v.astype(np.float64) if v.dtype.kind == "f"
-                                 and k != "points" else v)
-                  for k, v in batch.items()}
-        with float64_jax(jlayers, jvote_head, jh3d):
-            lowered = jax.jit(step).lower(v64)
-        jg, after = jax.device_get(lowered.compile(OPTIMIZED_XLA)(v64))
-    num_reg = port.bbox_head.conv_pred.num_reg
-    jg, jafter = (state_dict_from_jax({"params": t}) for t in (jg, after))
-    for sd in (jg, jafter):
-        split_joint_pred(sd, "bbox_head.conv_pred.", num_reg)
-    got_feats = port(batch, mode="feats", device="cpu")
-    got_pred = port(batch, device="cpu")
-    trained = copy.deepcopy(port).train()
-    tl = trained(batch, mode="loss", device="cpu")
-    sum(tl.values()).backward()
-    stepped = copy.deepcopy(port).train()
-    before = {k: v.clone() for k, v in stepped.state_dict().items()}
-    opt = toptim.build_optimizer(stepped, ocfg["optimizer"])
-    tm = make_train_step(stepped, opt, toptim.build_schedule(
-        opt, ocfg["lr_config"], None, 100), toptim.grad_clip_norm(
-            ocfg["optimizer_config"]))(batch, torch.Generator())
-    return dict(feats=feats, decoded=decoded, got_feats=got_feats,
-                got_pred=got_pred, jl={k: float(v) for k, v in jl.items()},
-                jg=jg, jafter=jafter, trained=trained, before=before,
-                stepped=stepped, tm={k: float(v) for k, v in tm.items()},
-                tl={k: float(v.detach()) for k, v in tl.items()})
-
-
 @pytest.fixture(scope="module", params=["VoteNet", "H3DNet"])
 def case(request):
     batch = {k: np.asarray(v) for k, v in tiny_batch().items()}
-    jcfg = tiny_votenet_cfg()
     cfg = tflagship.votenet_model_cfg(tiny=True)
     if request.param == "H3DNet":
-        jcfg = dict(jcfg, type="H3DNet", primitive_channels=16)
         cfg = tflagship.h3dnet_model_cfg(tiny=True)
-    out = _detector_case(jcfg, cfg, batch)
+    # the JAX gradients and step in float64: in float32 one ReLU input of
+    # the head's second shared conv (conv_pred.shared_convs.layer1) lies
+    # 3.6e-6 of its tensor's max from 0, and XLA:CPU's sums put it on the
+    # side the host's vector code gives: on one kind of machine the other
+    # side from the exact function's, which moves the head's gradients by
+    # 1.2e-3 of their max. The port's float32 run takes the float64 run's
+    # side there.
+    out = indoor_variant_case(cfg, batch, tflagship.votenet_optim_cfg(),
+                              widen=(jlayers, jvote_head, jh3d),
+                              positives=True)
     out["name"] = request.param
     return out
 

@@ -445,3 +445,180 @@ def check_step(case, lr: float, grad_clip: float):
         assert (np.abs(d_port[sel] - d_jax[sel]) <= tol).all(), name
         checked += int(sel.sum())
     return checked
+
+
+def indoor_variant_case(cfg: dict, batch: dict, optim: dict, widen=(),
+                        positives: bool = False) -> dict:
+    """A tiny indoor point detector (SSD3DNet, GroupFree3DNet, ImVoteNet:
+    a port config whose JAX twin is ``jax_cfg(cfg)``) on both sides from
+    one numpy batch, JAX variables drawn with numpy and carried (strict).
+    ``positives``: the GT boxes first moved onto the port's train-mode
+    proposals (``testing.indoor_positives``: a VoteHead's box terms need
+    them). The JAX side compiled at XLA:CPU level 1: head outputs, predict
+    and loss terms in float32 (one call), then the gradients and one step
+    of ``optim``'s optimizer (clip, then AdamW) in float64 (a second call:
+    ``jax.enable_x64`` with the JAX modules ``widen`` computing their
+    float32 casts in float64, ``float64_jax``; the points stay float32),
+    so that a ReLU input within float32 rounding of 0 cannot move the
+    reference by the host's sum order. The port: the same outputs in eval
+    mode, the loss terms and gradients in train mode, one
+    ``make_train_step`` from the carried weights. A JAX VoteHead's joint
+    prediction layer is split as the port's ``ConvPred`` splits it."""
+    import copy
+
+    import jax.numpy as jnp
+    import optax
+
+    from isfusion_tpu.models import build_detector as jbuild_detector
+    from isfusion_tpu.parallel.train_step import total_loss
+    from isfusion_tpu.runner import optim as joptim
+    from isfusion_tpu_torch.models.builder import build_detector
+    from isfusion_tpu_torch.models.dense_heads.vote_head import (
+        ConvPred, split_joint_pred)
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner import optim as toptim
+    from isfusion_tpu_torch.testing import indoor_positives
+
+    jmodel = jbuild_detector(jax_cfg(cfg))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = random_variables(jmodel, jbatch, train=False, mode="feats")
+    port = build_detector(cfg)
+    port.load_state_dict(state_dict_from_jax(variables))
+    port.eval()
+    if positives:
+        batch = indoor_positives(port, batch, "cpu")
+    opt_cfg, opt_conf, lr_cfg = (optim["optimizer"],
+                                 optim["optimizer_config"],
+                                 optim["lr_config"])
+
+    def loss_fn(params, bs, jb):
+        losses, _ = jmodel.apply({"params": params, "batch_stats": bs}, jb,
+                                 train=True, mode="loss",
+                                 mutable=["batch_stats"])
+        return total_loss(losses), losses
+
+    def run(v, jb):
+        return (jmodel.apply(v, jb, train=False, mode="feats"),
+                jmodel.apply(v, jb, train=False, mode="predict"),
+                loss_fn(v["params"], v["batch_stats"], jb)[1])
+
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    feats, decoded, jl = jax.device_get(jax.jit(run).lower(
+        variables, jbatch).compile(OPTIMIZED_XLA)(variables, jbatch))
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(np.asarray(x, np.float64))
+            if np.asarray(x).dtype.kind == "f" else jnp.asarray(x),
+            jax.device_get(variables))
+        b64 = {k: jnp.asarray(v.astype(np.float64) if v.dtype.kind == "f"
+                              and k != "points" else v)
+               for k, v in batch.items()}
+        tx = joptim.build_optimizer(v64["params"], opt_cfg, opt_conf,
+                                    lr_cfg, None, total_steps=100)
+
+        def step(v, jb):
+            grads = jax.grad(lambda p: loss_fn(p, v["batch_stats"], jb)[0])(
+                v["params"])
+            updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
+            return grads, optax.apply_updates(v["params"], updates)
+
+        with float64_jax(*widen):
+            lowered = jax.jit(step).lower(v64, b64)
+        jg, after = jax.device_get(lowered.compile(OPTIMIZED_XLA)(v64, b64))
+    jg, jafter = (state_dict_from_jax({"params": t}) for t in (jg, after))
+    for name, mod in port.named_modules():
+        if isinstance(mod, ConvPred):
+            for sd in (jg, jafter):
+                split_joint_pred(sd, f"{name}.", mod.num_reg)
+    got_feats = port(batch, mode="feats", device="cpu")
+    got_pred = port(batch, device="cpu")
+    trained = copy.deepcopy(port).train()
+    tl = trained(batch, mode="loss", device="cpu")
+    sum(tl.values()).backward()
+    stepped = copy.deepcopy(port).train()
+    opt = toptim.build_optimizer(stepped, opt_cfg)
+    tm = make_train_step(stepped, opt, toptim.build_schedule(
+        opt, lr_cfg, None, 100), toptim.grad_clip_norm(opt_conf))(
+            batch, torch.Generator().manual_seed(0))
+    return dict(feats=feats, decoded=decoded, got_feats=got_feats,
+                got_pred=got_pred, jl={k: float(v) for k, v in jl.items()},
+                jg=jg, jafter=jafter, trained=trained,
+                tl={k: float(v.detach()) for k, v in tl.items()},
+                before=port.state_dict(), stepped=stepped,
+                tm={k: float(v) for k, v in tm.items()}, batch=batch)
+
+
+def check_indoor_outputs(case, index_keys=()) -> None:
+    """An ``indoor_variant_case``'s head outputs in float32: masks and
+    ``index_keys`` equal, the rest within 1e-4 of their max."""
+    got, want = case["got_feats"], case["feats"]
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        if not torch.is_tensor(g):
+            assert g == w, key
+        elif g.dtype == torch.bool or key in index_keys:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), key)
+        else:
+            assert_close_to_max(g.numpy(), np.asarray(w), 1e-4)
+
+
+def check_indoor_predict(case) -> None:
+    """Predict: mask and labels equal, boxes and scores within 1e-4 of
+    their max."""
+    gp, wp = case["got_pred"], case["decoded"]
+    for key in ("mask", "labels"):
+        np.testing.assert_array_equal(gp[key].numpy(), np.asarray(wp[key]))
+    for key in ("bboxes", "scores"):
+        assert_close_to_max(gp[key].numpy(), np.asarray(wp[key]), 1e-4)
+
+
+def check_indoor_losses(case, names) -> None:
+    """The loss terms are ``names``, each within 1e-4 relative or 1e-7
+    absolute (a term near 0, such as a direction residual of few
+    positives, keeps float32's absolute error), at least one above 0."""
+    jl, tl = case["jl"], case["tl"]
+    assert set(tl) == set(jl) == set(names)
+    for k in jl:
+        assert abs(tl[k] - jl[k]) <= max(1e-4 * abs(jl[k]), 1e-7), \
+            (k, tl[k], jl[k])
+    assert max(jl.values()) > 0
+
+
+def check_indoor_gradients(case, tops) -> None:
+    """Each module under ``tops`` (prefixes of the parameter names): its
+    gradient within 1e-3 of the max of JAX's float64 gradient, which is
+    not 0. A parameter the loss does not reach (a ResNet stage after the
+    sampled one) has no port gradient and a JAX gradient of 0."""
+    params = dict(case["trained"].named_parameters())
+    assert {n.split(".")[0] for n in params} == {t.split(".")[0]
+                                                for t in tops}
+    for top in tops:
+        names = [n for n in params if n.startswith(top)]
+        assert names, top
+        want = np.concatenate([case["jg"][n].numpy().ravel() for n in names])
+        got = np.concatenate([np.zeros(params[n].numel(), np.float32)
+                              if params[n].grad is None else
+                              params[n].grad.numpy().ravel()
+                              for n in names])
+        assert np.abs(want).max() > 0, top
+        assert_close_to_max(got, want, 1e-3)
+
+
+def check_indoor_step(case, lr: float, grad_clip: float) -> None:
+    """The step as ``check_step`` over the parameters with a gradient; the
+    others stay as they were in the port, whose AdamW skips them, where
+    optax decays them (ROADMAP queue 3, settled)."""
+    params = dict(case["trained"].named_parameters())
+    dead = {n for n, p in params.items() if p.grad is None}
+    stepped = dict(case["stepped"].named_parameters())
+    for n in dead:
+        assert not case["jg"][n].numpy().any(), n
+        assert torch.equal(stepped[n], case["before"][n]), n
+
+    class _Live:
+        @staticmethod
+        def named_parameters():
+            return [(n, p) for n, p in stepped.items() if n not in dead]
+
+    assert check_step(dict(case, stepped=_Live), lr, grad_clip) > 1000
