@@ -334,8 +334,46 @@ Phases, each printing one line (every failure raises, exit code != 0):
     each serve cell timed: event ms, whole-call device ms, plain ms, the
     bound, ``index_select``'s ms for the row gathers and ``index_add_``'s
     beside their backward, and K14-FPS's chain floor (2,048 picks over
-    one point a thread of its cluster, a pick)); the tiny variants on the
-    card against the CPU;
+    one point a thread of its cluster, a pick)); on
+    ``testing.point_op_sets``' NaN set K14-FPS by every route (the tail
+    route on a 70,000-point NaN cloud, ``nan_fps_cases``) and K14-NN's
+    indices equal, distances NaN where the plain version's are, every
+    index inside [0, N); the tiny variants on the card against the CPU;
+28c. segmentation (``[pn2seg_main_path]``, ``[pn2seg_train]``,
+    ``[paconvseg_main_path]``, ``[paconvseg_train]``, ``[seg_k14_check]``,
+    ``[k15_check]``, ``[seg_reference]``): mmdet3d's PointNet++ ScanNet
+    segmentor (``flagship.build_pointnet2seg``: 8,192 points of 9
+    channels, 20 classes; serve, train at batch 16 with Adam) and PAConv
+    S3DIS segmentor (``build_paconvseg``: 4,096 points, 16 kernels, 13
+    classes; train at batch 8 with SGD), each sample a 1.5 m (1.0 m)
+    block of ``synthetic_seg_batch`` cut as the config's pipeline cuts it,
+    SA1's ball occupancy reported, 1 + 5 batch-1 requests
+    each (every K14 kernel and, for PAConv,
+    K15-bank in every request, no plain K14 or K15 version; median and
+    max ms, peak memory, the stream ms of SA1-SA4, the FP levels and the
+    head, the idle share of one profiled request, ``seg_eval``'s mIoU of
+    random weights' predictions: a path check) and 1 + 3 train steps
+    (K15-bank's backward in every PAConv step; loss, grad norm, ms, peak
+    memory and, for PAConv, the peak of one step with K15-bank's plain
+    version; fails on a weight that did not move); every K14 call of
+    both recorded and held as in 28b; every K15-bank call recorded,
+    K15-score at paconvseg's SA1 train shape (B 8, N 4,096, S 1,024, K
+    32, M 16, O 32) and the adversarial sets (``k15_adversarial``)
+    against the plain version in float64, forward and gradients within
+    1e-5 of the max, gradients bit-equal over two calls, the largest
+    call of each timed (event ms, device ms, plain ms, ``torch.matmul`` +
+    einsum's ms, the bound; forward + backward); the tiny segmentors on
+    the card against the CPU;
+28d. scannet-learn (``[scannet_learn]``): VoteNet's train -> eval loop
+    through ``ScanNetDataset`` on a synthetic layout of 16 / 8 scenes
+    (``tools/make_synthetic_scannet.py``; ``flagship.
+    votenet_scannet_cfg``), 2 epochs at batch 8, an eval every epoch,
+    then ``single_device_test`` and ``evaluate`` on the val split: every
+    K14 call of the loop and every K10 call of ``indoor_eval`` held
+    against its plain version on its own inputs, the metrics equal to
+    the plain IoU's to 1e-12 (or the pairs that cross 0.25 / 0.5
+    reported); step ms, data-time share, eval samples/s, the
+    evaluator's seconds, K10's launches, mAP@0.25 / @0.5;
 
 29. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
@@ -392,8 +430,11 @@ PartA2's; K10-BEV ``boxes_iou_bev`` and K10-normal ``nms_normal_bev``
 with phase 28's post-processing path; K10-NMS with ImVoxelNet's
 requests; K10-BEV and K10 with one KITTI evaluate's; every kernel with
 kitti-learn's loop; the four K14 kernels with the indoor serve cells'
-requests and each indoor cell's launches a request and a step), then
-``{"ok": true, "device": {...}}`` end the output.
+requests and each indoor cell's launches a request and a step, the
+segmentation cells' requests and scannet-learn's loop; K10 with
+scannet-learn's evaluate; the two K15 kernels ``paconv_bank`` and
+``paconv_score``), then ``{"ok": true, "device": {...}}`` end the
+output.
 
 ``python3 chip_smoke.py --dp`` runs the device and build phases, then
 phases 30-31 alone.
@@ -409,6 +450,10 @@ phases 24-26 alone.
 
 ``python3 chip_smoke.py --imvoxelnet`` runs the device and build phases,
 then phase 27a alone; ``--kitti``, phase 27b alone.
+
+``python3 chip_smoke.py --seg`` runs the device and build phases, then
+phase 28c alone and prints the K15 entries of the kernels' record;
+``--scannet``, phase 28d alone.
 
 ``python3 chip_smoke.py --votenet`` runs the device and build phases,
 then phase 28a alone (with its K14 check and references) and prints the
@@ -4509,10 +4554,11 @@ INDOOR_TOPS = ("backbone", "bbox_head", "face_vote", "edge_vote",
 
 
 @contextlib.contextmanager
-def recording_point_ops():
+def recording_point_ops(every: bool = False):
     """Inside the block, the first call of each K14 op at each argument
     shape keeps (detached copies of) its arguments in the yielded dict
-    {(op, shapes...): args}; the op still runs."""
+    {(op, shapes...): args}; the op still runs. ``every``: every call's,
+    each key ending with the call's number."""
     import torch
     from isfusion_tpu_torch.models.backbones import pointnet2
 
@@ -4523,6 +4569,8 @@ def recording_point_ops():
         def op(*args):
             key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a)
                                   else a for a in args)
+            if every:
+                key += (len(seen),)
             if key not in seen:
                 seen[key] = tuple(a.detach().clone() if torch.is_tensor(a)
                                   else a for a in args)
@@ -4932,10 +4980,20 @@ def _k14_call(op: str, args, plain: bool):
 
 
 def _same(a, b) -> bool:
+    """Bit-equal, a float NaN where the other is NaN."""
     import torch
     if isinstance(a, tuple):
         return all(_same(x, y) for x, y in zip(a, b))
+    if a.is_floating_point() and b.is_floating_point():
+        nan = a.isnan()
+        return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
     return torch.equal(a, b)
+
+
+def _gap(a, b) -> float:
+    """The largest |a - b| where neither is NaN (0 for empty tensors)."""
+    keep = ~(a.isnan() | b.isnan())
+    return float((a[keep] - b[keep]).abs().max()) if keep.any() else 0.0
 
 
 def k14_device_ms(run, heavy: bool = True):
@@ -4982,11 +5040,17 @@ def k14_case(label: str, op: str, args, dev: str, timed: bool) -> dict:
     want = _k14_call(op, args, plain=True)
     sync(dev)
     equal = _same(got, want)
+    if op in ("furthest_point_sample", "ball_query", "three_nn"):
+        idx = got if op == "furthest_point_sample" else got[0]
+        n = args[0 if op == "furthest_point_sample" else 2 if
+                 op == "ball_query" else 1].shape[1]
+        equal = equal and (not idx.numel() or (
+            int(idx.min()) >= 0 and int(idx.max()) < n))
     gather = op in ("gather_points", "group_points", "three_interpolate")
     if gather or op == "three_nn":
         # the largest gap of the gathered values or K-NN's distances
         g, w = (got, want) if gather else (got[1], want[1])
-        err = float((g - w).abs().max()) if g.numel() else 0.0
+        err = _gap(g, w)
     else:
         err = 0.0 if equal else 1.0      # an index or flag that differs
     rec = dict(label=label, op=op, shapes=[list(a.shape) for a in args
@@ -5223,22 +5287,60 @@ def fps_large_cases(dev: str) -> tuple:
     return cases, times
 
 
+def nan_fps_cases(name: str, xyz, mask, s: int, dev: str) -> list:
+    """K14-FPS on a NaN set by each route (one block where N <= 4,096,
+    clusters of 8 and 16), and on the card the tail route on a 70,000-point
+    ``fps_large_cloud`` with NaN points in a block's registers and tail,
+    NaN next to masked rows and one sample all NaN: picks bit-equal to the
+    plain version's, inside [0, N) (the card only: the CPU has one
+    route)."""
+    import torch
+    from isfusion_tpu_torch.ops import pointnet_ops as P
+    from isfusion_tpu_torch.testing import fps_large_cloud
+    if dev != "cuda":
+        return []
+    n = xyz.shape[1]
+    runs = [(f"{name}_route{c}", xyz, mask, s, c) for c in (1, 8, 16)
+            if c > 1 or n <= P.FPS_BLOCK_MAX]
+    big, bmask, _ = fps_large_cloud(70_000, dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    rows = torch.randint(1, 70_000 - 1, (40,), generator=gen, device=dev)
+    big[0, rows[:20], 0] = float("nan")
+    big[0, -100:-90, 2] = float("nan")
+    bmask[0, rows[:5] + 1] = False
+    big[1] = float("nan")
+    runs.append(("nan_tail_70000", big, bmask, 300, 8))
+    out = []
+    for label, p, m, picks, c in runs:
+        got = P.fps_launch(p, picks, m, c)
+        want = P.furthest_point_sample_ref(p, picks, m)
+        sync(dev)
+        equal = torch.equal(got, want) and int(got.min()) >= 0 and \
+            int(got.max()) < p.shape[1]
+        out.append(dict(label=label, op="furthest_point_sample",
+                        shapes=[list(p.shape)], equal=equal,
+                        max_abs_err=0.0 if equal else 1.0))
+    return out
+
+
 def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
     """Every K14 kernel against its plain version on every call the
     indoor paths recorded (``recorded``: {cell: recording_point_ops()'s
     dict}) and on ``testing.point_op_sets`` (FPS; ball query by its
     default route and, on the card, by each route: the scan, the grid,
     the grid with 4 buckets; K-NN at k 1, 3, 8, 16, 17, 32 and 64; the
-    three gathers forward and backward on every set): fails unless every
-    call is equal (K14-gather's backward within 1e-6 of the max of the
+    three gathers forward and backward on every set, the interpolation
+    left out on the NaN sets, where FPS runs by every route,
+    ``nan_fps_cases``): fails unless every call is equal (NaN where the
+    plain version's distances are NaN, every index inside [0, N)) (K14-gather's backward within 1e-6 of the max of the
     slot-order sums, the weights' of the float64 plain version's, and
     repeating bit for bit). The largest serve
     call of each op of each serve cell is timed."""
     import numpy as np
     import torch
     from isfusion_tpu_torch.ops import pointnet_ops as P
-    from isfusion_tpu_torch.testing import (POINT_SET_ROWS, offset_rows,
-                                           point_op_sets)
+    from isfusion_tpu_torch.testing import (NAN_SETS, POINT_SET_ROWS,
+                                           offset_rows, point_op_sets)
 
     cases = []
     for cell, seen in recorded.items():
@@ -5266,15 +5368,22 @@ def phase_k14_check(recorded: dict, dev: str = "cuda") -> dict:
                  ("gather_points", (feats, fps)),
                  ("group_points", (feats, gi)),
                  ("three_interpolate", (feats, ni, w))]
+        if name in NAN_SETS:       # NaN weights: no interpolation checked
+            calls = calls[:-1]
         for op, args in calls:
             cases.append(k14_case(name, op, args, dev, False))
         cases += ball_route_cases(name, (radius, k, xyz, q, mask), dev)
+        if name in NAN_SETS:
+            cases += nan_fps_cases(name, xyz, mask, s, dev)
         for kk in (1, 8, 16, 17, 32, 64):
             if kk <= xyz.shape[1]:
                 got = P.knn(kk, xyz, q, mask)
                 want = P.knn_ref(kk, xyz, q, mask)
+                inside = int(got[0].min()) >= 0 and \
+                    int(got[0].max()) < xyz.shape[1]
                 cases.append(dict(label=name, op=f"knn_k{kk}",
-                                  equal=_same(got, want), max_abs_err=0.0))
+                                  equal=_same(got, want) and inside,
+                                  max_abs_err=0.0))
     large, large_times = fps_large_cases(dev)
     cases += large
     bad = [c for c in cases if not c["equal"] or c.get(
@@ -5765,6 +5874,836 @@ def kitti_run() -> int:
     sys.path.insert(0, REPO)
     phase_build()
     phase_kitti_learn()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# ------------------------------------------ segmentation (K15) and ScanNet
+# each segmentation cell: its builder and optimizer config in flagship.py
+# and the kernels its request and train step must launch
+SEG_CELLS = dict(
+    pn2seg=("build_pointnet2seg", "pointnet2seg_optim_cfg", K14),
+    paconvseg=("build_paconvseg", "paconvseg_optim_cfg",
+               K14 + ("paconv_bank",)))
+SEG_TOPS = ("backbone", "decode_head")
+K15_REPLACES = dict(paconv_bank="isfusion_tpu/ops/paconv.py:123",
+                    paconv_score="isfusion_tpu/ops/paconv.py:21")
+# K15-score at paconvseg's SA1 train shape (B, N, S, K, M, O)
+K15_SCORE_SHAPE = (8, 4096, 1024, 32, 16, 32)
+
+
+@contextlib.contextmanager
+def recording_bank():
+    """Inside the block, the first K15-bank call of each argument shape
+    (through ``ops/paconv.py``'s name, which the PAConv layer calls) keeps
+    detached copies of (x, scores, bank) in the yielded dict {shapes:
+    args}; the kernel still runs."""
+    from isfusion_tpu_torch.ops import paconv
+
+    real, seen = paconv.paconv_bank, {}
+
+    def bank(x, s, w):
+        key = (tuple(x.shape), tuple(s.shape), tuple(w.shape))
+        if key not in seen:
+            seen[key] = tuple(a.detach().clone() for a in (x, s, w))
+        return real(x, s, w)
+
+    paconv.paconv_bank = bank
+    try:
+        yield seen
+    finally:
+        paconv.paconv_bank = real
+
+
+@contextlib.contextmanager
+def counting_plain_k15():
+    """Inside the block, each call of a K15 plain version through
+    ``ops/paconv.py``'s names is counted in the yielded dict; on the card
+    the path must make none."""
+    from isfusion_tpu_torch.ops import paconv
+
+    names = ("paconv_bank_ref", "assign_score_withk_ref")
+    real = {n: getattr(paconv, n) for n in names}
+    calls = dict.fromkeys(names, 0)
+
+    def counting(name, fn):
+        def plain(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return plain
+
+    for n in names:
+        setattr(paconv, n, counting(n, real[n]))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(paconv, n, real[n])
+
+
+def seg_stream_ms(model, batch: dict) -> dict:
+    """One request with CUDA events around SA1-SA4, each FP level and the
+    head's ``pre_seg_conv`` + ``conv_seg`` (stream ms; the rest is the
+    upload, the argmax and host gaps)."""
+    import torch
+    spans, handles = {}, []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    head = model.decode_head
+    mods = [(f"SA{i + 1}", m) for i, m in
+            enumerate(model.backbone.SA_modules)] + \
+        [(f"FP{i + 1}", m) for i, m in enumerate(head.FP_modules)] + \
+        [("pre_seg", head.pre_seg_conv), ("cls_seg", head.conv_seg)]
+    for n, mod in mods:
+        handles += [mod.register_forward_pre_hook(
+            lambda *_, n=n: spans.__setitem__(n, [event(), None])),
+            mod.register_forward_hook(
+                lambda *_, n=n: spans[n].__setitem__(1, event()))]
+    try:
+        t0 = time.perf_counter()
+        model(batch, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in handles:
+            h.remove()
+    ms = {n: a.elapsed_time(b) for n, (a, b) in spans.items()}
+    return dict(request_ms=wall, stream_ms=ms,
+                rest_ms=wall - sum(ms.values()))
+
+
+def phase_seg_main_path(name: str, model, batch: dict, dev: str = "cuda",
+                        kernels=K14) -> dict:
+    """pn2seg-serve, paconvseg-serve: the full-width segmentor serves 1
+    warm-up (its K14 and K15-bank calls recorded) + N_REQUESTS batch-1
+    requests of ``synthetic_seg_batch``, launch counts zeroed just before
+    the timed requests and read after each: fails unless every kernel of
+    ``kernels`` launched in every request and no K14 or K15 plain version
+    ran, on a prediction of the wrong shape or a non-finite logit. Median
+    and max ms, peak memory, ``seg_eval``'s mIoU of the predictions
+    against the batch's labels (a path check: random weights), and on the
+    card the stream ms of SA1-SA4, the FP levels and the head, and the
+    device idle share of one profiled request."""
+    import numpy as np
+    import torch
+    from isfusion_tpu_torch.core.evaluation.seg_eval import seg_eval
+    from isfusion_tpu_torch.ops import cuda_build
+
+    with recording_point_ops() as seen, recording_bank() as banks:
+        model(batch, device=dev)
+        sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_request = [], []
+    watch = K14 + ("paconv_bank",)
+    with counting_plain_k14() as plain, counting_plain_k15() as plain15:
+        for i in range(N_REQUESTS):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = model(jittered(batch, i), device=dev)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                                for k in watch})
+    launches = {k: cuda_build.LAUNCHES[k] for k in watch}
+    b, n = batch["points"].shape[:2]
+    head = model.decode_head
+    if tuple(out["semantic_pred"].shape) != (b, n) or tuple(
+            out["logits"].shape) != (b, n, head.num_classes):
+        raise RuntimeError(f"unexpected {name} output shapes")
+    if not torch.isfinite(out["logits"]).all():
+        raise RuntimeError(f"non-finite {name} logits")
+    if dev == "cuda" and (any(r[k] < 1 for r in per_request
+                              for k in kernels) or any(plain.values())
+                          or any(plain15.values())):
+        raise RuntimeError(f"a kernel did not launch in every {name} "
+                           f"request, or a plain version ran: "
+                           f"{per_request}, {plain}, {plain15}")
+    k = head.num_classes
+    labels = np.asarray(batch["pts_semantic_mask"])
+    metrics = seg_eval(list(labels), list(out["semantic_pred"].cpu()
+                                          .numpy()),
+                       {i: str(i) for i in range(k)}, head.ignore_index)
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, points=int(n),
+               sa1_ball_occupancy=sa1_ball_occupancy(seen),
+               miou=metrics["miou"],
+               acc=metrics["acc"], launches_per_request=per_request,
+               plain_k14_calls=plain, plain_k15_calls=plain15)
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec.update(seg_stream_ms(model, batch))
+        rec["device_idle_share"] = device_profile(
+            f"{name}_profile", lambda: model(batch, device=dev))[
+                "device_idle_share"]
+    log(f"{name}_main_path", **rec)
+    rec["launches"] = launches
+    rec["point_inputs"] = seen
+    rec["bank_inputs"] = banks
+    return rec
+
+
+def sa1_ball_occupancy(seen: dict) -> float:
+    """The share of SA1's ball-query slots that hold a point in the ball,
+    from the recorded ball query over the most points (``seen``:
+    ``recording_point_ops()``'s dict), by the plain version."""
+    from isfusion_tpu_torch.ops import pointnet_ops
+
+    key = max((k for k in seen if k[0] == "ball_query"),
+              key=lambda k: k[3][1])
+    return float(pointnet_ops.ball_query_ref(*seen[key])[1].float().mean())
+
+
+@contextlib.contextmanager
+def plain_bank():
+    """Inside the block the PAConv layers contract by K15-bank's plain
+    version (matmul + einsum under autograd), for a memory comparison."""
+    from isfusion_tpu_torch.ops import paconv
+
+    real = paconv.paconv_bank
+    paconv.paconv_bank = paconv.paconv_bank_ref
+    try:
+        yield
+    finally:
+        paconv.paconv_bank = real
+
+
+def phase_seg_train(name: str, model, batch: dict, optim: dict,
+                    dev: str = "cuda", steps: int = N_TRAIN_STEPS,
+                    kernels=K14) -> dict:
+    """pn2seg-train (Adam, cosine; batch 16), paconvseg-train (SGD,
+    cosine; batch 8): the config's optimizer and schedule, 1 warm-up (its
+    K14 and K15-bank calls recorded) + ``steps`` steps (dropout from the
+    step's generator), launches split at the end of the loss forward.
+    Each step's loss, grad norm, ms and launches; fails on a non-finite
+    loss, a zero grad norm, a step without every forward launch of
+    ``kernels`` and the backward of K14-gather (and K15-bank), a plain
+    version, or a weight of an SA, FP or head layer that did not move.
+    PAConv: one more step with K15-bank's plain version, its peak memory
+    beside the kernel's."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+
+    model.train()
+    opt = build_optimizer(model, optim["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, optim["lr_config"], None, total_steps=1000),
+        grad_clip_norm(optim["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    with recording_point_ops() as seen, recording_bank() as banks:
+        step(jittered(batch, 0), gen)
+        sync(dev)
+    watch = _watched(model, tuple(f"{t}." for t in SEG_TOPS))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    marks, times, per_step = [], [], []
+    hook = model.register_forward_hook(
+        lambda *_: marks.append(dict(cuda_build.LAUNCHES)))
+    split = ("point_gather", "paconv_bank")
+    try:
+        with counting_plain_k14() as plain, counting_plain_k15() as plain15:
+            for i in range(steps):
+                before = dict(cuda_build.LAUNCHES)
+                t0 = time.perf_counter()
+                m = step(jittered(batch, i + 1), gen)
+                sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+                after, mid = dict(cuda_build.LAUNCHES), marks[-1]
+                launches = {k: after[k] - before[k] for k in K14[:3]}
+                for k in split:
+                    launches[f"{k}_forward"] = mid[k] - before[k]
+                    launches[f"{k}_backward"] = after[k] - mid[k]
+                vals = {k: float(v) for k, v in m.items()}
+                log(f"{name}_train_step", step=i, ms=times[-1],
+                    launches=launches, **vals)
+                if any(not math.isfinite(v) for v in vals.values()) or \
+                        vals["grad_norm"] == 0:
+                    raise RuntimeError(f"{name} train step {i}: {vals}")
+                need = [k for k in K14[:3] if k in kernels] + [
+                    f"{k}_{d}" for k in split if k in kernels
+                    for d in ("forward", "backward")]
+                if dev == "cuda" and min(launches[k] for k in need) == 0:
+                    raise RuntimeError(f"{name} train step {i}: a kernel "
+                                       f"did not launch: {launches}")
+                per_step.append(dict(launches, losses=vals))
+    finally:
+        hook.remove()
+    if dev == "cuda" and (any(plain.values()) or any(plain15.values())):
+        raise RuntimeError(f"a plain version ran in {name}'s steps: "
+                           f"{plain}, {plain15}")
+    losses = [s_.pop("losses") for s_ in per_step]
+    params = dict(model.named_parameters())
+    unchanged = [n for n, t in watch.items() if torch.equal(params[n], t)]
+    rec = dict(batch=int(batch["points"].shape[0]),
+               median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, launches_per_step=per_step,
+               sa1_ball_occupancy=sa1_ball_occupancy(seen),
+               losses=[v["loss"] for v in losses],
+               grad_norms=[v["grad_norm"] for v in losses],
+               watched=len(watch), unchanged_weights=unchanged)
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if "paconv_bank" in kernels:
+            torch.cuda.reset_peak_memory_stats()
+            with plain_bank():
+                step(batch, gen)
+                sync(dev)
+            rec["plain_bank_peak_mem_gib"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["device_idle_share"] = device_profile(
+            f"{name}_train_profile", lambda: step(batch, gen))[
+                "device_idle_share"]
+    log(f"{name}_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"weights unchanged by {steps} {name} steps: "
+                           f"{unchanged[:10]}")
+    model.eval()
+    rec["point_inputs"] = seen
+    rec["bank_inputs"] = banks
+    return rec
+
+
+def bank_bound(r: int, c: int, m: int, o: int, backward: bool = False
+               ) -> tuple:
+    """(ms, 'bytes' or 'operations') of K15-bank on (R, C) rows, M kernels,
+    O outputs: 2 R C M O + 2 R M O float operations forward (the product
+    and the scores' sum); backward 4 R C M O + 4 R M C (G = dY W_m^T once,
+    dX and dS both from it, dW = A^T dY), over 67 TFLOP/s, against x, s, W
+    read once and y written once (backward: x, s, W, dY read, dX, dS, dW
+    written) over 3.35 TB/s."""
+    if backward:
+        ops = 4 * r * c * m * o + 4 * r * m * c
+        nbytes = 4 * (2 * r * c + 2 * r * m + 2 * c * m * o + r * o)
+    else:
+        ops = 2 * r * c * m * o + 2 * r * m * o
+        nbytes = 4 * (r * c + r * m + c * m * o + r * o)
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def k15_bank_case(label: str, args, dev: str, timed: bool) -> dict:
+    """K15-bank on (x, s, W) against its plain version in float64 on the
+    same inputs: the forward and the three gradients (of a seeded output
+    gradient) within 1e-5 of their max, two kernel backwards bit-equal;
+    ``timed``: event ms, whole-call device ms, the plain version's ms,
+    ``torch.matmul`` + einsum's (the library column), the bound; forward +
+    backward ms, the plain version's, the backward's bound."""
+    import torch
+    from isfusion_tpu_torch.ops import paconv
+    x, s, w = (a.to(dev) for a in args)
+    r, c = x.shape
+    m = s.shape[1]
+    o = w.shape[1] // m
+    g = torch.randn((r, o), generator=torch.Generator(dev).manual_seed(7),
+                    device=dev)
+    grads = []
+    for _ in range(2):
+        ins = [a.clone().requires_grad_(True) for a in (x, s, w)]
+        out = paconv.paconv_bank(*ins)
+        out.backward(g)
+        grads.append([out.detach()] + [a.grad for a in ins])
+    sync(dev)
+    ins = [a.double().requires_grad_(True) for a in (x, s, w)]
+    want_out = paconv.paconv_bank_ref(*ins)
+    want_out.backward(g.double())
+    wants = [want_out.detach()] + [a.grad for a in ins]
+
+    def rel(a, b):
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        return float((a.double() - b).abs().max()) / max(scale, 1e-30) \
+            if a.numel() else 0.0
+
+    errs = [rel(a, b) for a, b in zip(grads[0], wants)]
+    repeats = all(torch.equal(a, b) for a, b in zip(grads[0][1:],
+                                                     grads[1][1:]))
+    bound = bank_bound(r, c, m, o)
+    rec = dict(label=label, op="paconv_bank", R=r, C=c, M=m, O=o,
+               fwd_rel_err=errs[0], grad_rel_err=errs[1:],
+               max_abs_err=float((grads[0][0].double() - wants[0]).abs()
+                                 .max()) if r else 0.0,
+               bwd_repeats=repeats, bound_ms=bound[0], bound_by=bound[1],
+               ok=max(errs) <= 1e-5 and (repeats or dev != "cuda"))
+    if timed and dev == "cuda":
+        xs, ss, ws_ = x, s, w
+        rec["ms"] = cuda_ms(lambda: paconv.paconv_bank(xs, ss, ws_), dev,
+                            iters=10)
+        rec["device_ms"] = k14_device_ms(
+            lambda: paconv.paconv_bank(xs, ss, ws_))[0]
+        rec["plain_ms"] = cuda_ms(
+            lambda: paconv.paconv_bank_ref(xs, ss, ws_), dev, iters=5)
+        rec["library_ms"] = cuda_ms(lambda: torch.einsum(
+            "rm,rmo->ro", ss, torch.matmul(xs, ws_).view(r, m, o)), dev,
+            iters=5)
+        ins = [a.clone().requires_grad_(True) for a in (x, s, w)]
+
+        def fwd_bwd(fn):
+            def run():
+                fn(*ins).backward(g)
+            return run
+
+        rec["fwd_bwd_ms"] = cuda_ms(fwd_bwd(paconv.paconv_bank), dev,
+                                    iters=5)
+        rec["plain_fwd_bwd_ms"] = cuda_ms(fwd_bwd(paconv.paconv_bank_ref),
+                                          dev, iters=3)
+        rec["backward_bound_ms"] = bank_bound(r, c, m, o, True)[0]
+    return rec
+
+
+def k15_score_inputs(shape, dev: str, seed: int = 0, repeat: bool = True):
+    """(scores, pf, cf, knn) at (B, N, S, K, M, O): knn from a ball-query
+    like draw (each row's first slot repeated over a seeded share of its
+    slots, so rows repeat) over the first 90% of N (the last rows named by
+    no slot); float32 on ``dev``."""
+    import torch
+    b, n, s, k, m, o = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    scores = torch.softmax(torch.randn((b, s, k, m), generator=gen,
+                                       device=dev), -1)
+    pf = torch.randn((b, n, m, o), generator=gen, device=dev)
+    cf = torch.randn((b, n, m, o), generator=gen, device=dev)
+    knn = torch.randint(0, max(1, int(n * 0.9)), (b, s, k), generator=gen,
+                        device=dev, dtype=torch.int32)
+    if repeat:
+        rep = torch.rand((b, s, k), generator=gen, device=dev) < 0.3
+        knn = torch.where(rep, knn[..., :1], knn)
+    return scores, pf, cf, knn
+
+
+def k15_score_case(label: str, args, dev: str, timed: bool,
+                   aggregate: str = "sum") -> dict:
+    """K15-score against its plain version in float64 on the same inputs:
+    forward and the three gradients within 1e-5 of their max, two kernel
+    backwards bit-equal (on the card: the CPU's plain autograd scatters
+    in no fixed order); ``timed``: event and device ms, plain ms, the
+    bound (the bytes: scores, the rows of pf that the slots name, the rows
+    of cf that the first slots name, knn and the output once; 2 M
+    operations an output element)."""
+    import torch
+    from isfusion_tpu_torch.ops import paconv
+    sc, pf, cf, knn = args
+    b, s, k, m = sc.shape
+    n, o = pf.shape[1], pf.shape[3]
+    g = torch.randn((b, s, k, o), generator=torch.Generator(dev)
+                    .manual_seed(8), device=dev)
+    grads = []
+    for _ in range(2):
+        ins = [a.clone().requires_grad_(True) for a in (sc, pf, cf)]
+        out = paconv.assign_score_withk(*ins, knn, aggregate)
+        out.backward(g)
+        grads.append([out.detach()] + [a.grad for a in ins])
+    sync(dev)
+    ins = [a.double().requires_grad_(True) for a in (sc, pf, cf)]
+    want = paconv.assign_score_withk_ref(*ins, knn, aggregate)
+    want.backward(g.double())
+    wants = [want.detach()] + [a.grad for a in ins]
+    errs = [float((a.double() - w).abs().max()) / max(
+        float(w.abs().max()), 1e-30) for a, w in zip(grads[0], wants)]
+    repeats = all(torch.equal(a, c) for a, c in zip(grads[0][1:],
+                                                     grads[1][1:]))
+    flat = knn.long() + n * torch.arange(b, device=knn.device)[:, None,
+                                                                None]
+    pf_rows = int(torch.unique(flat).numel())
+    cf_rows = int(torch.unique(flat[..., 0]).numel())
+    nbytes = 4 * (sc.numel() + (pf_rows + cf_rows) * m * o + knn.numel() +
+                  b * s * k * o)
+    ops = 2 * b * s * k * m * o
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    rec = dict(label=label, op="paconv_score", shape=[b, n, s, k, m, o],
+               aggregate=aggregate, fwd_rel_err=errs[0],
+               grad_rel_err=errs[1:],
+               max_abs_err=float((grads[0][0].double() - wants[0]).abs()
+                                 .max()),
+               bwd_repeats=repeats,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ok=max(errs) <= 1e-5 and (repeats or dev != "cuda"))
+    if timed and dev == "cuda":
+        rec["ms"] = cuda_ms(lambda: paconv.assign_score_withk(
+            sc, pf, cf, knn, aggregate), dev, iters=10)
+        rec["device_ms"] = k14_device_ms(lambda: paconv.assign_score_withk(
+            sc, pf, cf, knn, aggregate))[0]
+        rec["plain_ms"] = cuda_ms(lambda: paconv.assign_score_withk_ref(
+            sc, pf, cf, knn, aggregate), dev, iters=3)
+        rec["library_ms"] = None
+        ins = [a.clone().requires_grad_(True) for a in (sc, pf, cf)]
+        rec["fwd_bwd_ms"] = cuda_ms(lambda: paconv.assign_score_withk(
+            *ins, knn, aggregate).backward(g), dev, iters=5)
+    return rec
+
+
+def k15_adversarial(dev: str) -> list:
+    """K15's adversarial sets: K15-bank on rows all zero (a masked ball's),
+    M = 1, O of 37 and 70 (not a tile's multiple), C = 7 (odd), R = 1 and
+    1,000 rows; K15-score with every slot of a sample on one row (all
+    masked but the first), M = 1, O = 37, K = 1 and a row named by no
+    slot (the shape's last 10%)."""
+    import torch
+    gen = torch.Generator(dev).manual_seed(21)
+
+    def bank(r, c, m, o, zero=False):
+        x = torch.randn((r, c), generator=gen, device=dev)
+        if zero:
+            x = torch.zeros_like(x)
+        s = torch.softmax(torch.randn((r, m), generator=gen, device=dev), -1)
+        w = torch.randn((c, m * o), generator=gen, device=dev) / c ** 0.5
+        return x, s, w
+
+    cases = [k15_bank_case(label, bank(*a), dev, False) for label, a in (
+        ("bank_rows_zero", (2048, 18, 16, 32, True)),
+        ("bank_m1", (3000, 64, 1, 64)),
+        ("bank_o37", (1000, 130, 16, 37)), ("bank_o70", (777, 64, 4, 70)),
+        ("bank_c7", (2500, 7, 8, 33)), ("bank_r1", (1, 18, 16, 32)))]
+    sc, pf, cf, knn = k15_score_inputs((2, 300, 64, 16, 4, 37), dev, 5)
+    knn = knn.clone()
+    knn[0] = 3                            # one row names every slot
+    cases.append(k15_score_case("score_one_row", (sc, pf, cf, knn), dev,
+                                False))
+    for label, shape, agg in (("score_m1_o37", (2, 500, 64, 8, 1, 37),
+                               "avg"),
+                              ("score_k1", (1, 200, 100, 1, 16, 32), "sum")):
+        cases.append(k15_score_case(label, k15_score_inputs(shape, dev, 6),
+                                    dev, False, agg))
+    return cases
+
+
+def phase_k15_check(recorded: dict, dev: str = "cuda",
+                    score_shape=K15_SCORE_SHAPE) -> dict:
+    """[k15_check]: every K15-bank call the serve and train cells recorded
+    (``recorded``: {cell: recording_bank()'s dict}), K15-score at
+    paconvseg's SA1 train shape (``K15_SCORE_SHAPE``) and the adversarial
+    sets, each against the plain version in float64 (1e-5 of the max,
+    forward and gradients; the gradients bit-equal over two calls). The
+    largest call of each kernel is timed. Fails on any miss."""
+    cases = []
+    for cell, seen in recorded.items():
+        big = max(seen, key=lambda k: k[0][0] * k[0][1] * k[2][1],
+                  default=None)
+        for key, args in seen.items():
+            cases.append(k15_bank_case(cell, args, dev,
+                                       timed=key == big and "train" in cell))
+    score = k15_score_case("paconvseg_sa1_train", k15_score_inputs(
+        score_shape, dev), dev, timed=True)
+    cases.append(score)
+    cases += k15_adversarial(dev)
+    bad = [c for c in cases if not c["ok"]]
+    timed = {c["op"]: c for c in cases if "ms" in c}
+    for c in timed.values():
+        log("k15_case", **c)
+    per_kernel = {op: dict(
+        checked_calls=sum(1 for c in cases if c["op"] == op),
+        max_abs_err=max([c["max_abs_err"] for c in cases if c["op"] == op]),
+        max_rel_err=max(max([c["fwd_rel_err"]] + c["grad_rel_err"])
+                        for c in cases if c["op"] == op),
+        bwd_repeats=all(c["bwd_repeats"] for c in cases if c["op"] == op),
+        main=timed.get(op, {}))
+        for op in ("paconv_bank", "paconv_score")}
+    rec = dict(cases=len(cases), per_kernel={
+        k: {f: v for f, v in r.items() if f != "main"}
+        for k, r in per_kernel.items()},
+        failed=[{k: c.get(k) for k in ("label", "op", "fwd_rel_err",
+                                       "grad_rel_err", "bwd_repeats")}
+                for c in bad])
+    log("k15_check", **rec)
+    if bad:
+        raise RuntimeError(f"K15 kernels differ from their plain versions: "
+                           f"{rec['failed'][:5]}")
+    rec["per_kernel"] = per_kernel
+    return rec
+
+
+def phase_seg_reference(dev: str = "cuda") -> dict:
+    """[seg_reference]: the tiny PointNet++ and PAConv segmentors in
+    float32 (TF32 off) on the card against the CPU from the same weights
+    and batch, dropout off: logits within 1e-3 of their max, the loss 1e-4
+    relative, each top module's gradient 1e-3 of its max."""
+    import torch
+    from isfusion_tpu_torch import flagship
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, (build, _, _) in SEG_CELLS.items():
+        def run(d, build=build):
+            model, batch_fn = getattr(flagship, build)(tiny=True, device=d,
+                                                       seed=1)
+            model.decode_head.dropout_ratio = 0.0
+            batch = batch_fn(2, seed=3)
+            logits = model(batch, mode="feats", device=d).cpu()
+            model.train()
+            loss = model(batch, mode="loss", device=d)["loss_sem_seg"]
+            loss.backward()
+            grads = {t: torch.cat([p.grad.detach().cpu().flatten() for n, p
+                                   in model.named_parameters()
+                                   if n.startswith(t + ".")])
+                     for t in SEG_TOPS}
+            return logits, float(loss.detach()), grads
+
+        (lg, sg, gg), (lc, sc, gc) = run(dev), run("cpu")
+        rec = dict(logit_rel_err=_rel_to_max(lg, lc),
+                   loss_rel_err=abs(sg - sc) / max(abs(sc), 1e-12),
+                   grad_rel_err={t: _rel_to_max(gg[t], gc[t]) for t in gc},
+                   loss=sc)
+        out[name] = rec
+        if rec["logit_rel_err"] > 1e-3 or rec["loss_rel_err"] > 1e-4 or \
+                max(rec["grad_rel_err"].values()) > 1e-3:
+            raise RuntimeError(f"tiny {name} on the card differs from the "
+                               f"CPU: {rec}")
+    log("seg_reference", **out)
+    return out
+
+
+def run_seg_phases(dev: str = "cuda") -> dict:
+    """Phase 28c: for each ``SEG_CELLS`` cell, the full-width serve and
+    train phases; then the K14 check on their recorded calls (``[k14_check]``
+    of these cells), K15's check, and the tiny references."""
+    import torch
+    from isfusion_tpu_torch import flagship
+
+    out, banks, points = {}, {}, {}
+    for name, (build, optim, kernels) in SEG_CELLS.items():
+        model, batch_fn = getattr(flagship, build)(device=dev, seed=0)
+        ocfg = getattr(flagship, optim)()
+        out[f"{name}_serve"] = phase_seg_main_path(name, model, batch_fn(1),
+                                                   dev, kernels)
+        out[f"{name}_train"] = phase_seg_train(
+            name, model, batch_fn(ocfg["samples_per_gpu"], seed=1), ocfg,
+            dev, kernels=kernels)
+        del model
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    for cell in list(out):
+        points[cell] = out[cell].pop("point_inputs")
+        seen = out[cell].pop("bank_inputs")
+        if seen:
+            banks[cell] = seen
+    out["k14"] = phase_k14_seg_check(points, dev)
+    del points
+    out["k15"] = phase_k15_check(banks, dev)
+    del banks
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["reference"] = phase_seg_reference(dev)
+    return out
+
+
+def phase_k14_seg_check(recorded: dict, dev: str) -> dict:
+    """Every K14 call the segmentation cells recorded against its plain
+    version (``k14_case``; the NaN and adversarial sets are phase 28b's):
+    fails on any miss."""
+    cases = [k14_case(cell, key[0], args, dev, False)
+             for cell, seen in recorded.items() for key, args in seen.items()]
+    bad = [c for c in cases if not c["equal"] or c.get(
+        "bwd_max_abs_err", 0.0) > 1e-6 or c.get("bwd_repeats") is False]
+    rec = dict(cases=len(cases), max_abs_err=max(
+        [c["max_abs_err"] for c in cases] + [0.0]), failed=[
+        {k: c.get(k) for k in ("label", "op", "shapes")} for c in bad])
+    log("seg_k14_check", **rec)
+    if bad:
+        raise RuntimeError(f"K14 kernels differ on the segmentation "
+                           f"cells' calls: {rec['failed'][:5]}")
+    return rec
+
+
+def k15_kernel_records(seg: dict) -> list:
+    """The two K15 entries of the kernels' line: paconvseg-serve's
+    K15-bank launches (its requests', summed) and a train step's, the
+    check's errors and the largest timed call's numbers."""
+    recs = []
+    for op, source in (("paconv_bank", "paconv.cu"),
+                       ("paconv_score", "paconv.cu")):
+        chk = seg["k15"]["per_kernel"][op]
+        main = chk["main"]
+        rec = dict(name=op, route="cuda",
+                   source=f"isfusion_tpu_torch/csrc/{source}",
+                   replaces=K15_REPLACES[op],
+                   launches=seg["paconvseg_serve"]["launches"].get(op, 0),
+                   max_abs_err=chk["max_abs_err"],
+                   **{k: main.get(k) for k in (
+                       "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "device_ms", "fwd_bwd_ms",
+                       "plain_fwd_bwd_ms", "backward_bound_ms")},
+                   max_rel_err=chk["max_rel_err"],
+                   bwd_repeats=chk["bwd_repeats"],
+                   checked_calls=chk["checked_calls"],
+                   shape={k: main[k] for k in ("R", "C", "M", "O", "shape")
+                          if k in main})
+        if op == "paconv_bank":
+            rec["launches_per_request"] = [
+                r["paconv_bank"] for r in seg["paconvseg_serve"][
+                    "launches_per_request"]]
+            rec["train_launches_per_step"] = [dict(
+                forward=s_["paconv_bank_forward"],
+                backward=s_["paconv_bank_backward"])
+                for s_ in seg["paconvseg_train"]["launches_per_step"]]
+        recs.append(rec)
+    return recs
+
+
+def seg_run() -> int:
+    """``python3 chip_smoke.py --seg``: the device and build phases, then
+    phase 28c alone and the K15 entries of the kernels' line."""
+    import torch
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    seg = run_seg_phases("cuda")
+    print(smi)
+    print(json.dumps({"kernels": k15_kernel_records(seg)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+SCANNET_THRESHOLDS = (0.25, 0.5)
+
+
+def phase_scannet_learn(dev: str = "cuda", train: int = 16, val: int = 8,
+                        points: int = 50000, tiny: bool = False) -> dict:
+    """scannet-learn, a smoke run of VoteNet's ScanNet loop (not a
+    throughput figure): a synthetic layout of ``train`` / ``val`` scenes
+    under ``build/`` by ``tools/make_synthetic_scannet.py``;
+    ``ScanNetDataset``, the loader and ``train_model`` for 2 epochs
+    (``flagship.votenet_scannet_cfg``: depth points with height,
+    alignment, 40,000 points, flips, rotation; AdamW, clip 10; an eval
+    every epoch through ``indoor_eval``, its IoU on K10), from seeded
+    weights, every K14 call of the loop and every K10 call of its evals
+    recorded and held against its plain version on its own inputs (K14
+    as ``k14_case``; K10 within 1e-5, exact zeros, the pairs float32 does
+    not settle left out, ``iou_case``). Then ``single_device_test`` of the
+    val split (timed) and ``evaluate`` on the card (timed, K10's launches
+    zeroed just before and read just after) against ``evaluate`` with the
+    plain IoU on the same detections: equal to 1e-12, or a difference
+    reported with the pairs whose IoU crosses 0.25 or 0.5. ``tiny``
+    (rehearsals on the CPU): the tiny VoteNet."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from isfusion_tpu_torch.apis import single_device_test, train_model
+    from isfusion_tpu_torch.datasets import build_dataloader, build_dataset
+    from isfusion_tpu_torch.flagship import build_votenet, votenet_scannet_cfg
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.testing import recording_eval_ious
+    from isfusion_tpu_torch.tools.make_synthetic_scannet import make_dataset
+
+    num_points = 2000 if tiny else 40000
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="scannet_", dir=os.path.join(REPO,
+                                                                "build"))
+    try:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        make_dataset(data, train=train, val=val, points=points, seed=0)
+        fixture_s = time.perf_counter() - t0
+        cfg = votenet_scannet_cfg(data, tiny=tiny, epochs=2,
+                                  num_points=num_points)
+        model, _ = build_votenet(tiny=tiny, device=dev, seed=0)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with recording_point_ops(every=True) as k14_in, \
+                recording_eval_ious() as loop_ious:
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            records = train_model(model, build_dataset(cfg.data.train), cfg,
+                                  os.path.join(root, "work"), device=dev)
+            train_s = time.perf_counter() - t0
+            loop_launches = dict(cuda_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if dev == "cuda" else None
+        dataset = build_dataset(cfg.data.val)
+        loader = build_dataloader(dataset, samples_per_gpu=int(
+            cfg.data.samples_per_gpu), workers_per_gpu=0, shuffle=False)
+        t0 = time.perf_counter()
+        results = single_device_test(model, loader, dev)
+        predict_s = time.perf_counter() - t0
+        cuda_build.reset_launches()
+        with recording_eval_ious() as eval_ious:
+            t0 = time.perf_counter()
+            metrics = dataset.evaluate(results, device=dev)
+            evaluate_s = time.perf_counter() - t0
+        eval_launches = cuda_build.LAUNCHES["boxes_iou_3d"]
+        t0 = time.perf_counter()
+        plain = dataset.evaluate(results, device="cpu")
+        plain_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    k14 = [k14_case("scannet_loop", key[0], args, dev, False)
+           for key, args in k14_in.items()]
+    del k14_in
+    calls = [c for c in loop_ious + eval_ious if c[0] == "3d"]
+    checks = [iou_case(a, b, dev, timed=False, flips_at=SCANNET_THRESHOLDS)
+              for _, a, b in calls]
+    bad = [c for c in k14 if not c["equal"] or c.get(
+        "bwd_max_abs_err", 0.0) > 1e-6 or c.get("bwd_repeats") is False]
+    bad += [c for c in checks if c["max_abs_err"] > 1e-5 or
+            c["nonzero_where_plain_zero"]]
+    diff = max([abs(metrics[k] - plain[k]) for k in plain] + [0.0]) \
+        if set(metrics) == set(plain) else float("inf")
+    flips = sum(c["threshold_flips"] for c in checks[-len(eval_ious):]) \
+        if eval_ious else 0
+    steps = [r for r in records if "mode" not in r]
+    rec = dict(fixture=dict(train=train, val=val, points=points,
+                            seconds=fixture_s),
+               train_s=train_s, **_steps_summary(records), steps=len(steps),
+               peak_mem_gib=peak, loop_launches={
+                   k: v for k, v in loop_launches.items() if v},
+               val_in_loop=[r for r in records if "mode" in r],
+               eval_samples_per_s=len(results) / predict_s,
+               evaluate_s=evaluate_s, plain_evaluate_s=plain_s,
+               eval_k10_launches=eval_launches,
+               eval_iou_calls=len(eval_ious), metrics={
+                   k: v for k, v in metrics.items() if k.startswith("mAP")},
+               plain_metric_max_diff=diff, threshold_flips=flips,
+               k14_checked_calls=len(k14), k10_checked_calls=len(checks),
+               k14_max_abs_err=max([c["max_abs_err"] for c in k14] + [0.0]),
+               k10_max_abs_err=max([c["max_abs_err"] for c in checks]
+                                   + [0.0]),
+               k10_undetermined_pairs=sum(c["undetermined_pairs"]
+                                          for c in checks))
+    log("scannet_learn", **rec)
+    if any(not math.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError(f"non-finite loss in scannet-learn: {steps}")
+    if bad:
+        raise RuntimeError(f"scannet-learn's kernels differ from their "
+                           f"plain versions: {bad[:3]}")
+    if dev == "cuda" and eval_launches != len(eval_ious):
+        raise RuntimeError(f"indoor_eval launched K10 {eval_launches} "
+                           f"times for {len(eval_ious)} calls")
+    if diff > 1e-12 and not flips:
+        raise RuntimeError(f"ScanNet metrics on the card differ from the "
+                           f"plain IoU's: {metrics}, {plain}")
+    k14_calls = sum(loop_launches[k] for k in K14[:3])
+    if dev == "cuda" and k14_calls != sum(
+            1 for c in k14 if c["op"] in K14[:3]):
+        raise RuntimeError("scannet-learn: a K14 index call was not "
+                           "recorded")
+    return rec
+
+
+def scannet_run() -> int:
+    """``python3 chip_smoke.py --scannet``: the device and build phases,
+    then scannet-learn alone."""
+    import torch
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    phase_scannet_learn()
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7651,6 +8590,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     indoor = run_indoor_phases()
     torch.cuda.empty_cache()
+    seg = run_seg_phases()
+    torch.cuda.empty_cache()
+    scannet = phase_scannet_learn()
+    torch.cuda.empty_cache()
     # the DP ranks start, build and warm up during the variants, which
     # time nothing
     dp_ranks = start_dp_ranks()
@@ -7972,6 +8915,23 @@ def main() -> int:
                 if r["max_abs_err"] is not None]
         k["max_abs_err"] = max([k["max_abs_err"]] + errs)
     kernels += k14_kernel_records(indoor)
+    for k in kernels:
+        if k["name"] in K14:
+            for cell in SEG_CELLS:
+                k[f"{cell}_launches_per_request"] = [
+                    r[k["name"]] for r in seg[f"{cell}_serve"][
+                        "launches_per_request"]]
+            k["scannet_learn_loop_launches"] = scannet["loop_launches"].get(
+                k["name"], 0)
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   scannet["k14_max_abs_err"],
+                                   seg["k14"]["max_abs_err"])
+        elif k["name"] == "boxes_iou_3d":
+            k["scannet_eval_launches"] = scannet["eval_k10_launches"]
+            k["scannet_checked_calls"] = scannet["k10_checked_calls"]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   scannet["k10_max_abs_err"])
+    kernels += k15_kernel_records(seg)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -8959,6 +9919,10 @@ if __name__ == "__main__":
         sys.exit(votenet_run(INDOOR_VARIANT_CELLS))
     if sys.argv[1:] == ["--isfusion-learn"]:
         sys.exit(isfusion_learn_run())
+    if sys.argv[1:] == ["--seg"]:
+        sys.exit(seg_run())
+    if sys.argv[1:] == ["--scannet"]:
+        sys.exit(scannet_run())
     if sys.argv[1:] == ["--dp"]:
         sys.exit(dp_run())
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) == 3:

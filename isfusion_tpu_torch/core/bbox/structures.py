@@ -1,13 +1,13 @@
-"""LiDAR and camera 3D box containers of the data pipeline (counterpart
-of ``isfusion_tpu/core/bbox/structures.py``, its LiDAR and camera parts).
+"""LiDAR, camera and depth 3D box containers of the data pipeline
+(counterpart of ``isfusion_tpu/core/bbox/structures.py``).
 
 A numpy copy, so the port imports nothing of the JAX package: the same
 ``(x, y, z, dx, dy, dz, yaw[, vx, vy])`` rows with a bottom-centre origin
 and the same rotate / flip / translate / scale conventions (reference
-``mmdet3d/core/bbox/structures/lidar_box3d.py``, ``cam_box3d.py``), and
-``Box3DMode.convert`` between the two frames (``box_3d_mode.py``). Depth
-boxes wait for the datasets that use them; ``get_box_type`` raises for
-them.
+``mmdet3d/core/bbox/structures/lidar_box3d.py``, ``cam_box3d.py``,
+``depth_box3d.py``), and ``Box3DMode.convert`` between the LiDAR and
+camera frames (``box_3d_mode.py``). Depth boxes (x right, y front, z up)
+are the indoor datasets'.
 """
 from __future__ import annotations
 
@@ -243,12 +243,101 @@ class CameraInstance3DBoxes(_Boxes):
                 self.tensor[:, 6] = -self.tensor[:, 6]
 
 
+class DepthInstance3DBoxes(_Boxes):
+    """Boxes in depth coordinates (x right, y front, z up; yaw around z;
+    bottom-centre origin (0.5, 0.5, 0)), the indoor datasets' frame."""
+
+    MODE = Box3DMode.DEPTH
+    DEFAULT_ORIGIN = (0.5, 0.5, 0)
+
+    @property
+    def bev(self) -> np.ndarray:
+        """(N, 5) (x, y, dx, dy, yaw)."""
+        return self.tensor[:, [0, 1, 3, 4, 6]]
+
+    @property
+    def corners(self) -> np.ndarray:
+        """(N, 8, 3) corners, in the reference's order (the unit cube's
+        corners by ``unravel_index``, then 0, 1, 3, 2, 4, 5, 7, 6),
+        turned by the yaw about z."""
+        if len(self) == 0:
+            return np.zeros((0, 8, 3), np.float32)
+        norm = np.stack(np.unravel_index(np.arange(8), [2] * 3), 1).astype(
+            np.float32)[[0, 1, 3, 2, 4, 5, 7, 6]]
+        corners = self.dims[:, None, :] * (
+            norm - np.array(self.DEFAULT_ORIGIN, np.float32))[None]
+        c, s = np.cos(self.yaw), np.sin(self.yaw)
+        zero, one = np.zeros_like(c), np.ones_like(c)
+        rot = np.stack([np.stack([c, -s, zero], -1),
+                        np.stack([s, c, zero], -1),
+                        np.stack([zero, zero, one], -1)], 1)
+        return np.einsum("aij,ajk->aik", corners, rot) + \
+            self.tensor[:, None, :3]
+
+    @property
+    def nearest_bev(self) -> np.ndarray:
+        """(N, 4) axis-aligned BEV boxes (x1, y1, x2, y2), the sides
+        swapped where the yaw is nearer a right angle than 0."""
+        bev = self.bev
+        rot = np.abs(limit_period(bev[:, -1], 0.5, np.pi))
+        cond = (rot > np.pi / 4)[:, None]
+        xywh = np.where(cond, bev[:, [0, 1, 3, 2]], bev[:, :4])
+        centers, dims = xywh[:, :2], xywh[:, 2:]
+        return np.concatenate([centers - dims / 2, centers + dims / 2], -1)
+
+    def rotate(self, angle, points=None):
+        """Rotate around z by a scalar angle or a 3x3 matrix (rot_mat_T):
+        centres ``xyz @ rot_mat_T`` with the transposed matrix of the
+        angle (counter-clockwise for row vectors) and the yaw decreased by
+        it (reference ``depth_box3d.py``); ``points`` (a numpy array or
+        DepthPoints) turn with the centres. Returns rot_mat_T, or (points,
+        rot_mat_T)."""
+        angle = np.asarray(angle, dtype=np.float32)
+        if angle.size == 1:
+            rot_sin, rot_cos = np.sin(angle), np.cos(angle)
+            rot_mat_T = np.array([[rot_cos, rot_sin, 0],
+                                  [-rot_sin, rot_cos, 0],
+                                  [0, 0, 1]], dtype=np.float32)
+        else:
+            rot_mat_T = angle.T
+            angle = np.arctan2(rot_mat_T[0, 1], rot_mat_T[0, 0])
+        self.tensor[:, :3] = self.tensor[:, :3] @ rot_mat_T
+        if self.with_yaw:
+            self.tensor[:, 6] -= float(angle)
+        if points is None:
+            return rot_mat_T
+        if isinstance(points, np.ndarray):
+            points[:, :3] = points[:, :3] @ rot_mat_T
+        else:
+            points.rotate(float(angle))
+        return points, rot_mat_T
+
+    def flip(self, bev_direction: str = "horizontal", points=None):
+        """Mirror x (horizontal; yaw -> pi - yaw) or y (vertical; yaw ->
+        -yaw), and ``points`` with them."""
+        assert bev_direction in ("horizontal", "vertical")
+        if bev_direction == "horizontal":
+            self.tensor[:, 0::7] = -self.tensor[:, 0::7]
+            if self.with_yaw:
+                self.tensor[:, 6] = -self.tensor[:, 6] + np.pi
+        else:
+            self.tensor[:, 1::7] = -self.tensor[:, 1::7]
+            if self.with_yaw:
+                self.tensor[:, 6] = -self.tensor[:, 6]
+        if points is None:
+            return None
+        if isinstance(points, np.ndarray):
+            points[:, 0 if bev_direction == "horizontal" else 1] *= -1
+        else:
+            points.flip(bev_direction)
+        return points
+
+
 def get_box_type(box_type: str):
-    """'LiDAR' or 'Camera' -> (box class, Box3DMode)."""
-    kind = box_type.lower()
-    if kind == "lidar":
-        return LiDARInstance3DBoxes, Box3DMode.LIDAR
-    if kind == "camera":
-        return CameraInstance3DBoxes, Box3DMode.CAM
-    raise NotImplementedError(f"the port's data pipeline has LiDAR and "
-                              f"camera boxes, not {box_type}")
+    """'LiDAR', 'Camera' or 'Depth' -> (box class, Box3DMode)."""
+    kinds = {"lidar": (LiDARInstance3DBoxes, Box3DMode.LIDAR),
+             "camera": (CameraInstance3DBoxes, Box3DMode.CAM),
+             "depth": (DepthInstance3DBoxes, Box3DMode.DEPTH)}
+    if box_type.lower() not in kinds:
+        raise ValueError(f"unknown box type {box_type}")
+    return kinds[box_type.lower()]

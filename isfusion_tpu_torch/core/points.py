@@ -1,5 +1,5 @@
-"""LiDAR point container of the data pipeline (counterpart of
-``isfusion_tpu/core/points.py``, the LiDAR parts only).
+"""LiDAR and depth point containers of the data pipeline (counterpart of
+``isfusion_tpu/core/points.py``, its LiDAR and depth parts).
 
 A numpy copy: (N, points_dim) float32 rows, xyz first, then attribute
 dims (intensity, time lag). ``rotate(+phi)`` moves a point
@@ -36,14 +36,17 @@ class LiDARPoints:
         self.tensor = self.tensor[idx]
         return idx
 
-    def rotate(self, angle: float) -> np.ndarray:
-        """Rotate by ``angle`` around z (xyz @ rot_mat_T); returns
-        rot_mat_T."""
+    def rotate(self, angle) -> np.ndarray:
+        """Rotate by ``angle`` around z, or by a 3x3 matrix applied as
+        ``xyz @ angle`` (xyz @ rot_mat_T); returns rot_mat_T."""
         angle = np.asarray(angle, dtype=np.float32)
-        rot_sin, rot_cos = np.sin(angle), np.cos(angle)
-        rot_mat_T = np.array([[rot_cos, rot_sin, 0],
-                              [-rot_sin, rot_cos, 0],
-                              [0, 0, 1]], dtype=np.float32)
+        if angle.size == 1:
+            rot_sin, rot_cos = np.sin(angle), np.cos(angle)
+            rot_mat_T = np.array([[rot_cos, rot_sin, 0],
+                                  [-rot_sin, rot_cos, 0],
+                                  [0, 0, 1]], dtype=np.float32)
+        else:
+            rot_mat_T = angle
         self.tensor[:, :3] = self.tensor[:, :3] @ rot_mat_T
         return rot_mat_T
 
@@ -83,8 +86,21 @@ class LiDARPoints:
         return self.tensor
 
 
+class DepthPoints(LiDARPoints):
+    """Points in depth coordinates (x right, y front, z up): a horizontal
+    flip mirrors x, a vertical one y."""
+
+    def flip(self, bev_direction: str = "horizontal") -> None:
+        if bev_direction == "horizontal":
+            self.tensor[:, 0] = -self.tensor[:, 0]
+        elif bev_direction == "vertical":
+            self.tensor[:, 1] = -self.tensor[:, 1]
+
+
 def get_points_type(points_type: str):
-    if points_type.lower() != "lidar":
-        raise NotImplementedError(f"the port's data pipeline has LiDAR points "
-                                  f"only, not {points_type}")
-    return LiDARPoints
+    """'LIDAR' or 'DEPTH' -> the points class."""
+    kinds = {"lidar": LiDARPoints, "depth": DepthPoints}
+    if points_type.lower() not in kinds:
+        raise NotImplementedError(f"the port's data pipeline has LiDAR and "
+                                  f"depth points, not {points_type}")
+    return kinds[points_type.lower()]

@@ -8,7 +8,10 @@
 // every new pick; the next pick is the largest running distance among the
 // valid points (a masked point scores -1e10), the lowest index among equal
 // ones. With exact duplicates, or more samples than valid points, the
-// distances tie at 0 and the lowest index wins, as jnp.argmax picks it.
+// distances tie at 0 and the lowest index wins, as jnp.argmax picks it. On
+// NaN coordinates the plain version's order holds: a running distance
+// that meets a NaN stays NaN (torch.minimum), and a NaN ranks above every
+// number, the lowest index among NaNs (torch.argmax, jnp.argmax).
 // The PointNet++ backbone calls it at every SA level (VoteNet: 40,000 ->
 // 2,048, 2,048 -> 1,024, 1,024 -> 512, 512 -> 256) and the vote
 // aggregation once (1,024 votes -> 256).
@@ -65,8 +68,8 @@
 //   memory at every pick: their xyz from the input, their running
 //   distances from a (B, N) float32 scratch that the caller passes, which
 //   the kernel fills in its prologue (1e10 a valid point, -1e10 a masked
-//   one: a masked tail point's running distance stays -1e10, so it scores
-//   -1e10 as in the registers, and the mask is not read again). Each
+//   one: a masked tail point's running distance is never updated, so it
+//   scores -1e10 as in the registers, and the mask is not read again). Each
 //   thread reads and writes only its own tail slots, so no barrier guards
 //   them. The route has no cap on N (below 2^31); a tail point costs 20
 //   bytes of L2 traffic a pick, so its cost grows with N past the
@@ -100,10 +103,21 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
 }
 
 // a float's bits as an unsigned that orders as the float does (the running
-// distances are never -0, so -0 and +0 never meet)
+// distances are never -0, so -0 and +0 never meet). The only NaN a
+// running distance holds is nan_min's canonical 0x7fffffff, whose key
+// 0xffffffff ranks above every number (torch.argmax ranks a NaN first)
 __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// the running minimum as torch.minimum takes it: a NaN on either side
+// gives the canonical NaN (fminf would drop it), so a NaN distance stays
+// NaN; one instruction, as fminf's
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // one candidate: the key of its value, its index, its point's xyz
@@ -252,8 +266,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     Best best{absent_key, ~0u, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {       // up: ties keep the lower index
-      const float d = fminf(pd[j], sqdist(px[j], py[j], pz[j], pick.x,
-                                          pick.y, pick.z));
+      const float d = nan_min(pd[j], sqdist(px[j], py[j], pz[j], pick.x,
+                                            pick.y, pick.z));
       pd[j] = d;
       const unsigned key = (valid >> j) & 1u ? order_key(d)
                            : (here >> j) & 1u ? masked_key : absent_key;
@@ -266,9 +280,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = tail_begin + tid; i < end; i += THREADS) {
         const float* q = p + 3 * (int64_t)i;
         const float x = q[0], y = q[1], z = q[2];
-        const float d = fminf(td[i], sqdist(x, y, z, pick.x, pick.y, pick.z));
-        td[i] = d;
-        const unsigned key = order_key(d);
+        const float old = td[i];
+        unsigned key = masked_key;           // a masked point keeps -1e10
+        if (old != -1e10f) {
+          const float d = nan_min(old, sqdist(x, y, z, pick.x, pick.y,
+                                              pick.z));
+          td[i] = d;
+          key = order_key(d);
+        }
         if (key > best.key) best = Best{key, (unsigned)i, x, y, z};
       }
     }

@@ -5,8 +5,10 @@
 // mask (B, N) and queries (B, S, 3), the k smallest squared distances of
 // each query and their indices, (B, S, k) int32 and float32, ordered by
 // distance with equal distances in increasing index (lax.top_k of the
-// negated distances); a masked point lies at 1e10. The wrapper takes the
-// square root for three_nn. The PointNet++ backbone's feature propagation
+// negated distances); a masked point lies at 1e10, a NaN distance (a NaN
+// coordinate) after every number, NaNs in increasing index (the plain
+// version's stable torch.sort). The wrapper takes the square root for
+// three_nn. The PointNet++ backbone's feature propagation
 // calls it with k = 3 (VoteNet: 512 targets over 256 sources, then 1,024
 // over 512). Any 1 <= k <= N.
 //
@@ -21,20 +23,20 @@
 // TILE at a time, as float4 (x, y, z, valid); lane j takes sources j, j +
 // 32, ... (consecutive lanes on consecutive 16-byte words) and keeps the
 // KMAX smallest keys (distance, index) of its share, sorted, in registers
-// (an array indexed only in unrolled loops). A key enters only if it is
-// below the lane's last in that lexicographic order, behind every equal
-// distance (a lane's sources arrive in increasing index). Then the warp
-// merges the 32 lists: min(KMAX, k) rounds, each a butterfly of shuffles
-// on the pair (distance, index) to the warp's smallest head, written by
-// lane 0 and popped by its lane. k <= 4 and k <= 16 are two instances; a
-// larger k takes rounds of 16: each round keeps only keys above the last
-// one written (every smaller key is out already), so the k smallest come
-// in order, ceil(k / 16) scans of the sources in all. Squared distances
-// are (dx*dx + dy*dy) + dz*dz of query minus point, rounded step by step
-// (__fsub_rn, __fmul_rn, __fadd_rn), the plain version's float32
-// arithmetic with no FMA contraction, so the distances and the indices
-// are the plain version's bit for bit. Allocates nothing and does not
-// synchronise.
+// (an array indexed only in unrolled loops), each as one 64-bit key: the
+// distance's bits ordered as floats (NaN last) over the index, so that
+// one comparison orders (distance, index). A key enters only if it is
+// below the lane's last. Then the warp merges the 32 lists: min(KMAX, k)
+// rounds, each a butterfly of shuffles to the warp's smallest head,
+// written by lane 0 and popped by its lane. k <= 4 and k <= 16 are two
+// instances; a larger k takes rounds of 16: each round keeps only keys
+// above the last one written (every smaller key is out already), so the k
+// smallest come in order, ceil(k / 16) scans of the sources in all.
+// Squared distances are (dx*dx + dy*dy) + dz*dz of query minus point,
+// rounded step by step (__fsub_rn, __fmul_rn, __fadd_rn), the plain
+// version's float32 arithmetic with no FMA contraction, so the distances
+// and the indices are the plain version's bit for bit. Allocates nothing
+// and does not synchronise.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -54,9 +56,22 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-// (d, i) before (e, j) in the order of the outputs
-__device__ __forceinline__ bool before(float d, int i, float e, int j) {
-  return d < e || (d == e && i < j);
+// a candidate as one 64-bit key that orders as the outputs do: its squared
+// distance's bits (ordered as the float, every NaN above every number, as
+// torch.sort puts NaN last) over its index, so that equal distances and
+// NaNs come in increasing index
+using Key = unsigned long long;
+constexpr Key EMPTY = ~0ull;               // above every candidate
+
+__device__ __forceinline__ Key make_key(float d, int64_t i) {
+  unsigned u = __float_as_uint(d);
+  u = d != d ? 0xffffffffu : (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((Key)u << 32) | (Key)(unsigned)i;
+}
+
+__device__ __forceinline__ float key_dist(Key k) {
+  const unsigned u = (unsigned)(k >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
 template <int KMAX>
@@ -81,17 +96,12 @@ __global__ void __launch_bounds__(THREADS)
   }
   int32_t* oi = idx + (b * s + q) * k;
   float* od = dist + (b * s + q) * k;
-  // keys at or below (last_d, last_i) are written already
-  float last_d = -INFINITY;
-  int last_i = -1;
+  // keys at or below last are written already (every key is above 0)
+  Key last = 0;
   for (int done = 0; done < k; done += KMAX) {
-    float bd[KMAX];
-    int bi[KMAX];
+    Key bk[KMAX];
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      bd[j] = INFINITY;
-      bi[j] = INT_MAX;
-    }
+    for (int j = 0; j < KMAX; ++j) bk[j] = EMPTY;
     for (int64_t base = 0; base < n; base += TILE) {
       const int len = (int)(n - base < TILE ? n - base : TILE);
       __syncthreads();                     // the last tile is read
@@ -103,21 +113,16 @@ __global__ void __launch_bounds__(THREADS)
       if (!active) continue;
       for (int t = lane; t < len; t += 32) {
         const float4 v = tile[t];
-        float cd = v.w != 0.f ? sqdist(qx, qy, qz, v.x, v.y, v.z) : 1e10f;
-        int ci = (int)(base + t);
-        if (!before(last_d, last_i, cd, ci) ||
-            !before(cd, ci, bd[KMAX - 1], bi[KMAX - 1]))
-          continue;
+        Key ck = make_key(
+            v.w != 0.f ? sqdist(qx, qy, qz, v.x, v.y, v.z) : 1e10f, base + t);
+        if (ck <= last || ck >= bk[KMAX - 1]) continue;
         bool moved = false;
 #pragma unroll
         for (int j = 0; j < KMAX; ++j) {
-          if (moved || before(cd, ci, bd[j], bi[j])) {
-            const float td = bd[j];
-            const int ti = bi[j];
-            bd[j] = cd;
-            bi[j] = ci;
-            cd = td;
-            ci = ti;
+          if (moved || ck < bk[j]) {
+            const Key tk = bk[j];
+            bk[j] = ck;
+            ck = tk;
             moved = true;
           }
         }
@@ -126,32 +131,22 @@ __global__ void __launch_bounds__(THREADS)
     if (!active) continue;
     const int take = k - done < KMAX ? k - done : KMAX;
     for (int r = 0; r < take; ++r) {
-      float hd = bd[0];
-      int hi = bi[0];
+      Key h = bk[0];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        const float d2 = __shfl_xor_sync(0xffffffffu, hd, off);
-        const int i2 = __shfl_xor_sync(0xffffffffu, hi, off);
-        if (before(d2, i2, hd, hi)) {
-          hd = d2;
-          hi = i2;
-        }
+        const Key o = __shfl_xor_sync(0xffffffffu, h, off);
+        h = o < h ? o : h;
       }
       if (lane == 0) {
-        oi[done + r] = hi;
-        od[done + r] = hd;
+        oi[done + r] = (int32_t)(unsigned)h;
+        od[done + r] = key_dist(h);
       }
-      if (bi[0] == hi) {                   // the lane whose head it was
+      if (bk[0] == h) {                    // the lane whose head it was
 #pragma unroll
-        for (int j = 0; j + 1 < KMAX; ++j) {
-          bd[j] = bd[j + 1];
-          bi[j] = bi[j + 1];
-        }
-        bd[KMAX - 1] = INFINITY;
-        bi[KMAX - 1] = INT_MAX;
+        for (int j = 0; j + 1 < KMAX; ++j) bk[j] = bk[j + 1];
+        bk[KMAX - 1] = EMPTY;
       }
-      last_d = hd;
-      last_i = hi;
+      last = h;
     }
   }
 }

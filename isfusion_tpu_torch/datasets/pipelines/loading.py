@@ -29,20 +29,30 @@ def _read_points_bin(path: str, load_dim: int) -> np.ndarray:
 @PIPELINES.register_module()
 class LoadPointsFromFile:
     """results['pts_filename'] (a float32 ``.bin`` of ``load_dim`` columns)
-    -> results['points'] (LiDARPoints of the ``use_dim`` columns)."""
+    -> results['points'] (LiDAR or depth points, by ``coord_type``, of the
+    ``use_dim`` columns). ``shift_height`` appends each point's height
+    above ``percentile(z, 0.99)`` as a column (attribute ``height``)."""
 
     def __init__(self, coord_type: str = "LIDAR", load_dim: int = 5,
-                 use_dim: Sequence[int] = (0, 1, 2, 3)):
+                 use_dim: Sequence[int] = (0, 1, 2, 3),
+                 shift_height: bool = False):
         if isinstance(use_dim, int):
             use_dim = list(range(use_dim))
         self.points_cls = get_points_type(coord_type)
         self.load_dim = load_dim
         self.use_dim = list(use_dim)
+        self.shift_height = bool(shift_height)
 
     def __call__(self, results: dict) -> dict:
         pts = _read_points_bin(results["pts_filename"],
                                self.load_dim)[:, self.use_dim]
-        results["points"] = self.points_cls(pts, points_dim=pts.shape[-1])
+        attribute_dims = None
+        if self.shift_height:
+            floor = np.percentile(pts[:, 2], 0.99)
+            pts = np.concatenate([pts, (pts[:, 2] - floor)[:, None]], 1)
+            attribute_dims = dict(height=pts.shape[1] - 1)
+        results["points"] = self.points_cls(pts, points_dim=pts.shape[-1],
+                                            attribute_dims=attribute_dims)
         return results
 
 

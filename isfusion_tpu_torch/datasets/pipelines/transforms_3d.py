@@ -6,7 +6,9 @@ the LiDAR ones (``GlobalRotScaleTrans``, ``RandomFlip3D``,
 (``ImageNormalize``, ``ImageAug3D``, ``GlobalRotScaleTransV2``,
 ``RandomFlip3DV2``, ``ModalMask3D``, ``ObjectSampleV2``) and the outdoor
 KITTI ones (``ObjectNoise``, ``RandomJitterPoints``,
-``BackgroundPointsFilter``, ``VoxelBasedPointSampler``).
+``BackgroundPointsFilter``, ``VoxelBasedPointSampler``), and the indoor
+ones (``GlobalAlignment``, ``RandomDropPointsColor``,
+``IndoorPatchPointSample``).
 
 Every random draw comes from ``results['rng']``, a
 ``numpy.random.RandomState`` that the dataset seeds from (seed, epoch,
@@ -587,4 +589,158 @@ class VoxelBasedPointSampler:
             arr[..., :original_dim].astype(np.float32))
         for key, dim in fields2dim:
             data[key] = arr[..., dim]
+        return data
+
+
+@PIPELINES.register_module()
+class GlobalAlignment:
+    """The scene axis-aligned by ``ann_info['axis_align_matrix']`` (a 4x4
+    with a rotation about ``rotation_axis`` and a translation): points
+    ``xyz @ R^T + t``. ScanNet's boxes are stored aligned; the transform
+    is not reversed."""
+
+    def __init__(self, rotation_axis: int):
+        self.rotation_axis = int(rotation_axis)
+
+    def _check_rot_mat(self, rot: np.ndarray) -> None:
+        valid = np.allclose(np.linalg.det(rot), 1.0, atol=1e-5)
+        unit = np.zeros(3, rot.dtype)
+        unit[self.rotation_axis] = 1.0
+        valid &= np.allclose(rot[self.rotation_axis, :], unit)
+        valid &= np.allclose(rot[:, self.rotation_axis], unit)
+        if not valid:
+            raise ValueError(f"invalid rotation matrix {rot}")
+
+    def __call__(self, data: dict) -> dict:
+        ann = data.get("ann_info", {})
+        if "axis_align_matrix" not in ann:
+            raise KeyError("GlobalAlignment needs ann_info's "
+                           "axis_align_matrix")
+        mat = np.asarray(ann["axis_align_matrix"], np.float32)
+        if mat.shape != (4, 4):
+            raise ValueError(f"invalid axis_align_matrix {mat.shape}")
+        rot, trans = mat[:3, :3], mat[:3, 3]
+        self._check_rot_mat(rot)
+        data["points"].rotate(rot.T)
+        data["points"].translate(trans)
+        return data
+
+
+@PIPELINES.register_module()
+class RandomDropPointsColor:
+    """Every point's colour set to 0 with probability ``drop_ratio`` (one
+    draw a sample; kept as the reference's ``rand() > 1 - ratio``)."""
+
+    def __init__(self, drop_ratio: float = 0.2):
+        if not 0 <= drop_ratio <= 1:
+            raise ValueError(f"invalid drop_ratio {drop_ratio}")
+        self.drop_ratio = float(drop_ratio)
+
+    def __call__(self, data: dict) -> dict:
+        pts = data["points"]
+        if not (pts.attribute_dims and "color" in pts.attribute_dims):
+            raise KeyError("RandomDropPointsColor expects points with a "
+                           "color attribute")
+        if sample_rng(data).rand() > 1.0 - self.drop_ratio:
+            pts.tensor[:, pts.attribute_dims["color"]] = 0.0
+        return data
+
+
+@PIPELINES.register_module()
+class IndoorPatchPointSample:
+    """A column patch of the scene, then ``num_points`` of its points
+    (PointNet++'s ScanNet recipe): up to ``num_try`` random centres, the
+    points within ``block_size`` / 2 (+ ``enlarge_size``) in x and y kept
+    when the patch covers enough of a 31 x 31 x 62 grid (or has
+    ``min_unique_num`` points) and 70% of its labels are not
+    ``ignore_index``; sampled without replacement, or all of them and
+    the rest drawn again; x and y re-centred on the patch's centre;
+    ``use_normalized_coord`` appends xyz / the scene's max as attribute
+    ``normalized_coord``. The draws, in the JAX package's order: each
+    try's centre, then the choice."""
+
+    def __init__(self, num_points: int, block_size: float = 1.5,
+                 sample_rate=None, ignore_index=None,
+                 use_normalized_coord: bool = False, num_try: int = 10,
+                 enlarge_size: float = 0.2, min_unique_num=None,
+                 eps: float = 1e-2):
+        self.num_points = int(num_points)
+        self.block_size = float(block_size)
+        self.ignore_index = ignore_index
+        self.use_normalized_coord = bool(use_normalized_coord)
+        self.num_try = int(num_try)
+        self.enlarge_size = float(enlarge_size) if enlarge_size else 0.0
+        self.min_unique_num = min_unique_num
+        self.eps = float(eps)
+
+    def _patch(self, rng, coords: np.ndarray, sem: np.ndarray) -> tuple:
+        coord_max = coords.max(0)
+        coord_min = coords.min(0)
+        point_idxs = np.arange(len(coords))
+        cur_center = coords[0]
+        for _ in range(self.num_try):
+            cur_center = coords[rng.choice(len(coords))]
+            half = np.array([self.block_size / 2, self.block_size / 2, 0.0])
+            cur_max = cur_center + half
+            cur_min = cur_center - half
+            cur_max[2], cur_min[2] = coord_max[2], coord_min[2]
+            choice = np.all((coords >= cur_min - self.enlarge_size)
+                            & (coords <= cur_max + self.enlarge_size), 1)
+            if not choice.any():
+                continue
+            cur_coords = coords[choice]
+            point_idxs = np.where(choice)[0]
+            mask = np.all((cur_coords >= cur_min - self.eps)
+                          & (cur_coords <= cur_max + self.eps), 1)
+            if self.min_unique_num is None:
+                vidx = np.ceil((cur_coords[mask] - cur_min)
+                               / np.maximum(cur_max - cur_min, 1e-6)
+                               * np.array([31.0, 31.0, 62.0]))
+                vidx = np.unique(vidx[:, 0] * 31 * 62 + vidx[:, 1] * 62
+                                 + vidx[:, 2])
+                flag1 = len(vidx) / (31.0 * 31.0 * 62.0) >= 0.02
+            else:
+                flag1 = mask.sum() >= self.min_unique_num
+            flag2 = True if self.ignore_index is None else \
+                np.sum(sem[choice] != self.ignore_index) / max(
+                    len(sem[choice]), 1) >= 0.7
+            if flag1 and flag2:
+                break
+        if len(point_idxs) >= self.num_points:
+            choices = rng.choice(point_idxs, self.num_points, replace=False)
+        else:
+            dup = rng.choice(len(point_idxs),
+                             self.num_points - len(point_idxs))
+            choices = point_idxs[np.concatenate(
+                [np.arange(len(point_idxs)), dup], 0)]
+        return choices, cur_center, coord_max
+
+    def __call__(self, data: dict) -> dict:
+        pts = data["points"]
+        if "pts_semantic_mask" not in data:
+            raise KeyError("IndoorPatchPointSample needs pts_semantic_mask")
+        sem = np.asarray(data["pts_semantic_mask"])
+        coords = pts.numpy()[:, :3]
+        attrs = pts.numpy()[:, 3:]
+        choices, center, coord_max = self._patch(sample_rng(data), coords,
+                                                 sem)
+        sel_coords = coords[choices].copy()
+        sel_coords[:, 0] -= center[0]
+        sel_coords[:, 1] -= center[1]
+        sel_attrs = attrs[choices]
+        attribute_dims = dict(pts.attribute_dims or {})
+        if self.use_normalized_coord:
+            norm = coords[choices] / np.maximum(coord_max, 1e-6)
+            start = 3 + sel_attrs.shape[1]
+            sel_attrs = np.concatenate([sel_attrs, norm], 1)
+            attribute_dims["normalized_coord"] = [start, start + 1,
+                                                  start + 2]
+        new = np.concatenate([sel_coords, sel_attrs], 1).astype(np.float32)
+        out = pts.new_point(new)
+        out.attribute_dims = attribute_dims or None
+        data["points"] = out
+        data["pts_semantic_mask"] = sem[choices]
+        if data.get("pts_instance_mask") is not None:
+            data["pts_instance_mask"] = \
+                np.asarray(data["pts_instance_mask"])[choices]
         return data

@@ -1681,49 +1681,68 @@ def synthetic_indoor_batch(batch_size: int, num_points: int = 40000,
     gt_labels_3d (B, ``max_gt``) int64, gt_mask (B, ``max_gt``). numpy,
     from ``seed``."""
     rng = np.random.default_rng(seed)
-    lx, ly, lz = room
     pts = np.zeros((batch_size, num_points, 4), np.float32)
     boxes = np.zeros((batch_size, max_gt, 7), np.float32)
     labels = np.zeros((batch_size, max_gt), np.int64)
     gt_mask = np.zeros((batch_size, max_gt), bool)
     for b in range(batch_size):
-        g = int(rng.integers(8, 17))
-        size = rng.uniform(0.3, 2.0, (g, 3))
-        size[:, 2] = np.minimum(size[:, 2], lz - 0.2)
-        ctr = np.stack([rng.uniform(-lx / 2 + size[:, 0] / 2,
-                                    lx / 2 - size[:, 0] / 2),
-                        rng.uniform(-ly / 2 + size[:, 1] / 2,
-                                    ly / 2 - size[:, 1] / 2)], -1)
-        # (origin, edge u, edge v) of every scanned rectangle
-        rects = [((-lx / 2, -ly / 2, 0), (lx, 0, 0), (0, ly, 0)),
-                 ((-lx / 2, -ly / 2, 0), (lx, 0, 0), (0, 0, lz)),
-                 ((-lx / 2, ly / 2, 0), (lx, 0, 0), (0, 0, lz)),
-                 ((-lx / 2, -ly / 2, 0), (0, ly, 0), (0, 0, lz)),
-                 ((lx / 2, -ly / 2, 0), (0, ly, 0), (0, 0, lz))]
-        for (cx, cy), (dx, dy, dz) in zip(ctr, size):
-            x0, y0 = cx - dx / 2, cy - dy / 2
-            rects += [((x0, y0, dz), (dx, 0, 0), (0, dy, 0)),
-                      ((x0, y0, 0), (dx, 0, 0), (0, 0, dz)),
-                      ((x0, y0 + dy, 0), (dx, 0, 0), (0, 0, dz)),
-                      ((x0, y0, 0), (0, dy, 0), (0, 0, dz)),
-                      ((x0 + dx, y0, 0), (0, dy, 0), (0, 0, dz))]
-        o, u, v = (np.asarray(t, np.float64) for t in zip(*rects))
-        area = np.linalg.norm(np.cross(u, v), axis=-1)
-        scan = int(num_points * scan_share)
-        which = rng.choice(len(rects), scan, p=area / area.sum())
-        st = rng.uniform(size=(scan, 2))
-        xyz = o[which] + st[:, :1] * u[which] + st[:, 1:] * v[which] + \
-            rng.normal(0, 0.01, (scan, 3))
-        xyz = xyz[rng.integers(0, scan, num_points)].astype(np.float32)
-        pts[b, :, :3] = xyz
-        pts[b, :, 3] = xyz[:, 2] - np.percentile(xyz[:, 2], 0.99)
-        boxes[b, :g, :2] = ctr
-        boxes[b, :g, 3:6] = size
-        labels[b, :g] = rng.integers(0, num_classes, g)
+        r = indoor_room(rng, num_points, num_classes, room, scan_share)
+        g = len(r["labels"])
+        pts[b, :, :3] = r["xyz"]
+        pts[b, :, 3] = r["xyz"][:, 2] - np.percentile(r["xyz"][:, 2], 0.99)
+        boxes[b, :g] = r["boxes"]
+        labels[b, :g] = r["labels"]
         gt_mask[b, :g] = True
     return dict(points=pts, points_mask=np.ones((batch_size, num_points),
                                                 bool),
                 gt_bboxes_3d=boxes, gt_labels_3d=labels, gt_mask=gt_mask)
+
+
+def indoor_room(rng: np.random.Generator, num_points: int, num_classes: int,
+                room=(8.0, 8.0, 3.0), scan_share: float = 0.75,
+                resample: bool = True) -> dict:
+    """One room of ``synthetic_indoor_batch``, drawn from ``rng``: ``xyz``
+    (num_points, 3) float32, ``boxes`` (G, 7) bottom-centred (yaw 0),
+    ``labels`` (G,), and each point's surface ``part``: 0 the floor, 1-4
+    the walls, 5 + g the box g's top and sides. ``resample`` False: the
+    scan itself (``scan_share * num_points`` distinct points), not drawn
+    again with replacement."""
+    lx, ly, lz = room
+    g = int(rng.integers(8, 17))
+    size = rng.uniform(0.3, 2.0, (g, 3))
+    size[:, 2] = np.minimum(size[:, 2], lz - 0.2)
+    ctr = np.stack([rng.uniform(-lx / 2 + size[:, 0] / 2,
+                                lx / 2 - size[:, 0] / 2),
+                    rng.uniform(-ly / 2 + size[:, 1] / 2,
+                                ly / 2 - size[:, 1] / 2)], -1)
+    # (origin, edge u, edge v) of every scanned rectangle
+    rects = [((-lx / 2, -ly / 2, 0), (lx, 0, 0), (0, ly, 0)),
+             ((-lx / 2, -ly / 2, 0), (lx, 0, 0), (0, 0, lz)),
+             ((-lx / 2, ly / 2, 0), (lx, 0, 0), (0, 0, lz)),
+             ((-lx / 2, -ly / 2, 0), (0, ly, 0), (0, 0, lz)),
+             ((lx / 2, -ly / 2, 0), (0, ly, 0), (0, 0, lz))]
+    for (cx, cy), (dx, dy, dz) in zip(ctr, size):
+        x0, y0 = cx - dx / 2, cy - dy / 2
+        rects += [((x0, y0, dz), (dx, 0, 0), (0, dy, 0)),
+                  ((x0, y0, 0), (dx, 0, 0), (0, 0, dz)),
+                  ((x0, y0 + dy, 0), (dx, 0, 0), (0, 0, dz)),
+                  ((x0, y0, 0), (0, dy, 0), (0, 0, dz)),
+                  ((x0 + dx, y0, 0), (0, dy, 0), (0, 0, dz))]
+    o, u, v = (np.asarray(t, np.float64) for t in zip(*rects))
+    area = np.linalg.norm(np.cross(u, v), axis=-1)
+    scan = int(num_points * scan_share)
+    which = rng.choice(len(rects), scan, p=area / area.sum())
+    st = rng.uniform(size=(scan, 2))
+    xyz = o[which] + st[:, :1] * u[which] + st[:, 1:] * v[which] + \
+        rng.normal(0, 0.01, (scan, 3))
+    pick = rng.integers(0, scan, num_points) if resample else \
+        np.arange(scan)
+    part = np.where(which < 5, which, 5 + (which - 5) // 5)[pick]
+    boxes = np.zeros((g, 7), np.float32)
+    boxes[:, :2] = ctr
+    boxes[:, 3:6] = size
+    return dict(xyz=xyz[pick].astype(np.float32), boxes=boxes,
+                labels=rng.integers(0, num_classes, g), part=part)
 
 
 def _build_indoor(cfg: dict, device, seed: int, batch_fn):
@@ -2150,3 +2169,284 @@ def build_imvotenet(tiny: bool = False, device=None, seed: int = 0
     else:
         batch_fn = synthetic_sunrgbd_batch
     return _build_indoor(imvotenet_model_cfg(tiny), device, seed, batch_fn)
+
+
+# ------------------------------------------------ semantic segmentation
+# the segmentors' classes: ScanNet's 20 (wall 0, floor 1) and S3DIS's 13
+# (floor 1, wall 2); a synthetic point's label is its surface's
+SCANNET_SEG_CLASSES = ("wall", "floor", "cabinet", "bed", "chair", "sofa",
+                       "table", "door", "window", "bookshelf", "picture",
+                       "counter", "desk", "curtain", "refrigerator",
+                       "showercurtrain", "toilet", "sink", "bathtub",
+                       "otherfurniture")
+S3DIS_SEG_CLASSES = ("ceiling", "floor", "wall", "beam", "column", "window",
+                     "door", "table", "chair", "sofa", "bookcase", "board",
+                     "clutter")
+_SEG_SA = dict(num_points=(1024, 256, 64, 16), radius=(0.1, 0.2, 0.4, 0.8),
+               num_samples=(32, 32, 32, 32),
+               sa_channels=((32, 32, 64), (64, 64, 128), (128, 128, 256),
+                            (256, 256, 512)), fp_channels=())
+_SEG_TINY_SA = dict(num_points=(128, 64), radius=(0.4, 0.8),
+                    num_samples=(8, 8), sa_channels=((8, 8, 16), (16, 16, 32)),
+                    fp_channels=())
+
+
+def pointnet2seg_model_cfg(tiny: bool = False) -> dict:
+    """PointNet++ (SSG) semantic segmentation: mmdet3d's
+    ``pointnet2_ssg_16x2_cosine_200e_scannet_seg-3d-20class.py`` on
+    ``_base_/models/pointnet2_ssg.py``: PointNet2SASSG over 9 channels
+    (xyz, rgb, normalised xyz; SA 1,024 / 256 / 64 / 16 points, radii 0.1
+    / 0.2 / 0.4 / 0.8, 32 samples, widths (32, 32, 64) ... (256, 256,
+    512), no FP), PointNet2Head (FP (768, 256, 256), (384, 256, 256), (320,
+    256, 128), (128, 128, 128, 128), 128 channels, dropout 0.5, 20
+    classes, ignore_index 20). The config's class weights of the loss are
+    ScanNet's label statistics, which the synthetic rooms do not have: the
+    loss is unweighted, as the JAX package's default. Float32. ``tiny``:
+    the JAX package's test model (``tests/test_models/test_segmentor.py``:
+    SA 128 / 64 points, 5 classes) over the same 9 channels."""
+    sa = _SEG_TINY_SA if tiny else _SEG_SA
+    head = dict(type="PointNet2Head", num_classes=5, ignore_index=5,
+                channels=16, fp_channels=((48, 16, 16), (19, 16, 16)),
+                dropout_ratio=0.5) if tiny else dict(
+        type="PointNet2Head", num_classes=20, ignore_index=20, channels=128,
+        fp_channels=((768, 256, 256), (384, 256, 256), (320, 256, 128),
+                     (128, 128, 128, 128)), dropout_ratio=0.5)
+    return dict(type="EncoderDecoder3D", backbone=dict(
+        type="PointNet2SASSG", in_channels=9, norm_cfg=dict(type="BN2d"),
+        sa_cfg=dict(type="PointSAModule", pool_mod="max", use_xyz=True,
+                    normalize_xyz=False), **sa), decode_head=head)
+
+
+def paconvseg_model_cfg(tiny: bool = False) -> dict:
+    """PAConv (SSG) semantic segmentation: mmdet3d's
+    ``paconv_ssg_8x8_cosine_150e_s3dis_seg-3d-13class.py`` on
+    ``_base_/models/paconv_ssg.py``: PAConvSASSG over 9 channels at
+    PointNet++'s SA widths, 16 kernels (``sa_cfg['num_kernels']``),
+    ScoreNet (16, 16, 16) with softmax; PAConvHead (the JAX package's
+    ``fp_channels``, 128 channels, dropout 0.5, 13 classes, ignore_index
+    13). The JAX package groups by the ball query at the PointNet++ radii
+    where the config groups by k nearest neighbours (ROADMAP). Float32.
+    ``tiny``: SA 128 / 64 points, 4 kernels, 4 classes."""
+    sa = _SEG_TINY_SA if tiny else _SEG_SA
+    head = dict(type="PAConvHead", num_classes=4, ignore_index=4,
+                channels=16, fp_channels=((48, 16, 16), (19, 16, 16)),
+                dropout_ratio=0.5) if tiny else dict(
+        type="PAConvHead", num_classes=13, ignore_index=13, channels=128,
+        dropout_ratio=0.5)
+    return dict(type="EncoderDecoder3D", backbone=dict(
+        type="PAConvSASSG", in_channels=9, norm_cfg=dict(type="BN2d"),
+        sa_cfg=dict(type="PAConvSAModule", pool_mod="max", use_xyz=True,
+                    normalize_xyz=False, num_kernels=4 if tiny else 16),
+        **sa), decode_head=head)
+
+
+def pointnet2seg_optim_cfg() -> dict:
+    """The PointNet++ ScanNet recipe (``seg_cosine_200e.py``): Adam (lr
+    0.001, weight decay 0.01), no clip, CosineAnnealing to 1e-5
+    (``min_lr_ratio`` 0.01), ``samples_per_gpu`` 16 (``16x2``), 200
+    epochs."""
+    return dict(optimizer=dict(type="Adam", lr=0.001, weight_decay=0.01),
+                optimizer_config=dict(grad_clip=None),
+                lr_config=dict(policy="CosineAnnealing", warmup=None,
+                               min_lr_ratio=0.01),
+                momentum_config=None, samples_per_gpu=16, max_epochs=200)
+
+
+def paconvseg_optim_cfg() -> dict:
+    """The PAConv S3DIS recipe (``seg_cosine_150e.py``): SGD (lr 0.2,
+    momentum 0.9, weight decay 1e-4), no clip, CosineAnnealing to 0.002
+    (``min_lr_ratio`` 0.01), ``samples_per_gpu`` 8 (``8x8``), 150
+    epochs."""
+    return dict(optimizer=dict(type="SGD", lr=0.2, momentum=0.9,
+                               weight_decay=0.0001),
+                optimizer_config=dict(grad_clip=None),
+                lr_config=dict(policy="CosineAnnealing", warmup=None,
+                               min_lr_ratio=0.01),
+                momentum_config=None, samples_per_gpu=8, max_epochs=150)
+
+
+SEG_ROOM_POINTS = 300000
+SCANNET_SEG_PATCH = dict(block_size=1.5, use_normalized_coord=True,
+                         enlarge_size=0.2, min_unique_num=None)
+S3DIS_SEG_PATCH = dict(block_size=1.0, use_normalized_coord=True,
+                       num_try=10000, enlarge_size=None, eps=0.0)
+
+
+def synthetic_seg_batch(batch_size: int, num_points: int = 8192,
+                        classes=SCANNET_SEG_CLASSES, seed: int = 0,
+                        room=(8.0, 8.0, 3.0), patch=None) -> dict:
+    """A segmentation batch in the JAX package's contract, from
+    ``indoor_room``'s rooms: points (B, N, 9) float32 (xyz; rgb in [0, 1],
+    one colour a surface plus noise; xyz over the room's max, the
+    ``use_normalized_coord`` columns), points_mask all True,
+    pts_semantic_mask (B, N) int64: the floor 'floor', the walls 'wall', a
+    box's points its class (the classes after those two, by the box's
+    label), and 10% of the points the ignored label (the number of
+    classes, the configs' ``ignore_index``). ``patch`` None: the room drawn
+    to ``num_points`` points (the tiny models'); else the keyword arguments
+    of ``IndoorPatchPointSample`` (``SCANNET_SEG_PATCH``,
+    ``S3DIS_SEG_PATCH``; ``ignore_index`` and ``min_unique_num``, where
+    absent, the configs': the ignored label and ``num_points // 4``): each
+    sample a block of ``num_points`` points cut by that transform from a
+    scan of ``SEG_ROOM_POINTS`` distinct points, re-centred on the block in
+    x and y, as the configs' train pipelines cut it. numpy, from
+    ``seed``."""
+    from .core.points import DepthPoints
+    from .datasets.pipelines.transforms_3d import IndoorPatchPointSample
+
+    rng = np.random.default_rng(seed)
+    k = len(classes)
+    floor, wall = classes.index("floor"), classes.index("wall")
+    objects = [i for i in range(k) if i not in (floor, wall)]
+    cut = None if patch is None else IndoorPatchPointSample(num_points, **{
+        "ignore_index": k, "min_unique_num": num_points // 4, **patch})
+    pts = np.zeros((batch_size, num_points, 9), np.float32)
+    sem = np.zeros((batch_size, num_points), np.int64)
+    for b in range(batch_size):
+        if cut is None:
+            r = indoor_room(rng, num_points, len(objects), room)
+        else:
+            r = indoor_room(rng, SEG_ROOM_POINTS, len(objects), room, 1.0,
+                            resample=False)
+        part = r["part"]
+        xyz = r["xyz"]
+        n = len(xyz)
+        colour = rng.uniform(0, 1, (5 + len(r["labels"]), 3))
+        rgb = np.clip(colour[part] + rng.normal(0, 0.05, (n, 3)), 0, 1)
+        obj = np.asarray(objects)[r["labels"]]
+        lab = np.where(part == 0, floor, np.where(
+            part < 5, wall, obj[np.maximum(part - 5, 0)]))
+        lab[rng.uniform(size=n) < 0.1] = k
+        if cut is None:
+            pts[b, :, :3] = xyz
+            pts[b, :, 3:6] = rgb
+            pts[b, :, 6:] = xyz / np.maximum(xyz.max(0), 1e-6)
+            sem[b] = lab
+            continue
+        data = cut(dict(points=DepthPoints(
+            np.concatenate([xyz, rgb], 1).astype(np.float32), 6,
+            attribute_dims=dict(color=[3, 4, 5])), pts_semantic_mask=lab,
+            rng=np.random.RandomState(int(rng.integers(2 ** 31)))))
+        pts[b] = data["points"].numpy()
+        sem[b] = data["pts_semantic_mask"]
+    return dict(points=pts, points_mask=np.ones((batch_size, num_points),
+                                                bool),
+                pts_semantic_mask=sem)
+
+
+def _build_segmentor(cfg: dict, device, seed: int, batch_fn):
+    from .models.builder import build_segmentor
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    return init_weights(build_segmentor(cfg), seed).to(dev).eval(), batch_fn
+
+
+def build_pointnet2seg(tiny: bool = False, device=None, seed: int = 0
+                       ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): PointNet++ segmentation
+    (``pointnet2seg_model_cfg(tiny)``) with weights drawn from ``seed``,
+    in eval mode on ``device`` (default: the CUDA card), and
+    ``batch_fn(batch_size, seed=0)`` giving ``synthetic_seg_batch`` at
+    ScanNet's 20 classes, 8,192 points a 1.5 m patch (tiny: 5 classes, a
+    4 x 4 x 2.5 m room of 256 points)."""
+    classes = SCANNET_SEG_CLASSES[:5] if tiny else SCANNET_SEG_CLASSES
+
+    def batch_fn(b, seed=0):
+        if tiny:
+            return synthetic_seg_batch(b, 256, classes, seed=seed,
+                                       room=(4.0, 4.0, 2.5))
+        return synthetic_seg_batch(b, 8192, classes, seed=seed,
+                                   patch=SCANNET_SEG_PATCH)
+    return _build_segmentor(pointnet2seg_model_cfg(tiny), device, seed,
+                            batch_fn)
+
+
+def build_paconvseg(tiny: bool = False, device=None, seed: int = 0
+                    ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): PAConv segmentation (``paconvseg_model_cfg
+    (tiny)``) as ``build_pointnet2seg``, its batch at S3DIS's 13 classes,
+    4,096 points a 1.0 m patch (tiny: 4 classes, 256 points)."""
+    classes = S3DIS_SEG_CLASSES[:4] if tiny else S3DIS_SEG_CLASSES
+
+    def batch_fn(b, seed=0):
+        if tiny:
+            return synthetic_seg_batch(b, 256, classes, seed=seed,
+                                       room=(4.0, 4.0, 2.5))
+        return synthetic_seg_batch(b, 4096, classes, seed=seed,
+                                   patch=S3DIS_SEG_PATCH)
+    return _build_segmentor(paconvseg_model_cfg(tiny), device, seed,
+                            batch_fn)
+
+
+# ------------------------------------------------------- the ScanNet loop
+def votenet_scannet_cfg(data_root: str, tiny: bool = False, epochs: int = 2,
+                        num_points: int = 40000):
+    """VoteNet's train -> eval loop on a ScanNet layout (``tools/
+    make_synthetic_scannet.py``): the model of ``votenet_model_cfg(tiny)``,
+    ``ScanNetDataset`` splits from ``scannet_infos_{train,val}.pkl``, and
+    ``votenet_8x8_scannet-3d-18class.py``'s train pipeline as far as the
+    JAX package has it: LoadPointsFromFile (DEPTH, ``shift_height``,
+    ``load_dim`` 6, ``use_dim`` [0, 1, 2]), LoadAnnotations3D,
+    GlobalAlignment (z), PointSample (``num_points``), RandomFlip3D (0.5 /
+    0.5), GlobalRotScaleTrans (+-5 degrees, no scale, ``shift_height``),
+    the format bundle and Collect3D. Left out, as the JAX package has
+    them not: the instance and semantic mask loading and
+    ``PointSegClassMapping``. The test pipeline loads, aligns and samples
+    (the config's MultiScaleFlipAug3D runs no flip and no rotation).
+    ``tiny``: the tiny VoteNet's 4 classes, the others' boxes filtered out.
+    ``votenet_optim_cfg``'s recipe over ``epochs``, eval and checkpoint
+    every epoch, every step logged. A ``Config``."""
+    import os
+
+    from .config import Config
+
+    classes = ["cabinet", "bed", "chair", "sofa", "table", "door", "window",
+               "bookshelf", "picture", "counter", "desk", "curtain",
+               "refrigerator", "showercurtrain", "toilet", "sink", "bathtub",
+               "garbagebin"][:4 if tiny else 18]
+    load = dict(type="LoadPointsFromFile", coord_type="DEPTH",
+                shift_height=True, load_dim=6, use_dim=[0, 1, 2])
+    bundle = dict(type="DefaultFormatBundle3D", class_names=classes,
+                  max_points=num_points, max_gt=64)
+    train_pipeline = [
+        load,
+        dict(type="LoadAnnotations3D", with_bbox_3d=True,
+             with_label_3d=True)] + ([
+            dict(type="ObjectNameFilter", classes=classes)] if tiny else []) + [
+        dict(type="GlobalAlignment", rotation_axis=2),
+        dict(type="PointSample", num_points=num_points),
+        dict(type="RandomFlip3D", flip_ratio_bev_horizontal=0.5,
+             flip_ratio_bev_vertical=0.5),
+        dict(type="GlobalRotScaleTrans", rot_range=[-0.087266, 0.087266],
+             scale_ratio_range=[1.0, 1.0], shift_height=True),
+        bundle,
+        dict(type="Collect3D", keys=["points", "gt_bboxes_3d",
+                                     "gt_labels_3d"])]
+    test_pipeline = [
+        load, dict(type="GlobalAlignment", rotation_axis=2),
+        dict(type="PointSample", num_points=num_points),
+        dict(bundle, with_label=False), dict(type="Collect3D",
+                                             keys=["points"])]
+
+    def split(name, pipeline, test_mode):
+        return dict(type="ScanNetDataset", data_root=data_root,
+                    ann_file=os.path.join(data_root,
+                                          f"scannet_infos_{name}.pkl"),
+                    pipeline=pipeline, classes=classes, test_mode=test_mode)
+
+    optim = votenet_optim_cfg()
+    return Config(dict(
+        model=votenet_model_cfg(tiny),
+        data=dict(samples_per_gpu=optim["samples_per_gpu"],
+                  workers_per_gpu=0,
+                  train=split("train", train_pipeline, False),
+                  val=split("val", test_pipeline, True),
+                  test=split("val", test_pipeline, True)),
+        optimizer=optim["optimizer"],
+        optimizer_config=optim["optimizer_config"],
+        lr_config=optim["lr_config"],
+        momentum_config=optim["momentum_config"],
+        total_epochs=epochs, runner=dict(max_epochs=epochs),
+        evaluation=dict(interval=1), checkpoint_config=dict(interval=1),
+        log_config=dict(interval=1), seed=0))

@@ -21,8 +21,11 @@ channels, xyz included, as in the reference (the JAX package ignores it).
 A max pool's gradient goes in equal parts to the tied maxima (``amax``,
 as ``jnp.max``): a ball with fewer than K points repeats its first one.
 ``normalize_xyz`` is read from ``sa_cfg`` (default False), as the JAX
-package reads it. ``sa_cfg`` of a PAConv type raises: PAConv (K15) is
-ROADMAP queue 1 item 3.
+package reads it. An ``sa_cfg`` whose type names PAConv (``PAConvSASSG``)
+runs a stack of ``ops/paconv.py:PAConv`` layers (``mlps.{scale}.layer{j}``,
+``num_kernels`` from ``sa_cfg``, default 8) on each ball's grouped
+features and ``grouped_xyz`` in place of the shared MLP; it groups by the
+ball query, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from ...ops.pointnet_ops import (ball_query, furthest_point_sample,
                                  gather_points, group_points,
                                  interpolation_weights, three_interpolate,
                                  three_nn)
+from ...ops.paconv import PAConv
 from ..layers import MaskedBatchNorm
 
 
@@ -77,21 +81,41 @@ class SharedMLP(nn.Module):
                                                            device=x.device))
 
 
+class PAConvMLP(nn.Module):
+    """``layer{j}`` PAConv layers (the reference's ``PAConvSAModule`` mlp):
+    ``forward(g (B, S, K, C), grouped_xyz (B, S, K, 3), valid)``."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 num_kernels: int):
+        super().__init__()
+        self.names = []
+        for j, c in enumerate(channels):
+            self.names.append(f"layer{j}")
+            self.add_module(self.names[-1], PAConv(in_channels, int(c),
+                                                   num_kernels=num_kernels))
+            in_channels = int(c)
+
+    def forward(self, g, grouped_xyz, valid):
+        for name in self.names:
+            g = getattr(self, name)(g, grouped_xyz, valid)
+        return g
+
+
 class PointSAModule(nn.Module):
     """Single- or multi-scale set abstraction: ``forward(xyz (B, N, 3),
     feats (B, N, C) or None, mask (B, N))`` -> (new_xyz (B, S, 3),
-    new_feats (B, S, C'), indices (B, S) int32, new_mask (B, S))."""
+    new_feats (B, S, C'), indices (B, S) int32, new_mask (B, S)).
+    ``sa_type='paconv'``: PAConv layers of ``num_kernels`` kernels in
+    place of the shared MLP."""
 
     def __init__(self, num_point: int, radii: Sequence[float],
                  sample_nums: Sequence[int], mlp_channels,
                  in_channels: int, use_xyz: bool = True,
                  pool_mod: str = "max", normalize_xyz: bool = False,
-                 sa_type: str = "mlp"):
+                 sa_type: str = "mlp", num_kernels: int = 8):
         super().__init__()
-        if sa_type != "mlp":
-            raise NotImplementedError(
-                "PAConv set abstraction (K15) is not ported: ROADMAP queue 1 "
-                "item 3")
+        if sa_type not in ("mlp", "paconv"):
+            raise ValueError(f"sa_type {sa_type!r}")
         if pool_mod not in ("max", "avg"):
             raise ValueError(f"pool_mod {pool_mod!r}")
         mlps = mlp_channels
@@ -103,7 +127,10 @@ class PointSAModule(nn.Module):
         self.use_xyz, self.pool_mod = bool(use_xyz), pool_mod
         self.normalize_xyz = bool(normalize_xyz)
         cin = int(in_channels) + (3 if use_xyz else 0)
-        self.mlps = nn.ModuleList(SharedMLP(cin, ch) for ch in mlps)
+        self.paconv = sa_type == "paconv"
+        self.mlps = nn.ModuleList(
+            PAConvMLP(cin, ch, int(num_kernels)) if self.paconv
+            else SharedMLP(cin, ch) for ch in mlps)
 
     def forward(self, xyz, feats, mask):
         idx = furthest_point_sample(xyz, self.num_point, mask)      # (B, S)
@@ -120,7 +147,7 @@ class PointSAModule(nn.Module):
                 parts.append(group_points(feats, gi))
             g = torch.cat(parts, -1)                            # (B, S, K, C)
             valid = gv & new_mask[:, :, None]
-            g = mlp(g, valid)
+            g = mlp(g, grouped_xyz, valid) if self.paconv else mlp(g, valid)
             if self.pool_mod == "max":
                 g = g.masked_fill(~valid[..., None], float("-inf")).amax(2)
                 g = torch.where(torch.isfinite(g), g, torch.zeros(
@@ -156,7 +183,9 @@ class PointNet2SASSG(nn.Module):
     ``forward(points (B, N, 3 + C), points_mask (B, N))`` -> dict of the SA
     and FP pyramids (``sa_xyz``, ``sa_features``, ``sa_masks``, ``fp_xyz``,
     ``fp_features``, ``fp_masks``) and ``fp_indices``, the last FP level's
-    points' indices in the input cloud (the heads read ``fp_*[-1]``)."""
+    points' indices in the input cloud (the heads read ``fp_*[-1]``).
+    ``sa_channels_out`` holds the widths of ``sa_features`` (the input's
+    features first; a segmentation head takes them)."""
 
     def __init__(self, in_channels: int = 4,
                  num_points: Sequence[int] = (2048, 1024, 512, 256),
@@ -181,8 +210,10 @@ class PointNet2SASSG(nn.Module):
                 use_xyz=bool(sa_cfg.get("use_xyz", True)),
                 pool_mod=sa_cfg.get("pool_mod", "max"),
                 normalize_xyz=bool(sa_cfg.get("normalize_xyz", False)),
-                sa_type=sa_type))
+                sa_type=sa_type,
+                num_kernels=int(sa_cfg.get("num_kernels", 8))))
             channels.append(int(sa_channels[i][-1]))
+        self.sa_channels_out = list(channels)
         self.FP_modules = nn.ModuleList()
         source = channels[-1]
         for i, ch in enumerate(fp_channels):
@@ -220,3 +251,11 @@ class PointNet2SASSG(nn.Module):
         return dict(sa_xyz=sa_xyz, sa_features=sa_feats, sa_masks=sa_masks,
                     fp_xyz=fp_xyz, fp_features=fp_feats, fp_masks=fp_masks,
                     fp_indices=fp_indices)
+
+
+def PAConvSASSG(**kwargs) -> PointNet2SASSG:
+    """PointNet2SASSG with PAConv set abstraction (the reference's
+    ``sa_cfg=dict(type='PAConvSAModule')`` composition for scene
+    segmentation; the JAX package's ``PAConvSASSG``)."""
+    kwargs.setdefault("sa_cfg", dict(type="PAConvSAModule"))
+    return PointNet2SASSG(**kwargs)

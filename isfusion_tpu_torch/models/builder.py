@@ -1,19 +1,21 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
 CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN,
 FreeAnchor, ImVoxelNet, VoteNet, H3DNet, SSD3DNet, GroupFree3DNet and
-ImVoteNet paths (counterpart of
+ImVoteNet paths and the PointNet++ and PAConv segmentors (counterpart of
 ``isfusion_tpu/models/builder.py``): config dicts with a ``type`` key
 become modules through the port's registries."""
 from __future__ import annotations
 
 from ..registry import (BACKBONES, DETECTORS, FUSION_LAYERS, HEADS,
-                        MIDDLE_ENCODERS, NECKS, VOXEL_ENCODERS, build_from_cfg)
+                        MIDDLE_ENCODERS, NECKS, SEGMENTORS, VOXEL_ENCODERS,
+                        build_from_cfg)
 from .backbones.multi_backbone import MultiBackbone
-from .backbones.pointnet2 import PointNet2SASSG
+from .backbones.pointnet2 import PAConvSASSG, PointNet2SASSG
 from .backbones.regnet import NoStemRegNet, RegNet
 from .backbones.resnet import ResNet
 from .backbones.second import SECOND, SECONDV2
 from .backbones.swin import SwinTransformer
+from .decode_heads.pointnet2_head import PAConvHead, PointNet2Head
 from .dense_heads.anchor3d_head import Anchor3DHead
 from .dense_heads.centerpoint_head import CenterHead
 from .dense_heads.fcos_mono3d_head import FCOSMono3DHead
@@ -40,7 +42,8 @@ from .voxel_encoders import (DynamicFusionVFE, DynamicPillarFeatureNet,
 for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (BACKBONES, SECOND), (BACKBONES, ResNet),
                    (BACKBONES, RegNet), (BACKBONES, NoStemRegNet),
-                   (BACKBONES, PointNet2SASSG), (BACKBONES, MultiBackbone),
+                   (BACKBONES, PointNet2SASSG), (BACKBONES, PAConvSASSG),
+                   (BACKBONES, MultiBackbone),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
                    (NECKS, FPN), (NECKS, YOLOXPAFPN),
                    (FUSION_LAYERS, PointFusion),
@@ -58,7 +61,8 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (HEADS, CenterHead), (HEADS, FCOSMono3DHead),
                    (HEADS, ShapeAwareHead), (HEADS, FreeAnchor3DHead),
                    (HEADS, PartAggregationROIHead), (HEADS, VoteHead),
-                   (HEADS, SSD3DHead), (HEADS, GroupFree3DHead)):
+                   (HEADS, SSD3DHead), (HEADS, GroupFree3DHead),
+                   (HEADS, PointNet2Head), (HEADS, PAConvHead)):
     _reg.register_module(module=_cls)
 
 
@@ -94,3 +98,10 @@ def build_detector(cfg):
                             mvx_two_stage, parta2, single_stage_mono3d,
                             transfusion, voxelnet, votenet)
     return build_from_cfg(dict(cfg), DETECTORS)
+
+
+def build_segmentor(cfg):
+    """Build a segmentor from its config dict (on the CPU, uninitialised,
+    as ``build_detector``)."""
+    from .segmentors import encoder_decoder  # noqa: F401
+    return build_from_cfg(dict(cfg), SEGMENTORS)

@@ -66,6 +66,10 @@ SIGNATURES = {
     "three_nn": ([_P, _P, _P, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
     "point_gather": ([_P, _P], _I),
     "point_gather_scratch": ([_LL, _LL], _LL),
+    # K15: PAConv's contractions (ops/paconv.py)
+    "paconv_bank": ([_P, _P], _I),
+    "paconv_bank_chunks": ([_LL, _LL, _LL, _LL], _LL),
+    "paconv_score": ([_P, _P], _I),
     # no kernel of a path: the floor of one launch, timed by chip_smoke.py
     "empty_launch": ([_P], _I),
 }
@@ -73,12 +77,15 @@ SIGNATURES = {
 # entry points that live in another kernel's source: K10-BEV is K10's
 # kernel without the vertical overlap; K10-circle's route past its
 # one-launch size shares its source; K14-FPS's cluster size and
-# K14-gather's and K14-ball's scratch words (queries, no launch)
+# K14-gather's and K14-ball's scratch words (queries, no launch); K15's
+# two kernels and K15-bank's chunk query share one source
 SOURCES = {"boxes_iou_bev": "boxes_iou_3d",
            "nms_circle_pairwise": "nms_circle",
            "fps_cluster": "furthest_point_sample",
            "point_gather_scratch": "point_gather",
-           "ball_query_scratch": "ball_query"}
+           "ball_query_scratch": "ball_query",
+           "paconv_bank": "paconv", "paconv_bank_chunks": "paconv",
+           "paconv_score": "paconv"}
 
 # launches per kernel, and "segment_layout": the lists that K1's list stage
 # built for a K2 caller that passed none (ops/voxel.py:segment_layout);

@@ -109,6 +109,7 @@ BACKBONES = Registry("backbones", parent=MODELS)
 NECKS = Registry("necks", parent=MODELS)
 HEADS = Registry("heads", parent=MODELS)
 DETECTORS = Registry("detectors", parent=MODELS)
+SEGMENTORS = Registry("segmentors", parent=MODELS)
 VOXEL_ENCODERS = Registry("voxel_encoders", parent=MODELS)
 MIDDLE_ENCODERS = Registry("middle_encoders", parent=MODELS)
 FUSION_LAYERS = Registry("fusion_layers", parent=MODELS)

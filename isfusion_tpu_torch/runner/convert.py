@@ -80,6 +80,16 @@ under ``decoder_layers.{i}`` (``self_attn``, ``multihead_attn``,
 ImVoteNet's ``img_fuse`` keeps its name; its ``img_backbone_m`` is a
 ResNet read by the camera rules (``img_backbone.``).
 
+The segmentors (``EncoderDecoder3D``'s ``backbone_m`` and
+``decode_head_m``) are point trees too: a PAConv SA layer ``sa{i}/
+paconv{scale}_{j}`` is ``backbone.SA_modules.{i}.mlps.{scale}.layer{j}``
+(its ``weight_bank`` as it is, in the reference's (C, M O) layout, its
+``bn``, ScoreNet's ``fc{k}`` / ``bn{k}`` as ``scorenet.mlps.layer{k}.
+conv`` / ``.bn`` and ``fc_out`` as the last ``layer{n}.conv``); the
+head's ``fp{i}`` is ``decode_head.FP_modules.{i}.mlps``, ``pre_seg``
+``decode_head.pre_seg_conv`` (Conv1d, BN) and ``cls_seg``
+``decode_head.conv_seg``.
+
 The port keeps its own copy of this mapping (it imports nothing of the
 JAX package).
 """
@@ -424,6 +434,25 @@ _POINT_RULES = [(re.compile(p), t, k) for p, t, k in [
      lambda m: _stream(m) + f"SA_modules.{m[2]}.mlps.{m[3]}.layer{m[5]}", None),
     (_SA + r"fp(\d+)/mlp/(fc|bn)(\d+)",
      lambda m: _stream(m) + f"FP_modules.{m[2]}.mlps.layer{m[4]}", None),
+    # PAConv SA layers: the bank, the layer's BN, ScoreNet's layers (its
+    # last conv numbered after the walk, ``_point_state_dict``)
+    (_SA + r"sa(\d+)/paconv(\d+)_(\d+)",
+     lambda m: _stream(m) + f"SA_modules.{m[2]}.mlps.{m[3]}.layer{m[4]}",
+     "leaf"),
+    (_SA + r"sa(\d+)/paconv(\d+)_(\d+)/bn",
+     lambda m: _stream(m) + f"SA_modules.{m[2]}.mlps.{m[3]}.layer{m[4]}.bn",
+     "norm"),
+    (_SA + r"sa(\d+)/paconv(\d+)_(\d+)/scorenet/(fc|bn)(\d+)",
+     lambda m: _stream(m) + f"SA_modules.{m[2]}.mlps.{m[3]}.layer{m[4]}."
+     f"scorenet.mlps.layer{m[6]}", None),
+    (_SA + r"sa(\d+)/paconv(\d+)_(\d+)/scorenet/fc_out",
+     lambda m: _stream(m) + f"SA_modules.{m[2]}.mlps.{m[3]}.layer{m[4]}."
+     f"scorenet.mlps.out.conv", "conv2d1x1"),
+    # a segmentor's decode head
+    (r"decode_head_m/fp(\d+)/mlp/(fc|bn)(\d+)",
+     r"decode_head.FP_modules.\1.mlps.layer\3", None),
+    (r"decode_head_m/pre_seg/(fc|bn)0", "decode_head.pre_seg_conv", None),
+    (r"decode_head_m/cls_seg", "decode_head.conv_seg", "conv1d"),
     (r"backbone_m/agg_(\d+)",
      r"backbone.aggregation_layers.layer\1.conv", "conv1d"),
     (r"backbone_m/Norm_(\d+)/BatchNorm_0",
@@ -543,6 +572,8 @@ def _point_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
                 sd[f"{key}.{_NORM_LEAF[leaf]}"] = v
                 if leaf == "mean":
                     sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+            elif kind == "leaf":
+                sd[f"{key}.{leaf}"] = v
             elif leaf == "bias":
                 sd[f"{key}.bias"] = v
             else:
@@ -557,6 +588,14 @@ def _point_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
     for leaf in ("weight", "bias"):
         if f"{head}out.{leaf}" in sd:
             sd[f"{head}layer{n}.conv.{leaf}"] = sd.pop(f"{head}out.{leaf}")
+    # ScoreNet's last conv follows its hidden layers
+    outs = [k for k in sd if ".scorenet.mlps.out.conv." in k]
+    depth = {base: len({x[len(base) + 1:].split(".")[0] for x in sd
+                        if x.startswith(base + ".layer")})
+             for base in {k.split(".out.conv.")[0] for k in outs}}
+    for k in outs:
+        base, leaf = k.split(".out.conv.")
+        sd[f"{base}.layer{depth[base]}.conv.{leaf}"] = sd.pop(k)
     out = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
     if image:
         out.update(state_dict_from_jax(image))

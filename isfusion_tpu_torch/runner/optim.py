@@ -10,7 +10,9 @@
   which is AdamW at ``lr * lr_mult``. Or ``torch.optim.SGD`` (FCOS3D:
   momentum, weight decay) with mmcv's paramwise rules: a custom key's
   ``lr_mult`` / ``decay_mult``, else ``bias_lr_mult`` and
-  ``bias_decay_mult`` on the biases of every layer but the norms.
+  ``bias_decay_mult`` on the biases of every layer but the norms. Or
+  ``torch.optim.Adam`` (the PointNet++ segmentation config: mmcv's Adam,
+  the weight decay added to the gradient).
 - ``build_schedule``: sets every group's ``lr`` and ``betas[0]`` before
   each step from a copy of the JAX cyclic policy (mmcv CyclicLrUpdater /
   CyclicMomentumUpdater: cosine from the base value to ``base *
@@ -141,14 +143,15 @@ def _paramwise_mults(model: torch.nn.Module, paramwise: dict):
 
 def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict
                     ) -> torch.optim.Optimizer:
-    """AdamW or SGD with a param group per (``lr_mult``, ``decay_mult``)
+    """AdamW, Adam or SGD with a param group per (``lr_mult``,
+    ``decay_mult``)
     of ``_paramwise_mults``; each group records its ``lr_mult`` (the
     schedule sets ``lr = lr(count) * lr_mult``)."""
     cfg = dict(optimizer_cfg)
     kind = cfg.pop("type", "AdamW").lower()
-    if kind not in ("adamw", "sgd"):
-        raise NotImplementedError(f"the port's optimizers are AdamW and SGD, "
-                                  f"not {optimizer_cfg.get('type')}")
+    if kind not in ("adamw", "adam", "sgd"):
+        raise NotImplementedError(f"the port's optimizers are AdamW, Adam "
+                                  f"and SGD, not {optimizer_cfg.get('type')}")
     lr = float(cfg.pop("lr", 1e-3))
     wd = float(cfg.pop("weight_decay", 0.01 if kind == "adamw" else 0.0))
     paramwise = dict(cfg.pop("paramwise_cfg", None) or {})
@@ -163,6 +166,9 @@ def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict
                                momentum=float(cfg.pop("momentum", 0.0)),
                                weight_decay=wd)
     betas = tuple(float(b) for b in cfg.pop("betas", (0.9, 0.999)))
+    if kind == "adam":       # mmcv's Adam: the decay added to the gradient
+        return torch.optim.Adam(param_groups, lr=lr, betas=betas,
+                                weight_decay=wd)
     return torch.optim.AdamW(param_groups, lr=lr, betas=betas,
                              weight_decay=wd)
 

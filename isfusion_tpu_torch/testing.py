@@ -895,7 +895,7 @@ def point_op_sets(gen: np.random.Generator):
     masked; a sample of 50,000 points (GroupFree3D's ScanNet input). Then
     the small clouds of
     ``POINT_SET_ROWS``, whose gathers take other row widths and an
-    unaligned view. numpy."""
+    unaligned view. Last, NaN coordinates (``NAN_SETS``). numpy."""
     f32 = np.float32
 
     def cloud(b, n, scale=2.0):
@@ -977,7 +977,41 @@ def point_op_sets(gen: np.random.Generator):
         sets.append((name, xyz, np.ones((2, 200), bool), cloud(2, 24), 0.8,
                      16, 48))
     sets += _ball_grid_sets(gen, cloud)
+    sets.append(_nan_set(gen, cloud))
     return sets
+
+
+# the sets of ``point_op_sets`` with NaN coordinates: their distances,
+# interpolation weights and interpolations are NaN where the plain versions
+# give NaN, so the checks of values take "equal or both NaN"
+NAN_SETS = ("nan_coordinates",)
+
+
+def _nan_set(gen: np.random.Generator, cloud) -> tuple:
+    """NaN coordinates, as K14-ball's card test makes them, for K14-FPS and
+    K14-NN: sample 0 has 30 points with one NaN coordinate (the first 10
+    followed by a masked row, 5 of the others masked themselves) and NaN
+    queries (4 all NaN, one with a NaN y); sample 1 is NaN throughout;
+    sample 2's first 5 rows are masked and NaN, its first valid row (5) is
+    NaN too. The running distances of FPS take NaN from a NaN point or a
+    NaN pick and rank it first (torch.minimum, torch.argmax); K-NN puts NaN
+    distances after every number (a stable torch.sort). 3,000 points a
+    sample: one block, or a cluster of 8 or 16, by the route."""
+    b, n = 3, 3000
+    xyz = cloud(b, n)
+    mask = np.ones((b, n), bool)
+    rows = gen.choice(np.arange(1, n - 1), 30, replace=False)
+    xyz[0, rows, gen.integers(0, 3, 30)] = np.nan
+    mask[0, rows[:10] + 1] = False
+    mask[0, rows[10:15]] = False
+    xyz[1] = np.nan
+    xyz[2, :6] = np.nan
+    mask[2, :5] = False
+    q = xyz[:, 100:140].copy()
+    q[0, :4] = np.nan
+    q[0, 6, 1] = np.nan
+    q[2, 7] = cloud(1, 1)[0, 0]
+    return ("nan_coordinates", xyz, mask, q, 0.3, 16, 64)
 
 
 def _radius_edge(q: float, r2: float, sign: int) -> tuple:

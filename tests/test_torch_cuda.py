@@ -53,7 +53,15 @@ of plain autograd's and equal over two calls, the features' gradient
 equal to the sums in slot order (the backward's list, rows of up to
 3,000 slots), the list counted apart from K2's; the tiny VoteNet
 and H3DNet on the card against the CPU as the tiny ImVoxelNet (losses
-1e-4 relative, gradients 1e-3 of their max).
+1e-4 relative, gradients 1e-3 of their max). On the NaN set
+(``testing.NAN_SETS``) K14-FPS by every route and K14-NN by both
+instances and its rounds past 16: indices equal, distances NaN where the
+plain version's are, every index inside [0, N). K15 (``ops/paconv.py``):
+K15-bank and K15-score forward and every gradient within 1e-5 of the max
+of the plain version's float64 values on adversarial sets (zero rows, M
+= 1, O off the tiles, odd C, one row; repeated indices, a row named by
+every slot, rows named by none), the gradients bit-equal over two calls;
+the tiny segmentors on the card against the CPU as the tiny VoteNet.
 """
 import contextlib
 
@@ -66,10 +74,10 @@ from isfusion_tpu_torch.ops import (box_ops, cuda_build, gaussian, scatter,
                                     sparse_conv, voxel)
 from isfusion_tpu_torch.ops import pointnet_ops as pn
 from isfusion_tpu_torch.ops.gather import masked_gather, masked_gather_ref
-from isfusion_tpu_torch.testing import (POINT_SET_ROWS, degenerate_box_sets,
-                                       fps_large_cloud, iou_undetermined,
-                                       offset_rows, point_op_sets,
-                                       slot_order_grad)
+from isfusion_tpu_torch.testing import (NAN_SETS, POINT_SET_ROWS,
+                                       degenerate_box_sets, fps_large_cloud,
+                                       iou_undetermined, offset_rows,
+                                       point_op_sets, slot_order_grad)
 
 pytestmark = pytest.mark.cuda
 
@@ -1665,8 +1673,15 @@ def test_tiny_imvoxelnet_predict_on_card_matches_cpu(card):
 
 # ------------------------------------------------ K14 (the PointNet++ ops)
 POINT_SETS = [s[0] for s in point_op_sets(np.random.default_rng(14))]
-# the gathers' sets: every set, the ball grid's among them
-GATHER_SETS = POINT_SETS
+# the gathers' sets: every set, the ball grid's among them; the NaN sets
+# (NaN interpolation weights) are held by their own test
+GATHER_SETS = [n for n in POINT_SETS if n not in NAN_SETS]
+
+
+def _same_or_both_nan(a, b) -> bool:
+    """Bit-equal, NaN where the other is NaN."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
 
 
 def _point_set(name, card):
@@ -1689,7 +1704,7 @@ def _launched(name, fn):
 def test_k14_index_kernels_match_plain_versions(card, name):
     """K14-FPS, K14-ball and K14-NN (k = 1, 3, 8, 16) bit-equal to their
     plain versions on the adversarial sets: indices, valid flags, squared
-    distances."""
+    distances (NaN where the plain version's are)."""
     xyz, mask, q, radius, k, s = _point_set(name, card)
     got = _launched("furthest_point_sample",
                     lambda: pn.furthest_point_sample(xyz, s, mask))
@@ -1703,7 +1718,7 @@ def test_k14_index_kernels_match_plain_versions(card, name):
             got = _launched("three_nn", lambda: pn.knn(kk, xyz, q, mask))
             want = pn.knn_ref(kk, xyz, q, mask)
             assert torch.equal(got[0], want[0]), kk
-            assert torch.equal(got[1], want[1]), kk
+            assert _same_or_both_nan(got[1], want[1]), kk
 
 
 @pytest.mark.parametrize("name", GATHER_SETS)
@@ -1772,7 +1787,7 @@ def test_k14_gathers_match_plain_versions(card, name):
                 float(c_.abs().max()), 1e-30), op
 
 
-@pytest.mark.parametrize("name", POINT_SETS + ["one_row", "long_rows"])
+@pytest.mark.parametrize("name", GATHER_SETS + ["one_row", "long_rows"])
 def test_k14_slot_lists_match_plain_version(card, name):
     """K14-gather's list (the CSR of the slots that read each source row,
     each row's in increasing order), held through the backward that builds
@@ -1907,7 +1922,46 @@ def test_k14_knn_past_16_matches_plain_version(card, name):
             got = _launched("three_nn", lambda: pn.knn(kk, xyz, q, mask))
             want = pn.knn_ref(kk, xyz, q, mask)
             assert torch.equal(got[0], want[0]), kk
-            assert torch.equal(got[1], want[1]), kk
+            assert _same_or_both_nan(got[1], want[1]), kk
+
+
+@pytest.mark.parametrize("route", ["block", "cluster8", "cluster16", "tail",
+                                   "knn"])
+def test_k14_fps_and_knn_on_nan_coordinates(card, route):
+    """``NAN_SETS`` by every route: K14-FPS's picks (one block, clusters of
+    8 and 16, and the tail route on a 70,000-point cloud whose samples hold
+    NaN points in registers and in the tail, one sample all NaN, NaN next
+    to masked rows) and K14-NN's indices (k = 1, 3, 4, 5, 16, 17 and 40:
+    both instances and the rounds past 16) bit-equal to the plain
+    versions', distances NaN where theirs are, every index inside [0,
+    N)."""
+    for name in NAN_SETS:
+        xyz, mask, q, _, _, s = _point_set(name, card)
+        n = xyz.shape[1]
+        if route == "knn":
+            for kk in (1, 3, 4, 5, 16, 17, 40):
+                got = _launched("three_nn", lambda: pn.knn(kk, xyz, q, mask))
+                want = pn.knn_ref(kk, xyz, q, mask)
+                assert torch.equal(got[0], want[0]), kk
+                assert _same_or_both_nan(got[1], want[1]), kk
+                assert int(got[0].min()) >= 0 and int(got[0].max()) < n
+            continue
+        if route == "tail":
+            n = 70_000
+            xyz, mask, _ = fps_large_cloud(n, card)
+            gen = torch.Generator(card).manual_seed(3)
+            rows = torch.randint(1, n - 1, (40,), generator=gen,
+                                 device=card)
+            xyz[0, rows[:20], 0] = float("nan")          # registers, tail
+            xyz[0, n - 100:n - 90, 2] = float("nan")     # the last share
+            mask[0, rows[:5] + 1] = False
+            xyz[1] = float("nan")
+            s = 300
+        cluster = dict(block=1, cluster8=8, cluster16=16, tail=8)[route]
+        got = _launched("furthest_point_sample", lambda: pn.fps_launch(
+            xyz, s, mask, cluster))
+        assert torch.equal(got, pn.furthest_point_sample_ref(xyz, s, mask))
+        assert int(got.min()) >= 0 and int(got.max()) < n
 
 
 def test_k14_at_votenets_first_level(card):
@@ -2059,3 +2113,132 @@ def test_tiny_votenet_on_card_matches_cpu(card, name):
         names = [n for n in gc if n.split(".")[0] == top]
         assert rel(torch.cat([gg[n].flatten() for n in names]),
                    torch.cat([gc[n].flatten() for n in names])) <= 1e-3, top
+
+
+# ------------------------------------------------ K15 (PAConv, paconv.cu)
+def _rel(a, b) -> float:
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return float((a.double() - b).abs().max()) / max(scale, 1e-30) \
+        if a.numel() else 0.0
+
+
+# (R, C, M, O, rows all zero): paconvseg's SA1 layer 1 at batch 2, a
+# masked ball's zero rows, M = 1, O off the 32 / 64 tiles, odd C, 1 row
+BANK_SETS = dict(sa1=(65536, 18, 16, 32, False),
+                 sa4=(1024, 518, 16, 256, False),
+                 rows_zero=(2048, 18, 16, 32, True), m1=(3000, 64, 1, 64,
+                                                         False),
+                 o37=(1000, 130, 16, 37, False), o70=(777, 64, 4, 70, False),
+                 c7=(2500, 7, 8, 33, False), r1=(1, 18, 16, 32, False))
+
+
+@pytest.mark.parametrize("name", sorted(BANK_SETS))
+def test_k15_bank_matches_plain_version(card, name):
+    """K15-bank forward and backward (dX, dS, dW) within 1e-5 of the max
+    of the plain version's float64 values on the same inputs, the
+    gradients bit-equal over two calls; one launch a forward, two a
+    backward (dX with dS, then dW)."""
+    from isfusion_tpu_torch.ops import paconv
+    r, c, m, o, zero = BANK_SETS[name]
+    gen = torch.Generator(card).manual_seed(r + c)
+    x = torch.randn((r, c), generator=gen, device=card)
+    if zero:
+        x.zero_()
+    s = torch.softmax(torch.randn((r, m), generator=gen, device=card), -1)
+    w = torch.randn((c, m * o), generator=gen, device=card) / c ** 0.5
+    g = torch.randn((r, o), generator=gen, device=card)
+    runs = []
+    for _ in range(2):
+        ins = [a.clone().requires_grad_(True) for a in (x, s, w)]
+        out = _launched("paconv_bank", lambda: paconv.paconv_bank(*ins))
+        before = cuda_build.LAUNCHES["paconv_bank"]
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["paconv_bank"] == before + 2
+        runs.append([out.detach()] + [a.grad for a in ins])
+    ins = [a.double().requires_grad_(True) for a in (x, s, w)]
+    want = paconv.paconv_bank_ref(*ins)
+    want.backward(g.double())
+    for got, ref in zip(runs[0], [want.detach()] + [a.grad for a in ins]):
+        assert _rel(got, ref) <= 1e-5, name
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        assert torch.equal(a, b), name
+    with torch.no_grad():
+        assert torch.equal(paconv.paconv_bank(x, s, w), runs[0][0])
+
+
+# (B, N, S, K, M, O, aggregate, case): paconvseg's SA1 train shape, one
+# row named by every slot of a sample, M = 1 with O = 37 (avg), K = 1
+SCORE_SETS = dict(sa1_train=((8, 4096, 1024, 32, 16, 32), "sum", None),
+                  one_row=((2, 300, 64, 16, 4, 37), "sum", "one_row"),
+                  m1_o37=((2, 500, 64, 8, 1, 37), "avg", None),
+                  k1=((1, 200, 100, 1, 16, 32), "sum", None))
+
+
+@pytest.mark.parametrize("name", sorted(SCORE_SETS))
+def test_k15_score_matches_plain_version(card, name):
+    """K15-score forward and the gradients of the scores and both
+    features within 1e-5 of the max of the plain version's float64
+    values, knn with repeated indices and rows named by no slot (the last
+    10% of N), the gradients bit-equal over two calls; one launch a
+    forward, three a backward."""
+    from isfusion_tpu_torch.ops import paconv
+    (b, n, s, k, m, o), agg, case = SCORE_SETS[name]
+    gen = torch.Generator(card).manual_seed(n + s)
+    sc = torch.softmax(torch.randn((b, s, k, m), generator=gen,
+                                   device=card), -1)
+    pf = torch.randn((b, n, m, o), generator=gen, device=card)
+    cf = torch.randn((b, n, m, o), generator=gen, device=card)
+    knn = torch.randint(0, int(n * 0.9), (b, s, k), generator=gen,
+                        device=card, dtype=torch.int32)
+    rep = torch.rand((b, s, k), generator=gen, device=card) < 0.3
+    knn = torch.where(rep, knn[..., :1], knn)
+    if case == "one_row":
+        knn[0] = 3
+    g = torch.randn((b, s, k, o), generator=gen, device=card)
+    runs = []
+    for _ in range(2):
+        ins = [a.clone().requires_grad_(True) for a in (sc, pf, cf)]
+        out = _launched("paconv_score", lambda: paconv.assign_score_withk(
+            *ins, knn, agg))
+        before = cuda_build.LAUNCHES["paconv_score"]
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["paconv_score"] == before + 3
+        runs.append([out.detach()] + [a.grad for a in ins])
+    ins = [a.double().requires_grad_(True) for a in (sc, pf, cf)]
+    want = paconv.assign_score_withk_ref(*ins, knn, agg)
+    want.backward(g.double())
+    for got, ref in zip(runs[0], [want.detach()] + [a.grad for a in ins]):
+        assert _rel(got, ref) <= 1e-5, name
+    for a, c in zip(runs[0][1:], runs[1][1:]):
+        assert torch.equal(a, c), name
+    assert not runs[0][2][:, int(n * 0.9):].any()
+
+
+def test_k15_tiny_segmentors_on_card_match_cpu(card):
+    """The tiny PointNet++ and PAConv segmentors in float32 (TF32 off) on
+    the card against the CPU, dropout off: logits 1e-3 of their max, the
+    loss 1e-4 relative, the gradients 1e-3 of their max; K15-bank in the
+    PAConv forward and backward."""
+    from isfusion_tpu_torch import flagship
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for build in (flagship.build_pointnet2seg, flagship.build_paconvseg):
+        res = []
+        for d in ("cuda", "cpu"):
+            model, batch_fn = build(tiny=True, device=d, seed=1)
+            model.decode_head.dropout_ratio = 0.0
+            batch = batch_fn(2, seed=3)
+            before = cuda_build.LAUNCHES["paconv_bank"]
+            logits = model(batch, mode="feats", device=d).cpu()
+            model.train()
+            loss = model(batch, mode="loss", device=d)["loss_sem_seg"]
+            loss.backward()
+            if d == "cuda" and build is flagship.build_paconvseg:
+                assert cuda_build.LAUNCHES["paconv_bank"] > before
+            res.append((logits, float(loss), torch.cat([
+                p.grad.cpu().flatten() for p in model.parameters()])))
+        (lg, sg, gg), (lc, sc, gc) = res
+        assert float((lg - lc).abs().max()) <= 1e-3 * float(lc.abs().max())
+        assert abs(sg - sc) <= 1e-4 * abs(sc)
+        assert float((gg - gc).abs().max()) <= 1e-3 * float(gc.abs().max())

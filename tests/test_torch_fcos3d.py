@@ -191,8 +191,10 @@ def test_camera_boxes_match_jax():
         atol=1e-6)
     assert structures.get_box_type("Camera") == (
         structures.CameraInstance3DBoxes, structures.Box3DMode.CAM)
-    with pytest.raises(NotImplementedError):
-        structures.get_box_type("Depth")
+    assert structures.get_box_type("Depth") == (
+        structures.DepthInstance3DBoxes, structures.Box3DMode.DEPTH)
+    with pytest.raises(ValueError):
+        structures.get_box_type("Radar")
 
 
 # ------------------------------------------------------------------ head
@@ -485,8 +487,8 @@ def test_config_sgd_matches_the_reference_oracle():
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), state[name][0],
                                    rtol=1e-5, atol=1e-7, err_msg=name)
-    with pytest.raises(NotImplementedError, match="AdamW and SGD"):
-        toptim.build_optimizer(model, dict(type="Adam"))
+    with pytest.raises(NotImplementedError, match="AdamW, Adam and SGD"):
+        toptim.build_optimizer(model, dict(type="RMSprop"))
 
 
 def test_adamw_takes_the_bias_multipliers():

@@ -35,12 +35,13 @@ import torch
 from isfusion_tpu.ops import pointnet_ops as J
 from isfusion_tpu_torch.ops import pointnet_ops as P
 from isfusion_tpu_torch.testing import (BALL_GRID_SETS as GRID_SETS,
-                                       POINT_SET_ROWS, offset_rows,
-                                       point_op_sets)
+                                       NAN_SETS, POINT_SET_ROWS,
+                                       offset_rows, point_op_sets)
 from torch_parity import assert_close_to_max
 
 SETS = point_op_sets(np.random.default_rng(0))
-NAMES = [s[0] for s in SETS]
+# the NaN sets are held by their own test (values equal or both NaN)
+NAMES = [s[0] for s in SETS if s[0] not in NAN_SETS]
 # the sets that K14-ball's grid and K14-NN's merge added are held against
 # JAX in the ball query and K-NN (FPS sees them on the card)
 OTHER_NAMES = [n for n in NAMES if n not in GRID_SETS]
@@ -101,6 +102,76 @@ def test_knn_matches_jax(name, k):
     gi, gd = P.knn(k, *_t(xyz, q), _t(mask)[0])
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     assert_close_to_max(gd.numpy(), np.asarray(wd), 1e-6)
+
+
+def _close_or_both_nan(got, want, tol=1e-6):
+    """NaN at the same places, the other values within ``tol`` of their
+    max (the tolerance of the sets without NaN)."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert_close_to_max(got[~np.isnan(got)], want[~np.isnan(want)], tol)
+
+
+@pytest.mark.parametrize("op", ["fps", "ball", "knn3", "knn8", "knn17",
+                                "knn64", "three_nn"])
+def test_point_ops_on_nan_coordinates_match_jax(op):
+    """``NAN_SETS``: the plain versions equal the JAX ops on NaN points and
+    queries: FPS, ball-query and K-NN indices equal, every index inside
+    [0, N); K-NN's squared distances and three_nn's distances, weights and
+    interpolation NaN where JAX's are and elsewhere within 1e-6 of their
+    max. The orders agree: a running FPS
+    distance that meets a NaN stays NaN and ranks first (``torch.minimum``
+    and ``torch.argmax`` as ``jnp.minimum`` and ``jnp.argmax``), a NaN
+    distance sorts after every number (``torch.sort``; ``lax.top_k`` of the
+    negated distance, whose sign bit is set: a NaN ranks by its sign bit
+    there, so a NaN coordinate with the sign bit set would sort first in
+    JAX; the set's NaNs are numpy's, sign bit clear)."""
+    for name in NAN_SETS:
+        _, xyz, mask, q, radius, k, s = _set(name)
+        n = xyz.shape[1]
+        pj, qj, mj = map(jnp.asarray, (xyz, q, mask))
+        pt, qt, mt = (*_t(xyz, q), _t(mask)[0])
+        if op == "fps":
+            want = jax.vmap(lambda p, m: J.furthest_point_sample(p, s, m))(
+                pj, mj)
+            got = P.furthest_point_sample(pt, s, mt)
+            idx = [got.numpy()]
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        elif op == "ball":
+            wi, wv = jax.vmap(lambda p, qq, m: J.ball_query(
+                radius, k, p, qq, m))(pj, qj, mj)
+            gi, gv = P.ball_query(radius, k, qt.new_tensor(xyz), qt, mt)
+            idx = [gi.numpy()]
+            np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+            np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+        elif op.startswith("knn"):
+            kk = int(op[3:])
+            wi, wd = jax.vmap(lambda p, qq, m: J.knn(kk, p, qq, m))(
+                pj, qj, mj)
+            gi, gd = P.knn(kk, pt, qt, mt)
+            idx = [gi.numpy()]
+            np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+            _close_or_both_nan(gd.numpy(), np.asarray(wd))
+            assert np.isnan(gd.numpy()).any()
+        else:
+            feats = np.random.default_rng(1).normal(
+                size=xyz.shape[:2] + (5,)).astype(np.float32)
+
+            def jax_interp(p, qq, m, f):
+                d, i = J.three_nn(qq, p, m)
+                w = J.interpolation_weights(d)
+                return d, i, w, J.three_interpolate(f, i, w)
+
+            wd, wi, ww, wo = jax.vmap(jax_interp)(pj, qj, mj,
+                                                  jnp.asarray(feats))
+            d, i = P.three_nn(qt, pt, mt)
+            w = P.interpolation_weights(d)
+            out = P.three_interpolate(_t(feats)[0], i, w)
+            idx = [i.numpy()]
+            np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+            for got, want in ((d, wd), (w, ww), (out, wo)):
+                _close_or_both_nan(got.numpy(), np.asarray(want))
+        assert all(int(a.min()) >= 0 and int(a.max()) < n for a in idx)
 
 
 @pytest.mark.parametrize("name", OTHER_NAMES)
