@@ -495,6 +495,14 @@ and ``index_add_``, with digests) on them, and the FPS routes and chain
 floors where TREE has them: two checkouts compared in turns in one call
 (``k14_compare``).
 
+``python3 chip_smoke.py --k15 TREE`` serves and trains the full-width
+PAConv segmentor with the port imported from the checkout TREE, records
+K15-bank's calls (paconvseg's 12 layer shapes at serve and at train) and
+times K15-bank on each: forward and forward + backward in event and
+device ms, ``torch.matmul`` + einsum in float32 and with TF32 allowed, the
+float32 and 3xTF32 bounds, digests of the outputs: two checkouts compared
+in turns in one call (``k15_compare``).
+
 ``python3 chip_smoke.py --learn WORK_DIR`` runs the learnability recipe in
 full (48 train / 16 val samples, 100 epochs, ``learn_run``) and leaves
 ``WORK_DIR/train_log.jsonl``.
@@ -520,6 +528,7 @@ N_REQUESTS = 5
 N_TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12               # H100 SXM float32 rate, no tensor cores
+TF32_OPS_PER_S = 495e12             # H100 SXM dense TF32 tensor-core rate
 MICRO_SHAPE = (145_000, 1536, 145_408)  # (V, F, N) of micro_dma_gather.py
 
 
@@ -6176,23 +6185,56 @@ def phase_seg_train(name: str, model, batch: dict, optim: dict,
     return rec
 
 
-def bank_bound(r: int, c: int, m: int, o: int, backward: bool = False
-               ) -> tuple:
+def bank_bound(r: int, c: int, m: int, o: int, backward: bool = False,
+               tc: bool = False) -> tuple:
     """(ms, 'bytes' or 'operations') of K15-bank on (R, C) rows, M kernels,
     O outputs: 2 R C M O + 2 R M O float operations forward (the product
     and the scores' sum); backward 4 R C M O + 4 R M C (G = dY W_m^T once,
     dX and dS both from it, dW = A^T dY), over 67 TFLOP/s, against x, s, W
     read once and y written once (backward: x, s, W, dY read, dX, dS, dW
-    written) over 3.35 TB/s."""
+    written) over 3.35 TB/s. ``tc``: the 3xTF32 bound, three TF32
+    products an operation over the tensor cores' 495 TFLOP/s."""
     if backward:
         ops = 4 * r * c * m * o + 4 * r * m * c
         nbytes = 4 * (2 * r * c + 2 * r * m + 2 * c * m * o + r * o)
     else:
         ops = 2 * r * c * m * o + 2 * r * m * o
         nbytes = 4 * (r * c + r * m + c * m * o + r * o)
-    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * ops / TF32_OPS_PER_S if tc else ops / F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
+
+
+def bank_library_tf32(x, s, w, want) -> tuple:
+    """(ms, error relative to the max of ``want``) of ``torch.matmul`` +
+    einsum with TF32 matrix products allowed: one TF32 pass, a yardstick
+    of time and accuracy that the port does not take."""
+    import torch
+    r, m = s.shape
+    o = w.shape[1] // m
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        def run():
+            return torch.einsum("rm,rmo->ro", s,
+                                torch.matmul(x, w).view(r, m, o))
+        got = run()
+        ms = cuda_ms(run, "cuda", iters=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    err = float((got.double() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+    return ms, err
+
+
+def launch_rounded_ms(ops: dict, keep=lambda name: True) -> float:
+    """Device ms a call of ``device_kernels``' operations whose name
+    ``keep`` takes: each one's mean ms a launch times its launches a call,
+    rounded (at least 1): a trace can miss some launches of a run, which
+    leaves a count below the calls'."""
+    return sum(max(1, round(n)) * ms for name, (n, ms) in ops.items()
+               if keep(name))
 
 
 def k15_bank_case(label: str, args, dev: str, timed: bool) -> dict:
@@ -6200,8 +6242,10 @@ def k15_bank_case(label: str, args, dev: str, timed: bool) -> dict:
     same inputs: the forward and the three gradients (of a seeded output
     gradient) within 1e-5 of their max, two kernel backwards bit-equal;
     ``timed``: event ms, whole-call device ms, the plain version's ms,
-    ``torch.matmul`` + einsum's (the library column), the bound; forward +
-    backward ms, the plain version's, the backward's bound."""
+    ``torch.matmul`` + einsum's (the library column) and, with TF32
+    allowed, its ms and error (``bank_library_tf32``), the float32 and
+    3xTF32 bounds (``bank_bound``) and the device ms' share of each;
+    forward + backward ms, the plain version's, the backward's bounds."""
     import torch
     from isfusion_tpu_torch.ops import paconv
     x, s, w = (a.to(dev) for a in args)
@@ -6237,17 +6281,21 @@ def k15_bank_case(label: str, args, dev: str, timed: bool) -> dict:
                                  .max()) if r else 0.0,
                bwd_repeats=repeats, bound_ms=bound[0], bound_by=bound[1],
                ok=max(errs) <= 1e-5 and (repeats or dev != "cuda"))
+    rec["tc_bound_ms"] = bank_bound(r, c, m, o, tc=True)[0]
     if timed and dev == "cuda":
         xs, ss, ws_ = x, s, w
         rec["ms"] = cuda_ms(lambda: paconv.paconv_bank(xs, ss, ws_), dev,
                             iters=10)
-        rec["device_ms"] = k14_device_ms(
-            lambda: paconv.paconv_bank(xs, ss, ws_))[0]
+        ops = k14_device_ms(lambda: paconv.paconv_bank(xs, ss, ws_),
+                            heavy=False)[1]
+        rec["device_ms"] = launch_rounded_ms(ops) if ops else "not measured"
         rec["plain_ms"] = cuda_ms(
             lambda: paconv.paconv_bank_ref(xs, ss, ws_), dev, iters=5)
         rec["library_ms"] = cuda_ms(lambda: torch.einsum(
             "rm,rmo->ro", ss, torch.matmul(xs, ws_).view(r, m, o)), dev,
             iters=5)
+        rec["library_tf32_ms"], rec["library_tf32_rel_err"] = \
+            bank_library_tf32(xs, ss, ws_, wants[0])
         ins = [a.clone().requires_grad_(True) for a in (x, s, w)]
 
         def fwd_bwd(fn):
@@ -6260,6 +6308,10 @@ def k15_bank_case(label: str, args, dev: str, timed: bool) -> dict:
         rec["plain_fwd_bwd_ms"] = cuda_ms(fwd_bwd(paconv.paconv_bank_ref),
                                           dev, iters=3)
         rec["backward_bound_ms"] = bank_bound(r, c, m, o, True)[0]
+        rec["backward_tc_bound_ms"] = bank_bound(r, c, m, o, True, True)[0]
+        if isinstance(rec["device_ms"], float):
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            rec["tc_bound_share"] = rec["tc_bound_ms"] / rec["device_ms"]
     return rec
 
 
@@ -6348,25 +6400,34 @@ def k15_score_case(label: str, args, dev: str, timed: bool,
 def k15_adversarial(dev: str) -> list:
     """K15's adversarial sets: K15-bank on rows all zero (a masked ball's),
     M = 1, O of 37 and 70 (not a tile's multiple), C = 7 (odd), R = 1 and
-    1,000 rows; K15-score with every slot of a sample on one row (all
-    masked but the first), M = 1, O = 37, K = 1 and a row named by no
-    slot (the shape's last 10%)."""
+    1,000 rows, SA4's layer 3 at serve (512 rows: the depth split), one
+    row past 32,768 row tiles (4,194,305 rows) and rows of x scaled by
+    2^20, 1 or 2^-20 (the TF32 split at large and tiny exponents);
+    K15-score with every slot of a sample on one row (all masked but the
+    first), M = 1, O = 37, K = 1 and a row named by no slot (the shape's
+    last 10%)."""
     import torch
     gen = torch.Generator(dev).manual_seed(21)
 
-    def bank(r, c, m, o, zero=False):
+    def bank(r, c, m, o, case=None):
         x = torch.randn((r, c), generator=gen, device=dev)
-        if zero:
+        if case == "zero":
             x = torch.zeros_like(x)
+        elif case == "wide":               # rows scaled by 2^20, 1, 2^-20
+            e = torch.randint(-1, 2, (r, 1), generator=gen, device=dev)
+            x = x * torch.exp2(20.0 * e)
         s = torch.softmax(torch.randn((r, m), generator=gen, device=dev), -1)
         w = torch.randn((c, m * o), generator=gen, device=dev) / c ** 0.5
         return x, s, w
 
     cases = [k15_bank_case(label, bank(*a), dev, False) for label, a in (
-        ("bank_rows_zero", (2048, 18, 16, 32, True)),
+        ("bank_rows_zero", (2048, 18, 16, 32, "zero")),
         ("bank_m1", (3000, 64, 1, 64)),
         ("bank_o37", (1000, 130, 16, 37)), ("bank_o70", (777, 64, 4, 70)),
-        ("bank_c7", (2500, 7, 8, 33)), ("bank_r1", (1, 18, 16, 32)))]
+        ("bank_c7", (2500, 7, 8, 33)), ("bank_r1", (1, 18, 16, 32)),
+        ("bank_sa4_serve", (512, 512, 16, 512)),
+        ("bank_rows_past_grid", (4194305, 8, 1, 8)),
+        ("bank_wide_range", (4096, 64, 16, 64, "wide")))]
     sc, pf, cf, knn = k15_score_inputs((2, 300, 64, 16, 4, 37), dev, 5)
     knn = knn.clone()
     knn[0] = 3                            # one row names every slot
@@ -6535,7 +6596,11 @@ def k15_kernel_records(seg: dict) -> list:
                    **{k: main.get(k) for k in (
                        "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms", "device_ms", "fwd_bwd_ms",
-                       "plain_fwd_bwd_ms", "backward_bound_ms")},
+                       "plain_fwd_bwd_ms", "backward_bound_ms",
+                       "tc_bound_ms", "backward_tc_bound_ms",
+                       "library_tf32_ms", "library_tf32_rel_err")
+                      if k in main or k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
                    max_rel_err=chk["max_rel_err"],
                    bwd_repeats=chk["bwd_repeats"],
                    checked_calls=chk["checked_calls"],
@@ -9670,6 +9735,162 @@ def k14_knn_times(seen: dict, dev: str) -> dict:
     return out
 
 
+def k15_bank_times(x, s, w, dev: str) -> dict:
+    """K15-bank on one recorded call (x, s, W): the no-grad forward and the
+    forward + backward (``torch.autograd.grad``) in event ms and device ms
+    (the whole call, its K15-bank kernels alone: ``bank_*`` and
+    ``sum_parts``, and each kernel's), ``torch.matmul`` + einsum's ms in float32 and with TF32
+    allowed (with its error against the forward), the float32 and 3xTF32
+    bounds of both, and a SHA-256 of the forward's output and of the three
+    gradients (of a seeded output gradient)."""
+    import hashlib
+    import torch
+    from isfusion_tpu_torch.ops import paconv
+    r, c = x.shape
+    m = s.shape[1]
+    o = w.shape[1] // m
+    g = torch.randn((r, o), generator=torch.Generator(dev).manual_seed(7),
+                    device=dev)
+    ins = [a.clone().requires_grad_(True) for a in (x, s, w)]
+
+    def fwd():
+        return paconv.paconv_bank(x, s, w)
+
+    def fwd_bwd():
+        return torch.autograd.grad(paconv.paconv_bank(*ins), ins, g)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    rec = dict(R=r, C=c, M=m, O=o, digest=digest(fwd()),
+               grad_digest=digest(*fwd_bwd()),
+               bound_ms=bank_bound(r, c, m, o)[0],
+               tc_bound_ms=bank_bound(r, c, m, o, tc=True)[0],
+               backward_bound_ms=bank_bound(r, c, m, o, True)[0],
+               backward_tc_bound_ms=bank_bound(r, c, m, o, True, True)[0])
+    if dev != "cuda":
+        return rec
+
+    def kernels(ops):
+        return launch_rounded_ms(
+            ops, lambda name: "bank_" in name or "sum_parts" in name)
+
+    def by_kernel(ops):
+        import re
+        per = collections.Counter()
+        for name, (n, ms) in ops.items():
+            hit = re.search(r"(\w+)(?:<[^>]*>)?\(", name)
+            per[hit.group(1) if hit else name] += max(1, round(n)) * ms
+        return dict(per.most_common())
+
+    for key, run in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        rec[f"{key}_ms"] = cuda_ms(run, dev, iters=10)
+        whole, ops = k14_device_ms(run, heavy=False)
+        rec[f"{key}_device_ms"] = whole
+        rec[f"{key}_kernel_device_ms"] = kernels(ops) if ops else whole
+        rec[f"{key}_by_kernel"] = by_kernel(ops)
+    rec["library_ms"] = cuda_ms(lambda: torch.einsum(
+        "rm,rmo->ro", s, torch.matmul(x, w).view(r, m, o)), dev, iters=5)
+    want = paconv.paconv_bank_ref(x.double(), s.double(), w.double())
+    rec["library_tf32_ms"], rec["library_tf32_rel_err"] = \
+        bank_library_tf32(x, s, w, want)
+    rec["fwd_rel_err"] = float((fwd().double() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+    dms = rec["fwd_kernel_device_ms"]
+    if isinstance(dms, float) and dms > 0:
+        rec["bound_share"] = rec["bound_ms"] / dms
+        rec["tc_bound_share"] = rec["tc_bound_ms"] / dms
+    dms = rec["fwd_bwd_kernel_device_ms"]
+    if isinstance(dms, float) and dms > 0:
+        both = rec["bound_ms"] + rec["backward_bound_ms"]
+        both_tc = rec["tc_bound_ms"] + rec["backward_tc_bound_ms"]
+        rec["fwd_bwd_bound_share"] = both / dms
+        rec["fwd_bwd_tc_bound_share"] = both_tc / dms
+    return rec
+
+
+def k15_compare(tree: str, dev: str = "cuda", requests: int = 20,
+                steps: int = 10) -> int:
+    """``python3 chip_smoke.py --k15 TREE``: K15-bank with the port
+    imported from the checkout TREE, to compare two checkouts on one card
+    in one call (run them in turns, at least three rounds). The full-width
+    PAConv segmentor (seed 0) serves one warm-up (its K15-bank calls
+    recorded: paconvseg's 12 layer shapes at batch 1) and ``requests``
+    batch-1 requests (host-clock median, min, max, peak GiB), then trains
+    one warm-up step (its calls recorded: the 12 shapes at batch 8) and
+    ``steps`` steps at paconvseg-train's batch of 8 (the config's SGD and
+    cosine schedule); then ``k15_bank_times`` on each recorded call.
+    Prints one JSON record. ``dev="cpu"`` rehearses it on the tiny model
+    with the plain version (no build, no device times)."""
+    import torch
+    smi = phase_device() if dev == "cuda" else None
+    tree = import_tree(tree)
+    from isfusion_tpu_torch import flagship
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.parallel.train_step import make_train_step
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 build_schedule,
+                                                 grad_clip_norm)
+    rec = dict(tree=tree, nvidia_smi=smi)
+    if dev == "cuda":
+        rec["build_s"] = cuda_build.build_all()
+    model, batch_fn = flagship.build_paconvseg(tiny=dev != "cuda",
+                                               device=dev, seed=0)
+    optim = flagship.paconvseg_optim_cfg()
+    bsz = optim["samples_per_gpu"] if dev == "cuda" else 2
+    batch = batch_fn(1)
+    with recording_bank() as serve_calls:
+        model(batch, device=dev)
+        sync(dev)
+    times = []
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(requests):
+        t0 = time.perf_counter()
+        model(jittered(batch, i + 1), device=dev)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["serve"] = dict(median_ms=statistics.median(times), min_ms=min(times),
+                        max_ms=max(times),
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+                        if dev == "cuda" else None)
+    model.train()
+    opt = build_optimizer(model, optim["optimizer"])
+    step = make_train_step(model, opt, build_schedule(
+        opt, optim["lr_config"], None, total_steps=1000),
+        grad_clip_norm(optim["optimizer_config"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    tbatch = batch_fn(bsz, seed=1)
+    with recording_bank() as train_calls:
+        step(jittered(tbatch, 0), gen)
+        sync(dev)
+    times = []
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out = step(jittered(tbatch, i + 1), gen)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["train"] = dict(batch=bsz, median_ms=statistics.median(times),
+                        min_ms=min(times), max_ms=max(times),
+                        loss=float(out["loss"]),
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+                        if dev == "cuda" else None)
+    del model, opt, step
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    rec["bank"] = {cell: [k15_bank_times(*args, dev) for args in
+                          calls.values()]
+                   for cell, calls in (("serve", serve_calls),
+                                       ("train", train_calls))}
+    print(json.dumps(rec, default=str), flush=True)
+    return 0
+
+
 def k14_compare(tree: str, dev: str = "cuda", requests: int = 20,
                 steps: int = 10) -> int:
     """``python3 chip_smoke.py --k14 TREE``: the K14 kernels with the port
@@ -9935,6 +10156,8 @@ if __name__ == "__main__":
         sys.exit(roiaware_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--k14"] and len(sys.argv) == 3:
         sys.exit(k14_compare(sys.argv[2]))
+    if sys.argv[1:2] == ["--k15"] and len(sys.argv) == 3:
+        sys.exit(k15_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-serve"]:
         sys.exit(pp_serve_timing(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

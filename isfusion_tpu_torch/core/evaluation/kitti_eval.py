@@ -5,9 +5,9 @@ easy / moderate / hard levels (2D box height, occlusion, truncation),
 detections matched by rotated BEV or 3D IoU at 0.7 (car) or 0.5
 (pedestrian, cyclist), 40-point interpolated AP.
 
-The IoU runs through ``ops/box_ops.py`` on ``device``: ``boxes_iou_bev``
-(K10-BEV on the card) and ``boxes_iou_3d`` (K10), their plain versions on
-the CPU. A sample's (class, mode) IoU matrix is computed once and read
+The IoU runs through ``ops/box_ops.py`` on ``device`` (default: the CUDA
+card; raises if it is missing): ``boxes_iou_bev`` (K10-BEV on the card)
+and ``boxes_iou_3d`` (K10), their plain versions on the CPU. A sample's (class, mode) IoU matrix is computed once and read
 by the three levels (the JAX package computes it per level; the values
 are the same). The matching and the AP are numpy on the host.
 """
@@ -17,6 +17,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from ... import resolve_device
 
 DIFFICULTY = {
     0: dict(min_height=40, max_occlusion=0, max_truncation=0.15),
@@ -28,10 +30,11 @@ LEVELS = {0: "easy", 1: "moderate", 2: "hard"}
 
 
 def _rotated_iou(boxes1: np.ndarray, boxes2: np.ndarray, mode: str = "3d",
-                 device="cpu") -> np.ndarray:
+                 device=None) -> np.ndarray:
     """(N, 7) x (M, 7) LiDAR boxes -> (N, M) float32 IoU, BEV (x, y, dx,
-    dy, yaw) or 3D, computed on ``device``."""
+    dy, yaw) or 3D, computed on ``device`` (default: the CUDA card)."""
     from ...ops.box_ops import boxes_iou_3d, boxes_iou_bev
+    device = resolve_device(device)
     if len(boxes1) == 0 or len(boxes2) == 0:
         return np.zeros((len(boxes1), len(boxes2)))
     a = torch.as_tensor(np.asarray(boxes1, np.float32), device=device)
@@ -55,9 +58,10 @@ def _gt_difficulty_mask(gt: dict, level: int) -> np.ndarray:
 
 
 def class_ious(dets: List[dict], gts: List[dict], cls: int, mode: str,
-               device="cpu") -> List[tuple]:
+               device=None) -> List[tuple]:
     """Per sample (indices of the class's detections, their (K, G) IoU
-    with every GT box)."""
+    with every GT box), on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     out = []
     for det, gt in zip(dets, gts):
         dii = np.nonzero(det["labels"] == cls)[0]
@@ -112,11 +116,13 @@ def _class_ap(dets: List[dict], gts: List[dict], cls: int, iou_th: float,
 def kitti_eval(dets: List[dict], gts: List[dict],
                class_names: Sequence[str],
                modes: Sequence[str] = ("bev", "3d"),
-               device="cpu") -> Dict[str, float]:
+               device=None) -> Dict[str, float]:
     """dets: per sample dict(boxes or bboxes (K, 7) LiDAR, scores, labels[,
     mask]); gts: dict(boxes, labels[, occluded, truncated,
     bbox2d_height]). Keys ``{class}_{mode}_{level}`` for each class with
-    GT and detections, and ``mAP_3d_moderate``."""
+    GT and detections, and ``mAP_3d_moderate``; the IoU on ``device``
+    (default: the CUDA card; raises if it is missing)."""
+    device = resolve_device(device)
     dets = [dict(d, boxes=d.get("boxes", d.get("bboxes"))) for d in dets]
     dets = [{k: np.asarray(d[k])[np.asarray(d["mask"], bool)]
              if "mask" in d else np.asarray(d[k])

@@ -24,6 +24,11 @@ a CUDA tensor they launch ``csrc/paconv.cu`` (forward and backward, a
 ``torch.autograd.Function``) or raise. ``cuda_build.LAUNCHES``
 counts ``paconv_bank`` and ``paconv_score`` launches, backward ones
 included. The kernels take float32 (the plain versions any one dtype).
+K15-bank runs its products on the tensor cores (``wgmma``) at float32
+accuracy: each operand is split into a TF32 high part and a TF32 low part,
+and three TF32 products (3xTF32) are summed in float32 registers; where
+its tiles do not fill the card it splits the depth over more blocks into a
+scratch (``paconv_bank_scratch`` floats), summed in a fixed order.
 """
 from __future__ import annotations
 
@@ -106,8 +111,19 @@ def _call(name: str, stream_of: torch.Tensor, *args) -> None:
 
 
 @functools.lru_cache(maxsize=256)
-def _bank_chunks(r: int, c: int, m: int, o: int) -> int:
-    return _fn("paconv_bank_chunks")(r, c, m, o)
+def _bank_scratch(op: int, r: int, c: int, m: int, o: int) -> int:
+    return _fn("paconv_bank_scratch")(op, r, c, m, o)
+
+
+def _bank_call(op: int, stream_of, x, s, w, dy, out0, out1, r, c, m,
+               o) -> None:
+    """One ``paconv_bank`` call of ``op`` with the scratch its depth split
+    takes (none where the tiles fill the card)."""
+    n = _bank_scratch(op, r, c, m, o)
+    scratch = torch.empty(n, dtype=torch.float32,
+                          device=stream_of.device) if n else None
+    _call("paconv_bank", stream_of, op, x, s, w, dy, out0, out1, scratch,
+          r, c, m, o)
 
 
 @functools.lru_cache(maxsize=256)
@@ -121,15 +137,14 @@ def _bank_forward(x, s, w) -> torch.Tensor:
     o = w.shape[1] // m
     y = x.new_empty((r, o))
     if r:
-        _call("paconv_bank", x, _BANK_FWD, x, s, w, None, y, None, None, r,
-              c, m, o)
+        _bank_call(_BANK_FWD, x, x, s, w, None, y, None, r, c, m, o)
     return y
 
 
 class _Bank(torch.autograd.Function):
     """K15-bank with its backward: ``csrc/paconv.cu`` op 1 (dX and dS in
-    one launch) and op 2 (dW: the row chunks' partials, then their sum in
-    order, two launches)."""
+    one call) and op 2 (dW: the row splits' partials, then their sum in
+    order, in one call)."""
 
     @staticmethod
     def forward(ctx, x, s, w):
@@ -147,14 +162,12 @@ class _Bank(torch.autograd.Function):
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             dx, ds = x.new_empty((r, c)), s.new_empty((r, m))
             if r:
-                _call("paconv_bank", g, _BANK_GRAD_X, x, s, w, g, dx, ds,
-                      None, r, c, m, o)
+                _bank_call(_BANK_GRAD_X, g, x, s, w, g, dx, ds, r, c, m, o)
         if ctx.needs_input_grad[2]:
             dw = w.new_empty(w.shape)
             if r:
-                part = g.new_empty((_bank_chunks(r, c, m, o), m * c, o))
-                _call("paconv_bank", g, _BANK_GRAD_W, x, s, w, g, dw, None,
-                      part, r, c, m, o)
+                _bank_call(_BANK_GRAD_W, g, x, s, w, g, dw, None, r, c, m,
+                           o)
             else:
                 dw.zero_()
         return dx, ds, dw

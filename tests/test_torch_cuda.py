@@ -2122,14 +2122,21 @@ def _rel(a, b) -> float:
         if a.numel() else 0.0
 
 
-# (R, C, M, O, rows all zero): paconvseg's SA1 layer 1 at batch 2, a
-# masked ball's zero rows, M = 1, O off the 32 / 64 tiles, odd C, 1 row
-BANK_SETS = dict(sa1=(65536, 18, 16, 32, False),
-                 sa4=(1024, 518, 16, 256, False),
-                 rows_zero=(2048, 18, 16, 32, True), m1=(3000, 64, 1, 64,
-                                                         False),
-                 o37=(1000, 130, 16, 37, False), o70=(777, 64, 4, 70, False),
-                 c7=(2500, 7, 8, 33, False), r1=(1, 18, 16, 32, False))
+# (R, C, M, O, case): paconvseg's SA1 layer 1 at batch 2, a masked ball's
+# zero rows ("zero"), M = 1, O off the 32 / 64 tiles, odd C, 1 row; SA4's
+# layer 3 at serve (512 rows: the depth split over blocks), one row past
+# 32,768 tiles of 128 rows (the old grid's 65,535 tiles of 64), rows of x
+# scaled by 2^20, 1 or 2^-20 ("wide": the TF32 split at large and tiny
+# exponents)
+BANK_SETS = dict(sa1=(65536, 18, 16, 32, None),
+                 sa4=(1024, 518, 16, 256, None),
+                 rows_zero=(2048, 18, 16, 32, "zero"),
+                 m1=(3000, 64, 1, 64, None),
+                 o37=(1000, 130, 16, 37, None), o70=(777, 64, 4, 70, None),
+                 c7=(2500, 7, 8, 33, None), r1=(1, 18, 16, 32, None),
+                 sa4_serve=(512, 512, 16, 512, None),
+                 rows_past_grid=(4194305, 8, 1, 8, None),
+                 wide_range=(4096, 64, 16, 64, "wide"))
 
 
 @pytest.mark.parametrize("name", sorted(BANK_SETS))
@@ -2139,11 +2146,14 @@ def test_k15_bank_matches_plain_version(card, name):
     gradients bit-equal over two calls; one launch a forward, two a
     backward (dX with dS, then dW)."""
     from isfusion_tpu_torch.ops import paconv
-    r, c, m, o, zero = BANK_SETS[name]
+    r, c, m, o, case = BANK_SETS[name]
     gen = torch.Generator(card).manual_seed(r + c)
     x = torch.randn((r, c), generator=gen, device=card)
-    if zero:
+    if case == "zero":
         x.zero_()
+    elif case == "wide":
+        e = torch.randint(-1, 2, (r, 1), generator=gen, device=card)
+        x = x * torch.exp2(20.0 * e)
     s = torch.softmax(torch.randn((r, m), generator=gen, device=card), -1)
     w = torch.randn((c, m * o), generator=gen, device=card) / c ** 0.5
     g = torch.randn((r, o), generator=gen, device=card)

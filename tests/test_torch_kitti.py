@@ -137,6 +137,23 @@ def test_eval_random_detections_match_jax(fixture, seed):
     assert any(0.0 < v < 1.0 for v in got.values())
 
 
+def test_eval_defaults_to_the_card(fixture):
+    """Without ``device`` the evaluator's IoU runs on the CUDA card, and on
+    a host without one it raises instead of running on the CPU; with
+    ``device="cpu"`` it still equals the JAX evaluator."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs there")
+    _, ttest, _, _ = fixture
+    dets, gts = _random_case(_gts(ttest), 3)
+    classes = list(ttest.CLASSES)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        teval.kitti_eval(dets, gts, classes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        teval.class_ious(dets, gts, 0, "bev")
+    _check(dets, gts, classes)
+
+
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_difficulty_masks_match_jax(fixture, level):
     _, ttest, _, _ = fixture
