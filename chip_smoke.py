@@ -21,6 +21,11 @@ Phases, each printing one line (every failure raises, exit code != 0):
    ``forward_repeat`` says whether two eval-mode head outputs of one
    request are equal, and gives the total loss of two forwards with the
    default and with the deterministic kernels;
+3b. TransFusion NMS (``[tf_nms]``): the same request once more with the
+    head's ``nms_type`` 'circle', then 'rotate', at the reference's
+    nuScenes tasks: each task's K10-circle / K10-NMS keep mask equal to
+    its plain version's on the call's inputs, one launch a task with a
+    radius;
 4. kernel check: each kernel against its plain PyTorch version on the
    inputs the main path gave it (stage-0 and stage-1 im2col gathers) and
    on the TPU microbenchmark's shape, bit for bit, with timings; K1 and
@@ -374,6 +379,27 @@ Phases, each printing one line (every failure raises, exit code != 0):
     the plain IoU's to 1e-12 (or the pairs that cross 0.25 / 0.5
     reported); step ms, data-time share, eval samples/s, the
     evaluator's seconds, K10's launches, mAP@0.25 / @0.5;
+28e. SST (``[sst_serve]``, ``[sst_train]``, ``[sst_drop_serve]``,
+    ``[sst_drop_train]``, ``[k17_check]``, ``[sst_reference]``): the
+    sparse-token SSTv2Sparse (``flagship.build_sst_sparse``) at the
+    flagship's grid2region_0 widths over the occupied 0.6 m cells of the
+    flagship request's 180 x 180 BEV (one 36-token level; serve at batch
+    1, train at batch 4) and at SST's Waymo settings (0.32 m pillars over
+    +-74.88 m from K1 over a 200,000-point synthetic cloud with dense
+    clusters, 12 x 12 windows, 6 blocks, four test drop levels at serve
+    and three train levels at batch 2): 1 + 5 requests (K17-part and
+    K17-move in every request: median and max ms, peak memory, idle
+    share, V, the windows a level, the dropped voxels) and 1 + 3 steps
+    (the canvas's sum of squares, the flagship config's AdamW and clip;
+    K17 forward and backward in every step; fails on a weight that did
+    not move); K17 on each cell's serve and train inputs: the four
+    partitions of a forward bit-equal to the plain version, the moves'
+    three ops forward (float32 and bfloat16) and backward equal to plain
+    autograd, the sst-drop serve call timed (event, device, plain,
+    ``index_select`` ms, the byte bound); the tiny SSTv2Sparse on the
+    card against the CPU (1e-3 of the max, canvas and gradients) and a
+    full 180 x 180 map through SSTv2Sparse against the dense SSTv2 on the
+    same weights (1e-3 of the max on every cell);
 
 29. LiDAR variants (``[lidar_variants]``): the six tiny detectors of
     ``flagship.LIDAR_VARIANTS`` (DynamicVoxelNet on DynamicSimpleVFE, on
@@ -433,8 +459,14 @@ kitti-learn's loop; the four K14 kernels with the indoor serve cells'
 requests and each indoor cell's launches a request and a step, the
 segmentation cells' requests and scannet-learn's loop; K10 with
 scannet-learn's evaluate; the two K15 kernels ``paconv_bank`` and
-``paconv_score``), then ``{"ok": true, "device": {...}}`` end the
-output.
+``paconv_score``; K10-circle and K10-NMS with phase 3b's TransFusion
+NMS; the two K17 kernels ``sst_partition`` and ``sst_move`` with each SST
+cell's launches a request and a step), then ``{"ok": true, "device":
+{...}}`` end the output.
+
+``python3 chip_smoke.py --sst`` runs the device and build phases, phase
+3b on a freshly built flagship, then phase 28e alone and prints the K17
+entries of the kernels' record.
 
 ``python3 chip_smoke.py --dp`` runs the device and build phases, then
 phases 30-31 alone.
@@ -8531,6 +8563,566 @@ SCATTER_FIELDS = ("P", "C", "S", "ms", "device_ms", "fwd_bwd_ms",
                   "backward_bound_ms")
 
 
+# ------------------------------------------------------------------ SST
+# phase 28e's cells: (SSTv2Sparse configuration, train batch)
+SST_CELLS = dict(sst=("flagship", 4), sst_drop=("waymo", 2))
+SST_KERNELS = ("sst_partition", "sst_move")
+SST_REPLACES = dict(
+    sst_partition="isfusion_tpu/models/sst/sst_sparse.py:79",
+    sst_move="isfusion_tpu/models/sst/sst_sparse.py:142")
+HBM_BYTES_PER_MS = 3.35e9          # H100 SXM: 3.35 TB/s
+
+
+def sst_inputs(name: str, batch_size: int, dev: str, seed: int = 0):
+    """A cell's model inputs: ``flagship.sst_sparse_inputs`` of its
+    synthetic cloud (K1 on the card)."""
+    from isfusion_tpu_torch import flagship
+    d = flagship.sst_sparse_model_cfg(name)["d_model"]
+    return flagship.sst_sparse_inputs(flagship.synthetic_sst_points(
+        name, batch_size, seed), name, d, dev, seed)
+
+
+def sst_stats(model, inputs) -> dict:
+    """V (valid voxels a sample), each final partition's windows a level
+    and table sizes, the voxels dropped by either shift's budget."""
+    from isfusion_tpu_torch.ops.sst_window import INT_MAX
+    _, coords, valid = inputs
+    parts, eff = model.input_layer(coords, valid)
+    return dict(
+        V=[int(v) for v in valid.sum(1)], grid=list(
+            model.input_layer.sparse_shape),
+        tokens=[t for t, _ in parts[0].levels],
+        caps=[c for _, c in parts[0].levels],
+        windows_per_level={s: [int((p.table(li) != INT_MAX).sum())
+                               for li in range(len(p.levels))]
+                           for s, p in zip(("no_shift", "shift"), parts)},
+        dropped_voxels=int((valid & ~eff).sum()))
+
+
+def phase_sst_main_path(cell: str, model, inputs, dev: str = "cuda") -> dict:
+    """sst-serve / sst-drop-serve: batch 1, no grad, 1 warm-up +
+    N_REQUESTS requests; launch counts zeroed just before the timed
+    requests and read after each: fails unless K17-part and K17-move
+    launched in every request or the canvas is not finite of (1, ny, nx,
+    d_model)."""
+    import torch
+    from isfusion_tpu_torch.ops import cuda_build
+
+    with torch.no_grad():
+        model(*inputs)
+        sync(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        times, per_request = [], []
+        for _ in range(N_REQUESTS):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = model(*inputs)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_request.append({k: cuda_build.LAUNCHES[k] - before[k]
+                                for k in SST_KERNELS})
+    launches = {k: cuda_build.LAUNCHES[k] for k in SST_KERNELS}
+    sx, sy, _ = model.input_layer.sparse_shape
+    d = model.pos.shape[1]
+    if tuple(out.shape) != (1, sy, sx, d) or not torch.isfinite(out).all():
+        raise RuntimeError(f"{cell}: canvas {tuple(out.shape)} not finite "
+                           f"of (1, {sy}, {sx}, {d})")
+    rec = dict(median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, launches_per_request=per_request,
+               launches=launches, **sst_stats(model, inputs))
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        with torch.no_grad():
+            rec["device_idle_share"] = device_profile(
+                f"{cell}_serve_profile", lambda: model(*inputs))[
+                    "device_idle_share"]
+    log(f"{cell}_serve", **rec)
+    if dev == "cuda" and any(min(r.values()) == 0 for r in per_request):
+        raise RuntimeError(f"{cell}: a request launched no "
+                           f"{SST_KERNELS}: {per_request}")
+    return rec
+
+
+def phase_sst_train(cell: str, model, inputs, dev: str = "cuda",
+                    steps: int = N_TRAIN_STEPS) -> dict:
+    """sst-train / sst-drop-train: the JAX gradient test's loss (the
+    canvas's sum of squares), backward, the flagship config's AdamW and
+    grad clip; 1 warm-up + ``steps`` steps, launches split at the end of
+    the forward. Fails on a non-finite loss or grad norm, a zero grad
+    norm, a step without K17's forward and backward launches, or a weight
+    that did not move."""
+    import torch
+    from isfusion_tpu_torch.flagship import flagship_optim_cfg
+    from isfusion_tpu_torch.ops import cuda_build
+    from isfusion_tpu_torch.runner.optim import (build_optimizer,
+                                                 clip_by_global_norm,
+                                                 grad_clip_norm)
+
+    optim = flagship_optim_cfg()
+    model.train()
+    opt = build_optimizer(model, optim["optimizer"])
+    clip = grad_clip_norm(optim["optimizer_config"])
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = (model(*inputs).float() ** 2).sum()
+        mid = dict(cuda_build.LAUNCHES)
+        loss.backward()
+        norm = clip_by_global_norm([p.grad for p in params
+                                    if p.grad is not None], clip)
+        opt.step()
+        return loss.detach(), norm, mid
+
+    step()
+    sync(dev)
+    watch = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    times, per_step, losses, norms = [], [], [], []
+    for i in range(steps):
+        before = dict(cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        loss, norm, mid = step()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        after = dict(cuda_build.LAUNCHES)
+        launches = {f"{k}_forward": mid[k] - before[k] for k in SST_KERNELS}
+        launches["sst_move_backward"] = after["sst_move"] - mid["sst_move"]
+        losses.append(float(loss))
+        norms.append(float(norm))
+        per_step.append(launches)
+        log(f"{cell}_train_step", step=i, ms=times[-1], loss=losses[-1],
+            grad_norm=norms[-1], launches=launches)
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])) \
+                or norms[-1] == 0:
+            raise RuntimeError(f"{cell} train step {i}: loss {losses[-1]}, "
+                               f"grad norm {norms[-1]}")
+        if dev == "cuda" and min(launches.values()) == 0:
+            raise RuntimeError(f"{cell} train step {i}: a kernel did not "
+                               f"launch: {launches}")
+    b = int(inputs[0].shape[0])
+    unchanged = [n for n, p in model.named_parameters()
+                 if torch.equal(p.detach(), watch[n])]
+    rec = dict(batch=b, median_ms=statistics.median(times), max_ms=max(times),
+               all_ms=times, losses=losses, grad_norms=norms,
+               launches_per_step=per_step, unchanged_weights=unchanged,
+               **sst_stats(model, inputs))
+    if dev == "cuda":
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["device_idle_share"] = device_profile(
+            f"{cell}_train_profile", step)["device_idle_share"]
+    log(f"{cell}_train", **rec)
+    if unchanged:
+        raise RuntimeError(f"{cell}: weights unchanged by {steps} steps: "
+                           f"{unchanged[:10]}")
+    model.eval()
+    return rec
+
+
+def partition_bytes(part, coords) -> int:
+    """Least bytes of one K17-part call: coords (12) and valid (1) read a
+    voxel; win, inner, rank, count, level, keep, slot, dest and cell (41)
+    written a voxel; the tables and both maps written."""
+    n = coords.shape[0] * coords.shape[1]
+    return n * (13 + 41) + 4 * (part.tables.numel() + part.tok_src.numel()
+                                + part.cell_src.numel())
+
+
+def move_bytes(idx, row_bytes: int, pass_rows: int = 0) -> int:
+    """Least bytes of one move: the index read, every output row written,
+    each copied source row read once, ``pass_rows`` passed rows read."""
+    copied = int((idx >= 0).sum())
+    return idx.numel() * (4 + row_bytes) + (copied + pass_rows) * row_bytes
+
+
+def _max_err(pairs) -> float:
+    """The largest |a - b| over pairs of tensors (0.0 for equal ones)."""
+    err = 0.0
+    for a, b in pairs:
+        if a.shape != b.shape:
+            return float("inf")
+        if a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    return err
+
+
+def k17_part_case(label: str, coords, valid, cfg: dict, shift: bool,
+                  dev: str, timed: bool) -> dict:
+    """K17-part against its plain version on one call's inputs: every
+    output equal; timed: event ms, whole-call device ms, plain ms, the
+    byte bound."""
+    import torch
+    from isfusion_tpu_torch.ops import sst_window as sw
+    args = (coords, valid, cfg["sparse_shape"], cfg["window_shape"],
+            cfg["drop_info"], cfg.get("win_caps"), shift)
+    got = sw.sst_partition(*args)
+    nw = sw.num_windows(cfg["sparse_shape"], cfg["window_shape"])
+    caps = sw.level_caps(cfg["drop_info"], cfg.get("win_caps"),
+                         coords.shape[1], nw)
+    want = sw.sst_partition_ref(*args[:5], caps, shift)
+    fields = [f for f in got._fields if torch.is_tensor(getattr(got, f))]
+    differ = [f for f in fields
+              if not _same(getattr(got, f), getattr(want, f))]
+    rec = dict(label=label, shift=shift, B=int(valid.shape[0]),
+               V=int(valid.shape[1]), valid=int(valid.sum()),
+               equal=not differ, differ=differ, max_abs_err=_max_err(
+                   (getattr(got, f), getattr(want, f)) for f in fields))
+    if timed:
+        rec.update(
+            ms=cuda_ms(lambda: sw.sst_partition(*args), dev),
+            plain_ms=cuda_ms(lambda: sw.sst_partition_ref(
+                *args[:5], caps, shift), dev, iters=3),
+            bound_ms=partition_bytes(got, coords) / HBM_BYTES_PER_MS,
+            bound_by="bytes", library_ms=None)
+        if dev == "cuda":
+            ops = device_kernels(lambda: sw.sst_partition(*args), 10)
+            rec["device_ms"] = sum(n * ms for n, ms in ops.values())
+            rec["device_ops_per_call"] = sum(n for n, _ in ops.values())
+    return rec
+
+
+def k17_move_cases(label: str, feats, part, dev: str, timed: bool) -> list:
+    """K17-move ops 0-2 against plain autograd on one partition: forward
+    and every input's gradient equal (float32 rows; the forward also in
+    bfloat16); timed: each op's event, whole-call device, plain and
+    ``index_select`` ms, fwd + bwd ms, the byte bound."""
+    import torch
+    from isfusion_tpu_torch.ops import sst_window as sw
+
+    gen = torch.Generator(feats.device).manual_seed(7)
+
+    def rand_like(t):
+        return torch.randn(t.shape, generator=gen, device=t.device,
+                           dtype=t.dtype)
+
+    b, v, c = feats.shape
+    ops = {}
+    toks = [rand_like(t) for t in sw.flat_to_window(feats, part)]
+    ops["flat_to_window"] = (
+        lambda f, ts: sw.flat_to_window(f, part),
+        lambda f, ts: sw.flat_to_window_ref(f, part), part.tok_src)
+    ops["window_to_flat"] = (
+        lambda f, ts: [sw.window_to_flat(ts, part, f)],
+        lambda f, ts: [sw.window_to_flat_ref(ts, part, f)],
+        part.dest.reshape(-1))
+    ops["flat_to_canvas"] = (
+        lambda f, ts: [sw.flat_to_canvas(f, part)],
+        lambda f, ts: [sw.flat_to_canvas_ref(f, part)], part.cell_src)
+    out = []
+    for op, (fn, ref, idx) in ops.items():
+        runs = []
+        for f_ in (fn, ref):
+            f = feats.detach().clone().requires_grad_(True)
+            ts = [t.detach().clone().requires_grad_(True) for t in toks]
+            y = f_(f, ts)
+            gs = [rand_like(t) for t in y] if not runs else runs[0][3]
+            torch.autograd.backward(y, gs)
+            runs.append(([t.detach() for t in y], f.grad, [
+                t.grad if t.grad is not None else torch.zeros_like(t)
+                for t in ts], gs))
+        (y, gf, gt, _), (yr, gfr, gtr, _) = runs
+        pairs = list(zip(y, yr)) + [(gf, gfr)] + (
+            list(zip(gt, gtr)) if op == "window_to_flat" else [])
+        with torch.no_grad():
+            half = fn(feats.bfloat16(), [t.bfloat16() for t in toks])
+            half_ref = ref(feats.bfloat16(), [t.bfloat16() for t in toks])
+        pairs += list(zip(half, half_ref))
+        rec = dict(label=label, op=op, shape=[b, v, c],
+                   equal=all(_same(a, b_) for a, b_ in pairs),
+                   max_abs_err=_max_err(pairs))
+        if timed:
+            row = c * feats.element_size()
+            pass_rows = int((idx < 0).sum()) if op == "window_to_flat" else 0
+            src = torch.cat([t.reshape(-1, c) for t in toks]) \
+                if op == "window_to_flat" else feats.reshape(-1, c)
+            sel = idx.long().clamp(0, src.shape[0] - 1)
+            with torch.no_grad():
+                rec.update(
+                    ms=cuda_ms(lambda: fn(feats, toks), dev),
+                    plain_ms=cuda_ms(lambda: ref(feats, toks), dev),
+                    library_ms=cuda_ms(lambda: torch.index_select(
+                        src, 0, sel), dev),
+                    bound_ms=move_bytes(idx, row, pass_rows) /
+                    HBM_BYTES_PER_MS, bound_by="bytes")
+            fw = feats.detach().requires_grad_(True)
+            tw = [t.detach().requires_grad_(True) for t in toks]
+
+            def fwd_bwd():
+                y = fn(fw, tw)
+                torch.autograd.backward(y, runs[0][3])
+            rec["fwd_bwd_ms"] = cuda_ms(fwd_bwd, dev)
+            if dev == "cuda":
+                with torch.no_grad():
+                    d_ops = device_kernels(lambda: fn(feats, toks), 20)
+                rec["device_ms"] = sum(n * ms for n, ms in d_ops.values())
+        out.append(rec)
+    return out
+
+
+def phase_k17_check(cells: dict, dev: str = "cuda") -> dict:
+    """K17 on each cell's own inputs: for serve and train inputs the four
+    partitions of a forward (the no-shift pass, the shift pass on its
+    survivors, both final partitions of the survivors) bit-equal to the
+    plain version, and the moves' three ops on the final partitions with
+    the cell's features, forward (float32 and bfloat16) and gradients
+    equal to plain autograd's; the sst-drop serve inputs' calls timed.
+    Fails on any difference."""
+    from isfusion_tpu_torch.flagship import sst_sparse_model_cfg
+    from isfusion_tpu_torch.ops import sst_window as sw
+
+    parts, moves = [], []
+    for label, (name, train, inputs) in cells.items():
+        cfg = sst_sparse_model_cfg(name, train)
+        feats, coords, valid = inputs
+        timed = label == "sst_drop_serve"
+        k0 = sw.sst_partition(coords, valid, cfg["sparse_shape"],
+                              cfg["window_shape"], cfg["drop_info"], None,
+                              False).keep
+        k1 = sw.sst_partition(coords, valid & k0, cfg["sparse_shape"],
+                              cfg["window_shape"], cfg["drop_info"], None,
+                              True).keep
+        eff = valid & k0 & k1
+        for tag, m, shift in (("k0", valid, False), ("k1", valid & k0, True),
+                              ("final0", eff, False), ("final1", eff, True)):
+            parts.append(k17_part_case(f"{label}/{tag}", coords, m, cfg,
+                                       shift, dev, timed and tag == "final0"))
+        for shift in (False, True):
+            part = sw.sst_partition(coords, eff, cfg["sparse_shape"],
+                                    cfg["window_shape"], cfg["drop_info"],
+                                    None, shift)
+            moves += k17_move_cases(f"{label}/shift{int(shift)}", feats,
+                                    part, dev, timed and not shift)
+    bad = [r["label"] + "/" + r.get("op", "part") for r in parts + moves
+           if not r["equal"]]
+    rec = dict(partition_calls=len(parts), move_cases=len(moves),
+               partition_max_abs_err=max(r["max_abs_err"] for r in parts),
+               move_max_abs_err=max(r["max_abs_err"] for r in moves),
+               failed=bad)
+    timed_part = [r for r in parts if "ms" in r]
+    timed_moves = {r["op"]: r for r in moves if "ms" in r}
+    log("k17_check", **rec, timed_partition=timed_part,
+        timed_moves=timed_moves)
+    if bad:
+        raise RuntimeError(f"K17 differs from its plain version: {bad}")
+    rec["partition"] = timed_part[0]
+    rec["moves"] = timed_moves
+    return rec
+
+
+def phase_sst_reference(dev: str = "cuda") -> dict:
+    """The tiny SSTv2Sparse (two drop levels) on the card against the CPU
+    from the same weights and inputs, float32 with TF32 off: canvas and
+    every parameter's gradient within 1e-3 of the max; then a full 180 x
+    180 map (every cell a voxel, one 36-token level: every window whole)
+    through SSTv2Sparse at the flagship's widths against the dense SSTv2
+    on the same weights: 1e-3 of the max on every cell."""
+    import torch
+    from isfusion_tpu_torch import flagship
+    from isfusion_tpu_torch.models.sst.sst import SSTv2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for d in (dev, "cpu"):
+        model, batch_fn = flagship.build_sst_sparse("tiny", device=d, seed=3)
+        inputs = flagship.sst_sparse_inputs(batch_fn(2, seed=4), "tiny", 16,
+                                            "cpu", seed=5)
+        out = model(*(t.to(d) for t in inputs))
+        (out ** 2).sum().backward()
+        runs[d] = (out.detach().cpu(), _grads(model))
+    (oc, gc), (o, g) = runs[dev], runs["cpu"]
+    rel = dict(canvas=_rel_to_max(oc, o),
+               **{n: _rel_to_max(gc[n], g[n]) for n in g})
+    worst = max(rel.values())
+    rec = dict(tiny_canvas_err=rel["canvas"], tiny_worst_grad_err=worst,
+               tiny_params=len(g), tiny_voxels=int(inputs[2].sum()))
+    cfg = flagship.sst_sparse_model_cfg("flagship")
+    sparse, _ = flagship.build_sst_sparse("flagship", device=dev, seed=6)
+    dense = SSTv2(d_model=[cfg["d_model"]] * 4, nhead=[cfg["nhead"]] * 4,
+                  num_blocks=cfg["num_blocks"],
+                  dim_feedforward=[cfg["dim_feedforward"]] * 4,
+                  window_shape=cfg["window_shape"]).to(dev).eval()
+    dense.load_state_dict(sparse.state_dict())
+    sx, sy, _ = cfg["sparse_shape"]
+    grid = torch.randn((1, sy, sx, cfg["d_model"]), device=dev,
+                       generator=torch.Generator(dev).manual_seed(8))
+    yy, xx = torch.meshgrid(torch.arange(sy, device=dev),
+                            torch.arange(sx, device=dev), indexing="ij")
+    coords = torch.stack([torch.zeros_like(yy), yy, xx], -1).reshape(
+        1, -1, 3).to(torch.int32)
+    with torch.no_grad():
+        want = dense(grid)
+        got = sparse(grid.reshape(1, -1, cfg["d_model"]), coords,
+                     torch.ones((1, sx * sy), dtype=torch.bool, device=dev))
+    err = _rel_to_max(got.cpu(), want.cpu())
+    cells = ((got - want).abs().amax(-1) > 1e-3 * want.abs().max()).nonzero()
+    rec.update(full_grid_err=err, full_grid_cells_apart=int(cells.shape[0]),
+               full_grid_first_apart=cells[:5].tolist())
+    log("sst_reference", **rec)
+    if worst > 1e-3 or err > 1e-3:
+        raise RuntimeError(f"SST reference checks failed: {rec}")
+    return rec
+
+
+def run_sst_phases(dev: str = "cuda") -> dict:
+    """Phase 28e: for each ``SST_CELLS`` cell the serve and train phases,
+    then K17's check on their inputs and the references."""
+    import torch
+    from isfusion_tpu_torch import flagship
+
+    out, cells = {}, {}
+    for cell, (name, train_b) in SST_CELLS.items():
+        model, _ = flagship.build_sst_sparse(name, device=dev, seed=0)
+        serve_in = sst_inputs(name, 1, dev)
+        out[f"{cell}_serve"] = phase_sst_main_path(cell, model, serve_in,
+                                                   dev)
+        cells[f"{cell}_serve"] = (name, False, serve_in)
+        if name == "waymo":
+            # the training drop levels: the same weights, SST's train cfg
+            trained, _ = flagship.build_sst_sparse(name, train=True,
+                                                   device=dev)
+            trained.load_state_dict(model.state_dict())
+            model = trained
+        train_in = sst_inputs(name, train_b, dev, seed=1)
+        out[f"{cell}_train"] = phase_sst_train(cell, model, train_in, dev)
+        cells[f"{cell}_train"] = (name, name == "waymo", train_in)
+        del model
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    out["k17"] = phase_k17_check(cells, dev)
+    del cells
+    out["reference"] = phase_sst_reference(dev)
+    return out
+
+
+def sst_kernel_records(sst: dict) -> list:
+    """The two K17 entries of the kernels' line: sst-serve's launches (its
+    requests', summed), each cell's a request and a step, the check's
+    errors and the sst-drop serve call's numbers."""
+    k17 = sst["k17"]
+    recs = []
+    for name, main, err in (
+            ("sst_partition", k17["partition"],
+             k17["partition_max_abs_err"]),
+            ("sst_move", k17["moves"]["flat_to_window"],
+             k17["move_max_abs_err"])):
+        rec = dict(name=name, route="cuda",
+                   source="isfusion_tpu_torch/csrc/sst_window.cu",
+                   replaces=SST_REPLACES[name],
+                   launches=sst["sst_serve"]["launches"][name],
+                   max_abs_err=err,
+                   **{k: main.get(k) for k in (
+                       "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "device_ms")})
+        for cell in SST_CELLS:
+            rec[f"{cell}_launches_per_request"] = [
+                r[name] for r in sst[f"{cell}_serve"]["launches_per_request"]]
+            rec[f"{cell}_train_launches_per_step"] = [
+                {k: v for k, v in s_.items() if k.startswith(name)}
+                for s_ in sst[f"{cell}_train"]["launches_per_step"]]
+        if name == "sst_partition":
+            rec["shape"] = {k: main[k] for k in ("B", "V", "valid")}
+            rec["checked_calls"] = k17["partition_calls"]
+        else:
+            rec["ops"] = {op: {k: r.get(k) for k in (
+                "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                "fwd_bwd_ms", "bound_ms")} for op, r in k17["moves"].items()}
+            rec["checked_cases"] = k17["move_cases"]
+        recs.append(rec)
+    return recs
+
+
+@contextlib.contextmanager
+def recording_tf_nms():
+    """Inside the block, each NMS call of ``TransFusionHeadV2.get_bboxes``
+    keeps its inputs and keep mask in the yielded list; the kernel (or
+    its plain version) still runs."""
+    import torch
+    from isfusion_tpu_torch.models.dense_heads import transfusion_head as th
+
+    real, seen = (th.circle_nms_mask, th.nms_bev_mask), []
+
+    def recording(kind, fn):
+        def nms(*args):
+            keep = fn(*args)
+            seen.append((kind, tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args), keep.clone()))
+            return keep
+        return nms
+
+    th.circle_nms_mask = recording("circle", real[0])
+    th.nms_bev_mask = recording("rotate", real[1])
+    try:
+        yield seen
+    finally:
+        th.circle_nms_mask, th.nms_bev_mask = real
+
+
+def phase_tf_nms(model, batch: dict, dev: str = "cuda") -> dict:
+    """3b: the flagship's serve request once more with the head's
+    ``nms_type`` 'circle' and then 'rotate' at the reference's nuScenes
+    tasks: each NMS call's keep mask equal to the plain version's on its
+    inputs, one K10-circle / K10-NMS launch a task with a radius; the
+    boxes each task saw and kept."""
+    from isfusion_tpu_torch.ops import box_ops, cuda_build
+
+    head = model.pts_bbox_head
+    saved = head.test_cfg
+    rec = {}
+    try:
+        for nms_type, kernel in (("circle", "nms_circle"),
+                                 ("rotate", "nms_bev")):
+            head.test_cfg = dict(saved, nms_type=nms_type, tasks=None)
+            before = cuda_build.LAUNCHES[kernel]
+            with recording_tf_nms() as calls:
+                out = model(jittered(batch, 0), device=dev)
+                sync(dev)
+            launched = cuda_build.LAUNCHES[kernel] - before
+            checks = []
+            for kind, args, keep in calls:
+                plain = box_ops.circle_nms_mask_ref(*args) \
+                    if kind == "circle" else box_ops.nms_bev_mask_ref(*args)
+                checks.append(dict(boxes=int(args[3].sum()),
+                                   kept=int(keep.sum()),
+                                   equal=bool(_same(keep, plain))))
+            rec[nms_type] = dict(launches=launched, calls=checks,
+                                 kept_boxes=int(out["mask"].sum()))
+    finally:
+        head.test_cfg = saved
+    log("tf_nms", **rec)
+    bad = [t for t, r in rec.items() if not all(c["equal"] for c in r[
+        "calls"]) or (dev == "cuda" and r["launches"] != len(r["calls"]))
+        or len(r["calls"]) != 2]
+    if bad:
+        raise RuntimeError(f"TransFusion NMS check failed ({bad}): {rec}")
+    return rec
+
+
+def sst_run() -> int:
+    """``python3 chip_smoke.py --sst``: the device and build phases, the
+    flagship's TransFusion NMS check (3b), then phase 28e alone and the
+    K17 entries of the kernels' record."""
+    import torch
+    smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    from isfusion_tpu_torch.flagship import build_isfusion_flagship
+    model, batch_fn = build_isfusion_flagship(device="cuda", seed=0)
+    phase_tf_nms(model, batch_fn(1))
+    del model
+    torch.cuda.empty_cache()
+    sst = run_sst_phases("cuda")
+    print(smi)
+    print(json.dumps({"kernels": sst_kernel_records(sst)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not os.path.isdir(os.path.join(REPO, "isfusion_tpu_torch")):
@@ -8550,6 +9142,7 @@ def main() -> int:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")
     check_no_layout_builds("serve", launches)
+    tf_nms = phase_tf_nms(model, batch)
     rec = phase_kernel_check(stage)
     dyn_serve = dynamic_check("serve", serve_req.pop("dynamic_inputs"))
     bwd = phase_backward_check(*stage["stage0"])
@@ -8658,6 +9251,8 @@ def main() -> int:
     seg = run_seg_phases()
     torch.cuda.empty_cache()
     scannet = phase_scannet_learn()
+    torch.cuda.empty_cache()
+    sst = run_sst_phases()
     torch.cuda.empty_cache()
     # the DP ranks start, build and warm up during the variants, which
     # time nothing
@@ -8997,6 +9592,13 @@ def main() -> int:
             k["max_abs_err"] = max(k["max_abs_err"],
                                    scannet["k10_max_abs_err"])
     kernels += k15_kernel_records(seg)
+    for k in kernels:
+        if k["name"] in ("nms_circle", "nms_bev"):
+            # TransFusionHeadV2's per-task NMS on the flagship's request
+            r = tf_nms["circle" if k["name"] == "nms_circle" else "rotate"]
+            k["transfusion_nms"] = dict(launches_per_request=r["launches"],
+                                        calls=r["calls"])
+    kernels += sst_kernel_records(sst)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -10144,6 +10746,8 @@ if __name__ == "__main__":
         sys.exit(seg_run())
     if sys.argv[1:] == ["--scannet"]:
         sys.exit(scannet_run())
+    if sys.argv[1:] == ["--sst"]:
+        sys.exit(sst_run())
     if sys.argv[1:] == ["--dp"]:
         sys.exit(dp_run())
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) == 3:

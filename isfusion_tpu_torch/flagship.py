@@ -2450,3 +2450,150 @@ def votenet_scannet_cfg(data_root: str, tiny: bool = False, epochs: int = 2,
         total_epochs=epochs, runner=dict(max_epochs=epochs),
         evaluation=dict(interval=1), checkpoint_config=dict(interval=1),
         log_config=dict(interval=1), seed=0))
+
+
+# ------------------------------------------------------------- SST sparse
+# SST (Fan et al., CVPR 2022) as a standalone sparse backbone over pillars:
+# "flagship": the flagship's grid2region_0 widths on its 180 x 180 BEV
+# (0.6 m cells: 0.075 m voxels x out_size_factor 8; one 36-token level,
+# configs/isfusion/isfusion_0075voxel.py:20-23); "waymo": SST's Waymo
+# settings (the Waymo configs of tusen-ai/SST: 0.32 m pillars over
+# +-74.88 m, 12 x 12 windows, 6 blocks, three drop levels in training,
+# four at test); "tiny": the CPU tests' widths
+SST_RANGES = dict(flagship=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
+                  waymo=(-74.88, -74.88, -2.0, 74.88, 74.88, 4.0),
+                  tiny=(-7.2, -5.4, -2.0, 7.2, 5.4, 4.0))
+SST_PILLARS = dict(flagship=(0.6, 0.6, 8.0), waymo=(0.32, 0.32, 6.0),
+                   tiny=(0.6, 0.6, 6.0))
+SST_WAYMO_TRAIN_DROP = (
+    {"max_tokens": 30, "drop_range": (0, 30)},
+    {"max_tokens": 60, "drop_range": (30, 60)},
+    {"max_tokens": 100, "drop_range": (60, 100000)})
+SST_WAYMO_TEST_DROP = (
+    {"max_tokens": 30, "drop_range": (0, 30)},
+    {"max_tokens": 60, "drop_range": (30, 60)},
+    {"max_tokens": 100, "drop_range": (60, 100)},
+    {"max_tokens": 144, "drop_range": (100, 100000)})
+
+
+def sst_sparse_model_cfg(name: str, train: bool = False) -> dict:
+    """The ``SSTv2Sparse`` config of ``name`` ("flagship", "waymo",
+    "tiny"); ``train`` takes Waymo's training drop levels."""
+    if name == "flagship":
+        return dict(type="SSTv2Sparse", d_model=128, nhead=8, num_blocks=1,
+                    dim_feedforward=128, window_shape=(6, 6, 1),
+                    sparse_shape=(180, 180, 1), drop_info=(
+                        {"max_tokens": 36, "drop_range": (0, 100000)},))
+    if name == "waymo":
+        return dict(type="SSTv2Sparse", d_model=128, nhead=8, num_blocks=6,
+                    dim_feedforward=256, window_shape=(12, 12, 1),
+                    sparse_shape=(468, 468, 1), drop_info=(
+                        SST_WAYMO_TRAIN_DROP if train
+                        else SST_WAYMO_TEST_DROP))
+    if name == "tiny":
+        return dict(type="SSTv2Sparse", d_model=16, nhead=2, num_blocks=1,
+                    dim_feedforward=32, window_shape=(6, 6, 1),
+                    sparse_shape=(24, 18, 1), drop_info=(
+                        {"max_tokens": 4, "drop_range": (0, 5)},
+                        {"max_tokens": 16, "drop_range": (5, 100000)}))
+    raise KeyError(f"no SST configuration {name!r}")
+
+
+def synthetic_sst_points(name: str, batch_size: int, seed: int = 0) -> dict:
+    """``points`` (B, N, 3) float32 and ``points_mask`` of ``name``'s
+    cloud: the flagship request's 200,000 points; for Waymo 200,000 of a
+    ray-cast scan plus 40 dense clusters (so that every drop level holds
+    windows and training windows drop tokens); a small cloud (tiny)."""
+    if name == "flagship":
+        b = synthetic_points_batch(batch_size, 200000, seed=seed,
+                                   pcr=SST_RANGES[name])
+        return dict(points=b["points"][..., :3].copy(),
+                    points_mask=b["points_mask"])
+    pcr, pts = SST_RANGES[name], []
+    for s in range(batch_size):
+        rng = np.random.default_rng(seed + s)
+        if name == "waymo":
+            parts = [_lidar_cloud(rng, 120000, pcr, sensor_height=2.2)]
+            n_clusters, spread, n_pts = 40, (1.5, 4.0), (500, 4000)
+            total = 200000
+        else:
+            parts = [rng.uniform(pcr[:3], pcr[3:], (150, 3))]
+            n_clusters, spread, n_pts = 3, (0.5, 1.0), (60, 120)
+            total = 300
+        for _ in range(n_clusters):
+            c = rng.uniform(0.8 * np.asarray(pcr[:2]),
+                            0.8 * np.asarray(pcr[3:5]))
+            n = int(rng.integers(*n_pts))
+            xy = c + rng.normal(0, rng.uniform(*spread), (n, 2))
+            parts.append(np.stack([xy[:, 0], xy[:, 1],
+                                   rng.uniform(-1.5, 2.0, n)], -1))
+        p = np.concatenate(parts)
+        pts.append(p[rng.permutation(len(p))][:total])
+    n = max(len(p) for p in pts)
+    points = np.zeros((batch_size, n, 3), np.float32)
+    mask = np.zeros((batch_size, n), bool)
+    for s, p in enumerate(pts):
+        points[s, :len(p)], mask[s, :len(p)] = p, True
+    return dict(points=points, points_mask=mask)
+
+
+def sst_sparse_inputs(batch: dict, name: str, channels: int, device,
+                      seed: int = 0):
+    """(feats (B, V, C) float32, coords (B, V, 3) int32 zyx, valid (B, V)):
+    the pillars that ``batch``'s points occupy (K1's voxelization on the
+    card), in each sample's grid order, V the most a sample has; the
+    features N(0, 1) from ``seed`` (zeros on invalid rows)."""
+    import torch
+
+    from .ops.voxel import voxelize_dynamic
+
+    dev = resolve_device(device)
+    pts = torch.from_numpy(batch["points"]).to(dev)
+    mask = torch.from_numpy(batch["points_mask"]).to(dev)
+    vc = voxelize_dynamic(pts, mask, SST_RANGES[name],
+                          SST_PILLARS[name]).voxel_coors.long()
+    b = pts.shape[0]
+    counts = torch.bincount(vc[:, 0], minlength=b)
+    v = int(counts.max())
+    first = torch.cumsum(counts, 0) - counts
+    row = torch.arange(vc.shape[0], device=dev) - first[vc[:, 0]]
+    coords = torch.zeros((b, v, 3), dtype=torch.int32, device=dev)
+    coords[vc[:, 0], row] = vc[:, 1:].to(torch.int32)
+    valid = torch.zeros((b, v), dtype=torch.bool, device=dev)
+    valid[vc[:, 0], row] = True
+    feats = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(b, v, channels)).astype(np.float32)).to(dev)
+    return feats * valid[..., None], coords, valid
+
+
+def build_sst_sparse(name: str = "flagship", train: bool = False,
+                     device=None, seed: int = 0
+                     ) -> Tuple[nn.Module, Callable[..., dict]]:
+    """(model, batch_fn): ``SSTv2Sparse`` of ``sst_sparse_model_cfg(name,
+    train)`` with weights drawn from ``seed``, in eval mode on ``device``,
+    and ``batch_fn(batch_size, seed=0)`` giving ``synthetic_sst_points``
+    (``sst_sparse_inputs`` makes the model's inputs). The layer norms'
+    scales are drawn from U(0.5, 1.5) and their biases from N(0, 0.1), as
+    the CPU tests' JAX variables: with unit scales and zero biases the
+    canvas's sum of squares is a constant of each token's last norm, and
+    every gradient before it is rounding noise."""
+    import torch
+
+    from .models.builder import build_backbone
+    from .models.layers import init_weights
+
+    dev = resolve_device(device)
+    model = init_weights(build_backbone(sst_sparse_model_cfg(name, train)),
+                         seed)
+    g = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if ".norm" in n:
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5
+                        if n.endswith("weight") else
+                        0.1 * torch.randn(p.shape, generator=g))
+    model = model.to(dev).eval()
+
+    def batch_fn(b, seed=0):
+        return synthetic_sst_points(name, b, seed)
+    return model, batch_fn

@@ -1,7 +1,8 @@
 """Builders for the model types of the IS-Fusion, PointPillars,
 CenterPoint, MVX-Net, FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN,
 FreeAnchor, ImVoxelNet, VoteNet, H3DNet, SSD3DNet, GroupFree3DNet and
-ImVoteNet paths and the PointNet++ and PAConv segmentors (counterpart of
+ImVoteNet paths, the PointNet++ and PAConv segmentors and SST's blocks
+(counterpart of
 ``isfusion_tpu/models/builder.py``): config dicts with a ``type`` key
 become modules through the port's registries."""
 from __future__ import annotations
@@ -35,6 +36,8 @@ from .necks.generalized_lss import GeneralizedLSSFPN
 from .necks.second_fpn import SECONDFPN
 from .necks.yolox_pafpn import YOLOXPAFPN
 from .roi_heads.part_aggregation_roi_head import PartAggregationROIHead
+from .sst.sst import SRABlock, SSTv2
+from .sst.sst_sparse import SSTInputLayerV2, SSTv2Sparse
 from .voxel_encoders import (DynamicFusionVFE, DynamicPillarFeatureNet,
                              DynamicSimpleVFE, DynamicVFE, HardSimpleVFE,
                              HardVFE, PillarFeatureNet)
@@ -43,7 +46,9 @@ for _reg, _cls in ((BACKBONES, SwinTransformer), (BACKBONES, SECONDV2),
                    (BACKBONES, SECOND), (BACKBONES, ResNet),
                    (BACKBONES, RegNet), (BACKBONES, NoStemRegNet),
                    (BACKBONES, PointNet2SASSG), (BACKBONES, PAConvSASSG),
-                   (BACKBONES, MultiBackbone),
+                   (BACKBONES, MultiBackbone), (BACKBONES, SSTv2),
+                   (BACKBONES, SRABlock), (BACKBONES, SSTv2Sparse),
+                   (MIDDLE_ENCODERS, SSTInputLayerV2),
                    (NECKS, GeneralizedLSSFPN), (NECKS, SECONDFPN),
                    (NECKS, FPN), (NECKS, YOLOXPAFPN),
                    (FUSION_LAYERS, PointFusion),

@@ -2,8 +2,9 @@
 ``isfusion_tpu/models/dense_heads/transfusion_head.py``): shared conv ->
 dense class heatmap -> 3x3 max-pool NMS -> top-``num_proposals`` queries
 with a class embedding -> transformer decoder layer(s) -> FFN branches ->
-NMS-free, score-fused decode (``get_bboxes``), or Hungarian targets and
-the focal / L1 / gaussian-focal losses (``loss``).
+score-fused decode (``get_bboxes``; NMS-free, or per-task circle or rotate
+NMS by ``test_cfg['nms_type']``), or Hungarian targets and the focal / L1 /
+gaussian-focal losses (``loss``).
 
 The JAX head's stop-gradients sit at the same places: the proposal top-k
 reads a detached heatmap, each decoder layer's query positions are the
@@ -28,6 +29,7 @@ from torch import nn
 
 from ...core.bbox.assigners import HungarianAssigner3D
 from ...core.bbox.coders import TransFusionBBoxCoder
+from ...ops.box_ops import circle_nms_mask, nms_bev_mask
 from ...ops.gaussian import draw_heatmap_gaussian_batch, gaussian_radius
 from ...ops.hungarian import assign_batch
 from ..layers import BatchNorm, Conv1x1, Conv2d, ConvModule, resolve_dtype
@@ -188,11 +190,10 @@ class TransFusionHeadV2(nn.Module):
         return preds
 
     def get_bboxes(self, preds: dict) -> dict:
-        """NMS-free decode of the last layer's proposals -> (B, P) boxes,
-        scores (zeroed outside ``post_center_range``), labels, mask."""
-        if self.test_cfg.get("nms_type") is not None:
-            raise NotImplementedError(
-                "the port's predict path is NMS-free (nms_type=None)")
+        """Decode of the last layer's proposals -> (B, P) boxes, scores
+        (zeroed outside ``post_center_range`` and where suppressed),
+        labels, mask; NMS-free unless ``test_cfg['nms_type']`` is set
+        (``_task_nms``)."""
         p, nc = self.num_proposals, self.num_classes
         score = torch.sigmoid(preds["heatmap"][:, -p:])
         one_hot = torch.nn.functional.one_hot(preds["query_labels"], nc)
@@ -205,9 +206,44 @@ class TransFusionHeadV2(nn.Module):
             torch.zeros(score.shape[:2] + (2,), dtype=score.dtype,
                         device=score.device))
         mask = self.bbox_coder.valid_mask(d["bboxes"], d["scores"])
-        return dict(bboxes=d["bboxes"],
-                    scores=torch.where(mask, d["scores"], 0.0),
-                    labels=d["labels"], mask=mask)
+        scores = torch.where(mask, d["scores"], 0.0)
+        if self.test_cfg.get("nms_type") is not None:
+            scores, mask = self._task_nms(d["bboxes"], scores, d["labels"],
+                                          mask)
+        return dict(bboxes=d["bboxes"], scores=scores, labels=d["labels"],
+                    mask=mask)
+
+    def _task_nms(self, bboxes, scores, labels, mask):
+        """Per-task NMS (``get_bboxes:1344-1401``; the JAX head's): each
+        task's class group with its radius (``circle``: K10-circle, the
+        radius passed raw as the squared-distance threshold, the
+        reference's ``box3d_nms.py:181`` quirk) or IoU threshold
+        (``rotate``: K10-NMS on the BEV boxes); radius <= 0 keeps the whole
+        group. One launch a task for the batch; nuScenes' tasks by
+        default."""
+        nms_type = self.test_cfg["nms_type"]
+        tasks = self.test_cfg.get("tasks")
+        if tasks is None:
+            tasks = [dict(indices=list(range(8)), radius=-1),
+                     dict(indices=[8], radius=0.175),
+                     dict(indices=[9], radius=0.175)]
+        b, p = scores.shape
+        for task in tasks:
+            radius = float(task.get("radius", -1))
+            if radius <= 0:
+                continue
+            in_task = torch.isin(labels, torch.tensor(
+                list(task["indices"]), device=labels.device))
+            if nms_type == "circle":
+                keep = circle_nms_mask(bboxes[..., :2], scores, radius,
+                                       mask & in_task)
+            else:
+                keep = nms_bev_mask(bboxes[..., [0, 1, 3, 4, 6]],
+                                    scores.view(b, 1, p), radius,
+                                    (mask & in_task).view(b, 1, p))[:, 0]
+            mask = torch.where(in_task, keep, mask)
+            scores = torch.where(mask, scores, 0.0)
+        return scores, mask
 
     # ------------------------------------------------------------ targets
     def get_targets(self, preds: dict, gt_bboxes: torch.Tensor,

@@ -70,6 +70,10 @@ SIGNATURES = {
     "paconv_bank": ([_P, _P], _I),
     "paconv_bank_scratch": ([_LL, _LL, _LL, _LL, _LL], _LL),
     "paconv_score": ([_P, _P], _I),
+    # K17: SST's window partition and token moves (ops/sst_window.py)
+    "sst_partition": ([_P, _P], _I),
+    "sst_partition_scratch": ([_LL, _LL, _LL, _LL], _LL),
+    "sst_move": ([_P, _P], _I),
     # no kernel of a path: the floor of one launch, timed by chip_smoke.py
     "empty_launch": ([_P], _I),
 }
@@ -78,14 +82,15 @@ SIGNATURES = {
 # kernel without the vertical overlap; K10-circle's route past its
 # one-launch size shares its source; K14-FPS's cluster size and
 # K14-gather's and K14-ball's scratch words (queries, no launch); K15's
-# two kernels and K15-bank's scratch query share one source
+# two kernels and K15-bank's scratch query share one source, as K17's do
 SOURCES = {"boxes_iou_bev": "boxes_iou_3d",
            "nms_circle_pairwise": "nms_circle",
            "fps_cluster": "furthest_point_sample",
            "point_gather_scratch": "point_gather",
            "ball_query_scratch": "ball_query",
            "paconv_bank": "paconv", "paconv_bank_scratch": "paconv",
-           "paconv_score": "paconv"}
+           "paconv_score": "paconv", "sst_partition": "sst_window",
+           "sst_partition_scratch": "sst_window", "sst_move": "sst_window"}
 
 # launches per kernel, and "segment_layout": the lists that K1's list stage
 # built for a K2 caller that passed none (ops/voxel.py:segment_layout);

@@ -32,17 +32,14 @@ scratch (``paconv_bank_scratch`` floats), summed in a fixed order.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import struct
-import threading
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .pointnet_ops import _fn, _launched, _on_card, _stream
+from .pointnet_ops import _call, _fn, _on_card
 from ..models.layers import BatchNorm, MaskedBatchNorm
 
 _BANK_FWD, _BANK_GRAD_X, _BANK_GRAD_W = 0, 1, 2
@@ -90,26 +87,6 @@ def assign_kernel_withoutk(features: torch.Tensor, kernels: torch.Tensor,
 
 
 # --------------------------------------------------------------- kernels
-_PACK = {n: struct.Struct(f"{n}q").pack_into for n in (12, 17)}
-_ARGS = threading.local()
-
-
-def _call(name: str, stream_of: torch.Tensor, *args) -> None:
-    """One call of ``name`` with its int64 arguments packed into a buffer
-    of this thread (tensors as their data pointers, None as 0); a generic
-    packer, as K15's calls are few and long (K14-gather keeps its own
-    unrolled one, ``pointnet_ops._gather_call``)."""
-    n = len(args)
-    buf = getattr(_ARGS, f"buf{n}", None)
-    if buf is None:
-        arr = (ctypes.c_longlong * n)()
-        buf = (arr, ctypes.addressof(arr))
-        setattr(_ARGS, f"buf{n}", buf)
-    _PACK[n](buf[0], 0, *[0 if a is None else a.data_ptr()
-                          if torch.is_tensor(a) else int(a) for a in args])
-    _launched(name, _fn(name)(buf[1], _stream(stream_of)))
-
-
 @functools.lru_cache(maxsize=256)
 def _bank_scratch(op: int, r: int, c: int, m: int, o: int) -> int:
     return _fn("paconv_bank_scratch")(op, r, c, m, o)

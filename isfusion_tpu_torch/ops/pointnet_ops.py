@@ -282,6 +282,8 @@ def interpolation_weights(dists: torch.Tensor, eps: float = 1e-8
 # --------------------------------------------------------------- kernels
 _RAW_STREAM = None
 _FNS = {}
+# each thread's argument buffers (the calls' int64 arguments)
+_ARGS = threading.local()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -300,6 +302,25 @@ def _fn(name: str):
     if fn is None:
         fn = _FNS[name] = getattr(cuda_build.load(name), name)
     return fn
+
+
+def _call(name: str, stream_of: torch.Tensor, *args) -> None:
+    """One call of ``name`` with its int64 arguments packed into a buffer
+    of this thread (tensors as their data pointers, None as 0): the
+    generic packer of K15's and K17's calls, which are few and long
+    (K14-gather keeps its own unrolled one, ``_gather_call``)."""
+    n = len(args)
+    bufs = getattr(_ARGS, "bufs", None)
+    if bufs is None:
+        bufs = _ARGS.bufs = {}
+    buf = bufs.get(n)
+    if buf is None:
+        arr = (ctypes.c_longlong * n)()
+        buf = bufs[n] = (arr, ctypes.addressof(arr),
+                         struct.Struct(f"{n}q").pack_into)
+    buf[2](buf[0], 0, *[0 if a is None else a.data_ptr()
+                        if torch.is_tensor(a) else int(a) for a in args])
+    _launched(name, _fn(name)(buf[1], _stream(stream_of)))
 
 
 def _launched(name: str, err: int, count: int = 1) -> None:
@@ -491,7 +512,6 @@ _FORWARD, _BACKWARD, _WEIGHT_GRAD = 0, 1, 2
 
 
 _PACK = struct.Struct("12q").pack_into
-_ARGS = threading.local()
 
 
 def _gather_call(op: int, a, b, idx, w, scratch, out, rows: int, j: int,

@@ -201,3 +201,26 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     if not (data.requires_grad and torch.is_grad_enabled()):
         return _reduce(2, data, ptr, order)
     return _SegmentMeanKernel.apply(data, ids, ptr, order)
+
+
+def group_ranks(ids: torch.Tensor, valid: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """(N,) int ids -> (N,) int32 0-based rank of each element within its
+    id group, in increasing index order (a stable sort's); invalid
+    elements get rank 0 (``isfusion_tpu/ops/scatter.py:102 group_ranks``,
+    the reference's ``ingroup_inds``). The JAX function's invalid rows
+    carry their distance from the last valid group's start, which no
+    caller reads."""
+    if valid is None:
+        valid = torch.ones_like(ids, dtype=torch.bool)
+    n = ids.shape[0]
+    key = torch.where(valid, ids.long(), torch.iinfo(torch.int64).max)
+    order = torch.argsort(key, stable=True)
+    srt = key[order]
+    pos = torch.arange(n, device=ids.device)
+    start = torch.ones(n, dtype=torch.bool, device=ids.device)
+    start[1:] = srt[1:] != srt[:-1]
+    first = torch.cummax(torch.where(start, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - first
+    return torch.where(valid, rank, 0).to(torch.int32)

@@ -1,7 +1,9 @@
 """Carry the JAX package's IS-Fusion, PointPillars, CenterPoint, MVX-Net,
 FCOS3D, VoxelNet, TransFusion-L, PartA2, SSN, FreeAnchor, ImVoxelNet,
 VoteNet, H3DNet, MultiBackbone, SSD3DNet, GroupFree3DNet and ImVoteNet
-variables into the port's state_dict.
+variables, and SST backbones' (SSTv2, SSTv2Sparse, SRABlock; dot-product or
+scaled-cosine attention, the latter's ``tau`` as it is), into the port's
+state_dict.
 
 ``state_dict_from_jax(variables)`` takes ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays (what ``jax.device_get`` gives) and
@@ -103,6 +105,14 @@ import torch
 
 _YOLOX = dict(reduce="reduce_layers", downsample="downsamples",
               out="out_convs")
+
+
+def _sst_layer(m) -> str:
+    """An SST layer's reference name from a ``block{b}_layer{l}`` or
+    ``encoder_{i}`` match."""
+    if m[1] is None:
+        return f"pts_backbone.encoder_list.{m[2]}"
+    return f"pts_backbone.block_list.{m[1]}.encoder_list.{m[2]}"
 
 
 def _csp(name: str) -> str:
@@ -245,6 +255,16 @@ _RULES = [
      "fusion_encoder.instance_to_scene_att.multihead_attn", _ATTN),
     (r"fusion_encoder_m/instance_to_scene_att/norm",
      "fusion_encoder.instance_to_scene_att.norm", "norm"),
+    # SST as a backbone: SSTv2 / SSTv2Sparse layers ``block{b}_layer{l}``
+    # and SRABlock's ``encoder_{i}`` take the reference BasicShiftBlockV2's
+    # ``block_list.{b}.encoder_list.{l}`` / ``encoder_list.{i}``
+    (r"pts_backbone_m/linear0", "pts_backbone.linear0", "dense"),
+    (r"pts_backbone_m/(?:block(\d+)_layer|encoder_)(\d+)/win_attn",
+     lambda m: _sst_layer(m) + ".win_attn.self_attn", _ATTN),
+    (r"pts_backbone_m/(?:block(\d+)_layer|encoder_)(\d+)/(linear[12])",
+     lambda m: f"{_sst_layer(m)}.{m[3]}", "dense"),
+    (r"pts_backbone_m/(?:block(\d+)_layer|encoder_)(\d+)/(norm[12])",
+     lambda m: f"{_sst_layer(m)}.{m[3]}", "norm"),
     # ---------------------------------------------------------- 2D BEV
     (r"pts_backbone_m/ds_layer/Conv_0", "pts_backbone.ds_layer.0", "conv2d"),
     (r"pts_backbone_m/ds_layer/bn", "pts_backbone.ds_layer.1", "norm"),
@@ -659,6 +679,9 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
                     attn.setdefault(key, {})[f"{path[-2]}/{leaf}"] = v
                     continue
             key, kind = _resolve(_module_path(path[:-1]))
+            if kind == _ATTN:          # the cosine attention's ``tau``
+                sd[f"{key}.{leaf}"] = v
+                continue
             if kind == "norm":
                 sd[f"{key}.{_NORM_LEAF[leaf]}"] = v
                 if leaf == "mean":

@@ -7,8 +7,9 @@ that K1 (dynamic voxelization) is held on, ``pinned_choices``, which
 makes two runs of one detector take the same discrete choices,
 ``pooled_sync_norms``, the one-card reference of a data-parallel step,
 ``recording_eval_ious``, which keeps the KITTI evaluator's IoU
-inputs, and ``point_op_sets`` and ``fps_large_cloud``, the clouds that
-K14 (the PointNet++ ops) is held on."""
+inputs, ``point_op_sets`` and ``fps_large_cloud``, the clouds that
+K14 (the PointNet++ ops) is held on, and ``sst_partition_sets``, the
+voxel sets that K17 (SST's window partition and moves) is held on."""
 from __future__ import annotations
 
 import contextlib
@@ -1170,3 +1171,82 @@ def indoor_positives(model, batch: dict, dev, shift: float = 0.06) -> dict:
             boxes[b, g, :2] = c[:2]
             boxes[b, g, 2] = c[2] - boxes[b, g, 5] / 2
     return dict(batch, gt_bboxes_3d=boxes)
+
+
+SST_WAYMO_TRAIN_DROP = (
+    {"max_tokens": 30, "drop_range": (0, 30)},
+    {"max_tokens": 60, "drop_range": (30, 60)},
+    {"max_tokens": 100, "drop_range": (60, 100000)})
+
+
+def _sst_voxels(rng, grid, v: int, n: int, clusters: int = 0,
+                z_layers: int = 1):
+    """(V, 3) int32 zyx of n unique (y, x) cells of ``grid`` (x, y, z)
+    among V rows (clusters: that many discs crowded with cells first),
+    random z below ``z_layers``; the V - n invalid rows hold garbage
+    coordinates, some outside the grid. Returns (coords, valid)."""
+    sx, sy, _ = grid
+    cells = []
+    for _ in range(clusters):
+        c = rng.uniform((0, 0), (sx, sy))
+        xy = np.round(c + rng.normal(0, 4.0, (400, 2))).astype(np.int64)
+        ok = (xy >= 0).all(1) & (xy[:, 0] < sx) & (xy[:, 1] < sy)
+        cells.append(xy[ok, 1] * sx + xy[ok, 0])
+    cells.append(rng.permutation(sx * sy))
+    lin = pd_unique(np.concatenate(cells))[:n]
+    coords = rng.integers(-5, max(sx, sy) + 5, (v, 3)).astype(np.int32)
+    valid = np.zeros(v, bool)
+    rows = rng.choice(v, len(lin), replace=False)
+    valid[rows] = True
+    coords[rows] = np.stack([rng.integers(0, z_layers, len(lin)),
+                             lin // sx, lin % sx], -1)
+    return coords, valid
+
+
+def pd_unique(a: np.ndarray) -> np.ndarray:
+    """``a``'s distinct values in order of first appearance."""
+    _, first = np.unique(a, return_index=True)
+    return a[np.sort(first)]
+
+
+def sst_partition_sets(seed: int = 0) -> dict:
+    """name -> (coords (B, V, 3) int32, valid (B, V) bool, cfg): voxel
+    sets for K17 (cfg: ``sparse_shape``, ``window_shape``, ``drop_info``,
+    ``win_caps``): random cells at SST's Waymo levels, clustered cells
+    (every level, tokens dropped), a masked batch (one sample with no
+    valid voxel), several samples, caps that bind, 3-D windows over
+    several z layers (unique (y, x) cells), a 2-D window spanning z, one
+    voxel."""
+    rng = np.random.default_rng(seed)
+    waymo = dict(sparse_shape=(200, 150, 1), window_shape=(12, 12, 1),
+                 drop_info=SST_WAYMO_TRAIN_DROP, win_caps=None)
+
+    def batch(cfg, specs, z_layers=1):
+        out = [_sst_voxels(rng, cfg["sparse_shape"], *s, z_layers=z_layers)
+               for s in specs]
+        return (np.stack([c for c, _ in out]), np.stack([m for _, m in out]),
+                cfg)
+
+    return {
+        "random": batch(waymo, [(4000, 3000), (4000, 2500)]),
+        "clustered": batch(waymo, [(6000, 5000, 12), (6000, 4000, 8)]),
+        "masked": batch(waymo, [(3000, 2000, 4), (3000, 0)]),
+        "multi_sample": batch(waymo, [(1500, n, 3) for n in
+                                      (1500, 1000, 700, 1, 1200)]),
+        "cap_binding": batch(dict(waymo, win_caps=(9, 3, 2)),
+                             [(5000, 4000, 10), (5000, 3000, 6)]),
+        "three_d": batch(dict(sparse_shape=(60, 40, 5),
+                              window_shape=(6, 6, 2), drop_info=(
+                                  {"max_tokens": 8, "drop_range": (0, 10)},
+                                  {"max_tokens": 14,
+                                   "drop_range": (10, 100000)}),
+                              win_caps=None),
+                         [(1500, 1200, 4), (1500, 900)], z_layers=5),
+        "window_2d": batch(dict(sparse_shape=(60, 40, 3),
+                                window_shape=(8, 8), drop_info=(
+                                    {"max_tokens": 64,
+                                     "drop_range": (0, 100000)},),
+                                win_caps=None),
+                           [(1200, 1000, 3)], z_layers=3),
+        "one_voxel": batch(waymo, [(1, 1)]),
+    }

@@ -61,7 +61,15 @@ K15-bank and K15-score forward and every gradient within 1e-5 of the max
 of the plain version's float64 values on adversarial sets (zero rows, M
 = 1, O off the tiles, odd C, one row; repeated indices, a row named by
 every slot, rows named by none), the gradients bit-equal over two calls;
-the tiny segmentors on the card against the CPU as the tiny VoteNet.
+the tiny segmentors on the card against the CPU as the tiny VoteNet. K17
+(``ops/sst_window.py``): the partition bit-equal to its plain version on
+``testing.sst_partition_sets`` (random, clustered, masked, several
+samples, binding caps, 3-D and 2-D windows, one voxel; both shifts), the
+three moves' forward and gradients equal to plain autograd (rows of 16-,
+10- and 6-byte widths, float32 and bfloat16); the tiny SSTv2Sparse on the
+card against the CPU as the tiny VoteNet (canvas and gradients 1e-3 of
+their max); TransFusionHeadV2's per-task circle and rotate NMS on the card
+against the CPU (masks equal, scores 1e-6).
 """
 import contextlib
 
@@ -2252,3 +2260,167 @@ def test_k15_tiny_segmentors_on_card_match_cpu(card):
         assert float((lg - lc).abs().max()) <= 1e-3 * float(lc.abs().max())
         assert abs(sg - sc) <= 1e-4 * abs(sc)
         assert float((gg - gc).abs().max()) <= 1e-3 * float(gc.abs().max())
+
+
+# ------------------------------------------------------------------ K17
+SST_SETS = ("random", "clustered", "masked", "multi_sample", "cap_binding",
+            "three_d", "window_2d", "one_voxel")
+
+
+def _sst_set(name):
+    from isfusion_tpu_torch.testing import sst_partition_sets
+    coords, valid, cfg = sst_partition_sets()[name]
+    return torch.from_numpy(coords), torch.from_numpy(valid), cfg
+
+
+def _sst_part(coords, valid, cfg, shift, ref=False):
+    from isfusion_tpu_torch.ops import sst_window as sw
+    args = (coords, valid, cfg["sparse_shape"], cfg["window_shape"],
+            cfg["drop_info"])
+    if ref:
+        caps = sw.level_caps(cfg["drop_info"], cfg["win_caps"],
+                             coords.shape[1], sw.num_windows(
+                                 cfg["sparse_shape"], cfg["window_shape"]))
+        return sw.sst_partition_ref(*args, caps, shift)
+    return sw.sst_partition(*args, cfg["win_caps"], shift)
+
+
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("name", SST_SETS)
+def test_k17_partition_matches_plain_version(card, name, shift):
+    """K17-part: every output bit-equal to the plain version's on the
+    CPU (one launch-call)."""
+    coords, valid, cfg = _sst_set(name)
+    got = _launched("sst_partition", lambda: _sst_part(
+        coords.to(card), valid.to(card), cfg, shift))
+    want = _sst_part(coords, valid, cfg, shift, ref=True)
+    assert got.levels == want.levels and got.canvas == want.canvas
+    for f in got._fields:
+        a = getattr(got, f)
+        if torch.is_tensor(a):
+            assert torch.equal(a.cpu(), getattr(want, f)), (name, f)
+
+
+@pytest.mark.parametrize("dtype,c", [("float32", 128), ("float32", 5),
+                                     ("bfloat16", 128), ("bfloat16", 3)])
+@pytest.mark.parametrize("name", ["clustered", "multi_sample",
+                                  "cap_binding", "three_d"])
+def test_k17_moves_match_plain_autograd(card, name, dtype, c):
+    """K17-move ops 0-2 (rows of 16-, 10- and 6-byte widths): forward and
+    every input's gradient equal to the plain versions under autograd on
+    the card, one launch a forward and a backward."""
+    from isfusion_tpu_torch.ops import sst_window as sw
+    coords, valid, cfg = _sst_set(name)
+    part = _sst_part(coords.to(card), valid.to(card), cfg, True)
+    gen = torch.Generator(card).manual_seed(3)
+    b, v = valid.shape
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(
+            getattr(torch, dtype))
+
+    feats = rand(b, v, c)
+    toks = [rand(b, cap, t, c) for t, cap in part.levels]
+    cases = (("flat_to_window", lambda f, ts: sw.flat_to_window(f, part),
+              lambda f, ts: sw.flat_to_window_ref(f, part)),
+             ("window_to_flat",
+              lambda f, ts: [sw.window_to_flat(ts, part, f)],
+              lambda f, ts: [sw.window_to_flat_ref(ts, part, f)]),
+             ("flat_to_canvas", lambda f, ts: [sw.flat_to_canvas(f, part)],
+              lambda f, ts: [sw.flat_to_canvas_ref(f, part)]))
+    for op, fn, ref in cases:
+        res = []
+        for f_ in (fn, ref):
+            f = feats.clone().requires_grad_(True)
+            ts = [t.clone().requires_grad_(True) for t in toks]
+            before = cuda_build.LAUNCHES["sst_move"]
+            y = f_(f, ts)
+            gs = [rand(*t.shape) for t in y] if not res else res[0][2]
+            torch.autograd.backward(y, gs)
+            torch.cuda.synchronize()
+            res.append((y, [f.grad] + [t.grad for t in ts], gs,
+                        cuda_build.LAUNCHES["sst_move"] - before))
+        (y, g, _, n), (yr, gr, _, nr) = res
+        assert nr == 0 and n == (3 if op == "window_to_flat" else 2), op
+        for a, b_ in zip(y, yr):
+            assert torch.equal(a, b_), op
+        for a, b_ in zip(g, gr):
+            assert (a is None) == (b_ is None) or not b_.any(), op
+            if a is not None:
+                assert torch.equal(a, b_), op
+        with torch.no_grad():
+            half = fn(feats, toks)
+        for a, b_ in zip(half, y):
+            assert torch.equal(a, b_), op
+
+
+def test_k17_sst_on_card_matches_cpu(card):
+    """The tiny SSTv2Sparse (two drop levels) on the card against the CPU
+    from the same weights and inputs, float32 with TF32 off: canvas and
+    every gradient within 1e-3 of the max; K17 in forward and backward."""
+    from isfusion_tpu_torch import flagship
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = []
+    for d in ("cuda", "cpu"):
+        model, batch_fn = flagship.build_sst_sparse("tiny", device=d, seed=1)
+        inputs = flagship.sst_sparse_inputs(batch_fn(2, seed=2), "tiny", 16,
+                                            "cpu", seed=3)
+        before = dict(cuda_build.LAUNCHES)
+        out = model(*(t.to(d) for t in inputs))
+        (out ** 2).sum().backward()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_build.LAUNCHES["sst_partition"] == \
+                before["sst_partition"] + 4
+            assert cuda_build.LAUNCHES["sst_move"] > before["sst_move"] + 4
+        res.append((out.detach().cpu(), torch.cat([
+            p.grad.cpu().flatten() for p in model.parameters()])))
+    (oc, gc), (o, g) = res
+    assert float((oc - o).abs().max()) <= 1e-3 * float(o.abs().max())
+    assert float((gc - g).abs().max()) <= 1e-3 * float(g.abs().max())
+
+
+@pytest.mark.parametrize("nms_type", ["circle", "rotate"])
+def test_transfusion_nms_on_card_matches_cpu(card, nms_type):
+    """TransFusionHeadV2.get_bboxes with per-task NMS on the card against
+    the CPU: masks and labels equal, scores within 1e-6; one K10-circle
+    or K10-NMS launch a task with a radius."""
+    from isfusion_tpu_torch.models.dense_heads.transfusion_head import \
+        TransFusionHeadV2
+    gen = np.random.default_rng(5)
+    b, p, nc = 2, 200, 10
+    preds = dict(heatmap=gen.normal(size=(b, p, nc)),
+                 center=gen.uniform(60, 120, (b, p, 2)),
+                 height=gen.normal(size=(b, p, 1)),
+                 dim=np.log(gen.uniform(0.5, 2.5, (b, p, 3))),
+                 rot=gen.normal(size=(b, p, 2)),
+                 vel=gen.normal(size=(b, p, 2)),
+                 query_heatmap_score=gen.uniform(0.1, 1.0, (b, p, nc)))
+    preds = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in preds.items()}
+    preds["query_labels"] = torch.from_numpy(gen.choice(
+        [0, 1, 8, 9], (b, p))).long()
+    common = dict(pc_range=[-54.0, -54.0], voxel_size=[0.075, 0.075],
+                  out_size_factor=8)
+    coder = dict(type="TransFusionBBoxCoder", **common,
+                 post_center_range=[-61.2, -61.2, -10, 61.2, 61.2, 10],
+                 score_threshold=0.0, code_size=10)
+    tasks = [dict(indices=[0, 1], radius=0.7), dict(indices=[8], radius=0.175),
+             dict(indices=[9], radius=0.175)]
+    head = TransFusionHeadV2(num_proposals=p, num_classes=nc, in_channels=8,
+                             hidden_channel=8, num_decoder_layers=1,
+                             num_heads=2, ffn_channel=8, bbox_coder=coder,
+                             test_cfg=dict(nms_type=nms_type, tasks=tasks,
+                                           **common))
+    kernel = "nms_circle" if nms_type == "circle" else "nms_bev"
+    before = cuda_build.LAUNCHES[kernel]
+    got = head.get_bboxes({k: v.to(card) for k, v in preds.items()})
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[kernel] == before + 3
+    want = head.get_bboxes(preds)
+    for key in ("mask", "labels"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert float((got["scores"].cpu() - want["scores"]).abs().max()) <= 1e-6
+    head.test_cfg = dict(common)
+    free = head.get_bboxes(preds)
+    assert (free["mask"] & ~want["mask"]).any()      # NMS suppressed boxes
